@@ -1,0 +1,36 @@
+"""Single CLI entrypoint of the PyTorch port —
+``python -m tensorflow_distributed_tpu_torch.cli``.
+
+Examples:
+    # GPT-2-small training on one GPU (the flash kernels build on first
+    # use into build/torch_ext/):
+    python -m tensorflow_distributed_tpu_torch.cli --mode train \
+        --model gpt_lm --model-size small --seq-len 1024 --batch-size 8 \
+        --train-steps 30 --eval-every 0 --eval-batch-size 8
+
+    # the same path on the CPU (plain versions of the kernels), tiny:
+    python -m tensorflow_distributed_tpu_torch.cli --model-size tiny \
+        --seq-len 64 --batch-size 8 --train-steps 5 --eval-batch-size 8 \
+        --compute-dtype float32 --device cpu
+
+Flags share the JAX CLI's spellings; flags the port does not parse yet
+are rejected (ROADMAP.md queue A lists what is still to come).
+"""
+
+from __future__ import annotations
+
+import sys
+from typing import Optional, Sequence
+
+from tensorflow_distributed_tpu_torch.config import parse_args
+from tensorflow_distributed_tpu_torch.train.loop import train
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    cfg = parse_args(argv)
+    train(cfg)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,139 @@
+"""Run configuration of the PyTorch port: the subset of the JAX
+package's ``TrainConfig`` that slice 1 runs, with the same flag
+spellings, plus ``--device``.
+
+The port keeps its own copy of the JAX ``config.py`` dataclass-to-argparse
+helper. Flags of the JAX CLI that the port does not parse yet are
+rejected with an error that points at ROADMAP.md, never ignored.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import typing
+from typing import Optional, Sequence
+
+SCHEDULES = ("constant", "cosine", "warmup_cosine")
+OPTIMIZERS = ("adam", "sgd")
+COMPUTE_DTYPES = ("bfloat16", "float32")
+MODEL_SIZES = ("", "small", "medium", "large", "xl", "tiny")
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    """One training job of the port (gpt_lm on one device)."""
+
+    # --- model -----------------------------------------------------------
+    model: str = "gpt_lm"
+    # GPT-2 ladder size ("small" ... "xl") or "tiny"; empty = "small".
+    model_size: str = ""
+    dropout_rate: float = 0.25
+    # bfloat16 matmuls (the flash kernels need bf16; float32 runs only
+    # with --device cpu); params/optimizer f32.
+    compute_dtype: str = "bfloat16"
+
+    # --- data (synthetic causal-LM stream) --------------------------------
+    # Sequence length: the data window AND the model's max_len
+    # (0 = the family default, 128).
+    seq_len: int = 0
+    # Vocabulary of the synthetic token stream, and of the model built
+    # over it when set; 0 = a 64-token stream under the size's vocab.
+    synthetic_vocab: int = 0
+    batch_size: int = 256
+    shuffle_seed: int = 0
+
+    # --- optimization ----------------------------------------------------
+    optimizer: str = "adam"  # adam (adamw when weight_decay > 0) | sgd
+    learning_rate: float = 1e-3
+    lr_schedule: str = "constant"  # constant | cosine | warmup_cosine
+    warmup_steps: int = 0
+    weight_decay: float = 0.0
+    grad_clip_norm: Optional[float] = None
+    label_smoothing: float = 0.0
+    train_steps: int = 500
+
+    # --- eval / logging --------------------------------------------------
+    eval_every: int = 100
+    eval_batch_size: int = 1000
+    log_every: int = 10
+    log_grad_norm: bool = False
+
+    # --- misc ------------------------------------------------------------
+    seed: int = 0
+    mode: str = "train"  # train (the only mode ported so far)
+    # Where the run executes: "cuda" (default; fails if no GPU) or "cpu"
+    # (the plain versions of the kernels; tests).
+    device: str = "cuda"
+
+    def validate(self) -> None:
+        def todo(what: str) -> NotImplementedError:
+            return NotImplementedError(
+                f"{what} is not ported to PyTorch yet (see ROADMAP.md "
+                f"queue A)")
+
+        if self.mode != "train":
+            raise todo(f"--mode {self.mode}")
+        if self.model != "gpt_lm":
+            raise todo(f"--model {self.model}")
+        if self.optimizer not in OPTIMIZERS:
+            raise todo(f"--optimizer {self.optimizer}")
+        if self.model_size not in MODEL_SIZES:
+            raise ValueError(f"model_size {self.model_size!r}; have "
+                             f"{MODEL_SIZES}")
+        if self.lr_schedule not in SCHEDULES:
+            raise ValueError(f"unknown lr_schedule {self.lr_schedule!r}")
+        if self.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype {self.compute_dtype!r}; have "
+                             f"{COMPUTE_DTYPES}")
+        if self.device != "cpu" and not self.device.startswith("cuda"):
+            raise ValueError(f"device {self.device!r}; have cpu | cuda[:N]")
+        if self.device != "cpu" and self.compute_dtype != "bfloat16":
+            raise todo(f"--compute-dtype {self.compute_dtype} on a GPU (the "
+                       f"flash kernels take bfloat16)")
+        for name in ("batch_size", "eval_batch_size"):
+            if getattr(self, name) <= 0:
+                raise ValueError(f"{name} must be > 0")
+        for name in ("train_steps", "eval_every", "log_every", "seq_len",
+                     "synthetic_vocab", "warmup_steps"):
+            if getattr(self, name) < 0:
+                raise ValueError(f"{name} must be >= 0")
+        if not 0.0 <= self.dropout_rate < 1.0:
+            raise ValueError("dropout_rate must be in [0, 1)")
+
+
+def _add_dataclass_args(parser: argparse.ArgumentParser, cls) -> None:
+    """One ``--flag`` per dataclass field (underscores become dashes),
+    typed from the field's default — the JAX config's helper."""
+    hints = typing.get_type_hints(cls)
+    for f in dataclasses.fields(cls):
+        ftype = hints.get(f.name, str)
+        name = f"--{f.name}".replace("_", "-")
+        default = f.default
+        if ftype is bool or isinstance(default, bool):
+            parser.add_argument(
+                name, default=default,
+                type=lambda s: s.lower() in ("1", "true", "yes"))
+        elif default is None:
+            parser.add_argument(name, type=float, default=None)
+        else:
+            parser.add_argument(name, type=type(default), default=default)
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> TrainConfig:
+    """Build a TrainConfig from CLI args. A flag the port does not parse
+    (any other flag of the JAX CLI) exits with an error naming
+    ROADMAP.md."""
+    parser = argparse.ArgumentParser(
+        prog="tensorflow_distributed_tpu_torch",
+        description="PyTorch/CUDA port of tensorflow_distributed_tpu "
+        "(slice 1: GPT causal-LM training on one GPU)",
+        allow_abbrev=False)
+    _add_dataclass_args(parser, TrainConfig)
+    ns, unknown = parser.parse_known_args(argv)
+    if unknown:
+        parser.error(f"not ported to PyTorch yet: {' '.join(unknown)} "
+                     f"(see ROADMAP.md queue A)")
+    cfg = TrainConfig(**vars(ns))
+    cfg.validate()
+    return cfg

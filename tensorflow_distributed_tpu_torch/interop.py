@@ -1,0 +1,52 @@
+"""Weights carried across from the JAX package.
+
+``params_from_flax`` maps the param tree that the JAX ``gpt_lm`` builds
+(a nested dict of numpy arrays, e.g. ``jax.device_get(state.params)``)
+to a state dict of the port's ``CausalLM``. Names mirror each other
+(``layer_0/attn/qkv/kernel`` -> ``layer_0.attn.qkv.weight``); the
+kernels change layout:
+
+- flax Dense kernels are ``[in, out]``, torch Linear weights ``[out, in]``;
+- the attention ``qkv`` DenseGeneral kernel ``[D, 3, H, dh]`` (bias
+  ``[3, H, dh]``) flattens its output axes, and ``out`` ``[H, dh, D]``
+  flattens its two contracted input axes.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def _walk(tree: Mapping[str, Any], prefix=()):
+    for key, value in tree.items():
+        path = prefix + (str(key),)
+        if isinstance(value, Mapping):
+            yield from _walk(value, path)
+        else:
+            yield path, np.asarray(value)
+
+
+def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax param tree (numpy leaves) -> the port's state dict (f32 CPU
+    tensors)."""
+    out = {}
+    for path, leaf in _walk(tree):
+        *module, name = path
+        if name == "kernel":
+            # DenseGeneral "out" contracts two input axes ([H, dh, D]);
+            # every other kernel contracts one.
+            n_in = 2 if module[-1] == "out" else 1
+            rows = int(np.prod(leaf.shape[:n_in]))
+            value = leaf.reshape(rows, -1).T
+        elif name in ("embedding", "scale"):
+            value = leaf
+        elif name == "bias":
+            value = leaf.reshape(-1)
+        else:
+            raise ValueError(f"unknown flax leaf {'/'.join(path)}")
+        key = ".".join(module + ["weight" if name != "bias" else "bias"])
+        out[key] = torch.tensor(np.asarray(value, dtype=np.float32))
+    return out

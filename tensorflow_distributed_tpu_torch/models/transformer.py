@@ -1,0 +1,251 @@
+"""GPT-style causal transformer LM: the training (``decode=False``) path
+of ``models/transformer.py``, in PyTorch.
+
+Numerics follow the flax model:
+
+- params stay f32 and are cast to the compute dtype at each dense layer
+  (flax ``dtype=``); the residual stream is in the compute dtype;
+- LayerNorm runs in f32 with eps 1e-6 (flax's default);
+- the MLP nonlinearity is tanh-approximated GELU (flax ``nn.gelu``'s
+  default);
+- logits are cast to f32 at the end.
+
+Parameter names mirror the flax tree (``layer_0.attn.qkv`` for
+``layer_0/attn/qkv``), so ``interop.params_from_flax`` is a fixed
+renaming plus the kernel reshapes. Options of the JAX config that this
+slice does not run raise ``NotImplementedError`` instead of being
+ignored.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tensorflow_distributed_tpu_torch.ops.flash_attention import attention
+
+LN_EPS = 1e-6  # flax nn.LayerNorm default
+INIT_STD = 0.02  # the JAX _dense_init (BERT-style normal)
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    vocab_size: int = 30522
+    d_model: int = 768
+    n_layers: int = 12
+    n_heads: int = 12
+    d_ff: int = 3072
+    max_len: int = 512
+    dropout_rate: float = 0.1
+    compute_dtype: torch.dtype = torch.bfloat16
+    causal: bool = False             # autoregressive (GPT) vs bidirectional
+    # Sliding-window attention: attend to the last attn_window positions
+    # (0 = full causal). The kernels implement it.
+    attn_window: int = 0
+    # Options of the JAX model this port does not run yet (ROADMAP.md
+    # queue A); any value but the default raises.
+    remat: bool = False
+    pos_emb: str = "learned"
+    tie_embeddings: bool = False
+    n_kv_heads: Optional[int] = None
+    mlp_variant: str = "gelu"
+    norm: str = "layernorm"
+    moe_experts: int = 0
+    kv_cache_quant: str = "none"
+    shard_vocab: bool = False
+
+
+_NOT_PORTED = {"remat": False, "pos_emb": "learned",
+               "tie_embeddings": False, "mlp_variant": "gelu",
+               "norm": "layernorm", "moe_experts": 0,
+               "kv_cache_quant": "none", "shard_vocab": False}
+
+
+def _check_ported(cfg: TransformerConfig) -> None:
+    for name, default in _NOT_PORTED.items():
+        if getattr(cfg, name) != default:
+            raise NotImplementedError(
+                f"TransformerConfig.{name}={getattr(cfg, name)!r} is not "
+                f"ported to PyTorch yet (see ROADMAP.md queue A)")
+    if cfg.n_kv_heads not in (None, 0, cfg.n_heads):
+        raise NotImplementedError(
+            "grouped-query attention (n_kv_heads) is not ported to "
+            "PyTorch yet (see ROADMAP.md queue A)")
+
+
+def tiny_config(**overrides) -> TransformerConfig:
+    """Small config for tests: same code paths, toy scale."""
+    base = TransformerConfig(vocab_size=64, d_model=32, n_layers=2,
+                             n_heads=4, d_ff=64, max_len=128,
+                             dropout_rate=0.0, compute_dtype=torch.float32)
+    return dataclasses.replace(base, **overrides)
+
+
+def gpt2_small_config(**overrides) -> TransformerConfig:
+    """GPT-2-small (12L x 768d x 12H, learned positions, pre-LN)."""
+    return dataclasses.replace(
+        TransformerConfig(vocab_size=50257, d_model=768, n_layers=12,
+                          n_heads=12, d_ff=3072, max_len=1024,
+                          causal=True),
+        **overrides)
+
+
+# The GPT-2 ladder (Radford et al. 2019 table 2): d_ff = 4 * d_model;
+# head dim 64.
+GPT2_SIZES = {
+    "small": dict(d_model=768, n_layers=12, n_heads=12, d_ff=3072),
+    "medium": dict(d_model=1024, n_layers=24, n_heads=16, d_ff=4096),
+    "large": dict(d_model=1280, n_layers=36, n_heads=20, d_ff=5120),
+    "xl": dict(d_model=1600, n_layers=48, n_heads=25, d_ff=6400),
+}
+
+
+def _dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype):
+    """flax Dense(dtype=...): input, kernel and bias cast to ``dtype``."""
+    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+
+
+def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
+    """flax LayerNorm(dtype=f32): statistics and output in f32."""
+    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias,
+                        ln.eps)
+
+
+def _dropout(x: torch.Tensor, rate: float, train: bool,
+             generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax nn.Dropout: keep with probability 1 - rate, scale kept
+    values by 1 / (1 - rate); drawn from the caller's generator."""
+    if not train or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training needs a torch.Generator")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                           device=x.device))
+
+
+class SelfAttention(nn.Module):
+    def __init__(self, cfg: TransformerConfig):
+        super().__init__()
+        self.cfg = cfg
+        h, dh = cfg.n_heads, cfg.d_model // cfg.n_heads
+        # flax DenseGeneral kernels: qkv [D, 3, H, dh], out [H, dh, D];
+        # here flattened to Linear's [out, in].
+        self.qkv = nn.Linear(cfg.d_model, 3 * h * dh)
+        self.out = nn.Linear(h * dh, cfg.d_model)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        B, L, _ = x.shape
+        h, dh = cfg.n_heads, cfg.d_model // cfg.n_heads
+        qkv = _dense(x, self.qkv, cfg.compute_dtype).view(B, L, 3, h, dh)
+        q, k, v = qkv.unbind(dim=2)
+        out = attention(q, k, v, causal=cfg.causal, window=cfg.attn_window)
+        return _dense(out.reshape(B, L, h * dh), self.out, cfg.compute_dtype)
+
+
+class Mlp(nn.Module):
+    def __init__(self, cfg: TransformerConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.up = nn.Linear(cfg.d_model, cfg.d_ff)
+        self.down = nn.Linear(cfg.d_ff, cfg.d_model)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = self.cfg.compute_dtype
+        x = F.gelu(_dense(x, self.up, dtype), approximate="tanh")
+        return _dense(x, self.down, dtype)
+
+
+class Block(nn.Module):
+    """Pre-LN transformer block."""
+
+    def __init__(self, cfg: TransformerConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.ln1 = nn.LayerNorm(cfg.d_model, eps=LN_EPS)
+        self.attn = SelfAttention(cfg)
+        self.ln2 = nn.LayerNorm(cfg.d_model, eps=LN_EPS)
+        self.mlp = Mlp(cfg)
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        cfg = self.cfg
+        y = self.attn(_layer_norm(x, self.ln1).to(cfg.compute_dtype))
+        x = x + _dropout(y, cfg.dropout_rate, train, generator)
+        y = self.mlp(_layer_norm(x, self.ln2).to(cfg.compute_dtype))
+        return x + _dropout(y, cfg.dropout_rate, train, generator)
+
+
+class _LmHead(nn.Linear):
+    """The untied output projection (flax ``lm_head``: kernel [D, V] and
+    bias [V]; here Linear's [V, D] weight)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _dense(x, self, x.dtype)
+
+
+class TransformerLM(nn.Module):
+    """Transformer LM backbone: tokens [B, L] int -> logits [B, L, V] f32."""
+
+    def __init__(self, cfg: TransformerConfig):
+        super().__init__()
+        _check_ported(cfg)
+        self.cfg = cfg
+        self.tok_emb = nn.Embedding(cfg.vocab_size, cfg.d_model)
+        self.pos_emb = nn.Embedding(cfg.max_len, cfg.d_model)
+        for i in range(cfg.n_layers):
+            self.add_module(f"layer_{i}", Block(cfg))
+        self.ln_f = nn.LayerNorm(cfg.d_model, eps=LN_EPS)
+        self.lm_head = _LmHead(cfg.d_model, cfg.vocab_size)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        """The flax initializers: normal(0.02) for kernels and embedding
+        tables, zeros for biases, ones/zeros for LayerNorm, drawn in
+        module order from ``generator``."""
+        for module in self.modules():
+            if isinstance(module, (nn.Linear, nn.Embedding)):
+                module.weight.normal_(0.0, INIT_STD, generator=generator)
+            elif isinstance(module, nn.LayerNorm):
+                module.weight.fill_(1.0)
+            if isinstance(module, (nn.Linear, nn.LayerNorm)):
+                module.bias.zero_()
+
+    def forward(self, tokens: torch.Tensor, *, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        cfg = self.cfg
+        B, L = tokens.shape
+        if L > cfg.max_len:
+            raise ValueError(f"sequence length {L} > max_len {cfg.max_len}")
+        positions = torch.arange(L, device=tokens.device)
+        x = (self.tok_emb(tokens) + self.pos_emb(positions)[None]).to(
+            cfg.compute_dtype)
+        for i in range(cfg.n_layers):
+            x = getattr(self, f"layer_{i}")(x, train, generator)
+        x = _layer_norm(x, self.ln_f)
+        return self.lm_head(x.to(cfg.compute_dtype)).float()
+
+
+class CausalLM(TransformerLM):
+    """Decoder-only autoregressive LM (the GPT family). Construct with a
+    ``causal=True`` config (gpt_lm enforces it)."""
+
+
+def gpt_lm(size: str = "small", **overrides) -> CausalLM:
+    """GPT-style decoder-only LM. ``size``: the GPT-2 ladder
+    (GPT2_SIZES) or "tiny" (test scale); ``overrides`` are
+    TransformerConfig fields."""
+    overrides["causal"] = True
+    if size in GPT2_SIZES:
+        cfg = gpt2_small_config(**{**GPT2_SIZES[size], **overrides})
+    elif size == "tiny":
+        cfg = tiny_config(**overrides)
+    else:
+        raise ValueError(f"gpt_lm size {size!r}; have "
+                         f"({', '.join(GPT2_SIZES)}, tiny)")
+    return CausalLM(cfg)

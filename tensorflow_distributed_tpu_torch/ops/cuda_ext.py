@@ -1,0 +1,77 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each ``csrc/*.cu`` source exports a plain C interface and is compiled by
+``nvcc`` for Hopper (``sm_90a``) into a shared library under
+``build/torch_ext/`` at the repository root, then loaded with ctypes.
+The library name carries a hash of the source and the flags, so an
+edited source rebuilds instead of loading a stale library. Nothing is
+built at import time: the first kernel launch (or :func:`load`) builds.
+
+Sources stay free of PyTorch's headers on purpose: a plain C interface
+compiles in seconds, where a source that includes ``torch/extension.h``
+takes minutes, and every fresh checkout builds anew.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Tuple
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# name -> (library, compiler output of the build, or "" when cached)
+_LOADED: Dict[str, Tuple[ctypes.CDLL, str]] = {}
+
+
+def nvcc_path() -> str:
+    """The nvcc that builds the kernels: PATH first, then the CUDA home
+    that ``torch.utils.cpp_extension`` detects."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError(
+        "nvcc not found (PATH or CUDA_HOME): the port's CUDA kernels are "
+        "built from source at first use and need the CUDA toolkit")
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The shared library built from ``csrc/<name>.cu`` (built on first
+    call in this process, or reused from ``build/torch_ext/``)."""
+    if name not in _LOADED:
+        src = CSRC / f"{name}.cu"
+        digest = hashlib.sha256(
+            src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        lib_path = BUILD_DIR / f"lib{name}_{digest}.so"
+        log = ""
+        if not lib_path.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = lib_path.with_suffix(f".tmp{os.getpid()}")
+            proc = subprocess.run(
+                [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                capture_output=True, text=True, check=False)
+            log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src}:\n{log}")
+            os.replace(tmp, lib_path)
+        _LOADED[name] = (ctypes.CDLL(str(lib_path)), log)
+    return _LOADED[name][0]
+
+
+def build_log(name: str) -> str:
+    """What nvcc (with ``-Xptxas -v``: registers, shared memory and
+    spills per kernel) printed when :func:`load` built ``name`` in this
+    process; empty when the library came from the build directory."""
+    load(name)
+    return _LOADED[name][1]

@@ -1,0 +1,139 @@
+"""PyTorch port: data, losses, config and the train loop against the JAX
+package.
+
+The headline check runs the JAX ``train()`` and the port's ``train()``
+for 5 steps of the tiny GPT (f32, dropout 0, same seed, the port started
+from the JAX init via ``interop.params_from_flax``): the per-step losses
+agree to 1e-4. The CLI then runs end to end on the CPU.
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from tensorflow_distributed_tpu.config import TrainConfig as JaxConfig
+from tensorflow_distributed_tpu.data import lm as jlm
+from tensorflow_distributed_tpu.ops import losses as jlosses
+from tensorflow_distributed_tpu.parallel import make_mesh
+from tensorflow_distributed_tpu.train import loop as jloop
+from tensorflow_distributed_tpu.train.tasks import make_task as jax_make_task
+from tensorflow_distributed_tpu_torch import cli, interop
+from tensorflow_distributed_tpu_torch.config import TrainConfig, parse_args
+from tensorflow_distributed_tpu_torch.data import lm as tlm
+from tensorflow_distributed_tpu_torch.ops import losses as tlosses
+from tensorflow_distributed_tpu_torch.train import loop as tloop
+from tensorflow_distributed_tpu_torch.utils.logging import MetricLogger
+
+TINY = dict(model="gpt_lm", model_size="tiny", seq_len=32, batch_size=8,
+            train_steps=5, eval_every=0, log_every=1, eval_batch_size=8,
+            compute_dtype="float32", dropout_rate=0.0, learning_rate=3e-3,
+            seed=0)
+
+
+def _losses(logger):
+    return [r.metrics["loss"] for r in logger.records if "loss" in r.metrics]
+
+
+def test_five_step_loss_trajectory_matches_jax_train():
+    jcfg = JaxConfig(**TINY)
+    jres = jloop.train(jcfg, logger=MetricLogger(enabled=False))
+    # The JAX run's init, rebuilt the way its train() built it.
+    mesh = make_mesh(jcfg.mesh)
+    _, jstate = jloop._build_model_and_state(jcfg, mesh,
+                                             jax_make_task(jcfg, mesh))
+    init = interop.params_from_flax(jax.device_get(jstate.params))
+
+    tres = tloop.train(TrainConfig(**TINY, device="cpu"),
+                       logger=MetricLogger(enabled=False), init_params=init)
+    np.testing.assert_allclose(_losses(tres.logger), _losses(jres.logger),
+                               atol=1e-4)
+    assert len(_losses(tres.logger)) == 5
+    np.testing.assert_allclose(tres.final_metrics["loss"],
+                               jres.final_metrics["loss"], atol=1e-4)
+    assert tres.state.step == 5
+
+
+def test_cli_trains_end_to_end_on_cpu(capsys):
+    argv = ["--mode", "train", "--model", "gpt_lm", "--model-size", "tiny",
+            "--seq-len", "64", "--batch-size", "8", "--train-steps", "4",
+            "--eval-every", "2", "--eval-batch-size", "8", "--log-every",
+            "1", "--compute-dtype", "float32", "--device", "cpu"]
+    assert cli.main(argv) == 0
+    out = capsys.readouterr().out
+    assert '"event": "done"' in out and "val_loss" in out
+    assert out.count("[step") == 4 + 2  # 4 train records, 2 eval records
+
+
+def test_parse_args_spellings_and_defaults():
+    cfg = parse_args(["--model-size", "small", "--seq-len", "1024",
+                      "--grad-clip-norm", "1", "--log-grad-norm", "true",
+                      "--device", "cpu"])
+    assert (cfg.model, cfg.model_size, cfg.seq_len) == ("gpt_lm", "small",
+                                                        1024)
+    assert cfg.grad_clip_norm == 1.0 and cfg.log_grad_norm
+    jcfg = JaxConfig()
+    for name in ("dropout_rate", "batch_size", "learning_rate",
+                 "eval_batch_size", "eval_every", "log_every",
+                 "train_steps", "compute_dtype", "optimizer"):
+        assert getattr(TrainConfig(), name) == getattr(jcfg, name), name
+
+
+@pytest.mark.parametrize("argv", [["--mesh.data", "8"], ["--ce-chunk", "8"],
+                                  ["--dataset", "text"], ["--remat", "dots"]])
+def test_unported_jax_flags_are_rejected(argv, capsys):
+    with pytest.raises(SystemExit):
+        parse_args(argv)
+    assert "ROADMAP" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("fields", [dict(model="mnist_cnn"),
+                                    dict(mode="serve"),
+                                    dict(optimizer="adafactor"),
+                                    dict(compute_dtype="float32")])
+def test_unported_values_raise(fields):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TrainConfig(**fields).validate()
+
+
+def test_cuda_device_without_cuda_fails_loudly():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        tloop.resolve_device("cuda")
+
+
+def test_synthetic_clm_and_batches_match_jax():
+    jds = jlm.synthetic_clm(n=64, seq_len=20, vocab_size=50, seed=3)
+    tds = tlm.synthetic_clm(n=64, seq_len=20, vocab_size=50, seed=3)
+    for f in ("tokens", "targets", "mask"):
+        np.testing.assert_array_equal(getattr(tds, f), getattr(jds, f))
+    jb = jlm.LmBatcher(jds, 16, seed=5).forever(2)
+    tb = tlm.LmBatcher(tds, 16, seed=5).forever(2)
+    for _ in range(6):  # crosses an epoch boundary
+        a, b = next(jb), next(tb)
+        for k in a:
+            np.testing.assert_array_equal(b[k], a[k])
+
+
+@pytest.mark.parametrize("smoothing", [0.0, 0.1])
+def test_masked_losses_match_jax(smoothing):
+    rng = np.random.default_rng(2)
+    logits = rng.normal(size=(3, 7, 11)).astype(np.float32)
+    logits[0, 0, [2, 5]] = 9.0  # a tie: both take the first max
+    targets = rng.integers(0, 11, size=(3, 7)).astype(np.int32)
+    targets[0, 0] = 2
+    mask = (rng.random((3, 7)) < 0.6).astype(np.float32)
+    mask[0, 0] = 1.0
+    t = [torch.tensor(x) for x in (logits, targets, mask)]
+    for got, want in zip(tlosses.masked_ce_sums(*t, smoothing),
+                         jlosses.masked_ce_sums(logits, targets, mask,
+                                                smoothing)):
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+    np.testing.assert_allclose(
+        float(tlosses.masked_softmax_cross_entropy(*t, smoothing)),
+        float(jlosses.masked_softmax_cross_entropy(logits, targets, mask,
+                                                   smoothing)), rtol=1e-6)
+    np.testing.assert_allclose(
+        float(tlosses.masked_accuracy(*t)),
+        float(jlosses.masked_accuracy(logits, targets, mask)), rtol=1e-6)

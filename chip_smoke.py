@@ -9,8 +9,9 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
 
 1. device  — the card (nvidia-smi name and power limit), torch, CUDA,
              and whether nvcc and ninja are on the machine;
-2. build   — compiles the flash-attention kernels from
-             ``tensorflow_distributed_tpu_torch/ops/csrc`` (sm_90a);
+2. build   — compiles the flash-attention and fused-CE kernels from
+             ``tensorflow_distributed_tpu_torch/ops/csrc`` (sm_90a), one
+             nvcc per source, started together;
 3. kernels — each kernel (forward, dQ, dK/dV) against its plain PyTorch
              version computed in f32 from the same bf16 inputs, at
              B=8 H=12 L=1024 D=64 (causal, non-causal, causal + window
@@ -18,11 +19,24 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
              (CUDA events) beside the bound, the plain version and
              ``scaled_dot_product_attention`` (forward, fwd+bwd, and
              its flash backward alone) as yardsticks;
-4. model   — a small GPT (head dim 64) on the card in bf16 through the
-             kernels against the same weights on the CPU in f32;
-5. train   — GPT-2-small training through the port's CLI path
+4. ce_kernels — each fused-CE kernel (forward, dx, dW/db) against its
+             plain PyTorch version computed in f32 from the same bf16
+             inputs, at GPT-2-small's head (T 8192, D 768, V 50257; with
+             bias at eps 0 and 0.1, and without bias), at D 1024 and on a
+             ragged case; median times over 20 launches beside the bound,
+             the plain version and the dense head + cross-entropy
+             (forward, fwd+bwd) as yardsticks;
+5. model   — a small GPT (head dim 64) on the card in bf16 through the
+             kernels against the same weights on the CPU in f32: the
+             dense head, then the fused head+loss through the CE kernels,
+             untied and tied;
+6. train   — GPT-2-small training through the port's CLI path
              (seq 1024, batch 8, 30 steps, final eval): finite, falling
-             loss and every kernel launched by the run.
+             loss and every flash kernel launched by the run;
+7. train_fused — the same run with ``--ce-chunk 8192 --ce-impl kernel``
+             (final eval through the scan formulation): finite, falling
+             loss, the first step's loss within 1e-2 of the dense run's,
+             each CE kernel launched once per step.
 
 It then prints the nvidia-smi line, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -40,6 +54,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and dense
@@ -51,6 +66,18 @@ BF16_FLOPS_PER_S = 989e12
 TOL_O = 2e-2        # max abs error of the bf16 output
 TOL_LSE = 1e-3      # max abs error of the f32 logsumexp
 TOL_GRAD = 2e-2     # max abs error / max |reference| of dQ, dK, dV
+# Fused-CE kernels vs their plain versions (plain computed in f32 from
+# the same bf16 inputs; the kernels round dlogits to bf16 before the dx
+# and dW products, as the scan formulation does).
+TOL_CE = 1e-3       # max abs error of ce and lse (f32)
+TOP2_GAP = 1e-2     # `correct` must agree where the top-2 logit gap exceeds it
+TOL_CE_GRAD = 2e-2  # max abs error / max |reference| of dx and dW
+TOL_DB = 1e-3       # max abs error / max |reference| of db
+TOL_FIRST_LOSS = 1e-2  # fused vs dense first-step loss (same seed/batches)
+CE_MAIN = dict(T=8192, D=768, V=50257, bias=True, eps=0.0)
+CE_CASES = [CE_MAIN, dict(CE_MAIN, eps=0.1), dict(CE_MAIN, bias=False),
+            dict(T=2048, D=1024, V=50257, bias=True, eps=0.0),
+            dict(T=1000, D=768, V=179, bias=True, eps=0.1)]
 # Model check: bf16 kernels on the card vs f32 plain path on the CPU.
 TOL_MODEL = 5e-2    # max abs error / max |reference|, logits and grads
 MAIN = dict(B=8, H=12, L=1024, D=64)
@@ -62,10 +89,15 @@ TRAIN_ARGV = ["--mode", "train", "--model", "gpt_lm", "--model-size", "small",
               "--seq-len", "1024", "--batch-size", "8", "--train-steps", "30",
               "--eval-every", "0", "--eval-batch-size", "8",
               "--compute-dtype", "bfloat16", "--log-every", "1"]
-SOURCE = "tensorflow_distributed_tpu_torch/ops/csrc/flash_attention.cu"
-TPU_SOURCE = "tensorflow_distributed_tpu/ops/flash_attention.py"
-REPLACES = {"flash_fwd": f"{TPU_SOURCE}:183", "flash_dq": f"{TPU_SOURCE}:255",
-            "flash_dkv": f"{TPU_SOURCE}:284"}
+TRAIN_FUSED_ARGV = TRAIN_ARGV + ["--ce-chunk", "8192", "--ce-impl", "kernel"]
+CSRC = "tensorflow_distributed_tpu_torch/ops/csrc"
+SOURCES = {"flash_attention": f"{CSRC}/flash_attention.cu",
+           "fused_ce": f"{CSRC}/fused_ce.cu"}
+TPU_FLASH = "tensorflow_distributed_tpu/ops/flash_attention.py"
+TPU_CE = "tensorflow_distributed_tpu/ops/fused_ce_kernel.py"
+REPLACES = {"flash_fwd": f"{TPU_FLASH}:183", "flash_dq": f"{TPU_FLASH}:255",
+            "flash_dkv": f"{TPU_FLASH}:284", "fused_ce_fwd": f"{TPU_CE}:84",
+            "fused_ce_dx": f"{TPU_CE}:147", "fused_ce_dw": f"{TPU_CE}:172"}
 
 
 def emit(obj) -> None:
@@ -156,13 +188,16 @@ def phase_device(torch) -> str:
     return gpu
 
 
-def phase_build(fa) -> None:
+def phase_build(fa, fce) -> None:
+    """Both libraries, one nvcc each, started together."""
     t0 = time.time()
-    log = fa.build()
-    ptxas = [ln.strip() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        logs = dict(zip(("flash_attention", "fused_ce"),
+                        pool.map(lambda mod: mod.build(), (fa, fce))))
     emit({"phase": "build", "seconds": round(time.time() - t0, 3),
-          "ptxas": ptxas})
+          "ptxas": {name: [ln.strip() for ln in log.splitlines()
+                           if "registers" in ln or "spill" in ln]
+                    for name, log in logs.items()}})
 
 
 def phase_kernels(fa, torch, F):
@@ -260,6 +295,129 @@ def phase_kernels(fa, torch, F):
     return results
 
 
+def ce_bounds(T, D, V, bias):
+    """(bound_ms, bound_by) of each fused-CE kernel: each input read
+    once and each output written once, against the tensor-core work the
+    function needs (the logits product, plus the dx or dW product)."""
+    x, w, rows = T * D * 2, V * D * 2, T * 4
+    b = V * 4 if bias else 0
+    inputs = x + w + b + rows  # + targets
+    return {
+        "fused_ce_fwd": bound(inputs + 3 * rows, 2 * T * D * V),
+        "fused_ce_dx": bound(inputs + 2 * rows + x, 4 * T * D * V),
+        "fused_ce_dw": bound(inputs + 2 * rows + V * D * 4 + b,
+                             4 * T * D * V),
+    }
+
+
+def phase_ce_kernels(fce, torch, F):
+    """Correctness of every case; times at the main (training) case."""
+    results = {}
+    for i, case in enumerate(CE_CASES):
+        T, D, V, eps = case["T"], case["D"], case["V"], case["eps"]
+        gen = torch.Generator(device="cuda").manual_seed(100 + i)
+        x = torch.randn((T, D), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        w = (0.05 * torch.randn((V, D), generator=gen, device="cuda")).to(
+            torch.bfloat16)
+        b = (0.1 * torch.randn(V, generator=gen, device="cuda")
+             if case["bias"] else None)
+        t = torch.randint(0, V, (T,), generator=gen, device="cuda",
+                          dtype=torch.int32)
+        coef = torch.rand(T, generator=gen, device="cuda")
+        ce, correct, lse = fce.fused_ce_fwd(x, w, b, t, V, eps)
+        dx = fce.fused_ce_dx(x, w, b, t, lse, coef, V, eps)
+        dw, db = fce.fused_ce_dw(x, w, b, t, lse, coef, V, eps)
+        torch.cuda.synchronize()
+        ref_ce, ref_correct, ref_lse = fce.fused_ce_fwd_reference(
+            x, w, b, t, V, eps)
+        ref_dx = fce.fused_ce_dx_reference(x, w, b, t, lse, coef, V, eps)
+        ref_dw, ref_db = fce.fused_ce_dw_reference(x, w, b, t, lse, coef,
+                                                   V, eps)
+        logits = x.float() @ w.float().T + (0.0 if b is None else b)
+        top2 = logits.topk(2, dim=-1).values
+        decided = (top2[:, 0] - top2[:, 1]) > TOP2_GAP
+        del logits, top2
+
+        def abs_err(a, ref):
+            return float((a.float() - ref.float()).abs().max())
+
+        def rel_err(a, ref):
+            return abs_err(a, ref) / float(ref.float().abs().max())
+
+        row = {"phase": "ce_kernels", **case,
+               "ce_abs_err": abs_err(ce, ref_ce),
+               "lse_abs_err": abs_err(lse, ref_lse),
+               "correct_mismatches": int((correct != ref_correct)[
+                   decided].sum()),
+               "correct_undecided": int((~decided).sum()),
+               "dx_rel_err": rel_err(dx, ref_dx),
+               "dw_rel_err": rel_err(dw, ref_dw),
+               "db_rel_err": None if b is None else rel_err(db, ref_db),
+               "dx_abs_err": abs_err(dx, ref_dx),
+               "dw_abs_err": max([abs_err(dw, ref_dw)] + (
+                   [] if b is None else [abs_err(db, ref_db)]))}
+        finite = all(bool(torch.isfinite(v).all())
+                     for v in (ce, lse, dx, dw) + (() if b is None else (db,)))
+        emit(row)
+        check(finite, f"non-finite fused-CE kernel output in case {case}")
+        check(row["ce_abs_err"] <= TOL_CE and row["lse_abs_err"] <= TOL_CE,
+              f"fused_ce_fwd ce/lse error {row}")
+        check(row["correct_mismatches"] == 0, f"fused_ce_fwd argmax {row}")
+        check(row["dx_rel_err"] <= TOL_CE_GRAD, f"fused_ce_dx error {row}")
+        check(row["dw_rel_err"] <= TOL_CE_GRAD, f"fused_ce_dw error {row}")
+        check((db is None) == (b is None), f"db without bias {row}")
+        check(b is None or row["db_rel_err"] <= TOL_DB,
+              f"fused_ce_dw db error {row}")
+        if i == 0:
+            results["errors"] = row
+            results["bounds"] = ce_bounds(T, D, V, case["bias"])
+            results["ms"] = {
+                "fused_ce_fwd": time_ms(torch, lambda: fce.fused_ce_fwd(
+                    x, w, b, t, V, eps)),
+                "fused_ce_dx": time_ms(torch, lambda: fce.fused_ce_dx(
+                    x, w, b, t, lse, coef, V, eps)),
+                "fused_ce_dw": time_ms(torch, lambda: fce.fused_ce_dw(
+                    x, w, b, t, lse, coef, V, eps)),
+            }
+            results["plain_ms"] = {
+                "fused_ce_fwd": time_ms(torch, lambda: (
+                    fce.fused_ce_fwd_reference(x, w, b, t, V, eps))),
+                "fused_ce_dx": time_ms(torch, lambda: (
+                    fce.fused_ce_dx_reference(x, w, b, t, lse, coef, V,
+                                              eps))),
+                "fused_ce_dw": time_ms(torch, lambda: (
+                    fce.fused_ce_dw_reference(x, w, b, t, lse, coef, V,
+                                              eps))),
+            }
+            # No single library call computes any of the three functions
+            # (null in the kernels line); the dense head + cross-entropy
+            # is the yardstick for the three together.
+            results["library_ms"] = dict.fromkeys(results["ms"])
+            tl, bb = t.long(), b.to(torch.bfloat16)
+            dense_fwd = time_ms(torch, lambda: F.cross_entropy(
+                F.linear(x, w, bb).float(), tl, reduction="none"))
+            xr, wr, br = (v.detach().clone().requires_grad_()
+                          for v in (x, w, bb))
+
+            def dense_fwd_bwd():
+                loss = F.cross_entropy(F.linear(xr, wr, br).float(), tl,
+                                       reduction="none")
+                torch.autograd.grad(loss, (xr, wr, br), coef)
+
+            emit({"phase": "ce_timing", **case, "ms": results["ms"],
+                  "plain_ms": results["plain_ms"],
+                  "dense_fwd_ms": dense_fwd,
+                  "dense_fwd_bwd_ms": time_ms(torch, dense_fwd_bwd),
+                  "fused_fwd_bwd_ms": sum(results["ms"].values()),
+                  "bound_ms": {k: v[0] for k, v in results["bounds"].items()}})
+            del xr, wr, br
+        del x, w, b, t, coef, ce, correct, lse, dx, dw, db
+        del ref_ce, ref_correct, ref_lse, ref_dx, ref_dw, ref_db
+        torch.cuda.empty_cache()
+    return results
+
+
 def phase_model(fa, torch, np) -> None:
     """A small GPT through the kernels (bf16, card) against the same
     weights through the plain path (f32, CPU): logits and every grad."""
@@ -304,44 +462,128 @@ def phase_model(fa, torch, np) -> None:
           f"logits {logit_err}, grads {grad_err}")
 
 
-def phase_train(fa, torch):
+def phase_model_fused(fce, torch, np) -> None:
+    """The same small GPT through ``features_only`` and the CE kernels
+    (bf16, card) against the plain versions (f32, CPU), untied and tied:
+    the loss and every grad; each CE kernel launches once per call."""
+    from tensorflow_distributed_tpu_torch.models.transformer import gpt_lm
+
+    shape = dict(d_model=128, n_heads=2, d_ff=256, max_len=128)
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(rng.integers(0, 64, size=(4, 128)))
+    targets = torch.from_numpy(rng.integers(0, 64, size=(4, 128)))
+    mask = torch.from_numpy((rng.random((4, 128)) < 0.8).astype(np.float32))
+    for tie in (False, True):
+        ref_model = gpt_lm("tiny", compute_dtype=torch.float32,
+                           tie_embeddings=tie, **shape)
+        ref_model.init_weights(torch.Generator().manual_seed(0))
+        model = gpt_lm("tiny", compute_dtype=torch.bfloat16,
+                       tie_embeddings=tie, **shape).cuda()
+        model.load_state_dict(ref_model.state_dict())
+
+        def run(m, dev):
+            feats, w, bias = m(tokens.to(dev), features_only=True)
+            ce, _, n = fce.fused_ce_sums_kernel(
+                feats, w, bias, targets.to(dev), mask.to(dev), w.shape[0])
+            loss = ce / n
+            loss.backward()
+            return float(loss.detach()), {k: p.grad.cpu()
+                                 for k, p in m.named_parameters()}
+
+        ref_loss, ref_grads = run(ref_model, "cpu")
+        fce.reset_launch_counts()
+        loss, grads = run(model, "cuda")
+        torch.cuda.synchronize()
+        launched = {kern.name: kern.launches for kern in fce.KERNELS}
+        loss_err = abs(loss - ref_loss) / abs(ref_loss)
+        grad_err = max(float((grads[k] - g).abs().max() / g.abs().max())
+                       for k, g in ref_grads.items()
+                       if float(g.abs().max()) > 0)
+        emit({"phase": "model_fused", "tie_embeddings": tie,
+              "loss_rel_err": loss_err, "grads_rel_err": grad_err,
+              "kernel_launches": launched, "tolerance": TOL_MODEL})
+        check(all(n == 1 for n in launched.values()),
+              f"fused model check did not launch each CE kernel once: "
+              f"{launched}")
+        check(loss_err <= TOL_MODEL and grad_err <= TOL_MODEL,
+              f"fused model on the card disagrees with the plain path: "
+              f"loss {loss_err}, grads {grad_err}")
+
+
+def run_train(kernels, torch, phase, argv, dense=None):
+    """One training run through the port's CLI path, every launch count
+    set to 0 just before it and read just after. Checks what every run
+    must show (finite, falling loss; a final eval) and returns its
+    record (``launches`` and the loss trajectory included)."""
     from tensorflow_distributed_tpu_torch.config import parse_args
     from tensorflow_distributed_tpu_torch.train.loop import train
     from tensorflow_distributed_tpu_torch.utils.logging import MetricLogger
 
-    cfg = parse_args(TRAIN_ARGV)
+    cfg = parse_args(argv)
     torch.cuda.reset_peak_memory_stats()
-    fa.reset_launch_counts()
+    for kern in kernels:
+        kern.launches = 0
     t0 = time.time()
     result = train(cfg, logger=MetricLogger(stream=sys.stderr))
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {kern.name: kern.launches for kern in fa.KERNELS}
+    launches = {kern.name: kern.launches for kern in kernels}
     records = [r for r in result.logger.records if "loss" in r.metrics]
     losses = [r.metrics["loss"] for r in records]
     times = [r.wall_time for r in records]
     step_s = [b - a for a, b in zip(times, times[1:])][4:]  # steps 6..30
     step_ms = statistics.median(step_s) * 1e3
     tokens = cfg.batch_size * cfg.seq_len
-    n_layers, steps = 12, cfg.train_steps
-    emit({"phase": "train", "argv": TRAIN_ARGV, "steps": len(losses),
-          "first_loss": losses[0], "last5_mean_loss": statistics.mean(
-              losses[-5:]),
-          "step_ms_median": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
-          "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-          "eval": result.final_metrics, "launches": launches,
-          "wall_s": round(wall, 3)})
-    check(len(losses) == steps, f"expected {steps} loss records")
-    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    rec = {"phase": phase, "argv": argv, "steps": len(losses),
+           "first_loss": losses[0],
+           "last5_mean_loss": statistics.mean(losses[-5:]),
+           "step_ms_median": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "eval": result.final_metrics, "launches": launches,
+           "wall_s": round(wall, 3)}
+    if dense is not None:
+        rec["dense"] = {k: dense[k] for k in (
+            "first_loss", "step_ms_median", "tokens_per_s", "peak_mem_bytes")}
+    emit(rec)
+    check(len(losses) == cfg.train_steps,
+          f"{phase}: expected {cfg.train_steps} loss records")
+    check(all(math.isfinite(x) for x in losses),
+          f"{phase}: non-finite loss {losses}")
     check(statistics.mean(losses[-5:]) < losses[0],
-          f"loss did not fall: {losses}")
+          f"{phase}: loss did not fall: {losses}")
     check(math.isfinite(result.final_metrics.get("loss", math.nan)),
-          "final eval did not run")
-    check(launches["flash_dq"] == n_layers * steps
-          and launches["flash_dkv"] == n_layers * steps
-          and launches["flash_fwd"] >= n_layers * steps,
-          f"the run did not go through every kernel: {launches}")
-    return launches
+          f"{phase}: final eval did not run")
+    return rec
+
+
+def phase_train(kernels, torch):
+    rec = run_train(kernels, torch, "train", TRAIN_ARGV)
+    n, launches = 12 * 30, rec["launches"]
+    check(launches["flash_dq"] == n and launches["flash_dkv"] == n
+          and launches["flash_fwd"] >= n,
+          f"the run did not go through every flash kernel: {launches}")
+    check(all(launches[k] == 0 for k in ("fused_ce_fwd", "fused_ce_dx",
+                                         "fused_ce_dw")),
+          f"the dense run launched a fused-CE kernel: {launches}")
+    return rec
+
+
+def phase_train_fused(kernels, torch, dense):
+    """The tentpole command: the dense run with the head and loss fused
+    into the CE kernels (eval by the scan formulation, no kernel)."""
+    rec = run_train(kernels, torch, "train_fused", TRAIN_FUSED_ARGV, dense)
+    launches = rec["launches"]
+    check(all(launches[k] == 30 for k in ("fused_ce_fwd", "fused_ce_dx",
+                                          "fused_ce_dw")),
+          f"the fused run did not launch each CE kernel once per step: "
+          f"{launches}")
+    check(all(launches[k] == dense["launches"][k]
+              for k in ("flash_fwd", "flash_dq", "flash_dkv")),
+          f"flash launches differ from the dense run: {launches}")
+    check(abs(rec["first_loss"] - dense["first_loss"]) <= TOL_FIRST_LOSS,
+          f"first-step loss {rec['first_loss']} vs dense "
+          f"{dense['first_loss']}")
+    return rec
 
 
 def main() -> int:
@@ -356,30 +598,42 @@ def main() -> int:
     sys.path.insert(0, REPO)
     try:
         from tensorflow_distributed_tpu_torch.ops import flash_attention as fa
+        from tensorflow_distributed_tpu_torch.ops import fused_ce_kernel as fce
     except ImportError as e:
         fail(f"the port's package is not beside chip_smoke.py: {e}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    kernels = fa.KERNELS + fce.KERNELS
 
     gpu = phase_device(torch)
-    phase_build(fa)
-    kern = phase_kernels(fa, torch, F)
+    phase_build(fa, fce)
+    flash = phase_kernels(fa, torch, F)
+    ce = phase_ce_kernels(fce, torch, F)
     phase_model(fa, torch, np)
-    launches = phase_train(fa, torch)
+    phase_model_fused(fce, torch, np)
+    dense = phase_train(kernels, torch)
+    fused = phase_train_fused(kernels, torch, dense)
 
+    err = {"flash_fwd": flash["errors"]["o_abs_err"],
+           "flash_dq": flash["errors"]["dq_abs_err"],
+           "flash_dkv": flash["errors"]["dkv_abs_err"],
+           "fused_ce_fwd": max(ce["errors"]["ce_abs_err"],
+                               ce["errors"]["lse_abs_err"]),
+           "fused_ce_dx": ce["errors"]["dx_abs_err"],
+           "fused_ce_dw": ce["errors"]["dw_abs_err"]}
     rows = []
-    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
-        err = kern["errors"]
-        max_abs = {"flash_fwd": err["o_abs_err"],
-                   "flash_dq": err["dq_abs_err"],
-                   "flash_dkv": err["dkv_abs_err"]}[name]
-        bound_ms, bound_by = kern["bounds"][name]
-        rows.append({"name": name, "route": "cuda", "source": SOURCE,
-                     "replaces": REPLACES[name], "launches": launches[name],
-                     "max_abs_err": max_abs, "ms": kern["ms"][name],
-                     "plain_ms": kern["plain_ms"][name], "bound_ms": bound_ms,
+    for kern in kernels:
+        name = kern.name
+        res, run = (flash, dense) if name.startswith("flash") else (ce, fused)
+        bound_ms, bound_by = res["bounds"][name]
+        rows.append({"name": name, "route": "cuda",
+                     "source": SOURCES[kern.library],
+                     "replaces": REPLACES[name],
+                     "launches": run["launches"][name],
+                     "max_abs_err": err[name], "ms": res["ms"][name],
+                     "plain_ms": res["plain_ms"][name], "bound_ms": bound_ms,
                      "bound_by": bound_by,
-                     "library_ms": kern["library_ms"][name]})
+                     "library_ms": res["library_ms"][name]})
     print(gpu, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -2,9 +2,10 @@
 GPUs.
 
 The JAX package stays the reference this port is held against; nothing
-here imports JAX or the JAX package. Slice 1 covers GPT-2-style
-causal-LM training on one GPU (``python -m
-tensorflow_distributed_tpu_torch.cli --mode train --model gpt_lm``), with
-attention on hand-written CUDA flash-attention kernels
-(``ops/csrc/flash_attention.cu``).
+here imports JAX or the JAX package. It covers GPT-2-style causal-LM
+training on one GPU (``python -m tensorflow_distributed_tpu_torch.cli
+--mode train --model gpt_lm``), with attention on hand-written CUDA
+flash-attention kernels (``ops/csrc/flash_attention.cu``) and, with
+``--ce-chunk``, the head and loss fused into hand-written CUDA kernels
+(``ops/csrc/fused_ce.cu``).
 """

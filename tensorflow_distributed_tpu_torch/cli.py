@@ -8,6 +8,13 @@ Examples:
         --model gpt_lm --model-size small --seq-len 1024 --batch-size 8 \
         --train-steps 30 --eval-every 0 --eval-batch-size 8
 
+    # the same run with the head and loss fused into the fused-CE
+    # kernels (the [8192, 50257] logits are never written; --ce-impl scan
+    # runs the chunk loop instead, --tie-embeddings true ties the head):
+    python -m tensorflow_distributed_tpu_torch.cli --mode train \
+        --model gpt_lm --model-size small --seq-len 1024 --batch-size 8 \
+        --ce-chunk 8192 --ce-impl kernel
+
     # the same path on the CPU (plain versions of the kernels), tiny:
     python -m tensorflow_distributed_tpu_torch.cli --model-size tiny \
         --seq-len 64 --batch-size 8 --train-steps 5 --eval-batch-size 8 \

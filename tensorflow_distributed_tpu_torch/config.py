@@ -1,5 +1,5 @@
 """Run configuration of the PyTorch port: the subset of the JAX
-package's ``TrainConfig`` that slice 1 runs, with the same flag
+package's ``TrainConfig`` that the port runs, with the same flag
 spellings, plus ``--device``.
 
 The port keeps its own copy of the JAX ``config.py`` dataclass-to-argparse
@@ -17,6 +17,7 @@ from typing import Optional, Sequence
 SCHEDULES = ("constant", "cosine", "warmup_cosine")
 OPTIMIZERS = ("adam", "sgd")
 COMPUTE_DTYPES = ("bfloat16", "float32")
+CE_IMPLS = ("scan", "kernel")
 MODEL_SIZES = ("", "small", "medium", "large", "xl", "tiny")
 
 
@@ -32,6 +33,18 @@ class TrainConfig:
     # bfloat16 matmuls (the flash kernels need bf16; float32 runs only
     # with --device cpu); params/optimizer f32.
     compute_dtype: str = "bfloat16"
+    # Share the input embedding as the LM output projection (GPT-2
+    # style weight tying).
+    tie_embeddings: bool = False
+    # Fused head+loss: > 0 runs the head product INSIDE the loss,
+    # ce_chunk vocab columns at a time with online-softmax statistics,
+    # so the [B, L, V] logits are never materialized (ops/fused_ce.py).
+    # 0 = the dense head. 8192 is a good first value at vocab 50257.
+    ce_chunk: int = 0
+    # Fused-loss formulation when ce_chunk > 0: "scan" (the chunk loop,
+    # every shape) or "kernel" (the fused-CE CUDA kernels,
+    # ops/fused_ce_kernel.py; kernel_supported() is the authority).
+    ce_impl: str = "scan"  # scan | kernel
 
     # --- data (synthetic causal-LM stream) --------------------------------
     # Sequence length: the data window AND the model's max_len
@@ -100,6 +113,16 @@ class TrainConfig:
                 raise ValueError(f"{name} must be >= 0")
         if not 0.0 <= self.dropout_rate < 1.0:
             raise ValueError("dropout_rate must be in [0, 1)")
+        if self.ce_chunk < 0:
+            raise ValueError(
+                f"ce_chunk must be >= 0, got {self.ce_chunk}")
+        if self.ce_impl not in CE_IMPLS:
+            raise ValueError(
+                f"unknown ce_impl {self.ce_impl!r}; have {CE_IMPLS}")
+        if self.ce_impl != "scan" and not self.ce_chunk:
+            raise ValueError(
+                "ce_impl has no effect without ce_chunk > 0 (the fused "
+                "head+loss master switch); add --ce-chunk")
 
 
 def _add_dataclass_args(parser: argparse.ArgumentParser, cls) -> None:
@@ -127,7 +150,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> TrainConfig:
     parser = argparse.ArgumentParser(
         prog="tensorflow_distributed_tpu_torch",
         description="PyTorch/CUDA port of tensorflow_distributed_tpu "
-        "(slice 1: GPT causal-LM training on one GPU)",
+        "(GPT causal-LM training on one GPU)",
         allow_abbrev=False)
     _add_dataclass_args(parser, TrainConfig)
     ns, unknown = parser.parse_known_args(argv)

@@ -1,5 +1,5 @@
-"""Model registry of the PyTorch port (``gpt_lm`` only in this slice;
-the other JAX families are listed in ROADMAP.md queue A)."""
+"""Model registry of the PyTorch port (``gpt_lm`` only so far; the
+other JAX families are listed in ROADMAP.md queue A)."""
 
 from typing import Optional
 

@@ -8,12 +8,19 @@ Numerics follow the flax model:
 - LayerNorm runs in f32 with eps 1e-6 (flax's default);
 - the MLP nonlinearity is tanh-approximated GELU (flax ``nn.gelu``'s
   default);
-- logits are cast to f32 at the end.
+- logits are cast to f32 at the end;
+- ``tie_embeddings`` computes the logits as ``x @ tok_emb.weight.T`` in
+  the compute dtype and builds no ``lm_head``;
+- ``features_only=True`` hands the loss the pieces of the head instead
+  of its product: (ln_f output in the compute dtype, the [V, D] head
+  matrix, its bias or None), for the fused head+loss (ops/fused_ce.py).
+  Both heads store W as [V, D] (``lm_head.weight``, ``tok_emb.weight``),
+  so the JAX ``w_vocab_axis`` is always 0 here.
 
 Parameter names mirror the flax tree (``layer_0.attn.qkv`` for
 ``layer_0/attn/qkv``), so ``interop.params_from_flax`` is a fixed
-renaming plus the kernel reshapes. Options of the JAX config that this
-slice does not run raise ``NotImplementedError`` instead of being
+renaming plus the kernel reshapes. Options of the JAX config that the
+port does not run yet raise ``NotImplementedError`` instead of being
 ignored.
 """
 
@@ -46,11 +53,12 @@ class TransformerConfig:
     # Sliding-window attention: attend to the last attn_window positions
     # (0 = full causal). The kernels implement it.
     attn_window: int = 0
+    # Share the input embedding as the output projection (GPT-2 style).
+    tie_embeddings: bool = False
     # Options of the JAX model this port does not run yet (ROADMAP.md
     # queue A); any value but the default raises.
     remat: bool = False
     pos_emb: str = "learned"
-    tie_embeddings: bool = False
     n_kv_heads: Optional[int] = None
     mlp_variant: str = "gelu"
     norm: str = "layernorm"
@@ -59,8 +67,7 @@ class TransformerConfig:
     shard_vocab: bool = False
 
 
-_NOT_PORTED = {"remat": False, "pos_emb": "learned",
-               "tie_embeddings": False, "mlp_variant": "gelu",
+_NOT_PORTED = {"remat": False, "pos_emb": "learned", "mlp_variant": "gelu",
                "norm": "layernorm", "moe_experts": 0,
                "kv_cache_quant": "none", "shard_vocab": False}
 
@@ -201,7 +208,8 @@ class TransformerLM(nn.Module):
         for i in range(cfg.n_layers):
             self.add_module(f"layer_{i}", Block(cfg))
         self.ln_f = nn.LayerNorm(cfg.d_model, eps=LN_EPS)
-        self.lm_head = _LmHead(cfg.d_model, cfg.vocab_size)
+        if not cfg.tie_embeddings:
+            self.lm_head = _LmHead(cfg.d_model, cfg.vocab_size)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -217,7 +225,11 @@ class TransformerLM(nn.Module):
                 module.bias.zero_()
 
     def forward(self, tokens: torch.Tensor, *, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                features_only: bool = False):
+        """Logits [B, L, V] f32, or with ``features_only`` the head's
+        pieces (features [B, L, D] in the compute dtype, W [V, D], bias
+        [V] or None)."""
         cfg = self.cfg
         B, L = tokens.shape
         if L > cfg.max_len:
@@ -227,8 +239,15 @@ class TransformerLM(nn.Module):
             cfg.compute_dtype)
         for i in range(cfg.n_layers):
             x = getattr(self, f"layer_{i}")(x, train, generator)
-        x = _layer_norm(x, self.ln_f)
-        return self.lm_head(x.to(cfg.compute_dtype)).float()
+        x = _layer_norm(x, self.ln_f).to(cfg.compute_dtype)
+        if features_only:
+            if cfg.tie_embeddings:
+                return x, self.tok_emb.weight, None
+            return x, self.lm_head.weight, self.lm_head.bias
+        if cfg.tie_embeddings:
+            table = self.tok_emb.weight.to(cfg.compute_dtype)
+            return F.linear(x, table).float()
+        return self.lm_head(x).float()
 
 
 class CausalLM(TransformerLM):

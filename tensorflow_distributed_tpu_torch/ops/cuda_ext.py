@@ -20,7 +20,9 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
@@ -75,3 +77,50 @@ def build_log(name: str) -> str:
     process; empty when the library came from the build directory."""
     load(name)
     return _LOADED[name][1]
+
+
+def on_cpu(op: str, *tensors) -> bool:
+    """True when every tensor is on the CPU (the plain version runs);
+    False when every one is on a CUDA device (the kernel runs). ``None``
+    entries (an absent bias) are skipped; a mix of devices raises."""
+    kinds = {t.device.type for t in tensors if t is not None}
+    if kinds == {"cpu"}:
+        return True
+    if kinds == {"cuda"}:
+        return False
+    raise ValueError(f"{op}: tensors on {sorted(kinds)}; need all on cpu "
+                     f"or all on one cuda device")
+
+
+class Kernel:
+    """One exported C function ``tfd_<name>`` of ``csrc/<library>.cu``
+    and the count of its launches (``launches``, reset by callers that
+    need to prove a run went through it). Every exported function takes
+    its device pointers first and the CUDA stream last, and returns the
+    CUDA error of its launch (0 = launched)."""
+
+    def __init__(self, library: str, name: str, argtypes: Sequence):
+        self.library = library
+        self.name = name
+        self.launches = 0
+        self._argtypes = list(argtypes) + [ctypes.c_void_p]  # + stream
+        self._fn = None
+
+    def __call__(self, tensors: Sequence, *scalars) -> None:
+        """Launch on the current stream of the first tensor's device;
+        ``None`` in ``tensors`` passes a null pointer."""
+        if self._fn is None:
+            fn = getattr(load(self.library), f"tfd_{self.name}")
+            fn.argtypes = self._argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        device = next(t for t in tensors if t is not None).device
+        # The C code launches on the current device: make it the tensors'.
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = self._fn(*[None if t is None else t.data_ptr()
+                             for t in tensors], *scalars, stream)
+        if err != 0:
+            raise RuntimeError(
+                f"{self.name} kernel launch failed: CUDA error {err}")
+        self.launches += 1

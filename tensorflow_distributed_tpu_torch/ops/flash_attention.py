@@ -112,39 +112,17 @@ def flash_dkv_reference(q, k, v, out, lse, do, causal=False, window=0):
 
 # -------------------------------------------------------------- kernels
 
-class Kernel:
-    """One exported kernel of ``csrc/flash_attention.cu``: its C symbol
-    and the count of its launches (``launches``, reset by callers that
-    need to prove a run went through it)."""
-
-    def __init__(self, name: str, n_ptrs: int):
-        self.name = name
-        self.launches = 0
-        self._argtypes = ([ctypes.c_void_p] * n_ptrs
-                          + [ctypes.c_int] * 4 + [ctypes.c_float]
-                          + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-        self._fn = None
-
-    def __call__(self, tensors, BH, L, Lk, D, scale, causal, window):
-        if self._fn is None:
-            fn = getattr(cuda_ext.load("flash_attention"), f"tfd_{self.name}")
-            fn.argtypes = self._argtypes
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        # The C code launches on the current device: make it the tensors'.
-        with torch.cuda.device(tensors[0].device):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = self._fn(*[t.data_ptr() for t in tensors], BH, L, Lk, D,
-                           scale, int(causal), int(window), stream)
-        if err != 0:
-            raise RuntimeError(
-                f"{self.name} kernel launch failed: CUDA error {err}")
-        self.launches += 1
+def _kernel(name: str, n_ptrs: int) -> cuda_ext.Kernel:
+    """An exported kernel of ``csrc/flash_attention.cu``: pointers, then
+    (BH, L, Lk, D, scale, causal, window)."""
+    return cuda_ext.Kernel("flash_attention", name,
+                           [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 4
+                           + [ctypes.c_float] + [ctypes.c_int] * 2)
 
 
-FLASH_FWD = Kernel("flash_fwd", 5)
-FLASH_DQ = Kernel("flash_dq", 7)
-FLASH_DKV = Kernel("flash_dkv", 8)
+FLASH_FWD = _kernel("flash_fwd", 5)
+FLASH_DQ = _kernel("flash_dq", 7)
+FLASH_DKV = _kernel("flash_dkv", 8)
 KERNELS = (FLASH_FWD, FLASH_DQ, FLASH_DKV)
 
 
@@ -157,18 +135,6 @@ def build() -> str:
     """Build (or load) the kernel library; returns nvcc's output when
     this call built it."""
     return cuda_ext.build_log("flash_attention")
-
-
-def _on_cpu(*tensors: torch.Tensor) -> bool:
-    """True when every tensor is on the CPU (the plain version runs);
-    False when every one is on a CUDA device (the kernel runs)."""
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
-        return True
-    if kinds == {"cuda"}:
-        return False
-    raise ValueError(f"flash attention: tensors on {sorted(kinds)}; "
-                     f"need all on cpu or all on one cuda device")
 
 
 def _check_window(causal: bool, window: int) -> None:
@@ -200,7 +166,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward kernel: [BH, L, D] bf16 -> (out, lse [BH, L] f32)."""
     _check_window(causal, window)
-    if _on_cpu(q, k, v):
+    if cuda_ext.on_cpu("flash attention", q, k, v):
         return flash_attention_reference(q, k, v, causal, window)
     BH, L, Lk, D = _check_kernel_inputs(q, k, v)
     for t in (k, v):
@@ -227,7 +193,7 @@ def _check_bwd(q, k, v, out, lse, do):
 def flash_dq(q, k, v, out, lse, do, causal=False, window=0) -> torch.Tensor:
     """dQ kernel: the inputs of the forward plus (out, lse, dO)."""
     _check_window(causal, window)
-    if _on_cpu(q, k, v, out, lse, do):
+    if cuda_ext.on_cpu("flash attention", q, k, v, out, lse, do):
         return flash_dq_reference(q, k, v, out, lse, do, causal, window)
     BH, L, Lk, D = _check_kernel_inputs(q, k, v, out, lse, do)
     _check_bwd(q, k, v, out, lse, do)
@@ -241,7 +207,7 @@ def flash_dkv(q, k, v, out, lse, do, causal=False, window=0
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """dK/dV kernel: the inputs of the forward plus (out, lse, dO)."""
     _check_window(causal, window)
-    if _on_cpu(q, k, v, out, lse, do):
+    if cuda_ext.on_cpu("flash attention", q, k, v, out, lse, do):
         return flash_dkv_reference(q, k, v, out, lse, do, causal, window)
     BH, L, Lk, D = _check_kernel_inputs(q, k, v, out, lse, do)
     _check_bwd(q, k, v, out, lse, do)

@@ -95,6 +95,8 @@ def _build_model_and_state(cfg: TrainConfig, device: torch.device,
         size_kw["vocab_size"] = cfg.synthetic_vocab
     if cfg.seq_len:
         size_kw["max_len"] = cfg.seq_len
+    if cfg.tie_embeddings:
+        size_kw["tie_embeddings"] = cfg.tie_embeddings
     dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
              else torch.float32)
     with torch.device(device):

@@ -31,8 +31,8 @@ def _cfgs(**fields):
     return JaxConfig(**base), TrainConfig(**base)
 
 
-def _tiny_params():
-    jmodel = jtr.gpt_lm(size="tiny")
+def _tiny_params(**overrides):
+    jmodel = jtr.gpt_lm(size="tiny", **overrides)
     params = nn.meta.unbox(jax.jit(lambda k: jmodel.init(
         k, jnp.zeros((1, 8), jnp.int32), train=False))(
         jax.random.key(0))["params"])
@@ -105,6 +105,41 @@ def test_decay_mask_matches_jax_leaf_names():
     got = toptim.decay_mask(ttr.gpt_lm(size="tiny"))
     assert got == want
     assert any(got.values()) and not all(got.values())
+
+
+def test_tied_table_decays_once():
+    """With tied embeddings the shared table is one parameter (no
+    lm_head): it decays once, as the flax ``embedding`` leaf does, and
+    the adamw updates match optax's."""
+    jcfg, tcfg = _cfgs(optimizer="adam", weight_decay=0.1)
+    jparams = _tiny_params(tie_embeddings=True)
+    model = ttr.gpt_lm(size="tiny", tie_embeddings=True)
+    model.load_state_dict(interop.params_from_flax(jparams))
+    mask = toptim.decay_mask(model)
+    assert mask["tok_emb.weight"] and not any(
+        n.startswith("lm_head") for n in mask)
+    assert list(mask) == [n for n, _ in model.named_parameters()]
+    tx = joptim.make_optimizer(jcfg)
+    jstate = tx.init(jparams)
+    params = dict(model.named_parameters())
+    opt = toptim.make_optimizer(tcfg, model)
+    ostate = opt.init(params)
+    rng = np.random.default_rng(3)
+    for _ in range(2):
+        jgrads = jax.tree_util.tree_map(
+            lambda p: (rng.normal(size=p.shape) * 0.1).astype(np.float32),
+            jparams)
+        jupd, jstate = tx.update(jgrads, jstate, jparams)
+        jparams = optax.apply_updates(jparams, jupd)
+        with torch.no_grad():
+            upd = opt.update(interop.params_from_flax(jgrads), ostate, params)
+            for n, u in upd.items():
+                params[n].add_(u)
+        want = interop.params_from_flax(jax.device_get(jupd))
+        assert upd.keys() == want.keys()
+        for n, u in upd.items():
+            np.testing.assert_allclose(u.numpy(), want[n].numpy(), atol=1e-6,
+                                       err_msg=n)
 
 
 def test_global_norm_matches_optax():

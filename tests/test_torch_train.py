@@ -54,6 +54,124 @@ def test_five_step_loss_trajectory_matches_jax_train():
     assert tres.state.step == 5
 
 
+FUSED = {"scan": dict(ce_chunk=32, ce_impl="scan"),
+         "kernel": dict(ce_chunk=32, ce_impl="kernel", label_smoothing=0.1),
+         "kernel_tied": dict(ce_chunk=32, ce_impl="kernel",
+                             tie_embeddings=True)}
+
+
+@pytest.mark.parametrize("fused", FUSED)
+def test_five_step_fused_loss_trajectory_matches_jax_train(fused):
+    """The fused head+loss through train(): the JAX run (its Pallas
+    kernels in interpret mode for ce_impl=kernel) and the port (the
+    plain versions on the CPU), same init, 5 steps, then the final eval
+    through the scan formulation."""
+    fields = dict(TINY, **FUSED[fused])
+    jcfg = JaxConfig(**fields)
+    jres = jloop.train(jcfg, logger=MetricLogger(enabled=False))
+    mesh = make_mesh(jcfg.mesh)
+    _, jstate = jloop._build_model_and_state(jcfg, mesh,
+                                             jax_make_task(jcfg, mesh))
+    init = interop.params_from_flax(jax.device_get(jstate.params))
+    assert ("lm_head.weight" in init) != fields.get("tie_embeddings", False)
+
+    tres = tloop.train(TrainConfig(**fields, device="cpu"),
+                       logger=MetricLogger(enabled=False), init_params=init)
+    np.testing.assert_allclose(_losses(tres.logger), _losses(jres.logger),
+                               atol=1e-4)
+    assert len(_losses(tres.logger)) == 5
+    np.testing.assert_allclose(tres.final_metrics["loss"],
+                               jres.final_metrics["loss"], atol=1e-4)
+
+
+@pytest.mark.parametrize("impl", ["scan", "kernel"])
+@pytest.mark.parametrize("tie", [False, True])
+def test_fused_task_loss_and_grads_match_jax(impl, tie):
+    """make_mlm_loss with ce_chunk on one batch: loss, accuracy and every
+    grad against the JAX task loss on the same weights (f32)."""
+    import flax.linen as fnn
+
+    from tensorflow_distributed_tpu.models import transformer as jtr
+    from tensorflow_distributed_tpu.train.tasks import (
+        make_mlm_loss as jax_mlm_loss)
+    from tensorflow_distributed_tpu_torch.models import transformer as ttr
+    from tensorflow_distributed_tpu_torch.train.tasks import make_mlm_loss
+
+    rng = np.random.default_rng(7)
+    batch = {"tokens": rng.integers(0, 64, (2, 32)).astype(np.int32),
+             "targets": rng.integers(0, 64, (2, 32)).astype(np.int32),
+             "mask": (rng.random((2, 32)) < 0.8).astype(np.float32)}
+    jmodel = jtr.gpt_lm(size="tiny", tie_embeddings=tie, dropout_rate=0.0)
+    params = fnn.meta.unbox(jmodel.init(jax.random.key(1), batch["tokens"],
+                                        train=False)["params"])
+    jloss = jax_mlm_loss(0.1, ce_chunk=24, ce_impl=impl)
+
+    def f(p):
+        loss, (metrics, _) = jloss(jmodel.apply, p, {}, batch, None, False)
+        return loss, metrics
+
+    (j_loss, j_metrics), j_grads = jax.value_and_grad(f, has_aux=True)(params)
+    model = ttr.gpt_lm(size="tiny", tie_embeddings=tie, dropout_rate=0.0)
+    model.load_state_dict(interop.params_from_flax(jax.device_get(params)))
+    loss, metrics = make_mlm_loss(0.1, ce_chunk=24, ce_impl=impl)(
+        model, {k: torch.from_numpy(v) for k, v in batch.items()}, False)
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(j_loss),
+                               atol=1e-5)
+    np.testing.assert_allclose(float(metrics["accuracy"]),
+                               float(j_metrics["accuracy"]), atol=1e-6)
+    want = interop.params_from_flax(jax.device_get(j_grads))
+    for name, p in model.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want[name].numpy(),
+                                   atol=1e-5, err_msg=name)
+
+
+def test_fused_flags_parse_with_jax_spellings_and_defaults():
+    cfg = parse_args(["--ce-chunk", "8192", "--ce-impl", "kernel",
+                      "--tie-embeddings", "true", "--device", "cpu"])
+    assert (cfg.ce_chunk, cfg.ce_impl, cfg.tie_embeddings) == (
+        8192, "kernel", True)
+    for name in ("ce_chunk", "ce_impl", "tie_embeddings"):
+        assert getattr(TrainConfig(), name) == getattr(JaxConfig(), name)
+
+
+@pytest.mark.parametrize("jax_fields,argv", [
+    (dict(ce_chunk=-1), ["--ce-chunk", "-1"]),
+    (dict(ce_chunk=8, ce_impl="pallas"), ["--ce-chunk", "8", "--ce-impl",
+                                          "pallas"]),
+    (dict(ce_impl="kernel"), ["--ce-impl", "kernel"]),
+    # The one-device rows of the JAX fused-CE config check: the port
+    # refuses them too (flag or model not ported, or not applicable).
+    (dict(ce_chunk=8192, ce_impl="kernel", shard_vocab=True),
+     ["--ce-chunk", "8192", "--ce-impl", "kernel", "--shard-vocab", "true"]),
+    (dict(model="pipelined_lm", ce_chunk=8192, ce_impl="kernel"),
+     ["--model", "pipelined_lm", "--ce-chunk", "8192", "--ce-impl",
+      "kernel"]),
+    (dict(model="mnist_cnn", ce_chunk=8192),
+     ["--model", "mnist_cnn", "--ce-chunk", "8192"]),
+], ids=["negative_chunk", "unknown_impl", "impl_without_chunk",
+        "kernel_shard_vocab", "kernel_pipelined", "chunk_non_lm"])
+def test_config_rejects_what_jax_rejects(jax_fields, argv):
+    with pytest.raises(ValueError):
+        JaxConfig(**dict(dict(model="gpt_lm"), **jax_fields)).validate()
+    with pytest.raises((ValueError, NotImplementedError, SystemExit)):
+        parse_args(argv + ["--device", "cpu"])
+
+
+def test_cli_trains_fused_on_cpu(capsys):
+    """The tentpole command at tiny size on the CPU, with the kernels'
+    plain versions."""
+    argv = ["--device", "cpu", "--mode", "train", "--model", "gpt_lm",
+            "--model-size", "tiny", "--ce-chunk", "32", "--ce-impl",
+            "kernel", "--seq-len", "64", "--batch-size", "8",
+            "--train-steps", "3", "--eval-every", "0", "--eval-batch-size",
+            "8", "--log-every", "1"]
+    assert cli.main(argv) == 0
+    out = capsys.readouterr().out
+    assert '"event": "done"' in out and "val_loss" in out
+    assert out.count("[step") == 3  # the final eval is in the done record
+
+
 def test_cli_trains_end_to_end_on_cpu(capsys):
     argv = ["--mode", "train", "--model", "gpt_lm", "--model-size", "tiny",
             "--seq-len", "64", "--batch-size", "8", "--train-steps", "4",
@@ -79,7 +197,7 @@ def test_parse_args_spellings_and_defaults():
         assert getattr(TrainConfig(), name) == getattr(jcfg, name), name
 
 
-@pytest.mark.parametrize("argv", [["--mesh.data", "8"], ["--ce-chunk", "8"],
+@pytest.mark.parametrize("argv", [["--mesh.data", "8"], ["--pos-emb", "rope"],
                                   ["--dataset", "text"], ["--remat", "dots"]])
 def test_unported_jax_flags_are_rejected(argv, capsys):
     with pytest.raises(SystemExit):

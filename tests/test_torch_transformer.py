@@ -89,6 +89,49 @@ def test_full_width_one_layer_matches_flax(dtype_name):
                                    err_msg=name)
 
 
+@pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
+def test_tied_gpt_from_flax_matches_logits_and_grads(dtype_name):
+    """The tied head (logits = x @ tok_emb.T in the compute dtype, no
+    lm_head): a flax tree without lm_head loads through params_from_flax
+    and the shared table's grad sums both of its uses."""
+    atol, (t_logits, j_logits), (t_loss, j_loss), grads, want = _run_both(
+        "tiny", dtype_name, batch=2, seq=16, tie_embeddings=True)
+    assert not any(n.startswith("lm_head") for n in want)
+    assert grads.keys() == want.keys()
+    np.testing.assert_allclose(t_logits.numpy(), j_logits, atol=atol)
+    assert abs(t_loss - j_loss) <= atol
+    for name, g in grads.items():
+        np.testing.assert_allclose(g.numpy(), want[name].numpy(), atol=atol,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("tie", [False, True])
+def test_features_only_rebuilds_the_logits(tie):
+    """features_only hands out exactly the pieces whose product is the
+    dense logits (the port of the JAX features-mode check), and matches
+    the flax model's pieces on the same weights."""
+    jmodel = jtr.gpt_lm(size="tiny", tie_embeddings=tie,
+                        compute_dtype=jnp.float32, dropout_rate=0.0)
+    tokens = np.arange(8, dtype=np.int32).reshape(2, 4) % 64
+    params = jmodel.init(jax.random.key(0), tokens)
+    j_feats, j_w, j_b, v_axis = jmodel.apply(params, tokens,
+                                             features_only=True)
+    model = ttr.gpt_lm(size="tiny", tie_embeddings=tie, dropout_rate=0.0)
+    model.load_state_dict(interop.params_from_flax(
+        jax.device_get(nn.meta.unbox(params["params"]))))
+    with torch.no_grad():
+        logits = model(torch.from_numpy(tokens))
+        feats, w, b = model(torch.from_numpy(tokens), features_only=True)
+        rebuilt = feats @ w.T + (0.0 if b is None else b)
+    assert (b is None) == tie and w.shape == (64, 32)
+    np.testing.assert_allclose(rebuilt.numpy(), logits.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(feats.numpy(), np.asarray(j_feats),
+                               atol=1e-5)
+    j_w = np.asarray(j_w) if v_axis == 0 else np.asarray(j_w).T
+    np.testing.assert_allclose(w.detach().numpy(), j_w, atol=1e-6)
+
+
 def test_param_names_and_shapes_mirror_flax_tree():
     jmodel = jtr.gpt_lm(size="tiny")
     params = nn.meta.unbox(jax.eval_shape(lambda k: jmodel.init(
@@ -150,7 +193,7 @@ def test_configs_mirror_jax():
 
 
 @pytest.mark.parametrize("override", [
-    {"pos_emb": "rope"}, {"tie_embeddings": True}, {"n_kv_heads": 2},
+    {"pos_emb": "rope"}, {"shard_vocab": True}, {"n_kv_heads": 2},
     {"mlp_variant": "swiglu"}, {"norm": "rmsnorm"}, {"moe_experts": 4},
     {"remat": True}, {"kv_cache_quant": "int8"}])
 def test_unported_options_raise(override):

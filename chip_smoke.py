@@ -36,7 +36,31 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
 7. train_fused — the same run with ``--ce-chunk 8192 --ce-impl kernel``
              (final eval through the scan formulation): finite, falling
              loss, the first step's loss within 1e-2 of the dense run's,
-             each CE kernel launched once per step.
+             each CE kernel launched once per step;
+8. ring_kernels — each partial-attention kernel of the ring (forward,
+             dQ, dK/dV) against its plain PyTorch version computed in
+             f32 from the same bf16 inputs, at GPT-2-small's half-block
+             under a 4-way ring (B 8, H 12, 128 rows, D 64) and at the
+             long-context shape (B 4, H 8, 512 rows: L 8192 over 8),
+             causal and full, and one D=128 case; median times over 20
+             launches beside the bound and the plain version (no library
+             call computes the unnormalized partials or their
+             gradients: library_ms is null), and the kernels' device
+             time alone (torch.profiler);
+9. ring     — ``ring_attention`` over ``StackedRing(S)`` (the S ring
+             positions stacked in one process on one card), forward and
+             backward, at S=4 (B 8, H 12, L 1024, D 64) and S=8 (B 4,
+             H 8, L 8192): each partial kernel launched 2S+1 times per
+             call, outputs and grads against the flash kernels and the
+             plain full attention in f32 (at S=8 on the last 512 query
+             rows, forward), the forward and fwd+bwd times, and the
+             device time of a fwd+bwd (all kernels, the partial ones);
+10. train_ring — on a machine with two or more cards only: GPT-2-small
+             trained by torchrun over S = 4 (or 2) processes with
+             ``--mesh.seq S`` (NCCL), the first five losses within 1e-2
+             of a one-card run of the same flags, every rank launching
+             the partial kernels. On one card it prints a ``skipped``
+             line.
 
 It then prints the nvidia-smi line, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -50,9 +74,11 @@ import json
 import math
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -90,6 +116,32 @@ TRAIN_ARGV = ["--mode", "train", "--model", "gpt_lm", "--model-size", "small",
               "--eval-every", "0", "--eval-batch-size", "8",
               "--compute-dtype", "bfloat16", "--log-every", "1"]
 TRAIN_FUSED_ARGV = TRAIN_ARGV + ["--ce-chunk", "8192", "--ce-impl", "kernel"]
+# Partial (ring-step) kernels vs their plain versions; the ring vs the
+# flash kernels and the plain full attention (plain in f32 from the same
+# bf16 inputs; the kernels round P and dO to bf16 for their products).
+TOL_PARTIAL_O = 2e-2  # max abs error / max |reference| of the f32 o
+TOL_STATS = 1e-3      # max abs error of the partial forward's m and l
+TOL_RING = 2e-2       # ring out, dQ, dK, dV: max abs error / max |reference|
+TOL_RING_LOSS = 1e-2  # train_ring vs one card, first five losses
+TRAIN_RING_TIMEOUT_S = 600  # torchrun's S ranks, builds included
+RING_KERNEL_CASES = [  # the first is the main case (timed, in the kernels line)
+    dict(B=8, H=12, nh=128, D=64, causal=False),
+    dict(B=8, H=12, nh=128, D=64, causal=True),
+    dict(B=4, H=8, nh=512, D=64, causal=False),
+    dict(B=4, H=8, nh=512, D=64, causal=True),
+    dict(B=2, H=8, nh=256, D=128, causal=True)]
+RING_CASES = [dict(S=4, B=8, H=12, L=1024, D=64),  # launches in the kernels line
+              dict(S=8, B=4, H=8, L=8192, D=64)]
+# The ring is held to the whole plain f32 version where its [B, H, L, L]
+# scores fit in PLAIN_SCORE_BYTES, else (L 8192: 8.6 GB) on the last
+# RING_PLAIN_ROWS query rows, forward.
+PLAIN_SCORE_BYTES = 2 ** 31
+RING_PLAIN_ROWS = 512
+TRAIN_RING_ARGV = ["--mode", "train", "--model", "gpt_lm", "--model-size",
+                   "small", "--seq-len", "1024", "--batch-size", "8",
+                   "--train-steps", "5", "--eval-every", "0",
+                   "--eval-batch-size", "8", "--dropout-rate", "0",
+                   "--compute-dtype", "bfloat16", "--log-every", "1"]
 CSRC = "tensorflow_distributed_tpu_torch/ops/csrc"
 SOURCES = {"flash_attention": f"{CSRC}/flash_attention.cu",
            "fused_ce": f"{CSRC}/fused_ce.cu"}
@@ -97,7 +149,10 @@ TPU_FLASH = "tensorflow_distributed_tpu/ops/flash_attention.py"
 TPU_CE = "tensorflow_distributed_tpu/ops/fused_ce_kernel.py"
 REPLACES = {"flash_fwd": f"{TPU_FLASH}:183", "flash_dq": f"{TPU_FLASH}:255",
             "flash_dkv": f"{TPU_FLASH}:284", "fused_ce_fwd": f"{TPU_CE}:84",
-            "fused_ce_dx": f"{TPU_CE}:147", "fused_ce_dw": f"{TPU_CE}:172"}
+            "fused_ce_dx": f"{TPU_CE}:147", "fused_ce_dw": f"{TPU_CE}:172",
+            "flash_fwd_partial": f"{TPU_FLASH}:395",
+            "flash_dq_partial": f"{TPU_FLASH}:451",
+            "flash_dkv_partial": f"{TPU_FLASH}:479"}
 
 
 def emit(obj) -> None:
@@ -134,6 +189,30 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
         e.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
+
+
+def device_ms(torch, fn, iters: int = 10):
+    """Device time per call of ``fn`` by kernel name, {name: ms}, from
+    torch.profiler's CUDA activity over ``iters`` calls after one warm-up
+    call: the kernels' own time, without the host gaps between launches
+    that CUDA events around a call also count. Empty when the profiler
+    reports no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            out[e.key] = us / iters / 1e3
+    return out
 
 
 def bound(bytes_moved: float, flops: float):
@@ -563,8 +642,10 @@ def phase_train(kernels, torch):
           and launches["flash_fwd"] >= n,
           f"the run did not go through every flash kernel: {launches}")
     check(all(launches[k] == 0 for k in ("fused_ce_fwd", "fused_ce_dx",
-                                         "fused_ce_dw")),
-          f"the dense run launched a fused-CE kernel: {launches}")
+                                         "fused_ce_dw", "flash_fwd_partial",
+                                         "flash_dq_partial",
+                                         "flash_dkv_partial")),
+          f"the dense run launched a fused-CE or ring kernel: {launches}")
     return rec
 
 
@@ -586,7 +667,313 @@ def phase_train_fused(kernels, torch, dense):
     return rec
 
 
-def main() -> int:
+def partial_bounds(B, H, nh, D, causal):
+    """(bound_ms, bound_by) of each partial kernel on [B*H, nh, D]
+    blocks: q, k, v bf16 read once, the f32 o / dO and the f32 rows
+    (m, l, dl) read or written once, the bf16 grads written once,
+    against the tensor-core work of the (query, key) pairs in the
+    block (the in-block triangle when causal)."""
+    BH = B * H
+    pairs = nh * (nh + 1) // 2 if causal else nh * nh
+    x16, x32, rows = BH * nh * D * 2, BH * nh * D * 4, BH * nh * 4
+    return {
+        # S = QK^T, O = PV; writes o (f32), m, l
+        "flash_fwd_partial": bound(3 * x16 + x32 + 2 * rows,
+                                   4 * BH * pairs * D),
+        # S, dP = dO V^T, dQ = dS K; reads m, dl, dO (f32)
+        "flash_dq_partial": bound(3 * x16 + 2 * rows + x32 + x16,
+                                  6 * BH * pairs * D),
+        # S, dP, dV = P^T dO, dK = dS^T Q
+        "flash_dkv_partial": bound(3 * x16 + 2 * rows + x32 + 2 * x16,
+                                   8 * BH * pairs * D),
+    }
+
+
+def phase_ring_kernels(fa, torch, gpu):
+    """Correctness of every case; times at the main case."""
+    results = {}
+    for i, case in enumerate(RING_KERNEL_CASES):
+        B, H, nh, D, causal = (case[k] for k in ("B", "H", "nh", "D",
+                                                 "causal"))
+        gen = torch.Generator(device="cuda").manual_seed(200 + i)
+        q, k, v = (torch.randn((B * H, nh, D), generator=gen,
+                               device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        do = torch.randn((B * H, nh, D), generator=gen, device="cuda")
+        dl = torch.randn((B * H, nh), generator=gen, device="cuda")
+        o, m, l = fa.flash_fwd_partial(q, k, v, causal)
+        dq = fa.flash_dq_partial(q, k, v, m, do, dl, causal)
+        dk, dv = fa.flash_dkv_partial(q, k, v, m, do, dl, causal)
+        torch.cuda.synchronize()
+        f = [t.float() for t in (q, k, v)]
+        ref_o, ref_m, ref_l = fa.flash_fwd_partial_reference(*f, causal)
+        ref_dq = fa.flash_dq_partial_reference(*f, m, do, dl, causal)
+        ref_dk, ref_dv = fa.flash_dkv_partial_reference(*f, m, do, dl,
+                                                        causal)
+
+        def abs_err(a, b):
+            return float((a.float() - b).abs().max())
+
+        def rel_err(a, b):
+            return abs_err(a, b) / float(b.abs().max())
+
+        row = {"phase": "ring_kernels", **case,
+               "o_rel_err": rel_err(o, ref_o),
+               "m_abs_err": abs_err(m, ref_m),
+               "l_abs_err": abs_err(l, ref_l),
+               "dq_rel_err": rel_err(dq, ref_dq),
+               "dk_rel_err": rel_err(dk, ref_dk),
+               "dv_rel_err": rel_err(dv, ref_dv),
+               "o_abs_err": abs_err(o, ref_o),
+               "dq_abs_err": abs_err(dq, ref_dq),
+               "dkv_abs_err": max(abs_err(dk, ref_dk), abs_err(dv, ref_dv))}
+        finite = all(bool(torch.isfinite(t).all())
+                     for t in (o, m, l, dq, dk, dv))
+        emit(row)
+        check(finite, f"non-finite partial kernel output in case {case}")
+        check(row["o_rel_err"] <= TOL_PARTIAL_O,
+              f"flash_fwd_partial o error {row}")
+        check(row["m_abs_err"] <= TOL_STATS and row["l_abs_err"] <= TOL_STATS,
+              f"flash_fwd_partial m/l error {row}")
+        for g in ("dq", "dk", "dv"):
+            check(row[f"{g}_rel_err"] <= TOL_RING, f"partial {g} error {row}")
+        if i == 0:
+            results["errors"] = row
+            results["bounds"] = partial_bounds(B, H, nh, D, causal)
+            results["ms"] = {
+                "flash_fwd_partial": time_ms(torch, lambda: (
+                    fa.flash_fwd_partial(q, k, v, causal))),
+                "flash_dq_partial": time_ms(torch, lambda: (
+                    fa.flash_dq_partial(q, k, v, m, do, dl, causal))),
+                "flash_dkv_partial": time_ms(torch, lambda: (
+                    fa.flash_dkv_partial(q, k, v, m, do, dl, causal))),
+            }
+            results["plain_ms"] = {
+                "flash_fwd_partial": time_ms(torch, lambda: (
+                    fa.flash_fwd_partial_reference(q, k, v, causal))),
+                "flash_dq_partial": time_ms(torch, lambda: (
+                    fa.flash_dq_partial_reference(q, k, v, m, do, dl,
+                                                  causal))),
+                "flash_dkv_partial": time_ms(torch, lambda: (
+                    fa.flash_dkv_partial_reference(q, k, v, m, do, dl,
+                                                   causal))),
+            }
+            # No PyTorch call returns the unnormalized (o, m, l) of a
+            # block or its partial gradients (SDPA normalizes).
+            results["library_ms"] = dict.fromkeys(results["ms"])
+            # At this size a launch is short next to its host-side call
+            # (checks, allocations, ctypes): the kernels' device time
+            # alone, from the profiler, beside the CUDA-event times.
+            calls = {"flash_fwd_partial": lambda: fa.flash_fwd_partial(
+                         q, k, v, causal),
+                     "flash_dq_partial": lambda: fa.flash_dq_partial(
+                         q, k, v, m, do, dl, causal),
+                     "flash_dkv_partial": lambda: fa.flash_dkv_partial(
+                         q, k, v, m, do, dl, causal)}
+            emit({"phase": "ring_kernels_timing", **case, "gpu": gpu,
+                  "ms": results["ms"], "plain_ms": results["plain_ms"],
+                  "device_ms": {name: sum(device_ms(torch, fn, 20).values())
+                                or None for name, fn in calls.items()},
+                  "bound_ms": {k: b[0] for k, b in results["bounds"].items()}})
+        del q, k, v, do, dl, o, m, l, dq, dk, dv, f
+        del ref_o, ref_m, ref_l, ref_dq, ref_dk, ref_dv
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_ring(fa, ra, torch, gpu):
+    """The stacked zigzag ring on the card: launches per call (counted
+    from 0 around the first case's fwd+bwd, the kernels line's
+    launches), agreement with the flash kernels and the plain version,
+    and times."""
+    launches = None
+    for case in RING_CASES:
+        S, B, H, L, D = (case[k] for k in ("S", "B", "H", "L", "D"))
+        gen = torch.Generator(device="cuda").manual_seed(300 + S)
+        q, k, v, do = (torch.randn((B, L, H, D), generator=gen,
+                                   device="cuda").to(torch.bfloat16)
+                       for _ in range(4))
+        ring = ra.StackedRing(S)
+        x = [t.clone().requires_grad_() for t in (q, k, v)]
+        fa.reset_launch_counts()
+        out = ra.ring_attention(*x, ring, causal=True)
+        torch.autograd.backward(out, do)
+        torch.cuda.synchronize()
+        counts = {kern.name: kern.launches
+                  for kern in fa.KERNELS + fa.PARTIAL_KERNELS}
+        if launches is None:
+            launches = counts
+        got = [out.detach()] + [t.grad for t in x]
+        del x, out
+
+        y = [t.clone().requires_grad_() for t in (q, k, v)]
+        flash_out = fa.flash_attention(*y, causal=True)
+        torch.autograd.backward(flash_out, do)
+        flash = [flash_out.detach()] + [t.grad for t in y]
+        del y, flash_out
+
+        def rel_err(a, b):
+            return float((a.float() - b.float()).abs().max()
+                         / b.float().abs().max())
+
+        names = ("out", "dq", "dk", "dv")
+        row = {"phase": "ring", **case, "gpu": gpu, "launches": counts,
+               "vs_flash_rel_err": {n: rel_err(a, b)
+                                    for n, a, b in zip(names, got, flash)}}
+        del flash
+        if L * L * B * H * 4 <= PLAIN_SCORE_BYTES:
+            z = [t.float().requires_grad_() for t in (q, k, v)]
+            ref = ra.full_attention(*z, ra.causal_bias(L, L, "cuda"))
+            torch.autograd.backward(ref, do.float())
+            plain = [ref.detach()] + [t.grad for t in z]
+            row["vs_plain_rel_err"] = {n: rel_err(a, b)
+                                       for n, a, b in zip(names, got, plain)}
+            del z, ref, plain
+        else:  # the last query rows, forward
+            r0 = L - RING_PLAIN_ROWS
+            rows = torch.arange(r0, L, device="cuda")[:, None]
+            cols = torch.arange(L, device="cuda")[None, :]
+            bias = torch.where(cols <= rows, 0.0, -1e30)[None]
+            ref = ra.full_attention(q[:, r0:].float(), k.float(), v.float(),
+                                    bias)
+            row["vs_plain_rel_err"] = {
+                f"out_last_{RING_PLAIN_ROWS}_rows": rel_err(got[0][:, r0:],
+                                                            ref)}
+            del ref, bias
+        xr = [t.clone().requires_grad_() for t in (q, k, v)]
+        yr = [t.clone().requires_grad_() for t in (q, k, v)]
+        with torch.no_grad():
+            row["fwd_ms"] = time_ms(torch, lambda: ra.ring_attention(
+                q, k, v, ring, causal=True), iters=10)
+            row["flash_fwd_ms"] = time_ms(torch, lambda: fa.flash_attention(
+                q, k, v, causal=True), iters=10)
+        row["fwd_bwd_ms"] = time_ms(torch, lambda: torch.autograd.backward(
+            ra.ring_attention(*xr, ring, causal=True), do), iters=10)
+        row["flash_fwd_bwd_ms"] = time_ms(
+            torch, lambda: torch.autograd.backward(
+                fa.flash_attention(*yr, causal=True), do), iters=10)
+        # Device time of one ring fwd+bwd: every kernel, the partial
+        # kernels' share (the rest is the zigzag's selects, merges and
+        # permutes), and the largest kernels by name.
+        dev = device_ms(torch, lambda: torch.autograd.backward(
+            ra.ring_attention(*xr, ring, causal=True), do), iters=5)
+        row["fwd_bwd_device_ms"] = sum(dev.values()) or None
+        row["fwd_bwd_partial_kernels_device_ms"] = sum(
+            ms for name, ms in dev.items() if "flash_" in name) or None
+        row["fwd_bwd_device_top"] = [
+            [name[:80], ms] for name, ms in sorted(
+                dev.items(), key=lambda kv: -kv[1])[:6]]
+        emit(row)
+        del q, k, v, do, xr, yr, got
+        torch.cuda.empty_cache()
+        want = 2 * S + 1
+        check(all(counts[kern.name] == want for kern in fa.PARTIAL_KERNELS)
+              and all(counts[kern.name] == 0 for kern in fa.KERNELS),
+              f"ring S={S}: expected {want} launches of each partial "
+              f"kernel and none of B1-B3: {counts}")
+        for key in ("vs_flash_rel_err", "vs_plain_rel_err"):
+            check(all(e <= TOL_RING for e in row[key].values()),
+                  f"ring S={S} {key}: {row[key]}")
+    return launches
+
+
+def train_ring_rank(outdir: str, argv) -> int:
+    """One torchrun rank of train_ring: trains ``argv`` and writes its
+    losses and launch counts to ``outdir``."""
+    import torch.distributed as dist
+
+    from tensorflow_distributed_tpu_torch.config import parse_args
+    from tensorflow_distributed_tpu_torch.ops import flash_attention as fa
+    from tensorflow_distributed_tpu_torch.parallel import mesh
+    from tensorflow_distributed_tpu_torch.train.loop import train
+    from tensorflow_distributed_tpu_torch.utils.logging import MetricLogger
+
+    cfg = parse_args(argv)
+    fa.reset_launch_counts()
+    try:
+        result = train(cfg, logger=MetricLogger(stream=sys.stderr))
+        rank = dist.get_rank()
+    finally:
+        mesh.shutdown()
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump({"losses": [r.metrics["loss"] for r in result.logger.records
+                              if "loss" in r.metrics],
+                   "steps_per_sec": result.steps_per_sec,
+                   "launches": {kern.name: kern.launches
+                                for kern in fa.PARTIAL_KERNELS}}, f)
+    return 0
+
+
+def phase_train_ring(torch) -> None:
+    """--mesh.seq S over torchrun's S processes (NCCL), S = 4 with four
+    cards or more, else 2; skipped, by the device count alone, on one
+    card."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        emit({"phase": "train_ring",
+              "skipped": f"needs >= 2 CUDA devices, have {count}"})
+        return
+    S = 4 if count >= 4 else 2
+    argv = TRAIN_RING_ARGV + ["--mesh.seq", str(S)]
+    with tempfile.TemporaryDirectory() as outdir:
+        t0 = time.time()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             f"--nproc-per-node={S}", os.path.abspath(__file__),
+             "--train-ring-rank", outdir, *argv],
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        try:
+            _, err = proc.communicate(timeout=TRAIN_RING_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            # torchrun ends its ranks (each in a session of its own) on
+            # SIGTERM; a rank that outlives that is killed by its pid.
+            proc.terminate()
+            try:
+                proc.communicate(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.communicate()
+            for line in subprocess.run(
+                    ["pgrep", "-f", f"--train-ring-rank {outdir}"],
+                    capture_output=True, text=True).stdout.split():
+                os.kill(int(line), signal.SIGKILL)
+            fail(f"train_ring: torchrun still running after "
+                 f"{TRAIN_RING_TIMEOUT_S} s")
+        wall = time.time() - t0
+        sys.stderr.write(err[-4000:])
+        check(proc.returncode == 0,
+              f"train_ring: torchrun exited {proc.returncode}")
+        ranks = []
+        for r in range(S):
+            with open(os.path.join(outdir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    from tensorflow_distributed_tpu_torch.config import parse_args
+    from tensorflow_distributed_tpu_torch.train.loop import train
+    from tensorflow_distributed_tpu_torch.utils.logging import MetricLogger
+
+    result = train(parse_args(TRAIN_RING_ARGV),
+                   logger=MetricLogger(stream=sys.stderr))
+    one = [r.metrics["loss"] for r in result.logger.records
+           if "loss" in r.metrics]
+    emit({"phase": "train_ring", "S": S, "wall_s": round(wall, 3),
+          "losses": ranks[0]["losses"], "one_card_losses": one,
+          "steps_per_sec": ranks[0]["steps_per_sec"],
+          "one_card_steps_per_sec": result.steps_per_sec,
+          "launches": [r["launches"] for r in ranks]})
+    for r in ranks:
+        check(len(r["losses"]) == 5 and all(
+            abs(a - b) <= TOL_RING_LOSS for a, b in zip(r["losses"], one)),
+            f"train_ring losses {r['losses']} vs one card {one}")
+        check(all(n > 0 for n in r["launches"].values()),
+              f"train_ring: a rank did not launch every partial kernel: "
+              f"{r['launches']}")
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--train-ring-rank"]:
+        sys.path.insert(0, REPO)
+        return train_ring_rank(argv[1], argv[2:])
     try:
         import numpy as np
         import torch
@@ -599,11 +986,13 @@ def main() -> int:
     try:
         from tensorflow_distributed_tpu_torch.ops import flash_attention as fa
         from tensorflow_distributed_tpu_torch.ops import fused_ce_kernel as fce
+        from tensorflow_distributed_tpu_torch.parallel import (
+            ring_attention as ra)
     except ImportError as e:
         fail(f"the port's package is not beside chip_smoke.py: {e}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kernels = fa.KERNELS + fce.KERNELS
+    kernels = fa.KERNELS + fce.KERNELS + fa.PARTIAL_KERNELS
 
     gpu = phase_device(torch)
     phase_build(fa, fce)
@@ -613,6 +1002,9 @@ def main() -> int:
     phase_model_fused(fce, torch, np)
     dense = phase_train(kernels, torch)
     fused = phase_train_fused(kernels, torch, dense)
+    partial = phase_ring_kernels(fa, torch, gpu)
+    ring_launches = phase_ring(fa, ra, torch, gpu)
+    phase_train_ring(torch)
 
     err = {"flash_fwd": flash["errors"]["o_abs_err"],
            "flash_dq": flash["errors"]["dq_abs_err"],
@@ -620,16 +1012,26 @@ def main() -> int:
            "fused_ce_fwd": max(ce["errors"]["ce_abs_err"],
                                ce["errors"]["lse_abs_err"]),
            "fused_ce_dx": ce["errors"]["dx_abs_err"],
-           "fused_ce_dw": ce["errors"]["dw_abs_err"]}
+           "fused_ce_dw": ce["errors"]["dw_abs_err"],
+           "flash_fwd_partial": max(partial["errors"]["o_abs_err"],
+                                    partial["errors"]["m_abs_err"],
+                                    partial["errors"]["l_abs_err"]),
+           "flash_dq_partial": partial["errors"]["dq_abs_err"],
+           "flash_dkv_partial": partial["errors"]["dkv_abs_err"]}
     rows = []
     for kern in kernels:
         name = kern.name
-        res, run = (flash, dense) if name.startswith("flash") else (ce, fused)
+        if name.endswith("_partial"):
+            res, launched = partial, ring_launches
+        elif name.startswith("flash"):
+            res, launched = flash, dense["launches"]
+        else:
+            res, launched = ce, fused["launches"]
         bound_ms, bound_by = res["bounds"][name]
         rows.append({"name": name, "route": "cuda",
                      "source": SOURCES[kern.library],
                      "replaces": REPLACES[name],
-                     "launches": run["launches"][name],
+                     "launches": launched[name],
                      "max_abs_err": err[name], "ms": res["ms"][name],
                      "plain_ms": res["plain_ms"][name], "bound_ms": bound_ms,
                      "bound_by": bound_by,

@@ -20,6 +20,13 @@ Examples:
         --seq-len 64 --batch-size 8 --train-steps 5 --eval-batch-size 8 \
         --compute-dtype float32 --device cpu
 
+    # sequence parallelism: ring attention over 4 processes, one GPU
+    # each (NCCL; rank r on cuda:r), through the partial-attention
+    # kernels; with --device cpu the same over gloo:
+    torchrun --standalone --nproc-per-node 4 \
+        -m tensorflow_distributed_tpu_torch.cli --mesh.seq 4 \
+        --model-size small --seq-len 1024 --batch-size 8 --train-steps 30
+
 Flags share the JAX CLI's spellings; flags the port does not parse yet
 are rejected (ROADMAP.md queue A lists what is still to come).
 """
@@ -30,12 +37,16 @@ import sys
 from typing import Optional, Sequence
 
 from tensorflow_distributed_tpu_torch.config import parse_args
+from tensorflow_distributed_tpu_torch.parallel import mesh
 from tensorflow_distributed_tpu_torch.train.loop import train
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     cfg = parse_args(argv)
-    train(cfg)
+    try:
+        train(cfg)
+    finally:
+        mesh.shutdown()
     return 0
 
 

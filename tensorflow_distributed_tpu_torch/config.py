@@ -1,6 +1,6 @@
 """Run configuration of the PyTorch port: the subset of the JAX
-package's ``TrainConfig`` that the port runs, with the same flag
-spellings, plus ``--device``.
+package's ``TrainConfig`` (and its ``MeshConfig``) that the port runs,
+with the same flag spellings, plus ``--device``.
 
 The port keeps its own copy of the JAX ``config.py`` dataclass-to-argparse
 helper. Flags of the JAX CLI that the port does not parse yet are
@@ -22,8 +22,23 @@ MODEL_SIZES = ("", "small", "medium", "large", "xl", "tiny")
 
 
 @dataclasses.dataclass
+class MeshConfig:
+    """Logical device-mesh shape: the JAX ``MeshConfig``'s ``seq`` axis
+    (sequence parallelism, ring attention over ``seq`` processes, one
+    GPU each). The data, model, pipe and expert axes are not ported yet
+    (their flags are refused; see ROADMAP.md queue A)."""
+
+    seq: int = 1
+
+    def validate(self) -> None:
+        if self.seq < 1:
+            raise ValueError(f"mesh.seq must be >= 1, got {self.seq}")
+
+
+@dataclasses.dataclass
 class TrainConfig:
-    """One training job of the port (gpt_lm on one device)."""
+    """One training job of the port (gpt_lm on one device, or on
+    ``mesh.seq`` devices with ring attention)."""
 
     # --- model -----------------------------------------------------------
     model: str = "gpt_lm"
@@ -76,8 +91,12 @@ class TrainConfig:
     seed: int = 0
     mode: str = "train"  # train (the only mode ported so far)
     # Where the run executes: "cuda" (default; fails if no GPU) or "cpu"
-    # (the plain versions of the kernels; tests).
+    # (the plain versions of the kernels; tests). With mesh.seq > 1,
+    # rank r of torchrun's processes takes cuda:LOCAL_RANK.
     device: str = "cuda"
+
+    # --- mesh / parallelism ----------------------------------------------
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
 
     def validate(self) -> None:
         def todo(what: str) -> NotImplementedError:
@@ -123,15 +142,21 @@ class TrainConfig:
             raise ValueError(
                 "ce_impl has no effect without ce_chunk > 0 (the fused "
                 "head+loss master switch); add --ce-chunk")
+        self.mesh.validate()
 
 
-def _add_dataclass_args(parser: argparse.ArgumentParser, cls) -> None:
-    """One ``--flag`` per dataclass field (underscores become dashes),
-    typed from the field's default — the JAX config's helper."""
+def _add_dataclass_args(parser: argparse.ArgumentParser, cls,
+                        prefix: str = "") -> None:
+    """One ``--flag`` per dataclass field (underscores become dashes; a
+    nested dataclass field ``mesh`` gives ``--mesh.seq``), typed from
+    the field's default — the JAX config's helper."""
     hints = typing.get_type_hints(cls)
     for f in dataclasses.fields(cls):
         ftype = hints.get(f.name, str)
-        name = f"--{f.name}".replace("_", "-")
+        if dataclasses.is_dataclass(ftype):
+            _add_dataclass_args(parser, ftype, prefix=f"{f.name}.")
+            continue
+        name = f"--{prefix}{f.name}".replace("_", "-")
         default = f.default
         if ftype is bool or isinstance(default, bool):
             parser.add_argument(
@@ -150,13 +175,17 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> TrainConfig:
     parser = argparse.ArgumentParser(
         prog="tensorflow_distributed_tpu_torch",
         description="PyTorch/CUDA port of tensorflow_distributed_tpu "
-        "(GPT causal-LM training on one GPU)",
+        "(GPT causal-LM training on one GPU, or on --mesh.seq GPUs with "
+        "ring attention under torchrun)",
         allow_abbrev=False)
     _add_dataclass_args(parser, TrainConfig)
     ns, unknown = parser.parse_known_args(argv)
     if unknown:
         parser.error(f"not ported to PyTorch yet: {' '.join(unknown)} "
                      f"(see ROADMAP.md queue A)")
-    cfg = TrainConfig(**vars(ns))
+    fields = vars(ns)
+    mesh = {k.split(".", 1)[1]: fields.pop(k) for k in list(fields)
+            if k.startswith("mesh.")}
+    cfg = TrainConfig(**fields, mesh=MeshConfig(**mesh))
     cfg.validate()
     return cfg

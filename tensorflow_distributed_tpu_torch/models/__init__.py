@@ -11,7 +11,7 @@ MODEL_NAMES = ("gpt_lm",)
 def build_model(name: str, dropout_rate: Optional[float] = None,
                 compute_dtype: torch.dtype = torch.bfloat16, **overrides):
     """Explicit per-family dispatch; ``overrides`` are TransformerConfig
-    fields (plus ``size``)."""
+    fields (plus ``size``, and ``ring`` for sequence parallelism)."""
     from tensorflow_distributed_tpu_torch.models import transformer
 
     if name == "gpt_lm":

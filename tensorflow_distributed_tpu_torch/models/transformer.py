@@ -15,7 +15,12 @@ Numerics follow the flax model:
   of its product: (ln_f output in the compute dtype, the [V, D] head
   matrix, its bias or None), for the fused head+loss (ops/fused_ce.py).
   Both heads store W as [V, D] (``lm_head.weight``, ``tok_emb.weight``),
-  so the JAX ``w_vocab_axis`` is always 0 here.
+  so the JAX ``w_vocab_axis`` is always 0 here;
+- with a ``ring`` (a ``parallel.ring_attention.ProcessGroupRing`` of
+  more than one process), each process holds a contiguous block of the
+  sequence: attention is the causal ring (the JAX ``mesh.seq > 1``
+  branch), and the learned positions are offset by the block's start
+  (GSPMD sees global positions; here each rank is told its offset).
 
 Parameter names mirror the flax tree (``layer_0.attn.qkv`` for
 ``layer_0/attn/qkv``), so ``interop.params_from_flax`` is a fixed
@@ -34,6 +39,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from tensorflow_distributed_tpu_torch.ops.flash_attention import attention
+from tensorflow_distributed_tpu_torch.parallel.ring_attention import (
+    ring_attention)
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default
 INIT_STD = 0.02  # the JAX _dense_init (BERT-style normal)
@@ -135,10 +142,20 @@ def _dropout(x: torch.Tensor, rate: float, train: bool,
                                                            device=x.device))
 
 
+def _is_ring(ring) -> bool:
+    return ring is not None and ring.size > 1
+
+
 class SelfAttention(nn.Module):
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, ring=None):
         super().__init__()
+        if _is_ring(ring) and cfg.attn_window:
+            raise ValueError(
+                "attn_window with mesh.seq > 1 is not implemented (the "
+                "zigzag ring schedule is not windowed); at W << L the "
+                "window IS the long-context strategy — use mesh.seq == 1")
         self.cfg = cfg
+        self.ring = ring
         h, dh = cfg.n_heads, cfg.d_model // cfg.n_heads
         # flax DenseGeneral kernels: qkv [D, 3, H, dh], out [H, dh, D];
         # here flattened to Linear's [out, in].
@@ -151,7 +168,11 @@ class SelfAttention(nn.Module):
         h, dh = cfg.n_heads, cfg.d_model // cfg.n_heads
         qkv = _dense(x, self.qkv, cfg.compute_dtype).view(B, L, 3, h, dh)
         q, k, v = qkv.unbind(dim=2)
-        out = attention(q, k, v, causal=cfg.causal, window=cfg.attn_window)
+        if _is_ring(self.ring):
+            out = ring_attention(q, k, v, self.ring, causal=cfg.causal)
+        else:
+            out = attention(q, k, v, causal=cfg.causal,
+                            window=cfg.attn_window)
         return _dense(out.reshape(B, L, h * dh), self.out, cfg.compute_dtype)
 
 
@@ -171,11 +192,11 @@ class Mlp(nn.Module):
 class Block(nn.Module):
     """Pre-LN transformer block."""
 
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, ring=None):
         super().__init__()
         self.cfg = cfg
         self.ln1 = nn.LayerNorm(cfg.d_model, eps=LN_EPS)
-        self.attn = SelfAttention(cfg)
+        self.attn = SelfAttention(cfg, ring)
         self.ln2 = nn.LayerNorm(cfg.d_model, eps=LN_EPS)
         self.mlp = Mlp(cfg)
 
@@ -197,16 +218,19 @@ class _LmHead(nn.Linear):
 
 
 class TransformerLM(nn.Module):
-    """Transformer LM backbone: tokens [B, L] int -> logits [B, L, V] f32."""
+    """Transformer LM backbone: tokens [B, L] int -> logits [B, L, V] f32.
+    With a ``ring`` of S processes, tokens are this rank's contiguous
+    [B, L/S] block of the sequence and the outputs cover that block."""
 
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, ring=None):
         super().__init__()
         _check_ported(cfg)
         self.cfg = cfg
+        self.ring = ring
         self.tok_emb = nn.Embedding(cfg.vocab_size, cfg.d_model)
         self.pos_emb = nn.Embedding(cfg.max_len, cfg.d_model)
         for i in range(cfg.n_layers):
-            self.add_module(f"layer_{i}", Block(cfg))
+            self.add_module(f"layer_{i}", Block(cfg, ring))
         self.ln_f = nn.LayerNorm(cfg.d_model, eps=LN_EPS)
         if not cfg.tie_embeddings:
             self.lm_head = _LmHead(cfg.d_model, cfg.vocab_size)
@@ -232,9 +256,12 @@ class TransformerLM(nn.Module):
         [V] or None)."""
         cfg = self.cfg
         B, L = tokens.shape
-        if L > cfg.max_len:
-            raise ValueError(f"sequence length {L} > max_len {cfg.max_len}")
-        positions = torch.arange(L, device=tokens.device)
+        shards, start = ((self.ring.size, self.ring.index * L)
+                         if _is_ring(self.ring) else (1, 0))
+        if L * shards > cfg.max_len:
+            raise ValueError(f"sequence length {L * shards} > max_len "
+                             f"{cfg.max_len}")
+        positions = start + torch.arange(L, device=tokens.device)
         x = (self.tok_emb(tokens) + self.pos_emb(positions)[None]).to(
             cfg.compute_dtype)
         for i in range(cfg.n_layers):
@@ -255,10 +282,11 @@ class CausalLM(TransformerLM):
     ``causal=True`` config (gpt_lm enforces it)."""
 
 
-def gpt_lm(size: str = "small", **overrides) -> CausalLM:
+def gpt_lm(size: str = "small", ring=None, **overrides) -> CausalLM:
     """GPT-style decoder-only LM. ``size``: the GPT-2 ladder
-    (GPT2_SIZES) or "tiny" (test scale); ``overrides`` are
-    TransformerConfig fields."""
+    (GPT2_SIZES) or "tiny" (test scale); ``ring``: the seq group's ring
+    (``ProcessGroupRing``) for sequence parallelism, or None;
+    ``overrides`` are TransformerConfig fields."""
     overrides["causal"] = True
     if size in GPT2_SIZES:
         cfg = gpt2_small_config(**{**GPT2_SIZES[size], **overrides})
@@ -267,4 +295,4 @@ def gpt_lm(size: str = "small", **overrides) -> CausalLM:
     else:
         raise ValueError(f"gpt_lm size {size!r}; have "
                          f"({', '.join(GPT2_SIZES)}, tiny)")
-    return CausalLM(cfg)
+    return CausalLM(cfg, ring)

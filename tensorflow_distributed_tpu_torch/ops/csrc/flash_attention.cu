@@ -1,8 +1,11 @@
-// Flash attention for Hopper (sm_90a): forward, dQ and dK/dV kernels.
+// Flash attention for Hopper (sm_90a): forward, dQ and dK/dV kernels, in
+// a normalized and a partial (ring-step) form.
 //
 // Replaces the Pallas TPU kernels of tensorflow_distributed_tpu/ops/
 // flash_attention.py: _fwd_kernel (forward), _dq_kernel and _dkv_kernel
-// (backward). Same function, same numerics:
+// (backward), and their partial-softmax twins _fwd_partial_kernel,
+// _dq_partial_kernel and _dkv_partial_kernel (ring attention's local
+// compute). Same function, same numerics:
 //   s   = (q . k^T) * scale in f32, scale = 1/sqrt(D), masked to NEG_INF
 //         outside the causal / sliding-window band (window_keep);
 //   fwd : online softmax in f32, P cast to bf16 before P.V, emits
@@ -10,9 +13,18 @@
 //   bwd : P = exp(s - lse), dS = P * (dO.V^T - rowsum(dO*O)) * scale,
 //         dS and P cast to bf16 before their products,
 //         dQ = dS.K, dK = dS^T.Q, dV = P^T.dO.
+// The partial form (template flag PARTIAL, the JAX _p_and_ds with
+// (row_sub, row_add) = (m, +dl) instead of (lse, -delta)):
+//   fwd : the same streaming loop without the lse fold; emits the
+//         unnormalized acc (f32) and the row max m and exp-sum l (f32);
+//   bwd : P = exp(s - m), dS = P * (dO.V^T + dl) * scale, with dO read
+//         as f32 (the JAX bwd casts it so) and rounded to bf16 for the
+//         tensor-core products; m carries no gradient (the merged ring
+//         output does not depend on the stabilizer).
 //
 // Layout: q, o, dout, dq [BH, L, D]; k, v, dk, dv [BH, Lk, D]; all bf16,
-// contiguous. lse [BH, L] f32. D in {64, 128}; L and Lk multiples of 64.
+// contiguous, except the partial form's o and dout (f32). lse, m, l, dl
+// [BH, L] f32. D in {64, 128}; L and Lk multiples of 64.
 //
 // What bounds them on an H100: at GPT-2-small training shapes
 // (BH = 96, L = 1024, D = 64) the tensor-core work (~13-26 GFLOP per
@@ -25,7 +37,12 @@
 // TPU's sequential grid and VMEM scratch carried across grid steps,
 // each CTA owns its output tile and loops over the reduction axis
 // itself; rowsum(dO*O) is recomputed per tile as on the TPU rather than
-// stored. No TMA, wgmma or pipelining yet: that is later work.
+// stored. No TMA, wgmma or pipelining yet: that is later work. The
+// partial kernels share these loops as template instantiations: a ring
+// step's half-block attend (GPT-2-small at S = 4: BH 96, 128 x 128) is
+// a few MB of traffic and tens of MFLOP, so they are bound by bytes and
+// by launch latency; their f32 o and dO double the bytes of those
+// operands.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -98,6 +115,30 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int rows) 
   for (int i = threadIdx.x; i < n; i += THREADS) d[i] = s[i];
 }
 
+// The same for f32 rows, rounded to bf16 on the way into shared memory
+// (the partial backward's dO), 16 bytes read per thread per iteration.
+template <int D>
+__device__ __forceinline__ void load_tile_f32(bf16* dst, const float* src, int rows) {
+  const int n = rows * D / 4;
+  const float4* s = reinterpret_cast<const float4*>(src);
+  __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(dst);
+  for (int i = threadIdx.x; i < n; i += THREADS) {
+    const float4 x = s[i];
+    d[2 * i] = __floats2bfloat162_rn(x.x, x.y);
+    d[2 * i + 1] = __floats2bfloat162_rn(x.z, x.w);
+  }
+}
+
+// dO tile into shared memory as bf16: read as bf16 (normalized kernels)
+// or as f32 (partial kernels).
+template <int D, bool PARTIAL>
+__device__ __forceinline__ void load_dout(bf16* dst, const void* dout, size_t off) {
+  if constexpr (PARTIAL)
+    load_tile_f32<D>(dst, static_cast<const float*>(dout) + off, BQ);
+  else
+    load_tile<D>(dst, static_cast<const bf16*>(dout) + off, BQ);
+}
+
 // acc[16 x 16*N] (one fragment per 16 columns) = A[16 x D] . B^T where B
 // is [16*N x D] row-major in shared memory (so B^T is col-major).
 template <int D, int N>
@@ -150,19 +191,21 @@ __device__ __forceinline__ void store_rows(bf16* dst, float* scratch, FragC* acc
 
 // ---------------------------------------------------------------- forward
 // Grid (BH, L/BQ); one CTA per (head, query tile). Causal tiles are
-// visited last-first so the longest bands start earliest.
+// visited last-first so the longest bands start earliest. Normalized:
+// o is bf16 and `stat` the lse. PARTIAL: o is the f32 accumulator,
+// `stat` the row max m and `l_out` the exp-sum l.
 
 template <int D>
 constexpr int fwd_smem() {
   return (BQ * D + 2 * BK * D + BQ * BK) * 2 + (BQ * BK + BQ * D) * 4;
 }
 
-template <int D>
+template <int D, bool PARTIAL>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o,
-                 float* __restrict__ lse, int L, int Lk, float scale,
-                 int causal, int window) {
+                 const bf16* __restrict__ v, void* __restrict__ o,
+                 float* __restrict__ stat, float* __restrict__ l_out, int L,
+                 int Lk, float scale, int causal, int window) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);           // BQ x D
   bf16* sK = sQ + BQ * D;                             // BK x D
@@ -245,31 +288,46 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   __syncthreads();
 
-  bf16* ob = o + ((size_t)bh * L + (size_t)row0) * D;
+  const size_t rbase = (size_t)bh * L + (size_t)row0;
+  if constexpr (PARTIAL) {
+    float* ob = static_cast<float*>(o) + rbase * D;
 #pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    for (int d = lane; d < D; d += 32)
-      ob[r * D + d] = __float2bfloat16(sOw[r * D + d] / l_row[r]);
-    if (lane == 0) lse[(size_t)bh * L + row0 + r] = m_row[r] + logf(l_row[r]);
+    for (int r = 0; r < 16; ++r) {
+      for (int d = lane; d < D; d += 32) ob[r * D + d] = sOw[r * D + d];
+      if (lane == 0) {
+        stat[rbase + r] = m_row[r];
+        l_out[rbase + r] = l_row[r];
+      }
+    }
+  } else {
+    bf16* ob = static_cast<bf16*>(o) + rbase * D;
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      for (int d = lane; d < D; d += 32)
+        ob[r * D + d] = __float2bfloat16(sOw[r * D + d] / l_row[r]);
+      if (lane == 0) stat[rbase + r] = m_row[r] + logf(l_row[r]);
+    }
   }
 }
 
 // --------------------------------------------------------------------- dQ
 // Grid (BH, L/BQ); one CTA per (head, query tile), looping over the key
-// tiles of the band. dQ accumulates in registers.
+// tiles of the band. dQ accumulates in registers. Normalized: `stat` is
+// the lse, and delta = rowsum(dO * O) is recomputed from o (dl unused).
+// PARTIAL: `stat` is m, delta = -dl, dout is f32 (o unused).
 
 template <int D>
 constexpr int dq_smem() {
   return (2 * BQ * D + 2 * BK * D + BQ * BK) * 2 + 2 * BQ * BK * 4;
 }
 
-template <int D>
+template <int D, bool PARTIAL>
 __global__ void __launch_bounds__(THREADS)
 flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, const bf16* __restrict__ o,
-                const float* __restrict__ lse, const bf16* __restrict__ dout,
-                bf16* __restrict__ dq, int L, int Lk, float scale, int causal,
-                int window) {
+                const float* __restrict__ stat, const float* __restrict__ dl,
+                const void* __restrict__ dout, bf16* __restrict__ dq, int L,
+                int Lk, float scale, int causal, int window) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);            // BQ x D
   bf16* sdO = sQ + BQ * D;                             // BQ x D
@@ -288,7 +346,7 @@ flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vb = v + (size_t)bh * Lk * D;
 
   load_tile<D>(sQ, q + qoff, BQ);
-  load_tile<D>(sdO, dout + qoff, BQ);
+  load_dout<D, PARTIAL>(sdO, dout, qoff);
   __syncthreads();
 
   const int row0 = qt * BQ + warp * 16;
@@ -298,16 +356,21 @@ flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* sdPw = sdP + warp * 16 * BK;
   bf16* sdSw = sdS + warp * 16 * BK;
 
-  // Per-row lse and delta = rowsum(dO * O), lane-replicated.
+  // Per-row lse (or m) and delta = rowsum(dO * O) (or -dl), lane-replicated.
   float lse_r[16], delta_r[16];
-  const bf16* ow = o + ((size_t)bh * L + row0) * D;
+  const size_t rbase = (size_t)bh * L + row0;
 #pragma unroll
   for (int r = 0; r < 16; ++r) {
-    float acc = 0.f;
-    for (int d = lane; d < D; d += 32)
-      acc += __bfloat162float(sdOw[r * D + d]) * __bfloat162float(ow[r * D + d]);
-    delta_r[r] = warp_sum(acc);
-    lse_r[r] = lse[(size_t)bh * L + row0 + r];
+    if constexpr (PARTIAL) {
+      delta_r[r] = -dl[rbase + r];
+    } else {
+      const bf16* orow = o + (rbase + r) * D;
+      float acc = 0.f;
+      for (int d = lane; d < D; d += 32)
+        acc += __bfloat162float(sdOw[r * D + d]) * __bfloat162float(orow[d]);
+      delta_r[r] = warp_sum(acc);
+    }
+    lse_r[r] = stat[rbase + r];
   }
 
   FragC dq_acc[D / 16];
@@ -351,20 +414,22 @@ flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // Grid (BH, Lk/BK); one CTA per (head, key tile), looping over the query
 // tiles of the band. Each warp owns 16 key rows and computes the
 // transposed blocks S^T = K Q^T and dP^T = V dO^T directly, so P^T and
-// dS^T are warp-local and dK/dV accumulate in registers.
+// dS^T are warp-local and dK/dV accumulate in registers. `stat`, `dl`,
+// `o` and `dout` as in the dQ kernel.
 
 template <int D>
 constexpr int dkv_smem() {
   return (2 * BK * D + 2 * BQ * D + 2 * BK * BQ) * 2 + 2 * BK * BQ * 4 + 2 * BQ * 4;
 }
 
-template <int D>
+template <int D, bool PARTIAL>
 __global__ void __launch_bounds__(THREADS)
 flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const bf16* __restrict__ o,
-                 const float* __restrict__ lse, const bf16* __restrict__ dout,
-                 bf16* __restrict__ dk, bf16* __restrict__ dv, int L, int Lk,
-                 float scale, int causal, int window) {
+                 const float* __restrict__ stat, const float* __restrict__ dl,
+                 const void* __restrict__ dout, bf16* __restrict__ dk,
+                 bf16* __restrict__ dv, int L, int Lk, float scale, int causal,
+                 int window) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sK = reinterpret_cast<bf16*>(smem);             // BK x D
   bf16* sV = sK + BK * D;                               // BK x D
@@ -407,18 +472,24 @@ flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const size_t qoff = ((size_t)bh * L + (size_t)qt * BQ) * D;
     __syncthreads();  // the previous Q/dO tile and its stats are consumed
     load_tile<D>(sQ, q + qoff, BQ);
-    load_tile<D>(sdO, dout + qoff, BQ);
-    if (threadIdx.x < BQ) sLse[threadIdx.x] = lse[(size_t)bh * L + qt * BQ + threadIdx.x];
+    load_dout<D, PARTIAL>(sdO, dout, qoff);
+    if (threadIdx.x < BQ) {
+      const size_t row = (size_t)bh * L + qt * BQ + threadIdx.x;
+      sLse[threadIdx.x] = stat[row];
+      if constexpr (PARTIAL) sDelta[threadIdx.x] = -dl[row];
+    }
     __syncthreads();
-    // delta = rowsum(dO * O) for the tile's 64 query rows, 16 per warp.
-    for (int r = 0; r < 16; ++r) {
-      const int qr = warp * 16 + r;
-      const bf16* orow = o + qoff + (size_t)qr * D;
-      float acc = 0.f;
-      for (int d = lane; d < D; d += 32)
-        acc += __bfloat162float(sdO[qr * D + d]) * __bfloat162float(orow[d]);
-      acc = warp_sum(acc);
-      if (lane == 0) sDelta[qr] = acc;
+    if constexpr (!PARTIAL) {
+      // delta = rowsum(dO * O) for the tile's 64 query rows, 16 per warp.
+      for (int r = 0; r < 16; ++r) {
+        const int qr = warp * 16 + r;
+        const bf16* orow = o + qoff + (size_t)qr * D;
+        float acc = 0.f;
+        for (int d = lane; d < D; d += 32)
+          acc += __bfloat162float(sdO[qr * D + d]) * __bfloat162float(orow[d]);
+        acc = warp_sum(acc);
+        if (lane == 0) sDelta[qr] = acc;
+      }
     }
 
     mm_abt<D, BQ / 16>(sStw, BQ, sKw, sQ);    // S^T_w  = K_w Q^T
@@ -455,80 +526,112 @@ cudaError_t prepare(Kernel kernel, int smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
+// One launcher per kernel: set the shared-memory limit, launch on
+// `stream`, return the launch's CUDA error. `o` and `dl` are null where
+// the form does not read them (see the kernels).
+
+template <int D, bool PARTIAL>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, void* stat,
+                       void* l, int BH, int L, int Lk, float scale, int causal,
+                       int window, cudaStream_t s) {
+  auto kernel = flash_fwd_kernel<D, PARTIAL>;
+  cudaError_t err = prepare(kernel, fwd_smem<D>());
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(BH, L / BQ), THREADS, fwd_smem<D>(), s>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, o, (float*)stat, (float*)l, L,
+      Lk, scale, causal, window);
+  return cudaGetLastError();
+}
+
+template <int D, bool PARTIAL>
+cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o,
+                      const void* stat, const void* dl, const void* dout, void* dq,
+                      int BH, int L, int Lk, float scale, int causal, int window,
+                      cudaStream_t s) {
+  auto kernel = flash_dq_kernel<D, PARTIAL>;
+  cudaError_t err = prepare(kernel, dq_smem<D>());
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(BH, L / BQ), THREADS, dq_smem<D>(), s>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o, (const float*)stat,
+      (const float*)dl, dout, (bf16*)dq, L, Lk, scale, causal, window);
+  return cudaGetLastError();
+}
+
+template <int D, bool PARTIAL>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* o,
+                       const void* stat, const void* dl, const void* dout, void* dk,
+                       void* dv, int BH, int L, int Lk, float scale, int causal,
+                       int window, cudaStream_t s) {
+  auto kernel = flash_dkv_kernel<D, PARTIAL>;
+  cudaError_t err = prepare(kernel, dkv_smem<D>());
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(BH, Lk / BK), THREADS, dkv_smem<D>(), s>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o, (const float*)stat,
+      (const float*)dl, dout, (bf16*)dk, (bf16*)dv, L, Lk, scale, causal, window);
+  return cudaGetLastError();
+}
+
+// The head dim picks the instantiation (64 or 128; anything else is
+// refused before a launch).
+#define TFD_BY_HEAD_DIM(LAUNCH, PARTIAL, ...)                        \
+  do {                                                               \
+    if (D == 64) return LAUNCH<64, PARTIAL>(__VA_ARGS__);            \
+    if (D == 128) return LAUNCH<128, PARTIAL>(__VA_ARGS__);          \
+    return cudaErrorInvalidValue;                                    \
+  } while (0)
+
 }  // namespace
 
 // ------------------------------------------------------------ C interface
 // Each returns the CUDA error of the launch (0 = launched). Pointers are
-// device pointers; `stream` is a cudaStream_t.
+// device pointers; `stream` is a cudaStream_t. Every function takes its
+// pointers, then (BH, L, Lk, D, scale, causal, window), then the stream.
 
 extern "C" int tfd_flash_fwd(const void* q, const void* k, const void* v, void* o,
                              void* lse, int BH, int L, int Lk, int D, float scale,
                              int causal, int window, void* stream) {
-  const dim3 grid(BH, L / BQ);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-#define TFD_FWD(DIM)                                                              \
-  err = prepare(flash_fwd_kernel<DIM>, fwd_smem<DIM>());                          \
-  if (err != cudaSuccess) return err;                                             \
-  flash_fwd_kernel<DIM><<<grid, THREADS, fwd_smem<DIM>(), s>>>(                   \
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse, L,   \
-      Lk, scale, causal, window);
-  if (D == 64) {
-    TFD_FWD(64)
-  } else if (D == 128) {
-    TFD_FWD(128)
-  } else {
-    return cudaErrorInvalidValue;
-  }
-#undef TFD_FWD
-  return cudaGetLastError();
+  TFD_BY_HEAD_DIM(launch_fwd, false, q, k, v, o, lse, nullptr, BH, L, Lk, scale, causal,
+                  window, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int tfd_flash_dq(const void* q, const void* k, const void* v, const void* o,
                             const void* lse, const void* dout, void* dq, int BH, int L,
                             int Lk, int D, float scale, int causal, int window,
                             void* stream) {
-  const dim3 grid(BH, L / BQ);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-#define TFD_DQ(DIM)                                                                 \
-  err = prepare(flash_dq_kernel<DIM>, dq_smem<DIM>());                              \
-  if (err != cudaSuccess) return err;                                               \
-  flash_dq_kernel<DIM><<<grid, THREADS, dq_smem<DIM>(), s>>>(                       \
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o,               \
-      (const float*)lse, (const bf16*)dout, (bf16*)dq, L, Lk, scale, causal, window);
-  if (D == 64) {
-    TFD_DQ(64)
-  } else if (D == 128) {
-    TFD_DQ(128)
-  } else {
-    return cudaErrorInvalidValue;
-  }
-#undef TFD_DQ
-  return cudaGetLastError();
+  TFD_BY_HEAD_DIM(launch_dq, false, q, k, v, o, lse, nullptr, dout, dq, BH, L, Lk, scale,
+                  causal, window, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int tfd_flash_dkv(const void* q, const void* k, const void* v, const void* o,
                              const void* lse, const void* dout, void* dk, void* dv,
                              int BH, int L, int Lk, int D, float scale, int causal,
                              int window, void* stream) {
-  const dim3 grid(BH, Lk / BK);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-#define TFD_DKV(DIM)                                                                \
-  err = prepare(flash_dkv_kernel<DIM>, dkv_smem<DIM>());                            \
-  if (err != cudaSuccess) return err;                                               \
-  flash_dkv_kernel<DIM><<<grid, THREADS, dkv_smem<DIM>(), s>>>(                     \
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o,               \
-      (const float*)lse, (const bf16*)dout, (bf16*)dk, (bf16*)dv, L, Lk, scale,     \
-      causal, window);
-  if (D == 64) {
-    TFD_DKV(64)
-  } else if (D == 128) {
-    TFD_DKV(128)
-  } else {
-    return cudaErrorInvalidValue;
-  }
-#undef TFD_DKV
-  return cudaGetLastError();
+  TFD_BY_HEAD_DIM(launch_dkv, false, q, k, v, o, lse, nullptr, dout, dk, dv, BH, L, Lk,
+                  scale, causal, window, static_cast<cudaStream_t>(stream));
+}
+
+// The partial (ring-step) kernels: o f32 [BH, L, D]; m, l, dl f32 [BH, L];
+// dout f32 [BH, L, D].
+
+extern "C" int tfd_flash_fwd_partial(const void* q, const void* k, const void* v, void* o,
+                                     void* m, void* l, int BH, int L, int Lk, int D,
+                                     float scale, int causal, int window, void* stream) {
+  TFD_BY_HEAD_DIM(launch_fwd, true, q, k, v, o, m, l, BH, L, Lk, scale, causal, window,
+                  static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int tfd_flash_dq_partial(const void* q, const void* k, const void* v,
+                                    const void* m, const void* dl, const void* dout,
+                                    void* dq, int BH, int L, int Lk, int D, float scale,
+                                    int causal, int window, void* stream) {
+  TFD_BY_HEAD_DIM(launch_dq, true, q, k, v, nullptr, m, dl, dout, dq, BH, L, Lk, scale,
+                  causal, window, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int tfd_flash_dkv_partial(const void* q, const void* k, const void* v,
+                                     const void* m, const void* dl, const void* dout,
+                                     void* dk, void* dv, int BH, int L, int Lk, int D,
+                                     float scale, int causal, int window, void* stream) {
+  TFD_BY_HEAD_DIM(launch_dkv, true, q, k, v, nullptr, m, dl, dout, dk, dv, BH, L, Lk,
+                  scale, causal, window, static_cast<cudaStream_t>(stream));
 }

@@ -203,6 +203,27 @@ def fused_ce_sums(x: Tensor, w: Tensor, bias: Optional[Tensor],
                              float(label_smoothing))
 
 
+def fused_ce_sums_by(impl: str, x: Tensor, w: Tensor,
+                     bias: Optional[Tensor], targets: Tensor, mask: Tensor,
+                     *, vocab_size: int, chunk: int,
+                     label_smoothing: float = 0.0
+                     ) -> Tuple[Tensor, Tensor, Tensor]:
+    """(ce_sum, correct, mask_sum) of the fused head by ``impl``: "scan"
+    (this module's chunk loop, every shape) or "kernel" (the fused-CE
+    kernels, ops/fused_ce_kernel.py: the logits never reach device
+    memory; raises on a shape ``kernel_supported`` refuses; ``chunk`` is
+    not used)."""
+    if impl == "kernel":
+        from tensorflow_distributed_tpu_torch.ops.fused_ce_kernel import (
+            fused_ce_sums_kernel)
+        return fused_ce_sums_kernel(x, w, bias, targets, mask, vocab_size,
+                                    label_smoothing=label_smoothing)
+    if impl == "scan":
+        return fused_ce_sums(x, w, bias, targets, mask, vocab_size, chunk,
+                             label_smoothing)
+    raise ValueError(f"impl {impl!r}; have {IMPLS}")
+
+
 def fused_masked_cross_entropy(x: Tensor, w: Tensor,
                                bias: Optional[Tensor], targets: Tensor,
                                mask: Tensor, *, vocab_size: int, chunk: int,
@@ -210,23 +231,10 @@ def fused_masked_cross_entropy(x: Tensor, w: Tensor,
                                impl: str = "scan") -> Tuple[Tensor, Tensor]:
     """Mean masked CE and accuracy from the fused pieces: the drop-in for
     masked_softmax_cross_entropy + masked_accuracy when the caller holds
-    features instead of logits. Returns (loss, accuracy).
-
-    ``impl``: "scan" (this module's chunk loop, every shape) or "kernel"
-    (the fused-CE kernels, ops/fused_ce_kernel.py: the logits never
-    reach device memory; raises on a shape ``kernel_supported`` refuses;
-    ``chunk`` is not used)."""
-    if impl == "kernel":
-        from tensorflow_distributed_tpu_torch.ops.fused_ce_kernel import (
-            fused_ce_sums_kernel)
-        ce_sum, correct, n = fused_ce_sums_kernel(
-            x, w, bias, targets, mask, vocab_size,
-            label_smoothing=label_smoothing)
-    elif impl == "scan":
-        ce_sum, correct, n = fused_ce_sums(x, w, bias, targets, mask,
-                                           vocab_size, chunk,
-                                           label_smoothing)
-    else:
-        raise ValueError(f"impl {impl!r}; have {IMPLS}")
+    features instead of logits. Returns (loss, accuracy); ``impl`` as in
+    :func:`fused_ce_sums_by`."""
+    ce_sum, correct, n = fused_ce_sums_by(
+        impl, x, w, bias, targets, mask, vocab_size=vocab_size, chunk=chunk,
+        label_smoothing=label_smoothing)
     n = n.clamp(min=1.0)
     return ce_sum / n, correct / n

@@ -5,6 +5,11 @@ metrics dict); tasks plug in here and the step machinery stays
 task-agnostic. The train step is forward, backward, the optimizer
 update and the step counter, with the parameters updated in place.
 Metrics stay on the device; the loop fetches them on its cadence.
+
+Under sequence parallelism every rank holds a copy of every parameter;
+after the backward their gradients are summed over the seq group (the
+port's form of GSPMD's implicit psum), before clipping, the grad-norm
+metric and the optimizer, so the copies stay bit-identical.
 """
 
 from __future__ import annotations
@@ -13,6 +18,7 @@ from typing import Callable, Dict, Tuple
 
 import torch
 
+from tensorflow_distributed_tpu_torch.parallel import mesh
 from tensorflow_distributed_tpu_torch.train.optim import global_norm
 from tensorflow_distributed_tpu_torch.train.state import TrainState
 
@@ -22,14 +28,17 @@ LossFn = Callable[..., Tuple[torch.Tensor, Metrics]]
 
 
 def make_train_step(loss: LossFn, device: torch.device, seed: int = 0,
-                    grad_norm_metric: bool = False
+                    grad_norm_metric: bool = False, ring=None
                     ) -> Callable[[TrainState, Batch],
                                   Tuple[TrainState, Metrics]]:
     """Build the train step for a model on ``device``. Dropout draws
-    from one generator, seeded with ``seed`` and advanced by every step.
-    ``grad_norm_metric`` reports the pre-clip global gradient norm as
-    ``metrics["grad_norm"]``."""
-    generator = torch.Generator(device=device).manual_seed(seed)
+    from one generator, seeded with ``seed`` (plus the ring position
+    under sequence parallelism, so each block of a sequence draws its
+    own mask) and advanced by every step. ``grad_norm_metric`` reports
+    the pre-clip global gradient norm as ``metrics["grad_norm"]``.
+    ``ring``: the seq group's ring; the gradients are summed over it."""
+    generator = torch.Generator(device=device).manual_seed(
+        seed + (ring.index if ring is not None else 0))
 
     def step(state: TrainState, batch: Batch) -> Tuple[TrainState, Metrics]:
         params = state.params
@@ -37,6 +46,8 @@ def make_train_step(loss: LossFn, device: torch.device, seed: int = 0,
                               generator=generator)
         value.backward()
         grads = {n: p.grad for n, p in params.items()}
+        if ring is not None:
+            mesh.all_reduce_sum_(grads.values(), ring.group)
         if grad_norm_metric:
             metrics = dict(metrics,
                            grad_norm=global_norm(list(grads.values())))

@@ -7,6 +7,14 @@ trains either the dense head with masked cross-entropy or, with
 over its features and head matrix, and the [B, L, V] logits are never
 materialized), by the chunk loop (``ce_impl="scan"``) or the fused-CE
 kernels (``ce_impl="kernel"``).
+
+Under sequence parallelism (``ring``: the seq group's
+``ProcessGroupRing``) each rank holds a block of every sequence. The
+loss stays the global masked mean: each rank's CE sum, correct count and
+token count are summed over the group, and the rank's loss to
+differentiate is its own CE sum over the global token count, so the
+gradients summed over the group (train/step.py) are the gradient of the
+global mean.
 """
 
 from __future__ import annotations
@@ -16,10 +24,12 @@ from typing import Any, Callable, Iterator, Optional
 
 import numpy as np
 
+import torch
+
 from tensorflow_distributed_tpu_torch.config import TrainConfig
-from tensorflow_distributed_tpu_torch.ops.fused_ce import (
-    fused_masked_cross_entropy)
+from tensorflow_distributed_tpu_torch.ops.fused_ce import fused_ce_sums_by
 from tensorflow_distributed_tpu_torch.ops.losses import masked_ce_sums
+from tensorflow_distributed_tpu_torch.parallel import mesh
 from tensorflow_distributed_tpu_torch.train.step import LossFn
 
 
@@ -40,40 +50,56 @@ class Task:
     vocab_size: int = 0               # the dataset's vocabulary
 
 
-def _fused_lm_metrics(model, batch, train, generator, label_smoothing,
-                      ce_chunk, ce_impl="scan"):
+def _fused_lm_sums(model, batch, train, generator, label_smoothing,
+                   ce_chunk, ce_impl="scan"):
     """The fused-CE body: run the model in features_only mode and the
-    head product inside the chunked loss. Returns (loss, accuracy)."""
+    head product inside the chunked loss. Returns (ce_sum, correct,
+    mask_sum)."""
     feats, w, bias = model(batch["tokens"], train=train, generator=generator,
                            features_only=True)
-    return fused_masked_cross_entropy(
-        feats, w, bias, batch["targets"], batch["mask"],
-        vocab_size=w.shape[0], chunk=ce_chunk,
-        label_smoothing=label_smoothing, impl=ce_impl)
+    return fused_ce_sums_by(ce_impl, feats, w, bias, batch["targets"],
+                            batch["mask"], vocab_size=w.shape[0],
+                            chunk=ce_chunk, label_smoothing=label_smoothing)
 
 
-def make_mlm_loss(label_smoothing: float = 0.0, ce_chunk: int = 0,
-                  ce_impl: str = "scan") -> LossFn:
-    def mlm_loss(model, batch, train, generator=None):
-        """Masked-CE objective over a {tokens, targets, mask} batch."""
-        if ce_chunk:
-            loss, acc = _fused_lm_metrics(model, batch, train, generator,
-                                          label_smoothing, ce_chunk, ce_impl)
-            return loss, {"loss": loss, "accuracy": acc}
-        logits = model(batch["tokens"], train=train, generator=generator)
-        ce_sum, correct, n = masked_ce_sums(logits, batch["targets"],
-                                            batch["mask"], label_smoothing)
+def _mean(ce_sum, correct, n, ring):
+    """(loss to differentiate, metrics) from this rank's sums: the
+    masked mean over the whole seq group (one all-reduce of the three
+    sums) when there is a ring, else over this batch."""
+    if ring is None:
         n = n.clamp(min=1.0)
         loss = ce_sum / n
         return loss, {"loss": loss, "accuracy": correct / n}
+    total = torch.stack([ce_sum, correct, n]).detach().float()
+    mesh.all_reduce_sum_([total], ring.group)
+    n_all = total[2].clamp(min=1.0)
+    return ce_sum / n_all, {"loss": total[0] / n_all,
+                            "accuracy": total[1] / n_all}
+
+
+def make_mlm_loss(label_smoothing: float = 0.0, ce_chunk: int = 0,
+                  ce_impl: str = "scan", ring=None) -> LossFn:
+    def mlm_loss(model, batch, train, generator=None):
+        """Masked-CE objective over a {tokens, targets, mask} batch."""
+        if ce_chunk:
+            sums = _fused_lm_sums(model, batch, train, generator,
+                                  label_smoothing, ce_chunk, ce_impl)
+        else:
+            logits = model(batch["tokens"], train=train, generator=generator)
+            sums = masked_ce_sums(logits, batch["targets"], batch["mask"],
+                                  label_smoothing)
+        return _mean(*sums, ring)
 
     return mlm_loss
 
 
 def _make_lm_task(cfg: TrainConfig, objective: str = "clm",
-                  seq_len: int = 128, vocab_size: int = 64) -> Task:
+                  seq_len: int = 128, vocab_size: int = 64,
+                  ring=None) -> Task:
     """Causal-LM task over the synthetic next-token stream;
-    ``cfg.seq_len`` / ``cfg.synthetic_vocab`` override the defaults."""
+    ``cfg.seq_len`` / ``cfg.synthetic_vocab`` override the defaults.
+    The streams yield global batches; with a ``ring`` the loop hands
+    each rank its block of the sequence axis."""
     from tensorflow_distributed_tpu_torch.data.lm import (
         LmBatcher, synthetic_clm)
 
@@ -99,22 +125,23 @@ def _make_lm_task(cfg: TrainConfig, objective: str = "clm",
     return Task(
         name=objective,
         loss=make_mlm_loss(cfg.label_smoothing, ce_chunk=cfg.ce_chunk,
-                           ce_impl=cfg.ce_impl),
+                           ce_impl=cfg.ce_impl, ring=ring),
         # Eval drops the train-only smoothing but keeps the fused head
         # (the dense eval logits would not fit where ce_chunk is what
         # makes the train shapes fit), always by the scan formulation:
         # the JAX package's eval rule, kept so both report the same.
-        eval_loss=make_mlm_loss(ce_chunk=cfg.ce_chunk),
+        eval_loss=make_mlm_loss(ce_chunk=cfg.ce_chunk, ring=ring),
         train_stream=batcher.forever,
         eval_batches=eval_batches, eval_size=len(val_ds),
         steps_per_epoch=batcher.steps_per_epoch, seq_len=seq_len,
         vocab_size=train_ds.vocab_size)
 
 
-def make_task(cfg: TrainConfig) -> Task:
-    """Model family -> task: gpt_lm trains next-token prediction."""
+def make_task(cfg: TrainConfig, ring=None) -> Task:
+    """Model family -> task: gpt_lm trains next-token prediction.
+    ``ring``: the seq group's ring under sequence parallelism."""
     if cfg.model == "gpt_lm":
-        return _make_lm_task(cfg, "clm")
+        return _make_lm_task(cfg, "clm", ring=ring)
     raise NotImplementedError(
         f"no task for model {cfg.model!r} in the PyTorch port yet (see "
         f"ROADMAP.md queue A)")

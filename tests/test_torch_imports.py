@@ -42,15 +42,18 @@ def test_port_and_chip_smoke_import_without_jax():
         leaked = sorted(m for m in sys.modules
                         if m.split(".")[0] in BANNED)
         assert not leaked, leaked
-        print("OK", len(names))
+        print("OK", len(names), *names)
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("OK")
     # Every module of the port: config, cli, interop, models, ops (the
-    # fused-CE modules included), parallel, data, train, utils.
-    assert int(out.stdout.split()[1]) >= 22
+    # fused-CE modules included), parallel (ring_attention and mesh),
+    # data, train, utils.
+    words = out.stdout.split()
+    assert int(words[1]) >= 23
+    assert "tensorflow_distributed_tpu_torch.parallel.mesh" in words[2:]
 
 
 def _run_smoke(cwd):

@@ -4,15 +4,21 @@ package.
 The headline check runs the JAX ``train()`` and the port's ``train()``
 for 5 steps of the tiny GPT (f32, dropout 0, same seed, the port started
 from the JAX init via ``interop.params_from_flax``): the per-step losses
-agree to 1e-4. The CLI then runs end to end on the CPU.
+agree to 1e-4. The sequence-parallel run (``--mesh.seq 4``, 4 spawned
+gloo ranks) is held to JAX's (data 2, seq 4) mesh and to the port's one
+process. The CLI then runs end to end on the CPU.
 """
+
+import types
 
 import jax
 import numpy as np
 import pytest
 import torch
 
+from tensorflow_distributed_tpu.config import MeshConfig as JaxMesh
 from tensorflow_distributed_tpu.config import TrainConfig as JaxConfig
+from tensorflow_distributed_tpu.config import parse_args as jax_parse_args
 from tensorflow_distributed_tpu.data import lm as jlm
 from tensorflow_distributed_tpu.ops import losses as jlosses
 from tensorflow_distributed_tpu.parallel import make_mesh
@@ -24,6 +30,7 @@ from tensorflow_distributed_tpu_torch.data import lm as tlm
 from tensorflow_distributed_tpu_torch.ops import losses as tlosses
 from tensorflow_distributed_tpu_torch.train import loop as tloop
 from tensorflow_distributed_tpu_torch.utils.logging import MetricLogger
+from torch_ring_workers import spawn_ranks, train_run
 
 TINY = dict(model="gpt_lm", model_size="tiny", seq_len=32, batch_size=8,
             train_steps=5, eval_every=0, log_every=1, eval_batch_size=8,
@@ -126,6 +133,85 @@ def test_fused_task_loss_and_grads_match_jax(impl, tie):
                                    atol=1e-5, err_msg=name)
 
 
+def _jax_init(jcfg):
+    """The JAX run's init, rebuilt the way its train() built it."""
+    mesh = make_mesh(jcfg.mesh)
+    _, jstate = jloop._build_model_and_state(jcfg, mesh,
+                                             jax_make_task(jcfg, mesh))
+    return interop.params_from_flax(jax.device_get(jstate.params))
+
+
+SEQ_HEADS = {"dense": {}, "fused_scan": dict(ce_chunk=32, ce_impl="scan")}
+
+
+@pytest.mark.parametrize("head", SEQ_HEADS)
+def test_seq4_trajectory_matches_jax_seq_mesh_and_one_process(head,
+                                                              tmp_path):
+    """3 steps of --mesh.seq 4 --device cpu in 4 spawned gloo ranks
+    (ring attention, the global masked mean, summed gradients) from the
+    JAX init: the losses equal JAX's on a (data 2, seq 4) mesh to 1e-4
+    and the port's one-process run to 1e-5, and every rank ends with
+    the same parameters."""
+    fields = dict(TINY, train_steps=3, **SEQ_HEADS[head])
+    jcfg = JaxConfig(**fields, mesh=JaxMesh(data=2, seq=4))
+    jres = jloop.train(jcfg, logger=MetricLogger(enabled=False))
+    init = _jax_init(jcfg)
+    torch.save(init, tmp_path / "init.pt")
+    spawn_ranks(train_run, 4, tmp_path, fields, tmp_path / "init.pt",
+                tmp_path)
+    one = tloop.train(TrainConfig(**fields, device="cpu"),
+                      logger=MetricLogger(enabled=False), init_params=init)
+    ranks = [torch.load(tmp_path / f"rank{r}.pt") for r in range(4)]
+    for rank in ranks:
+        assert len(rank["losses"]) == 3
+        np.testing.assert_allclose(rank["losses"], _losses(jres.logger),
+                                   atol=1e-4)
+        np.testing.assert_allclose(rank["losses"], _losses(one.logger),
+                                   atol=1e-5)
+        np.testing.assert_allclose(rank["final"]["loss"],
+                                   jres.final_metrics["loss"], atol=1e-4)
+        for name, value in rank["params"].items():
+            assert torch.equal(value, ranks[0]["params"][name]), name
+
+
+def test_mesh_seq_flag_spelling_and_default_match_jax():
+    assert parse_args(["--mesh.seq", "4", "--device", "cpu"]).mesh.seq == 4
+    assert jax_parse_args(["--mesh.seq", "4"]).mesh.seq == 4
+    assert TrainConfig().mesh.seq == JaxConfig().mesh.seq == 1
+    for argv in (["--mesh.seq", "0"], ["--mesh.seq", "-2"]):
+        with pytest.raises(ValueError, match="mesh.seq"):
+            parse_args(argv + ["--device", "cpu"])
+        with pytest.raises(ValueError, match="mesh.seq"):
+            JaxMesh(seq=int(argv[1])).validate()
+
+
+def test_mesh_seq_without_a_world_of_that_size_raises(monkeypatch):
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(var, raising=False)
+    cfg = parse_args(["--mesh.seq", "4", "--device", "cpu", "--model-size",
+                      "tiny", "--seq-len", "32", "--batch-size", "8"])
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 4"):
+        tloop.train(cfg, logger=MetricLogger(enabled=False))
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("LOCAL_RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(RuntimeError, match="WORLD_SIZE=2"):
+        tloop.train(cfg, logger=MetricLogger(enabled=False))
+
+
+def test_attn_window_with_a_ring_raises_as_in_jax():
+    from tensorflow_distributed_tpu_torch.models.transformer import gpt_lm
+
+    with pytest.raises(ValueError, match="attn_window"):
+        JaxConfig(model="gpt_lm", attn_window=8,
+                  mesh=JaxMesh(data=2, seq=4)).validate()
+    ring = types.SimpleNamespace(size=4, index=0)
+    with pytest.raises(ValueError, match="attn_window"):
+        gpt_lm("tiny", ring=ring, attn_window=8)
+    gpt_lm("tiny", ring=types.SimpleNamespace(size=1, index=0),
+           attn_window=8)  # a ring of one is the single-device path
+
+
 def test_fused_flags_parse_with_jax_spellings_and_defaults():
     cfg = parse_args(["--ce-chunk", "8192", "--ce-impl", "kernel",
                       "--tie-embeddings", "true", "--device", "cpu"])
@@ -198,7 +284,9 @@ def test_parse_args_spellings_and_defaults():
 
 
 @pytest.mark.parametrize("argv", [["--mesh.data", "8"], ["--pos-emb", "rope"],
-                                  ["--dataset", "text"], ["--remat", "dots"]])
+                                  ["--dataset", "text"], ["--remat", "dots"],
+                                  ["--mesh.model", "2"], ["--mesh.pipe", "2"],
+                                  ["--mesh.expert", "2"]])
 def test_unported_jax_flags_are_rejected(argv, capsys):
     with pytest.raises(SystemExit):
         parse_args(argv)

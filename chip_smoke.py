@@ -11,7 +11,11 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
              and whether nvcc and ninja are on the machine;
 2. build   — compiles the flash-attention and fused-CE kernels from
              ``tensorflow_distributed_tpu_torch/ops/csrc`` (sm_90a), one
-             nvcc per source, started together;
+             nvcc per source, started together; lists the registers and
+             spills of the two Hopper kernels (B1's forward, B5's dx),
+             fails if ptxas ignored a setmaxnreg, and counts their
+             wgmma, TMA, mbarrier and mma.sync instructions in the
+             machine code (cuobjdump);
 3. kernels — each kernel (forward, dQ, dK/dV) against its plain PyTorch
              version computed in f32 from the same bf16 inputs, at
              B=8 H=12 L=1024 D=64 (causal, non-causal, causal + window
@@ -37,7 +41,13 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
              (final eval through the scan formulation): finite, falling
              loss, the first step's loss within 1e-2 of the dense run's,
              each CE kernel launched once per step;
-8. ring_kernels — each partial-attention kernel of the ring (forward,
+8. step_profile — where a step of each of the two runs goes: its host-
+             clocked time with and without the per-step loss fetch, the
+             host's time to enqueue a step, and, from torch.profiler, the
+             device's busy time and idle share by kernel kind (flash,
+             fused CE, GEMM, other) and the host ops with the most self
+             CPU time;
+9. ring_kernels — each partial-attention kernel of the ring (forward,
              dQ, dK/dV) against its plain PyTorch version computed in
              f32 from the same bf16 inputs, at GPT-2-small's half-block
              under a 4-way ring (B 8, H 12, 128 rows, D 64) and at the
@@ -47,7 +57,7 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
              call computes the unnormalized partials or their
              gradients: library_ms is null), and the kernels' device
              time alone (torch.profiler);
-9. ring     — ``ring_attention`` over ``StackedRing(S)`` (the S ring
+10. ring    — ``ring_attention`` over ``StackedRing(S)`` (the S ring
              positions stacked in one process on one card), forward and
              backward, at S=4 (B 8, H 12, L 1024, D 64) and S=8 (B 4,
              H 8, L 8192): each partial kernel launched 2S+1 times per
@@ -55,7 +65,7 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
              plain full attention in f32 (at S=8 on the last 512 query
              rows, forward), the forward and fwd+bwd times, and the
              device time of a fwd+bwd (all kernels, the partial ones);
-10. train_ring — on a machine with two or more cards only: GPT-2-small
+11. train_ring — on a machine with two or more cards only: GPT-2-small
              trained by torchrun over S = 4 (or 2) processes with
              ``--mesh.seq S`` (NCCL), the first five losses within 1e-2
              of a one-card run of the same flags, every rank launching
@@ -116,6 +126,7 @@ TRAIN_ARGV = ["--mode", "train", "--model", "gpt_lm", "--model-size", "small",
               "--eval-every", "0", "--eval-batch-size", "8",
               "--compute-dtype", "bfloat16", "--log-every", "1"]
 TRAIN_FUSED_ARGV = TRAIN_ARGV + ["--ce-chunk", "8192", "--ce-impl", "kernel"]
+PROFILE_STEPS = 10  # step_profile: timed and traced steps of each run
 # Partial (ring-step) kernels vs their plain versions; the ring vs the
 # flash kernels and the plain full attention (plain in f32 from the same
 # bf16 inputs; the kernels round P and dO to bf16 for their products).
@@ -145,6 +156,9 @@ TRAIN_RING_ARGV = ["--mode", "train", "--model", "gpt_lm", "--model-size",
 CSRC = "tensorflow_distributed_tpu_torch/ops/csrc"
 SOURCES = {"flash_attention": f"{CSRC}/flash_attention.cu",
            "fused_ce": f"{CSRC}/fused_ce.cu"}
+# The kernels built from ops/csrc/hopper.cuh (wgmma, TMA, mbarriers,
+# setmaxnreg): B1's forward and B5's dx.
+HOPPER_KERNELS = ("flash_fwd_hopper", "fused_ce_dx_hopper")
 TPU_FLASH = "tensorflow_distributed_tpu/ops/flash_attention.py"
 TPU_CE = "tensorflow_distributed_tpu/ops/fused_ce_kernel.py"
 REPLACES = {"flash_fwd": f"{TPU_FLASH}:183", "flash_dq": f"{TPU_FLASH}:255",
@@ -267,16 +281,83 @@ def phase_device(torch) -> str:
     return gpu
 
 
+def ptxas_by_kernel(log: str):
+    """{mangled kernel name: its ptxas register and spill lines} from
+    nvcc's ``-Xptxas -v`` output."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            cur = ln.split("'")[1]
+            out[cur] = []
+        elif cur is not None and ("registers" in ln or "spill" in ln):
+            out[cur].append(ln.strip())
+    return out
+
+
 def phase_build(fa, fce) -> None:
-    """Both libraries, one nvcc each, started together."""
+    """Both libraries, one nvcc each, started together. The Hopper
+    kernels' registers and spills are listed by instantiation, and the
+    run fails if ptxas ignored a setmaxnreg (the warp roles must split
+    in one if/else for it to hold)."""
     t0 = time.time()
     with ThreadPoolExecutor(max_workers=2) as pool:
         logs = dict(zip(("flash_attention", "fused_ce"),
                         pool.map(lambda mod: mod.build(), (fa, fce))))
+    hopper = {}
+    for name, log in logs.items():
+        for fn, lines in ptxas_by_kernel(log).items():
+            short = next((k for k in HOPPER_KERNELS if k in fn), None)
+            if short is not None:
+                hopper[f"{short}{'<128>' if 'ILi128E' in fn else ''}"] = lines
+    cached = [name for name, log in logs.items() if not log]
+    from tensorflow_distributed_tpu_torch.ops import cuda_ext
+
+    sass = {k: sass_counts(cuda_ext.load(name)._name, k) for k, name in
+            zip(HOPPER_KERNELS, ("flash_attention", "fused_ce"))}
     emit({"phase": "build", "seconds": round(time.time() - t0, 3),
+          "cached": cached, "hopper_ptxas": hopper, "hopper_sass": sass,
           "ptxas": {name: [ln.strip() for ln in log.splitlines()
                            if "registers" in ln or "spill" in ln]
                     for name, log in logs.items()}})
+    for name, log in logs.items():
+        check("setmaxnreg" not in log or "ignored" not in log,
+              f"ptxas ignored setmaxnreg in {name}: {log}")
+    check(cached or all(any(k in fn for fn in hopper) for k in HOPPER_KERNELS),
+          f"the build did not compile every Hopper kernel: {sorted(hopper)}")
+    for k, counts in sass.items():
+        check(counts is None or (counts["HGMMA"] > 0 and counts["UTMALDG"] > 0
+                                 and counts["SYNCS"] > 0
+                                 and counts["HMMA"] == 0),
+              f"{k} is not a wgmma/TMA/mbarrier kernel: {counts}")
+
+
+def sass_counts(lib: str, kernel: str):
+    """Counts of the Hopper instructions in ``kernel``'s machine code
+    (cuobjdump -sass): HGMMA (wgmma), UTMALDG (TMA tensor load), SYNCS
+    (mbarrier arrive/wait) and HMMA (the mma.sync that WMMA compiles to,
+    which these kernels must not use). None without cuobjdump."""
+    from tensorflow_distributed_tpu_torch.ops import cuda_ext
+
+    tool = os.path.join(os.path.dirname(cuda_ext.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "-sass", lib], capture_output=True,
+                         text=True, timeout=120).stdout
+    counts = dict.fromkeys(("HGMMA", "UTMALDG", "SYNCS", "HMMA"), 0)
+    for part in out.split("Function : ")[1:]:
+        if kernel not in part.split("\n", 1)[0]:
+            continue
+        for ln in part.splitlines():
+            words = ln.split("*/", 1)[-1].split()
+            if words and words[0].startswith("@"):
+                words = words[1:]
+            if not words:
+                continue
+            op = words[0]
+            for key in counts:
+                if op.startswith(key + ".") or op == key:
+                    counts[key] += 1
+    return counts
 
 
 def phase_kernels(fa, torch, F):
@@ -358,8 +439,17 @@ def phase_kernels(fa, torch, F):
             # the kernels line); the flash backward computes all three.
             results["library_ms"] = {"flash_fwd": sdpa_fwd, "flash_dq": None,
                                      "flash_dkv": None}
+            # Device time alone (torch.profiler): a short kernel's event
+            # time also holds the host side of its call.
+            fwd_device = {
+                "flash_fwd": sum(device_ms(torch, lambda: fa.flash_fwd(
+                    q, k, v, causal, window), 20).values()) or None,
+                "sdpa_fwd": sum(device_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        q4, k4, v4, is_causal=True), 20).values()) or None}
             emit({"phase": "timing", **case, "ms": results["ms"],
                   "plain_ms": results["plain_ms"],
+                  "fwd_device_ms": fwd_device,
                   "sdpa_fwd_ms": sdpa_fwd,
                   "sdpa_fwd_bwd_ms": time_ms(torch, sdpa_fwd_bwd),
                   "sdpa_flash_bwd_ms": sdpa_flash_bwd_ms(torch, q4, k4, v4,
@@ -665,6 +755,88 @@ def phase_train_fused(kernels, torch, dense):
           f"first-step loss {rec['first_loss']} vs dense "
           f"{dense['first_loss']}")
     return rec
+
+
+def phase_step_profile(torch) -> None:
+    """Where a train step's time goes, for the dense and the fused run's
+    flags: the host-clocked step (each step ending in the loop's host
+    fetch of its loss, as with --log-every 1) over PROFILE_STEPS steps
+    after 3 warm-up steps, and without the per-step fetch; the host's
+    time to enqueue one step from an idle device; the device time of
+    the steps from torch.profiler (CUDA activity), by kernel kind; and
+    the host ops with the most self CPU time (CPU activity; the
+    profiler's own cost inflates them). Measurement only: the launch
+    counts of the train phases are already read."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tensorflow_distributed_tpu_torch.config import parse_args
+    from tensorflow_distributed_tpu_torch.train import loop
+    from tensorflow_distributed_tpu_torch.train.step import make_train_step
+    from tensorflow_distributed_tpu_torch.train.tasks import make_task
+
+    device = torch.device("cuda")
+    for run, argv in (("train", TRAIN_ARGV), ("train_fused", TRAIN_FUSED_ARGV)):
+        cfg = parse_args(argv)
+        task = make_task(cfg)
+        _, state = loop._build_model_and_state(cfg, device)
+        step = make_train_step(task.loss, device, cfg.seed)
+        stream = task.train_stream(0)
+        batches = [loop.to_device(loop.seq_block(next(stream), None), device)
+                   for _ in range(4)]
+        it = iter(range(10 ** 9))
+
+        def one(fetch=True):
+            nonlocal state
+            state, metrics = step(state, batches[next(it) % len(batches)])
+            if fetch:
+                float(metrics["loss"])
+
+        def steps_ms(fetch):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            for _ in range(PROFILE_STEPS):
+                one(fetch)
+            torch.cuda.synchronize()
+            return (time.time() - t0) / PROFILE_STEPS * 1e3
+
+        for _ in range(3):
+            one()
+        step_ms = steps_ms(True)
+        step_ms_no_fetch = steps_ms(False)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        one(False)
+        enqueue_ms = (time.time() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            for _ in range(PROFILE_STEPS):
+                one()
+            torch.cuda.synchronize()
+        host_top = [[e.key[:60], e.self_cpu_time_total / PROFILE_STEPS / 1e3,
+                     e.count / PROFILE_STEPS]
+                    for e in sorted(prof.key_averages(),
+                                    key=lambda e: -e.self_cpu_time_total)[:8]]
+        dev = device_ms(torch, one, PROFILE_STEPS)
+        busy = sum(dev.values())
+        kinds = {"flash": 0.0, "fused_ce": 0.0, "gemm": 0.0, "other": 0.0}
+        for name, ms in dev.items():
+            low = name.lower()
+            kind = ("flash" if "flash_" in low else
+                    "fused_ce" if "fused_ce" in low else
+                    "gemm" if any(k in low for k in ("gemm", "xmma", "nvjet",
+                                                     "cutlass", "cublas"))
+                    else "other")
+            kinds[kind] += ms
+        emit({"phase": "step_profile", "run": run, "steps": PROFILE_STEPS,
+              "step_ms": step_ms, "step_ms_no_fetch": step_ms_no_fetch,
+              "host_enqueue_ms": enqueue_ms,
+              "host_top_self_ms_calls": host_top,
+              "device_busy_ms": busy or None,
+              "device_idle_share": (1 - busy / step_ms) if busy else None,
+              "device_ms_by_kind": kinds,
+              "device_top": [[name[:80], ms] for name, ms in sorted(
+                  dev.items(), key=lambda kv: -kv[1])[:8]]})
+        del state, batches
+        torch.cuda.empty_cache()
 
 
 def partial_bounds(B, H, nh, D, causal):
@@ -1002,6 +1174,7 @@ def main(argv=None) -> int:
     phase_model_fused(fce, torch, np)
     dense = phase_train(kernels, torch)
     fused = phase_train_fused(kernels, torch, dense)
+    phase_step_profile(torch)
     partial = phase_ring_kernels(fa, torch, gpu)
     ring_launches = phase_ring(fa, ra, torch, gpu)
     phase_train_ring(torch)

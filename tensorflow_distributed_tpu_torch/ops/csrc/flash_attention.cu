@@ -30,24 +30,50 @@
 // (BH = 96, L = 1024, D = 64) the tensor-core work (~13-26 GFLOP per
 // call, causal) and the bytes each call must move (~50-90 MB) give
 // bounds of the same order (~15-26 us), so both the matrix units and
-// HBM matter. This first version is the simple, correct design: one
-// CTA of 4 warps per 64-row output tile, bf16 WMMA (16x16x16) with f32
-// accumulation, tiles staged in shared memory, and per-CTA loop bounds
-// that skip key (resp. query) tiles outside the band. Instead of the
-// TPU's sequential grid and VMEM scratch carried across grid steps,
-// each CTA owns its output tile and loops over the reduction axis
-// itself; rowsum(dO*O) is recomputed per tile as on the TPU rather than
-// stored. No TMA, wgmma or pipelining yet: that is later work. The
-// partial kernels share these loops as template instantiations: a ring
-// step's half-block attend (GPT-2-small at S = 4: BH 96, 128 x 128) is
-// a few MB of traffic and tens of MFLOP, so they are bound by bytes and
-// by launch latency; their f32 o and dO double the bytes of those
-// operands.
+// HBM matter.
+//
+// The normalized forward (tfd_flash_fwd) is the Hopper design,
+// flash_fwd_hopper<D>: a CTA of 64 query rows and two warpgroups, two
+// CTAs to an SM (at D 64), so one CTA's prologue and epilogue run under
+// the other's main loop. The producer warpgroup (registers cut to 24 by
+// setmaxnreg) has one thread issue TMA loads: the Q tile once, then the
+// band's K/V tiles of 128 keys into a ring of 3 stages, each stage with
+// a "full" mbarrier (TMA transaction bytes) and an "empty" one (one
+// arrival per consumer warp). The consumer warpgroup (registers raised
+// to 232) runs S = Q K^T as wgmma m64n128k16 from shared memory into
+// registers and the online softmax on those registers: the scale folds
+// into the exponent's FMA, 2^x is one ex2.approx, a row lives in one
+// quad (its max is two shfl.xor steps), and the band mask runs only on
+// tiles that cross the band edge or the end of the keys. O += P V is a
+// wgmma with P converted to bf16 in place as the register-A operand and
+// V read MN-major (trans-b). The S product of tile j + 1 and the P V
+// product of tile j are issued together, so the softmax of tile j + 1
+// runs under P V; the two P register sets swap roles each tile (a copy
+// would write registers an in-flight wgmma reads, and ptxas would
+// serialize the wgmmas). O stays in registers for the whole loop and is
+// written once, bf16, with the f32 lse. Q, K and V are 3-D tensor maps
+// [BH, rows, D], so a box never reads into the next head and rows past
+// L or Lk read as zeros.
+//
+// The other kernels are the first, simple design: one CTA of 4 warps
+// per 64-row output tile, bf16 WMMA (16x16x16) with f32 accumulation,
+// tiles staged in shared memory, and per-CTA loop bounds that skip key
+// (resp. query) tiles outside the band. Instead of the TPU's sequential
+// grid and VMEM scratch carried across grid steps, each CTA owns its
+// output tile and loops over the reduction axis itself; rowsum(dO*O) is
+// recomputed per tile as on the TPU rather than stored. The partial
+// kernels share these loops as template instantiations (the partial
+// forward is flash_fwd_kernel<D, true>): a ring step's half-block
+// attend (GPT-2-small at S = 4: BH 96, 128 x 128) is a few MB of
+// traffic and tens of MFLOP, so they are bound by bytes and by launch
+// latency; their f32 o and dO double the bytes of those operands.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 using namespace nvcuda;
 using bf16 = __nv_bfloat16;
@@ -191,9 +217,9 @@ __device__ __forceinline__ void store_rows(bf16* dst, float* scratch, FragC* acc
 
 // ---------------------------------------------------------------- forward
 // Grid (BH, L/BQ); one CTA per (head, query tile). Causal tiles are
-// visited last-first so the longest bands start earliest. Normalized:
-// o is bf16 and `stat` the lse. PARTIAL: o is the f32 accumulator,
-// `stat` the row max m and `l_out` the exp-sum l.
+// visited last-first so the longest bands start earliest. The partial
+// form only (the normalized forward is flash_fwd_hopper below): o is the
+// f32 accumulator, `stat` the row max m and `l_out` the exp-sum l.
 
 template <int D>
 constexpr int fwd_smem() {
@@ -206,6 +232,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, void* __restrict__ o,
                  float* __restrict__ stat, float* __restrict__ l_out, int L,
                  int Lk, float scale, int causal, int window) {
+  static_assert(PARTIAL, "the normalized forward is flash_fwd_hopper");
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);           // BQ x D
   bf16* sK = sQ + BQ * D;                             // BK x D
@@ -289,23 +316,13 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __syncthreads();
 
   const size_t rbase = (size_t)bh * L + (size_t)row0;
-  if constexpr (PARTIAL) {
-    float* ob = static_cast<float*>(o) + rbase * D;
+  float* ob = static_cast<float*>(o) + rbase * D;
 #pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      for (int d = lane; d < D; d += 32) ob[r * D + d] = sOw[r * D + d];
-      if (lane == 0) {
-        stat[rbase + r] = m_row[r];
-        l_out[rbase + r] = l_row[r];
-      }
-    }
-  } else {
-    bf16* ob = static_cast<bf16*>(o) + rbase * D;
-#pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      for (int d = lane; d < D; d += 32)
-        ob[r * D + d] = __float2bfloat16(sOw[r * D + d] / l_row[r]);
-      if (lane == 0) stat[rbase + r] = m_row[r] + logf(l_row[r]);
+  for (int r = 0; r < 16; ++r) {
+    for (int d = lane; d < D; d += 32) ob[r * D + d] = sOw[r * D + d];
+    if (lane == 0) {
+      stat[rbase + r] = m_row[r];
+      l_out[rbase + r] = l_row[r];
     }
   }
 }
@@ -571,6 +588,291 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
+// --------------------------------------------------- forward, Hopper design
+// Grid (BH, ceil(L / 64)); one CTA per (head, 64 query rows), heaviest
+// causal tiles first. See the note at the top of the file.
+
+namespace hfwd {
+
+constexpr int BN = 128;         // key rows per stage
+// One consumer warpgroup per CTA and two CTAs per SM (registers: 128 a
+// thread at launch; the producer gives back down to 24, the consumer
+// takes 232). Two consumer warpgroups sharing a CTA's K/V stages would
+// need 168 registers a thread at launch, one CTA per SM.
+constexpr int CONSUMERS = 1;    // consumer warpgroups, 64 query rows each
+constexpr int BM = 64 * CONSUMERS;  // query rows per CTA
+constexpr int CTAS_PER_SM = 2;
+constexpr int CONSUMER_REGS = 232;
+constexpr int THREADS = (CONSUMERS + 1) * 128;
+constexpr int ATOM = 128;       // bytes per swizzled row: 64 bf16 of D
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+template <int D>
+struct Smem {
+  static constexpr int ATOMS = D / 64;
+  static constexpr int STAGES = 3;
+  static constexpr int Q_BYTES = BM * D * 2;
+  static constexpr int KV_BYTES = BN * D * 2;  // one K or V tile
+  static constexpr int STAGE_BYTES = 2 * KV_BYTES;
+  static constexpr int BAR_OFF = Q_BYTES + STAGES * STAGE_BYTES;
+  static constexpr int BYTES = BAR_OFF + (2 * STAGES + 1) * 8 + 1024;  // + alignment slack
+};
+
+// Online softmax of one key tile on the S accumulator (m64n128, a
+// thread's rows r0 and r0 + 8, raw q.k): mask the band and the end of
+// the keys where the tile crosses them, update the running max m and
+// sum l in log2 units (alpha: the factor the old O and l take), and
+// leave P = 2^(s scale_log2 - m) as bf16 register-A fragments in pa.
+// The scale folds into the exponent's FMA (scale > 0 keeps the max).
+__device__ __forceinline__ void softmax_tile(float (&sacc)[BN / 2], uint32_t (&pa)[BN / 16][4],
+                                             float (&m)[2], float (&l)[2], float (&alpha)[2],
+                                             int col0, int wrow0, int r0, int lane, int Lk,
+                                             float scale_log2, int causal, int window) {
+  const bool edge = col0 + BN > Lk ||
+                    (causal && (col0 + BN - 1 > wrow0 || (window && col0 <= wrow0 + 63 - window)));
+  if (edge) {
+#pragma unroll
+    for (int j = 0; j < BN / 2; ++j) {
+      const int row = r0 + 8 * ((j % 4) / 2);
+      const int col = col0 + 8 * (j / 4) + 2 * (lane % 4) + (j % 2);
+      if (col >= Lk || !keep(row, col, causal, window)) sacc[j] = NEG_INF;
+    }
+  }
+  float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+  for (int j = 0; j < BN / 2; ++j) mx[(j % 4) / 2] = fmaxf(mx[(j % 4) / 2], sacc[j]);
+  float neg_m[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    // A masked score is NEG_INF after scaling, as in the JAX kernel.
+    const float m_new = fmaxf(m[h], mx[h] == NEG_INF ? NEG_INF : mx[h] * scale_log2);
+    alpha[h] = hopper::exp2_approx(m[h] - m_new);
+    m[h] = m_new;
+    l[h] *= alpha[h];
+    neg_m[h] = -m_new;
+  }
+  if (edge) {  // a masked score is NEG_INF after scaling: 2^(NEG_INF - m)
+#pragma unroll
+    for (int j = 0; j < BN / 2; ++j)
+      sacc[j] = hopper::exp2_approx(sacc[j] == NEG_INF ? NEG_INF + neg_m[(j % 4) / 2]
+                                                       : fmaf(sacc[j], scale_log2,
+                                                              neg_m[(j % 4) / 2]));
+  } else {
+#pragma unroll
+    for (int j = 0; j < BN / 2; ++j)
+      sacc[j] = hopper::exp2_approx(fmaf(sacc[j], scale_log2, neg_m[(j % 4) / 2]));
+  }
+#pragma unroll
+  for (int j = 0; j < BN / 2; ++j) l[(j % 4) / 2] += sacc[j];
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      pa[kk][r] = hopper::pack_bf16(sacc[8 * kk + 2 * r], sacc[8 * kk + 2 * r + 1]);
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, CTAS_PER_SM)
+flash_fwd_hopper(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                 const __grid_constant__ CUtensorMap mv, bf16* __restrict__ o,
+                 float* __restrict__ lse, int L, int Lk, float scale_log2, int causal,
+                 int window) {
+  using S = Smem<D>;
+  constexpr int STAGES = S::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  // Swizzled TMA tiles want 1024-byte-aligned shared addresses.
+  unsigned char* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BAR_OFF);
+  uint64_t* empty = full + STAGES;
+  uint64_t* qbar = empty + STAGES;
+
+  const int bh = blockIdx.x;
+  const int nq = (L + BM - 1) / BM, nk = (Lk + BN - 1) / BN;
+  const int qt = nq - 1 - blockIdx.y;
+  const int wg = threadIdx.x / 128;
+  int lo = 0, hi = nk - 1;  // the band's key tiles (the JAX _kv_needed)
+  if (causal) {
+    hi = min(hi, (qt * BM + BM - 1) / BN);
+    if (window) lo = max(qt * BM - window + 1, 0) / BN;
+  }
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], CONSUMERS * 4);
+    }
+    hopper::mbar_init(qbar, 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == CONSUMERS) {
+    // ---- producer: one thread issues every load
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == CONSUMERS * 128) {
+      hopper::mbar_expect_tx(qbar, S::Q_BYTES);
+      for (int a = 0; a < S::ATOMS; ++a)
+        hopper::tma_load_3d(smem + a * BM * ATOM, &mq, qbar, a * 64, qt * BM, bh);
+      for (int kt = lo, i = 0; kt <= hi; ++kt, ++i) {
+        const int s = i % STAGES, phase = (i / STAGES) & 1;
+        hopper::mbar_wait(&empty[s], phase ^ 1);  // the first round passes at once
+        hopper::mbar_expect_tx(&full[s], S::STAGE_BYTES);
+        unsigned char* kb = smem + S::Q_BYTES + s * S::STAGE_BYTES;
+        for (int a = 0; a < S::ATOMS; ++a) {
+          hopper::tma_load_3d(kb + a * BN * ATOM, &mk, &full[s], a * 64, kt * BN, bh);
+          hopper::tma_load_3d(kb + S::KV_BYTES + a * BN * ATOM, &mv, &full[s], a * 64, kt * BN,
+                              bh);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows each. Per key tile j the S product of
+    // tile j + 1 and the P.V product of tile j are issued together, and
+    // the softmax of tile j + 1 runs on the CUDA cores while the tensor
+    // cores do P.V; O is rescaled once that product is done.
+    hopper::setmaxnreg_inc<CONSUMER_REGS>();
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int wrow0 = qt * BM + wg * 64;           // the warpgroup's first query row
+    const int r0 = wrow0 + warp * 16 + lane / 4;   // this thread's rows: r0 and r0 + 8
+    const unsigned char* sq = smem + wg * 64 * ATOM;
+
+    float oacc[D / 2];
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) oacc[j] = 0.f;
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};  // log2-scaled running max, sum
+    float alpha[2];
+    float sacc[BN / 2];
+    // P as bf16 register-A fragments: the tile in P.V and the next one,
+    // swapping roles each tile (no copies, so no register is written
+    // while a wgmma that reads it is in flight).
+    uint32_t pa[BN / 16][4], pb[BN / 16][4];
+
+    // S = Q K^T of the tile in stage s: both operands K-major, D / 16
+    // steps of k16.
+    auto issue_s = [&](int s) {
+      const unsigned char* kb = smem + S::Q_BYTES + s * S::STAGE_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::Wgmma<BN, 0>::ss(
+            sacc, hopper::desc_sw128(sq + (kk / 4) * BM * ATOM + (kk % 4) * 32, 0),
+            hopper::desc_sw128(kb + (kk / 4) * BN * ATOM + (kk % 4) * 32, 0), kk > 0);
+    };
+    // O += P V of the tile in stage s: V [keys, D] is B with N = D
+    // contiguous (MN-major, trans-b); step kk reads keys 16 kk.. of every
+    // 64-column atom.
+    auto issue_pv = [&](int s, uint32_t(&p)[BN / 16][4]) {
+      const unsigned char* vb = smem + S::Q_BYTES + s * S::STAGE_BYTES + S::KV_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+        hopper::Wgmma<D, 1>::rs(oacc, p[kk], hopper::desc_sw128(vb + kk * 16 * ATOM, BN * ATOM),
+                                1);
+    };
+    // Tile kt (the i-th of the band, i >= 1): its S product and the
+    // previous tile's P.V (from pc) in flight together, its softmax into
+    // pn under the P.V, then O rescaled.
+    auto step = [&](int kt, int i, uint32_t(&pc)[BN / 16][4], uint32_t(&pn)[BN / 16][4]) {
+      const int s = i % STAGES, sp = (i - 1) % STAGES;
+      hopper::mbar_wait(&full[s], (i / STAGES) & 1);
+      hopper::fence_operand(oacc);
+      hopper::wgmma_fence();
+      issue_s(s);
+      hopper::wgmma_commit();
+      issue_pv(sp, pc);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();  // S of this tile; P.V of the last may still run
+      hopper::fence_operand(sacc);
+      softmax_tile(sacc, pn, m, l, alpha, kt * BN, wrow0, r0, lane, Lk, scale_log2, causal,
+                   window);
+      hopper::wgmma_wait<0>();
+      hopper::fence_operand(pc);
+      hopper::fence_operand(oacc);
+      if (lane == 0) hopper::mbar_arrive(&empty[sp]);
+#pragma unroll
+      for (int j = 0; j < D / 2; ++j) oacc[j] *= alpha[(j % 4) / 2];
+    };
+    // The last tile's P.V.
+    auto finish = [&](uint32_t(&pc)[BN / 16][4]) {
+      const int last = (hi - lo) % STAGES;
+      hopper::fence_operand(oacc);
+      hopper::wgmma_fence();
+      issue_pv(last, pc);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operand(pc);
+      hopper::fence_operand(oacc);
+      if (lane == 0) hopper::mbar_arrive(&empty[last]);
+    };
+
+    hopper::mbar_wait(qbar, 0);
+    hopper::mbar_wait(&full[0], 0);
+    hopper::wgmma_fence();
+    issue_s(0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_operand(sacc);
+    softmax_tile(sacc, pa, m, l, alpha, lo * BN, wrow0, r0, lane, Lk, scale_log2, causal, window);
+    int kt = lo + 1, i = 1;
+    for (; kt + 1 <= hi; kt += 2, i += 2) {
+      step(kt, i, pa, pb);
+      step(kt + 1, i + 1, pb, pa);
+    }
+    if (kt <= hi) {
+      step(kt, i, pa, pb);
+      finish(pb);
+    } else {
+      finish(pa);
+    }
+
+    // Epilogue: O / l in bf16, lse = (m + log2 l) ln 2; rows >= L dropped.
+    const size_t base = (size_t)bh * L;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    }
+    const float inv[2] = {1.f / l[0], 1.f / l[1]};
+#pragma unroll
+    for (int j = 0; j < D / 2; j += 2) {
+      const int h = (j % 4) / 2, row = r0 + 8 * h;
+      const int col = 8 * (j / 4) + 2 * (lane % 4);
+      if (row < L)
+        *reinterpret_cast<uint32_t*>(o + (base + row) * D + col) =
+            hopper::pack_bf16(oacc[j] * inv[h], oacc[j + 1] * inv[h]);
+    }
+    if (lane % 4 == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (r0 + 8 * h < L) lse[base + r0 + 8 * h] = (m[h] + log2f(l[h])) * LN2;
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse, int BH,
+                   int L, int Lk, float scale, int causal, int window, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  const uint64_t qdims[3] = {D, (uint64_t)L, (uint64_t)BH};
+  const uint64_t kdims[3] = {D, (uint64_t)Lk, (uint64_t)BH};
+  const uint64_t qstr[2] = {D * 2, (uint64_t)L * D * 2};
+  const uint64_t kstr[2] = {D * 2, (uint64_t)Lk * D * 2};
+  const uint32_t qbox[3] = {64, BM, 1}, kbox[3] = {64, BN, 1};
+  cudaError_t err = hopper::encode_bf16_map(&mq, q, 3, qdims, qstr, qbox);
+  if (err == cudaSuccess) err = hopper::encode_bf16_map(&mk, k, 3, kdims, kstr, kbox);
+  if (err == cudaSuccess) err = hopper::encode_bf16_map(&mv, v, 3, kdims, kstr, kbox);
+  if (err != cudaSuccess) return err;
+  auto kernel = flash_fwd_hopper<D>;
+  err = prepare(kernel, Smem<D>::BYTES);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(BH, (L + BM - 1) / BM), THREADS, Smem<D>::BYTES, stream>>>(
+      mq, mk, mv, (bf16*)o, (float*)lse, L, Lk, scale * LOG2E, causal, window);
+  return cudaGetLastError();
+}
+
+}  // namespace hfwd
+
 // The head dim picks the instantiation (64 or 128; anything else is
 // refused before a launch).
 #define TFD_BY_HEAD_DIM(LAUNCH, PARTIAL, ...)                        \
@@ -590,8 +892,10 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
 extern "C" int tfd_flash_fwd(const void* q, const void* k, const void* v, void* o,
                              void* lse, int BH, int L, int Lk, int D, float scale,
                              int causal, int window, void* stream) {
-  TFD_BY_HEAD_DIM(launch_fwd, false, q, k, v, o, lse, nullptr, BH, L, Lk, scale, causal,
-                  window, static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 64) return hfwd::launch<64>(q, k, v, o, lse, BH, L, Lk, scale, causal, window, s);
+  if (D == 128) return hfwd::launch<128>(q, k, v, o, lse, BH, L, Lk, scale, causal, window, s);
+  return cudaErrorInvalidValue;
 }
 
 extern "C" int tfd_flash_dq(const void* q, const void* k, const void* v, const void* o,

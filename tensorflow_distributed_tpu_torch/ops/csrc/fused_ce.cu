@@ -30,34 +30,69 @@
 // per byte: the logits product alone is 2 T D V = 0.632 TFLOP on ~90 MB
 // of input (0.64 ms at 989 TFLOP/s against 0.03 ms for the bytes), and
 // dx and dW each add a second product of the same size. So the design
-// keeps the tensor cores fed and never writes a logits block to memory:
-// each CTA computes its logits block with bf16 WMMA (16x16x16, f32
-// accumulation) from x and W tiles streamed over D in 32-column chunks
-// (cp.async, double-buffered), keeps the block in shared memory, and
-// consumes it there.
+// keeps the tensor cores fed and never writes a logits block to memory.
 //
 // The TPU grid runs in order and carries its accumulators in VMEM across
 // the vocab (resp. token) axis. Blocks here run in no order, so a CTA
 // owns its output and loops the reduction axis itself; nothing crosses
-// CTAs, no atomics:
+// CTAs, no atomics.
+//
+// dx is the Hopper design, fused_ce_dx_hopper: a CTA owns 64 tokens x a
+// 384-column slice of D and walks every 128-column vocab tile, with
+// three warpgroups. The producer (registers cut to 24 by setmaxnreg) has
+// one thread issue TMA loads: per vocab tile, the x and W chunks of 64 D
+// columns into a 4-stage ring under full/empty mbarriers, and
+// W[tile, slice] for the dx product into its own buffer, issued when the
+// previous tile's dx product releases it (as the consumers start this
+// tile's logits), so it lands under the logits product. The two consumer
+// warpgroups (registers raised to 240) share the 64 tokens: warpgroup h
+// computes vocab columns [64 h, 64 h + 64) of the logits block with
+// wgmma m64n64k16 from shared memory (x and W both K-major) into
+// registers, forms dlogits there exactly as the JAX _dlogits (bias,
+// exp(logit - lse), - (1-eps) at the target, - eps/V, times coef), and
+// stores them as bf16 into a shared 64 x 128 dlogits tile in the
+// 128-byte-swizzled K-major layout (double-buffered, a named barrier
+// between the halves); then each accumulates its own 192 columns of
+// dx += dlogits . W[tile, slice] with wgmma m64n192k16 (A the dlogits
+// tile, B the W slice MN-major: trans-b), and waits for it (left in
+// flight under the next tile's logits, ptxas serializes the wgmmas:
+// warning C7515). The f32 dx block (96 registers a thread) stays in
+// registers for the whole vocab loop and is written once, bf16.
+// Ragged edges come from TMA's zero fill (tokens >= T, vocab rows >= V,
+// D columns >= D) plus the vocab and row masks; the bias row goes
+// through shared memory, loaded under the logits product.
+//
+// Register budget and recompute: a warpgroup's dx accumulator over 64
+// tokens and N columns costs N / 2 registers a thread, its logits block
+// over 64 vocab columns 32. Splitting the vocab tile's logits between the
+// two warpgroups and sharing them through shared memory lets the CTA own
+// 384 columns (2 x 96 registers), so at D = 768 two slices recompute the
+// logits: 2 x 0.632 + 0.632 = 1.90 TFLOP executed for the 1.26 the
+// function needs, in 128 x 2 = 256 CTAs of one per SM (1.94 waves on 132
+// SMs). The alternative that keeps dlogits in registers as the dx
+// product's A operand (each warpgroup its own 64 tokens, a 64 x 128
+// logits block and a 256-column slice: 64 + 128 registers) executes 2.53
+// TFLOP in 192 CTAs (1.45 waves), spills, and was slower on the card.
+//
+// fwd and dW/db are the first, simple design: bf16 WMMA (16x16x16, f32
+// accumulation) from x and W tiles streamed over D in 32-column chunks
+// (cp.async, double-buffered) into a logits block kept in shared memory
+// and consumed there (logits_tile):
 //   fwd : a CTA owns 64 tokens and walks every 128-column vocab tile,
 //         with the running (m, l, gold, lsum, best, argmax) of its rows
 //         in registers;
-//   dx  : a CTA owns 64 tokens x a 384-column slice of D and walks every
-//         vocab tile; dW/db: a CTA owns 64 vocab rows x a 384-column
-//         slice of D and walks every 128-token tile.
-// A dx or dW accumulator over all of D does not fit one CTA (64 x 768
-// f32 is 196 KB, at D = 1600 400 KB), so each CTA owns a D slice and
-// keeps its 64 x 384 f32 block in registers (each warp 48 columns); the
-// price is that every slice recomputes the logits block: at D = 768 two
-// slices, so 2 x 0.632 + 0.632 = 1.90 TFLOP per backward kernel instead
-// of 1.26. db comes out of the dW CTA of slice 0 that owns the rows.
-// No TMA, wgmma or warp specialisation yet: that is later work.
+//   dW/db: a CTA owns 64 vocab rows x a 384-column slice of D and walks
+//         every 128-token tile, keeping its 64 x 384 f32 block in
+//         registers (each warp 48 columns) and recomputing the logits
+//         block per slice: at D = 768 two slices, 1.90 TFLOP. db comes
+//         out of the dW CTA of slice 0 that owns the rows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 using namespace nvcuda;
 using bf16 = __nv_bfloat16;
@@ -68,13 +103,13 @@ constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 constexpr int KC = 32;            // D columns per chunk of the logits product
 constexpr int KPAD = KC + 8;      // shared-memory row stride of a chunk (bf16)
-constexpr int CF = 3;             // 16-column fragments per warp in dx / dW
-constexpr int DS = WARPS * 16 * CF;  // D columns of dx / dW per CTA (384)
+constexpr int CF = 3;             // 16-column fragments per warp in dW
+constexpr int DS = WARPS * 16 * CF;  // D columns of dW per CTA (384)
 constexpr int DSPAD = DS + 8;
 constexpr float NEG_INF = -1e30f;  // large-finite, as the JAX kernels
 constexpr int INT_BIG = 1 << 30;
 
-// fwd and dx: 64 tokens x 128 vocab columns; dW: 128 tokens x 64 vocab.
+// fwd: 64 tokens x 128 vocab columns; dW: 128 tokens x 64 vocab.
 constexpr int XT = 64, XV = 128;
 constexpr int WT = 128, WV = 64;
 
@@ -330,90 +365,227 @@ fused_ce_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 }
 
 // --------------------------------------------------------------------- dx
-// Grid (ceil(T / 64), ceil(D / DS)); one CTA per (token tile, D slice),
-// walking every vocab tile: logits tile -> dlogits (bf16, shared) ->
-// dx_slice += dlogits . W[tile, slice], the W slice loaded while the
-// dlogits are formed.
+// The Hopper design (see the note at the top). Grid (ceil(T / 64),
+// ceil(D / 384)); one CTA per (64 tokens, 384-column D slice), walking
+// every vocab tile of 128 columns.
 
-constexpr int dx_smem() {
-  return Tile<XT, XV>::STAGE_BYTES + Tile<XT, XV>::TILE_BYTES + XT * (XV + 8) * 2 +
-         XV * DSPAD * 2 + 3 * XT * 4;
-}
+namespace hdx {
+
+constexpr int CONSUMERS = 2;
+constexpr int THREADS = (CONSUMERS + 1) * 128;
+constexpr int TM = 64;                  // tokens per CTA (both warpgroups)
+constexpr int BV = 128;                 // vocab columns per tile
+constexpr int HV = BV / CONSUMERS;      // logits columns per warpgroup
+constexpr int KC = 64;                  // D columns per logits chunk (one swizzle atom)
+constexpr int DSL = 384;                // D columns of dx per CTA
+constexpr int HD = DSL / CONSUMERS;     // dx columns per warpgroup
+constexpr int STAGES = 4;
+constexpr int ATOM = 128;               // bytes per swizzled row
+constexpr int X_BYTES = TM * KC * 2;
+constexpr int STAGE_BYTES = X_BYTES + BV * KC * 2;
+constexpr int WS_ATOM = BV * ATOM;      // W[tile, 64 columns of the slice]
+constexpr int WS_BYTES = (DSL / 64) * WS_ATOM;
+constexpr int DL_ATOM = TM * ATOM;      // dlogits[64 tokens, 64 vocab columns]
+constexpr int DL_BYTES = (BV / 64) * DL_ATOM;
+constexpr int WS_OFF = STAGES * STAGE_BYTES;
+constexpr int DL_OFF = WS_OFF + WS_BYTES;      // two dlogits tiles
+constexpr int BIAS_OFF = DL_OFF + 2 * DL_BYTES;  // two [BV] f32 bias rows
+constexpr int BAR_OFF = BIAS_OFF + 2 * BV * 4;
+constexpr int SMEM = BAR_OFF + (2 * STAGES + 2) * 8 + 1024;  // + alignment slack
+constexpr float LOG2E = 1.4426950408889634f;
 
 __global__ void __launch_bounds__(THREADS, 1)
-fused_ce_dx_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+fused_ce_dx_hopper(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorMap mw,
                    const float* __restrict__ b, const int* __restrict__ t,
                    const float* __restrict__ lse, const float* __restrict__ coef,
                    bf16* __restrict__ dx, int T, int D, int V, float eps) {
-  using TL = Tile<XT, XV>;
-  constexpr int RPW = XT / WARPS, CPL = XV / 32, LDD = XV + 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* stage = reinterpret_cast<bf16*>(smem);
-  float* sL = reinterpret_cast<float*>(smem + TL::STAGE_BYTES);
-  bf16* sD = reinterpret_cast<bf16*>(smem + TL::STAGE_BYTES + TL::TILE_BYTES);
-  bf16* sY = sD + XT * LDD;  // W[v0 : v0+XV, d0 : d0+DS]
-  int* sT = reinterpret_cast<int*>(sY + XV * DSPAD);
-  float* sLse = reinterpret_cast<float*>(sT + XT);
-  float* sCoef = sLse + XT;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + BAR_OFF);
+  uint64_t* empty = full + STAGES;
+  uint64_t* ws_full = empty + STAGES;
+  uint64_t* ws_empty = ws_full + 1;
+  unsigned char* ws = smem + WS_OFF;
 
-  const int tok0 = blockIdx.x * XT, d0 = blockIdx.y * DS;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tok0 = blockIdx.x * TM, d0 = blockIdx.y * DSL;
+  const int nk = (D + KC - 1) / KC, nv = (V + BV - 1) / BV;
+  const int wg = threadIdx.x / 128;
 
-  if (threadIdx.x < XT) {  // read after logits_tile's first barrier
-    const int row = tok0 + threadIdx.x;
-    sT[threadIdx.x] = row < T ? t[row] : -1;
-    sLse[threadIdx.x] = row < T ? lse[row] : 0.f;
-    sCoef[threadIdx.x] = row < T ? coef[row] : 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], CONSUMERS * 4);
+    }
+    hopper::mbar_init(ws_full, 1);
+    hopper::mbar_init(ws_empty, CONSUMERS * 4);
+    hopper::fence_barrier_init();
   }
-  FragC acc[4][CF];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < CF; ++c) wmma::fill_fragment(acc[i][c], 0.f);
+  __syncthreads();
 
-  for (int v0 = 0; v0 < V; v0 += XV) {
-    logits_tile<XT, XV>(sL, stage, x, w, tok0, T, v0, V, D);
-    load_block<XV, DS>(sY, w, v0, V, d0, D);
-    cp_async_commit();
-#pragma unroll
-    for (int j = 0; j < CPL; ++j) {
-      const int c = lane + 32 * j, col = v0 + c;
-      const bool valid = col < V;
-      const float bias = (b != nullptr && valid) ? b[col] : 0.f;
-#pragma unroll
-      for (int r = 0; r < RPW; ++r) {
-        const int rt = warp * RPW + r;
-        const int tg = sT[rt];
-        float d = 0.f;
-        if (tg >= 0 && valid) {  // the TPU _dlogits
-          d = expf(sL[rt * TL::LD + c] + bias - sLse[rt]);
-          if (col == tg) d -= 1.f - eps;
-          if (eps != 0.f) d -= eps / V;
-          d *= sCoef[rt];
+  if (wg == CONSUMERS) {
+    // ---- producer: per vocab tile, the x and W chunks of the logits
+    // product through the stage ring and, once the ring is full ahead of
+    // the consumers, W[tile, slice] for the dx product: its buffer is
+    // freed when the previous tile's dx product completes, about when the
+    // consumers start this tile's logits, and it lands while they compute
+    // them.
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == CONSUMERS * 128) {
+      int i = 0;
+      for (int vt = 0; vt < nv; ++vt) {
+        const int v0 = vt * BV;
+        for (int c = 0; c < nk; ++c, ++i) {
+          const int s = i % STAGES;
+          hopper::mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
+          hopper::mbar_expect_tx(&full[s], STAGE_BYTES);
+          unsigned char* st = smem + s * STAGE_BYTES;
+          hopper::tma_load_2d(st, &mx, &full[s], c * KC, tok0);
+          hopper::tma_load_2d(st + X_BYTES, &mw, &full[s], c * KC, v0);
+          if (c == min(STAGES, nk) - 1) {
+            hopper::mbar_wait(ws_empty, (vt & 1) ^ 1);
+            hopper::mbar_expect_tx(ws_full, WS_BYTES);
+            for (int a = 0; a < DSL / 64; ++a)
+              hopper::tma_load_2d(ws + a * WS_ATOM, &mw, ws_full, d0 + a * 64, v0);
+          }
         }
-        sD[rt * LDD + c] = __float2bfloat16(d);
       }
     }
-    cp_async_wait<0>();
-    __syncthreads();
+  } else {
+    // ---- consumers: the same 64 tokens; warpgroup h computes vocab
+    // columns [64 h, 64 h + 64) of each tile's logits and owns dx columns
+    // [192 h, 192 h + 192) of the slice.
+    hopper::setmaxnreg_inc<240>();
+    const int tt = threadIdx.x % 128, warp = tt / 32, lane = tt % 32;
+    const int rr = warp * 16 + lane / 4;  // this thread's tile rows: rr and rr + 8
+    int tg[2];
+    float lse2[2], cf[2];
 #pragma unroll
-    for (int kk = 0; kk < XV / 16; ++kk) {
-      FragB fb[CF];
-#pragma unroll
-      for (int c = 0; c < CF; ++c)
-        wmma::load_matrix_sync(fb[c], sY + kk * 16 * DSPAD + warp * 16 * CF + c * 16, DSPAD);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        FragA fa;
-        wmma::load_matrix_sync(fa, sD + i * 16 * LDD + kk * 16, LDD);
-#pragma unroll
-        for (int c = 0; c < CF; ++c) wmma::mma_sync(acc[i][c], fa, fb[c], acc[i][c]);
-      }
+    for (int h = 0; h < 2; ++h) {
+      const int row = tok0 + rr + 8 * h;
+      const bool ok = row < T;
+      tg[h] = ok ? t[row] : -1;
+      lse2[h] = ok ? lse[row] * LOG2E : 0.f;
+      cf[h] = ok ? coef[row] : 0.f;
     }
-    __syncthreads();  // sD and sY are rewritten by the next tile
+    const float smooth = eps != 0.f ? eps / V : 0.f;
+
+    float acc[HD / 2];
+#pragma unroll
+    for (int j = 0; j < HD / 2; ++j) acc[j] = 0.f;
+
+    int i = 0;
+    for (int vt = 0; vt < nv; ++vt) {
+      const int v0 = vt * BV, vh = v0 + wg * HV;  // this warpgroup's first vocab column
+      float* sbias = reinterpret_cast<float*>(smem + BIAS_OFF) + (vt & 1) * BV + wg * HV;
+      unsigned char* dl = smem + DL_OFF + (vt & 1) * DL_BYTES;
+
+      // logits[64 tokens, 64 columns] = x W^T over D in 64-column chunks,
+      // one wgmma group per chunk; a stage is released once the group
+      // reading it has completed (the next group is issued by then).
+      float lg[HV / 2];
+      for (int c = 0; c < nk; ++c, ++i) {
+        const int s = i % STAGES;
+        hopper::mbar_wait(&full[s], (i / STAGES) & 1);
+        const unsigned char* st = smem + s * STAGE_BYTES;
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < KC / 16; ++kk)
+          hopper::Wgmma<HV, 0>::ss(lg, hopper::desc_sw128(st + kk * 32, 0),
+                                   hopper::desc_sw128(st + X_BYTES + wg * HV * ATOM + kk * 32, 0),
+                                   c > 0 || kk > 0);
+        hopper::wgmma_commit();
+        // The group before this one is done: release its stage.
+        hopper::wgmma_wait<1>();
+        if (lane == 0 && c > 0) hopper::mbar_arrive(&empty[(i - 1) % STAGES]);
+        if (c == 0 && tt < HV)  // this warpgroup's bias columns, under the product
+          sbias[tt] = (b != nullptr && vh + tt < V) ? __ldg(b + vh + tt) : 0.f;
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_operand(lg);
+      if (lane == 0) hopper::mbar_arrive(&empty[(i - 1) % STAGES]);
+      hopper::named_sync(2 + wg, 128);  // the bias columns are in
+
+      // dlogits (the TPU _dlogits) in registers, rounded to bf16 and
+      // stored as the K-major (vocab-contiguous) A operand of the dx
+      // product: atom wg of the tile, rows 128 bytes, 16-byte chunks
+      // swizzled as TMA's 128-byte swizzle (chunk ^ row % 8).
+      unsigned char* dla = dl + wg * DL_ATOM;
+#pragma unroll
+      for (int n8 = 0; n8 < HV / 8; ++n8) {
+        const int cc = 8 * n8 + 2 * (lane % 4);
+        const float2 bias = *reinterpret_cast<const float2*>(sbias + cc);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float d[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = vh + cc + e;
+            d[e] = 0.f;
+            if (tg[h] >= 0 && col < V) {
+              const float z = lg[4 * n8 + 2 * h + e] + (e ? bias.y : bias.x);
+              d[e] = hopper::exp2_approx(fmaf(z, LOG2E, -lse2[h]));
+              if (col == tg[h]) d[e] -= 1.f - eps;
+              d[e] = (d[e] - smooth) * cf[h];
+            }
+          }
+          const int row = rr + 8 * h;
+          *reinterpret_cast<uint32_t*>(dla + row * ATOM + ((n8 ^ (row & 7)) * 16) +
+                                       (lane % 4) * 4) = hopper::pack_bf16(d[0], d[1]);
+        }
+      }
+      hopper::fence_proxy_async();       // the stores, before wgmma reads them
+      hopper::named_sync(1, CONSUMERS * 128);  // both halves of the tile are in
+
+      // dx[64, 192] += dlogits[64, 128] . W[tile, own 192 columns]: A
+      // K-major from the dlogits tile, B MN-major (trans-b) from the
+      // slice; step kk reads vocab 16 kk.. of both.
+      hopper::mbar_wait(ws_full, vt & 1);
+      hopper::fence_operand(acc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BV / 16; ++kk)
+        hopper::Wgmma<HD, 1>::ss(
+            acc, hopper::desc_sw128(dl + (kk / 4) * DL_ATOM + (kk % 4) * 32, 0),
+            hopper::desc_sw128(ws + wg * (HD / 64) * WS_ATOM + kk * 16 * ATOM, WS_ATOM), 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operand(acc);
+      if (lane == 0) hopper::mbar_arrive(ws_empty);
+    }
+
+    // Epilogue: bf16 dx, rows >= T and columns >= D dropped (D % 8 == 0,
+    // so a column pair is in or out together).
+#pragma unroll
+    for (int j = 0; j < HD / 2; j += 2) {
+      const int row = tok0 + rr + 8 * ((j % 4) / 2);
+      const int col = d0 + wg * HD + 8 * (j / 4) + 2 * (lane % 4);
+      if (row < T && col < D)
+        *reinterpret_cast<uint32_t*>(dx + (size_t)row * D + col) =
+            hopper::pack_bf16(acc[j], acc[j + 1]);
+    }
   }
-  store_block(dx, acc, sL, tok0, T, d0, D, [](float v) { return __float2bfloat16(v); });
 }
+
+cudaError_t launch(const void* x, const void* w, const void* b, const void* t, const void* lse,
+                   const void* coef, void* dx, int T, int D, int V, float eps,
+                   cudaStream_t stream) {
+  CUtensorMap mx, mw;
+  const uint64_t xdims[2] = {(uint64_t)D, (uint64_t)T}, wdims[2] = {(uint64_t)D, (uint64_t)V};
+  const uint64_t str[1] = {(uint64_t)D * 2};
+  const uint32_t xbox[2] = {KC, TM}, wbox[2] = {KC, BV};
+  cudaError_t err = hopper::encode_bf16_map(&mx, x, 2, xdims, str, xbox);
+  if (err == cudaSuccess) err = hopper::encode_bf16_map(&mw, w, 2, wdims, str, wbox);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(fused_ce_dx_hopper, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SMEM);
+  if (err != cudaSuccess) return err;
+  fused_ce_dx_hopper<<<dim3((T + TM - 1) / TM, (D + DSL - 1) / DSL), THREADS, SMEM, stream>>>(
+      mx, mw, (const float*)b, (const int*)t, (const float*)lse, (const float*)coef, (bf16*)dx,
+      T, D, V, eps);
+  return cudaGetLastError();
+}
+
+}  // namespace hdx
 
 // ------------------------------------------------------------------- dW/db
 // Grid (ceil(V / 64), ceil(D / DS)); one CTA per (vocab tile, D slice),
@@ -546,13 +718,7 @@ extern "C" int tfd_fused_ce_fwd(const void* x, const void* w, const void* b, con
 extern "C" int tfd_fused_ce_dx(const void* x, const void* w, const void* b, const void* t,
                                const void* lse, const void* coef, void* dx, int T, int D,
                                int V, float eps, void* stream) {
-  cudaError_t err = prepare(fused_ce_dx_kernel, dx_smem());
-  if (err != cudaSuccess) return err;
-  fused_ce_dx_kernel<<<dim3((T + XT - 1) / XT, (D + DS - 1) / DS), THREADS, dx_smem(),
-                       static_cast<cudaStream_t>(stream)>>>(
-      (const bf16*)x, (const bf16*)w, (const float*)b, (const int*)t, (const float*)lse,
-      (const float*)coef, (bf16*)dx, T, D, V, eps);
-  return cudaGetLastError();
+  return hdx::launch(x, w, b, t, lse, coef, dx, T, D, V, eps, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int tfd_fused_ce_dw(const void* x, const void* w, const void* b, const void* t,

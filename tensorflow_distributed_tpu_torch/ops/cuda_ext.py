@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` source exports a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``build/torch_ext/`` at the repository root, then loaded with ctypes.
-The library name carries a hash of the source and the flags, so an
-edited source rebuilds instead of loading a stale library. Nothing is
+The library name carries a hash of the source, of every shared header
+(``csrc/*.cuh``) and of the flags, so an edited source or header
+rebuilds instead of loading a stale library. Nothing is
 built at import time: the first kernel launch (or :func:`load`) builds.
 
 Sources stay free of PyTorch's headers on purpose: a plain C interface
@@ -48,14 +49,22 @@ def nvcc_path() -> str:
         "built from source at first use and need the CUDA toolkit")
 
 
+def source_digest(name: str, csrc: Path = CSRC) -> str:
+    """Hash of what the library ``name`` is built from: ``<name>.cu``,
+    every header ``*.cuh`` beside it (in name order) and the nvcc flags."""
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def load(name: str) -> ctypes.CDLL:
     """The shared library built from ``csrc/<name>.cu`` (built on first
     call in this process, or reused from ``build/torch_ext/``)."""
     if name not in _LOADED:
         src = CSRC / f"{name}.cu"
-        digest = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        lib_path = BUILD_DIR / f"lib{name}_{digest}.so"
+        lib_path = BUILD_DIR / f"lib{name}_{source_digest(name)}.so"
         log = ""
         if not lib_path.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)

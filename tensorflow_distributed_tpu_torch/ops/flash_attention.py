@@ -41,7 +41,7 @@ from tensorflow_distributed_tpu_torch.parallel.ring_attention import (
     full_attention)
 
 NEG_INF = -1e30  # large-finite: avoids inf-inf=nan in masked rows
-BLOCK = 64  # query and key rows per kernel tile; L and Lk must divide it
+BLOCK = 64  # L and Lk must be multiples (the backward kernels' tile)
 HEAD_DIMS = (64, 128)
 KERNEL_DTYPE = torch.bfloat16
 

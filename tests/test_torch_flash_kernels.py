@@ -26,13 +26,12 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("D", [64, 128])
-@pytest.mark.parametrize("causal,window", [(False, 0), (True, 0), (True, 80)])
-def test_kernels_match_plain_versions_on_gpu(cuda, D, causal, window):
-    g = torch.Generator(device=cuda).manual_seed(D + window)
-    q, k, v, do = (torch.randn(4, 256, D, generator=g, device=cuda).to(
-        torch.bfloat16) for _ in range(4))
+def _check_against_plain(cuda, BH, L, Lk, D, causal, window, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q, do = (torch.randn(BH, L, D, generator=g, device=cuda).to(
+        torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(BH, Lk, D, generator=g, device=cuda).to(
+        torch.bfloat16) for _ in range(2))
     tfa.reset_launch_counts()
     out, lse = tfa.flash_fwd(q, k, v, causal, window)
     dq = tfa.flash_dq(q, k, v, out, lse, do, causal, window)
@@ -49,6 +48,25 @@ def test_kernels_match_plain_versions_on_gpu(cuda, D, causal, window):
     for got, ref in zip((dq, dk, dv), refs):
         assert float((got.float() - ref).abs().max()
                      / ref.abs().max()) <= 2e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("causal,window", [(False, 0), (True, 0), (True, 80)])
+def test_kernels_match_plain_versions_on_gpu(cuda, D, causal, window):
+    _check_against_plain(cuda, 4, 256, 256, D, causal, window, D + window)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("L,Lk", [(192, 192), (128, 256), (64, 64)],
+                         ids=["L192", "L128_Lk256", "L64"])
+def test_kernels_on_shapes_off_the_forward_tile(cuda, L, Lk, causal):
+    """The forward takes 128 query rows and 128 keys a tile: L 192 and
+    L 64 leave a CTA's rows past L, Lk 256 != L 128 gives the key loop
+    its own bound; rows and keys past the end read as TMA's zeros and
+    are masked."""
+    _check_against_plain(cuda, 3, L, Lk, 64, causal, 0, L + Lk)
 
 
 @pytest.mark.gpu

@@ -11,8 +11,9 @@ where only PyTorch is installed:
 The cases are chip_smoke.py's: GPT-2-small's head (T 8192, D 768,
 V 50257) with bias at eps 0 and 0.1 and without bias (the tied head),
 GPT-2-medium's width (D 1024, T 2048), and a ragged case (T 1000,
-V 179), plus one odd shape (T 40, D 200, V 70). Tolerances as
-chip_smoke.py (the plain version runs in f32 from the same bf16
+V 179), plus odd shapes: T 40, D 200, V 70; D 1000 and D 1600 (not
+multiples of dx's 64-column chunk or 256-column slice); and T 1.
+Tolerances as chip_smoke.py (the plain version runs in f32 from the same bf16
 inputs): ce and lse max abs error <= 1e-3; ``correct``
 identical wherever the top-2 logit gap exceeds 1e-2; dx and dW max abs
 error / max |reference| <= 2e-2 (dlogits is rounded to bf16 before the
@@ -31,7 +32,12 @@ CASES = [dict(T=8192, D=768, V=50257, bias=True, eps=0.0),
          dict(T=1000, D=768, V=179, bias=True, eps=0.1),
          # beyond the smoke: D not a multiple of the 32-column chunk,
          # fewer tokens and vocab columns than one tile
-         dict(T=40, D=200, V=70, bias=True, eps=0.1)]
+         dict(T=40, D=200, V=70, bias=True, eps=0.1),
+         # dx's 64-column chunks and 256-column slices: D 1000 and 1600
+         # end inside a chunk and a slice; one token fills 1 of 128 rows
+         dict(T=300, D=1000, V=1000, bias=True, eps=0.0),
+         dict(T=256, D=1600, V=2000, bias=True, eps=0.1),
+         dict(T=1, D=768, V=50257, bias=True, eps=0.0)]
 
 
 @pytest.fixture

@@ -12,24 +12,29 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
 2. build   — compiles the flash-attention and fused-CE kernels from
              ``tensorflow_distributed_tpu_torch/ops/csrc`` (sm_90a), one
              nvcc per source, started together; lists the registers and
-             spills of the two Hopper kernels (B1's forward, B5's dx),
-             fails if ptxas ignored a setmaxnreg, and counts their
-             wgmma, TMA, mbarrier and mma.sync instructions in the
-             machine code (cuobjdump);
+             spills of the four Hopper kernels (B1's forward, B3's
+             dK/dV, B5's dx, B6's dW/db), fails if one spills, if ptxas
+             ignored a setmaxnreg or serialized a kernel's wgmmas
+             (warnings C7510-C7515), and counts their wgmma, TMA,
+             mbarrier and mma.sync instructions in the machine code
+             (cuobjdump);
 3. kernels — each kernel (forward, dQ, dK/dV) against its plain PyTorch
              version computed in f32 from the same bf16 inputs, at
              B=8 H=12 L=1024 D=64 (causal, non-causal, causal + window
              256) and one D=128 case; median times over 20 launches
              (CUDA events) beside the bound, the plain version and
              ``scaled_dot_product_attention`` (forward, fwd+bwd, and
-             its flash backward alone) as yardsticks;
+             its flash backward alone) as yardsticks, and the profiler's
+             device time of B1, B2, B3 and SDPA's forward and flash
+             backward;
 4. ce_kernels — each fused-CE kernel (forward, dx, dW/db) against its
              plain PyTorch version computed in f32 from the same bf16
              inputs, at GPT-2-small's head (T 8192, D 768, V 50257; with
              bias at eps 0 and 0.1, and without bias), at D 1024 and on a
              ragged case; median times over 20 launches beside the bound,
              the plain version and the dense head + cross-entropy
-             (forward, fwd+bwd) as yardsticks;
+             (forward, fwd+bwd) as yardsticks, and the kernels' device
+             time (torch.profiler);
 5. model   — a small GPT (head dim 64) on the card in bf16 through the
              kernels against the same weights on the CPU in f32: the
              dense head, then the fused head+loss through the CE kernels,
@@ -83,6 +88,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import shutil
 import signal
 import statistics
@@ -157,8 +163,14 @@ CSRC = "tensorflow_distributed_tpu_torch/ops/csrc"
 SOURCES = {"flash_attention": f"{CSRC}/flash_attention.cu",
            "fused_ce": f"{CSRC}/fused_ce.cu"}
 # The kernels built from ops/csrc/hopper.cuh (wgmma, TMA, mbarriers,
-# setmaxnreg): B1's forward and B5's dx.
-HOPPER_KERNELS = ("flash_fwd_hopper", "fused_ce_dx_hopper")
+# setmaxnreg), each with the library (SOURCES key) that holds it: B1's
+# forward, B3's dK/dV, B5's dx and B6's dW/db.
+HOPPER_KERNELS = {"flash_fwd_hopper": "flash_attention",
+                  "flash_dkv_hopper": "flash_attention",
+                  "fused_ce_dx_hopper": "fused_ce",
+                  "fused_ce_dw_hopper": "fused_ce"}
+# ptxas's warnings that it serialized a kernel's wgmmas (C7510-C7515).
+WGMMA_SERIALIZED = re.compile(r"\bC751[0-5]\b")
 TPU_FLASH = "tensorflow_distributed_tpu/ops/flash_attention.py"
 TPU_CE = "tensorflow_distributed_tpu/ops/fused_ce_kernel.py"
 REPLACES = {"flash_fwd": f"{TPU_FLASH}:183", "flash_dq": f"{TPU_FLASH}:255",
@@ -258,17 +270,17 @@ def kernel_bounds(fa, torch, B, H, L, D, causal, window):
     }
 
 
-def sdpa_flash_bwd_ms(torch, q4, k4, v4, do4) -> float:
-    """Time of the one library call that computes the causal dQ, dK and
-    dV together from (q, k, v, out, lse, dO): the backward of PyTorch's
-    flash SDPA, on [B, H, L, D] inputs, with its own forward's outputs."""
+def sdpa_flash_bwd(torch, q4, k4, v4, do4):
+    """The one library call that computes the causal dQ, dK and dV
+    together from (q, k, v, out, lse, dO), as a call without arguments:
+    the backward of PyTorch's flash SDPA, on [B, H, L, D] inputs, with
+    its own forward's outputs."""
     aten = torch.ops.aten
     fwd = aten._scaled_dot_product_flash_attention(q4, k4, v4, 0.0, True)
     out, lse, cum_q, cum_k, max_q, max_k, seed, offset = fwd[:8]
     bwd = aten._scaled_dot_product_flash_attention_backward
-    return time_ms(torch, lambda: bwd(do4, q4, k4, v4, out, lse, cum_q,
-                                      cum_k, max_q, max_k, 0.0, True, seed,
-                                      offset))
+    return lambda: bwd(do4, q4, k4, v4, out, lse, cum_q, cum_k, max_q, max_k,
+                       0.0, True, seed, offset)
 
 
 def phase_device(torch) -> str:
@@ -294,11 +306,19 @@ def ptxas_by_kernel(log: str):
     return out
 
 
+def spills(lines) -> bool:
+    """Whether ptxas's lines for one kernel report a spill store or load
+    of more than 0 bytes."""
+    return any(re.search(r"[1-9]\d* bytes spill (stores|loads)", ln)
+               for ln in lines)
+
+
 def phase_build(fa, fce) -> None:
     """Both libraries, one nvcc each, started together. The Hopper
     kernels' registers and spills are listed by instantiation, and the
-    run fails if ptxas ignored a setmaxnreg (the warp roles must split
-    in one if/else for it to hold)."""
+    run fails if one spills, if ptxas ignored a setmaxnreg (the warp roles
+    must split in one if/else for it to hold) or if it serialized the
+    wgmmas of a kernel."""
     t0 = time.time()
     with ThreadPoolExecutor(max_workers=2) as pool:
         logs = dict(zip(("flash_attention", "fused_ce"),
@@ -312,8 +332,8 @@ def phase_build(fa, fce) -> None:
     cached = [name for name, log in logs.items() if not log]
     from tensorflow_distributed_tpu_torch.ops import cuda_ext
 
-    sass = {k: sass_counts(cuda_ext.load(name)._name, k) for k, name in
-            zip(HOPPER_KERNELS, ("flash_attention", "fused_ce"))}
+    sass = {k: sass_counts(cuda_ext.load(name)._name, k)
+            for k, name in HOPPER_KERNELS.items()}
     emit({"phase": "build", "seconds": round(time.time() - t0, 3),
           "cached": cached, "hopper_ptxas": hopper, "hopper_sass": sass,
           "ptxas": {name: [ln.strip() for ln in log.splitlines()
@@ -322,6 +342,10 @@ def phase_build(fa, fce) -> None:
     for name, log in logs.items():
         check("setmaxnreg" not in log or "ignored" not in log,
               f"ptxas ignored setmaxnreg in {name}: {log}")
+        check(not WGMMA_SERIALIZED.search(log),
+              f"ptxas serialized wgmmas in {name}: {log}")
+    for k, lines in hopper.items():
+        check(not spills(lines), f"{k} spills: {lines}")
     check(cached or all(any(k in fn for fn in hopper) for k in HOPPER_KERNELS),
           f"the build did not compile every Hopper kernel: {sorted(hopper)}")
     for k, counts in sass.items():
@@ -441,19 +465,29 @@ def phase_kernels(fa, torch, F):
                                      "flash_dkv": None}
             # Device time alone (torch.profiler): a short kernel's event
             # time also holds the host side of its call.
+            sdpa_bwd = sdpa_flash_bwd(torch, q4, k4, v4, do4)
             fwd_device = {
                 "flash_fwd": sum(device_ms(torch, lambda: fa.flash_fwd(
                     q, k, v, causal, window), 20).values()) or None,
                 "sdpa_fwd": sum(device_ms(
                     torch, lambda: F.scaled_dot_product_attention(
                         q4, k4, v4, is_causal=True), 20).values()) or None}
+            bwd_device = {
+                "flash_dq": sum(device_ms(torch, lambda: fa.flash_dq(
+                    q, k, v, out, lse, do, causal, window), 20).values())
+                or None,
+                "flash_dkv": sum(device_ms(torch, lambda: fa.flash_dkv(
+                    q, k, v, out, lse, do, causal, window), 20).values())
+                or None,
+                "sdpa_flash_bwd": sum(device_ms(torch, sdpa_bwd,
+                                                20).values()) or None}
             emit({"phase": "timing", **case, "ms": results["ms"],
                   "plain_ms": results["plain_ms"],
                   "fwd_device_ms": fwd_device,
+                  "bwd_device_ms": bwd_device,
                   "sdpa_fwd_ms": sdpa_fwd,
                   "sdpa_fwd_bwd_ms": time_ms(torch, sdpa_fwd_bwd),
-                  "sdpa_flash_bwd_ms": sdpa_flash_bwd_ms(torch, q4, k4, v4,
-                                                         do4),
+                  "sdpa_flash_bwd_ms": time_ms(torch, sdpa_bwd),
                   "flash_dq_plus_dkv_ms": (results["ms"]["flash_dq"]
                                            + results["ms"]["flash_dkv"]),
                   "flash_fwd_bwd_ms": sum(results["ms"].values()),
@@ -574,8 +608,16 @@ def phase_ce_kernels(fce, torch, F):
                                        reduction="none")
                 torch.autograd.grad(loss, (xr, wr, br), coef)
 
+            calls = {"fused_ce_fwd": lambda: fce.fused_ce_fwd(
+                         x, w, b, t, V, eps),
+                     "fused_ce_dx": lambda: fce.fused_ce_dx(
+                         x, w, b, t, lse, coef, V, eps),
+                     "fused_ce_dw": lambda: fce.fused_ce_dw(
+                         x, w, b, t, lse, coef, V, eps)}
             emit({"phase": "ce_timing", **case, "ms": results["ms"],
                   "plain_ms": results["plain_ms"],
+                  "device_ms": {name: sum(device_ms(torch, fn).values())
+                                or None for name, fn in calls.items()},
                   "dense_fwd_ms": dense_fwd,
                   "dense_fwd_bwd_ms": time_ms(torch, dense_fwd_bwd),
                   "fused_fwd_bwd_ms": sum(results["ms"].values()),

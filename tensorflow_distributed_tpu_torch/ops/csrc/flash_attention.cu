@@ -55,6 +55,22 @@
 // [BH, rows, D], so a box never reads into the next head and rows past
 // L or Lk read as zeros.
 //
+// The normalized dK/dV (tfd_flash_dkv) is built from the same pieces,
+// flash_dkv_hopper<D>: a CTA owns 128 key rows, two consumer warpgroups
+// of 64 keys and a producer warpgroup, so each query tile loaded serves
+// 128 keys. The producer loads K and V once, then streams the band's
+// query tiles of 64 rows (Q, dO and O together) through a 3-stage ring.
+// Per tile each consumer runs S^T = K_w Q^T and dP^T = V_w dO^T (wgmma
+// m64n64k16, all operands K-major), computes the tile's lse and delta =
+// rowsum(dO * O) into shared memory under those products (recomputed
+// per tile from the O and dO tiles, as the JAX _delta), forms P^T =
+// 2^(s scale log2e - lse log2e) and dS^T = P^T (dP^T - delta) scale in
+// registers (the band mask only on tiles that cross its edge), packs
+// both to bf16 in place as register-A fragments and accumulates
+// dV += P^T dO and dK += dS^T Q (dO and Q read MN-major, trans-b). dK and
+// dV stay in registers (D / 2 each a thread) and are written once, bf16;
+// a warpgroup whose 64 keys lie outside a tile's band skips the tile.
+//
 // The other kernels are the first, simple design: one CTA of 4 warps
 // per 64-row output tile, bf16 WMMA (16x16x16) with f32 accumulation,
 // tiles staged in shared memory, and per-CTA loop bounds that skip key
@@ -63,7 +79,8 @@
 // output tile and loops over the reduction axis itself; rowsum(dO*O) is
 // recomputed per tile as on the TPU rather than stored. The partial
 // kernels share these loops as template instantiations (the partial
-// forward is flash_fwd_kernel<D, true>): a ring step's half-block
+// forward is flash_fwd_kernel<D, true>, the partial dK/dV
+// flash_dkv_kernel<D, true>): a ring step's half-block
 // attend (GPT-2-small at S = 4: BH 96, 128 x 128) is a few MB of
 // traffic and tens of MFLOP, so they are bound by bytes and by launch
 // latency; their f32 o and dO double the bytes of those operands.
@@ -431,8 +448,9 @@ flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // Grid (BH, Lk/BK); one CTA per (head, key tile), looping over the query
 // tiles of the band. Each warp owns 16 key rows and computes the
 // transposed blocks S^T = K Q^T and dP^T = V dO^T directly, so P^T and
-// dS^T are warp-local and dK/dV accumulate in registers. `stat`, `dl`,
-// `o` and `dout` as in the dQ kernel.
+// dS^T are warp-local and dK/dV accumulate in registers. The partial form
+// only (the normalized dK/dV is flash_dkv_hopper below): `stat` is m,
+// delta = -dl, dout is f32.
 
 template <int D>
 constexpr int dkv_smem() {
@@ -442,11 +460,11 @@ constexpr int dkv_smem() {
 template <int D, bool PARTIAL>
 __global__ void __launch_bounds__(THREADS)
 flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const bf16* __restrict__ o,
-                 const float* __restrict__ stat, const float* __restrict__ dl,
-                 const void* __restrict__ dout, bf16* __restrict__ dk,
-                 bf16* __restrict__ dv, int L, int Lk, float scale, int causal,
-                 int window) {
+                 const bf16* __restrict__ v, const float* __restrict__ stat,
+                 const float* __restrict__ dl, const void* __restrict__ dout,
+                 bf16* __restrict__ dk, bf16* __restrict__ dv, int L, int Lk, float scale,
+                 int causal, int window) {
+  static_assert(PARTIAL, "the normalized dK/dV is flash_dkv_hopper");
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sK = reinterpret_cast<bf16*>(smem);             // BK x D
   bf16* sV = sK + BK * D;                               // BK x D
@@ -460,7 +478,7 @@ flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* sDelta = sLse + BQ;                            // BQ
 
   const int bh = blockIdx.x;
-  const int nq = L / BQ, nk = Lk / BK;
+  const int nq = L / BQ;
   const int kt = blockIdx.y;  // causal: low key tiles have the longest bands
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const size_t koff = ((size_t)bh * Lk + (size_t)kt * BK) * D;
@@ -493,21 +511,9 @@ flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (threadIdx.x < BQ) {
       const size_t row = (size_t)bh * L + qt * BQ + threadIdx.x;
       sLse[threadIdx.x] = stat[row];
-      if constexpr (PARTIAL) sDelta[threadIdx.x] = -dl[row];
+      sDelta[threadIdx.x] = -dl[row];
     }
     __syncthreads();
-    if constexpr (!PARTIAL) {
-      // delta = rowsum(dO * O) for the tile's 64 query rows, 16 per warp.
-      for (int r = 0; r < 16; ++r) {
-        const int qr = warp * 16 + r;
-        const bf16* orow = o + qoff + (size_t)qr * D;
-        float acc = 0.f;
-        for (int d = lane; d < D; d += 32)
-          acc += __bfloat162float(sdO[qr * D + d]) * __bfloat162float(orow[d]);
-        acc = warp_sum(acc);
-        if (lane == 0) sDelta[qr] = acc;
-      }
-    }
 
     mm_abt<D, BQ / 16>(sStw, BQ, sKw, sQ);    // S^T_w  = K_w Q^T
     mm_abt<D, BQ / 16>(sdPtw, BQ, sVw, sdO);  // dP^T_w = V_w dO^T
@@ -575,16 +581,15 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o
 }
 
 template <int D, bool PARTIAL>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* o,
-                       const void* stat, const void* dl, const void* dout, void* dk,
-                       void* dv, int BH, int L, int Lk, float scale, int causal,
-                       int window, cudaStream_t s) {
+cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* stat,
+                       const void* dl, const void* dout, void* dk, void* dv, int BH, int L,
+                       int Lk, float scale, int causal, int window, cudaStream_t s) {
   auto kernel = flash_dkv_kernel<D, PARTIAL>;
   cudaError_t err = prepare(kernel, dkv_smem<D>());
   if (err != cudaSuccess) return err;
   kernel<<<dim3(BH, Lk / BK), THREADS, dkv_smem<D>(), s>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o, (const float*)stat,
-      (const float*)dl, dout, (bf16*)dk, (bf16*)dv, L, Lk, scale, causal, window);
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)stat, (const float*)dl,
+      dout, (bf16*)dk, (bf16*)dv, L, Lk, scale, causal, window);
   return cudaGetLastError();
 }
 
@@ -873,6 +878,274 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* l
 
 }  // namespace hfwd
 
+// ----------------------------------------------------- dK/dV, Hopper design
+// Grid (BH, ceil(Lk / 128)); one CTA per (head, 128 key rows), low key
+// tiles (the longest causal bands) first. See the note at the top of the
+// file.
+
+namespace hdkv {
+
+constexpr int BN = 128;         // key rows per CTA
+constexpr int BM = 64;          // query rows per stage
+constexpr int CONSUMERS = 2;    // consumer warpgroups, 64 key rows each
+constexpr int THREADS = (CONSUMERS + 1) * 128;
+constexpr int CONSUMER_REGS = 240;
+constexpr int STAGES = 3;
+constexpr int ATOM = 128;       // bytes per swizzled row: 64 bf16 of D
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+struct Smem {
+  static constexpr int ATOMS = D / 64;
+  static constexpr int KV_BYTES = BN * D * 2;  // K or V of the CTA
+  static constexpr int T_BYTES = BM * D * 2;   // one Q, dO or O tile
+  static constexpr int STAGE_BYTES = 3 * T_BYTES;
+  static constexpr int ST_OFF = 2 * KV_BYTES;
+  // Per query tile and warpgroup, double-buffered: lse log2e and
+  // -delta scale of the tile's rows.
+  static constexpr int ROW_OFF = ST_OFF + STAGES * STAGE_BYTES;
+  static constexpr int BAR_OFF = ROW_OFF + 2 * CONSUMERS * 2 * BM * 4;
+  static constexpr int BYTES = BAR_OFF + (2 * STAGES + 1) * 8 + 1024;  // + alignment slack
+  static_assert(BYTES <= 232448, "more shared memory than a block may have");
+};
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_dkv_hopper(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                 const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mo,
+                 const __grid_constant__ CUtensorMap mdo, const float* __restrict__ lse,
+                 bf16* __restrict__ dk, bf16* __restrict__ dv, int L, int Lk, float scale,
+                 int causal, int window) {
+  using S = Smem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  // Swizzled TMA tiles want 1024-byte-aligned shared addresses.
+  unsigned char* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BAR_OFF);
+  uint64_t* empty = full + STAGES;
+  uint64_t* kvbar = empty + STAGES;
+
+  const int bh = blockIdx.x, kt = blockIdx.y;
+  const int nq = L / BM;
+  const int wg = threadIdx.x / 128;
+  int lo = 0, hi = nq - 1;  // the band's query tiles (the JAX _q_needed)
+  if (causal) {
+    lo = (kt * BN) / BM;
+    if (window) hi = min(hi, (kt * BN + BN - 2 + window) / BM);
+  }
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], CONSUMERS * 4);
+    }
+    hopper::mbar_init(kvbar, 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == CONSUMERS) {
+    // ---- producer: one thread issues every load: K and V once, then the
+    // band's Q, dO and O tiles through the stage ring.
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == CONSUMERS * 128) {
+      hopper::mbar_expect_tx(kvbar, 2 * S::KV_BYTES);
+      for (int a = 0; a < S::ATOMS; ++a) {
+        hopper::tma_load_3d(smem + a * BN * ATOM, &mk, kvbar, a * 64, kt * BN, bh);
+        hopper::tma_load_3d(smem + S::KV_BYTES + a * BN * ATOM, &mv, kvbar, a * 64, kt * BN, bh);
+      }
+      for (int qt = lo, j = 0; qt <= hi; ++qt, ++j) {
+        const int s = j % STAGES;
+        hopper::mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);  // the first round passes at once
+        hopper::mbar_expect_tx(&full[s], S::STAGE_BYTES);
+        unsigned char* st = smem + S::ST_OFF + s * S::STAGE_BYTES;
+        for (int a = 0; a < S::ATOMS; ++a) {
+          hopper::tma_load_3d(st + a * BM * ATOM, &mq, &full[s], a * 64, qt * BM, bh);
+          hopper::tma_load_3d(st + S::T_BYTES + a * BM * ATOM, &mdo, &full[s], a * 64, qt * BM,
+                              bh);
+          hopper::tma_load_3d(st + 2 * S::T_BYTES + a * BM * ATOM, &mo, &full[s], a * 64,
+                              qt * BM, bh);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 key rows each, over the query tiles of their own
+    // band [qa, qb] (the JAX _q_needed of the 64 keys; the CTA's band
+    // holds it, and a tile outside it is waited for and released
+    // unread: an early release would complete the ring's previous
+    // round). Per tile S^T and dP^T from shared memory, P^T and dS^T in
+    // registers, then dV += P^T dO and dK += dS^T Q with P^T and dS^T as
+    // register-A operands.
+    hopper::setmaxnreg_inc<CONSUMER_REGS>();
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int kw0 = kt * BN + wg * 64;        // the warpgroup's first key row
+    const int r0 = kw0 + warp * 16 + lane / 4;  // this thread's keys: r0 and r0 + 8
+    const unsigned char* skw = smem + wg * 64 * ATOM;
+    const unsigned char* svw = skw + S::KV_BYTES;
+    const float scale_log2 = scale * LOG2E;
+    int qa = 0, qb = nq - 1;
+    if (causal) {
+      qa = kw0 / BM;
+      if (window) qb = min(qb, (kw0 + 62 + window) / BM);
+    }
+    if (kw0 >= Lk) qb = qa - 1;  // no key of the warpgroup below Lk
+
+    float dkacc[D / 2], dvacc[D / 2];
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) dkacc[j] = dvacc[j] = 0.f;
+    float sacc[BM / 2], dpacc[BM / 2];
+    uint32_t pf[BM / 16][4], df[BM / 16][4];
+
+    hopper::mbar_wait(kvbar, 0);
+    for (int qt = lo, j = 0; qt <= hi; ++qt, ++j) {
+      const int s = j % STAGES, q0 = qt * BM;
+      hopper::mbar_wait(&full[s], (j / STAGES) & 1);
+      if (qt >= qa && qt <= qb) {
+        const unsigned char* sq = smem + S::ST_OFF + s * S::STAGE_BYTES;
+        const unsigned char* sdo = sq + S::T_BYTES;
+        const unsigned char* so = sq + 2 * S::T_BYTES;
+        // S^T = K_w Q^T and dP^T = V_w dO^T: all operands K-major, D / 16
+        // steps of k16, the two products' steps interleaved (a step waits
+        // for the one before it into the same accumulator).
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const int ka = (kk / 4) * BN * ATOM + (kk % 4) * 32;
+          const int kb = (kk / 4) * BM * ATOM + (kk % 4) * 32;
+          hopper::Wgmma<BM, 0>::ss(sacc, hopper::desc_sw128(skw + ka, 0),
+                                   hopper::desc_sw128(sq + kb, 0), kk > 0);
+          hopper::Wgmma<BM, 0>::ss(dpacc, hopper::desc_sw128(svw + ka, 0),
+                                   hopper::desc_sw128(sdo + kb, 0), kk > 0);
+        }
+        hopper::wgmma_commit();
+
+        // Under the products: the tile's lse (log2 units) and -delta scale,
+        // delta = rowsum(dO * O) (the JAX _delta), two threads a row, from
+        // the swizzled tiles (16-byte chunk ^ row % 8).
+        float* rows =
+            reinterpret_cast<float*>(smem + S::ROW_OFF) + ((j & 1) * CONSUMERS + wg) * 2 * BM;
+        {
+          const int q = t >> 1, half = t & 1;
+          float acc = 0.f;
+#pragma unroll
+          for (int i = 0; i < D / 16; ++i) {
+            const int ch = half * (D / 16) + i;
+            const int off = (ch / 8) * BM * ATOM + q * ATOM + (((ch % 8) ^ (q & 7)) * 16);
+            const uint4 a = *reinterpret_cast<const uint4*>(sdo + off);
+            const uint4 b = *reinterpret_cast<const uint4*>(so + off);
+            const __nv_bfloat162* pa = reinterpret_cast<const __nv_bfloat162*>(&a);
+            const __nv_bfloat162* pb = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float2 fa = __bfloat1622float2(pa[e]), fb = __bfloat1622float2(pb[e]);
+              acc = fmaf(fa.x, fb.x, acc);
+              acc = fmaf(fa.y, fb.y, acc);
+            }
+          }
+          acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+          if (half == 0) {
+            rows[q] = __ldg(lse + (size_t)bh * L + q0 + q) * LOG2E;
+            rows[BM + q] = -acc * scale;
+          }
+        }
+        hopper::named_sync(1 + wg, 128);  // the rows are in
+        hopper::wgmma_wait<0>();
+        hopper::fence_operand(sacc);
+        hopper::fence_operand(dpacc);
+
+        // P^T = 2^(s scale log2e - lse log2e), 0 outside the band (masked
+        // only on tiles that cross its edge); dS^T = P^T (dP^T - delta)
+        // scale. Both packed to bf16 as the register-A fragments.
+        const bool edge = causal && (kw0 + 63 > q0 || (window && kw0 <= q0 + BM - 1 - window));
+#pragma unroll
+        for (int n8 = 0; n8 < BM / 8; ++n8) {
+          const int c = 8 * n8 + 2 * (lane % 4);
+          const float2 l2 = *reinterpret_cast<const float2*>(rows + c);
+          const float2 nd = *reinterpret_cast<const float2*>(rows + BM + c);
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int jj = 4 * n8 + 2 * h + e;
+              float p = hopper::exp2_approx(fmaf(sacc[jj], scale_log2, -(e ? l2.y : l2.x)));
+              if (edge && !keep(q0 + c + e, r0 + 8 * h, causal, window)) p = 0.f;
+              dpacc[jj] = p * fmaf(dpacc[jj], scale, e ? nd.y : nd.x);
+              sacc[jj] = p;
+            }
+        }
+#pragma unroll
+        for (int kk = 0; kk < BM / 16; ++kk)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            pf[kk][r] = hopper::pack_bf16(sacc[8 * kk + 2 * r], sacc[8 * kk + 2 * r + 1]);
+            df[kk][r] = hopper::pack_bf16(dpacc[8 * kk + 2 * r], dpacc[8 * kk + 2 * r + 1]);
+          }
+
+        // dV += P^T dO and dK += dS^T Q, interleaved: B [queries, D] with
+        // D contiguous (MN-major, trans-b); step kk reads queries 16 kk..
+        // of every 64-column atom.
+        hopper::fence_operand(dkacc);
+        hopper::fence_operand(dvacc);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BM / 16; ++kk) {
+          hopper::Wgmma<D, 1>::rs(dvacc, pf[kk],
+                                  hopper::desc_sw128(sdo + kk * 16 * ATOM, BM * ATOM), 1);
+          hopper::Wgmma<D, 1>::rs(dkacc, df[kk],
+                                  hopper::desc_sw128(sq + kk * 16 * ATOM, BM * ATOM), 1);
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_operand(pf);
+        hopper::fence_operand(df);
+        hopper::fence_operand(dkacc);
+        hopper::fence_operand(dvacc);
+      }
+      if (lane == 0) hopper::mbar_arrive(&empty[s]);
+    }
+
+    // Epilogue: dK and dV in bf16; rows >= Lk dropped.
+    const size_t base = (size_t)bh * Lk;
+#pragma unroll
+    for (int j = 0; j < D / 2; j += 2) {
+      const int row = r0 + 8 * ((j % 4) / 2);
+      const int col = 8 * (j / 4) + 2 * (lane % 4);
+      if (row < Lk) {
+        *reinterpret_cast<uint32_t*>(dk + (base + row) * D + col) =
+            hopper::pack_bf16(dkacc[j], dkacc[j + 1]);
+        *reinterpret_cast<uint32_t*>(dv + (base + row) * D + col) =
+            hopper::pack_bf16(dvacc[j], dvacc[j + 1]);
+      }
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* lse,
+                   const void* dout, void* dk, void* dv, int BH, int L, int Lk, float scale,
+                   int causal, int window, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mo, mdo;
+  const uint64_t qdims[3] = {D, (uint64_t)L, (uint64_t)BH};
+  const uint64_t kdims[3] = {D, (uint64_t)Lk, (uint64_t)BH};
+  const uint64_t qstr[2] = {D * 2, (uint64_t)L * D * 2};
+  const uint64_t kstr[2] = {D * 2, (uint64_t)Lk * D * 2};
+  const uint32_t qbox[3] = {64, BM, 1}, kbox[3] = {64, BN, 1};
+  cudaError_t err = hopper::encode_bf16_map(&mq, q, 3, qdims, qstr, qbox);
+  if (err == cudaSuccess) err = hopper::encode_bf16_map(&mo, o, 3, qdims, qstr, qbox);
+  if (err == cudaSuccess) err = hopper::encode_bf16_map(&mdo, dout, 3, qdims, qstr, qbox);
+  if (err == cudaSuccess) err = hopper::encode_bf16_map(&mk, k, 3, kdims, kstr, kbox);
+  if (err == cudaSuccess) err = hopper::encode_bf16_map(&mv, v, 3, kdims, kstr, kbox);
+  if (err != cudaSuccess) return err;
+  auto kernel = flash_dkv_hopper<D>;
+  err = prepare(kernel, Smem<D>::BYTES);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(BH, (Lk + BN - 1) / BN), THREADS, Smem<D>::BYTES, stream>>>(
+      mq, mk, mv, mo, mdo, (const float*)lse, (bf16*)dk, (bf16*)dv, L, Lk, scale, causal,
+      window);
+  return cudaGetLastError();
+}
+
+}  // namespace hdkv
+
 // The head dim picks the instantiation (64 or 128; anything else is
 // refused before a launch).
 #define TFD_BY_HEAD_DIM(LAUNCH, PARTIAL, ...)                        \
@@ -910,8 +1183,12 @@ extern "C" int tfd_flash_dkv(const void* q, const void* k, const void* v, const 
                              const void* lse, const void* dout, void* dk, void* dv,
                              int BH, int L, int Lk, int D, float scale, int causal,
                              int window, void* stream) {
-  TFD_BY_HEAD_DIM(launch_dkv, false, q, k, v, o, lse, nullptr, dout, dk, dv, BH, L, Lk,
-                  scale, causal, window, static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 64)
+    return hdkv::launch<64>(q, k, v, o, lse, dout, dk, dv, BH, L, Lk, scale, causal, window, s);
+  if (D == 128)
+    return hdkv::launch<128>(q, k, v, o, lse, dout, dk, dv, BH, L, Lk, scale, causal, window, s);
+  return cudaErrorInvalidValue;
 }
 
 // The partial (ring-step) kernels: o f32 [BH, L, D]; m, l, dl f32 [BH, L];
@@ -936,6 +1213,6 @@ extern "C" int tfd_flash_dkv_partial(const void* q, const void* k, const void* v
                                      const void* m, const void* dl, const void* dout,
                                      void* dk, void* dv, int BH, int L, int Lk, int D,
                                      float scale, int causal, int window, void* stream) {
-  TFD_BY_HEAD_DIM(launch_dkv, true, q, k, v, nullptr, m, dl, dout, dk, dv, BH, L, Lk,
+  TFD_BY_HEAD_DIM(launch_dkv, true, q, k, v, m, dl, dout, dk, dv, BH, L, Lk,
                   scale, causal, window, static_cast<cudaStream_t>(stream));
 }

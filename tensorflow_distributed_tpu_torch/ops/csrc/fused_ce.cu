@@ -74,18 +74,33 @@
 // logits block and a 256-column slice: 64 + 128 registers) executes 2.53
 // TFLOP in 192 CTAs (1.45 waves), spills, and was slower on the card.
 //
-// fwd and dW/db are the first, simple design: bf16 WMMA (16x16x16, f32
+// dW/db is the same design transposed, fused_ce_dw_hopper: a CTA owns 64
+// vocab rows x a 384-column slice of D and walks every 128-token tile.
+// The producer streams the W[64 rows, 64-column chunk] and x[128 tokens,
+// chunk] boxes through the stage ring and x[tile, slice] into its own
+// buffer; consumer warpgroup h computes logits^T[64 vocab, tokens 64 h ..
+// 64 h + 64) = W x^T (wgmma m64n64k16, both K-major), forms dlogits^T in
+// registers (the bias is now per row: two registers a thread, loaded
+// once; target, lse and coef are per column: the 128 tokens' rows go
+// through shared memory), stores it bf16 into a swizzled K-major (tokens
+// contiguous) 64 x 128 tile, and accumulates its own 192 columns of
+// dW[64, 192] += dlogits^T[64, 128] . x[tile, own 192 columns] (m64n192,
+// x MN-major: trans-b). db sums the f32 dlogits^T before the rounding:
+// two running row sums a thread, a quad shuffle and the two warpgroups'
+// halves through shared memory at the end, written by the slice-0 CTAs.
+// Shared memory: B5's 4 stages x 24 KB, the 96 KB slice buffer and two
+// 16 KB dlogits tiles leave 3 KB for the token rows, over the 227 KB a
+// block may have with the barriers and the alignment slack; the rows
+// are single-buffered instead (1.5 KB): a warpgroup writes the next
+// tile's rows only after the named barrier that ends this tile's
+// dlogits, which every reader of this tile's rows has passed.
+//
+// fwd is the first, simple design: bf16 WMMA (16x16x16, f32
 // accumulation) from x and W tiles streamed over D in 32-column chunks
 // (cp.async, double-buffered) into a logits block kept in shared memory
-// and consumed there (logits_tile):
-//   fwd : a CTA owns 64 tokens and walks every 128-column vocab tile,
-//         with the running (m, l, gold, lsum, best, argmax) of its rows
-//         in registers;
-//   dW/db: a CTA owns 64 vocab rows x a 384-column slice of D and walks
-//         every 128-token tile, keeping its 64 x 384 f32 block in
-//         registers (each warp 48 columns) and recomputing the logits
-//         block per slice: at D = 768 two slices, 1.90 TFLOP. db comes
-//         out of the dW CTA of slice 0 that owns the rows.
+// and consumed there (logits_tile): a CTA owns 64 tokens and walks every
+// 128-column vocab tile, with the running (m, l, gold, lsum, best,
+// argmax) of its rows in registers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -103,19 +118,13 @@ constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 constexpr int KC = 32;            // D columns per chunk of the logits product
 constexpr int KPAD = KC + 8;      // shared-memory row stride of a chunk (bf16)
-constexpr int CF = 3;             // 16-column fragments per warp in dW
-constexpr int DS = WARPS * 16 * CF;  // D columns of dW per CTA (384)
-constexpr int DSPAD = DS + 8;
 constexpr float NEG_INF = -1e30f;  // large-finite, as the JAX kernels
 constexpr int INT_BIG = 1 << 30;
 
-// fwd: 64 tokens x 128 vocab columns; dW: 128 tokens x 64 vocab.
+// fwd: 64 tokens x 128 vocab columns.
 constexpr int XT = 64, XV = 128;
-constexpr int WT = 128, WV = 64;
 
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> FragAt;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBt;
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
 
@@ -235,31 +244,6 @@ __device__ __forceinline__ void logits_tile(float* sL, bf16* stage, const bf16* 
       wmma::store_matrix_sync(sL + (wm * 32 + i * 16) * TL::LD + wn * 32 + j * 16, acc[i][j],
                               TL::LD, wmma::mem_row_major);
   __syncthreads();
-}
-
-// Write a 64-row x (WARPS * 16 * CF)-column block of f32 accumulators (this
-// warp's columns: col0 + warp * 16 * CF ...) to dst[row][col] (row stride
-// D) through a 16 x 16 per-warp scratch, masking rows >= nrows and
-// columns >= D.
-template <typename Out, typename Convert>
-__device__ __forceinline__ void store_block(Out* dst, FragC (&acc)[4][CF], float* scratch,
-                                            int row0, int nrows, int col0, int D,
-                                            Convert convert) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* sw = scratch + warp * 256;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < CF; ++c) {
-      wmma::store_matrix_sync(sw, acc[i][c], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int row = row0 + i * 16 + e / 16;
-        const int col = col0 + warp * 16 * CF + c * 16 + e % 16;
-        if (row < nrows && col < D) dst[(size_t)row * D + col] = convert(sw[e]);
-      }
-      __syncwarp();
-    }
 }
 
 // ---------------------------------------------------------------- forward
@@ -588,108 +572,247 @@ cudaError_t launch(const void* x, const void* w, const void* b, const void* t, c
 }  // namespace hdx
 
 // ------------------------------------------------------------------- dW/db
-// Grid (ceil(V / 64), ceil(D / DS)); one CTA per (vocab tile, D slice),
-// walking every token tile: logits tile -> dlogits (f32 in place for db,
-// bf16 for the product) -> dW_slice += dlogits^T . x[tile, slice]. db
-// sums the f32 dlogits: thread i keeps the partial of vocab column i % 64
-// over token rows [32 (i / 64), 32 (i / 64) + 32) of every tile.
+// The Hopper design (see the note at the top). Grid (ceil(V / 64),
+// ceil(D / 384)); one CTA per (64 vocab rows, 384-column D slice),
+// walking every token tile of 128.
 
-constexpr int dw_smem() {
-  return Tile<WT, WV>::STAGE_BYTES + Tile<WT, WV>::TILE_BYTES + WT * (WV + 8) * 2 +
-         WT * DSPAD * 2 + 3 * WT * 4;
-}
+namespace hdw {
+
+constexpr int CONSUMERS = 2;
+constexpr int THREADS = (CONSUMERS + 1) * 128;
+constexpr int TV = 64;                  // vocab rows per CTA (both warpgroups)
+constexpr int BT = 128;                 // tokens per tile
+constexpr int HT = BT / CONSUMERS;      // logits^T columns (tokens) per warpgroup
+constexpr int KC = 64;                  // D columns per logits chunk (one swizzle atom)
+constexpr int DSL = 384;                // D columns of dW per CTA
+constexpr int HD = DSL / CONSUMERS;     // dW columns per warpgroup
+constexpr int STAGES = 4;
+constexpr int ATOM = 128;               // bytes per swizzled row
+constexpr int W_BYTES = TV * KC * 2;
+constexpr int STAGE_BYTES = W_BYTES + BT * KC * 2;
+constexpr int XS_ATOM = BT * ATOM;      // x[tile, 64 columns of the slice]
+constexpr int XS_BYTES = (DSL / 64) * XS_ATOM;
+constexpr int DL_ATOM = TV * ATOM;      // dlogits^T[64 vocab rows, 64 tokens]
+constexpr int DL_BYTES = (BT / 64) * DL_ATOM;
+constexpr int XS_OFF = STAGES * STAGE_BYTES;
+constexpr int DL_OFF = XS_OFF + XS_BYTES;          // two dlogits^T tiles
+constexpr int ROW_OFF = DL_OFF + 2 * DL_BYTES;     // target, lse log2e, coef [BT] each
+constexpr int BAR_OFF = ROW_OFF + 3 * BT * 4;
+constexpr int SMEM = BAR_OFF + (2 * STAGES + 2) * 8 + 1024;  // + alignment slack
+static_assert(SMEM <= 232448, "more shared memory than a block may have");
+constexpr float LOG2E = 1.4426950408889634f;
 
 __global__ void __launch_bounds__(THREADS, 1)
-fused_ce_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+fused_ce_dw_hopper(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorMap mw,
                    const float* __restrict__ b, const int* __restrict__ t,
                    const float* __restrict__ lse, const float* __restrict__ coef,
                    float* __restrict__ dw, float* __restrict__ db, int T, int D, int V,
                    float eps) {
-  using TL = Tile<WT, WV>;
-  constexpr int RPW = WT / WARPS, CPL = WV / 32, LDD = WV + 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* stage = reinterpret_cast<bf16*>(smem);
-  float* sL = reinterpret_cast<float*>(smem + TL::STAGE_BYTES);
-  bf16* sD = reinterpret_cast<bf16*>(smem + TL::STAGE_BYTES + TL::TILE_BYTES);
-  bf16* sY = sD + WT * LDD;  // x[tok0 : tok0+WT, d0 : d0+DS]
-  int* sT = reinterpret_cast<int*>(sY + WT * DSPAD);
-  float* sLse = reinterpret_cast<float*>(sT + WT);
-  float* sCoef = sLse + WT;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + BAR_OFF);
+  uint64_t* empty = full + STAGES;
+  uint64_t* xs_full = empty + STAGES;
+  uint64_t* xs_empty = xs_full + 1;
+  unsigned char* xs = smem + XS_OFF;
 
-  const int v0 = blockIdx.x * WV, d0 = blockIdx.y * DS;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int v0 = blockIdx.x * TV, d0 = blockIdx.y * DSL;
+  const int nk = (D + KC - 1) / KC, nt = (T + BT - 1) / BT;
+  const int wg = threadIdx.x / 128;
 
-  FragC acc[4][CF];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < CF; ++c) wmma::fill_fragment(acc[i][c], 0.f);
-  const int db_col = threadIdx.x % WV, db_part = threadIdx.x / WV;
-  float db_acc = 0.f;
-
-  for (int tok0 = 0; tok0 < T; tok0 += WT) {
-    if (threadIdx.x < WT) {
-      const int row = tok0 + threadIdx.x;
-      sT[threadIdx.x] = row < T ? t[row] : -1;
-      sLse[threadIdx.x] = row < T ? lse[row] : 0.f;
-      sCoef[threadIdx.x] = row < T ? coef[row] : 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], CONSUMERS * 4);
     }
-    logits_tile<WT, WV>(sL, stage, x, w, tok0, T, v0, V, D);  // syncs sT/sLse/sCoef too
-    load_block<WT, DS>(sY, x, tok0, T, d0, D);
-    cp_async_commit();
-#pragma unroll
-    for (int j = 0; j < CPL; ++j) {
-      const int c = lane + 32 * j, col = v0 + c;
-      const bool valid = col < V;
-      const float bias = (b != nullptr && valid) ? b[col] : 0.f;
-#pragma unroll 4
-      for (int r = 0; r < RPW; ++r) {
-        const int rt = warp * RPW + r;
-        const int tg = sT[rt];
-        float d = 0.f;
-        if (tg >= 0 && valid) {  // the TPU _dlogits
-          d = expf(sL[rt * TL::LD + c] + bias - sLse[rt]);
-          if (col == tg) d -= 1.f - eps;
-          if (eps != 0.f) d -= eps / V;
-          d *= sCoef[rt];
-        }
-        sL[rt * TL::LD + c] = d;
-        sD[rt * LDD + c] = __float2bfloat16(d);
-      }
-    }
-    cp_async_wait<0>();
-    __syncthreads();
-#pragma unroll 4
-    for (int r = 0; r < WT / 4; ++r) db_acc += sL[(db_part * (WT / 4) + r) * TL::LD + db_col];
-#pragma unroll
-    for (int kk = 0; kk < WT / 16; ++kk) {
-      FragB fb[CF];
-#pragma unroll
-      for (int c = 0; c < CF; ++c)
-        wmma::load_matrix_sync(fb[c], sY + kk * 16 * DSPAD + warp * 16 * CF + c * 16, DSPAD);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        FragAt fa;  // dlogits^T: element (vocab i, token k) at sD[k * LDD + i]
-        wmma::load_matrix_sync(fa, sD + kk * 16 * LDD + i * 16, LDD);
-#pragma unroll
-        for (int c = 0; c < CF; ++c) wmma::mma_sync(acc[i][c], fa, fb[c], acc[i][c]);
-      }
-    }
-    __syncthreads();  // sL, sD, sY and the token rows are rewritten next tile
+    hopper::mbar_init(xs_full, 1);
+    hopper::mbar_init(xs_empty, CONSUMERS * 4);
+    hopper::fence_barrier_init();
   }
-  store_block(dw, acc, sL, v0, V, d0, D, [](float v) { return v; });
-  if (db != nullptr && blockIdx.y == 0) {
-    float* sPart = sL + WARPS * 256;  // past store_block's scratch
-    sPart[threadIdx.x] = db_acc;
-    __syncthreads();
-    if (threadIdx.x < WV && v0 + threadIdx.x < V) {
-      float s = 0.f;
-#pragma unroll
-      for (int p = 0; p < THREADS / WV; ++p) s += sPart[p * WV + threadIdx.x];
-      db[v0 + threadIdx.x] = s;
+  __syncthreads();
+
+  if (wg == CONSUMERS) {
+    // ---- producer: per token tile, the W and x chunks of the logits
+    // product through the stage ring and, once the ring is full ahead of
+    // the consumers, x[tile, slice] for the dW product (freed when the
+    // previous tile's dW product completes).
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == CONSUMERS * 128) {
+      int i = 0;
+      for (int tt = 0; tt < nt; ++tt) {
+        const int tok0 = tt * BT;
+        for (int c = 0; c < nk; ++c, ++i) {
+          const int s = i % STAGES;
+          hopper::mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
+          hopper::mbar_expect_tx(&full[s], STAGE_BYTES);
+          unsigned char* st = smem + s * STAGE_BYTES;
+          hopper::tma_load_2d(st, &mw, &full[s], c * KC, v0);
+          hopper::tma_load_2d(st + W_BYTES, &mx, &full[s], c * KC, tok0);
+          if (c == min(STAGES, nk) - 1) {
+            hopper::mbar_wait(xs_empty, (tt & 1) ^ 1);
+            hopper::mbar_expect_tx(xs_full, XS_BYTES);
+            for (int a = 0; a < DSL / 64; ++a)
+              hopper::tma_load_2d(xs + a * XS_ATOM, &mx, xs_full, d0 + a * 64, tok0);
+          }
+        }
+      }
     }
+  } else {
+    // ---- consumers: the same 64 vocab rows; warpgroup h computes tokens
+    // [64 h, 64 h + 64) of each tile's logits^T and owns dW columns
+    // [192 h, 192 h + 192) of the slice.
+    hopper::setmaxnreg_inc<240>();
+    const int tt = threadIdx.x % 128, warp = tt / 32, lane = tt % 32;
+    const int rr = warp * 16 + lane / 4;  // this thread's vocab rows: rr and rr + 8
+    bool vok[2];
+    float bias[2], dbs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = v0 + rr + 8 * h;
+      vok[h] = row < V;
+      bias[h] = (b != nullptr && vok[h]) ? __ldg(b + row) : 0.f;
+    }
+    const float smooth = eps != 0.f ? eps / V : 0.f;
+    int* stg = reinterpret_cast<int*>(smem + ROW_OFF);
+    float* slse = reinterpret_cast<float*>(stg + BT);
+    float* scf = slse + BT;
+
+    float acc[HD / 2];
+#pragma unroll
+    for (int j = 0; j < HD / 2; ++j) acc[j] = 0.f;
+
+    int i = 0;
+    for (int ti = 0; ti < nt; ++ti) {
+      const int tok0 = ti * BT, th = wg * HT;  // this warpgroup's first token of the tile
+      unsigned char* dl = smem + DL_OFF + (ti & 1) * DL_BYTES;
+
+      // logits^T[64 vocab, 64 tokens] = W x^T over D in 64-column
+      // chunks, one wgmma group per chunk; a stage is released once the
+      // group reading it has completed (the next group is issued by then).
+      float lg[HT / 2];
+      for (int c = 0; c < nk; ++c, ++i) {
+        const int s = i % STAGES;
+        hopper::mbar_wait(&full[s], (i / STAGES) & 1);
+        const unsigned char* st = smem + s * STAGE_BYTES;
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < KC / 16; ++kk)
+          hopper::Wgmma<HT, 0>::ss(lg, hopper::desc_sw128(st + kk * 32, 0),
+                                   hopper::desc_sw128(st + W_BYTES + th * ATOM + kk * 32, 0),
+                                   c > 0 || kk > 0);
+        hopper::wgmma_commit();
+        // The group before this one is done: release its stage.
+        hopper::wgmma_wait<1>();
+        if (lane == 0 && c > 0) hopper::mbar_arrive(&empty[(i - 1) % STAGES]);
+        if (c == 0 && tt < HT) {  // this warpgroup's token rows, under the product
+          const int row = tok0 + th + tt;
+          const bool ok = row < T;
+          stg[th + tt] = ok ? __ldg(t + row) : -1;
+          slse[th + tt] = ok ? __ldg(lse + row) * LOG2E : 0.f;
+          scf[th + tt] = ok ? __ldg(coef + row) : 0.f;
+        }
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_operand(lg);
+      if (lane == 0) hopper::mbar_arrive(&empty[(i - 1) % STAGES]);
+      hopper::named_sync(2 + wg, 128);  // the token rows are in
+
+      // dlogits^T (the TPU _dlogits) in registers; db sums it in f32, the
+      // dW product takes it rounded to bf16, stored K-major (tokens
+      // contiguous): atom wg of the tile, rows 128 bytes, 16-byte chunks
+      // swizzled as TMA's 128-byte swizzle (chunk ^ row % 8).
+      unsigned char* dla = dl + wg * DL_ATOM;
+#pragma unroll
+      for (int n8 = 0; n8 < HT / 8; ++n8) {
+        const int cc = th + 8 * n8 + 2 * (lane % 4);
+        const int2 tg = *reinterpret_cast<const int2*>(stg + cc);
+        const float2 l2 = *reinterpret_cast<const float2*>(slse + cc);
+        const float2 cf = *reinterpret_cast<const float2*>(scf + cc);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int vrow = v0 + rr + 8 * h;
+          float d[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int tgt = e ? tg.y : tg.x;
+            d[e] = 0.f;
+            if (tgt >= 0 && vok[h]) {
+              d[e] = hopper::exp2_approx(fmaf(lg[4 * n8 + 2 * h + e] + bias[h], LOG2E,
+                                              -(e ? l2.y : l2.x)));
+              if (vrow == tgt) d[e] -= 1.f - eps;
+              d[e] = (d[e] - smooth) * (e ? cf.y : cf.x);
+            }
+            dbs[h] += d[e];
+          }
+          const int row = rr + 8 * h;
+          *reinterpret_cast<uint32_t*>(dla + row * ATOM + ((n8 ^ (row & 7)) * 16) +
+                                       (lane % 4) * 4) = hopper::pack_bf16(d[0], d[1]);
+        }
+      }
+      hopper::fence_proxy_async();       // the stores, before wgmma reads them
+      hopper::named_sync(1, CONSUMERS * 128);  // both halves of the tile are in
+
+      // dW[64, 192] += dlogits^T[64, 128] . x[tile, own 192 columns]: A
+      // K-major from the dlogits^T tile, B MN-major (trans-b) from the
+      // slice; step kk reads tokens 16 kk.. of both.
+      hopper::mbar_wait(xs_full, ti & 1);
+      hopper::fence_operand(acc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BT / 16; ++kk)
+        hopper::Wgmma<HD, 1>::ss(
+            acc, hopper::desc_sw128(dl + (kk / 4) * DL_ATOM + (kk % 4) * 32, 0),
+            hopper::desc_sw128(xs + wg * (HD / 64) * XS_ATOM + kk * 16 * ATOM, XS_ATOM), 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operand(acc);
+      if (lane == 0) hopper::mbar_arrive(xs_empty);
+    }
+
+    // Epilogue: f32 dW, rows >= V and columns >= D dropped (D % 8 == 0,
+    // so a column pair is in or out together).
+#pragma unroll
+    for (int j = 0; j < HD / 2; j += 2) {
+      const int row = v0 + rr + 8 * ((j % 4) / 2);
+      const int col = d0 + wg * HD + 8 * (j / 4) + 2 * (lane % 4);
+      if (row < V && col < D)
+        *reinterpret_cast<float2*>(dw + (size_t)row * D + col) = make_float2(acc[j], acc[j + 1]);
+    }
+    // db: a row's sum lives in one quad of each warpgroup; the two
+    // halves meet in shared memory (the token rows are no longer read).
+    float* part = slse;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      dbs[h] += __shfl_xor_sync(0xffffffffu, dbs[h], 1);
+      dbs[h] += __shfl_xor_sync(0xffffffffu, dbs[h], 2);
+      if (lane % 4 == 0) part[wg * TV + rr + 8 * h] = dbs[h];
+    }
+    hopper::named_sync(1, CONSUMERS * 128);
+    if (db != nullptr && blockIdx.y == 0 && wg == 0 && tt < TV && v0 + tt < V)
+      db[v0 + tt] = part[tt] + part[TV + tt];
   }
 }
+
+cudaError_t launch(const void* x, const void* w, const void* b, const void* t, const void* lse,
+                   const void* coef, void* dw, void* db, int T, int D, int V, float eps,
+                   cudaStream_t stream) {
+  CUtensorMap mx, mw;
+  const uint64_t xdims[2] = {(uint64_t)D, (uint64_t)T}, wdims[2] = {(uint64_t)D, (uint64_t)V};
+  const uint64_t str[1] = {(uint64_t)D * 2};
+  const uint32_t xbox[2] = {KC, BT}, wbox[2] = {KC, TV};
+  cudaError_t err = hopper::encode_bf16_map(&mx, x, 2, xdims, str, xbox);
+  if (err == cudaSuccess) err = hopper::encode_bf16_map(&mw, w, 2, wdims, str, wbox);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(fused_ce_dw_hopper, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SMEM);
+  if (err != cudaSuccess) return err;
+  fused_ce_dw_hopper<<<dim3((V + TV - 1) / TV, (D + DSL - 1) / DSL), THREADS, SMEM, stream>>>(
+      mx, mw, (const float*)b, (const int*)t, (const float*)lse, (const float*)coef, (float*)dw,
+      (float*)db, T, D, V, eps);
+  return cudaGetLastError();
+}
+
+}  // namespace hdw
 
 template <typename Kernel>
 cudaError_t prepare(Kernel kernel, int smem) {
@@ -724,11 +847,6 @@ extern "C" int tfd_fused_ce_dx(const void* x, const void* w, const void* b, cons
 extern "C" int tfd_fused_ce_dw(const void* x, const void* w, const void* b, const void* t,
                                const void* lse, const void* coef, void* dw, void* db, int T,
                                int D, int V, float eps, void* stream) {
-  cudaError_t err = prepare(fused_ce_dw_kernel, dw_smem());
-  if (err != cudaSuccess) return err;
-  fused_ce_dw_kernel<<<dim3((V + WV - 1) / WV, (D + DS - 1) / DS), THREADS, dw_smem(),
-                       static_cast<cudaStream_t>(stream)>>>(
-      (const bf16*)x, (const bf16*)w, (const float*)b, (const int*)t, (const float*)lse,
-      (const float*)coef, (float*)dw, (float*)db, T, D, V, eps);
-  return cudaGetLastError();
+  return hdw::launch(x, w, b, t, lse, coef, dw, db, T, D, V, eps,
+                     static_cast<cudaStream_t>(stream));
 }

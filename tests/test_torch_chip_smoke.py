@@ -1,0 +1,101 @@
+"""PyTorch port: ``chip_smoke.py``'s tables and build checks, on the CPU.
+
+The smoke runs only on a card, so what it holds the build to is checked
+here: every Hopper kernel it lists is a ``__global__`` function of the
+source it names; ``REPLACES`` names exactly the port's kernels, each at
+the line of a Pallas kernel function of the JAX package (read as text:
+this file imports no JAX); and the ptxas checks catch a spill and a
+serialized wgmma.
+"""
+
+import importlib.util
+import os
+import re
+
+import pytest
+
+from tensorflow_distributed_tpu_torch.ops import flash_attention as fa
+from tensorflow_distributed_tpu_torch.ops import fused_ce_kernel as fce
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+cs = _smoke()
+GLOBAL = re.compile(
+    r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(")
+
+
+def _globals(path):
+    with open(os.path.join(REPO, path)) as f:
+        return set(GLOBAL.findall(f.read()))
+
+
+@pytest.mark.parametrize("kernel", sorted(cs.HOPPER_KERNELS))
+def test_hopper_kernel_is_a_global_function_of_its_source(kernel):
+    library = cs.HOPPER_KERNELS[kernel]
+    assert library in cs.SOURCES
+    assert kernel in _globals(cs.SOURCES[library])
+
+
+def test_every_library_of_the_kernels_has_a_source():
+    kernels = fa.KERNELS + fce.KERNELS + fa.PARTIAL_KERNELS
+    assert {k.library for k in kernels} == set(cs.SOURCES)
+    for path in cs.SOURCES.values():
+        assert os.path.exists(os.path.join(REPO, path))
+
+
+def test_replaces_names_exactly_the_ports_kernels():
+    kernels = fa.KERNELS + fce.KERNELS + fa.PARTIAL_KERNELS
+    assert set(cs.REPLACES) == {k.name for k in kernels}
+    assert len(kernels) == 9
+
+
+@pytest.mark.parametrize("name", sorted(cs.REPLACES))
+def test_replaces_points_at_a_pallas_kernel_function(name):
+    path, line = cs.REPLACES[name].rsplit(":", 1)
+    assert path.startswith("tensorflow_distributed_tpu/ops/")
+    with open(os.path.join(REPO, path)) as f:
+        text = f.read().splitlines()[int(line) - 1]
+    assert re.match(r"def _\w*kernel\(", text), text
+
+
+@pytest.mark.parametrize("code", [f"C751{i}" for i in range(6)])
+def test_build_check_catches_serialized_wgmma(code):
+    log = (f"ptxas warning : ({code}) Potential Performance Loss: "
+           f"wgmma.mma_async instructions are serialized")
+    assert cs.WGMMA_SERIALIZED.search(log)
+
+
+@pytest.mark.parametrize("code", ["C7509", "C7516", "C75150"])
+def test_build_check_ignores_other_warnings(code):
+    assert not cs.WGMMA_SERIALIZED.search(f"ptxas warning : ({code}) other")
+
+
+def test_build_check_catches_a_spill():
+    clean = ["0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+             "ptxas info    : Used 168 registers, used 16 barriers"]
+    assert not cs.spills(clean)
+    assert cs.spills(["24 bytes stack frame, 20 bytes spill stores, "
+                      "0 bytes spill loads"])
+    assert cs.spills(["0 bytes stack frame, 0 bytes spill stores, "
+                      "100 bytes spill loads"])
+
+
+def test_ptxas_lines_are_grouped_by_kernel():
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_Z3fooPf' for 'sm_90a'",
+        "ptxas info    : Used 40 registers, used 1 barriers",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Compiling entry function '_Z3barPf' for 'sm_90a'",
+        "    8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads"])
+    got = cs.ptxas_by_kernel(log)
+    assert sorted(got) == ["_Z3barPf", "_Z3fooPf"]
+    assert not cs.spills(got["_Z3fooPf"]) and cs.spills(got["_Z3barPf"])

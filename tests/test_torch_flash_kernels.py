@@ -59,14 +59,27 @@ def test_kernels_match_plain_versions_on_gpu(cuda, D, causal, window):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("L,Lk", [(192, 192), (128, 256), (64, 64)],
-                         ids=["L192", "L128_Lk256", "L64"])
+@pytest.mark.parametrize("L,Lk", [(192, 192), (128, 256), (64, 64),
+                                  (320, 320), (64, 320)],
+                         ids=["L192", "L128_Lk256", "L64", "L320",
+                              "L64_Lk320"])
 def test_kernels_on_shapes_off_the_forward_tile(cuda, L, Lk, causal):
-    """The forward takes 128 query rows and 128 keys a tile: L 192 and
-    L 64 leave a CTA's rows past L, Lk 256 != L 128 gives the key loop
-    its own bound; rows and keys past the end read as TMA's zeros and
-    are masked."""
+    """The forward takes 128 keys a tile and the dK/dV kernel 128 keys a
+    CTA: L 192, L 320 and L 64 leave a tile's or a CTA's keys past Lk
+    (a whole 64-key warpgroup of dK/dV at Lk 320), Lk != L gives the
+    key and query loops their own bounds; rows and keys past the end
+    read as TMA's zeros and are masked or dropped."""
     _check_against_plain(cuda, 3, L, Lk, 64, causal, 0, L + Lk)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L,Lk", [(192, 320), (128, 320)],
+                         ids=["L192_Lk320", "L128_Lk320"])
+def test_window_across_key_ctas_with_lk_not_l(cuda, L, Lk):
+    """Window 80 crosses the dK/dV kernel's 128-key CTAs and its 64-key
+    warpgroups, with Lk != L. (Lk > L: with L >= Lk + window a query row
+    would see no key at all, which no caller asks for.)"""
+    _check_against_plain(cuda, 3, L, Lk, 64, True, 80, L * Lk)
 
 
 @pytest.mark.gpu

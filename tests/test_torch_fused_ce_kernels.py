@@ -12,7 +12,8 @@ The cases are chip_smoke.py's: GPT-2-small's head (T 8192, D 768,
 V 50257) with bias at eps 0 and 0.1 and without bias (the tied head),
 GPT-2-medium's width (D 1024, T 2048), and a ragged case (T 1000,
 V 179), plus odd shapes: T 40, D 200, V 70; D 1000 and D 1600 (not
-multiples of dx's 64-column chunk or 256-column slice); and T 1.
+multiples of the 64-column chunk or the 384-column slice of dx and
+dW); T 1; and V 2001 with T 300 (ragged dW vocab and token tiles).
 Tolerances as chip_smoke.py (the plain version runs in f32 from the same bf16
 inputs): ce and lse max abs error <= 1e-3; ``correct``
 identical wherever the top-2 logit gap exceeds 1e-2; dx and dW max abs
@@ -37,7 +38,11 @@ CASES = [dict(T=8192, D=768, V=50257, bias=True, eps=0.0),
          # end inside a chunk and a slice; one token fills 1 of 128 rows
          dict(T=300, D=1000, V=1000, bias=True, eps=0.0),
          dict(T=256, D=1600, V=2000, bias=True, eps=0.1),
-         dict(T=1, D=768, V=50257, bias=True, eps=0.0)]
+         dict(T=1, D=768, V=50257, bias=True, eps=0.0),
+         # dW's 64-row vocab tiles and 128-token tiles: V 2001 leaves 17
+         # rows in the last vocab tile, T 300 44 tokens in the last token
+         # tile, D 1600 ends inside a 64-column chunk and a 384-column slice
+         dict(T=300, D=1600, V=2001, bias=True, eps=0.1)]
 
 
 @pytest.fixture

@@ -12,8 +12,9 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
 2. build   — compiles the flash-attention and fused-CE kernels from
              ``tensorflow_distributed_tpu_torch/ops/csrc`` (sm_90a), one
              nvcc per source, started together; lists the registers and
-             spills of the four Hopper kernels (B1's forward, B3's
-             dK/dV, B5's dx, B6's dW/db), fails if one spills, if ptxas
+             spills of the six Hopper kernels (B1's forward, B2's dQ,
+             B3's dK/dV, B4's forward, B5's dx, B6's dW/db), fails if
+             one spills, if ptxas
              ignored a setmaxnreg or serialized a kernel's wgmmas
              (warnings C7510-C7515), and counts their wgmma, TMA,
              mbarrier and mma.sync instructions in the machine code
@@ -164,9 +165,11 @@ SOURCES = {"flash_attention": f"{CSRC}/flash_attention.cu",
            "fused_ce": f"{CSRC}/fused_ce.cu"}
 # The kernels built from ops/csrc/hopper.cuh (wgmma, TMA, mbarriers,
 # setmaxnreg), each with the library (SOURCES key) that holds it: B1's
-# forward, B3's dK/dV, B5's dx and B6's dW/db.
+# forward, B2's dQ, B3's dK/dV, B4's forward, B5's dx and B6's dW/db.
 HOPPER_KERNELS = {"flash_fwd_hopper": "flash_attention",
+                  "flash_dq_hopper": "flash_attention",
                   "flash_dkv_hopper": "flash_attention",
+                  "fused_ce_fwd_hopper": "fused_ce",
                   "fused_ce_dx_hopper": "fused_ce",
                   "fused_ce_dw_hopper": "fused_ce"}
 # ptxas's warnings that it serialized a kernel's wgmmas (C7510-C7515).

@@ -16,19 +16,21 @@ Examples:
         --ce-chunk 8192 --ce-impl kernel
 
     # the same path on the CPU (plain versions of the kernels), tiny:
-    python -m tensorflow_distributed_tpu_torch.cli --model-size tiny \
-        --seq-len 64 --batch-size 8 --train-steps 5 --eval-batch-size 8 \
-        --compute-dtype float32 --device cpu
+    python -m tensorflow_distributed_tpu_torch.cli --model gpt_lm \
+        --model-size tiny --seq-len 64 --batch-size 8 --train-steps 5 \
+        --eval-batch-size 8 --compute-dtype float32 --device cpu
 
     # sequence parallelism: ring attention over 4 processes, one GPU
     # each (NCCL; rank r on cuda:r), through the partial-attention
     # kernels; with --device cpu the same over gloo:
     torchrun --standalone --nproc-per-node 4 \
-        -m tensorflow_distributed_tpu_torch.cli --mesh.seq 4 \
+        -m tensorflow_distributed_tpu_torch.cli --mesh.seq 4 --model gpt_lm \
         --model-size small --seq-len 1024 --batch-size 8 --train-steps 30
 
-Flags share the JAX CLI's spellings; flags the port does not parse yet
-are rejected (ROADMAP.md queue A lists what is still to come).
+Flags share the JAX CLI's spellings and defaults; flags the port does
+not parse yet are rejected (ROADMAP.md queue A lists what is still to
+come). The default model is the JAX package's ``mnist_cnn``, not ported
+yet, so every call names ``--model gpt_lm``.
 """
 
 from __future__ import annotations

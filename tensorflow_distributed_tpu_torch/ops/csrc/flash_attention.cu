@@ -71,19 +71,37 @@
 // dV stay in registers (D / 2 each a thread) and are written once, bf16;
 // a warpgroup whose 64 keys lie outside a tile's band skips the tile.
 //
-// The other kernels are the first, simple design: one CTA of 4 warps
-// per 64-row output tile, bf16 WMMA (16x16x16) with f32 accumulation,
-// tiles staged in shared memory, and per-CTA loop bounds that skip key
-// (resp. query) tiles outside the band. Instead of the TPU's sequential
-// grid and VMEM scratch carried across grid steps, each CTA owns its
-// output tile and loops over the reduction axis itself; rowsum(dO*O) is
-// recomputed per tile as on the TPU rather than stored. The partial
-// kernels share these loops as template instantiations (the partial
-// forward is flash_fwd_kernel<D, true>, the partial dK/dV
-// flash_dkv_kernel<D, true>): a ring step's half-block
-// attend (GPT-2-small at S = 4: BH 96, 128 x 128) is a few MB of
-// traffic and tens of MFLOP, so they are bound by bytes and by launch
-// latency; their f32 o and dO double the bytes of those operands.
+// The normalized dQ (tfd_flash_dq) is the same pieces once more,
+// flash_dq_hopper<D>: a CTA owns 128 query rows, two consumer warpgroups
+// of 64 rows and a producer warpgroup that loads the Q and dO tiles once
+// and streams the band's K/V tiles of 64 keys through a 4-stage ring, so
+// each K/V tile loaded serves 128 rows. Each consumer first reads its
+// rows' lse and delta = rowsum(dO * O) once (a dQ CTA's rows are fixed):
+// a row lives in one quad, each thread reads a quarter of the row's dO
+// and O from global memory under the first loads and two shfl.xor steps
+// sum the quad, so O needs no shared memory. Per K/V tile it runs S =
+// Q K^T and dP = dO V^T (wgmma m64n64k16 from shared memory, all
+// operands K-major, the two products' k-steps interleaved), forms P =
+// 2^(s scale log2e - lse log2e) and dS = P (dP - delta) scale in
+// registers (the band mask only on tiles that cross its edge or the end
+// of the keys), packs dS to bf16 in place as the register-A fragments
+// and accumulates dQ += dS K with K read MN-major (trans-b) from the same
+// swizzled tile. dQ stays in registers (D / 2 a thread) and is written
+// once, bf16; a warpgroup whose rows see none of a tile's keys skips it.
+// At GPT-2-small's shapes the bound is the bytes (~0.023 ms), against
+// 3/4 of dK/dV's tensor-core work.
+//
+// The partial (ring-step) kernels are the first, simple design:
+// flash_fwd_kernel, flash_dq_kernel and flash_dkv_kernel<D, true>, one
+// CTA of 4 warps per 64-row output tile, bf16 WMMA (16x16x16) with f32
+// accumulation, tiles staged in shared memory, and per-CTA loop bounds
+// that skip key (resp. query) tiles outside the band. Instead of the
+// TPU's sequential grid and VMEM scratch carried across grid steps, each
+// CTA owns its output tile and loops over the reduction axis itself. A
+// ring step's half-block attend (GPT-2-small at S = 4: BH 96, 128 x 128)
+// is a few MB of traffic and tens of MFLOP, so they are bound by bytes
+// and by launch latency; their f32 o and dO double the bytes of those
+// operands.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -346,9 +364,9 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // --------------------------------------------------------------------- dQ
 // Grid (BH, L/BQ); one CTA per (head, query tile), looping over the key
-// tiles of the band. dQ accumulates in registers. Normalized: `stat` is
-// the lse, and delta = rowsum(dO * O) is recomputed from o (dl unused).
-// PARTIAL: `stat` is m, delta = -dl, dout is f32 (o unused).
+// tiles of the band. dQ accumulates in registers. The partial form only
+// (the normalized dQ is flash_dq_hopper below): `stat` is m, delta =
+// -dl, dout is f32.
 
 template <int D>
 constexpr int dq_smem() {
@@ -358,10 +376,10 @@ constexpr int dq_smem() {
 template <int D, bool PARTIAL>
 __global__ void __launch_bounds__(THREADS)
 flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, const bf16* __restrict__ o,
-                const float* __restrict__ stat, const float* __restrict__ dl,
-                const void* __restrict__ dout, bf16* __restrict__ dq, int L,
-                int Lk, float scale, int causal, int window) {
+                const bf16* __restrict__ v, const float* __restrict__ stat,
+                const float* __restrict__ dl, const void* __restrict__ dout,
+                bf16* __restrict__ dq, int L, int Lk, float scale, int causal, int window) {
+  static_assert(PARTIAL, "the normalized dQ is flash_dq_hopper");
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);            // BQ x D
   bf16* sdO = sQ + BQ * D;                             // BQ x D
@@ -390,20 +408,12 @@ flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* sdPw = sdP + warp * 16 * BK;
   bf16* sdSw = sdS + warp * 16 * BK;
 
-  // Per-row lse (or m) and delta = rowsum(dO * O) (or -dl), lane-replicated.
+  // Per-row m and delta = -dl, lane-replicated.
   float lse_r[16], delta_r[16];
   const size_t rbase = (size_t)bh * L + row0;
 #pragma unroll
   for (int r = 0; r < 16; ++r) {
-    if constexpr (PARTIAL) {
-      delta_r[r] = -dl[rbase + r];
-    } else {
-      const bf16* orow = o + (rbase + r) * D;
-      float acc = 0.f;
-      for (int d = lane; d < D; d += 32)
-        acc += __bfloat162float(sdOw[r * D + d]) * __bfloat162float(orow[d]);
-      delta_r[r] = warp_sum(acc);
-    }
+    delta_r[r] = -dl[rbase + r];
     lse_r[r] = stat[rbase + r];
   }
 
@@ -550,8 +560,7 @@ cudaError_t prepare(Kernel kernel, int smem) {
 }
 
 // One launcher per kernel: set the shared-memory limit, launch on
-// `stream`, return the launch's CUDA error. `o` and `dl` are null where
-// the form does not read them (see the kernels).
+// `stream`, return the launch's CUDA error.
 
 template <int D, bool PARTIAL>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, void* stat,
@@ -567,16 +576,15 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, voi
 }
 
 template <int D, bool PARTIAL>
-cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o,
-                      const void* stat, const void* dl, const void* dout, void* dq,
-                      int BH, int L, int Lk, float scale, int causal, int window,
-                      cudaStream_t s) {
+cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* stat,
+                      const void* dl, const void* dout, void* dq, int BH, int L, int Lk,
+                      float scale, int causal, int window, cudaStream_t s) {
   auto kernel = flash_dq_kernel<D, PARTIAL>;
   cudaError_t err = prepare(kernel, dq_smem<D>());
   if (err != cudaSuccess) return err;
   kernel<<<dim3(BH, L / BQ), THREADS, dq_smem<D>(), s>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o, (const float*)stat,
-      (const float*)dl, dout, (bf16*)dq, L, Lk, scale, causal, window);
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)stat, (const float*)dl,
+      dout, (bf16*)dq, L, Lk, scale, causal, window);
   return cudaGetLastError();
 }
 
@@ -878,6 +886,262 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* l
 
 }  // namespace hfwd
 
+// -------------------------------------------------------- dQ, Hopper design
+// Grid (BH, ceil(L / BM)); one CTA per (head, BM query rows), heaviest
+// causal tiles first. See the note at the top of the file.
+
+namespace hdq {
+
+constexpr int BN = 64;          // key rows per stage
+// Consumer warpgroups of 64 query rows each, sharing each K/V stage: two
+// (one CTA to an SM, 168 registers a thread at launch, the consumers
+// raised to 240), or one (two CTAs to an SM at D 64, as B1: 128 at
+// launch, 232). scripts/torch_kernel_variants.py times both.
+constexpr int CONSUMERS = 2;
+constexpr int BM = 64 * CONSUMERS;  // query rows per CTA
+constexpr int THREADS = (CONSUMERS + 1) * 128;
+constexpr int CTAS_PER_SM = CONSUMERS == 1 ? 2 : 1;
+constexpr int CONSUMER_REGS = CONSUMERS == 1 ? 232 : 240;
+constexpr int ATOM = 128;       // bytes per swizzled row: 64 bf16 of D
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+struct Smem {
+  static constexpr int ATOMS = D / 64;
+  static constexpr int Q_BYTES = BM * D * 2;   // the Q or the dO tile
+  static constexpr int KV_BYTES = BN * D * 2;  // one K or V tile
+  static constexpr int STAGE_BYTES = 2 * KV_BYTES;
+  // As many stages as fit, up to 4, in a block's share of the SM: half
+  // of 233472 bytes less the 1024 each block reserves where two CTAs to
+  // an SM fit with two stages, else all a block may have.
+  static constexpr int FIXED = 2 * Q_BYTES + 80 + 1024;
+  static constexpr int LIMIT =
+      CTAS_PER_SM == 2 && FIXED + 2 * STAGE_BYTES <= 115712 ? 115712 : 232448;
+  static constexpr int STAGES = (LIMIT - FIXED) / STAGE_BYTES < 4
+                                    ? (LIMIT - FIXED) / STAGE_BYTES : 4;
+  static constexpr int BAR_OFF = 2 * Q_BYTES + STAGES * STAGE_BYTES;
+  static constexpr int BYTES = BAR_OFF + (2 * STAGES + 1) * 8 + 1024;  // + alignment slack
+  static_assert(STAGES >= 2 && BYTES <= 232448, "no room for two stages");
+};
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, CTAS_PER_SM)
+flash_dq_hopper(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mdo,
+                const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                const float* __restrict__ lse, bf16* __restrict__ dq, int L, int Lk, float scale,
+                int causal, int window) {
+  using S = Smem<D>;
+  constexpr int STAGES = S::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  // Swizzled TMA tiles want 1024-byte-aligned shared addresses.
+  unsigned char* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BAR_OFF);
+  uint64_t* empty = full + STAGES;
+  uint64_t* qbar = empty + STAGES;
+
+  const int bh = blockIdx.x;
+  const int nq = (L + BM - 1) / BM, nk = (Lk + BN - 1) / BN;
+  const int qt = nq - 1 - blockIdx.y;
+  const int wg = threadIdx.x / 128;
+  int lo = 0, hi = nk - 1;  // the CTA's key tiles (the JAX _kv_needed)
+  if (causal) {
+    hi = min(hi, (qt * BM + BM - 1) / BN);
+    if (window) lo = max(qt * BM - window + 1, 0) / BN;
+  }
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], CONSUMERS * 4);
+    }
+    hopper::mbar_init(qbar, 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == CONSUMERS) {
+    // ---- producer: one thread issues every load: Q and dO once, then
+    // the band's K/V tiles through the stage ring.
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == CONSUMERS * 128) {
+      hopper::mbar_expect_tx(qbar, 2 * S::Q_BYTES);
+      for (int a = 0; a < S::ATOMS; ++a) {
+        hopper::tma_load_3d(smem + a * BM * ATOM, &mq, qbar, a * 64, qt * BM, bh);
+        hopper::tma_load_3d(smem + S::Q_BYTES + a * BM * ATOM, &mdo, qbar, a * 64, qt * BM, bh);
+      }
+      for (int kt = lo, i = 0; kt <= hi; ++kt, ++i) {
+        const int s = i % STAGES;
+        hopper::mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);  // the first round passes at once
+        hopper::mbar_expect_tx(&full[s], S::STAGE_BYTES);
+        unsigned char* kb = smem + 2 * S::Q_BYTES + s * S::STAGE_BYTES;
+        for (int a = 0; a < S::ATOMS; ++a) {
+          hopper::tma_load_3d(kb + a * BN * ATOM, &mk, &full[s], a * 64, kt * BN, bh);
+          hopper::tma_load_3d(kb + S::KV_BYTES + a * BN * ATOM, &mv, &full[s], a * 64, kt * BN,
+                              bh);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows each, over the key tiles of their own
+    // band [ka, kb] (the CTA's band holds it; a tile outside it is waited
+    // for and released unread: an early release would complete the
+    // ring's previous round). Per tile S and dP from shared memory, dS in
+    // registers, then dQ += dS K with dS as the register-A operand.
+    hopper::setmaxnreg_inc<CONSUMER_REGS>();
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int wrow0 = qt * BM + wg * 64;          // the warpgroup's first query row
+    const int r0 = wrow0 + warp * 16 + lane / 4;  // this thread's rows: r0 and r0 + 8
+    const unsigned char* sq = smem + wg * 64 * ATOM;
+    const unsigned char* sdo = sq + S::Q_BYTES;
+    const float scale_log2 = scale * LOG2E;
+    int ka = 0, kb = nk - 1;
+    if (causal) {
+      kb = min(kb, (wrow0 + 63) / BN);
+      if (window) ka = max(wrow0 - window + 1, 0) / BN;
+    }
+    if (wrow0 >= L) kb = ka - 1;  // no row of the warpgroup below L
+
+    // The rows' lse (log2 units) and -delta scale, delta = rowsum(dO * O)
+    // (the JAX _delta), once: a row lives in one quad, each thread reads a
+    // quarter of it from global memory (under the first TMA loads) and
+    // two shfl.xor steps sum the quad.
+    float lse2[2], nd[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + 8 * h;
+      float acc = 0.f;
+      lse2[h] = 0.f;
+      if (row < L) {
+        const size_t off = ((size_t)bh * L + row) * D + (lane % 4) * (D / 4);
+        const uint4* po = reinterpret_cast<const uint4*>(o + off);
+        const uint4* pd = reinterpret_cast<const uint4*>(dout + off);
+#pragma unroll
+        for (int i = 0; i < D / 32; ++i) {
+          const uint4 a = __ldg(pd + i), b = __ldg(po + i);
+          const __nv_bfloat162* fa = reinterpret_cast<const __nv_bfloat162*>(&a);
+          const __nv_bfloat162* fb = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 x = __bfloat1622float2(fa[e]), y = __bfloat1622float2(fb[e]);
+            acc = fmaf(x.x, y.x, acc);
+            acc = fmaf(x.y, y.y, acc);
+          }
+        }
+        lse2[h] = __ldg(lse + (size_t)bh * L + row) * LOG2E;
+      }
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+      nd[h] = -acc * scale;
+    }
+
+    float dqacc[D / 2];
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) dqacc[j] = 0.f;
+    float sacc[BN / 2], dpacc[BN / 2];
+    uint32_t df[BN / 16][4];
+
+    hopper::mbar_wait(qbar, 0);
+    for (int kt = lo, i = 0; kt <= hi; ++kt, ++i) {
+      const int s = i % STAGES, col0 = kt * BN;
+      hopper::mbar_wait(&full[s], (i / STAGES) & 1);
+      if (kt >= ka && kt <= kb) {
+        const unsigned char* sk = smem + 2 * S::Q_BYTES + s * S::STAGE_BYTES;
+        const unsigned char* sv = sk + S::KV_BYTES;
+        // S = Q K^T and dP = dO V^T: all operands K-major, D / 16 steps of
+        // k16, the two products' steps interleaved.
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const int oa = (kk / 4) * BM * ATOM + (kk % 4) * 32;
+          const int ob = (kk / 4) * BN * ATOM + (kk % 4) * 32;
+          hopper::Wgmma<BN, 0>::ss(sacc, hopper::desc_sw128(sq + oa, 0),
+                                   hopper::desc_sw128(sk + ob, 0), kk > 0);
+          hopper::Wgmma<BN, 0>::ss(dpacc, hopper::desc_sw128(sdo + oa, 0),
+                                   hopper::desc_sw128(sv + ob, 0), kk > 0);
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_operand(sacc);
+        hopper::fence_operand(dpacc);
+
+        // P = 2^(s scale log2e - lse log2e), 0 outside the band and past
+        // the keys (masked only on tiles that cross either); dS = P (dP -
+        // delta) scale, packed to bf16 as the register-A fragments.
+        const bool edge = col0 + BN > Lk ||
+                          (causal && (col0 + BN - 1 > wrow0 ||
+                                      (window && col0 <= wrow0 + 63 - window)));
+#pragma unroll
+        for (int j = 0; j < BN / 2; ++j) {
+          const int h = (j % 4) / 2;
+          const int col = col0 + 8 * (j / 4) + 2 * (lane % 4) + (j % 2);
+          float p = hopper::exp2_approx(fmaf(sacc[j], scale_log2, -lse2[h]));
+          if (edge && (col >= Lk || !keep(r0 + 8 * h, col, causal, window))) p = 0.f;
+          dpacc[j] = p * fmaf(dpacc[j], scale, nd[h]);
+        }
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            df[kk][r] = hopper::pack_bf16(dpacc[8 * kk + 2 * r], dpacc[8 * kk + 2 * r + 1]);
+
+        // dQ += dS K: K [keys, D] is B with D contiguous (MN-major,
+        // trans-b), the same tile as above; step kk reads keys 16 kk.. of
+        // every 64-column atom.
+        hopper::fence_operand(dqacc);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk)
+          hopper::Wgmma<D, 1>::rs(dqacc, df[kk], hopper::desc_sw128(sk + kk * 16 * ATOM, BN * ATOM),
+                                  1);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_operand(df);
+        hopper::fence_operand(dqacc);
+      }
+      if (lane == 0) hopper::mbar_arrive(&empty[s]);
+    }
+
+    // Epilogue: dQ in bf16; rows >= L dropped.
+    const size_t base = (size_t)bh * L;
+#pragma unroll
+    for (int j = 0; j < D / 2; j += 2) {
+      const int row = r0 + 8 * ((j % 4) / 2);
+      const int col = 8 * (j / 4) + 2 * (lane % 4);
+      if (row < L)
+        *reinterpret_cast<uint32_t*>(dq + (base + row) * D + col) =
+            hopper::pack_bf16(dqacc[j], dqacc[j + 1]);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* lse,
+                   const void* dout, void* dq, int BH, int L, int Lk, float scale, int causal,
+                   int window, cudaStream_t stream) {
+  using S = Smem<D>;
+  CUtensorMap mq, mk, mv, mdo;
+  const uint64_t qdims[3] = {D, (uint64_t)L, (uint64_t)BH};
+  const uint64_t kdims[3] = {D, (uint64_t)Lk, (uint64_t)BH};
+  const uint64_t qstr[2] = {D * 2, (uint64_t)L * D * 2};
+  const uint64_t kstr[2] = {D * 2, (uint64_t)Lk * D * 2};
+  const uint32_t qbox[3] = {64, BM, 1}, kbox[3] = {64, BN, 1};
+  cudaError_t err = hopper::encode_bf16_map(&mq, q, 3, qdims, qstr, qbox);
+  if (err == cudaSuccess) err = hopper::encode_bf16_map(&mdo, dout, 3, qdims, qstr, qbox);
+  if (err == cudaSuccess) err = hopper::encode_bf16_map(&mk, k, 3, kdims, kstr, kbox);
+  if (err == cudaSuccess) err = hopper::encode_bf16_map(&mv, v, 3, kdims, kstr, kbox);
+  if (err != cudaSuccess) return err;
+  auto kernel = flash_dq_hopper<D>;
+  err = prepare(kernel, S::BYTES);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(BH, (L + BM - 1) / BM), THREADS, S::BYTES, stream>>>(
+      mq, mk, mv, mdo, (const bf16*)o, (const bf16*)dout, (const float*)lse, (bf16*)dq, L, Lk,
+      scale, causal, window);
+  return cudaGetLastError();
+}
+
+}  // namespace hdq
+
 // ----------------------------------------------------- dK/dV, Hopper design
 // Grid (BH, ceil(Lk / 128)); one CTA per (head, 128 key rows), low key
 // tiles (the longest causal bands) first. See the note at the top of the
@@ -1175,8 +1439,12 @@ extern "C" int tfd_flash_dq(const void* q, const void* k, const void* v, const v
                             const void* lse, const void* dout, void* dq, int BH, int L,
                             int Lk, int D, float scale, int causal, int window,
                             void* stream) {
-  TFD_BY_HEAD_DIM(launch_dq, false, q, k, v, o, lse, nullptr, dout, dq, BH, L, Lk, scale,
-                  causal, window, static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 64)
+    return hdq::launch<64>(q, k, v, o, lse, dout, dq, BH, L, Lk, scale, causal, window, s);
+  if (D == 128)
+    return hdq::launch<128>(q, k, v, o, lse, dout, dq, BH, L, Lk, scale, causal, window, s);
+  return cudaErrorInvalidValue;
 }
 
 extern "C" int tfd_flash_dkv(const void* q, const void* k, const void* v, const void* o,
@@ -1205,8 +1473,8 @@ extern "C" int tfd_flash_dq_partial(const void* q, const void* k, const void* v,
                                     const void* m, const void* dl, const void* dout,
                                     void* dq, int BH, int L, int Lk, int D, float scale,
                                     int causal, int window, void* stream) {
-  TFD_BY_HEAD_DIM(launch_dq, true, q, k, v, nullptr, m, dl, dout, dq, BH, L, Lk, scale,
-                  causal, window, static_cast<cudaStream_t>(stream));
+  TFD_BY_HEAD_DIM(launch_dq, true, q, k, v, m, dl, dout, dq, BH, L, Lk, scale, causal,
+                  window, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int tfd_flash_dkv_partial(const void* q, const void* k, const void* v,

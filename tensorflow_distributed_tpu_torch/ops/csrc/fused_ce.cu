@@ -37,6 +37,28 @@
 // owns its output and loops the reduction axis itself; nothing crosses
 // CTAs, no atomics.
 //
+// fwd is the Hopper design, fused_ce_fwd_hopper: a CTA owns 64 tokens
+// and walks every 256-column vocab tile, with three warpgroups. The
+// producer (registers cut to 24 by setmaxnreg) has one thread issue TMA
+// loads: per vocab tile, the x[64 tokens, 64 D columns] and W[256 rows,
+// 64 columns] chunks into a 4-stage ring under full/empty mbarriers (no
+// D slice and no dlogits tile; five stages fit but ran slower). The two
+// consumer warpgroups (registers raised to 240) share the x chunks:
+// warpgroup h computes vocab columns [128 h, 128 h + 128) of each tile's
+// logits with wgmma m64n128k16 from shared memory (both operands
+// K-major) into registers and keeps its rows' statistics there: the
+// running max m and exp-sum l in log2 units (2^x is one ex2.approx), the
+// gold logit, the logit sum (eps != 0 only) and the running max with its
+// first column. A row lives in one quad, so a row's max is two shfl.xor
+// steps; the bias comes through shared memory, loaded under the product;
+// columns >= V are NEG_INF on the vocab tail tile only. Nothing is
+// shared between the consumers until the end of the CTA, where
+// warpgroup 1 hands its rows to warpgroup 0 through shared memory, which
+// merges them (m, l rescaled to the larger m; gold and lsum added; the
+// larger max wins, an exact tie the smaller column: the JAX kernel's
+// first max) and writes ce, correct and lse. At T 8192 the grid is 128
+// CTAs for 132 SMs.
+//
 // dx is the Hopper design, fused_ce_dx_hopper: a CTA owns 64 tokens x a
 // 384-column slice of D and walks every 128-column vocab tile, with
 // three warpgroups. The producer (registers cut to 24 by setmaxnreg) has
@@ -94,259 +116,284 @@
 // are single-buffered instead (1.5 KB): a warpgroup writes the next
 // tile's rows only after the named barrier that ends this tile's
 // dlogits, which every reader of this tile's rows has passed.
-//
-// fwd is the first, simple design: bf16 WMMA (16x16x16, f32
-// accumulation) from x and W tiles streamed over D in 32-column chunks
-// (cp.async, double-buffered) into a logits block kept in shared memory
-// and consumed there (logits_tile): a CTA owns 64 tokens and walks every
-// 128-column vocab tile, with the running (m, l, gold, lsum, best,
-// argmax) of its rows in registers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
 namespace {
 
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int KC = 32;            // D columns per chunk of the logits product
-constexpr int KPAD = KC + 8;      // shared-memory row stride of a chunk (bf16)
 constexpr float NEG_INF = -1e30f;  // large-finite, as the JAX kernels
 constexpr int INT_BIG = 1 << 30;
 
-// fwd: 64 tokens x 128 vocab columns.
-constexpr int XT = 64, XV = 128;
-
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBt;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-
-// A TM x TN logits tile: each warp computes 32 x 32 of it.
-template <int TM, int TN>
-struct Tile {
-  static constexpr int WN = TN / 32;               // warps along vocab
-  static constexpr int WM = WARPS / WN;            // warps along tokens
-  static_assert(WM * 32 == TM, "tile must be 8 warps of 32 x 32");
-  static constexpr int LD = TN + 4;                // f32 row stride of the tile
-  static constexpr int STAGE = (TM + TN) * KPAD;   // bf16 per pipeline stage
-  static constexpr int STAGE_BYTES = 2 * STAGE * 2;
-  static constexpr int TILE_BYTES = TM * LD * 4;
-};
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ __forceinline__ int warp_min(int x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = min(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-// 16-byte asynchronous copy global -> shared; zero-fills when !pred.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// dst[ROWS][COLS + 8] <- src[r0 + r][c0 + c] of a row-major [nrows, D]
-// matrix; rows >= nrows and columns >= D read as zeros.
-template <int ROWS, int COLS>
-__device__ __forceinline__ void load_block(bf16* dst, const bf16* src, int r0, int nrows,
-                                           int c0, int D) {
-  constexpr int G = COLS / 8;  // 16-byte groups per row
-  for (int i = threadIdx.x; i < ROWS * G; i += THREADS) {
-    const int r = i / G, g = i % G;
-    const int col = c0 + g * 8;
-    const bool ok = r0 + r < nrows && col < D;
-    cp_async16(dst + r * (COLS + 8) + g * 8, ok ? src + (size_t)(r0 + r) * D + col : src, ok);
-  }
-}
-
-// sL[TM][LD] = x[tok0 : tok0+TM] . W[v0 : v0+TN]^T in f32 (the TPU
-// _block_logits without the bias): rows >= T and vocab rows >= V read as
-// zeros. Streams both operands over D in KC-column chunks through two
-// stages of `stage`. Ends with the tile visible to the whole CTA.
-template <int TM, int TN>
-__device__ __forceinline__ void logits_tile(float* sL, bf16* stage, const bf16* x,
-                                            const bf16* w, int tok0, int T, int v0, int V,
-                                            int D) {
-  using TL = Tile<TM, TN>;
-  const int warp = threadIdx.x / 32;
-  const int wm = warp / TL::WN, wn = warp % TL::WN;
-  FragC acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  const int nk = (D + KC - 1) / KC;
-  load_block<TM, KC>(stage, x, tok0, T, 0, D);
-  load_block<TN, KC>(stage + TM * KPAD, w, v0, V, 0, D);
-  cp_async_commit();
-  for (int kc = 0; kc < nk; ++kc) {
-    if (kc + 1 < nk) {
-      bf16* nxt = stage + ((kc + 1) & 1) * TL::STAGE;
-      load_block<TM, KC>(nxt, x, tok0, T, (kc + 1) * KC, D);
-      load_block<TN, KC>(nxt + TM * KPAD, w, v0, V, (kc + 1) * KC, D);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* sx = stage + (kc & 1) * TL::STAGE;
-    const bf16* sw = sx + TM * KPAD;
-#pragma unroll
-    for (int kk = 0; kk < KC / 16; ++kk) {
-      FragA a[2];
-      FragBt b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], sx + (wm * 32 + i * 16) * KPAD + kk * 16, KPAD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], sw + (wn * 32 + j * 16) * KPAD + kk * 16, KPAD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();  // this stage is refilled two chunks on
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(sL + (wm * 32 + i * 16) * TL::LD + wn * 32 + j * 16, acc[i][j],
-                              TL::LD, wmma::mem_row_major);
-  __syncthreads();
-}
-
 // ---------------------------------------------------------------- forward
-// Grid (ceil(T / 64)); one CTA per token tile, walking every vocab tile.
-// Each warp owns 8 token rows; lane j of a warp reads vocab columns
-// j, j+32, j+64, j+96 of the tile.
+// The Hopper design (see the note at the top). Grid (ceil(T / 64)); one
+// CTA per 64 tokens, walking every vocab tile of 256 columns.
 
-constexpr int fwd_smem() { return Tile<XT, XV>::STAGE_BYTES + Tile<XT, XV>::TILE_BYTES; }
+namespace hfw {
 
-__global__ void __launch_bounds__(THREADS)
-fused_ce_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+constexpr int CONSUMERS = 2;
+constexpr int THREADS = (CONSUMERS + 1) * 128;
+constexpr int TM = 64;                  // tokens per CTA (both warpgroups)
+constexpr int BV = 256;                 // vocab columns per tile
+constexpr int HV = BV / CONSUMERS;      // logits columns per warpgroup
+constexpr int KC = 64;                  // D columns per chunk (one swizzle atom)
+constexpr int STAGES = 4;
+constexpr int ATOM = 128;               // bytes per swizzled row
+constexpr int X_BYTES = TM * KC * 2;
+constexpr int STAGE_BYTES = X_BYTES + BV * KC * 2;
+constexpr int BIAS_OFF = STAGES * STAGE_BYTES;  // two [BV] f32 bias rows
+constexpr int ROW_OFF = BIAS_OFF + 2 * BV * 4;  // the second warpgroup's row statistics
+constexpr int NSTAT = 6;                        // m, l, gold, lsum, best, argmax
+constexpr int BAR_OFF = ROW_OFF + NSTAT * TM * 4;
+constexpr int SMEM = BAR_OFF + 2 * STAGES * 8 + 1024;  // + alignment slack
+static_assert(SMEM <= 232448, "more shared memory than a block may have");
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+fused_ce_fwd_hopper(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorMap mw,
                     const float* __restrict__ b, const int* __restrict__ t,
-                    float* __restrict__ ce, float* __restrict__ correct,
-                    float* __restrict__ lse, int T, int D, int V, float eps) {
-  using TL = Tile<XT, XV>;
-  constexpr int RPW = XT / WARPS, CPL = XV / 32;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* stage = reinterpret_cast<bf16*>(smem);
-  float* sL = reinterpret_cast<float*>(smem + TL::STAGE_BYTES);
+                    float* __restrict__ ce, float* __restrict__ correct, float* __restrict__ lse,
+                    int T, int D, int V, float eps) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + BAR_OFF);
+  uint64_t* empty = full + STAGES;
 
-  const int tok0 = blockIdx.x * XT;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tok0 = blockIdx.x * TM;
+  const int nk = (D + KC - 1) / KC, nv = (V + BV - 1) / BV;
+  const int wg = threadIdx.x / 128;
 
-  float m[RPW], l[RPW], gold[RPW], lsum[RPW], best[RPW];
-  int arg[RPW], tgt[RPW];
-#pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    const int row = tok0 + warp * RPW + r;
-    m[r] = NEG_INF;
-    l[r] = 0.f;
-    gold[r] = 0.f;
-    lsum[r] = 0.f;
-    best[r] = NEG_INF;
-    arg[r] = -1;
-    tgt[r] = row < T ? t[row] : -1;
-  }
-
-  for (int v0 = 0; v0 < V; v0 += XV) {
-    logits_tile<XT, XV>(sL, stage, x, w, tok0, T, v0, V, D);
-    bool valid[CPL];
-    float bias[CPL];
-#pragma unroll
-    for (int j = 0; j < CPL; ++j) {
-      const int col = v0 + lane + 32 * j;
-      valid[j] = col < V;
-      bias[j] = (b != nullptr && valid[j]) ? b[col] : 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], CONSUMERS * 4);
     }
-#pragma unroll
-    for (int r = 0; r < RPW; ++r) {
-      const float* rowL = sL + (warp * RPW + r) * TL::LD;
-      float s[CPL];
-      float lmax = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < CPL; ++j) {
-        s[j] = valid[j] ? rowL[lane + 32 * j] + bias[j] : NEG_INF;
-        lmax = fmaxf(lmax, s[j]);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == CONSUMERS) {
+    // ---- producer: per vocab tile, the x and W chunks of the logits
+    // product through the stage ring.
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == CONSUMERS * 128) {
+      int i = 0;
+      for (int vt = 0; vt < nv; ++vt) {
+        for (int c = 0; c < nk; ++c, ++i) {
+          const int s = i % STAGES;
+          hopper::mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
+          hopper::mbar_expect_tx(&full[s], STAGE_BYTES);
+          unsigned char* st = smem + s * STAGE_BYTES;
+          hopper::tma_load_2d(st, &mx, &full[s], c * KC, tok0);
+          hopper::tma_load_2d(st + X_BYTES, &mw, &full[s], c * KC, vt * BV);
+        }
       }
-      // Online logsumexp over vocab tiles (the flash recurrence).
-      const float tmax = warp_max(lmax);
-      const float m_new = fmaxf(m[r], tmax);
-      float psum = 0.f;
+    }
+  } else {
+    // ---- consumers: the same 64 tokens; warpgroup h computes vocab
+    // columns [128 h, 128 h + 128) of each tile and keeps its own running
+    // statistics of its two rows a thread; the two meet once, at the end.
+    hopper::setmaxnreg_inc<240>();
+    const int tt = threadIdx.x % 128, warp = tt / 32, lane = tt % 32;
+    const int rr = warp * 16 + lane / 4;  // this thread's tile rows: rr and rr + 8
+    int tg[2];
 #pragma unroll
-      for (int j = 0; j < CPL; ++j) psum += expf(s[j] - m_new);
-      l[r] = l[r] * expf(m[r] - m_new) + warp_sum(psum);
-      m[r] = m_new;
+    for (int h = 0; h < 2; ++h) {
+      const int row = tok0 + rr + 8 * h;
+      tg[h] = row < T ? __ldg(t + row) : -1;
+    }
+    // m (log2 units) is quad-uniform, as are best and arg; l, gold and
+    // lsum are this thread's columns' parts, summed over the quad at the end.
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, gold[2] = {0.f, 0.f};
+    float lsum[2] = {0.f, 0.f}, best[2] = {NEG_INF, NEG_INF};
+    int arg[2] = {-1, -1};
+    const bool smooth = eps != 0.f;
+
+    int i = 0;
+    for (int vt = 0; vt < nv; ++vt) {
+      const int vh = vt * BV + wg * HV;  // this warpgroup's first vocab column
+      float* sbias = reinterpret_cast<float*>(smem + BIAS_OFF) + (vt & 1) * BV + wg * HV;
+
+      // logits[64 tokens, 128 columns] = x W^T over D in 64-column chunks,
+      // one wgmma group per chunk; a stage is released once the group
+      // reading it has completed (the next group is issued by then).
+      float lg[HV / 2];
+      for (int c = 0; c < nk; ++c, ++i) {
+        const int s = i % STAGES;
+        hopper::mbar_wait(&full[s], (i / STAGES) & 1);
+        const unsigned char* st = smem + s * STAGE_BYTES;
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < KC / 16; ++kk)
+          hopper::Wgmma<HV, 0>::ss(lg, hopper::desc_sw128(st + kk * 32, 0),
+                                   hopper::desc_sw128(st + X_BYTES + wg * HV * ATOM + kk * 32, 0),
+                                   c > 0 || kk > 0);
+        hopper::wgmma_commit();
+        // The group before this one is done: release its stage.
+        hopper::wgmma_wait<1>();
+        if (lane == 0 && c > 0) hopper::mbar_arrive(&empty[(i - 1) % STAGES]);
+        if (c == 0)  // this warpgroup's bias columns, under the product
+          sbias[tt] = (b != nullptr && vh + tt < V) ? __ldg(b + vh + tt) : 0.f;
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_operand(lg);
+      if (lane == 0) hopper::mbar_arrive(&empty[(i - 1) % STAGES]);
+      hopper::named_sync(2 + wg, 128);  // the bias columns are in
+
+      // The tile's logits (the TPU _block_logits: + bias; columns >= V
+      // NEG_INF, only on the vocab tail), their row max and logit sum.
+      const bool tail = vh + HV > V;
+      float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int n8 = 0; n8 < HV / 8; ++n8) {
+        const int cc = 8 * n8 + 2 * (lane % 4);
+        const float2 bias = *reinterpret_cast<const float2*>(sbias + cc);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = 4 * n8 + 2 * h + e;
+            float z = lg[j] + (e ? bias.y : bias.x);
+            if (tail && vh + cc + e >= V)
+              z = NEG_INF;
+            else if (smooth)
+              lsum[h] += z;
+            lg[j] = z;
+            mx[h] = fmaxf(mx[h], z);
+          }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) mx[h] = quad_max(mx[h]);
+
+      // First-max argmax: a later tile wins only with a strictly larger
+      // max; within the tile the smallest column among the maxima.
+      const bool up0 = mx[0] > best[0], up1 = mx[1] > best[1];
+      if (__any_sync(0xffffffffu, up0 || up1)) {
+        int idx[2] = {INT_BIG, INT_BIG};
+#pragma unroll
+        for (int j = HV / 2 - 1; j >= 0; --j) {
+          const int h = (j % 4) / 2;
+          if (lg[j] == mx[h]) idx[h] = 8 * (j / 4) + 2 * (lane % 4) + (j % 2);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          idx[h] = min(idx[h], __shfl_xor_sync(0xffffffffu, idx[h], 1));
+          idx[h] = min(idx[h], __shfl_xor_sync(0xffffffffu, idx[h], 2));
+        }
+        if (up0) {
+          best[0] = mx[0];
+          arg[0] = vh + idx[0];
+        }
+        if (up1) {
+          best[1] = mx[1];
+          arg[1] = vh + idx[1];
+        }
+      }
+
       // Gold logit: the target column lies in at most one tile.
-      const int tc = tgt[r] - v0;
-      if (tc >= 0 && tc < XV && tgt[r] < V)
-        gold[r] = rowL[tc] + (b != nullptr ? b[tgt[r]] : 0.f);
-      if (eps != 0.f) {  // smoothing needs the sum of the real vocab's logits
-        float part = 0.f;
 #pragma unroll
-        for (int j = 0; j < CPL; ++j) part += valid[j] ? s[j] : 0.f;
-        lsum[r] += warp_sum(part);
+      for (int h = 0; h < 2; ++h) {
+        const int tc = tg[h] - vh;
+        if (tc >= 0 && tc < HV && tg[h] < V) {
+#pragma unroll
+          for (int j = 0; j < HV / 2; ++j)
+            if ((j % 4) / 2 == h && 8 * (j / 4) + 2 * (lane % 4) + (j % 2) == tc) gold[h] = lg[j];
+        }
       }
-      // First-max argmax: strict > keeps an earlier tile's winner; within
-      // the tile the smallest column among the maxima wins.
-      if (tmax > best[r]) {
-        int idx = INT_BIG;
+
+      // Online logsumexp in log2 units (the flash recurrence).
 #pragma unroll
-        for (int j = 0; j < CPL; ++j)
-          if (valid[j] && s[j] == tmax) idx = min(idx, v0 + lane + 32 * j);
-        best[r] = tmax;
-        arg[r] = warp_min(idx);
+      for (int h = 0; h < 2; ++h) {
+        const float m_new = fmaxf(m[h], mx[h] * LOG2E);
+        l[h] *= hopper::exp2_approx(m[h] - m_new);
+        m[h] = m_new;
+      }
+#pragma unroll
+      for (int j = 0; j < HV / 2; ++j) {
+        const int h = (j % 4) / 2;
+        l[h] += hopper::exp2_approx(fmaf(lg[j], LOG2E, -m[h]));
       }
     }
-    __syncthreads();  // sL is rewritten by the next tile
-  }
 
-  if (lane == 0) {
+    // End of the CTA: the quads sum their parts; warpgroup 1 hands its
+    // rows to warpgroup 0 through shared memory, which merges and writes.
 #pragma unroll
-    for (int r = 0; r < RPW; ++r) {
-      const int row = tok0 + warp * RPW + r;
-      if (row >= T) continue;
-      const float lse_r = m[r] + logf(l[r]);
-      float g = gold[r];
-      if (eps != 0.f) g = (1.f - eps) * g + (eps / V) * lsum[r];
-      ce[row] = lse_r - g;
-      correct[row] = arg[r] == tgt[r] ? 1.f : 0.f;
-      lse[row] = lse_r;
+    for (int h = 0; h < 2; ++h) {
+      l[h] = quad_sum(l[h]);
+      gold[h] = quad_sum(gold[h]);
+      lsum[h] = quad_sum(lsum[h]);
+    }
+    float* rows = reinterpret_cast<float*>(smem + ROW_OFF);
+    if (wg == 1 && lane % 4 == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = rr + 8 * h;
+        rows[r] = m[h];
+        rows[TM + r] = l[h];
+        rows[2 * TM + r] = gold[h];
+        rows[3 * TM + r] = lsum[h];
+        rows[4 * TM + r] = best[h];
+        reinterpret_cast<int*>(rows)[5 * TM + r] = arg[h];
+      }
+    }
+    hopper::named_sync(1, CONSUMERS * 128);
+    if (wg == 0 && lane % 4 == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = rr + 8 * h, row = tok0 + r;
+        if (row >= T) continue;
+        const float m1 = rows[r], b1 = rows[4 * TM + r];
+        const int a1 = reinterpret_cast<const int*>(rows)[5 * TM + r];
+        const float mm = fmaxf(m[h], m1);
+        const float ll = l[h] * exp2f(m[h] - mm) + rows[TM + r] * exp2f(m1 - mm);
+        // Equal maxima: the smaller column, the JAX kernel's first max.
+        const int am = (b1 > best[h] || (b1 == best[h] && a1 >= 0 && a1 < arg[h])) ? a1 : arg[h];
+        const float lse_r = (mm + log2f(ll)) * LN2;
+        float g = gold[h] + rows[2 * TM + r];
+        if (smooth) g = (1.f - eps) * g + (eps / V) * (lsum[h] + rows[3 * TM + r]);
+        ce[row] = lse_r - g;
+        correct[row] = am == tg[h] ? 1.f : 0.f;
+        lse[row] = lse_r;
+      }
     }
   }
 }
+
+cudaError_t launch(const void* x, const void* w, const void* b, const void* t, void* ce,
+                   void* correct, void* lse, int T, int D, int V, float eps, cudaStream_t stream) {
+  CUtensorMap mx, mw;
+  const uint64_t xdims[2] = {(uint64_t)D, (uint64_t)T}, wdims[2] = {(uint64_t)D, (uint64_t)V};
+  const uint64_t str[1] = {(uint64_t)D * 2};
+  const uint32_t xbox[2] = {KC, TM}, wbox[2] = {KC, BV};
+  cudaError_t err = hopper::encode_bf16_map(&mx, x, 2, xdims, str, xbox);
+  if (err == cudaSuccess) err = hopper::encode_bf16_map(&mw, w, 2, wdims, str, wbox);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(fused_ce_fwd_hopper, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SMEM);
+  if (err != cudaSuccess) return err;
+  fused_ce_fwd_hopper<<<dim3((T + TM - 1) / TM), THREADS, SMEM, stream>>>(
+      mx, mw, (const float*)b, (const int*)t, (float*)ce, (float*)correct, (float*)lse, T, D, V,
+      eps);
+  return cudaGetLastError();
+}
+
+}  // namespace hfw
 
 // --------------------------------------------------------------------- dx
 // The Hopper design (see the note at the top). Grid (ceil(T / 64),
@@ -814,11 +861,6 @@ cudaError_t launch(const void* x, const void* w, const void* b, const void* t, c
 
 }  // namespace hdw
 
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, int smem) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-}
-
 }  // namespace
 
 // ------------------------------------------------------------ C interface
@@ -829,13 +871,8 @@ cudaError_t prepare(Kernel kernel, int smem) {
 extern "C" int tfd_fused_ce_fwd(const void* x, const void* w, const void* b, const void* t,
                                 void* ce, void* correct, void* lse, int T, int D, int V,
                                 float eps, void* stream) {
-  cudaError_t err = prepare(fused_ce_fwd_kernel, fwd_smem());
-  if (err != cudaSuccess) return err;
-  fused_ce_fwd_kernel<<<dim3((T + XT - 1) / XT), THREADS, fwd_smem(),
-                        static_cast<cudaStream_t>(stream)>>>(
-      (const bf16*)x, (const bf16*)w, (const float*)b, (const int*)t, (float*)ce,
-      (float*)correct, (float*)lse, T, D, V, eps);
-  return cudaGetLastError();
+  return hfw::launch(x, w, b, t, ce, correct, lse, T, D, V, eps,
+                     static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int tfd_fused_ce_dx(const void* x, const void* w, const void* b, const void* t,

@@ -45,6 +45,36 @@ def test_hopper_kernel_is_a_global_function_of_its_source(kernel):
     assert kernel in _globals(cs.SOURCES[library])
 
 
+def _source(library):
+    with open(os.path.join(REPO, cs.SOURCES[library])) as f:
+        return f.read()
+
+
+def test_fused_ce_has_no_wmma_or_cp_async_left():
+    """All three fused-CE kernels run on the Hopper header: the WMMA and
+    cp.async helpers of the first forward are gone."""
+    text = _source("fused_ce")
+    for gone in ("<mma.h>", "wmma::", "nvcuda", "cp.async", "cp_async",
+                 "logits_tile", "load_block", "Tile<"):
+        assert gone not in text, gone
+
+
+def test_normalized_dq_is_the_hopper_kernel():
+    """tfd_flash_dq launches flash_dq_hopper (no WMMA in its namespace);
+    the WMMA flash_dq_kernel is left to the partial dQ alone."""
+    text = _source("flash_attention")
+    hdq = text[text.index("namespace hdq {"):
+               text.index("}  // namespace hdq")]
+    assert "wmma::" not in hdq and "mm_abt" not in hdq
+    assert "__global__" in hdq and "flash_dq_hopper" in hdq
+    entry = text[text.index('extern "C" int tfd_flash_dq('):]
+    entry = entry[:entry.index("\n}\n")]
+    assert "hdq::launch" in entry and "launch_dq" not in entry
+    wmma_dq = text[text.index("flash_dq_kernel("):]
+    assert wmma_dq.index('static_assert(PARTIAL, "the normalized dQ is '
+                         'flash_dq_hopper")') < wmma_dq.index("wmma::")
+
+
 def test_every_library_of_the_kernels_has_a_source():
     kernels = fa.KERNELS + fce.KERNELS + fa.PARTIAL_KERNELS
     assert {k.library for k in kernels} == set(cs.SOURCES)

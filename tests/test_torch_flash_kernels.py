@@ -83,6 +83,17 @@ def test_window_across_key_ctas_with_lk_not_l(cuda, L, Lk):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("window", [80, 200])
+@pytest.mark.parametrize("L,Lk", [(192, 384), (320, 448)],
+                         ids=["L192_Lk384", "L320_Lk448"])
+def test_dq_band_inside_a_key_tile(cuda, L, Lk, window):
+    """The dQ kernel streams keys 128 a tile: with L 192 and 320 the
+    causal band ends inside a key tile, windows 80 and 200 start it inside
+    one, and Lk > L leaves key tiles past every query row's band."""
+    _check_against_plain(cuda, 3, L, Lk, 64, True, window, L + window)
+
+
+@pytest.mark.gpu
 def test_cuda_wrappers_reject_unsupported_inputs(cuda):
     x = torch.zeros(2, 64, 64, device=cuda)  # f32: the kernels take bf16
     with pytest.raises(ValueError, match="not supported"):

@@ -13,7 +13,9 @@ V 50257) with bias at eps 0 and 0.1 and without bias (the tied head),
 GPT-2-medium's width (D 1024, T 2048), and a ragged case (T 1000,
 V 179), plus odd shapes: T 40, D 200, V 70; D 1000 and D 1600 (not
 multiples of the 64-column chunk or the 384-column slice of dx and
-dW); T 1; and V 2001 with T 300 (ragged dW vocab and token tiles).
+dW); T 1; V 2001 with T 300 (ragged dW vocab and token tiles); V 300
+and 400 (the forward's vocab tail in either consumer's half); and
+first-max ties across the forward's consumers and tiles.
 Tolerances as chip_smoke.py (the plain version runs in f32 from the same bf16
 inputs): ce and lse max abs error <= 1e-3; ``correct``
 identical wherever the top-2 logit gap exceeds 1e-2; dx and dW max abs
@@ -42,7 +44,12 @@ CASES = [dict(T=8192, D=768, V=50257, bias=True, eps=0.0),
          # dW's 64-row vocab tiles and 128-token tiles: V 2001 leaves 17
          # rows in the last vocab tile, T 300 44 tokens in the last token
          # tile, D 1600 ends inside a 64-column chunk and a 384-column slice
-         dict(T=300, D=1600, V=2001, bias=True, eps=0.1)]
+         dict(T=300, D=1600, V=2001, bias=True, eps=0.1),
+         # the forward's 256-column vocab tiles, 128 columns a consumer
+         # warpgroup: V 300 ends inside the first warpgroup's half of the
+         # second tile, V 400 inside the second's
+         dict(T=200, D=512, V=300, bias=True, eps=0.1),
+         dict(T=200, D=512, V=400, bias=False, eps=0.0)]
 
 
 @pytest.fixture
@@ -97,6 +104,27 @@ def test_kernels_match_plain_versions_on_gpu(cuda, case):
         assert db is None
     else:
         assert _rel(db, ref_db) <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cols", [(5, 137, 600), (137, 261, 999)],
+                         ids=["half0_half1_tile2", "half1_tile1_tail"])
+def test_first_max_argmax_ties_on_gpu(cuda, cols):
+    """Equal maxima at one column of each consumer warpgroup's half of a
+    vocab tile and in later tiles (V 1000, not a multiple of the 256-
+    column tile): the first column wins, as in
+    tests/test_torch_fused_ce.py's CPU tie and the JAX kernel."""
+    T, D, V = 64, 64, 1000
+    x = torch.full((T, D), 1.0 / D, device=cuda, dtype=torch.bfloat16)
+    w = torch.zeros((V, D), device=cuda, dtype=torch.bfloat16)
+    w[list(cols)] = 3.0
+    for target in cols:
+        t = torch.full((T,), target, device=cuda, dtype=torch.int32)
+        _, correct, _ = fk.fused_ce_fwd(x, w, None, t, V)
+        _, ref_correct, _ = fk.fused_ce_fwd_reference(x, w, None, t, V)
+        want = 1.0 if target == cols[0] else 0.0
+        assert torch.equal(correct, torch.full_like(correct, want)), target
+        assert torch.equal(correct, ref_correct)
 
 
 @pytest.mark.gpu

@@ -26,7 +26,7 @@ STEPS = 5
 
 
 def _cfgs(**fields):
-    base = dict(learning_rate=3e-3, train_steps=10)
+    base = dict(model="gpt_lm", learning_rate=3e-3, train_steps=10)
     base.update(fields)
     return JaxConfig(**base), TrainConfig(**base)
 

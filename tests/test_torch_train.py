@@ -9,6 +9,7 @@ gloo ranks) is held to JAX's (data 2, seq 4) mesh and to the port's one
 process. The CLI then runs end to end on the CPU.
 """
 
+import dataclasses
 import types
 
 import jax
@@ -175,12 +176,13 @@ def test_seq4_trajectory_matches_jax_seq_mesh_and_one_process(head,
 
 
 def test_mesh_seq_flag_spelling_and_default_match_jax():
-    assert parse_args(["--mesh.seq", "4", "--device", "cpu"]).mesh.seq == 4
+    assert parse_args(["--mesh.seq", "4", "--device", "cpu", "--model",
+                       "gpt_lm"]).mesh.seq == 4
     assert jax_parse_args(["--mesh.seq", "4"]).mesh.seq == 4
     assert TrainConfig().mesh.seq == JaxConfig().mesh.seq == 1
     for argv in (["--mesh.seq", "0"], ["--mesh.seq", "-2"]):
         with pytest.raises(ValueError, match="mesh.seq"):
-            parse_args(argv + ["--device", "cpu"])
+            parse_args(argv + ["--device", "cpu", "--model", "gpt_lm"])
         with pytest.raises(ValueError, match="mesh.seq"):
             JaxMesh(seq=int(argv[1])).validate()
 
@@ -188,8 +190,9 @@ def test_mesh_seq_flag_spelling_and_default_match_jax():
 def test_mesh_seq_without_a_world_of_that_size_raises(monkeypatch):
     for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
         monkeypatch.delenv(var, raising=False)
-    cfg = parse_args(["--mesh.seq", "4", "--device", "cpu", "--model-size",
-                      "tiny", "--seq-len", "32", "--batch-size", "8"])
+    cfg = parse_args(["--mesh.seq", "4", "--device", "cpu", "--model",
+                      "gpt_lm", "--model-size", "tiny", "--seq-len", "32",
+                      "--batch-size", "8"])
     with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 4"):
         tloop.train(cfg, logger=MetricLogger(enabled=False))
     monkeypatch.setenv("RANK", "0")
@@ -214,7 +217,8 @@ def test_attn_window_with_a_ring_raises_as_in_jax():
 
 def test_fused_flags_parse_with_jax_spellings_and_defaults():
     cfg = parse_args(["--ce-chunk", "8192", "--ce-impl", "kernel",
-                      "--tie-embeddings", "true", "--device", "cpu"])
+                      "--tie-embeddings", "true", "--device", "cpu",
+                      "--model", "gpt_lm"])
     assert (cfg.ce_chunk, cfg.ce_impl, cfg.tie_embeddings) == (
         8192, "kernel", True)
     for name in ("ce_chunk", "ce_impl", "tie_embeddings"):
@@ -241,7 +245,7 @@ def test_config_rejects_what_jax_rejects(jax_fields, argv):
     with pytest.raises(ValueError):
         JaxConfig(**dict(dict(model="gpt_lm"), **jax_fields)).validate()
     with pytest.raises((ValueError, NotImplementedError, SystemExit)):
-        parse_args(argv + ["--device", "cpu"])
+        parse_args(["--model", "gpt_lm"] + argv + ["--device", "cpu"])
 
 
 def test_cli_trains_fused_on_cpu(capsys):
@@ -270,9 +274,9 @@ def test_cli_trains_end_to_end_on_cpu(capsys):
 
 
 def test_parse_args_spellings_and_defaults():
-    cfg = parse_args(["--model-size", "small", "--seq-len", "1024",
-                      "--grad-clip-norm", "1", "--log-grad-norm", "true",
-                      "--device", "cpu"])
+    cfg = parse_args(["--model", "gpt_lm", "--model-size", "small",
+                      "--seq-len", "1024", "--grad-clip-norm", "1",
+                      "--log-grad-norm", "true", "--device", "cpu"])
     assert (cfg.model, cfg.model_size, cfg.seq_len) == ("gpt_lm", "small",
                                                         1024)
     assert cfg.grad_clip_norm == 1.0 and cfg.log_grad_norm
@@ -299,7 +303,31 @@ def test_unported_jax_flags_are_rejected(argv, capsys):
                                     dict(compute_dtype="float32")])
 def test_unported_values_raise(fields):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TrainConfig(**fields).validate()
+        TrainConfig(**dict(dict(model="gpt_lm"), **fields)).validate()
+
+
+def test_shared_fields_have_the_jax_defaults():
+    """Every field the port's TrainConfig and MeshConfig share with the
+    JAX dataclasses has the JAX default, so one bare CLI call means one
+    job in both (the model included: mnist_cnn, refused by the port
+    until it is ported)."""
+    port, ref = TrainConfig(), JaxConfig()
+    shared = ({f.name for f in dataclasses.fields(TrainConfig)}
+              & {f.name for f in dataclasses.fields(JaxConfig)}) - {"mesh"}
+    assert {"model", "batch_size", "learning_rate", "seed"} <= shared
+    for name in sorted(shared):
+        assert getattr(port, name) == getattr(ref, name), name
+    mesh = ({f.name for f in dataclasses.fields(type(port.mesh))}
+            & {f.name for f in dataclasses.fields(type(ref.mesh))})
+    assert mesh == {"seq"}
+    for name in mesh:
+        assert getattr(port.mesh, name) == getattr(ref.mesh, name), name
+    assert port.model == "mnist_cnn"
+
+
+def test_bare_cli_call_refuses_the_unported_default_model(capsys):
+    with pytest.raises(NotImplementedError, match="mnist_cnn.*ROADMAP"):
+        cli.main([])
 
 
 def test_cuda_device_without_cuda_fails_loudly():

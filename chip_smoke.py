@@ -12,9 +12,10 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
 2. build   — compiles the flash-attention and fused-CE kernels from
              ``tensorflow_distributed_tpu_torch/ops/csrc`` (sm_90a), one
              nvcc per source, started together; lists the registers and
-             spills of the six Hopper kernels (B1's forward, B2's dQ,
-             B3's dK/dV, B4's forward, B5's dx, B6's dW/db), fails if
-             one spills, if ptxas
+             spills of the Hopper kernels (B1's forward, B2's dQ, B3's
+             dK/dV, B4's forward, B5's dx, B6's dW/db, and the partial
+             instantiations of B2's and B3's kernels, B8 and B9), fails
+             if one spills, if ptxas
              ignored a setmaxnreg or serialized a kernel's wgmmas
              (warnings C7510-C7515), and counts their wgmma, TMA,
              mbarrier and mma.sync instructions in the machine code
@@ -61,8 +62,11 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
              causal and full, and one D=128 case; median times over 20
              launches beside the bound and the plain version (no library
              call computes the unnormalized partials or their
-             gradients: library_ms is null), and the kernels' device
-             time alone (torch.profiler);
+             gradients: library_ms is null), the kernels' device time
+             alone (torch.profiler) at the 128- and 512-row cases, and
+             SDPA's flash backward at the half-block, full and causal,
+             as a work-equivalent yardstick for B8 + B9 (the same
+             products on the same shapes, for the normalized function);
 10. ring    — ``ring_attention`` over ``StackedRing(S)`` (the S ring
              positions stacked in one process on one card), forward and
              backward, at S=4 (B 8, H 12, L 1024, D 64) and S=8 (B 4,
@@ -165,13 +169,18 @@ SOURCES = {"flash_attention": f"{CSRC}/flash_attention.cu",
            "fused_ce": f"{CSRC}/fused_ce.cu"}
 # The kernels built from ops/csrc/hopper.cuh (wgmma, TMA, mbarriers,
 # setmaxnreg), each with the library (SOURCES key) that holds it: B1's
-# forward, B2's dQ, B3's dK/dV, B4's forward, B5's dx and B6's dW/db.
+# forward, B2's dQ, B3's dK/dV, B4's forward, B5's dx and B6's dW/db,
+# and "<partial>", the instantiations of B2's and B3's kernels with the
+# template flag PARTIAL = true: B8's dQ and B9's dK/dV.
 HOPPER_KERNELS = {"flash_fwd_hopper": "flash_attention",
                   "flash_dq_hopper": "flash_attention",
                   "flash_dkv_hopper": "flash_attention",
+                  "flash_dq_hopper<partial>": "flash_attention",
+                  "flash_dkv_hopper<partial>": "flash_attention",
                   "fused_ce_fwd_hopper": "fused_ce",
                   "fused_ce_dx_hopper": "fused_ce",
                   "fused_ce_dw_hopper": "fused_ce"}
+PARTIAL_FLAG = "Lb1E"  # the template argument `bool PARTIAL = true`, mangled
 # ptxas's warnings that it serialized a kernel's wgmmas (C7510-C7515).
 WGMMA_SERIALIZED = re.compile(r"\bC751[0-5]\b")
 TPU_FLASH = "tensorflow_distributed_tpu/ops/flash_attention.py"
@@ -273,17 +282,17 @@ def kernel_bounds(fa, torch, B, H, L, D, causal, window):
     }
 
 
-def sdpa_flash_bwd(torch, q4, k4, v4, do4):
-    """The one library call that computes the causal dQ, dK and dV
-    together from (q, k, v, out, lse, dO), as a call without arguments:
-    the backward of PyTorch's flash SDPA, on [B, H, L, D] inputs, with
-    its own forward's outputs."""
+def sdpa_flash_bwd(torch, q4, k4, v4, do4, causal=True):
+    """The one library call that computes dQ, dK and dV together from
+    (q, k, v, out, lse, dO), as a call without arguments: the backward
+    of PyTorch's flash SDPA, on [B, H, L, D] inputs, with its own
+    forward's outputs."""
     aten = torch.ops.aten
-    fwd = aten._scaled_dot_product_flash_attention(q4, k4, v4, 0.0, True)
+    fwd = aten._scaled_dot_product_flash_attention(q4, k4, v4, 0.0, causal)
     out, lse, cum_q, cum_k, max_q, max_k, seed, offset = fwd[:8]
     bwd = aten._scaled_dot_product_flash_attention_backward
     return lambda: bwd(do4, q4, k4, v4, out, lse, cum_q, cum_k, max_q, max_k,
-                       0.0, True, seed, offset)
+                       0.0, causal, seed, offset)
 
 
 def phase_device(torch) -> str:
@@ -309,6 +318,17 @@ def ptxas_by_kernel(log: str):
     return out
 
 
+def hopper_instance(fn: str):
+    """The HOPPER_KERNELS key of a mangled kernel name: the "<partial>"
+    key where the name carries the template flag PARTIAL = true. None
+    for a kernel that is not on the Hopper header."""
+    for key in HOPPER_KERNELS:
+        base, _, form = key.partition("<")
+        if base in fn and (PARTIAL_FLAG in fn) == bool(form):
+            return key
+    return None
+
+
 def spills(lines) -> bool:
     """Whether ptxas's lines for one kernel report a spill store or load
     of more than 0 bytes."""
@@ -329,7 +349,7 @@ def phase_build(fa, fce) -> None:
     hopper = {}
     for name, log in logs.items():
         for fn, lines in ptxas_by_kernel(log).items():
-            short = next((k for k in HOPPER_KERNELS if k in fn), None)
+            short = hopper_instance(fn)
             if short is not None:
                 hopper[f"{short}{'<128>' if 'ILi128E' in fn else ''}"] = lines
     cached = [name for name, log in logs.items() if not log]
@@ -349,7 +369,8 @@ def phase_build(fa, fce) -> None:
               f"ptxas serialized wgmmas in {name}: {log}")
     for k, lines in hopper.items():
         check(not spills(lines), f"{k} spills: {lines}")
-    check(cached or all(any(k in fn for fn in hopper) for k in HOPPER_KERNELS),
+    check(cached or set(HOPPER_KERNELS) <= {k.replace("<128>", "")
+                                             for k in hopper},
           f"the build did not compile every Hopper kernel: {sorted(hopper)}")
     for k, counts in sass.items():
         check(counts is None or (counts["HGMMA"] > 0 and counts["UTMALDG"] > 0
@@ -359,10 +380,11 @@ def phase_build(fa, fce) -> None:
 
 
 def sass_counts(lib: str, kernel: str):
-    """Counts of the Hopper instructions in ``kernel``'s machine code
-    (cuobjdump -sass): HGMMA (wgmma), UTMALDG (TMA tensor load), SYNCS
-    (mbarrier arrive/wait) and HMMA (the mma.sync that WMMA compiles to,
-    which these kernels must not use). None without cuobjdump."""
+    """Counts of the Hopper instructions in the machine code of
+    ``kernel`` (a HOPPER_KERNELS key; both head dims together, cuobjdump
+    -sass): HGMMA (wgmma), UTMALDG (TMA tensor load), SYNCS (mbarrier
+    arrive/wait) and HMMA (the mma.sync that WMMA compiles to, which
+    these kernels must not use). None without cuobjdump."""
     from tensorflow_distributed_tpu_torch.ops import cuda_ext
 
     tool = os.path.join(os.path.dirname(cuda_ext.nvcc_path()), "cuobjdump")
@@ -372,7 +394,7 @@ def sass_counts(lib: str, kernel: str):
                          text=True, timeout=120).stdout
     counts = dict.fromkeys(("HGMMA", "UTMALDG", "SYNCS", "HMMA"), 0)
     for part in out.split("Function : ")[1:]:
-        if kernel not in part.split("\n", 1)[0]:
+        if hopper_instance(part.split("\n", 1)[0]) != kernel:
             continue
         for ln in part.splitlines():
             words = ln.split("*/", 1)[-1].split()
@@ -907,7 +929,9 @@ def partial_bounds(B, H, nh, D, causal):
 
 
 def phase_ring_kernels(fa, torch, gpu):
-    """Correctness of every case; times at the main case."""
+    """Correctness of every case; event and plain times at the main case,
+    device times at every D 64 case, and SDPA's flash backward at the
+    half-block."""
     results = {}
     for i, case in enumerate(RING_KERNEL_CASES):
         B, H, nh, D, causal = (case[k] for k in ("B", "H", "nh", "D",
@@ -954,17 +978,22 @@ def phase_ring_kernels(fa, torch, gpu):
               f"flash_fwd_partial m/l error {row}")
         for g in ("dq", "dk", "dv"):
             check(row[f"{g}_rel_err"] <= TOL_RING, f"partial {g} error {row}")
+        # At these sizes a launch is short next to its host-side call
+        # (checks, allocations, ctypes): the kernels' device time alone,
+        # from the profiler, at the 128- and 512-row cases (D 64).
+        calls = {"flash_fwd_partial": lambda: fa.flash_fwd_partial(
+                     q, k, v, causal),
+                 "flash_dq_partial": lambda: fa.flash_dq_partial(
+                     q, k, v, m, do, dl, causal),
+                 "flash_dkv_partial": lambda: fa.flash_dkv_partial(
+                     q, k, v, m, do, dl, causal)}
+        timing = {"phase": "ring_kernels_timing", **case, "gpu": gpu}
+        bounds = partial_bounds(B, H, nh, D, causal)
         if i == 0:
             results["errors"] = row
-            results["bounds"] = partial_bounds(B, H, nh, D, causal)
-            results["ms"] = {
-                "flash_fwd_partial": time_ms(torch, lambda: (
-                    fa.flash_fwd_partial(q, k, v, causal))),
-                "flash_dq_partial": time_ms(torch, lambda: (
-                    fa.flash_dq_partial(q, k, v, m, do, dl, causal))),
-                "flash_dkv_partial": time_ms(torch, lambda: (
-                    fa.flash_dkv_partial(q, k, v, m, do, dl, causal))),
-            }
+            results["bounds"] = bounds
+            results["ms"] = {name: time_ms(torch, fn)
+                             for name, fn in calls.items()}
             results["plain_ms"] = {
                 "flash_fwd_partial": time_ms(torch, lambda: (
                     fa.flash_fwd_partial_reference(q, k, v, causal))),
@@ -978,20 +1007,24 @@ def phase_ring_kernels(fa, torch, gpu):
             # No PyTorch call returns the unnormalized (o, m, l) of a
             # block or its partial gradients (SDPA normalizes).
             results["library_ms"] = dict.fromkeys(results["ms"])
-            # At this size a launch is short next to its host-side call
-            # (checks, allocations, ctypes): the kernels' device time
-            # alone, from the profiler, beside the CUDA-event times.
-            calls = {"flash_fwd_partial": lambda: fa.flash_fwd_partial(
-                         q, k, v, causal),
-                     "flash_dq_partial": lambda: fa.flash_dq_partial(
-                         q, k, v, m, do, dl, causal),
-                     "flash_dkv_partial": lambda: fa.flash_dkv_partial(
-                         q, k, v, m, do, dl, causal)}
-            emit({"phase": "ring_kernels_timing", **case, "gpu": gpu,
-                  "ms": results["ms"], "plain_ms": results["plain_ms"],
-                  "device_ms": {name: sum(device_ms(torch, fn, 20).values())
-                                or None for name, fn in calls.items()},
-                  "bound_ms": {k: b[0] for k, b in results["bounds"].items()}})
+            timing.update(ms=results["ms"], plain_ms=results["plain_ms"])
+        if D == 64:
+            timing["device_ms"] = {
+                name: sum(device_ms(torch, fn, 20).values()) or None
+                for name, fn in calls.items()}
+            timing["bound_ms"] = {k: b[0] for k, b in bounds.items()}
+        if nh == 128:
+            # A work-equivalent yardstick for B8 + B9 together, not their
+            # function: SDPA's flash backward on the same half-block does
+            # the same products for the normalized softmax.
+            q4, k4, v4, do4 = (t.view(B, H, nh, D) for t in (
+                q, k, v, do.to(torch.bfloat16)))
+            timing["sdpa_flash_bwd_device_ms"] = sum(device_ms(
+                torch, sdpa_flash_bwd(torch, q4, k4, v4, do4, causal),
+                20).values()) or None
+            del q4, k4, v4, do4
+        if "device_ms" in timing:
+            emit(timing)
         del q, k, v, do, dl, o, m, l, dq, dk, dv, f
         del ref_o, ref_m, ref_l, ref_dq, ref_dk, ref_dv
         torch.cuda.empty_cache()

@@ -1,29 +1,41 @@
 #!/usr/bin/env python3
-"""Tile variants of the port's Hopper dQ (B2) and fused-CE forward (B4)
-kernels, built side by side, held to their plain versions and timed in
-turns on one NVIDIA GPU.
+"""Tile variants of the port's Hopper kernels, built side by side, held
+to their plain versions and timed in turns on one NVIDIA GPU.
 
 Run from the repository root on a machine with a CUDA GPU and nvcc:
 
-    python3 scripts/torch_kernel_variants.py
+    python3 scripts/torch_kernel_variants.py [group ...]
 
-Each variant is a copy of ``ops/csrc/<library>.cu`` with one of its
-tile constants changed, built by nvcc into ``build/variants/``:
+Each variant is a copy of ``ops/csrc/<library>.cu`` with tile constants
+of one kernel changed, built by nvcc into ``build/variants/``. The
+groups (all of them without arguments):
 
-- B2 (``flash_dq_hopper``): ``CONSUMERS`` 1 or 2 (64 or 128 query rows
-  a CTA) x ``BN`` 64 or 128 (keys a stage); checked against
-  ``flash_dq_reference`` (max abs error / max |reference| <= 2e-2, as
-  chip_smoke.py), then timed at GPT-2-small's causal attention (B*H 96,
-  L 1024, D 64), non-causal, causal + window 256, and D 128 (B*H 16);
-- B4 (``fused_ce_fwd_hopper``): ``STAGES`` 4 or 5; checked against
-  ``fused_ce_fwd_reference`` (ce and lse <= 1e-3), timed at GPT-2-small's
-  head (T 8192, D 768, V 50257, bias, eps 0.1).
+- ``dq``: B2 (``flash_dq_hopper<D, false>``), ``CONSUMERS`` 1 or 2 (64
+  or 128 query rows a CTA) x ``BN`` 64 or 128 (keys a stage); checked
+  against ``flash_dq_reference``, then timed at GPT-2-small's causal
+  attention (B*H 96, L 1024, D 64), non-causal, causal + window 256, and
+  D 128 (B*H 16);
+- ``dq_partial``: B8 (``flash_dq_hopper<D, true>``), the same choices
+  (``PARTIAL_CONSUMERS``, ``PARTIAL_BN``); checked against
+  ``flash_dq_partial_reference``, timed at the ring's half-blocks
+  (chip_smoke.py's RING_KERNEL_CASES: B*H 96 with 128 x 128 and B*H 32
+  with 512 x 512, full and causal, D 64);
+- ``dkv_partial``: B9 (``flash_dkv_hopper<D, true>``),
+  ``PARTIAL_CONSUMERS`` 1 or 2 (64 or 128 keys a CTA) x ``PARTIAL_BM``
+  64 or 128 (query rows a stage); checked against
+  ``flash_dkv_partial_reference``, timed at the same half-blocks;
+- ``ce``: B4 (``fused_ce_fwd_hopper``), ``STAGES`` 4 or 5; checked
+  against ``fused_ce_fwd_reference`` (ce and lse <= 1e-3), timed at
+  GPT-2-small's head (T 8192, D 768, V 50257, bias, eps 0.1).
 
-Times are device times from torch.profiler (ms a call over 20 calls),
-three rounds with the variants' order reversed every other round. Each
-line printed is one JSON object; the first is the card's nvidia-smi name
-and power limit. The port itself is untouched: each variant's library
-is bound in place of the built one only while it is measured.
+The attention variants are checked at max abs error / max |reference|
+<= 2e-2, as chip_smoke.py. Times are device times from torch.profiler
+(ms a call over 20 calls), three rounds with the variants' order
+reversed every other round. Each line printed is one JSON object; the
+first is the card's nvidia-smi name and power limit, then each
+variant's ptxas spill, setmaxnreg and C75xx lines. The port itself is
+untouched: each variant's library is bound in place of the built one
+only while it is measured.
 """
 
 from __future__ import annotations
@@ -39,37 +51,57 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(REPO, "tensorflow_distributed_tpu_torch", "ops", "csrc")
 OUT = os.path.join(REPO, "build", "variants")
 ROUNDS = 3
+GROUPS = ("dq", "dq_partial", "dkv_partial", "ce")
+TOL_REL = 2e-2
+# The ring's half-blocks (chip_smoke.py RING_KERNEL_CASES, D 64):
+# name -> (B*H, rows, causal).
+RING_CASES = {"rows128_full": (96, 128, False), "rows128_causal": (96, 128, True),
+              "rows512_full": (32, 512, False), "rows512_causal": (32, 512, True)}
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def variant_sources():
+def with_constants(text: str, namespace: str, values) -> str:
+    """``text`` with the first ``constexpr int NAME = ...;`` line after
+    ``namespace <namespace> {`` replaced, for each NAME in ``values``."""
+    start = text.index(f"namespace {namespace} {{")
+    body = text[start:]
+    for name, value in values.items():
+        old = next(ln for ln in body.splitlines()
+                   if ln.startswith(f"constexpr int {name} = "))
+        body = body.replace(old, f"constexpr int {name} = {value};", 1)
+    return text[:start] + body
+
+
+def variant_sources(groups):
     """{tag: (library, source text)}: the shipped constants replaced."""
     with open(os.path.join(CSRC, "flash_attention.cu")) as f:
         flash = f.read()
     with open(os.path.join(CSRC, "fused_ce.cu")) as f:
         ce = f.read()
-    hdq = flash.index("namespace hdq {")
     out = {}
     for consumers in (1, 2):
-        for bn in (64, 128):
-            body = flash[hdq:]
-            for name, value in (("BN", bn), ("CONSUMERS", consumers)):
-                old = next(ln for ln in body.splitlines()
-                           if ln.startswith(f"constexpr int {name} = "))
-                body = body.replace(old, f"constexpr int {name} = {value};", 1)
-            out[f"dq_bm{64 * consumers}_bn{bn}"] = ("flash_attention",
-                                                    flash[:hdq] + body)
-    hfw = ce.index("namespace hfw {")
-    for stages in (4, 5):
-        body = ce[hfw:]
-        old = next(ln for ln in body.splitlines()
-                   if ln.startswith("constexpr int STAGES = "))
-        out[f"ce_stages{stages}"] = (
-            "fused_ce", ce[:hfw] + body.replace(
-                old, f"constexpr int STAGES = {stages};", 1))
+        for tile in (64, 128):
+            if "dq" in groups:
+                out[f"dq_bm{64 * consumers}_bn{tile}"] = (
+                    "flash_attention", with_constants(
+                        flash, "hdq", {"BN": tile, "CONSUMERS": consumers}))
+            if "dq_partial" in groups:
+                out[f"dq_partial_bm{64 * consumers}_bn{tile}"] = (
+                    "flash_attention", with_constants(
+                        flash, "hdq", {"PARTIAL_BN": tile,
+                                       "PARTIAL_CONSUMERS": consumers}))
+            if "dkv_partial" in groups:
+                out[f"dkv_partial_bn{64 * consumers}_bm{tile}"] = (
+                    "flash_attention", with_constants(
+                        flash, "hdkv", {"PARTIAL_BM": tile,
+                                        "PARTIAL_CONSUMERS": consumers}))
+    if "ce" in groups:
+        for stages in (4, 5):
+            out[f"ce_stages{stages}"] = ("fused_ce", with_constants(
+                ce, "hfw", {"STAGES": stages}))
     return out
 
 
@@ -119,7 +151,80 @@ def in_turns(tags, measure):
     return got
 
 
-def main() -> int:
+def compare(torch, kern, tags, built, cases) -> bool:
+    """Each variant of ``kern`` against the plain version on every case
+    ({name: (call, refs)}: ``call()`` returns the kernel's outputs in the
+    order of ``refs``), then the device times in turns, case by case.
+    False when a variant disagrees."""
+    for tag in tags:
+        bind(kern, built[tag][0])
+        errs = {}
+        for name, (call, refs) in cases.items():
+            got = call()
+            torch.cuda.synchronize()
+            errs[name] = max(float((g.float() - r).abs().max() / r.abs().max())
+                             for g, r in zip(got, refs))
+        emit({"variant": tag, "kernel": kern.name, "rel_err": errs})
+        if max(errs.values()) > TOL_REL:
+            print(f"{tag} disagrees with the plain version", file=sys.stderr)
+            return False
+    for name, (call, _) in cases.items():
+        def measure(tag):
+            bind(kern, built[tag][0])
+            return device_ms(torch, call)
+        emit({"kernel": kern.name, "case": name,
+              "device_ms": in_turns(tags, measure)})
+    kern._fn = None
+    return True
+
+
+def flash_dq_cases(torch, fa, g):
+    cases = {}
+    for name, (BH, L, D, causal, window) in {
+            "causal": (96, 1024, 64, True, 0),
+            "noncausal": (96, 1024, 64, False, 0),
+            "window256": (96, 1024, 64, True, 256),
+            "D128": (16, 1024, 128, True, 0)}.items():
+        q, k, v, do = (torch.randn(BH, L, D, generator=g, device="cuda").to(
+            torch.bfloat16) for _ in range(4))
+        out, lse = fa.flash_fwd(q, k, v, causal, window)
+        f = [t.float() for t in (q, k, v, out, do)]
+        ref = fa.flash_dq_reference(*f[:4], lse, f[4], causal, window)
+        args = (q, k, v, out, lse, do, causal, window)
+        cases[name] = ((lambda a=args: (fa.flash_dq(*a),)), (ref,))
+    return cases
+
+
+def ring_cases(torch, fa, g, kernel):
+    """The partial dQ (``kernel`` "dq") or dK/dV ("dkv") at the ring's
+    half-blocks, m from the partial forward."""
+    cases = {}
+    for name, (BH, n, causal) in RING_CASES.items():
+        q, k, v = (torch.randn(BH, n, 64, generator=g, device="cuda").to(
+            torch.bfloat16) for _ in range(3))
+        do = torch.randn(BH, n, 64, generator=g, device="cuda")
+        dl = torch.randn(BH, n, generator=g, device="cuda")
+        _, m, _ = fa.flash_fwd_partial(q, k, v, causal)
+        f = [t.float() for t in (q, k, v)]
+        args = (q, k, v, m, do, dl, causal)
+        if kernel == "dq":
+            refs = (fa.flash_dq_partial_reference(*f, m, do, dl, causal),)
+            call = (lambda a=args: (fa.flash_dq_partial(*a),))
+        else:
+            refs = fa.flash_dkv_partial_reference(*f, m, do, dl, causal)
+            call = (lambda a=args: fa.flash_dkv_partial(*a))
+        cases[name] = (call, refs)
+    return cases
+
+
+def main(argv=None) -> int:
+    groups = sys.argv[1:] if argv is None else argv
+    groups = groups or list(GROUPS)
+    unknown = sorted(set(groups) - set(GROUPS))
+    if unknown:
+        print(f"torch_kernel_variants: unknown group(s) {unknown}; "
+              f"choose from {list(GROUPS)}", file=sys.stderr)
+        return 2
     import torch
 
     if not torch.cuda.is_available():
@@ -134,7 +239,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip()})
     os.makedirs(OUT, exist_ok=True)
-    sources = variant_sources()
+    sources = variant_sources(groups)
     with ThreadPoolExecutor(len(sources)) as pool:
         built = dict(zip(sources, pool.map(
             lambda tag: build(tag, sources[tag][1], cuda_ext), sources)))
@@ -146,40 +251,20 @@ def main() -> int:
                 not in ln)})})
 
     g = torch.Generator(device="cuda").manual_seed(0)
-    cases = {"causal": (96, 1024, 64, True, 0),
-             "noncausal": (96, 1024, 64, False, 0),
-             "window256": (96, 1024, 64, True, 256),
-             "D128": (16, 1024, 128, True, 0)}
-    data = {}
-    for name, (BH, L, D, causal, window) in cases.items():
-        q, k, v, do = (torch.randn(BH, L, D, generator=g, device="cuda").to(
-            torch.bfloat16) for _ in range(4))
-        out, lse = fa.flash_fwd(q, k, v, causal, window)
-        f = [t.float() for t in (q, k, v, out, do)]
-        ref = fa.flash_dq_reference(*f[:4], lse, f[4], causal, window)
-        data[name] = ((q, k, v, out, lse, do, causal, window), ref)
-    dq_tags = [t for t in sources if t.startswith("dq_")]
-    for tag in dq_tags:
-        bind(fa.FLASH_DQ, built[tag][0])
-        errs = {}
-        for name, (args, ref) in data.items():
-            dq = fa.flash_dq(*args)
-            torch.cuda.synchronize()
-            errs[name] = float((dq.float() - ref).abs().max()
-                               / ref.abs().max())
-        emit({"variant": tag, "dq_rel_err": errs})
-        if max(errs.values()) > 2e-2:
-            print(f"{tag} disagrees with the plain version", file=sys.stderr)
+    for group, kern, make in (
+            ("dq", fa.FLASH_DQ, lambda: flash_dq_cases(torch, fa, g)),
+            ("dq_partial", fa.FLASH_DQ_PARTIAL,
+             lambda: ring_cases(torch, fa, g, "dq")),
+            ("dkv_partial", fa.FLASH_DKV_PARTIAL,
+             lambda: ring_cases(torch, fa, g, "dkv"))):
+        if group not in groups:
+            continue
+        tags = [t for t in sources if t.startswith(f"{group}_b")]
+        if not compare(torch, kern, tags, built, make()):
             return 1
-    for name, (args, _) in data.items():
-        def measure(tag):
-            bind(fa.FLASH_DQ, built[tag][0])
-            return device_ms(torch, lambda: fa.flash_dq(*args))
-        emit({"kernel": "flash_dq", "case": name,
-              "device_ms": in_turns(dq_tags, measure)})
-    fa.FLASH_DQ._fn = None
-    del data
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
+    if "ce" not in groups:
+        return 0
 
     T, D, V = 8192, 768, 50257
     x = torch.randn((T, D), generator=g, device="cuda").to(torch.bfloat16)

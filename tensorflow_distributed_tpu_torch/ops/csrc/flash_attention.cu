@@ -18,9 +18,9 @@
 //   fwd : the same streaming loop without the lse fold; emits the
 //         unnormalized acc (f32) and the row max m and exp-sum l (f32);
 //   bwd : P = exp(s - m), dS = P * (dO.V^T + dl) * scale, with dO read
-//         as f32 (the JAX bwd casts it so) and rounded to bf16 for the
-//         tensor-core products; m carries no gradient (the merged ring
-//         output does not depend on the stabilizer).
+//         as f32 (the JAX bwd casts it so) and rounded to bf16, once, for
+//         the tensor-core products; m carries no gradient (the merged
+//         ring output does not depend on the stabilizer).
 //
 // Layout: q, o, dout, dq [BH, L, D]; k, v, dk, dv [BH, Lk, D]; all bf16,
 // contiguous, except the partial form's o and dout (f32). lse, m, l, dl
@@ -30,7 +30,10 @@
 // (BH = 96, L = 1024, D = 64) the tensor-core work (~13-26 GFLOP per
 // call, causal) and the bytes each call must move (~50-90 MB) give
 // bounds of the same order (~15-26 us), so both the matrix units and
-// HBM matter.
+// HBM matter. A ring step's half-block (GPT-2-small at S = 4: BH 96,
+// 128 x 128) is a few MB and tens of MFLOP, a few microseconds of
+// bound: there a CTA's fixed costs (its first loads, the pipeline's
+// fill and drain) and the number of CTAs in flight set the time.
 //
 // The normalized forward (tfd_flash_fwd) is the Hopper design,
 // flash_fwd_hopper<D>: a CTA of 64 query rows and two warpgroups, two
@@ -55,53 +58,72 @@
 // [BH, rows, D], so a box never reads into the next head and rows past
 // L or Lk read as zeros.
 //
-// The normalized dK/dV (tfd_flash_dkv) is built from the same pieces,
-// flash_dkv_hopper<D>: a CTA owns 128 key rows, two consumer warpgroups
-// of 64 keys and a producer warpgroup, so each query tile loaded serves
-// 128 keys. The producer loads K and V once, then streams the band's
-// query tiles of 64 rows (Q, dO and O together) through a 3-stage ring.
-// Per tile each consumer runs S^T = K_w Q^T and dP^T = V_w dO^T (wgmma
-// m64n64k16, all operands K-major), computes the tile's lse and delta =
-// rowsum(dO * O) into shared memory under those products (recomputed
-// per tile from the O and dO tiles, as the JAX _delta), forms P^T =
-// 2^(s scale log2e - lse log2e) and dS^T = P^T (dP^T - delta) scale in
-// registers (the band mask only on tiles that cross its edge), packs
-// both to bf16 in place as register-A fragments and accumulates
-// dV += P^T dO and dK += dS^T Q (dO and Q read MN-major, trans-b). dK and
-// dV stay in registers (D / 2 each a thread) and are written once, bf16;
-// a warpgroup whose 64 keys lie outside a tile's band skips the tile.
+// The dK/dV kernel (tfd_flash_dkv, and tfd_flash_dkv_partial in its
+// PARTIAL form) is built from the same pieces, flash_dkv_hopper<D,
+// PARTIAL>: a CTA owns 64 key rows per consumer warpgroup (two, so each
+// query tile loaded serves 128 keys) and has a producer warpgroup. The producer loads K and V once, then streams the
+// band's query tiles through a ring of stages. Per tile each consumer
+// runs S^T = K_w Q^T and dP^T = V_w dO^T (wgmma m64n64k16, all operands
+// K-major), forms P^T = 2^(s scale log2e - row_sub log2e) and dS^T =
+// P^T (dP^T + row_add) scale in registers (the band mask only on tiles
+// that cross its edge), packs both to bf16 in place as register-A
+// fragments and accumulates dV += P^T dO and dK += dS^T Q (dO and Q read
+// MN-major, trans-b). dK and dV stay in registers (D / 2 each a thread)
+// and are written once, bf16; a warpgroup whose 64 keys lie outside a
+// tile's band skips the tile (it still waits for the tile before it
+// releases it). The two forms differ in the stage and the row terms:
+//  - normalized: a stage holds the Q, dO and O tiles (TMA), and each
+//    consumer computes the tile's lse and delta = rowsum(dO * O) into
+//    shared memory under its products (recomputed per tile from the O
+//    and dO tiles, as the JAX _delta);
+//  - partial: a stage holds Q (TMA), dO rounded to bf16, and the tile's
+//    m log2e and dl scale. dO arrives in f32, and TMA cannot convert
+//    types, so the producer's first thread lands the f32 tile by TMA in
+//    a staging area of the stage and the producer's other three warps,
+//    idle otherwise, round it to bf16 into the swizzled layout TMA would
+//    have written (16-byte chunk index ^ row % 8), write the rows, fence
+//    (fence.proxy.async: generic stores read by wgmma) and arrive on the
+//    stage's full barrier beside TMA's transaction bytes. No O tile.
 //
-// The normalized dQ (tfd_flash_dq) is the same pieces once more,
-// flash_dq_hopper<D>: a CTA owns 128 query rows, two consumer warpgroups
-// of 64 rows and a producer warpgroup that loads the Q and dO tiles once
-// and streams the band's K/V tiles of 64 keys through a 4-stage ring, so
-// each K/V tile loaded serves 128 rows. Each consumer first reads its
-// rows' lse and delta = rowsum(dO * O) once (a dQ CTA's rows are fixed):
-// a row lives in one quad, each thread reads a quarter of the row's dO
-// and O from global memory under the first loads and two shfl.xor steps
-// sum the quad, so O needs no shared memory. Per K/V tile it runs S =
-// Q K^T and dP = dO V^T (wgmma m64n64k16 from shared memory, all
-// operands K-major, the two products' k-steps interleaved), forms P =
-// 2^(s scale log2e - lse log2e) and dS = P (dP - delta) scale in
-// registers (the band mask only on tiles that cross its edge or the end
-// of the keys), packs dS to bf16 in place as the register-A fragments
-// and accumulates dQ += dS K with K read MN-major (trans-b) from the same
-// swizzled tile. dQ stays in registers (D / 2 a thread) and is written
-// once, bf16; a warpgroup whose rows see none of a tile's keys skips it.
-// At GPT-2-small's shapes the bound is the bytes (~0.023 ms), against
-// 3/4 of dK/dV's tensor-core work.
+// The dQ kernel (tfd_flash_dq, and tfd_flash_dq_partial in its PARTIAL
+// form) is the same pieces once more, flash_dq_hopper<D, PARTIAL>: a
+// CTA owns 64 query rows per consumer warpgroup (two in the normalized
+// form, one in the partial one) and a producer warpgroup that loads the
+// Q tile once and streams the band's K/V tiles (64 keys in the
+// normalized form, 128 in the partial one) through a ring of up to 4
+// stages, so each K/V tile loaded serves all of the CTA's rows. A dQ CTA's rows
+// are fixed, so each consumer reads its rows' terms once, under the
+// first loads:
+//  - normalized: dO comes by TMA with Q; lse and delta = rowsum(dO * O)
+//    from global memory, a row in one quad, each thread a quarter of
+//    the row's dO and O, two shfl.xor steps summing the quad (O needs no
+//    shared memory);
+//  - partial: m and dl, and the warpgroup's own 64 rows of f32 dO from
+//    global memory (all loads in flight at once), rounded to bf16 into
+//    the swizzled dO tile; a fence and a barrier of the warpgroup's
+//    threads before its first wgmma reads them.
+// Per K/V tile it runs S = Q K^T and dP = dO V^T (wgmma m64nBNk16, BN
+// the keys a stage, from shared memory, all operands K-major, the two
+// products' k-steps interleaved), forms P = 2^(s scale log2e - row_sub log2e) and dS = P
+// (dP + row_add) scale in registers (the band mask only on tiles that
+// cross its edge or the end of the keys), packs dS to bf16 in place as
+// the register-A fragments and accumulates dQ += dS K with K read
+// MN-major (trans-b) from the same swizzled tile. dQ stays in registers
+// (D / 2 a thread) and is written once, bf16; a warpgroup whose rows see
+// none of a tile's keys skips it. At GPT-2-small's shapes the bound is
+// the bytes (~0.023 ms), against 3/4 of dK/dV's tensor-core work. Each
+// form has its own tiles (rows a CTA, keys or rows a stage), chosen on
+// the card by scripts/torch_kernel_variants.py: the normalized ones at
+// L 1024, the partial ones at the ring's half-blocks.
 //
-// The partial (ring-step) kernels are the first, simple design:
-// flash_fwd_kernel, flash_dq_kernel and flash_dkv_kernel<D, true>, one
-// CTA of 4 warps per 64-row output tile, bf16 WMMA (16x16x16) with f32
-// accumulation, tiles staged in shared memory, and per-CTA loop bounds
-// that skip key (resp. query) tiles outside the band. Instead of the
-// TPU's sequential grid and VMEM scratch carried across grid steps, each
-// CTA owns its output tile and loops over the reduction axis itself. A
-// ring step's half-block attend (GPT-2-small at S = 4: BH 96, 128 x 128)
-// is a few MB of traffic and tens of MFLOP, so they are bound by bytes
-// and by launch latency; their f32 o and dO double the bytes of those
-// operands.
+// The partial forward (tfd_flash_fwd_partial) is still the first,
+// simple design: flash_fwd_kernel<D, true>, one CTA of 4 warps per
+// 64-row output tile, bf16 WMMA (16x16x16) with f32 accumulation, tiles
+// staged in shared memory, and per-CTA loop bounds that skip key tiles
+// outside the band. Instead of the TPU's sequential grid and VMEM
+// scratch carried across grid steps, each CTA owns its output tile and
+// loops over the reduction axis itself. Its f32 o doubles the bytes of
+// that operand.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -143,17 +165,6 @@ __device__ __forceinline__ void kv_range(int qt, int nk, int causal, int window,
   }
 }
 
-// Query tiles [lo, hi] that key tile kt needs (the JAX _q_needed).
-__device__ __forceinline__ void q_range(int kt, int nq, int causal, int window,
-                                        int* lo, int* hi) {
-  *lo = 0;
-  *hi = nq - 1;
-  if (causal) {
-    *lo = (kt * BK) / BQ;
-    if (window) *hi = min(*hi, (kt * BK + BK - 2 + window) / BQ);
-  }
-}
-
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
@@ -176,30 +187,6 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int rows) 
   for (int i = threadIdx.x; i < n; i += THREADS) d[i] = s[i];
 }
 
-// The same for f32 rows, rounded to bf16 on the way into shared memory
-// (the partial backward's dO), 16 bytes read per thread per iteration.
-template <int D>
-__device__ __forceinline__ void load_tile_f32(bf16* dst, const float* src, int rows) {
-  const int n = rows * D / 4;
-  const float4* s = reinterpret_cast<const float4*>(src);
-  __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(dst);
-  for (int i = threadIdx.x; i < n; i += THREADS) {
-    const float4 x = s[i];
-    d[2 * i] = __floats2bfloat162_rn(x.x, x.y);
-    d[2 * i + 1] = __floats2bfloat162_rn(x.z, x.w);
-  }
-}
-
-// dO tile into shared memory as bf16: read as bf16 (normalized kernels)
-// or as f32 (partial kernels).
-template <int D, bool PARTIAL>
-__device__ __forceinline__ void load_dout(bf16* dst, const void* dout, size_t off) {
-  if constexpr (PARTIAL)
-    load_tile_f32<D>(dst, static_cast<const float*>(dout) + off, BQ);
-  else
-    load_tile<D>(dst, static_cast<const bf16*>(dout) + off, BQ);
-}
-
 // acc[16 x 16*N] (one fragment per 16 columns) = A[16 x D] . B^T where B
 // is [16*N x D] row-major in shared memory (so B^T is col-major).
 template <int D, int N>
@@ -219,35 +206,6 @@ __device__ __forceinline__ void mm_abt(float* out, int ldo, const bf16* a,
     }
     wmma::store_matrix_sync(out + n * 16, acc, ldo, wmma::mem_row_major);
   }
-}
-
-// acc[n] += A[16 x 64] . B[64 x D] for the D/16 column fragments; A is
-// row-major with leading dimension 64, B row-major with leading dim D.
-template <int D>
-__device__ __forceinline__ void mm_ab_acc(FragC* acc, const bf16* a, const bf16* b) {
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-#pragma unroll
-    for (int kk = 0; kk < 64 / 16; ++kk) {
-      FragA fa;
-      FragB fb;
-      wmma::load_matrix_sync(fa, a + kk * 16, 64);
-      wmma::load_matrix_sync(fb, b + kk * 16 * D + n * 16, D);
-      wmma::mma_sync(acc[n], fa, fb, acc[n]);
-    }
-  }
-}
-
-// Write a warp's 16 x D f32 accumulators to global bf16 rows through a
-// 16 x D f32 shared-memory scratch owned by this warp.
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* dst, float* scratch, FragC* acc, int lane) {
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n)
-    wmma::store_matrix_sync(scratch + n * 16, acc[n], D, wmma::mem_row_major);
-  __syncwarp();
-  for (int i = lane; i < 16 * D; i += 32) dst[i] = __float2bfloat16(scratch[i]);
-  __syncwarp();
 }
 
 // ---------------------------------------------------------------- forward
@@ -362,206 +320,13 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// --------------------------------------------------------------------- dQ
-// Grid (BH, L/BQ); one CTA per (head, query tile), looping over the key
-// tiles of the band. dQ accumulates in registers. The partial form only
-// (the normalized dQ is flash_dq_hopper below): `stat` is m, delta =
-// -dl, dout is f32.
-
-template <int D>
-constexpr int dq_smem() {
-  return (2 * BQ * D + 2 * BK * D + BQ * BK) * 2 + 2 * BQ * BK * 4;
-}
-
-template <int D, bool PARTIAL>
-__global__ void __launch_bounds__(THREADS)
-flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, const float* __restrict__ stat,
-                const float* __restrict__ dl, const void* __restrict__ dout,
-                bf16* __restrict__ dq, int L, int Lk, float scale, int causal, int window) {
-  static_assert(PARTIAL, "the normalized dQ is flash_dq_hopper");
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);            // BQ x D
-  bf16* sdO = sQ + BQ * D;                             // BQ x D
-  bf16* sK = sdO + BQ * D;                             // BK x D
-  bf16* sV = sK + BK * D;                              // BK x D
-  bf16* sdS = sV + BK * D;                             // BQ x BK
-  float* sS = reinterpret_cast<float*>(sdS + BQ * BK); // BQ x BK
-  float* sdP = sS + BQ * BK;                           // BQ x BK
-
-  const int bh = blockIdx.x;
-  const int nq = L / BQ, nk = Lk / BK;
-  const int qt = nq - 1 - blockIdx.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const size_t qoff = ((size_t)bh * L + (size_t)qt * BQ) * D;
-  const bf16* kb = k + (size_t)bh * Lk * D;
-  const bf16* vb = v + (size_t)bh * Lk * D;
-
-  load_tile<D>(sQ, q + qoff, BQ);
-  load_dout<D, PARTIAL>(sdO, dout, qoff);
-  __syncthreads();
-
-  const int row0 = qt * BQ + warp * 16;
-  const bf16* sQw = sQ + warp * 16 * D;
-  const bf16* sdOw = sdO + warp * 16 * D;
-  float* sSw = sS + warp * 16 * BK;
-  float* sdPw = sdP + warp * 16 * BK;
-  bf16* sdSw = sdS + warp * 16 * BK;
-
-  // Per-row m and delta = -dl, lane-replicated.
-  float lse_r[16], delta_r[16];
-  const size_t rbase = (size_t)bh * L + row0;
-#pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    delta_r[r] = -dl[rbase + r];
-    lse_r[r] = stat[rbase + r];
-  }
-
-  FragC dq_acc[D / 16];
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(dq_acc[n], 0.f);
-
-  int lo, hi;
-  kv_range(qt, nk, causal, window, &lo, &hi);
-  for (int kt = lo; kt <= hi; ++kt) {
-    __syncthreads();
-    load_tile<D>(sK, kb + (size_t)kt * BK * D, BK);
-    load_tile<D>(sV, vb + (size_t)kt * BK * D, BK);
-    __syncthreads();
-
-    mm_abt<D, BK / 16>(sSw, BK, sQw, sK);    // S_w  = Q_w K^T
-    mm_abt<D, BK / 16>(sdPw, BK, sdOw, sV);  // dP_w = dO_w V^T
-    __syncwarp();
-
-    const int col0 = kt * BK;
-#pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      const int row = row0 + r;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int c = lane + 32 * h;
-        float s = sSw[r * BK + c] * scale;
-        if (!keep(row, col0 + c, causal, window)) s = NEG_INF;
-        const float p = expf(s - lse_r[r]);
-        const float ds = p * (sdPw[r * BK + c] - delta_r[r]) * scale;
-        sdSw[r * BK + c] = __float2bfloat16(ds);
-      }
-    }
-    __syncwarp();
-    mm_ab_acc<D>(dq_acc, sdSw, sK);  // dQ_w += dS_w K
-  }
-  __syncthreads();  // sS/sdP become per-warp epilogue scratch (16 x D f32 each)
-  store_rows<D>(dq + qoff + (size_t)warp * 16 * D, sS + warp * 16 * D, dq_acc, lane);
-}
-
-// ------------------------------------------------------------------- dK/dV
-// Grid (BH, Lk/BK); one CTA per (head, key tile), looping over the query
-// tiles of the band. Each warp owns 16 key rows and computes the
-// transposed blocks S^T = K Q^T and dP^T = V dO^T directly, so P^T and
-// dS^T are warp-local and dK/dV accumulate in registers. The partial form
-// only (the normalized dK/dV is flash_dkv_hopper below): `stat` is m,
-// delta = -dl, dout is f32.
-
-template <int D>
-constexpr int dkv_smem() {
-  return (2 * BK * D + 2 * BQ * D + 2 * BK * BQ) * 2 + 2 * BK * BQ * 4 + 2 * BQ * 4;
-}
-
-template <int D, bool PARTIAL>
-__global__ void __launch_bounds__(THREADS)
-flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const float* __restrict__ stat,
-                 const float* __restrict__ dl, const void* __restrict__ dout,
-                 bf16* __restrict__ dk, bf16* __restrict__ dv, int L, int Lk, float scale,
-                 int causal, int window) {
-  static_assert(PARTIAL, "the normalized dK/dV is flash_dkv_hopper");
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem);             // BK x D
-  bf16* sV = sK + BK * D;                               // BK x D
-  bf16* sQ = sV + BK * D;                               // BQ x D
-  bf16* sdO = sQ + BQ * D;                              // BQ x D
-  bf16* sPt = sdO + BQ * D;                             // BK x BQ
-  bf16* sdSt = sPt + BK * BQ;                           // BK x BQ
-  float* sSt = reinterpret_cast<float*>(sdSt + BK * BQ);// BK x BQ
-  float* sdPt = sSt + BK * BQ;                          // BK x BQ
-  float* sLse = sdPt + BK * BQ;                         // BQ
-  float* sDelta = sLse + BQ;                            // BQ
-
-  const int bh = blockIdx.x;
-  const int nq = L / BQ;
-  const int kt = blockIdx.y;  // causal: low key tiles have the longest bands
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const size_t koff = ((size_t)bh * Lk + (size_t)kt * BK) * D;
-
-  load_tile<D>(sK, k + koff, BK);
-  load_tile<D>(sV, v + koff, BK);
-
-  const int krow0 = kt * BK + warp * 16;  // global key row of the warp's first row
-  const bf16* sKw = sK + warp * 16 * D;
-  const bf16* sVw = sV + warp * 16 * D;
-  float* sStw = sSt + warp * 16 * BQ;
-  float* sdPtw = sdPt + warp * 16 * BQ;
-  bf16* sPtw = sPt + warp * 16 * BQ;
-  bf16* sdStw = sdSt + warp * 16 * BQ;
-
-  FragC dk_acc[D / 16], dv_acc[D / 16];
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    wmma::fill_fragment(dk_acc[n], 0.f);
-    wmma::fill_fragment(dv_acc[n], 0.f);
-  }
-
-  int lo, hi;
-  q_range(kt, nq, causal, window, &lo, &hi);
-  for (int qt = lo; qt <= hi; ++qt) {
-    const size_t qoff = ((size_t)bh * L + (size_t)qt * BQ) * D;
-    __syncthreads();  // the previous Q/dO tile and its stats are consumed
-    load_tile<D>(sQ, q + qoff, BQ);
-    load_dout<D, PARTIAL>(sdO, dout, qoff);
-    if (threadIdx.x < BQ) {
-      const size_t row = (size_t)bh * L + qt * BQ + threadIdx.x;
-      sLse[threadIdx.x] = stat[row];
-      sDelta[threadIdx.x] = -dl[row];
-    }
-    __syncthreads();
-
-    mm_abt<D, BQ / 16>(sStw, BQ, sKw, sQ);    // S^T_w  = K_w Q^T
-    mm_abt<D, BQ / 16>(sdPtw, BQ, sVw, sdO);  // dP^T_w = V_w dO^T
-    __syncthreads();  // sDelta complete
-
-    const int qcol0 = qt * BQ;
-#pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      const int krow = krow0 + r;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int c = lane + 32 * h;
-        float s = sStw[r * BQ + c] * scale;
-        if (!keep(qcol0 + c, krow, causal, window)) s = NEG_INF;
-        const float p = expf(s - sLse[c]);
-        const float ds = p * (sdPtw[r * BQ + c] - sDelta[c]) * scale;
-        sPtw[r * BQ + c] = __float2bfloat16(p);
-        sdStw[r * BQ + c] = __float2bfloat16(ds);
-      }
-    }
-    __syncwarp();
-    mm_ab_acc<D>(dv_acc, sPtw, sdO);  // dV_w += P^T_w dO
-    mm_ab_acc<D>(dk_acc, sdStw, sQ);  // dK_w += dS^T_w Q
-  }
-  __syncthreads();  // sSt/sdPt become per-warp epilogue scratch
-  float* scratch = sSt + warp * 16 * D;
-  store_rows<D>(dk + koff + (size_t)warp * 16 * D, scratch, dk_acc, lane);
-  store_rows<D>(dv + koff + (size_t)warp * 16 * D, scratch, dv_acc, lane);
-}
-
 template <typename Kernel>
 cudaError_t prepare(Kernel kernel, int smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
-// One launcher per kernel: set the shared-memory limit, launch on
-// `stream`, return the launch's CUDA error.
-
+// Set the shared-memory limit, launch on `s`, return the launch's CUDA
+// error.
 template <int D, bool PARTIAL>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, void* stat,
                        void* l, int BH, int L, int Lk, float scale, int causal,
@@ -572,32 +337,6 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, voi
   kernel<<<dim3(BH, L / BQ), THREADS, fwd_smem<D>(), s>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, o, (float*)stat, (float*)l, L,
       Lk, scale, causal, window);
-  return cudaGetLastError();
-}
-
-template <int D, bool PARTIAL>
-cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* stat,
-                      const void* dl, const void* dout, void* dq, int BH, int L, int Lk,
-                      float scale, int causal, int window, cudaStream_t s) {
-  auto kernel = flash_dq_kernel<D, PARTIAL>;
-  cudaError_t err = prepare(kernel, dq_smem<D>());
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(BH, L / BQ), THREADS, dq_smem<D>(), s>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)stat, (const float*)dl,
-      dout, (bf16*)dq, L, Lk, scale, causal, window);
-  return cudaGetLastError();
-}
-
-template <int D, bool PARTIAL>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* stat,
-                       const void* dl, const void* dout, void* dk, void* dv, int BH, int L,
-                       int Lk, float scale, int causal, int window, cudaStream_t s) {
-  auto kernel = flash_dkv_kernel<D, PARTIAL>;
-  cudaError_t err = prepare(kernel, dkv_smem<D>());
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(BH, Lk / BK), THREADS, dkv_smem<D>(), s>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)stat, (const float*)dl,
-      dout, (bf16*)dk, (bf16*)dv, L, Lk, scale, causal, window);
   return cudaGetLastError();
 }
 
@@ -892,31 +631,43 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* l
 
 namespace hdq {
 
-constexpr int BN = 64;          // key rows per stage
-// Consumer warpgroups of 64 query rows each, sharing each K/V stage: two
-// (one CTA to an SM, 168 registers a thread at launch, the consumers
-// raised to 240), or one (two CTAs to an SM at D 64, as B1: 128 at
-// launch, 232). scripts/torch_kernel_variants.py times both.
-constexpr int CONSUMERS = 2;
-constexpr int BM = 64 * CONSUMERS;  // query rows per CTA
-constexpr int THREADS = (CONSUMERS + 1) * 128;
-constexpr int CTAS_PER_SM = CONSUMERS == 1 ? 2 : 1;
-constexpr int CONSUMER_REGS = CONSUMERS == 1 ? 232 : 240;
+// Tiles, for the normalized form (B2) and the partial one (B8) apart:
+// consumer warpgroups of 64 query rows each, sharing each K/V stage, and
+// keys a stage. Two consumers: one CTA to an SM, 168 registers a thread
+// at launch, the consumers raised to 240; one: two CTAs to an SM, as B1
+// (128 at launch, 232). scripts/torch_kernel_variants.py times both; at
+// the ring's 128 x 128 half-block one consumer (192 CTAs for B.H 96)
+// and 128-key stages won (PERF.md).
+constexpr int CONSUMERS = 2;          // B2
+constexpr int BN = 64;                // B2: key rows per stage
+constexpr int PARTIAL_CONSUMERS = 1;  // B8
+constexpr int PARTIAL_BN = 128;       // B8: key rows per stage
 constexpr int ATOM = 128;       // bytes per swizzled row: 64 bf16 of D
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int D>
+template <bool PARTIAL>
+struct Tiles {
+  static constexpr int CONSUMERS = PARTIAL ? PARTIAL_CONSUMERS : hdq::CONSUMERS;
+  static constexpr int BN = PARTIAL ? PARTIAL_BN : hdq::BN;
+  static constexpr int BM = 64 * CONSUMERS;  // query rows per CTA
+  static constexpr int THREADS = (CONSUMERS + 1) * 128;
+  static constexpr int CTAS_PER_SM = CONSUMERS == 1 ? 2 : 1;
+  static constexpr int CONSUMER_REGS = CONSUMERS == 1 ? 232 : 240;
+};
+
+template <int D, bool PARTIAL>
 struct Smem {
+  using T = Tiles<PARTIAL>;
   static constexpr int ATOMS = D / 64;
-  static constexpr int Q_BYTES = BM * D * 2;   // the Q or the dO tile
-  static constexpr int KV_BYTES = BN * D * 2;  // one K or V tile
+  static constexpr int Q_BYTES = T::BM * D * 2;   // the Q or the dO tile
+  static constexpr int KV_BYTES = T::BN * D * 2;  // one K or V tile
   static constexpr int STAGE_BYTES = 2 * KV_BYTES;
   // As many stages as fit, up to 4, in a block's share of the SM: half
   // of 233472 bytes less the 1024 each block reserves where two CTAs to
   // an SM fit with two stages, else all a block may have.
   static constexpr int FIXED = 2 * Q_BYTES + 80 + 1024;
   static constexpr int LIMIT =
-      CTAS_PER_SM == 2 && FIXED + 2 * STAGE_BYTES <= 115712 ? 115712 : 232448;
+      T::CTAS_PER_SM == 2 && FIXED + 2 * STAGE_BYTES <= 115712 ? 115712 : 232448;
   static constexpr int STAGES = (LIMIT - FIXED) / STAGE_BYTES < 4
                                     ? (LIMIT - FIXED) / STAGE_BYTES : 4;
   static constexpr int BAR_OFF = 2 * Q_BYTES + STAGES * STAGE_BYTES;
@@ -924,15 +675,19 @@ struct Smem {
   static_assert(STAGES >= 2 && BYTES <= 232448, "no room for two stages");
 };
 
-template <int D>
-__global__ void __launch_bounds__(THREADS, CTAS_PER_SM)
+// The normalized form reads lse, O and dO (bf16, by TMA and for delta);
+// the partial form m, dl and dO (f32, converted by the consumers).
+// `row_sub` is lse or m; `o` is null and `mdo` unused in the partial form.
+template <int D, bool PARTIAL>
+__global__ void __launch_bounds__(Tiles<PARTIAL>::THREADS, Tiles<PARTIAL>::CTAS_PER_SM)
 flash_dq_hopper(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
                 const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mdo,
-                const bf16* __restrict__ o, const bf16* __restrict__ dout,
-                const float* __restrict__ lse, bf16* __restrict__ dq, int L, int Lk, float scale,
-                int causal, int window) {
-  using S = Smem<D>;
-  constexpr int STAGES = S::STAGES;
+                const bf16* __restrict__ o, const void* __restrict__ dout,
+                const float* __restrict__ row_sub, const float* __restrict__ dl,
+                bf16* __restrict__ dq, int L, int Lk, float scale, int causal, int window) {
+  using T = Tiles<PARTIAL>;
+  using S = Smem<D, PARTIAL>;
+  constexpr int CONSUMERS = T::CONSUMERS, BM = T::BM, BN = T::BN, STAGES = S::STAGES;
   extern __shared__ unsigned char smem_raw[];
   // Swizzled TMA tiles want 1024-byte-aligned shared addresses.
   unsigned char* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
@@ -961,14 +716,16 @@ flash_dq_hopper(const __grid_constant__ CUtensorMap mq, const __grid_constant__ 
   __syncthreads();
 
   if (wg == CONSUMERS) {
-    // ---- producer: one thread issues every load: Q and dO once, then
-    // the band's K/V tiles through the stage ring.
+    // ---- producer: one thread issues every load: Q (and dO, normalized)
+    // once, then the band's K/V tiles through the stage ring.
     hopper::setmaxnreg_dec<24>();
     if (threadIdx.x == CONSUMERS * 128) {
-      hopper::mbar_expect_tx(qbar, 2 * S::Q_BYTES);
+      hopper::mbar_expect_tx(qbar, (PARTIAL ? 1 : 2) * S::Q_BYTES);
       for (int a = 0; a < S::ATOMS; ++a) {
         hopper::tma_load_3d(smem + a * BM * ATOM, &mq, qbar, a * 64, qt * BM, bh);
-        hopper::tma_load_3d(smem + S::Q_BYTES + a * BM * ATOM, &mdo, qbar, a * 64, qt * BM, bh);
+        if constexpr (!PARTIAL)
+          hopper::tma_load_3d(smem + S::Q_BYTES + a * BM * ATOM, &mdo, qbar, a * 64, qt * BM,
+                              bh);
       }
       for (int kt = lo, i = 0; kt <= hi; ++kt, ++i) {
         const int s = i % STAGES;
@@ -988,7 +745,7 @@ flash_dq_hopper(const __grid_constant__ CUtensorMap mq, const __grid_constant__ 
     // for and released unread: an early release would complete the
     // ring's previous round). Per tile S and dP from shared memory, dS in
     // registers, then dQ += dS K with dS as the register-A operand.
-    hopper::setmaxnreg_inc<CONSUMER_REGS>();
+    hopper::setmaxnreg_inc<T::CONSUMER_REGS>();
     const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
     const int wrow0 = qt * BM + wg * 64;          // the warpgroup's first query row
     const int r0 = wrow0 + warp * 16 + lane / 4;  // this thread's rows: r0 and r0 + 8
@@ -1002,37 +759,79 @@ flash_dq_hopper(const __grid_constant__ CUtensorMap mq, const __grid_constant__ 
     }
     if (wrow0 >= L) kb = ka - 1;  // no row of the warpgroup below L
 
-    // The rows' lse (log2 units) and -delta scale, delta = rowsum(dO * O)
-    // (the JAX _delta), once: a row lives in one quad, each thread reads a
-    // quarter of it from global memory (under the first TMA loads) and
-    // two shfl.xor steps sum the quad.
+    // The rows' row_sub (log2 units) and row_add scale, once.
     float lse2[2], nd[2];
+    if constexpr (PARTIAL) {
+      // m and dl, and the warpgroup's 64 dO rows: f32 from global memory
+      // (every load in flight at once), rounded to bf16 into the swizzled
+      // tile as TMA would have written it (16-byte chunk ^ row % 8); the
+      // wgmma reads them after a proxy fence and the warpgroup's barrier.
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = r0 + 8 * h;
-      float acc = 0.f;
-      lse2[h] = 0.f;
-      if (row < L) {
-        const size_t off = ((size_t)bh * L + row) * D + (lane % 4) * (D / 4);
-        const uint4* po = reinterpret_cast<const uint4*>(o + off);
-        const uint4* pd = reinterpret_cast<const uint4*>(dout + off);
-#pragma unroll
-        for (int i = 0; i < D / 32; ++i) {
-          const uint4 a = __ldg(pd + i), b = __ldg(po + i);
-          const __nv_bfloat162* fa = reinterpret_cast<const __nv_bfloat162*>(&a);
-          const __nv_bfloat162* fb = reinterpret_cast<const __nv_bfloat162*>(&b);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float2 x = __bfloat1622float2(fa[e]), y = __bfloat1622float2(fb[e]);
-            acc = fmaf(x.x, y.x, acc);
-            acc = fmaf(x.y, y.y, acc);
-          }
-        }
-        lse2[h] = __ldg(lse + (size_t)bh * L + row) * LOG2E;
+      for (int h = 0; h < 2; ++h) {
+        const int row = r0 + 8 * h;
+        lse2[h] = row < L ? __ldg(row_sub + (size_t)bh * L + row) * LOG2E : 0.f;
+        nd[h] = row < L ? __ldg(dl + (size_t)bh * L + row) * scale : 0.f;
       }
-      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-      nd[h] = -acc * scale;
+      constexpr int CH = D / 8;        // 16-byte bf16 chunks a row
+      constexpr int N = 64 * CH / 128;  // chunks a thread
+      float4 x[N][2];
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        const int r = (i * 128 + t) / CH, c = (i * 128 + t) % CH;
+        x[i][0] = x[i][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (wrow0 + r < L) {
+          const float4* src = reinterpret_cast<const float4*>(
+              static_cast<const float*>(dout) + ((size_t)bh * L + wrow0 + r) * D + c * 8);
+          x[i][0] = __ldg(src);
+          x[i][1] = __ldg(src + 1);
+        }
+      }
+      unsigned char* sdo_w = smem + S::Q_BYTES + wg * 64 * ATOM;
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        const int r = (i * 128 + t) / CH, c = (i * 128 + t) % CH;
+        const uint4 w = {hopper::pack_bf16(x[i][0].x, x[i][0].y),
+                         hopper::pack_bf16(x[i][0].z, x[i][0].w),
+                         hopper::pack_bf16(x[i][1].x, x[i][1].y),
+                         hopper::pack_bf16(x[i][1].z, x[i][1].w)};
+        *reinterpret_cast<uint4*>(sdo_w + (c / 8) * BM * ATOM + r * ATOM +
+                                  (((c % 8) ^ (r & 7)) << 4)) = w;
+      }
+      hopper::fence_proxy_async();
+      hopper::named_sync(1 + wg, 128);
+    } else {
+      // lse and -delta scale, delta = rowsum(dO * O) (the JAX _delta): a
+      // row lives in one quad, each thread reads a quarter of it from
+      // global memory (under the first TMA loads) and two shfl.xor steps
+      // sum the quad.
+      const bf16* dob = static_cast<const bf16*>(dout);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = r0 + 8 * h;
+        float acc = 0.f;
+        lse2[h] = 0.f;
+        if (row < L) {
+          const size_t off = ((size_t)bh * L + row) * D + (lane % 4) * (D / 4);
+          const uint4* po = reinterpret_cast<const uint4*>(o + off);
+          const uint4* pd = reinterpret_cast<const uint4*>(dob + off);
+#pragma unroll
+          for (int i = 0; i < D / 32; ++i) {
+            const uint4 a = __ldg(pd + i), b = __ldg(po + i);
+            const __nv_bfloat162* fa = reinterpret_cast<const __nv_bfloat162*>(&a);
+            const __nv_bfloat162* fb = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float2 x = __bfloat1622float2(fa[e]), y = __bfloat1622float2(fb[e]);
+              acc = fmaf(x.x, y.x, acc);
+              acc = fmaf(x.y, y.y, acc);
+            }
+          }
+          lse2[h] = __ldg(row_sub + (size_t)bh * L + row) * LOG2E;
+        }
+        acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+        acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+        nd[h] = -acc * scale;
+      }
     }
 
     float dqacc[D / 2];
@@ -1065,9 +864,9 @@ flash_dq_hopper(const __grid_constant__ CUtensorMap mq, const __grid_constant__ 
         hopper::fence_operand(sacc);
         hopper::fence_operand(dpacc);
 
-        // P = 2^(s scale log2e - lse log2e), 0 outside the band and past
-        // the keys (masked only on tiles that cross either); dS = P (dP -
-        // delta) scale, packed to bf16 as the register-A fragments.
+        // P = 2^(s scale log2e - row_sub log2e), 0 outside the band and
+        // past the keys (masked only on tiles that cross either); dS = P
+        // (dP + row_add) scale, packed to bf16 as the register-A fragments.
         const bool edge = col0 + BN > Lk ||
                           (causal && (col0 + BN - 1 > wrow0 ||
                                       (window && col0 <= wrow0 + 63 - window)));
@@ -1115,81 +914,131 @@ flash_dq_hopper(const __grid_constant__ CUtensorMap mq, const __grid_constant__ 
   }
 }
 
-template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* lse,
-                   const void* dout, void* dq, int BH, int L, int Lk, float scale, int causal,
-                   int window, cudaStream_t stream) {
-  using S = Smem<D>;
-  CUtensorMap mq, mk, mv, mdo;
+template <int D, bool PARTIAL>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
+                   const void* row_sub, const void* dl, const void* dout, void* dq, int BH,
+                   int L, int Lk, float scale, int causal, int window, cudaStream_t stream) {
+  using T = Tiles<PARTIAL>;
+  using S = Smem<D, PARTIAL>;
+  CUtensorMap mq, mk, mv, mdo = {};
   const uint64_t qdims[3] = {D, (uint64_t)L, (uint64_t)BH};
   const uint64_t kdims[3] = {D, (uint64_t)Lk, (uint64_t)BH};
   const uint64_t qstr[2] = {D * 2, (uint64_t)L * D * 2};
   const uint64_t kstr[2] = {D * 2, (uint64_t)Lk * D * 2};
-  const uint32_t qbox[3] = {64, BM, 1}, kbox[3] = {64, BN, 1};
+  const uint32_t qbox[3] = {64, T::BM, 1}, kbox[3] = {64, T::BN, 1};
   cudaError_t err = hopper::encode_bf16_map(&mq, q, 3, qdims, qstr, qbox);
-  if (err == cudaSuccess) err = hopper::encode_bf16_map(&mdo, dout, 3, qdims, qstr, qbox);
+  if (!PARTIAL && err == cudaSuccess)
+    err = hopper::encode_bf16_map(&mdo, dout, 3, qdims, qstr, qbox);
   if (err == cudaSuccess) err = hopper::encode_bf16_map(&mk, k, 3, kdims, kstr, kbox);
   if (err == cudaSuccess) err = hopper::encode_bf16_map(&mv, v, 3, kdims, kstr, kbox);
   if (err != cudaSuccess) return err;
-  auto kernel = flash_dq_hopper<D>;
+  auto kernel = flash_dq_hopper<D, PARTIAL>;
   err = prepare(kernel, S::BYTES);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(BH, (L + BM - 1) / BM), THREADS, S::BYTES, stream>>>(
-      mq, mk, mv, mdo, (const bf16*)o, (const bf16*)dout, (const float*)lse, (bf16*)dq, L, Lk,
-      scale, causal, window);
+  kernel<<<dim3(BH, (L + T::BM - 1) / T::BM), T::THREADS, S::BYTES, stream>>>(
+      mq, mk, mv, mdo, (const bf16*)o, dout, (const float*)row_sub, (const float*)dl, (bf16*)dq,
+      L, Lk, scale, causal, window);
   return cudaGetLastError();
 }
 
 }  // namespace hdq
 
 // ----------------------------------------------------- dK/dV, Hopper design
-// Grid (BH, ceil(Lk / 128)); one CTA per (head, 128 key rows), low key
+// Grid (BH, ceil(Lk / BN)); one CTA per (head, BN key rows), low key
 // tiles (the longest causal bands) first. See the note at the top of the
 // file.
 
 namespace hdkv {
 
-constexpr int BN = 128;         // key rows per CTA
-constexpr int BM = 64;          // query rows per stage
-constexpr int CONSUMERS = 2;    // consumer warpgroups, 64 key rows each
-constexpr int THREADS = (CONSUMERS + 1) * 128;
-constexpr int CONSUMER_REGS = 240;
-constexpr int STAGES = 3;
+// Tiles, for the normalized form (B3) and the partial one (B9) apart:
+// consumer warpgroups of 64 key rows each (keys a CTA: 64 a consumer),
+// and query rows a stage. Two consumers: one CTA to an SM (168
+// registers a thread at launch); one: two CTAs to an SM (128 at
+// launch). scripts/torch_kernel_variants.py times the partial choices;
+// two consumers and 64-row stages won at the ring's half-blocks
+// (PERF.md).
+constexpr int CONSUMERS = 2;          // B3
+constexpr int BM = 64;                // B3: query rows per stage
+constexpr int PARTIAL_CONSUMERS = 2;  // B9
+constexpr int PARTIAL_BM = 64;        // B9: query rows per stage
+// The partial form's producer warpgroup: warp 0's first thread issues
+// the TMA loads, warps 1-3 round each f32 dO tile to bf16.
+constexpr int CONVERTERS = 96;
 constexpr int ATOM = 128;       // bytes per swizzled row: 64 bf16 of D
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int D>
-struct Smem {
-  static constexpr int ATOMS = D / 64;
-  static constexpr int KV_BYTES = BN * D * 2;  // K or V of the CTA
-  static constexpr int T_BYTES = BM * D * 2;   // one Q, dO or O tile
-  static constexpr int STAGE_BYTES = 3 * T_BYTES;
-  static constexpr int ST_OFF = 2 * KV_BYTES;
-  // Per query tile and warpgroup, double-buffered: lse log2e and
-  // -delta scale of the tile's rows.
-  static constexpr int ROW_OFF = ST_OFF + STAGES * STAGE_BYTES;
-  static constexpr int BAR_OFF = ROW_OFF + 2 * CONSUMERS * 2 * BM * 4;
-  static constexpr int BYTES = BAR_OFF + (2 * STAGES + 1) * 8 + 1024;  // + alignment slack
-  static_assert(BYTES <= 232448, "more shared memory than a block may have");
+template <bool PARTIAL>
+struct Tiles {
+  static constexpr int CONSUMERS = PARTIAL ? PARTIAL_CONSUMERS : hdkv::CONSUMERS;
+  static constexpr int BN = 64 * CONSUMERS;  // key rows per CTA
+  static constexpr int BM = PARTIAL ? PARTIAL_BM : hdkv::BM;
+  static constexpr int THREADS = (CONSUMERS + 1) * 128;
+  static constexpr int CTAS_PER_SM = CONSUMERS == 1 ? 2 : 1;
+  static constexpr int CONSUMER_REGS = PARTIAL ? 232 : 240;
+  // The producer keeps what the consumers leave of the CTA's registers
+  // at launch (setmaxnreg.inc draws on what .dec released): 24 in the
+  // normalized form; the partial form's converters take 40 beside two
+  // consumers, 24 beside one.
+  static constexpr int LAUNCH_REGS = 65536 / (THREADS * CTAS_PER_SM) / 8 * 8;
+  static constexpr int PRODUCER_REGS =
+      (LAUNCH_REGS * (CONSUMERS + 1) - CONSUMERS * CONSUMER_REGS) / 8 * 8;
+  static_assert(PRODUCER_REGS >= 24, "the producer needs 24 registers");
 };
 
-template <int D>
-__global__ void __launch_bounds__(THREADS, 1)
+template <int D, bool PARTIAL>
+struct Smem {
+  using T = Tiles<PARTIAL>;
+  static constexpr int ATOMS = D / 64;
+  static constexpr int KV_BYTES = T::BN * D * 2;  // K or V of the CTA
+  static constexpr int T_BYTES = T::BM * D * 2;   // one bf16 Q, dO or O tile
+  // The partial form's f32 dO tile as TMA lands it, [D / 32][BM][32]
+  // floats, converted into the stage's bf16 dO tile.
+  static constexpr int F_BYTES = PARTIAL ? T::BM * D * 4 : 0;
+  static constexpr int STAGE_BYTES = (PARTIAL ? 2 : 3) * T_BYTES + F_BYTES;
+  static constexpr int ST_OFF = 2 * KV_BYTES;
+  // A query tile's rows: row_sub log2e, then row_add scale. Per stage
+  // (partial: written by the converters), or per warpgroup and
+  // double-buffered (normalized: computed by the consumers).
+  static constexpr int ROW_BYTES = 2 * T::BM * 4;
+  // Partial: as many stages as fit, up to 3, in a block's share of the
+  // SM (as hdq::Smem); normalized: 3.
+  static constexpr int FIXED = ST_OFF + 8 + 1024;
+  static constexpr int PER_STAGE = STAGE_BYTES + ROW_BYTES + 3 * 8;
+  static constexpr int LIMIT =
+      T::CTAS_PER_SM == 2 && FIXED + 2 * PER_STAGE <= 115712 ? 115712 : 232448;
+  static constexpr int STAGES = !PARTIAL ? 3 : (LIMIT - FIXED) / PER_STAGE < 3
+                                                   ? (LIMIT - FIXED) / PER_STAGE : 3;
+  static constexpr int ROW_OFF = ST_OFF + STAGES * STAGE_BYTES;
+  static constexpr int BAR_OFF = ROW_OFF + (PARTIAL ? STAGES : 2 * T::CONSUMERS) * ROW_BYTES;
+  static constexpr int BYTES =
+      BAR_OFF + ((PARTIAL ? 3 : 2) * STAGES + 1) * 8 + 1024;  // + alignment slack
+  static_assert(STAGES >= 1 && BYTES <= 232448, "more shared memory than a block may have");
+};
+
+// The normalized form reads lse and the Q, dO and O tiles (bf16, TMA);
+// the partial form m, dl and the Q tile (bf16, TMA) and the f32 dO tile
+// (TMA into the staging area, `mdo` an f32 map). `row_sub` is lse or m;
+// `dl` is unused in the normalized form, `mo` in the partial one.
+template <int D, bool PARTIAL>
+__global__ void __launch_bounds__(Tiles<PARTIAL>::THREADS, Tiles<PARTIAL>::CTAS_PER_SM)
 flash_dkv_hopper(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
                  const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mo,
-                 const __grid_constant__ CUtensorMap mdo, const float* __restrict__ lse,
-                 bf16* __restrict__ dk, bf16* __restrict__ dv, int L, int Lk, float scale,
-                 int causal, int window) {
-  using S = Smem<D>;
+                 const __grid_constant__ CUtensorMap mdo, const float* __restrict__ row_sub,
+                 const float* __restrict__ dl, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                 int L, int Lk, float scale, int causal, int window) {
+  using T = Tiles<PARTIAL>;
+  using S = Smem<D, PARTIAL>;
+  constexpr int CONSUMERS = T::CONSUMERS, BN = T::BN, BM = T::BM, STAGES = S::STAGES;
   extern __shared__ unsigned char smem_raw[];
   // Swizzled TMA tiles want 1024-byte-aligned shared addresses.
   unsigned char* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BAR_OFF);
   uint64_t* empty = full + STAGES;
   uint64_t* kvbar = empty + STAGES;
+  [[maybe_unused]] uint64_t* landed = kvbar + 1;  // partial: the stage's f32 dO tile is in
 
   const int bh = blockIdx.x, kt = blockIdx.y;
-  const int nq = L / BM;
+  const int nq = PARTIAL ? (L + BM - 1) / BM : L / BM;
   const int wg = threadIdx.x / 128;
   int lo = 0, hi = nq - 1;  // the band's query tiles (the JAX _q_needed)
   if (causal) {
@@ -1199,8 +1048,10 @@ flash_dkv_hopper(const __grid_constant__ CUtensorMap mq, const __grid_constant__
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
-      hopper::mbar_init(&full[s], 1);
+      // Partial: TMA's bytes and one arrival per converter.
+      hopper::mbar_init(&full[s], PARTIAL ? 1 + CONVERTERS : 1);
       hopper::mbar_init(&empty[s], CONSUMERS * 4);
+      if constexpr (PARTIAL) hopper::mbar_init(&landed[s], 1);
     }
     hopper::mbar_init(kvbar, 1);
     hopper::fence_barrier_init();
@@ -1209,9 +1060,11 @@ flash_dkv_hopper(const __grid_constant__ CUtensorMap mq, const __grid_constant__
 
   if (wg == CONSUMERS) {
     // ---- producer: one thread issues every load: K and V once, then the
-    // band's Q, dO and O tiles through the stage ring.
-    hopper::setmaxnreg_dec<24>();
-    if (threadIdx.x == CONSUMERS * 128) {
+    // band's Q, dO and O tiles (partial: Q, and dO in f32) through the
+    // stage ring.
+    hopper::setmaxnreg_dec<T::PRODUCER_REGS>();
+    const int t = threadIdx.x - CONSUMERS * 128;
+    if (t == 0) {
       hopper::mbar_expect_tx(kvbar, 2 * S::KV_BYTES);
       for (int a = 0; a < S::ATOMS; ++a) {
         hopper::tma_load_3d(smem + a * BN * ATOM, &mk, kvbar, a * 64, kt * BN, bh);
@@ -1220,14 +1073,65 @@ flash_dkv_hopper(const __grid_constant__ CUtensorMap mq, const __grid_constant__
       for (int qt = lo, j = 0; qt <= hi; ++qt, ++j) {
         const int s = j % STAGES;
         hopper::mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);  // the first round passes at once
-        hopper::mbar_expect_tx(&full[s], S::STAGE_BYTES);
+        hopper::mbar_expect_tx(&full[s], (PARTIAL ? 1 : 3) * S::T_BYTES);
         unsigned char* st = smem + S::ST_OFF + s * S::STAGE_BYTES;
         for (int a = 0; a < S::ATOMS; ++a) {
           hopper::tma_load_3d(st + a * BM * ATOM, &mq, &full[s], a * 64, qt * BM, bh);
-          hopper::tma_load_3d(st + S::T_BYTES + a * BM * ATOM, &mdo, &full[s], a * 64, qt * BM,
-                              bh);
-          hopper::tma_load_3d(st + 2 * S::T_BYTES + a * BM * ATOM, &mo, &full[s], a * 64,
-                              qt * BM, bh);
+          if constexpr (!PARTIAL) {
+            hopper::tma_load_3d(st + S::T_BYTES + a * BM * ATOM, &mdo, &full[s], a * 64,
+                                qt * BM, bh);
+            hopper::tma_load_3d(st + 2 * S::T_BYTES + a * BM * ATOM, &mo, &full[s], a * 64,
+                                qt * BM, bh);
+          }
+        }
+        if constexpr (PARTIAL) {
+          hopper::mbar_expect_tx(&landed[s], S::F_BYTES);
+          for (int a = 0; a < D / 32; ++a)
+            hopper::tma_load_3d(st + 2 * S::T_BYTES + a * BM * 128, &mdo, &landed[s], a * 32,
+                                qt * BM, bh);
+        }
+      }
+    } else if constexpr (PARTIAL) {
+      if (t >= 32) {
+        // Converters: per tile, the rows' m log2e and dl scale (loaded
+        // before the tile lands), then the f32 dO tile rounded to bf16
+        // into the swizzled tile (16-byte chunk ^ row % 8), 4 floats a
+        // step; a proxy fence, then one arrival each on the full barrier.
+        const int c = t - 32;
+        constexpr int RPT = (BM + CONVERTERS - 1) / CONVERTERS;  // rows a converter
+        for (int qt = lo, j = 0; qt <= hi; ++qt, ++j) {
+          const int s = j % STAGES;
+          float m2[RPT], nd[RPT];
+#pragma unroll
+          for (int i = 0; i < RPT; ++i) {
+            const int r = c + i * CONVERTERS, row = qt * BM + r;
+            const bool in = r < BM && row < L;
+            m2[i] = in ? __ldg(row_sub + (size_t)bh * L + row) * LOG2E : 0.f;
+            nd[i] = in ? __ldg(dl + (size_t)bh * L + row) * scale : 0.f;
+          }
+          hopper::mbar_wait(&landed[s], (j / STAGES) & 1);
+          unsigned char* st = smem + S::ST_OFF + s * S::STAGE_BYTES;
+          float* rows = reinterpret_cast<float*>(smem + S::ROW_OFF) + s * 2 * BM;
+#pragma unroll
+          for (int i = 0; i < RPT; ++i) {
+            const int r = c + i * CONVERTERS;
+            if (r < BM) {
+              rows[r] = m2[i];
+              rows[BM + r] = nd[i];
+            }
+          }
+          const float* f = reinterpret_cast<const float*>(st + 2 * S::T_BYTES);
+          unsigned char* sdo = st + S::T_BYTES;
+          for (int idx = c; idx < BM * D / 4; idx += CONVERTERS) {
+            const int r = idx / (D / 4), q4 = idx % (D / 4), ch = q4 / 2;
+            const float4 x =
+                *reinterpret_cast<const float4*>(f + (q4 / 8) * BM * 32 + r * 32 + (q4 % 8) * 4);
+            const uint2 w = {hopper::pack_bf16(x.x, x.y), hopper::pack_bf16(x.z, x.w)};
+            *reinterpret_cast<uint2*>(sdo + (ch / 8) * BM * ATOM + r * ATOM +
+                                      (((ch % 8) ^ (r & 7)) << 4) + (q4 % 2) * 8) = w;
+          }
+          hopper::fence_proxy_async();
+          hopper::mbar_arrive(&full[s]);
         }
       }
     }
@@ -1239,7 +1143,7 @@ flash_dkv_hopper(const __grid_constant__ CUtensorMap mq, const __grid_constant__
     // round). Per tile S^T and dP^T from shared memory, P^T and dS^T in
     // registers, then dV += P^T dO and dK += dS^T Q with P^T and dS^T as
     // register-A operands.
-    hopper::setmaxnreg_inc<CONSUMER_REGS>();
+    hopper::setmaxnreg_inc<T::CONSUMER_REGS>();
     const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
     const int kw0 = kt * BN + wg * 64;        // the warpgroup's first key row
     const int r0 = kw0 + warp * 16 + lane / 4;  // this thread's keys: r0 and r0 + 8
@@ -1266,7 +1170,6 @@ flash_dkv_hopper(const __grid_constant__ CUtensorMap mq, const __grid_constant__
       if (qt >= qa && qt <= qb) {
         const unsigned char* sq = smem + S::ST_OFF + s * S::STAGE_BYTES;
         const unsigned char* sdo = sq + S::T_BYTES;
-        const unsigned char* so = sq + 2 * S::T_BYTES;
         // S^T = K_w Q^T and dP^T = V_w dO^T: all operands K-major, D / 16
         // steps of k16, the two products' steps interleaved (a step waits
         // for the one before it into the same accumulator).
@@ -1282,12 +1185,17 @@ flash_dkv_hopper(const __grid_constant__ CUtensorMap mq, const __grid_constant__
         }
         hopper::wgmma_commit();
 
-        // Under the products: the tile's lse (log2 units) and -delta scale,
-        // delta = rowsum(dO * O) (the JAX _delta), two threads a row, from
-        // the swizzled tiles (16-byte chunk ^ row % 8).
-        float* rows =
-            reinterpret_cast<float*>(smem + S::ROW_OFF) + ((j & 1) * CONSUMERS + wg) * 2 * BM;
-        {
+        // The tile's rows: row_sub log2e, then row_add scale.
+        const float* rows;
+        if constexpr (PARTIAL) {
+          rows = reinterpret_cast<const float*>(smem + S::ROW_OFF) + s * 2 * BM;
+        } else {
+          // Under the products: the tile's lse (log2 units) and -delta
+          // scale, delta = rowsum(dO * O) (the JAX _delta), two threads a
+          // row, from the swizzled tiles (16-byte chunk ^ row % 8).
+          const unsigned char* so = sq + 2 * S::T_BYTES;
+          float* wrows =
+              reinterpret_cast<float*>(smem + S::ROW_OFF) + ((j & 1) * CONSUMERS + wg) * 2 * BM;
           const int q = t >> 1, half = t & 1;
           float acc = 0.f;
 #pragma unroll
@@ -1307,18 +1215,19 @@ flash_dkv_hopper(const __grid_constant__ CUtensorMap mq, const __grid_constant__
           }
           acc += __shfl_xor_sync(0xffffffffu, acc, 1);
           if (half == 0) {
-            rows[q] = __ldg(lse + (size_t)bh * L + q0 + q) * LOG2E;
-            rows[BM + q] = -acc * scale;
+            wrows[q] = __ldg(row_sub + (size_t)bh * L + q0 + q) * LOG2E;
+            wrows[BM + q] = -acc * scale;
           }
+          hopper::named_sync(1 + wg, 128);  // the rows are in
+          rows = wrows;
         }
-        hopper::named_sync(1 + wg, 128);  // the rows are in
         hopper::wgmma_wait<0>();
         hopper::fence_operand(sacc);
         hopper::fence_operand(dpacc);
 
-        // P^T = 2^(s scale log2e - lse log2e), 0 outside the band (masked
-        // only on tiles that cross its edge); dS^T = P^T (dP^T - delta)
-        // scale. Both packed to bf16 as the register-A fragments.
+        // P^T = 2^(s scale log2e - row_sub log2e), 0 outside the band
+        // (masked only on tiles that cross its edge); dS^T = P^T (dP^T +
+        // row_add) scale. Both packed to bf16 as the register-A fragments.
         const bool edge = causal && (kw0 + 63 > q0 || (window && kw0 <= q0 + BM - 1 - window));
 #pragma unroll
         for (int n8 = 0; n8 < BM / 8; ++n8) {
@@ -1383,28 +1292,34 @@ flash_dkv_hopper(const __grid_constant__ CUtensorMap mq, const __grid_constant__
   }
 }
 
-template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* lse,
-                   const void* dout, void* dk, void* dv, int BH, int L, int Lk, float scale,
-                   int causal, int window, cudaStream_t stream) {
-  CUtensorMap mq, mk, mv, mo, mdo;
+template <int D, bool PARTIAL>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
+                   const void* row_sub, const void* dl, const void* dout, void* dk, void* dv,
+                   int BH, int L, int Lk, float scale, int causal, int window,
+                   cudaStream_t stream) {
+  using T = Tiles<PARTIAL>;
+  using S = Smem<D, PARTIAL>;
+  CUtensorMap mq, mk, mv, mo = {}, mdo;
   const uint64_t qdims[3] = {D, (uint64_t)L, (uint64_t)BH};
   const uint64_t kdims[3] = {D, (uint64_t)Lk, (uint64_t)BH};
   const uint64_t qstr[2] = {D * 2, (uint64_t)L * D * 2};
   const uint64_t kstr[2] = {D * 2, (uint64_t)Lk * D * 2};
-  const uint32_t qbox[3] = {64, BM, 1}, kbox[3] = {64, BN, 1};
+  const uint64_t fstr[2] = {D * 4, (uint64_t)L * D * 4};  // the partial form's f32 dO
+  const uint32_t qbox[3] = {64, T::BM, 1}, kbox[3] = {64, T::BN, 1}, fbox[3] = {32, T::BM, 1};
   cudaError_t err = hopper::encode_bf16_map(&mq, q, 3, qdims, qstr, qbox);
-  if (err == cudaSuccess) err = hopper::encode_bf16_map(&mo, o, 3, qdims, qstr, qbox);
-  if (err == cudaSuccess) err = hopper::encode_bf16_map(&mdo, dout, 3, qdims, qstr, qbox);
+  if (!PARTIAL && err == cudaSuccess) err = hopper::encode_bf16_map(&mo, o, 3, qdims, qstr, qbox);
+  if (err == cudaSuccess)
+    err = PARTIAL ? hopper::encode_f32_map(&mdo, dout, 3, qdims, fstr, fbox)
+                  : hopper::encode_bf16_map(&mdo, dout, 3, qdims, qstr, qbox);
   if (err == cudaSuccess) err = hopper::encode_bf16_map(&mk, k, 3, kdims, kstr, kbox);
   if (err == cudaSuccess) err = hopper::encode_bf16_map(&mv, v, 3, kdims, kstr, kbox);
   if (err != cudaSuccess) return err;
-  auto kernel = flash_dkv_hopper<D>;
-  err = prepare(kernel, Smem<D>::BYTES);
+  auto kernel = flash_dkv_hopper<D, PARTIAL>;
+  err = prepare(kernel, S::BYTES);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(BH, (Lk + BN - 1) / BN), THREADS, Smem<D>::BYTES, stream>>>(
-      mq, mk, mv, mo, mdo, (const float*)lse, (bf16*)dk, (bf16*)dv, L, Lk, scale, causal,
-      window);
+  kernel<<<dim3(BH, (Lk + T::BN - 1) / T::BN), T::THREADS, S::BYTES, stream>>>(
+      mq, mk, mv, mo, mdo, (const float*)row_sub, (const float*)dl, (bf16*)dk, (bf16*)dv, L, Lk,
+      scale, causal, window);
   return cudaGetLastError();
 }
 
@@ -1440,11 +1355,8 @@ extern "C" int tfd_flash_dq(const void* q, const void* k, const void* v, const v
                             int Lk, int D, float scale, int causal, int window,
                             void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return hdq::launch<64>(q, k, v, o, lse, dout, dq, BH, L, Lk, scale, causal, window, s);
-  if (D == 128)
-    return hdq::launch<128>(q, k, v, o, lse, dout, dq, BH, L, Lk, scale, causal, window, s);
-  return cudaErrorInvalidValue;
+  TFD_BY_HEAD_DIM(hdq::launch, false, q, k, v, o, lse, nullptr, dout, dq, BH, L, Lk, scale,
+                  causal, window, s);
 }
 
 extern "C" int tfd_flash_dkv(const void* q, const void* k, const void* v, const void* o,
@@ -1452,11 +1364,8 @@ extern "C" int tfd_flash_dkv(const void* q, const void* k, const void* v, const 
                              int BH, int L, int Lk, int D, float scale, int causal,
                              int window, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return hdkv::launch<64>(q, k, v, o, lse, dout, dk, dv, BH, L, Lk, scale, causal, window, s);
-  if (D == 128)
-    return hdkv::launch<128>(q, k, v, o, lse, dout, dk, dv, BH, L, Lk, scale, causal, window, s);
-  return cudaErrorInvalidValue;
+  TFD_BY_HEAD_DIM(hdkv::launch, false, q, k, v, o, lse, nullptr, dout, dk, dv, BH, L, Lk, scale,
+                  causal, window, s);
 }
 
 // The partial (ring-step) kernels: o f32 [BH, L, D]; m, l, dl f32 [BH, L];
@@ -1473,14 +1382,14 @@ extern "C" int tfd_flash_dq_partial(const void* q, const void* k, const void* v,
                                     const void* m, const void* dl, const void* dout,
                                     void* dq, int BH, int L, int Lk, int D, float scale,
                                     int causal, int window, void* stream) {
-  TFD_BY_HEAD_DIM(launch_dq, true, q, k, v, m, dl, dout, dq, BH, L, Lk, scale, causal,
-                  window, static_cast<cudaStream_t>(stream));
+  TFD_BY_HEAD_DIM(hdq::launch, true, q, k, v, nullptr, m, dl, dout, dq, BH, L, Lk, scale,
+                  causal, window, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int tfd_flash_dkv_partial(const void* q, const void* k, const void* v,
                                      const void* m, const void* dl, const void* dout,
                                      void* dk, void* dv, int BH, int L, int Lk, int D,
                                      float scale, int causal, int window, void* stream) {
-  TFD_BY_HEAD_DIM(launch_dkv, true, q, k, v, m, dl, dout, dk, dv, BH, L, Lk,
-                  scale, causal, window, static_cast<cudaStream_t>(stream));
+  TFD_BY_HEAD_DIM(hdkv::launch, true, q, k, v, nullptr, m, dl, dout, dk, dv, BH, L, Lk, scale,
+                  causal, window, static_cast<cudaStream_t>(stream));
 }

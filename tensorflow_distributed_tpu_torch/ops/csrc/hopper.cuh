@@ -410,12 +410,13 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map of rank 2 or 3 (dims innermost first, row strides in
-// bytes, box innermost first) with the 128-byte swizzle and zero fill
-// outside the tensor: a box that runs past an edge reads zeros.
-inline cudaError_t encode_bf16_map(CUtensorMap* map, const void* base, int rank,
-                                   const uint64_t* dims, const uint64_t* strides,
-                                   const uint32_t* box) {
+// A tensor map of rank 2 or 3 (dims innermost first, row strides in
+// bytes, box innermost first) with zero fill outside the tensor: a box
+// that runs past an edge reads zeros.
+inline cudaError_t encode_map(CUtensorMap* map, CUtensorMapDataType type,
+                              CUtensorMapSwizzle swizzle, const void* base, int rank,
+                              const uint64_t* dims, const uint64_t* strides,
+                              const uint32_t* box) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   cuuint64_t d[3], s[2];
@@ -425,10 +426,28 @@ inline cudaError_t encode_bf16_map(CUtensorMap* map, const void* base, int rank,
     b[i] = box[i];
     if (i + 1 < rank) s[i] = strides[i];
   }
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), d, s, b,
-                  e, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  CUresult r = fn(map, type, rank, const_cast<void*>(base), d, s, b, e,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A bf16 map with the 128-byte swizzle: the wgmma operand tiles.
+inline cudaError_t encode_bf16_map(CUtensorMap* map, const void* base, int rank,
+                                   const uint64_t* dims, const uint64_t* strides,
+                                   const uint32_t* box) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, CU_TENSOR_MAP_SWIZZLE_128B, base, rank,
+                    dims, strides, box);
+}
+
+// An f32 map without swizzle (a box lands row-major): tiles that the
+// threads convert before a wgmma reads them (boxes of 32 floats, one
+// 128-byte row, across).
+inline cudaError_t encode_f32_map(CUtensorMap* map, const void* base, int rank,
+                                  const uint64_t* dims, const uint64_t* strides,
+                                  const uint32_t* box) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, CU_TENSOR_MAP_SWIZZLE_NONE, base, rank,
+                    dims, strides, box);
 }
 
 }  // namespace hopper

@@ -19,6 +19,14 @@ and three more the ring path (``parallel.ring_attention``) runs:
 - ``flash_dkv_partial`` <- ``_dkv_partial_kernel``: the partial's
   gradients, with m as the stop-gradient stabilizer.
 
+The dQ and dK/dV kernels of both forms are the Hopper kernels
+``flash_dq_hopper`` and ``flash_dkv_hopper`` (wgmma, TMA, mbarriers):
+the partial ones are their ``PARTIAL`` instantiations, which take (m,
++dl) where the normalized ones take (lse, -rowsum(dO*O)) and round the
+f32 dO to bf16 inside the kernel. The two forwards are separate
+kernels: ``flash_fwd_hopper`` for the normalized path, and the first
+(WMMA) design ``flash_fwd_kernel`` for the ring's partial forward.
+
 ``_FlashAttention`` and ``_FlashPartial`` (``torch.autograd.Function``s)
 stand where ``jax.custom_vjp`` stood and save what ``_flash_fwd`` and
 ``_flash_partial_fwd`` save. Each wrapper launches its kernel for a CUDA

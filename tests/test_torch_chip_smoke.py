@@ -40,9 +40,32 @@ def _globals(path):
 
 @pytest.mark.parametrize("kernel", sorted(cs.HOPPER_KERNELS))
 def test_hopper_kernel_is_a_global_function_of_its_source(kernel):
+    """Each key names a ``__global__`` of its library's source; a
+    "<partial>" key, a kernel templated on the PARTIAL flag."""
     library = cs.HOPPER_KERNELS[kernel]
     assert library in cs.SOURCES
-    assert kernel in _globals(cs.SOURCES[library])
+    base, _, form = kernel.partition("<")
+    assert base in _globals(cs.SOURCES[library])
+    if form:
+        text = _source(library)
+        head = text[:text.index(f"\n{base}(")]
+        assert head.rstrip().splitlines()[-2].startswith(
+            "template <int D, bool PARTIAL>")
+
+
+@pytest.mark.parametrize("name,key", [
+    ("_ZN12_GLOBAL__N_13hdq15flash_dq_hopperILi64ELb1EEEv14CUtensorMap_st",
+     "flash_dq_hopper<partial>"),
+    ("_ZN12_GLOBAL__N_13hdq15flash_dq_hopperILi128ELb0EEEv14CUtensorMap_st",
+     "flash_dq_hopper"),
+    ("_ZN12_GLOBAL__N_14hdkv16flash_dkv_hopperILi128ELb1EEEv14CUtensorMap_st",
+     "flash_dkv_hopper<partial>"),
+    ("_ZN12_GLOBAL__N_14hfwd16flash_fwd_hopperILi64EEEv14CUtensorMap_st",
+     "flash_fwd_hopper"),
+    ("_ZN12_GLOBAL__N_116flash_fwd_kernelILi64ELb1EEEvPK13__nv_bfloat16",
+     None)])
+def test_mangled_names_map_to_their_hopper_instance(name, key):
+    assert cs.hopper_instance(name) == key
 
 
 def _source(library):
@@ -60,8 +83,8 @@ def test_fused_ce_has_no_wmma_or_cp_async_left():
 
 
 def test_normalized_dq_is_the_hopper_kernel():
-    """tfd_flash_dq launches flash_dq_hopper (no WMMA in its namespace);
-    the WMMA flash_dq_kernel is left to the partial dQ alone."""
+    """tfd_flash_dq launches flash_dq_hopper (no WMMA in its namespace),
+    the normalized instantiation; the WMMA dQ kernel is gone."""
     text = _source("flash_attention")
     hdq = text[text.index("namespace hdq {"):
                text.index("}  // namespace hdq")]
@@ -69,10 +92,38 @@ def test_normalized_dq_is_the_hopper_kernel():
     assert "__global__" in hdq and "flash_dq_hopper" in hdq
     entry = text[text.index('extern "C" int tfd_flash_dq('):]
     entry = entry[:entry.index("\n}\n")]
-    assert "hdq::launch" in entry and "launch_dq" not in entry
-    wmma_dq = text[text.index("flash_dq_kernel("):]
-    assert wmma_dq.index('static_assert(PARTIAL, "the normalized dQ is '
-                         'flash_dq_hopper")') < wmma_dq.index("wmma::")
+    assert "hdq::launch, false" in entry and "launch_dq" not in entry
+    assert "flash_dq_kernel" not in text
+
+
+@pytest.mark.parametrize("name,namespace", [("dq", "hdq"), ("dkv", "hdkv")])
+def test_partial_backward_launches_the_hopper_kernel(name, namespace):
+    """tfd_flash_{dq,dkv}_partial launch the PARTIAL instantiation of
+    the Hopper kernel (B8, B9), whose namespace holds no WMMA."""
+    text = _source("flash_attention")
+    ns = text[text.index(f"namespace {namespace} {{"):
+              text.index(f"}}  // namespace {namespace}")]
+    assert "wmma::" not in ns and "tma_load_3d" in ns
+    entry = text[text.index(f'extern "C" int tfd_flash_{name}_partial('):]
+    entry = entry[:entry.index("\n}\n")]
+    assert f"{namespace}::launch, true" in entry
+
+
+def test_only_the_partial_forward_is_left_on_wmma():
+    """The WMMA backward and the helpers only it used are gone; WMMA's
+    products are left in B7's forward alone."""
+    text = _source("flash_attention")
+    for gone in ("flash_dq_kernel", "flash_dkv_kernel", "launch_dq",
+                 "launch_dkv", "dq_smem", "dkv_smem", "load_tile_f32",
+                 "load_dout", "q_range", "mm_ab_acc", "store_rows"):
+        assert gone not in text, gone
+    fwd = text[text.index("flash_fwd_kernel(const bf16*"):
+               text.index("namespace hfwd {")]
+    before = text[:text.index("flash_fwd_kernel(const bf16*")]
+    rest = text[text.index("namespace hfwd {"):]
+    assert "wmma::mma_sync" in fwd and "wmma::mma_sync" not in rest
+    # mm_abt (B7's S product) is the only WMMA helper before the kernel.
+    assert before.count("wmma::mma_sync") == 1
 
 
 def test_every_library_of_the_kernels_has_a_source():

@@ -70,6 +70,72 @@ def test_partial_kernels_match_plain_versions_on_gpu(cuda, D, causal, L, Lk):
         assert _rel(got, ref) <= TOL_REL
 
 
+def _partial_bwd_inputs(cuda, BH, L, Lk, D, seed, do_scale=1.0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=cuda)
+
+    q = randn(BH, L, D).to(torch.bfloat16)
+    k, v = (randn(BH, Lk, D).to(torch.bfloat16) for _ in range(2))
+    return q, k, v, randn(BH, L, D) * do_scale, randn(BH, L)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("BH,L,Lk,D,causal,do_scale", [
+    (96, 128, 128, 64, False, 1.0),  # the ring's half-block at S = 4
+    (96, 128, 128, 64, True, 1.0),
+    (32, 512, 512, 64, False, 1.0),  # L 8192 over S = 8
+    (32, 512, 512, 64, True, 1.0),
+    (6, 192, 320, 64, False, 1.0),   # ragged edges of the tiles
+    (6, 192, 320, 128, False, 1.0),
+    (16, 256, 256, 128, True, 1.0),
+    (96, 128, 128, 64, False, 1e3),  # dO ~1e3 through the f32 -> bf16 path
+])
+def test_partial_backward_kernels_match_plain_versions_on_gpu(
+        cuda, BH, L, Lk, D, causal, do_scale):
+    """B8 and B9 (the PARTIAL Hopper kernels), each launched once,
+    against their plain versions, with m from the partial forward."""
+    q, k, v, do, dl = _partial_bwd_inputs(cuda, BH, L, Lk, D, BH + L + D,
+                                          do_scale)
+    _, m, _ = tfa.flash_fwd_partial(q, k, v, causal)
+    tfa.reset_launch_counts()
+    dq = tfa.flash_dq_partial(q, k, v, m, do, dl, causal)
+    dk, dv = tfa.flash_dkv_partial(q, k, v, m, do, dl, causal)
+    torch.cuda.synchronize()
+    assert [kern.launches for kern in tfa.PARTIAL_KERNELS] == [0, 1, 1]
+    assert [kern.launches for kern in tfa.KERNELS] == [0, 0, 0]
+    f = [t.float() for t in (q, k, v)]
+    refs = (tfa.flash_dq_partial_reference(*f, m, do, dl, causal),
+            *tfa.flash_dkv_partial_reference(*f, m, do, dl, causal))
+    for got, ref in zip((dq, dk, dv), refs):
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+        assert _rel(got, ref) <= TOL_REL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_partial_backward_with_normalized_rows_matches_b2_b3_on_gpu(
+        cuda, D, causal):
+    """B8 with (lse, -rowsum(dO * O), dO in f32) against B2 and B9
+    against B3 on the same inputs: the row terms the two forms share."""
+    q, k, v, do, _ = _partial_bwd_inputs(cuda, 8, 256, 256, D, D + causal)
+    do = do.to(torch.bfloat16)
+    out, lse = tfa.flash_fwd(q, k, v, causal)
+    dl = -(do.float() * out.float()).sum(dim=-1)
+    tfa.reset_launch_counts()
+    got = (tfa.flash_dq_partial(q, k, v, lse, do.float(), dl, causal),
+           *tfa.flash_dkv_partial(q, k, v, lse, do.float(), dl, causal))
+    want = (tfa.flash_dq(q, k, v, out, lse, do, causal),
+            *tfa.flash_dkv(q, k, v, out, lse, do, causal))
+    torch.cuda.synchronize()
+    assert [kern.launches for kern in tfa.PARTIAL_KERNELS] == [0, 1, 1]
+    assert [kern.launches for kern in tfa.KERNELS] == [0, 1, 1]
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= TOL_REL
+
+
 @pytest.mark.gpu
 def test_partial_wrappers_reject_f32_on_gpu(cuda):
     x = torch.zeros(2, 64, 64, device=cuda)

@@ -14,12 +14,12 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
              nvcc per source, started together; lists the registers and
              spills of the Hopper kernels (B1's forward, B2's dQ, B3's
              dK/dV, B4's forward, B5's dx, B6's dW/db, and the partial
-             instantiations of B2's and B3's kernels, B8 and B9), fails
-             if one spills, if ptxas
-             ignored a setmaxnreg or serialized a kernel's wgmmas
-             (warnings C7510-C7515), and counts their wgmma, TMA,
-             mbarrier and mma.sync instructions in the machine code
-             (cuobjdump);
+             instantiations of B1's, B2's and B3's kernels, B7, B8 and
+             B9), fails if one spills, if ptxas ignored a setmaxnreg or
+             serialized a kernel's wgmmas (warnings C7510-C7515), and
+             counts their wgmma, TMA, mbarrier and mma.sync instructions
+             in the machine code (cuobjdump); fails if a library holds
+             an mma.sync (no WMMA is left);
 3. kernels — each kernel (forward, dQ, dK/dV) against its plain PyTorch
              version computed in f32 from the same bf16 inputs, at
              B=8 H=12 L=1024 D=64 (causal, non-causal, causal + window
@@ -170,9 +170,11 @@ SOURCES = {"flash_attention": f"{CSRC}/flash_attention.cu",
 # The kernels built from ops/csrc/hopper.cuh (wgmma, TMA, mbarriers,
 # setmaxnreg), each with the library (SOURCES key) that holds it: B1's
 # forward, B2's dQ, B3's dK/dV, B4's forward, B5's dx and B6's dW/db,
-# and "<partial>", the instantiations of B2's and B3's kernels with the
-# template flag PARTIAL = true: B8's dQ and B9's dK/dV.
+# and "<partial>", the instantiations of B1's, B2's and B3's kernels
+# with the template flag PARTIAL = true: B7's forward, B8's dQ and B9's
+# dK/dV.
 HOPPER_KERNELS = {"flash_fwd_hopper": "flash_attention",
+                  "flash_fwd_hopper<partial>": "flash_attention",
                   "flash_dq_hopper": "flash_attention",
                   "flash_dkv_hopper": "flash_attention",
                   "flash_dq_hopper<partial>": "flash_attention",
@@ -181,6 +183,8 @@ HOPPER_KERNELS = {"flash_fwd_hopper": "flash_attention",
                   "fused_ce_dx_hopper": "fused_ce",
                   "fused_ce_dw_hopper": "fused_ce"}
 PARTIAL_FLAG = "Lb1E"  # the template argument `bool PARTIAL = true`, mangled
+# Machine-code instructions counted per kernel (cuobjdump -sass).
+SASS_OPS = ("HGMMA", "UTMALDG", "SYNCS", "HMMA")
 # ptxas's warnings that it serialized a kernel's wgmmas (C7510-C7515).
 WGMMA_SERIALIZED = re.compile(r"\bC751[0-5]\b")
 TPU_FLASH = "tensorflow_distributed_tpu/ops/flash_attention.py"
@@ -355,10 +359,17 @@ def phase_build(fa, fce) -> None:
     cached = [name for name, log in logs.items() if not log]
     from tensorflow_distributed_tpu_torch.ops import cuda_ext
 
-    sass = {k: sass_counts(cuda_ext.load(name)._name, k)
+    by_lib = {name: sass_counts(cuda_ext.load(name)._name)
+              for name in SOURCES}
+    sass = {k: None if by_lib[name] is None
+            else by_lib[name].get(k, dict.fromkeys(SASS_OPS, 0))
             for k, name in HOPPER_KERNELS.items()}
+    library_hmma = {name: None if c is None
+                    else sum(n["HMMA"] for n in c.values())
+                    for name, c in by_lib.items()}
     emit({"phase": "build", "seconds": round(time.time() - t0, 3),
           "cached": cached, "hopper_ptxas": hopper, "hopper_sass": sass,
+          "library_hmma": library_hmma,
           "ptxas": {name: [ln.strip() for ln in log.splitlines()
                            if "registers" in ln or "spill" in ln]
                     for name, log in logs.items()}})
@@ -377,14 +388,17 @@ def phase_build(fa, fce) -> None:
                                  and counts["SYNCS"] > 0
                                  and counts["HMMA"] == 0),
               f"{k} is not a wgmma/TMA/mbarrier kernel: {counts}")
+    check(all(n in (None, 0) for n in library_hmma.values()),
+          f"a library still holds mma.sync (WMMA) code: {library_hmma}")
 
 
-def sass_counts(lib: str, kernel: str):
-    """Counts of the Hopper instructions in the machine code of
-    ``kernel`` (a HOPPER_KERNELS key; both head dims together, cuobjdump
-    -sass): HGMMA (wgmma), UTMALDG (TMA tensor load), SYNCS (mbarrier
-    arrive/wait) and HMMA (the mma.sync that WMMA compiles to, which
-    these kernels must not use). None without cuobjdump."""
+def sass_counts(lib: str):
+    """Counts of the Hopper instructions in the machine code of the
+    library ``lib`` (cuobjdump -sass), {HOPPER_KERNELS key: counts, both
+    head dims together}, the library's other functions under None:
+    HGMMA (wgmma), UTMALDG (TMA tensor load), SYNCS (mbarrier
+    arrive/wait) and HMMA (the mma.sync that WMMA compiles to, which no
+    kernel may use). None without cuobjdump."""
     from tensorflow_distributed_tpu_torch.ops import cuda_ext
 
     tool = os.path.join(os.path.dirname(cuda_ext.nvcc_path()), "cuobjdump")
@@ -392,10 +406,11 @@ def sass_counts(lib: str, kernel: str):
         return None
     out = subprocess.run([tool, "-sass", lib], capture_output=True,
                          text=True, timeout=120).stdout
-    counts = dict.fromkeys(("HGMMA", "UTMALDG", "SYNCS", "HMMA"), 0)
+    by_kernel = {}
     for part in out.split("Function : ")[1:]:
-        if hopper_instance(part.split("\n", 1)[0]) != kernel:
-            continue
+        counts = by_kernel.setdefault(
+            hopper_instance(part.split("\n", 1)[0]),
+            dict.fromkeys(SASS_OPS, 0))
         for ln in part.splitlines():
             words = ln.split("*/", 1)[-1].split()
             if words and words[0].startswith("@"):
@@ -406,7 +421,7 @@ def sass_counts(lib: str, kernel: str):
             for key in counts:
                 if op.startswith(key + ".") or op == key:
                     counts[key] += 1
-    return counts
+    return by_kernel
 
 
 def phase_kernels(fa, torch, F):

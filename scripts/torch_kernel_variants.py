@@ -15,11 +15,16 @@ groups (all of them without arguments):
   against ``flash_dq_reference``, then timed at GPT-2-small's causal
   attention (B*H 96, L 1024, D 64), non-causal, causal + window 256, and
   D 128 (B*H 16);
+- ``fwd_partial``: B7 (``flash_fwd_hopper<D, true>``),
+  ``PARTIAL_CONSUMERS`` 1 or 2 (64 or 128 query rows a CTA) x
+  ``PARTIAL_BN`` 64 or 128 (keys a stage); checked against
+  ``flash_fwd_partial_reference`` (o relative, m and l <= 1e-3 absolute),
+  timed at the ring's half-blocks (chip_smoke.py's RING_KERNEL_CASES:
+  B*H 96 with 128 x 128 and B*H 32 with 512 x 512, full and causal,
+  D 64);
 - ``dq_partial``: B8 (``flash_dq_hopper<D, true>``), the same choices
   (``PARTIAL_CONSUMERS``, ``PARTIAL_BN``); checked against
-  ``flash_dq_partial_reference``, timed at the ring's half-blocks
-  (chip_smoke.py's RING_KERNEL_CASES: B*H 96 with 128 x 128 and B*H 32
-  with 512 x 512, full and causal, D 64);
+  ``flash_dq_partial_reference``, timed at the same half-blocks;
 - ``dkv_partial``: B9 (``flash_dkv_hopper<D, true>``),
   ``PARTIAL_CONSUMERS`` 1 or 2 (64 or 128 keys a CTA) x ``PARTIAL_BM``
   64 or 128 (query rows a stage); checked against
@@ -29,13 +34,13 @@ groups (all of them without arguments):
   GPT-2-small's head (T 8192, D 768, V 50257, bias, eps 0.1).
 
 The attention variants are checked at max abs error / max |reference|
-<= 2e-2, as chip_smoke.py. Times are device times from torch.profiler
-(ms a call over 20 calls), three rounds with the variants' order
-reversed every other round. Each line printed is one JSON object; the
-first is the card's nvidia-smi name and power limit, then each
-variant's ptxas spill, setmaxnreg and C75xx lines. The port itself is
-untouched: each variant's library is bound in place of the built one
-only while it is measured.
+<= 2e-2 (B7's m and l at max abs error <= 1e-3), as chip_smoke.py.
+Times are device times from torch.profiler (ms a call over 20 calls),
+three rounds with the variants' order reversed every other round. Each
+line printed is one JSON object; the first is the card's nvidia-smi
+name and power limit, then each variant's ptxas spill, setmaxnreg and
+C75xx lines. The port itself is untouched: each variant's library is
+bound in place of the built one only while it is measured.
 """
 
 from __future__ import annotations
@@ -51,8 +56,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(REPO, "tensorflow_distributed_tpu_torch", "ops", "csrc")
 OUT = os.path.join(REPO, "build", "variants")
 ROUNDS = 3
-GROUPS = ("dq", "dq_partial", "dkv_partial", "ce")
+GROUPS = ("dq", "fwd_partial", "dq_partial", "dkv_partial", "ce")
 TOL_REL = 2e-2
+TOL_STATS = 1e-3  # B7's m and l, max abs error
 # The ring's half-blocks (chip_smoke.py RING_KERNEL_CASES, D 64):
 # name -> (B*H, rows, causal).
 RING_CASES = {"rows128_full": (96, 128, False), "rows128_causal": (96, 128, True),
@@ -88,6 +94,11 @@ def variant_sources(groups):
                 out[f"dq_bm{64 * consumers}_bn{tile}"] = (
                     "flash_attention", with_constants(
                         flash, "hdq", {"BN": tile, "CONSUMERS": consumers}))
+            if "fwd_partial" in groups:
+                out[f"fwd_partial_bm{64 * consumers}_bn{tile}"] = (
+                    "flash_attention", with_constants(
+                        flash, "hfwd", {"PARTIAL_BN": tile,
+                                        "PARTIAL_CONSUMERS": consumers}))
             if "dq_partial" in groups:
                 out[f"dq_partial_bm{64 * consumers}_bn{tile}"] = (
                     "flash_attention", with_constants(
@@ -151,21 +162,27 @@ def in_turns(tags, measure):
     return got
 
 
-def compare(torch, kern, tags, built, cases) -> bool:
+def compare(torch, kern, tags, built, cases, tols=None) -> bool:
     """Each variant of ``kern`` against the plain version on every case
     ({name: (call, refs)}: ``call()`` returns the kernel's outputs in the
     order of ``refs``), then the device times in turns, case by case.
-    False when a variant disagrees."""
+    ``tols``: (limit, relative) for each output; by default each at
+    TOL_REL of max |reference|. False when a variant disagrees."""
     for tag in tags:
         bind(kern, built[tag][0])
-        errs = {}
+        errs, ok = {}, True
         for name, (call, refs) in cases.items():
             got = call()
             torch.cuda.synchronize()
-            errs[name] = max(float((g.float() - r).abs().max() / r.abs().max())
-                             for g, r in zip(got, refs))
-        emit({"variant": tag, "kernel": kern.name, "rel_err": errs})
-        if max(errs.values()) > TOL_REL:
+            errs[name] = []
+            for g, r, (limit, rel) in zip(got, refs,
+                                          tols or [(TOL_REL, True)] * len(refs)):
+                err = float((g.float() - r).abs().max())
+                errs[name].append(err / float(r.abs().max()) if rel else err)
+                ok = ok and errs[name][-1] <= limit
+        emit({"variant": tag, "kernel": kern.name,
+              "rel_err" if tols is None else "err": errs})
+        if not ok:
             print(f"{tag} disagrees with the plain version", file=sys.stderr)
             return False
     for name, (call, _) in cases.items():
@@ -196,8 +213,8 @@ def flash_dq_cases(torch, fa, g):
 
 
 def ring_cases(torch, fa, g, kernel):
-    """The partial dQ (``kernel`` "dq") or dK/dV ("dkv") at the ring's
-    half-blocks, m from the partial forward."""
+    """The partial forward (``kernel`` "fwd"), dQ ("dq") or dK/dV
+    ("dkv") at the ring's half-blocks, m from the partial forward."""
     cases = {}
     for name, (BH, n, causal) in RING_CASES.items():
         q, k, v = (torch.randn(BH, n, 64, generator=g, device="cuda").to(
@@ -207,7 +224,10 @@ def ring_cases(torch, fa, g, kernel):
         _, m, _ = fa.flash_fwd_partial(q, k, v, causal)
         f = [t.float() for t in (q, k, v)]
         args = (q, k, v, m, do, dl, causal)
-        if kernel == "dq":
+        if kernel == "fwd":
+            refs = fa.flash_fwd_partial_reference(*f, causal)
+            call = (lambda a=(q, k, v, causal): fa.flash_fwd_partial(*a))
+        elif kernel == "dq":
             refs = (fa.flash_dq_partial_reference(*f, m, do, dl, causal),)
             call = (lambda a=args: (fa.flash_dq_partial(*a),))
         else:
@@ -251,16 +271,19 @@ def main(argv=None) -> int:
                 not in ln)})})
 
     g = torch.Generator(device="cuda").manual_seed(0)
-    for group, kern, make in (
-            ("dq", fa.FLASH_DQ, lambda: flash_dq_cases(torch, fa, g)),
+    for group, kern, make, tols in (
+            ("dq", fa.FLASH_DQ, lambda: flash_dq_cases(torch, fa, g), None),
+            ("fwd_partial", fa.FLASH_FWD_PARTIAL,
+             lambda: ring_cases(torch, fa, g, "fwd"),
+             [(TOL_REL, True), (TOL_STATS, False), (TOL_STATS, False)]),
             ("dq_partial", fa.FLASH_DQ_PARTIAL,
-             lambda: ring_cases(torch, fa, g, "dq")),
+             lambda: ring_cases(torch, fa, g, "dq"), None),
             ("dkv_partial", fa.FLASH_DKV_PARTIAL,
-             lambda: ring_cases(torch, fa, g, "dkv"))):
+             lambda: ring_cases(torch, fa, g, "dkv"), None)):
         if group not in groups:
             continue
         tags = [t for t in sources if t.startswith(f"{group}_b")]
-        if not compare(torch, kern, tags, built, make()):
+        if not compare(torch, kern, tags, built, make(), tols):
             return 1
         torch.cuda.empty_cache()
     if "ce" not in groups:

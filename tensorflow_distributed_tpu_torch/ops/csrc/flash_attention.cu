@@ -35,29 +35,40 @@
 // bound: there a CTA's fixed costs (its first loads, the pipeline's
 // fill and drain) and the number of CTAs in flight set the time.
 //
-// The normalized forward (tfd_flash_fwd) is the Hopper design,
-// flash_fwd_hopper<D>: a CTA of 64 query rows and two warpgroups, two
+// The forward (tfd_flash_fwd, and tfd_flash_fwd_partial in its PARTIAL
+// form) is flash_fwd_hopper<D, PARTIAL>: a CTA of 64 query rows per
+// consumer warpgroup and a producer warpgroup; with one consumer, two
 // CTAs to an SM (at D 64), so one CTA's prologue and epilogue run under
-// the other's main loop. The producer warpgroup (registers cut to 24 by
+// the other's main loop. The producer (registers cut to 24 by
 // setmaxnreg) has one thread issue TMA loads: the Q tile once, then the
-// band's K/V tiles of 128 keys into a ring of 3 stages, each stage with
-// a "full" mbarrier (TMA transaction bytes) and an "empty" one (one
-// arrival per consumer warp). The consumer warpgroup (registers raised
-// to 232) runs S = Q K^T as wgmma m64n128k16 from shared memory into
-// registers and the online softmax on those registers: the scale folds
-// into the exponent's FMA, 2^x is one ex2.approx, a row lives in one
-// quad (its max is two shfl.xor steps), and the band mask runs only on
-// tiles that cross the band edge or the end of the keys. O += P V is a
-// wgmma with P converted to bf16 in place as the register-A operand and
-// V read MN-major (trans-b). The S product of tile j + 1 and the P V
+// band's K/V tiles into a ring of 3 stages, each stage with a "full"
+// mbarrier (TMA transaction bytes) and an "empty" one (one arrival per
+// consumer warp). Each consumer (registers raised to 232, or 240 beside
+// a second one) runs S = Q K^T as wgmma m64nBNk16 (BN the keys a stage)
+// from shared memory into registers and the online softmax on those
+// registers: the scale folds into the exponent's FMA, 2^x is one
+// ex2.approx, the running max and sum stay in log2 units, a row lives in
+// one quad (its max is two shfl.xor steps), and the band mask runs only
+// on tiles that cross the band edge or the end of the keys. O += P V is
+// a wgmma with P converted to bf16 in place as the register-A operand
+// and V read MN-major (trans-b). The S product of tile j + 1 and the P V
 // product of tile j are issued together, so the softmax of tile j + 1
 // runs under P V; the two P register sets swap roles each tile (a copy
 // would write registers an in-flight wgmma reads, and ptxas would
 // serialize the wgmmas). O stays in registers for the whole loop and is
-// written once, bf16, with the f32 lse. Q, K and V are 3-D tensor maps
-// [BH, rows, D], so a box never reads into the next head and rows past
-// L or Lk read as zeros.
-//
+// written once. Q, K and V are 3-D tensor maps [BH, rows, D], so a box
+// never reads into the next head and rows past L or Lk read as zeros.
+// The two forms share all of this and differ in the epilogue and the
+// tiles (Tiles<PARTIAL>):
+//  - normalized (B1): O / l in bf16 and lse = (m + log2 l) ln 2; 64
+//    rows a CTA, 128-key stages;
+//  - partial (B7, the JAX _fwd_partial_kernel): O unnormalized in f32,
+//    m in natural units (m ln 2; a row that saw no key keeps NEG_INF)
+//    and l as summed (2^(s scale log2e - m log2e) = e^(s scale - m), so
+//    l needs no conversion); its tiles chosen on the card at the ring's
+//    half-blocks by scripts/torch_kernel_variants.py. The f32 o is the
+//    larger part of its bytes (40% at a 128 x 128 half-block).
+
 // The dK/dV kernel (tfd_flash_dkv, and tfd_flash_dkv_partial in its
 // PARTIAL form) is built from the same pieces, flash_dkv_hopper<D,
 // PARTIAL>: a CTA owns 64 key rows per consumer warpgroup (two, so each
@@ -115,38 +126,18 @@
 // form has its own tiles (rows a CTA, keys or rows a stage), chosen on
 // the card by scripts/torch_kernel_variants.py: the normalized ones at
 // L 1024, the partial ones at the ring's half-blocks.
-//
-// The partial forward (tfd_flash_fwd_partial) is still the first,
-// simple design: flash_fwd_kernel<D, true>, one CTA of 4 warps per
-// 64-row output tile, bf16 WMMA (16x16x16) with f32 accumulation, tiles
-// staged in shared memory, and per-CTA loop bounds that skip key tiles
-// outside the band. Instead of the TPU's sequential grid and VMEM
-// scratch carried across grid steps, each CTA owns its output tile and
-// loops over the reduction axis itself. Its f32 o doubles the bytes of
-// that operand.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per tile
-constexpr int BK = 64;        // key rows per tile
-constexpr int WARPS = 4;      // each warp owns 16 rows of the output tile
-constexpr int THREADS = WARPS * 32;
 constexpr float NEG_INF = -1e30f;  // large-finite, as the JAX kernels
-
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBt;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
 
 // window_keep: the (row - window, row] causal band; window 0 = unlimited.
 __device__ __forceinline__ bool keep(int row, int col, int causal, int window) {
@@ -154,229 +145,65 @@ __device__ __forceinline__ bool keep(int row, int col, int causal, int window) {
   return col <= row && (window == 0 || col > row - window);
 }
 
-// Key tiles [lo, hi] that query tile qt needs (the JAX _kv_needed).
-__device__ __forceinline__ void kv_range(int qt, int nk, int causal, int window,
-                                         int* lo, int* hi) {
-  *lo = 0;
-  *hi = nk - 1;
-  if (causal) {
-    *hi = min(*hi, (qt * BQ + BQ - 1) / BK);
-    if (window) *lo = max(qt * BQ - window + 1, 0) / BK;
-  }
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// Copy `rows` contiguous rows of D bf16 from global to shared memory,
-// 16 bytes per thread per iteration.
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int rows) {
-  const int n = rows * D / 8;
-  const uint4* s = reinterpret_cast<const uint4*>(src);
-  uint4* d = reinterpret_cast<uint4*>(dst);
-  for (int i = threadIdx.x; i < n; i += THREADS) d[i] = s[i];
-}
-
-// acc[16 x 16*N] (one fragment per 16 columns) = A[16 x D] . B^T where B
-// is [16*N x D] row-major in shared memory (so B^T is col-major).
-template <int D, int N>
-__device__ __forceinline__ void mm_abt(float* out, int ldo, const bf16* a,
-                                       const bf16* b) {
-#pragma unroll
-  for (int n = 0; n < N; ++n) {
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      FragA fa;
-      FragBt fb;
-      wmma::load_matrix_sync(fa, a + kk * 16, D);
-      wmma::load_matrix_sync(fb, b + n * 16 * D + kk * 16, D);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(out + n * 16, acc, ldo, wmma::mem_row_major);
-  }
-}
-
-// ---------------------------------------------------------------- forward
-// Grid (BH, L/BQ); one CTA per (head, query tile). Causal tiles are
-// visited last-first so the longest bands start earliest. The partial
-// form only (the normalized forward is flash_fwd_hopper below): o is the
-// f32 accumulator, `stat` the row max m and `l_out` the exp-sum l.
-
-template <int D>
-constexpr int fwd_smem() {
-  return (BQ * D + 2 * BK * D + BQ * BK) * 2 + (BQ * BK + BQ * D) * 4;
-}
-
-template <int D, bool PARTIAL>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, void* __restrict__ o,
-                 float* __restrict__ stat, float* __restrict__ l_out, int L,
-                 int Lk, float scale, int causal, int window) {
-  static_assert(PARTIAL, "the normalized forward is flash_fwd_hopper");
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);           // BQ x D
-  bf16* sK = sQ + BQ * D;                             // BK x D
-  bf16* sV = sK + BK * D;                             // BK x D
-  bf16* sP = sV + BK * D;                             // BQ x BK
-  float* sS = reinterpret_cast<float*>(sP + BQ * BK); // BQ x BK
-  float* sO = sS + BQ * BK;                           // BQ x D accumulator
-
-  const int bh = blockIdx.x;
-  const int nq = L / BQ, nk = Lk / BK;
-  const int qt = nq - 1 - blockIdx.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const bf16* kb = k + (size_t)bh * Lk * D;
-  const bf16* vb = v + (size_t)bh * Lk * D;
-
-  load_tile<D>(sQ, q + ((size_t)bh * L + (size_t)qt * BQ) * D, BQ);
-  for (int i = threadIdx.x; i < BQ * D; i += THREADS) sO[i] = 0.f;
-
-  const bf16* sQw = sQ + warp * 16 * D;
-  float* sSw = sS + warp * 16 * BK;
-  bf16* sPw = sP + warp * 16 * BK;
-  float* sOw = sO + warp * 16 * D;
-  const int row0 = qt * BQ + warp * 16;  // global query row of the warp's first row
-
-  // Running row max and sum, lane-replicated (every lane holds all 16).
-  float m_row[16], l_row[16];
-#pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    m_row[r] = NEG_INF;
-    l_row[r] = 0.f;
-  }
-
-  int lo, hi;
-  kv_range(qt, nk, causal, window, &lo, &hi);
-  for (int kt = lo; kt <= hi; ++kt) {
-    __syncthreads();  // the previous K/V tile is consumed
-    load_tile<D>(sK, kb + (size_t)kt * BK * D, BK);
-    load_tile<D>(sV, vb + (size_t)kt * BK * D, BK);
-    __syncthreads();
-
-    mm_abt<D, BK / 16>(sSw, BK, sQw, sK);  // S_w = Q_w K^T
-    __syncwarp();
-
-    const int col0 = kt * BK;
-#pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      const int row = row0 + r;
-      float s0 = sSw[r * BK + lane] * scale;
-      float s1 = sSw[r * BK + lane + 32] * scale;
-      if (!keep(row, col0 + lane, causal, window)) s0 = NEG_INF;
-      if (!keep(row, col0 + lane + 32, causal, window)) s1 = NEG_INF;
-      const float m_new = fmaxf(m_row[r], warp_max(fmaxf(s0, s1)));
-      const float alpha = expf(m_row[r] - m_new);
-      const float p0 = expf(s0 - m_new);
-      const float p1 = expf(s1 - m_new);
-      l_row[r] = l_row[r] * alpha + warp_sum(p0 + p1);
-      m_row[r] = m_new;
-      sPw[r * BK + lane] = __float2bfloat16(p0);
-      sPw[r * BK + lane + 32] = __float2bfloat16(p1);
-      for (int d = lane; d < D; d += 32) sOw[r * D + d] *= alpha;
-    }
-    __syncwarp();
-
-    // O_w += P_w V, accumulating in the shared-memory f32 tile.
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      FragC acc;
-      wmma::load_matrix_sync(acc, sOw + n * 16, D, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        FragA fa;
-        FragB fb;
-        wmma::load_matrix_sync(fa, sPw + kk * 16, BK);
-        wmma::load_matrix_sync(fb, sV + kk * 16 * D + n * 16, D);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(sOw + n * 16, acc, D, wmma::mem_row_major);
-    }
-    __syncwarp();
-  }
-  __syncthreads();
-
-  const size_t rbase = (size_t)bh * L + (size_t)row0;
-  float* ob = static_cast<float*>(o) + rbase * D;
-#pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    for (int d = lane; d < D; d += 32) ob[r * D + d] = sOw[r * D + d];
-    if (lane == 0) {
-      stat[rbase + r] = m_row[r];
-      l_out[rbase + r] = l_row[r];
-    }
-  }
-}
-
+// Allows a kernel `smem` bytes of dynamic shared memory (above 48 KB only
+// so).
 template <typename Kernel>
 cudaError_t prepare(Kernel kernel, int smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
-// Set the shared-memory limit, launch on `s`, return the launch's CUDA
-// error.
-template <int D, bool PARTIAL>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, void* stat,
-                       void* l, int BH, int L, int Lk, float scale, int causal,
-                       int window, cudaStream_t s) {
-  auto kernel = flash_fwd_kernel<D, PARTIAL>;
-  cudaError_t err = prepare(kernel, fwd_smem<D>());
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(BH, L / BQ), THREADS, fwd_smem<D>(), s>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, o, (float*)stat, (float*)l, L,
-      Lk, scale, causal, window);
-  return cudaGetLastError();
-}
-
 // --------------------------------------------------- forward, Hopper design
-// Grid (BH, ceil(L / 64)); one CTA per (head, 64 query rows), heaviest
+// Grid (BH, ceil(L / BM)); one CTA per (head, BM query rows), heaviest
 // causal tiles first. See the note at the top of the file.
 
 namespace hfwd {
 
-constexpr int BN = 128;         // key rows per stage
-// One consumer warpgroup per CTA and two CTAs per SM (registers: 128 a
-// thread at launch; the producer gives back down to 24, the consumer
-// takes 232). Two consumer warpgroups sharing a CTA's K/V stages would
-// need 168 registers a thread at launch, one CTA per SM.
-constexpr int CONSUMERS = 1;    // consumer warpgroups, 64 query rows each
-constexpr int BM = 64 * CONSUMERS;  // query rows per CTA
-constexpr int CTAS_PER_SM = 2;
-constexpr int CONSUMER_REGS = 232;
-constexpr int THREADS = (CONSUMERS + 1) * 128;
+// Tiles, for the normalized form (B1) and the partial one (B7) apart:
+// consumer warpgroups of 64 query rows each, sharing each K/V stage, and
+// keys a stage. One consumer: two CTAs to an SM (registers: 128 a thread
+// at launch; the producer gives back down to 24, the consumer takes
+// 232). Two: one CTA to an SM, 168 registers a thread at launch, the
+// consumers raised to 240. scripts/torch_kernel_variants.py times the
+// partial choices at the ring's half-blocks: one consumer and 64-key
+// stages took the least time over a ring call's mix (PERF.md).
+constexpr int CONSUMERS = 1;          // B1
+constexpr int BN = 128;               // B1: key rows per stage
+constexpr int PARTIAL_CONSUMERS = 1;  // B7
+constexpr int PARTIAL_BN = 64;        // B7: key rows per stage
 constexpr int ATOM = 128;       // bytes per swizzled row: 64 bf16 of D
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-template <int D>
+template <bool PARTIAL>
+struct Tiles {
+  static constexpr int CONSUMERS = PARTIAL ? PARTIAL_CONSUMERS : hfwd::CONSUMERS;
+  static constexpr int BN = PARTIAL ? PARTIAL_BN : hfwd::BN;
+  static constexpr int BM = 64 * CONSUMERS;  // query rows per CTA
+  static constexpr int THREADS = (CONSUMERS + 1) * 128;
+  static constexpr int CTAS_PER_SM = CONSUMERS == 1 ? 2 : 1;
+  static constexpr int CONSUMER_REGS = CONSUMERS == 1 ? 232 : 240;
+};
+
+template <int D, bool PARTIAL>
 struct Smem {
+  using T = Tiles<PARTIAL>;
   static constexpr int ATOMS = D / 64;
   static constexpr int STAGES = 3;
-  static constexpr int Q_BYTES = BM * D * 2;
-  static constexpr int KV_BYTES = BN * D * 2;  // one K or V tile
+  static constexpr int Q_BYTES = T::BM * D * 2;
+  static constexpr int KV_BYTES = T::BN * D * 2;  // one K or V tile
   static constexpr int STAGE_BYTES = 2 * KV_BYTES;
   static constexpr int BAR_OFF = Q_BYTES + STAGES * STAGE_BYTES;
   static constexpr int BYTES = BAR_OFF + (2 * STAGES + 1) * 8 + 1024;  // + alignment slack
+  static_assert(BYTES <= 232448, "more shared memory than a block may have");
 };
 
-// Online softmax of one key tile on the S accumulator (m64n128, a
+// Online softmax of one key tile on the S accumulator (m64nBN, a
 // thread's rows r0 and r0 + 8, raw q.k): mask the band and the end of
 // the keys where the tile crosses them, update the running max m and
 // sum l in log2 units (alpha: the factor the old O and l take), and
 // leave P = 2^(s scale_log2 - m) as bf16 register-A fragments in pa.
 // The scale folds into the exponent's FMA (scale > 0 keeps the max).
+template <int BN>
 __device__ __forceinline__ void softmax_tile(float (&sacc)[BN / 2], uint32_t (&pa)[BN / 16][4],
                                              float (&m)[2], float (&l)[2], float (&alpha)[2],
                                              int col0, int wrow0, int r0, int lane, int Lk,
@@ -426,14 +253,17 @@ __device__ __forceinline__ void softmax_tile(float (&sacc)[BN / 2], uint32_t (&p
       pa[kk][r] = hopper::pack_bf16(sacc[8 * kk + 2 * r], sacc[8 * kk + 2 * r + 1]);
 }
 
-template <int D>
-__global__ void __launch_bounds__(THREADS, CTAS_PER_SM)
+// The normalized form writes o (bf16) and `stat` = lse; the partial form
+// o (f32, unnormalized), `stat` = m and `l_out` = l (unused otherwise).
+template <int D, bool PARTIAL>
+__global__ void __launch_bounds__(Tiles<PARTIAL>::THREADS, Tiles<PARTIAL>::CTAS_PER_SM)
 flash_fwd_hopper(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
-                 const __grid_constant__ CUtensorMap mv, bf16* __restrict__ o,
-                 float* __restrict__ lse, int L, int Lk, float scale_log2, int causal,
-                 int window) {
-  using S = Smem<D>;
-  constexpr int STAGES = S::STAGES;
+                 const __grid_constant__ CUtensorMap mv, void* __restrict__ o,
+                 float* __restrict__ stat, float* __restrict__ l_out, int L, int Lk,
+                 float scale_log2, int causal, int window) {
+  using T = Tiles<PARTIAL>;
+  using S = Smem<D, PARTIAL>;
+  constexpr int CONSUMERS = T::CONSUMERS, BM = T::BM, BN = T::BN, STAGES = S::STAGES;
   extern __shared__ unsigned char smem_raw[];
   // Swizzled TMA tiles want 1024-byte-aligned shared addresses.
   unsigned char* smem = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
@@ -485,7 +315,7 @@ flash_fwd_hopper(const __grid_constant__ CUtensorMap mq, const __grid_constant__
     // tile j + 1 and the P.V product of tile j are issued together, and
     // the softmax of tile j + 1 runs on the CUDA cores while the tensor
     // cores do P.V; O is rescaled once that product is done.
-    hopper::setmaxnreg_inc<CONSUMER_REGS>();
+    hopper::setmaxnreg_inc<T::CONSUMER_REGS>();
     const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
     const int wrow0 = qt * BM + wg * 64;           // the warpgroup's first query row
     const int r0 = wrow0 + warp * 16 + lane / 4;   // this thread's rows: r0 and r0 + 8
@@ -536,8 +366,8 @@ flash_fwd_hopper(const __grid_constant__ CUtensorMap mq, const __grid_constant__
       hopper::wgmma_commit();
       hopper::wgmma_wait<1>();  // S of this tile; P.V of the last may still run
       hopper::fence_operand(sacc);
-      softmax_tile(sacc, pn, m, l, alpha, kt * BN, wrow0, r0, lane, Lk, scale_log2, causal,
-                   window);
+      softmax_tile<BN>(sacc, pn, m, l, alpha, kt * BN, wrow0, r0, lane, Lk, scale_log2, causal,
+                       window);
       hopper::wgmma_wait<0>();
       hopper::fence_operand(pc);
       hopper::fence_operand(oacc);
@@ -565,7 +395,8 @@ flash_fwd_hopper(const __grid_constant__ CUtensorMap mq, const __grid_constant__
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_operand(sacc);
-    softmax_tile(sacc, pa, m, l, alpha, lo * BN, wrow0, r0, lane, Lk, scale_log2, causal, window);
+    softmax_tile<BN>(sacc, pa, m, l, alpha, lo * BN, wrow0, r0, lane, Lk, scale_log2, causal,
+                     window);
     int kt = lo + 1, i = 1;
     for (; kt + 1 <= hi; kt += 2, i += 2) {
       step(kt, i, pa, pb);
@@ -578,48 +409,77 @@ flash_fwd_hopper(const __grid_constant__ CUtensorMap mq, const __grid_constant__
       finish(pa);
     }
 
-    // Epilogue: O / l in bf16, lse = (m + log2 l) ln 2; rows >= L dropped.
+    // Epilogue; rows >= L dropped. l summed over the row's quad.
     const size_t base = (size_t)bh * L;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
       l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
     }
-    const float inv[2] = {1.f / l[0], 1.f / l[1]};
+    if constexpr (PARTIAL) {
+      // O unnormalized in f32; m in natural units (a row that saw no key
+      // keeps NEG_INF), l as summed: 2^(s scale log2e - m log2e) is
+      // e^(s scale - m).
+      float* of = static_cast<float*>(o);
 #pragma unroll
-    for (int j = 0; j < D / 2; j += 2) {
-      const int h = (j % 4) / 2, row = r0 + 8 * h;
-      const int col = 8 * (j / 4) + 2 * (lane % 4);
-      if (row < L)
-        *reinterpret_cast<uint32_t*>(o + (base + row) * D + col) =
-            hopper::pack_bf16(oacc[j] * inv[h], oacc[j + 1] * inv[h]);
-    }
-    if (lane % 4 == 0) {
+      for (int j = 0; j < D / 2; j += 2) {
+        const int h = (j % 4) / 2, row = r0 + 8 * h;
+        const int col = 8 * (j / 4) + 2 * (lane % 4);
+        if (row < L)
+          *reinterpret_cast<float2*>(of + (base + row) * D + col) =
+              make_float2(oacc[j], oacc[j + 1]);
+      }
+      if (lane % 4 == 0) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
-        if (r0 + 8 * h < L) lse[base + r0 + 8 * h] = (m[h] + log2f(l[h])) * LN2;
+        for (int h = 0; h < 2; ++h)
+          if (r0 + 8 * h < L) {
+            stat[base + r0 + 8 * h] = m[h] == NEG_INF ? NEG_INF : m[h] * LN2;
+            l_out[base + r0 + 8 * h] = l[h];
+          }
+      }
+    } else {
+      // O / l in bf16, lse = (m + log2 l) ln 2.
+      bf16* ob = static_cast<bf16*>(o);
+      const float inv[2] = {1.f / l[0], 1.f / l[1]};
+#pragma unroll
+      for (int j = 0; j < D / 2; j += 2) {
+        const int h = (j % 4) / 2, row = r0 + 8 * h;
+        const int col = 8 * (j / 4) + 2 * (lane % 4);
+        if (row < L)
+          *reinterpret_cast<uint32_t*>(ob + (base + row) * D + col) =
+              hopper::pack_bf16(oacc[j] * inv[h], oacc[j + 1] * inv[h]);
+      }
+      if (lane % 4 == 0) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          if (r0 + 8 * h < L) stat[base + r0 + 8 * h] = (m[h] + log2f(l[h])) * LN2;
+      }
     }
   }
 }
 
-template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse, int BH,
-                   int L, int Lk, float scale, int causal, int window, cudaStream_t stream) {
+// `stat` is lse (normalized) or m, and `l` null or l (partial).
+template <int D, bool PARTIAL>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* stat, void* l,
+                   int BH, int L, int Lk, float scale, int causal, int window,
+                   cudaStream_t stream) {
+  using T = Tiles<PARTIAL>;
+  using S = Smem<D, PARTIAL>;
   CUtensorMap mq, mk, mv;
   const uint64_t qdims[3] = {D, (uint64_t)L, (uint64_t)BH};
   const uint64_t kdims[3] = {D, (uint64_t)Lk, (uint64_t)BH};
   const uint64_t qstr[2] = {D * 2, (uint64_t)L * D * 2};
   const uint64_t kstr[2] = {D * 2, (uint64_t)Lk * D * 2};
-  const uint32_t qbox[3] = {64, BM, 1}, kbox[3] = {64, BN, 1};
+  const uint32_t qbox[3] = {64, T::BM, 1}, kbox[3] = {64, T::BN, 1};
   cudaError_t err = hopper::encode_bf16_map(&mq, q, 3, qdims, qstr, qbox);
   if (err == cudaSuccess) err = hopper::encode_bf16_map(&mk, k, 3, kdims, kstr, kbox);
   if (err == cudaSuccess) err = hopper::encode_bf16_map(&mv, v, 3, kdims, kstr, kbox);
   if (err != cudaSuccess) return err;
-  auto kernel = flash_fwd_hopper<D>;
-  err = prepare(kernel, Smem<D>::BYTES);
+  auto kernel = flash_fwd_hopper<D, PARTIAL>;
+  err = prepare(kernel, S::BYTES);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(BH, (L + BM - 1) / BM), THREADS, Smem<D>::BYTES, stream>>>(
-      mq, mk, mv, (bf16*)o, (float*)lse, L, Lk, scale * LOG2E, causal, window);
+  kernel<<<dim3(BH, (L + T::BM - 1) / T::BM), T::THREADS, S::BYTES, stream>>>(
+      mq, mk, mv, o, (float*)stat, (float*)l, L, Lk, scale * LOG2E, causal, window);
   return cudaGetLastError();
 }
 
@@ -1344,10 +1204,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
 extern "C" int tfd_flash_fwd(const void* q, const void* k, const void* v, void* o,
                              void* lse, int BH, int L, int Lk, int D, float scale,
                              int causal, int window, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return hfwd::launch<64>(q, k, v, o, lse, BH, L, Lk, scale, causal, window, s);
-  if (D == 128) return hfwd::launch<128>(q, k, v, o, lse, BH, L, Lk, scale, causal, window, s);
-  return cudaErrorInvalidValue;
+  TFD_BY_HEAD_DIM(hfwd::launch, false, q, k, v, o, lse, nullptr, BH, L, Lk, scale, causal, window,
+                  static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int tfd_flash_dq(const void* q, const void* k, const void* v, const void* o,
@@ -1374,7 +1232,7 @@ extern "C" int tfd_flash_dkv(const void* q, const void* k, const void* v, const 
 extern "C" int tfd_flash_fwd_partial(const void* q, const void* k, const void* v, void* o,
                                      void* m, void* l, int BH, int L, int Lk, int D,
                                      float scale, int causal, int window, void* stream) {
-  TFD_BY_HEAD_DIM(launch_fwd, true, q, k, v, o, m, l, BH, L, Lk, scale, causal, window,
+  TFD_BY_HEAD_DIM(hfwd::launch, true, q, k, v, o, m, l, BH, L, Lk, scale, causal, window,
                   static_cast<cudaStream_t>(stream));
 }
 

@@ -19,13 +19,13 @@ and three more the ring path (``parallel.ring_attention``) runs:
 - ``flash_dkv_partial`` <- ``_dkv_partial_kernel``: the partial's
   gradients, with m as the stop-gradient stabilizer.
 
-The dQ and dK/dV kernels of both forms are the Hopper kernels
-``flash_dq_hopper`` and ``flash_dkv_hopper`` (wgmma, TMA, mbarriers):
-the partial ones are their ``PARTIAL`` instantiations, which take (m,
-+dl) where the normalized ones take (lse, -rowsum(dO*O)) and round the
-f32 dO to bf16 inside the kernel. The two forwards are separate
-kernels: ``flash_fwd_hopper`` for the normalized path, and the first
-(WMMA) design ``flash_fwd_kernel`` for the ring's partial forward.
+All six are three Hopper kernels (wgmma, TMA, mbarriers) in two forms:
+``flash_fwd_hopper``, ``flash_dq_hopper`` and ``flash_dkv_hopper``. The
+partial kernels are their ``PARTIAL`` instantiations: the forward keeps
+o unnormalized in f32 and writes m (natural units) and l where the
+normalized one writes o / l and lse; the backward takes (m, +dl) where
+the normalized one takes (lse, -rowsum(dO*O)) and rounds the f32 dO to
+bf16 inside the kernel.
 
 ``_FlashAttention`` and ``_FlashPartial`` (``torch.autograd.Function``s)
 stand where ``jax.custom_vjp`` stood and save what ``_flash_fwd`` and

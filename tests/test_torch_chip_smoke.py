@@ -60,8 +60,10 @@ def test_hopper_kernel_is_a_global_function_of_its_source(kernel):
      "flash_dq_hopper"),
     ("_ZN12_GLOBAL__N_14hdkv16flash_dkv_hopperILi128ELb1EEEv14CUtensorMap_st",
      "flash_dkv_hopper<partial>"),
-    ("_ZN12_GLOBAL__N_14hfwd16flash_fwd_hopperILi64EEEv14CUtensorMap_st",
+    ("_ZN12_GLOBAL__N_14hfwd16flash_fwd_hopperILi64ELb0EEEv14CUtensorMap_st",
      "flash_fwd_hopper"),
+    ("_ZN12_GLOBAL__N_14hfwd16flash_fwd_hopperILi128ELb1EEEv14CUtensorMap_st",
+     "flash_fwd_hopper<partial>"),
     ("_ZN12_GLOBAL__N_116flash_fwd_kernelILi64ELb1EEEvPK13__nv_bfloat16",
      None)])
 def test_mangled_names_map_to_their_hopper_instance(name, key):
@@ -96,10 +98,11 @@ def test_normalized_dq_is_the_hopper_kernel():
     assert "flash_dq_kernel" not in text
 
 
-@pytest.mark.parametrize("name,namespace", [("dq", "hdq"), ("dkv", "hdkv")])
+@pytest.mark.parametrize("name,namespace", [("fwd", "hfwd"), ("dq", "hdq"),
+                                            ("dkv", "hdkv")])
 def test_partial_backward_launches_the_hopper_kernel(name, namespace):
-    """tfd_flash_{dq,dkv}_partial launch the PARTIAL instantiation of
-    the Hopper kernel (B8, B9), whose namespace holds no WMMA."""
+    """tfd_flash_{fwd,dq,dkv}_partial launch the PARTIAL instantiation
+    of the Hopper kernel (B7, B8, B9), whose namespace holds no WMMA."""
     text = _source("flash_attention")
     ns = text[text.index(f"namespace {namespace} {{"):
               text.index(f"}}  // namespace {namespace}")]
@@ -109,21 +112,47 @@ def test_partial_backward_launches_the_hopper_kernel(name, namespace):
     assert f"{namespace}::launch, true" in entry
 
 
-def test_only_the_partial_forward_is_left_on_wmma():
-    """The WMMA backward and the helpers only it used are gone; WMMA's
-    products are left in B7's forward alone."""
+def test_no_wmma_is_left_in_flash_attention():
+    """All six attention kernels run on the Hopper header: the WMMA
+    forward and backward, and the helpers only they used, are gone."""
     text = _source("flash_attention")
-    for gone in ("flash_dq_kernel", "flash_dkv_kernel", "launch_dq",
-                 "launch_dkv", "dq_smem", "dkv_smem", "load_tile_f32",
+    for gone in ("wmma::", "<mma.h>", "nvcuda", "flash_fwd_kernel",
+                 "launch_fwd", "fwd_smem", "load_tile", "mm_abt",
+                 "warp_max", "warp_sum", "kv_range", "FragA", "FragB",
+                 "FragC", "flash_dq_kernel", "flash_dkv_kernel",
+                 "launch_dq", "launch_dkv", "dq_smem", "dkv_smem",
                  "load_dout", "q_range", "mm_ab_acc", "store_rows"):
         assert gone not in text, gone
-    fwd = text[text.index("flash_fwd_kernel(const bf16*"):
-               text.index("namespace hfwd {")]
-    before = text[:text.index("flash_fwd_kernel(const bf16*")]
-    rest = text[text.index("namespace hfwd {"):]
-    assert "wmma::mma_sync" in fwd and "wmma::mma_sync" not in rest
-    # mm_abt (B7's S product) is the only WMMA helper before the kernel.
-    assert before.count("wmma::mma_sync") == 1
+    for name in ("BQ", "BK", "WARPS", "THREADS"):
+        assert not re.search(rf"^constexpr int {name} =", text, re.M), name
+
+
+def test_sass_counts_group_the_library_by_hopper_instance(monkeypatch):
+    """One cuobjdump of a library gives each Hopper instance's counts
+    and, under None, its other functions' (the library-wide HMMA
+    check)."""
+    sass = "\n".join([
+        "\tcode for sm_90a",
+        "\t\tFunction : _ZN12_GLOBAL__N_14hfwd16flash_fwd_hopperILi64ELb1EEEv",
+        "        /*0000*/                   MOV R1, c[0x0][0x28] ;",
+        "        /*0010*/                   HGMMA.64x128x16.F32.BF16 R24 ;",
+        "        /*0020*/              @P0  SYNCS.ARRIVE.TRANS64 RZ ;",
+        "        /*0030*/                   UTMALDG.3D [UR8], [UR4] ;",
+        "\t\tFunction : _ZN12_GLOBAL__N_14hfwd16flash_fwd_hopperILi128ELb1EEEv",
+        "        /*0000*/                   HGMMA.64x128x16.F32.BF16 R24 ;",
+        "\t\tFunction : _Z3fooPf",
+        "        /*0000*/                   HMMA.16816.F32.BF16 R4, R8 ;"])
+    from tensorflow_distributed_tpu_torch.ops import cuda_ext
+
+    monkeypatch.setattr(cuda_ext, "nvcc_path", lambda: "/cuda/bin/nvcc")
+    monkeypatch.setattr(cs.os.path, "exists", lambda path: True)
+    monkeypatch.setattr(cs.subprocess, "run", lambda *a, **k: type(
+        "Done", (), {"stdout": sass})())
+    got = cs.sass_counts("libflash_attention.so")
+    assert got == {
+        "flash_fwd_hopper<partial>": {"HGMMA": 2, "UTMALDG": 1, "SYNCS": 1,
+                                      "HMMA": 0},
+        None: {"HGMMA": 0, "UTMALDG": 0, "SYNCS": 0, "HMMA": 1}}
 
 
 def test_every_library_of_the_kernels_has_a_source():

@@ -27,6 +27,8 @@ def _script():
 kv = _script()
 # group -> (library, namespace, the constants its variants change)
 CHANGES = {"dq": ("flash_attention", "hdq", {"BN", "CONSUMERS"}),
+           "fwd_partial": ("flash_attention", "hfwd",
+                           {"PARTIAL_BN", "PARTIAL_CONSUMERS"}),
            "dq_partial": ("flash_attention", "hdq",
                           {"PARTIAL_BN", "PARTIAL_CONSUMERS"}),
            "dkv_partial": ("flash_attention", "hdkv",

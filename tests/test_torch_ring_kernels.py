@@ -11,8 +11,10 @@ JAX, so it runs where only PyTorch is installed:
 Tolerances as chip_smoke.py: o and dQ/dK/dV max abs error / max
 |reference| <= 2e-2, m and l max abs error <= 1e-3 (the plain version
 runs in f32 from the same bf16 inputs; the kernels round P and dO to
-bf16 for the tensor-core products); the ring against B1-B3 and the
-multi-process ring against the stacked one <= 2e-2 relative.
+bf16 for the tensor-core products); B7 normalized against B1 (o / l
+against out, m + log l against lse) at the same two; the ring against
+B1-B3 and the multi-process ring against the stacked one <= 2e-2
+relative.
 """
 
 import pytest
@@ -40,7 +42,11 @@ def _rel(got, ref):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("D", [64, 128])
-@pytest.mark.parametrize("causal,L,Lk", [(True, 256, 256), (False, 256, 320)])
+@pytest.mark.parametrize("causal,L,Lk", [
+    (True, 256, 256),
+    (False, 256, 320),  # the last key tile runs past Lk
+    (True, 64, 64),     # one 64-row block
+])
 def test_partial_kernels_match_plain_versions_on_gpu(cuda, D, causal, L, Lk):
     g = torch.Generator(device=cuda).manual_seed(D + L + Lk)
 
@@ -134,6 +140,24 @@ def test_partial_backward_with_normalized_rows_matches_b2_b3_on_gpu(
     assert [kern.launches for kern in tfa.KERNELS] == [0, 1, 1]
     for g, w in zip(got, want):
         assert _rel(g, w) <= TOL_REL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_partial_forward_normalizes_to_b1_on_gpu(cuda, D, causal):
+    """B7's (o, m, l) against B1 on the same inputs: o / l is B1's out
+    and m + log l its lse, the identity that holds the two forms of
+    flash_fwd_hopper together."""
+    q, k, v, _, _ = _partial_bwd_inputs(cuda, 8, 256, 256, D, 3 * D + causal)
+    tfa.reset_launch_counts()
+    o, m, l = tfa.flash_fwd_partial(q, k, v, causal)
+    out, lse = tfa.flash_fwd(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert [kern.launches for kern in tfa.PARTIAL_KERNELS] == [1, 0, 0]
+    assert [kern.launches for kern in tfa.KERNELS] == [1, 0, 0]
+    assert _rel(o / l[..., None], out) <= TOL_REL
+    assert float((m + torch.log(l) - lse).abs().max()) <= TOL_STATS
 
 
 @pytest.mark.gpu

@@ -80,7 +80,27 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
              ``--mesh.seq S`` (NCCL), the first five losses within 1e-2
              of a one-card run of the same flags, every rank launching
              the partial kernels. On one card it prints a ``skipped``
-             line.
+             line;
+12. model_cnn — the reference's MNIST CNN on the card in bf16 against
+             the same weights on the CPU in f32, at batch 256: the logits
+             and every grad (cuDNN and cuBLAS; no kernel of this
+             repository is on the CNN's path);
+13. train_cnn — the reference's job through the port's CLI path: the
+             JAX package's default-tier accuracy bar on the committed
+             MNIST fixture (the fixture must load as real MNIST; final
+             val accuracy >= 0.95), then a timing run at the JAX
+             defaults (synthetic digits, batch 256, dropout 0.25, 300
+             steps: median step ms, images/s, peak memory) and its step
+             profile (device busy and idle share, host enqueue time);
+14. train_data — sync data parallelism: torchrun over N = min(cards, 4)
+             processes, one card each (NCCL; on one card a torchrun of
+             one process with an NCCL group of one): the CNN with
+             ``--mesh.data N``, GPT-2-small (fused CE) with ``--mesh.data
+             N`` at 8 rows a rank and, on four cards, with ``--mesh.data
+             2 --mesh.seq 2``; the first five losses within 1e-2 of one
+             card on the same global batch, every rank launching the
+             flash (or, under seq, the partial) and fused-CE kernels,
+             the performance table printed by rank 0 only.
 
 It then prints the nvidia-smi line, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -164,6 +184,29 @@ TRAIN_RING_ARGV = ["--mode", "train", "--model", "gpt_lm", "--model-size",
                    "--train-steps", "5", "--eval-every", "0",
                    "--eval-batch-size", "8", "--dropout-rate", "0",
                    "--compute-dtype", "bfloat16", "--log-every", "1"]
+# The reference's job: the JAX package's default-tier accuracy bar on the
+# committed MNIST fixture (tests/test_loop_cli.py's flags, at the default
+# bf16 compute), then a timing run at the JAX defaults (synthetic digits,
+# batch 256, dropout 0.25).
+FIXTURE_DIR = os.path.join(REPO, "tests", "fixtures", "mnist")
+CNN_ACCURACY_BAR = 0.95
+TRAIN_CNN_ARGV = ["--mode", "train", "--model", "mnist_cnn", "--dataset",
+                  "mnist", "--data-dir", FIXTURE_DIR, "--validation-size",
+                  "64", "--batch-size", "64", "--train-steps", "50",
+                  "--learning-rate", "2e-3", "--eval-every", "0",
+                  "--eval-batch-size", "64", "--log-every", "1"]
+TRAIN_CNN_TIMING_ARGV = ["--mode", "train", "--model", "mnist_cnn",
+                         "--dataset", "synthetic", "--batch-size", "256",
+                         "--train-steps", "300", "--eval-every", "0",
+                         "--log-every", "1"]
+# train_data: torchrun over N = min(cards, 4) processes, 5 steps, eval at
+# step 5 (the chief's performance table), dropout 0 for the loss check.
+TRAIN_DATA_CNN_ARGV = ["--mode", "train", "--model", "mnist_cnn",
+                       "--dataset", "synthetic", "--batch-size", "256",
+                       "--train-steps", "5", "--eval-every", "5",
+                       "--dropout-rate", "0", "--log-every", "1"]
+TRAIN_DATA_TIMEOUT_S = 420  # one torchrun, builds and NCCL start included
+TABLE_HEADER = "Steps,        Time,      Accuracy,  Learning rate"
 CSRC = "tensorflow_distributed_tpu_torch/ops/csrc"
 SOURCES = {"flash_attention": f"{CSRC}/flash_attention.cu",
            "fused_ce": f"{CSRC}/fused_ce.cu"}
@@ -782,13 +825,15 @@ def run_train(kernels, torch, phase, argv, dense=None):
     records = [r for r in result.logger.records if "loss" in r.metrics]
     losses = [r.metrics["loss"] for r in records]
     times = [r.wall_time for r in records]
-    step_s = [b - a for a, b in zip(times, times[1:])][4:]  # steps 6..30
+    step_s = [b - a for a, b in zip(times, times[1:])][4:]  # steps 6..
     step_ms = statistics.median(step_s) * 1e3
-    tokens = cfg.batch_size * cfg.seq_len
     rec = {"phase": phase, "argv": argv, "steps": len(losses),
            "first_loss": losses[0],
            "last5_mean_loss": statistics.mean(losses[-5:]),
-           "step_ms_median": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+           "step_ms_median": step_ms,
+           **({"tokens_per_s": cfg.batch_size * cfg.seq_len / step_ms * 1e3}
+              if cfg.seq_len else
+              {"images_per_s": cfg.batch_size / step_ms * 1e3}),
            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
            "eval": result.final_metrics, "launches": launches,
            "wall_s": round(wall, 3)}
@@ -839,86 +884,101 @@ def phase_train_fused(kernels, torch, dense):
     return rec
 
 
-def phase_step_profile(torch) -> None:
-    """Where a train step's time goes, for the dense and the fused run's
-    flags: the host-clocked step (each step ending in the loop's host
-    fetch of its loss, as with --log-every 1) over PROFILE_STEPS steps
-    after 3 warm-up steps, and without the per-step fetch; the host's
-    time to enqueue one step from an idle device; the device time of
-    the steps from torch.profiler (CUDA activity), by kernel kind; and
-    the host ops with the most self CPU time (CPU activity; the
-    profiler's own cost inflates them). Measurement only: the launch
-    counts of the train phases are already read."""
+def profile_steps(torch, one) -> dict:
+    """Where a train step's time goes: ``one(fetch)`` runs one step
+    (ending in a host fetch of its loss when ``fetch``, as with
+    --log-every 1). Over PROFILE_STEPS steps after 3 warm-up steps: the
+    host-clocked step with and without the per-step fetch; the host's
+    time to enqueue one step from an idle device; the device time of the
+    steps from torch.profiler (CUDA activity), by kernel kind; and the
+    host ops with the most self CPU time (CPU activity; the profiler's
+    own cost inflates them)."""
     from torch.profiler import ProfilerActivity, profile
 
+    def steps_ms(fetch):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(PROFILE_STEPS):
+            one(fetch)
+        torch.cuda.synchronize()
+        return (time.time() - t0) / PROFILE_STEPS * 1e3
+
+    for _ in range(3):
+        one(True)
+    step_ms = steps_ms(True)
+    step_ms_no_fetch = steps_ms(False)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    one(False)
+    enqueue_ms = (time.time() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(PROFILE_STEPS):
+            one(True)
+        torch.cuda.synchronize()
+    host_top = [[e.key[:60], e.self_cpu_time_total / PROFILE_STEPS / 1e3,
+                 e.count / PROFILE_STEPS]
+                for e in sorted(prof.key_averages(),
+                                key=lambda e: -e.self_cpu_time_total)[:8]]
+    dev = device_ms(torch, lambda: one(True), PROFILE_STEPS)
+    busy = sum(dev.values())
+    kinds = {"flash": 0.0, "fused_ce": 0.0, "conv": 0.0, "gemm": 0.0,
+             "other": 0.0}
+    for name, ms in dev.items():
+        low = name.lower()
+        kind = ("flash" if "flash_" in low else
+                "fused_ce" if "fused_ce" in low else
+                "conv" if any(k in low for k in ("conv", "fprop", "dgrad",
+                                                 "wgrad")) else
+                "gemm" if any(k in low for k in ("gemm", "xmma", "nvjet",
+                                                 "cutlass", "cublas"))
+                else "other")
+        kinds[kind] += ms
+    return {"step_ms": step_ms, "step_ms_no_fetch": step_ms_no_fetch,
+            "host_enqueue_ms": enqueue_ms, "host_top_self_ms_calls": host_top,
+            "device_busy_ms": busy or None,
+            "device_idle_share": (1 - busy / step_ms) if busy else None,
+            "device_ms_by_kind": kinds,
+            "device_top": [[name[:80], ms] for name, ms in sorted(
+                dev.items(), key=lambda kv: -kv[1])[:8]]}
+
+
+def profiled(torch, argv) -> dict:
+    """``profile_steps`` of the train step of ``argv`` on cuda:0, over
+    four batches of its stream in turn (measurement only: no launch
+    count of a train phase is read after it)."""
     from tensorflow_distributed_tpu_torch.config import parse_args
+    from tensorflow_distributed_tpu_torch.data.prefetch import to_device
     from tensorflow_distributed_tpu_torch.train import loop
     from tensorflow_distributed_tpu_torch.train.step import make_train_step
     from tensorflow_distributed_tpu_torch.train.tasks import make_task
 
     device = torch.device("cuda")
+    cfg = parse_args(argv)
+    task = make_task(cfg)
+    _, state = loop._build_model_and_state(cfg, device)
+    step = make_train_step(task.loss, device, cfg.seed)
+    stream = task.train_stream(0)
+    batches = [to_device(next(stream), device) for _ in range(4)]
+    it = iter(range(10 ** 9))
+
+    def one(fetch):
+        nonlocal state
+        state, metrics = step(state, batches[next(it) % len(batches)])
+        if fetch:
+            float(metrics["loss"])
+
+    out = profile_steps(torch, one)
+    del state, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_step_profile(torch) -> None:
+    """Where a train step's time goes, for the dense and the fused run's
+    flags (``profile_steps``)."""
     for run, argv in (("train", TRAIN_ARGV), ("train_fused", TRAIN_FUSED_ARGV)):
-        cfg = parse_args(argv)
-        task = make_task(cfg)
-        _, state = loop._build_model_and_state(cfg, device)
-        step = make_train_step(task.loss, device, cfg.seed)
-        stream = task.train_stream(0)
-        batches = [loop.to_device(loop.seq_block(next(stream), None), device)
-                   for _ in range(4)]
-        it = iter(range(10 ** 9))
-
-        def one(fetch=True):
-            nonlocal state
-            state, metrics = step(state, batches[next(it) % len(batches)])
-            if fetch:
-                float(metrics["loss"])
-
-        def steps_ms(fetch):
-            torch.cuda.synchronize()
-            t0 = time.time()
-            for _ in range(PROFILE_STEPS):
-                one(fetch)
-            torch.cuda.synchronize()
-            return (time.time() - t0) / PROFILE_STEPS * 1e3
-
-        for _ in range(3):
-            one()
-        step_ms = steps_ms(True)
-        step_ms_no_fetch = steps_ms(False)
-        torch.cuda.synchronize()
-        t0 = time.time()
-        one(False)
-        enqueue_ms = (time.time() - t0) * 1e3
-        with profile(activities=[ProfilerActivity.CPU]) as prof:
-            for _ in range(PROFILE_STEPS):
-                one()
-            torch.cuda.synchronize()
-        host_top = [[e.key[:60], e.self_cpu_time_total / PROFILE_STEPS / 1e3,
-                     e.count / PROFILE_STEPS]
-                    for e in sorted(prof.key_averages(),
-                                    key=lambda e: -e.self_cpu_time_total)[:8]]
-        dev = device_ms(torch, one, PROFILE_STEPS)
-        busy = sum(dev.values())
-        kinds = {"flash": 0.0, "fused_ce": 0.0, "gemm": 0.0, "other": 0.0}
-        for name, ms in dev.items():
-            low = name.lower()
-            kind = ("flash" if "flash_" in low else
-                    "fused_ce" if "fused_ce" in low else
-                    "gemm" if any(k in low for k in ("gemm", "xmma", "nvjet",
-                                                     "cutlass", "cublas"))
-                    else "other")
-            kinds[kind] += ms
         emit({"phase": "step_profile", "run": run, "steps": PROFILE_STEPS,
-              "step_ms": step_ms, "step_ms_no_fetch": step_ms_no_fetch,
-              "host_enqueue_ms": enqueue_ms,
-              "host_top_self_ms_calls": host_top,
-              "device_busy_ms": busy or None,
-              "device_idle_share": (1 - busy / step_ms) if busy else None,
-              "device_ms_by_kind": kinds,
-              "device_top": [[name[:80], ms] for name, ms in sorted(
-                  dev.items(), key=lambda kv: -kv[1])[:8]]})
-        del state, batches
-        torch.cuda.empty_cache()
+              **profiled(torch, argv)})
 
 
 def partial_bounds(B, H, nh, D, causal):
@@ -1142,31 +1202,99 @@ def phase_ring(fa, ra, torch, gpu):
     return launches
 
 
-def train_ring_rank(outdir: str, argv) -> int:
-    """One torchrun rank of train_ring: trains ``argv`` and writes its
-    losses and launch counts to ``outdir``."""
-    import torch.distributed as dist
+def rank_entry(outdir: str, argv) -> int:
+    """One torchrun rank of train_ring or train_data: trains ``argv``
+    through the CLI's path (the chief prints the performance table) with
+    its standard output in ``rank{r}.out``, and writes its losses and
+    launch counts (all nine kernels, set to 0 just before the run) to
+    ``rank{r}.json`` in ``outdir``."""
+    import contextlib
 
+    from tensorflow_distributed_tpu_torch import cli
     from tensorflow_distributed_tpu_torch.config import parse_args
     from tensorflow_distributed_tpu_torch.ops import flash_attention as fa
+    from tensorflow_distributed_tpu_torch.ops import fused_ce_kernel as fce
     from tensorflow_distributed_tpu_torch.parallel import mesh
-    from tensorflow_distributed_tpu_torch.train.loop import train
     from tensorflow_distributed_tpu_torch.utils.logging import MetricLogger
 
+    rank = int(os.environ["RANK"])
     cfg = parse_args(argv)
-    fa.reset_launch_counts()
+    kernels = fa.KERNELS + fce.KERNELS + fa.PARTIAL_KERNELS
+    for kern in kernels:
+        kern.launches = 0
+    out = os.path.join(outdir, f"rank{rank}.out")
     try:
-        result = train(cfg, logger=MetricLogger(stream=sys.stderr))
-        rank = dist.get_rank()
+        with open(out, "w") as f, contextlib.redirect_stdout(f):
+            result = cli.train_and_report(
+                cfg, logger=MetricLogger(stream=sys.stderr))
     finally:
         mesh.shutdown()
     with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
         json.dump({"losses": [r.metrics["loss"] for r in result.logger.records
                               if "loss" in r.metrics],
                    "steps_per_sec": result.steps_per_sec,
+                   "images_per_sec": result.images_per_sec,
                    "launches": {kern.name: kern.launches
-                                for kern in fa.PARTIAL_KERNELS}}, f)
+                                for kern in kernels}}, f)
     return 0
+
+
+def torchrun_command(nproc: int, outdir: str, argv):
+    """The torchrun line that starts ``nproc`` ranks of ``rank_entry``
+    (one card each, NCCL) on ``argv``."""
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            f"--nproc-per-node={nproc}", os.path.abspath(__file__),
+            "--rank", outdir, *argv]
+
+
+def run_torchrun(phase: str, nproc: int, argv, timeout: float):
+    """Run ``torchrun_command``; kill it and every rank left over when it
+    outlives ``timeout``. Returns (wall seconds, each rank's json record,
+    each rank's standard output)."""
+    with tempfile.TemporaryDirectory() as outdir:
+        t0 = time.time()
+        proc = subprocess.Popen(
+            torchrun_command(nproc, outdir, argv),
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        try:
+            _, err = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            # torchrun ends its ranks (each in a session of its own) on
+            # SIGTERM; a rank that outlives that is killed by its pid.
+            proc.terminate()
+            try:
+                proc.communicate(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.communicate()
+            for line in subprocess.run(
+                    ["pgrep", "-f", f"--rank {outdir}"],
+                    capture_output=True, text=True).stdout.split():
+                os.kill(int(line), signal.SIGKILL)
+            fail(f"{phase}: torchrun still running after {timeout} s")
+        wall = time.time() - t0
+        sys.stderr.write(err[-4000:])
+        check(proc.returncode == 0,
+              f"{phase}: torchrun exited {proc.returncode}")
+        ranks, outs = [], []
+        for r in range(nproc):
+            with open(os.path.join(outdir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+            with open(os.path.join(outdir, f"rank{r}.out")) as f:
+                outs.append(f.read())
+    return wall, ranks, outs
+
+
+def one_card_losses(argv):
+    """The first losses and steps/s of ``argv`` trained in this process
+    on one card (no process group)."""
+    from tensorflow_distributed_tpu_torch.config import parse_args
+    from tensorflow_distributed_tpu_torch.train.loop import train
+    from tensorflow_distributed_tpu_torch.utils.logging import MetricLogger
+
+    result = train(parse_args(argv), logger=MetricLogger(stream=sys.stderr))
+    return ([r.metrics["loss"] for r in result.logger.records
+             if "loss" in r.metrics], result.steps_per_sec)
 
 
 def phase_train_ring(torch) -> None:
@@ -1179,66 +1307,163 @@ def phase_train_ring(torch) -> None:
               "skipped": f"needs >= 2 CUDA devices, have {count}"})
         return
     S = 4 if count >= 4 else 2
-    argv = TRAIN_RING_ARGV + ["--mesh.seq", str(S)]
-    with tempfile.TemporaryDirectory() as outdir:
-        t0 = time.time()
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "torch.distributed.run", "--standalone",
-             f"--nproc-per-node={S}", os.path.abspath(__file__),
-             "--train-ring-rank", outdir, *argv],
-            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
-        try:
-            _, err = proc.communicate(timeout=TRAIN_RING_TIMEOUT_S)
-        except subprocess.TimeoutExpired:
-            # torchrun ends its ranks (each in a session of its own) on
-            # SIGTERM; a rank that outlives that is killed by its pid.
-            proc.terminate()
-            try:
-                proc.communicate(timeout=60)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                proc.communicate()
-            for line in subprocess.run(
-                    ["pgrep", "-f", f"--train-ring-rank {outdir}"],
-                    capture_output=True, text=True).stdout.split():
-                os.kill(int(line), signal.SIGKILL)
-            fail(f"train_ring: torchrun still running after "
-                 f"{TRAIN_RING_TIMEOUT_S} s")
-        wall = time.time() - t0
-        sys.stderr.write(err[-4000:])
-        check(proc.returncode == 0,
-              f"train_ring: torchrun exited {proc.returncode}")
-        ranks = []
-        for r in range(S):
-            with open(os.path.join(outdir, f"rank{r}.json")) as f:
-                ranks.append(json.load(f))
-    from tensorflow_distributed_tpu_torch.config import parse_args
-    from tensorflow_distributed_tpu_torch.train.loop import train
-    from tensorflow_distributed_tpu_torch.utils.logging import MetricLogger
-
-    result = train(parse_args(TRAIN_RING_ARGV),
-                   logger=MetricLogger(stream=sys.stderr))
-    one = [r.metrics["loss"] for r in result.logger.records
-           if "loss" in r.metrics]
+    wall, ranks, _ = run_torchrun("train_ring", S,
+                                  TRAIN_RING_ARGV + ["--mesh.seq", str(S)],
+                                  TRAIN_RING_TIMEOUT_S)
+    one, one_sps = one_card_losses(TRAIN_RING_ARGV)
+    partial = ("flash_fwd_partial", "flash_dq_partial", "flash_dkv_partial")
+    launches = [{k: r["launches"][k] for k in partial} for r in ranks]
     emit({"phase": "train_ring", "S": S, "wall_s": round(wall, 3),
           "losses": ranks[0]["losses"], "one_card_losses": one,
           "steps_per_sec": ranks[0]["steps_per_sec"],
-          "one_card_steps_per_sec": result.steps_per_sec,
-          "launches": [r["launches"] for r in ranks]})
-    for r in ranks:
+          "one_card_steps_per_sec": one_sps, "launches": launches})
+    for r, n in zip(ranks, launches):
         check(len(r["losses"]) == 5 and all(
             abs(a - b) <= TOL_RING_LOSS for a, b in zip(r["losses"], one)),
             f"train_ring losses {r['losses']} vs one card {one}")
-        check(all(n > 0 for n in r["launches"].values()),
-              f"train_ring: a rank did not launch every partial kernel: "
-              f"{r['launches']}")
+        check(all(v > 0 for v in n.values()),
+              f"train_ring: a rank did not launch every partial kernel: {n}")
+
+
+def phase_model_cnn(torch, np) -> None:
+    """The reference's CNN on the card in bf16 against the same weights
+    on the CPU in f32, at batch 256: the logits and every grad (cuDNN
+    convs and cuBLAS products: no kernel of this repository)."""
+    from tensorflow_distributed_tpu_torch.models.cnn import MnistCNN
+    from tensorflow_distributed_tpu_torch.ops.losses import (
+        softmax_cross_entropy)
+
+    ref_model = MnistCNN(compute_dtype=torch.float32, dropout_rate=0.0)
+    ref_model.init_weights(torch.Generator().manual_seed(0))
+    model = MnistCNN(compute_dtype=torch.bfloat16, dropout_rate=0.0).cuda()
+    model.load_state_dict(ref_model.state_dict())
+    rng = np.random.default_rng(0)
+    images = torch.from_numpy(rng.random((256, 28, 28, 1), dtype=np.float32))
+    labels = torch.from_numpy(rng.integers(0, 10, size=256))
+
+    def run(m, dev):
+        logits = m(images.to(dev))
+        softmax_cross_entropy(logits, labels.to(dev)).backward()
+        return logits.detach().cpu(), {n: p.grad.cpu()
+                                       for n, p in m.named_parameters()}
+
+    ref_logits, ref_grads = run(ref_model, "cpu")
+    logits, grads = run(model, "cuda")
+    torch.cuda.synchronize()
+    logit_err = float((logits - ref_logits).abs().max()
+                      / ref_logits.abs().max())
+    grad_err = {n: float((grads[n] - g).abs().max() / g.abs().max())
+                for n, g in ref_grads.items()}
+    emit({"phase": "model_cnn", "batch": 256, "logits_rel_err": logit_err,
+          "grads_rel_err": grad_err, "tolerance": TOL_MODEL})
+    check(logits.dtype == torch.float32 and logits.shape == (256, 10),
+          f"model_cnn: logits {logits.dtype} {tuple(logits.shape)}")
+    check(logit_err <= TOL_MODEL and max(grad_err.values()) <= TOL_MODEL,
+          f"the CNN on the card disagrees with the plain path: logits "
+          f"{logit_err}, grads {grad_err}")
+
+
+def check_fixture(data_dir: str) -> None:
+    """The accuracy bar must train on the committed idx files, not on
+    the synthetic digits the loader falls back to when they are
+    missing."""
+    from tensorflow_distributed_tpu_torch.data.mnist import load_dataset
+
+    train_ds, _, _ = load_dataset("mnist", data_dir, validation_size=64)
+    check(train_ds.name == "mnist",
+          f"the MNIST fixture did not load from {data_dir}: "
+          f"{train_ds.name}")
+
+
+def phase_train_cnn(kernels, torch) -> None:
+    """The reference's job through the port's CLI path on one card: (a)
+    the JAX package's default-tier accuracy bar on the committed MNIST
+    fixture, (b) a timing run at the JAX defaults (synthetic digits,
+    batch 256, dropout 0.25) with its step profile."""
+    check_fixture(FIXTURE_DIR)
+    bar = run_train(kernels, torch, "train_cnn", TRAIN_CNN_ARGV)
+    accuracy = bar["eval"]["accuracy"]
+    emit({"phase": "train_cnn", "run": "accuracy_bar",
+          "val_accuracy": accuracy, "bar": CNN_ACCURACY_BAR})
+    check(accuracy >= CNN_ACCURACY_BAR,
+          f"train_cnn: val accuracy {accuracy} < {CNN_ACCURACY_BAR}")
+    timing = run_train(kernels, torch, "train_cnn", TRAIN_CNN_TIMING_ARGV)
+    check(all(n == 0 for n in timing["launches"].values()),
+          f"the CNN launched a kernel of the GPT: {timing['launches']}")
+    emit({"phase": "train_cnn", "run": "profile", "steps": PROFILE_STEPS,
+          **profiled(torch, TRAIN_CNN_TIMING_ARGV)})
+
+
+def gpt_data_argv(rows: int):
+    """GPT-2-small at seq 1024 with the fused CE, ``rows`` global rows."""
+    return ["--mode", "train", "--model", "gpt_lm", "--model-size", "small",
+            "--seq-len", "1024", "--batch-size", str(rows), "--train-steps",
+            "5", "--eval-every", "5", "--eval-batch-size", str(rows),
+            "--dropout-rate", "0", "--compute-dtype", "bfloat16",
+            "--ce-chunk", "8192", "--ce-impl", "kernel", "--log-every", "1"]
+
+
+def data_runs(count: int):
+    """train_data's runs for ``count`` cards: (name, processes, argv,
+    the one-card argv on the same global batch, the kernels each rank
+    must launch). N = min(count, 4) processes, 8 GPT rows a data rank;
+    a (data 2, seq 2) GPT run on four cards."""
+    n = min(count, 4)
+    flash = ["flash_fwd", "flash_dq", "flash_dkv"]
+    ce = ["fused_ce_fwd", "fused_ce_dx", "fused_ce_dw"]
+    partial = ["flash_fwd_partial", "flash_dq_partial", "flash_dkv_partial"]
+    runs = [("mnist_cnn", n, TRAIN_DATA_CNN_ARGV + ["--mesh.data", str(n)],
+             TRAIN_DATA_CNN_ARGV, []),
+            ("gpt_lm", n, gpt_data_argv(8 * n) + ["--mesh.data", str(n)],
+             gpt_data_argv(8 * n), flash + ce)]
+    if n == 4:
+        runs.append(("gpt_lm_seq", 4, gpt_data_argv(16)
+                     + ["--mesh.data", "2", "--mesh.seq", "2"],
+                     gpt_data_argv(16), ce + partial))
+    return runs
+
+
+def phase_train_data(torch) -> None:
+    """Sync data parallelism: each run of ``data_runs`` under torchrun
+    (N processes, one card each, NCCL; on one card a real torchrun of
+    one process with an NCCL group of one), its first five losses held
+    to one card's on the same global batch, every rank's kernel
+    launches read, and the performance table printed by rank 0 only."""
+    for name, nproc, argv, one_argv, must_launch in data_runs(
+            torch.cuda.device_count()):
+        wall, ranks, outs = run_torchrun(f"train_data {name}", nproc, argv,
+                                         TRAIN_DATA_TIMEOUT_S)
+        one, one_sps = one_card_losses(one_argv)
+        diff = max(abs(a - b) for r in ranks
+                   for a, b in zip(r["losses"], one))
+        tables = [TABLE_HEADER in out for out in outs]
+        emit({"phase": "train_data", "run": name, "processes": nproc,
+              "argv": argv, "wall_s": round(wall, 3),
+              "losses": ranks[0]["losses"], "one_card_losses": one,
+              "max_loss_diff": diff, "tolerance": TOL_RING_LOSS,
+              "steps_per_sec": ranks[0]["steps_per_sec"],
+              "images_per_sec": ranks[0]["images_per_sec"],
+              "one_card_steps_per_sec": one_sps,
+              "launches_per_rank": [r["launches"] for r in ranks],
+              "table_from_ranks": [r for r, t in enumerate(tables) if t]})
+        for r in ranks:
+            check(len(r["losses"]) == 5,
+                  f"train_data {name}: {len(r['losses'])} loss records")
+        check(diff <= TOL_RING_LOSS,
+              f"train_data {name}: losses {[r['losses'] for r in ranks]} "
+              f"vs one card {one}")
+        check(all(r["launches"][k] > 0 for r in ranks for k in must_launch),
+              f"train_data {name}: a rank did not launch {must_launch}: "
+              f"{[r['launches'] for r in ranks]}")
+        check(tables == [True] + [False] * (nproc - 1),
+              f"train_data {name}: the table printed from ranks {tables}")
 
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if argv[:1] == ["--train-ring-rank"]:
+    if argv[:1] == ["--rank"]:
         sys.path.insert(0, REPO)
-        return train_ring_rank(argv[1], argv[2:])
+        return rank_entry(argv[1], argv[2:])
     try:
         import numpy as np
         import torch
@@ -1271,6 +1496,9 @@ def main(argv=None) -> int:
     partial = phase_ring_kernels(fa, torch, gpu)
     ring_launches = phase_ring(fa, ra, torch, gpu)
     phase_train_ring(torch)
+    phase_model_cnn(torch, np)
+    phase_train_cnn(kernels, torch)
+    phase_train_data(torch)
 
     err = {"flash_fwd": flash["errors"]["o_abs_err"],
            "flash_dq": flash["errors"]["dq_abs_err"],

@@ -2,6 +2,20 @@
 ``python -m tensorflow_distributed_tpu_torch.cli``.
 
 Examples:
+    # the reference's job: the MNIST CNN on one GPU, from the idx files
+    # under --data-dir (the synthetic digits, with a warning, when they
+    # are missing; --dataset synthetic asks for them):
+    python -m tensorflow_distributed_tpu_torch.cli --data-dir tests/fixtures/mnist \
+        --validation-size 64 --batch-size 64 --train-steps 50 \
+        --learning-rate 2e-3 --eval-every 25
+
+    # sync data parallelism: D processes, one GPU each (NCCL; rank r on
+    # cuda:r), each drawing its D-th of every global batch; with
+    # --device cpu the same over gloo:
+    torchrun --standalone --nproc-per-node 4 \
+        -m tensorflow_distributed_tpu_torch.cli --mesh.data 4 \
+        --dataset synthetic --train-steps 300
+
     # GPT-2-small training on one GPU (the flash kernels build on first
     # use into build/torch_ext/):
     python -m tensorflow_distributed_tpu_torch.cli --mode train \
@@ -20,17 +34,17 @@ Examples:
         --model-size tiny --seq-len 64 --batch-size 8 --train-steps 5 \
         --eval-batch-size 8 --compute-dtype float32 --device cpu
 
-    # sequence parallelism: ring attention over 4 processes, one GPU
-    # each (NCCL; rank r on cuda:r), through the partial-attention
-    # kernels; with --device cpu the same over gloo:
+    # sequence parallelism: ring attention over 4 processes through the
+    # partial-attention kernels; --mesh.data 2 --mesh.seq 2 makes two
+    # data rows of two-process rings:
     torchrun --standalone --nproc-per-node 4 \
         -m tensorflow_distributed_tpu_torch.cli --mesh.seq 4 --model gpt_lm \
         --model-size small --seq-len 1024 --batch-size 8 --train-steps 30
 
 Flags share the JAX CLI's spellings and defaults; flags the port does
 not parse yet are rejected (ROADMAP.md queue A lists what is still to
-come). The default model is the JAX package's ``mnist_cnn``, not ported
-yet, so every call names ``--model gpt_lm``.
+come). After training, the chief prints the eval records as the
+reference's ``performance`` table, as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -38,15 +52,29 @@ from __future__ import annotations
 import sys
 from typing import Optional, Sequence
 
-from tensorflow_distributed_tpu_torch.config import parse_args
+from tensorflow_distributed_tpu_torch.config import TrainConfig, parse_args
 from tensorflow_distributed_tpu_torch.parallel import mesh
-from tensorflow_distributed_tpu_torch.train.loop import train
+from tensorflow_distributed_tpu_torch.train.loop import TrainResult, train
+from tensorflow_distributed_tpu_torch.utils.logging import MetricLogger
+
+
+def train_and_report(cfg: TrainConfig,
+                     logger: Optional[MetricLogger] = None) -> TrainResult:
+    """Train ``cfg``; the chief then prints the reference's
+    ``performance`` table of the eval records, when there are any. The
+    caller ends the process group (``mesh.shutdown``)."""
+    result = train(cfg, logger=logger)
+    if mesh.is_chief():
+        table = result.logger.performance_table(cfg.learning_rate)
+        if table.count("\n"):
+            print(table, flush=True)
+    return result
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     cfg = parse_args(argv)
     try:
-        train(cfg)
+        train_and_report(cfg)
     finally:
         mesh.shutdown()
     return 0

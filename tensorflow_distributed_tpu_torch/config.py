@@ -7,10 +7,8 @@ helper. Flags of the JAX CLI that the port does not parse yet are
 rejected with an error that points at ROADMAP.md, never ignored.
 
 Every field shared with the JAX ``TrainConfig`` and ``MeshConfig`` has
-the JAX default, ``model`` included (ROADMAP.md C1, repaired): the bare
-CLI call selects the reference's ``mnist_cnn``, which the port refuses
-(not ported yet) rather than quietly training another model; pass
-``--model gpt_lm``.
+the JAX default, ``model`` included: the bare CLI call trains the
+reference's ``mnist_cnn`` on the MNIST idx files under ``--data-dir``.
 """
 
 from __future__ import annotations
@@ -25,31 +23,43 @@ OPTIMIZERS = ("adam", "sgd")
 COMPUTE_DTYPES = ("bfloat16", "float32")
 CE_IMPLS = ("scan", "kernel")
 MODEL_SIZES = ("", "small", "medium", "large", "xl", "tiny")
+LM_MODELS = ("gpt_lm",)
+VISION_MODELS = ("mnist_cnn",)
+DATASETS = ("mnist", "synthetic")
+INIT_SCHEMES = ("improved", "reference")
 
 
 @dataclasses.dataclass
 class MeshConfig:
-    """Logical device-mesh shape: the JAX ``MeshConfig``'s ``seq`` axis
-    (sequence parallelism, ring attention over ``seq`` processes, one
-    GPU each). The data, model, pipe and expert axes are not ported yet
-    (their flags are refused; see ROADMAP.md queue A)."""
+    """Logical device-mesh shape, one process (one GPU) per position:
+    the JAX ``MeshConfig``'s ``data`` axis (data parallelism, the
+    reference's worker replicas; -1 = every process that ``seq`` leaves
+    over) and ``seq`` axis (sequence parallelism, ring attention over
+    ``seq`` processes). The model, pipe and expert axes are not ported
+    yet (their flags are refused; see ROADMAP.md queue A)."""
 
+    data: int = -1
     seq: int = 1
 
     def validate(self) -> None:
         if self.seq < 1:
             raise ValueError(f"mesh.seq must be >= 1, got {self.seq}")
+        if self.data == 0 or self.data < -1:
+            raise ValueError(f"mesh.data must be -1 or >= 1, got {self.data}")
 
 
 @dataclasses.dataclass
 class TrainConfig:
-    """One training job of the port (gpt_lm on one device, or on
-    ``mesh.seq`` devices with ring attention)."""
+    """One training job of the port (mnist_cnn or gpt_lm on one device,
+    or on ``mesh.data`` x ``mesh.seq`` devices)."""
 
     # --- model -----------------------------------------------------------
-    # The JAX default; only gpt_lm is ported so far (validate() refuses
-    # the others, naming ROADMAP.md).
+    # mnist_cnn (the reference's CNN, the JAX default) | gpt_lm.
     model: str = "mnist_cnn"
+    # mnist_cnn's init: "improved" (He-normal kernels, zero biases) or
+    # "reference" (normal(1) for every weight and bias, as the
+    # reference's tf.random_normal).
+    init_scheme: str = "improved"
     # GPT-2 ladder size ("small" ... "xl") or "tiny"; empty = "small".
     model_size: str = ""
     dropout_rate: float = 0.25
@@ -69,7 +79,14 @@ class TrainConfig:
     # ops/fused_ce_kernel.py; kernel_supported() is the authority).
     ce_impl: str = "scan"  # scan | kernel
 
-    # --- data (synthetic causal-LM stream) --------------------------------
+    # --- data ------------------------------------------------------------
+    # mnist_cnn: "mnist" (the idx files under data_dir, or the synthetic
+    # digits with a warning when they are missing) | "synthetic". The LM
+    # trains on its synthetic token stream whatever this says.
+    dataset: str = "mnist"
+    data_dir: str = "/tmp/mnist-data"
+    # Rows carved off the head of the MNIST train split for validation.
+    validation_size: int = 5000
     # Sequence length: the data window AND the model's max_len
     # (0 = the family default, 128).
     seq_len: int = 0
@@ -87,6 +104,13 @@ class TrainConfig:
     weight_decay: float = 0.0
     grad_clip_norm: Optional[float] = None
     label_smoothing: float = 0.0
+    # Polyak/EMA weight averaging: eval runs on the f32 moving average of
+    # the params, updated after every step with this decay. 0 = off.
+    ema_decay: float = 0.0
+    # > 1: split each rank's batch into this many microbatches and
+    # accumulate their mean gradient before the one all-reduce and
+    # update (1/A the activation memory, same math).
+    grad_accum_steps: int = 1
     train_steps: int = 500
 
     # --- eval / logging --------------------------------------------------
@@ -99,8 +123,8 @@ class TrainConfig:
     seed: int = 0
     mode: str = "train"  # train (the only mode ported so far)
     # Where the run executes: "cuda" (default; fails if no GPU) or "cpu"
-    # (the plain versions of the kernels; tests). With mesh.seq > 1,
-    # rank r of torchrun's processes takes cuda:LOCAL_RANK.
+    # (the plain versions of the kernels; tests). Under torchrun, rank r
+    # takes cuda:LOCAL_RANK.
     device: str = "cuda"
 
     # --- mesh / parallelism ----------------------------------------------
@@ -114,8 +138,12 @@ class TrainConfig:
 
         if self.mode != "train":
             raise todo(f"--mode {self.mode}")
-        if self.model != "gpt_lm":
+        if self.model not in LM_MODELS + VISION_MODELS:
             raise todo(f"--model {self.model}")
+        if self.dataset not in DATASETS:
+            raise todo(f"--dataset {self.dataset}")
+        if self.init_scheme not in INIT_SCHEMES:
+            raise ValueError(f"unknown init_scheme {self.init_scheme!r}")
         if self.optimizer not in OPTIMIZERS:
             raise todo(f"--optimizer {self.optimizer}")
         if self.model_size not in MODEL_SIZES:
@@ -128,21 +156,42 @@ class TrainConfig:
                              f"{COMPUTE_DTYPES}")
         if self.device != "cpu" and not self.device.startswith("cuda"):
             raise ValueError(f"device {self.device!r}; have cpu | cuda[:N]")
-        if self.device != "cpu" and self.compute_dtype != "bfloat16":
+        lm = self.model in LM_MODELS
+        if lm and self.device != "cpu" and self.compute_dtype != "bfloat16":
             raise todo(f"--compute-dtype {self.compute_dtype} on a GPU (the "
                        f"flash kernels take bfloat16)")
         for name in ("batch_size", "eval_batch_size"):
             if getattr(self, name) <= 0:
                 raise ValueError(f"{name} must be > 0")
         for name in ("train_steps", "eval_every", "log_every", "seq_len",
-                     "synthetic_vocab", "warmup_steps"):
+                     "synthetic_vocab", "warmup_steps", "validation_size"):
             if getattr(self, name) < 0:
                 raise ValueError(f"{name} must be >= 0")
         if not 0.0 <= self.dropout_rate < 1.0:
             raise ValueError("dropout_rate must be in [0, 1)")
+        if not 0.0 <= self.ema_decay < 1.0:
+            raise ValueError(
+                f"ema_decay must be in [0, 1), got {self.ema_decay}")
+        if self.grad_accum_steps < 1:
+            raise ValueError(f"grad_accum_steps must be >= 1, got "
+                             f"{self.grad_accum_steps}")
+        if self.batch_size % self.grad_accum_steps:
+            raise ValueError(
+                f"batch_size {self.batch_size} not divisible by "
+                f"grad_accum_steps {self.grad_accum_steps}")
+        for name in ("seq_len", "synthetic_vocab"):
+            if getattr(self, name) and not lm:
+                raise ValueError(
+                    f"{name} has no effect on model={self.model!r} (LM "
+                    f"families only); drop the flag")
         if self.ce_chunk < 0:
             raise ValueError(
                 f"ce_chunk must be >= 0, got {self.ce_chunk}")
+        if self.ce_chunk and not lm:
+            raise ValueError(
+                f"ce_chunk has no effect on model={self.model!r} (the "
+                f"fused head+loss exists for the LM families' 50k-row "
+                f"vocabs); drop the flag")
         if self.ce_impl not in CE_IMPLS:
             raise ValueError(
                 f"unknown ce_impl {self.ce_impl!r}; have {CE_IMPLS}")
@@ -183,8 +232,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> TrainConfig:
     parser = argparse.ArgumentParser(
         prog="tensorflow_distributed_tpu_torch",
         description="PyTorch/CUDA port of tensorflow_distributed_tpu "
-        "(GPT causal-LM training on one GPU, or on --mesh.seq GPUs with "
-        "ring attention under torchrun)",
+        "(the reference's MNIST CNN or a GPT causal LM, on one GPU or on "
+        "--mesh.data x --mesh.seq GPUs under torchrun)",
         allow_abbrev=False)
     _add_dataclass_args(parser, TrainConfig)
     ns, unknown = parser.parse_known_args(argv)

@@ -1,12 +1,15 @@
 """Weights carried across from the JAX package.
 
-``params_from_flax`` maps the param tree that the JAX ``gpt_lm`` builds
-(a nested dict of numpy arrays, e.g. ``jax.device_get(state.params)``)
-to a state dict of the port's ``CausalLM``. Names mirror each other
+``params_from_flax`` maps the param tree that the JAX ``gpt_lm`` or
+``mnist_cnn`` builds (a nested dict of numpy arrays, e.g.
+``jax.device_get(state.params)``) to a state dict of the port's
+``CausalLM`` or ``MnistCNN``. Names mirror each other
 (``layer_0/attn/qkv/kernel`` -> ``layer_0.attn.qkv.weight``); the
 kernels change layout:
 
 - flax Dense kernels are ``[in, out]``, torch Linear weights ``[out, in]``;
+- flax Conv kernels (``conv*``) are HWIO ``[5, 5, I, O]``, torch Conv2d
+  weights OIHW;
 - the attention ``qkv`` DenseGeneral kernel ``[D, 3, H, dh]`` (bias
   ``[3, H, dh]``) flattens its output axes, and ``out`` ``[H, dh, D]``
   flattens its two contracted input axes.
@@ -35,10 +38,12 @@ def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     out = {}
     for path, leaf in _walk(tree):
         *module, name = path
-        if name == "kernel":
-            # DenseGeneral "out" contracts two input axes ([H, dh, D]);
-            # every other kernel contracts one.
-            n_in = 2 if module[-1] == "out" else 1
+        if name == "kernel" and module[-1].startswith("conv"):
+            value = leaf.transpose(3, 2, 0, 1)
+        elif name == "kernel":
+            # The attention's DenseGeneral "out" contracts two input
+            # axes ([H, dh, D]); every other kernel contracts one.
+            n_in = 2 if module[-1] == "out" and leaf.ndim == 3 else 1
             rows = int(np.prod(leaf.shape[:n_in]))
             value = leaf.reshape(rows, -1).T
         elif name in ("embedding", "scale"):

@@ -129,7 +129,7 @@ def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
                         ln.eps)
 
 
-def _dropout(x: torch.Tensor, rate: float, train: bool,
+def dropout(x: torch.Tensor, rate: float, train: bool,
              generator: Optional[torch.Generator]) -> torch.Tensor:
     """flax nn.Dropout: keep with probability 1 - rate, scale kept
     values by 1 / (1 - rate); drawn from the caller's generator."""
@@ -204,9 +204,9 @@ class Block(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         cfg = self.cfg
         y = self.attn(_layer_norm(x, self.ln1).to(cfg.compute_dtype))
-        x = x + _dropout(y, cfg.dropout_rate, train, generator)
+        x = x + dropout(y, cfg.dropout_rate, train, generator)
         y = self.mlp(_layer_norm(x, self.ln2).to(cfg.compute_dtype))
-        return x + _dropout(y, cfg.dropout_rate, train, generator)
+        return x + dropout(y, cfg.dropout_rate, train, generator)
 
 
 class _LmHead(nn.Linear):

@@ -1,8 +1,10 @@
-"""Masked cross-entropy and accuracy: the port of ``ops/losses.py``'s
-sequence losses.
+"""Cross-entropy and accuracy: the port of ``ops/losses.py``.
 
-Computed in float32 regardless of the model's compute dtype, as the JAX
-package does. Argmax takes the first maximum, as ``jnp.argmax`` does.
+The reference's classification loss (mean softmax cross-entropy over
+int labels, with a label-smoothing knob) and argmax accuracy, and the
+masked sequence losses of the LM families. Computed in float32
+regardless of the model's compute dtype, as the JAX package does.
+Argmax takes the first maximum, as ``jnp.argmax`` does.
 """
 
 from __future__ import annotations
@@ -34,6 +36,28 @@ def masked_ce_sums(logits: torch.Tensor, targets: torch.Tensor,
     pred = logits.argmax(dim=-1)
     correct = ((pred == targets).float() * mask).sum()
     return ce_sum, correct, mask.sum()
+
+
+def ce_sums(logits: torch.Tensor, labels: torch.Tensor,
+            label_smoothing: float = 0.0):
+    """(ce_sum, correct_sum, row count) of classification logits [B, C]
+    against int labels [B]: every row counts."""
+    ones = torch.ones(labels.shape, device=labels.device)
+    return masked_ce_sums(logits, labels, ones, label_smoothing)
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          label_smoothing: float = 0.0) -> torch.Tensor:
+    """Mean softmax cross-entropy; ``labels`` are int class ids (the
+    reference fed one-hot labels: the same math)."""
+    ce_sum, _, n = ce_sums(logits, labels, label_smoothing)
+    return ce_sum / n
+
+
+def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Fraction of argmax predictions equal to labels."""
+    _, correct, n = ce_sums(logits, labels)
+    return correct / n
 
 
 def masked_softmax_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,

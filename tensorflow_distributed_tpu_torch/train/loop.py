@@ -1,5 +1,5 @@
 """The training loop: the port of ``train/loop.py``'s ``train`` and
-``evaluate``, on one device or over ``--mesh.seq`` processes.
+``evaluate``, on one device or over a (data, seq) mesh of processes.
 
 Same cadence as the JAX loop: the first step runs apart from the timed
 span (it carries one-time set-up: CUDA context, library handles, the
@@ -7,11 +7,13 @@ kernel build on a fresh checkout), metrics are fetched to the host
 every ``log_every`` steps, eval runs every ``eval_every`` steps and once
 at the end, and the run ends with a JSON ``done`` record.
 
-With ``--mesh.seq S`` (S processes under torchrun, one GPU each; see
-``parallel/mesh.py``) every rank draws the same global batch from the
-seeded batcher and keeps its contiguous block ``[d*L/S, (d+1)*L/S)`` of
-the sequence axis; the parameters start from rank 0's copy; the step
-records, eval records and the ``done`` record come from the chief only.
+Under ``--mesh.data D --mesh.seq S`` (D*S processes under torchrun, one
+GPU each; see ``parallel/mesh.py``) each rank draws only its data
+rank's rows of every global batch and keeps its contiguous block
+``[s*L/S, (s+1)*L/S)`` of the sequence axis; batches reach the device
+through ``data/prefetch.py``; the parameters start from rank 0's copy;
+eval metrics are world means; the step records, eval records and the
+``done`` record come from the chief only.
 """
 
 from __future__ import annotations
@@ -23,11 +25,14 @@ import numpy as np
 import torch
 
 from tensorflow_distributed_tpu_torch.config import TrainConfig
+from tensorflow_distributed_tpu_torch.data.prefetch import (
+    map_batch, prefetch, to_device)
 from tensorflow_distributed_tpu_torch.models import build_model
-from tensorflow_distributed_tpu_torch.parallel import mesh
+from tensorflow_distributed_tpu_torch.parallel import mesh as mesh_lib
+from tensorflow_distributed_tpu_torch.parallel.mesh import ONE_PROCESS, Mesh
 from tensorflow_distributed_tpu_torch.train.optim import make_optimizer
 from tensorflow_distributed_tpu_torch.train.state import (
-    TrainState, create_train_state, param_count)
+    TrainState, create_train_state, ema_init, param_count)
 from tensorflow_distributed_tpu_torch.train.step import (
     make_eval_step, make_train_step)
 from tensorflow_distributed_tpu_torch.train.tasks import Task, make_task
@@ -56,28 +61,28 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def to_device(batch: Dict[str, np.ndarray], device: torch.device
-              ) -> Dict[str, torch.Tensor]:
-    """Host batch -> device tensors (pinned, asynchronous copies on a
-    GPU so the host keeps dispatching)."""
-    out = {}
-    for k, v in batch.items():
-        t = torch.from_numpy(np.ascontiguousarray(v))
-        if device.type == "cuda":
-            t = t.pin_memory()
-        out[k] = t.to(device, non_blocking=True)
-    return out
-
-
-def seq_block(batch: Dict[str, np.ndarray], ring
-              ) -> Dict[str, np.ndarray]:
-    """This rank's contiguous block of the sequence axis of a global
-    [B, L] batch (the whole batch without a ring)."""
-    if ring is None:
+def data_rows(batch, mesh: Mesh):
+    """This data rank's rows of a global batch (dict or tuple)."""
+    if mesh.data == 1:
         return batch
-    n = next(iter(batch.values())).shape[1] // ring.size
-    lo = ring.index * n
-    return {k: v[:, lo:lo + n] for k, v in batch.items()}
+    n = len(next(iter(batch.values())) if isinstance(batch, dict)
+            else batch[0]) // mesh.data
+    lo = mesh.data_index * n
+    return map_batch(lambda v: v[lo:lo + n], batch)
+
+
+def seq_block(batch, mesh: Mesh, seq_axis: Optional[int]):
+    """This rank's contiguous block of the sequence axis (``seq_axis``
+    of each array) under ``mesh.seq > 1``; the batch itself otherwise."""
+    if seq_axis is None or mesh.seq == 1:
+        return batch
+
+    def block(v):
+        n = v.shape[seq_axis] // mesh.seq
+        return np.take(v, np.arange(mesh.seq_index * n,
+                                    (mesh.seq_index + 1) * n), seq_axis)
+
+    return map_batch(block, batch)
 
 
 def _sync(device: torch.device) -> None:
@@ -86,45 +91,57 @@ def _sync(device: torch.device) -> None:
 
 
 def evaluate(state: TrainState, eval_fn, task: Task, batch: int,
-             device: torch.device, ring=None) -> Dict[str, float]:
-    """Full-split eval in fixed-size batches; CLM also reports
-    perplexity = exp(mean cross-entropy). With a ``ring`` every rank
-    evaluates its block of each batch (the metrics are group means)."""
-    batch = min(batch, task.eval_size)
+             device: torch.device, mesh: Mesh = ONE_PROCESS
+             ) -> Dict[str, float]:
+    """Full-split eval in fixed-size batches (clamped to the split,
+    rounded to a multiple of the data width, the remainder dropped as
+    the JAX loop drops it); CLM also reports perplexity = exp(mean
+    cross-entropy). Each rank evaluates its rows and sequence block of
+    every batch; the metrics are world means (the loss all-reduces its
+    sums)."""
+    batch = min(batch, (task.eval_size // mesh.data) * mesh.data)
+    if batch == 0:
+        raise ValueError(f"validation split ({task.eval_size} rows) smaller "
+                         f"than the mesh data axis ({mesh.data})")
     totals: Dict[str, float] = {}
     count = 0
     for host_batch in task.eval_batches(batch):
-        m = eval_fn(state, to_device(seq_block(host_batch, ring), device))
+        local = seq_block(data_rows(host_batch, mesh), mesh, task.seq_axis)
+        m = eval_fn(state, to_device(local, device))
         for k, v in m.items():
             totals[k] = totals.get(k, 0.0) + float(v) * batch
         count += batch
     out = {k: v / max(count, 1) for k, v in totals.items()}
     if "loss" in out and task.name.endswith("clm"):
         out["perplexity"] = float(np.exp(out["loss"]))
-    if count < task.eval_size and mesh.is_chief():
+    if count < task.eval_size and mesh_lib.is_chief():
         print(f"[eval] split has {task.eval_size} rows; evaluated "
               f"{count} (remainder dropped by batch size {batch})")
     return out
 
 
 def _build_model_and_state(cfg: TrainConfig, device: torch.device,
-                           init_params=None, ring=None):
-    size_kw = {"size": cfg.model_size or "small", "ring": ring}
-    if cfg.synthetic_vocab:
-        size_kw["vocab_size"] = cfg.synthetic_vocab
-    if cfg.seq_len:
-        size_kw["max_len"] = cfg.seq_len
-    if cfg.tie_embeddings:
-        size_kw["tie_embeddings"] = cfg.tie_embeddings
+                           init_params=None, mesh: Mesh = ONE_PROCESS):
+    if cfg.model == "gpt_lm":
+        kw = {"size": cfg.model_size or "small", "ring": mesh.ring}
+        if cfg.synthetic_vocab:
+            kw["vocab_size"] = cfg.synthetic_vocab
+        if cfg.seq_len:
+            kw["max_len"] = cfg.seq_len
+        if cfg.tie_embeddings:
+            kw["tie_embeddings"] = cfg.tie_embeddings
+    else:
+        kw = {"init_scheme": cfg.init_scheme}
     dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
              else torch.float32)
     with torch.device(device):
         model = build_model(cfg.model, dropout_rate=cfg.dropout_rate,
-                            compute_dtype=dtype, **size_kw)
+                            compute_dtype=dtype, **kw)
     tx = make_optimizer(cfg, model)
     state = create_train_state(model, tx, cfg.seed, init_params)
-    if ring is not None:  # every rank starts from rank 0's parameters
-        mesh.broadcast_(model.parameters(), 0, ring.group)
+    mesh.broadcast_(model.parameters())  # every rank starts from rank 0's
+    if cfg.ema_decay:
+        state.ema = ema_init(state.params)
     return model, state
 
 
@@ -133,30 +150,42 @@ def train(cfg: TrainConfig, logger: Optional[MetricLogger] = None,
           ) -> TrainResult:
     """Train ``cfg`` on its device. ``init_params`` (a state dict)
     replaces the seeded init, so a run can start from the JAX package's
-    init (``interop.params_from_flax``) for parity checks. With
-    ``cfg.mesh.seq > 1`` this is one rank of the ring (``parallel/
+    init (``interop.params_from_flax``) for parity checks. Under
+    torchrun this is one rank of the (data, seq) mesh (``parallel/
     mesh.py``): the process group is started from torchrun's
     environment unless the caller has started one; the caller ends it
     (``mesh.shutdown``)."""
     cfg.validate()
-    device = resolve_device(mesh.rank_device(cfg.device, cfg.mesh.seq))
-    ring = mesh.bootstrap(cfg.mesh.seq, device)
+    device = resolve_device(mesh_lib.rank_device(cfg.device))
+    data, seq = mesh_lib.mesh_shape(cfg.mesh.data, cfg.mesh.seq)
+    why = mesh_lib.mesh_infeasible({"data": data, "seq": seq}, data * seq,
+                                   cfg.batch_size)
+    if why:
+        raise ValueError(f"--mesh.data {data} --mesh.seq {seq}: {why}")
+    if (cfg.batch_size // data) % cfg.grad_accum_steps:
+        raise ValueError(
+            f"grad_accum_steps {cfg.grad_accum_steps} must divide the "
+            f"per-rank batch {cfg.batch_size // data} (batch_size / "
+            f"mesh.data)")
+    mesh = mesh_lib.bootstrap(data, seq, device)
     logger = logger or MetricLogger()
-    if not mesh.is_chief():
+    if not mesh_lib.is_chief():
         logger.enabled = False  # every rank keeps its records; one prints
-    task = make_task(cfg, ring)
-    if task.seq_len % cfg.mesh.seq:
-        raise ValueError(f"--mesh.seq {cfg.mesh.seq} must divide the "
+    task = make_task(cfg, mesh)
+    if task.seq_axis is not None and task.seq_len % mesh.seq:
+        raise ValueError(f"--mesh.seq {mesh.seq} must divide the "
                          f"sequence length {task.seq_len}")
-    model, state = _build_model_and_state(cfg, device, init_params, ring)
+    model, state = _build_model_and_state(cfg, device, init_params, mesh)
     step_fn = make_train_step(task.loss, device, cfg.seed,
-                              grad_norm_metric=cfg.log_grad_norm, ring=ring)
+                              grad_norm_metric=cfg.log_grad_norm, mesh=mesh,
+                              accum_steps=cfg.grad_accum_steps,
+                              ema_decay=cfg.ema_decay)
     eval_fn = make_eval_step(task.eval_loss or task.loss)
     logger.log_json({
         "event": "start", "model": cfg.model, "task": task.name,
         "params": param_count(model), "device": str(device),
         "global_batch": cfg.batch_size, "start_step": 0,
-        "mesh": {"seq": cfg.mesh.seq},
+        "mesh": {"data": mesh.data, "seq": mesh.seq},
     })
 
     def cadence(step_now: int, metrics) -> None:
@@ -164,28 +193,25 @@ def train(cfg: TrainConfig, logger: Optional[MetricLogger] = None,
             logger.log(step_now, **{k: float(v) for k, v in metrics.items()})
         if cfg.eval_every and step_now % cfg.eval_every == 0:
             em = evaluate(state, eval_fn, task, cfg.eval_batch_size, device,
-                          ring)
+                          mesh)
             logger.log(step_now, **{f"val_{k}": v for k, v in em.items()})
 
-    stream = task.train_stream(0)
-
-    def next_batch():
-        return to_device(seq_block(next(stream), ring), device)
-
+    batches = prefetch((seq_block(b, mesh, task.seq_axis)
+                        for b in task.train_stream(0)), device)
     with Timer() as first_t:
         if cfg.train_steps > 0:
-            state, metrics = step_fn(state, next_batch())
+            state, metrics = step_fn(state, next(batches))
             _sync(device)
             cadence(1, metrics)
     steps_done = 1 if cfg.train_steps > 0 else 0
     with Timer() as train_t:
         for i in range(steps_done, cfg.train_steps):
-            state, metrics = step_fn(state, next_batch())
+            state, metrics = step_fn(state, next(batches))
             cadence(i + 1, metrics)
         _sync(device)
     with Timer() as eval_t:
         final = evaluate(state, eval_fn, task, cfg.eval_batch_size, device,
-                         ring)
+                         mesh)
     steady = max(state.step - steps_done, 0)
     sps = steady / train_t.elapsed if train_t.elapsed > 0 else 0.0
     result = TrainResult(
@@ -193,12 +219,13 @@ def train(cfg: TrainConfig, logger: Optional[MetricLogger] = None,
         eval_seconds=eval_t.elapsed, final_metrics=final,
         steps_per_sec=sps, images_per_sec=sps * cfg.batch_size,
         logger=logger)
-    logger.log_json({
-        "event": "done", "steps": state.step,
-        "train_seconds": round(result.train_seconds, 3),
-        "first_step_seconds": round(first_t.elapsed, 3),
-        "steps_per_sec": round(sps, 3),
-        "tokens_per_sec": round(sps * cfg.batch_size * task.seq_len, 1),
-        **{f"val_{k}": round(v, 5) for k, v in final.items()},
-    })
+    done = {"event": "done", "steps": state.step,
+            "train_seconds": round(result.train_seconds, 3),
+            "first_step_seconds": round(first_t.elapsed, 3),
+            "steps_per_sec": round(sps, 3),
+            "images_per_sec": round(result.images_per_sec, 1)}
+    if task.seq_len:
+        done["tokens_per_sec"] = round(sps * cfg.batch_size * task.seq_len, 1)
+    logger.log_json({**done,
+                     **{f"val_{k}": round(v, 5) for k, v in final.items()}})
     return result

@@ -70,14 +70,15 @@ def make_schedule(cfg: TrainConfig) -> Schedule:
 
 def decay_mask(model: nn.Module) -> Dict[str, bool]:
     """Weight-decay mask by parameter name: the flax leaves named
-    ``kernel`` or ``embedding`` are the ``weight`` of a Linear or an
-    Embedding here; biases and LayerNorm scales/offsets never decay."""
+    ``kernel`` or ``embedding`` are the ``weight`` of a Linear, a Conv2d
+    or an Embedding here; biases and LayerNorm scales/offsets never
+    decay."""
     mask = {}
     for mod_name, module in model.named_modules():
         for p_name, _ in module.named_parameters(recurse=False):
             full = f"{mod_name}.{p_name}" if mod_name else p_name
             mask[full] = (p_name == "weight" and isinstance(
-                module, (nn.Linear, nn.Embedding)))
+                module, (nn.Linear, nn.Conv2d, nn.Embedding)))
     return mask
 
 

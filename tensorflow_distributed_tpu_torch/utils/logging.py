@@ -2,7 +2,8 @@
 
 ``MetricLogger`` prints step records as ``[step N] t=...s k=v`` lines and
 other events as one JSON object per line (the JAX StdoutSink format),
-and keeps the step records in a bounded ring buffer.
+keeps the step records in a bounded ring buffer, and renders the eval
+records as the reference's ``performance`` table.
 """
 
 from __future__ import annotations
@@ -44,6 +45,20 @@ class MetricLogger:
     def log_json(self, payload: Dict[str, Any]) -> None:
         if self.enabled:
             print(json.dumps(payload), file=self.stream, flush=True)
+
+    def performance_table(self, learning_rate: float) -> str:
+        """The eval records (val_accuracy rows only) in the reference's
+        ``performance`` file format: ``Steps, Time, Accuracy, Learning
+        rate``."""
+        lines = ["Steps,        Time,      Accuracy,  Learning rate"]
+        for rec in self.records:
+            if "val_accuracy" not in rec.metrics:
+                continue
+            lines.append(
+                f"{rec.step},        {rec.wall_time:.0f} seconds,  "
+                f"{100.0 * rec.metrics['val_accuracy']:.2f},      "
+                f"{learning_rate}")
+        return "\n".join(lines)
 
 
 @dataclass

@@ -209,3 +209,99 @@ def test_ptxas_lines_are_grouped_by_kernel():
     got = cs.ptxas_by_kernel(log)
     assert sorted(got) == ["_Z3barPf", "_Z3fooPf"]
     assert not cs.spills(got["_Z3fooPf"]) and cs.spills(got["_Z3barPf"])
+
+
+def test_new_phases_run_after_the_ring_in_order():
+    """model_cnn, train_cnn and train_data run after every earlier phase
+    (train_ring last of those), before the kernels line."""
+    import inspect
+
+    src = inspect.getsource(cs.main)
+    order = ["phase_device(", "phase_build(", "phase_kernels(",
+             "phase_ce_kernels(", "phase_model(", "phase_model_fused(",
+             "phase_train(", "phase_train_fused(", "phase_step_profile(",
+             "phase_ring_kernels(", "phase_ring(", "phase_train_ring(",
+             "phase_model_cnn(", "phase_train_cnn(", "phase_train_data(",
+             'emit({"kernels"']
+    at = [src.index(call) for call in order]
+    assert at == sorted(at)
+
+
+@pytest.mark.parametrize("count", [1, 2, 3, 4, 8])
+def test_train_data_argv_parses(count):
+    """Every run's argv and its one-card twin parse: the same global
+    batch, 8 GPT rows a data rank, the mesh only in the torchrun argv."""
+    from tensorflow_distributed_tpu_torch.config import parse_args
+
+    runs = cs.data_runs(count)
+    n = min(count, 4)
+    assert [r[0] for r in runs] == (["mnist_cnn", "gpt_lm"]
+                                    + (["gpt_lm_seq"] if n == 4 else []))
+    for name, nproc, argv, one_argv, must_launch in runs:
+        cfg, one = parse_args(argv), parse_args(one_argv)
+        assert cfg.mesh.data * cfg.mesh.seq == nproc
+        assert (one.mesh.data, one.mesh.seq) == (-1, 1)
+        assert cfg.batch_size == one.batch_size
+        assert cfg.dropout_rate == 0.0 and cfg.train_steps == 5
+        if name.startswith("gpt"):
+            assert cfg.batch_size // cfg.mesh.data == 8
+            assert set(must_launch) >= {"fused_ce_fwd", "fused_ce_dx",
+                                        "fused_ce_dw"}
+        assert set(must_launch) <= set(cs.REPLACES)
+
+
+def test_one_card_still_runs_torchrun(monkeypatch):
+    """With one card train_data is a torchrun of one process, not a
+    skip: the first run goes to torchrun with one process."""
+    calls = []
+
+    class Stop(Exception):
+        pass
+
+    def fake_run(phase, nproc, argv, timeout):
+        calls.append((nproc, argv))
+        raise Stop
+
+    torch_one = type("T", (), {"cuda": type("C", (), {
+        "device_count": staticmethod(lambda: 1)})})
+    monkeypatch.setattr(cs, "run_torchrun", fake_run)
+    with pytest.raises(Stop):
+        cs.phase_train_data(torch_one)
+    assert calls[0][0] == 1 and "--mesh.data" in calls[0][1]
+    line = cs.torchrun_command(1, "/out", ["--model", "mnist_cnn"])
+    assert line[1:3] == ["-m", "torch.distributed.run"]
+    assert "--nproc-per-node=1" in line
+    assert line[-4:] == ["--rank", "/out", "--model", "mnist_cnn"]
+
+
+def test_accuracy_bar_asserts_the_fixture_is_real(tmp_path, monkeypatch):
+    from tensorflow_distributed_tpu_torch.config import parse_args
+
+    cs.check_fixture(cs.FIXTURE_DIR)
+    with pytest.raises(SystemExit):
+        cs.check_fixture(str(tmp_path))  # the synthetic fall-back fails
+    cfg = parse_args(cs.TRAIN_CNN_ARGV)
+    assert (cfg.model, cfg.dataset, cfg.data_dir) == (
+        "mnist_cnn", "mnist", cs.FIXTURE_DIR)
+    assert (cfg.validation_size, cfg.batch_size, cfg.train_steps,
+            cfg.learning_rate) == (64, 64, 50, 2e-3)
+    seen = []
+    monkeypatch.setattr(cs, "check_fixture", seen.append)
+    monkeypatch.setattr(cs, "run_train", lambda *a: (_ for _ in ()).throw(
+        SystemExit(0)))
+    with pytest.raises(SystemExit):
+        cs.phase_train_cnn([], None)
+    assert seen == [cs.FIXTURE_DIR]  # checked before the run
+
+
+@pytest.mark.parametrize("script", ["torch_multicard.py", "torch_cnn_bar.py"])
+def test_card_scripts_fail_without_a_gpu(script):
+    import subprocess
+    import sys
+
+    out = subprocess.run(
+        [sys.executable, os.path.join(REPO, "scripts", script)], cwd=REPO,
+        capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert out.returncode != 0 and "FAILED" in out.stderr
+    assert out.stdout == ""

@@ -48,12 +48,15 @@ def test_port_and_chip_smoke_import_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("OK")
-    # Every module of the port: config, cli, interop, models, ops (the
-    # fused-CE modules included), parallel (ring_attention and mesh),
-    # data, train, utils.
+    # Every module of the port: config, cli, interop, models (the CNN
+    # included), ops (the fused-CE modules included), parallel
+    # (ring_attention and mesh), data (MNIST and the prefetcher
+    # included), train, utils.
     words = out.stdout.split()
-    assert int(words[1]) >= 23
-    assert "tensorflow_distributed_tpu_torch.parallel.mesh" in words[2:]
+    assert int(words[1]) >= 26
+    for name in ("parallel.mesh", "models.cnn", "data.mnist",
+                 "data.prefetch"):
+        assert f"tensorflow_distributed_tpu_torch.{name}" in words[2:]
 
 
 def _run_smoke(cwd):

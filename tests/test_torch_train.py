@@ -31,6 +31,7 @@ from tensorflow_distributed_tpu_torch.data import lm as tlm
 from tensorflow_distributed_tpu_torch.ops import losses as tlosses
 from tensorflow_distributed_tpu_torch.train import loop as tloop
 from tensorflow_distributed_tpu_torch.utils.logging import MetricLogger
+from tests.conftest import FIXTURE_DIR
 from torch_ring_workers import spawn_ranks, train_run
 
 TINY = dict(model="gpt_lm", model_size="tiny", seq_len=32, batch_size=8,
@@ -287,8 +288,10 @@ def test_parse_args_spellings_and_defaults():
         assert getattr(TrainConfig(), name) == getattr(jcfg, name), name
 
 
-@pytest.mark.parametrize("argv", [["--mesh.data", "8"], ["--pos-emb", "rope"],
-                                  ["--dataset", "text"], ["--remat", "dots"],
+@pytest.mark.parametrize("argv", [["--data-backend", "u8_native"],
+                                  ["--pos-emb", "rope"],
+                                  ["--grad-sync", "overlap"],
+                                  ["--remat", "dots"],
                                   ["--mesh.model", "2"], ["--mesh.pipe", "2"],
                                   ["--mesh.expert", "2"]])
 def test_unported_jax_flags_are_rejected(argv, capsys):
@@ -297,10 +300,12 @@ def test_unported_jax_flags_are_rejected(argv, capsys):
     assert "ROADMAP" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("fields", [dict(model="mnist_cnn"),
+@pytest.mark.parametrize("fields", [dict(model="resnet20"),
                                     dict(mode="serve"),
                                     dict(optimizer="adafactor"),
-                                    dict(compute_dtype="float32")])
+                                    dict(compute_dtype="float32"),
+                                    dict(dataset="text"),
+                                    dict(dataset="cifar10")])
 def test_unported_values_raise(fields):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TrainConfig(**dict(dict(model="gpt_lm"), **fields)).validate()
@@ -309,25 +314,45 @@ def test_unported_values_raise(fields):
 def test_shared_fields_have_the_jax_defaults():
     """Every field the port's TrainConfig and MeshConfig share with the
     JAX dataclasses has the JAX default, so one bare CLI call means one
-    job in both (the model included: mnist_cnn, refused by the port
-    until it is ported)."""
+    job in both (the model included: the reference's mnist_cnn)."""
     port, ref = TrainConfig(), JaxConfig()
     shared = ({f.name for f in dataclasses.fields(TrainConfig)}
               & {f.name for f in dataclasses.fields(JaxConfig)}) - {"mesh"}
-    assert {"model", "batch_size", "learning_rate", "seed"} <= shared
+    assert {"model", "batch_size", "learning_rate", "seed", "dataset",
+            "data_dir", "validation_size", "init_scheme", "grad_accum_steps",
+            "ema_decay"} <= shared
     for name in sorted(shared):
         assert getattr(port, name) == getattr(ref, name), name
     mesh = ({f.name for f in dataclasses.fields(type(port.mesh))}
             & {f.name for f in dataclasses.fields(type(ref.mesh))})
-    assert mesh == {"seq"}
+    assert mesh == {"data", "seq"}
     for name in mesh:
         assert getattr(port.mesh, name) == getattr(ref.mesh, name), name
     assert port.model == "mnist_cnn"
 
 
 def test_bare_cli_call_refuses_the_unported_default_model(capsys):
-    with pytest.raises(NotImplementedError, match="mnist_cnn.*ROADMAP"):
+    """The bare call now selects the ported mnist_cnn; on a machine
+    without CUDA it is refused by the device, with the fix named."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="pass --device cpu"):
         cli.main([])
+
+
+def test_cli_trains_mnist_cnn_on_cpu_and_prints_the_table(capsys):
+    """A few steps of the reference's job on the committed fixture, then
+    the chief's performance table (one row per eval)."""
+    argv = ["--device", "cpu", "--data-dir", FIXTURE_DIR,
+            "--validation-size", "64", "--batch-size", "32",
+            "--train-steps", "4", "--eval-every", "2", "--log-every", "2",
+            "--eval-batch-size", "64"]
+    assert cli.main(argv) == 0
+    out = capsys.readouterr().out
+    assert '"images_per_sec"' in out and '"mesh": {"data": 1, "seq": 1}' in out
+    table = out[out.index("Steps,        Time,"):].strip().splitlines()
+    assert len(table) == 3 and table[1].startswith("2,")
+    assert table[2].startswith("4,") and table[2].endswith("0.001")
 
 
 def test_cuda_device_without_cuda_fails_loudly():

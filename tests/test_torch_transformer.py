@@ -202,9 +202,11 @@ def test_unported_options_raise(override):
 
 
 def test_registry():
-    assert MODEL_NAMES == ("gpt_lm",)
+    assert MODEL_NAMES == ("mnist_cnn", "gpt_lm")
     m = build_model("gpt_lm", size="tiny", compute_dtype=torch.float32)
     assert isinstance(m, ttr.CausalLM) and m.cfg.causal
+    cnn = build_model("mnist_cnn", dropout_rate=0.5, init_scheme="reference")
+    assert (cnn.dropout_rate, cnn.init_scheme) == (0.5, "reference")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model("bert_mlm")
 

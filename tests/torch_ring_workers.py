@@ -94,15 +94,17 @@ def ring_cases(rank, world, in_path, out_dir, device="cpu"):
     torch.save(results, os.path.join(str(out_dir), f"rank{rank}.pt"))
 
 
-def train_run(rank, world, fields, init_path, out_dir):
-    """``train()`` with ``--mesh.seq world --device cpu`` on this rank:
-    its logged losses, final eval and parameters."""
+def train_run(rank, world, fields, init_path, out_dir, mesh=None):
+    """``train()`` with ``--device cpu`` on this rank over the mesh
+    ``mesh`` ({axis: size}; ``--mesh.seq world`` when None): its logged
+    losses, final eval and parameters."""
     from tensorflow_distributed_tpu_torch.config import (
         MeshConfig, TrainConfig)
     from tensorflow_distributed_tpu_torch.train.loop import train
     from tensorflow_distributed_tpu_torch.utils.logging import MetricLogger
 
-    cfg = TrainConfig(**fields, device="cpu", mesh=MeshConfig(seq=world))
+    cfg = TrainConfig(**fields, device="cpu",
+                      mesh=MeshConfig(**(mesh or {"seq": world})))
     init = torch.load(init_path) if init_path else None
     res = train(cfg, logger=MetricLogger(enabled=False), init_params=init)
     torch.save({"losses": [r.metrics["loss"] for r in res.logger.records
@@ -110,4 +112,26 @@ def train_run(rank, world, fields, init_path, out_dir):
                 "final": res.final_metrics,
                 "params": {k: v.detach().clone()
                            for k, v in res.state.model.state_dict().items()}},
+               os.path.join(str(out_dir), f"rank{rank}.pt"))
+
+
+def mesh_groups(rank, world, data, seq, out_dir):
+    """``bootstrap(data, seq)`` on this rank: its mesh coordinates, the
+    sums of the ranks over its seq group and its data group, and the
+    rank its ring's swap permute brings in."""
+    from tensorflow_distributed_tpu_torch.parallel.mesh import bootstrap
+
+    mesh = bootstrap(data, seq, torch.device("cpu"))
+    sums = {}
+    for name, group in (("seq", mesh.seq_group), ("data", mesh.data_group)):
+        t = torch.tensor([float(rank)])
+        dist.all_reduce(t, group=group)
+        sums[name] = float(t)
+    swapped = None
+    if mesh.ring is not None:
+        perm = [(i, i ^ 1) for i in range(seq)]
+        swapped = float(mesh.ring.ppermute(torch.tensor([float(rank)]),
+                                           perm))
+    torch.save({"data_index": mesh.data_index, "seq_index": mesh.seq_index,
+                "sums": sums, "swapped": swapped},
                os.path.join(str(out_dir), f"rank{rank}.pt"))

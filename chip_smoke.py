@@ -102,6 +102,31 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
              flash (or, under seq, the partial) and fused-CE kernels,
              the performance table printed by rank 0 only.
 
+15. decode — the decode-cache path at GPT-2-small's full width (12
+             layers, d 768, 12 heads, vocab 50257, max_len 1024, seeded
+             fresh-init weights, bf16): four prompts of 17, 100, 300 and
+             511 tokens prefilled in one batch (each row padded to 511,
+             as a bucket pads), then 16 greedy decode steps with every row
+             at its own depth; at each step the last-position logits
+             against the training forward over the same tokens without a
+             cache (through B1), max |diff| / max |ref| <= 2e-2;
+16. serve_identity — the slot engine under the FIFO scheduler in f32 at
+             the same width: 12 requests of 8-480 prompt tokens through 4
+             slots (reused), 32 new tokens each, every stream against the
+             request's own one-shot greedy ``generate()``; a mismatch is
+             excused only where the reference's top-2 logit gap is under
+             1e-4 (f32 sums in another order at batch 4 and batch 1), and
+             that request is compared no further; the prefill shapes used
+             stay within the bucket ladder;
+17. serve   — ``--mode serve`` through the port's CLI at GPT-2-small's
+             width in bf16 (32 requests of 64-512 prompt tokens, 8 slots,
+             64 new tokens each): exit 0, every token delivered, its
+             summary (tokens/s, time to first token, per-token latency,
+             occupancy, buckets, decode steps) and peak memory; then 10
+             decode steps of a full engine traced by torch.profiler
+             (launches a step, host enqueue, device busy, idle share),
+             logits finite and tokens in the vocabulary.
+
 It then prints the nvidia-smi line, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the port's package beside it, it exits non-zero and prints no
@@ -207,6 +232,21 @@ TRAIN_DATA_CNN_ARGV = ["--mode", "train", "--model", "mnist_cnn",
                        "--dropout-rate", "0", "--log-every", "1"]
 TRAIN_DATA_TIMEOUT_S = 420  # one torchrun, builds and NCCL start included
 TABLE_HEADER = "Steps,        Time,      Accuracy,  Learning rate"
+# Serving at GPT-2-small's full width (fresh-init weights from a seed).
+DEVICE = "cuda"
+TOL_DECODE = 2e-2   # decode vs training forward: max |diff| / max |ref|, bf16
+DECODE_PROMPTS = (17, 100, 300, 511)  # one batch, each row at its own depth
+DECODE_STEPS = 16
+IDENTITY_SLOTS, IDENTITY_REQUESTS, IDENTITY_NEW = 4, 12, 32
+IDENTITY_PROMPTS = (8, 480)  # lengths spread evenly over this range
+IDENTITY_GAP = 1e-4  # a stream may differ only where the top-2 gap is below
+SERVE_REQUESTS, SERVE_NEW = 32, 64
+SERVE_ARGV = ["--mode", "serve", "--model", "gpt_lm", "--model-size", "small",
+              "--synthetic-vocab", "50257", "--seq-len", "1024",
+              "--serve.num-slots", "8", "--serve.num-requests",
+              str(SERVE_REQUESTS), "--serve.prompt-len-min", "64",
+              "--serve.prompt-len-max", "512", "--serve.max-new-tokens",
+              str(SERVE_NEW)]
 CSRC = "tensorflow_distributed_tpu_torch/ops/csrc"
 SOURCES = {"flash_attention": f"{CSRC}/flash_attention.cu",
            "fused_ce": f"{CSRC}/fused_ce.cu"}
@@ -1459,6 +1499,226 @@ def phase_train_data(torch) -> None:
               f"train_data {name}: the table printed from ranks {tables}")
 
 
+def gpt2_small(torch, dtype):
+    """GPT-2-small at its published widths on the card, fresh-init from
+    seed 0, without dropout."""
+    from tensorflow_distributed_tpu_torch.models.transformer import gpt_lm
+
+    with torch.device(DEVICE):
+        model = gpt_lm("small", compute_dtype=dtype, dropout_rate=0.0)
+    model.init_weights(torch.Generator(device=DEVICE).manual_seed(0))
+    return model
+
+
+def phase_decode(fa, torch, np) -> None:
+    """Prefill four prompts at their own depths in one batch, then decode
+    DECODE_STEPS greedy tokens; at every step hold the last-position
+    logits to the training forward (B1) over the same tokens."""
+    from tensorflow_distributed_tpu_torch.models.generate import (
+        decode_token, prefill_cache)
+
+    model = gpt2_small(torch, torch.bfloat16)
+    rng = np.random.default_rng(0)
+    B, P = len(DECODE_PROMPTS), max(DECODE_PROMPTS)
+    width = -(-(P + DECODE_STEPS) // fa.BLOCK) * fa.BLOCK  # B1's tile
+    seq = torch.zeros((B, width), dtype=torch.long, device=DEVICE)
+    for b, n in enumerate(DECODE_PROMPTS):
+        seq[b, :n] = torch.from_numpy(
+            rng.integers(0, model.cfg.vocab_size, n))
+    rows = torch.arange(B, device=DEVICE)
+    pos = torch.tensor(DECODE_PROMPTS, device=DEVICE)
+    b1 = fa.KERNELS[0]
+    before = b1.launches
+    with torch.no_grad():
+        logits, cache = prefill_cache(model, seq[:, :P])
+        last = logits[rows, pos - 1]
+        errs = []
+        for step in range(DECODE_STEPS + 1):
+            ref = model(seq)[rows, pos - 1]
+            check(bool(torch.isfinite(last).all()),
+                  f"decode: non-finite logits at step {step}")
+            errs.append(float((last - ref).abs().max() / ref.abs().max()))
+            if step == DECODE_STEPS:
+                break
+            tok = last.argmax(dim=-1)
+            seq[rows, pos] = tok
+            last, cache = decode_token(model, cache, tok, pos)
+            pos = pos + 1
+    launched = b1.launches - before
+    emit({"phase": "decode", "prompts": list(DECODE_PROMPTS),
+          "steps": DECODE_STEPS, "oracle_width": width,
+          "rel_err_by_step": errs, "max_rel_err": max(errs),
+          "tolerance": TOL_DECODE, "oracle_flash_fwd_launches": launched})
+    check(launched == 12 * (DECODE_STEPS + 1),
+          f"decode: the oracle forward did not run B1: {launched} launches")
+    check(max(errs) <= TOL_DECODE,
+          f"decode: logits disagree with the training forward: {errs}")
+
+
+def first_mismatch(got, ref):
+    """The first step at which two token streams differ, or None."""
+    for j, (a, b) in enumerate(zip(got, ref)):
+        if a != b:
+            return j
+    return None if len(got) == len(ref) else min(len(got), len(ref))
+
+
+def phase_serve_identity(torch, np) -> None:
+    """The engine under the FIFO scheduler in f32, request by request
+    against one-shot greedy ``generate()``: identical streams, except
+    where the reference's top-2 logit gap is under IDENTITY_GAP."""
+    from tensorflow_distributed_tpu_torch.models.generate import (
+        generate, prefill_cache)
+    from tensorflow_distributed_tpu_torch.serve.buckets import (
+        default_buckets)
+    from tensorflow_distributed_tpu_torch.serve.engine import (
+        SlotDecodeEngine)
+    from tensorflow_distributed_tpu_torch.serve.scheduler import (
+        Request, Scheduler)
+
+    model = gpt2_small(torch, torch.float32)
+    rng = np.random.default_rng(1)
+    lens = np.linspace(*IDENTITY_PROMPTS, IDENTITY_REQUESTS).astype(int)
+    prompts = [rng.integers(0, model.cfg.vocab_size, n) for n in lens]
+    engine = SlotDecodeEngine(model, IDENTITY_SLOTS, buckets=default_buckets(
+        max(lens), cap=model.cfg.max_len))
+    engine.warmup()
+    t0 = time.time()
+    done = {c.rid: c for c in Scheduler(engine, decode_priority=4).run(
+        [Request(rid=i, prompt=p, max_new_tokens=IDENTITY_NEW)
+         for i, p in enumerate(prompts)])}
+    wall = time.time() - t0
+
+    def gap_at(prompt, ref, j):
+        seq = torch.tensor(list(prompt) + ref[:j], device=DEVICE)[None]
+        top2 = torch.topk(prefill_cache(model, seq)[0][0, -1], 2).values
+        return float(top2[0] - top2[1])
+
+    excused = []
+    for i, p in enumerate(prompts):
+        ref = generate(model, torch.from_numpy(p).to(DEVICE)[None],
+                       IDENTITY_NEW)[0].tolist()
+        j = first_mismatch(done[i].tokens, ref)
+        if j is None:
+            continue
+        gap = gap_at(p, ref, j)
+        excused.append({"rid": i, "prompt_len": len(p), "step": j,
+                        "top2_gap": gap})
+        check(gap < IDENTITY_GAP,
+              f"serve_identity: request {i} (prompt {len(p)}) differs from "
+              f"generate() at step {j}, where the top-2 logit gap is {gap}")
+    emit({"phase": "serve_identity", "requests": IDENTITY_REQUESTS,
+          "slots": IDENTITY_SLOTS, "new_tokens": IDENTITY_NEW,
+          "prompt_lens": lens.tolist(), "identical": IDENTITY_REQUESTS
+          - len(excused), "excused": excused,
+          "buckets_used": engine.prefill_compiles,
+          "ladder": list(engine.buckets), "prefills": engine.prefills,
+          "decode_steps": engine.decode_steps, "wall_s": round(wall, 3)})
+    check(engine.prefills == IDENTITY_REQUESTS,
+          f"serve_identity: {engine.prefills} prefills")
+    check(engine.prefill_compiles <= len(engine.buckets),
+          f"serve_identity: {engine.prefill_compiles} prefill shapes for a "
+          f"ladder of {len(engine.buckets)}")
+
+
+def serve_cli(argv):
+    """``cli.main(argv)`` in this process, its standard output captured
+    (and echoed to standard error). Returns (exit code, the ``[serve]``
+    summary line, the ``serve_summary`` record)."""
+    import contextlib
+    import io
+
+    from tensorflow_distributed_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    out = buf.getvalue()
+    sys.stderr.write(out)
+    lines = out.splitlines()
+    line = next((l for l in lines if l.startswith("[serve] ")), None)
+    record = next((json.loads(l) for l in lines
+                   if l.startswith('{"event": "serve_summary"')), None)
+    check(rc == 0 and line is not None and record is not None,
+          f"serve: the CLI exited {rc} without its summary")
+    return rc, line, record
+
+
+def serve_profile(torch, argv) -> dict:
+    """Where a decode step of ``argv``'s engine goes, every slot live:
+    PROFILE_STEPS steps after 3 warm-up steps, each ending in the
+    engine's token fetch; the host's time to enqueue a step onto an idle
+    device; and from torch.profiler the kernels launched and the device
+    busy time a step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tensorflow_distributed_tpu_torch.config import parse_args
+    from tensorflow_distributed_tpu_torch.models.generate import (
+        decode_token)
+    from tensorflow_distributed_tpu_torch.serve.run import serve_setup
+
+    _, engine, requests = serve_setup(parse_args(argv))
+    engine.warmup()
+    for slot, r in enumerate(requests[:engine.num_slots]):
+        engine.prefill(r.prompt, slot)
+    vocab = engine.model.cfg.vocab_size
+    for _ in range(3):
+        nxt = engine.step()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(PROFILE_STEPS):
+        nxt = engine.step()
+    step_ms = (time.time() - t0) / PROFILE_STEPS * 1e3
+    check(bool(((nxt >= 0) & (nxt < vocab)).all()),
+          f"serve: tokens outside the vocabulary: {nxt}")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    # One step's work, enqueued without its fetch (it rewrites the
+    # columns the next step writes again).
+    last, _ = decode_token(engine.model, engine.cache,
+                           engine._h2d(engine.tok), engine._h2d(engine.pos))
+    enqueue_ms = (time.time() - t0) * 1e3
+    check(bool(torch.isfinite(last).all()), "serve: non-finite logits")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_STEPS):
+            engine.step()
+        torch.cuda.synchronize()
+    busy, launches, top = 0.0, 0, []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            busy += us / PROFILE_STEPS / 1e3
+            launches += e.count
+            top.append([e.key[:80], us / PROFILE_STEPS / 1e3,
+                        e.count / PROFILE_STEPS])
+    top.sort(key=lambda row: -row[1])
+    return {"step_ms": step_ms, "host_enqueue_ms": enqueue_ms,
+            "launches_per_step": launches / PROFILE_STEPS,
+            "device_busy_ms": busy or None,
+            "device_idle_share": (1 - busy / step_ms) if busy else None,
+            "device_top": top[:8],
+            "cache_bytes": engine.cache_bytes_per_slot() * engine.num_slots}
+
+
+def phase_serve(torch) -> None:
+    """``--mode serve`` through the CLI at full width in bf16, then a
+    traced decode step of the same engine."""
+    torch.cuda.reset_peak_memory_stats()
+    rc, line, summary = serve_cli(SERVE_ARGV)
+    peak = torch.cuda.max_memory_allocated()
+    keys = ("tokens_per_sec", "ttft_ms_p50", "ttft_ms_p95", "tok_ms_mean",
+            "mean_slot_occupancy", "buckets", "prefill_compiles",
+            "decode_steps", "total_new_tokens", "wall_s")
+    emit({"phase": "serve", "argv": SERVE_ARGV, "exit": rc,
+          "summary_line": line, **{k: summary[k] for k in keys},
+          "peak_mem_bytes": peak, "profile": serve_profile(torch, SERVE_ARGV)})
+    check(summary["total_new_tokens"] == SERVE_REQUESTS * SERVE_NEW,
+          f"serve: {summary['total_new_tokens']} tokens delivered, not "
+          f"{SERVE_REQUESTS} x {SERVE_NEW}")
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--rank"]:
@@ -1499,6 +1759,9 @@ def main(argv=None) -> int:
     phase_model_cnn(torch, np)
     phase_train_cnn(kernels, torch)
     phase_train_data(torch)
+    phase_decode(fa, torch, np)
+    phase_serve_identity(torch, np)
+    phase_serve(torch)
 
     err = {"flash_fwd": flash["errors"]["o_abs_err"],
            "flash_dq": flash["errors"]["dq_abs_err"],

@@ -41,10 +41,27 @@ Examples:
         -m tensorflow_distributed_tpu_torch.cli --mesh.seq 4 --model gpt_lm \
         --model-size small --seq-len 1024 --batch-size 8 --train-steps 30
 
+    # continuous-batching inference (serve/): GPT-2-small at its
+    # published widths, fresh-init weights from --seed, 32 requests of
+    # 64-512 prompt tokens through 8 slots, 64 new tokens each; prints
+    # the [serve] summary line and a JSON serve_summary record:
+    python -m tensorflow_distributed_tpu_torch.cli --mode serve \
+        --model gpt_lm --model-size small --synthetic-vocab 50257 \
+        --seq-len 1024 --serve.num-slots 8 --serve.num-requests 32 \
+        --serve.prompt-len-min 64 --serve.prompt-len-max 512 \
+        --serve.max-new-tokens 64
+
+    # the same path on the CPU, tiny, streaming each token:
+    python -m tensorflow_distributed_tpu_torch.cli --mode serve \
+        --model gpt_lm --model-size tiny --compute-dtype float32 \
+        --device cpu --serve.num-slots 2 --serve.num-requests 4 \
+        --serve.max-new-tokens 8 --serve.stream true
+
 Flags share the JAX CLI's spellings and defaults; flags the port does
 not parse yet are rejected (ROADMAP.md queue A lists what is still to
 come). After training, the chief prints the eval records as the
-reference's ``performance`` table, as the JAX CLI does.
+reference's ``performance`` table, as the JAX CLI does; ``--mode serve``
+prints the JAX CLI's ``[serve]`` summary line.
 """
 
 from __future__ import annotations
@@ -54,6 +71,7 @@ from typing import Optional, Sequence
 
 from tensorflow_distributed_tpu_torch.config import TrainConfig, parse_args
 from tensorflow_distributed_tpu_torch.parallel import mesh
+from tensorflow_distributed_tpu_torch.serve.run import serve_run
 from tensorflow_distributed_tpu_torch.train.loop import TrainResult, train
 from tensorflow_distributed_tpu_torch.utils.logging import MetricLogger
 
@@ -73,6 +91,9 @@ def train_and_report(cfg: TrainConfig,
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     cfg = parse_args(argv)
+    if cfg.mode == "serve":
+        serve_run(cfg)
+        return 0
     try:
         train_and_report(cfg)
     finally:

@@ -1,14 +1,16 @@
 """Run configuration of the PyTorch port: the subset of the JAX
-package's ``TrainConfig`` (and its ``MeshConfig``) that the port runs,
-with the same flag spellings, plus ``--device``.
+package's ``TrainConfig`` (and its ``MeshConfig`` and ``ServeConfig``)
+that the port runs, with the same flag spellings, plus ``--device``.
 
 The port keeps its own copy of the JAX ``config.py`` dataclass-to-argparse
 helper. Flags of the JAX CLI that the port does not parse yet are
 rejected with an error that points at ROADMAP.md, never ignored.
 
-Every field shared with the JAX ``TrainConfig`` and ``MeshConfig`` has
-the JAX default, ``model`` included: the bare CLI call trains the
-reference's ``mnist_cnn`` on the MNIST idx files under ``--data-dir``.
+Every field shared with the JAX ``TrainConfig``, ``MeshConfig`` and
+``ServeConfig`` has the JAX default, ``model`` included: the bare CLI
+call trains the reference's ``mnist_cnn`` on the MNIST idx files under
+``--data-dir``. Every ``--serve.*`` flag of the JAX CLI parses; those of
+the layers not ported yet are refused unless they keep their default.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import argparse
 import dataclasses
 import typing
 from typing import Optional, Sequence
+
+from tensorflow_distributed_tpu_torch.serve.buckets import parse_buckets
 
 SCHEDULES = ("constant", "cosine", "warmup_cosine")
 OPTIMIZERS = ("adam", "sgd")
@@ -27,6 +31,8 @@ LM_MODELS = ("gpt_lm",)
 VISION_MODELS = ("mnist_cnn",)
 DATASETS = ("mnist", "synthetic")
 INIT_SCHEMES = ("improved", "reference")
+MODES = ("train", "serve")
+SERVE_TRACES = ("poisson", "bursty", "diurnal")
 
 
 @dataclasses.dataclass
@@ -49,9 +55,128 @@ class MeshConfig:
 
 
 @dataclasses.dataclass
+class ServeConfig:
+    """``--mode serve``'s knobs: the JAX ``ServeConfig``, every field with
+    its JAX spelling and default. The port runs the dense slot engine
+    under the FIFO scheduler; the other fields belong to layers not
+    ported yet (``_SERVE_NOT_PORTED``) and must keep their defaults."""
+
+    # Decode batch width: concurrent requests in flight.
+    num_slots: int = 8
+    # Default per-request generation budget (a request file may
+    # override it per request).
+    max_new_tokens: int = 64
+    # Prefill bucket ladder, e.g. "32,64,128"; "" = the power-of-two
+    # ladder covering the workload's longest prompt (serve/buckets.py).
+    buckets: str = ""
+    # Starvation bound: a queued request with a free slot is admitted
+    # after at most this many decode steps.
+    decode_priority: int = 4
+    # EOS token id ending a request early (-1 = every request runs to
+    # its full budget).
+    eos_id: int = -1
+    # Request file (JSONL: {"prompt": [ids...], "max_new_tokens": n,
+    # "eos_id": e, "arrival_s": t}); "" = the synthetic workload below.
+    requests: str = ""
+    # Synthetic workload: request count, prompt lengths uniform in
+    # [min, max] (seeded by --seed), open-loop arrival rate in req/s
+    # (0 = every request queued at t=0).
+    num_requests: int = 16
+    prompt_len_min: int = 8
+    prompt_len_max: int = 64
+    arrival_rate: float = 0.0
+    # Arrival shape of the synthetic workload: "" = uniform at
+    # arrival_rate, "poisson", "bursty", "diurnal" (these three need
+    # arrival_rate > 0), or a .jsonl file of {"arrival_s": t} offsets.
+    trace: str = ""
+    # Print each token as it retires.
+    stream: bool = False
+    # Admission order: "fifo" (arrival order; the port's one policy)
+    # or "slo" (not ported yet).
+    policy: str = "fifo"
+    # --- layers not ported yet (ROADMAP.md queue A) -----------------
+    journal: str = ""
+    slot_retries: int = 2
+    spec_tokens: int = 0
+    draft_config: str = ""
+    spec_kgram: int = 3
+    kv_dtype: str = "bf16"
+    paged: bool = False
+    page_size: int = 16
+    num_pages: int = 0
+    radix: bool = True
+    session_turns: int = 1
+    tenant_quota: int = 0
+    preempt: bool = True
+    slo_mix: str = ""
+    tenants: int = 1
+    mesh_model: int = 1
+    inbox: str = ""
+    hbm_budget_gb: float = 0.0
+
+    def validate(self) -> None:
+        for name in ("num_slots", "max_new_tokens", "decode_priority"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"serve.{name} must be >= 1, got "
+                                 f"{getattr(self, name)}")
+        if self.buckets:
+            parse_buckets(self.buckets)  # syntax at config time
+        if not self.requests:
+            if self.num_requests < 1:
+                raise ValueError(f"serve.num_requests must be >= 1, got "
+                                 f"{self.num_requests}")
+            if not 1 <= self.prompt_len_min <= self.prompt_len_max:
+                raise ValueError(
+                    f"serve prompt length range [{self.prompt_len_min}, "
+                    f"{self.prompt_len_max}] must satisfy 1 <= min <= max")
+        if self.arrival_rate < 0:
+            raise ValueError(f"serve.arrival_rate must be >= 0, got "
+                             f"{self.arrival_rate}")
+        if self.trace and not self.trace.endswith(".jsonl"):
+            if self.trace not in SERVE_TRACES:
+                raise ValueError(
+                    f"unknown serve.trace {self.trace!r}; have "
+                    f"{SERVE_TRACES} or a .jsonl file of arrival offsets")
+            if not self.arrival_rate:
+                raise ValueError(
+                    f"serve.trace={self.trace!r} shapes the arrival process "
+                    f"around serve.arrival_rate; set a rate > 0")
+        if self.trace and self.requests:
+            raise ValueError(
+                "serve.trace shapes the SYNTHETIC workload's arrivals; a "
+                "request file carries its own arrival_s; drop one of the "
+                "flags")
+        if self.policy not in ("fifo", "slo"):
+            raise ValueError(f"unknown serve.policy {self.policy!r}; have "
+                             f"('fifo', 'slo')")
+        unported = [name for name, default in _SERVE_NOT_PORTED.items()
+                    if getattr(self, name) != default]
+        if self.policy != "fifo":
+            unported.insert(0, "policy")
+        if unported:
+            raise NotImplementedError(
+                f"--serve.{unported[0].replace('_', '-')}="
+                f"{getattr(self, unported[0])!r} is not ported to PyTorch "
+                f"yet (see ROADMAP.md queue A)")
+
+
+# The serve knobs of layers not ported yet (the slo policy and quotas,
+# preemption, speculation, int8 and paged caches, slot retry, the
+# journal, tensor parallelism, the fleet inbox), at their defaults.
+_SERVE_NOT_PORTED = {
+    f.name: f.default for f in dataclasses.fields(ServeConfig)
+    if f.name in ("journal", "slot_retries", "spec_tokens", "draft_config",
+                  "spec_kgram", "kv_dtype", "paged", "page_size",
+                  "num_pages", "radix", "session_turns", "tenant_quota",
+                  "preempt", "slo_mix", "tenants", "mesh_model", "inbox",
+                  "hbm_budget_gb")}
+
+
+@dataclasses.dataclass
 class TrainConfig:
-    """One training job of the port (mnist_cnn or gpt_lm on one device,
-    or on ``mesh.data`` x ``mesh.seq`` devices)."""
+    """One job of the port: training (mnist_cnn or gpt_lm on one device,
+    or on ``mesh.data`` x ``mesh.seq`` devices), or serving gpt_lm on one
+    device (``mode="serve"``)."""
 
     # --- model -----------------------------------------------------------
     # mnist_cnn (the reference's CNN, the JAX default) | gpt_lm.
@@ -63,8 +188,8 @@ class TrainConfig:
     # GPT-2 ladder size ("small" ... "xl") or "tiny"; empty = "small".
     model_size: str = ""
     dropout_rate: float = 0.25
-    # bfloat16 matmuls (the flash kernels need bf16; float32 runs only
-    # with --device cpu); params/optimizer f32.
+    # bfloat16 matmuls (the flash kernels need bf16; float32 trains only
+    # with --device cpu, and serves anywhere); params/optimizer f32.
     compute_dtype: str = "bfloat16"
     # Share the input embedding as the LM output projection (GPT-2
     # style weight tying).
@@ -121,7 +246,9 @@ class TrainConfig:
 
     # --- misc ------------------------------------------------------------
     seed: int = 0
-    mode: str = "train"  # train (the only mode ported so far)
+    # train | serve (continuous-batching inference, serve/); the JAX
+    # package's eval and generate are not ported yet.
+    mode: str = "train"
     # Where the run executes: "cuda" (default; fails if no GPU) or "cpu"
     # (the plain versions of the kernels; tests). Under torchrun, rank r
     # takes cuda:LOCAL_RANK.
@@ -129,6 +256,7 @@ class TrainConfig:
 
     # --- mesh / parallelism ----------------------------------------------
     mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
+    serve: ServeConfig = dataclasses.field(default_factory=ServeConfig)
 
     def validate(self) -> None:
         def todo(what: str) -> NotImplementedError:
@@ -136,8 +264,16 @@ class TrainConfig:
                 f"{what} is not ported to PyTorch yet (see ROADMAP.md "
                 f"queue A)")
 
-        if self.mode != "train":
+        if self.mode not in MODES:
             raise todo(f"--mode {self.mode}")
+        serving = self.mode == "serve"
+        if serving and self.model not in LM_MODELS:
+            raise ValueError(
+                f"mode=serve needs a causal LM with the decode cache "
+                f"({', '.join(LM_MODELS)}), got {self.model!r}")
+        if serving and (self.mesh.seq != 1 or self.mesh.data not in (-1, 1)):
+            raise todo("--mode serve over a --mesh.* of more than one "
+                       "process")
         if self.model not in LM_MODELS + VISION_MODELS:
             raise todo(f"--model {self.model}")
         if self.dataset not in DATASETS:
@@ -157,7 +293,8 @@ class TrainConfig:
         if self.device != "cpu" and not self.device.startswith("cuda"):
             raise ValueError(f"device {self.device!r}; have cpu | cuda[:N]")
         lm = self.model in LM_MODELS
-        if lm and self.device != "cpu" and self.compute_dtype != "bfloat16":
+        if (lm and not serving and self.device != "cpu"
+                and self.compute_dtype != "bfloat16"):
             raise todo(f"--compute-dtype {self.compute_dtype} on a GPU (the "
                        f"flash kernels take bfloat16)")
         for name in ("batch_size", "eval_batch_size"):
@@ -200,6 +337,7 @@ class TrainConfig:
                 "ce_impl has no effect without ce_chunk > 0 (the fused "
                 "head+loss master switch); add --ce-chunk")
         self.mesh.validate()
+        self.serve.validate()
 
 
 def _add_dataclass_args(parser: argparse.ArgumentParser, cls,
@@ -233,7 +371,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> TrainConfig:
         prog="tensorflow_distributed_tpu_torch",
         description="PyTorch/CUDA port of tensorflow_distributed_tpu "
         "(the reference's MNIST CNN or a GPT causal LM, on one GPU or on "
-        "--mesh.data x --mesh.seq GPUs under torchrun)",
+        "--mesh.data x --mesh.seq GPUs under torchrun; --mode serve runs "
+        "a GPT's continuous-batching inference on one GPU)",
         allow_abbrev=False)
     _add_dataclass_args(parser, TrainConfig)
     ns, unknown = parser.parse_known_args(argv)
@@ -241,8 +380,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> TrainConfig:
         parser.error(f"not ported to PyTorch yet: {' '.join(unknown)} "
                      f"(see ROADMAP.md queue A)")
     fields = vars(ns)
-    mesh = {k.split(".", 1)[1]: fields.pop(k) for k in list(fields)
-            if k.startswith("mesh.")}
-    cfg = TrainConfig(**fields, mesh=MeshConfig(**mesh))
+
+    def nested(prefix):
+        return {k.split(".", 1)[1]: fields.pop(k) for k in list(fields)
+                if k.startswith(prefix + ".")}
+
+    cfg = TrainConfig(mesh=MeshConfig(**nested("mesh")),
+                      serve=ServeConfig(**nested("serve")), **fields)
     cfg.validate()
     return cfg

@@ -13,6 +13,11 @@ kernels change layout:
 - the attention ``qkv`` DenseGeneral kernel ``[D, 3, H, dh]`` (bias
   ``[3, H, dh]``) flattens its output axes, and ``out`` ``[H, dh, D]``
   flattens its two contracted input axes.
+
+``cache_from_flax`` maps the ``cache`` collection that the JAX model's
+``decode=True`` path fills (``layer_i/attn/{key,value}`` of shape
+``[B, max_len, H, Dh]``, plus a scalar ``index``) to the port's
+``KVCache``.
 """
 
 from __future__ import annotations
@@ -21,6 +26,8 @@ from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+
+from tensorflow_distributed_tpu_torch.models.transformer import KVCache
 
 
 def _walk(tree: Mapping[str, Any], prefix=()):
@@ -55,3 +62,15 @@ def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         key = ".".join(module + ["weight" if name != "bias" else "bias"])
         out[key] = torch.tensor(np.asarray(value, dtype=np.float32))
     return out
+
+
+def cache_from_flax(tree: Mapping[str, Any]) -> KVCache:
+    """flax ``cache`` collection (numpy leaves) -> the port's KVCache
+    (CPU tensors in the leaves' dtype). The scalar ``index`` is dropped:
+    positions are the authority on depth in both packages."""
+    layers = sorted((k for k in tree if k.startswith("layer_")),
+                    key=lambda k: int(k.split("_")[1]))
+    attn = [tree[k]["attn"] for k in layers]
+    return KVCache(
+        k=[torch.from_numpy(np.array(a["key"])) for a in attn],
+        v=[torch.from_numpy(np.array(a["value"])) for a in attn])

@@ -1,0 +1,123 @@
+"""Autoregressive generation with a KV cache: the port of
+``models/generate.py``.
+
+Prefill the prompt in one pass that fills every layer's cache
+([B, max_len, H, Dh], a :class:`~..models.transformer.KVCache` the caller
+owns), then decode one token per step against it: O(L) attention per new
+token instead of re-running the whole sequence. The tokens stay on the
+device between steps, so a greedy loop never waits for the host.
+
+The JAX module compiles one program per (model, N, sampler knobs) and
+counts the hits and misses of that compile cache (``lookup_program``,
+``compile_cache_stats``). The port runs eagerly and has no compile
+cache, so neither exists here. ``beam_search`` is not ported yet
+(ROADMAP.md queue A).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from tensorflow_distributed_tpu_torch.models.transformer import KVCache
+
+
+@torch.no_grad()
+def prefill_cache(model, prompt: torch.Tensor, positions=None
+                  ) -> Tuple[torch.Tensor, KVCache]:
+    """One forward over ``prompt`` [B, P] into a fresh cache, at
+    positions 0 .. P-1: THE prefill of ``generate()`` and the serving
+    engine. Returns (logits [B, P, V] f32, cache)."""
+    if positions is not None:
+        # JAX prefills at an offset for a continuation (slot retry,
+        # preemption, journal resume); none of those is ported, and its
+        # clamped write has no counterpart here.
+        raise NotImplementedError(
+            "prefill at an offset (a continuation's re-prefill) is not "
+            "ported to PyTorch yet (see ROADMAP.md queue A)")
+    B, P = prompt.shape
+    if P > model.cfg.max_len:
+        raise ValueError(f"prompt {P} > max_len {model.cfg.max_len}")
+    cache = KVCache.zeros(model.cfg, B, prompt.device)
+    pos = torch.arange(P, device=prompt.device)[None]
+    logits = model(prompt, decode=True, positions=pos, cache=cache)
+    return logits, cache
+
+
+@torch.no_grad()
+def decode_token(model, cache: KVCache, tok: torch.Tensor, positions
+                 ) -> Tuple[torch.Tensor, KVCache]:
+    """One single-token step against ``cache``, updated in place: THE
+    decode step of ``generate()`` and the serving engine. ``tok`` [B];
+    ``positions`` [B] (per-row depths: the engine's slots differ) or
+    [1] (every row in lockstep). Returns (last-position logits [B, V],
+    cache)."""
+    pos = torch.as_tensor(positions, dtype=torch.long, device=tok.device)
+    if pos.ndim == 0:
+        pos = pos[None]
+    logits = model(tok[:, None], decode=True, positions=pos[:, None],
+                   cache=cache)
+    return logits[:, -1, :], cache
+
+
+def _filter_logits(logits: torch.Tensor, top_k: int, top_p: float
+                   ) -> torch.Tensor:
+    """Mask logits outside the top-k / nucleus (top-p) candidate set to
+    -inf, as the JAX filter does: top-k thresholds at the k-th value;
+    top-p keeps the smallest prefix of the sorted distribution whose
+    mass reaches p (never empty) and thresholds at its last logit."""
+    if 0 < top_k < logits.shape[-1]:
+        kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
+        logits = torch.where(logits < kth, -torch.inf, logits)
+    if top_p < 1.0:
+        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+        probs = torch.softmax(sorted_logits, dim=-1)
+        keep = torch.cumsum(probs, dim=-1) - probs < top_p
+        boundary = torch.where(keep, sorted_logits, torch.inf).amin(
+            dim=-1, keepdim=True)
+        logits = torch.where(logits < boundary, -torch.inf, logits)
+    return logits
+
+
+@torch.no_grad()
+def generate(model, prompt: torch.Tensor, max_new_tokens: int, *,
+             temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Continue ``prompt`` [B, P] by ``max_new_tokens`` greedy
+    (temperature 0) or sampled tokens; returns [B, max_new_tokens].
+
+    Sampling (``temperature > 0``) draws from ``generator`` (a
+    ``torch.Generator`` on the prompt's device), after ``top_k > 0``
+    keeps the k highest logits and ``top_p < 1`` the smallest nucleus of
+    mass p (k first, then p over the survivors)."""
+    cfg = model.cfg
+    if not cfg.causal:
+        raise ValueError("generate() needs a causal model")
+    B, P = prompt.shape
+    if max_new_tokens < 1:
+        raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
+    if P + max_new_tokens > cfg.max_len:
+        raise ValueError(
+            f"prompt {P} + {max_new_tokens} new > max_len {cfg.max_len}")
+    if temperature > 0.0 and generator is None:
+        raise ValueError("sampling (temperature > 0) needs a torch.Generator")
+    if top_k < 0:
+        raise ValueError(f"top_k must be >= 0, got {top_k}")
+    if not 0.0 < top_p <= 1.0:
+        raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+
+    def pick(last):
+        if temperature == 0.0:
+            return last.argmax(dim=-1)
+        probs = torch.softmax(
+            _filter_logits(last / temperature, top_k, top_p), dim=-1)
+        return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+    logits, cache = prefill_cache(model, prompt)
+    toks = [pick(logits[:, -1, :])]
+    fed_at = torch.arange(P, P + max_new_tokens, device=prompt.device)
+    for i in range(max_new_tokens - 1):
+        last, cache = decode_token(model, cache, toks[-1], fed_at[i:i + 1])
+        toks.append(pick(last))
+    return torch.stack(toks, dim=1)

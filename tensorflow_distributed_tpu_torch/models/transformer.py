@@ -1,5 +1,5 @@
-"""GPT-style causal transformer LM: the training (``decode=False``) path
-of ``models/transformer.py``, in PyTorch.
+"""GPT-style causal transformer LM: ``models/transformer.py`` in
+PyTorch, the training path and the decode-cache path (``decode=True``).
 
 Numerics follow the flax model:
 
@@ -20,7 +20,19 @@ Numerics follow the flax model:
   more than one process), each process holds a contiguous block of the
   sequence: attention is the causal ring (the JAX ``mesh.seq > 1``
   branch), and the learned positions are offset by the block's start
-  (GSPMD sees global positions; here each rank is told its offset).
+  (GSPMD sees global positions; here each rank is told its offset);
+- with ``decode=True`` (the JAX dense-layout decode branch) the caller
+  passes explicit ``positions`` ([1 | B, L] int) and a :class:`KVCache`
+  it owns: each row's L new keys and values land in the cache at
+  ``positions[b, 0] ..`` (one indexed write), and the L queries attend
+  the whole ``max_len`` cache through ``full_attention`` (f32) under the
+  ``window_keep`` band as a NEG_INF bias. A [1, L] positions array
+  broadcasts to every row (``generate()``); a [B, L] one is per row (the
+  serving engine's slots sit at different depths). Positions are the
+  authority on where writes land: unlike JAX's ``dynamic_update_slice``,
+  which moves an out-of-range start back inside the buffer, an indexed
+  write past ``max_len`` fails, so callers keep positions in range
+  (``models/generate.py`` and ``serve/engine.py`` check on the host).
 
 Parameter names mirror the flax tree (``layer_0.attn.qkv`` for
 ``layer_0/attn/qkv``), so ``interop.params_from_flax`` is a fixed
@@ -32,15 +44,16 @@ ignored.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tensorflow_distributed_tpu_torch.ops.flash_attention import attention
+from tensorflow_distributed_tpu_torch.ops.flash_attention import (
+    NEG_INF, attention, window_keep)
 from tensorflow_distributed_tpu_torch.parallel.ring_attention import (
-    ring_attention)
+    full_attention, ring_attention)
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default
 INIT_STD = 0.02  # the JAX _dense_init (BERT-style normal)
@@ -118,9 +131,59 @@ GPT2_SIZES = {
 }
 
 
+@dataclasses.dataclass
+class KVCache:
+    """The decode cache, owned by the caller (the JAX ``cache``
+    collection's ``key`` and ``value`` leaves): per layer, K and V of
+    shape [B, max_len, H, Dh] in the compute dtype. ``decode=True``
+    forwards write into it in place."""
+
+    k: List[torch.Tensor]
+    v: List[torch.Tensor]
+
+    @classmethod
+    def zeros(cls, cfg: TransformerConfig, batch: int,
+              device=None) -> "KVCache":
+        shape = (batch, cfg.max_len, cfg.n_heads, cfg.d_model // cfg.n_heads)
+
+        def layers():
+            return [torch.zeros(shape, dtype=cfg.compute_dtype, device=device)
+                    for _ in range(cfg.n_layers)]
+
+        return cls(layers(), layers())
+
+    def put_row(self, row: "KVCache", slot: int) -> None:
+        """Replace row ``slot`` wholesale with the one row of ``row`` (the
+        JAX engine's ``_insert_row``): nothing of the stale row survives,
+        not even in masked columns, where a non-finite value would still
+        reach P @ V as 0 * NaN."""
+        for dst, src in zip(self.k + self.v, row.k + row.v):
+            dst[slot].copy_(src[0])
+
+    def zero_(self) -> None:
+        for t in self.k + self.v:
+            t.zero_()
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self.k + self.v)
+
+
 def _dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype):
     """flax Dense(dtype=...): input, kernel and bias cast to ``dtype``."""
     return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+
+
+@torch.no_grad()
+def cast_dense_weights_(model: nn.Module) -> None:
+    """Hold every dense layer's kernel and bias in the compute dtype, in
+    place, for inference: ``_dense`` then casts nothing at each call (at
+    GPT-2-small's decode step the per-call casts move ~0.5 GB), and the
+    values it computes with are the same.
+    LayerNorm and the embedding tables stay f32, as in the JAX model."""
+    dtype = model.cfg.compute_dtype
+    for module in model.modules():
+        if isinstance(module, nn.Linear):
+            module.to(dtype)
 
 
 def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
@@ -162,18 +225,45 @@ class SelfAttention(nn.Module):
         self.qkv = nn.Linear(cfg.d_model, 3 * h * dh)
         self.out = nn.Linear(h * dh, cfg.d_model)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, positions: Optional[torch.Tensor] = None,
+                kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                ) -> torch.Tensor:
+        """With ``kv`` (this layer's cache K and V), the decode branch at
+        ``positions``; the training path otherwise."""
         cfg = self.cfg
         B, L, _ = x.shape
         h, dh = cfg.n_heads, cfg.d_model // cfg.n_heads
         qkv = _dense(x, self.qkv, cfg.compute_dtype).view(B, L, 3, h, dh)
         q, k, v = qkv.unbind(dim=2)
-        if _is_ring(self.ring):
+        if kv is not None:
+            out = _cached_attend(q, k, v, positions, kv, cfg.attn_window)
+        elif _is_ring(self.ring):
             out = ring_attention(q, k, v, self.ring, causal=cfg.causal)
         else:
             out = attention(q, k, v, causal=cfg.causal,
                             window=cfg.attn_window)
         return _dense(out.reshape(B, L, h * dh), self.out, cfg.compute_dtype)
+
+
+def _cached_attend(q, k, v, positions, kv, window):
+    """The JAX decode branch's dense layout: write each row's L new K, V
+    at ``start_b .. start_b + L - 1`` (``start_b = positions[b, 0]``) in
+    one indexed write per cache, then attend the L queries against the
+    whole cache, columns outside each query's (pos - window, pos] band
+    masked by a NEG_INF bias [1 | B, L, max_len]. No row is ever fully
+    masked: each query's own column is inside its band."""
+    k_cache, v_cache = kv
+    B, L = q.shape[:2]
+    pos = positions.long()
+    steps = torch.arange(L, device=q.device)
+    cols = pos[:, :1].expand(B, 1) + steps                  # [B, L]
+    rows = torch.arange(B, device=q.device)[:, None].expand(B, L)
+    k_cache[rows, cols] = k.to(k_cache.dtype)
+    v_cache[rows, cols] = v.to(v_cache.dtype)
+    keys = torch.arange(k_cache.shape[1], device=q.device)
+    keep = window_keep(pos[:, :, None], keys, window)
+    bias = torch.where(keep, 0.0, NEG_INF).to(torch.float32)
+    return full_attention(q, k_cache, v_cache, bias)
 
 
 class Mlp(nn.Module):
@@ -201,9 +291,13 @@ class Block(nn.Module):
         self.mlp = Mlp(cfg)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                positions: Optional[torch.Tensor] = None,
+                kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                ) -> torch.Tensor:
         cfg = self.cfg
-        y = self.attn(_layer_norm(x, self.ln1).to(cfg.compute_dtype))
+        y = self.attn(_layer_norm(x, self.ln1).to(cfg.compute_dtype),
+                      positions, kv)
         x = x + dropout(y, cfg.dropout_rate, train, generator)
         y = self.mlp(_layer_norm(x, self.ln2).to(cfg.compute_dtype))
         return x + dropout(y, cfg.dropout_rate, train, generator)
@@ -250,22 +344,45 @@ class TransformerLM(nn.Module):
 
     def forward(self, tokens: torch.Tensor, *, train: bool = False,
                 generator: Optional[torch.Generator] = None,
-                features_only: bool = False):
+                features_only: bool = False, decode: bool = False,
+                positions: Optional[torch.Tensor] = None,
+                cache: Optional[KVCache] = None, page_table=None):
         """Logits [B, L, V] f32, or with ``features_only`` the head's
         pieces (features [B, L, D] in the compute dtype, W [V, D], bias
-        [V] or None)."""
+        [V] or None). ``positions`` ([1 | B, L] int) index the learned
+        position table (default: the block's arange); ``decode=True``
+        requires them and a ``cache`` (see the module docstring)."""
         cfg = self.cfg
         B, L = tokens.shape
+        if page_table is not None:
+            raise NotImplementedError(
+                "the paged KV cache (page_table) is not ported to PyTorch "
+                "yet (see ROADMAP.md queue A)")
+        if decode:
+            if not cfg.causal:
+                raise ValueError("decode=True needs a causal config")
+            if positions is None:
+                raise ValueError("decode=True requires positions")
+            if cache is None:
+                raise ValueError("decode=True requires a KVCache")
+            if _is_ring(self.ring):
+                raise ValueError("decode=True runs on one process "
+                                 "(mesh.seq must be 1)")
+        elif cache is not None:
+            raise ValueError("a KVCache is read only with decode=True")
         shards, start = ((self.ring.size, self.ring.index * L)
                          if _is_ring(self.ring) else (1, 0))
         if L * shards > cfg.max_len:
             raise ValueError(f"sequence length {L * shards} > max_len "
                              f"{cfg.max_len}")
-        positions = start + torch.arange(L, device=tokens.device)
-        x = (self.tok_emb(tokens) + self.pos_emb(positions)[None]).to(
+        if positions is None:
+            positions = start + torch.arange(L, device=tokens.device)[None]
+        x = (self.tok_emb(tokens) + self.pos_emb(positions)).to(
             cfg.compute_dtype)
         for i in range(cfg.n_layers):
-            x = getattr(self, f"layer_{i}")(x, train, generator)
+            kv = (cache.k[i], cache.v[i]) if decode else None
+            x = getattr(self, f"layer_{i}")(x, train, generator, positions,
+                                            kv)
         x = _layer_norm(x, self.ln_f).to(cfg.compute_dtype)
         if features_only:
             if cfg.tie_embeddings:

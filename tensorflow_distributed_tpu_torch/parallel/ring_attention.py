@@ -117,9 +117,10 @@ def causal_bias(Lq: int, Lk: int, device=None) -> torch.Tensor:
 
 def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain exact attention (the single-position path and the test
-    oracle). q,k,v: [B, L, H, D]; mask: [B, L, L] additive or None. A
-    fully-masked query row returns zeros (not NaN)."""
+    """Plain exact attention (the single-position path, the decode
+    cache's attend and the test oracle). q: [B, Lq, H, D]; k, v: [B, Lk,
+    H, D]; mask: [1 | B, Lq, Lk] additive or None. Computes in f32 and
+    returns q's dtype. A fully-masked query row returns zeros (not NaN)."""
     m, l, o = _block_attend(q, k, v, mask)
     l_safe = torch.clamp(l, min=torch.finfo(torch.float32).tiny)
     return (o / _rows(l_safe)).to(q.dtype)

@@ -120,10 +120,11 @@ def evaluate(state: TrainState, eval_fn, task: Task, batch: int,
     return out
 
 
-def _build_model_and_state(cfg: TrainConfig, device: torch.device,
-                           init_params=None, mesh: Mesh = ONE_PROCESS):
+def build_model_for(cfg: TrainConfig, device: torch.device, ring=None):
+    """The model ``cfg`` names, built on ``device`` with its weights not
+    yet drawn (``init_weights``); ``ring``: the seq group's ring."""
     if cfg.model == "gpt_lm":
-        kw = {"size": cfg.model_size or "small", "ring": mesh.ring}
+        kw = {"size": cfg.model_size or "small", "ring": ring}
         if cfg.synthetic_vocab:
             kw["vocab_size"] = cfg.synthetic_vocab
         if cfg.seq_len:
@@ -135,8 +136,13 @@ def _build_model_and_state(cfg: TrainConfig, device: torch.device,
     dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
              else torch.float32)
     with torch.device(device):
-        model = build_model(cfg.model, dropout_rate=cfg.dropout_rate,
-                            compute_dtype=dtype, **kw)
+        return build_model(cfg.model, dropout_rate=cfg.dropout_rate,
+                           compute_dtype=dtype, **kw)
+
+
+def _build_model_and_state(cfg: TrainConfig, device: torch.device,
+                           init_params=None, mesh: Mesh = ONE_PROCESS):
+    model = build_model_for(cfg, device, mesh.ring)
     tx = make_optimizer(cfg, model)
     state = create_train_state(model, tx, cfg.seed, init_params)
     mesh.broadcast_(model.parameters())  # every rank starts from rank 0's

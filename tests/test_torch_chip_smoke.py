@@ -9,6 +9,7 @@ serialized wgmma.
 """
 
 import importlib.util
+import json
 import os
 import re
 
@@ -213,7 +214,8 @@ def test_ptxas_lines_are_grouped_by_kernel():
 
 def test_new_phases_run_after_the_ring_in_order():
     """model_cnn, train_cnn and train_data run after every earlier phase
-    (train_ring last of those), before the kernels line."""
+    (train_ring last of those), then the serving phases (decode,
+    serve_identity, serve), before the kernels line."""
     import inspect
 
     src = inspect.getsource(cs.main)
@@ -222,6 +224,7 @@ def test_new_phases_run_after_the_ring_in_order():
              "phase_train(", "phase_train_fused(", "phase_step_profile(",
              "phase_ring_kernels(", "phase_ring(", "phase_train_ring(",
              "phase_model_cnn(", "phase_train_cnn(", "phase_train_data(",
+             "phase_decode(", "phase_serve_identity(", "phase_serve(",
              'emit({"kernels"']
     at = [src.index(call) for call in order]
     assert at == sorted(at)
@@ -305,3 +308,127 @@ def test_card_scripts_fail_without_a_gpu(script):
         env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
     assert out.returncode != 0 and "FAILED" in out.stderr
     assert out.stdout == ""
+
+
+# --- the serving phases (decode, serve_identity, serve) ---------------
+
+def test_serve_argv_is_the_full_width_cli_run():
+    """The serve phase runs exactly GPT-2-small's full-width CLI call:
+    bf16 on the card, 8 slots, 32 requests of 64-512 prompt tokens, 64
+    new tokens each, the 50257-token vocabulary and a 1024 cache."""
+    from tensorflow_distributed_tpu_torch.config import parse_args
+
+    assert cs.SERVE_ARGV == [
+        "--mode", "serve", "--model", "gpt_lm", "--model-size", "small",
+        "--synthetic-vocab", "50257", "--seq-len", "1024",
+        "--serve.num-slots", "8", "--serve.num-requests", "32",
+        "--serve.prompt-len-min", "64", "--serve.prompt-len-max", "512",
+        "--serve.max-new-tokens", "64"]
+    cfg = parse_args(cs.SERVE_ARGV)
+    assert (cfg.mode, cfg.device, cfg.compute_dtype) == (
+        "serve", "cuda", "bfloat16")
+    assert (cfg.serve.num_requests * cfg.serve.max_new_tokens
+            == cs.SERVE_REQUESTS * cs.SERVE_NEW == 32 * 64)
+    assert cs.DECODE_PROMPTS == (17, 100, 300, 511)
+    assert cs.DECODE_STEPS == 16 and cs.TOL_DECODE == 2e-2
+    assert (cs.IDENTITY_SLOTS, cs.IDENTITY_REQUESTS, cs.IDENTITY_NEW,
+            cs.IDENTITY_PROMPTS, cs.IDENTITY_GAP) == (4, 12, 32, (8, 480),
+                                                      1e-4)
+
+
+@pytest.mark.parametrize("got,ref,want", [
+    ([1, 2, 3], [1, 2, 3], None), ([1, 2, 3], [1, 5, 3], 1),
+    ([9, 2], [1, 2], 0), ([1, 2], [1, 2, 3], 2)])
+def test_first_mismatch(got, ref, want):
+    assert cs.first_mismatch(got, ref) == want
+
+
+@pytest.fixture
+def tiny_smoke(monkeypatch):
+    """The serving phases on the CPU at a tiny size (a 2-layer GPT with
+    head dim 64), as a rehearsal of their code paths and failures."""
+    import torch
+
+    from tensorflow_distributed_tpu_torch.models.transformer import gpt_lm
+
+    def tiny(torch_mod, dtype):
+        model = gpt_lm("tiny", compute_dtype=dtype, d_model=128, n_heads=2,
+                       d_ff=256, max_len=256, vocab_size=500)
+        model.init_weights(torch.Generator().manual_seed(0))
+        return model
+
+    monkeypatch.setattr(cs, "DEVICE", "cpu")
+    monkeypatch.setattr(cs, "gpt2_small", tiny)
+    monkeypatch.setattr(cs, "DECODE_PROMPTS", (17, 40, 70, 101))
+    monkeypatch.setattr(cs, "DECODE_STEPS", 3)
+    monkeypatch.setattr(cs, "IDENTITY_PROMPTS", (8, 60))
+    monkeypatch.setattr(cs, "IDENTITY_REQUESTS", 4)
+    monkeypatch.setattr(cs, "IDENTITY_NEW", 6)
+    return torch
+
+
+def test_decode_fails_when_the_oracle_does_not_run_b1(tiny_smoke, capsys):
+    """On the CPU the oracle's attention is B1's plain version, which
+    launches nothing: the phase reports agreeing logits and fails on the
+    launch count, as it must on a card where B1 did not run."""
+    import numpy as np
+
+    with pytest.raises(SystemExit):
+        cs.phase_decode(fa, tiny_smoke, np)
+    out, err = capsys.readouterr()
+    line = json.loads(out.splitlines()[-1])
+    assert line["phase"] == "decode" and len(line["rel_err_by_step"]) == 4
+    assert line["max_rel_err"] <= cs.TOL_DECODE
+    assert "did not run B1" in err
+
+
+def test_serve_identity_passes_and_fails_on_a_real_mismatch(
+        tiny_smoke, monkeypatch, capsys):
+    import numpy as np
+
+    from tensorflow_distributed_tpu_torch.models import generate as gen
+
+    cs.phase_serve_identity(tiny_smoke, np)
+    line = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert line["identical"] == 4 and line["excused"] == []
+    assert line["buckets_used"] <= len(line["ladder"])
+    real = gen.generate
+
+    def off_by_one(model, prompt, n, **kw):
+        out = real(model, prompt, n, **kw)
+        out[0, 2] = (out[0, 2] + 1) % model.cfg.vocab_size
+        return out
+
+    monkeypatch.setattr(gen, "generate", off_by_one)
+    with pytest.raises(SystemExit):
+        cs.phase_serve_identity(tiny_smoke, np)
+    assert "differs from generate() at step 2" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("fault", ["tokens", "exit", "no_summary"])
+def test_serve_phase_failure_paths(fault, tiny_smoke, monkeypatch, capsys):
+    """The serve phase fails when a token is missing, when the CLI exits
+    non-zero, or when it prints no summary."""
+    from tensorflow_distributed_tpu_torch import cli
+
+    summary = {"tokens_per_sec": 1.0, "ttft_ms_p50": 1.0, "ttft_ms_p95": 1.0,
+               "tok_ms_mean": 1.0, "mean_slot_occupancy": 1.0,
+               "buckets": "64", "prefill_compiles": 1, "decode_steps": 1,
+               "total_new_tokens": 32 * 64 - (fault == "tokens"),
+               "wall_s": 1.0}
+
+    def fake_main(argv):
+        print("[serve] 32 requests")
+        if fault != "no_summary":
+            print(json.dumps({"event": "serve_summary", **summary}))
+        return 1 if fault == "exit" else 0
+
+    monkeypatch.setattr(cli, "main", fake_main)
+    monkeypatch.setattr(cs, "serve_profile", lambda torch, argv: {})
+    for name in ("reset_peak_memory_stats", "max_memory_allocated"):
+        monkeypatch.setattr(tiny_smoke.cuda, name, lambda *a: 0)
+    with pytest.raises(SystemExit):
+        cs.phase_serve(tiny_smoke)
+    err = capsys.readouterr().err
+    assert ("tokens delivered" if fault == "tokens"
+            else "without its summary") in err

@@ -125,7 +125,33 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
              occupancy, buckets, decode steps) and peak memory; then 10
              decode steps of a full engine traced by torch.profiler
              (launches a step, host enqueue, device busy, idle share),
-             logits finite and tokens in the vocabulary.
+             logits finite and tokens in the vocabulary;
+18. checkpoint — GPT-2-small with the fused CE kernels (``--ce-chunk
+             8192 --ce-impl kernel``, dropout 0.25): 6 steps straight,
+             then 3 steps saving a checkpoint at step 3 and ``--resume``
+             to step 6 in a new process (torchrun of one, the CLI's
+             path): steps 4-6 within 1e-5 relative of the straight run
+             (the largest difference printed), the resumed leg
+             launching B1-B6; then an in-process save and restore of the
+             straight run's state, every tensor, the step and the count
+             equal, with the step directory's bytes and the save and
+             restore seconds;
+19. eval    — ``--mode eval`` through the CLI on that checkpoint (dense
+             head, bf16, eval batch 8): its val_loss within 1e-5
+             relative of an in-process ``evaluate()`` of the restored
+             state, B1 launched 12 times an eval batch, the eval
+             seconds and tokens/s;
+20. generate — ``--mode generate`` through the CLI on that checkpoint in
+             f32: greedy tokens equal to ``generate()`` on the restored
+             model, ``--num-beams 4`` exiting 0 with tokens in the
+             vocabulary and a finite beam score, and ``beam_search``
+             with one beam equal to greedy (a mismatch excused only
+             where the top-2 logit gap is under 1e-4);
+21. serve_checkpoint — ``--mode serve --checkpoint-dir`` on that
+             checkpoint in f32 (8 requests, 4 slots, 16 new tokens):
+             the summary says ``"params": "checkpoint"``, and every
+             stream equals ``generate()`` on the restored weights (the
+             same excuse).
 
 It then prints the nvidia-smi line, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -247,6 +273,29 @@ SERVE_ARGV = ["--mode", "serve", "--model", "gpt_lm", "--model-size", "small",
               str(SERVE_REQUESTS), "--serve.prompt-len-min", "64",
               "--serve.prompt-len-max", "512", "--serve.max-new-tokens",
               str(SERVE_NEW)]
+# Checkpoints and the modes that read them, at GPT-2-small's full width.
+CKPT_MODEL_ARGV = ["--model", "gpt_lm", "--model-size", "small",
+                   "--seq-len", "1024"]
+CHECKPOINT_ARGV = ["--mode", "train", *CKPT_MODEL_ARGV, "--batch-size", "8",
+                   "--eval-every", "0", "--eval-batch-size", "8",
+                   "--compute-dtype", "bfloat16", "--log-every", "1",
+                   "--ce-chunk", "8192", "--ce-impl", "kernel",
+                   "--dropout-rate", "0.25"]
+CHECKPOINT_STEPS, CHECKPOINT_EVERY = 6, 3
+CHECKPOINT_TIMEOUT_S = 420  # the resumed leg's torchrun, start-up included
+TOL_RESUME = 1e-5   # resumed vs straight losses, relative
+EVAL_ARGV = ["--mode", "eval", *CKPT_MODEL_ARGV, "--eval-batch-size", "8",
+             "--compute-dtype", "bfloat16"]
+TOL_EVAL = 1e-5     # CLI eval vs in-process evaluate(), relative
+GENERATE_PROMPT_LEN, GENERATE_NEW, GENERATE_BEAMS = 64, 32, 4
+GENERATE_ARGV = ["--mode", "generate", *CKPT_MODEL_ARGV, "--compute-dtype",
+                 "float32", "--max-new-tokens", str(GENERATE_NEW)]
+SERVE_CKPT_ARGV = ["--mode", "serve", *CKPT_MODEL_ARGV, "--synthetic-vocab",
+                   "50257", "--compute-dtype", "float32",
+                   "--serve.num-slots", "4", "--serve.num-requests", "8",
+                   "--serve.prompt-len-min", "16", "--serve.prompt-len-max",
+                   "256", "--serve.max-new-tokens", "16", "--serve.stream",
+                   "true"]
 CSRC = "tensorflow_distributed_tpu_torch/ops/csrc"
 SOURCES = {"flash_attention": f"{CSRC}/flash_attention.cu",
            "fused_ce": f"{CSRC}/fused_ce.cu"}
@@ -1563,6 +1612,17 @@ def first_mismatch(got, ref):
     return None if len(got) == len(ref) else min(len(got), len(ref))
 
 
+def top2_gap(torch, model, prompt, ref, j: int) -> float:
+    """The gap between the two largest logits where ``ref`` (a greedy
+    stream after ``prompt``) takes its ``j``-th token."""
+    from tensorflow_distributed_tpu_torch.models.generate import (
+        prefill_cache)
+
+    seq = torch.tensor(list(prompt) + list(ref[:j]), device=DEVICE)[None]
+    top2 = torch.topk(prefill_cache(model, seq)[0][0, -1], 2).values
+    return float(top2[0] - top2[1])
+
+
 def phase_serve_identity(torch, np) -> None:
     """The engine under the FIFO scheduler in f32, request by request
     against one-shot greedy ``generate()``: identical streams, except
@@ -1589,11 +1649,6 @@ def phase_serve_identity(torch, np) -> None:
          for i, p in enumerate(prompts)])}
     wall = time.time() - t0
 
-    def gap_at(prompt, ref, j):
-        seq = torch.tensor(list(prompt) + ref[:j], device=DEVICE)[None]
-        top2 = torch.topk(prefill_cache(model, seq)[0][0, -1], 2).values
-        return float(top2[0] - top2[1])
-
     excused = []
     for i, p in enumerate(prompts):
         ref = generate(model, torch.from_numpy(p).to(DEVICE)[None],
@@ -1601,7 +1656,7 @@ def phase_serve_identity(torch, np) -> None:
         j = first_mismatch(done[i].tokens, ref)
         if j is None:
             continue
-        gap = gap_at(p, ref, j)
+        gap = top2_gap(torch, model, p, ref, j)
         excused.append({"rid": i, "prompt_len": len(p), "step": j,
                         "top2_gap": gap})
         check(gap < IDENTITY_GAP,
@@ -1621,10 +1676,9 @@ def phase_serve_identity(torch, np) -> None:
           f"ladder of {len(engine.buckets)}")
 
 
-def serve_cli(argv):
+def run_cli(argv):
     """``cli.main(argv)`` in this process, its standard output captured
-    (and echoed to standard error). Returns (exit code, the ``[serve]``
-    summary line, the ``serve_summary`` record)."""
+    (and echoed to standard error). Returns (exit code, the output)."""
     import contextlib
     import io
 
@@ -1635,13 +1689,27 @@ def serve_cli(argv):
         rc = cli.main(argv)
     out = buf.getvalue()
     sys.stderr.write(out)
+    return rc, out
+
+
+def event_record(out: str, event: str):
+    """The first JSON record of ``event`` in a CLI's output, or None."""
+    return next((json.loads(l) for l in out.splitlines()
+                 if l.startswith(f'{{"event": "{event}"')), None)
+
+
+def serve_cli(argv):
+    """``cli.main(argv)`` in this process. Returns (exit code, the
+    ``[serve]`` summary line, the ``serve_summary`` record, the
+    output)."""
+    rc, out = run_cli(argv)
     lines = out.splitlines()
-    line = next((l for l in lines if l.startswith("[serve] ")), None)
-    record = next((json.loads(l) for l in lines
-                   if l.startswith('{"event": "serve_summary"')), None)
+    line = next((l for l in lines if l.startswith("[serve] ")
+                 and not l.startswith("[serve] rid=")), None)
+    record = event_record(out, "serve_summary")
     check(rc == 0 and line is not None and record is not None,
           f"serve: the CLI exited {rc} without its summary")
-    return rc, line, record
+    return rc, line, record, out
 
 
 def serve_profile(torch, argv) -> dict:
@@ -1706,7 +1774,7 @@ def phase_serve(torch) -> None:
     """``--mode serve`` through the CLI at full width in bf16, then a
     traced decode step of the same engine."""
     torch.cuda.reset_peak_memory_stats()
-    rc, line, summary = serve_cli(SERVE_ARGV)
+    rc, line, summary, _ = serve_cli(SERVE_ARGV)
     peak = torch.cuda.max_memory_allocated()
     keys = ("tokens_per_sec", "ttft_ms_p50", "ttft_ms_p95", "tok_ms_mean",
             "mean_slot_occupancy", "buckets", "prefill_compiles",
@@ -1717,6 +1785,256 @@ def phase_serve(torch) -> None:
     check(summary["total_new_tokens"] == SERVE_REQUESTS * SERVE_NEW,
           f"serve: {summary['total_new_tokens']} tokens delivered, not "
           f"{SERVE_REQUESTS} x {SERVE_NEW}")
+
+
+def sync(torch) -> None:
+    if DEVICE != "cpu":
+        torch.cuda.synchronize()
+
+
+def train_losses(result):
+    return [r.metrics["loss"] for r in result.logger.records
+            if "loss" in r.metrics]
+
+
+def restored(torch, argv):
+    """The model and train state that ``argv`` (with a
+    ``--checkpoint-dir``) builds, restored from the latest checkpoint."""
+    from tensorflow_distributed_tpu_torch.config import parse_args
+    from tensorflow_distributed_tpu_torch.train import checkpoint as ckpt
+    from tensorflow_distributed_tpu_torch.train.loop import (
+        _build_model_and_state)
+
+    cfg = parse_args(argv)
+    model, state = _build_model_and_state(cfg, torch.device(cfg.device))
+    return cfg, model, ckpt.restore(cfg.checkpoint_dir, state)
+
+
+def states_equal(torch, a, b) -> bool:
+    """Every tensor of two train states equal, and their step and count."""
+    groups = [(a.params, b.params)] + [
+        (a.opt_state[k], b.opt_state[k]) for k in a.opt_state if k != "count"]
+    if a.ema is not None or b.ema is not None:
+        groups.append((a.ema or {}, b.ema or {}))
+    return (a.step == b.step
+            and a.opt_state["count"] == b.opt_state["count"]
+            and all(x.keys() == y.keys()
+                    and all(torch.equal(x[n], y[n]) for n in x)
+                    for x, y in groups))
+
+
+def phase_checkpoint(kernels, torch, ckpt_dir: str) -> None:
+    """6 straight steps of the fused run against 3 steps with a save at
+    step 3 and ``--resume`` to 6 in a new process; then a save and a
+    restore in this process of the straight run's state."""
+    import hashlib
+
+    from tensorflow_distributed_tpu_torch import interop
+    from tensorflow_distributed_tpu_torch.config import parse_args
+    from tensorflow_distributed_tpu_torch.train import checkpoint as ckpt
+    from tensorflow_distributed_tpu_torch.train.loop import (
+        _build_model_and_state, train)
+    from tensorflow_distributed_tpu_torch.utils.logging import MetricLogger
+
+    def run(argv):
+        return train(parse_args(argv), logger=MetricLogger(stream=sys.stderr))
+
+    steps = ["--train-steps", str(CHECKPOINT_STEPS)]
+    save = ["--checkpoint-dir", ckpt_dir, "--checkpoint-every",
+            str(CHECKPOINT_EVERY)]
+    straight = run(CHECKPOINT_ARGV + steps)
+    first = run(CHECKPOINT_ARGV + ["--train-steps", str(CHECKPOINT_EVERY)]
+                + save)
+    resume_argv = CHECKPOINT_ARGV + steps + save + ["--resume", "true"]
+    wall, ranks, _ = run_torchrun("checkpoint", 1, resume_argv,
+                                     CHECKPOINT_TIMEOUT_S)
+    want = train_losses(straight)
+    got = train_losses(first) + ranks[0]["losses"]
+    diffs = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    resumed = ranks[0]["launches"]
+    legs = CHECKPOINT_STEPS - CHECKPOINT_EVERY
+    with tempfile.TemporaryDirectory(prefix="tfd_roundtrip_") as rt:
+        sync(torch)
+        t0 = time.time()
+        path = ckpt.save(rt, straight.state)
+        save_s = time.time() - t0
+        # Where a save goes: the device-to-host state dict, and the
+        # sha256 rate on this host (the file is hashed once a save, and
+        # once a restore).
+        t0 = time.time()
+        interop.state_to_flax(straight.state)
+        to_host_s = time.time() - t0
+        buf = bytes(2 ** 28)
+        t0 = time.time()
+        hashlib.sha256(buf).digest()
+        sha256_gb_s = len(buf) / (time.time() - t0) / 1e9
+        del buf
+        files = {n: os.path.getsize(os.path.join(path, n))
+                 for n in sorted(os.listdir(path))}
+        with open(os.path.join(path, "manifest.json")) as f:
+            manifest = json.load(f)
+        cfg = parse_args(CHECKPOINT_ARGV + steps)
+        device = next(straight.state.model.parameters()).device
+        fresh = _build_model_and_state(cfg, device)[1]
+        sync(torch)
+        t0 = time.time()
+        ckpt.restore(rt, fresh)
+        sync(torch)
+        restore_s = time.time() - t0
+        equal = states_equal(torch, straight.state, fresh)
+    emit({"phase": "checkpoint", "argv": resume_argv,
+          "straight_losses": want, "split_losses": got,
+          "max_rel_diff": max(diffs), "bit_identical": got == want,
+          "tolerance": TOL_RESUME, "resumed_launches": resumed,
+          "resume_wall_s": round(wall, 3),
+          "steps_saved": ckpt.available_steps(ckpt_dir),
+          "step_dir_bytes": sum(files.values()), "files": files,
+          "param_bytes": manifest["param_bytes"], "save_s": save_s,
+          "to_host_s": to_host_s, "sha256_gb_s": sha256_gb_s,
+          "restore_s": restore_s, "roundtrip_equal": equal})
+    check(len(got) == len(want) == CHECKPOINT_STEPS,
+          f"checkpoint: {len(got)} split losses, {len(want)} straight")
+    check(max(diffs) <= TOL_RESUME,
+          f"checkpoint: the resumed run left the straight one: {diffs}")
+    check(len(ranks[0]["losses"]) == legs,
+          f"checkpoint: the second leg did not resume at step "
+          f"{CHECKPOINT_EVERY}: {ranks[0]['losses']}")
+    check(all(resumed[k] == legs for k in ("fused_ce_fwd", "fused_ce_dx",
+                                           "fused_ce_dw"))
+          and resumed["flash_dq"] == resumed["flash_dkv"] == 12 * legs
+          and resumed["flash_fwd"] >= 12 * legs,
+          f"checkpoint: the resumed leg did not run B1-B6: {resumed}")
+    check(equal, "checkpoint: a tensor, the step or the count changed in a "
+                 "save and restore")
+
+
+def phase_eval(kernels, torch, ckpt_dir: str) -> None:
+    """``--mode eval`` through the CLI against an in-process evaluate()
+    of the restored state; B1 launched 12 times an eval batch."""
+    from tensorflow_distributed_tpu_torch.train.loop import evaluate
+    from tensorflow_distributed_tpu_torch.train.step import make_eval_step
+    from tensorflow_distributed_tpu_torch.train.tasks import make_task
+
+    argv = EVAL_ARGV + ["--checkpoint-dir", ckpt_dir]
+    for kern in kernels:
+        kern.launches = 0
+    rc, out = run_cli(argv)
+    launches = {kern.name: kern.launches for kern in kernels}
+    rec = event_record(out, "eval")
+    check(rc == 0 and rec is not None,
+          f"eval: the CLI exited {rc} without its eval record")
+    cfg, _, state = restored(torch, argv)
+    task = make_task(cfg)
+    batches = task.eval_size // cfg.eval_batch_size
+    ref = evaluate(state, make_eval_step(task.eval_loss or task.loss), task,
+                   cfg.eval_batch_size, torch.device(cfg.device))
+    rel = abs(rec["val_loss"] - ref["loss"]) / abs(ref["loss"])
+    tokens = batches * cfg.eval_batch_size * cfg.seq_len
+    emit({"phase": "eval", "argv": argv, "record": rec,
+          "in_process_loss": ref["loss"], "rel_diff": rel,
+          "tolerance": TOL_EVAL, "eval_batches": batches,
+          "launches": launches,
+          "tokens_per_s": (tokens / rec["eval_seconds"]
+                           if rec["eval_seconds"] else None)})
+    check(rel <= TOL_EVAL,
+          f"eval: the CLI's val_loss {rec['val_loss']} vs {ref['loss']}")
+    check(launches["flash_fwd"] == 12 * batches,
+          f"eval: the eval did not run B1 12 times a batch: {launches}")
+
+
+def stream_check(torch, model, prompt, got, ref, what: str):
+    """A token stream against ``ref``, the greedy reference: equal, or
+    differing first where the top-2 logit gap is under IDENTITY_GAP.
+    Returns the excuse (or None)."""
+    j = first_mismatch(got, ref)
+    if j is None:
+        return None
+    gap = top2_gap(torch, model, prompt, ref, j)
+    check(gap < IDENTITY_GAP, f"{what} differs from generate() at step {j}, "
+                              f"where the top-2 logit gap is {gap}")
+    return {"step": j, "top2_gap": gap}
+
+
+def phase_generate(torch, np, ckpt_dir: str) -> None:
+    """``--mode generate`` through the CLI in f32: greedy against
+    generate() on the restored model, 4 beams, and one beam against
+    greedy."""
+    from tensorflow_distributed_tpu_torch.models.generate import (
+        beam_search, generate)
+
+    rng = np.random.default_rng(2)
+    vocab_argv = GENERATE_ARGV + ["--checkpoint-dir", ckpt_dir]
+    _, model, state = restored(torch, vocab_argv + ["--prompt", "0"])
+    if state.ema is not None:
+        model.load_state_dict(state.ema)
+    vocab, n = model.cfg.vocab_size, GENERATE_NEW
+    prompt = rng.integers(0, vocab, GENERATE_PROMPT_LEN).tolist()
+    argv = vocab_argv + ["--prompt", ",".join(map(str, prompt))]
+    t0 = time.time()
+    rc, out = run_cli(argv)
+    greedy_s = time.time() - t0
+    greedy = event_record(out, "generate")
+    check(rc == 0 and greedy is not None,
+          f"generate: the CLI exited {rc} without its record")
+    t0 = time.time()
+    rc, out = run_cli(argv + ["--num-beams", str(GENERATE_BEAMS)])
+    beams_s = time.time() - t0
+    beams = event_record(out, "generate")
+    check(rc == 0 and beams is not None,
+          f"generate: the CLI with {GENERATE_BEAMS} beams exited {rc}")
+    x = torch.tensor([prompt], device=DEVICE)
+    ref = generate(model, x, n)[0].tolist()
+    one = beam_search(model, x, n, num_beams=1)[0][0, 0].tolist()
+    excused = {"greedy": stream_check(torch, model, prompt,
+                                      greedy["new_tokens"], ref, "generate"),
+               "one_beam": stream_check(torch, model, prompt, one, ref,
+                                        "beam_search(num_beams=1)")}
+    toks = beams["new_tokens"]
+    emit({"phase": "generate", "argv": argv[:-2] + ["--prompt", "..."],
+          "prompt_len": len(prompt), "new_tokens": n,
+          "greedy_identical": greedy["new_tokens"] == ref,
+          "one_beam_identical": one == ref, "excused": excused,
+          "beams": GENERATE_BEAMS, "beam_score": beams.get("beam_score"),
+          "greedy_s": greedy_s, "beams_s": beams_s, "step": greedy["step"]})
+    check(len(toks) == n and all(0 <= t < vocab for t in toks),
+          f"generate: beam tokens outside the vocabulary or short: {toks}")
+    check(math.isfinite(beams.get("beam_score", math.nan)),
+          f"generate: beam score {beams.get('beam_score')}")
+
+
+def phase_serve_checkpoint(torch, ckpt_dir: str) -> None:
+    """``--mode serve --checkpoint-dir`` in f32: every stream against
+    generate() on the restored weights."""
+    from tensorflow_distributed_tpu_torch.models.generate import generate
+    from tensorflow_distributed_tpu_torch.serve.run import _workload
+
+    argv = SERVE_CKPT_ARGV + ["--checkpoint-dir", ckpt_dir]
+    rc, line, summary, out = serve_cli(argv)
+    streams = {}
+    for l in out.splitlines():
+        if l.startswith("[serve] rid="):
+            rid, tok = l.split()[1:3]
+            streams.setdefault(int(rid[4:]), []).append(int(tok[4:]))
+    cfg, model, state = restored(torch, argv)
+    if state.ema is not None:
+        model.load_state_dict(state.ema)
+    excused = []
+    for r in _workload(cfg, cfg.synthetic_vocab or 64):
+        x = torch.tensor([r.prompt.tolist()], device=DEVICE)
+        ref = generate(model, x, r.max_new_tokens)[0].tolist()
+        why = stream_check(torch, model, r.prompt.tolist(),
+                           streams.get(r.rid, []), ref,
+                           f"serve_checkpoint: request {r.rid}")
+        if why:
+            excused.append({"rid": r.rid, **why})
+    emit({"phase": "serve_checkpoint", "argv": argv, "exit": rc,
+          "summary_line": line, "params": summary["params"],
+          "requests": summary["requests"],
+          "total_new_tokens": summary["total_new_tokens"],
+          "identical": summary["requests"] - len(excused),
+          "excused": excused})
+    check(summary["params"] == "checkpoint",
+          f"serve_checkpoint: served {summary['params']} params")
 
 
 def main(argv=None) -> int:
@@ -1762,6 +2080,11 @@ def main(argv=None) -> int:
     phase_decode(fa, torch, np)
     phase_serve_identity(torch, np)
     phase_serve(torch)
+    with tempfile.TemporaryDirectory(prefix="tfd_ckpt_") as ckpt_dir:
+        phase_checkpoint(kernels, torch, ckpt_dir)
+        phase_eval(kernels, torch, ckpt_dir)
+        phase_generate(torch, np, ckpt_dir)
+        phase_serve_checkpoint(torch, ckpt_dir)
 
     err = {"flash_fwd": flash["errors"]["o_abs_err"],
            "flash_dq": flash["errors"]["dq_abs_err"],

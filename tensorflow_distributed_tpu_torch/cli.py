@@ -51,6 +51,31 @@ Examples:
         --serve.prompt-len-min 64 --serve.prompt-len-max 512 \
         --serve.max-new-tokens 64
 
+    # checkpoints: a save every 200 steps (and at the end) into
+    # --checkpoint-dir, the newest 3 kept, in the JAX package's format;
+    # --resume true continues from the latest one:
+    python -m tensorflow_distributed_tpu_torch.cli --mode train \
+        --model gpt_lm --model-size small --seq-len 1024 --batch-size 8 \
+        --train-steps 600 --checkpoint-dir /tmp/gpt2 --resume true
+
+    # one validation pass of the latest checkpoint (its EMA if any):
+    python -m tensorflow_distributed_tpu_torch.cli --mode eval \
+        --model gpt_lm --model-size small --seq-len 1024 \
+        --eval-batch-size 8 --checkpoint-dir /tmp/gpt2
+
+    # continue a prompt of token ids from it, greedy, sampled
+    # (--gen-temperature, --gen-top-k, --gen-top-p) or by beam search:
+    python -m tensorflow_distributed_tpu_torch.cli --mode generate \
+        --model gpt_lm --model-size small --seq-len 1024 \
+        --compute-dtype float32 --checkpoint-dir /tmp/gpt2 \
+        --prompt 464,3290,318 --max-new-tokens 32 --num-beams 4
+
+    # serve its trained weights instead of fresh-init ones (the trained
+    # --seq-len):
+    python -m tensorflow_distributed_tpu_torch.cli --mode serve \
+        --model gpt_lm --model-size small --seq-len 1024 \
+        --checkpoint-dir /tmp/gpt2 --serve.num-slots 8
+
     # the same path on the CPU, tiny, streaming each token:
     python -m tensorflow_distributed_tpu_torch.cli --mode serve \
         --model gpt_lm --model-size tiny --compute-dtype float32 \
@@ -60,8 +85,9 @@ Examples:
 Flags share the JAX CLI's spellings and defaults; flags the port does
 not parse yet are rejected (ROADMAP.md queue A lists what is still to
 come). After training, the chief prints the eval records as the
-reference's ``performance`` table, as the JAX CLI does; ``--mode serve``
-prints the JAX CLI's ``[serve]`` summary line.
+reference's ``performance`` table, as the JAX CLI does; ``--mode eval``
+and ``--mode generate`` print an ``eval`` and a ``generate`` record;
+``--mode serve`` prints the JAX CLI's ``[serve]`` summary line.
 """
 
 from __future__ import annotations
@@ -72,7 +98,8 @@ from typing import Optional, Sequence
 from tensorflow_distributed_tpu_torch.config import TrainConfig, parse_args
 from tensorflow_distributed_tpu_torch.parallel import mesh
 from tensorflow_distributed_tpu_torch.serve.run import serve_run
-from tensorflow_distributed_tpu_torch.train.loop import TrainResult, train
+from tensorflow_distributed_tpu_torch.train.loop import (
+    TrainResult, evaluate_only, generate_only, train)
 from tensorflow_distributed_tpu_torch.utils.logging import MetricLogger
 
 
@@ -94,8 +121,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if cfg.mode == "serve":
         serve_run(cfg)
         return 0
+    if cfg.mode == "generate":
+        generate_only(cfg)
+        return 0
     try:
-        train_and_report(cfg)
+        if cfg.mode == "eval":
+            evaluate_only(cfg)
+        else:
+            train_and_report(cfg)
     finally:
         mesh.shutdown()
     return 0

@@ -31,7 +31,7 @@ LM_MODELS = ("gpt_lm",)
 VISION_MODELS = ("mnist_cnn",)
 DATASETS = ("mnist", "synthetic")
 INIT_SCHEMES = ("improved", "reference")
-MODES = ("train", "serve")
+MODES = ("train", "eval", "generate", "serve")
 SERVE_TRACES = ("poisson", "bursty", "diurnal")
 
 
@@ -175,8 +175,9 @@ _SERVE_NOT_PORTED = {
 @dataclasses.dataclass
 class TrainConfig:
     """One job of the port: training (mnist_cnn or gpt_lm on one device,
-    or on ``mesh.data`` x ``mesh.seq`` devices), or serving gpt_lm on one
-    device (``mode="serve"``)."""
+    or on ``mesh.data`` x ``mesh.seq`` devices), evaluating or continuing
+    a prompt from a checkpoint (``mode="eval"``, ``"generate"``), or
+    serving gpt_lm on one device (``mode="serve"``)."""
 
     # --- model -----------------------------------------------------------
     # mnist_cnn (the reference's CNN, the JAX default) | gpt_lm.
@@ -188,8 +189,9 @@ class TrainConfig:
     # GPT-2 ladder size ("small" ... "xl") or "tiny"; empty = "small".
     model_size: str = ""
     dropout_rate: float = 0.25
-    # bfloat16 matmuls (the flash kernels need bf16; float32 trains only
-    # with --device cpu, and serves anywhere); params/optimizer f32.
+    # bfloat16 matmuls (the flash kernels need bf16; float32 trains and
+    # evaluates only with --device cpu, and serves and generates
+    # anywhere); params/optimizer f32.
     compute_dtype: str = "bfloat16"
     # Share the input embedding as the LM output projection (GPT-2
     # style weight tying).
@@ -244,11 +246,37 @@ class TrainConfig:
     log_every: int = 10
     log_grad_norm: bool = False
 
+    # --- checkpoint ------------------------------------------------------
+    # A durable directory of step-tagged checkpoints (train/checkpoint.py,
+    # the JAX package's on-disk format); empty disables checkpointing.
+    checkpoint_dir: str = ""
+    checkpoint_every: int = 200
+    resume: bool = False
+    keep_checkpoints: int = 3
+    # The JAX package's background saves and its orbax backend are not
+    # ported (refused unless False / "native").
+    checkpoint_async: bool = False
+    checkpoint_backend: str = "native"
+
     # --- misc ------------------------------------------------------------
     seed: int = 0
-    # train | serve (continuous-batching inference, serve/); the JAX
-    # package's eval and generate are not ported yet.
+    # train | eval (restore the latest checkpoint, one validation pass)
+    # | generate (restore, continue --prompt) | serve (continuous-
+    # batching inference, serve/; fresh-init params without
+    # --checkpoint-dir).
     mode: str = "train"
+
+    # --- mode=generate ---------------------------------------------------
+    # Comma-separated token ids (the port has no text tokenizer yet).
+    prompt: str = ""
+    max_new_tokens: int = 64
+    # 0 = greedy; > 0 samples (optionally truncated by gen_top_k /
+    # nucleus gen_top_p), drawn from a generator seeded by --seed.
+    gen_temperature: float = 0.0
+    gen_top_k: int = 0
+    gen_top_p: float = 1.0
+    # > 1: beam search (deterministic; excludes the sampling knobs).
+    num_beams: int = 1
     # Where the run executes: "cuda" (default; fails if no GPU) or "cpu"
     # (the plain versions of the kernels; tests). Under torchrun, rank r
     # takes cuda:LOCAL_RANK.
@@ -265,7 +293,7 @@ class TrainConfig:
                 f"queue A)")
 
         if self.mode not in MODES:
-            raise todo(f"--mode {self.mode}")
+            raise ValueError(f"unknown mode {self.mode!r}; have {MODES}")
         serving = self.mode == "serve"
         if serving and self.model not in LM_MODELS:
             raise ValueError(
@@ -274,6 +302,54 @@ class TrainConfig:
         if serving and (self.mesh.seq != 1 or self.mesh.data not in (-1, 1)):
             raise todo("--mode serve over a --mesh.* of more than one "
                        "process")
+        if self.checkpoint_backend not in ("native", "orbax"):
+            raise ValueError(f"unknown checkpoint_backend "
+                             f"{self.checkpoint_backend!r}")
+        if self.checkpoint_backend != "native":
+            raise todo("--checkpoint-backend orbax (a JAX library)")
+        if self.checkpoint_async:
+            raise todo("--checkpoint-async (background saves)")
+        if self.checkpoint_every < 0 or self.keep_checkpoints < 1:
+            raise ValueError(
+                f"checkpoint_every must be >= 0 and keep_checkpoints >= 1, "
+                f"got {self.checkpoint_every} and {self.keep_checkpoints}")
+        if self.resume and not self.checkpoint_dir:
+            raise ValueError("resume=True requires checkpoint_dir")
+        if self.mode == "eval" and not self.checkpoint_dir:
+            raise ValueError("mode=eval requires checkpoint_dir")
+        if self.mode == "generate":
+            if self.model not in LM_MODELS:
+                raise ValueError(
+                    f"mode=generate needs a causal LM with the decode "
+                    f"cache ({', '.join(LM_MODELS)}), got {self.model!r}")
+            if not self.checkpoint_dir:
+                raise ValueError("mode=generate requires checkpoint_dir")
+            if not self.prompt:
+                raise ValueError(
+                    "mode=generate requires --prompt (text for "
+                    "dataset=text, else comma-separated token ids)")
+            if self.mesh.seq != 1:
+                raise ValueError(
+                    "mode=generate requires mesh.seq == 1 (single-"
+                    "token decode steps can't be seq-sharded)")
+            if self.num_beams > 1 and (
+                    self.gen_temperature > 0 or self.gen_top_k
+                    or self.gen_top_p != 1.0):
+                raise ValueError(
+                    "num_beams > 1 is deterministic beam search; it "
+                    "excludes the sampling knobs (gen_temperature / "
+                    "gen_top_k / gen_top_p) — pick one")
+        if self.gen_temperature < 0:
+            raise ValueError(
+                f"gen_temperature must be >= 0, got "
+                f"{self.gen_temperature} (negative would sample the "
+                f"inverted distribution)")
+        if self.max_new_tokens < 1:
+            raise ValueError(
+                f"max_new_tokens must be >= 1, got {self.max_new_tokens}")
+        if self.num_beams < 1:
+            raise ValueError(
+                f"num_beams must be >= 1, got {self.num_beams}")
         if self.model not in LM_MODELS + VISION_MODELS:
             raise todo(f"--model {self.model}")
         if self.dataset not in DATASETS:
@@ -293,7 +369,8 @@ class TrainConfig:
         if self.device != "cpu" and not self.device.startswith("cuda"):
             raise ValueError(f"device {self.device!r}; have cpu | cuda[:N]")
         lm = self.model in LM_MODELS
-        if (lm and not serving and self.device != "cpu"
+        inference = self.mode in ("serve", "generate")  # no B1-B9 runs
+        if (lm and not inference and self.device != "cpu"
                 and self.compute_dtype != "bfloat16"):
             raise todo(f"--compute-dtype {self.compute_dtype} on a GPU (the "
                        f"flash kernels take bfloat16)")

@@ -14,6 +14,24 @@ kernels change layout:
   ``[3, H, dh]``) flattens its output axes, and ``out`` ``[H, dh, D]``
   flattens its two contracted input axes.
 
+``params_to_flax`` is its exact inverse (the same names, the layouts
+transposed back, the keys sorted as a JAX host tree has them).
+
+``state_to_flax`` and ``state_from_flax`` map the port's ``TrainState``
+to and from the dict that ``flax.serialization.to_state_dict`` makes of
+the JAX ``TrainState``: ``step`` (int32), ``params``, ``opt_state``,
+``extra`` (``{}``), ``ema`` (a param tree or None). ``opt_state`` nests
+as the optax chain of ``train/optim.py`` does, each member's state a
+dict keyed by its position:
+
+- adam: ``{"0": {count, mu, nu}, "1": {count}}`` (scale_by_adam, the
+  schedule); adamw adds the decay mask's ``{"inner_state": {}}`` between
+  them; sgd is ``{"0": {trace}, "1": {count}}``;
+- with ``grad_clip_norm`` the chain is ``{"0": {}, "1": <the above>}``.
+
+The port's moments are per-name dicts of tensors and its ``count`` one
+Python int, where JAX keeps an int32 array per counting member.
+
 ``cache_from_flax`` maps the ``cache`` collection that the JAX model's
 ``decode=True`` path fills (``layer_i/attn/{key,value}`` of shape
 ``[B, max_len, H, Dh]``, plus a scalar ``index``) to the port's
@@ -22,12 +40,15 @@ kernels change layout:
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
-from tensorflow_distributed_tpu_torch.models.transformer import KVCache
+from tensorflow_distributed_tpu_torch.models.transformer import (
+    KVCache, SelfAttention)
+from tensorflow_distributed_tpu_torch.train.state import TrainState, ema_init
 
 
 def _walk(tree: Mapping[str, Any], prefix=()):
@@ -62,6 +83,161 @@ def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         key = ".".join(module + ["weight" if name != "bias" else "bias"])
         out[key] = torch.tensor(np.asarray(value, dtype=np.float32))
     return out
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    if t.dtype == torch.bfloat16:
+        raise ValueError("a bfloat16 tensor has no numpy dtype; the "
+                         "checkpoint format holds float32 params, moments "
+                         "and EMA")
+    return t.detach().cpu().numpy()
+
+
+def _sorted(tree: dict) -> dict:
+    """Keys sorted at every level, as a JAX host tree has them."""
+    return {k: _sorted(v) if isinstance(v, dict) else v
+            for k, v in sorted(tree.items())}
+
+
+def _flax_leaf(model: nn.Module, name: str, value: torch.Tensor):
+    """(flax path, leaf) of the port parameter ``name``, the leaf still
+    a tensor on its device (the layout change runs there)."""
+    *path, kind = name.split(".")
+    module = model.get_submodule(".".join(path))
+    if isinstance(module, nn.Embedding):
+        return path + ["embedding"], value
+    if isinstance(module, nn.LayerNorm):
+        return path + ["scale" if kind == "weight" else "bias"], value
+    if isinstance(module, nn.Conv2d):
+        if kind == "weight":
+            value = value.permute(2, 3, 1, 0)  # OIHW -> HWIO
+        return path + ["kernel" if kind == "weight" else "bias"], value
+    if not isinstance(module, nn.Linear):
+        raise ValueError(f"no flax leaf for parameter {name!r}")
+    attn = model.get_submodule(".".join(path[:-1]))
+    heads = None
+    if isinstance(attn, SelfAttention):
+        cfg = attn.cfg
+        heads = (cfg.n_heads, cfg.d_model // cfg.n_heads, cfg.d_model)
+    if kind == "bias":
+        if heads and path[-1] == "qkv":
+            value = value.reshape(3, *heads[:2])
+        return path + ["bias"], value
+    value = value.t()
+    if heads and path[-1] == "qkv":
+        value = value.reshape(heads[2], 3, *heads[:2])
+    elif heads and path[-1] == "out":
+        value = value.reshape(*heads)
+    return path + ["kernel"], value
+
+
+def params_to_flax(params: Mapping[str, torch.Tensor], model: nn.Module
+                   ) -> Dict[str, Any]:
+    """The port's named tensors (params, or a moment or the EMA of
+    them) -> the flax param tree of numpy leaves: the inverse of
+    ``params_from_flax``. ``model`` says which module each name is."""
+    tree: Dict[str, Any] = {}
+    for name, t in params.items():
+        path, leaf = _flax_leaf(model, name, t.detach())
+        leaf = _numpy(leaf.contiguous())
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+    return _sorted(tree)
+
+
+def _opt_to_flax(state: TrainState, convert) -> Dict[str, Any]:
+    tx, opt = state.tx, state.opt_state
+    count = np.asarray(opt["count"], np.int32)
+    if tx.kind == "sgd":
+        chain = [{"trace": convert(opt["trace"])}]
+    else:
+        chain = [{"count": count, "mu": convert(opt["mu"]),
+                  "nu": convert(opt["nu"])}]
+        if tx.weight_decay:
+            chain.append({"inner_state": {}})  # optax.masked's state
+    chain.append({"count": count})  # the schedule's
+    tree = {str(i): member for i, member in enumerate(chain)}
+    return {"0": {}, "1": tree} if tx.clip_norm else tree
+
+
+def state_to_flax(state: TrainState) -> Dict[str, Any]:
+    """The port's train state -> the JAX ``TrainState``'s state dict
+    (numpy leaves on the host), in the JAX field and key order."""
+    def convert(tensors):
+        return params_to_flax(tensors, state.model)
+
+    return {"step": np.asarray(state.step, np.int32),
+            "params": convert(state.params),
+            "opt_state": _opt_to_flax(state, convert),
+            "extra": {},
+            "ema": None if state.ema is None else convert(state.ema)}
+
+
+def _find(tree: Any, key: str) -> Optional[dict]:
+    """The first dict (depth first, in key order) that holds ``key``."""
+    if not isinstance(tree, dict):
+        return None
+    if key in tree:
+        return tree
+    for value in tree.values():
+        found = _find(value, key)
+        if found is not None:
+            return found
+    return None
+
+
+@torch.no_grad()
+def _load(dst: Dict[str, torch.Tensor], tree: Mapping[str, Any],
+          what: str) -> None:
+    """Copy a flax param tree into the port's tensors of the same names,
+    in place, after checking names and shapes."""
+    src = params_from_flax(tree)
+    if set(src) != set(dst):
+        raise ValueError(
+            f"checkpoint {what} do not match the model: missing "
+            f"{sorted(set(dst) - set(src))}, unexpected "
+            f"{sorted(set(src) - set(dst))}")
+    for name, t in dst.items():
+        if src[name].shape != t.shape:
+            raise ValueError(
+                f"{what} {name}: checkpoint leaf shape "
+                f"{tuple(src[name].shape)} != template {tuple(t.shape)}; "
+                f"was this run saved with another model size, --seq-len "
+                f"or vocabulary?")
+        t.copy_(src[name])
+
+
+def state_from_flax(tree: Mapping[str, Any], state: TrainState
+                    ) -> TrainState:
+    """Load a JAX ``TrainState`` state dict (numpy leaves, as
+    ``msgpack_restore`` gives them) into the port's ``state`` in place:
+    params, moments, count, step, and the EMA when ``tree`` has one
+    (none: ``state.ema`` becomes None). Names and shapes must match the
+    model's; the moments are found by name wherever the chain nests
+    them, so adding or dropping clipping or the decay mask across a
+    resume restores, as JAX aligns the mask."""
+    _load(state.params, tree["params"], "params")
+    tx, opt = state.tx, tree["opt_state"]
+    key = "trace" if tx.kind == "sgd" else "mu"
+    core = _find(opt, key)
+    if core is None:
+        raise ValueError(
+            f"the checkpoint's optimizer state has no {key!r}: it was not "
+            f"written by --optimizer {tx.kind}")
+    counter = core if "count" in core else _find(opt, "count")
+    state.opt_state["count"] = int(counter["count"])
+    for name in (("trace",) if tx.kind == "sgd" else ("mu", "nu")):
+        _load(state.opt_state[name], core[name], f"opt_state {name}")
+    if tree.get("ema") is None:
+        state.ema = None
+    else:
+        if state.ema is None:
+            state.ema = ema_init(state.params)
+        _load(state.ema, tree["ema"], "ema")
+    state.step = int(tree["step"])
+    return state
 
 
 def cache_from_flax(tree: Mapping[str, Any]) -> KVCache:

@@ -28,11 +28,11 @@ Numerics follow the flax model:
   the whole ``max_len`` cache through ``full_attention`` (f32) under the
   ``window_keep`` band as a NEG_INF bias. A [1, L] positions array
   broadcasts to every row (``generate()``); a [B, L] one is per row (the
-  serving engine's slots sit at different depths). Positions are the
-  authority on where writes land: unlike JAX's ``dynamic_update_slice``,
-  which moves an out-of-range start back inside the buffer, an indexed
-  write past ``max_len`` fails, so callers keep positions in range
-  (``models/generate.py`` and ``serve/engine.py`` check on the host).
+  serving engine's slots sit at different depths). A row's write starts
+  at ``positions[b, 0]`` clamped to ``max_len - L``, as JAX's
+  ``dynamic_update_slice`` clamps it; the callers still keep positions
+  in range (``models/generate.py`` and ``serve/engine.py`` check on the
+  host).
 
 Parameter names mirror the flax tree (``layer_0.attn.qkv`` for
 ``layer_0/attn/qkv``), so ``interop.params_from_flax`` is a fixed
@@ -247,16 +247,19 @@ class SelfAttention(nn.Module):
 
 def _cached_attend(q, k, v, positions, kv, window):
     """The JAX decode branch's dense layout: write each row's L new K, V
-    at ``start_b .. start_b + L - 1`` (``start_b = positions[b, 0]``) in
-    one indexed write per cache, then attend the L queries against the
-    whole cache, columns outside each query's (pos - window, pos] band
-    masked by a NEG_INF bias [1 | B, L, max_len]. No row is ever fully
-    masked: each query's own column is inside its band."""
+    at ``start_b .. start_b + L - 1`` in one indexed write per cache,
+    then attend the L queries against the whole cache, columns outside
+    each query's (pos - window, pos] band masked by a NEG_INF bias
+    [1 | B, L, max_len]. ``start_b`` is ``positions[b, 0]`` clamped to
+    ``[0, max_len - L]``, as ``dynamic_update_slice`` clamps it in JAX:
+    a write that would run past the cache end lands shifted back over
+    the row's last columns. The band reads the unclamped positions."""
     k_cache, v_cache = kv
     B, L = q.shape[:2]
     pos = positions.long()
     steps = torch.arange(L, device=q.device)
-    cols = pos[:, :1].expand(B, 1) + steps                  # [B, L]
+    start = pos[:, :1].expand(B, 1).clamp(0, k_cache.shape[1] - L)
+    cols = start + steps                                     # [B, L]
     rows = torch.arange(B, device=q.device)[:, None].expand(B, L)
     k_cache[rows, cols] = k.to(k_cache.dtype)
     v_cache[rows, cols] = v.to(v_cache.dtype)

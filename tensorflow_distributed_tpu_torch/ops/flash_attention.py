@@ -443,17 +443,28 @@ def supported(L: int, Lk: int, D: int) -> bool:
             and D in HEAD_DIMS)
 
 
+def window_edge(L: int, Lk: int, causal: bool, window: int) -> bool:
+    """Whether some query row has no key in its band: with causal, a
+    window and L >= Lk + window, rows from Lk + window - 1 on see no
+    key. The plain path's dense softmax averages all of V there (as the
+    JAX package's XLA path does); the kernels do not, so the dispatcher
+    sends these shapes to the plain path."""
+    return causal and window > 0 and L >= Lk + window
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               mask: Optional[torch.Tensor] = None, *, causal: bool = False,
               window: int = 0) -> torch.Tensor:
     """Dispatcher for the single-device attention path: the flash
-    kernels (their plain versions for CPU tensors) when there is no mask
-    and ``supported()`` passes, the plain ``full_attention`` otherwise."""
+    kernels (their plain versions for CPU tensors) when there is no
+    mask, ``supported()`` passes and no row falls past the window's edge
+    (``window_edge``), the plain ``full_attention`` otherwise."""
     # The plain path must not silently drop the window either.
     _check_window(causal, window)
     B, L, H, D = q.shape
     Lk = k.shape[1]
-    if mask is None and supported(L, Lk, D):
+    if (mask is None and supported(L, Lk, D)
+            and not window_edge(L, Lk, causal, window)):
         return flash_attention(q, k, v, causal=causal, window=window)
     if causal:
         cmask = window_bias(torch.arange(L, device=q.device)[:, None],

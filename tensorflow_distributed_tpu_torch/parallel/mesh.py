@@ -123,6 +123,11 @@ class Mesh:
         if self.distributed:
             broadcast_(tensors, 0)
 
+    def barrier(self) -> None:
+        """Wait for every rank of the world."""
+        if self.distributed:
+            dist.barrier()
+
 
 ONE_PROCESS = Mesh()
 

@@ -10,9 +10,11 @@ Workloads: ``--serve.requests file.jsonl`` (one JSON object per line:
 ``--serve.trace``: ``poisson``, ``bursty``, ``diurnal``, or a ``.jsonl``
 file of per-request ``{"arrival_s": t}`` offsets.
 
-The port has no checkpoints yet, so it serves fresh-init params (drawn
-from ``--seed``) and labels them so, as the JAX package does without
-``--checkpoint-dir``. The synthetic workload's ids are drawn below
+With ``--checkpoint-dir`` it serves the latest checkpoint's weights
+(its EMA where it tracks one), as JAX's does; a checkpointed model's
+``max_len`` is the trained one, so pass that ``--seq-len``. Without it
+the params are fresh-init (drawn from ``--seed``) and the summary says
+so, as in JAX. The synthetic workload's ids are drawn below
 ``--synthetic-vocab`` (64 when unset, as in JAX): a full-width run
 passes ``--synthetic-vocab 50257``. Text prompts wait for the port of
 ``--dataset text``.
@@ -25,7 +27,6 @@ import json
 from typing import Dict, List, Tuple
 
 import numpy as np
-import torch
 
 from tensorflow_distributed_tpu_torch.config import TrainConfig
 from tensorflow_distributed_tpu_torch.models.transformer import (
@@ -35,8 +36,9 @@ from tensorflow_distributed_tpu_torch.serve.buckets import (
 from tensorflow_distributed_tpu_torch.serve.engine import SlotDecodeEngine
 from tensorflow_distributed_tpu_torch.serve.scheduler import (
     Request, Scheduler)
+from tensorflow_distributed_tpu_torch.train import checkpoint as ckpt
 from tensorflow_distributed_tpu_torch.train.loop import (
-    build_model_for, resolve_device)
+    _build_model_and_state, resolve_device)
 
 
 def _arrivals(serve, n: int, rng) -> List[float]:
@@ -146,9 +148,10 @@ def serve_setup(cfg: TrainConfig
                 ) -> Tuple[TrainConfig, SlotDecodeEngine, List[Request]]:
     """Everything before the scheduler's clock starts: the workload, the
     cache length (``--seq-len``, or sized to the workload), the bucket
-    ladder, the model (fresh-init from ``--seed``, its dense weights held
-    in the compute dtype) and the engine. Returns the config with the
-    cache length it was given, the engine and the requests."""
+    ladder, the model (the checkpoint's weights with ``--checkpoint-dir``,
+    else fresh-init from ``--seed``; its dense weights held in the
+    compute dtype) and the engine. Returns the config with the cache
+    length it was given, the engine and the requests."""
     cfg.validate()
     device = resolve_device(cfg.device)
     requests = _workload(cfg, cfg.synthetic_vocab or 64)
@@ -165,8 +168,7 @@ def serve_setup(cfg: TrainConfig
         cfg = dataclasses.replace(cfg, seq_len=max(need, 32))
     buckets = (parse_buckets(cfg.serve.buckets) if cfg.serve.buckets
                else default_buckets(max_prompt, cap=cfg.seq_len))
-    model = build_model_for(cfg, device)
-    model.init_weights(torch.Generator(device=device).manual_seed(cfg.seed))
+    model, state = _build_model_and_state(cfg, device)
     vocab = model.cfg.vocab_size
     for r in requests:
         # The embedding would fail on an id outside the table; name it.
@@ -174,6 +176,11 @@ def serve_setup(cfg: TrainConfig
         if bad:
             raise ValueError(f"request {r.rid}: prompt ids {bad} outside "
                              f"the model vocabulary [0, {vocab})")
+    if cfg.checkpoint_dir:
+        state = ckpt.restore(cfg.checkpoint_dir, state)
+        if state.ema is not None:
+            model.load_state_dict(state.ema)
+    del state  # the optimizer's moments are not served
     cast_dense_weights_(model)
     engine = SlotDecodeEngine(model, cfg.serve.num_slots, buckets=buckets)
     return cfg, engine, requests
@@ -205,7 +212,7 @@ def serve_run(cfg: TrainConfig) -> Dict:
             1e3 * float(np.percentile(ttfts, q)), 3)
     summary["tok_ms_mean"] = round(
         float(np.mean([c.tok_ms for c in done])), 4)
-    summary["params"] = "fresh-init"
+    summary["params"] = "checkpoint" if cfg.checkpoint_dir else "fresh-init"
     print(f"[serve] {summary['requests']} requests, "
           f"{summary['total_new_tokens']} tokens in "
           f"{summary['wall_s']}s — "

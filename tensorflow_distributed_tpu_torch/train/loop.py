@@ -1,11 +1,17 @@
-"""The training loop: the port of ``train/loop.py``'s ``train`` and
-``evaluate``, on one device or over a (data, seq) mesh of processes.
+"""The training loop: the port of ``train/loop.py``'s ``train``,
+``evaluate``, ``evaluate_only`` (``--mode eval``) and ``generate_only``
+(``--mode generate``), on one device or over a (data, seq) mesh of
+processes.
 
 Same cadence as the JAX loop: the first step runs apart from the timed
 span (it carries one-time set-up: CUDA context, library handles, the
 kernel build on a fresh checkout), metrics are fetched to the host
 every ``log_every`` steps, eval runs every ``eval_every`` steps and once
-at the end, and the run ends with a JSON ``done`` record.
+at the end, a checkpoint is saved every ``checkpoint_every`` steps and
+once at the end (with ``--checkpoint-dir``), and the run ends with a
+JSON ``done`` record. ``--resume`` restores the latest checkpoint and
+continues from its step on the batches an uninterrupted run would
+draw.
 
 Under ``--mesh.data D --mesh.seq S`` (D*S processes under torchrun, one
 GPU each; see ``parallel/mesh.py``) each rank draws only its data
@@ -30,6 +36,7 @@ from tensorflow_distributed_tpu_torch.data.prefetch import (
 from tensorflow_distributed_tpu_torch.models import build_model
 from tensorflow_distributed_tpu_torch.parallel import mesh as mesh_lib
 from tensorflow_distributed_tpu_torch.parallel.mesh import ONE_PROCESS, Mesh
+from tensorflow_distributed_tpu_torch.train import checkpoint as ckpt
 from tensorflow_distributed_tpu_torch.train.optim import make_optimizer
 from tensorflow_distributed_tpu_torch.train.state import (
     TrainState, create_train_state, ema_init, param_count)
@@ -151,16 +158,9 @@ def _build_model_and_state(cfg: TrainConfig, device: torch.device,
     return model, state
 
 
-def train(cfg: TrainConfig, logger: Optional[MetricLogger] = None,
-          init_params: Optional[Dict[str, torch.Tensor]] = None
-          ) -> TrainResult:
-    """Train ``cfg`` on its device. ``init_params`` (a state dict)
-    replaces the seeded init, so a run can start from the JAX package's
-    init (``interop.params_from_flax``) for parity checks. Under
-    torchrun this is one rank of the (data, seq) mesh (``parallel/
-    mesh.py``): the process group is started from torchrun's
-    environment unless the caller has started one; the caller ends it
-    (``mesh.shutdown``)."""
+def _setup(cfg: TrainConfig, logger: Optional[MetricLogger]):
+    """The run's device, mesh and logger: the checks that need no process
+    group, then the group (``mesh_lib.bootstrap``)."""
     cfg.validate()
     device = resolve_device(mesh_lib.rank_device(cfg.device))
     data, seq = mesh_lib.mesh_shape(cfg.mesh.data, cfg.mesh.seq)
@@ -177,11 +177,35 @@ def train(cfg: TrainConfig, logger: Optional[MetricLogger] = None,
     logger = logger or MetricLogger()
     if not mesh_lib.is_chief():
         logger.enabled = False  # every rank keeps its records; one prints
+    return device, mesh, logger
+
+
+def _make_task(cfg: TrainConfig, mesh: Mesh) -> Task:
     task = make_task(cfg, mesh)
     if task.seq_axis is not None and task.seq_len % mesh.seq:
         raise ValueError(f"--mesh.seq {mesh.seq} must divide the "
                          f"sequence length {task.seq_len}")
+    return task
+
+
+def train(cfg: TrainConfig, logger: Optional[MetricLogger] = None,
+          init_params: Optional[Dict[str, torch.Tensor]] = None
+          ) -> TrainResult:
+    """Train ``cfg`` on its device. ``init_params`` (a state dict)
+    replaces the seeded init, so a run can start from the JAX package's
+    init (``interop.params_from_flax``) for parity checks. Under
+    torchrun this is one rank of the (data, seq) mesh (``parallel/
+    mesh.py``): the process group is started from torchrun's
+    environment unless the caller has started one; the caller ends it
+    (``mesh.shutdown``)."""
+    device, mesh, logger = _setup(cfg, logger)
+    task = _make_task(cfg, mesh)
     model, state = _build_model_and_state(cfg, device, init_params, mesh)
+    start_step = 0
+    if cfg.resume and ckpt.latest_step(cfg.checkpoint_dir) is not None:
+        state = ckpt.restore(cfg.checkpoint_dir, state)
+        start_step = state.step
+        logger.log_json({"event": "resumed", "step": start_step})
     step_fn = make_train_step(task.loss, device, cfg.seed,
                               grad_norm_metric=cfg.log_grad_norm, mesh=mesh,
                               accum_steps=cfg.grad_accum_steps,
@@ -190,9 +214,15 @@ def train(cfg: TrainConfig, logger: Optional[MetricLogger] = None,
     logger.log_json({
         "event": "start", "model": cfg.model, "task": task.name,
         "params": param_count(model), "device": str(device),
-        "global_batch": cfg.batch_size, "start_step": 0,
+        "global_batch": cfg.batch_size, "start_step": start_step,
         "mesh": {"data": mesh.data, "seq": mesh.seq},
     })
+    saved_at = None
+
+    def save() -> None:
+        nonlocal saved_at
+        ckpt.save(cfg.checkpoint_dir, state, cfg.keep_checkpoints, mesh)
+        saved_at = state.step
 
     def cadence(step_now: int, metrics) -> None:
         if cfg.log_every and step_now % cfg.log_every == 0:
@@ -201,24 +231,29 @@ def train(cfg: TrainConfig, logger: Optional[MetricLogger] = None,
             em = evaluate(state, eval_fn, task, cfg.eval_batch_size, device,
                           mesh)
             logger.log(step_now, **{f"val_{k}": v for k, v in em.items()})
+        if (cfg.checkpoint_dir and cfg.checkpoint_every
+                and step_now % cfg.checkpoint_every == 0):
+            save()
 
     batches = prefetch((seq_block(b, mesh, task.seq_axis)
-                        for b in task.train_stream(0)), device)
+                        for b in task.train_stream(start_step)), device)
     with Timer() as first_t:
-        if cfg.train_steps > 0:
+        if cfg.train_steps > start_step:
             state, metrics = step_fn(state, next(batches))
             _sync(device)
-            cadence(1, metrics)
-    steps_done = 1 if cfg.train_steps > 0 else 0
+            cadence(start_step + 1, metrics)
+    steps_done = 1 if cfg.train_steps > start_step else 0
     with Timer() as train_t:
-        for i in range(steps_done, cfg.train_steps):
+        for i in range(start_step + steps_done, cfg.train_steps):
             state, metrics = step_fn(state, next(batches))
             cadence(i + 1, metrics)
         _sync(device)
     with Timer() as eval_t:
         final = evaluate(state, eval_fn, task, cfg.eval_batch_size, device,
                          mesh)
-    steady = max(state.step - steps_done, 0)
+    if cfg.checkpoint_dir and saved_at != state.step:
+        save()  # the final state, unless its cadence save just wrote it
+    steady = max(state.step - start_step - steps_done, 0)
     sps = steady / train_t.elapsed if train_t.elapsed > 0 else 0.0
     result = TrainResult(
         state=state, train_seconds=first_t.elapsed + train_t.elapsed,
@@ -235,3 +270,72 @@ def train(cfg: TrainConfig, logger: Optional[MetricLogger] = None,
     logger.log_json({**done,
                      **{f"val_{k}": round(v, 5) for k, v in final.items()}})
     return result
+
+
+def evaluate_only(cfg: TrainConfig, logger: Optional[MetricLogger] = None
+                  ) -> Dict[str, float]:
+    """``--mode eval``: restore the latest checkpoint and run one full
+    validation pass (on the EMA when the checkpoint tracks one), then an
+    ``eval`` record. The caller ends the process group."""
+    device, mesh, logger = _setup(cfg, logger)
+    task = _make_task(cfg, mesh)
+    _, state = _build_model_and_state(cfg, device, mesh=mesh)
+    state = ckpt.restore(cfg.checkpoint_dir, state)
+    eval_fn = make_eval_step(task.eval_loss or task.loss)
+    with Timer() as eval_t:
+        metrics = evaluate(state, eval_fn, task, cfg.eval_batch_size, device,
+                           mesh)
+    logger.log_json({
+        "event": "eval", "step": state.step,
+        "eval_seconds": round(eval_t.elapsed, 3),
+        **{f"val_{k}": round(v, 5) for k, v in metrics.items()}})
+    return metrics
+
+
+def generate_only(cfg: TrainConfig, logger: Optional[MetricLogger] = None
+                  ) -> Dict:
+    """``--mode generate``: restore a checkpoint and continue
+    ``--prompt``, greedy, sampled (a ``torch.Generator`` seeded by
+    ``--seed``) or by beam search (``--num-beams`` > 1), on the EMA
+    weights when the checkpoint tracks them. The model is built without
+    the training task (the checkpoint pins its shapes). Emits and
+    returns a ``generate`` record."""
+    from tensorflow_distributed_tpu_torch.models.generate import (
+        beam_search, generate)
+
+    cfg.validate()
+    device = resolve_device(cfg.device)
+    logger = logger or MetricLogger()
+    try:
+        ids = [int(t) for t in cfg.prompt.split(",")]
+    except ValueError:
+        raise ValueError(
+            f"prompt {cfg.prompt!r} is not comma-separated token ids "
+            f"(string prompts need --dataset text, which is not ported to "
+            f"PyTorch yet; see ROADMAP.md queue A)") from None
+    model, state = _build_model_and_state(cfg, device)
+    vocab = model.cfg.vocab_size
+    bad = [t for t in ids if not 0 <= t < vocab]
+    if bad:
+        raise ValueError(f"prompt ids {bad} outside the model vocabulary "
+                         f"[0, {vocab})")
+    state = ckpt.restore(cfg.checkpoint_dir, state)
+    if state.ema is not None:
+        model.load_state_dict(state.ema)
+    prompt = torch.tensor([ids], dtype=torch.long, device=device)
+    rec = {"event": "generate", "step": state.step, "prompt": cfg.prompt}
+    if cfg.num_beams > 1:
+        seqs, scores = beam_search(model, prompt, cfg.max_new_tokens,
+                                   num_beams=cfg.num_beams)
+        rec["new_tokens"] = seqs[0, 0].tolist()  # the best beam
+        rec["beam_score"] = round(float(scores[0, 0]), 5)
+    else:
+        gen = None
+        if cfg.gen_temperature > 0:
+            gen = torch.Generator(device=device).manual_seed(cfg.seed)
+        rec["new_tokens"] = generate(
+            model, prompt, cfg.max_new_tokens,
+            temperature=cfg.gen_temperature, top_k=cfg.gen_top_k,
+            top_p=cfg.gen_top_p, generator=gen)[0].tolist()
+    logger.log_json(rec)
+    return rec

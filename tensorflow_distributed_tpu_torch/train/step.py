@@ -25,6 +25,7 @@ from __future__ import annotations
 import functools
 from typing import Callable, Dict, Tuple
 
+import numpy as np
 import torch
 
 from tensorflow_distributed_tpu_torch.data.prefetch import map_batch
@@ -38,6 +39,13 @@ Metrics = Dict[str, torch.Tensor]
 LossFn = Callable[..., Tuple[torch.Tensor, Metrics]]
 
 
+def step_seed(seed: int, rank: int, step: int) -> int:
+    """The dropout seed of one rank's step: a hash of the three, so no
+    two (rank, step) pairs of a run share a stream."""
+    return int(np.random.SeedSequence([seed, rank, step]).generate_state(
+        1, np.uint64)[0])
+
+
 def make_train_step(loss: LossFn, device: torch.device, seed: int = 0,
                     grad_norm_metric: bool = False,
                     mesh: Mesh = ONE_PROCESS, accum_steps: int = 1,
@@ -45,15 +53,18 @@ def make_train_step(loss: LossFn, device: torch.device, seed: int = 0,
                     ) -> Callable[[TrainState, Batch],
                                   Tuple[TrainState, Metrics]]:
     """Build the train step for a model on ``device``. Dropout draws
-    from one generator, seeded with ``seed`` plus this rank's place in
-    the world (each rank's rows, or block of a sequence, draw their own
-    mask) and advanced by every microbatch. ``grad_norm_metric`` reports
-    the pre-clip global gradient norm as ``metrics["grad_norm"]``.
-    ``ema_decay`` > 0 updates ``state.ema`` (which the caller made,
-    ``state.ema_init``) after each update."""
-    generator = torch.Generator(device=device).manual_seed(seed + mesh.rank)
+    from one generator, reseeded at every step from (``seed``, this
+    rank's place in the world, the step counter) as JAX folds the step
+    into its dropout key: each rank's rows, or block of a sequence, draw
+    their own mask, and a resumed run draws the masks an uninterrupted
+    one would. The microbatches draw from it in order.
+    ``grad_norm_metric`` reports the pre-clip global gradient norm as
+    ``metrics["grad_norm"]``. ``ema_decay`` > 0 updates ``state.ema``
+    (which the caller made, ``state.ema_init``) after each update."""
+    generator = torch.Generator(device=device)
 
     def step(state: TrainState, batch: Batch) -> Tuple[TrainState, Metrics]:
+        generator.manual_seed(step_seed(seed, mesh.rank, state.step))
         params = state.params
         if accum_steps == 1:
             value, metrics = loss(state.model, batch, train=True,

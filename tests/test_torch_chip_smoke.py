@@ -215,7 +215,8 @@ def test_ptxas_lines_are_grouped_by_kernel():
 def test_new_phases_run_after_the_ring_in_order():
     """model_cnn, train_cnn and train_data run after every earlier phase
     (train_ring last of those), then the serving phases (decode,
-    serve_identity, serve), before the kernels line."""
+    serve_identity, serve), then the checkpoint phases (checkpoint,
+    eval, generate, serve_checkpoint), before the kernels line."""
     import inspect
 
     src = inspect.getsource(cs.main)
@@ -225,7 +226,8 @@ def test_new_phases_run_after_the_ring_in_order():
              "phase_ring_kernels(", "phase_ring(", "phase_train_ring(",
              "phase_model_cnn(", "phase_train_cnn(", "phase_train_data(",
              "phase_decode(", "phase_serve_identity(", "phase_serve(",
-             'emit({"kernels"']
+             "phase_checkpoint(", "phase_eval(", "phase_generate(",
+             "phase_serve_checkpoint(", 'emit({"kernels"']
     at = [src.index(call) for call in order]
     assert at == sorted(at)
 
@@ -432,3 +434,191 @@ def test_serve_phase_failure_paths(fault, tiny_smoke, monkeypatch, capsys):
     err = capsys.readouterr().err
     assert ("tokens delivered" if fault == "tokens"
             else "without its summary") in err
+
+
+# --- the checkpoint phases (checkpoint, eval, generate, serve_checkpoint) --
+
+def test_checkpoint_argvs_are_the_full_width_runs():
+    """GPT-2-small at seq 1024 throughout: the fused run with dropout
+    0.25 saving at step 3 of 6, the dense bf16 eval at batch 8, generate
+    and serve in f32 (8 requests, 4 slots, 16 new tokens)."""
+    from tensorflow_distributed_tpu_torch.config import parse_args
+
+    d = ["--checkpoint-dir", "/ckpt"]
+    train = parse_args(cs.CHECKPOINT_ARGV + ["--train-steps", "6"] + d)
+    assert (train.model_size, train.seq_len, train.batch_size) == (
+        "small", 1024, 8)
+    assert (train.ce_chunk, train.ce_impl, train.dropout_rate) == (
+        8192, "kernel", 0.25)
+    assert (cs.CHECKPOINT_STEPS, cs.CHECKPOINT_EVERY, cs.TOL_RESUME) == (
+        6, 3, 1e-5)
+    ev = parse_args(cs.EVAL_ARGV + d)
+    assert (ev.mode, ev.ce_chunk, ev.compute_dtype, ev.eval_batch_size) == (
+        "eval", 0, "bfloat16", 8)
+    gen = parse_args(cs.GENERATE_ARGV + d + ["--prompt", "1"])
+    assert (gen.mode, gen.compute_dtype, gen.max_new_tokens) == (
+        "generate", "float32", cs.GENERATE_NEW)
+    serve = parse_args(cs.SERVE_CKPT_ARGV + d)
+    assert (serve.serve.num_requests, serve.serve.num_slots,
+            serve.serve.max_new_tokens, serve.compute_dtype) == (
+        8, 4, 16, "float32")
+    for cfg in (train, ev, gen, serve):
+        assert (cfg.model_size, cfg.seq_len, cfg.device) == (
+            "small", 1024, "cuda")
+
+
+TINY_CKPT = ["--model", "gpt_lm", "--model-size", "tiny", "--seq-len", "64",
+             "--device", "cpu"]
+
+
+@pytest.fixture
+def ckpt_smoke(monkeypatch, tmp_path):
+    """The checkpoint phases on the CPU at a tiny size, with a tiny
+    checkpoint of 2 steps under ``tmp_path / "ckpt"``; the resumed leg
+    runs in this process (returning the launch counts it is given)."""
+    import torch
+
+    from tensorflow_distributed_tpu_torch.config import parse_args
+    from tensorflow_distributed_tpu_torch.train.loop import train
+    from tensorflow_distributed_tpu_torch.utils.logging import MetricLogger
+
+    # One intra-op thread: these tiny models run hundreds of small ops
+    # a step, which threads only slow down when workers share the cores.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    monkeypatch.setattr(cs, "DEVICE", "cpu")
+    monkeypatch.setattr(cs, "CHECKPOINT_ARGV", [
+        "--mode", "train", *TINY_CKPT, "--batch-size", "8", "--eval-every",
+        "0", "--eval-batch-size", "8", "--compute-dtype", "float32",
+        "--log-every", "1", "--ce-chunk", "32", "--ce-impl", "kernel",
+        "--dropout-rate", "0.25"])
+    monkeypatch.setattr(cs, "EVAL_ARGV", [
+        "--mode", "eval", *TINY_CKPT, "--eval-batch-size", "8",
+        "--compute-dtype", "float32"])
+    monkeypatch.setattr(cs, "GENERATE_NEW", 6)
+    monkeypatch.setattr(cs, "GENERATE_PROMPT_LEN", 8)
+    monkeypatch.setattr(cs, "GENERATE_ARGV", [
+        "--mode", "generate", *TINY_CKPT, "--compute-dtype", "float32",
+        "--max-new-tokens", "6"])
+    monkeypatch.setattr(cs, "SERVE_CKPT_ARGV", [
+        "--mode", "serve", *TINY_CKPT, "--synthetic-vocab", "64",
+        "--compute-dtype", "float32", "--serve.num-slots", "2",
+        "--serve.num-requests", "3", "--serve.prompt-len-min", "4",
+        "--serve.prompt-len-max", "12", "--serve.max-new-tokens", "5",
+        "--serve.stream", "true"])
+    launches = {kern.name: 0 for kern in cs_kernels()}
+
+    def in_process(phase, nproc, argv, timeout):
+        result = train(parse_args(argv), logger=MetricLogger(enabled=False))
+        return 0.0, [{"losses": cs.train_losses(result),
+                      "launches": dict(launches)}], [""]
+
+    monkeypatch.setattr(cs, "run_torchrun", in_process)
+    ckpt = tmp_path / "ckpt"
+    train(parse_args(cs.CHECKPOINT_ARGV + [
+        "--train-steps", "2", "--checkpoint-dir", str(ckpt)]),
+        logger=MetricLogger(enabled=False))
+    yield torch, str(ckpt), launches
+    torch.set_num_threads(threads)
+
+
+CARD_LAUNCHES = {"fused_ce_fwd": 3, "fused_ce_dx": 3, "fused_ce_dw": 3,
+                 "flash_dq": 36, "flash_dkv": 36, "flash_fwd": 48}
+
+
+@pytest.mark.parametrize("fault", ["none", "cpu", "diverged"])
+def test_checkpoint_phase_passes_and_fails(fault, ckpt_smoke, tmp_path,
+                                           monkeypatch, capsys):
+    """Straight vs split-and-resumed, bit for bit on the CPU, and the
+    save/restore round trip; the phase fails where the kernels did not
+    launch (as on the CPU) and where a resumed loss moves."""
+    torch, _, launches = ckpt_smoke
+    if fault != "cpu":
+        launches.update(CARD_LAUNCHES)
+    if fault == "diverged":
+        real = cs.train_losses
+        monkeypatch.setattr(cs, "train_losses", lambda r: [
+            x * (1 + 1e-4) for x in real(r)] if r.state.step == 6
+            and r.logger.records[0].step == 4 else real(r))
+    d = tmp_path / "phase"
+    if fault == "none":
+        cs.phase_checkpoint([], torch, str(d))
+    else:
+        with pytest.raises(SystemExit):
+            cs.phase_checkpoint([], torch, str(d))
+    out, err = capsys.readouterr()
+    line = json.loads(out.splitlines()[-1])
+    assert line["phase"] == "checkpoint" and line["roundtrip_equal"]
+    assert line["steps_saved"] == [3, 6]
+    assert line["step_dir_bytes"] > line["param_bytes"] > 0
+    if fault == "diverged":
+        assert "left the straight one" in err
+    else:
+        assert line["bit_identical"] and line["max_rel_diff"] == 0.0
+    if fault == "cpu":
+        assert "did not run B1-B6" in err
+
+
+def test_eval_phase_fails_when_b1_does_not_run(ckpt_smoke, capsys):
+    """On the CPU B1 launches nothing: the CLI's val_loss agrees with the
+    in-process evaluate(), and the phase fails on the launch gate."""
+    torch, ckpt, _ = ckpt_smoke
+    with pytest.raises(SystemExit):
+        cs.phase_eval(cs_kernels(), torch, ckpt)
+    out, err = capsys.readouterr()
+    line = json.loads(out.splitlines()[-1])
+    assert line["phase"] == "eval" and line["rel_diff"] <= cs.TOL_EVAL
+    assert line["eval_batches"] == 64 and line["record"]["step"] == 2
+    assert "did not run B1" in err
+
+
+def cs_kernels():
+    return fa.KERNELS + fce.KERNELS + fa.PARTIAL_KERNELS
+
+
+def test_generate_phase_passes_and_fails_on_a_real_mismatch(
+        ckpt_smoke, monkeypatch, capsys):
+    import numpy as np
+
+    from tensorflow_distributed_tpu_torch.models import generate as gen
+
+    torch, ckpt, _ = ckpt_smoke
+    cs.phase_generate(torch, np, ckpt)
+    line = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert line["greedy_identical"] and line["one_beam_identical"]
+    assert line["beams"] == 4 and np.isfinite(line["beam_score"])
+    real = gen.generate
+
+    def off_by_one(model, prompt, n, **kw):
+        out = real(model, prompt, n, **kw)
+        out[0, 1] = (out[0, 1] + 1) % model.cfg.vocab_size
+        return out
+
+    monkeypatch.setattr(gen, "generate", off_by_one)
+    with pytest.raises(SystemExit):
+        cs.phase_generate(torch, np, ckpt)
+    assert "differs from generate() at step 1" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("fault", ["none", "fresh"])
+def test_serve_checkpoint_phase_passes_and_fails_on_fresh_params(
+        fault, ckpt_smoke, monkeypatch, capsys):
+    torch, ckpt, _ = ckpt_smoke
+    if fault == "fresh":
+        real = cs.serve_cli
+
+        def fresh(argv):
+            rc, line, summary, out = real(argv)
+            return rc, line, dict(summary, params="fresh-init"), out
+
+        monkeypatch.setattr(cs, "serve_cli", fresh)
+        with pytest.raises(SystemExit):
+            cs.phase_serve_checkpoint(torch, ckpt)
+        assert "served fresh-init params" in capsys.readouterr().err
+        return
+    cs.phase_serve_checkpoint(torch, ckpt)
+    line = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert line["params"] == "checkpoint" and line["excused"] == []
+    assert line["identical"] == line["requests"] == 3
+    assert line["summary_line"].startswith("[serve] 3 requests")
+    assert line["total_new_tokens"] == 15

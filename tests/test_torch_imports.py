@@ -1,7 +1,8 @@
 """PyTorch port: import hygiene and the chip smoke's refusals.
 
 Every module of ``tensorflow_distributed_tpu_torch`` and ``chip_smoke.py``
-imports with JAX (``jax*``, ``flax``, ``optax``) and the JAX package
+imports with JAX (``jax*``, ``flax``, ``optax``), ``msgpack`` (the
+checkpoint codec is the port's own) and the JAX package
 (``tensorflow_distributed_tpu``, not the ``_torch`` port) poisoned —
 the pattern of tests/test_contracts.py's jax-free proof. The smoke exits
 non-zero with no result line where there is no GPU, and where it stands
@@ -21,7 +22,7 @@ def test_port_and_chip_smoke_import_without_jax():
     code = textwrap.dedent("""
         import builtins, importlib, importlib.util, pkgutil
         real = builtins.__import__
-        BANNED = ("jax", "jaxlib", "flax", "optax",
+        BANNED = ("jax", "jaxlib", "flax", "optax", "msgpack",
                   "tensorflow_distributed_tpu")
         def guard(name, *a, **k):
             root = name.split(".")[0]
@@ -51,11 +52,12 @@ def test_port_and_chip_smoke_import_without_jax():
     # Every module of the port: config, cli, interop, models (the CNN
     # included), ops (the fused-CE modules included), parallel
     # (ring_attention and mesh), data (MNIST and the prefetcher
-    # included), train, utils.
+    # included), train (the checkpoints included), utils (the msgpack
+    # codec included).
     words = out.stdout.split()
-    assert int(words[1]) >= 26
+    assert int(words[1]) >= 28
     for name in ("parallel.mesh", "models.cnn", "data.mnist",
-                 "data.prefetch"):
+                 "data.prefetch", "utils.serialization", "train.checkpoint"):
         assert f"tensorflow_distributed_tpu_torch.{name}" in words[2:]
 
 

@@ -393,8 +393,8 @@ def test_unported_serve_flags_are_refused(name):
 
 @pytest.mark.parametrize("argv,error", [
     (["--serve.policy", "slo"], NotImplementedError),
-    (["--mode", "eval"], NotImplementedError),
-    (["--mode", "generate"], NotImplementedError),
+    (["--checkpoint-backend", "orbax"], NotImplementedError),
+    (["--checkpoint-async", "true"], NotImplementedError),
     (["--model", "mnist_cnn"], ValueError),
     (["--mesh.seq", "2"], NotImplementedError),
     (["--serve.trace", "poisson"], ValueError),

@@ -301,8 +301,8 @@ def test_unported_jax_flags_are_rejected(argv, capsys):
 
 
 @pytest.mark.parametrize("fields", [dict(model="resnet20"),
-                                    dict(mode="eval"),
-                                    dict(mode="generate"),
+                                    dict(checkpoint_backend="orbax"),
+                                    dict(checkpoint_async=True),
                                     dict(optimizer="adafactor"),
                                     dict(compute_dtype="float32"),
                                     dict(dataset="text"),

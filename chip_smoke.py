@@ -48,7 +48,9 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
              (final eval through the scan formulation): finite, falling
              loss, the first step's loss within 1e-2 of the dense run's,
              each CE kernel launched once per step;
-8. step_profile — where a step of each of the two runs goes: its host-
+8. step_profile — where a step goes, for train's and train_fused's
+             flags and the Llama-style phases' (train_llama,
+             train_window; phases 23-24): its host-
              clocked time with and without the per-step loss fetch, the
              host's time to enqueue a step, and, from torch.profiler, the
              device's busy time and idle share by kernel kind (flash,
@@ -151,7 +153,34 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
              checkpoint in f32 (8 requests, 4 slots, 16 new tokens):
              the summary says ``"params": "checkpoint"``, and every
              stream equals ``generate()`` on the restored weights (the
-             same excuse).
+             same excuse);
+22. model_llama — the Llama-style GPT at GPT-2-small's widths (RoPE,
+             4 K/V heads, SwiGLU at d_ff 3072, RMSNorm, tied: ~142M
+             params), batch 2 x L 1024, from one seeded param tree: the
+             bf16 forward and backward on the card through B1-B3 against
+             the f32 plain path on the CPU, logits and every grad within
+             5e-2 of max |ref|;
+23. train_llama — train_fused's run (30 steps, ``--ce-chunk 8192
+             --ce-impl kernel``) with the Llama-style flags: B2 and B3
+             exactly 12 launches a step, B1 at least 12, each CE kernel
+             one, no ring kernel; tokens/s, step ms and peak memory
+             beside train_fused's;
+24. train_window — ``--seq-len 4096 --attn-window 512 --pos-emb rope``
+             at GPT-2-small's width, batch 2 (8192 tokens a step),
+             ``--remat full --optimizer adafactor``, 20 steps: B2 and
+             B3 12 launches a step, B1 at least 24 (the forward and the
+             recompute), a falling loss; then 3 steps under ``--remat
+             dots`` (B1 still 24 a step: the kernel is recomputed, as
+             JAX recomputes its pallas_call under dots_saveable) and 3
+             without remat (B1 12 a step), whose peak memory over the
+             train steps must be higher than the remat run's, and the
+             gap;
+25. decode_llama — ``decode`` on the Llama-style model in bf16: the
+             logits within 2e-2 of the training forward (B1), and the
+             narrow cache ([B, max_len, 4, 64]) exactly 4/12 of the
+             bytes of an MHA cache of the same shape;
+26. serve_llama — ``serve_identity`` on the Llama-style model in f32:
+             every stream equal to ``generate()`` (the same excuse).
 
 It then prints the nvidia-smi line, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -208,6 +237,8 @@ TRAIN_ARGV = ["--mode", "train", "--model", "gpt_lm", "--model-size", "small",
               "--eval-every", "0", "--eval-batch-size", "8",
               "--compute-dtype", "bfloat16", "--log-every", "1"]
 TRAIN_FUSED_ARGV = TRAIN_ARGV + ["--ce-chunk", "8192", "--ce-impl", "kernel"]
+CE_KERNELS = ("fused_ce_fwd", "fused_ce_dx", "fused_ce_dw")
+RING_KERNELS = ("flash_fwd_partial", "flash_dq_partial", "flash_dkv_partial")
 PROFILE_STEPS = 10  # step_profile: timed and traced steps of each run
 # Partial (ring-step) kernels vs their plain versions; the ring vs the
 # flash kernels and the plain full attention (plain in f32 from the same
@@ -296,6 +327,29 @@ SERVE_CKPT_ARGV = ["--mode", "serve", *CKPT_MODEL_ARGV, "--synthetic-vocab",
                    "--serve.prompt-len-min", "16", "--serve.prompt-len-max",
                    "256", "--serve.max-new-tokens", "16", "--serve.stream",
                    "true"]
+# The Llama-style GPT at GPT-2-small's published widths (12 layers x 768 x
+# 12 heads of 64, vocab 50257, d_ff 3072) with RoPE, grouped-query
+# attention over 4 K/V heads (the JAX package's genbench --n-kv-heads 4),
+# a SwiGLU MLP, RMSNorm and tied embeddings: ~142M params.
+LLAMA_OPTS = dict(pos_emb="rope", n_kv_heads=4, mlp_variant="swiglu",
+                  norm="rmsnorm", tie_embeddings=True)
+LLAMA_FLAGS = ["--pos-emb", "rope", "--n-kv-heads", "4", "--mlp-variant",
+               "swiglu", "--norm", "rmsnorm", "--tie-embeddings", "true"]
+MODEL_LLAMA_B, MODEL_LLAMA_L = 2, 1024
+TRAIN_LLAMA_ARGV = TRAIN_ARGV + LLAMA_FLAGS + ["--ce-chunk", "8192",
+                                               "--ce-impl", "kernel"]
+# Mistral-style long context (the README's --seq-len 4096 --attn-window
+# 512 --pos-emb rope) at GPT-2-small's width, 8192 tokens a step as in
+# train, recomputing every block, with Adafactor; then short legs under
+# --remat dots and without remat.
+TRAIN_WINDOW_ARGV = ["--mode", "train", "--model", "gpt_lm", "--model-size",
+                     "small", "--seq-len", "4096", "--batch-size", "2",
+                     "--train-steps", "20", "--eval-every", "0",
+                     "--eval-batch-size", "2", "--compute-dtype", "bfloat16",
+                     "--log-every", "1", "--attn-window", "512",
+                     "--pos-emb", "rope", "--remat", "full", "--optimizer",
+                     "adafactor"]
+WINDOW_CONTROL_STEPS = 3
 CSRC = "tensorflow_distributed_tpu_torch/ops/csrc"
 SOURCES = {"flash_attention": f"{CSRC}/flash_attention.cu",
            "fused_ce": f"{CSRC}/fused_ce.cu"}
@@ -893,29 +947,45 @@ def phase_model_fused(fce, torch, np) -> None:
               f"loss {loss_err}, grads {grad_err}")
 
 
-def run_train(kernels, torch, phase, argv, dense=None):
+def run_train(kernels, torch, phase, argv, beside=None):
     """One training run through the port's CLI path, every launch count
     set to 0 just before it and read just after. Checks what every run
     must show (finite, falling loss; a final eval) and returns its
-    record (``launches`` and the loss trajectory included)."""
+    record: ``launches`` (the whole run, final eval included),
+    ``train_launches`` and ``train_peak_mem_bytes`` (read at the last
+    step's record, before the final eval) and the loss trajectory.
+    ``beside`` ({name: record}) puts another run's numbers beside
+    these."""
     from tensorflow_distributed_tpu_torch.config import parse_args
     from tensorflow_distributed_tpu_torch.train.loop import train
     from tensorflow_distributed_tpu_torch.utils.logging import MetricLogger
+
+    class StepReads(MetricLogger):
+        """Reads the launch counts and the peak memory at each step's
+        record: after the step is enqueued, before the final eval."""
+
+        def log(self, step, **metrics):
+            super().log(step, **metrics)
+            if "loss" in metrics:
+                self.at_step = ({kern.name: kern.launches for kern in kernels},
+                                torch.cuda.max_memory_allocated())
 
     cfg = parse_args(argv)
     torch.cuda.reset_peak_memory_stats()
     for kern in kernels:
         kern.launches = 0
+    logger = StepReads(stream=sys.stderr)
     t0 = time.time()
-    result = train(cfg, logger=MetricLogger(stream=sys.stderr))
+    result = train(cfg, logger=logger)
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = {kern.name: kern.launches for kern in kernels}
     records = [r for r in result.logger.records if "loss" in r.metrics]
     losses = [r.metrics["loss"] for r in records]
     times = [r.wall_time for r in records]
-    step_s = [b - a for a, b in zip(times, times[1:])][4:]  # steps 6..
-    step_ms = statistics.median(step_s) * 1e3
+    step_s = [b - a for a, b in zip(times, times[1:])]
+    step_ms = statistics.median(step_s[4:] or step_s) * 1e3  # steps 6..
+    train_launches, train_peak = logger.at_step
     rec = {"phase": phase, "argv": argv, "steps": len(losses),
            "first_loss": losses[0],
            "last5_mean_loss": statistics.mean(losses[-5:]),
@@ -924,10 +994,11 @@ def run_train(kernels, torch, phase, argv, dense=None):
               if cfg.seq_len else
               {"images_per_s": cfg.batch_size / step_ms * 1e3}),
            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "train_peak_mem_bytes": train_peak,
            "eval": result.final_metrics, "launches": launches,
-           "wall_s": round(wall, 3)}
-    if dense is not None:
-        rec["dense"] = {k: dense[k] for k in (
+           "train_launches": train_launches, "wall_s": round(wall, 3)}
+    for name, other in (beside or {}).items():
+        rec[name] = {k: other[k] for k in (
             "first_loss", "step_ms_median", "tokens_per_s", "peak_mem_bytes")}
     emit(rec)
     check(len(losses) == cfg.train_steps,
@@ -947,10 +1018,7 @@ def phase_train(kernels, torch):
     check(launches["flash_dq"] == n and launches["flash_dkv"] == n
           and launches["flash_fwd"] >= n,
           f"the run did not go through every flash kernel: {launches}")
-    check(all(launches[k] == 0 for k in ("fused_ce_fwd", "fused_ce_dx",
-                                         "fused_ce_dw", "flash_fwd_partial",
-                                         "flash_dq_partial",
-                                         "flash_dkv_partial")),
+    check(all(launches[k] == 0 for k in CE_KERNELS + RING_KERNELS),
           f"the dense run launched a fused-CE or ring kernel: {launches}")
     return rec
 
@@ -958,10 +1026,10 @@ def phase_train(kernels, torch):
 def phase_train_fused(kernels, torch, dense):
     """The tentpole command: the dense run with the head and loss fused
     into the CE kernels (eval by the scan formulation, no kernel)."""
-    rec = run_train(kernels, torch, "train_fused", TRAIN_FUSED_ARGV, dense)
+    rec = run_train(kernels, torch, "train_fused", TRAIN_FUSED_ARGV,
+                    {"dense": dense})
     launches = rec["launches"]
-    check(all(launches[k] == 30 for k in ("fused_ce_fwd", "fused_ce_dx",
-                                          "fused_ce_dw")),
+    check(all(launches[k] == 30 for k in CE_KERNELS),
           f"the fused run did not launch each CE kernel once per step: "
           f"{launches}")
     check(all(launches[k] == dense["launches"][k]
@@ -1063,9 +1131,11 @@ def profiled(torch, argv) -> dict:
 
 
 def phase_step_profile(torch) -> None:
-    """Where a train step's time goes, for the dense and the fused run's
-    flags (``profile_steps``)."""
-    for run, argv in (("train", TRAIN_ARGV), ("train_fused", TRAIN_FUSED_ARGV)):
+    """Where a train step's time goes, for the dense, the fused, the
+    Llama-style and the windowed run's flags (``profile_steps``)."""
+    for run, argv in (("train", TRAIN_ARGV), ("train_fused", TRAIN_FUSED_ARGV),
+                      ("train_llama", TRAIN_LLAMA_ARGV),
+                      ("train_window", TRAIN_WINDOW_ARGV)):
         emit({"phase": "step_profile", "run": run, "steps": PROFILE_STEPS,
               **profiled(torch, argv)})
 
@@ -1548,25 +1618,32 @@ def phase_train_data(torch) -> None:
               f"train_data {name}: the table printed from ranks {tables}")
 
 
-def gpt2_small(torch, dtype):
+def gpt2_small(torch, dtype, **overrides):
     """GPT-2-small at its published widths on the card, fresh-init from
-    seed 0, without dropout."""
+    seed 0, without dropout; ``overrides`` are TransformerConfig fields
+    (the Llama-style options)."""
     from tensorflow_distributed_tpu_torch.models.transformer import gpt_lm
 
     with torch.device(DEVICE):
-        model = gpt_lm("small", compute_dtype=dtype, dropout_rate=0.0)
+        model = gpt_lm("small", compute_dtype=dtype, dropout_rate=0.0,
+                       **overrides)
     model.init_weights(torch.Generator(device=DEVICE).manual_seed(0))
     return model
 
 
-def phase_decode(fa, torch, np) -> None:
+def decode_phase(fa, torch, np, phase, overrides) -> None:
     """Prefill four prompts at their own depths in one batch, then decode
     DECODE_STEPS greedy tokens; at every step hold the last-position
-    logits to the training forward (B1) over the same tokens."""
+    logits to the training forward (B1) over the same tokens. With
+    ``n_kv_heads`` in ``overrides`` the cache must hold exactly
+    n_kv_heads / n_heads of an MHA cache's bytes."""
+    import dataclasses
+
     from tensorflow_distributed_tpu_torch.models.generate import (
         decode_token, prefill_cache)
+    from tensorflow_distributed_tpu_torch.models.transformer import KVCache
 
-    model = gpt2_small(torch, torch.bfloat16)
+    model = gpt2_small(torch, torch.bfloat16, **overrides)
     rng = np.random.default_rng(0)
     B, P = len(DECODE_PROMPTS), max(DECODE_PROMPTS)
     width = -(-(P + DECODE_STEPS) // fa.BLOCK) * fa.BLOCK  # B1's tile
@@ -1585,7 +1662,7 @@ def phase_decode(fa, torch, np) -> None:
         for step in range(DECODE_STEPS + 1):
             ref = model(seq)[rows, pos - 1]
             check(bool(torch.isfinite(last).all()),
-                  f"decode: non-finite logits at step {step}")
+                  f"{phase}: non-finite logits at step {step}")
             errs.append(float((last - ref).abs().max() / ref.abs().max()))
             if step == DECODE_STEPS:
                 break
@@ -1594,14 +1671,28 @@ def phase_decode(fa, torch, np) -> None:
             last, cache = decode_token(model, cache, tok, pos)
             pos = pos + 1
     launched = b1.launches - before
-    emit({"phase": "decode", "prompts": list(DECODE_PROMPTS),
+    mha_bytes = KVCache.zeros(dataclasses.replace(model.cfg, n_kv_heads=None),
+                              B, device="meta").nbytes()
+    want_bytes = (mha_bytes * overrides["n_kv_heads"] // model.cfg.n_heads
+                  if "n_kv_heads" in overrides else mha_bytes)
+    emit({"phase": phase, "prompts": list(DECODE_PROMPTS),
           "steps": DECODE_STEPS, "oracle_width": width,
           "rel_err_by_step": errs, "max_rel_err": max(errs),
-          "tolerance": TOL_DECODE, "oracle_flash_fwd_launches": launched})
-    check(launched == 12 * (DECODE_STEPS + 1),
-          f"decode: the oracle forward did not run B1: {launched} launches")
+          "tolerance": TOL_DECODE, "oracle_flash_fwd_launches": launched,
+          "cache_shape": list(cache.k[0].shape),
+          "cache_bytes": cache.nbytes(), "mha_cache_bytes": mha_bytes})
+    check(cache.nbytes() == want_bytes,
+          f"{phase}: the cache holds {cache.nbytes()} bytes, not "
+          f"{want_bytes} (n_kv_heads / n_heads of the MHA cache's "
+          f"{mha_bytes}): a GQA cache of full width")
     check(max(errs) <= TOL_DECODE,
-          f"decode: logits disagree with the training forward: {errs}")
+          f"{phase}: logits disagree with the training forward: {errs}")
+    check(launched == model.cfg.n_layers * (DECODE_STEPS + 1),
+          f"{phase}: the oracle forward did not run B1: {launched} launches")
+
+
+def phase_decode(fa, torch, np) -> None:
+    decode_phase(fa, torch, np, "decode", {})
 
 
 def first_mismatch(got, ref):
@@ -1623,12 +1714,11 @@ def top2_gap(torch, model, prompt, ref, j: int) -> float:
     return float(top2[0] - top2[1])
 
 
-def phase_serve_identity(torch, np) -> None:
+def serve_identity(torch, np, phase, overrides) -> None:
     """The engine under the FIFO scheduler in f32, request by request
     against one-shot greedy ``generate()``: identical streams, except
     where the reference's top-2 logit gap is under IDENTITY_GAP."""
-    from tensorflow_distributed_tpu_torch.models.generate import (
-        generate, prefill_cache)
+    from tensorflow_distributed_tpu_torch.models.generate import generate
     from tensorflow_distributed_tpu_torch.serve.buckets import (
         default_buckets)
     from tensorflow_distributed_tpu_torch.serve.engine import (
@@ -1636,7 +1726,7 @@ def phase_serve_identity(torch, np) -> None:
     from tensorflow_distributed_tpu_torch.serve.scheduler import (
         Request, Scheduler)
 
-    model = gpt2_small(torch, torch.float32)
+    model = gpt2_small(torch, torch.float32, **overrides)
     rng = np.random.default_rng(1)
     lens = np.linspace(*IDENTITY_PROMPTS, IDENTITY_REQUESTS).astype(int)
     prompts = [rng.integers(0, model.cfg.vocab_size, n) for n in lens]
@@ -1660,20 +1750,26 @@ def phase_serve_identity(torch, np) -> None:
         excused.append({"rid": i, "prompt_len": len(p), "step": j,
                         "top2_gap": gap})
         check(gap < IDENTITY_GAP,
-              f"serve_identity: request {i} (prompt {len(p)}) differs from "
+              f"{phase}: request {i} (prompt {len(p)}) differs from "
               f"generate() at step {j}, where the top-2 logit gap is {gap}")
-    emit({"phase": "serve_identity", "requests": IDENTITY_REQUESTS,
+    emit({"phase": phase, "requests": IDENTITY_REQUESTS,
           "slots": IDENTITY_SLOTS, "new_tokens": IDENTITY_NEW,
           "prompt_lens": lens.tolist(), "identical": IDENTITY_REQUESTS
           - len(excused), "excused": excused,
           "buckets_used": engine.prefill_compiles,
           "ladder": list(engine.buckets), "prefills": engine.prefills,
-          "decode_steps": engine.decode_steps, "wall_s": round(wall, 3)})
+          "decode_steps": engine.decode_steps,
+          "cache_bytes_per_slot": engine.cache_bytes_per_slot(),
+          "wall_s": round(wall, 3)})
     check(engine.prefills == IDENTITY_REQUESTS,
-          f"serve_identity: {engine.prefills} prefills")
+          f"{phase}: {engine.prefills} prefills")
     check(engine.prefill_compiles <= len(engine.buckets),
-          f"serve_identity: {engine.prefill_compiles} prefill shapes for a "
+          f"{phase}: {engine.prefill_compiles} prefill shapes for a "
           f"ladder of {len(engine.buckets)}")
+
+
+def phase_serve_identity(torch, np) -> None:
+    serve_identity(torch, np, "serve_identity", {})
 
 
 def run_cli(argv):
@@ -2037,6 +2133,144 @@ def phase_serve_checkpoint(torch, ckpt_dir: str) -> None:
           f"serve_checkpoint: served {summary['params']} params")
 
 
+def phase_model_llama(fa, torch, np) -> None:
+    """The Llama-style GPT at GPT-2-small's widths (LLAMA_OPTS), batch
+    MODEL_LLAMA_B x L MODEL_LLAMA_L, from one seeded param tree: the
+    bf16 forward and backward on the card (B1-B3, 12 launches each)
+    against the f32 plain path on the CPU, logits and every grad."""
+    from tensorflow_distributed_tpu_torch.models.transformer import gpt_lm
+    from tensorflow_distributed_tpu_torch.ops.losses import (
+        masked_softmax_cross_entropy)
+
+    ref_model = gpt_lm("small", compute_dtype=torch.float32,
+                       dropout_rate=0.0, **LLAMA_OPTS)
+    ref_model.init_weights(torch.Generator().manual_seed(0))
+    with torch.device(DEVICE):
+        model = gpt_lm("small", compute_dtype=torch.bfloat16,
+                       dropout_rate=0.0, **LLAMA_OPTS)
+    model.load_state_dict(ref_model.state_dict())
+    rng = np.random.default_rng(2)
+    shape = (MODEL_LLAMA_B, MODEL_LLAMA_L)
+    vocab = ref_model.cfg.vocab_size
+    tokens = torch.from_numpy(rng.integers(0, vocab, size=shape))
+    targets = torch.from_numpy(rng.integers(0, vocab, size=shape))
+    mask = torch.ones(shape)
+
+    def run(m, dev):
+        logits = m(tokens.to(dev))
+        loss = masked_softmax_cross_entropy(logits, targets.to(dev),
+                                            mask.to(dev))
+        loss.backward()
+        return logits.detach().cpu(), {n: p.grad.cpu()
+                                       for n, p in m.named_parameters()}
+
+    t0 = time.time()
+    ref_logits, ref_grads = run(ref_model, "cpu")
+    cpu_s = time.time() - t0
+    before = [kern.launches for kern in fa.KERNELS]
+    logits, grads = run(model, DEVICE)
+    sync(torch)
+    launched = [kern.launches - b for kern, b in zip(fa.KERNELS, before)]
+    logit_err = float((logits.float() - ref_logits).abs().max()
+                      / ref_logits.abs().max())
+    grad_errs = {n: float((grads[n] - g).abs().max() / g.abs().max())
+                 for n, g in ref_grads.items() if float(g.abs().max()) > 0}
+    worst = max(grad_errs, key=grad_errs.get)
+    emit({"phase": "model_llama", "opts": LLAMA_OPTS, "batch": shape[0],
+          "seq_len": shape[1], "params": sum(
+              p.numel() for p in model.parameters()),
+          "logits_rel_err": logit_err, "grads_rel_err": grad_errs[worst],
+          "worst_grad": worst, "kernel_launches": launched,
+          "tolerance": TOL_MODEL, "cpu_reference_s": round(cpu_s, 3)})
+    n = model.cfg.n_layers
+    check(launched == [n, n, n],
+          f"model_llama: B1-B3 did not run once a layer: {launched}")
+    check(logit_err <= TOL_MODEL and grad_errs[worst] <= TOL_MODEL,
+          f"model_llama on the card disagrees with the plain path: logits "
+          f"{logit_err}, grads {grad_errs[worst]} ({worst})")
+
+
+def phase_train_llama(kernels, torch, fused):
+    """train_fused's run with the Llama-style options: B2 and B3 12 times
+    a step, B1 at least 12, each CE kernel once a step, no ring kernel;
+    its tokens/s, step ms and peak memory beside train_fused's."""
+    rec = run_train(kernels, torch, "train_llama", TRAIN_LLAMA_ARGV,
+                    {"train_fused": fused})
+    steps, t = rec["steps"], rec["train_launches"]
+    n = 12 * steps
+    check(t["flash_dq"] == n and t["flash_dkv"] == n
+          and t["flash_fwd"] >= n,
+          f"train_llama: the RoPE/GQA steps did not run B1-B3 once a layer "
+          f"a step: {t}")
+    check(all(t[k] == steps for k in CE_KERNELS),
+          f"train_llama: a CE kernel did not launch once a step: {t}")
+    check(all(rec["launches"][k] == 0 for k in RING_KERNELS),
+          f"train_llama: a ring kernel launched: {rec['launches']}")
+    return rec
+
+
+def with_flags(argv, **flags):
+    """``argv`` with each ``--flag value`` of ``flags`` (underscores as
+    dashes) replaced."""
+    out = list(argv)
+    for name, value in flags.items():
+        out[out.index("--" + name.replace("_", "-")) + 1] = str(value)
+    return out
+
+
+def phase_train_window(kernels, torch):
+    """The windowed long-context run under --remat full with Adafactor:
+    B2 and B3 12 times a step, B1 at least 24 (forward and recompute),
+    a falling loss; then WINDOW_CONTROL_STEPS steps under --remat dots
+    (B1 24 a step, B2 12) and as many without remat, which launch B1 12
+    times a step and must peak higher than the remat run."""
+    rec = run_train(kernels, torch, "train_window", TRAIN_WINDOW_ARGV)
+    steps, t = rec["steps"], rec["train_launches"]
+    check(t["flash_dq"] == 12 * steps and t["flash_dkv"] == 12 * steps,
+          f"train_window: B2/B3 did not run once a layer a step: {t}")
+    check(t["flash_fwd"] >= 24 * steps,
+          f"train_window: B1 launched {t['flash_fwd']} times in {steps} "
+          f"steps, not twice a layer a step (the forward and the "
+          f"recompute): the blocks were not recomputed")
+    # --remat dots saves the matmuls and recomputes the rest: B1 is a
+    # ctypes launch, which the selective-checkpoint policy never sees,
+    # so it runs again in the recompute (JAX recomputes its pallas_call).
+    dots = run_train(kernels, torch, "train_window_dots", with_flags(
+        TRAIN_WINDOW_ARGV, remat="dots", train_steps=WINDOW_CONTROL_STEPS))
+    td = dots["train_launches"]
+    check(td["flash_fwd"] == 24 * WINDOW_CONTROL_STEPS
+          and td["flash_dq"] == 12 * WINDOW_CONTROL_STEPS,
+          f"train_window_dots: B1 {td['flash_fwd']} and B2 {td['flash_dq']} "
+          f"launches in {WINDOW_CONTROL_STEPS} steps, not 24 and 12 a step")
+    control = run_train(kernels, torch, "train_window_control", with_flags(
+        TRAIN_WINDOW_ARGV, remat="none", train_steps=WINDOW_CONTROL_STEPS))
+    tc = control["train_launches"]
+    check(tc["flash_fwd"] == 12 * WINDOW_CONTROL_STEPS,
+          f"train_window_control: B1 launched {tc['flash_fwd']} times in "
+          f"{WINDOW_CONTROL_STEPS} steps without remat, not 12 a step")
+    saved = control["train_peak_mem_bytes"] - rec["train_peak_mem_bytes"]
+    emit({"phase": "train_window_memory",
+          "remat_peak_mem_bytes": rec["train_peak_mem_bytes"],
+          "dots_peak_mem_bytes": dots["train_peak_mem_bytes"],
+          "control_peak_mem_bytes": control["train_peak_mem_bytes"],
+          "saved_bytes": saved, "remat_step_ms": rec["step_ms_median"],
+          "dots_step_ms": dots["step_ms_median"],
+          "control_step_ms": control["step_ms_median"]})
+    check(saved > 0,
+          f"train_window: remat saved no memory: peak "
+          f"{rec['train_peak_mem_bytes']} B against the control's "
+          f"{control['train_peak_mem_bytes']} B")
+    return rec
+
+
+def phase_decode_llama(fa, torch, np) -> None:
+    decode_phase(fa, torch, np, "decode_llama", LLAMA_OPTS)
+
+
+def phase_serve_llama(torch, np) -> None:
+    serve_identity(torch, np, "serve_llama", LLAMA_OPTS)
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--rank"]:
@@ -2085,6 +2319,11 @@ def main(argv=None) -> int:
         phase_eval(kernels, torch, ckpt_dir)
         phase_generate(torch, np, ckpt_dir)
         phase_serve_checkpoint(torch, ckpt_dir)
+    phase_model_llama(fa, torch, np)
+    phase_train_llama(kernels, torch, fused)
+    phase_train_window(kernels, torch)
+    phase_decode_llama(fa, torch, np)
+    phase_serve_llama(torch, np)
 
     err = {"flash_fwd": flash["errors"]["o_abs_err"],
            "flash_dq": flash["errors"]["dq_abs_err"],

@@ -11,6 +11,10 @@ Every field shared with the JAX ``TrainConfig``, ``MeshConfig`` and
 call trains the reference's ``mnist_cnn`` on the MNIST idx files under
 ``--data-dir``. Every ``--serve.*`` flag of the JAX CLI parses; those of
 the layers not ported yet are refused unless they keep their default.
+The model options of layers not ported yet (``--kv-cache-quant``,
+``--moe-experts``, ``--shard-vocab``) parse and are refused the same way,
+as is ``--compute-dtype float32`` for training or evaluating the LM on a
+GPU (the kernels take bf16).
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ from typing import Optional, Sequence
 from tensorflow_distributed_tpu_torch.serve.buckets import parse_buckets
 
 SCHEDULES = ("constant", "cosine", "warmup_cosine")
-OPTIMIZERS = ("adam", "sgd")
+OPTIMIZERS = ("adam", "sgd", "adafactor")
 COMPUTE_DTYPES = ("bfloat16", "float32")
 CE_IMPLS = ("scan", "kernel")
 MODEL_SIZES = ("", "small", "medium", "large", "xl", "tiny")
@@ -205,6 +209,29 @@ class TrainConfig:
     # every shape) or "kernel" (the fused-CE CUDA kernels,
     # ops/fused_ce_kernel.py; kernel_supported() is the authority).
     ce_impl: str = "scan"  # scan | kernel
+    # Position encoding of the LM: "learned" (additive table, GPT-2) or
+    # "rope" (rotary, applied to q and k in every layer).
+    pos_emb: str = "learned"  # learned | rope
+    # RoPE base frequency (500000 is the Llama-3 value).
+    rope_theta: float = 10000.0
+    # Grouped-query attention: K/V head count (0 = n_heads, MHA; 1 =
+    # MQA). Shrinks the decode cache by n_heads / n_kv_heads.
+    n_kv_heads: int = 0
+    # Sliding-window attention (Mistral-style): attend to the last W
+    # positions only (0 = full causal). Requires mesh.seq == 1.
+    attn_window: int = 0
+    # MLP: "gelu" (GPT-2) or "swiglu" (gated, Llama-style).
+    mlp_variant: str = "gelu"  # gelu | swiglu
+    # Block normalization: "layernorm" or "rmsnorm" (scale only).
+    norm: str = "layernorm"  # layernorm | rmsnorm
+    # Recompute each block in the backward (torch.utils.checkpoint):
+    # "full" keeps only the block inputs, "dots" also keeps the matmul
+    # outputs (JAX's dots_saveable policy).
+    remat: str = "none"  # none | full | dots
+    # --- model options of layers not ported yet (ROADMAP.md queue A) ---
+    kv_cache_quant: str = "none"
+    moe_experts: int = 0
+    shard_vocab: bool = False
 
     # --- data ------------------------------------------------------------
     # mnist_cnn: "mnist" (the idx files under data_dir, or the synthetic
@@ -224,7 +251,8 @@ class TrainConfig:
     shuffle_seed: int = 0
 
     # --- optimization ----------------------------------------------------
-    optimizer: str = "adam"  # adam (adamw when weight_decay > 0) | sgd
+    # adam (adamw when weight_decay > 0) | sgd | adafactor
+    optimizer: str = "adam"
     learning_rate: float = 1e-3
     lr_schedule: str = "constant"  # constant | cosine | warmup_cosine
     warmup_steps: int = 0
@@ -357,7 +385,8 @@ class TrainConfig:
         if self.init_scheme not in INIT_SCHEMES:
             raise ValueError(f"unknown init_scheme {self.init_scheme!r}")
         if self.optimizer not in OPTIMIZERS:
-            raise todo(f"--optimizer {self.optimizer}")
+            raise ValueError(f"unknown optimizer {self.optimizer!r}; have "
+                             f"{OPTIMIZERS}")
         if self.model_size not in MODEL_SIZES:
             raise ValueError(f"model_size {self.model_size!r}; have "
                              f"{MODEL_SIZES}")
@@ -413,6 +442,42 @@ class TrainConfig:
             raise ValueError(
                 "ce_impl has no effect without ce_chunk > 0 (the fused "
                 "head+loss master switch); add --ce-chunk")
+        if self.remat not in ("none", "full", "dots"):
+            raise ValueError(f"unknown remat {self.remat!r}")
+        if self.attn_window < 0:
+            raise ValueError(
+                f"attn_window must be >= 0, got {self.attn_window}")
+        if self.attn_window:
+            if not lm:
+                raise ValueError(
+                    "attn_window needs a causal LM family "
+                    "(gpt_lm | moe_lm | pipelined_lm)")
+            if self.mesh.seq > 1:
+                raise ValueError(
+                    "attn_window with mesh.seq > 1 is not "
+                    "implemented; at W << L the window replaces "
+                    "ring attention — use mesh.seq == 1")
+        if self.pos_emb not in ("learned", "rope"):
+            raise ValueError(f"unknown pos_emb {self.pos_emb!r}")
+        if self.rope_theta <= 0:
+            raise ValueError(
+                f"rope_theta must be > 0, got {self.rope_theta}")
+        if self.rope_theta != 10000.0 and self.pos_emb != "rope":
+            raise ValueError(
+                "rope_theta has no effect without pos_emb=rope; "
+                "drop the flag or add --pos-emb rope")
+        if self.n_kv_heads < 0:
+            raise ValueError(
+                f"n_kv_heads must be >= 0, got {self.n_kv_heads}")
+        if self.mlp_variant not in ("gelu", "swiglu"):
+            raise ValueError(f"unknown mlp_variant {self.mlp_variant!r}")
+        if self.norm not in ("layernorm", "rmsnorm"):
+            raise ValueError(f"unknown norm {self.norm!r}")
+        for name, default in (("kv_cache_quant", "none"), ("moe_experts", 0),
+                              ("shard_vocab", False)):
+            if getattr(self, name) != default:
+                raise todo(f"--{name.replace('_', '-')}="
+                           f"{getattr(self, name)!r}")
         self.mesh.validate()
         self.serve.validate()
 

@@ -2,8 +2,8 @@
 ``models/generate.py``.
 
 Prefill the prompt in one pass that fills every layer's cache
-([B, max_len, H, Dh], a :class:`~..models.transformer.KVCache` the caller
-owns), then decode one token per step against it: O(L) attention per new
+([B, max_len, nk, Dh], nk the K/V heads: H, or fewer under GQA; a
+:class:`~..models.transformer.KVCache` the caller owns), then decode one token per step against it: O(L) attention per new
 token instead of re-running the whole sequence. The tokens stay on the
 device between steps, so a greedy loop never waits for the host.
 

@@ -1,8 +1,9 @@
 """Slot-based continuous-batching decode engine: the port of
 ``serve/engine.py``'s ``SlotDecodeEngine`` in its dense layout.
 
-The engine owns one [num_slots, max_len, H, Dh] K and V cache per layer
-(a :class:`~..models.transformer.KVCache`) for its whole life. Slots are
+The engine owns one [num_slots, max_len, nk, Dh] K and V cache per
+layer (a :class:`~..models.transformer.KVCache`; nk = H, or the K/V
+heads under GQA) for its whole life. Slots are
 occupied and freed between steps, so the request set changes while every
 shape stays fixed per (num_slots, bucket):
 
@@ -44,7 +45,7 @@ def _not_ported(what: str) -> NotImplementedError:
 
 
 def zero_cache(model, num_slots: int) -> KVCache:
-    """A zeroed [num_slots, max_len, H, Dh] decode cache for ``model``,
+    """A zeroed [num_slots, max_len, nk, Dh] decode cache for ``model``,
     on its device."""
     device = next(model.parameters()).device
     return KVCache.zeros(model.cfg, num_slots, device)

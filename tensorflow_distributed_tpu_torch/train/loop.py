@@ -138,6 +138,17 @@ def build_model_for(cfg: TrainConfig, device: torch.device, ring=None):
             kw["max_len"] = cfg.seq_len
         if cfg.tie_embeddings:
             kw["tie_embeddings"] = cfg.tie_embeddings
+        # The modern GPT options, passed as the JAX _build_model_and_state
+        # passes them (only where they leave their defaults).
+        if cfg.remat != "none":
+            kw.update(remat=True, remat_policy=cfg.remat)
+        if cfg.pos_emb != "learned":
+            kw.update(pos_emb=cfg.pos_emb, rope_theta=cfg.rope_theta)
+        for name, default in (("n_kv_heads", 0), ("attn_window", 0),
+                              ("mlp_variant", "gelu"),
+                              ("norm", "layernorm")):
+            if getattr(cfg, name) != default:
+                kw[name] = getattr(cfg, name)
     else:
         kw = {"init_scheme": cfg.init_scheme}
     dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"

@@ -216,7 +216,9 @@ def test_new_phases_run_after_the_ring_in_order():
     """model_cnn, train_cnn and train_data run after every earlier phase
     (train_ring last of those), then the serving phases (decode,
     serve_identity, serve), then the checkpoint phases (checkpoint,
-    eval, generate, serve_checkpoint), before the kernels line."""
+    eval, generate, serve_checkpoint), then the Llama-style phases
+    (model_llama, train_llama, train_window, decode_llama, serve_llama),
+    before the kernels line."""
     import inspect
 
     src = inspect.getsource(cs.main)
@@ -227,7 +229,9 @@ def test_new_phases_run_after_the_ring_in_order():
              "phase_model_cnn(", "phase_train_cnn(", "phase_train_data(",
              "phase_decode(", "phase_serve_identity(", "phase_serve(",
              "phase_checkpoint(", "phase_eval(", "phase_generate(",
-             "phase_serve_checkpoint(", 'emit({"kernels"']
+             "phase_serve_checkpoint(", "phase_model_llama(",
+             "phase_train_llama(", "phase_train_window(",
+             "phase_decode_llama(", "phase_serve_llama(", 'emit({"kernels"']
     at = [src.index(call) for call in order]
     assert at == sorted(at)
 
@@ -353,13 +357,15 @@ def tiny_smoke(monkeypatch):
 
     from tensorflow_distributed_tpu_torch.models.transformer import gpt_lm
 
-    def tiny(torch_mod, dtype):
+    def tiny(torch_mod, dtype, **overrides):
         model = gpt_lm("tiny", compute_dtype=dtype, d_model=128, n_heads=2,
-                       d_ff=256, max_len=256, vocab_size=500)
+                       d_ff=256, max_len=256, vocab_size=500, **overrides)
         model.init_weights(torch.Generator().manual_seed(0))
         return model
 
     monkeypatch.setattr(cs, "DEVICE", "cpu")
+    # Two heads: the Llama-style options with one K/V head (MQA).
+    monkeypatch.setattr(cs, "LLAMA_OPTS", dict(cs.LLAMA_OPTS, n_kv_heads=1))
     monkeypatch.setattr(cs, "gpt2_small", tiny)
     monkeypatch.setattr(cs, "DECODE_PROMPTS", (17, 40, 70, 101))
     monkeypatch.setattr(cs, "DECODE_STEPS", 3)
@@ -622,3 +628,164 @@ def test_serve_checkpoint_phase_passes_and_fails_on_fresh_params(
     assert line["identical"] == line["requests"] == 3
     assert line["summary_line"].startswith("[serve] 3 requests")
     assert line["total_new_tokens"] == 15
+
+
+# --- the Llama-style phases (model_llama, train_llama, train_window,
+# decode_llama, serve_llama) ----------------------------------------------
+
+def test_llama_argvs_are_the_full_width_runs():
+    """train_llama is train_fused's run with the Llama-style flags at
+    GPT-2-small's widths (~142M params tied); train_window is 8192 tokens
+    a step at seq 4096 under a 512 window with remat and Adafactor, and
+    its control only drops remat and shortens the run."""
+    import torch
+
+    from tensorflow_distributed_tpu_torch.config import parse_args
+    from tensorflow_distributed_tpu_torch.models.transformer import gpt_lm
+
+    cfg = parse_args(cs.TRAIN_LLAMA_ARGV)
+    assert (cfg.pos_emb, cfg.n_kv_heads, cfg.mlp_variant, cfg.norm,
+            cfg.tie_embeddings, cfg.ce_chunk, cfg.ce_impl) == (
+        "rope", 4, "swiglu", "rmsnorm", True, 8192, "kernel")
+    assert (cfg.model_size, cfg.seq_len, cfg.batch_size, cfg.train_steps) == (
+        "small", 1024, 8, 30)
+    with torch.device("meta"):
+        model = gpt_lm("small", **cs.LLAMA_OPTS)
+    assert 142e6 < sum(p.numel() for p in model.parameters()) < 143e6
+    win = parse_args(cs.TRAIN_WINDOW_ARGV)
+    assert (win.seq_len * win.batch_size, win.attn_window, win.pos_emb,
+            win.remat, win.optimizer, win.train_steps) == (
+        8192, 512, "rope", "full", "adafactor", 20)
+    ctl = parse_args(cs.with_flags(cs.TRAIN_WINDOW_ARGV, remat="none",
+                                   train_steps=cs.WINDOW_CONTROL_STEPS))
+    assert (ctl.remat, ctl.train_steps) == ("none", 3)
+    assert ({k: v for k, v in vars(ctl).items()
+             if k not in ("remat", "train_steps")}
+            == {k: v for k, v in vars(win).items()
+                if k not in ("remat", "train_steps")})
+
+
+def _window_rec(steps, b1_per_step, peak):
+    launches = {k.name: 0 for k in cs_kernels()}
+    launches.update(flash_fwd=b1_per_step * steps, flash_dq=12 * steps,
+                    flash_dkv=12 * steps)
+    return {"steps": steps, "train_launches": launches,
+            "train_peak_mem_bytes": peak, "step_ms_median": 1.0}
+
+
+@pytest.mark.parametrize("fault", ["none", "no_recompute", "no_saving",
+                                   "control_recomputes", "dots_saves_b1"])
+def test_train_window_passes_and_fails(fault, monkeypatch, capsys):
+    """The checks of train_window on run records: it fails where B1 did
+    not run twice a step under remat (full or dots), where remat saved no
+    memory, and where the control still recomputed."""
+    runs = []
+
+    def fake_run(kernels, torch, phase, argv, beside=None):
+        runs.append((phase, argv))
+        if phase == "train_window":
+            return _window_rec(20, 12 if fault == "no_recompute" else 24,
+                               5 * 2 ** 30)
+        if phase == "train_window_dots":
+            return _window_rec(3, 12 if fault == "dots_saves_b1" else 24,
+                               7 * 2 ** 30)
+        return _window_rec(3, 24 if fault == "control_recomputes" else 12,
+                           4 * 2 ** 30 if fault == "no_saving"
+                           else 9 * 2 ** 30)
+
+    monkeypatch.setattr(cs, "run_train", fake_run)
+    if fault == "none":
+        cs.phase_train_window([], None)
+        line = json.loads(capsys.readouterr().out.splitlines()[-1])
+        assert line["phase"] == "train_window_memory"
+        assert line["saved_bytes"] == 4 * 2 ** 30
+        assert [r[0] for r in runs] == ["train_window", "train_window_dots",
+                                        "train_window_control"]
+        assert "dots" in runs[1][1] and "none" in runs[2][1]
+        return
+    with pytest.raises(SystemExit):
+        cs.phase_train_window([], None)
+    err = capsys.readouterr().err
+    assert {"no_recompute": "not recomputed",
+            "no_saving": "remat saved no memory",
+            "control_recomputes": "without remat, not 12 a step",
+            "dots_saves_b1": "not 24 and 12 a step"}[fault] in err
+
+
+@pytest.mark.parametrize("fault", ["none", "ce", "ring", "b2"])
+def test_train_llama_checks_the_launches(fault, monkeypatch, capsys):
+    def fake_run(kernels, torch, phase, argv, beside=None):
+        train = {k.name: 0 for k in cs_kernels()}
+        train.update(flash_fwd=360, flash_dq=360 - (fault == "b2"),
+                     flash_dkv=360, fused_ce_fwd=30, fused_ce_dx=30,
+                     fused_ce_dw=30 - (fault == "ce"))
+        total = dict(train, flash_fwd_partial=int(fault == "ring"))
+        return {"steps": 30, "train_launches": train, "launches": total}
+
+    monkeypatch.setattr(cs, "run_train", fake_run)
+    if fault == "none":
+        cs.phase_train_llama([], None, {})
+        return
+    with pytest.raises(SystemExit):
+        cs.phase_train_llama([], None, {})
+    err = capsys.readouterr().err
+    assert {"ce": "CE kernel", "ring": "ring kernel",
+            "b2": "B1-B3"}[fault] in err
+
+
+def test_decode_llama_holds_the_narrow_cache_and_fails_without_b1(
+        tiny_smoke, capsys):
+    """On the CPU the narrow cache passes its byte check (1/2 of the MHA
+    cache with one of two K/V heads), the logits agree, and the phase
+    fails on B1's launch count, as it must on a card where B1 did not
+    run."""
+    import numpy as np
+
+    with pytest.raises(SystemExit):
+        cs.phase_decode_llama(fa, tiny_smoke, np)
+    out, err = capsys.readouterr()
+    line = json.loads(out.splitlines()[-1])
+    assert line["phase"] == "decode_llama"
+    assert line["cache_bytes"] * 2 == line["mha_cache_bytes"]
+    assert line["cache_shape"] == [4, 256, 1, 64]
+    assert line["max_rel_err"] <= cs.TOL_DECODE
+    assert "did not run B1" in err
+
+
+def test_decode_llama_fails_on_a_full_width_cache(tiny_smoke, monkeypatch,
+                                                  capsys):
+    """A model that dropped n_kv_heads (MHA) allocates a full-width cache:
+    the phase fails on the cache's bytes."""
+    import numpy as np
+
+    real = cs.gpt2_small
+    monkeypatch.setattr(cs, "gpt2_small", lambda torch, dtype, **kw: real(
+        torch, dtype, **{k: v for k, v in kw.items() if k != "n_kv_heads"}))
+    with pytest.raises(SystemExit):
+        cs.phase_decode_llama(fa, tiny_smoke, np)
+    assert "a GQA cache of full width" in capsys.readouterr().err
+
+
+def test_serve_llama_passes_and_fails_on_a_real_mismatch(
+        tiny_smoke, monkeypatch, capsys):
+    import numpy as np
+
+    from tensorflow_distributed_tpu_torch.models import generate as gen
+
+    cs.phase_serve_llama(tiny_smoke, np)
+    line = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert line["phase"] == "serve_llama"
+    assert line["identical"] == 4 and line["excused"] == []
+    # 2 layers x (K, V) x max_len 256 x 1 K/V head x Dh 64 x 4 B (f32)
+    assert line["cache_bytes_per_slot"] == 2 * 2 * 256 * 1 * 64 * 4
+    real = gen.generate
+
+    def off_by_one(model, prompt, n, **kw):
+        out = real(model, prompt, n, **kw)
+        out[0, 3] = (out[0, 3] + 1) % model.cfg.vocab_size
+        return out
+
+    monkeypatch.setattr(gen, "generate", off_by_one)
+    with pytest.raises(SystemExit):
+        cs.phase_serve_llama(tiny_smoke, np)
+    assert "differs from generate() at step 3" in capsys.readouterr().err

@@ -193,7 +193,7 @@ def test_decode_refusals():
     bert = ttr.TransformerLM(ttr.tiny_config())
     with pytest.raises(ValueError, match="causal"):
         bert(tok, decode=True, positions=torch.tensor([[0]]), cache=cache)
-    for kw in (dict(kv_cache_quant="int8"), dict(n_kv_heads=2)):
+    for kw in (dict(kv_cache_quant="int8"), dict(moe_experts=4)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ttr.gpt_lm("tiny", **kw)
 

@@ -289,9 +289,9 @@ def test_parse_args_spellings_and_defaults():
 
 
 @pytest.mark.parametrize("argv", [["--data-backend", "u8_native"],
-                                  ["--pos-emb", "rope"],
+                                  ["--moe-top-k", "1"],
                                   ["--grad-sync", "overlap"],
-                                  ["--remat", "dots"],
+                                  ["--param-partition", "fsdp"],
                                   ["--mesh.model", "2"], ["--mesh.pipe", "2"],
                                   ["--mesh.expert", "2"]])
 def test_unported_jax_flags_are_rejected(argv, capsys):
@@ -303,7 +303,9 @@ def test_unported_jax_flags_are_rejected(argv, capsys):
 @pytest.mark.parametrize("fields", [dict(model="resnet20"),
                                     dict(checkpoint_backend="orbax"),
                                     dict(checkpoint_async=True),
-                                    dict(optimizer="adafactor"),
+                                    dict(kv_cache_quant="int8"),
+                                    dict(moe_experts=4),
+                                    dict(shard_vocab=True),
                                     dict(compute_dtype="float32"),
                                     dict(dataset="text"),
                                     dict(dataset="cifar10")])

@@ -193,12 +193,29 @@ def test_configs_mirror_jax():
 
 
 @pytest.mark.parametrize("override", [
-    {"pos_emb": "rope"}, {"shard_vocab": True}, {"n_kv_heads": 2},
-    {"mlp_variant": "swiglu"}, {"norm": "rmsnorm"}, {"moe_experts": 4},
-    {"remat": True}, {"kv_cache_quant": "int8"}])
+    {"shard_vocab": True}, {"moe_experts": 4}, {"kv_cache_quant": "int8"}])
 def test_unported_options_raise(override):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ttr.gpt_lm(size="tiny", **override)
+
+
+@pytest.mark.parametrize("override", [
+    {"pos_emb": "rope"}, {"n_kv_heads": 2}, {"mlp_variant": "swiglu"},
+    {"norm": "rmsnorm"}, {"remat": True}])
+def test_ported_options_build_the_flax_tree(override):
+    """Each option the port once refused builds, and its param names and
+    shapes are the flax tree's (rope: no pos_emb table; GQA: q and kv
+    instead of qkv; swiglu: mlp/gate; rmsnorm: scale-only norms)."""
+    jmodel = jtr.gpt_lm(size="tiny", **override)
+    params = nn.meta.unbox(jax.eval_shape(lambda k: jmodel.init(
+        k, jnp.zeros((1, 8), jnp.int32), train=False),
+        jax.random.key(0))["params"])
+    tree = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32),
+                                  params)
+    want = {n: tuple(t.shape)
+            for n, t in interop.params_from_flax(tree).items()}
+    tmodel = ttr.gpt_lm(size="tiny", **override)
+    assert {n: tuple(p.shape) for n, p in tmodel.named_parameters()} == want
 
 
 def test_registry():

@@ -180,7 +180,35 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
              narrow cache ([B, max_len, 4, 64]) exactly 4/12 of the
              bytes of an MHA cache of the same shape;
 26. serve_llama — ``serve_identity`` on the Llama-style model in f32:
-             every stream equal to ``generate()`` (the same excuse).
+             every stream equal to ``generate()`` (the same excuse);
+27. decode_int8 — ``decode`` over the int8 cache in bf16, an MHA leg and
+             a Llama-style leg (4 K/V heads): the logits within 5e-2 of
+             the training forward (B1), and the cache exactly n_layers x
+             max_len x nk x (2 x 64 + 8) bytes a row (int8 K and V, f32
+             scales), beside the compute-dtype cache's n_layers x
+             max_len x nk x 256;
+28. serve_paged_identity — the paged engine (page size 16, the radix
+             prefix cache, 4 slots, max_len 1024) under the FIFO
+             scheduler in f32, 32 new tokens a request: a warm-up
+             request, 12 requests sharing a 256-token prefix (tails of
+             8-200 tokens), a page-aligned prompt served three times
+             (copy-on-write) and a 3-turn session; every stream equal
+             to ``generate()`` (the same excuse), at least 12 prefix
+             hits, a copy on write, each later session turn attaching
+             all its conversation wrote, fewer prefill tokens computed
+             than dense, and every page free or held by the prefix
+             cache or the session afterwards; in two legs, a
+             compute-dtype (f32) cache and an int8 pool, each stream
+             against ``generate()`` over the same model's dense cache;
+29. serve_paged — ``--mode serve --serve.paged --serve.kv-dtype int8
+             --serve.session-turns 4`` through the CLI in bf16 (the
+             serve phase's 32 requests x 64 new tokens on 8 slots,
+             prompts of 64-224 tokens so that a fourth turn fits): every
+             token delivered, the page's bytes equal to
+             ``page_bytes_estimate``, its summary (tokens/s, time to
+             first token, prefix hit rate, pages) and peak memory, and
+             the paged int8 engine's decode-step profile beside the
+             serve phase's.
 
 It then prints the nvidia-smi line, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -304,6 +332,25 @@ SERVE_ARGV = ["--mode", "serve", "--model", "gpt_lm", "--model-size", "small",
               str(SERVE_REQUESTS), "--serve.prompt-len-min", "64",
               "--serve.prompt-len-max", "512", "--serve.max-new-tokens",
               str(SERVE_NEW)]
+# The int8 and paged decode caches at GPT-2-small's full width.
+TOL_DECODE_INT8 = 5e-2  # int8 decode vs training forward (JAX's int8 bound)
+PAGE_SIZE = 16
+PAGED_REQUESTS = 12     # share one PAGED_PREFIX-token prefix, tails below
+PAGED_PREFIX, PAGED_TAILS = 256, (8, 200)
+PAGED_ALIGNED = 320     # a whole number of pages, served three times (COW)
+PAGED_TURN0, PAGED_TURN_NEW, PAGED_TURNS = 100, 24, 3  # the session's turns
+# The serve phase's workload as sessions of 4 turns (each turn's prompt
+# extends the last), with prompts of 64-224 tokens so that a fourth turn
+# (at most 4 x 224) plus its 64 new tokens fits the 1024 cache.
+SERVE_PAGED_PROMPT_MAX = 224
+SERVE_PAGED_ARGV = ["--mode", "serve", "--model", "gpt_lm", "--model-size",
+                    "small", "--synthetic-vocab", "50257", "--seq-len", "1024",
+                    "--serve.num-slots", "8", "--serve.num-requests",
+                    str(SERVE_REQUESTS), "--serve.prompt-len-min", "64",
+                    "--serve.prompt-len-max", str(SERVE_PAGED_PROMPT_MAX),
+                    "--serve.max-new-tokens", str(SERVE_NEW),
+                    "--serve.paged", "true", "--serve.kv-dtype", "int8",
+                    "--serve.session-turns", "4"]
 # Checkpoints and the modes that read them, at GPT-2-small's full width.
 CKPT_MODEL_ARGV = ["--model", "gpt_lm", "--model-size", "small",
                    "--seq-len", "1024"]
@@ -1631,12 +1678,16 @@ def gpt2_small(torch, dtype, **overrides):
     return model
 
 
-def decode_phase(fa, torch, np, phase, overrides) -> None:
+def decode_phase(fa, torch, np, phase, overrides, tol=TOL_DECODE,
+                 extra=None) -> None:
     """Prefill four prompts at their own depths in one batch, then decode
     DECODE_STEPS greedy tokens; at every step hold the last-position
-    logits to the training forward (B1) over the same tokens. With
-    ``n_kv_heads`` in ``overrides`` the cache must hold exactly
-    n_kv_heads / n_heads of an MHA cache's bytes."""
+    logits to the training forward (B1) over the same tokens, within
+    ``tol`` of max |ref|. With ``n_kv_heads`` in ``overrides`` the cache
+    must hold exactly n_kv_heads / n_heads of an MHA cache's bytes; with
+    ``kv_cache_quant="int8"`` exactly n_layers * max_len * nk * (2 * Dh
+    + 8) bytes a row (int8 K and V, f32 scales). ``extra``: more fields
+    for the phase's line."""
     import dataclasses
 
     from tensorflow_distributed_tpu_torch.models.generate import (
@@ -1671,21 +1722,31 @@ def decode_phase(fa, torch, np, phase, overrides) -> None:
             last, cache = decode_token(model, cache, tok, pos)
             pos = pos + 1
     launched = b1.launches - before
-    mha_bytes = KVCache.zeros(dataclasses.replace(model.cfg, n_kv_heads=None),
-                              B, device="meta").nbytes()
-    want_bytes = (mha_bytes * overrides["n_kv_heads"] // model.cfg.n_heads
+    cfg = model.cfg
+    mha_bytes = KVCache.zeros(dataclasses.replace(
+        cfg, n_kv_heads=None, kv_cache_quant="none"), B,
+        device="meta").nbytes()
+    nk, dh = cfg.n_kv_heads or cfg.n_heads, cfg.d_model // cfg.n_heads
+    want_bytes = (mha_bytes * overrides["n_kv_heads"] // cfg.n_heads
                   if "n_kv_heads" in overrides else mha_bytes)
-    emit({"phase": phase, "prompts": list(DECODE_PROMPTS),
+    bf16_bytes = want_bytes
+    if overrides.get("kv_cache_quant") == "int8":
+        want_bytes = B * cfg.n_layers * cfg.max_len * nk * (2 * dh + 8)
+    emit({"phase": phase, **(extra or {}), "prompts": list(DECODE_PROMPTS),
           "steps": DECODE_STEPS, "oracle_width": width,
           "rel_err_by_step": errs, "max_rel_err": max(errs),
-          "tolerance": TOL_DECODE, "oracle_flash_fwd_launches": launched,
+          "tolerance": tol, "oracle_flash_fwd_launches": launched,
           "cache_shape": list(cache.k[0].shape),
-          "cache_bytes": cache.nbytes(), "mha_cache_bytes": mha_bytes})
+          "cache_dtype": str(cache.k[0].dtype).replace("torch.", ""),
+          "cache_bytes": cache.nbytes(), "cache_bytes_per_slot":
+          cache.nbytes() // B, "same_heads_compute_dtype_bytes_per_slot":
+          bf16_bytes // B, "mha_cache_bytes": mha_bytes})
     check(cache.nbytes() == want_bytes,
           f"{phase}: the cache holds {cache.nbytes()} bytes, not "
           f"{want_bytes} (n_kv_heads / n_heads of the MHA cache's "
-          f"{mha_bytes}): a GQA cache of full width")
-    check(max(errs) <= TOL_DECODE,
+          f"{mha_bytes}, or int8 rows and f32 scales): a GQA cache of full "
+          f"width or a cache of the wrong type")
+    check(max(errs) <= tol,
           f"{phase}: logits disagree with the training forward: {errs}")
     check(launched == model.cfg.n_layers * (DECODE_STEPS + 1),
           f"{phase}: the oracle forward did not run B1: {launched} launches")
@@ -1800,8 +1861,9 @@ def serve_cli(argv):
     output)."""
     rc, out = run_cli(argv)
     lines = out.splitlines()
+    # "[serve] 32 requests, ..." (not a streamed token or a paged line).
     line = next((l for l in lines if l.startswith("[serve] ")
-                 and not l.startswith("[serve] rid=")), None)
+                 and l[len("[serve] "):][:1].isdigit()), None)
     record = event_record(out, "serve_summary")
     check(rc == 0 and line is not None and record is not None,
           f"serve: the CLI exited {rc} without its summary")
@@ -1813,18 +1875,26 @@ def serve_profile(torch, argv) -> dict:
     PROFILE_STEPS steps after 3 warm-up steps, each ending in the
     engine's token fetch; the host's time to enqueue a step onto an idle
     device; and from torch.profiler the kernels launched and the device
-    busy time a step."""
+    busy time a step. Also the cache's bytes on the card (a paged
+    engine's whole pool) and the peak memory from the warm-up on."""
     from torch.profiler import ProfilerActivity, profile
 
     from tensorflow_distributed_tpu_torch.config import parse_args
-    from tensorflow_distributed_tpu_torch.models.generate import (
-        decode_token)
     from tensorflow_distributed_tpu_torch.serve.run import serve_setup
 
     _, engine, requests = serve_setup(parse_args(argv))
+    # Serving's own peak: from here the train state serve_setup built
+    # (params and optimizer moments) is gone; the warm-up's prefills of
+    # every bucket count.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     engine.warmup()
     for slot, r in enumerate(requests[:engine.num_slots]):
-        engine.prefill(r.prompt, slot)
+        if getattr(engine, "paged", False):
+            # The paged engine reserves the request's whole trajectory.
+            engine.prefill(r.prompt, slot, max_new_tokens=r.max_new_tokens)
+        else:
+            engine.prefill(r.prompt, slot)
     vocab = engine.model.cfg.vocab_size
     for _ in range(3):
         nxt = engine.step()
@@ -1839,8 +1909,8 @@ def serve_profile(torch, argv) -> dict:
     t0 = time.time()
     # One step's work, enqueued without its fetch (it rewrites the
     # columns the next step writes again).
-    last, _ = decode_token(engine.model, engine.cache,
-                           engine._h2d(engine.tok), engine._h2d(engine.pos))
+    last = engine._dispatch_step(engine._h2d(engine.tok),
+                                 engine._h2d(engine.pos))
     enqueue_ms = (time.time() - t0) * 1e3
     check(bool(torch.isfinite(last).all()), "serve: non-finite logits")
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1862,25 +1932,30 @@ def serve_profile(torch, argv) -> dict:
             "launches_per_step": launches / PROFILE_STEPS,
             "device_busy_ms": busy or None,
             "device_idle_share": (1 - busy / step_ms) if busy else None,
-            "device_top": top[:8],
-            "cache_bytes": engine.cache_bytes_per_slot() * engine.num_slots}
+            "device_top": top[:8], "cache_bytes": engine.cache.nbytes(),
+            "serving_peak_mem_bytes": torch.cuda.max_memory_allocated()}
 
 
-def phase_serve(torch) -> None:
+SERVE_KEYS = ("tokens_per_sec", "ttft_ms_p50", "ttft_ms_p95", "tok_ms_mean",
+              "mean_slot_occupancy", "buckets", "prefill_compiles",
+              "decode_steps", "total_new_tokens", "wall_s")
+
+
+def phase_serve(torch) -> dict:
     """``--mode serve`` through the CLI at full width in bf16, then a
-    traced decode step of the same engine."""
+    traced decode step of the same engine. Returns the phase's line."""
     torch.cuda.reset_peak_memory_stats()
     rc, line, summary, _ = serve_cli(SERVE_ARGV)
     peak = torch.cuda.max_memory_allocated()
-    keys = ("tokens_per_sec", "ttft_ms_p50", "ttft_ms_p95", "tok_ms_mean",
-            "mean_slot_occupancy", "buckets", "prefill_compiles",
-            "decode_steps", "total_new_tokens", "wall_s")
-    emit({"phase": "serve", "argv": SERVE_ARGV, "exit": rc,
-          "summary_line": line, **{k: summary[k] for k in keys},
-          "peak_mem_bytes": peak, "profile": serve_profile(torch, SERVE_ARGV)})
+    record = {"phase": "serve", "argv": SERVE_ARGV, "exit": rc,
+              "summary_line": line, **{k: summary[k] for k in SERVE_KEYS},
+              "peak_mem_bytes": peak,
+              "profile": serve_profile(torch, SERVE_ARGV)}
+    emit(record)
     check(summary["total_new_tokens"] == SERVE_REQUESTS * SERVE_NEW,
           f"serve: {summary['total_new_tokens']} tokens delivered, not "
           f"{SERVE_REQUESTS} x {SERVE_NEW}")
+    return record
 
 
 def sync(torch) -> None:
@@ -2271,6 +2346,186 @@ def phase_serve_llama(torch, np) -> None:
     serve_identity(torch, np, "serve_llama", LLAMA_OPTS)
 
 
+def phase_decode_int8(fa, torch, np) -> None:
+    """``decode`` over the int8 cache (``kv_cache_quant="int8"``) in bf16:
+    an MHA leg and a Llama-style leg (4 K/V heads: the narrow and thin
+    cache), the logits within 5e-2 of the training forward (B1)."""
+    for leg, opts in (("mha", {}), ("llama", LLAMA_OPTS)):
+        decode_phase(fa, torch, np, "decode_int8",
+                     dict(opts, kv_cache_quant="int8"), tol=TOL_DECODE_INT8,
+                     extra={"leg": leg})
+
+
+def cached_page_ids(radix) -> set:
+    """The pages the radix tree and the session store hold (none without
+    a prefix cache)."""
+    if radix is None:
+        return set()
+    pages, stack = set(), list(radix._root.children.values())
+    while stack:
+        node = stack.pop()
+        pages.add(node.page)
+        stack.extend(node.children.values())
+    for ent in radix._sessions.values():
+        pages.update(ent.pages)
+    return pages
+
+
+def phase_serve_paged_identity(torch, np) -> None:
+    """serve_paged_identity in two legs: a compute-dtype cache, then the
+    int8 pool (int8 K/V and f32 scales through the radix attach, the
+    copy-on-write page copy and the session re-attach), each stream held
+    against the same model's dense ``generate()``."""
+    serve_paged_identity(torch, np, "f32", {})
+    serve_paged_identity(torch, np, "int8", {"kv_cache_quant": "int8"})
+
+
+def serve_paged_identity(torch, np, leg, overrides) -> None:
+    """The paged engine (page size 16, the radix prefix cache) under the
+    FIFO scheduler in f32, every stream against the request's own
+    one-shot ``generate()`` over the dense cache of the same model (the
+    top-2 gap excuse of serve_identity): a warm-up request of the shared
+    prefix; PAGED_REQUESTS requests sharing it with tails of 8-200
+    tokens (prefix hits); a page-aligned prompt served three times
+    (copy-on-write of a shared page); a 3-turn session, each turn the
+    conversation so far plus new tokens (the session re-attach, partial
+    page included). Then every page is free or held by the prefix cache
+    or a session. ``overrides``: TransformerConfig fields of the leg."""
+    from tensorflow_distributed_tpu_torch.models.generate import generate
+    from tensorflow_distributed_tpu_torch.serve.buckets import (
+        default_buckets)
+    from tensorflow_distributed_tpu_torch.serve.paging.engine import (
+        PagedSlotEngine)
+    from tensorflow_distributed_tpu_torch.serve.scheduler import (
+        Request, Scheduler)
+
+    phase = f"serve_paged_identity ({leg})"
+    model = gpt2_small(torch, torch.float32, **overrides)
+    want_dtype = (torch.int8 if overrides.get("kv_cache_quant") == "int8"
+                  else torch.float32)
+    vocab = model.cfg.vocab_size
+    rng = np.random.default_rng(2)
+    prefix = rng.integers(0, vocab, PAGED_PREFIX)
+    tails = np.linspace(*PAGED_TAILS, PAGED_REQUESTS).astype(int)
+    shared = [np.concatenate([prefix, rng.integers(0, vocab, n)])
+              for n in tails]
+    aligned = rng.integers(0, vocab, PAGED_ALIGNED)
+    engine = PagedSlotEngine(model, IDENTITY_SLOTS, page_size=PAGE_SIZE,
+                             buckets=default_buckets(
+                                 model.cfg.max_len, cap=model.cfg.max_len))
+    engine.warmup()
+    sched = Scheduler(engine, decode_priority=4)
+    served, excused = [], []
+    t0 = time.time()
+
+    def serve(prompts, session=""):
+        base = len(served)
+        done = {c.rid: c for c in sched.run(
+            [Request(rid=base + i, prompt=p, max_new_tokens=IDENTITY_NEW,
+                     session=session) for i, p in enumerate(prompts)])}
+        for i, p in enumerate(prompts):
+            served.append((p, done[base + i].tokens))
+        return [done[base + i].tokens for i in range(len(prompts))]
+
+    serve([np.concatenate([prefix, rng.integers(0, vocab, 8)])])
+    serve(shared)
+    hits_shared = engine.prefix_hits
+    for _ in range(3):
+        serve([aligned])
+    turn, session_hits = rng.integers(0, vocab, PAGED_TURN0), []
+    for j in range(PAGED_TURNS):
+        before = engine.prefix_hit_tokens
+        out = serve([turn], session="conversation")[0]
+        session_hits.append(engine.prefix_hit_tokens - before)
+        # The conversation so far, then the user's next message.
+        turn = np.concatenate([turn, out, rng.integers(0, vocab,
+                                                       PAGED_TURN_NEW)])
+    wall = time.time() - t0
+    for i, (p, got) in enumerate(served):
+        ref = generate(model, torch.from_numpy(p).to(DEVICE)[None],
+                       IDENTITY_NEW)[0].tolist()
+        bad = stream_check(torch, model, p, got, ref,
+                           f"{phase}: request {i} (prompt {len(p)})")
+        if bad:
+            excused.append({"rid": i, "prompt_len": len(p), **bad})
+    stats = engine.paging_stats()
+    held = cached_page_ids(engine.radix)
+    # A session turn attaches everything its last turn wrote: the turn's
+    # prompt and all but the last of its new tokens, the partial page too.
+    written = [PAGED_TURN0 + j * (IDENTITY_NEW + PAGED_TURN_NEW)
+               + IDENTITY_NEW - 1 for j in range(PAGED_TURNS - 1)]
+    pool = engine.cache.k[0]
+    emit({"phase": "serve_paged_identity", "leg": leg,
+          "requests": len(served), "slots": IDENTITY_SLOTS,
+          "page_size": PAGE_SIZE, "new_tokens": IDENTITY_NEW,
+          "cache_dtype": str(pool.dtype).replace("torch.", ""),
+          "scale_leaves": engine.cache.k_scale is not None,
+          "identical": len(served) - len(excused), "excused": excused,
+          "prefix_hits_of_shared": hits_shared,
+          "session_hit_tokens": session_hits,
+          "held_by_cache": len(held), **stats,
+          "cache_bytes_per_slot": engine.cache_bytes_per_slot(),
+          "wall_s": round(wall, 3)})
+    check(pool.dtype == want_dtype and (engine.cache.k_scale is not None)
+          == (want_dtype == torch.int8),
+          f"{phase}: the pool holds {pool.dtype} pages (scales: "
+          f"{engine.cache.k_scale is not None}), not {want_dtype}: a cache "
+          f"of the wrong type")
+    check(stats["prefix_hits"] >= PAGED_REQUESTS,
+          f"{phase}: {stats['prefix_hits']} prefix hits, not >= "
+          f"{PAGED_REQUESTS}")
+    check(stats["cow_copies"] >= 1, f"{phase}: no copy-on-write")
+    check(session_hits[1:] == written,
+          f"{phase}: the session turns attached {session_hits[1:]} tokens, "
+          f"not the {written} their conversations wrote")
+    check(stats["prefill_tokens_computed"] < stats["prefill_tokens_dense"],
+          f"{phase}: prefill computed {stats['prefill_tokens_computed']} "
+          f"tokens, not fewer than the dense {stats['prefill_tokens_dense']}")
+    check(not engine.active.any() and not engine.page_count.any(),
+          f"{phase}: a slot still holds pages after the run")
+    check(engine.pool.pages_in_use == len(held) <= stats["cached_pages"],
+          f"{phase}: {engine.pool.pages_in_use} pages in use, but the prefix "
+          f"cache and the sessions hold {len(held)}")
+
+
+def phase_serve_paged(torch, dense: dict) -> None:
+    """``--mode serve --serve.paged --serve.kv-dtype int8
+    --serve.session-turns 4`` through the CLI at full width in bf16:
+    every token delivered, the engine's page bytes equal to
+    ``page_bytes_estimate``; then the paged int8 engine's decode-step
+    profile, beside the dense bf16 serve phase's numbers of this run."""
+    from tensorflow_distributed_tpu_torch.models.transformer import (
+        gpt2_small_config)
+    from tensorflow_distributed_tpu_torch.serve.paging.engine import (
+        page_bytes_estimate)
+
+    torch.cuda.reset_peak_memory_stats()
+    rc, line, summary, out = serve_cli(SERVE_PAGED_ARGV)
+    peak = torch.cuda.max_memory_allocated()
+    paged_line = next((l for l in out.splitlines()
+                       if l.startswith("[serve] paged: ")), None)
+    estimate = page_bytes_estimate(
+        gpt2_small_config(kv_cache_quant="int8"), PAGE_SIZE)
+    keys = ("prefix_hit_rate", "prefix_hits", "slot_pages_peak", "num_pages",
+            "page_bytes", "pages_peak", "page_evictions", "cow_copies",
+            "sessions", "prefill_tokens_computed", "prefill_tokens_dense")
+    emit({"phase": "serve_paged", "argv": SERVE_PAGED_ARGV, "exit": rc,
+          "summary_line": line, "paged_line": paged_line,
+          **{k: summary.get(k) for k in SERVE_KEYS + keys},
+          "page_bytes_estimate": estimate, "peak_mem_bytes": peak,
+          "profile": serve_profile(torch, SERVE_PAGED_ARGV),
+          "dense_bf16_serve": {k: dense.get(k) for k in (
+              "tokens_per_sec", "ttft_ms_p50", "ttft_ms_p95", "tok_ms_mean",
+              "peak_mem_bytes", "profile")}})
+    check(summary["total_new_tokens"] == SERVE_REQUESTS * SERVE_NEW,
+          f"serve_paged: {summary['total_new_tokens']} tokens delivered, not "
+          f"{SERVE_REQUESTS} x {SERVE_NEW}")
+    check(paged_line is not None, "serve_paged: no [serve] paged: line")
+    check(summary.get("page_bytes") == estimate,
+          f"serve_paged: the engine's page holds {summary.get('page_bytes')} "
+          f"bytes, not page_bytes_estimate's {estimate}")
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--rank"]:
@@ -2313,7 +2568,7 @@ def main(argv=None) -> int:
     phase_train_data(torch)
     phase_decode(fa, torch, np)
     phase_serve_identity(torch, np)
-    phase_serve(torch)
+    serve = phase_serve(torch)
     with tempfile.TemporaryDirectory(prefix="tfd_ckpt_") as ckpt_dir:
         phase_checkpoint(kernels, torch, ckpt_dir)
         phase_eval(kernels, torch, ckpt_dir)
@@ -2324,6 +2579,9 @@ def main(argv=None) -> int:
     phase_train_window(kernels, torch)
     phase_decode_llama(fa, torch, np)
     phase_serve_llama(torch, np)
+    phase_decode_int8(fa, torch, np)
+    phase_serve_paged_identity(torch, np)
+    phase_serve_paged(torch, serve)
 
     err = {"flash_fwd": flash["errors"]["o_abs_err"],
            "flash_dq": flash["errors"]["dq_abs_err"],

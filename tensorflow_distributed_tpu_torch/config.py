@@ -11,8 +11,8 @@ Every field shared with the JAX ``TrainConfig``, ``MeshConfig`` and
 call trains the reference's ``mnist_cnn`` on the MNIST idx files under
 ``--data-dir``. Every ``--serve.*`` flag of the JAX CLI parses; those of
 the layers not ported yet are refused unless they keep their default.
-The model options of layers not ported yet (``--kv-cache-quant``,
-``--moe-experts``, ``--shard-vocab``) parse and are refused the same way,
+The model options of layers not ported yet (``--moe-experts``,
+``--shard-vocab``) parse and are refused the same way,
 as is ``--compute-dtype float32`` for training or evaluating the LM on a
 GPU (the kernels take bf16).
 """
@@ -61,9 +61,11 @@ class MeshConfig:
 @dataclasses.dataclass
 class ServeConfig:
     """``--mode serve``'s knobs: the JAX ``ServeConfig``, every field with
-    its JAX spelling and default. The port runs the dense slot engine
-    under the FIFO scheduler; the other fields belong to layers not
-    ported yet (``_SERVE_NOT_PORTED``) and must keep their defaults."""
+    its JAX spelling and default. The port runs the dense slot engine, or
+    with ``paged`` the paged one (radix prefix cache, sessions), either
+    over a bf16 or an int8 cache, under the FIFO scheduler; the other
+    fields belong to layers not ported yet (``_SERVE_NOT_PORTED``) and
+    must keep their defaults."""
 
     # Decode batch width: concurrent requests in flight.
     num_slots: int = 8
@@ -98,25 +100,41 @@ class ServeConfig:
     # Admission order: "fifo" (arrival order; the port's one policy)
     # or "slo" (not ported yet).
     policy: str = "fifo"
+    # Decode-cache storage: "bf16" (the compute dtype) or "int8" (per-
+    # (token, head) absmax scales; the serve-side spelling of
+    # --kv-cache-quant int8, 1.88x fewer bytes a cached token-head at
+    # head dim 64).
+    kv_dtype: str = "bf16"  # bf16 | int8
+    # The paged KV cache (serve/paging): a page pool shared by every
+    # slot, each slot reserving pages for its own trajectory.
+    paged: bool = False
+    # Tokens a page (must divide the cache length; the auto-sized one is
+    # rounded up to a whole page).
+    page_size: int = 16
+    # Pool pages, the write-off page included; 0 = sized from the
+    # workload (and --serve.hbm-budget-gb).
+    num_pages: int = 0
+    # The radix prefix cache over the pool (false: paging alone).
+    radix: bool = True
+    # Synthetic workload: > 1 groups consecutive requests into sessions
+    # of this many turns, each turn's prompt extending the previous
+    # turn's (the paged engine re-attaches the conversation).
+    session_turns: int = 1
+    # Caps the auto-sized pool at (budget - the params' bytes) /
+    # page_bytes (GiB; 0 = no cap). Needs --serve.paged and num_pages 0.
+    hbm_budget_gb: float = 0.0
     # --- layers not ported yet (ROADMAP.md queue A) -----------------
     journal: str = ""
     slot_retries: int = 2
     spec_tokens: int = 0
     draft_config: str = ""
     spec_kgram: int = 3
-    kv_dtype: str = "bf16"
-    paged: bool = False
-    page_size: int = 16
-    num_pages: int = 0
-    radix: bool = True
-    session_turns: int = 1
     tenant_quota: int = 0
     preempt: bool = True
     slo_mix: str = ""
     tenants: int = 1
     mesh_model: int = 1
     inbox: str = ""
-    hbm_budget_gb: float = 0.0
 
     def validate(self) -> None:
         for name in ("num_slots", "max_new_tokens", "decode_priority"):
@@ -150,6 +168,7 @@ class ServeConfig:
                 "serve.trace shapes the SYNTHETIC workload's arrivals; a "
                 "request file carries its own arrival_s; drop one of the "
                 "flags")
+        self._validate_paging()
         if self.policy not in ("fifo", "slo"):
             raise ValueError(f"unknown serve.policy {self.policy!r}; have "
                              f"('fifo', 'slo')")
@@ -163,17 +182,66 @@ class ServeConfig:
                 f"{getattr(self, unported[0])!r} is not ported to PyTorch "
                 f"yet (see ROADMAP.md queue A)")
 
+    def _validate_paging(self) -> None:
+        """The JAX ServeConfig's checks of the int8 and paged caches and
+        of sessions, with its messages."""
+        if self.kv_dtype not in ("bf16", "int8"):
+            raise ValueError(
+                f"unknown serve.kv_dtype {self.kv_dtype!r}; have "
+                f"('bf16', 'int8')")
+        if self.page_size < 1:
+            raise ValueError(
+                f"serve.page_size must be >= 1, got {self.page_size}")
+        if self.num_pages < 0:
+            raise ValueError(
+                f"serve.num_pages must be >= 0, got {self.num_pages}")
+        if not self.paged:
+            # The paged knobs doing nothing without their parent would be
+            # a trap.
+            if self.page_size != 16:
+                raise ValueError(
+                    "serve.page_size shapes the paged KV cache; add "
+                    "--serve.paged")
+            if self.num_pages:
+                raise ValueError(
+                    "serve.num_pages sizes the paged KV pool; add "
+                    "--serve.paged")
+            if not self.radix:
+                raise ValueError(
+                    "serve.radix toggles the paged engine's prefix "
+                    "cache; add --serve.paged")
+        if self.session_turns < 1:
+            raise ValueError(
+                f"serve.session_turns must be >= 1, "
+                f"got {self.session_turns}")
+        if self.session_turns > 1 and self.requests:
+            raise ValueError(
+                "serve.session_turns shapes the SYNTHETIC workload; a "
+                "request file carries its own per-request session "
+                "field — drop one of the flags")
+        if self.hbm_budget_gb < 0:
+            raise ValueError(
+                f"serve.hbm_budget_gb must be >= 0, "
+                f"got {self.hbm_budget_gb}")
+        if self.hbm_budget_gb and not self.paged:
+            raise ValueError(
+                "serve.hbm_budget_gb caps the paged KV pool's "
+                "auto-sizing; add --serve.paged")
+        if self.hbm_budget_gb and self.num_pages:
+            raise ValueError(
+                "serve.hbm_budget_gb sizes num_pages automatically; "
+                "an explicit --serve.num-pages already pins the pool "
+                "— drop one of the flags")
+
 
 # The serve knobs of layers not ported yet (the slo policy and quotas,
-# preemption, speculation, int8 and paged caches, slot retry, the
-# journal, tensor parallelism, the fleet inbox), at their defaults.
+# preemption, speculation, slot retry, the journal, tensor parallelism,
+# the fleet inbox), at their defaults.
 _SERVE_NOT_PORTED = {
     f.name: f.default for f in dataclasses.fields(ServeConfig)
     if f.name in ("journal", "slot_retries", "spec_tokens", "draft_config",
-                  "spec_kgram", "kv_dtype", "paged", "page_size",
-                  "num_pages", "radix", "session_turns", "tenant_quota",
-                  "preempt", "slo_mix", "tenants", "mesh_model", "inbox",
-                  "hbm_budget_gb")}
+                  "spec_kgram", "tenant_quota", "preempt", "slo_mix",
+                  "tenants", "mesh_model", "inbox")}
 
 
 @dataclasses.dataclass
@@ -228,8 +296,11 @@ class TrainConfig:
     # "full" keeps only the block inputs, "dots" also keeps the matmul
     # outputs (JAX's dots_saveable policy).
     remat: str = "none"  # none | full | dots
+    # Decode-cache storage for generate and serve: "none" (the compute
+    # dtype) or "int8" (per-(token, head) absmax scales; the attend
+    # reads the int8 cache through exact scale-adjusted dots).
+    kv_cache_quant: str = "none"  # none | int8
     # --- model options of layers not ported yet (ROADMAP.md queue A) ---
-    kv_cache_quant: str = "none"
     moe_experts: int = 0
     shard_vocab: bool = False
 
@@ -473,8 +544,10 @@ class TrainConfig:
             raise ValueError(f"unknown mlp_variant {self.mlp_variant!r}")
         if self.norm not in ("layernorm", "rmsnorm"):
             raise ValueError(f"unknown norm {self.norm!r}")
-        for name, default in (("kv_cache_quant", "none"), ("moe_experts", 0),
-                              ("shard_vocab", False)):
+        if self.kv_cache_quant not in ("none", "int8"):
+            raise ValueError(
+                f"unknown kv_cache_quant {self.kv_cache_quant!r}")
+        for name, default in (("moe_experts", 0), ("shard_vocab", False)):
             if getattr(self, name) != default:
                 raise todo(f"--{name.replace('_', '-')}="
                            f"{getattr(self, name)!r}")

@@ -327,11 +327,19 @@ def state_from_flax(tree: Mapping[str, Any], state: TrainState
 
 def cache_from_flax(tree: Mapping[str, Any]) -> KVCache:
     """flax ``cache`` collection (numpy leaves) -> the port's KVCache
-    (CPU tensors in the leaves' dtype). The scalar ``index`` is dropped:
-    positions are the authority on depth in both packages."""
+    (CPU tensors in the leaves' dtype): a dense cache [B, max_len, ...]
+    or a paged pool [num_pages, page_size, ...] alike, with the f32
+    ``key_scale`` / ``value_scale`` leaves of an int8 cache. The scalar
+    ``index`` is dropped: positions are the authority on depth in both
+    packages."""
     layers = sorted((k for k in tree if k.startswith("layer_")),
                     key=lambda k: int(k.split("_")[1]))
     attn = [tree[k]["attn"] for k in layers]
-    return KVCache(
-        k=[torch.from_numpy(np.array(a["key"])) for a in attn],
-        v=[torch.from_numpy(np.array(a["value"])) for a in attn])
+
+    def leaves(name):
+        return [torch.from_numpy(np.array(a[name])) for a in attn]
+
+    if "key_scale" not in attn[0]:
+        return KVCache(k=leaves("key"), v=leaves("value"))
+    return KVCache(k=leaves("key"), v=leaves("value"),
+                   k_scale=leaves("key_scale"), v_scale=leaves("value_scale"))

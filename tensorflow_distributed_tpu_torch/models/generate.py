@@ -2,15 +2,18 @@
 ``models/generate.py``.
 
 Prefill the prompt in one pass that fills every layer's cache
-([B, max_len, nk, Dh], nk the K/V heads: H, or fewer under GQA; a
-:class:`~..models.transformer.KVCache` the caller owns), then decode one token per step against it: O(L) attention per new
-token instead of re-running the whole sequence. The tokens stay on the
+([B, max_len, nk, Dh], nk the K/V heads: H, or fewer under GQA; int8
+with f32 scales under ``kv_cache_quant="int8"``; a
+:class:`~..models.transformer.KVCache` the caller owns), then decode one
+token per step against it: O(L) attention per new token instead of
+re-running the whole sequence. The tokens stay on the
 device between steps, so a greedy loop never waits for the host.
 
 ``beam_search`` keeps K beams a prompt row on the same cached decode
 path: the cache is prefilled once a row and repeated K times, and after
 each step's top-K its rows are reordered by the beams' parents
-(``index_select``).
+(``index_select``, every leaf of the cache: the scales of an int8 one
+too).
 
 The JAX module compiles one program per (model, N, sampler knobs) and
 counts the hits and misses of that compile cache (``lookup_program``,
@@ -31,38 +34,38 @@ from tensorflow_distributed_tpu_torch.ops.flash_attention import NEG_INF
 @torch.no_grad()
 def prefill_cache(model, prompt: torch.Tensor, positions=None
                   ) -> Tuple[torch.Tensor, KVCache]:
-    """One forward over ``prompt`` [B, P] into a fresh cache, at
-    positions 0 .. P-1: THE prefill of ``generate()`` and the serving
-    engine. Returns (logits [B, P, V] f32, cache)."""
-    if positions is not None:
-        # JAX prefills at an offset for a continuation (slot retry,
-        # preemption, journal resume); none of those is ported, and its
-        # clamped write has no counterpart here.
-        raise NotImplementedError(
-            "prefill at an offset (a continuation's re-prefill) is not "
-            "ported to PyTorch yet (see ROADMAP.md queue A)")
+    """One forward over ``prompt`` [B, P] into a fresh cache: THE
+    prefill of ``generate()`` and the serving engine. Returns (logits
+    [B, P, V] f32, cache).
+
+    ``positions`` ([1 | B, P] int) default to 0 .. P-1; explicit ones
+    prefill at an offset (a continuation's re-prefill), as in JAX: the
+    write starts at each row's first position, clamped back to
+    ``max_len - P`` where it would run past the cache end."""
     B, P = prompt.shape
     if P > model.cfg.max_len:
         raise ValueError(f"prompt {P} > max_len {model.cfg.max_len}")
     cache = KVCache.zeros(model.cfg, B, prompt.device)
-    pos = torch.arange(P, device=prompt.device)[None]
+    if positions is None:
+        positions = torch.arange(P, device=prompt.device)[None]
+    pos = torch.as_tensor(positions, dtype=torch.long, device=prompt.device)
     logits = model(prompt, decode=True, positions=pos, cache=cache)
     return logits, cache
 
 
 @torch.no_grad()
-def decode_token(model, cache: KVCache, tok: torch.Tensor, positions
-                 ) -> Tuple[torch.Tensor, KVCache]:
+def decode_token(model, cache: KVCache, tok: torch.Tensor, positions,
+                 page_table=None) -> Tuple[torch.Tensor, KVCache]:
     """One single-token step against ``cache``, updated in place: THE
-    decode step of ``generate()`` and the serving engine. ``tok`` [B];
+    decode step of ``generate()`` and the serving engines. ``tok`` [B];
     ``positions`` [B] (per-row depths: the engine's slots differ) or
-    [1] (every row in lockstep). Returns (last-position logits [B, V],
-    cache)."""
+    [1] (every row in lockstep); ``page_table`` [B, max_pages] for a
+    paged pool. Returns (last-position logits [B, V], cache)."""
     pos = torch.as_tensor(positions, dtype=torch.long, device=tok.device)
     if pos.ndim == 0:
         pos = pos[None]
     logits = model(tok[:, None], decode=True, positions=pos[:, None],
-                   cache=cache)
+                   cache=cache, page_table=page_table)
     return logits[:, -1, :], cache
 
 
@@ -165,8 +168,7 @@ def beam_search(model, prompt: torch.Tensor, max_new_tokens: int, *,
     logits, cache = prefill_cache(model, prompt)
     # The K copies of a row's cache are identical: prefill once a row.
     rows = torch.arange(B, device=dev).repeat_interleave(K)
-    cache = KVCache([c.index_select(0, rows) for c in cache.k],
-                    [c.index_select(0, rows) for c in cache.v])
+    cache = cache.map(lambda c: c.index_select(0, rows))
     logp0 = torch.log_softmax(logits[:, -1, :].float(), dim=-1)  # [B, V]
     scores, tok0 = torch.topk(logp0, K, dim=-1)                  # [B, K]
     alive = (tok0 != eos_id if eos_id is not None
@@ -189,8 +191,7 @@ def beam_search(model, prompt: torch.Tensor, max_new_tokens: int, *,
         new_tok = flat % V
         gather = (torch.arange(B, device=dev)[:, None] * K
                   + beam).reshape(B * K)
-        cache = KVCache([c.index_select(0, gather) for c in cache.k],
-                        [c.index_select(0, gather) for c in cache.v])
+        cache = cache.map(lambda c: c.index_select(0, gather))
         alive = torch.gather(alive, 1, beam)
         if eos_id is not None:
             alive = alive & (new_tok != eos_id)

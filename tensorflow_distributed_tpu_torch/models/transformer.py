@@ -48,13 +48,21 @@ Numerics follow the flax model:
   depths). A row's write starts at ``positions[b, 0]`` clamped to
   ``max_len - L``, as JAX's ``dynamic_update_slice`` clamps it; the
   callers still keep positions in range (``models/generate.py`` and
-  ``serve/engine.py`` check on the host).
+  ``serve/engine.py`` check on the host);
+- with ``kv_cache_quant="int8"`` the cache holds int8 K and V with f32
+  per-(token, head) scales (``q8``), and every attend over it, MHA
+  included, is the grouped attend with scale-adjusted dots;
+- with ``kv_page_size > 0`` (the JAX paged layout) the cache is a pool
+  of pages shared by every row, and the forward takes a
+  ``page_table`` [B, max_len / kv_page_size]: writes scatter through it
+  and the read gathers each row's pages back into the dense layout,
+  so the attend is the dense one over the same bytes.
 
 Parameter names mirror the flax tree (``layer_0.attn.qkv`` for
 ``layer_0/attn/qkv``), so ``interop.params_from_flax`` is a fixed
 renaming plus the kernel reshapes. Options of the JAX config that the
-port does not run yet (``moe_experts``, ``kv_cache_quant``,
-``shard_vocab``) raise ``NotImplementedError`` instead of being ignored.
+port does not run yet (``moe_experts``, ``shard_vocab``) raise
+``NotImplementedError`` instead of being ignored.
 """
 
 from __future__ import annotations
@@ -107,17 +115,26 @@ class TransformerConfig:
     n_kv_heads: Optional[int] = None
     mlp_variant: str = "gelu"        # gelu | swiglu
     norm: str = "layernorm"          # layernorm | rmsnorm
+    # Decode-cache storage: "none" (the compute dtype) or "int8" (per-
+    # (token, head) absmax scales in f32; the attend reads the int8
+    # cache through scale-adjusted dots, never a dequantized copy).
+    kv_cache_quant: str = "none"
+    # Paged decode cache (serve/paging): > 0 replaces the per-row
+    # [B, max_len, ...] cache with a pool [kv_num_pages, kv_page_size,
+    # ...] addressed through a [B, max_len / kv_page_size] page_table;
+    # page 0 is the write-off page. 0 = the dense cache.
+    kv_page_size: int = 0
+    kv_num_pages: int = 0
     # Options of the JAX model this port does not run yet (ROADMAP.md
     # queue A); any value but the default raises.
     moe_experts: int = 0
-    kv_cache_quant: str = "none"
     shard_vocab: bool = False
 
 
-_NOT_PORTED = {"moe_experts": 0, "kv_cache_quant": "none",
-               "shard_vocab": False}
+_NOT_PORTED = {"moe_experts": 0, "shard_vocab": False}
 _CHOICES = {"pos_emb": ("learned", "rope"), "mlp_variant": ("gelu", "swiglu"),
-            "norm": ("layernorm", "rmsnorm"), "remat_policy": ("full", "dots")}
+            "norm": ("layernorm", "rmsnorm"), "remat_policy": ("full", "dots"),
+            "kv_cache_quant": ("none", "int8")}
 
 
 def kv_heads(cfg: TransformerConfig) -> int:
@@ -173,42 +190,85 @@ GPT2_SIZES = {
 @dataclasses.dataclass
 class KVCache:
     """The decode cache, owned by the caller (the JAX ``cache``
-    collection's ``key`` and ``value`` leaves): per layer, K and V of
-    shape [B, max_len, nk, Dh] in the compute dtype, nk the K/V head
-    count (``kv_heads``: n_heads for MHA, fewer under GQA, never widened
-    to n_heads). ``decode=True`` forwards write into it in place."""
+    collection's ``key`` and ``value`` leaves, and under int8 its
+    ``key_scale`` and ``value_scale``): per layer, K and V of shape
+    [B, max_len, nk, Dh], nk the K/V head count (``kv_heads``: n_heads
+    for MHA, fewer under GQA, never widened to n_heads). K and V are in
+    the compute dtype, or int8 with ``kv_cache_quant="int8"``, which
+    adds the f32 scales [B, max_len, nk]. A paged config
+    (``kv_page_size > 0``) holds a pool instead: [kv_num_pages,
+    kv_page_size, nk, Dh] (scales [.., .., nk]), shared by every row
+    through the forward's ``page_table``. ``decode=True`` forwards write
+    into it in place."""
 
     k: List[torch.Tensor]
     v: List[torch.Tensor]
+    k_scale: Optional[List[torch.Tensor]] = None
+    v_scale: Optional[List[torch.Tensor]] = None
 
     @classmethod
     def zeros(cls, cfg: TransformerConfig, batch: int,
               device=None) -> "KVCache":
-        shape = (batch, cfg.max_len, kv_heads(cfg),
-                 cfg.d_model // cfg.n_heads)
+        """A zeroed cache for ``batch`` rows, or for a paged config the
+        zeroed pool (``batch`` is then unused)."""
+        lead = ((cfg.kv_num_pages, cfg.kv_page_size) if cfg.kv_page_size
+                else (batch, cfg.max_len))
+        nk, dh = kv_heads(cfg), cfg.d_model // cfg.n_heads
+        quant = cfg.kv_cache_quant == "int8"
 
-        def layers():
-            return [torch.zeros(shape, dtype=cfg.compute_dtype, device=device)
+        def layers(shape, dtype):
+            return [torch.zeros(shape, dtype=dtype, device=device)
                     for _ in range(cfg.n_layers)]
 
-        return cls(layers(), layers())
+        dtype = torch.int8 if quant else cfg.compute_dtype
+        k, v = layers(lead + (nk, dh), dtype), layers(lead + (nk, dh), dtype)
+        if not quant:
+            return cls(k, v)
+        return cls(k, v, layers(lead + (nk,), torch.float32),
+                   layers(lead + (nk,), torch.float32))
+
+    def leaves(self) -> List[torch.Tensor]:
+        """Every tensor of the cache: K, V, then the scales under int8."""
+        return self.k + self.v + (self.k_scale or []) + (self.v_scale or [])
+
+    def layer(self, i: int) -> Tuple[torch.Tensor, ...]:
+        """Layer ``i``'s (K, V, K scale, V scale); the scales are None
+        for a cache in the compute dtype."""
+        if self.k_scale is None:
+            return self.k[i], self.v[i], None, None
+        return self.k[i], self.v[i], self.k_scale[i], self.v_scale[i]
+
+    def map(self, fn) -> "KVCache":
+        """A cache of ``fn`` applied to every leaf (the layout kept)."""
+        def each(ts):
+            return None if ts is None else [fn(t) for t in ts]
+
+        return KVCache(each(self.k), each(self.v), each(self.k_scale),
+                       each(self.v_scale))
 
     def put_row(self, row: "KVCache", slot: int) -> None:
         """Replace row ``slot`` wholesale with the one row of ``row`` (the
         JAX engine's ``_insert_row``): nothing of the stale row survives,
         not even in masked columns, where a non-finite value would still
         reach P @ V as 0 * NaN."""
-        for dst, src in zip(self.k + self.v, row.k + row.v):
+        for dst, src in zip(self.leaves(), row.leaves()):
             dst[slot].copy_(src[0])
 
+    def copy_page(self, src: int, dst: int) -> None:
+        """Copy page ``src`` of a paged pool to page ``dst`` in every
+        leaf (the paged engine's copy-on-write)."""
+        for t in self.leaves():
+            t[dst].copy_(t[src])
+
     def zero_(self) -> None:
-        for t in self.k + self.v:
+        for t in self.leaves():
             t.zero_()
 
     def nbytes(self) -> int:
-        """Device bytes of every layer's K and V: 2 * n_layers * B *
-        max_len * nk * Dh * the dtype's size."""
-        return sum(t.numel() * t.element_size() for t in self.k + self.v)
+        """Device bytes of every leaf: 2 * n_layers * B * max_len * nk *
+        Dh * the dtype's size, plus 2 * n_layers * B * max_len * nk * 4
+        for the scales of an int8 cache."""
+        return sum(t.numel() * t.element_size() for t in self.leaves())
 
 
 def _dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype):
@@ -339,12 +399,14 @@ class SelfAttention(nn.Module):
         self.out = nn.Linear(h * dh, cfg.d_model)
 
     def forward(self, x: torch.Tensor, positions: Optional[torch.Tensor] = None,
-                kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                ) -> torch.Tensor:
-        """With ``kv`` (this layer's cache K and V), the decode branch at
-        ``positions``; the training path otherwise. ``rope``: RoPE's
-        (cos, sin) at ``positions`` (``rope_angles``) when it is on."""
+                kv: Optional[Tuple[torch.Tensor, ...]] = None,
+                rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                page_table: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """With ``kv`` (this layer's cache K, V and scales:
+        ``KVCache.layer``), the decode branch at ``positions``, through
+        ``page_table`` for a paged pool; the training path otherwise.
+        ``rope``: RoPE's (cos, sin) at ``positions`` (``rope_angles``)
+        when it is on."""
         cfg = self.cfg
         B, L, _ = x.shape
         h, dh, nk = cfg.n_heads, cfg.d_model // cfg.n_heads, kv_heads(cfg)
@@ -365,7 +427,7 @@ class SelfAttention(nn.Module):
             return t if nk == h else t.repeat_interleave(h // nk, dim=2)
 
         if kv is not None:
-            out = _cached_attend(q, k, v, positions, kv, cfg.attn_window)
+            out = _cached_attend(q, k, v, positions, kv, cfg, page_table)
         elif _is_ring(self.ring):
             out = ring_attention(q, widen(k), widen(v), self.ring,
                                  causal=cfg.causal)
@@ -375,44 +437,109 @@ class SelfAttention(nn.Module):
         return _dense(out.reshape(B, L, h * dh), self.out, dtype)
 
 
-def _grouped_attend(q, k_cache, v_cache, bias):
-    """JAX's ``grouped_attend`` over a narrow cache: q [B, L, H, Dh]
-    against K, V [B, max_len, nk, Dh] in f32, the H / nk query heads of
-    a group sharing their K/V head, with the additive ``bias`` [1 | B,
-    L, max_len]; the cache is never widened to H heads."""
+def _grouped_attend(q, k_cache, v_cache, bias, k_scale=None, v_scale=None):
+    """JAX's ``grouped_attend``: q [B, L, H, Dh] against K, V [B,
+    max_len, nk, Dh] in f32, the H / nk query heads of a group sharing
+    their K/V head (g = 1 for MHA), with the additive ``bias`` [1 | B,
+    L, max_len]; the cache is never widened to H heads. An int8 cache
+    passes its scales [B, max_len, nk]: the scores are scaled by the key
+    column's scale before 1/sqrt(Dh), and the probabilities by the value
+    column's scale before P @ V, the exact rescalings of
+    q . dequant(K) and P . dequant(V), so no dequantized cache is
+    built."""
     B, L, h, dh = q.shape
     nk = k_cache.shape[2]
     qg = q.reshape(B, L, nk, h // nk, dh).float()
     s = torch.einsum("bqngd,bknd->bngqk", qg, k_cache.float())
+    if k_scale is not None:
+        s = s * k_scale.transpose(1, 2)[:, :, None, None]
     s = s / math.sqrt(dh) + bias[:, None, None]
     p = torch.softmax(s, dim=-1)
+    if v_scale is not None:
+        p = p * v_scale.transpose(1, 2)[:, :, None, None]
     o = torch.einsum("bngqk,bknd->bqngd", p, v_cache.float())
     return o.reshape(B, L, h, dh).to(q.dtype)
 
 
-def _cached_attend(q, k, v, positions, kv, window):
-    """The JAX decode branch's dense layout: write each row's L new K, V
-    at ``start_b .. start_b + L - 1`` in one indexed write per cache,
-    then attend the L queries against the whole cache, columns outside
-    each query's (pos - window, pos] band masked by a NEG_INF bias
-    [1 | B, L, max_len]: ``full_attention`` for MHA, ``_grouped_attend``
-    for a narrow (GQA) cache. ``start_b`` is ``positions[b, 0]`` clamped
-    to ``[0, max_len - L]``, as ``dynamic_update_slice`` clamps it in
-    JAX: a write that would run past the cache end lands shifted back
-    over the row's last columns. The band reads the unclamped
-    positions."""
-    k_cache, v_cache = kv
+def q8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """JAX's per-(token, head) absmax quantizer: ``scale = max(max |x|
+    over Dh / 127, 1e-8)`` in f32, ``round(x / scale)`` (half to even,
+    as ``jnp.round``) clipped to +-127. Returns (int8 x, f32 scale
+    [..., nk])."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-8)
+    rounded = torch.round(xf / scale[..., None])
+    return rounded.clamp(-127, 127).to(torch.int8), scale
+
+
+def _write_index(pos, B, L, cfg, page_table):
+    """Where row b's L new tokens land: (row, column) of a dense cache,
+    or (page, offset) of a paged pool.
+
+    Dense: columns ``start_b .. start_b + L - 1``, ``start_b`` =
+    ``positions[b, 0]`` clamped to ``[0, max_len - L]`` as JAX's
+    ``dynamic_update_slice`` clamps it (a write that would run past the
+    cache end lands shifted back over the row's last columns).
+
+    Paged: position p goes to page ``table[b, min(p // page_size,
+    max_pages - 1)]`` at offset ``p % page_size``; positions at or past
+    ``max_len`` (the bucket padding of a tail prefill at an offset) go
+    to the write-off page 0, which no table shows in an unmasked
+    column. Several padding positions may share a (0, offset) target:
+    which one lands there is unspecified and harmless."""
+    max_len = cfg.max_len
+    if not cfg.kv_page_size:
+        steps = torch.arange(L, device=pos.device)
+        start = pos[:, :1].expand(B, 1).clamp(0, max_len - L)
+        rows = torch.arange(B, device=pos.device)[:, None].expand(B, L)
+        return rows, start + steps
+    psz = cfg.kv_page_size
+    posb = pos.expand(B, L)
+    logical = torch.clamp(posb // psz, max=page_table.shape[1] - 1)
+    pid = torch.gather(page_table, 1, logical)
+    pid = torch.where(posb < max_len, pid, torch.zeros_like(pid))
+    return pid, posb % psz
+
+
+def _cached_attend(q, k, v, positions, kv, cfg, page_table):
+    """The JAX decode branch: write each row's L new K, V (quantized
+    first under int8) in one indexed write per cache leaf
+    (``_write_index``), then attend the L queries against the row's
+    whole ``max_len`` cache, columns outside each query's (pos - window,
+    pos] band masked by a NEG_INF bias [1 | B, L, max_len]. A paged pool
+    is first gathered through ``page_table`` back into the dense [B,
+    max_len, ...] layout (the same bytes in the same order, so the
+    attend is the dense one). The attend is ``full_attention`` for an
+    MHA cache in the compute dtype, ``_grouped_attend`` for a narrow
+    (GQA) cache and for every int8 cache. The band reads the unclamped
+    positions. A table's unreserved entries gather page 0, whose
+    columns are masked (p = 0) and finite."""
+    k_cache, v_cache, k_scale, v_scale = kv
     B, L = q.shape[:2]
     pos = positions.long()
-    steps = torch.arange(L, device=q.device)
-    start = pos[:, :1].expand(B, 1).clamp(0, k_cache.shape[1] - L)
-    cols = start + steps                                     # [B, L]
-    rows = torch.arange(B, device=q.device)[:, None].expand(B, L)
-    k_cache[rows, cols] = k.to(k_cache.dtype)
-    v_cache[rows, cols] = v.to(v_cache.dtype)
-    keys = torch.arange(k_cache.shape[1], device=q.device)
-    keep = window_keep(pos[:, :, None], keys, window)
+    quant = k_scale is not None
+    max_len = cfg.max_len
+    if page_table is not None:
+        page_table = page_table.long()
+    idx = _write_index(pos, B, L, cfg, page_table)
+    if quant:
+        (k, ks), (v, vs) = q8(k), q8(v)
+        k_scale[idx] = ks
+        v_scale[idx] = vs
+    k_cache[idx] = k.to(k_cache.dtype)
+    v_cache[idx] = v.to(v_cache.dtype)
+    if cfg.kv_page_size:
+        def gathered(buf):
+            return buf[page_table].reshape((B, max_len) + buf.shape[2:])
+
+        k_cache, v_cache = gathered(k_cache), gathered(v_cache)
+        if quant:
+            k_scale, v_scale = gathered(k_scale), gathered(v_scale)
+    keys = torch.arange(max_len, device=q.device)
+    keep = window_keep(pos[:, :, None], keys, cfg.attn_window)
     bias = torch.where(keep, 0.0, NEG_INF).to(torch.float32)
+    if quant:
+        return _grouped_attend(q, k_cache, v_cache, bias, k_scale, v_scale)
     if k_cache.shape[2] != q.shape[2]:
         return _grouped_attend(q, k_cache, v_cache, bias)
     return full_attention(q, k_cache, v_cache, bias)
@@ -454,12 +581,12 @@ class Block(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None,
                 positions: Optional[torch.Tensor] = None,
-                kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                ) -> torch.Tensor:
+                kv: Optional[Tuple[torch.Tensor, ...]] = None,
+                rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                page_table: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.cfg
         y = self.attn(_norm(x, self.ln1).to(cfg.compute_dtype), positions,
-                      kv, rope)
+                      kv, rope, page_table)
         x = x + dropout(y, cfg.dropout_rate, train, generator)
         y = self.mlp(_norm(x, self.ln2).to(cfg.compute_dtype))
         return x + dropout(y, cfg.dropout_rate, train, generator)
@@ -518,6 +645,23 @@ class _LmHead(nn.Linear):
         return _dense(x, self, x.dtype)
 
 
+def _check_paged(cfg: TransformerConfig, page_table, B: int) -> None:
+    """JAX's checks of a paged decode forward, with its messages."""
+    if page_table is None:
+        raise ValueError("kv_page_size > 0 needs a page_table "
+                         "([B, max_pages] int32)")
+    npages, psz = cfg.kv_num_pages, cfg.kv_page_size
+    if npages < 2:
+        raise ValueError(f"kv_num_pages must be >= 2 (page 0 is the "
+                         f"write-off page), got {npages}")
+    if tuple(page_table.shape) != (B, cfg.max_len // psz) or \
+            cfg.max_len % psz:
+        raise ValueError(
+            f"page_table {tuple(page_table.shape)} must be [B={B}, "
+            f"max_len/page_size={cfg.max_len}/{psz}] (max_len must divide "
+            f"evenly into pages)")
+
+
 class TransformerLM(nn.Module):
     """Transformer LM backbone: tokens [B, L] int -> logits [B, L, V] f32.
     With a ``ring`` of S processes, tokens are this rank's contiguous
@@ -563,10 +707,11 @@ class TransformerLM(nn.Module):
         module docstring)."""
         cfg = self.cfg
         B, L = tokens.shape
-        if page_table is not None:
-            raise NotImplementedError(
-                "the paged KV cache (page_table) is not ported to PyTorch "
-                "yet (see ROADMAP.md queue A)")
+        if page_table is not None and not (decode and cfg.kv_page_size):
+            raise ValueError("a page_table is read only by the decode "
+                             "branch of a paged config (kv_page_size > 0)")
+        if decode and cfg.kv_page_size:
+            _check_paged(cfg, page_table, B)
         if decode:
             if not cfg.causal:
                 raise ValueError("decode=True needs a causal config")
@@ -593,6 +738,12 @@ class TransformerLM(nn.Module):
             # angles in each.
             rope = rope_angles(positions, cfg.d_model // cfg.n_heads,
                                cfg.rope_theta)
+        elif decode:
+            # A tail prefill at an offset pads past max_len; those rows
+            # are garbage nobody attends, and the clamp keeps them (and
+            # the write-off page they land in) finite, where JAX's
+            # out-of-range lookup fills NaN (ROADMAP.md queue C).
+            x = x + self.pos_emb(positions.clamp(max=cfg.max_len - 1))
         else:
             x = x + self.pos_emb(positions)
         x = x.to(cfg.compute_dtype)
@@ -602,8 +753,9 @@ class TransformerLM(nn.Module):
             if remat:
                 x = _remat_block(block, x, train, generator, positions, rope)
             else:
-                kv = (cache.k[i], cache.v[i]) if decode else None
-                x = block(x, train, generator, positions, kv, rope)
+                kv = cache.layer(i) if decode else None
+                x = block(x, train, generator, positions, kv, rope,
+                          page_table)
         x = _norm(x, self.ln_f).to(cfg.compute_dtype)
         if features_only:
             if cfg.tie_embeddings:

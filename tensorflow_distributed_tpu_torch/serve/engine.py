@@ -3,9 +3,10 @@
 
 The engine owns one [num_slots, max_len, nk, Dh] K and V cache per
 layer (a :class:`~..models.transformer.KVCache`; nk = H, or the K/V
-heads under GQA) for its whole life. Slots are
-occupied and freed between steps, so the request set changes while every
-shape stays fixed per (num_slots, bucket):
+heads under GQA; int8 with f32 scales under ``kv_cache_quant="int8"``)
+for its whole life. Slots are occupied and freed between steps, so the
+request set changes while every shape stays fixed per (num_slots,
+bucket):
 
 - **prefill**: the prompt is padded to its bucket, ``prefill_cache``
   fills a fresh [1, max_len] cache row, the greedy first token is read
@@ -23,6 +24,11 @@ Greedy only: the contract is token identity with one-shot greedy
 the decode watchdog, tensor parallelism and the verify / poison /
 weight-swap surface are not ported yet and are refused (ROADMAP.md
 queue A).
+
+The paged engine (``serve/paging/engine.py``) subclasses this one (its
+model's ``zero_cache`` is the page pool) and overrides two hooks:
+``_prefill_forward`` (a tail written through the slot's page table) and
+``_dispatch_step`` (the step with the device-resident tables).
 """
 
 from __future__ import annotations
@@ -45,8 +51,9 @@ def _not_ported(what: str) -> NotImplementedError:
 
 
 def zero_cache(model, num_slots: int) -> KVCache:
-    """A zeroed [num_slots, max_len, nk, Dh] decode cache for ``model``,
-    on its device."""
+    """A zeroed [num_slots, max_len, nk, Dh] decode cache for ``model``
+    (with its scale leaves under int8; the pool for a paged config), on
+    its device."""
     device = next(model.parameters()).device
     return KVCache.zeros(model.cfg, num_slots, device)
 
@@ -94,7 +101,8 @@ class SlotDecodeEngine:
         self.decode_steps = 0
 
     def cache_bytes_per_slot(self) -> int:
-        """Device memory the decode cache spends per slot."""
+        """Device memory the decode cache spends per slot (the scale
+        leaves of an int8 cache included)."""
         return self.cache.nbytes() // self.num_slots
 
     @property
@@ -135,29 +143,57 @@ class SlotDecodeEngine:
     def _h2d(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
-    @torch.no_grad()
-    def prefill(self, prompt, slot: int) -> int:
-        """Admit a request into ``slot``: bucketed prefill, row insert,
-        greedy first token. Returns the first generated token."""
+    def _admission(self, prompt, slot: int) -> np.ndarray:
+        """The prompt as a flat int64 array, after the checks every
+        engine makes."""
         prompt = np.asarray(prompt, np.int64).reshape(-1)
-        plen = len(prompt)
-        if plen < 1:
+        if len(prompt) < 1:
             raise ValueError("empty prompt")
         if self.active[slot]:
             raise ValueError(f"slot {slot} is occupied")
-        bucket = pick_bucket(plen, self.buckets)
+        return prompt
+
+    def _prefill_tail(self, tail: np.ndarray, start: int, slot: int
+                      ) -> Tuple[int, int]:
+        """The bucketed prefill body: ``tail`` padded to its bucket runs
+        at positions ``start ..`` into ``slot``'s cache; returns (greedy
+        first token from the TRUE last position, bucket)."""
+        bucket = pick_bucket(len(tail), self.buckets)
         padded = np.zeros((1, bucket), np.int64)
-        padded[0, :plen] = prompt
+        padded[0, :len(tail)] = tail
         self._buckets_used.add(bucket)
-        logits, row = prefill_cache(self.model, self._h2d(padded))
-        self.cache.put_row(row, slot)
+        logits = self._prefill_forward(self._h2d(padded), start, slot)
         # The time-to-first-token point: one scalar per admission.
-        first = int(logits[0, plen - 1].argmax())
+        return int(logits[0, len(tail) - 1].argmax()), bucket
+
+    def _prefill_forward(self, padded: torch.Tensor, start: int, slot: int
+                         ) -> torch.Tensor:
+        """A fresh [1, max_len] row prefilled from position 0, replacing
+        the slot's row wholesale (the dense engine admits at 0 only)."""
+        logits, row = prefill_cache(self.model, padded)
+        self.cache.put_row(row, slot)
+        return logits
+
+    def _activate(self, slot: int, first: int, plen: int) -> None:
         self.tok[slot] = first
         self.pos[slot] = plen
         self.active[slot] = True
         self.prefills += 1
+
+    @torch.no_grad()
+    def prefill(self, prompt, slot: int) -> int:
+        """Admit a request into ``slot``: bucketed prefill, row insert,
+        greedy first token. Returns the first generated token."""
+        prompt = self._admission(prompt, slot)
+        first, _ = self._prefill_tail(prompt, 0, slot)
+        self._activate(slot, first, len(prompt))
         return first
+
+    def _dispatch_step(self, tok: torch.Tensor, pos: torch.Tensor
+                       ) -> torch.Tensor:
+        """One decode step over every slot; the last-position logits
+        [num_slots, V]."""
+        return decode_token(self.model, self.cache, tok, pos)[0]
 
     @torch.no_grad()
     def step(self) -> np.ndarray:
@@ -168,8 +204,7 @@ class SlotDecodeEngine:
             raise RuntimeError(
                 "an active slot is at max_len: the scheduler admitted a "
                 "request that cannot fit (fits() is the guard)")
-        last, _ = decode_token(self.model, self.cache, self._h2d(self.tok),
-                               self._h2d(self.pos))
+        last = self._dispatch_step(self._h2d(self.tok), self._h2d(self.pos))
         # The engine's output: one [num_slots] fetch a step drives
         # EOS/budget termination and streaming.
         nxt = last.argmax(dim=-1).cpu().numpy()

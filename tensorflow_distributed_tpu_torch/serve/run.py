@@ -3,12 +3,20 @@ a request workload through the continuous-batching engine, report.
 
 Workloads: ``--serve.requests file.jsonl`` (one JSON object per line:
 ``{"prompt": [ids...], "max_new_tokens": 32, "eos_id": 5,
-"arrival_s": 0.25}``) or, with no file, a synthetic open-loop workload:
-``--serve.num-requests`` random prompts with lengths drawn in
-[``--serve.prompt-len-min``, ``--serve.prompt-len-max``], arriving at
-``--serve.arrival-rate`` req/s (0 = all queued at t=0) in the shape of
-``--serve.trace``: ``poisson``, ``bursty``, ``diurnal``, or a ``.jsonl``
-file of per-request ``{"arrival_s": t}`` offsets.
+"arrival_s": 0.25, "session": "conv7"}``) or, with no file, a synthetic
+open-loop workload: ``--serve.num-requests`` random prompts with lengths
+drawn in [``--serve.prompt-len-min``, ``--serve.prompt-len-max``],
+arriving at ``--serve.arrival-rate`` req/s (0 = all queued at t=0) in
+the shape of ``--serve.trace``: ``poisson``, ``bursty``, ``diurnal``, or
+a ``.jsonl`` file of per-request ``{"arrival_s": t}`` offsets. With
+``--serve.session-turns k`` consecutive synthetic requests form
+conversations of k turns, each turn's prompt extending the previous one.
+
+``--serve.kv-dtype int8`` (or ``--kv-cache-quant int8``) serves over the
+int8 cache; ``--serve.paged`` over the paged engine, whose pool
+(``--serve.num-pages``, or sized from the workload and
+``--serve.hbm-budget-gb``) and prefix cache (``--serve.radix``) are
+reported in a ``[serve] paged:`` line.
 
 With ``--checkpoint-dir`` it serves the latest checkpoint's weights
 (its EMA where it tracks one), as JAX's does; a checkpointed model's
@@ -34,6 +42,8 @@ from tensorflow_distributed_tpu_torch.models.transformer import (
 from tensorflow_distributed_tpu_torch.serve.buckets import (
     default_buckets, parse_buckets)
 from tensorflow_distributed_tpu_torch.serve.engine import SlotDecodeEngine
+from tensorflow_distributed_tpu_torch.serve.paging.engine import (
+    PagedSlotEngine, auto_num_pages, page_bytes_estimate)
 from tensorflow_distributed_tpu_torch.serve.scheduler import (
     Request, Scheduler)
 from tensorflow_distributed_tpu_torch.train import checkpoint as ckpt
@@ -85,9 +95,9 @@ def _arrivals(serve, n: int, rng) -> List[float]:
     return [i / rate for i in range(n)]
 
 
-# Request-file fields of the SLO scheduler and the paged engine's
-# sessions, with the values that leave them unused.
-_UNPORTED_FIELDS = {"slo": "standard", "tenant": "", "session": ""}
+# Request-file fields of the SLO scheduler and its tenant quotas, with
+# the values that leave them unused.
+_UNPORTED_FIELDS = {"slo": "standard", "tenant": ""}
 
 
 def _read_requests(cfg: TrainConfig) -> List[Request]:
@@ -118,7 +128,8 @@ def _read_requests(cfg: TrainConfig) -> List[Request]:
                 max_new_tokens=int(obj.get("max_new_tokens",
                                            serve.max_new_tokens)),
                 eos_id=int(obj.get("eos_id", serve.eos_id)),
-                arrival_s=float(obj.get("arrival_s", 0.0))))
+                arrival_s=float(obj.get("arrival_s", 0.0)),
+                session=str(obj.get("session", ""))))
     if not reqs:
         raise ValueError(f"{serve.requests} names no requests")
     return reqs
@@ -127,7 +138,10 @@ def _read_requests(cfg: TrainConfig) -> List[Request]:
 def _workload(cfg: TrainConfig, vocab_size: int) -> List[Request]:
     """The request file, or the synthetic workload: mixed lengths drawn
     from ``--seed``, prompts drawn BEFORE the arrivals so the token
-    content is the same under every trace (JAX's draw order)."""
+    content is the same under every trace (JAX's draw order). With
+    ``session_turns`` k > 1, requests g .. g + k - 1 form session
+    ``s{g // k}``, and turn j's prompt is turn j - 1's followed by its
+    own draw (so the first turns equal the session-less workload's)."""
     serve = cfg.serve
     if serve.requests:
         return _read_requests(cfg)
@@ -138,22 +152,37 @@ def _workload(cfg: TrainConfig, vocab_size: int) -> List[Request]:
                                 serve.prompt_len_max + 1))
         prompts.append(
             rng.integers(0, vocab_size, size=plen).astype(np.int32))
+    sessions = [""] * serve.num_requests
+    k = serve.session_turns
+    if k > 1:
+        for g in range(0, serve.num_requests, k):
+            for j in range(g, min(g + k, serve.num_requests)):
+                sessions[j] = f"s{g // k}"
+                if j > g:
+                    prompts[j] = np.concatenate([prompts[j - 1], prompts[j]])
     arrivals = _arrivals(serve, serve.num_requests, rng)
     return [Request(rid=i, prompt=p, max_new_tokens=serve.max_new_tokens,
-                    eos_id=serve.eos_id, arrival_s=float(a))
+                    eos_id=serve.eos_id, arrival_s=float(a),
+                    session=sessions[i])
             for i, (p, a) in enumerate(zip(prompts, arrivals))]
 
 
 def serve_setup(cfg: TrainConfig
                 ) -> Tuple[TrainConfig, SlotDecodeEngine, List[Request]]:
     """Everything before the scheduler's clock starts: the workload, the
-    cache length (``--seq-len``, or sized to the workload), the bucket
-    ladder, the model (the checkpoint's weights with ``--checkpoint-dir``,
-    else fresh-init from ``--seed``; its dense weights held in the
-    compute dtype) and the engine. Returns the config with the cache
+    cache length (``--seq-len``, or sized to the workload and, paged,
+    rounded up to a whole page), the bucket ladder, the model (the
+    checkpoint's weights with ``--checkpoint-dir``, else fresh-init from
+    ``--seed``; its dense weights held in the compute dtype; its cache
+    int8 under ``--serve.kv-dtype int8``) and the engine (paged with
+    ``--serve.paged``, its pool sized by ``auto_num_pages`` unless
+    ``--serve.num-pages`` pins it). Returns the config with the cache
     length it was given, the engine and the requests."""
     cfg.validate()
     device = resolve_device(cfg.device)
+    # --serve.kv-dtype is the serve-side spelling of --kv-cache-quant.
+    if cfg.serve.kv_dtype == "int8" and cfg.kv_cache_quant == "none":
+        cfg = dataclasses.replace(cfg, kv_cache_quant="int8")
     requests = _workload(cfg, cfg.synthetic_vocab or 64)
     max_prompt = max(len(r.prompt) for r in requests)
     # The trajectory bound (what has to fit the cache); bucket padding is
@@ -165,7 +194,13 @@ def serve_setup(cfg: TrainConfig
             f"longest request (prompt + new tokens) needs a {need}-token "
             f"cache")
     if not cfg.seq_len:
-        cfg = dataclasses.replace(cfg, seq_len=max(need, 32))
+        auto_len = max(need, 32)
+        if cfg.serve.paged:
+            # Page-granular: an explicit --seq-len that page_size does
+            # not divide is refused by the engine instead.
+            ps = cfg.serve.page_size
+            auto_len = -(-auto_len // ps) * ps
+        cfg = dataclasses.replace(cfg, seq_len=auto_len)
     buckets = (parse_buckets(cfg.serve.buckets) if cfg.serve.buckets
                else default_buckets(max_prompt, cap=cfg.seq_len))
     model, state = _build_model_and_state(cfg, device)
@@ -182,7 +217,25 @@ def serve_setup(cfg: TrainConfig
             model.load_state_dict(state.ema)
     del state  # the optimizer's moments are not served
     cast_dense_weights_(model)
-    engine = SlotDecodeEngine(model, cfg.serve.num_slots, buckets=buckets)
+    if not cfg.serve.paged:
+        engine = SlotDecodeEngine(model, cfg.serve.num_slots, buckets=buckets)
+        return cfg, engine, requests
+    num_pages = cfg.serve.num_pages
+    if not num_pages:
+        ps = cfg.serve.page_size
+        reserved = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+        num_pages, rationale = auto_num_pages(
+            num_slots=cfg.serve.num_slots, need_pages=-(-need // ps),
+            page_bytes=page_bytes_estimate(model.cfg, ps),
+            budget_bytes=int(cfg.serve.hbm_budget_gb * 2 ** 30),
+            reserved_bytes=reserved)
+        for line in rationale:
+            print(f"[serve] paged auto-size: {line}", flush=True)
+    engine = PagedSlotEngine(model, cfg.serve.num_slots,
+                             page_size=cfg.serve.page_size,
+                             num_pages=num_pages, radix=cfg.serve.radix,
+                             buckets=buckets)
     return cfg, engine, requests
 
 
@@ -223,5 +276,13 @@ def serve_run(cfg: TrainConfig) -> Dict:
           f"{summary['prefill_compiles']} prefill programs "
           f"(buckets {summary['buckets']}), "
           f"{summary['params']} params", flush=True)
+    if cfg.serve.paged:
+        print(f"[serve] paged: prefix_hit_rate="
+              f"{summary.get('prefix_hit_rate')} pool_occupancy="
+              f"{summary.get('pool_occupancy')} pages_peak="
+              f"{summary.get('pages_peak')}/{summary.get('num_pages')} "
+              f"evictions={summary.get('page_evictions')} cow="
+              f"{summary.get('cow_copies')} sessions="
+              f"{summary.get('sessions')}", flush=True)
     print(json.dumps({"event": "serve_summary", **summary}), flush=True)
     return summary

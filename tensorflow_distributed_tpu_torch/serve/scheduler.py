@@ -15,6 +15,15 @@ admission), tokens stream to the host as they retire (``on_token``),
 and each finished request reports its time to first token, decode time
 and mean inter-token latency.
 
+Over the paged engine (``serve/paging/engine.py``, ``engine.paged``) the
+scheduler passes each admission its budget and ``session``, releases a
+finished request through ``engine.release`` with its prompt and tokens
+(they feed the prefix cache and the session store), defers admission
+while ``engine.can_admit`` is False and live slots will free pages (an
+idle engine that still cannot admit raises), admits a session's turns in
+order (a turn waits until the earlier ones finished), and folds
+``engine.paging_stats()`` into the summary.
+
 ``clock`` is injectable so that tests can drive this scheduler and the
 JAX one on one fake clock. The JAX scheduler's other policies and layers
 (the ``slo`` policy, tenant quotas, preemption, speculation, fault
@@ -43,6 +52,9 @@ class Request:
     max_new_tokens: int
     eos_id: int = -1          # -1 = run to the full budget
     arrival_s: float = 0.0
+    # A multi-turn conversation's id: the paged engine retains a
+    # finished turn's KV under it, and the next turn re-attaches it.
+    session: str = ""
 
 
 @dataclasses.dataclass
@@ -101,6 +113,22 @@ class Scheduler:
         self.summary_extra = dict(summary_extra or {})
         self.summary: Dict = {}
 
+    @staticmethod
+    def _session_blocked(pending, queue, live) -> frozenset:
+        """Queued rids whose session has an earlier unfinished turn: a
+        client sends turn j + 1 only after turn j's reply, so such a turn
+        waits for its predecessor (which also makes the paged engine's
+        session re-attach deterministic). Requests without a session are
+        never blocked."""
+        earliest: Dict[str, int] = {}
+        for r in list(pending) + list(queue) + [lv.req
+                                                for lv in live.values()]:
+            if r.session and (r.session not in earliest
+                              or r.rid < earliest[r.session]):
+                earliest[r.session] = r.rid
+        return frozenset(r.rid for r in queue
+                         if r.session and earliest.get(r.session) != r.rid)
+
     def run(self, requests: Sequence[Request]) -> List[Completion]:
         """Serve every request to completion; returns completions in
         finish order (sort by ``rid`` for submission order)."""
@@ -124,6 +152,9 @@ class Scheduler:
         t0 = self.clock()
         steps_since_admit = steps = 0
         occ_sum = 0.0
+        paged = getattr(eng, "paged", False)
+        # Turn order binds only where some request has a session.
+        has_sessions = any(r.session for r in requests)
 
         def now() -> float:
             return self.clock() - t0
@@ -134,7 +165,13 @@ class Scheduler:
 
         def finish(lv: _Live, why: str) -> None:
             t = now()
-            eng.free(lv.slot)
+            if paged:
+                # The request's whole sequence feeds the prefix cache and
+                # its session.
+                eng.release(lv.slot, tokens=[int(x) for x in lv.req.prompt]
+                            + lv.tokens, session=lv.req.session)
+            else:
+                eng.free(lv.slot)
             del live[lv.slot]
             done.append(Completion(
                 rid=lv.req.rid, prompt_len=len(lv.req.prompt),
@@ -154,7 +191,14 @@ class Scheduler:
 
         def admit(req: Request) -> None:
             slot = eng.free_slots()[0]
-            first = eng.prefill(req.prompt, slot)
+            if paged:
+                # The budget sizes the page reservation; the session keys
+                # the conversation's re-attach.
+                first = eng.prefill(req.prompt, slot,
+                                    max_new_tokens=req.max_new_tokens,
+                                    session=req.session)
+            else:
+                first = eng.prefill(req.prompt, slot)
             lv = _Live(req=req, slot=slot, tokens=[], t_first=now(),
                        queue_steps=waited.pop(req.rid))
             live[slot] = lv
@@ -167,9 +211,27 @@ class Scheduler:
                 queue.append(req)
             if queue and eng.free_slots() and (
                     not live or steps_since_admit >= self.decode_priority):
-                admit(queue.pop(0))
-                steps_since_admit = 0
-                continue
+                blocked = (self._session_blocked(pending, queue, live)
+                           if has_sessions else frozenset())
+                pick = next((i for i, r in enumerate(queue)
+                             if r.rid not in blocked), -1)
+                if pick >= 0:
+                    head = queue[pick]
+                    # Page-pool pressure (paged engine): while live slots
+                    # hold the shortfall, keep decoding; they free pages
+                    # as they finish.
+                    if not paged or eng.can_admit(len(head.prompt),
+                                                  head.max_new_tokens):
+                        admit(queue.pop(pick))
+                        steps_since_admit = 0
+                        continue
+                    if not live:
+                        raise RuntimeError(
+                            f"request {head.rid}: page pool cannot hold its "
+                            f"reservation even with the engine idle and "
+                            f"the prefix cache fully evicted — raise "
+                            f"--serve.num-pages (or lower the request "
+                            f"budget)")
             if not live:
                 if not pending:
                     break
@@ -206,4 +268,8 @@ class Scheduler:
             "policy": self.policy,
             **self.summary_extra,
         }
+        if paged:
+            # The pool's occupancy, the prefix hit rate, evictions and
+            # copies on write.
+            self.summary.update(eng.paging_stats())
         return done

@@ -146,7 +146,8 @@ def build_model_for(cfg: TrainConfig, device: torch.device, ring=None):
             kw.update(pos_emb=cfg.pos_emb, rope_theta=cfg.rope_theta)
         for name, default in (("n_kv_heads", 0), ("attn_window", 0),
                               ("mlp_variant", "gelu"),
-                              ("norm", "layernorm")):
+                              ("norm", "layernorm"),
+                              ("kv_cache_quant", "none")):
             if getattr(cfg, name) != default:
                 kw[name] = getattr(cfg, name)
     else:

@@ -218,7 +218,8 @@ def test_new_phases_run_after_the_ring_in_order():
     serve_identity, serve), then the checkpoint phases (checkpoint,
     eval, generate, serve_checkpoint), then the Llama-style phases
     (model_llama, train_llama, train_window, decode_llama, serve_llama),
-    before the kernels line."""
+    then the int8 and paged caches' phases (decode_int8,
+    serve_paged_identity, serve_paged), before the kernels line."""
     import inspect
 
     src = inspect.getsource(cs.main)
@@ -231,7 +232,9 @@ def test_new_phases_run_after_the_ring_in_order():
              "phase_checkpoint(", "phase_eval(", "phase_generate(",
              "phase_serve_checkpoint(", "phase_model_llama(",
              "phase_train_llama(", "phase_train_window(",
-             "phase_decode_llama(", "phase_serve_llama(", 'emit({"kernels"']
+             "phase_decode_llama(", "phase_serve_llama(",
+             "phase_decode_int8(", "phase_serve_paged_identity(",
+             "phase_serve_paged(", 'emit({"kernels"']
     at = [src.index(call) for call in order]
     assert at == sorted(at)
 
@@ -789,3 +792,177 @@ def test_serve_llama_passes_and_fails_on_a_real_mismatch(
     with pytest.raises(SystemExit):
         cs.phase_serve_llama(tiny_smoke, np)
     assert "differs from generate() at step 3" in capsys.readouterr().err
+
+
+# --- the int8 and paged caches (decode_int8, serve_paged_identity,
+# serve_paged) ---------------------------------------------------------------
+
+def test_serve_paged_argv_is_the_serve_run_in_sessions_that_fit():
+    """serve_paged runs the serve phase's 32 requests x 64 new tokens on
+    8 slots at full width in bf16, paged, int8, in sessions of 4 turns
+    whose prompts (64-224 tokens a turn) all fit the 1024 cache."""
+    from tensorflow_distributed_tpu_torch.config import parse_args
+    from tensorflow_distributed_tpu_torch.serve.run import _workload
+
+    cfg = parse_args(cs.SERVE_PAGED_ARGV)
+    assert (cfg.device, cfg.compute_dtype, cfg.seq_len) == (
+        "cuda", "bfloat16", 1024)
+    assert (cfg.serve.paged, cfg.serve.kv_dtype, cfg.serve.session_turns,
+            cfg.serve.page_size) == (True, "int8", 4, cs.PAGE_SIZE)
+    assert (cfg.serve.num_slots, cfg.serve.num_requests,
+            cfg.serve.max_new_tokens) == (8, 32, 64)
+    reqs = _workload(cfg, 50257)
+    assert max(len(r.prompt) + r.max_new_tokens for r in reqs) <= 1024
+    assert len({r.session for r in reqs}) == 8
+    assert cs.TOL_DECODE_INT8 == 5e-2 and cs.PAGED_REQUESTS == 12
+    assert (cs.PAGED_PREFIX, cs.PAGED_TAILS, cs.PAGED_ALIGNED) == (
+        256, (8, 200), 320)
+    assert cs.PAGED_ALIGNED % cs.PAGE_SIZE == 0
+
+
+def test_decode_int8_holds_the_int8_cache_and_fails_without_b1(
+        tiny_smoke, capsys):
+    """On the CPU the int8 leg passes its byte check (int8 K and V plus
+    f32 scales) and its logits agree within 5e-2; it fails on B1's
+    launch count, as it must on a card where B1 did not run."""
+    import numpy as np
+
+    with pytest.raises(SystemExit):
+        cs.phase_decode_int8(fa, tiny_smoke, np)
+    out, err = capsys.readouterr()
+    line = json.loads(out.splitlines()[-1])
+    assert (line["phase"], line["leg"]) == ("decode_int8", "mha")
+    assert line["cache_dtype"] == "int8"
+    # 2 layers x max_len 256 x 2 heads x (2 x 64 + 8) bytes a row
+    assert line["cache_bytes_per_slot"] == 2 * 256 * 2 * (2 * 64 + 8)
+    assert line["same_heads_compute_dtype_bytes_per_slot"] == (
+        2 * 256 * 2 * 64 * 2 * 2)
+    assert 0 < line["max_rel_err"] <= cs.TOL_DECODE_INT8
+    assert "did not run B1" in err
+
+
+def test_decode_int8_fails_on_a_cache_that_is_not_int8(tiny_smoke,
+                                                       monkeypatch, capsys):
+    import numpy as np
+
+    real = cs.gpt2_small
+    monkeypatch.setattr(cs, "gpt2_small", lambda torch, dtype, **kw: real(
+        torch, dtype, **{k: v for k, v in kw.items()
+                         if k != "kv_cache_quant"}))
+    with pytest.raises(SystemExit):
+        cs.phase_decode_int8(fa, tiny_smoke, np)
+    assert "a cache of the wrong type" in capsys.readouterr().err
+
+
+@pytest.fixture
+def tiny_paged(tiny_smoke, monkeypatch):
+    """serve_paged_identity at the tiny size: 4 requests share a 32-token
+    prefix, a 48-token aligned prompt, a session from 20 tokens."""
+    for name, value in (("PAGED_REQUESTS", 4), ("PAGED_PREFIX", 32),
+                        ("PAGED_TAILS", (4, 20)), ("PAGED_ALIGNED", 48),
+                        ("PAGED_TURN0", 20), ("PAGED_TURN_NEW", 5)):
+        monkeypatch.setattr(cs, name, value)
+    return tiny_smoke
+
+
+def test_serve_paged_identity_passes_and_fails_on_a_real_mismatch(
+        tiny_paged, monkeypatch, capsys):
+    import numpy as np
+
+    from tensorflow_distributed_tpu_torch.models import generate as gen
+
+    cs.phase_serve_paged_identity(tiny_paged, np)
+    lines = [json.loads(l) for l in capsys.readouterr().out.splitlines()]
+    assert [(l["phase"], l["leg"], l["cache_dtype"], l["scale_leaves"])
+            for l in lines] == [
+        ("serve_paged_identity", "f32", "float32", False),
+        ("serve_paged_identity", "int8", "int8", True)]
+    for line in lines:
+        assert line["requests"] == 1 + 4 + 3 + 3
+        assert line["identical"] == line["requests"]
+        assert line["excused"] == []
+        assert line["prefix_hits_of_shared"] == 4 and line["cow_copies"] >= 1
+        # Turn 1 wrote 20 + 6 - 1 tokens, turn 2 31 + 6 - 1: both mid-page.
+        assert line["session_hit_tokens"][1:] == [25, 36]
+        assert line["pages_in_use"] == line["held_by_cache"]
+    real = gen.generate
+
+    def off_by_one(model, prompt, n, **kw):
+        out = real(model, prompt, n, **kw)
+        out[0, 2] = (out[0, 2] + 1) % model.cfg.vocab_size
+        return out
+
+    monkeypatch.setattr(gen, "generate", off_by_one)
+    with pytest.raises(SystemExit):
+        cs.phase_serve_paged_identity(tiny_paged, np)
+    assert "differs from generate() at step 2" in capsys.readouterr().err
+
+
+def test_serve_paged_identity_fails_without_prefix_hits(tiny_paged,
+                                                        monkeypatch, capsys):
+    """The same run without the prefix cache (radix off) serves the same
+    streams and fails on its prefix hits."""
+    import numpy as np
+
+    from tensorflow_distributed_tpu_torch.serve.paging import engine as pe
+
+    real = pe.PagedSlotEngine
+    monkeypatch.setattr(pe, "PagedSlotEngine",
+                        lambda *a, **kw: real(*a, radix=False, **kw))
+    with pytest.raises(SystemExit):
+        cs.phase_serve_paged_identity(tiny_paged, np)
+    assert "prefix hits" in capsys.readouterr().err
+
+
+def test_serve_paged_identity_fails_on_a_pool_that_is_not_int8(
+        tiny_paged, monkeypatch, capsys):
+    """The int8 leg fails when its engine's pool holds compute-dtype
+    pages (the model built without the int8 cache)."""
+    import numpy as np
+
+    real = cs.gpt2_small
+    monkeypatch.setattr(cs, "gpt2_small", lambda torch, dtype, **kw: real(
+        torch, dtype, **{k: v for k, v in kw.items()
+                         if k != "kv_cache_quant"}))
+    with pytest.raises(SystemExit):
+        cs.phase_serve_paged_identity(tiny_paged, np)
+    out, err = capsys.readouterr()
+    assert json.loads(out.splitlines()[-1])["leg"] == "int8"
+    assert "serve_paged_identity (int8)" in err
+    assert "a cache of the wrong type" in err
+
+
+@pytest.mark.parametrize("fault", ["tokens", "page_bytes", "no_paged_line"])
+def test_serve_paged_failure_paths(fault, tiny_smoke, monkeypatch, capsys):
+    """serve_paged fails when a token is missing, when the engine's page
+    bytes differ from page_bytes_estimate, or when the CLI printed no
+    paged line."""
+    from tensorflow_distributed_tpu_torch import cli
+    from tensorflow_distributed_tpu_torch.models.transformer import (
+        gpt2_small_config)
+    from tensorflow_distributed_tpu_torch.serve.paging.engine import (
+        page_bytes_estimate)
+
+    good = page_bytes_estimate(gpt2_small_config(kv_cache_quant="int8"), 16)
+    assert good == 16 * 12 * (2 * 12 * 64 + 2 * 12 * 4)
+    summary = {k: 1.0 for k in cs.SERVE_KEYS}
+    summary.update(total_new_tokens=32 * 64 - (fault == "tokens"),
+                   page_bytes=good + (fault == "page_bytes"))
+
+    def fake_main(argv):
+        print("[serve] 32 requests")
+        if fault != "no_paged_line":
+            print("[serve] paged: prefix_hit_rate=0.5")
+        print(json.dumps({"event": "serve_summary", **summary}))
+        return 0
+
+    monkeypatch.setattr(cli, "main", fake_main)
+    monkeypatch.setattr(cs, "serve_profile", lambda torch, argv: {})
+    for name in ("reset_peak_memory_stats", "max_memory_allocated"):
+        monkeypatch.setattr(tiny_smoke.cuda, name, lambda *a: 0)
+    with pytest.raises(SystemExit):
+        cs.phase_serve_paged(tiny_smoke, {"tokens_per_sec": 1.0})
+    err = capsys.readouterr().err
+    assert {"tokens": "tokens delivered",
+            "page_bytes": "page_bytes_estimate",
+            "no_paged_line": "no [serve] paged: line"}[fault] in err

@@ -23,9 +23,11 @@ import pytest
 import torch
 
 from tensorflow_distributed_tpu.config import TrainConfig as JaxConfig
+from tensorflow_distributed_tpu.config import parse_args as jax_parse_args
 from tensorflow_distributed_tpu.models import generate as jgen
 from tensorflow_distributed_tpu.models import transformer as jtr
 from tensorflow_distributed_tpu.ops import flash_attention as jfa
+from tensorflow_distributed_tpu.serve import run as jserve
 from tensorflow_distributed_tpu.train import loop as jloop
 from tensorflow_distributed_tpu_torch import cli, interop
 from tensorflow_distributed_tpu_torch.config import TrainConfig
@@ -121,6 +123,26 @@ def test_cli_beam_generate_equals_jax_generate_only(jax_ckpt, capsys):
         logger=MetricLogger(enabled=False))
     assert got["new_tokens"] == want["new_tokens"]
     assert abs(got["beam_score"] - want["beam_score"]) <= 1e-5
+
+
+@pytest.mark.parametrize("beams", [1, 3])
+def test_cli_int8_generate_equals_jax_generate_only(jax_ckpt, beams, capsys):
+    """--kv-cache-quant int8 in generate mode: the port decodes the
+    checkpoint over the int8 cache to JAX's tokens (and beam score)."""
+    extra = ["--prompt", "5,9,1,33", "--max-new-tokens", "8",
+             "--num-beams", str(beams)]
+    assert cli.main(ARGV + ["--mode", "generate", "--checkpoint-dir",
+                            jax_ckpt, "--kv-cache-quant", "int8"]
+                    + extra) == 0
+    got = _record(capsys.readouterr().out, "generate")
+    want = jloop.generate_only(
+        JaxConfig(**TINY, mode="generate", checkpoint_dir=jax_ckpt,
+                  prompt="5,9,1,33", max_new_tokens=8, num_beams=beams,
+                  kv_cache_quant="int8"),
+        logger=MetricLogger(enabled=False))
+    assert got["new_tokens"] == want["new_tokens"]
+    if beams > 1:
+        assert abs(got["beam_score"] - want["beam_score"]) <= 1e-5
 
 
 def test_sampling_is_deterministic_per_seed_and_in_its_support(jax_ckpt,
@@ -251,6 +273,68 @@ def test_serve_from_a_checkpoint_streams_what_generate_makes(jax_ckpt, capsys,
     for rid, p in enumerate(prompts):
         want = tgen.generate(model, torch.tensor([p]), 8)[0].tolist()
         assert streams[rid] == want, rid
+
+
+PAGED_RUNS = {
+    "paged_int8_sessions": ["--serve.paged", "true", "--serve.page-size", "8",
+                            "--serve.session-turns", "2", "--serve.kv-dtype",
+                            "int8"],
+    # Caps the pool at (budget - the params' 89,344 B) / 4,096 B = 16
+    # pages, between the floor of 11 and the 19 the workload would take.
+    "paged_budget": ["--serve.paged", "true", "--serve.page-size", "8",
+                     "--serve.hbm-budget-gb", "0.0001443"],
+    "int8_flag": ["--kv-cache-quant", "int8"],
+}
+
+
+def _streams(out):
+    by_rid = {}
+    for line in out.splitlines():
+        if line.startswith("[serve] rid="):
+            rid, tok = line.split()[1:3]
+            by_rid.setdefault(int(rid[4:]), []).append(int(tok[4:]))
+    return by_rid
+
+
+@pytest.mark.parametrize("name", sorted(PAGED_RUNS))
+def test_cli_paged_and_int8_serving_equal_jax(jax_ckpt, name, capsys):
+    """serve_run of both packages on the same checkpoint: the same token
+    streams, summary counts, paging fields, pool sizing and paged
+    line."""
+    argv = [a for a in ARGV if a not in ("--device", "cpu")] + [
+        "--mode", "serve", "--checkpoint-dir", jax_ckpt,
+        "--serve.num-slots", "3", "--serve.num-requests", "6",
+        "--serve.prompt-len-min", "4", "--serve.prompt-len-max", "12",
+        "--serve.max-new-tokens", "8", "--serve.stream", "true",
+        *PAGED_RUNS[name]]
+    assert cli.main(argv + ["--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    summary = _record(out, "serve_summary")
+    want = jserve.serve_run(jax_parse_args(argv))
+    jout = capsys.readouterr().out
+    assert _streams(out) == _streams(jout)
+    assert sorted(_streams(out)) == list(range(6))
+    keys = ["requests", "total_new_tokens", "decode_steps", "prefills",
+            "prefill_compiles", "buckets", "params"]
+    if "--serve.paged" in argv:
+        keys += ["page_size", "num_pages", "page_bytes", "pages_per_max_len",
+                 "pages_in_use", "pages_peak", "pool_occupancy",
+                 "prefix_hits", "prefix_hit_tokens", "prompt_tokens",
+                 "prefix_hit_rate", "prefill_tokens_computed",
+                 "prefill_tokens_dense", "cow_copies", "page_evictions",
+                 "slot_pages_peak", "cached_pages", "sessions"]
+        for prefix in ("[serve] paged: ", "[serve] paged auto-size: "):
+            got = [l for l in out.splitlines() if l.startswith(prefix)]
+            assert got and got == [l for l in jout.splitlines()
+                                   if l.startswith(prefix)]
+    else:
+        assert "page_size" not in summary
+    for key in keys:
+        assert summary[key] == want[key], key
+    if name == "paged_int8_sessions":
+        assert summary["prefix_hits"] >= 1
+    if name == "paged_budget":
+        assert summary["num_pages"] == 16 - 1  # the write-off page apart
 
 
 # --- the repairs: the decode-cache write at the end, the window edge -------

@@ -185,15 +185,25 @@ def test_decode_refusals():
         model(tok, decode=True, positions=torch.tensor([[0]]))
     with pytest.raises(ValueError, match="decode=True"):
         model(tok, cache=cache)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # A page table is read only by a paged config's decode branch.
+    with pytest.raises(ValueError, match="kv_page_size"):
         model(tok, decode=True, positions=torch.tensor([[0]]), cache=cache,
               page_table=torch.zeros((1, 8), dtype=torch.long))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgen.prefill_cache(model, tok, positions=torch.tensor([[3]]))
+    # Prefill at an offset is ported: position 3 of a fresh cache.
+    logits, offset = tgen.prefill_cache(model, tok,
+                                        positions=torch.tensor([[3]]))
+    assert bool(offset.k[0][:, 3].abs().sum() > 0)
+    assert float(offset.k[0][:, :3].abs().sum()) == 0.0
     bert = ttr.TransformerLM(ttr.tiny_config())
     with pytest.raises(ValueError, match="causal"):
         bert(tok, decode=True, positions=torch.tensor([[0]]), cache=cache)
-    for kw in (dict(kv_cache_quant="int8"), dict(moe_experts=4)):
+    # The int8 cache is ported; mixture-of-experts still is not.
+    assert ttr.gpt_lm("tiny", kv_cache_quant="int8").cfg.kv_cache_quant == (
+        "int8")
+    with pytest.raises(ValueError, match="kv_cache_quant"):
+        ttr.gpt_lm("tiny", kv_cache_quant="int4")
+    for kw in (dict(kv_cache_quant="int8", moe_experts=4),
+               dict(moe_experts=4)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ttr.gpt_lm("tiny", **kw)
 

@@ -306,7 +306,10 @@ SERVE_ARGV = ["--mode", "serve", "--model", "gpt_lm", "--model-size", "tiny",
     ["--serve.trace", "bursty", "--serve.arrival-rate", "40"],
     ["--serve.trace", "diurnal", "--serve.arrival-rate", "40",
      "--seed", "3", "--synthetic-vocab", "500"],
-    "trace_file", "request_file"])
+    "trace_file", "request_file",
+    ["--serve.session-turns", "3", "--serve.num-requests", "8"],
+    ["--serve.session-turns", "2", "--serve.trace", "bursty",
+     "--serve.arrival-rate", "40"]])
 def test_workload_equals_jax(extra, tmp_path):
     if extra == "trace_file":
         path = tmp_path / "t.jsonl"
@@ -318,7 +321,8 @@ def test_workload_equals_jax(extra, tmp_path):
         path.write_text("\n".join([
             json.dumps({"prompt": [5, 11, 3], "max_new_tokens": 12}),
             json.dumps({"prompt": [1, 2], "arrival_s": 0.05, "eos_id": 7}),
-            "", json.dumps({"prompt": [9], "slo": "standard"})]) + "\n")
+            "", json.dumps({"prompt": [9], "slo": "standard"}),
+            json.dumps({"prompt": [9, 4], "session": "conv1"})]) + "\n")
         extra = ["--serve.requests", str(path)]
     argv = SERVE_ARGV + extra
     tcfg, jcfg = parse_args(argv + ["--device", "cpu"]), jax_parse_args(argv)
@@ -326,8 +330,9 @@ def test_workload_equals_jax(extra, tmp_path):
     got, want = trun._workload(tcfg, vocab), jrun._workload(jcfg, vocab)
     assert len(got) == len(want) >= 3
     for g, w in zip(got, want):
-        assert (g.rid, g.max_new_tokens, g.eos_id, g.arrival_s) == (
-            w.rid, w.max_new_tokens, w.eos_id, w.arrival_s)
+        assert (g.rid, g.max_new_tokens, g.eos_id, g.arrival_s,
+                g.session) == (w.rid, w.max_new_tokens, w.eos_id,
+                               w.arrival_s, w.session)
         np.testing.assert_array_equal(g.prompt, w.prompt)
         assert g.prompt.dtype == w.prompt.dtype
 
@@ -424,10 +429,46 @@ def test_serve_config_has_the_jax_fields_and_defaults():
 
 @pytest.mark.parametrize("line", [
     {"text": "hello"}, {"prompt": [1], "slo": "high"},
-    {"prompt": [1], "tenant": "t0"}, {"prompt": [1], "session": "s0"}])
+    {"prompt": [1], "tenant": "t0"},
+    {"prompt": [1], "session": "s0", "tenant": "t1"}])
 def test_request_file_fields_of_unported_layers_are_refused(line, tmp_path):
     path = tmp_path / "r.jsonl"
     path.write_text(json.dumps(line) + "\n")
     cfg = parse_args(SERVE_ARGV + ["--serve.requests", str(path)])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trun._workload(cfg, 64)
+
+
+# --- the int8 and paged caches through --mode serve --------------------
+
+PAGED_VALUES = {"kv_dtype": "int8", "paged": "true", "page_size": "8",
+                "num_pages": "64", "radix": "false", "session_turns": "2",
+                "hbm_budget_gb": "0.5"}
+
+
+@pytest.mark.parametrize("name", sorted(PAGED_VALUES))
+def test_paging_flags_parse_as_jax(name):
+    """Each flag of the int8 and paged caches parses with a value off its
+    default (with --serve.paged where JAX needs it) into the field JAX
+    parses it into."""
+    flag = f"--serve.{name.replace('_', '-')}"
+    argv = SERVE_ARGV + [flag, PAGED_VALUES[name]]
+    if name not in ("kv_dtype", "paged", "session_turns"):
+        argv += ["--serve.paged", "true"]
+    tcfg, jcfg = parse_args(argv), jax_parse_args(argv)
+    assert getattr(tcfg.serve, name) == getattr(jcfg.serve, name)
+    assert getattr(tcfg.serve, name) != getattr(ServeConfig(), name)
+    assert name not in _SERVE_NOT_PORTED
+
+
+def test_paged_serve_rounds_the_cache_up_to_a_page():
+    cfg, engine, requests = trun.serve_setup(parse_args(
+        SERVE_ARGV + ["--device", "cpu", "--serve.paged", "true",
+                      "--serve.page-size", "24", "--serve.num-pages", "40"]))
+    need = max(len(r.prompt) + r.max_new_tokens for r in requests)
+    assert cfg.seq_len % 24 == 0 and cfg.seq_len >= max(need, 32)
+    assert cfg.seq_len - 24 < max(need, 32)
+    assert engine.paged and engine.pool.num_pages == 40
+    with pytest.raises(ValueError, match="must divide"):
+        trun.serve_setup(parse_args(SERVE_ARGV + [
+            "--device", "cpu", "--serve.paged", "true", "--seq-len", "100"]))

@@ -26,7 +26,8 @@ from tensorflow_distributed_tpu.parallel import make_mesh
 from tensorflow_distributed_tpu.train import loop as jloop
 from tensorflow_distributed_tpu.train.tasks import make_task as jax_make_task
 from tensorflow_distributed_tpu_torch import cli, interop
-from tensorflow_distributed_tpu_torch.config import TrainConfig, parse_args
+from tensorflow_distributed_tpu_torch.config import (MeshConfig, TrainConfig,
+                                                parse_args)
 from tensorflow_distributed_tpu_torch.data import lm as tlm
 from tensorflow_distributed_tpu_torch.ops import losses as tlosses
 from tensorflow_distributed_tpu_torch.train import loop as tloop
@@ -303,7 +304,8 @@ def test_unported_jax_flags_are_rejected(argv, capsys):
 @pytest.mark.parametrize("fields", [dict(model="resnet20"),
                                     dict(checkpoint_backend="orbax"),
                                     dict(checkpoint_async=True),
-                                    dict(kv_cache_quant="int8"),
+                                    dict(mode="serve",
+                                         mesh=MeshConfig(seq=2)),
                                     dict(moe_experts=4),
                                     dict(shard_vocab=True),
                                     dict(compute_dtype="float32"),

@@ -208,7 +208,37 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
              ``page_bytes_estimate``, its summary (tokens/s, time to
              first token, prefix hit rate, pages) and peak memory, and
              the paged int8 engine's decode-step profile beside the
-             serve phase's.
+             serve phase's;
+30. serve_spec_identity — speculative serving (k = 4) in f32 at full
+             width, 8 requests of 32 new tokens through 4 slots, prompts
+             of a segment repeated thrice and a tail, in four legs: the
+             k-gram self-draft on the dense engine; a draft GPT
+             (``--serve.draft-config tiny``, seeded); the self-draft on
+             the paged engine with the radix cache behind a shared
+             prefix; a cache sized exactly to the longest prompt + 32,
+             each budget filling it, so that slots near their end take
+             the plain path inside the verify. Every stream equal to
+             ``generate()`` (the top-2 gap excuse, the excused count
+             printed), no whole-batch plain step, proposals accepted in
+             the self-draft legs, prefix hits in the paged one, fallback
+             slots in the exact one; accept rate and verify steps
+             printed;
+31. serve_spec — the serve phase's CLI run with ``--serve.spec-tokens
+             4`` (bf16): every token delivered, a ``[serve]
+             speculative:`` line, its summary (tokens/s, time to first
+             token, accept rate) and a traced verify step (launches,
+             host enqueue, device busy, tokens retired a step) beside the
+             serve phase's decode step;
+32. serve_slo — the SLO scheduler in f32 at full width over 2 slots:
+             12 requests (``--serve.slo-mix high:0.25,batch:0.25
+             --serve.tenants 2 --serve.tenant-quota 96``) arriving at 20
+             a second against ~2 s of work, built by ``serve_setup`` as
+             the CLI builds them and served under FIFO and under slo,
+             dense and then paged: a preemption in each slo run, none
+             under FIFO, every slo stream equal to the FIFO one (the
+             top-2 gap excuse), each paged preemption coming back as a
+             prefix hit; the high class's p95 time to first token under
+             each policy printed.
 
 It then prints the nvidia-smi line, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -351,6 +381,29 @@ SERVE_PAGED_ARGV = ["--mode", "serve", "--model", "gpt_lm", "--model-size",
                     "--serve.max-new-tokens", str(SERVE_NEW),
                     "--serve.paged", "true", "--serve.kv-dtype", "int8",
                     "--serve.session-turns", "4"]
+# Speculative decoding and the SLO scheduler at GPT-2-small's full width.
+SPEC_K = 4
+SPEC_REQUESTS, SPEC_NEW = 8, 32
+SPEC_SEGMENTS = (12, 40)  # a prompt: a segment of this many tokens, thrice,
+SPEC_TAILS = (4, 60)      # then a tail of this many
+SPEC_PREFIX = 128         # the paged leg's shared prefix
+# Tied embeddings (GPT-2 as published): a fresh-init tied model repeats
+# its input more often than an untied one, so more k-gram proposals are
+# accepted (leg a on one H100: 0.29 tied against 0.10 untied).
+SPEC_TIED = True
+SERVE_SPEC_ARGV = SERVE_ARGV + ["--serve.spec-tokens", str(SPEC_K)]
+SLO_ARGV = ["--mode", "serve", "--model", "gpt_lm", "--model-size", "small",
+            "--synthetic-vocab", "50257", "--seq-len", "1024",
+            "--compute-dtype", "float32", "--serve.num-slots", "2",
+            "--serve.num-requests", "12", "--serve.prompt-len-min", "64",
+            "--serve.prompt-len-max", "256", "--serve.max-new-tokens", "48",
+            "--serve.arrival-rate", "20", "--serve.policy", "slo",
+            "--serve.slo-mix", "high:0.25,batch:0.25", "--serve.tenants", "2",
+            "--serve.tenant-quota", "96"]
+# The paged leg's pool: every request's whole trajectory (1024 / 16 pages)
+# fits beside the slots', so nothing is evicted and each preemption's
+# continuation finds its retained pages.
+SLO_NUM_PAGES = 1 + (2 + 12) * 64
 # Checkpoints and the modes that read them, at GPT-2-small's full width.
 CKPT_MODEL_ARGV = ["--model", "gpt_lm", "--model-size", "small",
                    "--seq-len", "1024"]
@@ -1875,47 +1928,77 @@ def serve_profile(torch, argv) -> dict:
     PROFILE_STEPS steps after 3 warm-up steps, each ending in the
     engine's token fetch; the host's time to enqueue a step onto an idle
     device; and from torch.profiler the kernels launched and the device
-    busy time a step. Also the cache's bytes on the card (a paged
+    busy time a step. With ``--serve.spec-tokens`` k a step is a verify
+    of the k-gram self-draft's proposals (and the tokens it retired a
+    step are counted). Also the cache's bytes on the card (a paged
     engine's whole pool) and the peak memory from the warm-up on."""
+    import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
     from tensorflow_distributed_tpu_torch.config import parse_args
     from tensorflow_distributed_tpu_torch.serve.run import serve_setup
+    from tensorflow_distributed_tpu_torch.serve.speculate import SelfDraft
 
     _, engine, requests = serve_setup(parse_args(argv))
+    k = engine.spec_tokens
     # Serving's own peak: from here the train state serve_setup built
     # (params and optimizer moments) is gone; the warm-up's prefills of
     # every bucket count.
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     engine.warmup()
+    hist = {}
     for slot, r in enumerate(requests[:engine.num_slots]):
         if getattr(engine, "paged", False):
             # The paged engine reserves the request's whole trajectory.
-            engine.prefill(r.prompt, slot, max_new_tokens=r.max_new_tokens)
+            first = engine.prefill(r.prompt, slot,
+                                   max_new_tokens=r.max_new_tokens)
         else:
-            engine.prefill(r.prompt, slot)
+            first = engine.prefill(r.prompt, slot)
+        hist[slot] = [int(t) for t in r.prompt] + [first]
+    drafter = SelfDraft(engine.num_slots, k) if k else None
+    retired = [0]
+
+    def step():
+        """One decode step, or a verify of the self-draft's proposals;
+        returns the tokens of every slot."""
+        if not k:
+            retired[0] += len(hist)
+            return engine.step()
+        toks, acc = engine.verify_step(drafter.propose(hist))
+        for slot in hist:
+            hist[slot] += toks[slot, :acc[slot]].tolist()
+            retired[0] += int(acc[slot])
+        return toks
+
     vocab = engine.model.cfg.vocab_size
     for _ in range(3):
-        nxt = engine.step()
+        step()
     torch.cuda.synchronize()
+    retired[0] = 0
     t0 = time.time()
     for _ in range(PROFILE_STEPS):
-        nxt = engine.step()
+        nxt = step()
     step_ms = (time.time() - t0) / PROFILE_STEPS * 1e3
+    tokens_per_step = retired[0] / PROFILE_STEPS
     check(bool(((nxt >= 0) & (nxt < vocab)).all()),
           f"serve: tokens outside the vocabulary: {nxt}")
     torch.cuda.synchronize()
     t0 = time.time()
     # One step's work, enqueued without its fetch (it rewrites the
     # columns the next step writes again).
-    last = engine._dispatch_step(engine._h2d(engine.tok),
-                                 engine._h2d(engine.pos))
+    if k:
+        fed = np.concatenate([engine.tok[:, None], drafter.propose(hist)], 1)
+        last = engine._dispatch_verify(engine._h2d(fed),
+                                       engine._h2d(engine.pos))
+    else:
+        last = engine._dispatch_step(engine._h2d(engine.tok),
+                                     engine._h2d(engine.pos))
     enqueue_ms = (time.time() - t0) * 1e3
     check(bool(torch.isfinite(last).all()), "serve: non-finite logits")
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(PROFILE_STEPS):
-            engine.step()
+            step()
         torch.cuda.synchronize()
     busy, launches, top = 0.0, 0, []
     for e in prof.key_averages():
@@ -1932,7 +2015,9 @@ def serve_profile(torch, argv) -> dict:
             "launches_per_step": launches / PROFILE_STEPS,
             "device_busy_ms": busy or None,
             "device_idle_share": (1 - busy / step_ms) if busy else None,
-            "device_top": top[:8], "cache_bytes": engine.cache.nbytes(),
+            "device_top": top[:8], "spec_tokens": k,
+            "tokens_per_step": tokens_per_step,
+            "cache_bytes": engine.cache.nbytes(),
             "serving_peak_mem_bytes": torch.cuda.max_memory_allocated()}
 
 
@@ -2526,6 +2611,256 @@ def phase_serve_paged(torch, dense: dict) -> None:
           f"bytes, not page_bytes_estimate's {estimate}")
 
 
+def spec_prompts(np, rng, vocab, prefix=()):
+    """SPEC_REQUESTS prompts, each a random segment of SPEC_SEGMENTS
+    tokens repeated three times and a random tail of SPEC_TAILS tokens,
+    after ``prefix``: the repeats give the k-gram self-draft earlier
+    occurrences to propose from."""
+    out = []
+    for _ in range(SPEC_REQUESTS):
+        seg = rng.integers(0, vocab, int(rng.integers(*SPEC_SEGMENTS)))
+        tail = rng.integers(0, vocab, int(rng.integers(*SPEC_TAILS)))
+        out.append(np.concatenate([np.asarray(prefix, dtype=np.int64),
+                                   seg, seg, seg, tail]))
+    return out
+
+
+def spec_leg(torch, model, engine, speculator, prompts, budgets, leg):
+    """One leg of serve_spec_identity: the prompts (with their budgets)
+    through the FIFO scheduler with ``speculator`` over ``engine`` (built
+    with SPEC_K), every stream against ``generate()`` on ``model`` under
+    the top-2 gap rule. Returns the leg's record."""
+    from tensorflow_distributed_tpu_torch.models.generate import generate
+    from tensorflow_distributed_tpu_torch.serve.scheduler import (
+        Request, Scheduler)
+
+    engine.warmup(speculator)
+    sched = Scheduler(engine, decode_priority=4, speculator=speculator)
+    t0 = time.time()
+    done = {c.rid: c for c in sched.run(
+        [Request(rid=i, prompt=p, max_new_tokens=n)
+         for i, (p, n) in enumerate(zip(prompts, budgets))])}
+    wall = time.time() - t0
+    excused = []
+    for i, (p, n) in enumerate(zip(prompts, budgets)):
+        ref = generate(model, torch.from_numpy(p).to(DEVICE)[None],
+                       n)[0].tolist()
+        why = stream_check(torch, model, p.tolist(), done[i].tokens, ref,
+                           f"serve_spec_identity ({leg}): request {i} "
+                           f"(prompt {len(p)})")
+        if why:
+            excused.append({"rid": i, "prompt_len": len(p), **why})
+    summ = sched.summary
+    return {"leg": leg, "requests": len(prompts), "budgets": list(budgets),
+            "identical": len(prompts) - len(excused), "excused": excused,
+            "excused_count": len(excused),
+            **{k: summ[k] for k in ("accept_rate", "verify_steps",
+                                    "spec_proposed", "spec_accepted",
+                                    "spec_fallback_slots",
+                                    "spec_batch_fallbacks", "decode_steps",
+                                    "total_new_tokens")},
+            "max_len": engine.max_len, "wall_s": round(wall, 3)}
+
+
+def phase_serve_spec_identity(torch, np) -> None:
+    """Speculative serving in f32 at full width (fresh-init from seed 0,
+    tied embeddings: SPEC_TIED),
+    SPEC_REQUESTS requests of SPEC_NEW tokens over IDENTITY_SLOTS slots,
+    k = SPEC_K, every stream against ``generate()`` under the top-2 gap
+    rule, in four legs: (a) the k-gram self-draft on the dense engine;
+    (b) a draft GPT (``--serve.draft-config tiny``, seeded); (c) the
+    self-draft on the paged engine with the radix cache, the prompts
+    behind a shared prefix; (d) a cache sized exactly to the longest
+    prompt + budget, where slots near their end take the plain path
+    inside the verify (each request's budget fills the cache to its last
+    column). Gates: every token delivered, no whole-batch plain step,
+    accepted proposals in (a) and (c), prefix hits in (c), fallback slots
+    in (d)."""
+    from tensorflow_distributed_tpu_torch.config import parse_args
+    from tensorflow_distributed_tpu_torch.serve.buckets import (
+        default_buckets)
+    from tensorflow_distributed_tpu_torch.serve.engine import (
+        SlotDecodeEngine)
+    from tensorflow_distributed_tpu_torch.serve.paging.engine import (
+        PagedSlotEngine)
+    from tensorflow_distributed_tpu_torch.serve.speculate import (
+        SelfDraft, build_speculator)
+
+    model = gpt2_small(torch, torch.float32, tie_embeddings=SPEC_TIED)
+    vocab, max_len = model.cfg.vocab_size, model.cfg.max_len
+    rng = np.random.default_rng(3)
+    prompts = spec_prompts(np, rng, vocab)
+    shared = spec_prompts(np, rng, vocab,
+                          prefix=rng.integers(0, vocab, SPEC_PREFIX))
+    ladder = default_buckets(max(len(p) for p in shared), cap=max_len)
+    budgets = [SPEC_NEW] * SPEC_REQUESTS
+    legs = []
+
+    def dense(m):
+        return SlotDecodeEngine(m, IDENTITY_SLOTS, buckets=ladder,
+                                spec_tokens=SPEC_K)
+
+    legs.append(spec_leg(torch, model, dense(model),
+                         SelfDraft(IDENTITY_SLOTS, SPEC_K), prompts, budgets,
+                         "a: self-draft"))
+    cfg = parse_args(["--mode", "serve", "--model", "gpt_lm",
+                      "--serve.spec-tokens", str(SPEC_K),
+                      "--serve.draft-config", "tiny", "--device", DEVICE])
+    draft = build_speculator(cfg, model, cfg.seed + 1, IDENTITY_SLOTS, ladder)
+    legs.append(spec_leg(torch, model, dense(model), draft, prompts, budgets,
+                         "b: draft tiny"))
+    legs[-1]["draft_params"] = sum(p.numel() for p in draft.model.parameters())
+    paged = PagedSlotEngine(model, IDENTITY_SLOTS, page_size=PAGE_SIZE,
+                            buckets=ladder, spec_tokens=SPEC_K)
+    legs.append(spec_leg(torch, model, paged,
+                         SelfDraft(IDENTITY_SLOTS, SPEC_K), shared, budgets,
+                         "c: paged self-draft"))
+    legs[-1]["prefix_hits"] = paged.prefix_hits
+    need = max(len(p) for p in prompts) + SPEC_NEW
+    exact = gpt2_small(torch, torch.float32, max_len=need,
+                       tie_embeddings=SPEC_TIED)
+    legs.append(spec_leg(torch, exact, SlotDecodeEngine(
+        exact, IDENTITY_SLOTS, buckets=default_buckets(need, cap=need),
+        spec_tokens=SPEC_K), SelfDraft(IDENTITY_SLOTS, SPEC_K), prompts,
+        [need - len(p) for p in prompts], "d: exact cache"))
+    emit({"phase": "serve_spec_identity", "k": SPEC_K,
+          "slots": IDENTITY_SLOTS, "new_tokens": SPEC_NEW,
+          "prompt_lens": [len(p) for p in prompts], "legs": legs})
+    for leg in legs:
+        check(leg["total_new_tokens"] == sum(leg["budgets"]),
+              f"serve_spec_identity ({leg['leg']}): "
+              f"{leg['total_new_tokens']} tokens delivered")
+        check(leg["spec_batch_fallbacks"] == 0,
+              f"serve_spec_identity ({leg['leg']}): "
+              f"{leg['spec_batch_fallbacks']} whole-batch plain steps")
+    for i in (0, 2):
+        check(legs[i]["spec_accepted"] > 0,
+              f"serve_spec_identity ({legs[i]['leg']}): no proposal accepted")
+    # Every request admitted after the first release attaches the prefix.
+    check(legs[2]["prefix_hits"] >= SPEC_REQUESTS - IDENTITY_SLOTS,
+          f"serve_spec_identity (c): {legs[2]['prefix_hits']} prefix hits")
+    check(legs[3]["spec_fallback_slots"] > 0,
+          "serve_spec_identity (d): no slot took the plain path in an "
+          "exactly sized cache")
+
+
+def phase_serve_spec(torch, dense: dict) -> None:
+    """``--mode serve --serve.spec-tokens SPEC_K`` through the CLI at full
+    width in bf16 (the serve phase's workload): every token delivered,
+    the speculative line printed; its summary and a traced verify step
+    beside the serve phase's decode step."""
+    torch.cuda.reset_peak_memory_stats()
+    rc, line, summary, out = serve_cli(SERVE_SPEC_ARGV)
+    peak = torch.cuda.max_memory_allocated()
+    spec_line = next((l for l in out.splitlines()
+                      if l.startswith("[serve] speculative: ")), None)
+    keys = ("accept_rate", "verify_steps", "spec_proposed", "spec_accepted",
+            "spec_fallback_slots", "spec_batch_fallbacks")
+    emit({"phase": "serve_spec", "argv": SERVE_SPEC_ARGV, "exit": rc,
+          "summary_line": line, "spec_line": spec_line,
+          **{k: summary.get(k) for k in SERVE_KEYS + keys},
+          "peak_mem_bytes": peak,
+          "profile": serve_profile(torch, SERVE_SPEC_ARGV),
+          "dense_bf16_serve": {k: dense.get(k) for k in (
+              "tokens_per_sec", "ttft_ms_p50", "ttft_ms_p95", "tok_ms_mean",
+              "profile")}})
+    check(summary["total_new_tokens"] == SERVE_REQUESTS * SERVE_NEW,
+          f"serve_spec: {summary['total_new_tokens']} tokens delivered, not "
+          f"{SERVE_REQUESTS} x {SERVE_NEW}")
+    check(spec_line is not None and summary.get("verify_steps", 0) > 0,
+          "serve_spec: no verify step (no [serve] speculative: line)")
+
+
+def slo_runs(torch, paged: bool):
+    """SLO_ARGV's workload and engine (``serve_setup``, the CLI's), served
+    under FIFO and then under slo on a fresh engine (a paged engine's
+    prefix cache would otherwise carry the FIFO run's pages). Returns
+    {policy: (completions by rid, summary)}, the requests and the
+    dense model."""
+    from tensorflow_distributed_tpu_torch.config import parse_args
+    from tensorflow_distributed_tpu_torch.serve.run import serve_setup
+    from tensorflow_distributed_tpu_torch.serve.scheduler import Scheduler
+
+    argv = SLO_ARGV + ["--device", DEVICE] + (
+        ["--serve.paged", "true", "--serve.num-pages", str(SLO_NUM_PAGES)]
+        if paged else [])
+    out = {}
+    for policy in ("fifo", "slo"):
+        cfg, engine, requests = serve_setup(parse_args(argv))
+        engine.warmup()
+        slo = policy == "slo"
+        sched = Scheduler(engine, decode_priority=cfg.serve.decode_priority,
+                          policy=policy, preempt=cfg.serve.preempt,
+                          tenant_quota=cfg.serve.tenant_quota if slo else 0)
+        done = {c.rid: c for c in sched.run(requests)}
+        out[policy] = (done, sched.summary)
+    return out, requests, engine.model
+
+
+def phase_serve_slo(torch, np) -> None:
+    """The SLO scheduler in f32 at full width over 2 slots: SLO_ARGV's 12
+    requests (classes high:0.25, batch:0.25; 2 tenants, quota 96 tokens;
+    20 req/s against ~2 s of work), under FIFO and under slo, dense and
+    then paged. Gates: a preemption in each slo run; every slo stream
+    equal to the FIFO stream of the same request (the top-2 gap rule);
+    on the paged engine each preemption's continuation a prefix hit.
+    Prints the high class's p95 time to first token under each
+    policy."""
+    from tensorflow_distributed_tpu_torch.serve.scheduler import percentile
+
+    model = None
+    for leg in ("dense", "paged"):
+        runs, requests, engine_model = slo_runs(torch, leg == "paged")
+        if model is None:
+            model = engine_model       # the dense model, for the gap
+        fifo, slo = runs["fifo"][0], runs["slo"][0]
+        excused = []
+        for r in requests:
+            why = stream_check(torch, model, r.prompt.tolist(),
+                               slo[r.rid].tokens, fifo[r.rid].tokens,
+                               f"serve_slo ({leg}): request {r.rid}")
+            if why:
+                excused.append({"rid": r.rid, **why})
+        record = {"phase": "serve_slo", "leg": leg,
+                  "classes": [r.slo for r in requests],
+                  "tenants": [r.tenant for r in requests],
+                  "identical": len(requests) - len(excused),
+                  "excused": excused}
+        for policy, (done, summ) in runs.items():
+            by_cls = {}
+            for c in done.values():
+                by_cls.setdefault(requests[c.rid].slo, []).append(
+                    1e3 * c.ttft_s)
+            record[policy] = {
+                "ttft_ms_p95_by_class": {
+                    cls: round(percentile(sorted(v), 95), 3)
+                    for cls, v in sorted(by_cls.items())},
+                "preemptions": summ["preemptions"],
+                "preempts_by_rid": {c.rid: c.preempts for c in done.values()
+                                    if c.preempts},
+                **{k: summ.get(k) for k in (
+                    "tokens_per_sec", "wall_s", "decode_steps",
+                    "total_new_tokens", "prefills", "prefix_hits",
+                    "page_evictions", "prefill_tokens_computed",
+                    "prefill_tokens_dense")}}
+        emit(record)
+        want = len(requests) * requests[0].max_new_tokens
+        for policy in ("fifo", "slo"):
+            check(record[policy]["total_new_tokens"] == want,
+                  f"serve_slo ({leg}, {policy}): "
+                  f"{record[policy]['total_new_tokens']} tokens delivered")
+        check(record["slo"]["preemptions"] >= 1,
+              f"serve_slo ({leg}): no preemption")
+        check(record["fifo"]["preemptions"] == 0,
+              f"serve_slo ({leg}): FIFO preempted")
+        if leg == "paged":
+            check(record["slo"]["prefix_hits"] == record["slo"]["preemptions"]
+                  and record["slo"]["page_evictions"] == 0,
+                  f"serve_slo (paged): {record['slo']['prefix_hits']} prefix "
+                  f"hits for {record['slo']['preemptions']} preemptions "
+                  f"({record['slo']['page_evictions']} evictions)")
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--rank"]:
@@ -2582,6 +2917,9 @@ def main(argv=None) -> int:
     phase_decode_int8(fa, torch, np)
     phase_serve_paged_identity(torch, np)
     phase_serve_paged(torch, serve)
+    phase_serve_spec_identity(torch, np)
+    phase_serve_spec(torch, serve)
+    phase_serve_slo(torch, np)
 
     err = {"flash_fwd": flash["errors"]["o_abs_err"],
            "flash_dq": flash["errors"]["dq_abs_err"],

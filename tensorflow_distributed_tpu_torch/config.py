@@ -25,6 +25,7 @@ import typing
 from typing import Optional, Sequence
 
 from tensorflow_distributed_tpu_torch.serve.buckets import parse_buckets
+from tensorflow_distributed_tpu_torch.serve.scheduler import parse_slo_mix
 
 SCHEDULES = ("constant", "cosine", "warmup_cosine")
 OPTIMIZERS = ("adam", "sgd", "adafactor")
@@ -63,9 +64,9 @@ class ServeConfig:
     """``--mode serve``'s knobs: the JAX ``ServeConfig``, every field with
     its JAX spelling and default. The port runs the dense slot engine, or
     with ``paged`` the paged one (radix prefix cache, sessions), either
-    over a bf16 or an int8 cache, under the FIFO scheduler; the other
-    fields belong to layers not ported yet (``_SERVE_NOT_PORTED``) and
-    must keep their defaults."""
+    over a bf16 or an int8 cache, speculative with ``spec_tokens``, under
+    the FIFO or the SLO scheduler; the other fields belong to layers not
+    ported yet (``_SERVE_NOT_PORTED``) and must keep their defaults."""
 
     # Decode batch width: concurrent requests in flight.
     num_slots: int = 8
@@ -97,9 +98,11 @@ class ServeConfig:
     trace: str = ""
     # Print each token as it retires.
     stream: bool = False
-    # Admission order: "fifo" (arrival order; the port's one policy)
-    # or "slo" (not ported yet).
-    policy: str = "fifo"
+    # Admission order: "fifo" (arrival order) or "slo" (class priority
+    # high > standard > batch, per-tenant token quotas, and
+    # preempt-and-requeue as a continuation: token-identical by greedy
+    # determinism).
+    policy: str = "fifo"  # fifo | slo
     # Decode-cache storage: "bf16" (the compute dtype) or "int8" (per-
     # (token, head) absmax scales; the serve-side spelling of
     # --kv-cache-quant int8, 1.88x fewer bytes a cached token-head at
@@ -123,16 +126,32 @@ class ServeConfig:
     # Caps the auto-sized pool at (budget - the params' bytes) /
     # page_bytes (GiB; 0 = no cap). Needs --serve.paged and num_pages 0.
     hbm_budget_gb: float = 0.0
+    # Speculative decoding: > 0 proposes this many tokens a slot a step
+    # and verifies them in one forward (accepted + 1 tokens a dispatch,
+    # token-identical to plain greedy).
+    spec_tokens: int = 0
+    # The proposer: "" = the k-gram self-draft over each request's own
+    # history; else a draft GPT ("tiny", or "size=tiny,n_layers=1":
+    # TransformerConfig overrides) drawn fresh from --seed + 1.
+    draft_config: str = ""
+    # The self-draft's suffix length.
+    spec_kgram: int = 3
+    # Per-tenant decoded-token quota for policy=slo (0 = off): a tenant
+    # at or over it is deferred while an under-quota request waits, never
+    # dropped.
+    tenant_quota: int = 0
+    # Let policy=slo preempt a live lower-class (or over-quota) request
+    # for a higher-class one that waited out the decode-priority clock.
+    preempt: bool = True
+    # Synthetic workload's class mix, e.g. "high:0.25,batch:0.25" (the
+    # rest "standard"); a request file carries per-request "slo" fields.
+    slo_mix: str = ""
+    # Synthetic workload's tenant count (round-robin); a request file
+    # carries per-request "tenant" fields.
+    tenants: int = 1
     # --- layers not ported yet (ROADMAP.md queue A) -----------------
     journal: str = ""
     slot_retries: int = 2
-    spec_tokens: int = 0
-    draft_config: str = ""
-    spec_kgram: int = 3
-    tenant_quota: int = 0
-    preempt: bool = True
-    slo_mix: str = ""
-    tenants: int = 1
     mesh_model: int = 1
     inbox: str = ""
 
@@ -168,19 +187,58 @@ class ServeConfig:
                 "serve.trace shapes the SYNTHETIC workload's arrivals; a "
                 "request file carries its own arrival_s; drop one of the "
                 "flags")
+        if self.spec_tokens < 0:
+            raise ValueError(
+                f"serve.spec_tokens must be >= 0, got {self.spec_tokens}")
+        if self.draft_config and not self.spec_tokens:
+            raise ValueError(
+                "serve.draft_config proposes serve.spec_tokens tokens per "
+                "step; add --serve.spec-tokens > 0")
+        if self.spec_kgram < 1:
+            raise ValueError(
+                f"serve.spec_kgram must be >= 1, got {self.spec_kgram}")
         self._validate_paging()
-        if self.policy not in ("fifo", "slo"):
-            raise ValueError(f"unknown serve.policy {self.policy!r}; have "
-                             f"('fifo', 'slo')")
+        self._validate_slo()
         unported = [name for name, default in _SERVE_NOT_PORTED.items()
                     if getattr(self, name) != default]
-        if self.policy != "fifo":
-            unported.insert(0, "policy")
         if unported:
             raise NotImplementedError(
                 f"--serve.{unported[0].replace('_', '-')}="
                 f"{getattr(self, unported[0])!r} is not ported to PyTorch "
                 f"yet (see ROADMAP.md queue A)")
+
+    def _validate_slo(self) -> None:
+        """The JAX ServeConfig's checks of the SLO scheduler's knobs, with
+        its messages."""
+        if self.policy not in ("fifo", "slo"):
+            raise ValueError(f"unknown serve.policy {self.policy!r}; have "
+                             f"('fifo', 'slo')")
+        if self.tenant_quota < 0:
+            raise ValueError(
+                f"serve.tenant_quota must be >= 0, got {self.tenant_quota}")
+        if self.tenant_quota and self.policy != "slo":
+            raise ValueError(
+                "serve.tenant_quota is enforced by the SLO scheduler; add "
+                "--serve.policy slo")
+        if self.tenant_quota and not self.requests and self.tenants <= 1:
+            raise ValueError(
+                "serve.tenant_quota needs tenants to meter: the synthetic "
+                "workload assigns tenants only when --serve.tenants > 1 "
+                "(request files carry their own per-request tenant "
+                "fields) — without them the quota silently never fires")
+        if self.slo_mix:
+            if self.policy != "slo":
+                raise ValueError(
+                    "serve.slo_mix assigns classes the SLO scheduler acts "
+                    "on; add --serve.policy slo")
+            if self.requests:
+                raise ValueError(
+                    "serve.slo_mix shapes the SYNTHETIC workload; a request "
+                    "file carries its own per-request slo field — drop one "
+                    "of the flags")
+            parse_slo_mix(self.slo_mix)  # syntax at config time
+        if self.tenants < 1:
+            raise ValueError(f"serve.tenants must be >= 1, got {self.tenants}")
 
     def _validate_paging(self) -> None:
         """The JAX ServeConfig's checks of the int8 and paged caches and
@@ -234,14 +292,11 @@ class ServeConfig:
                 "— drop one of the flags")
 
 
-# The serve knobs of layers not ported yet (the slo policy and quotas,
-# preemption, speculation, slot retry, the journal, tensor parallelism,
-# the fleet inbox), at their defaults.
+# The serve knobs of layers not ported yet (slot retry, the journal,
+# tensor parallelism, the fleet inbox), at their defaults.
 _SERVE_NOT_PORTED = {
     f.name: f.default for f in dataclasses.fields(ServeConfig)
-    if f.name in ("journal", "slot_retries", "spec_tokens", "draft_config",
-                  "spec_kgram", "tenant_quota", "preempt", "slo_mix",
-                  "tenants", "mesh_model", "inbox")}
+    if f.name in ("journal", "slot_retries", "mesh_model", "inbox")}
 
 
 @dataclasses.dataclass

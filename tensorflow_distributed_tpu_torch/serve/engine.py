@@ -17,18 +17,26 @@ bucket):
 - **free**: host bookkeeping only. A freed slot keeps riding the batched
   step, writing into its own row at position 0 with one column visible:
   garbage that the next prefill's row replaces and that no other row can
-  attend.
+  attend;
+- **verify** (``spec_tokens`` k > 0, serve/speculate.py): each slot's
+  pending token and its k proposals in one forward at positions
+  ``pos .. pos + k``, the argmax at every fed position fetched once, the
+  host's ``accept_length`` deciding how many of them a slot retires. A
+  slot without ``pos + k + 1`` headroom is re-fed its own last k + 1
+  tokens at ``pos - k .. pos`` inside the same forward (the plain path;
+  ``verify_fallback_slots`` names such slots).
 
 Greedy only: the contract is token identity with one-shot greedy
-``generate()`` per request. Speculation (``spec_tokens``), fault plans,
-the decode watchdog, tensor parallelism and the verify / poison /
-weight-swap surface are not ported yet and are refused (ROADMAP.md
+``generate()`` per request, speculation included. Fault plans, the
+decode watchdog, tensor parallelism and the poison / weight-swap /
+live-depth surface are not ported yet and are refused (ROADMAP.md
 queue A).
 
 The paged engine (``serve/paging/engine.py``) subclasses this one (its
-model's ``zero_cache`` is the page pool) and overrides two hooks:
-``_prefill_forward`` (a tail written through the slot's page table) and
-``_dispatch_step`` (the step with the device-resident tables).
+model's ``zero_cache`` is the page pool) and overrides three hooks:
+``_prefill_forward`` (a tail written through the slot's page table),
+``_page_table`` (the device-resident tables the step and the verify
+read) and ``_warm_prefills``.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ from tensorflow_distributed_tpu_torch.models.generate import (
 from tensorflow_distributed_tpu_torch.models.transformer import KVCache
 from tensorflow_distributed_tpu_torch.serve.buckets import (
     default_buckets, pick_bucket)
+from tensorflow_distributed_tpu_torch.serve.speculate import accept_length
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -75,12 +84,11 @@ class SlotDecodeEngine:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         if spec_tokens < 0:
             raise ValueError(f"spec_tokens must be >= 0, got {spec_tokens}")
-        if spec_tokens:
-            raise _not_ported("speculative decoding (spec_tokens > 0)")
         if fault_plan is not None:
             raise _not_ported("the serve fault plan")
         if watchdog is not None:
             raise _not_ported("the decode watchdog")
+        self.spec_tokens = spec_tokens
         self.model = model
         self.device = next(model.parameters()).device
         self.num_slots = num_slots
@@ -99,6 +107,8 @@ class SlotDecodeEngine:
         self._buckets_used: set = set()
         self.prefills = 0
         self.decode_steps = 0
+        self.verify_steps = 0
+        self._last_verify_fallback: list = []
 
     def cache_bytes_per_slot(self) -> int:
         """Device memory the decode cache spends per slot (the scale
@@ -111,23 +121,33 @@ class SlotDecodeEngine:
         engine compiles one program for each."""
         return len(self._buckets_used)
 
-    def warmup(self) -> None:
-        """Run each bucket's prefill, a row insert and a decode step
-        against throwaway inputs, then zero the cache again: first-call
-        costs (library handles, the allocator's growth) move to start-up
-        instead of the first requests' time to first token. Host
-        bookkeeping is untouched, so a warmed engine equals a fresh
-        one."""
+    @torch.no_grad()
+    def warmup(self, speculator=None) -> None:
+        """Run each bucket's prefill, a decode step and, with
+        ``spec_tokens``, a verify against throwaway inputs, then zero the
+        cache again: first-call costs (library handles, the allocator's
+        growth) move to start-up instead of the first requests' time to
+        first token. Host bookkeeping is untouched, so a warmed engine
+        equals a fresh one. A ``speculator``'s own ``warmup`` (a draft
+        model's mirror) runs after."""
+        self._warm_prefills()
+        self._dispatch_step(self._h2d(self.tok), self._h2d(self.pos))
+        if self.spec_tokens:
+            zeros = np.zeros((self.num_slots, self.spec_tokens + 1), np.int64)
+            self._dispatch_verify(self._h2d(zeros), self._h2d(zeros[:, 0]))
+        self.cache.zero_()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        if speculator is not None:
+            speculator.warmup()
+
+    def _warm_prefills(self) -> None:
+        """Each bucket's prefill and a row insert into slot 0."""
         for b in self.buckets:
             _, row = prefill_cache(
                 self.model, torch.zeros((1, b), dtype=torch.long,
                                         device=self.device))
             self.cache.put_row(row, 0)
-        decode_token(self.model, self.cache, self._h2d(self.tok),
-                     self._h2d(self.pos))
-        self.cache.zero_()
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
 
     def free_slots(self):
         return [s for s in range(self.num_slots) if not self.active[s]]
@@ -136,7 +156,11 @@ class SlotDecodeEngine:
         return float(self.active.sum()) / self.num_slots
 
     def fits(self, prompt_len: int, max_new_tokens: int) -> bool:
-        """Would this request's whole trajectory fit the cache?"""
+        """Would this request's whole trajectory fit the cache? Without
+        speculative slack, as in JAX: a tight cache still serves every
+        request, the slots short of verify headroom taking the plain
+        path (``verify_fallback_slots``); serve/run.py sizes the default
+        cache with ``spec_tokens`` of slack so that this stays rare."""
         return (prompt_len <= max(self.buckets)
                 and prompt_len + max_new_tokens <= self.max_len)
 
@@ -189,11 +213,17 @@ class SlotDecodeEngine:
         self._activate(slot, first, len(prompt))
         return first
 
+    def _page_table(self) -> Optional[torch.Tensor]:
+        """The page tables the step and the verify read (the paged
+        engine's); None for the dense cache."""
+        return None
+
     def _dispatch_step(self, tok: torch.Tensor, pos: torch.Tensor
                        ) -> torch.Tensor:
         """One decode step over every slot; the last-position logits
         [num_slots, V]."""
-        return decode_token(self.model, self.cache, tok, pos)[0]
+        return decode_token(self.model, self.cache, tok, pos,
+                            self._page_table())[0]
 
     @torch.no_grad()
     def step(self) -> np.ndarray:
@@ -221,13 +251,129 @@ class SlotDecodeEngine:
         self.tok[slot] = 0
         self.pos[slot] = 0
 
-    # -- the JAX engine's speculation and serve-under-fire surface ------
+    # -- speculation ---------------------------------------------------
 
-    def verify_step(self, *args, **kwargs):
-        raise _not_ported("speculative verify (verify_step)")
+    def can_verify(self) -> bool:
+        """Every active slot has verify write headroom (``pos + k + 1 <=
+        max_len``)."""
+        if not self.spec_tokens:
+            return False
+        act = self.active
+        return bool((self.pos[act] + self.spec_tokens + 1
+                     <= self.max_len).all())
+
+    def verify_fallback_slots(self) -> Optional[list]:
+        """The active slots without verify write headroom this
+        iteration: ``None`` = no verify at all (``spec_tokens`` off, or
+        a tight slot too shallow to re-feed k tokens: the scheduler takes
+        the whole batch's plain step); ``[]`` = a full verify; a list =
+        a mixed dispatch, those slots taking the plain path inside the
+        verify (``verify_step``'s ``tails``) while the others
+        speculate."""
+        if not self.spec_tokens:
+            return None
+        k = self.spec_tokens
+        out = []
+        for s in range(self.num_slots):
+            if not self.active[s] or self.pos[s] + k + 1 <= self.max_len:
+                continue
+            if self.pos[s] < k:
+                # Only where max_len < ~2k (a tiny pinned cache): the
+                # whole batch steps plainly.
+                return None
+            out.append(s)
+        return out
+
+    def _dispatch_verify(self, toks: torch.Tensor, start: torch.Tensor
+                         ) -> torch.Tensor:
+        """One verify forward: ``toks`` [num_slots, k + 1] at positions
+        ``start .. start + k`` a row; the logits [num_slots, k + 1, V]."""
+        positions = start[:, None] + torch.arange(toks.shape[1],
+                                                  device=self.device)
+        return self.model(toks, decode=True, positions=positions,
+                          cache=self.cache, page_table=self._page_table())
+
+    @torch.no_grad()
+    def verify_step(self, props, tails=None) -> Tuple[np.ndarray, np.ndarray]:
+        """One speculative decode step: verify ``props`` [num_slots, k]
+        for every slot in one forward. Returns ``(toks, acc)``: ``toks``
+        [num_slots, k + 1] the target's greedy chain at each fed position
+        and ``acc[s]`` how many of its leading entries slot ``s`` retires
+        (accepted proposals + the bonus); inactive rows are garbage the
+        scheduler never reads. Rollback on reject is position
+        bookkeeping: a rejected proposal's row lies past the slot's new
+        position, and the next write covers it.
+
+        ``tails``: for each slot that ``verify_fallback_slots`` named,
+        its last ``k + 1`` history tokens (ending in the pending token).
+        Such a slot is fed them at ``pos - k .. pos``: the K/V rewritten
+        are those already cached (a position's K/V depend only on its
+        token and the cache below it), and the argmax at the last fed
+        position is the plain step's next token. It retires one token
+        (``acc == 1``, in ``toks[s, 0]``); ``last_verify_fallback``
+        lists these slots."""
+        if not self.spec_tokens:
+            raise RuntimeError(
+                "verify_step needs the engine built with spec_tokens > 0")
+        k = self.spec_tokens
+        props = np.asarray(props, np.int64).reshape(self.num_slots, k)
+        tails = dict(tails or {})
+        fallback = []
+        start = self.pos.copy()
+        toks_in = np.concatenate([self.tok[:, None], props], axis=1)
+        for s in range(self.num_slots):
+            if not self.active[s] or self.pos[s] + k + 1 <= self.max_len:
+                continue
+            tail = tails.get(s)
+            if tail is None or len(tail) < k + 1 or self.pos[s] < k:
+                raise RuntimeError(
+                    f"slot {s} lacks verify headroom and no usable tail "
+                    f"was provided — verify_fallback_slots() is the guard "
+                    f"(the scheduler supplies tails or falls back to "
+                    f"step())")
+            window = np.asarray(list(tail)[-(k + 1):], np.int64)
+            if window[-1] != self.tok[s]:
+                raise RuntimeError(
+                    f"slot {s} fallback tail must end in the pending "
+                    f"token {int(self.tok[s])}, got {int(window[-1])}")
+            toks_in[s] = window
+            start[s] = self.pos[s] - k
+            fallback.append(s)
+        logits = self._dispatch_verify(self._h2d(toks_in), self._h2d(start))
+        # The engine's output: one [num_slots, k + 1] fetch a dispatch.
+        nxt = logits.argmax(dim=-1).cpu().numpy()
+        acc = np.zeros((self.num_slots,), np.int32)
+        for s in range(self.num_slots):
+            if not self.active[s]:
+                continue
+            if s in fallback:
+                # The plain path: the next token sits at the last fed
+                # index; surface it where the scheduler reads retired
+                # tokens (toks[s, :acc]).
+                nxt[s, 0] = nxt[s, k]
+                acc[s] = 1
+                self.tok[s] = nxt[s, 0]
+                self.pos[s] += 1
+                continue
+            a = accept_length(props[s], nxt[s])
+            acc[s] = a + 1                       # + the bonus token
+            self.tok[s] = nxt[s, a]
+            self.pos[s] += a + 1
+        self.decode_steps += 1
+        self.verify_steps += 1
+        self._last_verify_fallback = fallback
+        return nxt, acc
+
+    @property
+    def last_verify_fallback(self) -> list:
+        """The slots that took the plain path in the last verify (the
+        scheduler leaves them out of the speculation counts)."""
+        return list(self._last_verify_fallback)
+
+    # -- the JAX engine's live-depth and serve-under-fire surface -------
 
     def set_spec_k(self, k: int) -> None:
-        raise _not_ported("speculative decoding (set_spec_k)")
+        raise _not_ported("the live speculation-depth change (set_spec_k)")
 
     def poison_slot(self, slot: int) -> None:
         raise _not_ported("the slot_nan fault drill (poison_slot)")

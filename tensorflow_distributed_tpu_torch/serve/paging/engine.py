@@ -26,10 +26,13 @@ Mechanics, as in JAX:
 - **freed slots ride harmlessly**: a freed slot's table resets to the
   write-off page 0 (``pool.GARBAGE_PAGE``).
 
-JAX's ``prefix_hit`` and ``page_evict`` observe events are counters in
-``paging_stats()`` here. Speculation (``verify_step``), the fire drills
-(``poison_slot`` and the quarantine scrub) and ``swap_params`` are not
-ported yet (ROADMAP.md queue A).
+The speculative verify writes and reads through the tables like the
+decode step; ``verify_fallback_slots`` adds one guard: a fallback
+re-feed never dips below a slot's ``private_start`` into shared prefix
+pages. JAX's ``prefix_hit`` and ``page_evict`` observe events are
+counters in ``paging_stats()`` here. The fire drills (``poison_slot``
+and the quarantine scrub) and ``swap_params`` are not ported yet
+(ROADMAP.md queue A).
 """
 
 from __future__ import annotations
@@ -40,7 +43,6 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from tensorflow_distributed_tpu_torch.models.generate import decode_token
 from tensorflow_distributed_tpu_torch.serve.buckets import pick_bucket
 from tensorflow_distributed_tpu_torch.serve.engine import SlotDecodeEngine
 from tensorflow_distributed_tpu_torch.serve.paging.pool import (
@@ -93,9 +95,9 @@ class PagedSlotEngine(SlotDecodeEngine):
                                             if radix else None)
         self.tables = np.zeros((num_slots, max_pages), np.int32)
         self.page_count = np.zeros((num_slots,), np.int32)
-        # The first position each slot may write (the matched prefix).
-        # Nothing in the port reads it yet: speculation's fallback will
-        # (ROADMAP.md A3).
+        # The first position each slot may write (the matched prefix):
+        # a verify-fallback re-feed must never dip below it into shared
+        # pages (verify_fallback_slots).
         self.private_start = np.zeros((num_slots,), np.int32)
         # The tables' device copy; None after a prefill or a release
         # changed them.
@@ -116,18 +118,13 @@ class PagedSlotEngine(SlotDecodeEngine):
 
     # -- the engine's hooks ------------------------------------------------
 
-    def _tables_device(self) -> torch.Tensor:
+    def _page_table(self) -> torch.Tensor:
         """The page tables on the device, uploaded again only after a
-        prefill or a release changed them: a decode step pays no
-        host-to-device copy of the tables."""
+        prefill or a release changed them: a decode step or a verify
+        pays no host-to-device copy of the tables."""
         if self._tables_dev is None:
             self._tables_dev = self._h2d(self.tables).long()
         return self._tables_dev
-
-    def _dispatch_step(self, tok: torch.Tensor, pos: torch.Tensor
-                       ) -> torch.Tensor:
-        return decode_token(self.model, self.cache, tok, pos,
-                            self._tables_device())[0]
 
     def _prefill_forward(self, padded: torch.Tensor, start: int, slot: int
                          ) -> torch.Tensor:
@@ -289,26 +286,32 @@ class PagedSlotEngine(SlotDecodeEngine):
         """A plain free (no retention)."""
         self.release(slot)
 
-    # -- warmup ------------------------------------------------------------
+    # -- speculation -------------------------------------------------------
 
-    def warmup(self) -> None:
-        """Run each bucket's paged prefill and a decode step against the
-        write-off page, then zero the pool: first-call costs move to
-        start-up, and the pool and the tables are left as a fresh
-        engine's (warmup allocates nothing)."""
+    def verify_fallback_slots(self):
+        """The dense engine's, plus the paged guard: a fallback re-feed
+        writes positions ``pos - k .. pos``, and where that dips below a
+        slot's first private position (it would rewrite a shared prefix
+        page) the whole batch takes the plain step instead."""
+        out = super().verify_fallback_slots()
+        if not out:
+            return out
+        k = self.spec_tokens
+        for s in out:
+            if self.pos[s] - k < self.private_start[s]:
+                return None
+        return out
+
+    def _warm_prefills(self) -> None:
+        """Each bucket's paged prefill against the write-off page (warmup
+        allocates nothing, so the pool and the tables stay a fresh
+        engine's)."""
         table = torch.zeros((1, self.max_pages), dtype=torch.long,
                             device=self.device)
-        with torch.no_grad():
-            for b in self.buckets:
-                self.model(torch.zeros((1, b), dtype=torch.long,
-                                       device=self.device),
-                           decode=True, positions=torch.zeros(
-                               (1, b), dtype=torch.long, device=self.device),
-                           cache=self.cache, page_table=table)
-            self._dispatch_step(self._h2d(self.tok), self._h2d(self.pos))
-        self.cache.zero_()
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for b in self.buckets:
+            zeros = torch.zeros((1, b), dtype=torch.long, device=self.device)
+            self.model(zeros, decode=True, positions=zeros, cache=self.cache,
+                       page_table=table)
 
 
 # -- sizing the pool (serve/run.py) -------------------------------------------

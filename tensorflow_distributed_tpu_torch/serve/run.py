@@ -3,14 +3,22 @@ a request workload through the continuous-batching engine, report.
 
 Workloads: ``--serve.requests file.jsonl`` (one JSON object per line:
 ``{"prompt": [ids...], "max_new_tokens": 32, "eos_id": 5,
-"arrival_s": 0.25, "session": "conv7"}``) or, with no file, a synthetic
-open-loop workload: ``--serve.num-requests`` random prompts with lengths
-drawn in [``--serve.prompt-len-min``, ``--serve.prompt-len-max``],
-arriving at ``--serve.arrival-rate`` req/s (0 = all queued at t=0) in
-the shape of ``--serve.trace``: ``poisson``, ``bursty``, ``diurnal``, or
-a ``.jsonl`` file of per-request ``{"arrival_s": t}`` offsets. With
+"arrival_s": 0.25, "session": "conv7", "slo": "high", "tenant": "t0"}``)
+or, with no file, a synthetic open-loop workload:
+``--serve.num-requests`` random prompts with lengths drawn in
+[``--serve.prompt-len-min``, ``--serve.prompt-len-max``], arriving at
+``--serve.arrival-rate`` req/s (0 = all queued at t=0) in the shape of
+``--serve.trace``: ``poisson``, ``bursty``, ``diurnal``, or a ``.jsonl``
+file of per-request ``{"arrival_s": t}`` offsets. With
 ``--serve.session-turns k`` consecutive synthetic requests form
 conversations of k turns, each turn's prompt extending the previous one.
+``--serve.slo-mix`` draws the synthetic requests' SLO classes and
+``--serve.tenants`` assigns them to tenants round-robin; ``--serve.policy
+slo`` (tenant quotas, preemption) reports a ``[serve] slo:`` line.
+
+``--serve.spec-tokens k`` serves speculatively: the k-gram self-draft
+(``--serve.spec-kgram``), or a draft GPT with ``--serve.draft-config``
+drawn from ``--seed`` + 1, with a ``[serve] speculative:`` line.
 
 ``--serve.kv-dtype int8`` (or ``--kv-cache-quant int8``) serves over the
 int8 cache; ``--serve.paged`` over the paged engine, whose pool
@@ -45,7 +53,8 @@ from tensorflow_distributed_tpu_torch.serve.engine import SlotDecodeEngine
 from tensorflow_distributed_tpu_torch.serve.paging.engine import (
     PagedSlotEngine, auto_num_pages, page_bytes_estimate)
 from tensorflow_distributed_tpu_torch.serve.scheduler import (
-    Request, Scheduler)
+    SLO_CLASSES, Request, Scheduler, parse_slo_mix)
+from tensorflow_distributed_tpu_torch.serve.speculate import build_speculator
 from tensorflow_distributed_tpu_torch.train import checkpoint as ckpt
 from tensorflow_distributed_tpu_torch.train.loop import (
     _build_model_and_state, resolve_device)
@@ -95,11 +104,6 @@ def _arrivals(serve, n: int, rng) -> List[float]:
     return [i / rate for i in range(n)]
 
 
-# Request-file fields of the SLO scheduler and its tenant quotas, with
-# the values that leave them unused.
-_UNPORTED_FIELDS = {"slo": "standard", "tenant": ""}
-
-
 def _read_requests(cfg: TrainConfig) -> List[Request]:
     serve = cfg.serve
     reqs = []
@@ -114,21 +118,20 @@ def _read_requests(cfg: TrainConfig) -> List[Request]:
                 raise NotImplementedError(
                     f"{where}: text prompts need --dataset text, which is "
                     f"not ported to PyTorch yet (see ROADMAP.md queue A)")
-            for key, default in _UNPORTED_FIELDS.items():
-                if str(obj.get(key, default)) != default:
-                    raise NotImplementedError(
-                        f"{where}: the request field {key!r} is read by a "
-                        f"scheduler or engine that is not ported to "
-                        f"PyTorch yet (see ROADMAP.md queue A)")
             ids = [int(t) for t in obj["prompt"]]
             if not ids:
                 raise ValueError(f"{where}: empty prompt")
+            slo = str(obj.get("slo", "standard"))
+            if slo not in SLO_CLASSES:
+                raise ValueError(
+                    f"{where}: unknown slo {slo!r}; have {SLO_CLASSES}")
             reqs.append(Request(
                 rid=len(reqs), prompt=np.asarray(ids, np.int32),
                 max_new_tokens=int(obj.get("max_new_tokens",
                                            serve.max_new_tokens)),
                 eos_id=int(obj.get("eos_id", serve.eos_id)),
-                arrival_s=float(obj.get("arrival_s", 0.0)),
+                arrival_s=float(obj.get("arrival_s", 0.0)), slo=slo,
+                tenant=str(obj.get("tenant", "")),
                 session=str(obj.get("session", ""))))
     if not reqs:
         raise ValueError(f"{serve.requests} names no requests")
@@ -141,7 +144,9 @@ def _workload(cfg: TrainConfig, vocab_size: int) -> List[Request]:
     content is the same under every trace (JAX's draw order). With
     ``session_turns`` k > 1, requests g .. g + k - 1 form session
     ``s{g // k}``, and turn j's prompt is turn j - 1's followed by its
-    own draw (so the first turns equal the session-less workload's)."""
+    own draw (so the first turns equal the session-less workload's).
+    The SLO classes of ``slo_mix`` are drawn after the arrivals, and
+    request i belongs to tenant ``t{i % tenants}`` when ``tenants`` > 1."""
     serve = cfg.serve
     if serve.requests:
         return _read_requests(cfg)
@@ -161,8 +166,16 @@ def _workload(cfg: TrainConfig, vocab_size: int) -> List[Request]:
                 if j > g:
                     prompts[j] = np.concatenate([prompts[j - 1], prompts[j]])
     arrivals = _arrivals(serve, serve.num_requests, rng)
+    slos = ["standard"] * serve.num_requests
+    if serve.slo_mix:
+        mix = parse_slo_mix(serve.slo_mix)
+        edges = np.cumsum([mix.get(c, 0.0) for c in SLO_CLASSES])
+        draws = rng.random(serve.num_requests)
+        slos = [SLO_CLASSES[int(np.searchsorted(edges, d, side="right").clip(
+            0, len(edges) - 1))] for d in draws]
     return [Request(rid=i, prompt=p, max_new_tokens=serve.max_new_tokens,
-                    eos_id=serve.eos_id, arrival_s=float(a),
+                    eos_id=serve.eos_id, arrival_s=float(a), slo=slos[i],
+                    tenant=f"t{i % serve.tenants}" if serve.tenants > 1 else "",
                     session=sessions[i])
             for i, (p, a) in enumerate(zip(prompts, arrivals))]
 
@@ -170,14 +183,17 @@ def _workload(cfg: TrainConfig, vocab_size: int) -> List[Request]:
 def serve_setup(cfg: TrainConfig
                 ) -> Tuple[TrainConfig, SlotDecodeEngine, List[Request]]:
     """Everything before the scheduler's clock starts: the workload, the
-    cache length (``--seq-len``, or sized to the workload and, paged,
-    rounded up to a whole page), the bucket ladder, the model (the
-    checkpoint's weights with ``--checkpoint-dir``, else fresh-init from
-    ``--seed``; its dense weights held in the compute dtype; its cache
-    int8 under ``--serve.kv-dtype int8``) and the engine (paged with
-    ``--serve.paged``, its pool sized by ``auto_num_pages`` unless
-    ``--serve.num-pages`` pins it). Returns the config with the cache
-    length it was given, the engine and the requests."""
+    cache length (``--seq-len``, or sized to the workload with
+    ``spec_tokens`` of verify headroom and, paged, rounded up to a whole
+    page), the bucket ladder (covering prompt + new tokens under
+    ``policy slo``, whose preemption continuations re-prefill them), the
+    model (the checkpoint's weights with ``--checkpoint-dir``, else
+    fresh-init from ``--seed``; its dense weights held in the compute
+    dtype; its cache int8 under ``--serve.kv-dtype int8``) and the engine
+    (with ``spec_tokens``; paged with ``--serve.paged``, its pool sized by
+    ``auto_num_pages`` unless ``--serve.num-pages`` pins it). Returns the
+    config with the cache length it was given, the engine and the
+    requests."""
     cfg.validate()
     device = resolve_device(cfg.device)
     # --serve.kv-dtype is the serve-side spelling of --kv-cache-quant.
@@ -194,15 +210,20 @@ def serve_setup(cfg: TrainConfig
             f"longest request (prompt + new tokens) needs a {need}-token "
             f"cache")
     if not cfg.seq_len:
-        auto_len = max(need, 32)
+        # Speculation gets spec_tokens of verify write headroom past the
+        # last useful position (a pinned tight --seq-len falls back to the
+        # plain path near each request's end instead).
+        auto_len = max(need + cfg.serve.spec_tokens, 32)
         if cfg.serve.paged:
             # Page-granular: an explicit --seq-len that page_size does
             # not divide is refused by the engine instead.
             ps = cfg.serve.page_size
             auto_len = -(-auto_len // ps) * ps
         cfg = dataclasses.replace(cfg, seq_len=auto_len)
+    # A preemption's continuation carries up to prompt + new - 1 tokens.
+    cover = need if cfg.serve.policy == "slo" else max_prompt
     buckets = (parse_buckets(cfg.serve.buckets) if cfg.serve.buckets
-               else default_buckets(max_prompt, cap=cfg.seq_len))
+               else default_buckets(cover, cap=cfg.seq_len))
     model, state = _build_model_and_state(cfg, device)
     vocab = model.cfg.vocab_size
     for r in requests:
@@ -217,8 +238,10 @@ def serve_setup(cfg: TrainConfig
             model.load_state_dict(state.ema)
     del state  # the optimizer's moments are not served
     cast_dense_weights_(model)
+    spec_tokens = cfg.serve.spec_tokens
     if not cfg.serve.paged:
-        engine = SlotDecodeEngine(model, cfg.serve.num_slots, buckets=buckets)
+        engine = SlotDecodeEngine(model, cfg.serve.num_slots, buckets=buckets,
+                                  spec_tokens=spec_tokens)
         return cfg, engine, requests
     num_pages = cfg.serve.num_pages
     if not num_pages:
@@ -235,7 +258,7 @@ def serve_setup(cfg: TrainConfig
     engine = PagedSlotEngine(model, cfg.serve.num_slots,
                              page_size=cfg.serve.page_size,
                              num_pages=num_pages, radix=cfg.serve.radix,
-                             buckets=buckets)
+                             buckets=buckets, spec_tokens=spec_tokens)
     return cfg, engine, requests
 
 
@@ -243,9 +266,14 @@ def serve_run(cfg: TrainConfig) -> Dict:
     """Run the serve workload; prints the ``[serve]`` summary line and
     the summary as a JSON ``serve_summary`` record, and returns it."""
     cfg, engine, requests = serve_setup(cfg)
-    # Every first call happens before the clock starts, so the first
-    # requests' time to first token pays compute only.
-    engine.warmup()
+    # The proposer: the k-gram self-draft, or a draft GPT mirroring the
+    # slot cache (serve/speculate.py).
+    speculator = build_speculator(cfg, engine.model, cfg.seed + 1,
+                                  cfg.serve.num_slots, engine.buckets)
+    # Every first call (the engine's and a draft's) happens before the
+    # clock starts, so the first requests' time to first token pays
+    # compute only.
+    engine.warmup(speculator)
     on_token = None
     if cfg.serve.stream:
         def on_token(rid: int, tok: int, done: bool) -> None:
@@ -255,6 +283,8 @@ def serve_run(cfg: TrainConfig) -> Dict:
     trace = cfg.serve.trace or ("file" if cfg.serve.requests else "uniform")
     sched = Scheduler(engine, decode_priority=cfg.serve.decode_priority,
                       on_token=on_token, policy=cfg.serve.policy,
+                      tenant_quota=cfg.serve.tenant_quota,
+                      preempt=cfg.serve.preempt, speculator=speculator,
                       summary_extra={"seed": cfg.seed, "trace": trace,
                                      "resumed": False})
     done = sched.run(requests)
@@ -276,6 +306,13 @@ def serve_run(cfg: TrainConfig) -> Dict:
           f"{summary['prefill_compiles']} prefill programs "
           f"(buckets {summary['buckets']}), "
           f"{summary['params']} params", flush=True)
+    if cfg.serve.spec_tokens:
+        print(f"[serve] speculative: k={summary.get('spec_tokens')} "
+              f"accept_rate={summary.get('accept_rate')} "
+              f"verify_steps={summary.get('verify_steps')} "
+              f"fallback_slots={summary.get('spec_fallback_slots')} "
+              f"batch_fallbacks={summary.get('spec_batch_fallbacks')}",
+              flush=True)
     if cfg.serve.paged:
         print(f"[serve] paged: prefix_hit_rate="
               f"{summary.get('prefix_hit_rate')} pool_occupancy="
@@ -284,5 +321,11 @@ def serve_run(cfg: TrainConfig) -> Dict:
               f"evictions={summary.get('page_evictions')} cow="
               f"{summary.get('cow_copies')} sessions="
               f"{summary.get('sessions')}", flush=True)
+    if cfg.serve.policy == "slo":
+        cls_bits = " ".join(f"{k.rsplit('_', 1)[-1]}={summary[k]}ms"
+                            for k in sorted(summary)
+                            if k.startswith("ttft_ms_p95_"))
+        print(f"[serve] slo: preemptions={summary['preemptions']} "
+              f"p95 ttft by class: {cls_bits}", flush=True)
     print(json.dumps({"event": "serve_summary", **summary}), flush=True)
     return summary

@@ -1,5 +1,6 @@
 """Admission and prefill/decode interleaving for the slot engine: the
-port of ``serve/scheduler.py``'s FIFO policy.
+port of ``serve/scheduler.py``'s ``fifo`` and ``slo`` policies and its
+speculative dispatch.
 
 Policy: **decode priority with a starvation bound**. Decoding a full
 batch is the throughput-optimal steady state, so the scheduler keeps
@@ -7,29 +8,49 @@ stepping while requests wait; but a queued request with a free slot is
 admitted after at most ``decode_priority`` decode steps (the starvation
 clock ticks only while both hold: someone waits and a slot is free). An
 idle engine admits at once. Requests become visible at their
-``arrival_s`` offset and are admitted in arrival order.
+``arrival_s`` offset. Admission order is the ``policy``:
+
+- ``fifo``: arrival order;
+- ``slo``: SLO classes (``high`` > ``standard`` > ``batch``) pick the
+  request admitted, so a high-class arrival never queues behind a lower
+  class while a slot frees. With ``tenant_quota`` a tenant at or over
+  its decoded-token quota is deferred while an under-quota request
+  waits (never dropped: it is served when nothing under quota waits).
+  With ``preempt`` a request of a higher class that has waited out the
+  decode-priority clock with no free slot evicts the worst live
+  lower-class (or over-quota) request, which re-enters the queue as a
+  continuation (prompt + its tokens so far, the remaining budget) whose
+  final stream equals the one it would have had (greedy determinism).
+
+**Speculative decoding** (a ``speculator`` and an engine built with
+``spec_tokens`` > 0, serve/speculate.py): each iteration proposes k
+tokens a slot and one verify dispatch retires ``accepted + 1`` of them,
+token-identical to plain greedy decoding; a slot short of verify headroom
+takes the plain path inside the verify (``verify_fallback_slots``), and
+where that is impossible the whole batch takes a plain step. The summary
+counts both (``spec_fallback_slots``, ``spec_batch_fallbacks``) beside
+the accept rate.
 
 Termination is per request (its EOS id, or its ``max_new_tokens``
-budget; a budget of 1 or an EOS as the first token finish at
-admission), tokens stream to the host as they retire (``on_token``),
-and each finished request reports its time to first token, decode time
-and mean inter-token latency.
+budget, also where a verify's chain runs past it), tokens stream to the
+host as they retire (``on_token``), and each finished request reports
+its time to first token, decode time and mean inter-token latency.
 
 Over the paged engine (``serve/paging/engine.py``, ``engine.paged``) the
 scheduler passes each admission its budget and ``session``, releases a
-finished request through ``engine.release`` with its prompt and tokens
-(they feed the prefix cache and the session store), defers admission
-while ``engine.can_admit`` is False and live slots will free pages (an
-idle engine that still cannot admit raises), admits a session's turns in
-order (a turn waits until the earlier ones finished), and folds
-``engine.paging_stats()`` into the summary.
+finished or preempted request through ``engine.release`` with its prompt
+and tokens (they feed the prefix cache and the session store, so a
+preempted request's continuation re-attaches its pages), defers
+admission while ``engine.can_admit`` is False and live slots will free
+pages (an idle engine that still cannot admit raises), admits a
+session's turns in order, and folds ``engine.paging_stats()`` into the
+summary.
 
 ``clock`` is injectable so that tests can drive this scheduler and the
-JAX one on one fake clock. The JAX scheduler's other policies and layers
-(the ``slo`` policy, tenant quotas, preemption, speculation, fault
+JAX one on one fake clock. The JAX scheduler's other layers (fault
 plans, slot retry, the journal, the fleet inbox, the autopilot's tune
-commands and the metrics export) are not ported yet: passing any of
-them is refused.
+commands, the serve observatory and the metrics export) are not ported
+yet: passing any of them is refused.
 """
 
 from __future__ import annotations
@@ -41,17 +62,65 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
+#: SLO classes, best first: admission under policy="slo" prefers the
+#: lowest rank; a request without a class is "standard".
+SLO_CLASSES = ("high", "standard", "batch")
+_RANK = {c: i for i, c in enumerate(SLO_CLASSES)}
+
+
+def parse_slo_mix(spec: str) -> Dict[str, float]:
+    """``--serve.slo-mix``: ``"high:0.25,batch:0.25"``, class:fraction
+    pairs, the remainder "standard". Returns the full {class: fraction}
+    map (standard filled in)."""
+    out: Dict[str, float] = {}
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        if ":" not in part:
+            raise ValueError(
+                f"slo_mix entry {part!r} is not class:fraction")
+        name, frac = (x.strip() for x in part.split(":", 1))
+        if name not in SLO_CLASSES:
+            raise ValueError(
+                f"unknown SLO class {name!r}; have {SLO_CLASSES}")
+        f = float(frac)
+        if not 0.0 <= f <= 1.0:
+            raise ValueError(
+                f"slo_mix fraction for {name!r} must be in [0, 1], "
+                f"got {f}")
+        if name in out:
+            raise ValueError(f"slo_mix names {name!r} twice")
+        out[name] = f
+    rest = 1.0 - sum(out.values())
+    if rest < -1e-9:
+        raise ValueError(
+            f"slo_mix fractions sum to {sum(out.values()):g} > 1")
+    out["standard"] = out.get("standard", 0.0) + max(rest, 0.0)
+    return out
+
+
+def percentile(sorted_vals: List[float], q: float) -> float:
+    """Nearest-rank percentile of a sorted list (the JAX package's
+    definition for per-class TTFT)."""
+    idx = min(len(sorted_vals) - 1,
+              max(0, round(q / 100.0 * (len(sorted_vals) - 1))))
+    return sorted_vals[idx]
+
 
 @dataclasses.dataclass
 class Request:
     """One inference request. ``arrival_s`` is the open-loop offset
-    (seconds from run start) at which the scheduler sees it."""
+    (seconds from run start) at which the scheduler sees it; ``slo`` and
+    ``tenant`` drive policy="slo" (FIFO ignores them)."""
 
     rid: int
     prompt: np.ndarray
     max_new_tokens: int
     eos_id: int = -1          # -1 = run to the full budget
     arrival_s: float = 0.0
+    slo: str = "standard"     # high | standard | batch
+    tenant: str = ""          # quota bucket (policy="slo")
     # A multi-turn conversation's id: the paged engine retains a
     # finished turn's KV under it, and the next turn re-attaches it.
     session: str = ""
@@ -68,11 +137,17 @@ class Completion:
     ttft_s: float             # arrival -> first token (queue + prefill)
     decode_s: float           # first token -> last token
     queue_steps: int          # decode steps endured while admittable
+    preempts: int = 0         # SLO preemptions this request survived
+    slo: str = "standard"
+    tenant: str = ""
+    decoded: int = 0          # tokens of the last admission (a preempted
+    #                           request's earlier tokens excluded)
 
     @property
     def tok_ms(self) -> float:
         """Mean inter-token latency (ms) over the decode phase."""
-        return 1e3 * self.decode_s / max(1, len(self.tokens) - 1)
+        n = self.decoded or len(self.tokens)
+        return 1e3 * self.decode_s / max(1, n - 1)
 
 
 @dataclasses.dataclass
@@ -90,7 +165,8 @@ class Scheduler:
     def __init__(self, engine, decode_priority: int = 8,
                  on_token: Optional[Callable[[int, int, bool], None]] = None,
                  clock=time.perf_counter, policy: str = "fifo",
-                 summary_extra=None, **unported):
+                 tenant_quota: int = 0, preempt: bool = True,
+                 speculator=None, summary_extra=None, **unported):
         if unported:
             raise NotImplementedError(
                 f"Scheduler({', '.join(sorted(unported))}) is not ported "
@@ -101,17 +177,70 @@ class Scheduler:
         if policy not in ("fifo", "slo"):
             raise ValueError(
                 f"unknown policy {policy!r}; have ('fifo', 'slo')")
-        if policy != "fifo":
-            raise NotImplementedError(
-                "the slo scheduling policy is not ported to PyTorch yet "
-                "(see ROADMAP.md queue A)")
+        if tenant_quota < 0:
+            raise ValueError(
+                f"tenant_quota must be >= 0, got {tenant_quota}")
         self.engine = engine
         self.decode_priority = decode_priority
         self.on_token = on_token
         self.clock = clock
         self.policy = policy
+        self.tenant_quota = tenant_quota
+        self.preempt = preempt
+        self.speculator = speculator
         self.summary_extra = dict(summary_extra or {})
         self.summary: Dict = {}
+
+    # -- SLO selection ----------------------------------------------------
+
+    def _over_quota(self, tenant: str, tenant_tokens: Dict[str, int]) -> bool:
+        return (self.tenant_quota > 0
+                and tenant_tokens.get(tenant, 0) >= self.tenant_quota)
+
+    def _pick_index(self, queue: List[Request], tenant_tokens: Dict[str, int],
+                    skip: frozenset = frozenset()) -> int:
+        """Which queued request admits next. FIFO: the first not in
+        ``skip`` (rids not admissible now: session turns waiting on an
+        earlier turn). SLO: under quota before over quota, then class
+        rank, then arrival order. -1 when nothing qualifies."""
+        if self.policy != "slo" or len(queue) <= 1:
+            return next((i for i, r in enumerate(queue)
+                         if r.rid not in skip), -1)
+        best, best_key = -1, None
+        for i, req in enumerate(queue):
+            if req.rid in skip:
+                continue
+            key = (1 if self._over_quota(req.tenant, tenant_tokens) else 0,
+                   _RANK.get(req.slo, 1), i)
+            if best_key is None or key < best_key:
+                best, best_key = i, key
+        return best
+
+    def _pick_victim(self, live: Dict[int, _Live], cand: Request,
+                     tenant_tokens: Dict[str, int]) -> Optional[_Live]:
+        """The live request that preemption evicts for ``cand``: of a
+        strictly lower class, or over quota while cand's tenant is under;
+        among those the lowest class with the most tokens delivered (it
+        loses the least). None = nobody preemptible (equal classes are
+        never evicted: they would swap places and thrash). A victim whose
+        continuation would outgrow the bucket ladder is skipped:
+        preemption is elective."""
+        cand_rank = _RANK.get(cand.slo, 1)
+        cand_over = self._over_quota(cand.tenant, tenant_tokens)
+        ladder = max(self.engine.buckets)
+        victims = []
+        for lv in live.values():
+            lower = _RANK.get(lv.req.slo, 1) > cand_rank
+            quota_evict = (not cand_over
+                           and self._over_quota(lv.req.tenant, tenant_tokens)
+                           and lv.req.tenant != cand.tenant)
+            fits_ladder = len(lv.req.prompt) + len(lv.tokens) <= ladder
+            if (lower or quota_evict) and fits_ladder:
+                victims.append(lv)
+        if not victims:
+            return None
+        return max(victims, key=lambda lv: (_RANK.get(lv.req.slo, 1),
+                                            len(lv.tokens)))
 
     @staticmethod
     def _session_blocked(pending, queue, live) -> frozenset:
@@ -133,6 +262,7 @@ class Scheduler:
         """Serve every request to completion; returns completions in
         finish order (sort by ``rid`` for submission order)."""
         eng = self.engine
+        spec = self.speculator
         for r in requests:
             if not eng.fits(len(r.prompt), r.max_new_tokens):
                 raise ValueError(
@@ -147,12 +277,20 @@ class Scheduler:
             sorted(requests, key=lambda r: (r.arrival_s, r.rid)))
         queue: List[Request] = []
         waited: Dict[int, int] = {}           # rid -> admittable steps
+        base: Dict[int, List[int]] = {}       # rid -> tokens before a
+        #                                       preemption's continuation
+        first_seen: Dict[int, float] = {}     # rid -> first-token time
+        preempts: Dict[int, int] = {}         # rid -> preemptions
+        tenant_tokens: Dict[str, int] = {}    # decoded tokens a tenant
         live: Dict[int, _Live] = {}           # slot -> _Live
         done: List[Completion] = []
         t0 = self.clock()
         steps_since_admit = steps = 0
         occ_sum = 0.0
+        spec_stats = {"verify_steps": 0, "proposed": 0, "accepted": 0,
+                      "fallback_slots": 0, "batch_fallbacks": 0}
         paged = getattr(eng, "paged", False)
+        slo_preempt = self.policy == "slo" and self.preempt
         # Turn order binds only where some request has a session.
         has_sessions = any(r.session for r in requests)
 
@@ -163,31 +301,53 @@ class Scheduler:
             if self.on_token is not None:
                 self.on_token(rid, tok, last)
 
-        def finish(lv: _Live, why: str) -> None:
-            t = now()
+        def pick() -> int:
+            return self._pick_index(
+                queue, tenant_tokens,
+                skip=(self._session_blocked(pending, queue, live)
+                      if has_sessions else frozenset()))
+
+        def release(lv: _Live) -> None:
+            """Free the slot; the paged engine retains the request's
+            whole sequence (prefix cache, session)."""
+            del live[lv.slot]
             if paged:
-                # The request's whole sequence feeds the prefix cache and
-                # its session.
                 eng.release(lv.slot, tokens=[int(x) for x in lv.req.prompt]
                             + lv.tokens, session=lv.req.session)
             else:
                 eng.free(lv.slot)
-            del live[lv.slot]
-            done.append(Completion(
-                rid=lv.req.rid, prompt_len=len(lv.req.prompt),
-                tokens=lv.tokens, finish=why,
-                ttft_s=lv.t_first - lv.req.arrival_s,
-                decode_s=t - lv.t_first, queue_steps=lv.queue_steps))
-            emit(lv.req.rid, lv.tokens[-1], True)
+            if spec is not None:
+                spec.observe_free(lv.slot)
 
-        def retire(lv: _Live, tok: int) -> None:
+        def finish(lv: _Live, why: str) -> None:
+            t = now()
+            release(lv)
+            rid = lv.req.rid
+            prior = base.get(rid, [])
+            t_first = first_seen[rid]
+            done.append(Completion(
+                rid=rid, prompt_len=len(lv.req.prompt) - len(prior),
+                tokens=prior + lv.tokens, finish=why,
+                ttft_s=t_first - lv.req.arrival_s, decode_s=t - t_first,
+                queue_steps=lv.queue_steps, preempts=preempts.get(rid, 0),
+                slo=lv.req.slo, tenant=lv.req.tenant,
+                decoded=len(lv.tokens)))
+            emit(rid, lv.tokens[-1], True)
+
+        def retire(lv: _Live, tok: int) -> bool:
+            """Append one token; True when it finished the request."""
             lv.tokens.append(tok)
+            if lv.req.tenant:
+                tenant_tokens[lv.req.tenant] = (
+                    tenant_tokens.get(lv.req.tenant, 0) + 1)
             if tok == lv.req.eos_id:
                 finish(lv, "eos")
             elif len(lv.tokens) >= lv.req.max_new_tokens:
                 finish(lv, "length")
             else:
                 emit(lv.req.rid, tok, False)
+                return False
+            return True
 
         def admit(req: Request) -> None:
             slot = eng.free_slots()[0]
@@ -199,10 +359,46 @@ class Scheduler:
                                     session=req.session)
             else:
                 first = eng.prefill(req.prompt, slot)
+            if spec is not None:
+                spec.observe_admit(slot, req.prompt, first)
             lv = _Live(req=req, slot=slot, tokens=[], t_first=now(),
                        queue_steps=waited.pop(req.rid))
+            first_seen.setdefault(req.rid, lv.t_first)
             live[slot] = lv
             retire(lv, first)
+
+        def continuation(lv: _Live) -> Request:
+            """Prompt + the tokens so far, the remaining budget, class and
+            tenant kept: greedy decoding is deterministic, so the
+            re-admitted continuation emits exactly the tokens the slot
+            would have."""
+            cont = dataclasses.replace(
+                lv.req,
+                prompt=np.concatenate([np.asarray(lv.req.prompt, np.int32),
+                                       np.asarray(lv.tokens, np.int32)]),
+                max_new_tokens=lv.req.max_new_tokens - len(lv.tokens))
+            if len(cont.prompt) > max(eng.buckets):
+                raise ValueError(
+                    f"request {lv.req.rid}: continuation prompt "
+                    f"{len(cont.prompt)} exceeds the largest bucket "
+                    f"{max(eng.buckets)} — re-admission needs the ladder "
+                    f"sized to prompt+new tokens (serve/run.py does this "
+                    f"when policy=slo is armed; with --serve.buckets, "
+                    f"cover the full trajectory)")
+            base[lv.req.rid] = base.get(lv.req.rid, []) + lv.tokens
+            waited[lv.req.rid] = lv.queue_steps
+            return cont
+
+        def preempt_one(lv: _Live) -> None:
+            """Evict a live lower-class or over-quota request so that the
+            waiting higher-class one gets its slot; it re-enters the
+            queue as a continuation (class selection orders the queue).
+            Released with retention: on the paged engine the
+            continuation's re-prefill is a prefix-cache hit."""
+            release(lv)
+            rid = lv.req.rid
+            preempts[rid] = preempts.get(rid, 0) + 1
+            queue.append(continuation(lv))
 
         while pending or queue or live:
             while pending and pending[0].arrival_s <= now():
@@ -211,18 +407,15 @@ class Scheduler:
                 queue.append(req)
             if queue and eng.free_slots() and (
                     not live or steps_since_admit >= self.decode_priority):
-                blocked = (self._session_blocked(pending, queue, live)
-                           if has_sessions else frozenset())
-                pick = next((i for i, r in enumerate(queue)
-                             if r.rid not in blocked), -1)
-                if pick >= 0:
-                    head = queue[pick]
+                i = pick()
+                if i >= 0:
+                    head = queue[i]
                     # Page-pool pressure (paged engine): while live slots
                     # hold the shortfall, keep decoding; they free pages
                     # as they finish.
                     if not paged or eng.can_admit(len(head.prompt),
                                                   head.max_new_tokens):
-                        admit(queue.pop(pick))
+                        admit(queue.pop(i))
                         steps_since_admit = 0
                         continue
                     if not live:
@@ -232,6 +425,14 @@ class Scheduler:
                             f"the prefix cache fully evicted — raise "
                             f"--serve.num-pages (or lower the request "
                             f"budget)")
+            if (slo_preempt and queue and live and not eng.free_slots()
+                    and steps_since_admit >= self.decode_priority):
+                i = pick()
+                if i >= 0:
+                    victim = self._pick_victim(live, queue[i], tenant_tokens)
+                    if victim is not None:
+                        preempt_one(victim)
+                        continue   # the admission branch admits next
             if not live:
                 if not pending:
                     break
@@ -239,25 +440,74 @@ class Scheduler:
                 # next arrival instead of spinning.
                 time.sleep(max(0.0, pending[0].arrival_s - now()))
                 continue
-            nxt = eng.step()
+            # One dispatch, one host fetch: speculative when armed. fb,
+            # the verify plan: None = the whole batch's plain step, [] =
+            # a full verify, a list = a mixed dispatch (those slots take
+            # the plain path inside the verify). An engine without
+            # verify_fallback_slots (the tests' fakes) is all or nothing
+            # by can_verify.
+            fb = None
+            if spec is not None:
+                fb_fn = getattr(eng, "verify_fallback_slots", None)
+                if fb_fn is not None:
+                    fb = fb_fn()
+                elif eng.can_verify():
+                    fb = []
+            if fb is not None:
+                # Histories (prompt + tokens, host work a step) only for
+                # a proposer that reads them.
+                hists = ({s: [int(t) for t in lv.req.prompt] + lv.tokens
+                          for s, lv in live.items()}
+                         if getattr(spec, "needs_histories", True)
+                         else {s: () for s in live})
+                props = spec.propose(hists)
+                if fb:
+                    tails = {s: [int(t) for t in live[s].req.prompt]
+                             + live[s].tokens for s in fb}
+                    toks, acc = eng.verify_step(props, tails=tails)
+                else:
+                    toks, acc = eng.verify_step(props)
+                fb_set = set(getattr(eng, "last_verify_fallback", fb))
+                emitted = {s: [int(t) for t in toks[s, :acc[s]]]
+                           for s in live}
+                spec_live = [s for s in live if s not in fb_set]
+                spec_stats["verify_steps"] += 1
+                spec_stats["proposed"] += eng.spec_tokens * len(spec_live)
+                spec_stats["accepted"] += int(sum(acc[s] - 1
+                                                  for s in spec_live))
+                spec_stats["fallback_slots"] += len(fb_set & set(live))
+                spec.sync_from(eng)
+            else:
+                nxt = eng.step()
+                emitted = {s: [int(nxt[s])] for s in live}
+                if spec is not None:
+                    spec_stats["batch_fallbacks"] += 1
+                    spec.sync_from(eng)
             occ_sum += eng.occupancy()
             steps += 1
-            if queue and eng.free_slots():
-                # The starvation clock: a step taken while the head of
-                # the queue waited with a free slot.
+            if queue and (eng.free_slots() or slo_preempt):
+                # The starvation clock: a step taken while the request
+                # the policy would admit waited with a free slot. Under
+                # slo with preemption a full engine counts too (else the
+                # admission that filled the last slot would freeze the
+                # clock and preemption could never trigger).
                 steps_since_admit += 1
-                waited[queue[0].rid] += 1
+                waited[queue[self._pick_index(queue, tenant_tokens)].rid] += 1
             for slot in list(live):
-                retire(live[slot], int(nxt[slot]))
+                lv = live[slot]
+                for tok in emitted[slot]:
+                    # A chain may run past the budget or an EOS: only the
+                    # tokens up to either are retired.
+                    if retire(lv, tok):
+                        break
 
         wall = now()
         total = sum(len(c.tokens) for c in done)
         self.summary = {
             "requests": len(done),
             "total_new_tokens": total,
-            "decoded_tokens": total,
+            "decoded_tokens": sum(c.decoded or len(c.tokens) for c in done),
             "wall_s": round(wall, 4),
-            "tokens_per_sec": round(total / max(wall, 1e-9), 2),
             "mean_slot_occupancy": round(occ_sum / max(1, steps), 4),
             "decode_steps": steps,
             "prefills": eng.prefills,
@@ -266,8 +516,28 @@ class Scheduler:
             "num_slots": eng.num_slots,
             "decode_priority": self.decode_priority,
             "policy": self.policy,
+            "preemptions": sum(preempts.values()),
             **self.summary_extra,
         }
+        self.summary["tokens_per_sec"] = round(
+            self.summary["decoded_tokens"] / max(wall, 1e-9), 2)
+        by_cls: Dict[str, List[float]] = {}
+        for c in done:
+            by_cls.setdefault(c.slo, []).append(1e3 * c.ttft_s)
+        for cls, vals in sorted(by_cls.items()):
+            vals.sort()
+            self.summary[f"ttft_ms_p50_{cls}"] = round(percentile(vals, 50), 3)
+            self.summary[f"ttft_ms_p95_{cls}"] = round(percentile(vals, 95), 3)
+        if spec is not None:
+            self.summary.update(
+                spec_tokens=eng.spec_tokens,
+                verify_steps=spec_stats["verify_steps"],
+                spec_proposed=spec_stats["proposed"],
+                spec_accepted=spec_stats["accepted"],
+                spec_fallback_slots=spec_stats["fallback_slots"],
+                spec_batch_fallbacks=spec_stats["batch_fallbacks"],
+                accept_rate=round(spec_stats["accepted"]
+                                  / max(1, spec_stats["proposed"]), 4))
         if paged:
             # The pool's occupancy, the prefix hit rate, evictions and
             # copies on write.

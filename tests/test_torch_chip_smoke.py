@@ -219,7 +219,9 @@ def test_new_phases_run_after_the_ring_in_order():
     eval, generate, serve_checkpoint), then the Llama-style phases
     (model_llama, train_llama, train_window, decode_llama, serve_llama),
     then the int8 and paged caches' phases (decode_int8,
-    serve_paged_identity, serve_paged), before the kernels line."""
+    serve_paged_identity, serve_paged), then speculation and the SLO
+    scheduler (serve_spec_identity, serve_spec, serve_slo), before the
+    kernels line."""
     import inspect
 
     src = inspect.getsource(cs.main)
@@ -234,7 +236,8 @@ def test_new_phases_run_after_the_ring_in_order():
              "phase_train_llama(", "phase_train_window(",
              "phase_decode_llama(", "phase_serve_llama(",
              "phase_decode_int8(", "phase_serve_paged_identity(",
-             "phase_serve_paged(", 'emit({"kernels"']
+             "phase_serve_paged(", "phase_serve_spec_identity(",
+             "phase_serve_spec(", "phase_serve_slo(", 'emit({"kernels"']
     at = [src.index(call) for call in order]
     assert at == sorted(at)
 
@@ -361,8 +364,9 @@ def tiny_smoke(monkeypatch):
     from tensorflow_distributed_tpu_torch.models.transformer import gpt_lm
 
     def tiny(torch_mod, dtype, **overrides):
-        model = gpt_lm("tiny", compute_dtype=dtype, d_model=128, n_heads=2,
-                       d_ff=256, max_len=256, vocab_size=500, **overrides)
+        model = gpt_lm("tiny", compute_dtype=dtype, **{
+            **dict(d_model=128, n_heads=2, d_ff=256, max_len=256,
+                   vocab_size=500), **overrides})
         model.init_weights(torch.Generator().manual_seed(0))
         return model
 
@@ -375,7 +379,12 @@ def tiny_smoke(monkeypatch):
     monkeypatch.setattr(cs, "IDENTITY_PROMPTS", (8, 60))
     monkeypatch.setattr(cs, "IDENTITY_REQUESTS", 4)
     monkeypatch.setattr(cs, "IDENTITY_NEW", 6)
-    return torch
+    # One intra-op thread: these are thousands of tiny ops, which several
+    # test workers' thread pools would otherwise fight over.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield torch
+    torch.set_num_threads(threads)
 
 
 def test_decode_fails_when_the_oracle_does_not_run_b1(tiny_smoke, capsys):
@@ -966,3 +975,153 @@ def test_serve_paged_failure_paths(fault, tiny_smoke, monkeypatch, capsys):
     assert {"tokens": "tokens delivered",
             "page_bytes": "page_bytes_estimate",
             "no_paged_line": "no [serve] paged: line"}[fault] in err
+
+
+# --- speculation and the SLO scheduler (serve_spec_identity, serve_spec,
+# serve_slo) -------------------------------------------------------------
+
+def test_spec_and_slo_argvs_parse_as_their_phases_say():
+    """serve_spec is the serve phase's full-width run with k = 4;
+    serve_slo's workload is f32 GPT-2-small on 2 slots, 12 requests of
+    the three classes over 2 tenants with a quota, arriving while the
+    slots are busy."""
+    from tensorflow_distributed_tpu_torch.config import parse_args
+    from tensorflow_distributed_tpu_torch.serve.run import _workload
+
+    spec = parse_args(cs.SERVE_SPEC_ARGV)
+    assert cs.SERVE_SPEC_ARGV[:len(cs.SERVE_ARGV)] == cs.SERVE_ARGV
+    assert spec.serve.spec_tokens == cs.SPEC_K == 4
+    assert not spec.serve.draft_config
+    slo = parse_args(cs.SLO_ARGV)
+    assert (slo.model_size, slo.compute_dtype, slo.serve.num_slots,
+            slo.serve.policy, slo.serve.tenants, slo.serve.tenant_quota,
+            slo.seq_len) == ("small", "float32", 2, "slo", 2, 96, 1024)
+    reqs = _workload(slo, slo.synthetic_vocab)
+    assert len(reqs) == 12 and {r.slo for r in reqs} == {
+        "high", "standard", "batch"}
+    assert {r.tenant for r in reqs} == {"t0", "t1"}
+    # A high request arrives after a batch one, while the work (12 x 48
+    # tokens on 2 slots) outlasts the arrivals by far.
+    first_high = min(r.arrival_s for r in reqs if r.slo == "high")
+    assert any(r.slo == "batch" and r.arrival_s < first_high for r in reqs)
+
+
+@pytest.fixture
+def tiny_spec(tiny_smoke, monkeypatch):
+    """serve_spec_identity at the tiny size: prompts of 14-38 tokens
+    behind a 32-token prefix in the paged leg, 12 new tokens."""
+    for name, value in (("SPEC_SEGMENTS", (4, 10)), ("SPEC_TAILS", (2, 8)),
+                        ("SPEC_PREFIX", 32), ("SPEC_NEW", 12)):
+        monkeypatch.setattr(cs, name, value)
+    return tiny_smoke
+
+
+def test_serve_spec_identity_passes_and_fails_on_a_real_mismatch(
+        tiny_spec, monkeypatch, capsys):
+    import numpy as np
+
+    from tensorflow_distributed_tpu_torch.models import generate as gen
+
+    cs.phase_serve_spec_identity(tiny_spec, np)
+    line = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert line["phase"] == "serve_spec_identity" and line["k"] == 4
+    legs = {leg["leg"][0]: leg for leg in line["legs"]}
+    assert sorted(legs) == ["a", "b", "c", "d"]
+    for leg in legs.values():
+        assert leg["identical"] == leg["requests"] == 8
+        assert leg["excused"] == [] and leg["spec_batch_fallbacks"] == 0
+        assert 0 <= leg["accept_rate"] <= 1 and leg["verify_steps"] > 0
+    assert legs["a"]["spec_accepted"] > 0 and legs["c"]["spec_accepted"] > 0
+    assert legs["c"]["prefix_hits"] >= 4 and legs["d"]["spec_fallback_slots"] > 0
+    # The same model and prompts: the self-draft legs propose alike.
+    assert legs["a"]["spec_proposed"] > 0 and legs["b"]["draft_params"] > 0
+    real = gen.generate
+
+    def off_by_one(model, prompt, n, **kw):
+        out = real(model, prompt, n, **kw)
+        out[0, 2] = (out[0, 2] + 1) % model.cfg.vocab_size
+        return out
+
+    monkeypatch.setattr(gen, "generate", off_by_one)
+    with pytest.raises(SystemExit):
+        cs.phase_serve_spec_identity(tiny_spec, np)
+    assert "differs from generate() at step 2" in capsys.readouterr().err
+
+
+def test_serve_spec_identity_fails_without_fallback_slots(tiny_spec,
+                                                          monkeypatch, capsys):
+    """With verify slack in the exact leg's cache no slot falls back, and
+    the phase says so."""
+    import numpy as np
+
+    real = cs.gpt2_small
+    monkeypatch.setattr(cs, "gpt2_small", lambda torch, dtype, **kw: real(
+        torch, dtype, **{k: (v + 8 if k == "max_len" else v)
+                         for k, v in kw.items()}))
+    with pytest.raises(SystemExit):
+        cs.phase_serve_spec_identity(tiny_spec, np)
+    assert "no slot took the plain path" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("fault", ["tokens", "no_spec_line"])
+def test_serve_spec_failure_paths(fault, tiny_smoke, monkeypatch, capsys):
+    """serve_spec fails when a token is missing or when the CLI printed
+    no speculative line (no verify ran)."""
+    from tensorflow_distributed_tpu_torch import cli
+
+    summary = {k: 1.0 for k in cs.SERVE_KEYS}
+    summary.update(total_new_tokens=32 * 64 - (fault == "tokens"),
+                   verify_steps=5)
+
+    def fake_main(argv):
+        assert "--serve.spec-tokens" in argv
+        print("[serve] 32 requests")
+        if fault != "no_spec_line":
+            print("[serve] speculative: k=4 accept_rate=0.5 verify_steps=5")
+        print(json.dumps({"event": "serve_summary", **summary}))
+        return 0
+
+    monkeypatch.setattr(cli, "main", fake_main)
+    monkeypatch.setattr(cs, "serve_profile", lambda torch, argv: {})
+    for name in ("reset_peak_memory_stats", "max_memory_allocated"):
+        monkeypatch.setattr(tiny_smoke.cuda, name, lambda *a: 0)
+    with pytest.raises(SystemExit):
+        cs.phase_serve_spec(tiny_smoke, {"tokens_per_sec": 1.0})
+    err = capsys.readouterr().err
+    assert {"tokens": "tokens delivered",
+            "no_spec_line": "no verify step"}[fault] in err
+
+
+TINY_SLO_ARGV = ["--mode", "serve", "--model", "gpt_lm", "--model-size",
+                 "tiny", "--compute-dtype", "float32", "--serve.num-slots",
+                 "2", "--serve.num-requests", "12", "--serve.prompt-len-min",
+                 "20", "--serve.prompt-len-max", "40",
+                 "--serve.max-new-tokens", "16", "--serve.arrival-rate",
+                 "400", "--serve.policy", "slo", "--serve.slo-mix",
+                 "high:0.25,batch:0.25", "--serve.tenants", "2",
+                 "--serve.tenant-quota", "32"]
+
+
+def test_serve_slo_passes_and_fails_without_preemption(tiny_smoke,
+                                                       monkeypatch, capsys):
+    """serve_slo at the tiny size: both legs preempt, the slo streams
+    equal the FIFO ones, the paged preemptions come back as prefix hits;
+    with preemption off the phase fails."""
+    import numpy as np
+
+    monkeypatch.setattr(cs, "SLO_ARGV", TINY_SLO_ARGV)
+    cs.phase_serve_slo(tiny_smoke, np)
+    lines = [json.loads(l) for l in capsys.readouterr().out.splitlines()]
+    assert [(l["phase"], l["leg"]) for l in lines] == [
+        ("serve_slo", "dense"), ("serve_slo", "paged")]
+    for line in lines:
+        assert line["identical"] == 12 and line["excused"] == []
+        assert line["slo"]["preemptions"] >= 1
+        assert line["fifo"]["preemptions"] == 0
+        assert "high" in line["slo"]["ttft_ms_p95_by_class"]
+    assert lines[1]["slo"]["prefix_hits"] == lines[1]["slo"]["preemptions"]
+    monkeypatch.setattr(cs, "SLO_ARGV",
+                        TINY_SLO_ARGV + ["--serve.preempt", "false"])
+    with pytest.raises(SystemExit):
+        cs.phase_serve_slo(tiny_smoke, np)
+    assert "serve_slo (dense): no preemption" in capsys.readouterr().err

@@ -396,8 +396,12 @@ def test_paged_engine_surface_and_refusals(tiny):
     assert eng.cache.k[0].shape[:2] == (33, 8)
     eng.warmup()
     assert all(float(t.abs().sum()) == 0 for t in eng.cache.leaves())
-    for call in (lambda: eng.verify_step(None), lambda: eng.poison_slot(0),
-                 lambda: eng.swap_params({})):
+    # Without spec_tokens there is no verify, as in JAX.
+    assert eng.verify_fallback_slots() is None
+    with pytest.raises(RuntimeError, match="spec_tokens > 0"):
+        eng.verify_step(np.zeros((2, 1)))
+    for call in (lambda: eng.poison_slot(0), lambda: eng.swap_params({}),
+                 lambda: eng.set_spec_k(2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
     # Decode uploads the tables once, not every step.

@@ -10,8 +10,10 @@
   scheduler is token-identical to the port's one-shot ``generate()``
   and to JAX's ``SlotDecodeEngine`` plus ``Scheduler``.
 - ``cli.main(["--mode", "serve", "--device", "cpu", ...])`` draws JAX's
-  synthetic workload exactly and serves JAX's token count; every serve
-  flag of a layer not ported yet is refused, naming ROADMAP.md.
+  synthetic workload exactly (SLO classes and tenants included) and
+  serves JAX's token count; the speculation and SLO flags parse and are
+  checked as JAX's; every serve flag of a layer not ported yet is
+  refused, naming ROADMAP.md.
 """
 
 import dataclasses
@@ -204,15 +206,16 @@ def test_fifo_scheduler_makes_jax_decisions(case, monkeypatch):
 
 def test_scheduler_refusals():
     eng = _FakeEngine(_Clock())
-    for kw in (dict(journal=object()), dict(speculator=object()),
-               dict(fault_plan=object()), dict(slot_retries=2),
-               dict(tenant_quota=4), dict(feed=object()),
+    for kw in (dict(journal=object()), dict(fault_plan=object()),
+               dict(slot_retries=2), dict(feed=object()),
                dict(export_every=1.0), dict(autopilot=object()),
-               dict(policy="slo")):
+               dict(tracer=object()), dict(reload_fn=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tsched.Scheduler(eng, **kw)
     with pytest.raises(ValueError, match="unknown policy"):
         tsched.Scheduler(eng, policy="lifo")
+    with pytest.raises(ValueError, match="tenant_quota"):
+        tsched.Scheduler(eng, policy="slo", tenant_quota=-1)
     with pytest.raises(ValueError, match="decode_priority"):
         tsched.Scheduler(eng, decode_priority=0)
     with pytest.raises(ValueError, match="does not fit"):
@@ -282,12 +285,20 @@ def test_engine_surface_and_refusals():
     assert eng.free_slots() == [0, 1]
     with pytest.raises(ValueError, match="max_len"):
         SlotDecodeEngine(model, num_slots=1, buckets=(8, 256))
-    for kw in (dict(spec_tokens=2), dict(fault_plan=object()),
-               dict(watchdog=object())):
+    with pytest.raises(ValueError, match="spec_tokens"):
+        SlotDecodeEngine(model, num_slots=1, spec_tokens=-1)
+    for kw in (dict(fault_plan=object()), dict(watchdog=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             SlotDecodeEngine(model, num_slots=1, **kw)
-    for call in (lambda: eng.verify_step(None), lambda: eng.set_spec_k(2),
-                 lambda: eng.poison_slot(0), lambda: eng.swap_params({})):
+    # Without spec_tokens there is no verify, as in JAX.
+    assert not eng.can_verify() and eng.verify_fallback_slots() is None
+    with pytest.raises(RuntimeError, match="spec_tokens > 0"):
+        eng.verify_step(np.zeros((2, 1)))
+    spec = SlotDecodeEngine(model, num_slots=2, buckets=(8, 32),
+                            spec_tokens=2)
+    assert spec.can_verify() and spec.verify_fallback_slots() == []
+    for call in (lambda: spec.set_spec_k(3), lambda: eng.poison_slot(0),
+                 lambda: eng.swap_params({})):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
 
@@ -309,7 +320,14 @@ SERVE_ARGV = ["--mode", "serve", "--model", "gpt_lm", "--model-size", "tiny",
     "trace_file", "request_file",
     ["--serve.session-turns", "3", "--serve.num-requests", "8"],
     ["--serve.session-turns", "2", "--serve.trace", "bursty",
-     "--serve.arrival-rate", "40"]])
+     "--serve.arrival-rate", "40"],
+    ["--serve.policy", "slo", "--serve.slo-mix", "high:0.25,batch:0.25",
+     "--serve.tenants", "2"],
+    ["--serve.policy", "slo", "--serve.slo-mix", "high:0.5",
+     "--serve.tenants", "3", "--serve.trace", "poisson",
+     "--serve.arrival-rate", "40", "--seed", "5",
+     "--serve.num-requests", "9"],
+    ["--serve.spec-tokens", "4", "--serve.tenants", "4"]])
 def test_workload_equals_jax(extra, tmp_path):
     if extra == "trace_file":
         path = tmp_path / "t.jsonl"
@@ -322,7 +340,9 @@ def test_workload_equals_jax(extra, tmp_path):
             json.dumps({"prompt": [5, 11, 3], "max_new_tokens": 12}),
             json.dumps({"prompt": [1, 2], "arrival_s": 0.05, "eos_id": 7}),
             "", json.dumps({"prompt": [9], "slo": "standard"}),
-            json.dumps({"prompt": [9, 4], "session": "conv1"})]) + "\n")
+            json.dumps({"prompt": [9, 4], "session": "conv1"}),
+            json.dumps({"prompt": [3], "slo": "high", "tenant": "acme"}),
+            json.dumps({"prompt": [6, 6], "slo": "batch"})]) + "\n")
         extra = ["--serve.requests", str(path)]
     argv = SERVE_ARGV + extra
     tcfg, jcfg = parse_args(argv + ["--device", "cpu"]), jax_parse_args(argv)
@@ -330,9 +350,9 @@ def test_workload_equals_jax(extra, tmp_path):
     got, want = trun._workload(tcfg, vocab), jrun._workload(jcfg, vocab)
     assert len(got) == len(want) >= 3
     for g, w in zip(got, want):
-        assert (g.rid, g.max_new_tokens, g.eos_id, g.arrival_s,
-                g.session) == (w.rid, w.max_new_tokens, w.eos_id,
-                               w.arrival_s, w.session)
+        assert (g.rid, g.max_new_tokens, g.eos_id, g.arrival_s, g.session,
+                g.slo, g.tenant) == (w.rid, w.max_new_tokens, w.eos_id,
+                                     w.arrival_s, w.session, w.slo, w.tenant)
         np.testing.assert_array_equal(g.prompt, w.prompt)
         assert g.prompt.dtype == w.prompt.dtype
 
@@ -359,17 +379,30 @@ def test_cli_serves_jax_token_count_with_the_summary_keys(capsys):
         assert summary[key] > 0, key
 
 
-def test_serve_sizes_the_cache_like_jax(tmp_path):
-    """Without --seq-len the cache is sized to the workload (prompt +
-    new tokens, at least 32) and the ladder to its longest prompt; a
-    --seq-len that cannot hold it, and a prompt id outside the model's
-    vocabulary, are refused."""
+@pytest.mark.parametrize("extra", [
+    [], ["--serve.spec-tokens", "4"], ["--serve.policy", "slo"],
+    ["--serve.spec-tokens", "3", "--serve.policy", "slo", "--serve.slo-mix",
+     "high:0.25,batch:0.25", "--serve.tenants", "2", "--serve.paged",
+     "true", "--serve.page-size", "8"]])
+def test_serve_sizes_the_cache_like_jax(extra, tmp_path):
+    """Without --seq-len the cache is sized as JAX's serve_run sizes it:
+    the workload (prompt + new tokens) plus spec_tokens of verify
+    headroom, at least 32, paged rounded up to a page; the ladder covers
+    the longest prompt, or under policy slo prompt + new tokens (a
+    preemption's continuation). A --seq-len that cannot hold the
+    workload, and a prompt id outside the model's vocabulary, are
+    refused."""
     cfg, engine, requests = trun.serve_setup(parse_args(
-        SERVE_ARGV + ["--device", "cpu"]))
+        SERVE_ARGV + extra + ["--device", "cpu"]))
     need = max(len(r.prompt) + r.max_new_tokens for r in requests)
-    assert cfg.seq_len == engine.max_len == max(need, 32)
-    assert engine.buckets == jbuckets.default_buckets(
-        max(len(r.prompt) for r in requests), cap=cfg.seq_len)
+    want = max(need + cfg.serve.spec_tokens, 32)
+    if cfg.serve.paged:
+        want = -(-want // cfg.serve.page_size) * cfg.serve.page_size
+    assert cfg.seq_len == engine.max_len == want
+    assert engine.spec_tokens == cfg.serve.spec_tokens
+    cover = (need if cfg.serve.policy == "slo"
+             else max(len(r.prompt) for r in requests))
+    assert engine.buckets == jbuckets.default_buckets(cover, cap=cfg.seq_len)
     with pytest.raises(ValueError, match="cannot hold"):
         trun.serve_setup(parse_args(SERVE_ARGV + ["--device", "cpu",
                                                   "--seq-len", "16"]))
@@ -397,7 +430,7 @@ def test_unported_serve_flags_are_refused(name):
 
 
 @pytest.mark.parametrize("argv,error", [
-    (["--serve.policy", "slo"], NotImplementedError),
+    (["--serve.journal", "j.jsonl"], NotImplementedError),
     (["--checkpoint-backend", "orbax"], NotImplementedError),
     (["--checkpoint-async", "true"], NotImplementedError),
     (["--model", "mnist_cnn"], ValueError),
@@ -427,16 +460,96 @@ def test_serve_config_has_the_jax_fields_and_defaults():
         assert getattr(port, f.name) == getattr(ref, f.name), f.name
 
 
-@pytest.mark.parametrize("line", [
-    {"text": "hello"}, {"prompt": [1], "slo": "high"},
-    {"prompt": [1], "tenant": "t0"},
-    {"prompt": [1], "session": "s0", "tenant": "t1"}])
+@pytest.mark.parametrize("line", [{"text": "hello"}])
 def test_request_file_fields_of_unported_layers_are_refused(line, tmp_path):
     path = tmp_path / "r.jsonl"
     path.write_text(json.dumps(line) + "\n")
     cfg = parse_args(SERVE_ARGV + ["--serve.requests", str(path)])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trun._workload(cfg, 64)
+
+
+@pytest.mark.parametrize("line", [
+    {"prompt": [1], "slo": "high"}, {"prompt": [1], "tenant": "t0"},
+    {"prompt": [1], "session": "s0", "tenant": "t1"},
+    {"prompt": [1, 2], "slo": "batch", "tenant": 7},
+    {"prompt": [1], "slo": "gold"}])
+def test_request_file_slo_and_tenant_are_read_as_jax(line, tmp_path):
+    """The request file's ``slo`` (checked against the classes, with
+    JAX's message) and ``tenant`` keys are read as JAX's ``_workload``
+    reads them."""
+    path = tmp_path / "r.jsonl"
+    path.write_text(json.dumps(line) + "\n")
+    argv = SERVE_ARGV + ["--serve.requests", str(path)]
+    got = _outcome(trun._workload, parse_args(argv), 64)
+    want = _outcome(jrun._workload, jax_parse_args(argv), 64)
+    if want[0] == "ValueError":
+        assert got == want
+        return
+    (g,), (w,) = got[1], want[1]
+    assert (g.slo, g.tenant, g.session) == (w.slo, w.tenant, w.session)
+    np.testing.assert_array_equal(g.prompt, w.prompt)
+
+
+# --- the speculation and SLO flags through --mode serve -----------------
+
+SPEC_SLO_VALUES = {"spec_tokens": ["4"], "draft_config": ["tiny"],
+                   "spec_kgram": ["2"], "tenant_quota": ["64"],
+                   "preempt": ["false"], "slo_mix": ["high:0.25,batch:0.25"],
+                   "tenants": ["3"]}
+# The flags each knob needs beside it to pass JAX's checks.
+SPEC_SLO_WITH = {"draft_config": ["--serve.spec-tokens", "2"],
+                 "spec_kgram": ["--serve.spec-tokens", "2"],
+                 "tenant_quota": ["--serve.policy", "slo", "--serve.tenants",
+                                  "2"],
+                 "preempt": ["--serve.policy", "slo"],
+                 "slo_mix": ["--serve.policy", "slo"]}
+
+
+@pytest.mark.parametrize("name", sorted(SPEC_SLO_VALUES))
+def test_spec_and_slo_flags_parse_as_jax(name):
+    """Each knob of speculation and the SLO scheduler parses with a value
+    off its default into the field JAX parses it into (and no longer
+    names ROADMAP.md)."""
+    flag = f"--serve.{name.replace('_', '-')}"
+    argv = SERVE_ARGV + [flag] + SPEC_SLO_VALUES[name] + SPEC_SLO_WITH.get(
+        name, [])
+    tcfg, jcfg = parse_args(argv), jax_parse_args(argv)
+    assert getattr(tcfg.serve, name) == getattr(jcfg.serve, name)
+    assert getattr(tcfg.serve, name) != getattr(ServeConfig(), name)
+    assert name not in _SERVE_NOT_PORTED
+
+
+def _serve_check(module_config, **kw):
+    cfg = module_config.TrainConfig(mode="serve", model="gpt_lm")
+    for k, v in kw.items():
+        setattr(cfg.serve, k, v)
+    try:
+        cfg.validate()
+        return ("ok",)
+    except ValueError as e:
+        return ("ValueError", str(e))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(spec_tokens=-1), dict(draft_config="tiny"),
+    dict(spec_tokens=2, spec_kgram=0), dict(kv_dtype="fp8"),
+    dict(policy="edf"), dict(tenant_quota=-1), dict(tenant_quota=5),
+    dict(policy="slo", tenant_quota=5), dict(slo_mix="high:0.5"),
+    dict(policy="slo", slo_mix="gold:0.5"),
+    dict(policy="slo", slo_mix="high:0.5", requests="r.jsonl"),
+    dict(tenants=0), dict(policy="slo", slo_mix="high=0.5"),
+    dict(policy="slo", slo_mix="high:0.8,batch:0.4"),
+    dict(spec_tokens=4), dict(spec_tokens=4, draft_config="tiny"),
+    dict(policy="slo", tenant_quota=64, tenants=2, slo_mix="high:0.25"),
+    dict(policy="slo", tenant_quota=64, requests="r.jsonl")])
+def test_serve_config_new_knobs_check_as_jax(kw):
+    """tests/test_serve_slo.py's knob cases (rejections and valid sets)
+    against both configs: the same outcome, exception type and message."""
+    from tensorflow_distributed_tpu import config as jconfig
+    from tensorflow_distributed_tpu_torch import config as tconfig
+
+    assert _serve_check(tconfig, **kw) == _serve_check(jconfig, **kw)
 
 
 # --- the int8 and paged caches through --mode serve --------------------

@@ -238,7 +238,29 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
              under FIFO, every slo stream equal to the FIFO one (the
              top-2 gap excuse), each paged preemption coming back as a
              prefix hit; the high class's p95 time to first token under
-             each policy printed.
+             each policy printed;
+33. serve_fire — serving under faults at GPT-2-small's full width, four
+             legs: (a) f32, the checkpoint phase's weights, 8 slots, 16
+             requests, ``--resilience.fault-plan
+             slot_nan@5:2,slot_nan@9:0,reload@12`` through
+             ``serve_setup``, dense then paged: every stream equal to the
+             same run without faults (the top-2 gap excuse), 2 retries
+             and 1 swap, the quarantined slots named by the step's
+             device flag, the paged quarantines' private pages 0 after
+             release, the swap's seconds; (b) two quarantines mid-verify
+             under speculation (k = 4, the self-draft, tied fresh-init
+             weights) with a journal: identical streams, every dispatch
+             a verify, and the quarantined requests' journaled tokens
+             exactly their streams (no token of a poisoned verify row
+             retired); (c) ``decode_stall@4:3s`` with
+             ``--resilience.sync-timeout-s 1`` in a CLI process: exit 3
+             before the stall's 3 s are over; (d) ``sigkill@10`` with
+             ``--serve.journal`` in a CLI process (f32): killed, the same
+             command resumes and exits 0, every request done once in the
+             journal with the uninterrupted stream (the top-2 gap
+             excuse). Beside them the flag's own device cost on a decode
+             step's logits, and the serve phase's traced step (launches,
+             device busy, one device-to-host copy a step).
 
 It then prints the nvidia-smi line, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -258,6 +280,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -404,6 +427,27 @@ SLO_ARGV = ["--mode", "serve", "--model", "gpt_lm", "--model-size", "small",
 # fits beside the slots', so nothing is evicted and each preemption's
 # continuation finds its retained pages.
 SLO_NUM_PAGES = 1 + (2 + 12) * 64
+# Serving under faults at GPT-2-small's full width.
+FIRE_PLAN = "slot_nan@5:2,slot_nan@9:0,reload@12"
+FIRE_SLOTS, FIRE_REQUESTS, FIRE_NEW = 8, 16, 24
+FIRE_SPEC_PLAN = "slot_nan@3:1,slot_nan@6:2"
+FIRE_STALL_S, FIRE_TIMEOUT_S = 3.0, 1.0
+FIRE_STALL_ARGV = ["--mode", "serve", "--model", "gpt_lm", "--model-size",
+                   "small", "--synthetic-vocab", "50257", "--seq-len", "1024",
+                   "--serve.num-slots", "4", "--serve.num-requests", "8",
+                   "--serve.prompt-len-min", "64", "--serve.prompt-len-max",
+                   "256", "--serve.max-new-tokens", "16",
+                   "--resilience.sync-timeout-s", str(FIRE_TIMEOUT_S),
+                   "--resilience.fault-plan", f"decode_stall@4:{FIRE_STALL_S}s"]
+FIRE_KILL_ARGV = ["--mode", "serve", "--model", "gpt_lm", "--model-size",
+                  "small", "--synthetic-vocab", "50257", "--seq-len", "1024",
+                  "--compute-dtype", "float32", "--serve.num-slots", "4",
+                  "--serve.num-requests", "8", "--serve.prompt-len-min", "32",
+                  "--serve.prompt-len-max", "256", "--serve.max-new-tokens",
+                  "8", "--serve.decode-priority", "1"]
+FIRE_KILL_PLAN = "sigkill@10"
+FIRE_CLI_TIMEOUT_S = 300  # one CLI process: CUDA start, build, serve
+FLAG_CALLS = 50  # calls a profiled cycle of the flag's cost
 # Checkpoints and the modes that read them, at GPT-2-small's full width.
 CKPT_MODEL_ARGV = ["--model", "gpt_lm", "--model-size", "small",
                    "--seq-len", "1024"]
@@ -2000,11 +2044,13 @@ def serve_profile(torch, argv) -> dict:
         for _ in range(PROFILE_STEPS):
             step()
         torch.cuda.synchronize()
-    busy, launches, top = 0.0, 0, []
+    busy, launches, top, d2h = 0.0, 0, [], 0
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
+        if "DtoH" in e.key:
+            d2h += e.count
         if us > 0:
             busy += us / PROFILE_STEPS / 1e3
             launches += e.count
@@ -2016,6 +2062,8 @@ def serve_profile(torch, argv) -> dict:
             "device_busy_ms": busy or None,
             "device_idle_share": (1 - busy / step_ms) if busy else None,
             "device_top": top[:8], "spec_tokens": k,
+            # The tokens and the finiteness flags: one copy a step.
+            "d2h_copies_per_step": d2h / PROFILE_STEPS,
             "tokens_per_step": tokens_per_step,
             "cache_bytes": engine.cache.nbytes(),
             "serving_peak_mem_bytes": torch.cuda.max_memory_allocated()}
@@ -2861,6 +2909,384 @@ def phase_serve_slo(torch, np) -> None:
                   f"({record['slo']['page_evictions']} evictions)")
 
 
+def fire_engine_runs(torch, argv, paged: bool):
+    """Leg (a) of serve_fire on one engine layout: ``argv`` + FIRE_PLAN
+    built by ``serve_setup`` (the CLI's path: the checkpoint's weights,
+    the fault plan on the engine), served by the scheduler as serve_run
+    builds it; and the same requests without faults on a twin engine over
+    the same model. Returns (the leg's record, the fire completions, the
+    fault-free completions, the requests, the engine)."""
+    from tensorflow_distributed_tpu_torch.config import parse_args
+    from tensorflow_distributed_tpu_torch.serve.engine import (
+        SlotDecodeEngine)
+    from tensorflow_distributed_tpu_torch.serve.paging.engine import (
+        PagedSlotEngine)
+    from tensorflow_distributed_tpu_torch.serve.run import (
+        reload_from, serve_setup)
+    from tensorflow_distributed_tpu_torch.serve.scheduler import Scheduler
+
+    argv = argv + ["--device", DEVICE, "--resilience.fault-plan", FIRE_PLAN]
+    if paged:
+        argv += ["--serve.paged", "true"]
+    cfg, engine, requests = serve_setup(parse_args(argv))
+    if paged:
+        twin = PagedSlotEngine(engine.model, engine.num_slots,
+                               page_size=engine.page_size,
+                               num_pages=engine.pool.capacity,
+                               buckets=engine.buckets)
+    else:
+        twin = SlotDecodeEngine(engine.model, engine.num_slots,
+                                buckets=engine.buckets)
+    twin.warmup()
+    base = {c.rid: c for c in Scheduler(
+        twin, decode_priority=cfg.serve.decode_priority).run(requests)}
+    del twin
+    engine.warmup()
+    # What the device flag named, and (paged) whether each quarantined
+    # slot's private pages read 0 once released.
+    flagged, scrubbed = [], []
+    take = engine.take_bad_slots
+
+    def take_bad_slots():
+        bad = take()
+        if bad:
+            flagged.append({"step": engine.decode_steps, "slots": bad})
+        return bad
+
+    engine.take_bad_slots = take_bad_slots
+    if paged:
+        release = engine.release
+
+        def checked_release(slot, tokens=None, session=""):
+            bad = slot in engine._poisoned or slot in engine._flagged
+            priv = engine._private_pages(slot) if bad else []
+            release(slot, tokens=tokens, session=session)
+            if bad:
+                idx = torch.tensor(priv, device=engine.device)
+                scrubbed.append({"slot": slot, "pages": len(priv),
+                                 "zero": all(bool((t[idx] == 0).all())
+                                             for t in engine.cache.leaves())})
+
+        engine.release = checked_release
+    # What the reload returned, to hold the served tensors against after
+    # the swap: the same storage as before it, holding those values.
+    reload, restored = reload_from(cfg, engine), []
+
+    def reload_fn():
+        got = reload()
+        restored.append(got[0])
+        return got
+
+    ptrs = {n: t.data_ptr() for n, t in engine.model.named_parameters()}
+    sched = Scheduler(engine, decode_priority=cfg.serve.decode_priority,
+                      fault_plan=engine.fault_plan, reload_fn=reload_fn,
+                      slot_retries=cfg.serve.slot_retries)
+    t0 = time.time()
+    done = {c.rid: c for c in sched.run(requests)}
+    summ = sched.summary
+    record = {"leg": "a: " + ("paged" if paged else "dense"),
+              "plan": FIRE_PLAN, "wall_s": round(time.time() - t0, 3),
+              "flagged_by_device": flagged,
+              "flags_raised": engine.flagged_slots,
+              "retries_by_rid": {c.rid: c.retries for c in done.values()
+                                 if c.retries},
+              **{k: summ[k] for k in ("retries", "swaps", "swap_seconds",
+                                      "decode_steps", "prefills",
+                                      "total_new_tokens")}}
+    live = dict(engine.model.named_parameters())
+    record["swap_wrote_through"] = len(restored) == 1 and all(
+        live[n].data_ptr() == ptrs[n] and torch.equal(live[n], t)
+        for n, t in restored[0].items())
+    if paged:
+        record["scrubbed"] = scrubbed
+    return record, done, base, requests, engine
+
+
+def fire_cli(argv, what: str):
+    """``python -m tensorflow_distributed_tpu_torch.cli argv`` in a
+    process of its own, its standard output read as it comes. Returns
+    (exit code, output, error output, the wall time at which the output
+    first named an injected fault, the wall time at exit); the process
+    is killed if it outlives FIRE_CLI_TIMEOUT_S."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tensorflow_distributed_tpu_torch.cli",
+         *argv], cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=dict(os.environ, PYTHONPATH=REPO,
+                            PYTHONUNBUFFERED="1"))
+    expired = threading.Event()
+
+    def expire():
+        expired.set()
+        proc.kill()
+
+    timer = threading.Timer(FIRE_CLI_TIMEOUT_S, expire)
+    timer.start()
+    lines, t_fault, err = [], None, ""
+    try:
+        for line in proc.stdout:
+            lines.append(line)
+            if t_fault is None and '"kind": "fault_injected"' in line:
+                t_fault = time.time()
+        rc = proc.wait()
+        t_exit = time.time()
+        err = proc.stderr.read()
+    finally:
+        timer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    sys.stderr.write(err[-3000:])
+    check(not expired.is_set(),
+          f"serve_fire ({what}): the CLI ran past {FIRE_CLI_TIMEOUT_S} s")
+    return rc, "".join(lines), err, t_fault, t_exit
+
+
+def flag_cost(torch, last) -> dict:
+    """The per-slot finiteness flag's own device cost on a decode step's
+    logits ``last``: launches and device time a call of the argmax alone
+    and of the argmax with the flag (``SlotDecodeEngine._pack``), from
+    torch.profiler over FLAG_CALLS calls, after a warm-up cycle of as
+    many (a profile of a few microsecond kernels from a cold start can
+    drop their records)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from tensorflow_distributed_tpu_torch.serve.engine import (
+        SlotDecodeEngine)
+
+    cost = {}
+    for name, fn in (("argmax", lambda: last.argmax(dim=-1)),
+                     ("argmax_and_flag", lambda: SlotDecodeEngine._pack(last))):
+        seen = []
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: seen.append(
+                         p.key_averages())) as prof:
+            for _ in range(2):
+                for _ in range(FLAG_CALLS):
+                    fn()
+                sync(torch)
+                prof.step()
+        busy = launches = 0
+        for e in seen[-1] if seen else ():
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0)
+            if us > 0:
+                busy += us / FLAG_CALLS / 1e3
+                launches += e.count / FLAG_CALLS
+        cost[name] = {"device_ms": busy, "launches": launches}
+    return cost
+
+
+def fire_leg_a(torch, ckpt_dir: str, serve: dict) -> None:
+    """serve_fire (a): two quarantines and a swap, dense then paged; then
+    the flag's cost beside the serve phase's traced decode step."""
+    fire_argv = SERVE_CKPT_ARGV[:SERVE_CKPT_ARGV.index("--serve.stream")] + [
+        "--checkpoint-dir", ckpt_dir, "--serve.num-slots", str(FIRE_SLOTS),
+        "--serve.num-requests", str(FIRE_REQUESTS),
+        "--serve.max-new-tokens", str(FIRE_NEW),
+        # Every slot fills in the first steps, so the named slots are live.
+        "--serve.decode-priority", "1"]
+    model = None
+    for paged in (False, True):
+        record, done, base, requests, engine = fire_engine_runs(
+            torch, fire_argv, paged)
+        if model is None:
+            model = engine.model       # the dense f32 model, for the gap
+        excused = []
+        for r in requests:
+            why = stream_check(torch, model, r.prompt.tolist(),
+                               done[r.rid].tokens, base[r.rid].tokens,
+                               f"serve_fire ({record['leg']}): request "
+                               f"{r.rid}")
+            if why:
+                excused.append({"rid": r.rid, **why})
+        record.update(phase="serve_fire", identical=len(requests)
+                      - len(excused), excused=excused)
+        emit(record)
+        check(record["total_new_tokens"] == FIRE_REQUESTS * FIRE_NEW,
+              f"serve_fire ({record['leg']}): "
+              f"{record['total_new_tokens']} tokens delivered")
+        check(record["retries"] == 2 and record["swaps"] == 1,
+              f"serve_fire ({record['leg']}): retries {record['retries']}, "
+              f"swaps {record['swaps']} (want 2 and 1)")
+        check(record["swap_wrote_through"],
+              f"serve_fire ({record['leg']}): the served tensors do not "
+              f"hold the reloaded params in their own storage")
+        check(record["flags_raised"] == 2
+              and sum(len(f["slots"]) for f in record["flagged_by_device"])
+              == 2, f"serve_fire ({record['leg']}): the device flag named "
+              f"{record['flagged_by_device']}")
+        if paged:
+            check(len(record["scrubbed"]) == 2
+                  and all(x["zero"] and x["pages"] for x in
+                          record["scrubbed"]),
+                  f"serve_fire (a: paged): scrub {record['scrubbed']}")
+            continue
+        # The flag's own cost on this engine's decode logits (the serve
+        # phase's shape: 8 slots x the vocabulary).
+        last = engine._dispatch_step(engine._h2d(engine.tok),
+                                     engine._h2d(engine.pos))
+        prof_serve = serve.get("profile", {})
+        emit({"phase": "serve_fire", "leg": "decode_flag",
+              "logits_shape": list(last.shape), **flag_cost(torch, last),
+              "serve_decode_step": {k: prof_serve.get(k) for k in (
+                  "launches_per_step", "device_busy_ms",
+                  "d2h_copies_per_step", "step_ms")}})
+        check(prof_serve.get("d2h_copies_per_step") == 1.0,
+              f"serve_fire: {prof_serve.get('d2h_copies_per_step')} "
+              f"device-to-host copies a decode step (want one)")
+
+
+def fire_leg_b(torch, np) -> None:
+    """serve_fire (b): two quarantines mid-verify (k = SPEC_K, the
+    self-draft, tied fresh-init weights) with a journal."""
+    from tensorflow_distributed_tpu_torch.resilience.faults import (
+        parse_fault_plan)
+    from tensorflow_distributed_tpu_torch.serve import journal
+    from tensorflow_distributed_tpu_torch.serve.buckets import (
+        default_buckets)
+    from tensorflow_distributed_tpu_torch.serve.engine import (
+        SlotDecodeEngine)
+    from tensorflow_distributed_tpu_torch.serve.scheduler import (
+        Request, Scheduler)
+    from tensorflow_distributed_tpu_torch.serve.speculate import SelfDraft
+
+    tied = gpt2_small(torch, torch.float32, tie_embeddings=SPEC_TIED)
+    prompts = spec_prompts(np, np.random.default_rng(4), tied.cfg.vocab_size)
+    # Quarantine continuations re-prefill up to prompt + budget.
+    ladder = default_buckets(max(len(p) for p in prompts) + SPEC_NEW,
+                             cap=tied.cfg.max_len)
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="tfd_fire_") as tmp:
+        for name, plan in (("base", None), ("fire", FIRE_SPEC_PLAN)):
+            fp = parse_fault_plan(plan) if plan else None
+            engine = SlotDecodeEngine(tied, IDENTITY_SLOTS, buckets=ladder,
+                                      spec_tokens=SPEC_K, fault_plan=fp)
+            drafter = SelfDraft(IDENTITY_SLOTS, SPEC_K)
+            engine.warmup(drafter)
+            jpath = os.path.join(tmp, f"{name}.jsonl")
+            jr = journal.RequestJournal(jpath)
+            sched = Scheduler(engine, decode_priority=1, fault_plan=fp,
+                              journal=jr, speculator=drafter)
+            done = {c.rid: c for c in sched.run(
+                [Request(rid=i, prompt=p, max_new_tokens=SPEC_NEW)
+                 for i, p in enumerate(prompts)])}
+            jr.close()
+            runs[name] = (done, sched.summary, engine,
+                          journal.replay(jpath))
+    done, summ, engine, played = runs["fire"]
+    base = runs["base"][0]
+    excused = []
+    for i, p in enumerate(prompts):
+        why = stream_check(torch, tied, p.tolist(), done[i].tokens,
+                           base[i].tokens, f"serve_fire (b): request {i}")
+        if why:
+            excused.append({"rid": i, **why})
+    emit({"phase": "serve_fire", "leg": "b: mid-verify",
+          "plan": FIRE_SPEC_PLAN, "k": SPEC_K,
+          "identical": len(prompts) - len(excused), "excused": excused,
+          "quarantined_rids": sorted(c.rid for c in done.values()
+                                     if c.retries),
+          "verify_steps": engine.verify_steps,
+          "decode_steps": engine.decode_steps,
+          **{k: summ[k] for k in ("retries", "accept_rate",
+                                  "spec_accepted", "total_new_tokens")},
+          "base_accept_rate": runs["base"][1]["accept_rate"]})
+    check(summ["retries"] == 2 and engine.flagged_slots == 2,
+          f"serve_fire (b): {summ['retries']} retries")
+    check(engine.verify_steps == engine.decode_steps,
+          "serve_fire (b): a quarantine came off a plain step, not a verify")
+    check(all(played[i]["done"] and played[i]["tokens"] == done[i].tokens
+              for i in done),
+          "serve_fire (b): the journal holds a token the streams do not "
+          "(a poisoned verify row was retired)")
+
+
+def fire_leg_c() -> None:
+    """serve_fire (c): a decode stall past the watchdog; the CLI process
+    exits 3 while the stall still sleeps."""
+    rc, _, err, t_fault, t_exit = fire_cli(FIRE_STALL_ARGV, "c: stall")
+    stall_to_exit = None if t_fault is None else t_exit - t_fault
+    emit({"phase": "serve_fire", "leg": "c: stall", "argv": FIRE_STALL_ARGV,
+          "exit": rc, "stall_to_exit_s": stall_to_exit,
+          "stall_s": FIRE_STALL_S, "timeout_s": FIRE_TIMEOUT_S})
+    check(rc == 3 and "serve stalled" in err,
+          f"serve_fire (c): the CLI exited {rc}, not 3")
+    check(stall_to_exit is not None and stall_to_exit < FIRE_STALL_S,
+          f"serve_fire (c): exit {stall_to_exit} s after the stall began "
+          f"(the stall lasts {FIRE_STALL_S} s)")
+
+
+def fire_leg_d(torch) -> None:
+    """serve_fire (d): a CLI process SIGKILLed mid-traffic with a journal;
+    the same command resumes it; against the uninterrupted run in this
+    process."""
+    from tensorflow_distributed_tpu_torch.config import parse_args
+    from tensorflow_distributed_tpu_torch.serve import journal
+    from tensorflow_distributed_tpu_torch.serve.run import serve_setup
+    from tensorflow_distributed_tpu_torch.serve.scheduler import Scheduler
+
+    with tempfile.TemporaryDirectory(prefix="tfd_fire_") as tmp:
+        jpath = os.path.join(tmp, "serve.journal")
+        argv = FIRE_KILL_ARGV + ["--serve.journal", jpath,
+                                 "--resilience.fault-plan", FIRE_KILL_PLAN]
+        rc1 = fire_cli(argv, "d: killed leg")[0]
+        finished = sorted(r for r, e in journal.replay(jpath).items()
+                          if e["done"])
+        rc2, out2 = fire_cli(argv, "d: resumed leg")[:2]
+        played = journal.replay(jpath)
+        with open(jpath) as f:
+            recs = [json.loads(line) for line in f if line.startswith("{")]
+    summary2 = event_record(out2, "serve_summary") or {}
+    done_records = {}
+    for rec in recs:
+        if rec.get("e") == "done":
+            done_records[rec["rid"]] = done_records.get(rec["rid"], 0) + 1
+    cfg, engine, requests = serve_setup(parse_args(FIRE_KILL_ARGV + [
+        "--device", DEVICE]))
+    engine.warmup()
+    ref = {c.rid: c for c in Scheduler(
+        engine, decode_priority=cfg.serve.decode_priority).run(requests)}
+    excused = []
+    for r in requests:
+        why = stream_check(torch, engine.model, r.prompt.tolist(),
+                           played.get(r.rid, {}).get("tokens", []),
+                           ref[r.rid].tokens, f"serve_fire (d): request "
+                           f"{r.rid}")
+        if why:
+            excused.append({"rid": r.rid, **why})
+    emit({"phase": "serve_fire", "leg": "d: sigkill + journal",
+          "plan": FIRE_KILL_PLAN, "killed_exit": rc1, "resumed_exit": rc2,
+          "finished_before_kill": finished,
+          "resumed_requests": summary2.get("requests"),
+          "done_records": done_records,
+          "identical": len(requests) - len(excused), "excused": excused,
+          "resume_line": next((l for l in out2.splitlines()
+                               if l.startswith("[serve] journal resume")),
+                              None)})
+    check(rc1 == -signal.SIGKILL, f"serve_fire (d): the first leg exited "
+                                  f"{rc1}, not by SIGKILL")
+    check(rc2 == 0, f"serve_fire (d): the resumed leg exited {rc2}")
+    check(bool(finished) and summary2.get("requests")
+          == len(requests) - len(finished),
+          f"serve_fire (d): {len(finished)} finished before the kill, "
+          f"{summary2.get('requests')} served after it")
+    check(done_records == {r.rid: 1 for r in requests},
+          f"serve_fire (d): done records {done_records} (a request served "
+          f"twice, or not at all)")
+
+
+def phase_serve_fire(torch, np, ckpt_dir: str, serve: dict) -> None:
+    """Serving under faults at full width: the four legs of the module
+    docstring's phase 33 (``serve``: the serve phase's record, whose
+    traced decode step the flag's cost stands beside)."""
+    fire_leg_a(torch, ckpt_dir, serve)
+    fire_leg_b(torch, np)
+    fire_leg_c()
+    fire_leg_d(torch)
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--rank"]:
@@ -2904,22 +3330,24 @@ def main(argv=None) -> int:
     phase_decode(fa, torch, np)
     phase_serve_identity(torch, np)
     serve = phase_serve(torch)
+    # The checkpoint phase's directory lives until serve_fire swaps from it.
     with tempfile.TemporaryDirectory(prefix="tfd_ckpt_") as ckpt_dir:
         phase_checkpoint(kernels, torch, ckpt_dir)
         phase_eval(kernels, torch, ckpt_dir)
         phase_generate(torch, np, ckpt_dir)
         phase_serve_checkpoint(torch, ckpt_dir)
-    phase_model_llama(fa, torch, np)
-    phase_train_llama(kernels, torch, fused)
-    phase_train_window(kernels, torch)
-    phase_decode_llama(fa, torch, np)
-    phase_serve_llama(torch, np)
-    phase_decode_int8(fa, torch, np)
-    phase_serve_paged_identity(torch, np)
-    phase_serve_paged(torch, serve)
-    phase_serve_spec_identity(torch, np)
-    phase_serve_spec(torch, serve)
-    phase_serve_slo(torch, np)
+        phase_model_llama(fa, torch, np)
+        phase_train_llama(kernels, torch, fused)
+        phase_train_window(kernels, torch)
+        phase_decode_llama(fa, torch, np)
+        phase_serve_llama(torch, np)
+        phase_decode_int8(fa, torch, np)
+        phase_serve_paged_identity(torch, np)
+        phase_serve_paged(torch, serve)
+        phase_serve_spec_identity(torch, np)
+        phase_serve_spec(torch, serve)
+        phase_serve_slo(torch, np)
+        phase_serve_fire(torch, np, ckpt_dir, serve)
 
     err = {"flash_fwd": flash["errors"]["o_abs_err"],
            "flash_dq": flash["errors"]["dq_abs_err"],

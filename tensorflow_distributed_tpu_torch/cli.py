@@ -82,12 +82,27 @@ Examples:
         --device cpu --serve.num-slots 2 --serve.num-requests 4 \
         --serve.max-new-tokens 8 --serve.stream true
 
+    # serving under fire: two poisoned slots (quarantined and re-prefilled
+    # from their own tokens), a live weight swap from --checkpoint-dir, a
+    # journal (run the same command again after a kill to resume) and
+    # the decode watchdog; exit 2 when a request is quarantined past
+    # --serve.slot-retries, 3 when a decode step outlasts the watchdog:
+    python -m tensorflow_distributed_tpu_torch.cli --mode serve \
+        --model gpt_lm --model-size small --seq-len 1024 \
+        --checkpoint-dir /tmp/gpt2 --serve.journal /tmp/serve.journal \
+        --resilience.sync-timeout-s 5 \
+        --resilience.fault-plan slot_nan@5:2,slot_nan@9:0,reload@12
+
 Flags share the JAX CLI's spellings and defaults; flags the port does
 not parse yet are rejected (ROADMAP.md queue A lists what is still to
 come). After training, the chief prints the eval records as the
 reference's ``performance`` table, as the JAX CLI does; ``--mode eval``
 and ``--mode generate`` print an ``eval`` and a ``generate`` record;
-``--mode serve`` prints the JAX CLI's ``[serve]`` summary line.
+``--mode serve`` prints the JAX CLI's ``[serve]`` summary line. The exit
+codes are the JAX CLI's for serving: 2 when a request is
+slot-quarantined past its retry budget (a divergence: a restart would
+poison the same way), 3 when the decode watchdog fires (a restart and a
+journal resume are the remedy), else 0.
 """
 
 from __future__ import annotations
@@ -97,10 +112,18 @@ from typing import Optional, Sequence
 
 from tensorflow_distributed_tpu_torch.config import TrainConfig, parse_args
 from tensorflow_distributed_tpu_torch.parallel import mesh
+from tensorflow_distributed_tpu_torch.resilience.watchdog import StallError
 from tensorflow_distributed_tpu_torch.serve.run import serve_run
+from tensorflow_distributed_tpu_torch.serve.scheduler import (
+    SlotRetryExhausted)
 from tensorflow_distributed_tpu_torch.train.loop import (
     TrainResult, evaluate_only, generate_only, train)
 from tensorflow_distributed_tpu_torch.utils.logging import MetricLogger
+
+# The JAX CLI's exit codes for serving: 2 = diverged (a request
+# slot-quarantined past its budget), 3 = stalled (the decode watchdog).
+EXIT_DIVERGED = 2
+EXIT_STALLED = 3
 
 
 def train_and_report(cfg: TrainConfig,
@@ -119,7 +142,16 @@ def train_and_report(cfg: TrainConfig,
 def main(argv: Optional[Sequence[str]] = None) -> int:
     cfg = parse_args(argv)
     if cfg.mode == "serve":
-        serve_run(cfg)
+        try:
+            serve_run(cfg)
+        except SlotRetryExhausted as e:
+            print(f"[resilience] serve diverged: {e}", file=sys.stderr,
+                  flush=True)
+            return EXIT_DIVERGED
+        except StallError as e:
+            print(f"[resilience] serve stalled: {e}", file=sys.stderr,
+                  flush=True)
+            return EXIT_STALLED
         return 0
     if cfg.mode == "generate":
         generate_only(cfg)

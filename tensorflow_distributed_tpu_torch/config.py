@@ -9,8 +9,10 @@ rejected with an error that points at ROADMAP.md, never ignored.
 Every field shared with the JAX ``TrainConfig``, ``MeshConfig`` and
 ``ServeConfig`` has the JAX default, ``model`` included: the bare CLI
 call trains the reference's ``mnist_cnn`` on the MNIST idx files under
-``--data-dir``. Every ``--serve.*`` flag of the JAX CLI parses; those of
-the layers not ported yet are refused unless they keep their default.
+``--data-dir``. Every ``--serve.*`` and ``--resilience.*`` flag of the
+JAX CLI parses; those of the layers not ported yet are refused unless
+they keep their default (``--resilience.fault-plan`` and
+``--resilience.sync-timeout-s`` run under ``--mode serve``).
 The model options of layers not ported yet (``--moe-experts``,
 ``--shard-vocab``) parse and are refused the same way,
 as is ``--compute-dtype float32`` for training or evaluating the LM on a
@@ -24,6 +26,8 @@ import dataclasses
 import typing
 from typing import Optional, Sequence
 
+from tensorflow_distributed_tpu_torch.resilience.faults import (
+    SERVE_KINDS, TRAIN_KINDS, parse_fault_plan)
 from tensorflow_distributed_tpu_torch.serve.buckets import parse_buckets
 from tensorflow_distributed_tpu_torch.serve.scheduler import parse_slo_mix
 
@@ -149,9 +153,16 @@ class ServeConfig:
     # Synthetic workload's tenant count (round-robin); a request file
     # carries per-request "tenant" fields.
     tenants: int = 1
-    # --- layers not ported yet (ROADMAP.md queue A) -----------------
+    # Request journal path (serve/journal.py): admits, tokens and
+    # completions append here, flushed every scheduler iteration, so a
+    # killed serving process resumes at token granularity; a non-empty
+    # journal at start-up means RESUME. "" = off.
     journal: str = ""
+    # Per-request slot-retry budget: how many times one request may be
+    # quarantined (non-finite logits: free the slot, re-prefill prompt +
+    # good tokens) before the run halts with SlotRetryExhausted (exit 2).
     slot_retries: int = 2
+    # --- layers not ported yet (ROADMAP.md queue A) -----------------
     mesh_model: int = 1
     inbox: str = ""
 
@@ -173,6 +184,10 @@ class ServeConfig:
         if self.arrival_rate < 0:
             raise ValueError(f"serve.arrival_rate must be >= 0, got "
                              f"{self.arrival_rate}")
+        if self.slot_retries < 0:
+            raise ValueError(
+                f"serve.slot_retries must be >= 0, "
+                f"got {self.slot_retries}")
         if self.trace and not self.trace.endswith(".jsonl"):
             if self.trace not in SERVE_TRACES:
                 raise ValueError(
@@ -292,11 +307,84 @@ class ServeConfig:
                 "— drop one of the flags")
 
 
-# The serve knobs of layers not ported yet (slot retry, the journal,
-# tensor parallelism, the fleet inbox), at their defaults.
+# The serve knobs of layers not ported yet (tensor parallelism, the fleet
+# inbox), at their defaults.
 _SERVE_NOT_PORTED = {
     f.name: f.default for f in dataclasses.fields(ServeConfig)
-    if f.name in ("journal", "slot_retries", "mesh_model", "inbox")}
+    if f.name in ("mesh_model", "inbox")}
+
+
+@dataclasses.dataclass
+class ResilienceConfig:
+    """The JAX ``ResilienceConfig``: every field with its JAX spelling and
+    default. ``fault_plan`` and ``sync_timeout_s`` run under ``--mode
+    serve``; the train loop's policies, watchdogs and save retries are
+    not ported yet (``_RESILIENCE_NOT_PORTED``, ROADMAP.md A8) and must
+    keep their defaults."""
+
+    # Deterministic fault-injection plan, comma-separated kind@step[:arg]
+    # events (resilience/faults.py). Under mode=serve the step counts
+    # DECODE steps and the kinds are decode_stall (:duration, slept
+    # inside the decode watchdog's window), slot_nan (:slot, NaN-poisons
+    # one slot's KV cache -> quarantine and re-prefill of that slot),
+    # reload (live weight swap from --checkpoint-dir), sigterm and
+    # sigkill. The train phase's kinds (nan_grad, ckpt_io_fail,
+    # data_stall, device_loss) parse and are refused.
+    fault_plan: str = ""
+    # --- the train loop's knobs, not ported yet (ROADMAP.md A8) -------
+    nonfinite: str = "off"  # off | halt | skip_batch | rewind
+    max_skips: int = 3
+    max_rewinds: int = 1
+    spike_window: int = 0
+    spike_factor: float = 10.0
+    data_timeout_s: float = 0.0
+    # Decode watchdog (seconds; 0 = off): a token fetch that outlasts it
+    # raises StallError (exit 3) instead of hanging the server.
+    sync_timeout_s: float = 0.0
+    save_retries: int = 2
+    save_retry_backoff_s: float = 0.05
+
+    def validate(self) -> None:
+        """The JAX ResilienceConfig's checks, with its messages, then the
+        refusal of the fields not ported yet."""
+        if self.nonfinite not in ("off", "halt", "skip_batch",
+                                  "rewind"):
+            raise ValueError(
+                f"unknown resilience.nonfinite {self.nonfinite!r}; "
+                f"have ('off', 'halt', 'skip_batch', 'rewind')")
+        if self.max_skips < 0 or self.max_rewinds < 0:
+            raise ValueError(
+                "resilience.max_skips/max_rewinds must be >= 0")
+        if self.spike_window < 0:
+            raise ValueError(
+                f"resilience.spike_window must be >= 0, "
+                f"got {self.spike_window}")
+        if self.spike_window and self.spike_factor <= 1.0:
+            raise ValueError(
+                f"resilience.spike_factor must be > 1, "
+                f"got {self.spike_factor}")
+        if self.data_timeout_s < 0 or self.sync_timeout_s < 0:
+            raise ValueError(
+                "resilience timeouts must be >= 0 (0 disables)")
+        if self.save_retries < 0 or self.save_retry_backoff_s < 0:
+            raise ValueError(
+                "resilience.save_retries/save_retry_backoff_s must "
+                "be >= 0")
+        if self.fault_plan:
+            parse_fault_plan(self.fault_plan)  # syntax at config time
+        unported = [name for name, default in _RESILIENCE_NOT_PORTED.items()
+                    if getattr(self, name) != default]
+        if unported:
+            raise NotImplementedError(
+                f"--resilience.{unported[0].replace('_', '-')}="
+                f"{getattr(self, unported[0])!r} is not ported to PyTorch "
+                f"yet (see ROADMAP.md A8)")
+
+
+# The train loop's resilience knobs, at their defaults.
+_RESILIENCE_NOT_PORTED = {
+    f.name: f.default for f in dataclasses.fields(ResilienceConfig)
+    if f.name not in ("fault_plan", "sync_timeout_s")}
 
 
 @dataclasses.dataclass
@@ -439,6 +527,9 @@ class TrainConfig:
     # --- mesh / parallelism ----------------------------------------------
     mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
     serve: ServeConfig = dataclasses.field(default_factory=ServeConfig)
+    # Fault injection and the decode watchdog (resilience/).
+    resilience: ResilienceConfig = dataclasses.field(
+        default_factory=ResilienceConfig)
 
     def validate(self) -> None:
         def todo(what: str) -> NotImplementedError:
@@ -456,6 +547,7 @@ class TrainConfig:
         if serving and (self.mesh.seq != 1 or self.mesh.data not in (-1, 1)):
             raise todo("--mode serve over a --mesh.* of more than one "
                        "process")
+        self._validate_fire()
         if self.checkpoint_backend not in ("native", "orbax"):
             raise ValueError(f"unknown checkpoint_backend "
                              f"{self.checkpoint_backend!r}")
@@ -607,7 +699,61 @@ class TrainConfig:
                 raise todo(f"--{name.replace('_', '-')}="
                            f"{getattr(self, name)!r}")
         self.mesh.validate()
+        self.resilience.validate()
         self.serve.validate()
+
+    def _validate_fire(self) -> None:
+        """The JAX TrainConfig's phase checks of the fault plan and the
+        journal, with its messages; then the refusal of what runs only
+        in the train loop, which is not ported yet (ROADMAP.md A8)."""
+        res = self.resilience
+        if res.fault_plan:
+            # A fault keyed to a phase that never consults it would sit
+            # silently unfired: reject it at startup.
+            kinds = parse_fault_plan(res.fault_plan).kinds()
+            if self.mode == "serve":
+                bad = sorted(kinds - set(SERVE_KINDS))
+                if bad:
+                    raise ValueError(
+                        f"fault kinds {bad} are train-phase only; "
+                        f"mode=serve consults {sorted(SERVE_KINDS)} "
+                        f"on the decode-step clock")
+                if "reload" in kinds and not self.checkpoint_dir:
+                    raise ValueError(
+                        "fault kind 'reload' performs a live weight "
+                        "swap from --checkpoint-dir; set one (serve "
+                        "needs a swap source)")
+            elif self.mode == "train":
+                bad = sorted(kinds - set(TRAIN_KINDS))
+                if bad:
+                    raise ValueError(
+                        f"fault kinds {bad} are serve-phase only; "
+                        f"mode=train consults {sorted(TRAIN_KINDS)} "
+                        f"on the train-step clock")
+                if "device_loss" in kinds and not self.checkpoint_dir:
+                    raise ValueError(
+                        "fault kind 'device_loss' writes the device-"
+                        "mask file under --checkpoint-dir (and the "
+                        "elastic restart resumes from there); set "
+                        "one")
+                raise NotImplementedError(
+                    f"--resilience.fault-plan under --mode train (fault "
+                    f"kinds {sorted(kinds)}): the train loop's injection "
+                    f"points are not ported to PyTorch yet (see "
+                    f"ROADMAP.md A8)")
+            else:
+                raise ValueError(
+                    f"resilience.fault_plan has no injection points "
+                    f"under mode={self.mode!r}; drop the flag")
+        if self.serve.journal and self.mode != "serve":
+            raise ValueError(
+                "serve.journal is written by the mode=serve "
+                "scheduler; drop the flag")
+        if res.sync_timeout_s and self.mode != "serve":
+            raise NotImplementedError(
+                f"--resilience.sync-timeout-s under --mode {self.mode}: "
+                f"the train loop's sync watchdog is not ported to "
+                f"PyTorch yet (see ROADMAP.md A8)")
 
 
 def _add_dataclass_args(parser: argparse.ArgumentParser, cls,
@@ -656,6 +802,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> TrainConfig:
                 if k.startswith(prefix + ".")}
 
     cfg = TrainConfig(mesh=MeshConfig(**nested("mesh")),
-                      serve=ServeConfig(**nested("serve")), **fields)
+                      serve=ServeConfig(**nested("serve")),
+                      resilience=ResilienceConfig(**nested("resilience")),
+                      **fields)
     cfg.validate()
     return cfg

@@ -1,0 +1,195 @@
+"""Deterministic fault injection, the port of ``resilience/faults.py``:
+the grammar whole, and the serve phase's injection points.
+
+A fault plan is a comma-separated list of ``kind@step[:arg]`` events,
+e.g. ``"decode_stall@20:0.3s,slot_nan@40:0,reload@80,sigkill@160"``.
+Under ``--mode serve`` the step key counts DECODE steps (the serving
+engine's clock: serve/scheduler.py consults the plan between steps), and
+the kinds are:
+
+- ``decode_stall@K[:Ds]``: sleep D seconds (default 1) inside decode
+  step K's token fetch, exactly where a wedged device shows; the decode
+  watchdog (``--resilience.sync-timeout-s``) sees the hang and raises
+  StallError instead of letting the engine freeze;
+- ``slot_nan@K[:slot]``: NaN-poison one slot's KV cache (default slot 0)
+  before decode step K, so that slot's logits are non-finite through the
+  real attention; the engine's per-slot finiteness flag, computed on the
+  device with the step's tokens, names it and the scheduler quarantines
+  and re-prefills only that slot;
+- ``reload@K``: a live weight swap before decode step K, from the newest
+  verifiable checkpoint, between decode steps, without draining slots;
+- ``sigterm@K`` / ``sigkill@K``: self-signal when step K is dispatched.
+  Signal events fire on the first leg only (``bind``): a resumed leg is
+  the recovery under test, and re-firing would kill it forever.
+
+The train phase's kinds (``nan_grad``, ``ckpt_io_fail``, ``data_stall``,
+``device_loss``) parse as in JAX, and ``config.py`` refuses them: the
+train loop's injection points are not ported yet (ROADMAP.md A8).
+
+Every injection prints an ``{"event": "recovery", "kind":
+"fault_injected", ...}`` record on standard output. Events are one-shot
+per plan object.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import re
+import signal
+import time
+from typing import Dict, List, Optional, Tuple
+
+from tensorflow_distributed_tpu_torch.utils.logging import emit_event
+
+KINDS = ("nan_grad", "ckpt_io_fail", "data_stall", "sigterm", "sigkill",
+         "device_loss", "decode_stall", "slot_nan", "reload")
+# Phase validity (config.validate rejects cross-phase plans at startup,
+# so that a fault never sits silently unfired): signals fire in both
+# phases, keyed on the phase's own step clock.
+TRAIN_KINDS = ("nan_grad", "ckpt_io_fail", "data_stall", "sigterm",
+               "sigkill", "device_loss")
+SERVE_KINDS = ("decode_stall", "slot_nan", "reload", "sigterm",
+               "sigkill")
+
+_EVENT_RE = re.compile(
+    r"^(?P<kind>[a-z_]+)@(?P<step>\d+)(?::(?P<arg>[0-9.]+s?))?$")
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultEvent:
+    kind: str
+    step: int
+    arg: Optional[float] = None  # seconds for data_stall/decode_stall,
+    #                              count for ckpt_io_fail/device_loss,
+    #                              slot for slot_nan; None elsewhere
+
+
+def parse_fault_plan(spec: str) -> "FaultPlan":
+    """Parse ``kind@step[:arg]`` comma lists; raises ValueError naming
+    the offending token on any syntax problem (config.validate calls
+    this, so a bad plan dies at startup, not at step K)."""
+    events: List[FaultEvent] = []
+    for token in filter(None, (t.strip() for t in spec.split(","))):
+        m = _EVENT_RE.match(token)
+        if not m:
+            raise ValueError(
+                f"bad fault-plan token {token!r}: want kind@step[:arg] "
+                f"(e.g. nan_grad@40, data_stall@120:5s)")
+        kind, step = m.group("kind"), int(m.group("step"))
+        if kind not in KINDS:
+            raise ValueError(
+                f"unknown fault kind {kind!r} in {token!r}; have "
+                f"{KINDS}")
+        if step < 1:
+            raise ValueError(f"fault step must be >= 1 in {token!r}")
+        arg_s = m.group("arg")
+        arg: Optional[float] = None
+        if arg_s is not None:
+            if kind in ("data_stall", "decode_stall"):
+                arg = float(arg_s[:-1] if arg_s.endswith("s") else arg_s)
+                if arg <= 0:
+                    raise ValueError(
+                        f"{kind} duration must be > 0 in {token!r}")
+            elif kind == "slot_nan":
+                arg = float(arg_s)
+                if arg != int(arg) or arg < 0:
+                    raise ValueError(
+                        f"slot_nan slot must be a non-negative int "
+                        f"in {token!r}")
+            elif kind in ("ckpt_io_fail", "device_loss"):
+                arg = float(arg_s)
+                if arg != int(arg) or arg < 1:
+                    raise ValueError(
+                        f"{kind} count must be a positive int "
+                        f"in {token!r}")
+            else:
+                raise ValueError(
+                    f"fault kind {kind!r} takes no :arg ({token!r})")
+        events.append(FaultEvent(kind, step, arg))
+    return FaultPlan(events)
+
+
+class FaultPlan:
+    """One run's bound fault schedule. Falsy when empty, so that every
+    hook can be skipped at no cost."""
+
+    def __init__(self, events: List[FaultEvent] = ()):  # type: ignore[assignment]
+        self._by_step: Dict[Tuple[str, int], FaultEvent] = {
+            (e.kind, e.step): e for e in events}
+        self._fired: set = set()
+        self._start_step = 0
+
+    def __bool__(self) -> bool:
+        return bool(self._by_step)
+
+    def kinds(self) -> set:
+        """The distinct fault kinds of the plan (config.validate's phase
+        check)."""
+        return {kind for (kind, _step) in self._by_step}
+
+    def bind(self, start_step: int) -> None:
+        """Pin the leg's resume point: events at or before it are
+        consumed (they happened on a previous leg), and signal events
+        are suppressed on a resumed leg (the restart under test must
+        terminate)."""
+        self._start_step = start_step
+        for key, ev in self._by_step.items():
+            if ev.step <= start_step:
+                self._fired.add(key)
+
+    def _take(self, kind: str, step: int) -> Optional[FaultEvent]:
+        key = (kind, step)
+        ev = self._by_step.get(key)
+        if ev is None or key in self._fired:
+            return None
+        self._fired.add(key)
+        return ev
+
+    def maybe_signal(self, step: int) -> None:
+        """Self-SIGTERM/SIGKILL at dispatch of ``step``: first leg only
+        (see bind)."""
+        if self._start_step > 0:
+            return
+        for kind, signum in (("sigterm", signal.SIGTERM),
+                             ("sigkill", signal.SIGKILL)):
+            if self._take(kind, step) is not None:
+                emit_event("recovery", kind="fault_injected",
+                           fault=kind, step=step)
+                os.kill(os.getpid(), signum)
+
+    # -- serve-phase injection points (step = the engine's decode step;
+    #    serve/scheduler.py consults these between steps, the engine
+    #    consumes decode_stall inside its watched token fetch) ----------
+    def decode_stall_sleep(self, step: int) -> None:
+        """Sleep the injected stall inside the decode step's token fetch
+        (the engine runs it under the decode watchdog, so the deadline
+        sees exactly the hang it guards against)."""
+        ev = self._take("decode_stall", step)
+        if ev is not None:
+            emit_event("recovery", kind="fault_injected",
+                       fault="decode_stall", step=step,
+                       seconds=ev.arg or 1.0)
+            time.sleep(ev.arg if ev.arg is not None else 1.0)
+
+    def take_slot_nan(self, step: int) -> Optional[int]:
+        """The slot to NaN-poison before decode step ``step`` (None off
+        the plan). The engine poisons that slot's cache on the device, so
+        the non-finite logits come from the real attention."""
+        ev = self._take("slot_nan", step)
+        if ev is None:
+            return None
+        slot = int(ev.arg) if ev.arg is not None else 0
+        emit_event("recovery", kind="fault_injected", fault="slot_nan",
+                   step=step, slot=slot)
+        return slot
+
+    def take_reload(self, step: int) -> bool:
+        """True when a live weight swap is due before decode step
+        ``step``."""
+        ev = self._take("reload", step)
+        if ev is not None:
+            emit_event("recovery", kind="fault_injected",
+                       fault="reload", step=step)
+            return True
+        return False

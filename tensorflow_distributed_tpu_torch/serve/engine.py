@@ -27,21 +27,29 @@ bucket):
   ``verify_fallback_slots`` names such slots).
 
 Greedy only: the contract is token identity with one-shot greedy
-``generate()`` per request, speculation included. Fault plans, the
-decode watchdog, tensor parallelism and the poison / weight-swap /
-live-depth surface are not ported yet and are refused (ROADMAP.md
-queue A).
+``generate()`` per request, speculation included.
+
+Serving under faults (all optional): the step and the verify compute a
+per-slot flag on the device, "the logits are all finite", and fetch it
+in the same single device-to-host copy as the tokens
+(``take_bad_slots``, the scheduler's quarantine signal); that fetch runs
+under the decode watchdog when one is given, with a plan's
+``decode_stall`` inside the watched region; ``poison_slot`` NaN-fills a
+slot's cache row for the ``slot_nan`` drill; ``swap_params`` copies new
+weights into the serving tensors in place between steps. Tensor
+parallelism and the live speculation-depth change are not ported yet
+(ROADMAP.md queue A).
 
 The paged engine (``serve/paging/engine.py``) subclasses this one (its
-model's ``zero_cache`` is the page pool) and overrides three hooks:
+model's ``zero_cache`` is the page pool) and overrides four hooks:
 ``_prefill_forward`` (a tail written through the slot's page table),
 ``_page_table`` (the device-resident tables the step and the verify
-read) and ``_warm_prefills``.
+read), ``_warm_prefills`` and ``_warm_drills``.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -57,6 +65,18 @@ from tensorflow_distributed_tpu_torch.serve.speculate import accept_length
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to PyTorch yet (see ROADMAP.md queue A)")
+
+
+def _host(packed: torch.Tensor, stream) -> np.ndarray:
+    """The one device-to-host copy of a step: ``packed`` (the tokens and
+    the finiteness flags in one int64 tensor) to a numpy array. It may
+    run on the watchdog's worker thread, whose current stream is not the
+    dispatching thread's: ``stream`` (the stream the step was queued
+    on; None on the CPU) orders the copy after the step."""
+    if stream is None:
+        return packed.numpy()
+    with torch.cuda.device(packed.device), torch.cuda.stream(stream):
+        return packed.cpu().numpy()
 
 
 def zero_cache(model, num_slots: int) -> KVCache:
@@ -84,10 +104,6 @@ class SlotDecodeEngine:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         if spec_tokens < 0:
             raise ValueError(f"spec_tokens must be >= 0, got {spec_tokens}")
-        if fault_plan is not None:
-            raise _not_ported("the serve fault plan")
-        if watchdog is not None:
-            raise _not_ported("the decode watchdog")
         self.spec_tokens = spec_tokens
         self.model = model
         self.device = next(model.parameters()).device
@@ -108,7 +124,17 @@ class SlotDecodeEngine:
         self.prefills = 0
         self.decode_steps = 0
         self.verify_steps = 0
+        self.swaps = 0
         self._last_verify_fallback: list = []
+        # Serving under faults (both optional): the plan's decode_stall
+        # sleeps inside the watched token fetch, and _last_ok holds the
+        # per-slot finiteness flags of the last step or verify.
+        self.fault_plan = fault_plan
+        self.watchdog = watchdog
+        self._last_ok: Optional[np.ndarray] = None
+        # Slots whose fetched flag said non-finite (the device's own
+        # detection, counted where take_bad_slots hands them out).
+        self.flagged_slots = 0
 
     def cache_bytes_per_slot(self) -> int:
         """Device memory the decode cache spends per slot (the scale
@@ -124,17 +150,21 @@ class SlotDecodeEngine:
     @torch.no_grad()
     def warmup(self, speculator=None) -> None:
         """Run each bucket's prefill, a decode step and, with
-        ``spec_tokens``, a verify against throwaway inputs, then zero the
+        ``spec_tokens``, a verify (each with its finiteness flag), and the
+        fire drills' device work against throwaway inputs, then zero the
         cache again: first-call costs (library handles, the allocator's
         growth) move to start-up instead of the first requests' time to
         first token. Host bookkeeping is untouched, so a warmed engine
         equals a fresh one. A ``speculator``'s own ``warmup`` (a draft
         model's mirror) runs after."""
         self._warm_prefills()
-        self._dispatch_step(self._h2d(self.tok), self._h2d(self.pos))
+        self._pack(self._dispatch_step(self._h2d(self.tok),
+                                       self._h2d(self.pos)))
         if self.spec_tokens:
             zeros = np.zeros((self.num_slots, self.spec_tokens + 1), np.int64)
-            self._dispatch_verify(self._h2d(zeros), self._h2d(zeros[:, 0]))
+            self._pack(self._dispatch_verify(self._h2d(zeros),
+                                             self._h2d(zeros[:, 0])))
+        self._warm_drills()
         self.cache.zero_()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -148,6 +178,10 @@ class SlotDecodeEngine:
                 self.model, torch.zeros((1, b), dtype=torch.long,
                                         device=self.device))
             self.cache.put_row(row, 0)
+
+    def _warm_drills(self) -> None:
+        """The fire drills' device work against throwaway state (the
+        paged engine's poison and scrub; the dense poison is a fill)."""
 
     def free_slots(self):
         return [s for s in range(self.num_slots) if not self.active[s]]
@@ -235,9 +269,10 @@ class SlotDecodeEngine:
                 "an active slot is at max_len: the scheduler admitted a "
                 "request that cannot fit (fits() is the guard)")
         last = self._dispatch_step(self._h2d(self.tok), self._h2d(self.pos))
-        # The engine's output: one [num_slots] fetch a step drives
-        # EOS/budget termination and streaming.
-        nxt = last.argmax(dim=-1).cpu().numpy()
+        # The engine's output: one [num_slots, 2] fetch a step (the
+        # tokens and the finiteness flags) drives EOS/budget termination,
+        # streaming and NaN containment.
+        nxt, self._last_ok = self._fetch(self._pack(last))
         act = self.active
         self.tok[act] = nxt[act]
         self.pos[act] += 1
@@ -283,6 +318,44 @@ class SlotDecodeEngine:
                 return None
             out.append(s)
         return out
+
+    @staticmethod
+    def _pack(logits: torch.Tensor) -> torch.Tensor:
+        """The greedy tokens at every position of ``logits`` [S, V] or
+        [S, k + 1, V], and a last column of per-slot flags, 1 where the
+        slot's logits are all finite: one int64 tensor, [S, 2] or
+        [S, k + 2], so that tokens and flags reach the host in one
+        copy. A NaN or an inf in a slot's logits makes their f32 sum
+        non-finite, and ``sum * 0 == 0`` holds only for a finite sum:
+        three launches, where ``isfinite(...).all()`` takes five."""
+        if logits.ndim == 2:
+            logits = logits[:, None]
+        ok = logits.sum(dim=(1, 2), dtype=torch.float32).mul(0).eq(0)
+        return torch.cat([logits.argmax(dim=-1), ok[:, None].long()], dim=1)
+
+    def _fetch(self, packed: torch.Tensor) -> Tuple[np.ndarray, np.ndarray]:
+        """Copy a packed step to the host, under the decode watchdog when
+        it has a timeout, with the plan's decode_stall inside the watched
+        region; returns (tokens, per-slot finite flags)."""
+        step_no = self.decode_steps + 1
+        stream = (torch.cuda.current_stream(self.device)
+                  if self.device.type == "cuda" else None)
+
+        def fetch():
+            # An injected stall sleeps here, inside the watched region,
+            # where a wedged device would hold the copy.
+            if self.fault_plan:
+                self.fault_plan.decode_stall_sleep(step_no)
+            return _host(packed, stream)
+
+        wd = self.watchdog
+        if wd is not None and wd.sync_timeout_s > 0:
+            out = wd.decode(fetch, step_no)
+        else:
+            out = fetch()
+        toks = out[:, :-1]
+        return (toks[:, 0] if toks.shape[1] == 1 else toks,
+                out[:, -1].astype(bool))
 
     def _dispatch_verify(self, toks: torch.Tensor, start: torch.Tensor
                          ) -> torch.Tensor:
@@ -340,8 +413,10 @@ class SlotDecodeEngine:
             start[s] = self.pos[s] - k
             fallback.append(s)
         logits = self._dispatch_verify(self._h2d(toks_in), self._h2d(start))
-        # The engine's output: one [num_slots, k + 1] fetch a dispatch.
-        nxt = logits.argmax(dim=-1).cpu().numpy()
+        # The engine's output: one [num_slots, k + 2] fetch a dispatch
+        # (the chain and the finiteness flags) drives acceptance,
+        # streaming and NaN containment.
+        nxt, self._last_ok = self._fetch(self._pack(logits))
         acc = np.zeros((self.num_slots,), np.int32)
         for s in range(self.num_slots):
             if not self.active[s]:
@@ -370,13 +445,81 @@ class SlotDecodeEngine:
         scheduler leaves them out of the speculation counts)."""
         return list(self._last_verify_fallback)
 
-    # -- the JAX engine's live-depth and serve-under-fire surface -------
+    # -- serving under faults (the scheduler's surface) ----------------
+
+    def take_bad_slots(self):
+        """The active slots whose last step or verify produced
+        non-finite logits: the containment signal the scheduler acts on
+        (quarantine and re-prefill of only those slots). It reads the
+        flags fetched with the tokens; no extra device work. Inactive
+        rows are left out: a freed slot's stale row is garbage nobody
+        reads, replaced by the next prefill."""
+        if self._last_ok is None:
+            return []
+        bad = [s for s in range(self.num_slots)
+               if self.active[s] and not self._last_ok[s]]
+        self.flagged_slots += len(bad)
+        return bad
+
+    def _check_slot(self, slot: int) -> None:
+        if not 0 <= slot < self.num_slots:
+            raise ValueError(
+                f"slot_nan slot {slot} out of range [0, "
+                f"{self.num_slots})")
+        if not any(t.is_floating_point() for t in self.cache.leaves()):
+            raise ValueError(
+                "slot_nan: the decode cache has no float leaves to "
+                "poison")
+
+    @torch.no_grad()
+    def poison_slot(self, slot: int) -> None:
+        """The slot_nan drill: NaN-fill the float leaves of ``slot``'s
+        cache row on the device (K and V; under int8 only the f32 scales
+        are float, and a NaN scale makes the dequantized K and V NaN), so
+        the next step's logits for that slot are non-finite through the
+        real attention, not a spoofed flag."""
+        self._check_slot(slot)
+        for t in self.cache.leaves():
+            if t.is_floating_point():
+                t[slot].fill_(float("nan"))
+
+    @torch.no_grad()
+    def swap_params(self, new_params: Mapping[str, torch.Tensor]) -> None:
+        """LIVE WEIGHT SWAP: copy ``new_params`` (the serving model's
+        parameter names, e.g. ``train.checkpoint.restore_params``) into
+        the serving tensors in place, between decode steps, without
+        draining slots. Names, shapes, dtypes and devices must equal the
+        serving tensors' (the JAX engine's contract: a drift would
+        change what the decode step computes with). In place, because
+        the tensors are shared: the paged engine's model holds the
+        caller's, and so may a draft. The caches are untouched, so a
+        swap to the same weights is token-identical."""
+        live: Dict[str, torch.Tensor] = dict(self.model.named_parameters())
+        if set(new_params) != set(live):
+            raise ValueError(
+                "live weight swap: new params tree structure differs "
+                "from the serving params (different architecture?)")
+        drift = [f"  {name}: {tuple(old.shape)}/{old.dtype} -> "
+                 f"{tuple(new_params[name].shape)}/{new_params[name].dtype}"
+                 for name, old in live.items()
+                 if (new_params[name].shape != old.shape
+                     or new_params[name].dtype != old.dtype)]
+        if drift:
+            raise ValueError(
+                "live weight swap: leaf shape/dtype drift (the hot "
+                "decode program would retrace):\n" + "\n".join(drift[:10]))
+        moved = [f"  {name}: {old.device} -> {new_params[name].device}"
+                 for name, old in live.items()
+                 if new_params[name].device != old.device]
+        if moved:
+            raise ValueError(
+                "live weight swap: leaf device drift (the serving "
+                "tensors' device):\n" + "\n".join(moved[:10]))
+        for name, old in live.items():
+            old.copy_(new_params[name])
+        self.swaps += 1
+
+    # -- the JAX engine's live-depth surface, not ported yet ------------
 
     def set_spec_k(self, k: int) -> None:
         raise _not_ported("the live speculation-depth change (set_spec_k)")
-
-    def poison_slot(self, slot: int) -> None:
-        raise _not_ported("the slot_nan fault drill (poison_slot)")
-
-    def swap_params(self, new_params) -> None:
-        raise _not_ported("the live weight swap (swap_params)")

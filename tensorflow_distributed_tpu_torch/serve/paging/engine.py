@@ -24,15 +24,21 @@ Mechanics, as in JAX:
   that page (every leaf of every layer) to a fresh one before the tail
   overwrites it;
 - **freed slots ride harmlessly**: a freed slot's table resets to the
-  write-off page 0 (``pool.GARBAGE_PAGE``).
+  write-off page 0 (``pool.GARBAGE_PAGE``);
+- **quarantine composes**: ``poison_slot`` NaN-fills only the slot's
+  PRIVATE pages (shared prefix pages survive through their refcounts),
+  and a slot that was poisoned or flagged non-finite retains nothing on
+  release: its private pages are scrubbed to zero before they return to
+  the free list, so poison never reaches a later request through a
+  masked column.
 
 The speculative verify writes and reads through the tables like the
 decode step; ``verify_fallback_slots`` adds one guard: a fallback
 re-feed never dips below a slot's ``private_start`` into shared prefix
 pages. JAX's ``prefix_hit`` and ``page_evict`` observe events are
-counters in ``paging_stats()`` here. The fire drills (``poison_slot``
-and the quarantine scrub) and ``swap_params`` are not ported yet
-(ROADMAP.md queue A).
+counters in ``paging_stats()`` here. ``swap_params`` is the dense
+engine's: the model shares the caller's tensors, and the swap copies
+into them in place.
 """
 
 from __future__ import annotations
@@ -109,6 +115,11 @@ class PagedSlotEngine(SlotDecodeEngine):
         self.prefill_tokens_dense = 0
         self.cow_copies = 0
         self.page_evictions = 0
+        # Slots drilled by poison_slot, and slots the device flagged
+        # non-finite: their release retains nothing and scrubs their
+        # private pages.
+        self._poisoned: set = set()
+        self._flagged: set = set()
         # Peak distinct pages held by live slots (a shared prefix page
         # counted once): the serving working set a memory budget must
         # cover; cached pages are evictable and sit outside it.
@@ -264,10 +275,14 @@ class PagedSlotEngine(SlotDecodeEngine):
         """Free a slot. With ``tokens`` (the request's prompt and emitted
         tokens) the written prefix is retained: its full blocks in the
         radix tree, and all of it (the partial tail page included) under
-        ``session`` when set."""
+        ``session`` when set. A slot that was poisoned or flagged
+        non-finite retains nothing: its private pages are scrubbed to zero
+        first; its shared pages are never written."""
         n = int(self.page_count[slot])
         ids = [int(p) for p in self.tables[slot, :n]]
-        if tokens is not None and self.radix is not None and ids:
+        if slot in self._poisoned or slot in self._flagged:
+            self._fill_pages(self._private_pages(slot), 0.0, floats_only=False)
+        elif tokens is not None and self.radix is not None and ids:
             written = int(self.pos[slot])
             toks = [int(t) for t in tokens][:written]
             if toks:
@@ -279,12 +294,54 @@ class PagedSlotEngine(SlotDecodeEngine):
         self.tables[slot, :] = GARBAGE_PAGE
         self.page_count[slot] = 0
         self.private_start[slot] = 0
+        self._poisoned.discard(slot)
+        self._flagged.discard(slot)
         self._tables_dev = None
         super().free(slot)
 
     def free(self, slot: int) -> None:
         """A plain free (no retention)."""
         self.release(slot)
+
+    # -- fire drills -------------------------------------------------------
+
+    def _private_pages(self, slot: int) -> List[int]:
+        """The slot's pages that no one else holds (refcount 1)."""
+        n = int(self.page_count[slot])
+        return [int(p) for p in self.tables[slot, :n]
+                if self.pool.ref[p] == 1]
+
+    @torch.no_grad()
+    def _fill_pages(self, pages: List[int], value: float,
+                    floats_only: bool) -> None:
+        """Fill the listed pages of the pool's leaves with ``value``:
+        every leaf (the quarantine scrub: int8 K and V too), or only the
+        float ones (the poison)."""
+        if not pages:
+            return
+        idx = torch.tensor(pages, dtype=torch.long, device=self.device)
+        for t in self.cache.leaves():
+            if t.is_floating_point() or not floats_only:
+                t.index_fill_(0, idx, value)
+
+    def take_bad_slots(self):
+        out = super().take_bad_slots()
+        self._flagged.update(out)
+        return out
+
+    def poison_slot(self, slot: int) -> None:
+        """The slot_nan drill, paged: NaN-fill the float leaves of the
+        slot's PRIVATE pages only (shared prefix pages must survive the
+        quarantine). An admitted slot always owns at least its tail page,
+        so the poison reaches a position its next step attends."""
+        self._check_slot(slot)
+        priv = self._private_pages(slot)
+        if not priv:
+            raise ValueError(
+                f"slot_nan: slot {slot} holds no private pages "
+                f"(is it admitted?)")
+        self._fill_pages(priv, float("nan"), floats_only=True)
+        self._poisoned.add(slot)
 
     # -- speculation -------------------------------------------------------
 
@@ -301,6 +358,12 @@ class PagedSlotEngine(SlotDecodeEngine):
             if self.pos[s] - k < self.private_start[s]:
                 return None
         return out
+
+    def _warm_drills(self) -> None:
+        """Poison, then scrub, the write-off page (the warmup zeroes the
+        pool after)."""
+        self._fill_pages([GARBAGE_PAGE], float("nan"), floats_only=True)
+        self._fill_pages([GARBAGE_PAGE], 0.0, floats_only=False)
 
     def _warm_prefills(self) -> None:
         """Each bucket's paged prefill against the write-off page (warmup

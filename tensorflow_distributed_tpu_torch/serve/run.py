@@ -30,7 +30,16 @@ With ``--checkpoint-dir`` it serves the latest checkpoint's weights
 (its EMA where it tracks one), as JAX's does; a checkpointed model's
 ``max_len`` is the trained one, so pass that ``--seq-len``. Without it
 the params are fresh-init (drawn from ``--seed``) and the summary says
-so, as in JAX. The synthetic workload's ids are drawn below
+so, as in JAX.
+
+Serving under faults: ``--resilience.fault-plan`` (``slot_nan``,
+``reload``, ``decode_stall``, ``sigterm``, ``sigkill`` on the decode-step
+clock), ``--resilience.sync-timeout-s`` (the decode watchdog),
+``--serve.slot-retries`` and ``--serve.journal`` (a non-empty journal at
+start-up RESUMES: finished requests drop, in-flight ones re-admit as
+continuations, and the plan is bound past its events, signals
+included). A ``reload`` swaps in the newest verifiable checkpoint under
+``--checkpoint-dir``. Such a run prints a ``[serve] fire:`` line. The synthetic workload's ids are drawn below
 ``--synthetic-vocab`` (64 when unset, as in JAX): a full-width run
 passes ``--synthetic-vocab 50257``. Text prompts wait for the port of
 ``--dataset text``.
@@ -40,13 +49,17 @@ from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from tensorflow_distributed_tpu_torch.config import TrainConfig
 from tensorflow_distributed_tpu_torch.models.transformer import (
     cast_dense_weights_)
+from tensorflow_distributed_tpu_torch.resilience.faults import (
+    FaultPlan, parse_fault_plan)
+from tensorflow_distributed_tpu_torch.resilience.watchdog import Watchdog
+from tensorflow_distributed_tpu_torch.serve import journal as journal_mod
 from tensorflow_distributed_tpu_torch.serve.buckets import (
     default_buckets, parse_buckets)
 from tensorflow_distributed_tpu_torch.serve.engine import SlotDecodeEngine
@@ -180,26 +193,41 @@ def _workload(cfg: TrainConfig, vocab_size: int) -> List[Request]:
             for i, (p, a) in enumerate(zip(prompts, arrivals))]
 
 
-def serve_setup(cfg: TrainConfig
-                ) -> Tuple[TrainConfig, SlotDecodeEngine, List[Request]]:
-    """Everything before the scheduler's clock starts: the workload, the
-    cache length (``--seq-len``, or sized to the workload with
-    ``spec_tokens`` of verify headroom and, paged, rounded up to a whole
-    page), the bucket ladder (covering prompt + new tokens under
-    ``policy slo``, whose preemption continuations re-prefill them), the
-    model (the checkpoint's weights with ``--checkpoint-dir``, else
-    fresh-init from ``--seed``; its dense weights held in the compute
-    dtype; its cache int8 under ``--serve.kv-dtype int8``) and the engine
-    (with ``spec_tokens``; paged with ``--serve.paged``, its pool sized by
-    ``auto_num_pages`` unless ``--serve.num-pages`` pins it). Returns the
-    config with the cache length it was given, the engine and the
-    requests."""
+def serve_setup(cfg: TrainConfig, played: Optional[Dict] = None
+                ) -> Tuple[TrainConfig, Optional[SlotDecodeEngine],
+                           List[Request]]:
+    """Everything before the scheduler's clock starts: the workload
+    (narrowed by ``played``, a replayed journal: finished requests drop,
+    in-flight ones become continuations), the cache length
+    (``--seq-len``, or sized to the workload with ``spec_tokens`` of
+    verify headroom and, paged, rounded up to a whole page), the bucket
+    ladder (covering prompt + new tokens under a fault plan, a resume or
+    ``policy slo``, whose continuations re-prefill them), the model (the
+    checkpoint's weights with ``--checkpoint-dir``, else fresh-init from
+    ``--seed``; its dense weights held in the compute dtype; its cache
+    int8 under ``--serve.kv-dtype int8``) and the engine (with
+    ``spec_tokens``, the fault plan as ``engine.fault_plan`` (bound past
+    every event on a resume) and the decode watchdog; paged with
+    ``--serve.paged``, its pool sized by ``auto_num_pages`` unless
+    ``--serve.num-pages`` pins it). Returns the config with the cache
+    length it was given, the engine and the requests; the engine is None
+    when a resume left nothing to serve."""
     cfg.validate()
     device = resolve_device(cfg.device)
     # --serve.kv-dtype is the serve-side spelling of --kv-cache-quant.
     if cfg.serve.kv_dtype == "int8" and cfg.kv_cache_quant == "none":
         cfg = dataclasses.replace(cfg, kv_cache_quant="int8")
     requests = _workload(cfg, cfg.synthetic_vocab or 64)
+    if played:
+        requests = journal_mod.apply_replay(requests, played)
+        if not requests:
+            return cfg, None, []
+    plan = (parse_fault_plan(cfg.resilience.fault_plan)
+            if cfg.resilience.fault_plan else FaultPlan())
+    if played and plan:
+        # The resumed leg is the recovery under test: every planned
+        # event is consumed (a resumed leg must terminate).
+        plan.bind(1 << 30)
     max_prompt = max(len(r.prompt) for r in requests)
     # The trajectory bound (what has to fit the cache); bucket padding is
     # prefill-only slack, clamped to the cache by the ladder's cap.
@@ -220,8 +248,10 @@ def serve_setup(cfg: TrainConfig
             ps = cfg.serve.page_size
             auto_len = -(-auto_len // ps) * ps
         cfg = dataclasses.replace(cfg, seq_len=auto_len)
-    # A preemption's continuation carries up to prompt + new - 1 tokens.
-    cover = need if cfg.serve.policy == "slo" else max_prompt
+    # A continuation (slot retry, journal resume, preemption) carries up
+    # to prompt + new - 1 tokens.
+    cover = (need if (plan or played or cfg.serve.policy == "slo")
+             else max_prompt)
     buckets = (parse_buckets(cfg.serve.buckets) if cfg.serve.buckets
                else default_buckets(cover, cap=cfg.seq_len))
     model, state = _build_model_and_state(cfg, device)
@@ -238,10 +268,13 @@ def serve_setup(cfg: TrainConfig
             model.load_state_dict(state.ema)
     del state  # the optimizer's moments are not served
     cast_dense_weights_(model)
-    spec_tokens = cfg.serve.spec_tokens
+    fire = dict(spec_tokens=cfg.serve.spec_tokens,
+                fault_plan=plan if plan else None,
+                watchdog=(Watchdog(sync_timeout_s=cfg.resilience.sync_timeout_s)
+                          if cfg.resilience.sync_timeout_s > 0 else None))
     if not cfg.serve.paged:
         engine = SlotDecodeEngine(model, cfg.serve.num_slots, buckets=buckets,
-                                  spec_tokens=spec_tokens)
+                                  **fire)
         return cfg, engine, requests
     num_pages = cfg.serve.num_pages
     if not num_pages:
@@ -258,14 +291,39 @@ def serve_setup(cfg: TrainConfig
     engine = PagedSlotEngine(model, cfg.serve.num_slots,
                              page_size=cfg.serve.page_size,
                              num_pages=num_pages, radix=cfg.serve.radix,
-                             buckets=buckets, spec_tokens=spec_tokens)
+                             buckets=buckets, **fire)
     return cfg, engine, requests
+
+
+def reload_from(cfg: TrainConfig, engine: SlotDecodeEngine):
+    """The live weight swap's source for ``--checkpoint-dir``: the newest
+    verifiable checkpoint's params, cast and placed as ``engine``
+    serves them (None without a checkpoint dir)."""
+    if not cfg.checkpoint_dir:
+        return None
+    return lambda: ckpt.restore_params(cfg.checkpoint_dir, engine.model)
 
 
 def serve_run(cfg: TrainConfig) -> Dict:
     """Run the serve workload; prints the ``[serve]`` summary line and
-    the summary as a JSON ``serve_summary`` record, and returns it."""
-    cfg, engine, requests = serve_setup(cfg)
+    the summary as a JSON ``serve_summary`` record, and returns it.
+    Raises ``SlotRetryExhausted`` (a request quarantined past its budget)
+    or ``StallError`` (the decode watchdog), which the CLI maps to exit
+    codes 2 and 3."""
+    # A non-empty journal means a previous leg died mid-traffic: resume.
+    played = (journal_mod.replay(cfg.serve.journal) if cfg.serve.journal
+              else {})
+    resumed = bool(played)
+    cfg, engine, requests = serve_setup(cfg, played)
+    if resumed:
+        done_n = sum(1 for e in played.values() if e["done"])
+        print(f"[serve] journal resume: {done_n} requests already "
+              f"complete, {len(requests)} to serve ({cfg.serve.journal})",
+              flush=True)
+    if engine is None:
+        print("[serve] journal resume: every request already complete — "
+              "nothing to serve", flush=True)
+        return {"requests": 0, "total_new_tokens": 0, "resumed": True}
     # The proposer: the k-gram self-draft, or a draft GPT mirroring the
     # slot cache (serve/speculate.py).
     speculator = build_speculator(cfg, engine.model, cfg.seed + 1,
@@ -281,13 +339,24 @@ def serve_run(cfg: TrainConfig) -> Dict:
                   + (" <done>" if done else ""), flush=True)
 
     trace = cfg.serve.trace or ("file" if cfg.serve.requests else "uniform")
+    journal = (journal_mod.RequestJournal(cfg.serve.journal)
+               if cfg.serve.journal else None)
     sched = Scheduler(engine, decode_priority=cfg.serve.decode_priority,
-                      on_token=on_token, policy=cfg.serve.policy,
+                      on_token=on_token, fault_plan=engine.fault_plan,
+                      journal=journal, reload_fn=reload_from(cfg, engine),
+                      slot_retries=cfg.serve.slot_retries,
+                      policy=cfg.serve.policy,
                       tenant_quota=cfg.serve.tenant_quota,
                       preempt=cfg.serve.preempt, speculator=speculator,
                       summary_extra={"seed": cfg.seed, "trace": trace,
-                                     "resumed": False})
-    done = sched.run(requests)
+                                     "resumed": resumed})
+    try:
+        done = sched.run(requests)
+    finally:
+        if journal is not None:
+            journal.close()
+        if engine.watchdog is not None:
+            engine.watchdog.close()
     summary = dict(sched.summary)
     ttfts = np.asarray([c.ttft_s for c in done])
     for q in (50, 95, 99):
@@ -327,5 +396,11 @@ def serve_run(cfg: TrainConfig) -> Dict:
                             if k.startswith("ttft_ms_p95_"))
         print(f"[serve] slo: preemptions={summary['preemptions']} "
               f"p95 ttft by class: {cls_bits}", flush=True)
+    if engine.fault_plan or resumed:
+        print(f"[serve] fire: retries={summary['retries']} "
+              f"swaps={summary['swaps']} "
+              f"swap_s={summary['swap_seconds']} "
+              f"resumed={summary['resumed']} "
+              f"ttft p99 {summary.get('ttft_ms_p99')}ms", flush=True)
     print(json.dumps({"event": "serve_summary", **summary}), flush=True)
     return summary

@@ -46,11 +46,39 @@ pages (an idle engine that still cannot admit raises), admits a
 session's turns in order, and folds ``engine.paging_stats()`` into the
 summary.
 
+Serving under faults (all optional):
+
+- **fault plan** (resilience/faults.py): consulted between decode steps
+  on the engine's decode-step clock: ``slot_nan`` poisons a slot's cache
+  (a slot named but empty is redirected to the lowest live one),
+  ``reload`` swaps weights, ``sigterm``/``sigkill`` self-signal
+  (``decode_stall`` is consumed inside the engine's watched fetch);
+- **slot retry**: a slot whose step (or verify) produced non-finite
+  logits, as the engine's device flag says, is quarantined: freed
+  without retention and its request re-queued at the head as a
+  continuation (prompt + the good tokens, the remaining budget), so one
+  poisoned slot costs one re-prefill and greedy determinism keeps the
+  stream. ``slot_retries`` bounds the quarantines of one request:
+  past it :class:`SlotRetryExhausted` (exit 2);
+- **journal** (serve/journal.py): admits, tokens and completions
+  append to a ``RequestJournal``, flushed every iteration, so a killed
+  leg resumes at token granularity; a replayed continuation
+  (``_base_tokens``) reports its whole stream;
+- **live weight swap**: ``reload_fn`` (serve/run.py wires it to
+  ``train.checkpoint.restore_params``) supplies new weights and the
+  engine copies them in between steps with slots live.
+
+Recovery records (``slot_quarantine``, ``weight_swap``) print as JSON
+lines on standard output. Each completion reports its ``retries`` and
+``recovery_window`` (a quarantine or swap fell between its arrival and
+its first token, or it is a journal or quarantine continuation); the
+summary adds ``retries``, ``swaps`` and ``swap_seconds``.
+
 ``clock`` is injectable so that tests can drive this scheduler and the
-JAX one on one fake clock. The JAX scheduler's other layers (fault
-plans, slot retry, the journal, the fleet inbox, the autopilot's tune
-commands, the serve observatory and the metrics export) are not ported
-yet: passing any of them is refused.
+JAX one on one fake clock. The JAX scheduler's other layers (the fleet
+inbox, the autopilot's tune commands, the serve observatory, incident
+detection and the metrics export) are not ported yet: passing any of
+them is refused.
 """
 
 from __future__ import annotations
@@ -61,6 +89,8 @@ import time
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
+
+from tensorflow_distributed_tpu_torch.utils.logging import emit_event
 
 #: SLO classes, best first: admission under policy="slo" prefers the
 #: lowest rank; a request without a class is "standard".
@@ -100,6 +130,12 @@ def parse_slo_mix(spec: str) -> Dict[str, float]:
     return out
 
 
+class SlotRetryExhausted(RuntimeError):
+    """The same request was slot-quarantined past its retry budget:
+    serve mode's divergence (greedy decoding would poison the same way
+    again, and a restart would loop). The CLI exits 2."""
+
+
 def percentile(sorted_vals: List[float], q: float) -> float:
     """Nearest-rank percentile of a sorted list (the JAX package's
     definition for per-class TTFT)."""
@@ -137,11 +173,15 @@ class Completion:
     ttft_s: float             # arrival -> first token (queue + prefill)
     decode_s: float           # first token -> last token
     queue_steps: int          # decode steps endured while admittable
+    retries: int = 0          # slot quarantines this request survived
     preempts: int = 0         # SLO preemptions this request survived
     slo: str = "standard"
     tenant: str = ""
-    decoded: int = 0          # tokens of the last admission (a preempted
-    #                           request's earlier tokens excluded)
+    recovery_window: bool = False  # a quarantine or swap fell between
+    #                                arrival and first token, or this is
+    #                                a recovery continuation
+    decoded: int = 0          # tokens of the last admission (a
+    #                           continuation's earlier tokens excluded)
 
     @property
     def tok_ms(self) -> float:
@@ -164,9 +204,11 @@ class Scheduler:
 
     def __init__(self, engine, decode_priority: int = 8,
                  on_token: Optional[Callable[[int, int, bool], None]] = None,
-                 clock=time.perf_counter, policy: str = "fifo",
-                 tenant_quota: int = 0, preempt: bool = True,
-                 speculator=None, summary_extra=None, **unported):
+                 clock=time.perf_counter, fault_plan=None, journal=None,
+                 reload_fn=None, slot_retries: int = 2,
+                 policy: str = "fifo", tenant_quota: int = 0,
+                 preempt: bool = True, speculator=None, summary_extra=None,
+                 **unported):
         if unported:
             raise NotImplementedError(
                 f"Scheduler({', '.join(sorted(unported))}) is not ported "
@@ -174,6 +216,9 @@ class Scheduler:
         if decode_priority < 1:
             raise ValueError(
                 f"decode_priority must be >= 1, got {decode_priority}")
+        if slot_retries < 0:
+            raise ValueError(
+                f"slot_retries must be >= 0, got {slot_retries}")
         if policy not in ("fifo", "slo"):
             raise ValueError(
                 f"unknown policy {policy!r}; have ('fifo', 'slo')")
@@ -184,6 +229,10 @@ class Scheduler:
         self.decode_priority = decode_priority
         self.on_token = on_token
         self.clock = clock
+        self.fault_plan = fault_plan
+        self.journal = journal
+        self.reload_fn = reload_fn    # () -> (params, checkpoint step)
+        self.slot_retries = slot_retries
         self.policy = policy
         self.tenant_quota = tenant_quota
         self.preempt = preempt
@@ -263,6 +312,8 @@ class Scheduler:
         finish order (sort by ``rid`` for submission order)."""
         eng = self.engine
         spec = self.speculator
+        plan = self.fault_plan
+        journal = self.journal
         for r in requests:
             if not eng.fits(len(r.prompt), r.max_new_tokens):
                 raise ValueError(
@@ -277,10 +328,19 @@ class Scheduler:
             sorted(requests, key=lambda r: (r.arrival_s, r.rid)))
         queue: List[Request] = []
         waited: Dict[int, int] = {}           # rid -> admittable steps
-        base: Dict[int, List[int]] = {}       # rid -> tokens before a
-        #                                       preemption's continuation
+        # rid -> tokens before a continuation (journal replay, slot
+        # retry or preemption): the completion reports base + tokens.
+        base: Dict[int, List[int]] = {
+            r.rid: list(r._base_tokens) for r in requests
+            if getattr(r, "_base_tokens", None)}
+        # rids whose base is a preemption's only (policy, not recovery).
+        policy_base: set = set()
         first_seen: Dict[int, float] = {}     # rid -> first-token time
         preempts: Dict[int, int] = {}         # rid -> preemptions
+        retries: Dict[int, int] = {}          # rid -> quarantines
+        recovery_ts: List[float] = []         # quarantine and swap times
+        total_retries = 0
+        self._swap_seconds = 0.0
         tenant_tokens: Dict[str, int] = {}    # decoded tokens a tenant
         live: Dict[int, _Live] = {}           # slot -> _Live
         done: List[Completion] = []
@@ -307,13 +367,17 @@ class Scheduler:
                 skip=(self._session_blocked(pending, queue, live)
                       if has_sessions else frozenset()))
 
-        def release(lv: _Live) -> None:
-            """Free the slot; the paged engine retains the request's
-            whole sequence (prefix cache, session)."""
+        def release(lv: _Live, retain: bool = True) -> None:
+            """Free the slot; with ``retain`` the paged engine keeps the
+            request's whole sequence (prefix cache, session). A
+            quarantine retains nothing: poisoned pages are never
+            cached."""
             del live[lv.slot]
-            if paged:
+            if paged and retain:
                 eng.release(lv.slot, tokens=[int(x) for x in lv.req.prompt]
                             + lv.tokens, session=lv.req.session)
+            elif paged:
+                eng.release(lv.slot)
             else:
                 eng.free(lv.slot)
             if spec is not None:
@@ -325,18 +389,29 @@ class Scheduler:
             rid = lv.req.rid
             prior = base.get(rid, [])
             t_first = first_seen[rid]
+            # The recovery population: a quarantine or swap fell inside
+            # arrival -> first token, or the request is a recovery
+            # continuation (a preemption's base is policy, not recovery).
+            window = (any(lv.req.arrival_s <= rt <= t_first
+                          for rt in recovery_ts)
+                      or (bool(prior) and rid not in policy_base))
             done.append(Completion(
                 rid=rid, prompt_len=len(lv.req.prompt) - len(prior),
                 tokens=prior + lv.tokens, finish=why,
                 ttft_s=t_first - lv.req.arrival_s, decode_s=t - t_first,
-                queue_steps=lv.queue_steps, preempts=preempts.get(rid, 0),
-                slo=lv.req.slo, tenant=lv.req.tenant,
+                queue_steps=lv.queue_steps, retries=retries.get(rid, 0),
+                preempts=preempts.get(rid, 0), slo=lv.req.slo,
+                tenant=lv.req.tenant, recovery_window=window,
                 decoded=len(lv.tokens)))
+            if journal is not None:
+                journal.done(rid)
             emit(rid, lv.tokens[-1], True)
 
         def retire(lv: _Live, tok: int) -> bool:
             """Append one token; True when it finished the request."""
             lv.tokens.append(tok)
+            if journal is not None:
+                journal.token(lv.req.rid, tok, now())
             if lv.req.tenant:
                 tenant_tokens[lv.req.tenant] = (
                     tenant_tokens.get(lv.req.tenant, 0) + 1)
@@ -363,7 +438,14 @@ class Scheduler:
                 spec.observe_admit(slot, req.prompt, first)
             lv = _Live(req=req, slot=slot, tokens=[], t_first=now(),
                        queue_steps=waited.pop(req.rid))
-            first_seen.setdefault(req.rid, lv.t_first)
+            if req.rid not in first_seen:
+                if journal is not None and not base.get(req.rid):
+                    # The first admission of a request (a replayed
+                    # continuation was journaled by the leg before).
+                    journal.admit(req.rid, req.prompt, req.max_new_tokens,
+                                  req.eos_id, slo=req.slo,
+                                  tenant=req.tenant, session=req.session)
+                first_seen[req.rid] = lv.t_first
             live[slot] = lv
             retire(lv, first)
 
@@ -383,8 +465,9 @@ class Scheduler:
                     f"{len(cont.prompt)} exceeds the largest bucket "
                     f"{max(eng.buckets)} — re-admission needs the ladder "
                     f"sized to prompt+new tokens (serve/run.py does this "
-                    f"when policy=slo is armed; with --serve.buckets, "
-                    f"cover the full trajectory)")
+                    f"when a fault plan, journal resume, or policy=slo is "
+                    f"armed; with --serve.buckets, cover the full "
+                    f"trajectory)")
             base[lv.req.rid] = base.get(lv.req.rid, []) + lv.tokens
             waited[lv.req.rid] = lv.queue_steps
             return cont
@@ -394,11 +477,43 @@ class Scheduler:
             waiting higher-class one gets its slot; it re-enters the
             queue as a continuation (class selection orders the queue).
             Released with retention: on the paged engine the
-            continuation's re-prefill is a prefix-cache hit."""
+            continuation's re-prefill is a prefix-cache hit. No retry
+            charge and no recovery record: this is policy, not
+            failure."""
             release(lv)
             rid = lv.req.rid
             preempts[rid] = preempts.get(rid, 0) + 1
+            # The base stays a recovery base if it was one already.
+            if not base.get(rid) or rid in policy_base:
+                policy_base.add(rid)
             queue.append(continuation(lv))
+
+        def quarantine(lv: _Live) -> None:
+            """Contain one poisoned slot: free it without retention and
+            re-queue its request at the head as a continuation (prompt +
+            the good tokens, the remaining budget), within the retry
+            budget."""
+            nonlocal total_retries, steps_since_admit
+            release(lv, retain=False)
+            rid = lv.req.rid
+            n = retries[rid] = retries.get(rid, 0) + 1
+            if n > self.slot_retries:
+                raise SlotRetryExhausted(
+                    f"request {rid} slot-quarantined {n} times "
+                    f"(budget {self.slot_retries}): repeated NaN on "
+                    f"the same request is a divergence, not a "
+                    f"transient — halting instead of hot-looping "
+                    f"re-prefills")
+            total_retries += 1
+            t = now()
+            recovery_ts.append(t)
+            emit_event("recovery", kind="slot_quarantine", rid=rid,
+                       slot=lv.slot, retry=n, t_s=round(t, 4))
+            policy_base.discard(rid)
+            queue.insert(0, continuation(lv))
+            # Re-admit without waiting out the decode-priority clock: the
+            # request was already being served.
+            steps_since_admit = self.decode_priority
 
         while pending or queue or live:
             while pending and pending[0].arrival_s <= now():
@@ -417,6 +532,8 @@ class Scheduler:
                                                   head.max_new_tokens):
                         admit(queue.pop(i))
                         steps_since_admit = 0
+                        if journal is not None:
+                            journal.flush()
                         continue
                     if not live:
                         raise RuntimeError(
@@ -440,6 +557,22 @@ class Scheduler:
                 # next arrival instead of spinning.
                 time.sleep(max(0.0, pending[0].arrival_s - now()))
                 continue
+            if plan:
+                # The serve-phase fault points on the decode-step clock:
+                # poison, swap, signal (decode_stall is consumed inside
+                # the engine's watched fetch).
+                nstep = eng.decode_steps + 1
+                bad_slot = plan.take_slot_nan(nstep)
+                if bad_slot is not None:
+                    if bad_slot not in live:
+                        # The drill wants a serving slot; the named one is
+                        # empty (its next prefill would overwrite the
+                        # poison), so the lowest live slot takes it.
+                        bad_slot = min(live)
+                    eng.poison_slot(bad_slot)
+                if plan.take_reload(nstep):
+                    self._swap(now, recovery_ts)
+                plan.maybe_signal(nstep)
             # One dispatch, one host fetch: speculative when armed. fb,
             # the verify plan: None = the whole batch's plain step, [] =
             # a full verify, a list = a mixed dispatch (those slots take
@@ -493,6 +626,12 @@ class Scheduler:
                 # clock and preemption could never trigger).
                 steps_since_admit += 1
                 waited[queue[self._pick_index(queue, tenant_tokens)].rid] += 1
+            # Containment before retirement: a flagged slot's tokens are
+            # garbage, dropped here (never retired, never journaled); its
+            # continuation derives them again.
+            for slot in getattr(eng, "take_bad_slots", lambda: [])():
+                if slot in live:
+                    quarantine(live[slot])
             for slot in list(live):
                 lv = live[slot]
                 for tok in emitted[slot]:
@@ -500,6 +639,8 @@ class Scheduler:
                     # tokens up to either are retired.
                     if retire(lv, tok):
                         break
+            if journal is not None:
+                journal.flush()
 
         wall = now()
         total = sum(len(c.tokens) for c in done)
@@ -517,6 +658,9 @@ class Scheduler:
             "decode_priority": self.decode_priority,
             "policy": self.policy,
             "preemptions": sum(preempts.values()),
+            "retries": total_retries,
+            "swaps": getattr(eng, "swaps", 0),
+            "swap_seconds": round(self._swap_seconds, 4),
             **self.summary_extra,
         }
         self.summary["tokens_per_sec"] = round(
@@ -542,4 +686,25 @@ class Scheduler:
             # The pool's occupancy, the prefix hit rate, evictions and
             # copies on write.
             self.summary.update(eng.paging_stats())
+        if journal is not None:
+            journal.flush()
         return done
+
+    def _swap(self, now, recovery_ts: List[float]) -> None:
+        """One live weight swap: new weights from ``reload_fn`` (the
+        newest verifiable checkpoint), copied in by the engine between
+        decode steps; the latency is summed into ``swap_seconds``."""
+        if self.reload_fn is None:
+            raise ValueError(
+                "fault plan requests a reload but no reload_fn is "
+                "wired (mode=serve needs --checkpoint-dir for live "
+                "weight swap)")
+        t0 = self.clock()
+        params, ckpt_step = self.reload_fn()
+        self.engine.swap_params(params)
+        dt = self.clock() - t0
+        self._swap_seconds += dt
+        t = now()
+        recovery_ts.append(t)
+        emit_event("recovery", kind="weight_swap", seconds=round(dt, 4),
+                   ckpt_step=ckpt_step, t_s=round(t, 4))

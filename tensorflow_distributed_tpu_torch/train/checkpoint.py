@@ -20,8 +20,10 @@ are kept. Only the chief writes; every rank waits for the rename.
 ``restore`` takes the newest step whose sha256 verifies: a corrupt one
 is renamed aside (``quarantined_step_XXXXXXXX``) and the next newer one
 is tried. An explicit step is exact, and its error lists the steps
-there are. The orbax backend and background saves of the JAX package
-are not ported (ROADMAP.md).
+there are. ``restore_params`` reads only the params (the EMA where there
+is one) for a live weight swap, walking back past corrupt and
+non-finite steps. The orbax backend and background saves of the JAX
+package are not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -31,13 +33,17 @@ import json
 import os
 import shutil
 import sys
-from typing import Any, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
 
 from tensorflow_distributed_tpu_torch import interop
 from tensorflow_distributed_tpu_torch.parallel import mesh as mesh_lib
 from tensorflow_distributed_tpu_torch.parallel.mesh import ONE_PROCESS, Mesh
 from tensorflow_distributed_tpu_torch.train.state import TrainState
 from tensorflow_distributed_tpu_torch.utils import serialization
+from tensorflow_distributed_tpu_torch.utils.logging import emit_event
 
 STEP_PREFIX = "step_"
 QUARANTINE_PREFIX = "quarantined_"
@@ -313,3 +319,67 @@ def restore(ckpt_dir: str, state: TrainState,
     raise CheckpointCorruptError(
         f"every checkpoint under {ckpt_dir} failed verification "
         f"(all quarantined); last error: {last_err}")
+
+
+def _host_finite(tree: Any) -> bool:
+    """True when every float leaf of a host tree is finite."""
+    for leaf in _leaves(tree):
+        arr = np.asarray(leaf)
+        if (np.issubdtype(arr.dtype, np.floating)
+                and not np.isfinite(arr).all()):
+            return False
+    return True
+
+
+def restore_params(ckpt_dir: str, model: torch.nn.Module
+                   ) -> Tuple[Dict[str, torch.Tensor], int]:
+    """PARAMS-ONLY restore for a live weight swap: the newest verifiable
+    checkpoint's params (its EMA where it has one) under the serving
+    ``model``'s parameter names, each on the device and in the dtype of
+    the live tensor it replaces. No optimizer state, no train state.
+    Returns ``(params, step)``, what ``SlotDecodeEngine.swap_params``
+    takes.
+
+    Walks back from the newest step past one that fails the sha256 or
+    decode check (quarantined, as ``restore`` does) or holds NON-FINITE
+    params (skipped with a ``swap_skip`` recovery record, not
+    quarantined: the bytes are intact)."""
+    steps = available_steps(ckpt_dir)
+    if not steps:
+        raise FileNotFoundError(
+            f"no checkpoints under {ckpt_dir} — live weight swap needs "
+            f"at least one completed save")
+    last_err: Optional[Exception] = None
+    got = None
+    for s in reversed(steps):
+        try:
+            raw = _load_native_raw(_step_dir(ckpt_dir, s))
+        except CheckpointCorruptError as e:
+            _quarantine(ckpt_dir, s, str(e))
+            last_err = e
+            continue
+        tree = raw["ema"] if raw.get("ema") is not None else raw["params"]
+        if not _host_finite(tree):
+            emit_event("recovery", kind="swap_skip", step=s,
+                       reason="non-finite params")
+            last_err = ValueError(f"params at step {s} are non-finite")
+            continue
+        got = (s, tree)
+        break
+    if got is None:
+        raise CheckpointCorruptError(
+            f"no verifiable swap target under {ckpt_dir}; last error: "
+            f"{last_err}")
+    s, tree = got
+    host = interop.params_from_flax(tree)
+    live = dict(model.named_parameters())
+    interop._check_names(host, live, "params")
+    out = {}
+    for name, t in live.items():
+        if host[name].shape != t.shape:
+            raise ValueError(
+                f"checkpoint param shape {tuple(host[name].shape)} != "
+                f"live {tuple(t.shape)} ({name}): live weight swap needs "
+                f"an identical architecture (same config)")
+        out[name] = host[name].to(device=t.device, dtype=t.dtype)
+    return out, s

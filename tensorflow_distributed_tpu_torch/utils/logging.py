@@ -3,7 +3,9 @@
 ``MetricLogger`` prints step records as ``[step N] t=...s k=v`` lines and
 other events as one JSON object per line (the JAX StdoutSink format),
 keeps the step records in a bounded ring buffer, and renders the eval
-records as the reference's ``performance`` table.
+records as the reference's ``performance`` table. ``emit_event`` prints
+one such event (the JAX package's ``observe.registry.emit_event``, which
+the port has no registry behind: the record goes to standard output).
 """
 
 from __future__ import annotations
@@ -14,6 +16,12 @@ import sys
 import time
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, TextIO
+
+
+def emit_event(event: str, **fields: Any) -> None:
+    """Print ``{"event": event, **fields}`` as one JSON line on standard
+    output (the fault and recovery records of resilience/ and serve/)."""
+    print(json.dumps({"event": event, **fields}), flush=True)
 
 
 @dataclass

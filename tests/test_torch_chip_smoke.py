@@ -220,8 +220,9 @@ def test_new_phases_run_after_the_ring_in_order():
     (model_llama, train_llama, train_window, decode_llama, serve_llama),
     then the int8 and paged caches' phases (decode_int8,
     serve_paged_identity, serve_paged), then speculation and the SLO
-    scheduler (serve_spec_identity, serve_spec, serve_slo), before the
-    kernels line."""
+    scheduler (serve_spec_identity, serve_spec, serve_slo), then serving
+    under faults (serve_fire, phase 33, inside the checkpoint directory's
+    lifetime: it swaps from it), before the kernels line."""
     import inspect
 
     src = inspect.getsource(cs.main)
@@ -237,9 +238,13 @@ def test_new_phases_run_after_the_ring_in_order():
              "phase_decode_llama(", "phase_serve_llama(",
              "phase_decode_int8(", "phase_serve_paged_identity(",
              "phase_serve_paged(", "phase_serve_spec_identity(",
-             "phase_serve_spec(", "phase_serve_slo(", 'emit({"kernels"']
+             "phase_serve_spec(", "phase_serve_slo(", "phase_serve_fire(",
+             'emit({"kernels"']
     at = [src.index(call) for call in order]
     assert at == sorted(at)
+    with_dir = src.index("as ckpt_dir:")
+    assert with_dir < src.index("phase_checkpoint(")
+    assert src.index("phase_serve_fire(torch, np, ckpt_dir") > with_dir
 
 
 @pytest.mark.parametrize("count", [1, 2, 3, 4, 8])
@@ -1125,3 +1130,145 @@ def test_serve_slo_passes_and_fails_without_preemption(tiny_smoke,
     with pytest.raises(SystemExit):
         cs.phase_serve_slo(tiny_smoke, np)
     assert "serve_slo (dense): no preemption" in capsys.readouterr().err
+
+
+# --- serving under faults (serve_fire) -----------------------------------
+
+def test_fire_argvs_parse_as_their_legs_say():
+    """(c) stalls decode step 4 for 3 s under a 1 s watchdog in bf16 at
+    full width; (d) is f32 at full width with every slot filling early
+    (decode priority 1), so requests finish before step 10's kill."""
+    from tensorflow_distributed_tpu_torch.config import parse_args
+    from tensorflow_distributed_tpu_torch.resilience.faults import (
+        parse_fault_plan)
+
+    stall = parse_args(cs.FIRE_STALL_ARGV)
+    assert (stall.model_size, stall.compute_dtype, stall.seq_len,
+            stall.resilience.sync_timeout_s) == ("small", "bfloat16", 1024,
+                                                 cs.FIRE_TIMEOUT_S)
+    ev = parse_fault_plan(stall.resilience.fault_plan)._by_step
+    assert list(ev) == [("decode_stall", 4)]
+    assert ev["decode_stall", 4].arg == cs.FIRE_STALL_S > cs.FIRE_TIMEOUT_S
+    kill = parse_args(cs.FIRE_KILL_ARGV + [
+        "--resilience.fault-plan", cs.FIRE_KILL_PLAN])
+    assert (kill.model_size, kill.compute_dtype, kill.serve.decode_priority,
+            kill.synthetic_vocab) == ("small", "float32", 1, 50257)
+    for plan in (cs.FIRE_PLAN, cs.FIRE_SPEC_PLAN):
+        kinds = parse_fault_plan(plan).kinds()
+        assert kinds <= {"slot_nan", "reload"}
+    assert cs.FIRE_PLAN.count("slot_nan") == 2 and "reload" in cs.FIRE_PLAN
+
+
+TINY_FIRE = ["--mode", "serve", "--model", "gpt_lm", "--model-size", "tiny",
+             "--compute-dtype", "float32", "--device", "cpu", "--seq-len",
+             "64", "--serve.num-slots", "4", "--serve.num-requests", "8",
+             "--serve.prompt-len-min", "4", "--serve.prompt-len-max", "12"]
+
+
+@pytest.fixture
+def fire_smoke(ckpt_smoke, tiny_spec, monkeypatch):
+    """serve_fire's legs on the CPU at a tiny size: the ckpt_smoke
+    checkpoint, tiny_spec's speculation sizes, 4 slots and 8 requests in
+    leg (a), and CLI processes of the tiny GPT on the CPU in (c) and (d);
+    the flag's profiler cost (a card's) is left out."""
+    monkeypatch.setattr(cs, "FIRE_SLOTS", 4)
+    monkeypatch.setattr(cs, "FIRE_REQUESTS", 8)
+    monkeypatch.setattr(cs, "FIRE_NEW", 12)
+    monkeypatch.setattr(cs, "FIRE_TIMEOUT_S", 0.5)
+    monkeypatch.setattr(cs, "FIRE_STALL_ARGV", TINY_FIRE + [
+        "--serve.max-new-tokens", "10", "--resilience.sync-timeout-s",
+        "0.5", "--resilience.fault-plan", "decode_stall@4:3.0s"])
+    monkeypatch.setattr(cs, "FIRE_KILL_ARGV", TINY_FIRE + [
+        "--serve.max-new-tokens", "8", "--serve.decode-priority", "1"])
+    monkeypatch.setattr(cs, "flag_cost", lambda torch, last: {})
+    return ckpt_smoke
+
+
+def test_serve_fire_leg_a_passes_and_fails_on_a_real_mismatch(
+        fire_smoke, monkeypatch, capsys):
+    """Dense then paged: identical streams through two quarantines the
+    device flag found and a swap, the paged quarantines' pages scrubbed
+    to 0, the served tensors holding the reloaded params in their own
+    storage. A swap to other weights changes the streams, and a swap
+    that writes elsewhere leaves the served tensors apart: the leg fails
+    on each."""
+    import torch
+
+    from tensorflow_distributed_tpu_torch.serve.engine import (
+        SlotDecodeEngine)
+    from tensorflow_distributed_tpu_torch.train import checkpoint
+
+    _, ckpt, _ = fire_smoke
+    serve = {"profile": {"d2h_copies_per_step": 1.0}}
+    cs.fire_leg_a(torch, ckpt, serve)
+    lines = [json.loads(l) for l in capsys.readouterr().out.splitlines()
+             if l.startswith('{"')]
+    legs = {l["leg"]: l for l in lines if l.get("phase") == "serve_fire"}
+    assert sorted(legs) == ["a: dense", "a: paged", "decode_flag"]
+    for name in ("a: dense", "a: paged"):
+        leg = legs[name]
+        assert leg["identical"] == 8 and leg["excused"] == []
+        assert (leg["retries"], leg["swaps"], leg["flags_raised"]) == (2, 1, 2)
+        assert leg["swap_seconds"] > 0 and leg["swap_wrote_through"]
+    assert [x["zero"] for x in legs["a: paged"]["scrubbed"]] == [True, True]
+    real = checkpoint.restore_params
+
+    def other_weights(ckpt_dir, model, **kw):
+        params, step = real(ckpt_dir, model, **kw)
+        return {n: t + 0.05 * torch.randn_like(t) for n, t in
+                params.items()}, step
+
+    with monkeypatch.context() as m:
+        m.setattr(checkpoint, "restore_params", other_weights)
+        with pytest.raises(SystemExit):
+            cs.fire_leg_a(torch, ckpt, serve)
+    assert "serve_fire (a: dense): request" in capsys.readouterr().err
+    swap = SlotDecodeEngine.swap_params
+
+    def swap_elsewhere(self, new_params):
+        # Counts a swap, and writes into tensors nothing serves from.
+        swap(self, {n: t.clone() for n, t in new_params.items()})
+        for name, t in self.model.named_parameters():
+            t.data = t.detach().clone()
+
+    monkeypatch.setattr(SlotDecodeEngine, "swap_params", swap_elsewhere)
+    with pytest.raises(SystemExit):
+        cs.fire_leg_a(torch, ckpt, serve)
+    assert "serve_fire (a: dense): the served tensors do not hold" in (
+        capsys.readouterr().err)
+
+
+def test_serve_fire_leg_b_passes_mid_verify(fire_smoke, capsys):
+    import numpy as np
+    import torch
+
+    cs.fire_leg_b(torch, np)
+    line = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert line["leg"] == "b: mid-verify" and line["identical"] == 8
+    assert line["retries"] == 2 and len(line["quarantined_rids"]) >= 1
+    assert line["verify_steps"] == line["decode_steps"]
+
+
+def test_serve_fire_leg_c_exits_3_and_fails_without_the_watchdog(
+        fire_smoke, monkeypatch, capsys):
+    cs.fire_leg_c()
+    line = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert line["exit"] == 3 and line["stall_to_exit_s"] < 3.0
+    monkeypatch.setattr(cs, "FIRE_STALL_ARGV", TINY_FIRE + [
+        "--serve.max-new-tokens", "6", "--resilience.fault-plan",
+        "decode_stall@4:0.2s"])
+    with pytest.raises(SystemExit):
+        cs.fire_leg_c()
+    assert "serve_fire (c): the CLI exited 0, not 3" in (
+        capsys.readouterr().err)
+
+
+def test_serve_fire_leg_d_resumes_a_killed_run(fire_smoke, capsys):
+    import torch
+
+    cs.fire_leg_d(torch)
+    line = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert (line["killed_exit"], line["resumed_exit"]) == (-9, 0)
+    assert line["finished_before_kill"] and line["identical"] == 8
+    assert line["resumed_requests"] == 8 - len(line["finished_before_kill"])
+    assert set(line["done_records"].values()) == {1}

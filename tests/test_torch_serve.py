@@ -13,7 +13,8 @@
   synthetic workload exactly (SLO classes and tenants included) and
   serves JAX's token count; the speculation and SLO flags parse and are
   checked as JAX's; every serve flag of a layer not ported yet is
-  refused, naming ROADMAP.md.
+  refused, naming ROADMAP.md (the fire layers' parity is in
+  tests/test_torch_serve_fire.py).
 """
 
 import dataclasses
@@ -206,12 +207,16 @@ def test_fifo_scheduler_makes_jax_decisions(case, monkeypatch):
 
 def test_scheduler_refusals():
     eng = _FakeEngine(_Clock())
-    for kw in (dict(journal=object()), dict(fault_plan=object()),
-               dict(slot_retries=2), dict(feed=object()),
-               dict(export_every=1.0), dict(autopilot=object()),
-               dict(tracer=object()), dict(reload_fn=object())):
+    for kw in (dict(feed=object()), dict(export_every=1.0),
+               dict(autopilot=object()), dict(tracer=object()),
+               dict(anomaly_hub=object()), dict(registry=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tsched.Scheduler(eng, **kw)
+    # The fire layers are ported (tests/test_torch_serve_fire.py).
+    tsched.Scheduler(eng, journal=object(), fault_plan=object(),
+                     slot_retries=0, reload_fn=object())
+    with pytest.raises(ValueError, match="slot_retries"):
+        tsched.Scheduler(eng, slot_retries=-1)
     with pytest.raises(ValueError, match="unknown policy"):
         tsched.Scheduler(eng, policy="lifo")
     with pytest.raises(ValueError, match="tenant_quota"):
@@ -287,9 +292,12 @@ def test_engine_surface_and_refusals():
         SlotDecodeEngine(model, num_slots=1, buckets=(8, 256))
     with pytest.raises(ValueError, match="spec_tokens"):
         SlotDecodeEngine(model, num_slots=1, spec_tokens=-1)
-    for kw in (dict(fault_plan=object()), dict(watchdog=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            SlotDecodeEngine(model, num_slots=1, **kw)
+    # The fault plan and the watchdog are the engine's (the fire drills'
+    # parity is in tests/test_torch_serve_fire.py).
+    plan, dog = object(), object()
+    armed = SlotDecodeEngine(model, num_slots=1, fault_plan=plan,
+                             watchdog=dog)
+    assert armed.fault_plan is plan and armed.watchdog is dog
     # Without spec_tokens there is no verify, as in JAX.
     assert not eng.can_verify() and eng.verify_fallback_slots() is None
     with pytest.raises(RuntimeError, match="spec_tokens > 0"):
@@ -297,10 +305,12 @@ def test_engine_surface_and_refusals():
     spec = SlotDecodeEngine(model, num_slots=2, buckets=(8, 32),
                             spec_tokens=2)
     assert spec.can_verify() and spec.verify_fallback_slots() == []
-    for call in (lambda: spec.set_spec_k(3), lambda: eng.poison_slot(0),
-                 lambda: eng.swap_params({})):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        spec.set_spec_k(3)
+    with pytest.raises(ValueError, match="out of range"):
+        eng.poison_slot(2)
+    with pytest.raises(ValueError, match="tree structure"):
+        eng.swap_params({})
 
 
 # --- --mode serve through the CLI -------------------------------------
@@ -430,7 +440,7 @@ def test_unported_serve_flags_are_refused(name):
 
 
 @pytest.mark.parametrize("argv,error", [
-    (["--serve.journal", "j.jsonl"], NotImplementedError),
+    (["--serve.inbox", "inbox.jsonl"], NotImplementedError),
     (["--checkpoint-backend", "orbax"], NotImplementedError),
     (["--checkpoint-async", "true"], NotImplementedError),
     (["--model", "mnist_cnn"], ValueError),

@@ -317,14 +317,14 @@ def test_unported_values_raise(fields):
 
 
 def test_shared_fields_have_the_jax_defaults():
-    """Every field the port's TrainConfig, MeshConfig and ServeConfig
-    share with the JAX dataclasses has the JAX default, so one bare CLI
-    call means one job in both (the model included: the reference's
-    mnist_cnn)."""
+    """Every field the port's TrainConfig, MeshConfig, ServeConfig and
+    ResilienceConfig share with the JAX dataclasses has the JAX default,
+    so one bare CLI call means one job in both (the model included: the
+    reference's mnist_cnn)."""
     port, ref = TrainConfig(), JaxConfig()
     shared = ({f.name for f in dataclasses.fields(TrainConfig)}
               & {f.name for f in dataclasses.fields(JaxConfig)}) - {
-                  "mesh", "serve"}
+                  "mesh", "serve", "resilience"}
     assert {"model", "batch_size", "learning_rate", "seed", "dataset",
             "data_dir", "validation_size", "init_scheme", "grad_accum_steps",
             "ema_decay"} <= shared
@@ -335,9 +335,10 @@ def test_shared_fields_have_the_jax_defaults():
     assert mesh == {"data", "seq"}
     for name in mesh:
         assert getattr(port.mesh, name) == getattr(ref.mesh, name), name
-    for f in dataclasses.fields(type(port.serve)):
-        assert getattr(port.serve, f.name) == getattr(ref.serve, f.name), \
-            f.name
+    for part in ("serve", "resilience"):
+        for f in dataclasses.fields(type(getattr(port, part))):
+            assert (getattr(getattr(port, part), f.name)
+                    == getattr(getattr(ref, part), f.name)), f.name
     assert port.model == "mnist_cnn"
 
 

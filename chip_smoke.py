@@ -260,7 +260,33 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
              journal with the uninterrupted stream (the top-2 gap
              excuse). Beside them the flag's own device cost on a decode
              step's logits, and the serve phase's traced step (launches,
-             device busy, one device-to-host copy a step).
+             device busy, one device-to-host copy a step);
+34. train_fire — training under faults on GPT-2-small's fused-CE path
+             (``--ce-chunk 8192 --ce-impl kernel``, 12 steps, every loss
+             logged), four legs: (a) the plain run, the same run under
+             every per-step reader (``--resilience.nonfinite skip_batch
+             --resilience.spike-window 4 --resilience.data-timeout-s 30
+             --resilience.sync-timeout-s 30``), under those readers with
+             ``halt`` in place of ``skip_batch`` (the window and the
+             watchdogs' thread hops without the verdict read before each
+             update), and the first saving every 2 steps under
+             ``ckpt_io_fail@4:2``: losses within 1e-5 of the plain run's,
+             the injection and two retries at step 4 and no other record,
+             every save landed, B1-B3 12 launches a step and B4-B6 one in
+             each run; the runs' median step ms (steps 4-8), and over the
+             four traced steps 9-12 their step ms, launches, device busy
+             ms and idle share a step; (b) ``sigterm@6`` in a
+             CLI process: exit 0, a ``preempted`` record at step 6 and the
+             save there; a ``--resume`` process runs steps 7-12; the twelve
+             losses within 1e-5 of the plain run's; (c) ``data_stall@5:3s``
+             under ``--resilience.data-timeout-s 1`` in a CLI process: exit
+             3 with a ``stall`` record naming the next-batch fetch of step
+             5, before the stall ends (the seconds from the stall to the
+             exit printed); (d) the CNN on the MNIST fixture under
+             ``nan_grad@5``: ``skip_batch`` trains past the skip record to
+             a finite loss, ``halt`` exits 2 in a CLI process, ``rewind``
+             with a save every 2 steps rewinds from 5 to 4, quarantines
+             step 6 and ends at step 12 with a finite loss (no kernel).
 
 It then prints the nvidia-smi line, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -447,6 +473,42 @@ FIRE_KILL_ARGV = ["--mode", "serve", "--model", "gpt_lm", "--model-size",
                   "8", "--serve.decode-priority", "1"]
 FIRE_KILL_PLAN = "sigkill@10"
 FIRE_CLI_TIMEOUT_S = 300  # one CLI process: CUDA start, build, serve
+# train_fire: training under faults on the fused-CE path (B1-B6) at full
+# width, TRAIN_FIRE_STEPS steps a run, every loss logged.
+TRAIN_FIRE_STEPS = 12
+TRAIN_FIRE_ARGV = ["--mode", "train", "--model", "gpt_lm", "--model-size",
+                   "small", "--seq-len", "1024", "--batch-size", "8",
+                   "--train-steps", str(TRAIN_FIRE_STEPS), "--eval-every",
+                   "0", "--eval-batch-size", "8", "--compute-dtype",
+                   "bfloat16", "--log-every", "1", "--ce-chunk", "8192",
+                   "--ce-impl", "kernel"]
+# Every per-step reader at once: the skip policy (a verdict read before
+# each update), the spike detector (each retired step's loss), the data
+# and sync watchdogs (a thread hop a fetch and a retirement).
+TRAIN_FIRE_WATCH = ["--resilience.nonfinite", "skip_batch",
+                    "--resilience.spike-window", "4",
+                    "--resilience.data-timeout-s", "30",
+                    "--resilience.sync-timeout-s", "30"]
+# The same readers with the halt policy, which reads no verdict before
+# the update: the window and the thread hops alone.
+TRAIN_FIRE_WINDOW = ["--resilience.nonfinite", "halt"] + TRAIN_FIRE_WATCH[2:]
+TRAIN_FIRE_SAVE_PLAN = "ckpt_io_fail@4:2"
+# Traced: from one step's record to another's (the profiler's start and
+# stop stay out of the untraced step times).
+TRAIN_FIRE_PROFILE = (8, 12)
+TRAIN_FIRE_SIGTERM = 6
+TRAIN_FIRE_STALL_S, TRAIN_FIRE_TIMEOUT_S = 3.0, 1.0
+TRAIN_FIRE_STALL_ARGV = TRAIN_FIRE_ARGV + [
+    "--resilience.data-timeout-s", str(TRAIN_FIRE_TIMEOUT_S),
+    "--resilience.fault-plan", f"data_stall@5:{TRAIN_FIRE_STALL_S}s"]
+TRAIN_FIRE_CNN_ARGV = ["--mode", "train", "--model", "mnist_cnn",
+                       "--dataset", "mnist", "--data-dir", FIXTURE_DIR,
+                       "--validation-size", "64", "--batch-size", "64",
+                       "--train-steps", str(TRAIN_FIRE_STEPS),
+                       "--learning-rate", "2e-3", "--eval-every", "0",
+                       "--eval-batch-size", "64", "--log-every", "1",
+                       "--resilience.fault-plan", "nan_grad@5"]
+TOL_FIRE_LOSS = 1e-5  # a run under faults vs the plain run, relative
 FLAG_CALLS = 50  # calls a profiled cycle of the flag's cost
 # Checkpoints and the modes that read them, at GPT-2-small's full width.
 CKPT_MODEL_ARGV = ["--model", "gpt_lm", "--model-size", "small",
@@ -3002,7 +3064,7 @@ def fire_engine_runs(torch, argv, paged: bool):
     return record, done, base, requests, engine
 
 
-def fire_cli(argv, what: str):
+def fire_cli(argv, what: str, phase: str = "serve_fire"):
     """``python -m tensorflow_distributed_tpu_torch.cli argv`` in a
     process of its own, its standard output read as it comes. Returns
     (exit code, output, error output, the wall time at which the output
@@ -3037,7 +3099,7 @@ def fire_cli(argv, what: str):
             proc.wait()
     sys.stderr.write(err[-3000:])
     check(not expired.is_set(),
-          f"serve_fire ({what}): the CLI ran past {FIRE_CLI_TIMEOUT_S} s")
+          f"{phase} ({what}): the CLI ran past {FIRE_CLI_TIMEOUT_S} s")
     return rc, "".join(lines), err, t_fault, t_exit
 
 
@@ -3287,6 +3349,282 @@ def phase_serve_fire(torch, np, ckpt_dir: str, serve: dict) -> None:
     fire_leg_d(torch)
 
 
+def step_losses(out: str):
+    """{step: loss} from a CLI's ``[step N] ... loss=X`` lines."""
+    got = {}
+    for line in out.splitlines():
+        m = re.match(r"\[step\s+(\d+)\].*\bloss=(\S+)", line)
+        if m:
+            got[int(m.group(1))] = float(m.group(2))
+    return got
+
+
+def fire_train(kernels, torch, argv) -> dict:
+    """One in-process run of ``argv`` through ``train()``: the recovery
+    records it printed, its losses, the latest checkpoint at each step's
+    record, the kernels' launches (counts set to 0 just before), the
+    median step ms untraced (from the step records' times, steps 4 on,
+    outside the traced steps) and, on a card, from torch.profiler over
+    the steps between the records of TRAIN_FIRE_PROFILE's two steps
+    (whole steps: each record ends in the loss fetch): the step ms,
+    launches, device busy ms a step and the device's idle share."""
+    import contextlib
+    import io
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from tensorflow_distributed_tpu_torch.config import parse_args
+    from tensorflow_distributed_tpu_torch.train import checkpoint
+    from tensorflow_distributed_tpu_torch.train.loop import train
+    from tensorflow_distributed_tpu_torch.utils.logging import MetricLogger
+
+    cfg = parse_args(argv)
+    lo, hi = TRAIN_FIRE_PROFILE
+    traced = cfg.device != "cpu"
+    window: dict = {}
+    latest = []
+
+    class Reads(MetricLogger):
+        def log(self, step, **metrics):
+            super().log(step, **metrics)
+            if cfg.checkpoint_dir:
+                latest.append(checkpoint.latest_step(cfg.checkpoint_dir))
+            if traced and step == lo:
+                window["prof"] = profile(activities=[ProfilerActivity.CUDA])
+                window["prof"].__enter__()
+                window["t0"] = time.time()
+            elif traced and step == hi:
+                torch.cuda.synchronize()
+                window["s"] = time.time() - window["t0"]
+                window["prof"].__exit__(None, None, None)
+
+    for kern in kernels:
+        kern.launches = 0
+    logger = Reads(stream=sys.stderr)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = train(cfg, logger=logger)
+    sys.stderr.write(buf.getvalue())
+    records = [r for r in logger.records if "loss" in r.metrics]
+    marks = [(r.step, r.wall_time) for r in records]
+    # Per-step times of the intervals between records from step 3 on,
+    # none overlapping the traced steps or the profiler's start and stop.
+    step_s = [(b - a) / (sb - sa) for (sa, a), (sb, b) in zip(marks,
+                                                             marks[1:])
+              if sa >= 3 and (sb <= lo or sa > hi)]
+    rec = {"losses": [r.metrics["loss"] for r in records],
+           "recovery": [json.loads(l) for l in buf.getvalue().splitlines()
+                        if l.startswith('{"event": "recovery"')],
+           "latest": latest, "final": result.final_metrics,
+           "steps": result.state.step,
+           "launches": {kern.name: kern.launches for kern in kernels},
+           "step_ms_median": (statistics.median(step_s) * 1e3
+                              if step_s else None)}
+    if "s" in window:
+        n = hi - lo
+        busy, launched = 0.0, 0
+        for e in window["prof"].key_averages():
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0)
+            if us > 0:
+                busy += us / 1e3
+                launched += e.count
+        step_ms = window["s"] / n * 1e3
+        rec.update(traced_step_ms=step_ms,
+                   launches_per_step=launched / n,
+                   device_busy_ms=busy / n if busy else None,
+                   device_idle_share=(1 - busy / n / step_ms) if busy
+                   else None)
+    return rec
+
+
+def fire_launch_check(rec, what: str) -> None:
+    """B1-B3 twelve times a step and B4-B6 once (B1 also in the final
+    eval), no ring kernel: the run went through the hand kernels."""
+    got, n = rec["launches"], rec["steps"]
+    check(got["flash_dq"] == got["flash_dkv"] == 12 * n
+          and got["flash_fwd"] >= 12 * n
+          and all(got[k] == n for k in CE_KERNELS)
+          and not any(got[k] for k in RING_KERNELS),
+          f"train_fire ({what}): not B1-B6 at every step: {got}")
+
+
+def rel_diff(got, ref) -> float:
+    return max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(got, ref))
+
+
+def train_fire_leg_a(kernels, torch) -> list:
+    """train_fire (a): the plain run, the same run under the window and
+    the watchdogs alone (TRAIN_FIRE_WINDOW), under every per-step reader
+    (TRAIN_FIRE_WATCH: the skip policy's verdict read too), and that run
+    with a save every 2 steps under ckpt_io_fail@4:2. Returns the plain
+    run's losses."""
+    from tensorflow_distributed_tpu_torch.train import checkpoint
+
+    plain = fire_train(kernels, torch, TRAIN_FIRE_ARGV)
+    window = fire_train(kernels, torch, TRAIN_FIRE_ARGV + TRAIN_FIRE_WINDOW)
+    watched = fire_train(kernels, torch, TRAIN_FIRE_ARGV + TRAIN_FIRE_WATCH)
+    with tempfile.TemporaryDirectory(prefix="tfd_train_fire_") as d:
+        fire = fire_train(kernels, torch, TRAIN_FIRE_ARGV + TRAIN_FIRE_WATCH
+                          + ["--checkpoint-dir", d, "--checkpoint-every", "2",
+                             "--resilience.fault-plan", TRAIN_FIRE_SAVE_PLAN])
+        landed = checkpoint.available_steps(d)
+    keys = ("step_ms_median", "traced_step_ms", "launches_per_step",
+            "device_busy_ms", "device_idle_share")
+    retries = [r for r in fire["recovery"] if r["kind"] == "ckpt_retry"]
+    emit({"phase": "train_fire", "leg": "a: resilience on the fused path",
+          "argv": TRAIN_FIRE_ARGV, "watch": TRAIN_FIRE_WATCH,
+          "plan": TRAIN_FIRE_SAVE_PLAN,
+          "plain": {k: plain.get(k) for k in keys},
+          "window": {k: window.get(k) for k in keys},
+          "watched": {k: watched.get(k) for k in keys},
+          "step_ms_cost": {
+              name: rec["step_ms_median"] - plain["step_ms_median"]
+              for name, rec in (("window", window), ("watched", watched))},
+          "window_max_rel_diff": rel_diff(window["losses"], plain["losses"]),
+          "watched_max_rel_diff": rel_diff(watched["losses"], plain["losses"]),
+          "fire_max_rel_diff": rel_diff(fire["losses"], plain["losses"]),
+          "retries": [(r["step"], r["attempt"]) for r in retries],
+          "latest_at_records": fire["latest"], "landed": landed,
+          "launches": plain["launches"]})
+    runs = (("plain", plain), ("window", window), ("watched", watched),
+            ("fire", fire))
+    for what, rec in runs:
+        fire_launch_check(rec, what)
+        check(len(rec["losses"]) == TRAIN_FIRE_STEPS
+              and all(math.isfinite(x) for x in rec["losses"]),
+              f"train_fire (a: {what}): losses {rec['losses']}")
+    for what, rec in runs[1:]:
+        check(rel_diff(rec["losses"], plain["losses"]) <= TOL_FIRE_LOSS,
+              f"train_fire (a: {what}): losses {rec['losses']} vs the plain "
+              f"run's {plain['losses']}")
+    check(not window["recovery"] and not watched["recovery"],
+          f"train_fire (a): the runs without faults recorded "
+          f"{window['recovery'] + watched['recovery']}")
+    check([(r["step"], r["attempt"]) for r in retries] == [(4, 1), (4, 2)]
+          and len(fire["recovery"]) == 3,
+          f"train_fire (a): records {fire['recovery']} (want the injection "
+          f"and two retries at step 4, no skip)")
+    # A step's record comes before its cadence save: the save of step k
+    # is the latest at the record of step k + 1.
+    want = [2 * ((k - 1) // 2) or None for k in range(1, TRAIN_FIRE_STEPS + 1)]
+    check(fire["latest"] == want and landed == [8, 10, 12],
+          f"train_fire (a): checkpoints {fire['latest']}, {landed}")
+    return plain["losses"]
+
+
+def train_fire_leg_b(plain) -> None:
+    """train_fire (b): sigterm@TRAIN_FIRE_SIGTERM in a CLI process saves at
+    the stopping step and exits 0; a --resume process completes the run
+    on the plain run's losses."""
+    from tensorflow_distributed_tpu_torch.train import checkpoint
+
+    with tempfile.TemporaryDirectory(prefix="tfd_train_fire_") as d:
+        argv = TRAIN_FIRE_ARGV + [
+            "--checkpoint-dir", d, "--checkpoint-every", "100",
+            "--resilience.fault-plan", f"sigterm@{TRAIN_FIRE_SIGTERM}"]
+        rc1, out1 = fire_cli(argv, "b: sigterm", "train_fire")[:2]
+        saved = checkpoint.available_steps(d)
+        rc2, out2 = fire_cli(argv + ["--resume", "true"], "b: resumed",
+                             "train_fire")[:2]
+        final = checkpoint.available_steps(d)
+    stopped = event_record(out1, "preempted") or {}
+    resumed = event_record(out2, "resumed") or {}
+    first, second = step_losses(out1), step_losses(out2)
+    losses = [{**first, **second}.get(k) for k in
+              range(1, TRAIN_FIRE_STEPS + 1)]
+    emit({"phase": "train_fire", "leg": "b: sigterm + resume",
+          "exits": [rc1, rc2], "stopped_at": stopped.get("step"),
+          "saved": saved, "resumed_at": resumed.get("step"), "final": final,
+          "first_leg_steps": sorted(first), "resumed_steps": sorted(second),
+          "max_rel_diff": (rel_diff(losses, plain)
+                           if None not in losses else None)})
+    check(rc1 == 0 and stopped.get("step") == TRAIN_FIRE_SIGTERM
+          and saved == [TRAIN_FIRE_SIGTERM],
+          f"train_fire (b): exit {rc1}, preempted {stopped}, saves {saved}")
+    check(rc2 == 0 and resumed.get("step") == TRAIN_FIRE_SIGTERM
+          and sorted(second) == list(range(TRAIN_FIRE_SIGTERM + 1,
+                                           TRAIN_FIRE_STEPS + 1))
+          and final == [TRAIN_FIRE_SIGTERM, TRAIN_FIRE_STEPS],
+          f"train_fire (b): the resumed leg exited {rc2}, resumed {resumed}, "
+          f"steps {sorted(second)}, saves {final}")
+    check(None not in losses and rel_diff(losses, plain) <= TOL_FIRE_LOSS,
+          f"train_fire (b): losses {losses} vs the plain run's {plain}")
+
+
+def train_fire_leg_c() -> None:
+    """train_fire (c): a stalled batch fetch past the data watchdog; the
+    CLI process exits 3 while the stall still sleeps."""
+    rc, out, err, t_fault, t_exit = fire_cli(TRAIN_FIRE_STALL_ARGV,
+                                             "c: stall", "train_fire")
+    stall = next((json.loads(l) for l in out.splitlines()
+                  if l.startswith('{"event": "recovery"')
+                  and '"kind": "stall"' in l), {})
+    stall_to_exit = None if t_fault is None else t_exit - t_fault
+    emit({"phase": "train_fire", "leg": "c: data stall",
+          "argv": TRAIN_FIRE_STALL_ARGV, "exit": rc, "stall": stall,
+          "stall_to_exit_s": stall_to_exit, "stall_s": TRAIN_FIRE_STALL_S,
+          "timeout_s": TRAIN_FIRE_TIMEOUT_S})
+    check(rc == 3 and "[resilience] stalled" in err
+          and stall.get("what") == "next-batch fetch"
+          and stall.get("step") == 5,
+          f"train_fire (c): exit {rc}, stall record {stall}")
+    check(stall_to_exit is not None and stall_to_exit < TRAIN_FIRE_STALL_S,
+          f"train_fire (c): exit {stall_to_exit} s after the stall began")
+
+
+def train_fire_leg_d(torch) -> None:
+    """train_fire (d): the CNN on the MNIST fixture, nan_grad@5 under
+    skip_batch (in this process), halt (a CLI process: exit 2) and rewind
+    with a save every 2 steps (in this process). No kernel runs."""
+    from tensorflow_distributed_tpu_torch.train import checkpoint
+
+    skip = fire_train([], torch, TRAIN_FIRE_CNN_ARGV + [
+        "--resilience.nonfinite", "skip_batch"])
+    rc, _, err = fire_cli(TRAIN_FIRE_CNN_ARGV + [
+        "--resilience.nonfinite", "halt"], "d: halt", "train_fire")[:3]
+    with tempfile.TemporaryDirectory(prefix="tfd_train_fire_") as d:
+        rewind = fire_train([], torch, TRAIN_FIRE_CNN_ARGV + [
+            "--resilience.nonfinite", "rewind", "--checkpoint-dir", d,
+            "--checkpoint-every", "2"])
+        names = sorted(os.listdir(d))
+        landed = checkpoint.available_steps(d)
+
+    def kinds(rec):
+        return [(r["kind"], r.get("step"), r.get("action"),
+                 r.get("from_step"), r.get("to_step")) for r in rec["recovery"]]
+
+    emit({"phase": "train_fire", "leg": "d: cnn nan_grad@5",
+          "skip": {"records": kinds(skip), "final": skip["final"],
+                   "loss_5": skip["losses"][4]},
+          "halt_exit": rc,
+          "rewind": {"records": kinds(rewind), "final": rewind["final"],
+                     "dir": names, "steps": rewind["steps"]}})
+    check(("nonfinite", 5, "skip", None, None) in kinds(skip)
+          and math.isnan(skip["losses"][4]) and skip["steps"] == 12
+          and math.isfinite(skip["final"].get("loss", math.nan)),
+          f"train_fire (d: skip): {kinds(skip)}, {skip['final']}")
+    check(rc == 2 and "[resilience] diverged" in err,
+          f"train_fire (d: halt): the CLI exited {rc}, not 2")
+    check(("rewind", None, None, 5, 4) in kinds(rewind)
+          and ("quarantine", 6, None, None, None) in kinds(rewind)
+          and "quarantined_step_00000006" in names
+          and landed[-1] == TRAIN_FIRE_STEPS and rewind["steps"] == 12
+          and math.isfinite(rewind["final"].get("loss", math.nan)),
+          f"train_fire (d: rewind): {kinds(rewind)}, {names}, "
+          f"{rewind['final']}")
+
+
+def phase_train_fire(kernels, torch) -> None:
+    """Training under faults: the four legs of the module docstring's
+    phase 34."""
+    plain = train_fire_leg_a(kernels, torch)
+    train_fire_leg_b(plain)
+    train_fire_leg_c()
+    train_fire_leg_d(torch)
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--rank"]:
@@ -3348,6 +3686,7 @@ def main(argv=None) -> int:
         phase_serve_spec(torch, serve)
         phase_serve_slo(torch, np)
         phase_serve_fire(torch, np, ckpt_dir, serve)
+    phase_train_fire(kernels, torch)
 
     err = {"flash_fwd": flash["errors"]["o_abs_err"],
            "flash_dq": flash["errors"]["dq_abs_err"],

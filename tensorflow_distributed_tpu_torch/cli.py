@@ -93,16 +93,30 @@ Examples:
         --resilience.sync-timeout-s 5 \
         --resilience.fault-plan slot_nan@5:2,slot_nan@9:0,reload@12
 
+    # training under faults: a NaN batch at step 5 skipped (its update
+    # discarded), a checkpoint write that fails twice and is retried,
+    # watchdogs on the batch fetch and each step; a SIGTERM saves and
+    # exits 0 (--resume goes on from the save):
+    python -m tensorflow_distributed_tpu_torch.cli --mode train \
+        --model mnist_cnn --dataset synthetic --batch-size 64 \
+        --train-steps 300 --checkpoint-dir /tmp/cnn --checkpoint-every 2 \
+        --resilience.nonfinite skip_batch --resilience.data-timeout-s 30 \
+        --resilience.sync-timeout-s 30 \
+        --resilience.fault-plan nan_grad@5,ckpt_io_fail@4:2
+
 Flags share the JAX CLI's spellings and defaults; flags the port does
 not parse yet are rejected (ROADMAP.md queue A lists what is still to
 come). After training, the chief prints the eval records as the
 reference's ``performance`` table, as the JAX CLI does; ``--mode eval``
 and ``--mode generate`` print an ``eval`` and a ``generate`` record;
 ``--mode serve`` prints the JAX CLI's ``[serve]`` summary line. The exit
-codes are the JAX CLI's for serving: 2 when a request is
-slot-quarantined past its retry budget (a divergence: a restart would
-poison the same way), 3 when the decode watchdog fires (a restart and a
-journal resume are the remedy), else 0.
+codes are the JAX CLI's: 2 when training diverges (a non-finite loss
+under ``--resilience.nonfinite halt``, a spent skip or rewind budget,
+``--halt-on-nonfinite``) or a request is slot-quarantined past its retry
+budget (a restart would diverge the same way), 3 when a watchdog fires
+(the next-batch fetch, a step's device sync, a decode step: a restart
+and ``--resume`` or a journal resume are the remedy), else 0, a
+preempted run (SIGTERM: the save at the stopping step) included.
 """
 
 from __future__ import annotations
@@ -120,8 +134,9 @@ from tensorflow_distributed_tpu_torch.train.loop import (
     TrainResult, evaluate_only, generate_only, train)
 from tensorflow_distributed_tpu_torch.utils.logging import MetricLogger
 
-# The JAX CLI's exit codes for serving: 2 = diverged (a request
-# slot-quarantined past its budget), 3 = stalled (the decode watchdog).
+# The JAX CLI's exit codes: 2 = diverged (a FloatingPointError in
+# training, a request slot-quarantined past its budget in serving), 3 =
+# stalled (a watchdog).
 EXIT_DIVERGED = 2
 EXIT_STALLED = 3
 
@@ -161,6 +176,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             evaluate_only(cfg)
         else:
             train_and_report(cfg)
+    except FloatingPointError as e:
+        print(f"[resilience] diverged: {e}", file=sys.stderr, flush=True)
+        return EXIT_DIVERGED
+    except StallError as e:
+        print(f"[resilience] stalled: {e}", file=sys.stderr, flush=True)
+        return EXIT_STALLED
     finally:
         mesh.shutdown()
     return 0

@@ -317,36 +317,47 @@ _SERVE_NOT_PORTED = {
 @dataclasses.dataclass
 class ResilienceConfig:
     """The JAX ``ResilienceConfig``: every field with its JAX spelling and
-    default. ``fault_plan`` and ``sync_timeout_s`` run under ``--mode
-    serve``; the train loop's policies, watchdogs and save retries are
-    not ported yet (``_RESILIENCE_NOT_PORTED``, ROADMAP.md A8) and must
-    keep their defaults."""
+    default (resilience/, train/loop.py, train/checkpoint.py)."""
 
     # Deterministic fault-injection plan, comma-separated kind@step[:arg]
-    # events (resilience/faults.py). Under mode=serve the step counts
-    # DECODE steps and the kinds are decode_stall (:duration, slept
-    # inside the decode watchdog's window), slot_nan (:slot, NaN-poisons
-    # one slot's KV cache -> quarantine and re-prefill of that slot),
-    # reload (live weight swap from --checkpoint-dir), sigterm and
-    # sigkill. The train phase's kinds (nan_grad, ckpt_io_fail,
-    # data_stall, device_loss) parse and are refused.
+    # events (resilience/faults.py). Under mode=train: nan_grad (NaN-fill
+    # that step's float batch), ckpt_io_fail (:N failures, default 1, in
+    # the cadence save at that step), data_stall (:duration, default 5s,
+    # slept inside the batch fetch), sigterm and sigkill (self-signal at
+    # that step's dispatch, first leg only); device_loss parses and is
+    # refused (ROADMAP.md A7). Under mode=serve the step counts DECODE
+    # steps and the kinds are decode_stall (:duration, slept inside the
+    # decode watchdog's window), slot_nan (:slot, NaN-poisons one slot's
+    # KV cache -> quarantine and re-prefill of that slot), reload (live
+    # weight swap from --checkpoint-dir), sigterm and sigkill.
     fault_plan: str = ""
-    # --- the train loop's knobs, not ported yet (ROADMAP.md A8) -------
+    # Non-finite-loss policy, checked on each retired step: "off" (train
+    # on, unless --halt-on-nonfinite fires at a log), "halt" (raise; exit
+    # 2), "skip_batch" (the step discards its update: params, optimizer
+    # state and count, and EMA keep their values, the step counter
+    # advances; the host charges the skip budget) or "rewind" (restore
+    # the newest finite checkpoint in place and go on from there).
     nonfinite: str = "off"  # off | halt | skip_batch | rewind
+    # Recovery budgets: spending one more halts the run.
     max_skips: int = 3
     max_rewinds: int = 1
+    # Loss spikes over a rolling window: a finite loss > spike_factor x
+    # the window median is a recovery record, and under nonfinite=rewind
+    # a budgeted rewind. 0 = off.
     spike_window: int = 0
     spike_factor: float = 10.0
+    # Watchdogs (seconds; 0 = off): the train loop's next-batch fetch
+    # (data) and its wait for each retired step (sync), and the serve
+    # engine's token fetch (sync). A breach raises StallError (exit 3)
+    # instead of hanging.
     data_timeout_s: float = 0.0
-    # Decode watchdog (seconds; 0 = off): a token fetch that outlasts it
-    # raises StallError (exit 3) instead of hanging the server.
     sync_timeout_s: float = 0.0
+    # Capped-exponential-backoff retries of a checkpoint write's I/O.
     save_retries: int = 2
     save_retry_backoff_s: float = 0.05
 
     def validate(self) -> None:
-        """The JAX ResilienceConfig's checks, with its messages, then the
-        refusal of the fields not ported yet."""
+        """The JAX ResilienceConfig's checks, with its messages."""
         if self.nonfinite not in ("off", "halt", "skip_batch",
                                   "rewind"):
             raise ValueError(
@@ -372,19 +383,6 @@ class ResilienceConfig:
                 "be >= 0")
         if self.fault_plan:
             parse_fault_plan(self.fault_plan)  # syntax at config time
-        unported = [name for name, default in _RESILIENCE_NOT_PORTED.items()
-                    if getattr(self, name) != default]
-        if unported:
-            raise NotImplementedError(
-                f"--resilience.{unported[0].replace('_', '-')}="
-                f"{getattr(self, unported[0])!r} is not ported to PyTorch "
-                f"yet (see ROADMAP.md A8)")
-
-
-# The train loop's resilience knobs, at their defaults.
-_RESILIENCE_NOT_PORTED = {
-    f.name: f.default for f in dataclasses.fields(ResilienceConfig)
-    if f.name not in ("fault_plan", "sync_timeout_s")}
 
 
 @dataclasses.dataclass
@@ -487,6 +485,10 @@ class TrainConfig:
     eval_batch_size: int = 1000
     log_every: int = 10
     log_grad_norm: bool = False
+    # Raise (exit 2) at the first log whose loss is NaN or inf, read from
+    # the log's own fetch (no extra sync); exclusive with
+    # --resilience.nonfinite, its per-step superset.
+    halt_on_nonfinite: bool = False
 
     # --- checkpoint ------------------------------------------------------
     # A durable directory of step-tagged checkpoints (train/checkpoint.py,
@@ -694,6 +696,17 @@ class TrainConfig:
         if self.kv_cache_quant not in ("none", "int8"):
             raise ValueError(
                 f"unknown kv_cache_quant {self.kv_cache_quant!r}")
+        if self.resilience.nonfinite == "rewind" and not self.checkpoint_dir:
+            raise ValueError(
+                "resilience.nonfinite=rewind restores the newest "
+                "verifiable checkpoint in-process; it requires "
+                "checkpoint_dir")
+        if self.halt_on_nonfinite and self.resilience.nonfinite != "off":
+            raise ValueError(
+                "halt_on_nonfinite=true and resilience.nonfinite are "
+                "two handlers for the same event — drop "
+                "halt_on_nonfinite (resilience.nonfinite=halt is its "
+                "per-step superset)")
         for name, default in (("moe_experts", 0), ("shard_vocab", False)):
             if getattr(self, name) != default:
                 raise todo(f"--{name.replace('_', '-')}="
@@ -704,8 +717,9 @@ class TrainConfig:
 
     def _validate_fire(self) -> None:
         """The JAX TrainConfig's phase checks of the fault plan and the
-        journal, with its messages; then the refusal of what runs only
-        in the train loop, which is not ported yet (ROADMAP.md A8)."""
+        journal, with its messages; then the refusal of ``device_loss``,
+        whose mask file and elastic restart are not ported yet (ROADMAP.md
+        A7)."""
         res = self.resilience
         if res.fault_plan:
             # A fault keyed to a phase that never consults it would sit
@@ -736,11 +750,11 @@ class TrainConfig:
                         "mask file under --checkpoint-dir (and the "
                         "elastic restart resumes from there); set "
                         "one")
-                raise NotImplementedError(
-                    f"--resilience.fault-plan under --mode train (fault "
-                    f"kinds {sorted(kinds)}): the train loop's injection "
-                    f"points are not ported to PyTorch yet (see "
-                    f"ROADMAP.md A8)")
+                if "device_loss" in kinds:
+                    raise NotImplementedError(
+                        "fault kind 'device_loss' (the device-mask file "
+                        "and the elastic restart onto the survivors) is "
+                        "not ported to PyTorch yet (see ROADMAP.md A7)")
             else:
                 raise ValueError(
                     f"resilience.fault_plan has no injection points "
@@ -749,11 +763,6 @@ class TrainConfig:
             raise ValueError(
                 "serve.journal is written by the mode=serve "
                 "scheduler; drop the flag")
-        if res.sync_timeout_s and self.mode != "serve":
-            raise NotImplementedError(
-                f"--resilience.sync-timeout-s under --mode {self.mode}: "
-                f"the train loop's sync watchdog is not ported to "
-                f"PyTorch yet (see ROADMAP.md A8)")
 
 
 def _add_dataclass_args(parser: argparse.ArgumentParser, cls,

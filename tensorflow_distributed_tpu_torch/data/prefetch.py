@@ -4,7 +4,8 @@
 The next batches' copies overlap the current step's compute. On a GPU
 each host batch goes into pinned memory and is copied with
 ``non_blocking`` on a side stream, ``size`` batches ahead of the
-consumer; before a batch is handed over, the compute stream waits on
+consumer (the JAX prefetcher's order of draws); before a batch is
+handed over, the compute stream waits on
 that copy, and ``record_stream`` tells the caching allocator that the
 compute stream reads the buffers, so none is reused while a step still
 reads it. On the CPU it is a plain look-ahead.
@@ -45,11 +46,15 @@ def to_device(batch, device: torch.device):
 def prefetch(it: Iterator[Any], device: torch.device, size: int = 2
              ) -> Iterator[Any]:
     """Yield the batches of ``it`` on ``device``, ``size`` copies in
-    flight ahead of the consumer."""
+    flight ahead of the consumer. The consumer's stream is the caller's
+    current stream when ``prefetch`` is called: the batches may then be
+    drawn on another thread (the train loop's data watchdog), whose
+    current stream is its own."""
     if device.type != "cuda":
         place, ready = (lambda b: map_batch(_host, b)), (lambda b: b)
     else:
         copy = torch.cuda.Stream(device)
+        compute = torch.cuda.current_stream(device)
 
         def place(batch):
             with torch.cuda.stream(copy):
@@ -60,11 +65,14 @@ def prefetch(it: Iterator[Any], device: torch.device, size: int = 2
 
         def ready(placed):
             batch, done = placed
-            compute = torch.cuda.current_stream(device)
             compute.wait_event(done)
             map_batch(lambda t: t.record_stream(compute), batch)
             return batch
 
+    return _ahead(it, place, ready, size)
+
+
+def _ahead(it: Iterator[Any], place, ready, size: int) -> Iterator[Any]:
     buf = collections.deque()
 
     def enqueue(n: int) -> None:
@@ -75,8 +83,10 @@ def prefetch(it: Iterator[Any], device: torch.device, size: int = 2
                 return
             buf.append(place(batch))
 
+    # The JAX prefetcher's order: the next batch is drawn when the
+    # consumer asks for this one, so a stream's side effects (the fault
+    # plan's poisoned batches) happen at the same step in both packages.
     enqueue(size)
     while buf:
-        batch = ready(buf.popleft())
+        yield ready(buf.popleft())
         enqueue(1)
-        yield batch

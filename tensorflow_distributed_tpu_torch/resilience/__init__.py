@@ -1,5 +1,6 @@
-"""Fault tolerance of the PyTorch port, the serve phase of the JAX
-package's ``resilience/``: :mod:`faults` (the fault-plan grammar and the
-serve phase's injection points) and :mod:`watchdog` (the decode
-watchdog). The train loop's policies, watchdogs and supervisor are not
-ported yet (ROADMAP.md A8)."""
+"""Fault tolerance of the PyTorch port, the JAX package's
+``resilience/``: :mod:`faults` (the fault-plan grammar and the injection
+points of training and serving), :mod:`policies` (what a non-finite loss
+or a loss spike does: halt, skip, rewind) and :mod:`watchdog` (the
+next-batch, device-sync and decode deadlines). The restart supervisor is
+not ported yet (ROADMAP.md A7)."""

@@ -1,8 +1,27 @@
 """Deterministic fault injection, the port of ``resilience/faults.py``:
-the grammar whole, and the serve phase's injection points.
+the grammar whole, and the injection points of both phases.
 
 A fault plan is a comma-separated list of ``kind@step[:arg]`` events,
-e.g. ``"decode_stall@20:0.3s,slot_nan@40:0,reload@80,sigkill@160"``.
+e.g. ``"nan_grad@40,ckpt_io_fail@80:2,data_stall@120:5s,sigterm@200"``.
+Under ``--mode train`` the step key counts train steps, and the loop
+consults the plan where real faults strike:
+
+- ``nan_grad@K``: NaN-fill the float arrays of step K's host batch
+  before it is cut to this rank's block and copied to the device, so the
+  loss and gradients of that step are non-finite through the real math.
+  Only float arrays carry the poison (the CNN's images, an LM batch's
+  loss mask); a batch of integers alone raises ValueError;
+- ``ckpt_io_fail@K[:N]``: arm N (default 1) injected ``OSError``s in the
+  checkpoint writer just before the cadence save at step K;
+  ``train/checkpoint.py`` consumes them inside its retry loop;
+- ``data_stall@K[:Ds]``: sleep D seconds (default 5) inside step K's
+  batch fetch, inside the data watchdog's window;
+- ``sigterm@K`` / ``sigkill@K``: self-signal when step K is dispatched
+  (the preemption notice, or the hard kill).
+
+``device_loss@K[:N]`` parses, and ``config.py`` refuses it: its mask
+file and the elastic supervisor are not ported yet (ROADMAP.md A7).
+
 Under ``--mode serve`` the step key counts DECODE steps (the serving
 engine's clock: serve/scheduler.py consults the plan between steps), and
 the kinds are:
@@ -18,17 +37,13 @@ the kinds are:
   and re-prefills only that slot;
 - ``reload@K``: a live weight swap before decode step K, from the newest
   verifiable checkpoint, between decode steps, without draining slots;
-- ``sigterm@K`` / ``sigkill@K``: self-signal when step K is dispatched.
-  Signal events fire on the first leg only (``bind``): a resumed leg is
-  the recovery under test, and re-firing would kill it forever.
+- ``sigterm@K`` / ``sigkill@K`` as in training.
 
-The train phase's kinds (``nan_grad``, ``ckpt_io_fail``, ``data_stall``,
-``device_loss``) parse as in JAX, and ``config.py`` refuses them: the
-train loop's injection points are not ported yet (ROADMAP.md A8).
-
-Every injection prints an ``{"event": "recovery", "kind":
-"fault_injected", ...}`` record on standard output. Events are one-shot
-per plan object.
+Signal events fire on the first leg only (``bind``): a resumed leg is
+the recovery under test, and re-firing would kill it forever. Every
+injection prints an ``{"event": "recovery", "kind": "fault_injected",
+...}`` record on standard output. Events are one-shot per plan object,
+so a rewind past an injected NaN does not poison the replayed step.
 """
 
 from __future__ import annotations
@@ -38,8 +53,11 @@ import os
 import re
 import signal
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
+import numpy as np
+
+from tensorflow_distributed_tpu_torch.data.prefetch import map_batch
 from tensorflow_distributed_tpu_torch.utils.logging import emit_event
 
 KINDS = ("nan_grad", "ckpt_io_fail", "data_stall", "sigterm", "sigkill",
@@ -145,6 +163,71 @@ class FaultPlan:
             return None
         self._fired.add(key)
         return ev
+
+    # -- train-phase injection points (step = the train step; the loop
+    #    calls these, and each is a no-op off the plan) ------------------
+    def wrap_stream(self, stream: Iterator[Any],
+                    start_step: int) -> Iterator[Any]:
+        """Apply ``nan_grad`` to a task stream whose k-th batch feeds
+        train step ``start_step + k``. The loop wraps the host stream,
+        before the sequence block and the prefetch, so the poison takes
+        the real path to the device. An empty plan returns the stream
+        as it is."""
+        if not self:
+            return stream
+
+        def gen():
+            step = start_step
+            for batch in stream:
+                step += 1
+                yield self.poison_batch(step, batch)
+
+        return gen()
+
+    def poison_batch(self, step: int, batch: Any) -> Any:
+        """NaN-fill the float arrays of step ``step``'s host batch (a
+        dict or tuple of numpy arrays)."""
+        if self._take("nan_grad", step) is None:
+            return batch
+        poisoned = [0]
+
+        def one(x):
+            if (isinstance(x, np.ndarray)
+                    and np.issubdtype(x.dtype, np.floating)):
+                poisoned[0] += 1
+                return np.full_like(x, np.nan)
+            return x
+
+        out = map_batch(one, batch)
+        if not poisoned[0]:
+            raise ValueError(
+                f"fault nan_grad@{step}: batch has no float leaves to "
+                f"poison (integer token streams can't produce a NaN "
+                f"loss this way — use a float-input task)")
+        emit_event("recovery", kind="fault_injected", fault="nan_grad",
+                   step=step)
+        return out
+
+    def maybe_stall(self, step: int) -> None:
+        """Sleep the injected stall inside the batch fetch (the data
+        watchdog wraps this call, so its deadline sees it)."""
+        ev = self._take("data_stall", step)
+        if ev is not None:
+            emit_event("recovery", kind="fault_injected",
+                       fault="data_stall", step=step,
+                       seconds=ev.arg or 5.0)
+            time.sleep(ev.arg if ev.arg is not None else 5.0)
+
+    def arm_checkpoint_faults(self, step: int) -> None:
+        """Arm N injected write failures in train/checkpoint.py just
+        before the cadence save at ``step``."""
+        ev = self._take("ckpt_io_fail", step)
+        if ev is not None:
+            from tensorflow_distributed_tpu_torch.train import checkpoint
+            n = int(ev.arg) if ev.arg is not None else 1
+            emit_event("recovery", kind="fault_injected",
+                       fault="ckpt_io_fail", step=step, failures=n)
+            checkpoint.arm_io_fault(n)
 
     def maybe_signal(self, step: int) -> None:
         """Self-SIGTERM/SIGKILL at dispatch of ``step``: first leg only

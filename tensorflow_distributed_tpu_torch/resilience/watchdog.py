@@ -1,23 +1,27 @@
-"""Device watchdog, the port of ``resilience/watchdog.py``: a silent
-hang becomes a diagnosable error.
+"""Data and device watchdog, the port of ``resilience/watchdog.py``: a
+silent hang becomes a diagnosable error.
 
 The watchdog runs a blocking call on a worker thread with a deadline; a
 breach prints a ``stall`` recovery record and raises :class:`StallError`
 naming what stalled and for how long, which a restart supervisor can act
 on (the CLI exits 3). It raises and never skips or retries the stalled
-work: recovery from a stall is process-level (restart, then resume from
-the request journal).
+work: recovery from a stall is process-level (restart, then ``--resume``
+or the request journal). Under more than one process a skip by one rank
+would leave the others waiting in their collectives.
 
-Serving uses :meth:`Watchdog.decode` (the engine's token fetch, with an
-injected ``decode_stall`` inside the watched region). The train loop's
-device-sync and next-batch watchdogs are not ported yet (ROADMAP.md A8).
+The train loop watches its next-batch fetch (:meth:`Watchdog.fetch`,
+``data_timeout_s``, with an injected ``data_stall`` inside the watched
+region) and the retirement of each step (:meth:`Watchdog.sync`,
+``sync_timeout_s``); serving watches the engine's token fetch
+(:meth:`Watchdog.decode`, ``sync_timeout_s``).
 
 Threads: PyTorch's current device and current stream belong to each
-thread, so a call that copies from the device on the worker must name
-the stream the work was queued on (the engine passes it). The worker is
-a daemon: a ``StallError`` ends the process at once,
-where a joined thread still sleeping in the stalled call would hold
-the exit.
+thread, so a call that waits on the device from the worker must name
+the stream the work was queued on: the engine passes its stream, the
+train loop an event recorded on its stream, and the prefetcher the
+consumer's stream. The worker is a daemon: a ``StallError`` ends the
+process at once, where a joined thread still sleeping in the stalled
+call would hold the exit.
 """
 
 from __future__ import annotations
@@ -41,6 +45,14 @@ def _multihost() -> bool:
             and dist.get_world_size() > 1)
 
 
+def wait_for(value: Any) -> Any:
+    """Block until the device work behind ``value`` is done (see
+    :meth:`Watchdog.sync`); returns ``value``."""
+    if isinstance(value, torch.cuda.Event):
+        value.synchronize()
+    return value
+
+
 class Watchdog:
     # One persistent hand-rolled daemon worker, not a ThreadPoolExecutor:
     # executor workers are joined at interpreter exit, so a worker still
@@ -48,7 +60,9 @@ class Watchdog:
     # StallError instead of letting it exit 3. A worker abandoned by a
     # timeout is replaced on the next call.
 
-    def __init__(self, sync_timeout_s: float = 0.0):
+    def __init__(self, data_timeout_s: float = 0.0,
+                 sync_timeout_s: float = 0.0):
+        self.data_timeout_s = data_timeout_s
         self.sync_timeout_s = sync_timeout_s
         self._requests: Optional[queue.Queue] = None
 
@@ -93,6 +107,19 @@ class Watchdog:
         if "error" in box:
             raise box["error"]
         return box["value"]
+
+    def fetch(self, fn: Callable[[], Any], step: int) -> Any:
+        """Run the next-batch fetch under the data deadline."""
+        return self._watched(fn, "next-batch fetch", step,
+                             self.data_timeout_s)
+
+    def sync(self, value: Any, step: int) -> Any:
+        """Wait for the device work behind ``value`` under the sync
+        deadline, and return ``value``: a CUDA event (recorded on the
+        stream that queued the work) is synchronised; anything else is
+        ready."""
+        return self._watched(lambda: wait_for(value), "device sync", step,
+                             self.sync_timeout_s)
 
     def decode(self, fn: Callable[[], Any], step: int) -> Any:
         """Run a serving engine's token fetch under the sync deadline,

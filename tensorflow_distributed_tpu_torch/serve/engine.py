@@ -49,6 +49,7 @@ read), ``_warm_prefills`` and ``_warm_drills``.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -325,12 +326,13 @@ class SlotDecodeEngine:
         [S, k + 1, V], and a last column of per-slot flags, 1 where the
         slot's logits are all finite: one int64 tensor, [S, 2] or
         [S, k + 2], so that tokens and flags reach the host in one
-        copy. A NaN or an inf in a slot's logits makes their f32 sum
-        non-finite, and ``sum * 0 == 0`` holds only for a finite sum:
-        three launches, where ``isfinite(...).all()`` takes five."""
+        copy. A slot's largest magnitude is below inf exactly when its
+        logits are all finite (``amax`` carries a NaN through): three
+        launches, where ``isfinite(...).all()`` takes five, and unlike a
+        sum it cannot overflow on finite logits."""
         if logits.ndim == 2:
             logits = logits[:, None]
-        ok = logits.sum(dim=(1, 2), dtype=torch.float32).mul(0).eq(0)
+        ok = logits.abs().amax(dim=(1, 2)).lt(math.inf)
         return torch.cat([logits.argmax(dim=-1), ok[:, None].long()], dim=1)
 
     def _fetch(self, packed: torch.Tensor) -> Tuple[np.ndarray, np.ndarray]:

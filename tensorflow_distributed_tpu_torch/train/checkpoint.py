@@ -15,11 +15,16 @@ One directory per checkpoint, ``<dir>/step_00001234/``:
 
 A save writes into ``step_XXXXXXXX.tmp`` and renames it, so a crash
 mid-save never leaves a partial step behind; the newest ``keep`` steps
-are kept. Only the chief writes; every rank waits for the rename.
+are kept. Only the chief writes; every rank waits for the rename. The
+write retries an ``OSError`` with capped exponential backoff
+(``set_io_policy``, from ``--resilience.save-retries`` and
+``save-retry-backoff-s``), each retry a ``ckpt_retry`` recovery record;
+``arm_io_fault`` injects failures there for the ``ckpt_io_fail`` drill.
 
 ``restore`` takes the newest step whose sha256 verifies: a corrupt one
-is renamed aside (``quarantined_step_XXXXXXXX``) and the next newer one
-is tried. An explicit step is exact, and its error lists the steps
+is renamed aside (``quarantined_step_XXXXXXXX``, with a ``quarantine``
+recovery record) and the next newer one is tried; ``quarantine_from``
+renames aside every step from one on (a rewind's poisoned saves). An explicit step is exact, and its error lists the steps
 there are. ``restore_params`` reads only the params (the EMA where there
 is one) for a live weight swap, walking back past corrupt and
 non-finite steps. The orbax backend and background saves of the JAX
@@ -33,6 +38,7 @@ import json
 import os
 import shutil
 import sys
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -162,31 +168,83 @@ def _write_json(path: str, obj: Any) -> None:
     os.replace(tmp, path)
 
 
+# The save-I/O retry policy (capped exponential backoff), module-wide as
+# in the JAX package: the train loop sets it from cfg.resilience at the
+# start of a run.
+_io_retries = 2
+_io_backoff_s = 0.05
+_io_backoff_max_s = 2.0
+# Injected write failures (the ckpt_io_fail drill): the next N write
+# attempts raise OSError inside the retry loop.
+_injected_io_failures = 0
+
+
+def set_io_policy(retries: int = 2, backoff_s: float = 0.05,
+                  backoff_max_s: float = 2.0) -> None:
+    global _io_retries, _io_backoff_s, _io_backoff_max_s
+    _io_retries, _io_backoff_s = retries, backoff_s
+    _io_backoff_max_s = backoff_max_s
+
+
+def arm_io_fault(count: int = 1) -> None:
+    global _injected_io_failures
+    _injected_io_failures = count
+
+
+def _retry_io(fn, step: int):
+    """Run a save-I/O callable, retrying an OSError up to the policy's
+    budget with capped exponential backoff; each retry prints a
+    ``ckpt_retry`` recovery record."""
+    delay = _io_backoff_s
+    for attempt in range(_io_retries + 1):
+        try:
+            return fn()
+        except OSError as e:
+            if attempt == _io_retries:
+                raise
+            emit_event("recovery", kind="ckpt_retry", step=step,
+                       attempt=attempt + 1, budget=_io_retries,
+                       error=str(e), backoff_s=round(delay, 4))
+            time.sleep(delay)
+            delay = min(delay * 2, _io_backoff_max_s)
+
+
 def _write(ckpt_dir: str, step: int, tree: dict, keep: int,
            mesh_manifest: Optional[dict] = None) -> str:
     """Serialize and atomically publish one checkpoint, then prune to
     the newest ``keep``. The state is hashed and written piece by piece
-    (no second copy of it in memory)."""
+    (no second copy of it in memory); the whole sequence retries under
+    the I/O policy."""
     final = _step_dir(ckpt_dir, step)
-    os.makedirs(ckpt_dir, exist_ok=True)
-    tmp = final + ".tmp"
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp)
-    sha = hashlib.sha256()
-    with open(os.path.join(tmp, "state.msgpack"), "wb") as f:
-        for piece in serialization.encode_chunks(tree):
-            sha.update(piece)
-            f.write(piece)
     param_bytes = sum(leaf.nbytes for leaf in _leaves(tree["params"]))
-    _write_json(os.path.join(tmp, "manifest.json"), {
-        "step": step, "param_bytes": int(param_bytes), "format": FORMAT,
-        "sha256": sha.hexdigest()})
-    if mesh_manifest is not None:
-        _write_json(os.path.join(tmp, MESH_MANIFEST), mesh_manifest)
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.rename(tmp, final)
+
+    def attempt() -> None:
+        global _injected_io_failures
+        if _injected_io_failures > 0:
+            _injected_io_failures -= 1
+            raise OSError(
+                f"injected checkpoint I/O failure at step {step} "
+                f"(resilience fault drill)")
+        os.makedirs(ckpt_dir, exist_ok=True)
+        tmp = final + ".tmp"
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        sha = hashlib.sha256()
+        with open(os.path.join(tmp, "state.msgpack"), "wb") as f:
+            for piece in serialization.encode_chunks(tree):
+                sha.update(piece)
+                f.write(piece)
+        _write_json(os.path.join(tmp, "manifest.json"), {
+            "step": step, "param_bytes": int(param_bytes), "format": FORMAT,
+            "sha256": sha.hexdigest()})
+        if mesh_manifest is not None:
+            _write_json(os.path.join(tmp, MESH_MANIFEST), mesh_manifest)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)
+
+    _retry_io(attempt, step)
     for old in available_steps(ckpt_dir)[:-keep]:
         shutil.rmtree(_step_dir(ckpt_dir, old), ignore_errors=True)
     return final
@@ -215,11 +273,14 @@ def save(ckpt_dir: str, state: TrainState, keep: int = 3,
 
 
 def _quarantine(ckpt_dir: str, step: int, reason: str) -> str:
-    """Rename a corrupt step aside (``quarantined_step_XXXXXXXX``): no
-    listing sees it again and its bytes stay for inspection. The chief
-    renames; every rank reached the same verdict from the same bytes."""
+    """Rename a step aside (``quarantined_step_XXXXXXXX``): no listing
+    sees it again and its bytes stay for inspection. The chief renames;
+    every rank reached the same verdict from the same bytes. Prints a
+    ``quarantine`` recovery record naming the mesh the step was written
+    on."""
     name = f"{STEP_PREFIX}{step:08d}"
     dst = os.path.join(ckpt_dir, QUARANTINE_PREFIX + name)
+    written = (read_mesh_manifest(ckpt_dir, step) or {}).get("mesh")
     if mesh_lib.is_chief():
         if os.path.exists(dst):
             shutil.rmtree(dst, ignore_errors=True)
@@ -229,7 +290,28 @@ def _quarantine(ckpt_dir: str, step: int, reason: str) -> str:
             pass  # already moved or removed: skipping it is what counts
         print(f"[checkpoint] quarantined step {step}: {reason}",
               file=sys.stderr, flush=True)
+    emit_event("recovery", kind="quarantine", step=step, reason=reason,
+               mesh=_format_mesh(written) if written else None)
     return dst
+
+
+def quarantine_from(ckpt_dir: str, step: int, reason: str,
+                    mesh: Mesh = ONE_PROCESS) -> List[int]:
+    """Quarantine every checkpoint at or after ``step``: a rewind's
+    companion. A bad update at step K is seen a few steps later (the
+    loop retires steps with a lag), so the cadence saves in between hold
+    the poisoned state, with intact bytes; renamed aside, ``latest_step``
+    lands on the newest save before the damage. Every rank calls it: the
+    chief renames, and every rank leaves only after the renames. Returns
+    the quarantined steps (the chief's view; empty on the other ranks)."""
+    mesh.barrier()
+    bad: List[int] = []
+    if mesh_lib.is_chief():
+        bad = [s for s in available_steps(ckpt_dir) if s >= step]
+        for s in bad:
+            _quarantine(ckpt_dir, s, reason)
+    mesh.barrier()
+    return bad
 
 
 def _load_native_raw(step_path: str) -> Any:

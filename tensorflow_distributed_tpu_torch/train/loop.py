@@ -13,6 +13,20 @@ JSON ``done`` record. ``--resume`` restores the latest checkpoint and
 continues from its step on the batches an uninterrupted run would
 draw.
 
+Faults (``config.ResilienceConfig``, all off by default): the fault
+plan's train points (``resilience/faults.py``); a non-finite loss halts,
+skips its update or rewinds to the newest finite checkpoint
+(``resilience/policies.py``), and so may a loss spike; watchdogs bound
+the next-batch fetch and the wait for each retired step
+(``resilience/watchdog.py``); checkpoint writes retry; and a SIGTERM
+stops the run at the next step with a save (``train/preemption.py``).
+A policy, a detector or a watchdog reads each step once it has retired,
+in JAX's bounded window: the oldest step is retired once more than two
+trail the dispatch, so a bad step K is seen after step K + 2 is
+dispatched (the cadence save between them is the one a rewind
+quarantines). Without any of them the loop dispatches as it always did,
+with no sync a step beyond the ``log_every`` fetch.
+
 Under ``--mesh.data D --mesh.seq S`` (D*S processes under torchrun, one
 GPU each; see ``parallel/mesh.py``) each rank draws only its data
 rank's rows of every global batch and keeps its contiguous block
@@ -24,7 +38,9 @@ eval metrics are world means; the step records, eval records and the
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import math
 from typing import Dict, Optional
 
 import numpy as np
@@ -36,14 +52,22 @@ from tensorflow_distributed_tpu_torch.data.prefetch import (
 from tensorflow_distributed_tpu_torch.models import build_model
 from tensorflow_distributed_tpu_torch.parallel import mesh as mesh_lib
 from tensorflow_distributed_tpu_torch.parallel.mesh import ONE_PROCESS, Mesh
+from tensorflow_distributed_tpu_torch.resilience.faults import (
+    FaultPlan, parse_fault_plan)
+from tensorflow_distributed_tpu_torch.resilience.policies import (
+    LossSpikeDetector, NonFinitePolicy, RecoveryBudgetExceeded)
+from tensorflow_distributed_tpu_torch.resilience.watchdog import (
+    Watchdog, wait_for)
 from tensorflow_distributed_tpu_torch.train import checkpoint as ckpt
 from tensorflow_distributed_tpu_torch.train.optim import make_optimizer
+from tensorflow_distributed_tpu_torch.train.preemption import PreemptionGuard
 from tensorflow_distributed_tpu_torch.train.state import (
     TrainState, create_train_state, ema_init, param_count)
 from tensorflow_distributed_tpu_torch.train.step import (
-    make_eval_step, make_train_step)
+    make_eval_step, make_train_step, to_host_async)
 from tensorflow_distributed_tpu_torch.train.tasks import Task, make_task
-from tensorflow_distributed_tpu_torch.utils.logging import MetricLogger, Timer
+from tensorflow_distributed_tpu_torch.utils.logging import (
+    MetricLogger, Timer, emit_event)
 
 
 @dataclasses.dataclass
@@ -218,10 +242,23 @@ def train(cfg: TrainConfig, logger: Optional[MetricLogger] = None,
         state = ckpt.restore(cfg.checkpoint_dir, state)
         start_step = state.step
         logger.log_json({"event": "resumed", "step": start_step})
-    step_fn = make_train_step(task.loss, device, cfg.seed,
-                              grad_norm_metric=cfg.log_grad_norm, mesh=mesh,
-                              accum_steps=cfg.grad_accum_steps,
-                              ema_decay=cfg.ema_decay)
+    res = cfg.resilience
+    plan = (parse_fault_plan(res.fault_plan) if res.fault_plan
+            else FaultPlan())
+    plan.bind(start_step)
+    policy = (NonFinitePolicy(res.nonfinite, res.max_skips, res.max_rewinds)
+              if res.nonfinite != "off" else None)
+    spikes = (LossSpikeDetector(res.spike_window, res.spike_factor)
+              if res.spike_window else None)
+    wdog = (Watchdog(res.data_timeout_s, res.sync_timeout_s)
+            if (res.data_timeout_s or res.sync_timeout_s) else None)
+    ckpt.set_io_policy(res.save_retries, res.save_retry_backoff_s)
+    windowed = policy is not None or spikes is not None or wdog is not None
+    step_fn = make_train_step(
+        task.loss, device, cfg.seed, grad_norm_metric=cfg.log_grad_norm,
+        mesh=mesh, accum_steps=cfg.grad_accum_steps, ema_decay=cfg.ema_decay,
+        skip_nonfinite=policy is not None and policy.mode == "skip_batch",
+        sync=wdog.sync if wdog is not None else None)
     eval_fn = make_eval_step(task.eval_loss or task.loss)
     logger.log_json({
         "event": "start", "model": cfg.model, "task": task.name,
@@ -236,33 +273,191 @@ def train(cfg: TrainConfig, logger: Optional[MetricLogger] = None,
         ckpt.save(cfg.checkpoint_dir, state, cfg.keep_checkpoints, mesh)
         saved_at = state.step
 
+    def latest() -> Optional[int]:
+        return (ckpt.latest_step(cfg.checkpoint_dir) if cfg.checkpoint_dir
+                else None)
+
     def cadence(step_now: int, metrics) -> None:
         if cfg.log_every and step_now % cfg.log_every == 0:
-            logger.log(step_now, **{k: float(v) for k, v in metrics.items()})
+            host = {k: float(v) for k, v in metrics.items()}
+            logger.log(step_now, **host)
+            if cfg.halt_on_nonfinite and not math.isfinite(host["loss"]):
+                raise FloatingPointError(
+                    f"non-finite loss {host['loss']} at step {step_now} "
+                    f"(halt_on_nonfinite=true); last durable checkpoint: "
+                    f"{latest()}")
         if cfg.eval_every and step_now % cfg.eval_every == 0:
             em = evaluate(state, eval_fn, task, cfg.eval_batch_size, device,
                           mesh)
             logger.log(step_now, **{f"val_{k}": v for k, v in em.items()})
         if (cfg.checkpoint_dir and cfg.checkpoint_every
                 and step_now % cfg.checkpoint_every == 0):
+            plan.arm_checkpoint_faults(step_now)  # fails inside this save
             save()
 
-    batches = prefetch((seq_block(b, mesh, task.seq_axis)
-                        for b in task.train_stream(start_step)), device)
+    def make_iterator(from_step: int):
+        """The task stream from ``from_step`` with the plan's poisoned
+        batches, this rank's sequence block, prefetched; rebuilt after a
+        rewind, so the replay draws the batches an uninterrupted run
+        would (an injected NaN is one-shot: the replay is clean)."""
+        stream = plan.wrap_stream(task.train_stream(from_step), from_step)
+        return prefetch((seq_block(b, mesh, task.seq_axis) for b in stream),
+                        device)
+
+    batches = make_iterator(start_step)
+
+    def fetch(step_id: int):
+        def get():
+            plan.maybe_stall(step_id)  # inside the watched fetch
+            return next(batches)
+
+        return wdog.fetch(get, step_id) if wdog is not None else get()
+
+    def retire_view(metrics):
+        """What inspecting a step needs once it retires: its loss, copied
+        to the host behind the step (with the event that says the copy
+        is done), and whether the step skipped its update."""
+        loss, done = to_host_async(metrics["loss"].detach().reshape(1))
+        return loss, done, float(metrics.get("skipped_nonfinite", 0.0))
+
+    def inspect(step_id: int, loss, skipped: float) -> Optional[int]:
+        """The policy's and the detector's reading of one retired step:
+        the step to rewind from, or None; raises on a halt. Reads nothing
+        when neither is configured."""
+        if policy is None and spikes is None:
+            return None
+        if policy is None and cfg.log_every and step_id % cfg.log_every:
+            # A detector without a policy is advisory: it samples the
+            # log cadence, as in JAX.
+            return None
+        host_loss = float(loss.reshape(-1)[0])
+        if not math.isfinite(host_loss) or skipped > 0:
+            if policy is None:
+                return None
+            action = policy.on_nonfinite(step_id, host_loss)
+            if action == "halt":
+                raise RecoveryBudgetExceeded(
+                    policy.halt_message(step_id, host_loss, latest()))
+            return None if action == "skip" else step_id
+        if spikes is not None:
+            med = spikes.observe(host_loss)
+            if med is not None:
+                if policy is None:
+                    emit_event("recovery", kind="loss_spike", step=step_id,
+                               loss=round(host_loss, 6),
+                               window_median=round(med, 6))
+                    return None
+                action = policy.on_spike(step_id, host_loss, med)
+                if action == "halt":
+                    raise RecoveryBudgetExceeded(
+                        policy.halt_message(step_id, host_loss, latest()))
+                if action == "rewind":
+                    return step_id
+        return None
+
+    def retire(entry) -> Optional[int]:
+        step_id, loss, done, skipped = entry
+        if wdog is not None:
+            wdog.sync(done, step_id)
+        else:
+            wait_for(done)
+        return inspect(step_id, loss, skipped)
+
+    def rewind(bad_step: int) -> int:
+        """Restore, in place, the newest checkpoint from before the bad
+        step whose params are finite, and return its step. The saves at
+        and after the bad step hold the poisoned state (intact bytes):
+        they are quarantined first; a restored candidate whose params
+        are not finite (damage older than the detection) is quarantined
+        in turn, walking back."""
+        nonlocal saved_at
+        _sync(device)
+        ckpt.quarantine_from(
+            cfg.checkpoint_dir, bad_step,
+            reason=f"saved at/after non-finite step {bad_step} (rewind)",
+            mesh=mesh)
+        while True:
+            target = ckpt.latest_step(cfg.checkpoint_dir)
+            if target is None:
+                raise FloatingPointError(
+                    "resilience.nonfinite=rewind: non-finite loss at step "
+                    f"{bad_step} with no finite durable checkpoint before "
+                    "it — nothing to rewind to (checkpoint_dir="
+                    f"{cfg.checkpoint_dir!r}, checkpoint_every="
+                    f"{cfg.checkpoint_every})")
+            ckpt.restore(cfg.checkpoint_dir, state)
+            if bool(torch.stack([torch.isfinite(p).all()
+                                 for p in state.params.values()]).all()):
+                break
+            ckpt.quarantine_from(
+                cfg.checkpoint_dir, target,
+                reason=f"restored params non-finite (damage predates step "
+                       f"{target})", mesh=mesh)
+        saved_at = None
+        logger.log_json({"event": "rewound", "step": state.step})
+        emit_event("recovery", kind="rewind", from_step=bad_step,
+                   to_step=state.step)
+        if spikes is not None:
+            spikes.reset()  # the replayed steps approach the spike again
+        return state.step
+
+    want_rewind = None  # the bad step when a rewind is ordered
     with Timer() as first_t:
         if cfg.train_steps > start_step:
-            state, metrics = step_fn(state, next(batches))
+            # A signal planned for this step fires before the guard is
+            # armed: a sigterm here is a hard crash of the first leg.
+            plan.maybe_signal(start_step + 1)
+            state, metrics = step_fn(state, fetch(start_step + 1))
             _sync(device)
             cadence(start_step + 1, metrics)
+            want_rewind = inspect(start_step + 1, metrics["loss"].detach(),
+                                  float(metrics.get("skipped_nonfinite", 0)))
     steps_done = 1 if cfg.train_steps > start_step else 0
-    with Timer() as train_t:
-        for i in range(start_step + steps_done, cfg.train_steps):
-            state, metrics = step_fn(state, next(batches))
-            cadence(i + 1, metrics)
-        _sync(device)
+    # Steps dispatched and not yet retired (windowed runs only).
+    inflight: collections.deque = collections.deque()
+    guard = PreemptionGuard(enabled=bool(cfg.checkpoint_dir))
+    try:
+        with Timer() as train_t:
+            next_start = start_step + steps_done
+            while True:  # a pass a rewind; other exits leave at once
+                if want_rewind is not None:
+                    next_start = rewind(want_rewind)
+                    batches = make_iterator(next_start)
+                    want_rewind = None
+                for i in range(next_start, cfg.train_steps):
+                    if guard.should_stop(i):
+                        logger.log_json({"event": "preempted", "step": i})
+                        break
+                    plan.maybe_signal(i + 1)
+                    state, metrics = step_fn(state, fetch(i + 1))
+                    if windowed:
+                        inflight.append((i + 1, *retire_view(metrics)))
+                        if len(inflight) > 2:
+                            want_rewind = retire(inflight.popleft())
+                            if want_rewind is not None:
+                                inflight.clear()
+                                break
+                    cadence(i + 1, metrics)
+                if want_rewind is None and guard.fired is None:
+                    # The trailing steps pass the same checks: a NaN on
+                    # the last steps must not slip out unhandled.
+                    while inflight and want_rewind is None:
+                        want_rewind = retire(inflight.popleft())
+                    inflight.clear()
+                if want_rewind is None:
+                    break
+            _sync(device)
+    finally:
+        guard.close()
+        if wdog is not None:
+            wdog.close()
+    preempted = guard.fired is not None
+    if preempted and cfg.checkpoint_dir:
+        save()  # the notice's grace period is for this save: before eval
     with Timer() as eval_t:
-        final = evaluate(state, eval_fn, task, cfg.eval_batch_size, device,
-                         mesh)
+        final = ({} if preempted else
+                 evaluate(state, eval_fn, task, cfg.eval_batch_size, device,
+                          mesh))
     if cfg.checkpoint_dir and saved_at != state.step:
         save()  # the final state, unless its cadence save just wrote it
     steady = max(state.step - start_step - steps_done, 0)

@@ -18,18 +18,28 @@ bit-identical. The tasks normalize each rank's loss by the global count
 runs each backward on its loss divided by A, then does one all-reduce
 and one update: the mean of the microbatch gradients, as the JAX scan;
 the metrics are microbatch means.
+
+``skip_nonfinite`` (``--resilience.nonfinite skip_batch``) discards the
+update of a step whose loss or gradient norm is not finite: the params,
+the optimizer state and its count, and the EMA keep their values, and
+only the step counter advances, as the JAX step's ``where``. The
+optimizer's count and learning rate are host numbers here, so the step
+reads its verdict on the host before the update (one device sync a step,
+under this policy only) and leaves the update out; the metrics carry
+``skipped_nonfinite``.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from tensorflow_distributed_tpu_torch.data.prefetch import map_batch
 from tensorflow_distributed_tpu_torch.parallel.mesh import ONE_PROCESS, Mesh
+from tensorflow_distributed_tpu_torch.resilience.watchdog import wait_for
 from tensorflow_distributed_tpu_torch.train.optim import global_norm
 from tensorflow_distributed_tpu_torch.train.state import (
     TrainState, ema_update)
@@ -46,10 +56,29 @@ def step_seed(seed: int, rank: int, step: int) -> int:
         1, np.uint64)[0])
 
 
+def to_host_async(values: torch.Tensor
+                  ) -> Tuple[torch.Tensor, Optional[torch.cuda.Event]]:
+    """Start a copy of ``values`` (a few scalars) to the host, behind the
+    work queued so far: on a GPU a non-blocking copy into pinned memory
+    and an event recorded after it on the current stream, which a later
+    wait (``resilience/watchdog.wait_for``, on any thread) can block on
+    without waiting for work queued after it. Returns (the host tensor,
+    the event; None on the CPU, where the values are ready)."""
+    if not values.is_cuda:
+        return values, None
+    host = torch.empty(values.shape, dtype=values.dtype, pin_memory=True)
+    host.copy_(values, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(values.device))
+    return host, done
+
+
 def make_train_step(loss: LossFn, device: torch.device, seed: int = 0,
                     grad_norm_metric: bool = False,
                     mesh: Mesh = ONE_PROCESS, accum_steps: int = 1,
-                    ema_decay: float = 0.0
+                    ema_decay: float = 0.0, skip_nonfinite: bool = False,
+                    sync: Optional[Callable[[torch.cuda.Event, int],
+                                            object]] = None
                     ) -> Callable[[TrainState, Batch],
                                   Tuple[TrainState, Metrics]]:
     """Build the train step for a model on ``device``. Dropout draws
@@ -60,7 +89,10 @@ def make_train_step(loss: LossFn, device: torch.device, seed: int = 0,
     one would. The microbatches draw from it in order.
     ``grad_norm_metric`` reports the pre-clip global gradient norm as
     ``metrics["grad_norm"]``. ``ema_decay`` > 0 updates ``state.ema``
-    (which the caller made, ``state.ema_init``) after each update."""
+    (which the caller made, ``state.ema_init``) after each update.
+    ``skip_nonfinite``: see the module docstring; ``sync(event, step)``,
+    when given, waits for the verdict's copy (the loop passes its
+    watchdog's ``sync``), else the event is waited on directly."""
     generator = torch.Generator(device=device)
 
     def step(state: TrainState, batch: Batch) -> Tuple[TrainState, Metrics]:
@@ -85,12 +117,26 @@ def make_train_step(loss: LossFn, device: torch.device, seed: int = 0,
         if grad_norm_metric:
             metrics = dict(metrics,
                            grad_norm=global_norm(list(grads.values())))
-        with torch.no_grad():
-            updates = state.tx.update(grads, state.opt_state, params)
-            torch._foreach_add_(list(params.values()),
-                                [updates[n] for n in params])
+        apply = True
+        if skip_nonfinite:
+            # The loss sees forward-side NaNs, the global norm (f32, as
+            # optax's) backward-only ones: a finite loss over overflowed
+            # gradients. One multi-tensor launch for the leaves' norms.
+            norm = torch.linalg.vector_norm(torch.stack(
+                torch._foreach_norm(list(grads.values()))))
+            ok = torch.isfinite(metrics["loss"]) & torch.isfinite(norm)
+            host, done = to_host_async(ok.reshape(1))
+            (sync or (lambda ev, _: wait_for(ev)))(done, state.step + 1)
+            apply = bool(host[0])
+            metrics = dict(metrics, skipped_nonfinite=torch.tensor(
+                0.0 if apply else 1.0))
+        if apply:
+            with torch.no_grad():
+                updates = state.tx.update(grads, state.opt_state, params)
+                torch._foreach_add_(list(params.values()),
+                                    [updates[n] for n in params])
         state.model.zero_grad(set_to_none=True)  # frees the grads early
-        if ema_decay:
+        if ema_decay and apply:
             ema_update(state.ema, params, ema_decay, state.step)
         state.step += 1
         return state, {k: v.detach() for k, v in metrics.items()}

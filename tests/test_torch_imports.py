@@ -54,15 +54,20 @@ def test_port_and_chip_smoke_import_without_jax():
     # (ring_attention and mesh), data (MNIST and the prefetcher
     # included), train (the checkpoints included), utils (the msgpack
     # codec included), serve (the paged cache's pool, radix cache and
-    # engine included; the journal and resilience/: the port keeps its own
-    # copies of the jax-free JAX modules).
+    # engine included; the journal and resilience/ with the bad-step
+    # policies, and train/preemption.py: the port keeps its own copies of
+    # the jax-free JAX modules, observe/anomaly.py's spike detector
+    # included).
     words = out.stdout.split()
-    assert int(words[1]) >= 36
+    assert int(words[1]) >= 38
     for name in ("parallel.mesh", "models.cnn", "data.mnist",
                  "data.prefetch", "utils.serialization", "train.checkpoint",
                  "serve.paging", "serve.paging.pool", "serve.paging.radix",
                  "serve.paging.engine", "serve.journal", "resilience",
-                 "resilience.faults", "resilience.watchdog"):
+                 "resilience.faults", "resilience.watchdog",
+                 "resilience.policies", "train.preemption", "train.loop",
+                 "train.step", "train.checkpoint", "data.prefetch", "cli",
+                 "config", "serve.engine"):
         assert f"tensorflow_distributed_tpu_torch.{name}" in words[2:]
 
 

@@ -132,8 +132,10 @@ def test_prefetch_reads_ahead_by_size():
 
     it = prefetch(source(), torch.device("cpu"), size=3)
     first = next(it)
-    assert int(first["x"]) == 0 and pulled == [0, 1, 2, 3]
-    assert [int(b["x"]) for b in it] == [1, 2, 3, 4, 5]
+    assert int(first["x"]) == 0 and pulled == [0, 1, 2]
+    second = next(it)
+    assert int(second["x"]) == 1 and pulled == [0, 1, 2, 3]
+    assert [int(b["x"]) for b in it] == [2, 3, 4, 5]
 
 
 def test_to_device_and_map_batch_keep_the_structure():

@@ -4,8 +4,9 @@
   bad specs, messages included, and the serve phase's points fire once
   each, as JAX's do; ``bind`` consumes events and silences signals.
 - The ``ResilienceConfig`` has JAX's fields and defaults, and the phase
-  and journal checks raise JAX's messages on the same configs; what only
-  the train loop runs is refused naming ROADMAP.md A8.
+  and journal checks raise JAX's messages on the same configs; the train
+  loop's knobs that were once refused are accepted as in JAX, and
+  ``device_loss`` stays refused naming ROADMAP.md A7.
 - On a fake fire engine (continuation-aware token streams, a poisoned
   slot's row garbage and flagged) advancing one fake clock, the port's
   and JAX's schedulers make the same decisions: quarantines (records and
@@ -180,9 +181,8 @@ def test_resilience_config_has_the_jax_fields_and_defaults():
             == [f.name for f in dataclasses.fields(ref)])
     for f in dataclasses.fields(port):
         assert getattr(port, f.name) == getattr(ref, f.name), f.name
-    assert set(tconfig._RESILIENCE_NOT_PORTED) == {
-        f.name for f in dataclasses.fields(port)} - {"fault_plan",
-                                                    "sync_timeout_s"}
+    # Every field runs in the port: none is refused at its default's side.
+    assert not hasattr(tconfig, "_RESILIENCE_NOT_PORTED")
 
 
 CKPT = "/tmp/never-read"
@@ -237,14 +237,23 @@ def test_fire_config_checks_equal_jax(case):
     (dict(), dict(sync_timeout_s=3.0), "sync-timeout-s under --mode train"),
     (dict(mode="serve", model="gpt_lm"), dict(save_retries=5),
      "resilience.save-retries"),
+    (dict(checkpoint_dir=CKPT), dict(fault_plan="device_loss@3:2"),
+     "device_loss"),
 ])
 def test_train_loop_resilience_is_refused_naming_a8(case):
+    """The five train-loop knobs the port once refused (naming ROADMAP.md
+    A8) now run: both packages accept each. ``device_loss`` (with the
+    checkpoint directory its mask file needs) is the one still refused,
+    naming A7 (the elastic restart)."""
     cfg_kw, res_kw, what = case
-    kind, msg = _validate(tconfig, cfg_kw, res_kw, {})
-    assert kind == "NotImplementedError" and what in msg
-    assert "ROADMAP.md A8" in msg
+    got = _validate(tconfig, cfg_kw, res_kw, {})
     # JAX runs each of these.
     assert _validate(jconfig, cfg_kw, res_kw, {})[0] == "ok"
+    if what == "device_loss":
+        assert got[0] == "NotImplementedError" and what in got[1]
+        assert "ROADMAP.md A7" in got[1] and "A8" not in got[1]
+    else:
+        assert got == ("ok", None), what
 
 
 def test_fire_flags_parse_as_jax(tmp_path):
@@ -934,7 +943,8 @@ def test_one_host_copy_carries_tokens_and_flags(kind, pair_name, request,
 def test_packed_flag_is_the_all_finite_flag(shape, dtype):
     """The packed flag equals ``isfinite(row).all()`` for a clean row, a
     NaN, a +inf, a -inf, and a +inf beside a -inf; the tokens are the
-    argmax."""
+    argmax. Finite rows whose sum overflows (f32: 50257 logits of 1e34;
+    bf16: eight of 3e38) are flagged finite, as JAX's flag does."""
     g = torch.Generator().manual_seed(0)
     logits = (torch.randn(shape, generator=g) * 30).to(dtype)
     row = (0,) * (len(shape) - 2)
@@ -949,6 +959,18 @@ def test_packed_flag_is_the_all_finite_flag(shape, dtype):
     assert packed[:, -1].tolist() == (
         torch.isfinite(flat).flatten(1).all(1).long().tolist())
     assert torch.equal(packed[:, :-1], flat.argmax(-1))
+    big = {torch.float32: ((2, 1, 50257), 1e34),
+           torch.bfloat16: ((2, 1, 8), 3e38)}[dtype]
+    huge = torch.full(big[0], big[1], dtype=dtype)
+    if len(shape) == 2:
+        huge = huge[:, 0]
+    jax_ok = jnp.isfinite(jnp.asarray(huge.float().numpy(), dtype=(
+        jnp.float32 if dtype == torch.float32 else jnp.bfloat16))).all(
+            axis=tuple(range(1, huge.ndim)))
+    assert bool(torch.isinf(huge.sum(dim=tuple(range(1, huge.ndim)),
+                                     dtype=torch.float32)).all())
+    got = tengine.SlotDecodeEngine._pack(huge)[:, -1]
+    assert got.tolist() == np.asarray(jax_ok).astype(int).tolist() == [1, 1]
 
 
 def test_paged_quarantine_scrubs_private_pages_and_keeps_shared(tiny):

@@ -93,6 +93,29 @@ Examples:
         --resilience.sync-timeout-s 5 \
         --resilience.fault-plan slot_nan@5:2,slot_nan@9:0,reload@12
 
+    # the BASELINE families: BERT-base masked LM (non-causal flash
+    # kernels), ResNet-50 on ImageNet-shaped synthetic images, ResNet-20
+    # on CIFAR-10 (the binary batches under --data-dir, else the
+    # synthetic twin) with sync BN over D processes:
+    python -m tensorflow_distributed_tpu_torch.cli --model bert_mlm \
+        --seq-len 512 --synthetic-vocab 30522 --batch-size 16
+    python -m tensorflow_distributed_tpu_torch.cli --model resnet50 \
+        --dataset imagenet_synthetic --batch-size 64
+    torchrun --standalone --nproc-per-node 4 \
+        -m tensorflow_distributed_tpu_torch.cli --mesh.data 4 \
+        --model resnet20 --dataset cifar10 --data-dir /data/cifar10
+
+    # a byte-level GPT on a local text file (--text-tokenizer bpe trains
+    # a BPE on it with the tokenizers package), then a text prompt;
+    # --data-backend u8_native gathers vision batches from uint8 storage
+    # with the native runtime (built with g++ into build/torch_native/):
+    python -m tensorflow_distributed_tpu_torch.cli --model gpt_lm \
+        --dataset text --data-dir corpus.txt --seq-len 1024 \
+        --batch-size 8 --checkpoint-dir /tmp/text
+    python -m tensorflow_distributed_tpu_torch.cli --mode generate \
+        --model gpt_lm --dataset text --data-dir corpus.txt --seq-len 1024 \
+        --checkpoint-dir /tmp/text --prompt "Once upon a time"
+
     # training under faults: a NaN batch at step 5 skipped (its update
     # discarded), a checkpoint write that fails twice and is retried,
     # watchdogs on the batch fetch and each step; a SIGTERM saves and

@@ -35,10 +35,15 @@ SCHEDULES = ("constant", "cosine", "warmup_cosine")
 OPTIMIZERS = ("adam", "sgd", "adafactor")
 COMPUTE_DTYPES = ("bfloat16", "float32")
 CE_IMPLS = ("scan", "kernel")
-MODEL_SIZES = ("", "small", "medium", "large", "xl", "tiny")
-LM_MODELS = ("gpt_lm",)
-VISION_MODELS = ("mnist_cnn",)
-DATASETS = ("mnist", "synthetic")
+MODEL_SIZES = ("", "small", "medium", "large", "xl", "tiny", "base")
+LM_MODELS = ("gpt_lm", "bert_mlm")
+# The LM families with the decode cache (generate, serve, windows).
+CAUSAL_LM_MODELS = ("gpt_lm",)
+VISION_MODELS = ("mnist_cnn", "resnet20", "resnet50")
+DATASETS = ("mnist", "synthetic", "cifar10", "cifar10_synthetic",
+            "imagenet_synthetic", "text")
+TEXT_TOKENIZERS = ("byte", "bpe")
+DATA_BACKENDS = ("numpy", "u8_native")
 INIT_SCHEMES = ("improved", "reference")
 MODES = ("train", "eval", "generate", "serve")
 SERVE_TRACES = ("poisson", "bursty", "diurnal")
@@ -387,19 +392,22 @@ class ResilienceConfig:
 
 @dataclasses.dataclass
 class TrainConfig:
-    """One job of the port: training (mnist_cnn or gpt_lm on one device,
-    or on ``mesh.data`` x ``mesh.seq`` devices), evaluating or continuing
-    a prompt from a checkpoint (``mode="eval"``, ``"generate"``), or
-    serving gpt_lm on one device (``mode="serve"``)."""
+    """One job of the port: training (mnist_cnn, resnet20, resnet50,
+    bert_mlm or gpt_lm on one device, or on ``mesh.data`` x ``mesh.seq``
+    devices), evaluating or continuing a prompt from a checkpoint
+    (``mode="eval"``, ``"generate"``), or serving gpt_lm on one device
+    (``mode="serve"``)."""
 
     # --- model -----------------------------------------------------------
-    # mnist_cnn (the reference's CNN, the JAX default) | gpt_lm.
+    # mnist_cnn (the reference's CNN, the JAX default) | resnet20 |
+    # resnet50 | bert_mlm | gpt_lm.
     model: str = "mnist_cnn"
     # mnist_cnn's init: "improved" (He-normal kernels, zero biases) or
     # "reference" (normal(1) for every weight and bias, as the
     # reference's tf.random_normal).
     init_scheme: str = "improved"
-    # GPT-2 ladder size ("small" ... "xl") or "tiny"; empty = "small".
+    # GPT-2 ladder size ("small" ... "xl") or "tiny"; empty = "small"
+    # (gpt_lm); bert_mlm takes "base" (the empty default) or "tiny".
     model_size: str = ""
     dropout_rate: float = 0.25
     # bfloat16 matmuls (the flash kernels need bf16; float32 trains and
@@ -446,9 +454,13 @@ class TrainConfig:
     shard_vocab: bool = False
 
     # --- data ------------------------------------------------------------
-    # mnist_cnn: "mnist" (the idx files under data_dir, or the synthetic
-    # digits with a warning when they are missing) | "synthetic". The LM
-    # trains on its synthetic token stream whatever this says.
+    # The vision families: "mnist" (the idx files under data_dir, or the
+    # synthetic digits with a warning when they are missing) |
+    # "synthetic" | "cifar10" (the binary batches under data_dir, or the
+    # synthetic twin with a warning) | "cifar10_synthetic" |
+    # "imagenet_synthetic" (data/cifar.py). The LM families train on
+    # their synthetic token stream whatever this says, EXCEPT "text": a
+    # causal LM over the local file named by data_dir (data/lm.py).
     dataset: str = "mnist"
     data_dir: str = "/tmp/mnist-data"
     # Rows carved off the head of the MNIST train split for validation.
@@ -459,8 +471,20 @@ class TrainConfig:
     # Vocabulary of the synthetic token stream, and of the model built
     # over it when set; 0 = a 64-token stream under the size's vocab.
     synthetic_vocab: int = 0
+    # dataset='text' tokenization: "byte" (vocab = the 256 byte values,
+    # any file) or "bpe" (byte-level BPE trained ON the corpus with the
+    # ``tokenizers`` package, cached next to the file). The model vocab
+    # follows the tokenizer (data/lm.py::text_clm).
+    text_tokenizer: str = "byte"  # byte | bpe
+    # Target merge count for text_tokenizer='bpe' (uint16 storage caps it
+    # at 65536; tiny corpora may train fewer).
+    bpe_vocab_size: int = 8192
     batch_size: int = 256
     shuffle_seed: int = 0
+    # "u8_native": keep images as uint8 and gather batches with the C++
+    # threaded gather (data/u8.py, native/runtime.py; numpy without a
+    # toolchain). The same sample stream either way.
+    data_backend: str = "numpy"  # numpy | u8_native
 
     # --- optimization ----------------------------------------------------
     # adam (adamw when weight_decay > 0) | sgd | adafactor
@@ -511,7 +535,8 @@ class TrainConfig:
     mode: str = "train"
 
     # --- mode=generate ---------------------------------------------------
-    # Comma-separated token ids (the port has no text tokenizer yet).
+    # Text for dataset=text (its tokenizer encodes it and decodes the
+    # continuation), else comma-separated token ids.
     prompt: str = ""
     max_new_tokens: int = 64
     # 0 = greedy; > 0 samples (optionally truncated by gen_top_k /
@@ -542,10 +567,10 @@ class TrainConfig:
         if self.mode not in MODES:
             raise ValueError(f"unknown mode {self.mode!r}; have {MODES}")
         serving = self.mode == "serve"
-        if serving and self.model not in LM_MODELS:
+        if serving and self.model not in CAUSAL_LM_MODELS:
             raise ValueError(
                 f"mode=serve needs a causal LM with the decode cache "
-                f"({', '.join(LM_MODELS)}), got {self.model!r}")
+                f"({', '.join(CAUSAL_LM_MODELS)}), got {self.model!r}")
         if serving and (self.mesh.seq != 1 or self.mesh.data not in (-1, 1)):
             raise todo("--mode serve over a --mesh.* of more than one "
                        "process")
@@ -566,10 +591,11 @@ class TrainConfig:
         if self.mode == "eval" and not self.checkpoint_dir:
             raise ValueError("mode=eval requires checkpoint_dir")
         if self.mode == "generate":
-            if self.model not in LM_MODELS:
+            if self.model not in CAUSAL_LM_MODELS:
                 raise ValueError(
                     f"mode=generate needs a causal LM with the decode "
-                    f"cache ({', '.join(LM_MODELS)}), got {self.model!r}")
+                    f"cache ({', '.join(CAUSAL_LM_MODELS)}), got "
+                    f"{self.model!r}")
             if not self.checkpoint_dir:
                 raise ValueError("mode=generate requires checkpoint_dir")
             if not self.prompt:
@@ -602,6 +628,16 @@ class TrainConfig:
             raise todo(f"--model {self.model}")
         if self.dataset not in DATASETS:
             raise todo(f"--dataset {self.dataset}")
+        if self.data_backend not in DATA_BACKENDS:
+            raise ValueError(f"unknown data_backend {self.data_backend!r}")
+        if self.text_tokenizer not in TEXT_TOKENIZERS:
+            raise ValueError(
+                f"unknown text_tokenizer {self.text_tokenizer!r}")
+        if self.text_tokenizer == "bpe" and not (
+                2 <= self.bpe_vocab_size <= 65536):
+            raise ValueError(
+                f"bpe_vocab_size must be in [2, 65536], "
+                f"got {self.bpe_vocab_size}")
         if self.init_scheme not in INIT_SCHEMES:
             raise ValueError(f"unknown init_scheme {self.init_scheme!r}")
         if self.optimizer not in OPTIMIZERS:
@@ -647,6 +683,10 @@ class TrainConfig:
                 raise ValueError(
                     f"{name} has no effect on model={self.model!r} (LM "
                     f"families only); drop the flag")
+        if self.synthetic_vocab and self.dataset == "text":
+            raise ValueError(
+                "synthetic_vocab has no effect with dataset='text' "
+                "(the byte corpus pins vocab to 256); drop the flag")
         if self.ce_chunk < 0:
             raise ValueError(
                 f"ce_chunk must be >= 0, got {self.ce_chunk}")
@@ -668,7 +708,7 @@ class TrainConfig:
             raise ValueError(
                 f"attn_window must be >= 0, got {self.attn_window}")
         if self.attn_window:
-            if not lm:
+            if self.model not in CAUSAL_LM_MODELS:
                 raise ValueError(
                     "attn_window needs a causal LM family "
                     "(gpt_lm | moe_lm | pipelined_lm)")
@@ -795,9 +835,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> TrainConfig:
     parser = argparse.ArgumentParser(
         prog="tensorflow_distributed_tpu_torch",
         description="PyTorch/CUDA port of tensorflow_distributed_tpu "
-        "(the reference's MNIST CNN or a GPT causal LM, on one GPU or on "
-        "--mesh.data x --mesh.seq GPUs under torchrun; --mode serve runs "
-        "a GPT's continuous-batching inference on one GPU)",
+        "(the reference's MNIST CNN, ResNet-20/50, BERT masked LM or a GPT "
+        "causal LM, on one GPU or on --mesh.data x --mesh.seq GPUs under "
+        "torchrun; --mode serve runs a GPT's continuous-batching "
+        "inference on one GPU)",
         allow_abbrev=False)
     _add_dataclass_args(parser, TrainConfig)
     ns, unknown = parser.parse_known_args(argv)

@@ -6,9 +6,10 @@ seeded generator draws, same splits), so both packages train on the
 same rows. Global batch B over P processes: process p takes rows
 [p*B/P, (p+1)*B/P) of each global batch (``data/batcher.py``), so a
 D-way data-parallel run consumes exactly the sample stream of a 1-way
-run. The idx files are read from disk with numpy; the JAX package's
-native C++ reader and the uint8 batch gather (``data/u8.py``) are not
-ported (ROADMAP.md A4(c)).
+run. The idx files are read by the native C++ reader where it builds
+(``native/runtime.py``), else with numpy; ``load_dataset`` dispatches
+over every vision dataset (the CIFAR-10 and synthetic image sets are
+``data/cifar.py``'s).
 """
 
 from __future__ import annotations
@@ -55,6 +56,14 @@ def parse_idx(raw: bytes) -> np.ndarray:
 
 
 def _read_idx_file(path: str) -> np.ndarray:
+    # The native reader parses idx(.gz) off the GIL; numpy otherwise.
+    from tensorflow_distributed_tpu_torch.native import runtime as native
+
+    if native.available():
+        try:
+            return native.idx_read(path)
+        except (IOError, KeyError):
+            pass
     opener = gzip.open if path.endswith(".gz") else open
     with opener(path, "rb") as f:
         return parse_idx(f.read())
@@ -62,7 +71,8 @@ def _read_idx_file(path: str) -> np.ndarray:
 
 @dataclasses.dataclass
 class Dataset:
-    """One split: images float32 [N,28,28,1] in [0,1]; labels int32 [N]."""
+    """One split: images float32 [N, H, W, C] in [0, 1] (MNIST's
+    [N, 28, 28, 1]); labels int32 [N]."""
 
     images: np.ndarray
     labels: np.ndarray
@@ -170,9 +180,12 @@ def synthetic_mnist(n_train: int = 12000, n_test: int = 2000,
 def load_dataset(dataset: str, data_dir: str, seed: int = 0,
                  validation_size: int = 5000
                  ) -> Tuple[Dataset, Dataset, Dataset]:
-    """(train, validation, test) of ``dataset``: "synthetic", or "mnist"
-    from ``data_dir``, which falls back to the synthetic digits with a
-    warning when the files are absent (host data, not a device path)."""
+    """(train, validation, test) of ``dataset``, any vision family: the
+    real sets ("mnist", "cifar10") from ``data_dir`` fall back to their
+    synthetic twins with a warning when the files are absent (host data,
+    not a device path)."""
+    from tensorflow_distributed_tpu_torch.data import cifar
+
     if dataset == "synthetic":
         return synthetic_mnist(seed=seed)
     if dataset == "mnist":
@@ -185,9 +198,18 @@ def load_dataset(dataset: str, data_dir: str, seed: int = 0,
             return synthetic_mnist(seed=seed,
                                    validation_size=min(validation_size,
                                                        1000))
-    raise NotImplementedError(
-        f"dataset {dataset!r} is not ported to PyTorch yet (see "
-        f"ROADMAP.md queue A)")
+    if dataset == "cifar10":
+        try:
+            return cifar.load_cifar10(data_dir, validation_size)
+        except FileNotFoundError as e:
+            print(f"[data] {e} — falling back to synthetic cifar10.")
+            return cifar.synthetic_cifar10(
+                seed=seed, validation_size=min(validation_size, 1000))
+    if dataset == "cifar10_synthetic":
+        return cifar.synthetic_cifar10(seed=seed)
+    if dataset == "imagenet_synthetic":
+        return cifar.synthetic_imagenet(seed=seed)
+    raise ValueError(f"unknown dataset {dataset!r}")
 
 
 class ShardedBatcher(Batcher):

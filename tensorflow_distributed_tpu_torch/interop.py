@@ -25,7 +25,7 @@ from the flax leaf's layout (Adafactor keeps its statistics there).
 ``state_to_flax`` and ``state_from_flax`` map the port's ``TrainState``
 to and from the dict that ``flax.serialization.to_state_dict`` makes of
 the JAX ``TrainState``: ``step`` (int32), ``params``, ``opt_state``,
-``extra`` (``{}``), ``ema`` (a param tree or None). ``opt_state`` nests
+``extra`` (``{}``, or a ResNet's ``batch_stats``), ``ema`` (a param tree or None). ``opt_state`` nests
 as the optax chain of ``train/optim.py`` does, each member's state a
 dict keyed by its position:
 
@@ -57,9 +57,11 @@ import numpy as np
 import torch
 from torch import nn
 
+from tensorflow_distributed_tpu_torch.models.resnet import BatchNorm
 from tensorflow_distributed_tpu_torch.models.transformer import (
     KVCache, RMSNorm, SelfAttention, kv_heads)
-from tensorflow_distributed_tpu_torch.train.state import TrainState, ema_init
+from tensorflow_distributed_tpu_torch.train.state import (
+    TrainState, ema_init, model_extra)
 
 
 def _walk(tree: Mapping[str, Any], prefix=()):
@@ -71,13 +73,20 @@ def _walk(tree: Mapping[str, Any], prefix=()):
             yield path, np.asarray(value)
 
 
+def _is_conv(module: str, leaf: np.ndarray) -> bool:
+    """A flax Conv kernel (HWIO): the CNN's and ResNet's ``conv*`` and
+    the ResNet shortcut's 1x1 ``proj`` (a 4-D attention kernel is
+    ``qkv``)."""
+    return leaf.ndim == 4 and (module.startswith("conv") or module == "proj")
+
+
 def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """flax param tree (numpy leaves) -> the port's state dict (f32 CPU
     tensors)."""
     out = {}
     for path, leaf in _walk(tree):
         *module, name = path
-        if name == "kernel" and module[-1].startswith("conv"):
+        if name == "kernel" and _is_conv(module[-1], leaf):
             value = leaf.transpose(3, 2, 0, 1)
         elif name == "kernel":
             # The attention's DenseGeneral "out" contracts two input
@@ -126,6 +135,8 @@ def flax_layout(model: nn.Module, name: str
         return path + ["embedding"], same, same
     if isinstance(module, RMSNorm):
         return path + ["scale"], same, same
+    if isinstance(module, BatchNorm):
+        return path + ["scale" if kind == "weight" else "bias"], same, same
     if isinstance(module, nn.LayerNorm):
         return path + ["scale" if kind == "weight" else "bias"], same, same
     if isinstance(module, nn.Conv2d):
@@ -217,6 +228,29 @@ def _opt_to_flax(state: TrainState, convert) -> Dict[str, Any]:
     return {"0": {}, "1": tree} if tx.clip_norm else tree
 
 
+def extra_to_flax(model: nn.Module) -> Dict[str, Any]:
+    """The model's non-param collections as the JAX ``TrainState.extra``:
+    ``{"batch_stats": {<BN path>: {"mean", "var"}}}`` for a model with
+    BatchNorm, ``{}`` otherwise."""
+    stats = [(name.split("."), t) for name, t in model_extra(model).items()]
+    return {"batch_stats": _nest(stats)} if stats else {}
+
+
+@torch.no_grad()
+def extra_from_flax(tree: Mapping[str, Any], model: nn.Module) -> None:
+    """Load a JAX ``extra`` (``batch_stats``) into the model's BN buffers
+    in place, after checking names and shapes; pending statistics of an
+    unfinished step are dropped."""
+    dst = model_extra(model)
+    src = {".".join(path): torch.from_numpy(leaf.astype(np.float32))
+           for path, leaf in _walk(tree.get("batch_stats", {}))}
+    _check_names(src, dst, "batch_stats")
+    for name, t in dst.items():
+        _copy_checked(t, src[name], f"batch_stats {name}")
+    if dst:
+        model.commit_batch_stats(keep=False)
+
+
 def state_to_flax(state: TrainState) -> Dict[str, Any]:
     """The port's train state -> the JAX ``TrainState``'s state dict
     (numpy leaves on the host), in the JAX field and key order."""
@@ -226,7 +260,7 @@ def state_to_flax(state: TrainState) -> Dict[str, Any]:
     return {"step": np.asarray(state.step, np.int32),
             "params": convert(state.params),
             "opt_state": _opt_to_flax(state, convert),
-            "extra": {},
+            "extra": extra_to_flax(state.model),
             "ema": None if state.ema is None else convert(state.ema)}
 
 
@@ -300,6 +334,7 @@ def state_from_flax(tree: Mapping[str, Any], state: TrainState
     wherever the chain nests them, so adding or dropping clipping or
     the decay mask across a resume restores, as JAX aligns the mask."""
     _load(state.params, tree["params"], "params")
+    extra_from_flax(tree.get("extra") or {}, state.model)
     tx, opt = state.tx, tree["opt_state"]
     names = _MOMENTS[tx.kind]
     core = _find(opt, names[0])

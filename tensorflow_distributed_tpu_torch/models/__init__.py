@@ -1,32 +1,46 @@
-"""Model registry of the PyTorch port (``mnist_cnn`` and ``gpt_lm``;
-the other JAX families are listed in ROADMAP.md queue A)."""
+"""Model registry of the PyTorch port (the families of ROADMAP.md queue A
+not listed here are not ported yet)."""
 
 from typing import Optional
 
 import torch
 
-MODEL_NAMES = ("mnist_cnn", "gpt_lm")
+MODEL_NAMES = ("mnist_cnn", "resnet20", "resnet50", "bert_mlm", "gpt_lm")
+
+# Families whose train state carries running statistics beside the params
+# (BatchNorm's batch_stats), as the JAX registry lists them.
+MUTABLE_EXTRA_MODELS = ("resnet20", "resnet50")
 
 
 def build_model(name: str, dropout_rate: Optional[float] = None,
                 compute_dtype: torch.dtype = torch.bfloat16,
                 init_scheme: str = "improved", **overrides):
-    """Explicit per-family dispatch; ``overrides`` are TransformerConfig
-    fields (plus ``size``, and ``ring`` for sequence parallelism) for
-    gpt_lm; ``init_scheme`` selects mnist_cnn's init."""
+    """Explicit per-family dispatch. ``overrides`` are TransformerConfig
+    fields (plus ``size``, and ``ring`` for sequence parallelism) for the
+    transformer families; ``num_classes``, ``in_channels`` and
+    ``bn_group`` (the process group of sync BN) for the ResNets;
+    ``init_scheme`` selects mnist_cnn's init."""
+    if name not in ("bert_mlm", "gpt_lm"):
+        overrides.pop("size", None)  # presets are transformer-only
     if name == "mnist_cnn":
         from tensorflow_distributed_tpu_torch.models.cnn import MnistCNN
 
         kw = {} if dropout_rate is None else {"dropout_rate": dropout_rate}
         return MnistCNN(init_scheme=init_scheme, compute_dtype=compute_dtype,
                         **kw, **overrides)
-    if name == "gpt_lm":
+    if name in ("resnet20", "resnet50"):
+        from tensorflow_distributed_tpu_torch.models import resnet
+
+        return getattr(resnet, name)(compute_dtype=compute_dtype, **overrides)
+    if name in ("bert_mlm", "gpt_lm"):
         from tensorflow_distributed_tpu_torch.models import transformer
 
         if dropout_rate is not None:
             overrides.setdefault("dropout_rate", dropout_rate)
         overrides.setdefault("compute_dtype", compute_dtype)
-        return transformer.gpt_lm(**overrides)
+        factory = (transformer.bert_base_mlm if name == "bert_mlm"
+                   else transformer.gpt_lm)
+        return factory(**overrides)
     raise NotImplementedError(
         f"model {name!r} is not ported to PyTorch yet (have "
         f"{list(MODEL_NAMES)}; see ROADMAP.md queue A)")

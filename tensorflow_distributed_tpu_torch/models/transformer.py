@@ -160,6 +160,12 @@ def _check_config(cfg: TransformerConfig) -> None:
                          f"Dh={cfg.d_model // cfg.n_heads}")
 
 
+def bert_base_config(**overrides) -> TransformerConfig:
+    """BERT-base: the config's defaults (12L x 768d x 12H, d_ff 3072,
+    vocab 30522, max_len 512, bidirectional)."""
+    return dataclasses.replace(TransformerConfig(), **overrides)
+
+
 def tiny_config(**overrides) -> TransformerConfig:
     """Small config for tests: same code paths, toy scale."""
     base = TransformerConfig(vocab_size=64, d_model=32, n_layers=2,
@@ -665,14 +671,20 @@ def _check_paged(cfg: TransformerConfig, page_table, B: int) -> None:
 class TransformerLM(nn.Module):
     """Transformer LM backbone: tokens [B, L] int -> logits [B, L, V] f32.
     With a ``ring`` of S processes, tokens are this rank's contiguous
-    [B, L/S] block of the sequence and the outputs cover that block."""
+    [B, L/S] block of the sequence and the outputs cover that block.
+    ``extra_vocab`` sentinel rows (BERT's [MASK]) widen the input
+    embedding only: the logits, and the head a fused loss is handed,
+    cover the ``vocab_size`` real ids."""
+
+    extra_vocab: int = 0
 
     def __init__(self, cfg: TransformerConfig, ring=None):
         super().__init__()
         _check_config(cfg)
         self.cfg = cfg
         self.ring = ring
-        self.tok_emb = nn.Embedding(cfg.vocab_size, cfg.d_model)
+        self.tok_emb = nn.Embedding(cfg.vocab_size + self.extra_vocab,
+                                    cfg.d_model)
         if cfg.pos_emb == "learned":
             self.pos_emb = nn.Embedding(cfg.max_len, cfg.d_model)
         for i in range(cfg.n_layers):
@@ -759,12 +771,21 @@ class TransformerLM(nn.Module):
         x = _norm(x, self.ln_f).to(cfg.compute_dtype)
         if features_only:
             if cfg.tie_embeddings:
-                return x, self.tok_emb.weight, None
+                return x, self.tok_emb.weight[:cfg.vocab_size], None
             return x, self.lm_head.weight, self.lm_head.bias
         if cfg.tie_embeddings:
-            table = self.tok_emb.weight.to(cfg.compute_dtype)
+            # The sentinel rows dropped before the product (JAX slices
+            # them off the logits: the same values).
+            table = self.tok_emb.weight[:cfg.vocab_size].to(cfg.compute_dtype)
             return F.linear(x, table).float()
         return self.lm_head(x).float()
+
+
+class BertMLM(TransformerLM):
+    """Encoder-only masked LM (bidirectional attention; one [MASK]
+    sentinel row, id ``vocab_size``, in the input embedding)."""
+
+    extra_vocab = 1
 
 
 class CausalLM(TransformerLM):
@@ -786,3 +807,19 @@ def gpt_lm(size: str = "small", ring=None, **overrides) -> CausalLM:
         raise ValueError(f"gpt_lm size {size!r}; have "
                          f"({', '.join(GPT2_SIZES)}, tiny)")
     return CausalLM(cfg, ring)
+
+
+def bert_base_mlm(size: str = "base", ring=None, **overrides) -> BertMLM:
+    """BERT masked LM. ``size``: "base" (BERT-base) or "tiny" (test
+    scale); ``overrides`` are TransformerConfig fields."""
+    if size == "base":
+        cfg = bert_base_config(**overrides)
+    elif size == "tiny":
+        cfg = tiny_config(**overrides)
+    else:
+        raise ValueError(f"bert_mlm size {size!r}; have ('base', 'tiny')")
+    return BertMLM(cfg, ring)
+
+
+def bert_tiny_mlm(ring=None, **overrides) -> BertMLM:
+    return BertMLM(tiny_config(**overrides), ring)

@@ -41,8 +41,9 @@ continuations, and the plan is bound past its events, signals
 included). A ``reload`` swaps in the newest verifiable checkpoint under
 ``--checkpoint-dir``. Such a run prints a ``[serve] fire:`` line. The synthetic workload's ids are drawn below
 ``--synthetic-vocab`` (64 when unset, as in JAX): a full-width run
-passes ``--synthetic-vocab 50257``. Text prompts wait for the port of
-``--dataset text``.
+passes ``--synthetic-vocab 50257``. Under ``--dataset text`` the model's
+vocabulary is the corpus tokenizer's and a request file's ``text`` key
+is encoded by it (``data/lm.text_codec``), as in JAX.
 """
 
 from __future__ import annotations
@@ -117,7 +118,7 @@ def _arrivals(serve, n: int, rng) -> List[float]:
     return [i / rate for i in range(n)]
 
 
-def _read_requests(cfg: TrainConfig) -> List[Request]:
+def _read_requests(cfg: TrainConfig, encode=None) -> List[Request]:
     serve = cfg.serve
     reqs = []
     with open(serve.requests) as f:
@@ -128,10 +129,13 @@ def _read_requests(cfg: TrainConfig) -> List[Request]:
             obj = json.loads(line)
             where = f"{serve.requests}:{i + 1}"
             if "text" in obj:
-                raise NotImplementedError(
-                    f"{where}: text prompts need --dataset text, which is "
-                    f"not ported to PyTorch yet (see ROADMAP.md queue A)")
-            ids = [int(t) for t in obj["prompt"]]
+                if encode is None:
+                    raise ValueError(
+                        f"{where}: string prompts need --dataset text (its "
+                        f"tokenizer defines the vocabulary)")
+                ids = encode(obj["text"])
+            else:
+                ids = [int(t) for t in obj["prompt"]]
             if not ids:
                 raise ValueError(f"{where}: empty prompt")
             slo = str(obj.get("slo", "standard"))
@@ -151,7 +155,8 @@ def _read_requests(cfg: TrainConfig) -> List[Request]:
     return reqs
 
 
-def _workload(cfg: TrainConfig, vocab_size: int) -> List[Request]:
+def _workload(cfg: TrainConfig, vocab_size: int,
+              encode=None) -> List[Request]:
     """The request file, or the synthetic workload: mixed lengths drawn
     from ``--seed``, prompts drawn BEFORE the arrivals so the token
     content is the same under every trace (JAX's draw order). With
@@ -162,7 +167,7 @@ def _workload(cfg: TrainConfig, vocab_size: int) -> List[Request]:
     request i belongs to tenant ``t{i % tenants}`` when ``tenants`` > 1."""
     serve = cfg.serve
     if serve.requests:
-        return _read_requests(cfg)
+        return _read_requests(cfg, encode)
     rng = np.random.default_rng(cfg.seed)
     prompts = []
     for _ in range(serve.num_requests):
@@ -217,7 +222,13 @@ def serve_setup(cfg: TrainConfig, played: Optional[Dict] = None
     # --serve.kv-dtype is the serve-side spelling of --kv-cache-quant.
     if cfg.serve.kv_dtype == "int8" and cfg.kv_cache_quant == "none":
         cfg = dataclasses.replace(cfg, kv_cache_quant="int8")
-    requests = _workload(cfg, cfg.synthetic_vocab or 64)
+    encode, vocab = None, cfg.synthetic_vocab or 64
+    if cfg.dataset == "text":
+        from tensorflow_distributed_tpu_torch.data.lm import text_codec
+
+        encode, _, vocab = text_codec(cfg.data_dir, cfg.text_tokenizer,
+                                      cfg.bpe_vocab_size)
+    requests = _workload(cfg, vocab, encode)
     if played:
         requests = journal_mod.apply_replay(requests, played)
         if not requests:
@@ -254,7 +265,7 @@ def serve_setup(cfg: TrainConfig, played: Optional[Dict] = None
              else max_prompt)
     buckets = (parse_buckets(cfg.serve.buckets) if cfg.serve.buckets
                else default_buckets(cover, cap=cfg.seq_len))
-    model, state = _build_model_and_state(cfg, device)
+    model, state = _build_model_and_state(cfg, device, vocab_size=vocab)
     vocab = model.cfg.vocab_size
     for r in requests:
         # The embedding would fail on an id outside the table; name it.

@@ -151,12 +151,21 @@ def evaluate(state: TrainState, eval_fn, task: Task, batch: int,
     return out
 
 
-def build_model_for(cfg: TrainConfig, device: torch.device, ring=None):
+def build_model_for(cfg: TrainConfig, device: torch.device, ring=None,
+                    vocab_size: int = 0, image_shape: tuple = (),
+                    bn_group=None):
     """The model ``cfg`` names, built on ``device`` with its weights not
-    yet drawn (``init_weights``); ``ring``: the seq group's ring."""
-    if cfg.model == "gpt_lm":
-        kw = {"size": cfg.model_size or "small", "ring": ring}
-        if cfg.synthetic_vocab:
+    yet drawn (``init_weights``); ``ring``: the seq group's ring.
+    ``vocab_size``: the tokenizer's, which sizes the LM under
+    ``--dataset text``; ``image_shape``: the dataset's [H, W, C] (a
+    ResNet takes its channels); ``bn_group``: the group of sync BN."""
+    if cfg.model in ("gpt_lm", "bert_mlm"):
+        kw = {"ring": ring}
+        if cfg.model_size:
+            kw["size"] = cfg.model_size
+        if cfg.dataset == "text":
+            kw["vocab_size"] = vocab_size
+        elif cfg.synthetic_vocab:
             kw["vocab_size"] = cfg.synthetic_vocab
         if cfg.seq_len:
             kw["max_len"] = cfg.seq_len
@@ -174,6 +183,10 @@ def build_model_for(cfg: TrainConfig, device: torch.device, ring=None):
                               ("kv_cache_quant", "none")):
             if getattr(cfg, name) != default:
                 kw[name] = getattr(cfg, name)
+    elif cfg.model in ("resnet20", "resnet50"):
+        kw = {"bn_group": bn_group}
+        if image_shape:
+            kw["in_channels"] = image_shape[-1]
     else:
         kw = {"init_scheme": cfg.init_scheme}
     dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
@@ -184,8 +197,22 @@ def build_model_for(cfg: TrainConfig, device: torch.device, ring=None):
 
 
 def _build_model_and_state(cfg: TrainConfig, device: torch.device,
-                           init_params=None, mesh: Mesh = ONE_PROCESS):
-    model = build_model_for(cfg, device, mesh.ring)
+                           init_params=None, mesh: Mesh = ONE_PROCESS,
+                           task: Optional[Task] = None, vocab_size: int = 0):
+    """The model and its train state; ``task`` (or, without one, the
+    tokenizer's ``vocab_size``, read from the corpus when not given)
+    gives the dataset facts the model is sized by."""
+    if task is not None:
+        vocab_size = task.vocab_size
+    elif cfg.dataset == "text" and not vocab_size:
+        from tensorflow_distributed_tpu_torch.data.lm import text_codec
+
+        vocab_size = text_codec(cfg.data_dir, cfg.text_tokenizer,
+                                cfg.bpe_vocab_size)[2]
+    model = build_model_for(
+        cfg, device, mesh.ring, vocab_size=vocab_size,
+        image_shape=task.image_shape if task is not None else (),
+        bn_group=mesh.data_group if mesh.data > 1 else None)
     tx = make_optimizer(cfg, model)
     state = create_train_state(model, tx, cfg.seed, init_params)
     mesh.broadcast_(model.parameters())  # every rank starts from rank 0's
@@ -236,7 +263,8 @@ def train(cfg: TrainConfig, logger: Optional[MetricLogger] = None,
     (``mesh.shutdown``)."""
     device, mesh, logger = _setup(cfg, logger)
     task = _make_task(cfg, mesh)
-    model, state = _build_model_and_state(cfg, device, init_params, mesh)
+    model, state = _build_model_and_state(cfg, device, init_params, mesh,
+                                          task)
     start_step = 0
     if cfg.resume and ckpt.latest_step(cfg.checkpoint_dir) is not None:
         state = ckpt.restore(cfg.checkpoint_dir, state)
@@ -486,7 +514,7 @@ def evaluate_only(cfg: TrainConfig, logger: Optional[MetricLogger] = None
     ``eval`` record. The caller ends the process group."""
     device, mesh, logger = _setup(cfg, logger)
     task = _make_task(cfg, mesh)
-    _, state = _build_model_and_state(cfg, device, mesh=mesh)
+    _, state = _build_model_and_state(cfg, device, mesh=mesh, task=task)
     state = ckpt.restore(cfg.checkpoint_dir, state)
     eval_fn = make_eval_step(task.eval_loss or task.loss)
     with Timer() as eval_t:
@@ -504,28 +532,45 @@ def generate_only(cfg: TrainConfig, logger: Optional[MetricLogger] = None
     """``--mode generate``: restore a checkpoint and continue
     ``--prompt``, greedy, sampled (a ``torch.Generator`` seeded by
     ``--seed``) or by beam search (``--num-beams`` > 1), on the EMA
-    weights when the checkpoint tracks them. The model is built without
-    the training task (the checkpoint pins its shapes). Emits and
-    returns a ``generate`` record."""
+    weights when the checkpoint tracks them. Under ``--dataset text``
+    the prompt is text, encoded by the corpus's tokenizer
+    (``data/lm.text_codec``), and the record adds the continuation
+    decoded (``text``); otherwise comma-separated token ids. The model
+    is built without the training task (the checkpoint pins its
+    shapes). Emits and returns a ``generate`` record."""
     from tensorflow_distributed_tpu_torch.models.generate import (
         beam_search, generate)
 
     cfg.validate()
     device = resolve_device(cfg.device)
     logger = logger or MetricLogger()
-    try:
-        ids = [int(t) for t in cfg.prompt.split(",")]
-    except ValueError:
-        raise ValueError(
-            f"prompt {cfg.prompt!r} is not comma-separated token ids "
-            f"(string prompts need --dataset text, which is not ported to "
-            f"PyTorch yet; see ROADMAP.md queue A)") from None
-    model, state = _build_model_and_state(cfg, device)
-    vocab = model.cfg.vocab_size
-    bad = [t for t in ids if not 0 <= t < vocab]
-    if bad:
-        raise ValueError(f"prompt ids {bad} outside the model vocabulary "
-                         f"[0, {vocab})")
+    # The tokenizer without the training task (which would window the
+    # whole corpus, and refuse one smaller than a batch).
+    dec, vocab = None, 0
+    if cfg.dataset == "text":
+        from tensorflow_distributed_tpu_torch.data.lm import text_codec
+
+        enc, dec, vocab = text_codec(cfg.data_dir, cfg.text_tokenizer,
+                                     cfg.bpe_vocab_size)
+        ids = enc(cfg.prompt)
+        if not ids:
+            raise ValueError(f"prompt {cfg.prompt!r} encoded to zero "
+                             f"tokens")
+    else:
+        try:
+            ids = [int(t) for t in cfg.prompt.split(",")]
+        except ValueError:
+            raise ValueError(
+                f"prompt {cfg.prompt!r} is not comma-separated token "
+                f"ids (string prompts need dataset=text, whose "
+                f"tokenizer defines a text vocabulary)") from None
+    model, state = _build_model_and_state(cfg, device, vocab_size=vocab)
+    if cfg.dataset != "text":
+        bad = [t for t in ids if not 0 <= t < model.cfg.vocab_size]
+        if bad:
+            raise ValueError(
+                f"prompt ids {bad} outside the model vocabulary "
+                f"[0, {model.cfg.vocab_size})")
     state = ckpt.restore(cfg.checkpoint_dir, state)
     if state.ema is not None:
         model.load_state_dict(state.ema)
@@ -544,5 +589,7 @@ def generate_only(cfg: TrainConfig, logger: Optional[MetricLogger] = None
             model, prompt, cfg.max_new_tokens,
             temperature=cfg.gen_temperature, top_k=cfg.gen_top_k,
             top_p=cfg.gen_top_p, generator=gen)[0].tolist()
+    if dec is not None:
+        rec["text"] = dec(rec["new_tokens"])
     logger.log_json(rec)
     return rec

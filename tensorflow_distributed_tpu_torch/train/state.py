@@ -3,7 +3,11 @@
 The JAX package threads an immutable pytree through a jitted step; here
 the parameters live in an ``nn.Module`` that the step updates in place,
 and :class:`TrainState` keeps it together with the optimizer, its state,
-the step counter and, with ``ema_decay``, the EMA of the params.
+the step counter and, with ``ema_decay``, the EMA of the params. The
+JAX state's ``extra`` (the non-param collections: a ResNet's BatchNorm
+``batch_stats``) are the model's BN buffers here (``TrainState.extra``,
+the model's ``batch_stats()``); the train step writes them, and
+checkpoints carry them (``interop.extra_to_flax``).
 """
 
 from __future__ import annotations
@@ -32,6 +36,18 @@ class TrainState:
     def params(self) -> Dict[str, torch.Tensor]:
         return dict(self.model.named_parameters())
 
+    @property
+    def extra(self) -> Dict[str, torch.Tensor]:
+        return model_extra(self.model)
+
+
+def model_extra(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The non-param state by buffer name: a BatchNorm model's running
+    means and variances (its ``batch_stats``), empty for the other
+    families."""
+    stats = getattr(model, "batch_stats", None)
+    return {} if stats is None else stats()
+
 
 def create_train_state(model: nn.Module, tx: Optimizer, seed: int = 0,
                        init_params: Optional[Dict[str, torch.Tensor]] = None
@@ -39,13 +55,20 @@ def create_train_state(model: nn.Module, tx: Optimizer, seed: int = 0,
     """Initialize the model's params from a generator seeded with
     ``seed`` on the model's device (the model's ``init_weights``: the
     flax initializers), or copy them from ``init_params`` (a state dict,
-    e.g. ``interop.params_from_flax`` of a JAX init), and build the
-    optimizer state."""
+    e.g. ``interop.params_from_flax`` of a JAX init, buffers optional),
+    and build the optimizer state."""
     device = next(model.parameters()).device
     if init_params is None:
         model.init_weights(torch.Generator(device=device).manual_seed(seed))
     else:
-        model.load_state_dict(init_params, strict=True)
+        # Every param; a buffer left out (BatchNorm's running averages)
+        # keeps its init (mean 0, variance 1: flax's).
+        missing, unexpected = model.load_state_dict(init_params,
+                                                    strict=False)
+        stray = set(missing) - set(dict(model.named_buffers()))
+        if unexpected or stray:
+            raise ValueError(f"init_params do not match the model: missing "
+                             f"{sorted(stray)}, unexpected {unexpected}")
     params = dict(model.named_parameters())
     return TrainState(model=model, tx=tx, opt_state=tx.init(params))
 

@@ -19,6 +19,12 @@ runs each backward on its loss divided by A, then does one all-reduce
 and one update: the mean of the microbatch gradients, as the JAX scan;
 the metrics are microbatch means.
 
+A model with BatchNorm (the ResNets) computes its new running averages
+in the training forward and keeps them pending; the step writes them
+with the update (the model's ``commit_batch_stats``): under
+accumulation the last microbatch's, as JAX's scan keeps them, and none
+on a skipped step.
+
 ``skip_nonfinite`` (``--resilience.nonfinite skip_batch``) discards the
 update of a step whose loss or gradient norm is not finite: the params,
 the optimizer state and its count, and the EMA keep their values, and
@@ -135,6 +141,9 @@ def make_train_step(loss: LossFn, device: torch.device, seed: int = 0,
                 updates = state.tx.update(grads, state.opt_state, params)
                 torch._foreach_add_(list(params.values()),
                                     [updates[n] for n in params])
+        commit = getattr(state.model, "commit_batch_stats", None)
+        if commit is not None:
+            commit(keep=apply)
         state.model.zero_grad(set_to_none=True)  # frees the grads early
         if ema_decay and apply:
             ema_update(state.ema, params, ema_decay, state.step)
@@ -152,7 +161,8 @@ def _call_with(module: torch.nn.Module, params: Dict[str, torch.Tensor],
 
 def make_eval_step(loss: LossFn) -> Callable[[TrainState, Batch], Metrics]:
     """Eval: loss and metrics over one batch, without gradients, on the
-    EMA of the params when the state has one."""
+    EMA of the params when the state has one (the EMA is params-only: a
+    BatchNorm model reads its running averages either way)."""
 
     def step(state: TrainState, batch: Batch) -> Metrics:
         model = state.model

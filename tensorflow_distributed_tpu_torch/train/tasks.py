@@ -1,11 +1,15 @@
-"""Task definitions: the port of ``train/tasks.py``'s vision task (the
-reference's MNIST classifier) and causal-LM task.
+"""Task definitions: the port of ``train/tasks.py``'s vision task and
+LM tasks.
 
 A Task bundles the loss, the data streams and the dataset facts the
-loop needs. The ``vision`` task (mnist_cnn) classifies MNIST digits; the
-``clm`` task (gpt_lm on the synthetic next-token stream) trains either
-the dense head with masked cross-entropy or, with ``ce_chunk > 0``, the
-fused head+loss (ops/fused_ce.py: the model hands over its features and
+loop needs. The ``vision`` task (mnist_cnn, resnet20, resnet50)
+classifies images of any vision dataset (``data/mnist.py``'s
+``load_dataset``), batched by numpy or, under ``--data-backend
+u8_native``, from uint8 storage by the native gather (``data/u8.py``).
+The ``mlm`` task (bert_mlm on the synthetic masked-token stream) and the
+``clm`` task (gpt_lm on the synthetic next-token stream, or on a local
+text corpus under ``--dataset text``) train either the dense head with
+masked cross-entropy or, with ``ce_chunk > 0``, the fused head+loss (ops/fused_ce.py: the model hands over its features and
 head matrix, and the [B, L, V] logits are never materialized), by the
 chunk loop (``ce_impl="scan"``) or the fused-CE kernels
 (``ce_impl="kernel"``).
@@ -55,6 +59,7 @@ class Task:
     # smoothing stays out of reported validation numbers).
     eval_loss: Optional[LossFn] = None
     vocab_size: int = 0               # the dataset's vocabulary (LM)
+    image_shape: tuple = ()           # vision: one image's [H, W, C]
 
 
 def _mean(ce_sum, correct, n, mesh: Mesh):
@@ -89,8 +94,15 @@ def _make_vision_task(cfg: TrainConfig, mesh: Mesh) -> Task:
     train_ds, val_ds, _ = load_dataset(cfg.dataset, cfg.data_dir, cfg.seed,
                                        validation_size=cfg.validation_size)
     n_proc, i_proc = process_batch_role(mesh)
-    batcher = ShardedBatcher(train_ds, cfg.batch_size, cfg.shuffle_seed,
-                             num_processes=n_proc, process_index=i_proc)
+    if cfg.data_backend == "u8_native":
+        from tensorflow_distributed_tpu_torch.data.u8 import (
+            U8Dataset, U8ShardedBatcher)
+        batcher = U8ShardedBatcher(
+            U8Dataset.from_float(train_ds), cfg.batch_size, cfg.shuffle_seed,
+            num_processes=n_proc, process_index=i_proc)
+    else:
+        batcher = ShardedBatcher(train_ds, cfg.batch_size, cfg.shuffle_seed,
+                                 num_processes=n_proc, process_index=i_proc)
 
     def eval_batches(batch: int) -> Iterator[Any]:
         n = (len(val_ds) // batch) * batch
@@ -102,7 +114,7 @@ def _make_vision_task(cfg: TrainConfig, mesh: Mesh) -> Task:
         eval_loss=make_vision_loss(mesh=mesh),
         train_stream=batcher.forever, eval_batches=eval_batches,
         eval_size=len(val_ds), steps_per_epoch=batcher.steps_per_epoch,
-        seq_axis=None)
+        seq_axis=None, image_shape=tuple(train_ds.images.shape[1:]))
 
 
 # --- causal LM ------------------------------------------------------------
@@ -135,27 +147,45 @@ def make_mlm_loss(label_smoothing: float = 0.0, ce_chunk: int = 0,
     return mlm_loss
 
 
-def _make_lm_task(cfg: TrainConfig, mesh: Mesh, objective: str = "clm",
+def _make_lm_task(cfg: TrainConfig, mesh: Mesh, objective: str,
                   seq_len: int = 128, vocab_size: int = 64) -> Task:
-    """Causal-LM task over the synthetic next-token stream;
-    ``cfg.seq_len`` / ``cfg.synthetic_vocab`` override the defaults.
-    The train stream yields this data rank's rows of each global batch,
-    and the loop hands each seq rank its block of the sequence axis."""
+    """LM task: ``objective`` "mlm" (masked positions, the synthetic
+    masked-token stream) or "clm" (next token: the synthetic stream, or
+    under ``--dataset text`` the local corpus at ``--data-dir``, whose
+    tokenizer sets the vocabulary). ``cfg.seq_len`` /
+    ``cfg.synthetic_vocab`` override the defaults. The train stream
+    yields this data rank's rows of each global batch, and the loop
+    hands each seq rank its block of the sequence axis."""
     from tensorflow_distributed_tpu_torch.data.lm import (
-        LmBatcher, synthetic_clm)
+        LmBatcher, synthetic_clm, synthetic_mlm, text_clm)
 
-    if objective != "clm":
-        raise NotImplementedError(
-            f"LM objective {objective!r} is not ported to PyTorch yet "
-            f"(see ROADMAP.md queue A)")
     seq_len = cfg.seq_len or seq_len
     vocab_size = cfg.synthetic_vocab or vocab_size
-    n = max(16 * cfg.batch_size, 4096)
-    train_ds = synthetic_clm(n=n, seq_len=seq_len, vocab_size=vocab_size,
-                             seed=cfg.seed)
-    val_ds = synthetic_clm(n=max(4 * cfg.eval_batch_size, 512),
-                           seq_len=seq_len, vocab_size=vocab_size,
-                           seed=cfg.seed + 1)
+    if cfg.dataset == "text":
+        if objective != "clm":
+            raise ValueError(
+                "dataset='text' is causal-LM only (gpt_lm / moe_lm / "
+                "pipelined_lm); bert_mlm has no byte-masking stream")
+        train_ds, val_ds = text_clm(cfg.data_dir, seq_len=seq_len,
+                                    seed=cfg.seed,
+                                    tokenizer=cfg.text_tokenizer,
+                                    bpe_vocab_size=cfg.bpe_vocab_size)
+        # Fail at task creation, not after training: the final eval needs
+        # one data-axis-wide batch of val rows, the batcher a full train
+        # batch.
+        if len(train_ds) < cfg.batch_size or len(val_ds) < mesh.data:
+            raise ValueError(
+                f"corpus {cfg.data_dir!r} too small: {len(train_ds)} "
+                f"train / {len(val_ds)} val windows of seq_len "
+                f"{seq_len}; need >= batch_size {cfg.batch_size} train "
+                f"and >= mesh data axis {mesh.data} val")
+    else:
+        gen = synthetic_mlm if objective == "mlm" else synthetic_clm
+        n = max(16 * cfg.batch_size, 4096)
+        train_ds = gen(n=n, seq_len=seq_len, vocab_size=vocab_size,
+                       seed=cfg.seed)
+        val_ds = gen(n=max(4 * cfg.eval_batch_size, 512), seq_len=seq_len,
+                     vocab_size=vocab_size, seed=cfg.seed + 1)
     n_proc, i_proc = process_batch_role(mesh)
     batcher = LmBatcher(train_ds, cfg.batch_size, cfg.shuffle_seed,
                         num_processes=n_proc, process_index=i_proc)
@@ -181,12 +211,10 @@ def _make_lm_task(cfg: TrainConfig, mesh: Mesh, objective: str = "clm",
 
 
 def make_task(cfg: TrainConfig, mesh: Mesh = ONE_PROCESS) -> Task:
-    """Model family -> task: mnist_cnn classifies digits, gpt_lm trains
-    next-token prediction."""
-    if cfg.model == "mnist_cnn":
-        return _make_vision_task(cfg, mesh)
+    """Model family -> task: bert_mlm trains masked-LM, gpt_lm
+    next-token prediction; every other family classifies images."""
+    if cfg.model == "bert_mlm":
+        return _make_lm_task(cfg, mesh, "mlm")
     if cfg.model == "gpt_lm":
-        return _make_lm_task(cfg, mesh)
-    raise NotImplementedError(
-        f"no task for model {cfg.model!r} in the PyTorch port yet (see "
-        f"ROADMAP.md queue A)")
+        return _make_lm_task(cfg, mesh, "clm")
+    return _make_vision_task(cfg, mesh)

@@ -251,9 +251,15 @@ def test_ce_chunk_on_mnist_cnn_is_refused_as_in_jax():
 
 
 def test_native_data_backend_is_refused(capsys):
-    with pytest.raises(SystemExit):
-        parse_args(["--data-backend", "u8_native", "--device", "cpu"])
-    assert "ROADMAP" in capsys.readouterr().err
+    """``--data-backend`` takes JAX's two values (u8_native is ported) and
+    refuses any other with JAX's message."""
+    assert parse_args(["--data-backend", "u8_native", "--device", "cpu"]
+                      ).data_backend == "u8_native"
+    for cfg in (JaxConfig(data_backend="native"),
+                TrainConfig(data_backend="native")):
+        with pytest.raises(ValueError,
+                           match="unknown data_backend 'native'"):
+            cfg.validate()
 
 
 def test_mesh_data_flag_spelling_and_default_match_jax():

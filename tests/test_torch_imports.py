@@ -57,9 +57,10 @@ def test_port_and_chip_smoke_import_without_jax():
     # engine included; the journal and resilience/ with the bad-step
     # policies, and train/preemption.py: the port keeps its own copies of
     # the jax-free JAX modules, observe/anomaly.py's spike detector
-    # included).
+    # included; PR 17's families and data: models.resnet, the CIFAR and
+    # uint8 data, and the native runtime's binding).
     words = out.stdout.split()
-    assert int(words[1]) >= 38
+    assert int(words[1]) >= 43
     for name in ("parallel.mesh", "models.cnn", "data.mnist",
                  "data.prefetch", "utils.serialization", "train.checkpoint",
                  "serve.paging", "serve.paging.pool", "serve.paging.radix",
@@ -67,7 +68,8 @@ def test_port_and_chip_smoke_import_without_jax():
                  "resilience.faults", "resilience.watchdog",
                  "resilience.policies", "train.preemption", "train.loop",
                  "train.step", "train.checkpoint", "data.prefetch", "cli",
-                 "config", "serve.engine"):
+                 "config", "serve.engine", "models.resnet", "data.cifar",
+                 "data.u8", "data.lm", "native", "native.runtime"):
         assert f"tensorflow_distributed_tpu_torch.{name}" in words[2:]
 
 

@@ -86,8 +86,11 @@ def test_missing_files_fall_back_to_synthetic_with_a_warning(tmp_path,
 
 
 def test_unported_dataset_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmnist.load_dataset("cifar10", FIXTURE_DIR)
+    """Every vision dataset of JAX's ``load_dataset`` is ported; another
+    name is refused with its message."""
+    for load in (tmnist.load_dataset, jmnist.load_dataset):
+        with pytest.raises(ValueError, match="unknown dataset 'svhn'"):
+            load("svhn", FIXTURE_DIR)
 
 
 @pytest.mark.parametrize("procs,index", [(1, 0), (2, 1), (4, 3)])

@@ -472,11 +472,20 @@ def test_serve_config_has_the_jax_fields_and_defaults():
 
 @pytest.mark.parametrize("line", [{"text": "hello"}])
 def test_request_file_fields_of_unported_layers_are_refused(line, tmp_path):
+    """A ``text`` prompt without ``--dataset text`` (no tokenizer) gets
+    the JAX ``_workload``'s ValueError, word for word."""
+    from tensorflow_distributed_tpu.config import parse_args as jax_parse
+    from tensorflow_distributed_tpu.serve import run as jrun
+
     path = tmp_path / "r.jsonl"
     path.write_text(json.dumps(line) + "\n")
-    cfg = parse_args(SERVE_ARGV + ["--serve.requests", str(path)])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trun._workload(cfg, 64)
+    argv = SERVE_ARGV + ["--serve.requests", str(path)]
+    with pytest.raises(ValueError) as want:
+        jrun._workload(jax_parse(argv), 64)
+    with pytest.raises(ValueError) as got:
+        trun._workload(parse_args(argv), 64)
+    assert str(got.value) == str(want.value)
+    assert "string prompts need --dataset text" in str(got.value)
 
 
 @pytest.mark.parametrize("line", [

@@ -289,7 +289,7 @@ def test_parse_args_spellings_and_defaults():
         assert getattr(TrainConfig(), name) == getattr(jcfg, name), name
 
 
-@pytest.mark.parametrize("argv", [["--data-backend", "u8_native"],
+@pytest.mark.parametrize("argv", [["--plan", "auto"],
                                   ["--moe-top-k", "1"],
                                   ["--grad-sync", "overlap"],
                                   ["--param-partition", "fsdp"],
@@ -301,7 +301,7 @@ def test_unported_jax_flags_are_rejected(argv, capsys):
     assert "ROADMAP" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("fields", [dict(model="resnet20"),
+@pytest.mark.parametrize("fields", [dict(model="moe_lm"),
                                     dict(checkpoint_backend="orbax"),
                                     dict(checkpoint_async=True),
                                     dict(mode="serve",
@@ -309,8 +309,9 @@ def test_unported_jax_flags_are_rejected(argv, capsys):
                                     dict(moe_experts=4),
                                     dict(shard_vocab=True),
                                     dict(compute_dtype="float32"),
-                                    dict(dataset="text"),
-                                    dict(dataset="cifar10")])
+                                    dict(model="pipelined_lm"),
+                                    dict(mode="serve",
+                                         mesh=MeshConfig(data=2))])
 def test_unported_values_raise(fields):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TrainConfig(**dict(dict(model="gpt_lm"), **fields)).validate()

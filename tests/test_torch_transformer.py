@@ -220,13 +220,16 @@ def test_ported_options_build_the_flax_tree(override):
 
 
 def test_registry():
-    assert MODEL_NAMES == ("mnist_cnn", "gpt_lm")
+    assert MODEL_NAMES == ("mnist_cnn", "resnet20", "resnet50", "bert_mlm",
+                           "gpt_lm")
     m = build_model("gpt_lm", size="tiny", compute_dtype=torch.float32)
     assert isinstance(m, ttr.CausalLM) and m.cfg.causal
     cnn = build_model("mnist_cnn", dropout_rate=0.5, init_scheme="reference")
     assert (cnn.dropout_rate, cnn.init_scheme) == (0.5, "reference")
+    bert = build_model("bert_mlm", size="tiny")
+    assert isinstance(bert, ttr.BertMLM) and not bert.cfg.causal
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("bert_mlm")
+        build_model("moe_lm")
 
 
 def test_dropout_keeps_expected_fraction():

@@ -226,9 +226,11 @@ class LmBatcher(Batcher):
     """{tokens, targets, mask} batches over an LmDataset."""
 
     def __init__(self, ds: LmDataset, global_batch: int, seed: int = 0,
-                 num_processes: int = 1, process_index: int = 0):
+                 num_processes: int = 1, process_index: int = 0,
+                 accum_steps: int = 1):
         self.ds = ds
         super().__init__(
             n_items=len(ds), global_batch=global_batch, gather=ds.batch,
             seed=seed, num_processes=num_processes,
-            process_index=process_index)
+            process_index=process_index,
+            accum_steps=accum_steps)

@@ -218,10 +218,12 @@ class ShardedBatcher(Batcher):
     partial batch of each epoch is dropped."""
 
     def __init__(self, ds: Dataset, global_batch: int, seed: int = 0,
-                 num_processes: int = 1, process_index: int = 0):
+                 num_processes: int = 1, process_index: int = 0,
+                 accum_steps: int = 1):
         self.ds = ds
         super().__init__(
             n_items=len(ds), global_batch=global_batch,
             gather=lambda idx: (ds.images[idx], ds.labels[idx]),
             seed=seed, num_processes=num_processes,
-            process_index=process_index)
+            process_index=process_index,
+            accum_steps=accum_steps)

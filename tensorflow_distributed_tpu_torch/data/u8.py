@@ -64,9 +64,11 @@ class U8ShardedBatcher(Batcher):
     natively."""
 
     def __init__(self, ds: U8Dataset, global_batch: int, seed: int = 0,
-                 num_processes: int = 1, process_index: int = 0):
+                 num_processes: int = 1, process_index: int = 0,
+                 accum_steps: int = 1):
         self.ds = ds
         super().__init__(n_items=len(ds), global_batch=global_batch,
                          gather=ds.gather,
                          seed=seed, num_processes=num_processes,
-                         process_index=process_index)
+                         process_index=process_index,
+            accum_steps=accum_steps)

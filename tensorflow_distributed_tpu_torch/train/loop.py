@@ -29,8 +29,9 @@ with no sync a step beyond the ``log_every`` fetch.
 
 Under ``--mesh.data D --mesh.seq S`` (D*S processes under torchrun, one
 GPU each; see ``parallel/mesh.py``) each rank draws only its data
-rank's rows of every global batch and keeps its contiguous block
-``[s*L/S, (s+1)*L/S)`` of the sequence axis; batches reach the device
+rank's rows of every global batch (under ``--grad-accum-steps A``, its
+part of each of JAX's A microbatches: ``data_rows``) and keeps its
+contiguous block ``[s*L/S, (s+1)*L/S)`` of the sequence axis; batches reach the device
 through ``data/prefetch.py``; the parameters start from rank 0's copy;
 eval metrics are world means; the step records, eval records and the
 ``done`` record come from the chief only.
@@ -47,6 +48,7 @@ import numpy as np
 import torch
 
 from tensorflow_distributed_tpu_torch.config import TrainConfig
+from tensorflow_distributed_tpu_torch.data.batcher import local_rows
 from tensorflow_distributed_tpu_torch.data.prefetch import (
     map_batch, prefetch, to_device)
 from tensorflow_distributed_tpu_torch.models import build_model
@@ -92,14 +94,17 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def data_rows(batch, mesh: Mesh):
-    """This data rank's rows of a global batch (dict or tuple)."""
+def data_rows(batch, mesh: Mesh, accum_steps: int = 1):
+    """This data rank's rows of a global batch (dict or tuple): with
+    ``accum_steps`` A > 1, its part of each of JAX's A microbatches in
+    turn (``data/batcher.local_rows``), so that the step's own split
+    into A parts hands it its rows of JAX's microbatch i."""
     if mesh.data == 1:
         return batch
     n = len(next(iter(batch.values())) if isinstance(batch, dict)
-            else batch[0]) // mesh.data
-    lo = mesh.data_index * n
-    return map_batch(lambda v: v[lo:lo + n], batch)
+            else batch[0])
+    rows = local_rows(n, mesh.data, mesh.data_index, accum_steps)
+    return map_batch(lambda v: v[rows], batch)
 
 
 def seq_block(batch, mesh: Mesh, seq_axis: Optional[int]):

@@ -14,8 +14,9 @@ the grad-norm metric and the optimizer, so the copies stay
 bit-identical. The tasks normalize each rank's loss by the global count
 (``train/tasks.py``), so the sum is the gradient of the global mean.
 
-``accum_steps`` A > 1 splits this rank's batch into A microbatches,
-runs each backward on its loss divided by A, then does one all-reduce
+``accum_steps`` A > 1 splits this rank's batch into A microbatches (its
+rows of JAX's global microbatches, as the batcher draws them:
+``data/batcher.local_rows``), runs each backward on its loss divided by A, then does one all-reduce
 and one update: the mean of the microbatch gradients, as the JAX scan;
 the metrics are microbatch means.
 

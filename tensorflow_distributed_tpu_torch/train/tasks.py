@@ -99,10 +99,12 @@ def _make_vision_task(cfg: TrainConfig, mesh: Mesh) -> Task:
             U8Dataset, U8ShardedBatcher)
         batcher = U8ShardedBatcher(
             U8Dataset.from_float(train_ds), cfg.batch_size, cfg.shuffle_seed,
-            num_processes=n_proc, process_index=i_proc)
+            num_processes=n_proc, process_index=i_proc,
+            accum_steps=cfg.grad_accum_steps)
     else:
         batcher = ShardedBatcher(train_ds, cfg.batch_size, cfg.shuffle_seed,
-                                 num_processes=n_proc, process_index=i_proc)
+                                 num_processes=n_proc, process_index=i_proc,
+                                 accum_steps=cfg.grad_accum_steps)
 
     def eval_batches(batch: int) -> Iterator[Any]:
         n = (len(val_ds) // batch) * batch
@@ -188,7 +190,8 @@ def _make_lm_task(cfg: TrainConfig, mesh: Mesh, objective: str,
                      vocab_size=vocab_size, seed=cfg.seed + 1)
     n_proc, i_proc = process_batch_role(mesh)
     batcher = LmBatcher(train_ds, cfg.batch_size, cfg.shuffle_seed,
-                        num_processes=n_proc, process_index=i_proc)
+                        num_processes=n_proc, process_index=i_proc,
+                        accum_steps=cfg.grad_accum_steps)
 
     def eval_batches(batch: int) -> Iterator[Any]:
         nrows = (len(val_ds) // batch) * batch

@@ -333,7 +333,29 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
              restored batch_stats equal to the trained ones, the final
              eval equal to ``evaluate()`` of the restored state and not
              to the same eval with the averages reset (the eval reads the
-             running averages; no kernel).
+             running averages; no kernel);
+41. tp_kernels — B1-B3 at the shapes tensor parallelism gives a rank:
+             GPT-2-small's batch 8 at H/M heads (B.H 48 at M 2, 24 at
+             M 4; L 1024, D 64, causal) and BERT-base's batch 16 at M 2
+             (B.H 96, L 512, non-causal), each against its plain version
+             at phase 3's gates, with median times, profiler device
+             times, plain times and bounds;
+42. model_tp — GPT-2-small at full width (12 layers, seq 1024, batch 8,
+             bf16) on ``StackedTP(M)`` (M 2 and 4, every model rank in
+             this process) against the whole model on the same weights
+             on the card: the dense head, the untied head under
+             ``shard_vocab`` (the vocab-parallel lookup and CE), and the
+             vocab-parallel fused scan (``ce_chunk`` 8192); the loss,
+             the logits and the whole gradient (gathered; each
+             parameter's worst printed beside bf16's floor, the whole
+             model against itself on two half-batches) within 2e-2, and
+             B1-B3 launched 12 x M times each (H/M heads a launch);
+43. train_tp — ``--mesh.model M`` under torchrun (NCCL, M = 4 with four
+             cards or more, else 2): the dense head, then ``--shard-vocab
+             --ce-chunk 8192``, and with four cards ``--mesh.data 2
+             --mesh.model 2``; the first five losses within 1e-2 of one
+             card's, every rank launching B1-B3, step ms and tokens/s a
+             card; skipped, by the device count alone, on one card.
 
 It then prints the nvidia-smi line, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -344,7 +366,7 @@ result.
 
 runs the device and build phases, then only the named phases, with the
 same checks, and prints the nvidia-smi line last (no kernels or ok
-line). The phases it takes: ``ce_kernels`` and phases 35-40.
+line). The phases it takes: ``ce_kernels`` and phases 35-43.
 """
 
 from __future__ import annotations
@@ -625,6 +647,30 @@ TRAIN_BERT_ARGV = ["--mode", "train", "--model", "bert_mlm", "--seq-len",
 TRAIN_BERT_FUSED_ARGV = TRAIN_BERT_ARGV + ["--ce-chunk", "8192",
                                            "--ce-impl", "kernel"]
 BERT_KERNEL_CASE = dict(B=16, H=12, L=512, D=64, causal=False, window=0)
+# Tensor parallelism: B1-B3 at a model rank's H/M heads (GPT-2-small's
+# batch 8 at M 2 and 4, BERT-base's batch 16 at M 2); GPT-2-small on
+# StackedTP(M) against the whole model; --mesh.model under torchrun.
+TP_KERNEL_CASES = [dict(M=2, B=8, H=6, L=1024, D=64, causal=True, window=0),
+                   dict(M=4, B=8, H=3, L=1024, D=64, causal=True, window=0),
+                   dict(M=2, B=16, H=6, L=512, D=64, causal=False, window=0)]
+TP_SIZES = (2, 4)
+TP_MODEL = dict(size="small", B=8, L=1024)  # model_tp's model and batch
+TP_VARIANTS = {"dense": {}, "shard_vocab": dict(shard_vocab=True),
+               "fused_scan": dict(ce_chunk=8192)}
+# TP vs the whole model: the loss (relative), the logits (max |diff| / max
+# |ref|) and the whole gradient (||diff|| / ||ref|| over every parameter).
+# A parameter's own max |diff| / max |ref| is printed, not gated: in bf16
+# it is noise-bound (the whole model against itself, the batch run in two
+# halves, reads 1-4.4% on an H100), and the phase prints that floor
+# beside it.
+TOL_TP = 2e-2
+TRAIN_TP_STEPS = 10
+TRAIN_TP_ARGV = ["--mode", "train", "--model", "gpt_lm", "--model-size",
+                 "small", "--seq-len", "1024", "--batch-size", "8",
+                 "--train-steps", str(TRAIN_TP_STEPS), "--eval-every", "0",
+                 "--eval-batch-size", "8", "--dropout-rate", "0",
+                 "--compute-dtype", "bfloat16", "--log-every", "1"]
+TRAIN_TP_TIMEOUT_S = 600  # one torchrun, NCCL start-up included
 # GPT-2-small, byte-level, over a corpus of the repository's own .md and
 # .py files (no download); then --mode generate with a text prompt and
 # --mode serve with text requests, each a CLI process, in f32.
@@ -650,9 +696,10 @@ TOL_U8 = 1e-5
 U8_STEPS_HELD = 5
 # ResNet-50 at 224 (ImageNet shapes, 1000 classes) and ResNet-20 on
 # CIFAR-10 shapes, synthetic sets made from the seed.
-# The phases ``--only`` runs alone: ce_kernels and phases 35-40.
+# The phases ``--only`` runs alone: ce_kernels and phases 35-43.
 ONLY_PHASES = ("ce_kernels", "model_bert", "train_bert", "train_text",
-               "train_cnn_u8", "model_resnet", "train_resnet")
+               "train_cnn_u8", "model_resnet", "train_resnet", "tp_kernels",
+               "model_tp", "train_tp")
 MODEL_RESNET_B = 4
 MODEL_RESNET_IMAGE = 224
 TOL_RESNET_F32 = 1e-3  # f32 on the card vs f32 on the CPU, train mode
@@ -925,50 +972,62 @@ def sass_counts(lib: str):
     return by_kernel
 
 
+def flash_case(fa, torch, phase, case, seed):
+    """B1-B3 on one case's random bf16 inputs (``seed``) against their
+    plain versions in f32 from the same inputs: emits the errors as a
+    ``phase`` row and fails past phase 3's gates. Returns (the row,
+    (q, k, v, dO, out, lse) on the card)."""
+    B, H, L, D = case["B"], case["H"], case["L"], case["D"]
+    causal, window = case["causal"], case["window"]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn((B * H, L, D), generator=gen,
+                               device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    out, lse = fa.flash_fwd(q, k, v, causal, window)
+    dq = fa.flash_dq(q, k, v, out, lse, do, causal, window)
+    dk, dv = fa.flash_dkv(q, k, v, out, lse, do, causal, window)
+    torch.cuda.synchronize()
+    f = [t.float() for t in (q, k, v, out, do)]
+    ref_o, ref_lse = fa.flash_attention_reference(f[0], f[1], f[2],
+                                                  causal, window)
+    ref_dq = fa.flash_dq_reference(f[0], f[1], f[2], f[3], lse, f[4],
+                                   causal, window)
+    ref_dk, ref_dv = fa.flash_dkv_reference(f[0], f[1], f[2], f[3], lse,
+                                            f[4], causal, window)
+
+    def abs_err(a, b):
+        return float((a.float() - b).abs().max())
+
+    def rel_err(a, b):
+        return abs_err(a, b) / float(b.abs().max())
+
+    row = {"phase": phase, **case,
+           "o_abs_err": abs_err(out, ref_o),
+           "lse_abs_err": abs_err(lse, ref_lse),
+           "dq_rel_err": rel_err(dq, ref_dq),
+           "dk_rel_err": rel_err(dk, ref_dk),
+           "dv_rel_err": rel_err(dv, ref_dv),
+           "dq_abs_err": abs_err(dq, ref_dq),
+           "dkv_abs_err": max(abs_err(dk, ref_dk), abs_err(dv, ref_dv))}
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in (out, lse, dq, dk, dv))
+    emit(row)
+    check(finite, f"non-finite kernel output in case {case}")
+    check(row["o_abs_err"] <= TOL_O, f"flash_fwd out error {row}")
+    check(row["lse_abs_err"] <= TOL_LSE, f"flash_fwd lse error {row}")
+    for g in ("dq", "dk", "dv"):
+        check(row[f"{g}_rel_err"] <= TOL_GRAD, f"{g} error {row}")
+    return row, (q, k, v, do, out, lse)
+
+
 def phase_kernels(fa, torch, F):
     """Correctness of every case; times at the main (training) case."""
     results = {}
     for i, case in enumerate(CASES):
         B, H, L, D = case["B"], case["H"], case["L"], case["D"]
         causal, window = case["causal"], case["window"]
-        gen = torch.Generator(device="cuda").manual_seed(i)
-        q, k, v, do = (torch.randn((B * H, L, D), generator=gen,
-                                   device="cuda").to(torch.bfloat16)
-                       for _ in range(4))
-        out, lse = fa.flash_fwd(q, k, v, causal, window)
-        dq = fa.flash_dq(q, k, v, out, lse, do, causal, window)
-        dk, dv = fa.flash_dkv(q, k, v, out, lse, do, causal, window)
-        torch.cuda.synchronize()
-        f = [t.float() for t in (q, k, v, out, do)]
-        ref_o, ref_lse = fa.flash_attention_reference(f[0], f[1], f[2],
-                                                      causal, window)
-        ref_dq = fa.flash_dq_reference(f[0], f[1], f[2], f[3], lse, f[4],
-                                       causal, window)
-        ref_dk, ref_dv = fa.flash_dkv_reference(f[0], f[1], f[2], f[3], lse,
-                                                f[4], causal, window)
-
-        def abs_err(a, b):
-            return float((a.float() - b).abs().max())
-
-        def rel_err(a, b):
-            return abs_err(a, b) / float(b.abs().max())
-
-        row = {"phase": "kernels", **case,
-               "o_abs_err": abs_err(out, ref_o),
-               "lse_abs_err": abs_err(lse, ref_lse),
-               "dq_rel_err": rel_err(dq, ref_dq),
-               "dk_rel_err": rel_err(dk, ref_dk),
-               "dv_rel_err": rel_err(dv, ref_dv),
-               "dq_abs_err": abs_err(dq, ref_dq),
-               "dkv_abs_err": max(abs_err(dk, ref_dk), abs_err(dv, ref_dv))}
-        finite = all(bool(torch.isfinite(t).all())
-                     for t in (out, lse, dq, dk, dv))
-        emit(row)
-        check(finite, f"non-finite kernel output in case {case}")
-        check(row["o_abs_err"] <= TOL_O, f"flash_fwd out error {row}")
-        check(row["lse_abs_err"] <= TOL_LSE, f"flash_fwd lse error {row}")
-        for g in ("dq", "dk", "dv"):
-            check(row[f"{g}_rel_err"] <= TOL_GRAD, f"{g} error {row}")
+        row, (q, k, v, do, out, lse) = flash_case(fa, torch, "kernels", case,
+                                                  i)
         if i == 0:
             results["errors"] = row
             results["bounds"] = kernel_bounds(fa, torch, B, H, L, D, causal,
@@ -1033,8 +1092,7 @@ def phase_kernels(fa, torch, F):
                                            + results["ms"]["flash_dkv"]),
                   "flash_fwd_bwd_ms": sum(results["ms"].values()),
                   "bound_ms": {k: b[0] for k, b in results["bounds"].items()}})
-        del q, k, v, do, out, lse, dq, dk, dv, f, ref_o, ref_lse, ref_dq
-        del ref_dk, ref_dv
+        del q, k, v, do, out, lse
         torch.cuda.empty_cache()
     return results
 
@@ -4151,6 +4209,230 @@ def phase_train_resnet(kernels, torch) -> None:
           "train_resnet: the eval does not read the running averages")
 
 
+def phase_tp_kernels(fa, torch) -> None:
+    """B1-B3 at the shapes a model rank gives them (``TP_KERNEL_CASES``):
+    each against its plain version at phase 3's gates, then its median
+    event time, profiler device time, plain time and bound."""
+    for i, case in enumerate(TP_KERNEL_CASES):
+        B, H, L, D = case["B"], case["H"], case["L"], case["D"]
+        causal, window = case["causal"], case["window"]
+        _, (q, k, v, do, out, lse) = flash_case(fa, torch, "tp_kernels",
+                                                case, 100 + i)
+        calls = {
+            "flash_fwd": (lambda: fa.flash_fwd(q, k, v, causal, window),
+                          lambda: fa.flash_attention_reference(
+                              q, k, v, causal, window)),
+            "flash_dq": (lambda: fa.flash_dq(q, k, v, out, lse, do, causal,
+                                             window),
+                         lambda: fa.flash_dq_reference(
+                             q, k, v, out, lse, do, causal, window)),
+            "flash_dkv": (lambda: fa.flash_dkv(q, k, v, out, lse, do,
+                                               causal, window),
+                          lambda: fa.flash_dkv_reference(
+                              q, k, v, out, lse, do, causal, window))}
+        bounds = kernel_bounds(fa, torch, B, H, L, D, causal, window)
+        emit({"phase": "tp_kernels_timing", **case, "bh": B * H,
+              "ms": {n: time_ms(torch, c[0]) for n, c in calls.items()},
+              "device_ms": {n: sum(device_ms(torch, c[0], 20).values())
+                            or None for n, c in calls.items()},
+              "plain_ms": {n: time_ms(torch, c[1], iters=5)
+                           for n, c in calls.items()},
+              "bound_ms": {n: b[0] for n, b in bounds.items()},
+              "bound_by": {n: b[1] for n, b in bounds.items()}})
+        del q, k, v, do, out, lse
+        torch.cuda.empty_cache()
+
+
+def tp_pair(torch, M: int, **overrides):
+    """GPT-2-small on ``StackedTP(M)`` (seeded init, every model rank in
+    this process) and the whole model on the same weights (gathered), on
+    the card in bf16, without dropout."""
+    from tensorflow_distributed_tpu_torch.models.transformer import gpt_lm
+    from tensorflow_distributed_tpu_torch.parallel.sharding import (
+        gather_state_dict)
+    from tensorflow_distributed_tpu_torch.parallel.tensor_parallel import (
+        StackedTP)
+
+    with torch.device(DEVICE):
+        model = gpt_lm(TP_MODEL["size"], tp=StackedTP(M),
+                       compute_dtype=torch.bfloat16, dropout_rate=0.0,
+                       **overrides)
+    model.init_weights(torch.Generator(device=DEVICE).manual_seed(0))
+    whole = model.whole()
+    with torch.no_grad():
+        whole.load_state_dict(gather_state_dict(model.state_dict(), model))
+    return model, whole
+
+
+def phase_model_tp(fa, torch, np) -> None:
+    """Each of ``TP_VARIANTS`` at M in ``TP_SIZES``: the stacked TP model
+    against the whole model on the same batch, every launch count set to
+    0 just before the TP model's forward and backward and read after."""
+    from tensorflow_distributed_tpu_torch.ops.fused_ce import (
+        fused_ce_sums_by)
+    from tensorflow_distributed_tpu_torch.ops.losses import masked_ce_sums
+    from tensorflow_distributed_tpu_torch.parallel.sharding import (
+        gather_state_dict)
+    from tensorflow_distributed_tpu_torch.parallel.tensor_parallel import (
+        VocabShards)
+
+    rng = np.random.default_rng(0)
+    B, L = TP_MODEL["B"], TP_MODEL["L"]
+    batch = {}
+
+    def run(m, chunk, rows=slice(None)):
+        """Forward and backward of ``m`` on ``rows`` of the batch, the CE
+        sum divided by the whole batch's count (halves add up)."""
+        t0 = time.time()
+        tokens, targets, mask = (batch[k][rows]
+                                 for k in ("tokens", "targets", "mask"))
+        if chunk:
+            x, w, b = m(tokens, features_only=True)
+            vocab = (w.vocab_size if isinstance(w, VocabShards)
+                     else m.cfg.vocab_size)
+            ce, _, n = fused_ce_sums_by("scan", x, w, b, targets, mask,
+                                        vocab_size=vocab, chunk=chunk)
+            logits = None
+        else:
+            out = m(tokens)
+            ce, _, n = masked_ce_sums(out, targets, mask)
+            logits = (out.gathered() if isinstance(out, VocabShards)
+                      else out).detach()
+        loss = ce / batch["mask"].sum()
+        loss.backward()
+        sync(torch)
+        grads = {k: p.grad for k, p in m.named_parameters()}
+        return float(loss.detach()), logits, grads, time.time() - t0
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max().clamp(min=1e-30))
+
+    def grad_errs(got, ref):
+        """(the whole gradient's relative error, each parameter's max
+        |diff| / max |ref|: the worst and its name)."""
+        diff = sum(float((got[k].float() - g.float()).pow(2).sum())
+                   for k, g in ref.items())
+        norm = sum(float(g.float().pow(2).sum()) for g in ref.values())
+        each = {k: rel(got[k], g) for k, g in ref.items()
+                if float(g.abs().max()) > 0}
+        worst = max(each, key=each.get)
+        return math.sqrt(diff / norm), each[worst], worst
+
+    noise = None
+
+    for M in TP_SIZES:
+        for variant, overrides in TP_VARIANTS.items():
+            chunk = overrides.get("ce_chunk", 0)
+            model, whole = tp_pair(torch, M, **{
+                k: v for k, v in overrides.items() if k != "ce_chunk"})
+            if not batch:
+                V = model.cfg.vocab_size
+                batch.update({k: torch.from_numpy(v).to(DEVICE) for k, v in (
+                    ("tokens", rng.integers(0, V, (B, L))),
+                    ("targets", rng.integers(0, V, (B, L))),
+                    ("mask", (rng.random((B, L)) < 0.9).astype(
+                        np.float32)))})
+            ref_loss, ref_logits, ref_grads, ref_s = run(whole, chunk)
+            for kern in fa.KERNELS:
+                kern.launches = 0
+            loss, logits, grads, tp_s = run(model, chunk)
+            launches = {kern.name: kern.launches for kern in fa.KERNELS}
+            grads = gather_state_dict(grads, model)
+            grad_err, worst_err, worst = grad_errs(grads, ref_grads)
+            if noise is None:
+                # bf16's floor: the whole model against itself, the batch
+                # in two halves (other GEMM shapes, other sums).
+                ref_grads = {k: g.clone() for k, g in ref_grads.items()}
+                whole.zero_grad()
+                run(whole, chunk, slice(0, B // 2))
+                run(whole, chunk, slice(B // 2, B))
+                noise = grad_errs({k: p.grad for k, p in
+                                   whole.named_parameters()}, ref_grads)
+            row = {"phase": "model_tp", "M": M, "variant": variant,
+                   "heads_a_rank": model.cfg.n_heads // M, "loss": loss,
+                   "ref_loss": ref_loss,
+                   "loss_rel_err": abs(loss - ref_loss) / abs(ref_loss),
+                   "logits_rel_err": (None if logits is None
+                                      else rel(logits, ref_logits)),
+                   "grads_rel_err": grad_err,
+                   "worst_param_rel_err": worst_err, "worst_param": worst,
+                   "bf16_floor_whole_vs_halves": {
+                       "grads_rel_err": noise[0],
+                       "worst_param_rel_err": noise[1],
+                       "worst_param": noise[2]},
+                   "launches": launches, "tp_fwd_bwd_s": round(tp_s, 4),
+                   "whole_fwd_bwd_s": round(ref_s, 4), "tolerance": TOL_TP}
+            emit(row)
+            check(math.isfinite(loss), f"model_tp: non-finite loss {row}")
+            check(row["loss_rel_err"] <= TOL_TP
+                  and (logits is None or row["logits_rel_err"] <= TOL_TP)
+                  and row["grads_rel_err"] <= TOL_TP,
+                  f"model_tp: the TP model disagrees with the whole one: "
+                  f"{row}")
+            layers = model.cfg.n_layers
+            check(all(n == layers * M for n in launches.values()),
+                  f"model_tp: B1-B3 not launched {layers} x {M} times: "
+                  f"{launches}")
+            del model, whole, grads, ref_grads, logits, ref_logits
+            torch.cuda.empty_cache()
+
+
+def train_tp_runs(count: int):
+    """train_tp's legs for ``count`` cards: (name, processes, argv, the
+    one-card argv on the same global batch)."""
+    M = 4 if count >= 4 else 2
+    vp = ["--shard-vocab", "true", "--ce-chunk", "8192"]
+    runs = [(f"model{M}", M, TRAIN_TP_ARGV + ["--mesh.model", str(M)],
+             TRAIN_TP_ARGV),
+            (f"model{M}_shard_vocab", M,
+             TRAIN_TP_ARGV + vp + ["--mesh.model", str(M)],
+             TRAIN_TP_ARGV + vp)]
+    if count >= 4:
+        runs.append(("data2_model2_shard_vocab", 4,
+                     TRAIN_TP_ARGV + vp + ["--mesh.data", "2",
+                                           "--mesh.model", "2"],
+                     TRAIN_TP_ARGV + vp))
+    return runs
+
+
+def phase_train_tp(torch) -> None:
+    """--mesh.model M over torchrun's processes (NCCL); skipped, by the
+    device count alone, on one card (the stacked phases carry the kernel
+    evidence there)."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        emit({"phase": "train_tp",
+              "skipped": f"needs >= 2 CUDA devices, have {count}"})
+        return
+    flash = ("flash_fwd", "flash_dq", "flash_dkv")
+    for name, nproc, argv, one_argv in train_tp_runs(count):
+        wall, ranks, _ = run_torchrun(f"train_tp {name}", nproc, argv,
+                                      TRAIN_TP_TIMEOUT_S)
+        one, one_sps = one_card_losses(one_argv)
+        sps = ranks[0]["steps_per_sec"]
+        tokens = 8 * 1024
+        emit({"phase": "train_tp", "run": name, "processes": nproc,
+              "argv": argv, "wall_s": round(wall, 3),
+              "losses": ranks[0]["losses"][:5], "one_card_losses": one[:5],
+              "max_loss_diff": max(abs(a - b) for r in ranks
+                                   for a, b in zip(r["losses"][:5], one)),
+              "step_ms": 1e3 / sps if sps else None,
+              "tokens_per_s_per_card": sps * tokens / nproc,
+              "one_card_step_ms": 1e3 / one_sps if one_sps else None,
+              "one_card_tokens_per_s": one_sps * tokens,
+              "launches_per_rank": [{k: r["launches"][k] for k in flash}
+                                    for r in ranks]})
+        for r in ranks:
+            check(len(r["losses"]) == TRAIN_TP_STEPS and all(
+                abs(a - b) <= TOL_RING_LOSS
+                for a, b in zip(r["losses"][:5], one)),
+                f"train_tp {name}: losses {r['losses']} vs one card {one}")
+            check(all(r["launches"][k] > 0 for k in flash),
+                  f"train_tp {name}: a rank did not launch B1-B3: "
+                  f"{r['launches']}")
+
+
 def run_alone(names, fa, fce, kernels, torch, np, F) -> None:
     """``--only``: the named phases of ONLY_PHASES, in the order given."""
     alone = {"ce_kernels": lambda: phase_ce_kernels(fce, torch, F),
@@ -4159,7 +4441,10 @@ def run_alone(names, fa, fce, kernels, torch, np, F) -> None:
              "train_text": lambda: phase_train_text(kernels, torch),
              "train_cnn_u8": lambda: phase_train_cnn_u8(kernels, torch),
              "model_resnet": lambda: phase_model_resnet(torch, np),
-             "train_resnet": lambda: phase_train_resnet(kernels, torch)}
+             "train_resnet": lambda: phase_train_resnet(kernels, torch),
+             "tp_kernels": lambda: phase_tp_kernels(fa, torch),
+             "model_tp": lambda: phase_model_tp(fa, torch, np),
+             "train_tp": lambda: phase_train_tp(torch)}
     for name in names:
         alone[name]()
 
@@ -4241,6 +4526,9 @@ def main(argv=None) -> int:
     phase_train_cnn_u8(kernels, torch)
     phase_model_resnet(torch, np)
     phase_train_resnet(kernels, torch)
+    phase_tp_kernels(fa, torch)
+    phase_model_tp(fa, torch, np)
+    phase_train_tp(torch)
 
     err = {"flash_fwd": flash["errors"]["o_abs_err"],
            "flash_dq": flash["errors"]["dq_abs_err"],

@@ -41,6 +41,15 @@ Examples:
         -m tensorflow_distributed_tpu_torch.cli --mesh.seq 4 --model gpt_lm \
         --model-size small --seq-len 1024 --batch-size 8 --train-steps 30
 
+    # tensor parallelism (Megatron): each of --mesh.model M processes
+    # holds H/M heads and d_ff/M columns of every block (and, with
+    # --shard-vocab, V/M rows of the embedding); --mesh.data 2
+    # --mesh.model 2 makes two data rows of two-process TP groups:
+    torchrun --standalone --nproc-per-node 4 \
+        -m tensorflow_distributed_tpu_torch.cli --mesh.model 4 \
+        --model gpt_lm --model-size small --seq-len 1024 --batch-size 8 \
+        --ce-chunk 8192 --shard-vocab true
+
     # continuous-batching inference (serve/): GPT-2-small at its
     # published widths, fresh-init weights from --seed, 32 requests of
     # 64-512 prompt tokens through 8 slots, 64 new tokens each; prints

@@ -13,8 +13,8 @@ call trains the reference's ``mnist_cnn`` on the MNIST idx files under
 JAX CLI parses; those of the layers not ported yet are refused unless
 they keep their default (``--resilience.fault-plan`` and
 ``--resilience.sync-timeout-s`` run under ``--mode serve``).
-The model options of layers not ported yet (``--moe-experts``,
-``--shard-vocab``) parse and are refused the same way,
+The model option of a layer not ported yet (``--moe-experts``) parses
+and is refused the same way,
 as is ``--compute-dtype float32`` for training or evaluating the LM on a
 GPU (the kernels take bf16).
 """
@@ -53,17 +53,21 @@ SERVE_TRACES = ("poisson", "bursty", "diurnal")
 class MeshConfig:
     """Logical device-mesh shape, one process (one GPU) per position:
     the JAX ``MeshConfig``'s ``data`` axis (data parallelism, the
-    reference's worker replicas; -1 = every process that ``seq`` leaves
-    over) and ``seq`` axis (sequence parallelism, ring attention over
-    ``seq`` processes). The model, pipe and expert axes are not ported
-    yet (their flags are refused; see ROADMAP.md queue A)."""
+    reference's worker replicas; -1 = every process that ``seq`` and
+    ``model`` leave over), ``model`` axis (Megatron tensor parallelism of
+    the transformer families) and ``seq`` axis (sequence parallelism,
+    ring attention over ``seq`` processes). The pipe and expert axes are
+    not ported yet (their flags are refused; see ROADMAP.md queue A)."""
 
     data: int = -1
+    model: int = 1
     seq: int = 1
 
     def validate(self) -> None:
-        if self.seq < 1:
-            raise ValueError(f"mesh.seq must be >= 1, got {self.seq}")
+        for name in ("model", "seq"):
+            v = getattr(self, name)
+            if v < 1:
+                raise ValueError(f"mesh.{name} must be >= 1, got {v}")
         if self.data == 0 or self.data < -1:
             raise ValueError(f"mesh.data must be -1 or >= 1, got {self.data}")
 
@@ -394,9 +398,9 @@ class ResilienceConfig:
 class TrainConfig:
     """One job of the port: training (mnist_cnn, resnet20, resnet50,
     bert_mlm or gpt_lm on one device, or on ``mesh.data`` x ``mesh.seq``
-    devices), evaluating or continuing a prompt from a checkpoint
-    (``mode="eval"``, ``"generate"``), or serving gpt_lm on one device
-    (``mode="serve"``)."""
+    x ``mesh.model`` devices), evaluating or continuing a prompt from a
+    checkpoint (``mode="eval"``, ``"generate"``), or serving gpt_lm on
+    one device (``mode="serve"``)."""
 
     # --- model -----------------------------------------------------------
     # mnist_cnn (the reference's CNN, the JAX default) | resnet20 |
@@ -449,9 +453,11 @@ class TrainConfig:
     # dtype) or "int8" (per-(token, head) absmax scales; the attend
     # reads the int8 cache through exact scale-adjusted dots).
     kv_cache_quant: str = "none"  # none | int8
+    # Megatron vocab-parallel input embedding over mesh.model (its rows
+    # padded to a multiple of it), with vocab-sharded tied logits.
+    shard_vocab: bool = False
     # --- model options of layers not ported yet (ROADMAP.md queue A) ---
     moe_experts: int = 0
-    shard_vocab: bool = False
 
     # --- data ------------------------------------------------------------
     # The vision families: "mnist" (the idx files under data_dir, or the
@@ -571,6 +577,12 @@ class TrainConfig:
             raise ValueError(
                 f"mode=serve needs a causal LM with the decode cache "
                 f"({', '.join(CAUSAL_LM_MODELS)}), got {self.model!r}")
+        if serving and self.mesh.model > 1:
+            raise ValueError(
+                "mode=serve requires a pure data --mesh.* (model/"
+                "seq/pipe/expert == 1): the serve engine builds "
+                "its OWN tensor-parallel mesh — use "
+                "--serve.mesh-model N to shard the replica")
         if serving and (self.mesh.seq != 1 or self.mesh.data not in (-1, 1)):
             raise todo("--mode serve over a --mesh.* of more than one "
                        "process")
@@ -606,6 +618,9 @@ class TrainConfig:
                 raise ValueError(
                     "mode=generate requires mesh.seq == 1 (single-"
                     "token decode steps can't be seq-sharded)")
+            if self.mesh.model != 1:
+                raise todo("--mode generate over --mesh.model > 1 (the "
+                           "decode branch runs on one process; A6)")
             if self.num_beams > 1 and (
                     self.gen_temperature > 0 or self.gen_top_k
                     or self.gen_top_p != 1.0):
@@ -695,6 +710,16 @@ class TrainConfig:
                 f"ce_chunk has no effect on model={self.model!r} (the "
                 f"fused head+loss exists for the LM families' 50k-row "
                 f"vocabs); drop the flag")
+        if self.shard_vocab and not lm:
+            raise ValueError(
+                f"shard_vocab has no effect on model={self.model!r} "
+                f"(transformer families only); drop the flag")
+        if self.ce_impl == "kernel" and self.shard_vocab:
+            raise ValueError(
+                "ce_impl='kernel' does not compose with shard_vocab "
+                "(the Mosaic kernel wants the whole head per device); "
+                "the default ce_impl='scan' runs the vocab-parallel "
+                "form instead")
         if self.ce_impl not in CE_IMPLS:
             raise ValueError(
                 f"unknown ce_impl {self.ce_impl!r}; have {CE_IMPLS}")
@@ -702,6 +727,20 @@ class TrainConfig:
             raise ValueError(
                 "ce_impl has no effect without ce_chunk > 0 (the fused "
                 "head+loss master switch); add --ce-chunk")
+        if self.ce_impl == "kernel" and self.mesh.model > 1:
+            raise ValueError(
+                "ce_impl='kernel' requires mesh.model == 1 (the "
+                "Mosaic kernel wants the whole head per device); the "
+                "default ce_impl='scan' runs the Megatron vocab-"
+                "parallel form over the model axis instead")
+        if self.mesh.model > 1 and not lm:
+            raise todo(f"--mesh.model {self.mesh.model} for model="
+                       f"{self.model!r} (tensor parallelism shards the "
+                       f"transformer families, {', '.join(LM_MODELS)})")
+        if self.mesh.model > 1 and self.optimizer == "adafactor":
+            raise todo("--optimizer adafactor with --mesh.model > 1 (its "
+                       "factored statistics over a sharded dim need a sum "
+                       "over the model group; A5)")
         if self.remat not in ("none", "full", "dots"):
             raise ValueError(f"unknown remat {self.remat!r}")
         if self.attn_window < 0:
@@ -747,10 +786,8 @@ class TrainConfig:
                 "two handlers for the same event — drop "
                 "halt_on_nonfinite (resilience.nonfinite=halt is its "
                 "per-step superset)")
-        for name, default in (("moe_experts", 0), ("shard_vocab", False)):
-            if getattr(self, name) != default:
-                raise todo(f"--{name.replace('_', '-')}="
-                           f"{getattr(self, name)!r}")
+        if self.moe_experts:
+            raise todo(f"--moe-experts={self.moe_experts!r}")
         self.mesh.validate()
         self.resilience.validate()
         self.serve.validate()
@@ -836,8 +873,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> TrainConfig:
         prog="tensorflow_distributed_tpu_torch",
         description="PyTorch/CUDA port of tensorflow_distributed_tpu "
         "(the reference's MNIST CNN, ResNet-20/50, BERT masked LM or a GPT "
-        "causal LM, on one GPU or on --mesh.data x --mesh.seq GPUs under "
-        "torchrun; --mode serve runs a GPT's continuous-batching "
+        "causal LM, on one GPU or on --mesh.data x --mesh.seq x "
+        "--mesh.model GPUs under torchrun; --mode serve runs a GPT's continuous-batching "
         "inference on one GPU)",
         allow_abbrev=False)
     _add_dataclass_args(parser, TrainConfig)

@@ -18,7 +18,12 @@ kernels change layout:
   ``scale`` (the port's ``weight``); a RoPE model has no ``pos_emb``.
 
 ``params_to_flax`` is its exact inverse (the same names, the layouts
-transposed back, the keys sorted as a JAX host tree has them).
+transposed back, the keys sorted as a JAX host tree has them). Both take
+the ``--shard-vocab`` tables as JAX pads them (rows to a multiple of the
+model axis), shapes being carried over as they are; ``shards_from_flax``
+gives a tensor-parallel model's part of a flax tree
+(``parallel/sharding.py``), and ``state_from_flax`` keeps only that part
+of each array when it loads into a TP model's state.
 ``flax_layout`` gives each parameter's flax path and its maps to and
 from the flax leaf's layout (Adafactor keeps its statistics there).
 
@@ -60,6 +65,8 @@ from torch import nn
 from tensorflow_distributed_tpu_torch.models.resnet import BatchNorm
 from tensorflow_distributed_tpu_torch.models.transformer import (
     KVCache, RMSNorm, SelfAttention, kv_heads)
+from tensorflow_distributed_tpu_torch.parallel.sharding import (
+    shard_state_dict)
 from tensorflow_distributed_tpu_torch.train.state import (
     TrainState, ema_init, model_extra)
 
@@ -103,6 +110,17 @@ def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         key = ".".join(module + ["weight" if name != "bias" else "bias"])
         out[key] = torch.tensor(np.asarray(value, dtype=np.float32))
     return out
+
+
+def shards_from_flax(tree: Mapping[str, Any], model: nn.Module
+                     ) -> Dict[str, torch.Tensor]:
+    """A flax param tree (or a moment or EMA of one) -> the state dict of
+    the tensor-parallel ``model``'s ranks in this process (the whole
+    tensors where the model has no ``tp``)."""
+    full = params_from_flax(tree)
+    if getattr(model, "tp", None) is None:
+        return full
+    return shard_state_dict(full, model)
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
@@ -297,10 +315,11 @@ def _copy_checked(dst: torch.Tensor, src: torch.Tensor, what: str) -> None:
 
 @torch.no_grad()
 def _load(dst: Dict[str, torch.Tensor], tree: Mapping[str, Any],
-          what: str) -> None:
-    """Copy a flax param tree into the port's tensors of the same names,
-    in place, after checking names and shapes."""
-    src = params_from_flax(tree)
+          what: str, model: Optional[nn.Module] = None) -> None:
+    """Copy a flax param tree into the port's tensors of the same names
+    (``model``'s shards of it under tensor parallelism), in place, after
+    checking names and shapes."""
+    src = shards_from_flax(tree, model)
     _check_names(src, dst, what)
     for name, t in dst.items():
         _copy_checked(t, src[name], f"{what} {name}")
@@ -333,7 +352,7 @@ def state_from_flax(tree: Mapping[str, Any], state: TrainState
     shapes must match the model's; the moments are found by name
     wherever the chain nests them, so adding or dropping clipping or
     the decay mask across a resume restores, as JAX aligns the mask."""
-    _load(state.params, tree["params"], "params")
+    _load(state.params, tree["params"], "params", state.model)
     extra_from_flax(tree.get("extra") or {}, state.model)
     tx, opt = state.tx, tree["opt_state"]
     names = _MOMENTS[tx.kind]
@@ -349,13 +368,14 @@ def state_from_flax(tree: Mapping[str, Any], state: TrainState
             _load_stats(state.opt_state[name], core[name], state.model,
                         f"opt_state {name}")
         else:
-            _load(state.opt_state[name], core[name], f"opt_state {name}")
+            _load(state.opt_state[name], core[name], f"opt_state {name}",
+                  state.model)
     if tree.get("ema") is None:
         state.ema = None
     else:
         if state.ema is None:
             state.ema = ema_init(state.params)
-        _load(state.ema, tree["ema"], "ema")
+        _load(state.ema, tree["ema"], "ema", state.model)
     state.step = int(tree["step"])
     return state
 

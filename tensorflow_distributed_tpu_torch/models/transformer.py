@@ -58,11 +58,28 @@ Numerics follow the flax model:
   and the read gathers each row's pages back into the dense layout,
   so the attend is the dense one over the same bytes.
 
+With ``tp`` (a transport of ``parallel/tensor_parallel.py`` over the
+mesh's ``model`` axis of M ranks; the JAX model's ``nn.with_partitioning``
+layout under GSPMD) each rank holds H/M query heads and d_ff/M hidden
+columns of every block (``parallel/sharding.py`` says which part of
+each parameter): ``copy_to_tp`` in front of qkv (or q), up and gate,
+``reduce_from_tp`` after out and down, whose biases are added once,
+after the reduce. Under GQA the K/V projection stays whole on every
+rank, and each rank keeps the K/V heads of its own query heads. The
+untied head is column-parallel (its rows padded to a multiple of M in
+the ranks' parts, or in the parameter under ``shard_vocab``), and
+``shard_vocab`` makes the input table vocab-parallel (JAX's padding to
+a multiple of M rows; a rank looks up its own rows, zero elsewhere, and
+the ranks' lookups are summed) and the tied logits vocab-sharded. Sharded
+logits (and, with ``features_only``, a sharded head) come out as a
+``VocabShards`` for the vocab-parallel losses; the full [B, L, V] is
+never gathered. The decode branch runs on one process.
+
 Parameter names mirror the flax tree (``layer_0.attn.qkv`` for
 ``layer_0/attn/qkv``), so ``interop.params_from_flax`` is a fixed
-renaming plus the kernel reshapes. Options of the JAX config that the
-port does not run yet (``moe_experts``, ``shard_vocab``) raise
-``NotImplementedError`` instead of being ignored.
+renaming plus the kernel reshapes. An option of the JAX config that the
+port does not run yet (``moe_experts``) raises ``NotImplementedError``
+instead of being ignored.
 """
 
 from __future__ import annotations
@@ -83,6 +100,10 @@ from tensorflow_distributed_tpu_torch.ops.flash_attention import (
     NEG_INF, attention, window_keep)
 from tensorflow_distributed_tpu_torch.parallel.ring_attention import (
     full_attention, ring_attention)
+from tensorflow_distributed_tpu_torch.parallel.sharding import (
+    shard_state_dict)
+from tensorflow_distributed_tpu_torch.parallel.tensor_parallel import (
+    VocabShards, local_ranks)
 
 LN_EPS = 1e-6  # flax nn.LayerNorm and nn.RMSNorm default
 INIT_STD = 0.02  # the JAX _dense_init (BERT-style normal)
@@ -125,13 +146,15 @@ class TransformerConfig:
     # page 0 is the write-off page. 0 = the dense cache.
     kv_page_size: int = 0
     kv_num_pages: int = 0
+    # Megatron vocab-parallel input table (and vocab-sharded tied
+    # logits) over the model axis; its rows padded to a multiple of it.
+    shard_vocab: bool = False
     # Options of the JAX model this port does not run yet (ROADMAP.md
     # queue A); any value but the default raises.
     moe_experts: int = 0
-    shard_vocab: bool = False
 
 
-_NOT_PORTED = {"moe_experts": 0, "shard_vocab": False}
+_NOT_PORTED = {"moe_experts": 0}
 _CHOICES = {"pos_emb": ("learned", "rope"), "mlp_variant": ("gelu", "swiglu"),
             "norm": ("layernorm", "rmsnorm"), "remat_policy": ("full", "dots"),
             "kv_cache_quant": ("none", "int8")}
@@ -158,6 +181,17 @@ def _check_config(cfg: TransformerConfig) -> None:
     if cfg.pos_emb == "rope" and (cfg.d_model // cfg.n_heads) % 2:
         raise ValueError(f"rope needs an even head dim, got "
                          f"Dh={cfg.d_model // cfg.n_heads}")
+
+
+def check_tp(cfg: TransformerConfig, size: int) -> None:
+    """The shapes the port cuts into ``size`` equal shards: JAX's GSPMD
+    pads uneven ones, the port refuses them (ROADMAP.md A5)."""
+    for name in ("n_heads", "d_ff"):
+        if getattr(cfg, name) % size:
+            raise ValueError(
+                f"--mesh.model {size} must divide {name} "
+                f"{getattr(cfg, name)}: the port cuts even tensor-parallel "
+                f"shards (uneven ones are not ported; ROADMAP.md A5)")
 
 
 def bert_base_config(**overrides) -> TransformerConfig:
@@ -282,6 +316,28 @@ def _dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype):
     return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
 
 
+def _linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+            dtype: torch.dtype) -> torch.Tensor:
+    """``_dense`` on one rank's part of a layer (no bias: a row-parallel
+    part, whose bias is added after the reduce)."""
+    return F.linear(x.to(dtype), w.to(dtype),
+                    None if b is None else b.to(dtype))
+
+
+def _local_linear(d_in: int, d_out: int, ranks: int,
+                  split_bias: bool = True) -> nn.Linear:
+    """A Linear of one rank's shape, or with ``ranks`` > 1 (``StackedTP``)
+    holding that many ranks' weights on a leading dim (and their biases,
+    unless ``split_bias`` is False: a row-parallel layer's whole bias)."""
+    layer = nn.Linear(d_in, d_out)
+    if ranks > 1:
+        layer.weight = nn.Parameter(layer.weight.new_empty(ranks, d_out,
+                                                           d_in))
+        if split_bias:
+            layer.bias = nn.Parameter(layer.bias.new_empty(ranks, d_out))
+    return layer
+
+
 @torch.no_grad()
 def cast_dense_weights_(model: nn.Module) -> None:
     """Hold every dense layer's kernel and bias in the compute dtype, in
@@ -383,7 +439,7 @@ def _is_ring(ring) -> bool:
 
 
 class SelfAttention(nn.Module):
-    def __init__(self, cfg: TransformerConfig, ring=None):
+    def __init__(self, cfg: TransformerConfig, ring=None, tp=None):
         super().__init__()
         if _is_ring(ring) and cfg.attn_window:
             raise ValueError(
@@ -392,17 +448,20 @@ class SelfAttention(nn.Module):
                 "window IS the long-context strategy — use mesh.seq == 1")
         self.cfg = cfg
         self.ring = ring
+        self.tp = tp
         h, dh, nk = cfg.n_heads, cfg.d_model // cfg.n_heads, kv_heads(cfg)
         # flax DenseGeneral kernels: qkv [D, 3, H, dh] (MHA: one fused
         # projection, the param tree of before GQA), or q [D, H, dh] and
         # kv [D, 2, nk, dh] (GQA); out [H, dh, D]. Here flattened to
-        # Linear's [out, in].
+        # Linear's [out, in]; under TP the query heads are a rank's H/M.
+        hl, ranks = h // (tp.size if tp else 1), local_ranks(tp)
         if nk == h:
-            self.qkv = nn.Linear(cfg.d_model, 3 * h * dh)
+            self.qkv = _local_linear(cfg.d_model, 3 * hl * dh, ranks)
         else:
-            self.q = nn.Linear(cfg.d_model, h * dh)
+            self.q = _local_linear(cfg.d_model, hl * dh, ranks)
             self.kv = nn.Linear(cfg.d_model, 2 * nk * dh)
-        self.out = nn.Linear(h * dh, cfg.d_model)
+        self.out = _local_linear(hl * dh, cfg.d_model, ranks,
+                                 split_bias=False)
 
     def forward(self, x: torch.Tensor, positions: Optional[torch.Tensor] = None,
                 kv: Optional[Tuple[torch.Tensor, ...]] = None,
@@ -413,6 +472,11 @@ class SelfAttention(nn.Module):
         ``page_table`` for a paged pool; the training path otherwise.
         ``rope``: RoPE's (cos, sin) at ``positions`` (``rope_angles``)
         when it is on."""
+        if self.tp is not None:
+            if kv is not None:
+                raise ValueError("the decode branch runs on one process "
+                                 "(mesh.model must be 1)")
+            return self._forward_tp(x, rope)
         cfg = self.cfg
         B, L, _ = x.shape
         h, dh, nk = cfg.n_heads, cfg.d_model // cfg.n_heads, kv_heads(cfg)
@@ -441,6 +505,47 @@ class SelfAttention(nn.Module):
             out = attention(q, widen(k), widen(v), causal=cfg.causal,
                             window=cfg.attn_window)
         return _dense(out.reshape(B, L, h * dh), self.out, dtype)
+
+    def _attend(self, q, k, v):
+        if _is_ring(self.ring):
+            return ring_attention(q, k, v, self.ring, causal=self.cfg.causal)
+        return attention(q, k, v, causal=self.cfg.causal,
+                         window=self.cfg.attn_window)
+
+    def _forward_tp(self, x: torch.Tensor, rope) -> torch.Tensor:
+        """The training path on this process's model ranks, each with
+        its H/M query heads at [B, L, H/M, Dh] through ``attention()``
+        (or the ring). Under GQA the whole K/V projection runs on the
+        replicated stream and ``copy_to_tp`` carries its output to the
+        ranks, each taking the K/V heads its query heads read, as JAX's
+        replicated ``kv`` kernel and ``jnp.repeat``."""
+        cfg, tp = self.cfg, self.tp
+        B, L, _ = x.shape
+        h, dh, nk = cfg.n_heads, cfg.d_model // cfg.n_heads, kv_heads(cfg)
+        hl, dtype = h // tp.size, cfg.compute_dtype
+        xs = tp.copy_to_tp(x)
+        if nk == h:
+            qkv = [_linear(xi, w, b, dtype).view(B, L, 3, hl, dh).unbind(2)
+                   for xi, w, b in zip(xs, tp.split(self.qkv.weight),
+                                       tp.split(self.qkv.bias))]
+        else:
+            kv = _dense(x, self.kv, dtype).view(B, L, 2, nk, dh)
+            qkv = []
+            for xi, w, b, kvi, m in zip(xs, tp.split(self.q.weight),
+                                        tp.split(self.q.bias),
+                                        tp.copy_to_tp(kv), tp.indices):
+                heads = torch.arange(m * hl, (m + 1) * hl,
+                                     device=x.device) // (h // nk)
+                k, v = kvi.index_select(3, heads).unbind(2)
+                qkv.append((_linear(xi, w, b, dtype).view(B, L, hl, dh),
+                            k, v))
+        parts = []
+        for (q, k, v), w in zip(qkv, tp.split(self.out.weight)):
+            if rope is not None:
+                q, k = _rotate(q, rope), _rotate(k, rope)
+            out = self._attend(q, k, v)
+            parts.append(_linear(out.reshape(B, L, hl * dh), w, None, dtype))
+        return tp.reduce_from_tp(parts) + self.out.bias.to(dtype)
 
 
 def _grouped_attend(q, k_cache, v_cache, bias, k_scale=None, v_scale=None):
@@ -556,33 +661,56 @@ class Mlp(nn.Module):
     "swiglu"`` ``down(silu(gate(x)) * up(x))``; gate and up are d_ff
     wide, every product in the compute dtype."""
 
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, tp=None):
         super().__init__()
         self.cfg = cfg
+        self.tp = tp
+        ff, ranks = cfg.d_ff // (tp.size if tp else 1), local_ranks(tp)
         if cfg.mlp_variant == "swiglu":
-            self.gate = nn.Linear(cfg.d_model, cfg.d_ff)
-        self.up = nn.Linear(cfg.d_model, cfg.d_ff)
-        self.down = nn.Linear(cfg.d_ff, cfg.d_model)
+            self.gate = _local_linear(cfg.d_model, ff, ranks)
+        self.up = _local_linear(cfg.d_model, ff, ranks)
+        self.down = _local_linear(ff, cfg.d_model, ranks, split_bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = self.cfg.compute_dtype
+        if self.tp is not None:
+            return self._forward_tp(x)
         if self.cfg.mlp_variant == "swiglu":
             x = F.silu(_dense(x, self.gate, dtype)) * _dense(x, self.up, dtype)
         else:
             x = F.gelu(_dense(x, self.up, dtype), approximate="tanh")
         return _dense(x, self.down, dtype)
 
+    def _forward_tp(self, x: torch.Tensor) -> torch.Tensor:
+        """Each rank's d_ff/M columns: column-parallel up (and gate),
+        row-parallel down, the down bias after the reduce."""
+        tp, dtype = self.tp, self.cfg.compute_dtype
+        swiglu = self.cfg.mlp_variant == "swiglu"
+        gates = tp.split(self.gate.weight) if swiglu else None
+        gate_b = tp.split(self.gate.bias) if swiglu else None
+        parts = []
+        for i, (xi, w, b, wd) in enumerate(zip(
+                tp.copy_to_tp(x), tp.split(self.up.weight),
+                tp.split(self.up.bias), tp.split(self.down.weight))):
+            if swiglu:
+                hid = (F.silu(_linear(xi, gates[i], gate_b[i], dtype))
+                       * _linear(xi, w, b, dtype))
+            else:
+                hid = F.gelu(_linear(xi, w, b, dtype), approximate="tanh")
+            parts.append(_linear(hid, wd, None, dtype))
+        return tp.reduce_from_tp(parts) + self.down.bias.to(dtype)
+
 
 class Block(nn.Module):
     """Pre-norm transformer block."""
 
-    def __init__(self, cfg: TransformerConfig, ring=None):
+    def __init__(self, cfg: TransformerConfig, ring=None, tp=None):
         super().__init__()
         self.cfg = cfg
         self.ln1 = _make_norm(cfg)
-        self.attn = SelfAttention(cfg, ring)
+        self.attn = SelfAttention(cfg, ring, tp)
         self.ln2 = _make_norm(cfg)
-        self.mlp = Mlp(cfg)
+        self.mlp = Mlp(cfg, tp)
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None,
@@ -678,26 +806,69 @@ class TransformerLM(nn.Module):
 
     extra_vocab: int = 0
 
-    def __init__(self, cfg: TransformerConfig, ring=None):
+    def __init__(self, cfg: TransformerConfig, ring=None, tp=None,
+                 vocab_shards: Optional[int] = None):
+        """``tp``: the model axis's transport (``parallel/
+        tensor_parallel.py``), or None for one whole model.
+        ``vocab_shards``: the M that ``shard_vocab`` pads the tables'
+        rows to a multiple of (default: the transport's size, else 1), so
+        that a whole model can take a TP run's padded parameters."""
         super().__init__()
         _check_config(cfg)
         self.cfg = cfg
         self.ring = ring
-        self.tok_emb = nn.Embedding(cfg.vocab_size + self.extra_vocab,
-                                    cfg.d_model)
+        self.tp = tp
+        size = tp.size if tp is not None else 1
+        if tp is not None:
+            check_tp(cfg, size)
+        self.vocab_shards = vocab_shards or size
+        pad = self.vocab_shards if cfg.shard_vocab else 1
+        emb_rows = cfg.vocab_size + self.extra_vocab
+        emb_rows += (-emb_rows) % pad
+        # The head's rows (the param's; the ranks' parts pad it further
+        # to a multiple of M without shard_vocab).
+        self.head_rows = cfg.vocab_size + (-cfg.vocab_size) % pad
+        ranks = local_ranks(tp)
+        if cfg.shard_vocab and tp is not None:
+            self.tok_emb = nn.Embedding(emb_rows // size, cfg.d_model)
+            if ranks > 1:
+                self.tok_emb.weight = nn.Parameter(
+                    self.tok_emb.weight.new_empty(ranks, emb_rows // size,
+                                                  cfg.d_model))
+        else:
+            self.tok_emb = nn.Embedding(emb_rows, cfg.d_model)
         if cfg.pos_emb == "learned":
             self.pos_emb = nn.Embedding(cfg.max_len, cfg.d_model)
         for i in range(cfg.n_layers):
-            self.add_module(f"layer_{i}", Block(cfg, ring))
+            self.add_module(f"layer_{i}", Block(cfg, ring, tp))
         self.ln_f = _make_norm(cfg)
         if not cfg.tie_embeddings:
-            self.lm_head = _LmHead(cfg.d_model, cfg.vocab_size)
+            rows = -(-self.head_rows // size)
+            if tp is None:
+                self.lm_head = _LmHead(cfg.d_model, self.head_rows)
+            else:
+                self.lm_head = _local_linear(cfg.d_model, rows, ranks)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
         """The flax initializers: normal(0.02) for kernels and embedding
         tables, zeros for biases, ones/zeros for the norms' scales and
-        offsets, drawn in module order from ``generator``."""
+        offsets, drawn in module order from ``generator``. Under TP the
+        draw of the whole model without ``shard_vocab``'s padding rows
+        (one process's draw), those rows zero, cut to this process's
+        ranks."""
+        if self.tp is not None:
+            device = next(self.parameters()).device
+            with torch.device(device):
+                whole = type(self)(self.cfg)
+            whole.init_weights(generator)
+            shapes = {n: p.shape for n, p in
+                      self.whole("meta").named_parameters()}
+            full = {n: F.pad(t, (0, 0) * (t.dim() - 1)
+                             + (0, shapes[n][0] - t.shape[0]))
+                    for n, t in whole.state_dict().items()}
+            self.load_state_dict(shard_state_dict(full, self))
+            return
         for module in self.modules():
             if isinstance(module, (nn.Linear, nn.Embedding)):
                 module.weight.normal_(0.0, INIT_STD, generator=generator)
@@ -705,6 +876,13 @@ class TransformerLM(nn.Module):
                 module.weight.fill_(1.0)
             if isinstance(module, (nn.Linear, nn.LayerNorm)):
                 module.bias.zero_()
+
+    def whole(self, device=None) -> "TransformerLM":
+        """The unsharded model of this config (its tables padded as this
+        model's are), built on ``device``; on ``"meta"`` it allocates
+        nothing (a template of names, modules and full shapes)."""
+        with torch.device(device or next(self.parameters()).device):
+            return type(self)(self.cfg, vocab_shards=self.vocab_shards)
 
     def forward(self, tokens: torch.Tensor, *, train: bool = False,
                 generator: Optional[torch.Generator] = None,
@@ -731,9 +909,9 @@ class TransformerLM(nn.Module):
                 raise ValueError("decode=True requires positions")
             if cache is None:
                 raise ValueError("decode=True requires a KVCache")
-            if _is_ring(self.ring):
+            if _is_ring(self.ring) or self.tp is not None:
                 raise ValueError("decode=True runs on one process "
-                                 "(mesh.seq must be 1)")
+                                 "(mesh.seq and mesh.model must be 1)")
         elif cache is not None:
             raise ValueError("a KVCache is read only with decode=True")
         shards, start = ((self.ring.size, self.ring.index * L)
@@ -743,7 +921,7 @@ class TransformerLM(nn.Module):
                              f"{cfg.max_len}")
         if positions is None:
             positions = start + torch.arange(L, device=tokens.device)[None]
-        x = self.tok_emb(tokens)
+        x = self._embed(tokens)
         rope = None
         if cfg.pos_emb == "rope":
             # One (cos, sin) for every layer: JAX computes the same
@@ -769,16 +947,70 @@ class TransformerLM(nn.Module):
                 x = block(x, train, generator, positions, kv, rope,
                           page_table)
         x = _norm(x, self.ln_f).to(cfg.compute_dtype)
+        if self.tp is not None:
+            return self._head_tp(x, features_only)
         if features_only:
             if cfg.tie_embeddings:
                 return x, self.tok_emb.weight[:cfg.vocab_size], None
+            if self.head_rows != cfg.vocab_size:  # shard_vocab's padding
+                return (x, self.lm_head.weight[:cfg.vocab_size],
+                        self.lm_head.bias[:cfg.vocab_size])
             return x, self.lm_head.weight, self.lm_head.bias
         if cfg.tie_embeddings:
             # The sentinel rows dropped before the product (JAX slices
             # them off the logits: the same values).
             table = self.tok_emb.weight[:cfg.vocab_size].to(cfg.compute_dtype)
             return F.linear(x, table).float()
-        return self.lm_head(x).float()
+        return self.lm_head(x)[..., :cfg.vocab_size].float()
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The token lookup; under TP with ``shard_vocab`` each rank
+        looks up the ids of its own rows (zero for the others) and the
+        ranks' lookups are summed."""
+        if self.tp is None or not self.cfg.shard_vocab:
+            return self.tok_emb(tokens)
+        tp = self.tp
+        parts = []
+        for w, m in zip(tp.split(self.tok_emb.weight), tp.indices):
+            rows = w.shape[0]
+            ids = tokens - m * rows
+            mine = (ids >= 0) & (ids < rows)
+            parts.append(F.embedding(ids.clamp(0, rows - 1), w)
+                         * mine[..., None])
+        return tp.reduce_from_tp(parts)
+
+    def _head_tp(self, x: torch.Tensor, features_only: bool):
+        """The head on the model ranks: vocab-sharded logits (or, with
+        ``features_only``, the head's rows for the vocab-parallel fused
+        loss) as a ``VocabShards``; the tied head without
+        ``shard_vocab`` is whole on every rank, as in JAX (its logits
+        replicated; the fused loss cuts the table's rows per rank, its
+        gradient summed back by ``copy_to_tp``)."""
+        cfg, tp = self.cfg, self.tp
+        V = cfg.vocab_size
+        biases = None
+        if cfg.tie_embeddings and not cfg.shard_vocab:
+            table = self.tok_emb.weight[:V]
+            if not features_only:
+                return F.linear(x, table.to(cfg.compute_dtype)).float()
+            rows = -(-V // tp.size)
+            weights = [F.pad(t, (0, 0, 0, rows * tp.size - V))[
+                m * rows:(m + 1) * rows]
+                for t, m in zip(tp.copy_to_tp(table), tp.indices)]
+        elif cfg.tie_embeddings:
+            weights = tp.split(self.tok_emb.weight)
+        else:
+            weights = tp.split(self.lm_head.weight)
+            biases = tp.split(self.lm_head.bias)
+        rows = weights[0].shape[0]
+        if features_only:
+            return x, VocabShards(weights, rows, V, tp, biases), None
+        dtype = cfg.compute_dtype
+        logits = [_linear(xi, w, None if biases is None else biases[i],
+                          dtype).float()
+                  for i, (xi, w) in enumerate(zip(tp.copy_to_tp(x),
+                                                  weights))]
+        return VocabShards(logits, rows, V, tp)
 
 
 class BertMLM(TransformerLM):
@@ -793,10 +1025,11 @@ class CausalLM(TransformerLM):
     ``causal=True`` config (gpt_lm enforces it)."""
 
 
-def gpt_lm(size: str = "small", ring=None, **overrides) -> CausalLM:
+def gpt_lm(size: str = "small", ring=None, tp=None, **overrides) -> CausalLM:
     """GPT-style decoder-only LM. ``size``: the GPT-2 ladder
     (GPT2_SIZES) or "tiny" (test scale); ``ring``: the seq group's ring
-    (``ProcessGroupRing``) for sequence parallelism, or None;
+    (``ProcessGroupRing``) for sequence parallelism, or None; ``tp``:
+    the model axis's transport for tensor parallelism, or None;
     ``overrides`` are TransformerConfig fields."""
     overrides["causal"] = True
     if size in GPT2_SIZES:
@@ -806,10 +1039,11 @@ def gpt_lm(size: str = "small", ring=None, **overrides) -> CausalLM:
     else:
         raise ValueError(f"gpt_lm size {size!r}; have "
                          f"({', '.join(GPT2_SIZES)}, tiny)")
-    return CausalLM(cfg, ring)
+    return CausalLM(cfg, ring, tp)
 
 
-def bert_base_mlm(size: str = "base", ring=None, **overrides) -> BertMLM:
+def bert_base_mlm(size: str = "base", ring=None, tp=None,
+                  **overrides) -> BertMLM:
     """BERT masked LM. ``size``: "base" (BERT-base) or "tiny" (test
     scale); ``overrides`` are TransformerConfig fields."""
     if size == "base":
@@ -818,8 +1052,8 @@ def bert_base_mlm(size: str = "base", ring=None, **overrides) -> BertMLM:
         cfg = tiny_config(**overrides)
     else:
         raise ValueError(f"bert_mlm size {size!r}; have ('base', 'tiny')")
-    return BertMLM(cfg, ring)
+    return BertMLM(cfg, ring, tp)
 
 
-def bert_tiny_mlm(ring=None, **overrides) -> BertMLM:
-    return BertMLM(tiny_config(**overrides), ring)
+def bert_tiny_mlm(ring=None, tp=None, **overrides) -> BertMLM:
+    return BertMLM(tiny_config(**overrides), ring, tp)

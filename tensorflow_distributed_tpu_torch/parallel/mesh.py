@@ -1,4 +1,4 @@
-"""Process groups for data and sequence parallelism: the port of
+"""Process groups for data, sequence and tensor parallelism: the port of
 ``parallel/mesh.py``.
 
 The JAX package builds one SPMD program over a device mesh after
@@ -10,13 +10,21 @@ environment ``torchrun`` sets (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 CPU, and returns the :class:`Mesh`.
 
 The ranks are laid out as the JAX package lays out its devices,
-row-major over (data, pipe, seq, model, expert); with pipe, model and
-expert 1, rank r sits at data index ``r // S`` and seq index ``r % S``.
-The seq group (S contiguous ranks) carries the ring; the data group
-(the ranks that share a seq index) holds one sequence block of every
-data shard. The flat collectives below are the port's form of GSPMD's
-implicit ones: the loss sums, and the gradients of the parameters every
-rank holds a copy of, are summed over the whole world.
+row-major over (data, pipe, seq, model, expert); with pipe and expert
+1, rank r sits at model index ``r % M``, seq index ``(r // M) % S`` and
+data index ``r // (S * M)``. Three groups carry the collectives:
+
+- the model group (M contiguous ranks) carries tensor parallelism's
+  ``ProcessGroupTP`` (``parallel/tensor_parallel.py``);
+- the seq group (S ranks, stride M) carries the ring
+  (``ProcessGroupRing``);
+- the replica group (the D * S ranks that share a model index) holds
+  the same shard of every parameter: the loss sums and the gradients
+  are summed over it (``replica_all_reduce_``), the port's form of
+  GSPMD's implicit psums. Without a model axis it is the whole world.
+
+The data group (the ranks that share a (seq, model) index) is the group
+of sync BatchNorm.
 
 ``is_chief()`` elects rank 0 for logging, as in the JAX package.
 """
@@ -32,6 +40,8 @@ import torch.distributed as dist
 
 from tensorflow_distributed_tpu_torch.parallel.ring_attention import (
     ProcessGroupRing)
+from tensorflow_distributed_tpu_torch.parallel.tensor_parallel import (
+    ProcessGroupTP)
 
 AXIS_DATA = "data"
 AXIS_MODEL = "model"
@@ -42,7 +52,7 @@ MESH_AXES = (AXIS_DATA, AXIS_PIPE, AXIS_SEQ, AXIS_MODEL, AXIS_EXPERT)
 TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK")
 LAUNCH = ("torchrun --nproc-per-node {N} -m "
           "tensorflow_distributed_tpu_torch.cli --mesh.data {D} "
-          "--mesh.seq {S} ...")
+          "--mesh.seq {S} --mesh.model {M} ...")
 
 
 # --- mesh-feasibility rules (pure helpers; the JAX package's own) --------
@@ -93,9 +103,9 @@ def mesh_infeasible(axes, devices: int,
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """This process's place in the (data, seq) mesh. ``distributed``:
-    a process group is up, so the collectives run (also for a world of
-    one under torchrun); without one they are no-ops."""
+    """This process's place in the (data, seq, model) mesh.
+    ``distributed``: a process group is up, so the collectives run (also
+    for a world of one under torchrun); without one they are no-ops."""
 
     data: int = 1
     seq: int = 1
@@ -104,24 +114,48 @@ class Mesh:
     seq_group: Any = None
     ring: Optional[ProcessGroupRing] = None  # over seq_group when seq > 1
     distributed: bool = False
+    model: int = 1
+    model_group: Any = None
+    replica_group: Any = None  # None: the whole world (model 1)
+    tp: Optional[ProcessGroupTP] = None  # over model_group when model > 1
 
     @property
-    def data_index(self) -> int:
-        return self.rank // self.seq
+    def model_index(self) -> int:
+        return self.rank % self.model
 
     @property
     def seq_index(self) -> int:
-        return self.rank % self.seq
+        return (self.rank // self.model) % self.seq
 
-    def all_reduce_sum_(self, tensors: Iterable[torch.Tensor]) -> None:
-        """Sum same-dtype tensors over the whole world, in place."""
-        if self.distributed:
-            all_reduce_sum_(tensors)
+    @property
+    def data_index(self) -> int:
+        return self.rank // (self.seq * self.model)
 
-    def broadcast_(self, tensors: Iterable[torch.Tensor]) -> None:
-        """Overwrite same-dtype tensors with rank 0's values."""
+    @property
+    def replica_index(self) -> int:
+        """This rank's place among the ranks of its model index: its
+        (data, seq) coordinate, row-major. The model ranks of one
+        coordinate share it (and so their dropout masks)."""
+        return self.rank // self.model
+
+    def replica_all_reduce_(self, tensors: Iterable[torch.Tensor]) -> None:
+        """Sum same-dtype tensors over the replica group (the ranks that
+        hold the same shards), in place: the gradients and the loss
+        sums."""
         if self.distributed:
-            broadcast_(tensors, 0)
+            all_reduce_sum_(tensors, self.replica_group)
+
+    def model_all_reduce_(self, tensors: Iterable[torch.Tensor]) -> None:
+        """Sum same-dtype tensors over the model group, in place."""
+        if self.distributed and self.model > 1:
+            all_reduce_sum_(tensors, self.model_group)
+
+    def replica_broadcast_(self, tensors: Iterable[torch.Tensor]) -> None:
+        """Overwrite same-dtype tensors with the values of the first rank
+        of the replica group (rank ``model_index``: data and seq index
+        0); rank 0's over the world without a model axis."""
+        if self.distributed:
+            broadcast_(tensors, self.model_index, self.replica_group)
 
     def barrier(self) -> None:
         """Wait for every rank of the world."""
@@ -158,41 +192,46 @@ def rank_device(device: str) -> str:
     return f"cuda:{os.environ['LOCAL_RANK']}"
 
 
-def mesh_shape(data: int, seq: int) -> Tuple[int, int]:
-    """(data, seq) for ``--mesh.data data --mesh.seq seq`` in this
-    world: the process group's when one is up (a caller that set up its
-    own, such as a test with a file:// store), else torchrun's
-    WORLD_SIZE, else 1. ``data = -1`` takes every process that ``seq``
-    leaves over. Raises, naming the torchrun line, when the sizes do not
-    multiply to the world. Starts nothing."""
+def mesh_shape(data: int, seq: int, model: int = 1) -> Tuple[int, int, int]:
+    """(data, seq, model) for ``--mesh.data data --mesh.seq seq
+    --mesh.model model`` in this world: the process group's when one is
+    up (a caller that set up its own, such as a test with a file://
+    store), else torchrun's WORLD_SIZE, else 1. ``data = -1`` takes every
+    process that ``seq`` and ``model`` leave over. Raises, naming the
+    torchrun line, when the sizes do not multiply to the world. Starts
+    nothing."""
     up = dist.is_initialized()
     world = dist.get_world_size() if up else (_torchrun_world() or 1)
     if data == -1:
-        data = pick_data_width({AXIS_SEQ: seq}, world) or 1
-    if data * seq != world:
+        data = pick_data_width({AXIS_SEQ: seq, AXIS_MODEL: model},
+                               world) or 1
+    n = data * seq * model
+    if n != world:
         have = (f"the process group has {world}" if up else
                 f"torchrun started WORLD_SIZE={world}" if _torchrun_world()
                 else "this is one process")
         raise RuntimeError(
-            f"--mesh.data {data} --mesh.seq {seq} runs one process per "
-            f"mesh position ({data * seq}) but {have}; launch it as "
-            f"`{LAUNCH.format(N=data * seq, D=data, S=seq)}`")
-    return data, seq
+            f"--mesh.data {data} --mesh.seq {seq} --mesh.model {model} "
+            f"runs one process per mesh position ({n}) but {have}; launch "
+            f"it as `{LAUNCH.format(N=n, D=data, S=seq, M=model)}`")
+    return data, seq, model
 
 
-def bootstrap(data: int, seq: int, device: torch.device) -> Mesh:
-    """The mesh for ``--mesh.data data --mesh.seq seq`` (``mesh_shape``
-    resolves and checks the sizes).
+def bootstrap(data: int, seq: int, device: torch.device,
+              model: int = 1) -> Mesh:
+    """The mesh for ``--mesh.data data --mesh.seq seq --mesh.model
+    model`` (``mesh_shape`` resolves and checks the sizes).
 
     Without torchrun and a world of one there is no process group.
     Otherwise the default group starts from torchrun's environment
     unless one is up (NCCL for a CUDA ``device``, gloo for the CPU; also
     for a world of one, so that run takes the collective path), every
-    rank creates the seq groups and then the data groups in the same
-    order, and one all-reduce runs on the world and on each of this
-    rank's groups: NCCL wants every rank of a group in its first
-    collective before point-to-point calls."""
-    data, seq = mesh_shape(data, seq)
+    rank creates the model groups, the seq groups, the data groups and
+    (with a model axis) the replica groups in the same order, and one
+    all-reduce runs on the world and on each of this rank's groups: NCCL
+    wants every rank of a group in its first collective before
+    point-to-point calls."""
+    data, seq, model = mesh_shape(data, seq, model)
     up = dist.is_initialized()
     if not up and _torchrun_world() is None:
         return ONE_PROCESS
@@ -202,18 +241,37 @@ def bootstrap(data: int, seq: int, device: torch.device) -> Mesh:
         dist.init_process_group(
             "nccl" if device.type == "cuda" else "gloo",
             init_method="env://")
-    rank, world = dist.get_rank(), data * seq
-    seq_groups = [dist.new_group(list(range(d * seq, (d + 1) * seq)))
-                  for d in range(data)]
-    data_groups = [dist.new_group(list(range(s, world, seq)))
-                   for s in range(seq)]
-    mesh = Mesh(data=data, seq=seq, rank=rank,
-                data_group=data_groups[rank % seq],
-                seq_group=seq_groups[rank // seq], distributed=True)
-    for group in (None, mesh.seq_group, mesh.data_group):
+    rank, world = dist.get_rank(), data * seq * model
+
+    def place(d, s, m):
+        return (d * seq + s) * model + m
+
+    coords = [(d, s) for d in range(data) for s in range(seq)]
+    model_groups = ([dist.new_group([place(d, s, m) for m in range(model)])
+                     for d, s in coords] if model > 1 else None)
+    seq_groups = [dist.new_group([place(d, s, m) for s in range(seq)])
+                  for d in range(data) for m in range(model)]
+    data_groups = [dist.new_group([place(d, s, m) for d in range(data)])
+                   for s in range(seq) for m in range(model)]
+    replica_groups = ([dist.new_group(list(range(m, world, model)))
+                       for m in range(model)] if model > 1 else [None])
+    mesh = Mesh(data=data, seq=seq, rank=rank, model=model,
+                distributed=True)
+    d, s, m = mesh.data_index, mesh.seq_index, mesh.model_index
+    mesh = dataclasses.replace(
+        mesh, model_group=model_groups[d * seq + s] if model > 1 else None,
+        seq_group=seq_groups[d * model + m],
+        data_group=data_groups[s * model + m],
+        replica_group=replica_groups[m if model > 1 else 0])
+    groups = [None, mesh.seq_group, mesh.data_group]
+    if model > 1:
+        groups += [mesh.model_group, mesh.replica_group]
+    for group in groups:
         dist.all_reduce(torch.zeros(1, device=device), group=group)
     if seq > 1:
         mesh = dataclasses.replace(mesh, ring=ProcessGroupRing(mesh.seq_group))
+    if model > 1:
+        mesh = dataclasses.replace(mesh, tp=ProcessGroupTP(mesh.model_group))
     return mesh
 
 

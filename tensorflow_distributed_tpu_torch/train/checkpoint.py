@@ -10,8 +10,18 @@ One directory per checkpoint, ``<dir>/step_00001234/``:
 - ``manifest.json``: ``step``, ``param_bytes``, ``format``
   (``flax-msgpack-v1``) and the state file's ``sha256``;
 - ``mesh.json``: the mesh the state was written on (the port's
-  ``{"data", "seq"}`` sizes), the process and device counts, and the
-  layout of every leaf (replicated: every rank holds all of it).
+  ``{"data", "seq", "model"}`` sizes), the process and device counts,
+  and the layout of every leaf (its flax ``PartitionSpec`` over the
+  model axis, ``PartitionSpec()`` where every rank holds all of it).
+
+Under tensor parallelism (``--mesh.model M``) a save gathers every
+rank's shards back into the whole model's arrays (params, moments,
+EMA; ``parallel/sharding.gather_state_dict``, an all-gather over the
+model group that every rank joins), so the step directory is byte for
+byte what one process writes of the same params, the ``--shard-vocab``
+tables' padded rows included; a restore reads the whole arrays and
+keeps this rank's shards (``interop.state_from_flax``), from a
+one-process checkpoint or a TP one alike.
 
 A save writes into ``step_XXXXXXXX.tmp`` and renames it, so a crash
 mid-save never leaves a partial step behind; the newest ``keep`` steps
@@ -47,6 +57,8 @@ import torch
 from tensorflow_distributed_tpu_torch import interop
 from tensorflow_distributed_tpu_torch.parallel import mesh as mesh_lib
 from tensorflow_distributed_tpu_torch.parallel.mesh import ONE_PROCESS, Mesh
+from tensorflow_distributed_tpu_torch.parallel.sharding import (
+    flax_spec, gather_state_dict)
 from tensorflow_distributed_tpu_torch.train.state import TrainState
 from tensorflow_distributed_tpu_torch.utils import serialization
 from tensorflow_distributed_tpu_torch.utils.logging import emit_event
@@ -106,13 +118,16 @@ def _leaf_paths(tree: Any, prefix: str = ""):
             yield path
 
 
-def _mesh_manifest(tree: dict, mesh: Mesh) -> dict:
+def _mesh_manifest(tree: dict, mesh: Mesh, shard_vocab: bool) -> dict:
     """JAX's mesh manifest keys: the mesh sizes, the process and device
-    counts, and each leaf's layout (every leaf is replicated here)."""
-    return {"mesh": {"data": mesh.data, "seq": mesh.seq},
-            "process_count": mesh.data * mesh.seq,
-            "devices": mesh.data * mesh.seq,
-            "specs": {p: "PartitionSpec()" for p in _leaf_paths(tree)}}
+    counts, and each leaf's layout over the model axis."""
+    n = mesh.data * mesh.seq * mesh.model
+    return {"mesh": {"data": mesh.data, "seq": mesh.seq,
+                     "model": mesh.model},
+            "process_count": n, "devices": n,
+            "specs": {p: (flax_spec(p.split("/"), shard_vocab)
+                          if mesh.model > 1 else "PartitionSpec()")
+                      for p in _leaf_paths(tree)}}
 
 
 def _format_mesh(shape: Optional[dict]) -> str:
@@ -258,16 +273,42 @@ def _leaves(tree: Any):
         yield tree
 
 
+@torch.no_grad()
+def whole_state(state: TrainState) -> TrainState:
+    """``state`` itself, or for a tensor-parallel model the whole
+    model's state: every sharded param, moment and EMA leaf gathered
+    (every rank of the model group must call it), held by a template
+    of the whole model built on the meta device that takes the gathered
+    tensors as its parameters."""
+    model = state.model
+    if getattr(model, "tp", None) is None:
+        return state
+    whole = model.whole("meta")
+    whole.load_state_dict(gather_state_dict(
+        {n: p.detach() for n, p in state.params.items()}, model),
+        assign=True)
+    opt = {k: (gather_state_dict(v, model) if isinstance(v, dict) else v)
+           for k, v in state.opt_state.items()}
+    ema = None if state.ema is None else gather_state_dict(state.ema, model)
+    return TrainState(model=whole, tx=state.tx, opt_state=opt,
+                      step=state.step, ema=ema)
+
+
 def save(ckpt_dir: str, state: TrainState, keep: int = 3,
          mesh: Mesh = ONE_PROCESS) -> str:
     """Write ``state`` at its step and prune to the newest ``keep``.
-    Every rank calls it: the chief writes, and every rank leaves only
+    Every rank calls it: under tensor parallelism every rank joins the
+    gather of the shards; the chief writes, and every rank leaves only
     after the rename, so ``latest_step`` agrees everywhere on return."""
     final = _step_dir(ckpt_dir, state.step)
+    whole = whole_state(state)
     if mesh_lib.is_chief():
-        tree = interop.state_to_flax(state)
+        tree = interop.state_to_flax(whole)
+        cfg = getattr(state.model, "cfg", None)
         _write(ckpt_dir, state.step, tree, keep,
-               _mesh_manifest(tree, mesh))
+               _mesh_manifest(tree, mesh,
+                              bool(getattr(cfg, "shard_vocab", False))))
+    del whole
     mesh.barrier()
     return final
 

@@ -27,14 +27,19 @@ dispatched (the cadence save between them is the one a rewind
 quarantines). Without any of them the loop dispatches as it always did,
 with no sync a step beyond the ``log_every`` fetch.
 
-Under ``--mesh.data D --mesh.seq S`` (D*S processes under torchrun, one
-GPU each; see ``parallel/mesh.py``) each rank draws only its data
+Under ``--mesh.data D --mesh.seq S --mesh.model M`` (D*S*M processes
+under torchrun, one GPU each; see ``parallel/mesh.py``) each rank draws
+only its data
 rank's rows of every global batch (under ``--grad-accum-steps A``, its
 part of each of JAX's A microbatches: ``data_rows``) and keeps its
-contiguous block ``[s*L/S, (s+1)*L/S)`` of the sequence axis; batches reach the device
-through ``data/prefetch.py``; the parameters start from rank 0's copy;
-eval metrics are world means; the step records, eval records and the
-``done`` record come from the chief only.
+contiguous block ``[s*L/S, (s+1)*L/S)`` of the sequence axis (the M
+model ranks of a (data, seq) place read the same rows); batches reach
+the device through ``data/prefetch.py``; a transformer is cut into M
+tensor-parallel shards (``parallel/sharding.py``), each rank keeping
+its part of the whole model's seeded init; the parameters start from
+the copy of the first rank of their replica group; eval metrics are
+means over the mesh; the step records, eval records and the ``done``
+record come from the chief only.
 """
 
 from __future__ import annotations
@@ -54,6 +59,8 @@ from tensorflow_distributed_tpu_torch.data.prefetch import (
 from tensorflow_distributed_tpu_torch.models import build_model
 from tensorflow_distributed_tpu_torch.parallel import mesh as mesh_lib
 from tensorflow_distributed_tpu_torch.parallel.mesh import ONE_PROCESS, Mesh
+from tensorflow_distributed_tpu_torch.parallel.sharding import (
+    shard_state_dict)
 from tensorflow_distributed_tpu_torch.resilience.faults import (
     FaultPlan, parse_fault_plan)
 from tensorflow_distributed_tpu_torch.resilience.policies import (
@@ -133,8 +140,8 @@ def evaluate(state: TrainState, eval_fn, task: Task, batch: int,
     rounded to a multiple of the data width, the remainder dropped as
     the JAX loop drops it); CLM also reports perplexity = exp(mean
     cross-entropy). Each rank evaluates its rows and sequence block of
-    every batch; the metrics are world means (the loss all-reduces its
-    sums)."""
+    every batch; the metrics are means over the mesh (the loss
+    all-reduces its sums over the replica group)."""
     batch = min(batch, (task.eval_size // mesh.data) * mesh.data)
     if batch == 0:
         raise ValueError(f"validation split ({task.eval_size} rows) smaller "
@@ -158,14 +165,15 @@ def evaluate(state: TrainState, eval_fn, task: Task, batch: int,
 
 def build_model_for(cfg: TrainConfig, device: torch.device, ring=None,
                     vocab_size: int = 0, image_shape: tuple = (),
-                    bn_group=None):
+                    bn_group=None, tp=None):
     """The model ``cfg`` names, built on ``device`` with its weights not
-    yet drawn (``init_weights``); ``ring``: the seq group's ring.
+    yet drawn (``init_weights``); ``ring``: the seq group's ring; ``tp``:
+    the model group's transport (tensor parallelism).
     ``vocab_size``: the tokenizer's, which sizes the LM under
     ``--dataset text``; ``image_shape``: the dataset's [H, W, C] (a
     ResNet takes its channels); ``bn_group``: the group of sync BN."""
     if cfg.model in ("gpt_lm", "bert_mlm"):
-        kw = {"ring": ring}
+        kw = {"ring": ring, "tp": tp}
         if cfg.model_size:
             kw["size"] = cfg.model_size
         if cfg.dataset == "text":
@@ -185,7 +193,8 @@ def build_model_for(cfg: TrainConfig, device: torch.device, ring=None,
         for name, default in (("n_kv_heads", 0), ("attn_window", 0),
                               ("mlp_variant", "gelu"),
                               ("norm", "layernorm"),
-                              ("kv_cache_quant", "none")):
+                              ("kv_cache_quant", "none"),
+                              ("shard_vocab", False)):
             if getattr(cfg, name) != default:
                 kw[name] = getattr(cfg, name)
     elif cfg.model in ("resnet20", "resnet50"):
@@ -217,10 +226,13 @@ def _build_model_and_state(cfg: TrainConfig, device: torch.device,
     model = build_model_for(
         cfg, device, mesh.ring, vocab_size=vocab_size,
         image_shape=task.image_shape if task is not None else (),
-        bn_group=mesh.data_group if mesh.data > 1 else None)
+        bn_group=mesh.data_group if mesh.data > 1 else None, tp=mesh.tp)
     tx = make_optimizer(cfg, model)
+    if init_params is not None and mesh.tp is not None:
+        init_params = shard_state_dict(init_params, model)
     state = create_train_state(model, tx, cfg.seed, init_params)
-    mesh.broadcast_(model.parameters())  # every rank starts from rank 0's
+    # Every rank starts from the first rank of its replica group's copy.
+    mesh.replica_broadcast_(model.parameters())
     if cfg.ema_decay:
         state.ema = ema_init(state.params)
     return model, state
@@ -231,17 +243,20 @@ def _setup(cfg: TrainConfig, logger: Optional[MetricLogger]):
     group, then the group (``mesh_lib.bootstrap``)."""
     cfg.validate()
     device = resolve_device(mesh_lib.rank_device(cfg.device))
-    data, seq = mesh_lib.mesh_shape(cfg.mesh.data, cfg.mesh.seq)
-    why = mesh_lib.mesh_infeasible({"data": data, "seq": seq}, data * seq,
-                                   cfg.batch_size)
+    data, seq, model = mesh_lib.mesh_shape(cfg.mesh.data, cfg.mesh.seq,
+                                           cfg.mesh.model)
+    why = mesh_lib.mesh_infeasible(
+        {"data": data, "seq": seq, "model": model}, data * seq * model,
+        cfg.batch_size)
     if why:
-        raise ValueError(f"--mesh.data {data} --mesh.seq {seq}: {why}")
+        raise ValueError(f"--mesh.data {data} --mesh.seq {seq} "
+                         f"--mesh.model {model}: {why}")
     if (cfg.batch_size // data) % cfg.grad_accum_steps:
         raise ValueError(
             f"grad_accum_steps {cfg.grad_accum_steps} must divide the "
             f"per-rank batch {cfg.batch_size // data} (batch_size / "
             f"mesh.data)")
-    mesh = mesh_lib.bootstrap(data, seq, device)
+    mesh = mesh_lib.bootstrap(data, seq, device, model)
     logger = logger or MetricLogger()
     if not mesh_lib.is_chief():
         logger.enabled = False  # every rank keeps its records; one prints
@@ -295,9 +310,10 @@ def train(cfg: TrainConfig, logger: Optional[MetricLogger] = None,
     eval_fn = make_eval_step(task.eval_loss or task.loss)
     logger.log_json({
         "event": "start", "model": cfg.model, "task": task.name,
-        "params": param_count(model), "device": str(device),
+        "params": param_count(model.whole("meta") if mesh.tp else model),
+        "device": str(device),
         "global_batch": cfg.batch_size, "start_step": start_step,
-        "mesh": {"data": mesh.data, "seq": mesh.seq},
+        "mesh": {"data": mesh.data, "seq": mesh.seq, "model": mesh.model},
     })
     saved_at = None
 

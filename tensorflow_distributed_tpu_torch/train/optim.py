@@ -4,7 +4,10 @@ The port of ``train/optim.py``. ``make_optimizer`` returns an
 :class:`Optimizer` whose ``update`` reproduces the optax chain the JAX
 package builds:
 
-- ``clip_by_global_norm`` ahead of everything when grad_clip_norm is set;
+- ``clip_by_global_norm`` ahead of everything when grad_clip_norm is set
+  (under tensor parallelism by the whole model's norm, which the step
+  hands in; adam and sgd are elementwise, so each rank updates its
+  shards alone; adafactor is refused there);
 - adam: b1 0.9, b2 0.999, eps 1e-8 outside the sqrt, bias correction at
   count + 1; adamw adds ``weight_decay * param`` for the leaves
   ``decay_mask`` selects (Linear and Embedding weights, by name — never
@@ -185,12 +188,16 @@ class Optimizer:
                 state["v"][n] = one
         return state
 
-    def update(self, grads: Tensors, state: dict, params: Tensors
-               ) -> Tensors:
+    def update(self, grads: Tensors, state: dict, params: Tensors,
+               norm: Optional[torch.Tensor] = None) -> Tensors:
+        """``norm``: the gradient's global norm where the caller has it
+        (a tensor-parallel step: ``train/step.grad_norm``); else computed
+        here from ``grads``."""
         names = list(grads)
         g = [grads[n] for n in names]
         if self.clip_norm:
-            norm = global_norm(g)
+            if norm is None:
+                norm = global_norm(g)
             keep = norm < self.clip_norm
             g = [torch.where(keep, t, t / norm * self.clip_norm) for t in g]
         if self.kind == "adafactor":

@@ -7,18 +7,24 @@ over the mesh, the optimizer update, the EMA and the step counter, with
 the parameters updated in place. Metrics stay on the device; the loop
 fetches them on its cadence.
 
-Every rank holds a copy of every parameter. After the backward their
-gradients are summed over the whole world (data x seq, one flat
+Every rank of a replica group (the ranks of one model index: the whole
+world without a model axis) holds the same copy of its parameters or
+shards. After the backward their gradients are summed over it (one flat
 all-reduce: the port's form of GSPMD's implicit psum), before clipping,
 the grad-norm metric and the optimizer, so the copies stay
 bit-identical. The tasks normalize each rank's loss by the global count
 (``train/tasks.py``), so the sum is the gradient of the global mean.
+Under tensor parallelism a replicated leaf's gradient is already whole
+on every model rank (``copy_to_tp`` sums the ranks' parts of the
+stream's gradient), and the pre-clip global norm counts each sharded
+leaf's square sum summed over the model group (one all-reduce of a
+packed vector) and each replicated leaf once (``grad_norm``).
 
 ``accum_steps`` A > 1 splits this rank's batch into A microbatches (its
 rows of JAX's global microbatches, as the batcher draws them:
-``data/batcher.local_rows``), runs each backward on its loss divided by A, then does one all-reduce
-and one update: the mean of the microbatch gradients, as the JAX scan;
-the metrics are microbatch means.
+``data/batcher.local_rows``), runs each backward on its loss divided by
+A, then does one all-reduce and one update: the mean of the microbatch
+gradients, as the JAX scan; the metrics are microbatch means.
 
 A model with BatchNorm (the ResNets) computes its new running averages
 in the training forward and keeps them pending; the step writes them
@@ -46,6 +52,7 @@ import torch
 
 from tensorflow_distributed_tpu_torch.data.prefetch import map_batch
 from tensorflow_distributed_tpu_torch.parallel.mesh import ONE_PROCESS, Mesh
+from tensorflow_distributed_tpu_torch.parallel.sharding import is_sharded
 from tensorflow_distributed_tpu_torch.resilience.watchdog import wait_for
 from tensorflow_distributed_tpu_torch.train.optim import global_norm
 from tensorflow_distributed_tpu_torch.train.state import (
@@ -61,6 +68,20 @@ def step_seed(seed: int, rank: int, step: int) -> int:
     two (rank, step) pairs of a run share a stream."""
     return int(np.random.SeedSequence([seed, rank, step]).generate_state(
         1, np.uint64)[0])
+
+
+def grad_norm(grads: Dict[str, torch.Tensor], mesh: Mesh,
+              sharded: frozenset) -> torch.Tensor:
+    """optax.global_norm of the whole model's gradient. Over a model axis
+    of processes the ``sharded`` leaves' square sums are summed over the
+    model group in one all-reduce; a replicated leaf counts once."""
+    if mesh.model == 1 or not sharded:
+        return global_norm(list(grads.values()))
+    squares = {n: torch.sum(g.float() ** 2) for n, g in grads.items()}
+    packed = torch.stack([sum(squares[n] for n in sharded)])
+    mesh.model_all_reduce_([packed])
+    return torch.sqrt(packed[0] + sum(v for n, v in squares.items()
+                                      if n not in sharded))
 
 
 def to_host_async(values: torch.Tensor
@@ -90,10 +111,11 @@ def make_train_step(loss: LossFn, device: torch.device, seed: int = 0,
                                   Tuple[TrainState, Metrics]]:
     """Build the train step for a model on ``device``. Dropout draws
     from one generator, reseeded at every step from (``seed``, this
-    rank's place in the world, the step counter) as JAX folds the step
+    rank's (data, seq) place, the step counter) as JAX folds the step
     into its dropout key: each rank's rows, or block of a sequence, draw
-    their own mask, and a resumed run draws the masks an uninterrupted
-    one would. The microbatches draw from it in order.
+    their own mask, the model ranks of one place draw the same mask on
+    their replicated stream, and a resumed run draws the masks an
+    uninterrupted one would. The microbatches draw from it in order.
     ``grad_norm_metric`` reports the pre-clip global gradient norm as
     ``metrics["grad_norm"]``. ``ema_decay`` > 0 updates ``state.ema``
     (which the caller made, ``state.ema_init``) after each update.
@@ -101,9 +123,14 @@ def make_train_step(loss: LossFn, device: torch.device, seed: int = 0,
     when given, waits for the verdict's copy (the loop passes its
     watchdog's ``sync``), else the event is waited on directly."""
     generator = torch.Generator(device=device)
+    sharded = None
 
     def step(state: TrainState, batch: Batch) -> Tuple[TrainState, Metrics]:
-        generator.manual_seed(step_seed(seed, mesh.rank, state.step))
+        nonlocal sharded
+        if sharded is None:
+            sharded = frozenset(n for n in state.params
+                                if is_sharded(n, state.model))
+        generator.manual_seed(step_seed(seed, mesh.replica_index, state.step))
         params = state.params
         if accum_steps == 1:
             value, metrics = loss(state.model, batch, train=True,
@@ -120,18 +147,26 @@ def make_train_step(loss: LossFn, device: torch.device, seed: int = 0,
                 for k, v in m.items():
                     metrics[k] = metrics.get(k, 0.0) + v.detach() / accum_steps
         grads = {n: p.grad for n, p in params.items()}
-        mesh.all_reduce_sum_(grads.values())
+        mesh.replica_all_reduce_(grads.values())
+        # Over a model axis the norm (metric, verdict, clip) is one
+        # all-reduce, computed once where one of them reads it; the model
+        # ranks reach one verdict.
+        norm = None
+        if mesh.model > 1 and (grad_norm_metric or skip_nonfinite
+                               or state.tx.clip_norm):
+            norm = grad_norm(grads, mesh, sharded)
         if grad_norm_metric:
-            metrics = dict(metrics,
-                           grad_norm=global_norm(list(grads.values())))
+            metrics = dict(metrics, grad_norm=(
+                norm if norm is not None
+                else global_norm(list(grads.values()))))
         apply = True
         if skip_nonfinite:
             # The loss sees forward-side NaNs, the global norm (f32, as
             # optax's) backward-only ones: a finite loss over overflowed
             # gradients. One multi-tensor launch for the leaves' norms.
-            norm = torch.linalg.vector_norm(torch.stack(
-                torch._foreach_norm(list(grads.values()))))
-            ok = torch.isfinite(metrics["loss"]) & torch.isfinite(norm)
+            verdict = norm if norm is not None else torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(list(grads.values()))))
+            ok = torch.isfinite(metrics["loss"]) & torch.isfinite(verdict)
             host, done = to_host_async(ok.reshape(1))
             (sync or (lambda ev, _: wait_for(ev)))(done, state.step + 1)
             apply = bool(host[0])
@@ -139,7 +174,8 @@ def make_train_step(loss: LossFn, device: torch.device, seed: int = 0,
                 0.0 if apply else 1.0))
         if apply:
             with torch.no_grad():
-                updates = state.tx.update(grads, state.opt_state, params)
+                updates = state.tx.update(grads, state.opt_state, params,
+                                          norm=norm)
                 torch._foreach_add_(list(params.values()),
                                     [updates[n] for n in params])
         commit = getattr(state.model, "commit_batch_stats", None)

@@ -16,13 +16,17 @@ chunk loop (``ce_impl="scan"``) or the fused-CE kernels
 
 One rule normalizes every loss over the mesh (``parallel/mesh.py``):
 each rank computes its cross-entropy sum, correct count and row (or
-token) count; the three are summed over the whole world (data x seq),
+token) count; the three are summed over the replica group (the data x
+seq ranks of one model index: the whole world without a model axis),
 and the rank's loss to differentiate is its own CE sum over the global
-count. The gradients summed over the world (train/step.py) are then
-exactly the gradient of the JAX package's global mean, also for masked
-LM batches where ranks hold different token counts. Ranks of one data
-coordinate that hold the same rows (a vision batch under ``mesh.seq >
-1``) count them once each in the sums and in the count alike.
+count. Under tensor parallelism the sums come out of the vocab-parallel
+losses already whole on every model rank (their combine over the model
+group), so the model ranks are not summed again. The gradients summed
+over the replica group (train/step.py) are then exactly the gradient of
+the JAX package's global mean, also for masked LM batches where ranks
+hold different token counts. Ranks of one data coordinate that hold the
+same rows (a vision batch under ``mesh.seq > 1``) count them once each
+in the sums and in the count alike.
 """
 
 from __future__ import annotations
@@ -39,6 +43,8 @@ from tensorflow_distributed_tpu_torch.ops.losses import (
     ce_sums, masked_ce_sums)
 from tensorflow_distributed_tpu_torch.parallel.mesh import (
     ONE_PROCESS, Mesh, process_batch_role)
+from tensorflow_distributed_tpu_torch.parallel.tensor_parallel import (
+    VocabShards)
 from tensorflow_distributed_tpu_torch.train.step import LossFn
 
 
@@ -64,10 +70,10 @@ class Task:
 
 def _mean(ce_sum, correct, n, mesh: Mesh):
     """(loss to differentiate, metrics) from this rank's sums: the mean
-    over the whole world (one all-reduce of the three sums; a no-op
+    over the replica group (one all-reduce of the three sums; a no-op
     without a process group)."""
     total = torch.stack([ce_sum, correct, n]).detach().float()
-    mesh.all_reduce_sum_([total])
+    mesh.replica_all_reduce_([total])
     n_all = total[2].clamp(min=1.0)
     return ce_sum / n_all, {"loss": total[0] / n_all,
                             "accuracy": total[1] / n_all}
@@ -128,8 +134,9 @@ def _fused_lm_sums(model, batch, train, generator, label_smoothing,
     mask_sum)."""
     feats, w, bias = model(batch["tokens"], train=train, generator=generator,
                            features_only=True)
+    vocab = w.vocab_size if isinstance(w, VocabShards) else w.shape[0]
     return fused_ce_sums_by(ce_impl, feats, w, bias, batch["targets"],
-                            batch["mask"], vocab_size=w.shape[0],
+                            batch["mask"], vocab_size=vocab,
                             chunk=ce_chunk, label_smoothing=label_smoothing)
 
 

@@ -229,13 +229,13 @@ def test_mesh_manifest_has_the_jax_keys(tmp_path):
     want = jckpt.read_mesh_manifest(str(tmp_path / "jax"), 1)
     assert set(got) == set(want) == {"mesh", "process_count", "devices",
                                      "specs"}
-    assert got["mesh"] == {"data": 1, "seq": 1}
+    assert got["mesh"] == {"data": 1, "seq": 1, "model": 1}
     assert (got["process_count"], got["devices"]) == (1, 1)
     assert set(got["specs"]) == set(want["specs"])
     assert set(got["specs"].values()) == {"PartitionSpec()"}
     assert list(got["specs"]) == sorted(got["specs"])
     assert ckpt.steps_with_mesh(str(tmp_path / "port")) == [
-        (1, {"data": 1, "seq": 1})]
+        (1, {"data": 1, "seq": 1, "model": 1})]
     assert res.state.step == 1
 
 

@@ -225,7 +225,7 @@ def test_mesh_product_must_equal_the_world(monkeypatch):
     cfg = TrainConfig(**CNN, device="cpu", mesh=MeshConfig(data=3))
     with pytest.raises(RuntimeError, match="WORLD_SIZE=4.*nproc-per-node 3"):
         tloop.train(cfg, logger=MetricLogger(enabled=False))
-    assert tmesh.mesh_shape(-1, 2) == (2, 2)  # data -1: what seq leaves
+    assert tmesh.mesh_shape(-1, 2) == (2, 2, 1)  # data -1: what seq leaves
 
 
 @pytest.mark.parametrize("fields,match", [

@@ -293,7 +293,8 @@ def test_parse_args_spellings_and_defaults():
                                   ["--moe-top-k", "1"],
                                   ["--grad-sync", "overlap"],
                                   ["--param-partition", "fsdp"],
-                                  ["--mesh.model", "2"], ["--mesh.pipe", "2"],
+                                  ["--param-sync-every", "4"],
+                                  ["--mesh.pipe", "2"],
                                   ["--mesh.expert", "2"]])
 def test_unported_jax_flags_are_rejected(argv, capsys):
     with pytest.raises(SystemExit):
@@ -307,7 +308,8 @@ def test_unported_jax_flags_are_rejected(argv, capsys):
                                     dict(mode="serve",
                                          mesh=MeshConfig(seq=2)),
                                     dict(moe_experts=4),
-                                    dict(shard_vocab=True),
+                                    dict(optimizer="adafactor",
+                                         mesh=MeshConfig(model=2)),
                                     dict(compute_dtype="float32"),
                                     dict(model="pipelined_lm"),
                                     dict(mode="serve",
@@ -333,7 +335,7 @@ def test_shared_fields_have_the_jax_defaults():
         assert getattr(port, name) == getattr(ref, name), name
     mesh = ({f.name for f in dataclasses.fields(type(port.mesh))}
             & {f.name for f in dataclasses.fields(type(ref.mesh))})
-    assert mesh == {"data", "seq"}
+    assert mesh == {"data", "seq", "model"}
     for name in mesh:
         assert getattr(port.mesh, name) == getattr(ref.mesh, name), name
     for part in ("serve", "resilience"):
@@ -361,7 +363,8 @@ def test_cli_trains_mnist_cnn_on_cpu_and_prints_the_table(capsys):
             "--eval-batch-size", "64"]
     assert cli.main(argv) == 0
     out = capsys.readouterr().out
-    assert '"images_per_sec"' in out and '"mesh": {"data": 1, "seq": 1}' in out
+    assert '"images_per_sec"' in out
+    assert '"mesh": {"data": 1, "seq": 1, "model": 1}' in out
     table = out[out.index("Steps,        Time,"):].strip().splitlines()
     assert len(table) == 3 and table[1].startswith("2,")
     assert table[2].startswith("4,") and table[2].endswith("0.001")

@@ -193,7 +193,7 @@ def test_configs_mirror_jax():
 
 
 @pytest.mark.parametrize("override", [
-    {"shard_vocab": True}, {"moe_experts": 4},
+    {"moe_experts": 8, "shard_vocab": True}, {"moe_experts": 4},
     {"kv_cache_quant": "int8", "moe_experts": 2}])
 def test_unported_options_raise(override):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -115,23 +115,40 @@ def train_run(rank, world, fields, init_path, out_dir, mesh=None):
                os.path.join(str(out_dir), f"rank{rank}.pt"))
 
 
-def mesh_groups(rank, world, data, seq, out_dir):
-    """``bootstrap(data, seq)`` on this rank: its mesh coordinates, the
-    sums of the ranks over its seq group and its data group, and the
-    rank its ring's swap permute brings in."""
+def eval_run(rank, world, fields, out_dir, mesh):
+    """``evaluate_only()`` (``--mode eval``) with ``--device cpu`` on this
+    rank over the mesh ``mesh``: its metrics."""
+    from tensorflow_distributed_tpu_torch.config import (
+        MeshConfig, TrainConfig)
+    from tensorflow_distributed_tpu_torch.train.loop import evaluate_only
+    from tensorflow_distributed_tpu_torch.utils.logging import MetricLogger
+
+    cfg = TrainConfig(**fields, device="cpu", mesh=MeshConfig(**mesh))
+    metrics = evaluate_only(cfg, logger=MetricLogger(enabled=False))
+    torch.save(metrics, os.path.join(str(out_dir), f"rank{rank}.pt"))
+
+
+def mesh_groups(rank, world, data, seq, out_dir, model=1):
+    """``bootstrap(data, seq, model)`` on this rank: its mesh
+    coordinates, the sums of the ranks over its seq, data, model and
+    replica groups, and the rank its ring's swap permute brings in."""
     from tensorflow_distributed_tpu_torch.parallel.mesh import bootstrap
 
-    mesh = bootstrap(data, seq, torch.device("cpu"))
-    sums = {}
-    for name, group in (("seq", mesh.seq_group), ("data", mesh.data_group)):
+    mesh = bootstrap(data, seq, torch.device("cpu"), model)
+    sums, tp_sums = {}, {}
+    for out, name, group in ((sums, "seq", mesh.seq_group),
+                             (sums, "data", mesh.data_group),
+                             (tp_sums, "model", mesh.model_group),
+                             (tp_sums, "replica", mesh.replica_group)):
         t = torch.tensor([float(rank)])
         dist.all_reduce(t, group=group)
-        sums[name] = float(t)
+        out[name] = float(t)
     swapped = None
     if mesh.ring is not None:
         perm = [(i, i ^ 1) for i in range(seq)]
         swapped = float(mesh.ring.ppermute(torch.tensor([float(rank)]),
                                            perm))
     torch.save({"data_index": mesh.data_index, "seq_index": mesh.seq_index,
-                "sums": sums, "swapped": swapped},
+                "model_index": mesh.model_index,
+                "sums": sums, "tp_sums": tp_sums, "swapped": swapped},
                os.path.join(str(out_dir), f"rank{rank}.pt"))

@@ -355,7 +355,28 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
              --ce-chunk 8192``, and with four cards ``--mesh.data 2
              --mesh.model 2``; the first five losses within 1e-2 of one
              card's, every rank launching B1-B3, step ms and tokens/s a
-             card; skipped, by the device count alone, on one card.
+             card; skipped, by the device count alone, on one card;
+44. model_zero — GPT-2-small as published (tied, 12 layers, seq 1024,
+             global batch 8, bf16, Adam, clip 1.0, EMA 0.999) on the
+             stacked transport of D data ranks (D 2 and 4, every data
+             rank in this process), three steps under each of
+             ``--param-partition replicated|zero1|fsdp`` and
+             ``--grad-sync serial|overlap`` (their second step NaN-
+             poisoned and skipped): serial and overlap params, slots and
+             EMA bit-identical, zero1 and fsdp within 1e-5 of replicated
+             (losses) and rtol 2e-5 / atol 1e-6 (params), B1-B3 launched
+             12 x D times a step; each partition's per-rank resident
+             bytes beside the prediction; then a zero1 leg with
+             ``--ce-chunk 8192 --ce-impl kernel`` (B4-B6 once a rank a
+             step);
+45. train_zero — ``--param-partition zero1``, ``fsdp``, ``--grad-sync
+             serial`` and ``--param-partition zero1 --grad-sync
+             overlap`` over D = min(cards, 4) torchrun processes (NCCL),
+             and with four cards ``--mesh.data 2 --mesh.model 2
+             --param-partition fsdp``: the first five losses within 1e-2
+             of one card's, every rank launching B1-B3, each rank's peak
+             memory, step ms and tokens/s a card; skipped, by the device
+             count alone, on one card.
 
 It then prints the nvidia-smi line, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -366,7 +387,7 @@ result.
 
 runs the device and build phases, then only the named phases, with the
 same checks, and prints the nvidia-smi line last (no kernels or ok
-line). The phases it takes: ``ce_kernels`` and phases 35-43.
+line). The phases it takes: ``ce_kernels`` and phases 35-45.
 """
 
 from __future__ import annotations
@@ -699,7 +720,37 @@ U8_STEPS_HELD = 5
 # The phases ``--only`` runs alone: ce_kernels and phases 35-43.
 ONLY_PHASES = ("ce_kernels", "model_bert", "train_bert", "train_text",
                "train_cnn_u8", "model_resnet", "train_resnet", "tp_kernels",
-               "model_tp", "train_tp")
+               "model_tp", "train_tp", "model_zero", "train_zero")
+# ZeRO-1, FSDP and the explicit gradient sync: GPT-2-small as published
+# (tied) on the stacked transport of D data ranks, each leg's steps
+# through the port's train step; then --param-partition / --grad-sync
+# under torchrun.
+ZERO_SIZES = (2, 4)
+ZERO_STEPS = 3
+MODEL_ZERO_ARGV = ["--mode", "train", "--model", "gpt_lm", "--model-size",
+                   "small", "--seq-len", "1024", "--batch-size", "8",
+                   "--tie-embeddings", "true", "--dropout-rate", "0",
+                   "--compute-dtype", "bfloat16", "--grad-clip-norm", "1.0",
+                   "--ema-decay", "0.999", "--train-steps", str(ZERO_STEPS),
+                   "--eval-every", "0", "--eval-batch-size", "8"]
+SKIP_NAN = ["--resilience.nonfinite", "skip_batch"]
+ZERO_LEGS = {"replicated": [], "zero1": ["--param-partition", "zero1"],
+             "fsdp": ["--param-partition", "fsdp"],
+             "serial": ["--grad-sync", "serial"] + SKIP_NAN,
+             "overlap": ["--grad-sync", "overlap", "--param-partition",
+                         "zero1"] + SKIP_NAN}
+ZERO_FUSED = ["--param-partition", "zero1", "--ce-chunk", "8192",
+              "--ce-impl", "kernel"]
+ZERO_MIN_SIZE = 2 ** 14  # the partition rule's threshold (JAX's)
+TOL_ZERO_LOSS = 1e-5                    # relative, vs replicated
+TOL_ZERO_PARAMS = dict(rtol=2e-5, atol=1e-6)  # JAX's test_fsdp bounds
+# The prediction (bytes): GPT-2-small's f32 leaves the rule cuts
+# (124,439,808 params less the 121,344 of the norms and biases under
+# 2^14 elements), and those it leaves whole.
+ZERO_CUT_BYTES = (124_439_808 - 121_344) * 4
+ZERO_WHOLE_BYTES = 121_344 * 4
+TRAIN_ZERO_ARGV = TRAIN_TP_ARGV
+TRAIN_ZERO_TIMEOUT_S = 600
 MODEL_RESNET_B = 4
 MODEL_RESNET_IMAGE = 224
 TOL_RESNET_F32 = 1e-3  # f32 on the card vs f32 on the CPU, train mode
@@ -1755,6 +1806,7 @@ def rank_entry(outdir: str, argv) -> int:
     from tensorflow_distributed_tpu_torch.ops import fused_ce_kernel as fce
     from tensorflow_distributed_tpu_torch.parallel import mesh
     from tensorflow_distributed_tpu_torch.utils.logging import MetricLogger
+    import torch
 
     rank = int(os.environ["RANK"])
     cfg = parse_args(argv)
@@ -1773,6 +1825,9 @@ def rank_entry(outdir: str, argv) -> int:
                               if "loss" in r.metrics],
                    "steps_per_sec": result.steps_per_sec,
                    "images_per_sec": result.images_per_sec,
+                   "max_memory_allocated": (torch.cuda.max_memory_allocated()
+                                            if torch.cuda.is_available()
+                                            else None),
                    "launches": {kern.name: kern.launches
                                 for kern in kernels}}, f)
     return 0
@@ -4433,6 +4488,199 @@ def phase_train_tp(torch) -> None:
                   f"{r['launches']}")
 
 
+def zero_predicted(kind: str, D: int) -> dict:
+    """The predicted bytes a data rank holds between steps under
+    ``kind`` at D data ranks (params, synced gradient, Adam's two
+    slots)."""
+    whole = ZERO_CUT_BYTES + ZERO_WHOLE_BYTES
+    cut = ZERO_CUT_BYTES // D + ZERO_WHOLE_BYTES
+    return {"params": cut if kind == "fsdp" else whole,
+            "grads": cut if kind == "fsdp" else whole,
+            "slots": 2 * (whole if kind == "replicated" else cut)}
+
+
+def whole_tensors(state):
+    """A state's params, Adam slots and EMA as whole tensors (copies)."""
+    from tensorflow_distributed_tpu_torch.train.checkpoint import whole_state
+
+    with whole_state(state) as w:
+        out = {f"params/{n}": p.detach().clone()
+               for n, p in w.params.items()}
+        for slot in ("mu", "nu"):
+            out.update((f"{slot}/{n}", t.clone())
+                       for n, t in w.opt_state[slot].items())
+        out.update((f"ema/{n}", t.clone()) for n, t in w.ema.items())
+    return out
+
+
+def zero_leg(kernels, torch, D: int, name: str, extra):
+    """One leg of model_zero: ``ZERO_STEPS`` steps of the stacked
+    transport of D data ranks (the serial and overlap legs' second step
+    NaN-poisoned), every launch count set to 0 just before the steps and
+    read just after. Returns (record, whole tensors)."""
+    from tensorflow_distributed_tpu_torch.config import parse_args
+    from tensorflow_distributed_tpu_torch.data.prefetch import to_device
+    from tensorflow_distributed_tpu_torch.train.loop import build_stacked
+
+    cfg = parse_args(MODEL_ZERO_ARGV + ["--mesh.data", str(D)] + extra)
+    task, state, step = build_stacked(cfg, torch.device(DEVICE),
+                                      ZERO_MIN_SIZE)
+    stream = task.train_stream(0)
+    batches = [to_device(next(stream), torch.device(DEVICE))
+               for _ in range(ZERO_STEPS)]
+    poison = bool(SKIP_NAN[0] in extra)
+    if poison:
+        batches[1] = dict(batches[1], mask=batches[1]["mask"] * math.nan)
+    sync(torch)
+    for kern in kernels:
+        kern.launches = 0
+    t0 = time.time()
+    losses, skipped = [], []
+    for batch in batches:
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        skipped.append(float(metrics.get("skipped_nonfinite", 0.0)))
+    sync(torch)
+    rec = {"phase": "model_zero", "D": D, "leg": name, "argv": extra,
+           "losses": losses, "skipped": skipped,
+           "steps_s": round(time.time() - t0, 3),
+           "launches": {kern.name: kern.launches for kern in kernels},
+           "resident_bytes_a_rank": state.partition.resident_bytes(
+               state.params, slots=2),
+           "predicted_bytes_a_rank": zero_predicted(
+               cfg.param_partition, D),
+           "blocked_leaves": len(state.partition.blocked)}
+    if hasattr(step, "bucket_plan"):
+        rec["plan"] = step.bucket_plan.describe()
+    tensors = whole_tensors(state)
+    del state, step, batches
+    torch.cuda.empty_cache()
+    return rec, tensors
+
+
+def phase_model_zero(kernels, torch) -> None:
+    """ZeRO-1, FSDP and the explicit sync on the stacked transport (see
+    the module docstring, phase 44)."""
+    flash = ("flash_fwd", "flash_dq", "flash_dkv")
+    for D in ZERO_SIZES:
+        recs, whole = {}, {}
+        for name, extra in ZERO_LEGS.items():
+            recs[name], tensors = zero_leg(kernels, torch, D, name, extra)
+            if name in ("replicated", "serial"):
+                whole[name] = tensors
+            rec = recs[name]
+            if name in ("zero1", "fsdp"):
+                ref = recs["replicated"]["losses"]
+                rec["loss_rel_err"] = max(abs(a - b) / abs(b) for a, b in
+                                          zip(rec["losses"], ref))
+                worst = max(
+                    (float(((t - whole["replicated"][k]).abs()
+                            - TOL_ZERO_PARAMS["rtol"]
+                            * whole["replicated"][k].abs()).max()), k)
+                    for k, t in tensors.items() if k.startswith("params/"))
+                rec["params_excess_over_tol"] = worst
+            if name == "overlap":
+                ref = whole["serial"]
+                rec["bit_identical_to_serial"] = {
+                    part: all(torch.equal(t, ref[k]) for k, t in
+                              tensors.items() if k.startswith(part + "/"))
+                    for part in ("params", "mu", "nu", "ema")}
+            emit(rec)
+            check(all(math.isfinite(x) for i, x in enumerate(rec["losses"])
+                      if not (i == 1 and rec["skipped"][1])),
+                  f"model_zero: non-finite loss {rec}")
+            check(all(rec["launches"][k] == 12 * D * ZERO_STEPS
+                      for k in flash),
+                  f"model_zero {name} D {D}: B1-B3 not launched 12 x {D} "
+                  f"times a step: {rec['launches']}")
+            if name in ("serial", "overlap"):
+                check(rec["skipped"] == [0.0, 1.0, 0.0],
+                      f"model_zero {name}: the poisoned step was not "
+                      f"skipped: {rec['skipped']}")
+            if name in ("zero1", "fsdp"):
+                check(rec["loss_rel_err"] <= TOL_ZERO_LOSS
+                      and rec["params_excess_over_tol"][0]
+                      <= TOL_ZERO_PARAMS["atol"],
+                      f"model_zero {name} D {D}: disagrees with replicated: "
+                      f"{rec}")
+            if name == "overlap":
+                check(all(rec["bit_identical_to_serial"].values()),
+                      f"model_zero D {D}: overlap is not bit-identical to "
+                      f"serial: {rec['bit_identical_to_serial']}")
+            del tensors
+        del whole
+        torch.cuda.empty_cache()
+    rec, _ = zero_leg(kernels, torch, ZERO_SIZES[0], "zero1_fused",
+                      ZERO_FUSED)
+    emit(rec)
+    ce = ("fused_ce_fwd", "fused_ce_dx", "fused_ce_dw")
+    check(all(rec["launches"][k] == ZERO_SIZES[0] * ZERO_STEPS for k in ce)
+          and all(math.isfinite(x) for x in rec["losses"]),
+          f"model_zero zero1_fused: B4-B6 not launched once a rank a step, "
+          f"or a non-finite loss: {rec}")
+
+
+def train_zero_runs(count: int):
+    """train_zero's legs for ``count`` cards: (name, processes, argv)."""
+    D = min(count, 4)
+    mesh = ["--mesh.data", str(D)]
+    runs = [("zero1", D, mesh + ["--param-partition", "zero1"]),
+            ("fsdp", D, mesh + ["--param-partition", "fsdp"]),
+            ("serial", D, mesh + ["--grad-sync", "serial"]),
+            ("overlap", D, mesh + ["--param-partition", "zero1",
+                                   "--grad-sync", "overlap"])]
+    if count >= 4:
+        runs.append(("data2_model2_fsdp", 4,
+                     ["--mesh.data", "2", "--mesh.model", "2",
+                      "--param-partition", "fsdp"]))
+    return [(name, n, TRAIN_ZERO_ARGV + argv) for name, n, argv in runs]
+
+
+def phase_train_zero(torch) -> None:
+    """--param-partition and --grad-sync over torchrun's processes
+    (NCCL); skipped, by the device count alone, on one card (model_zero
+    carries the kernel evidence there)."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        emit({"phase": "train_zero",
+              "skipped": f"needs >= 2 CUDA devices, have {count}"})
+        return
+    flash = ("flash_fwd", "flash_dq", "flash_dkv")
+    one, one_sps = one_card_losses(TRAIN_ZERO_ARGV)
+    tokens = 8 * 1024
+    legs = {}
+    for name, nproc, argv in train_zero_runs(count):
+        wall, ranks, _ = run_torchrun(f"train_zero {name}", nproc, argv,
+                                      TRAIN_ZERO_TIMEOUT_S)
+        sps = ranks[0]["steps_per_sec"]
+        legs[name] = ranks[0]["losses"]
+        rec = {"phase": "train_zero", "run": name, "processes": nproc,
+               "argv": argv, "wall_s": round(wall, 3),
+               "losses": ranks[0]["losses"][:5], "one_card_losses": one[:5],
+               "max_loss_diff": max(abs(a - b) for r in ranks
+                                    for a, b in zip(r["losses"][:5], one)),
+               "step_ms": 1e3 / sps if sps else None,
+               "tokens_per_s_per_card": sps * tokens / nproc,
+               "one_card_step_ms": 1e3 / one_sps if one_sps else None,
+               "max_memory_allocated_per_rank": [
+                   r["max_memory_allocated"] for r in ranks],
+               "launches_per_rank": [{k: r["launches"][k] for k in flash}
+                                     for r in ranks]}
+        if name == "overlap":
+            rec["serial_losses"] = legs["serial"][:5]
+            rec["max_diff_to_serial"] = max(
+                abs(a - b) for a, b in zip(legs["serial"], legs["overlap"]))
+        emit(rec)
+        for r in ranks:
+            check(len(r["losses"]) == TRAIN_TP_STEPS and all(
+                abs(a - b) <= TOL_RING_LOSS
+                for a, b in zip(r["losses"][:5], one)),
+                f"train_zero {name}: losses {r['losses']} vs one card {one}")
+            check(all(r["launches"][k] > 0 for k in flash),
+                  f"train_zero {name}: a rank did not launch B1-B3: "
+                  f"{r['launches']}")
+
+
 def run_alone(names, fa, fce, kernels, torch, np, F) -> None:
     """``--only``: the named phases of ONLY_PHASES, in the order given."""
     alone = {"ce_kernels": lambda: phase_ce_kernels(fce, torch, F),
@@ -4444,7 +4692,9 @@ def run_alone(names, fa, fce, kernels, torch, np, F) -> None:
              "train_resnet": lambda: phase_train_resnet(kernels, torch),
              "tp_kernels": lambda: phase_tp_kernels(fa, torch),
              "model_tp": lambda: phase_model_tp(fa, torch, np),
-             "train_tp": lambda: phase_train_tp(torch)}
+             "train_tp": lambda: phase_train_tp(torch),
+             "model_zero": lambda: phase_model_zero(kernels, torch),
+             "train_zero": lambda: phase_train_zero(torch)}
     for name in names:
         alone[name]()
 
@@ -4529,6 +4779,8 @@ def main(argv=None) -> int:
     phase_tp_kernels(fa, torch)
     phase_model_tp(fa, torch, np)
     phase_train_tp(torch)
+    phase_model_zero(kernels, torch)
+    phase_train_zero(torch)
 
     err = {"flash_fwd": flash["errors"]["o_abs_err"],
            "flash_dq": flash["errors"]["dq_abs_err"],

@@ -50,6 +50,15 @@ Examples:
         --model gpt_lm --model-size small --seq-len 1024 --batch-size 8 \
         --ce-chunk 8192 --shard-vocab true
 
+    # ZeRO-1 and FSDP over the data axis (each rank holds 1/D of the
+    # Adam slots, or with fsdp of the params and slots too), and the
+    # bucketed reduce-scatter / all-gather sync (--grad-sync overlap,
+    # which takes zero1's layout; --grad-sync serial is one all-reduce):
+    torchrun --standalone --nproc-per-node 4 \
+        -m tensorflow_distributed_tpu_torch.cli --mesh.data 4 \
+        --model gpt_lm --model-size small --seq-len 1024 --batch-size 8 \
+        --param-partition zero1 --grad-sync overlap
+
     # continuous-batching inference (serve/): GPT-2-small at its
     # published widths, fresh-init weights from --seed, 32 requests of
     # 64-512 prompt tokens through 8 slots, 64 new tokens each; prints

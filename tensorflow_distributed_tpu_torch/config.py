@@ -13,6 +13,9 @@ call trains the reference's ``mnist_cnn`` on the MNIST idx files under
 JAX CLI parses; those of the layers not ported yet are refused unless
 they keep their default (``--resilience.fault-plan`` and
 ``--resilience.sync-timeout-s`` run under ``--mode serve``).
+``--param-partition``, ``--grad-sync`` and ``--grad-sync-bucket-mb``
+take the JAX values, checks and messages; the port also refuses a
+partition under ``--mode serve`` and with ``--optimizer adafactor``.
 The model option of a layer not ported yet (``--moe-experts``) parses
 and is refused the same way,
 as is ``--compute-dtype float32`` for training or evaluating the LM on a
@@ -559,10 +562,129 @@ class TrainConfig:
 
     # --- mesh / parallelism ----------------------------------------------
     mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
+    # "fsdp": every param of at least 2^14 elements with a dim the data
+    # width divides (parallel/sharding.py's rule), its optimizer slots
+    # and its EMA live as 1/data blocks on each data rank, gathered at
+    # use; "zero1": only the slots do (the params stay whole, all-
+    # gathered after the sharded update); "replicated" (default): every
+    # rank holds all of them. Both compose with --mesh.model and
+    # --mesh.seq (only dims TP leaves whole count).
+    param_partition: str = "replicated"  # replicated | zero1 | fsdp
+    # The gradient sync (parallel/overlap.py). "implicit" (default): the
+    # whole gradient summed over the ranks after the backward.
+    # "overlap": bucketed reduce-scatters launched as the backward
+    # finishes each bucket's leaves, the update on each rank's blocks
+    # against zero1's slot blocks, bucketed all-gathers of the params
+    # (needs param_partition=zero1, a pure data mesh with data > 1 and
+    # an elementwise optimizer). "serial": one all-reduce of the whole
+    # tree, then the whole update (needs param_partition=replicated).
+    # Both explicit modes take each rank's own mean loss.
+    grad_sync: str = "implicit"  # implicit | serial | overlap
+    # Bucket bound (MiB) of --grad-sync overlap; None = 4 MiB (a
+    # sentinel, so that any explicit value without overlap is refused).
+    grad_sync_bucket_mb: Optional[float] = None
     serve: ServeConfig = dataclasses.field(default_factory=ServeConfig)
     # Fault injection and the decode watchdog (resilience/).
     resilience: ResilienceConfig = dataclasses.field(
         default_factory=ResilienceConfig)
+
+    def _explicit_sync_knob_conflict(self) -> Optional[str]:
+        """The first training knob the explicit grad-sync step (serial or
+        overlap) cannot take, as the message validate raises; None when
+        it takes them all (the JAX config's own check)."""
+        if self.grad_accum_steps > 1:
+            return ("grad_sync != implicit has no microbatch scan; "
+                    "drop grad_accum_steps or use the implicit step")
+        if self.ce_chunk:
+            return ("ce_chunk's fused loss applies its own sharding "
+                    "constraints, which cannot run inside the explicit "
+                    "step's shard_map; drop one of the flags")
+        if self.shard_vocab:
+            return ("shard_vocab annotates params over the model axis; "
+                    "the explicit grad-sync step needs plain pure-data "
+                    "params — drop one of the flags")
+        return None
+
+    def overlap_grad_sync_conflict(self) -> Optional[str]:
+        """Why grad_sync=overlap cannot run with this config's training
+        knobs, or None (the JAX config's own check and messages)."""
+        if self.optimizer not in ("adam", "sgd"):
+            return (f"grad_sync=overlap needs an ELEMENTWISE "
+                    f"optimizer (adam/sgd; adamw via "
+                    f"weight_decay): a device's block must compute "
+                    f"exactly the full update's slice, which "
+                    f"{self.optimizer!r}'s factored statistics "
+                    f"break")
+        return self._explicit_sync_knob_conflict()
+
+    def _validate_partition(self) -> None:
+        """The JAX config's checks of --param-partition, --grad-sync and
+        --grad-sync-bucket-mb, with its messages; then the port's two
+        refusals (ROADMAP.md A5)."""
+        if self.param_partition not in ("replicated", "zero1", "fsdp"):
+            raise ValueError(
+                f"unknown param_partition {self.param_partition!r}")
+        if self.grad_sync not in ("implicit", "serial", "overlap"):
+            raise ValueError(
+                f"unknown grad_sync {self.grad_sync!r}; have "
+                f"('implicit', 'serial', 'overlap')")
+        if self.grad_sync_bucket_mb is not None:
+            if self.grad_sync_bucket_mb <= 0:
+                raise ValueError(
+                    f"grad_sync_bucket_mb must be > 0, "
+                    f"got {self.grad_sync_bucket_mb}")
+            if self.grad_sync != "overlap":
+                raise ValueError(
+                    "grad_sync_bucket_mb sizes the overlap path's "
+                    "collective buckets; it has no effect without "
+                    "--grad-sync overlap — drop the flag")
+        if self.grad_sync != "implicit":
+            if self.mode != "train":
+                raise ValueError(
+                    f"grad_sync={self.grad_sync!r} shapes the TRAIN "
+                    f"step's gradient sync; it has no effect under "
+                    f"mode={self.mode!r} — drop the flag")
+            bad = [a for a in ("model", "seq")
+                   if getattr(self.mesh, a) > 1]
+            if bad:
+                raise ValueError(
+                    f"grad_sync={self.grad_sync!r} needs a pure "
+                    f"data-parallel mesh; axes {bad} > 1")
+            if self.mesh.data == 1:
+                raise ValueError(
+                    "grad_sync with mesh.data=1 has nothing to "
+                    "synchronize; use the implicit step")
+            if self.grad_sync == "overlap":
+                if self.param_partition != "zero1":
+                    raise ValueError(
+                        "grad_sync=overlap IS weight-update sharding: "
+                        "the per-bucket update runs against zero1's "
+                        "sharded optimizer slots — add "
+                        "--param-partition zero1")
+            elif self.param_partition != "replicated":
+                raise ValueError(
+                    "grad_sync=serial replicates the full-tree update "
+                    "on every device; it requires "
+                    "param_partition=replicated (overlap is the mode "
+                    "that composes with zero1)")
+            conflict = (self.overlap_grad_sync_conflict()
+                        if self.grad_sync == "overlap"
+                        else self._explicit_sync_knob_conflict())
+            if conflict:
+                raise ValueError(conflict)
+        if self.param_partition != "replicated":
+            if self.mode == "serve":
+                raise NotImplementedError(
+                    f"--param-partition {self.param_partition} under "
+                    f"--mode serve (the engine serves one process's "
+                    f"whole params) is not ported to PyTorch yet (see "
+                    f"ROADMAP.md A5)")
+            if self.optimizer == "adafactor":
+                raise NotImplementedError(
+                    f"--optimizer adafactor with --param-partition "
+                    f"{self.param_partition} (its factored statistics "
+                    f"over a 1/data block are not the whole leaf's) is "
+                    f"not ported to PyTorch yet (see ROADMAP.md A5)")
 
     def validate(self) -> None:
         def todo(what: str) -> NotImplementedError:
@@ -572,6 +694,7 @@ class TrainConfig:
 
         if self.mode not in MODES:
             raise ValueError(f"unknown mode {self.mode!r}; have {MODES}")
+        self._validate_partition()
         serving = self.mode == "serve"
         if serving and self.model not in CAUSAL_LM_MODELS:
             raise ValueError(

@@ -315,11 +315,15 @@ def _copy_checked(dst: torch.Tensor, src: torch.Tensor, what: str) -> None:
 
 @torch.no_grad()
 def _load(dst: Dict[str, torch.Tensor], tree: Mapping[str, Any],
-          what: str, model: Optional[nn.Module] = None) -> None:
+          what: str, model: Optional[nn.Module] = None,
+          cut: Optional[Callable] = None) -> None:
     """Copy a flax param tree into the port's tensors of the same names
-    (``model``'s shards of it under tensor parallelism), in place, after
-    checking names and shapes."""
+    (``model``'s shards of it under tensor parallelism, and ``cut`` of
+    those: a data partition's blocks), in place, after checking names
+    and shapes."""
     src = shards_from_flax(tree, model)
+    if cut is not None:
+        src = cut(src)
     _check_names(src, dst, what)
     for name, t in dst.items():
         _copy_checked(t, src[name], f"{what} {name}")
@@ -352,7 +356,9 @@ def state_from_flax(tree: Mapping[str, Any], state: TrainState
     shapes must match the model's; the moments are found by name
     wherever the chain nests them, so adding or dropping clipping or
     the decay mask across a resume restores, as JAX aligns the mask."""
-    _load(state.params, tree["params"], "params", state.model)
+    part = state.partition
+    _load(state.params, tree["params"], "params", state.model,
+          part.cut_params)
     extra_from_flax(tree.get("extra") or {}, state.model)
     tx, opt = state.tx, tree["opt_state"]
     names = _MOMENTS[tx.kind]
@@ -369,13 +375,13 @@ def state_from_flax(tree: Mapping[str, Any], state: TrainState
                         f"opt_state {name}")
         else:
             _load(state.opt_state[name], core[name], f"opt_state {name}",
-                  state.model)
+                  state.model, part.cut_slots)
     if tree.get("ema") is None:
         state.ema = None
     else:
         if state.ema is None:
             state.ema = ema_init(state.params)
-        _load(state.ema, tree["ema"], "ema", state.model)
+        _load(state.ema, tree["ema"], "ema", state.model, part.cut_params)
     state.step = int(tree["step"])
     return state
 

@@ -20,7 +20,10 @@
 - under ``--mesh.data D`` the statistics are the global batch's, as
   GSPMD gives JAX: each BN layer all-reduces its per-channel sum, sum of
   squares and count over the data group, one packed f32 tensor a layer,
-  differentiably (gloo on the CPU, NCCL on cards);
+  differentiably (gloo on the CPU, NCCL on cards); under the explicit
+  gradient sync (``--grad-sync serial|overlap``) each rank normalizes
+  with its own statistics and the step averages the ranks' new running
+  averages (``pending_batch_stats``), as JAX's explicit step does;
 - init: flax ``he_normal`` for every kernel (the head's too), zero
   biases, BN scales one except the last BN of each residual branch,
   zero ("zero-gamma": blocks start as identity).
@@ -247,6 +250,13 @@ class ResNet(_Net):
                 for leaf in ("mean", "var")}
 
     @torch.no_grad()
+    def pending_batch_stats(self):
+        """Every BN layer's pending running averages (mean, var), in
+        module order: the tensors a step may change in place before it
+        commits them."""
+        return [t for m in self.modules() if isinstance(m, BatchNorm)
+                and m.pending is not None for t in m.pending]
+
     def commit_batch_stats(self, keep: bool = True) -> None:
         """Write every BN layer's pending running averages into its
         buffers (``keep``) or drop them."""

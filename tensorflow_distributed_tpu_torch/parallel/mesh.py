@@ -24,7 +24,19 @@ data index ``r // (S * M)``. Three groups carry the collectives:
   GSPMD's implicit psums. Without a model axis it is the whole world.
 
 The data group (the ranks that share a (seq, model) index) is the group
-of sync BatchNorm.
+of sync BatchNorm, and of ``--param-partition fsdp|zero1`` and
+``--grad-sync serial|overlap``: ``reduce_scatter`` sums a flat tensor
+over it and hands each data rank its 1/data block, ``all_gather_``
+joins the ranks' blocks back, ``data_all_reduce_`` sums (the seq ranks
+of one data index hold the same params, so under ``--mesh.seq`` a
+gradient is summed over the seq group first: ``seq_all_reduce_``).
+
+``stacked_data(D)`` is the one-process form of D data ranks, as
+``StackedTP`` is of the model ranks (the tests and the one-card smoke):
+the train step runs each data rank's forward and backward in turn, so
+the ranks' gradients accumulate in rank order and are already their
+sum; ``reduce_scatter`` then only views the sum as the D blocks, all of
+which this process holds, and ``all_gather_`` joins the D blocks.
 
 ``is_chief()`` elects rank 0 for logging, as in the JAX package.
 """
@@ -33,7 +45,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any, Iterable, Optional, Tuple
+from typing import Any, Iterable, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -50,6 +62,11 @@ AXIS_PIPE = "pipe"
 AXIS_EXPERT = "expert"
 MESH_AXES = (AXIS_DATA, AXIS_PIPE, AXIS_SEQ, AXIS_MODEL, AXIS_EXPERT)
 TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK")
+# The flat collectives under their current names (torch >= 2.13 renamed
+# them; the old ones warn there).
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single",
+                          dist.reduce_scatter_tensor)
+_ALL_GATHER = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
 LAUNCH = ("torchrun --nproc-per-node {N} -m "
           "tensorflow_distributed_tpu_torch.cli --mesh.data {D} "
           "--mesh.seq {S} --mesh.model {M} ...")
@@ -118,6 +135,7 @@ class Mesh:
     model_group: Any = None
     replica_group: Any = None  # None: the whole world (model 1)
     tp: Optional[ProcessGroupTP] = None  # over model_group when model > 1
+    stacked: bool = False  # every data rank in this process (stacked_data)
 
     @property
     def model_index(self) -> int:
@@ -137,6 +155,50 @@ class Mesh:
         (data, seq) coordinate, row-major. The model ranks of one
         coordinate share it (and so their dropout masks)."""
         return self.rank // self.model
+
+    @property
+    def data_ranks(self) -> List[int]:
+        """The data indices whose blocks this process holds: its own, or
+        all of them on the stacked transport."""
+        return list(range(self.data)) if self.stacked else [self.data_index]
+
+    def reduce_scatter(self, flat: torch.Tensor, async_op: bool = False):
+        """Sum the flat tensor ``flat`` (numel a multiple of ``data``)
+        over the data group and return (this process's blocks ``[len(
+        data_ranks), numel / data]``, the pending work or None). The
+        blocks are valid once the work is waited on."""
+        if not self.distributed or self.data == 1:
+            return flat.view(self.data, -1)[self.data_ranks[0]:
+                                            self.data_ranks[-1] + 1], None
+        out = flat.new_empty(flat.numel() // self.data)
+        work = _REDUCE_SCATTER(out, flat, group=self.data_group,
+                               async_op=async_op)
+        return out.view(1, -1), work
+
+    def all_gather_(self, flat: torch.Tensor, blocks: torch.Tensor,
+                    async_op: bool = False):
+        """Write every data rank's block into ``flat`` (numel ``data`` x
+        the block's), in rank order, from this process's ``blocks``
+        (``reduce_scatter``'s layout; not a view of ``flat`` over a
+        process group). Returns the pending work or None."""
+        if not self.distributed or self.data == 1:
+            rows = flat.view(self.data, -1)[self.data_ranks[0]:
+                                            self.data_ranks[-1] + 1]
+            if rows.data_ptr() != blocks.data_ptr():
+                rows.copy_(blocks)
+            return None
+        return _ALL_GATHER(flat, blocks.reshape(-1), group=self.data_group,
+                           async_op=async_op)
+
+    def data_all_reduce_(self, tensors: Iterable[torch.Tensor]) -> None:
+        """Sum same-dtype tensors over the data group, in place."""
+        if self.distributed and self.data > 1:
+            all_reduce_sum_(tensors, self.data_group)
+
+    def seq_all_reduce_(self, tensors: Iterable[torch.Tensor]) -> None:
+        """Sum same-dtype tensors over the seq group, in place."""
+        if self.distributed and self.seq > 1:
+            all_reduce_sum_(tensors, self.seq_group)
 
     def replica_all_reduce_(self, tensors: Iterable[torch.Tensor]) -> None:
         """Sum same-dtype tensors over the replica group (the ranks that
@@ -164,6 +226,14 @@ class Mesh:
 
 
 ONE_PROCESS = Mesh()
+
+
+def stacked_data(data: int) -> Mesh:
+    """The mesh of ``data`` data ranks all in this process (no process
+    group; see the module docstring)."""
+    if data < 1:
+        raise ValueError(f"data axis must be >= 1, got {data}")
+    return Mesh(data=data, stacked=True)
 
 
 def process_batch_role(mesh: Mesh):

@@ -24,13 +24,24 @@ every rank. ``shard_state_dict`` cuts a full state dict (an init, a
 checkpoint's params or moments) to this process's ranks;
 ``gather_state_dict`` joins the ranks' parts back into the full
 tensors (a collective over the model group under ``ProcessGroupTP``),
-which is what a checkpoint holds. FSDP and ZeRO (``--param-partition``)
-are not ported (ROADMAP.md A5).
+which is what a checkpoint holds.
+
+Over the data axis (``--param-partition fsdp|zero1``) a leaf is cut into
+``data`` blocks exactly where the JAX package's rule cuts it
+(``param_sharding(fsdp=True)``: ``FSDP_MIN_SIZE``, ``fsdp_scatter_dim``
+and ``_fsdp_axis_choice``, kept here as the port's own copies). The rule
+runs on the flax leaf's shape (``interop.flax_layout``) at the whole
+model's size, with the dims tensor parallelism takes, so the set of cut
+leaves (``data_blocked``) is JAX's for every family. Where a block sits
+is the port's choice: data rank i holds row i of the rank's local
+tensor viewed as ``[data, numel / data]`` (``data_block``), a flat
+1/data slice, so the blocks of a bucket of leaves are contiguous.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Optional
 
 import torch
@@ -139,6 +150,83 @@ def gather_state_dict(local: Tensors, model) -> Tensors:
     return out
 
 
+# Leaves smaller than this stay whole under fsdp and zero1 (the JAX
+# package's threshold: a handful of bias and norm vectors cost more in
+# collective latency than in memory).
+FSDP_MIN_SIZE = 2 ** 14
+AXIS_DATA, AXIS_MODEL = "data", "model"
+
+
+def fsdp_scatter_dim(shape: tuple, axis_size: int,
+                     taken: tuple = ()) -> int:
+    """The dim a leaf cuts over the data axis under fsdp/zero1: the
+    largest dim not in ``taken`` that ``axis_size`` divides (ties keep
+    the earliest); -1 when none does (the JAX package's rule)."""
+    best = -1
+    for d, n in enumerate(shape):
+        if d not in taken and n % axis_size == 0:
+            if best < 0 or n > shape[best]:
+                best = d
+    return best
+
+
+def _fsdp_axis_choice(spec: list, shape: tuple, axis_size: int) -> list:
+    """``spec`` (a leaf's mesh axis names by dim, None where whole) with
+    the data axis added on ``fsdp_scatter_dim`` of the dims still whole;
+    unchanged when the leaf already names the data axis or no dim
+    qualifies (the JAX package's rule)."""
+    if any(AXIS_DATA in (e if isinstance(e, tuple) else (e,))
+           for e in spec):
+        return spec
+    best = fsdp_scatter_dim(
+        tuple(shape), axis_size,
+        taken=tuple(d for d, e in enumerate(spec) if e is not None))
+    if best >= 0:
+        spec = list(spec)
+        spec[best] = AXIS_DATA
+    return spec
+
+
+def data_blocked(model, data: int,
+                 min_size: int = FSDP_MIN_SIZE) -> frozenset:
+    """The names of ``model``'s params that fsdp and zero1 cut into
+    ``data`` blocks: JAX's ``param_sharding(fsdp=True)`` on each flax
+    leaf's shape at the whole model's size (elements >= ``min_size``,
+    a dim ``data`` divides that tensor parallelism leaves whole). The
+    JAX model names its TP dims (of kernels and tables, never a bias's)
+    only under a model axis or ``shard_vocab``, and so does this
+    rule."""
+    if data <= 1:
+        return frozenset()
+    # interop reaches this module through models/transformer.py.
+    from tensorflow_distributed_tpu_torch.interop import flax_layout
+
+    cfg = getattr(model, "cfg", None)
+    tp_named = (getattr(model, "tp", None) is not None
+                or bool(getattr(cfg, "shard_vocab", False)))
+    whole = model.whole("meta") if getattr(model, "tp", None) else model
+    out = set()
+    for name, p in whole.named_parameters():
+        path, to_flax, _ = flax_layout(whole, name)
+        shape = tuple(to_flax(torch.empty(p.shape, device="meta")).shape)
+        if math.prod(shape) < min_size:
+            continue
+        spec = [None] * len(shape)
+        if tp_named and path[-1] != "bias":  # JAX names no bias's dims
+            spec = list(_model_spec(path, cfg.shard_vocab) or spec)
+        if AXIS_DATA in _fsdp_axis_choice(spec, shape, data):
+            out.add(name)
+    return frozenset(out)
+
+
+def data_block(t: torch.Tensor, data: int, ranks) -> torch.Tensor:
+    """The blocks of ``t`` (a blocked leaf's local tensor, or any tensor
+    of its shape) that the data ranks ``ranks`` (consecutive) hold: a
+    view ``[len(ranks), numel / data]`` of its rows viewed as ``[data,
+    numel / data]``."""
+    return t.view(data, -1)[ranks[0]:ranks[-1] + 1]
+
+
 # The flax leaves' PartitionSpecs over the model axis, by (module, leaf)
 # (JAX's ``nn.with_partitioning`` names), for a checkpoint's mesh.json.
 _FLAX_SPECS = {("qkv", "kernel"): (None, None, "model", None),
@@ -154,13 +242,19 @@ _FLAX_SPECS = {("qkv", "kernel"): (None, None, "model", None),
                ("lm_head", "bias"): ("model",)}
 
 
+def _model_spec(path, shard_vocab: bool) -> Optional[tuple]:
+    """A flax leaf's mesh axes by dim under tensor parallelism ("model"
+    or None), or None for a leaf every model rank holds whole."""
+    key = tuple(path[-2:])
+    if key == ("tok_emb", "embedding") and shard_vocab:
+        return (AXIS_MODEL, None)
+    return _FLAX_SPECS.get(key)
+
+
 def flax_spec(path, shard_vocab: bool) -> str:
     """The ``PartitionSpec`` string of a checkpoint leaf (its ``/``
     path's parts) written under a model axis."""
-    key = tuple(path[-2:])
-    spec = _FLAX_SPECS.get(key)
-    if key == ("tok_emb", "embedding") and shard_vocab:
-        spec = ("model", None)
+    spec = _model_spec(path, shard_vocab)
     if spec is None:
         return "PartitionSpec()"
     return "PartitionSpec(" + ", ".join(

@@ -21,7 +21,12 @@ model group that every rank joins), so the step directory is byte for
 byte what one process writes of the same params, the ``--shard-vocab``
 tables' padded rows included; a restore reads the whole arrays and
 keeps this rank's shards (``interop.state_from_flax``), from a
-one-process checkpoint or a TP one alike.
+one-process checkpoint or a TP one alike. Under ``--param-partition
+zero1|fsdp`` the data blocks (slots; params and EMA under fsdp) are
+all-gathered over the data group first (every data rank joins), so the
+save is, byte for byte, the replicated run's save of the same state; a
+restore cuts the whole arrays to this rank's blocks. Any checkpoint
+(the JAX package's under fsdp included) restores under any partition.
 
 A save writes into ``step_XXXXXXXX.tmp`` and renames it, so a crash
 mid-save never leaves a partial step behind; the newest ``keep`` steps
@@ -43,6 +48,7 @@ package are not ported (ROADMAP.md).
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -56,6 +62,7 @@ import torch
 
 from tensorflow_distributed_tpu_torch import interop
 from tensorflow_distributed_tpu_torch.parallel import mesh as mesh_lib
+from tensorflow_distributed_tpu_torch.parallel.fsdp import swapped_params
 from tensorflow_distributed_tpu_torch.parallel.mesh import ONE_PROCESS, Mesh
 from tensorflow_distributed_tpu_torch.parallel.sharding import (
     flax_spec, gather_state_dict)
@@ -273,42 +280,55 @@ def _leaves(tree: Any):
         yield tree
 
 
-@torch.no_grad()
-def whole_state(state: TrainState) -> TrainState:
-    """``state`` itself, or for a tensor-parallel model the whole
-    model's state: every sharded param, moment and EMA leaf gathered
-    (every rank of the model group must call it), held by a template
-    of the whole model built on the meta device that takes the gathered
-    tensors as its parameters."""
-    model = state.model
-    if getattr(model, "tp", None) is None:
-        return state
-    whole = model.whole("meta")
-    whole.load_state_dict(gather_state_dict(
-        {n: p.detach() for n, p in state.params.items()}, model),
-        assign=True)
-    opt = {k: (gather_state_dict(v, model) if isinstance(v, dict) else v)
+@contextlib.contextmanager
+def whole_state(state: TrainState):
+    """``state`` itself, or one holding the whole model's tensors: the
+    data blocks of a ``--param-partition`` layout gathered over the data
+    group, then a tensor-parallel model's shards over the model group
+    (every rank of both must enter it). A TP model's whole state is held
+    by a template of the whole model built on the meta device; under
+    fsdp the model holds the gathered params while the context is open."""
+    model, part = state.model, state.partition
+    tp = getattr(model, "tp", None)
+    if part.kind == "replicated" and tp is None:
+        yield state
+        return
+
+    @torch.no_grad()
+    def whole(tensors):
+        out = {n: part.whole(n, t) for n, t in tensors.items()}
+        return out if tp is None else gather_state_dict(out, model)
+
+    params = whole({n: p.detach() for n, p in state.params.items()})
+    opt = {k: (whole(v) if isinstance(v, dict) else v)
            for k, v in state.opt_state.items()}
-    ema = None if state.ema is None else gather_state_dict(state.ema, model)
-    return TrainState(model=whole, tx=state.tx, opt_state=opt,
-                      step=state.step, ema=ema)
+    ema = None if state.ema is None else whole(state.ema)
+    if tp is not None:
+        template = model.whole("meta")
+        template.load_state_dict(params, assign=True)
+        yield TrainState(model=template, tx=state.tx, opt_state=opt,
+                         step=state.step, ema=ema)
+        return
+    with swapped_params(model, params if part.params_blocked else {}):
+        yield TrainState(model=model, tx=state.tx, opt_state=opt,
+                         step=state.step, ema=ema)
 
 
 def save(ckpt_dir: str, state: TrainState, keep: int = 3,
          mesh: Mesh = ONE_PROCESS) -> str:
     """Write ``state`` at its step and prune to the newest ``keep``.
-    Every rank calls it: under tensor parallelism every rank joins the
-    gather of the shards; the chief writes, and every rank leaves only
-    after the rename, so ``latest_step`` agrees everywhere on return."""
+    Every rank calls it: under tensor parallelism and a data partition
+    every rank joins the gathers; the chief writes, and every rank
+    leaves only after the rename, so ``latest_step`` agrees everywhere
+    on return."""
     final = _step_dir(ckpt_dir, state.step)
-    whole = whole_state(state)
-    if mesh_lib.is_chief():
-        tree = interop.state_to_flax(whole)
-        cfg = getattr(state.model, "cfg", None)
-        _write(ckpt_dir, state.step, tree, keep,
-               _mesh_manifest(tree, mesh,
-                              bool(getattr(cfg, "shard_vocab", False))))
-    del whole
+    with whole_state(state) as whole:
+        if mesh_lib.is_chief():
+            tree = interop.state_to_flax(whole)
+            cfg = getattr(state.model, "cfg", None)
+            _write(ckpt_dir, state.step, tree, keep,
+                   _mesh_manifest(tree, mesh,
+                                  bool(getattr(cfg, "shard_vocab", False))))
     mesh.barrier()
     return final
 

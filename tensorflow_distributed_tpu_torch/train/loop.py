@@ -40,6 +40,13 @@ its part of the whole model's seeded init; the parameters start from
 the copy of the first rank of their replica group; eval metrics are
 means over the mesh; the step records, eval records and the ``done``
 record come from the chief only.
+
+``--param-partition zero1|fsdp`` lays the state out over the data axis
+once every rank holds the same init (``train/state.partition_state_``);
+``--grad-sync serial|overlap`` builds the explicit step
+(``parallel/overlap.py``), whose plan the loop prints as a
+``grad_sync`` record. ``--mode eval`` builds the same layout and
+restores into it.
 """
 
 from __future__ import annotations
@@ -60,7 +67,7 @@ from tensorflow_distributed_tpu_torch.models import build_model
 from tensorflow_distributed_tpu_torch.parallel import mesh as mesh_lib
 from tensorflow_distributed_tpu_torch.parallel.mesh import ONE_PROCESS, Mesh
 from tensorflow_distributed_tpu_torch.parallel.sharding import (
-    shard_state_dict)
+    FSDP_MIN_SIZE, shard_state_dict)
 from tensorflow_distributed_tpu_torch.resilience.faults import (
     FaultPlan, parse_fault_plan)
 from tensorflow_distributed_tpu_torch.resilience.policies import (
@@ -71,7 +78,8 @@ from tensorflow_distributed_tpu_torch.train import checkpoint as ckpt
 from tensorflow_distributed_tpu_torch.train.optim import make_optimizer
 from tensorflow_distributed_tpu_torch.train.preemption import PreemptionGuard
 from tensorflow_distributed_tpu_torch.train.state import (
-    TrainState, create_train_state, ema_init, param_count)
+    TrainState, create_train_state, ema_init, param_count,
+    partition_state_)
 from tensorflow_distributed_tpu_torch.train.step import (
     make_eval_step, make_train_step, to_host_async)
 from tensorflow_distributed_tpu_torch.train.tasks import Task, make_task
@@ -212,8 +220,10 @@ def build_model_for(cfg: TrainConfig, device: torch.device, ring=None,
 
 def _build_model_and_state(cfg: TrainConfig, device: torch.device,
                            init_params=None, mesh: Mesh = ONE_PROCESS,
-                           task: Optional[Task] = None, vocab_size: int = 0):
-    """The model and its train state; ``task`` (or, without one, the
+                           task: Optional[Task] = None, vocab_size: int = 0,
+                           min_size: int = FSDP_MIN_SIZE):
+    """The model and its train state, laid out as ``cfg.param_partition``
+    (``min_size``: the rule's threshold); ``task`` (or, without one, the
     tokenizer's ``vocab_size``, read from the corpus when not given)
     gives the dataset facts the model is sized by."""
     if task is not None:
@@ -223,16 +233,19 @@ def _build_model_and_state(cfg: TrainConfig, device: torch.device,
 
         vocab_size = text_codec(cfg.data_dir, cfg.text_tokenizer,
                                 cfg.bpe_vocab_size)[2]
+    # The explicit sync's BatchNorm normalizes with each rank's rows.
+    sync_bn = mesh.data > 1 and cfg.grad_sync == "implicit"
     model = build_model_for(
         cfg, device, mesh.ring, vocab_size=vocab_size,
         image_shape=task.image_shape if task is not None else (),
-        bn_group=mesh.data_group if mesh.data > 1 else None, tp=mesh.tp)
+        bn_group=mesh.data_group if sync_bn else None, tp=mesh.tp)
     tx = make_optimizer(cfg, model)
     if init_params is not None and mesh.tp is not None:
         init_params = shard_state_dict(init_params, model)
     state = create_train_state(model, tx, cfg.seed, init_params)
     # Every rank starts from the first rank of its replica group's copy.
     mesh.replica_broadcast_(model.parameters())
+    partition_state_(state, cfg.param_partition, mesh, min_size)
     if cfg.ema_decay:
         state.ema = ema_init(state.params)
     return model, state
@@ -271,6 +284,29 @@ def _make_task(cfg: TrainConfig, mesh: Mesh) -> Task:
     return task
 
 
+def build_stacked(cfg: TrainConfig, device: torch.device,
+                  min_size: int = FSDP_MIN_SIZE):
+    """``cfg``'s run on the stacked transport of ``cfg.mesh.data`` data
+    ranks in this process (``parallel/mesh.stacked_data``; the tests and
+    the one-card smoke): (the task, drawing global batches; the state,
+    laid out as ``cfg.param_partition``; the train step, which runs each
+    data rank's rows in turn). ``min_size``: the partition rule's
+    threshold."""
+    cfg.validate()
+    mesh = mesh_lib.stacked_data(cfg.mesh.data)
+    task = _make_task(cfg, ONE_PROCESS)
+    _, state = _build_model_and_state(cfg, device, mesh=mesh, task=task,
+                                      min_size=min_size)
+    step = make_train_step(
+        task.loss, device, cfg.seed, grad_norm_metric=cfg.log_grad_norm,
+        mesh=mesh, ema_decay=cfg.ema_decay,
+        skip_nonfinite=cfg.resilience.nonfinite == "skip_batch",
+        grad_sync=cfg.grad_sync, state_template=state,
+        bucket_bytes=int((cfg.grad_sync_bucket_mb or 0) * (1 << 20)),
+        grad_clip_norm=cfg.grad_clip_norm or 0.0)
+    return task, state, step
+
+
 def train(cfg: TrainConfig, logger: Optional[MetricLogger] = None,
           init_params: Optional[Dict[str, torch.Tensor]] = None
           ) -> TrainResult:
@@ -306,15 +342,23 @@ def train(cfg: TrainConfig, logger: Optional[MetricLogger] = None,
         task.loss, device, cfg.seed, grad_norm_metric=cfg.log_grad_norm,
         mesh=mesh, accum_steps=cfg.grad_accum_steps, ema_decay=cfg.ema_decay,
         skip_nonfinite=policy is not None and policy.mode == "skip_batch",
-        sync=wdog.sync if wdog is not None else None)
+        sync=wdog.sync if wdog is not None else None,
+        grad_sync=cfg.grad_sync, state_template=state,
+        bucket_bytes=int((cfg.grad_sync_bucket_mb or 0) * (1 << 20)),
+        grad_clip_norm=cfg.grad_clip_norm or 0.0)
     eval_fn = make_eval_step(task.eval_loss or task.loss)
     logger.log_json({
         "event": "start", "model": cfg.model, "task": task.name,
-        "params": param_count(model.whole("meta") if mesh.tp else model),
+        "params": (param_count(model.whole("meta")) if mesh.tp else
+                   sum(state.partition.shapes.get(n, p.shape).numel()
+                       for n, p in state.params.items())),
         "device": str(device),
         "global_batch": cfg.batch_size, "start_step": start_step,
         "mesh": {"data": mesh.data, "seq": mesh.seq, "model": mesh.model},
     })
+    if cfg.grad_sync != "implicit":
+        logger.log_json({"event": "grad_sync", "mode": cfg.grad_sync,
+                         **step_fn.bucket_plan.describe()})
     saved_at = None
 
     def save() -> None:

@@ -5,9 +5,12 @@ The port of ``train/optim.py``. ``make_optimizer`` returns an
 package builds:
 
 - ``clip_by_global_norm`` ahead of everything when grad_clip_norm is set
-  (under tensor parallelism by the whole model's norm, which the step
-  hands in; adam and sgd are elementwise, so each rank updates its
-  shards alone; adafactor is refused there);
+  (under tensor parallelism, and under zero1 and fsdp, by the whole
+  model's norm, which the step hands in; adam and sgd are elementwise,
+  so each rank updates its shards and data blocks alone; adafactor is
+  refused there); under the explicit gradient sync (``--grad-sync
+  serial|overlap``) the chain has no clip: the step clips by its
+  rebuilt norm before the update, as the JAX package's does;
 - adam: b1 0.9, b2 0.999, eps 1e-8 outside the sqrt, bias correction at
   count + 1; adamw adds ``weight_decay * param`` for the leaves
   ``decay_mask`` selects (Linear and Embedding weights, by name — never
@@ -286,4 +289,6 @@ def make_optimizer(cfg: TrainConfig, model: nn.Module) -> Optimizer:
                      weight_decay=(cfg.weight_decay
                                    if cfg.optimizer != "sgd" else 0.0),
                      mask=decay_mask(model),
-                     clip_norm=cfg.grad_clip_norm or 0.0, layouts=layouts)
+                     clip_norm=((cfg.grad_clip_norm or 0.0)
+                                if cfg.grad_sync == "implicit" else 0.0),
+                     layouts=layouts)

@@ -8,18 +8,116 @@ JAX state's ``extra`` (the non-param collections: a ResNet's BatchNorm
 ``batch_stats``) are the model's BN buffers here (``TrainState.extra``,
 the model's ``batch_stats()``); the train step writes them, and
 checkpoints carry them (``interop.extra_to_flax``).
+
+``TrainState.partition`` says which tensors live as data blocks
+(``--param-partition``; ``partition_state_``), as the JAX
+``create_train_state(fsdp=, opt_fsdp=)`` places them: under zero1 the
+optimizer slots of every param that ``parallel/sharding.data_blocked``
+names are this process's data blocks of them (``[1, numel / data]``, or
+``[data, numel / data]`` on the stacked transport) and the params and
+the EMA stay whole; under fsdp the params (``parallel/fsdp.py``), and so
+their slots and EMA, are blocks too. The buffers (BatchNorm's
+statistics) are never cut.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
+from tensorflow_distributed_tpu_torch.parallel.mesh import ONE_PROCESS, Mesh
+from tensorflow_distributed_tpu_torch.parallel.sharding import (
+    FSDP_MIN_SIZE, data_block, data_blocked)
 from tensorflow_distributed_tpu_torch.train.optim import Optimizer
+
+PARTITIONS = ("replicated", "zero1", "fsdp")
+
+
+@dataclasses.dataclass(frozen=True)
+class Partition:
+    """The data-axis layout of a train state (``--param-partition``):
+    ``blocked`` names the params whose slots (zero1), or whose params,
+    slots and EMA (fsdp), are this process's data blocks of ``mesh``;
+    ``shapes`` their whole (local) shapes; ``min_size`` the rule's
+    threshold (JAX's ``fsdp_min_size``)."""
+
+    kind: str = "replicated"
+    mesh: Mesh = ONE_PROCESS
+    blocked: frozenset = frozenset()
+    shapes: Mapping[str, torch.Size] = dataclasses.field(
+        default_factory=dict)
+    min_size: int = FSDP_MIN_SIZE
+
+    @property
+    def params_blocked(self) -> bool:
+        return self.kind == "fsdp" and bool(self.blocked)
+
+    def block(self, t: torch.Tensor) -> torch.Tensor:
+        """This process's blocks of a blocked param's whole tensor (a
+        view of a contiguous one)."""
+        return data_block(t.contiguous(), self.mesh.data,
+                          self.mesh.data_ranks)
+
+    def _cut(self, tensors: Dict[str, torch.Tensor], kinds
+             ) -> Dict[str, torch.Tensor]:
+        """``tensors`` with the blocked ones' blocks (views) under the
+        layouts ``kinds``."""
+        if self.kind not in kinds:
+            return dict(tensors)
+        return {n: self.block(t) if n in self.blocked else t
+                for n, t in tensors.items()}
+
+    def slot_views(self, tensors: Dict[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+        """Param-shaped tensors (params, gradients) as the optimizer's
+        slots are laid out: a blocked leaf's blocks under zero1 (fsdp's
+        params and gradients are blocks already)."""
+        return self._cut(tensors, ("zero1",))
+
+    def cut_params(self, tensors: Dict[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+        """Whole params (or EMA tensors, a restore's) as this layout
+        holds them: the blocked ones' blocks under fsdp."""
+        return self._cut(tensors, ("fsdp",))
+
+    def cut_slots(self, tensors: Dict[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+        """Whole slot tensors (a restore's) as this layout holds them:
+        the blocked ones' blocks under zero1 and fsdp."""
+        return self._cut(tensors, ("zero1", "fsdp"))
+
+    def whole(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """``t`` (a param's, slot's or EMA's tensor) whole: a blocked
+        one gathered over the data group (every data rank calls it)."""
+        if name not in self.blocked or tuple(t.shape) == tuple(
+                self.shapes[name]):
+            return t
+        from tensorflow_distributed_tpu_torch.parallel.fsdp import (
+            gather_param)
+        return gather_param(t, self.shapes[name], self.mesh)
+
+    def resident_bytes(self, params: Dict[str, torch.Tensor],
+                       slots: int) -> Dict[str, int]:
+        """The bytes one data rank holds between steps: its params, its
+        synced gradient (the blocks under fsdp) and its ``slots``
+        optimizer slots per param (f32)."""
+        out = {"params": 0, "grads": 0, "slots": 0}
+        for n, p in params.items():
+            whole = self.shapes.get(n, p.shape).numel() * 4
+            cut = whole // self.mesh.data if n in self.blocked else whole
+            fsdp = cut if self.kind == "fsdp" else whole
+            out["params"] += fsdp
+            out["grads"] += fsdp
+            out["slots"] += slots * (whole if self.kind == "replicated"
+                                     else cut)
+        return out
+
+
+REPLICATED = Partition()
 
 
 @dataclasses.dataclass
@@ -31,6 +129,7 @@ class TrainState:
     # f32 exponential moving average of the params by name (eval runs on
     # it), or None.
     ema: Optional[Dict[str, torch.Tensor]] = None
+    partition: Partition = REPLICATED
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
@@ -71,6 +170,34 @@ def create_train_state(model: nn.Module, tx: Optimizer, seed: int = 0,
                              f"{sorted(stray)}, unexpected {unexpected}")
     params = dict(model.named_parameters())
     return TrainState(model=model, tx=tx, opt_state=tx.init(params))
+
+
+def partition_state_(state: TrainState, kind: str, mesh: Mesh,
+                     min_size: int = FSDP_MIN_SIZE) -> None:
+    """Lay ``state`` (a fresh one, every rank holding the same whole
+    params, no EMA yet) out as ``--param-partition kind`` over ``mesh``'s
+    data axis: under fsdp the blocked params become this process's
+    blocks (``parallel/fsdp.shard_params_``); the optimizer state is
+    made again on the slots' layout (zero1 and fsdp: the blocked
+    leaves' blocks). ``min_size``: the rule's threshold (tests lower it
+    to cut a tiny model)."""
+    if kind not in PARTITIONS:
+        raise ValueError(f"unknown param_partition {kind!r}")
+    if kind == "replicated" or mesh.data == 1:
+        # The threshold still sizes the explicit sync's plan.
+        state.partition = dataclasses.replace(REPLICATED, min_size=min_size)
+        return
+    if mesh.stacked and (mesh.tp is not None or mesh.seq > 1):
+        raise ValueError("the stacked data transport holds data ranks "
+                         "only (no model or seq axis)")
+    blocked = data_blocked(state.model, mesh.data, min_size)
+    shapes = {n: p.shape for n, p in state.params.items() if n in blocked}
+    if kind == "fsdp":
+        from tensorflow_distributed_tpu_torch.parallel.fsdp import (
+            shard_params_)
+        shard_params_(state.model, blocked, mesh)
+    state.partition = Partition(kind, mesh, blocked, shapes, min_size)
+    state.opt_state = state.tx.init(state.partition.slot_views(state.params))
 
 
 def ema_init(params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

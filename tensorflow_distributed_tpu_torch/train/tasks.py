@@ -118,7 +118,8 @@ def _make_vision_task(cfg: TrainConfig, mesh: Mesh) -> Task:
             yield (val_ds.images[lo:lo + batch], val_ds.labels[lo:lo + batch])
 
     return Task(
-        name="vision", loss=make_vision_loss(cfg.label_smoothing, mesh),
+        name="vision",
+        loss=make_vision_loss(cfg.label_smoothing, _train_mesh(cfg, mesh)),
         eval_loss=make_vision_loss(mesh=mesh),
         train_stream=batcher.forever, eval_batches=eval_batches,
         eval_size=len(val_ds), steps_per_epoch=batcher.steps_per_epoch,
@@ -208,7 +209,7 @@ def _make_lm_task(cfg: TrainConfig, mesh: Mesh, objective: str,
     return Task(
         name=objective,
         loss=make_mlm_loss(cfg.label_smoothing, ce_chunk=cfg.ce_chunk,
-                           ce_impl=cfg.ce_impl, mesh=mesh),
+                           ce_impl=cfg.ce_impl, mesh=_train_mesh(cfg, mesh)),
         # Eval drops the train-only smoothing but keeps the fused head
         # (the dense eval logits would not fit where ce_chunk is what
         # makes the train shapes fit), always by the scan formulation:
@@ -218,6 +219,12 @@ def _make_lm_task(cfg: TrainConfig, mesh: Mesh, objective: str,
         eval_batches=eval_batches, eval_size=len(val_ds),
         steps_per_epoch=batcher.steps_per_epoch, seq_axis=1,
         seq_len=seq_len, vocab_size=train_ds.vocab_size)
+
+
+def _train_mesh(cfg: TrainConfig, mesh: Mesh) -> Mesh:
+    """The mesh the train loss normalizes over: none under the explicit
+    sync (each rank's own mean)."""
+    return mesh if cfg.grad_sync == "implicit" else ONE_PROCESS
 
 
 def make_task(cfg: TrainConfig, mesh: Mesh = ONE_PROCESS) -> Task:

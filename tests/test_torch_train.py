@@ -291,8 +291,8 @@ def test_parse_args_spellings_and_defaults():
 
 @pytest.mark.parametrize("argv", [["--plan", "auto"],
                                   ["--moe-top-k", "1"],
-                                  ["--grad-sync", "overlap"],
-                                  ["--param-partition", "fsdp"],
+                                  ["--moe-capacity-factor", "2"],
+                                  ["--pipeline-microbatches", "8"],
                                   ["--param-sync-every", "4"],
                                   ["--mesh.pipe", "2"],
                                   ["--mesh.expert", "2"]])

@@ -13,6 +13,7 @@ import multiprocessing
 import os
 import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -152,3 +153,95 @@ def mesh_groups(rank, world, data, seq, out_dir, model=1):
                 "model_index": mesh.model_index,
                 "sums": sums, "tp_sums": tp_sums, "swapped": swapped},
                os.path.join(str(out_dir), f"rank{rank}.pt"))
+
+
+def train_runs(rank, world, runs, out_dir):
+    """``train()`` with ``--device cpu`` for each (name, fields, mesh,
+    init path or None) of ``runs`` in turn on this rank: each run's
+    losses, final eval, whole params (gathered from a partition's
+    blocks) and the bytes of the params and Adam slots this rank holds
+    (what its tensors take, blocks included)."""
+    from tensorflow_distributed_tpu_torch.config import (
+        MeshConfig, TrainConfig)
+    from tensorflow_distributed_tpu_torch.train.checkpoint import whole_state
+    from tensorflow_distributed_tpu_torch.train.loop import train
+    from tensorflow_distributed_tpu_torch.utils.logging import MetricLogger
+
+    out = {}
+    for name, fields, mesh, init_path in runs:
+        cfg = TrainConfig(**fields, device="cpu", mesh=MeshConfig(**mesh))
+        init = torch.load(init_path) if init_path else None
+        res = train(cfg, logger=MetricLogger(enabled=False),
+                    init_params=init)
+        state = res.state
+        with whole_state(state) as whole:
+            params = {k: v.detach().clone() for k, v in whole.params.items()}
+        out[name] = {
+            "losses": [r.metrics["loss"] for r in res.logger.records
+                       if "loss" in r.metrics],
+            "final": res.final_metrics, "params": params,
+            "held": {"params": sum(p.numel() * 4
+                                   for p in state.params.values()),
+                     "slots": sum(t.numel() * 4 for k in ("mu", "nu")
+                                  for t in state.opt_state[k].values())},
+            "blocked": sorted(state.partition.blocked)}
+    torch.save(out, os.path.join(str(out_dir), f"rank{rank}.pt"))
+
+
+def explicit_steps(rank, world, init_path, batches_path, runs, out_dir):
+    """The explicit-sync train step of a tiny GPT (f32, dropout 0, from
+    the init at ``init_path``) over a data mesh of ``world`` gloo ranks,
+    for each (name, config fields) of ``runs``: the global batches at
+    ``batches_path`` in turn, this rank's rows of each (a batch whose
+    index is in the fields' ``poison`` list gets a NaN mask). Saves each
+    run's metrics, whole params, Adam slots and EMA, and the shapes of
+    its slot tensors on this rank."""
+    from tensorflow_distributed_tpu_torch.config import (
+        MeshConfig, TrainConfig)
+    from tensorflow_distributed_tpu_torch.data.prefetch import to_device
+    from tensorflow_distributed_tpu_torch.parallel.mesh import bootstrap
+    from tensorflow_distributed_tpu_torch.train.checkpoint import whole_state
+    from tensorflow_distributed_tpu_torch.train.loop import (
+        _build_model_and_state)
+    from tensorflow_distributed_tpu_torch.train.step import make_train_step
+    from tensorflow_distributed_tpu_torch.train.tasks import make_mlm_loss
+
+    cpu = torch.device("cpu")
+    mesh = bootstrap(world, 1, cpu)
+    init = torch.load(init_path)
+    batches = torch.load(batches_path)
+    out = {}
+    for name, fields in runs:
+        fields = dict(fields)
+        poison = fields.pop("poison", ())
+        cfg = TrainConfig(**fields, device="cpu",
+                          mesh=MeshConfig(data=world))
+        _, state = _build_model_and_state(cfg, cpu, init, mesh, min_size=256)
+        step = make_train_step(
+            make_mlm_loss(), cpu, cfg.seed, grad_norm_metric=True,
+            mesh=mesh, ema_decay=cfg.ema_decay,
+            skip_nonfinite=bool(poison), grad_sync=cfg.grad_sync,
+            state_template=state, bucket_bytes=8192,
+            grad_clip_norm=cfg.grad_clip_norm or 0.0)
+        metrics = []
+        for i, batch in enumerate(batches):
+            n = len(batch["tokens"]) // world
+            rows = {k: v[rank * n:(rank + 1) * n] for k, v in batch.items()}
+            if i in poison:
+                rows["mask"] = rows["mask"] * np.nan
+            state, m = step(state, to_device(rows, cpu))
+            metrics.append({k: float(v) for k, v in m.items()})
+        with whole_state(state) as whole:
+            tensors = {f"params/{k}": v.detach().clone()
+                       for k, v in whole.params.items()}
+            for slot in ("mu", "nu"):
+                tensors.update((f"{slot}/{k}", v.clone())
+                               for k, v in whole.opt_state[slot].items())
+            tensors.update((f"ema/{k}", v.clone())
+                           for k, v in whole.ema.items())
+        out[name] = {"metrics": metrics, "tensors": tensors,
+                     "slot_shapes": {k: tuple(v.shape) for k, v in
+                                     state.opt_state["mu"].items()},
+                     "blocked": sorted(state.partition.blocked),
+                     "plan": step.bucket_plan.describe()}
+    torch.save(out, os.path.join(str(out_dir), f"rank{rank}.pt"))

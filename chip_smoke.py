@@ -376,7 +376,45 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
              --param-partition fsdp``: the first five losses within 1e-2
              of one card's, every rank launching B1-B3, each rank's peak
              memory, step ms and tokens/s a card; skipped, by the device
-             count alone, on one card.
+             count alone, on one card;
+46. model_moe — ``moe_lm`` at GPT-2-small widths (untied, head bias; 8
+             experts, top-2, capacity 1.25: 320 slots an expert at L
+             1024; 559,476,817 params, asserted), bf16, one batch of 8 x
+             1024: dense against scatter dispatch (the first MoE layer's
+             routing identical: masks, positions, kept slots; logits
+             within 1e-2; the share of (token, k) slots routed alike in
+             every layer printed); then on ``StackedTP(X)``, X 2 and 4
+             (TP attention, E/X experts a rank), against the whole
+             model: the loss within 1e-5, logits and the whole gradient
+             within 2e-2 with the routing pinned to the whole model's,
+             and the share of slots routed alike on their own at least
+             0.97; B1-B3 launched 12 x X times; then the share of
+             slots routed as the f32 plain model routes them on the CPU
+             (two rows) and the loss difference, printed, not gated
+             (bf16 rounding of the router's input flips near-ties);
+47. train_moe — 20 steps of that configuration (Adam) in three legs:
+             dense dispatch, scatter dispatch, dense with ``--ce-chunk
+             8192 --ce-impl kernel``; the losses fall, ``aux_loss``,
+             ``z_loss`` and ``dropped_frac`` finite in every record,
+             B1-B3 12 a step, B4-B6 once a step in the fused leg; step
+             ms, tokens/s, peak memory and the router metrics;
+48. serve_moe — that model on the dense engine, 8 requests in f32 and
+             then in bf16: every token delivered; a prompt whose length
+             equals its prefill bucket streams what ``generate()``
+             makes (f32; the top-2 gap excusal of serve_identity); the
+             agreement of the other streams printed (pad tokens take
+             capacity in the engine's prefill group, as in JAX);
+49. train_ep — ``--mesh.expert 4``, ``--mesh.model 4`` (TP attention,
+             experts on the model axis) and ``--mesh.data 2
+             --mesh.expert 2``, 10 steps of that configuration under
+             torchrun (NCCL, four cards): the first five losses and the
+             first step's gradient norm (relative) within 1e-2 of one
+             card's; for the model axis, whose TP bf16 partial sums tip
+             ~1% of the routing near-ties so that the trajectories part
+             from the third step, the first two losses and the norm,
+             with the later losses printed; each rank's peak memory,
+             step ms and tokens/s a card; skipped, by the device count
+             alone, on fewer than four cards.
 
 It then prints the nvidia-smi line, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -387,11 +425,12 @@ result.
 
 runs the device and build phases, then only the named phases, with the
 same checks, and prints the nvidia-smi line last (no kernels or ok
-line). The phases it takes: ``ce_kernels`` and phases 35-45.
+line). The phases it takes: ``ce_kernels`` and phases 35-49.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -720,7 +759,8 @@ U8_STEPS_HELD = 5
 # The phases ``--only`` runs alone: ce_kernels and phases 35-43.
 ONLY_PHASES = ("ce_kernels", "model_bert", "train_bert", "train_text",
                "train_cnn_u8", "model_resnet", "train_resnet", "tp_kernels",
-               "model_tp", "train_tp", "model_zero", "train_zero")
+               "model_tp", "train_tp", "model_zero", "train_zero",
+               "model_moe", "train_moe", "serve_moe", "train_ep")
 # ZeRO-1, FSDP and the explicit gradient sync: GPT-2-small as published
 # (tied) on the stacked transport of D data ranks, each leg's steps
 # through the port's train step; then --param-partition / --grad-sync
@@ -751,6 +791,50 @@ ZERO_CUT_BYTES = (124_439_808 - 121_344) * 4
 ZERO_WHOLE_BYTES = 121_344 * 4
 TRAIN_ZERO_ARGV = TRAIN_TP_ARGV
 TRAIN_ZERO_TIMEOUT_S = 600
+# Mixture of experts: the repository's MoE cell (MOEBENCH.json line 1's
+# configuration): moe_lm at GPT-2-small widths, 8 experts, top-2,
+# capacity 1.25, batch 8 x 1024, bf16.
+MOE_MODEL = dict(size="small", experts=8, B=8, L=1024)
+MOE_PARAMS = 559_476_817  # 163,087,441 - 12 dense MLPs + 12 MoE MLPs
+MOE_EP_SIZES = (2, 4)
+MOE_CPU_ROWS = 2        # rows of the f32 plain model's run on the CPU
+TOL_MOE_LOGITS = 1e-2   # dense vs scatter: max |diff| / max |ref|
+TOL_MOE_LOSS = 1e-5     # stacked EP vs the whole model, relative
+# The stacked legs route on their own to the whole model's experts in
+# 98.7-98.8% of (token, k) slots at the cell's size (bf16 rounding of
+# the router's input tips near-ties); a fault in the expert branch
+# moves far more of them.
+MOE_ROUTING_FLOOR = 0.97
+MOE_STEPS = 20
+TRAIN_MOE_ARGV = ["--mode", "train", "--model", "moe_lm", "--model-size",
+                  "small", "--moe-experts", "8", "--seq-len", "1024",
+                  "--batch-size", "8", "--train-steps", str(MOE_STEPS),
+                  "--eval-every", "0", "--eval-batch-size", "8",
+                  "--compute-dtype", "bfloat16", "--log-every", "1"]
+MOE_LEGS = {"dense": [], "scatter": ["--moe-dispatch", "scatter"],
+            "dense_fused": ["--ce-chunk", "8192", "--ce-impl", "kernel"]}
+MOE_METRICS = ("aux_loss", "z_loss", "dropped_frac")
+# serve_moe: 4 prompts that fill their power-of-two bucket, 4 that do
+# not (their prefill group holds pad tokens).
+MOE_SERVE_PROMPTS = (32, 64, 128, 256, 40, 100, 200, 300)
+MOE_SERVE_NEW = 24
+MOE_SERVE_SLOTS = 4
+TRAIN_EP_STEPS = 10
+TRAIN_EP_ARGV = ["--mode", "train", "--model", "moe_lm", "--model-size",
+                 "small", "--moe-experts", "8", "--seq-len", "1024",
+                 "--batch-size", "8", "--train-steps", str(TRAIN_EP_STEPS),
+                 "--eval-every", "0", "--eval-batch-size", "8",
+                 "--dropout-rate", "0", "--compute-dtype", "bfloat16",
+                 "--log-every", "1", "--log-grad-norm", "true"]
+TRAIN_EP_TIMEOUT_S = 900  # one torchrun of 4 ranks, builds included
+# A train_ep run whose attention is cut (--mesh.model M) routes on a
+# stream that TP's bf16 partial sums have rounded: ~1% of (token, k)
+# slots tip to another expert than one card's (model_moe's free-running
+# agreement), and from the third step the trajectories part (2.5e-2 by
+# the fourth loss). Such a run holds its first TRAIN_EP_MODEL_LOSSES
+# losses and its first step's gradient norm to one card's within
+# TOL_RING_LOSS; the later losses are printed.
+TRAIN_EP_MODEL_LOSSES = 2
 MODEL_RESNET_B = 4
 MODEL_RESNET_IMAGE = 224
 TOL_RESNET_F32 = 1e-3  # f32 on the card vs f32 on the CPU, train mode
@@ -1821,8 +1905,10 @@ def rank_entry(outdir: str, argv) -> int:
     finally:
         mesh.shutdown()
     with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
-        json.dump({"losses": [r.metrics["loss"] for r in result.logger.records
-                              if "loss" in r.metrics],
+        steps = [r.metrics for r in result.logger.records
+                 if "loss" in r.metrics]
+        json.dump({"losses": [m["loss"] for m in steps],
+                   "grad_norms": [m.get("grad_norm") for m in steps],
                    "steps_per_sec": result.steps_per_sec,
                    "images_per_sec": result.images_per_sec,
                    "max_memory_allocated": (torch.cuda.max_memory_allocated()
@@ -1879,16 +1965,23 @@ def run_torchrun(phase: str, nproc: int, argv, timeout: float):
     return wall, ranks, outs
 
 
-def one_card_losses(argv):
-    """The first losses and steps/s of ``argv`` trained in this process
-    on one card (no process group)."""
+def one_card_metrics(argv):
+    """The step records' metrics and steps/s of ``argv`` trained in this
+    process on one card (no process group)."""
     from tensorflow_distributed_tpu_torch.config import parse_args
     from tensorflow_distributed_tpu_torch.train.loop import train
     from tensorflow_distributed_tpu_torch.utils.logging import MetricLogger
 
     result = train(parse_args(argv), logger=MetricLogger(stream=sys.stderr))
-    return ([r.metrics["loss"] for r in result.logger.records
-             if "loss" in r.metrics], result.steps_per_sec)
+    return ([r.metrics for r in result.logger.records if "loss" in r.metrics],
+            result.steps_per_sec)
+
+
+def one_card_losses(argv):
+    """The first losses and steps/s of ``argv`` trained in this process
+    on one card (no process group)."""
+    metrics, sps = one_card_metrics(argv)
+    return [m["loss"] for m in metrics], sps
 
 
 def phase_train_ring(torch) -> None:
@@ -4681,6 +4774,388 @@ def phase_train_zero(torch) -> None:
                   f"{r['launches']}")
 
 
+def moe_model(torch, dtype, device=None, tp=None, **overrides):
+    """``moe_lm`` at MOE_MODEL's widths on ``device`` (the card), fresh
+    from seed 0, without dropout; on ``tp`` (a ``StackedTP``) its
+    attention is cut over the model ranks and its experts with it."""
+    from tensorflow_distributed_tpu_torch.models.transformer import moe_lm
+
+    device = device or DEVICE
+    with torch.device(device):
+        model = moe_lm(MOE_MODEL["size"], tp=tp,
+                       moe_experts=MOE_MODEL["experts"], compute_dtype=dtype,
+                       dropout_rate=0.0, **overrides)
+    model.init_weights(torch.Generator(device=device).manual_seed(0))
+    return model
+
+
+def record_routes(model, store: list, pin=None) -> None:
+    """Wrap each MoE layer's ``route`` so that every call appends its
+    (top-k expert ids [G, S, K], positions [G, S, K], kept flags) to
+    ``store``, on the host. With ``pin`` (another run's store, in call
+    order) each call routes to that run's expert ids (``route``'s
+    ``picks``: positions, kept slots and gates follow from them by the
+    layer's own code); what the model chose itself is what ``store``
+    gets. Pinned, two models' outputs differ only by their arithmetic,
+    not by a near-tie that bf16 rounding tipped the other way."""
+    import torch
+
+    pins = None if pin is None else iter(pin)
+    for layer in model.moe_layers():
+        def route(x, inner=layer.route):
+            out = inner(x)
+            masks, pos, _, withins, _ = out
+            store.append((torch.stack([m.argmax(-1) for m in masks], -1)
+                          .cpu(), torch.stack(pos, -1).cpu(),
+                          torch.stack(withins, -1).cpu()))
+            if pins is None:
+                return out
+            return inner(x, next(pins)[0].to(x.device))
+
+        layer.route = route
+
+
+def routing_agreement(got: list, ref: list, rows=None) -> float:
+    """The share of (token, k) slots, over every layer, routed to the
+    same expert in two runs' ``record_routes`` stores (``rows``: the
+    groups of ``got`` to hold against ``ref``'s first ones)."""
+    same = total = 0
+    for (ids, _, _), (ref_ids, _, _) in zip(got, ref):
+        if rows is not None:
+            ids = ids[rows]
+        ref_ids = ref_ids[:ids.shape[0]]
+        same += int((ids == ref_ids).sum())
+        total += ids.numel()
+    return same / max(total, 1)
+
+
+def moe_batch(torch, np, vocab: int):
+    rng = np.random.default_rng(0)
+    B, L = MOE_MODEL["B"], MOE_MODEL["L"]
+    return {k: torch.from_numpy(v).to(DEVICE) for k, v in (
+        ("tokens", rng.integers(0, vocab, (B, L))),
+        ("targets", rng.integers(0, vocab, (B, L))),
+        ("mask", (rng.random((B, L)) < 0.9).astype(np.float32)))}
+
+
+def moe_run(torch, model, batch, backward=True, rows=slice(None)):
+    """The MoE objective (CE + 0.01 x load balance) of ``model`` on
+    ``rows`` of ``batch``, with its backward: (loss, logits, grads,
+    router metrics, seconds)."""
+    from tensorflow_distributed_tpu_torch.models.moe import moe_objective
+    from tensorflow_distributed_tpu_torch.ops.losses import masked_ce_sums
+    from tensorflow_distributed_tpu_torch.parallel.tensor_parallel import (
+        VocabShards)
+
+    t0 = time.time()
+    tokens, targets, mask = (batch[k][rows].to(next(model.parameters())
+                                               .device)
+                             for k in ("tokens", "targets", "mask"))
+    auxes = []
+    with torch.set_grad_enabled(backward):
+        out = model(tokens, moe_aux=auxes)
+        ce, _, n = masked_ce_sums(out, targets, mask)
+        lb, _, metrics = moe_objective(auxes)
+        loss = ce / n + 0.01 * lb
+    if backward:
+        loss.backward()
+    if tokens.is_cuda:
+        sync(torch)
+    logits = (out.gathered() if isinstance(out, VocabShards) else out)
+    grads = ({k: p.grad for k, p in model.named_parameters()}
+             if backward else None)
+    return (float(loss.detach()), logits.detach(), grads,
+            {k: float(v) for k, v in metrics.items()}, time.time() - t0)
+
+
+def phase_model_moe(fa, torch, np) -> None:
+    """The MoE cell's model on the card (module docstring, phase 46).
+    The stacked legs route as the whole model did (``record_routes``'s
+    pin) for their gates, and print the share of slots they would have
+    routed alike on their own."""
+    from tensorflow_distributed_tpu_torch.parallel.sharding import (
+        gather_state_dict)
+    from tensorflow_distributed_tpu_torch.parallel.tensor_parallel import (
+        StackedTP)
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max().clamp(min=1e-30))
+
+    whole = moe_model(torch, torch.bfloat16)
+    params = sum(p.numel() for p in whole.parameters())
+    check(params == MOE_PARAMS or MOE_MODEL["size"] != "small",
+          f"model_moe: {params} params, want {MOE_PARAMS}")
+    batch = moe_batch(torch, np, whole.cfg.vocab_size)
+    layers = len(whole.moe_layers())
+    capacity = whole.layer_0.moe_mlp.capacity(MOE_MODEL["L"])
+    # dense against scatter dispatch, forward only
+    store = []
+    record_routes(whole, store)
+    _, dense_logits, _, dense_aux, dense_s = moe_run(torch, whole, batch,
+                                                     backward=False)
+    dense_routes = store[:]
+    store.clear()
+    for layer in whole.moe_layers():
+        layer.dispatch = "scatter"
+    _, scatter_logits, _, scatter_aux, scatter_s = moe_run(
+        torch, whole, batch, backward=False)
+    scatter_routes = store[:]
+    store.clear()
+    for layer in whole.moe_layers():
+        layer.dispatch = "dense"
+    first = all(torch.equal(a, b) for a, b in zip(dense_routes[0],
+                                                   scatter_routes[0]))
+    row = {"phase": "model_moe", "leg": "dispatch", "params": params,
+           "layers": layers, "capacity": capacity,
+           "first_layer_routing_identical": first,
+           "routing_agreement": routing_agreement(scatter_routes,
+                                                  dense_routes),
+           "logits_rel_err": rel(scatter_logits, dense_logits),
+           "dense_router": dense_aux, "scatter_router": scatter_aux,
+           "dense_fwd_s": round(dense_s, 4),
+           "scatter_fwd_s": round(scatter_s, 4),
+           "tolerance": TOL_MOE_LOGITS}
+    emit(row)
+    check(first and row["logits_rel_err"] <= TOL_MOE_LOGITS,
+          f"model_moe: scatter dispatch disagrees with dense: {row}")
+    del scatter_logits, dense_logits
+    # the whole model's objective, forward and backward (the reference)
+    ref_loss, ref_logits, ref_grads, ref_aux, ref_s = moe_run(torch, whole,
+                                                              batch)
+    routes = store[:]
+    store.clear()
+    for X in MOE_EP_SIZES:
+        model = moe_model(torch, torch.bfloat16, tp=StackedTP(X))
+        state = gather_state_dict(model.state_dict(), model)
+        check(all(torch.equal(state[k], v)
+                  for k, v in whole.state_dict().items()),
+              f"model_moe: the X {X} model's init is not the whole one's")
+        ep_routes = []
+        record_routes(model, ep_routes, pin=routes)
+        for kern in fa.KERNELS:
+            kern.launches = 0
+        loss, logits, grads, aux, ep_s = moe_run(torch, model, batch)
+        launches = {kern.name: kern.launches for kern in fa.KERNELS}
+        grads = gather_state_dict(grads, model)
+        diff = sum(float((grads[k].float() - g.float()).pow(2).sum())
+                   for k, g in ref_grads.items())
+        norm = sum(float(g.float().pow(2).sum()) for g in ref_grads.values())
+        row = {"phase": "model_moe", "leg": "stacked_ep", "X": X,
+               "experts_a_rank": MOE_MODEL["experts"] // X,
+               "heads_a_rank": model.cfg.n_heads // X, "loss": loss,
+               "ref_loss": ref_loss,
+               "loss_rel_err": abs(loss - ref_loss) / abs(ref_loss),
+               "logits_rel_err": rel(logits, ref_logits),
+               "grads_rel_err": math.sqrt(diff / norm),
+               "routing_pinned_to_whole": True,
+               "routing_agreement": routing_agreement(ep_routes, routes),
+               "router": aux, "ref_router": ref_aux, "launches": launches,
+               "ep_fwd_bwd_s": round(ep_s, 4),
+               "whole_fwd_bwd_s": round(ref_s, 4),
+               "tolerance": {"loss": TOL_MOE_LOSS, "logits_grads": TOL_TP,
+                             "routing_floor": MOE_ROUTING_FLOOR}}
+        emit(row)
+        check(row["loss_rel_err"] <= TOL_MOE_LOSS
+              and row["logits_rel_err"] <= TOL_TP
+              and row["grads_rel_err"] <= TOL_TP
+              and row["routing_agreement"] >= MOE_ROUTING_FLOOR,
+              f"model_moe: the stacked EP model disagrees with the whole "
+              f"one: {row}")
+        check(all(n == layers * X for n in launches.values()),
+              f"model_moe: B1-B3 not launched {layers} x {X} times: "
+              f"{launches}")
+        del model, grads, logits, state
+        if DEVICE != "cpu":
+            torch.cuda.empty_cache()
+    del ref_grads, ref_logits
+    whole.zero_grad(set_to_none=True)
+    # the f32 plain model on the CPU, on the first rows (not gated)
+    rows = slice(0, MOE_CPU_ROWS)
+    card_loss = moe_run(torch, whole, batch, backward=False, rows=rows)[0]
+    t0 = time.time()
+    with torch.device("cpu"):
+        plain = type(whole)(dataclasses.replace(
+            whole.cfg, compute_dtype=torch.float32, moe_dispatch="scatter"))
+    plain.load_state_dict({k: v.cpu() for k, v in whole.state_dict().items()})
+    cpu_routes = []
+    record_routes(plain, cpu_routes)
+    cpu_loss = moe_run(torch, plain, batch, backward=False, rows=rows)[0]
+    emit({"phase": "model_moe", "leg": "f32_plain_cpu", "rows": MOE_CPU_ROWS,
+          "routing_agreement": routing_agreement(
+              [tuple(t[rows] for t in r) for r in routes], cpu_routes),
+          "card_loss": card_loss, "cpu_f32_loss": cpu_loss,
+          "loss_diff": card_loss - cpu_loss,
+          "cpu_s": round(time.time() - t0, 3)})
+    del whole, plain
+    if DEVICE != "cpu":
+        torch.cuda.empty_cache()
+
+
+def moe_record_check(records, what: str) -> dict:
+    """The router metrics of every step record, checked finite; returns
+    the last record's."""
+    for r in records:
+        check(all(math.isfinite(r.metrics.get(k, math.nan))
+                  for k in MOE_METRICS),
+              f"{what}: a router metric is missing or not finite: "
+              f"{r.metrics}")
+    return {k: records[-1].metrics[k] for k in MOE_METRICS}
+
+
+def phase_train_moe(kernels, torch) -> None:
+    """The MoE cell trained 20 steps in each of MOE_LEGS (phase 47)."""
+    for leg, extra in MOE_LEGS.items():
+        got = {}
+
+        def keep(result, got=got):
+            got["records"] = [r for r in result.logger.records
+                              if "loss" in r.metrics]
+
+        rec = run_train(kernels, torch, "train_moe", TRAIN_MOE_ARGV + extra,
+                        on_result=keep)
+        router = moe_record_check(got["records"], f"train_moe {leg}")
+        t = rec["train_launches"]
+        n = 12 * rec["steps"]
+        fused = "--ce-chunk" in extra
+        emit({"phase": "train_moe", "leg": leg,
+              "step_ms_median": rec["step_ms_median"],
+              "tokens_per_s": rec["tokens_per_s"],
+              "train_peak_mem_bytes": rec["train_peak_mem_bytes"],
+              "first_loss": rec["first_loss"],
+              "last5_mean_loss": rec["last5_mean_loss"],
+              "router_last_step": router, "train_launches": t})
+        check(t["flash_dq"] == n and t["flash_dkv"] == n
+              and t["flash_fwd"] == n,
+              f"train_moe {leg}: B1-B3 not launched 12 times a step: {t}")
+        check(all(t[k] == (rec["steps"] if fused else 0)
+                  for k in CE_KERNELS),
+              f"train_moe {leg}: the CE kernels' launches: {t}")
+
+
+def phase_serve_moe(torch, np) -> None:
+    """The MoE cell's model on the dense engine (phase 48)."""
+    from tensorflow_distributed_tpu_torch.models.generate import generate
+    from tensorflow_distributed_tpu_torch.models.transformer import (
+        cast_dense_weights_)
+    from tensorflow_distributed_tpu_torch.serve.buckets import (
+        default_buckets, pick_bucket)
+    from tensorflow_distributed_tpu_torch.serve.engine import (
+        SlotDecodeEngine)
+    from tensorflow_distributed_tpu_torch.serve.scheduler import (
+        Request, Scheduler)
+
+    rng = np.random.default_rng(2)
+    for dtype in (torch.float32, torch.bfloat16):
+        model = moe_model(torch, dtype)
+        if dtype != torch.float32:
+            cast_dense_weights_(model)
+        prompts = [rng.integers(0, model.cfg.vocab_size, n)
+                   for n in MOE_SERVE_PROMPTS]
+        ladder = default_buckets(max(MOE_SERVE_PROMPTS), cap=model.cfg.max_len)
+        engine = SlotDecodeEngine(model, MOE_SERVE_SLOTS, buckets=ladder)
+        engine.warmup()
+        t0 = time.time()
+        done = {c.rid: c for c in Scheduler(engine, decode_priority=4).run(
+            [Request(rid=i, prompt=p, max_new_tokens=MOE_SERVE_NEW)
+             for i, p in enumerate(prompts)])}
+        wall = time.time() - t0
+        delivered = sum(len(c.tokens) for c in done.values())
+        row = {"phase": "serve_moe", "dtype": str(dtype).split(".")[-1],
+               "requests": len(prompts), "tokens": delivered,
+               "tokens_per_s": delivered / wall, "wall_s": round(wall, 3),
+               "decode_steps": engine.decode_steps,
+               "prefills": engine.prefills, "ladder": list(engine.buckets)}
+        check(delivered == len(prompts) * MOE_SERVE_NEW
+              and all(len(c.tokens) == MOE_SERVE_NEW for c in done.values()),
+              f"serve_moe: not every token was delivered: {row}")
+        if dtype == torch.float32:
+            aligned, others, excused = [], [], []
+            for i, p in enumerate(prompts):
+                ref = generate(model, torch.from_numpy(p).to(DEVICE)[None],
+                               MOE_SERVE_NEW)[0].tolist()
+                j = first_mismatch(done[i].tokens, ref)
+                fills = pick_bucket(len(p), engine.buckets) == len(p)
+                (aligned if fills else others).append(j is None)
+                if fills and j is not None:
+                    gap = top2_gap(torch, model, p, ref, j)
+                    excused.append({"rid": i, "prompt_len": len(p),
+                                    "step": j, "top2_gap": gap})
+                    check(gap < IDENTITY_GAP,
+                          f"serve_moe: request {i} (prompt {len(p)}, its "
+                          f"bucket's length) differs from generate() at "
+                          f"step {j}, where the top-2 gap is {gap}")
+            row.update(bucket_filled=len(aligned),
+                       bucket_filled_identical=sum(aligned),
+                       excused=excused, padded=len(others),
+                       padded_identical=sum(others))
+        emit(row)
+        del model, engine
+        if DEVICE != "cpu":
+            torch.cuda.empty_cache()
+
+
+def train_ep_runs():
+    """train_ep's legs: (name, processes, argv), each on four cards."""
+    return [("expert4", 4, TRAIN_EP_ARGV + ["--mesh.expert", "4"]),
+            ("model4", 4, TRAIN_EP_ARGV + ["--mesh.model", "4"]),
+            ("data2_expert2", 4, TRAIN_EP_ARGV + ["--mesh.data", "2",
+                                                  "--mesh.expert", "2"])]
+
+
+def phase_train_ep(torch) -> None:
+    """Expert parallelism under torchrun (NCCL, four cards; phase 49);
+    skipped, by the device count alone, on fewer. Every run is emitted
+    before any is checked."""
+    count = torch.cuda.device_count()
+    if count < 4:
+        emit({"phase": "train_ep",
+              "skipped": f"needs >= 4 CUDA devices, have {count}"})
+        return
+    whole, one_sps = one_card_metrics(TRAIN_EP_ARGV)
+    one = [m["loss"] for m in whole]
+    one_norm = whole[0]["grad_norm"]
+    tokens = MOE_MODEL["B"] * MOE_MODEL["L"]
+    flash = ("flash_fwd", "flash_dq", "flash_dkv")
+    results = []
+    for name, nproc, argv in train_ep_runs():
+        wall, ranks, _ = run_torchrun(f"train_ep {name}", nproc, argv,
+                                      TRAIN_EP_TIMEOUT_S)
+        held = TRAIN_EP_MODEL_LOSSES if "--mesh.model" in argv else 5
+        sps = ranks[0]["steps_per_sec"]
+        emit({"phase": "train_ep", "run": name, "processes": nproc,
+              "argv": argv, "wall_s": round(wall, 3),
+              "losses": ranks[0]["losses"][:5], "one_card_losses": one[:5],
+              "loss_diffs": [max(abs(r["losses"][i] - one[i]) for r in ranks)
+                             for i in range(5)],
+              "losses_held": held, "tolerance": TOL_RING_LOSS,
+              "first_grad_norm": ranks[0]["grad_norms"][0],
+              "one_card_first_grad_norm": one_norm,
+              "step_ms": 1e3 / sps if sps else None,
+              "tokens_per_s_per_card": sps * tokens / nproc,
+              "one_card_step_ms": 1e3 / one_sps if one_sps else None,
+              "one_card_tokens_per_s": one_sps * tokens,
+              "peak_mem_bytes_per_rank": [r["max_memory_allocated"]
+                                          for r in ranks],
+              "launches_per_rank": [{k: r["launches"][k] for k in flash}
+                                    for r in ranks]})
+        results.append((name, ranks, held))
+    for name, ranks, held in results:
+        for r in ranks:
+            check(len(r["losses"]) == TRAIN_EP_STEPS and all(
+                abs(a - b) <= TOL_RING_LOSS
+                for a, b in zip(r["losses"][:held], one)),
+                f"train_ep {name}: the first {held} losses {r['losses']} "
+                f"vs one card {one}")
+            check(abs(r["grad_norms"][0] - one_norm)
+                  <= TOL_RING_LOSS * one_norm,
+                  f"train_ep {name}: first grad norm {r['grad_norms'][0]} "
+                  f"vs one card {one_norm}")
+            check(all(r["launches"][k] > 0 for k in flash),
+                  f"train_ep {name}: a rank did not launch B1-B3: "
+                  f"{r['launches']}")
+
+
 def run_alone(names, fa, fce, kernels, torch, np, F) -> None:
     """``--only``: the named phases of ONLY_PHASES, in the order given."""
     alone = {"ce_kernels": lambda: phase_ce_kernels(fce, torch, F),
@@ -4694,7 +5169,11 @@ def run_alone(names, fa, fce, kernels, torch, np, F) -> None:
              "model_tp": lambda: phase_model_tp(fa, torch, np),
              "train_tp": lambda: phase_train_tp(torch),
              "model_zero": lambda: phase_model_zero(kernels, torch),
-             "train_zero": lambda: phase_train_zero(torch)}
+             "train_zero": lambda: phase_train_zero(torch),
+             "model_moe": lambda: phase_model_moe(fa, torch, np),
+             "train_moe": lambda: phase_train_moe(kernels, torch),
+             "serve_moe": lambda: phase_serve_moe(torch, np),
+             "train_ep": lambda: phase_train_ep(torch)}
     for name in names:
         alone[name]()
 
@@ -4781,6 +5260,10 @@ def main(argv=None) -> int:
     phase_train_tp(torch)
     phase_model_zero(kernels, torch)
     phase_train_zero(torch)
+    phase_model_moe(fa, torch, np)
+    phase_train_moe(kernels, torch)
+    phase_serve_moe(torch, np)
+    phase_train_ep(torch)
 
     err = {"flash_fwd": flash["errors"]["o_abs_err"],
            "flash_dq": flash["errors"]["dq_abs_err"],

@@ -50,6 +50,14 @@ Examples:
         --model gpt_lm --model-size small --seq-len 1024 --batch-size 8 \
         --ce-chunk 8192 --shard-vocab true
 
+    # mixture of experts: moe_lm (or --moe-experts E on gpt_lm/bert_mlm),
+    # top-2 routing at capacity 1.25; --mesh.expert 4 cuts the 8 experts
+    # over 4 processes (without it, --mesh.model M cuts them beside TP):
+    torchrun --standalone --nproc-per-node 4 \
+        -m tensorflow_distributed_tpu_torch.cli --mesh.expert 4 \
+        --model moe_lm --model-size small --moe-experts 8 --seq-len 1024 \
+        --batch-size 8 --moe-dispatch scatter
+
     # ZeRO-1 and FSDP over the data axis (each rank holds 1/D of the
     # Adam slots, or with fsdp of the params and slots too), and the
     # bucketed reduce-scatter / all-gather sync (--grad-sync overlap,

@@ -16,10 +16,11 @@ they keep their default (``--resilience.fault-plan`` and
 ``--param-partition``, ``--grad-sync`` and ``--grad-sync-bucket-mb``
 take the JAX values, checks and messages; the port also refuses a
 partition under ``--mode serve`` and with ``--optimizer adafactor``.
-The model option of a layer not ported yet (``--moe-experts``) parses
-and is refused the same way,
-as is ``--compute-dtype float32`` for training or evaluating the LM on a
-GPU (the kernels take bf16).
+The mixture-of-experts knobs (``--moe-*``, ``--model moe_lm``,
+``--mesh.expert``) take the JAX defaults, checks and messages; MoE under
+``--mesh.seq``, a partition or an explicit gradient sync is refused
+naming ROADMAP.md, as is ``--compute-dtype float32`` for training or
+evaluating the LM on a GPU (the kernels take bf16).
 """
 
 from __future__ import annotations
@@ -39,9 +40,9 @@ OPTIMIZERS = ("adam", "sgd", "adafactor")
 COMPUTE_DTYPES = ("bfloat16", "float32")
 CE_IMPLS = ("scan", "kernel")
 MODEL_SIZES = ("", "small", "medium", "large", "xl", "tiny", "base")
-LM_MODELS = ("gpt_lm", "bert_mlm")
+LM_MODELS = ("gpt_lm", "bert_mlm", "moe_lm")
 # The LM families with the decode cache (generate, serve, windows).
-CAUSAL_LM_MODELS = ("gpt_lm",)
+CAUSAL_LM_MODELS = ("gpt_lm", "moe_lm")
 VISION_MODELS = ("mnist_cnn", "resnet20", "resnet50")
 DATASETS = ("mnist", "synthetic", "cifar10", "cifar10_synthetic",
             "imagenet_synthetic", "text")
@@ -56,18 +57,21 @@ SERVE_TRACES = ("poisson", "bursty", "diurnal")
 class MeshConfig:
     """Logical device-mesh shape, one process (one GPU) per position:
     the JAX ``MeshConfig``'s ``data`` axis (data parallelism, the
-    reference's worker replicas; -1 = every process that ``seq`` and
-    ``model`` leave over), ``model`` axis (Megatron tensor parallelism of
-    the transformer families) and ``seq`` axis (sequence parallelism,
-    ring attention over ``seq`` processes). The pipe and expert axes are
-    not ported yet (their flags are refused; see ROADMAP.md queue A)."""
+    reference's worker replicas; -1 = every process the other axes leave
+    over), ``model`` axis (Megatron tensor parallelism of the transformer
+    families), ``seq`` axis (sequence parallelism, ring attention over
+    ``seq`` processes) and ``expert`` axis (a MoE model's experts cut
+    over ``expert`` processes; without one they take the model axis, as
+    in JAX). The pipe axis is not ported yet (its flag is refused; see
+    ROADMAP.md queue A)."""
 
     data: int = -1
     model: int = 1
     seq: int = 1
+    expert: int = 1
 
     def validate(self) -> None:
-        for name in ("model", "seq"):
+        for name in ("model", "seq", "expert"):
             v = getattr(self, name)
             if v < 1:
                 raise ValueError(f"mesh.{name} must be >= 1, got {v}")
@@ -400,10 +404,11 @@ class ResilienceConfig:
 @dataclasses.dataclass
 class TrainConfig:
     """One job of the port: training (mnist_cnn, resnet20, resnet50,
-    bert_mlm or gpt_lm on one device, or on ``mesh.data`` x ``mesh.seq``
-    x ``mesh.model`` devices), evaluating or continuing a prompt from a
-    checkpoint (``mode="eval"``, ``"generate"``), or serving gpt_lm on
-    one device (``mode="serve"``)."""
+    bert_mlm, gpt_lm or moe_lm on one device, or on ``mesh.data`` x
+    ``mesh.seq`` x ``mesh.model`` x ``mesh.expert`` devices), evaluating
+    or continuing a prompt from a checkpoint (``mode="eval"``,
+    ``"generate"``), or serving gpt_lm or moe_lm on one device
+    (``mode="serve"``)."""
 
     # --- model -----------------------------------------------------------
     # mnist_cnn (the reference's CNN, the JAX default) | resnet20 |
@@ -459,8 +464,27 @@ class TrainConfig:
     # Megatron vocab-parallel input embedding over mesh.model (its rows
     # padded to a multiple of it), with vocab-sharded tied logits.
     shard_vocab: bool = False
-    # --- model options of layers not ported yet (ROADMAP.md queue A) ---
+    # --- MoE (transformer families only) ---------------------------------
+    # > 0 overrides the family's expert count (moe_lm defaults to 4;
+    # gpt_lm/bert_mlm default dense). Any transformer family with experts
+    # trains with the MoE objective.
     moe_experts: int = 0
+    # Switch-Transformer-style load-balancing coefficient.
+    moe_aux_weight: float = 0.01
+    # ST-MoE router z-loss coefficient (0 = off).
+    moe_zloss_weight: float = 0.0
+    # Experts each token routes to (1 = Switch-style, 2 = GShard-style).
+    moe_top_k: int = 2
+    # Per-expert buffer slack over the balanced load: each expert holds
+    # ceil(capacity_factor * top_k * tokens / experts) slots of a routing
+    # group, and assignments past that are dropped (a train metric).
+    moe_capacity_factor: float = 1.25
+    # Routing-group length: 0 routes the whole sequence as one group;
+    # S' > 0 routes independent chunks of S' tokens.
+    moe_group_len: int = 0
+    # Token movement: "dense" (one-hot dispatch/combine einsums) or
+    # "scatter" (slot index-add and gather; no one-hot tensors).
+    moe_dispatch: str = "dense"
 
     # --- data ------------------------------------------------------------
     # The vision families: "mnist" (the idx files under data_dir, or the
@@ -644,7 +668,7 @@ class TrainConfig:
                     f"grad_sync={self.grad_sync!r} shapes the TRAIN "
                     f"step's gradient sync; it has no effect under "
                     f"mode={self.mode!r} — drop the flag")
-            bad = [a for a in ("model", "seq")
+            bad = [a for a in ("model", "seq", "expert")
                    if getattr(self.mesh, a) > 1]
             if bad:
                 raise ValueError(
@@ -700,7 +724,7 @@ class TrainConfig:
             raise ValueError(
                 f"mode=serve needs a causal LM with the decode cache "
                 f"({', '.join(CAUSAL_LM_MODELS)}), got {self.model!r}")
-        if serving and self.mesh.model > 1:
+        if serving and (self.mesh.model > 1 or self.mesh.expert > 1):
             raise ValueError(
                 "mode=serve requires a pure data --mesh.* (model/"
                 "seq/pipe/expert == 1): the serve engine builds "
@@ -741,9 +765,10 @@ class TrainConfig:
                 raise ValueError(
                     "mode=generate requires mesh.seq == 1 (single-"
                     "token decode steps can't be seq-sharded)")
-            if self.mesh.model != 1:
-                raise todo("--mode generate over --mesh.model > 1 (the "
-                           "decode branch runs on one process; A6)")
+            if self.mesh.model != 1 or self.mesh.expert != 1:
+                raise todo("--mode generate over --mesh.model or "
+                           "--mesh.expert > 1 (the decode branch runs on "
+                           "one process; A6)")
             if self.num_beams > 1 and (
                     self.gen_temperature > 0 or self.gen_top_k
                     or self.gen_top_p != 1.0):
@@ -856,14 +881,16 @@ class TrainConfig:
                 "Mosaic kernel wants the whole head per device); the "
                 "default ce_impl='scan' runs the Megatron vocab-"
                 "parallel form over the model axis instead")
-        if self.mesh.model > 1 and not lm:
-            raise todo(f"--mesh.model {self.mesh.model} for model="
-                       f"{self.model!r} (tensor parallelism shards the "
-                       f"transformer families, {', '.join(LM_MODELS)})")
-        if self.mesh.model > 1 and self.optimizer == "adafactor":
-            raise todo("--optimizer adafactor with --mesh.model > 1 (its "
-                       "factored statistics over a sharded dim need a sum "
-                       "over the model group; A5)")
+        for axis in ("model", "expert"):
+            size = getattr(self.mesh, axis)
+            if size > 1 and not lm:
+                raise todo(f"--mesh.{axis} {size} for model={self.model!r} "
+                           f"(tensor and expert parallelism shard the "
+                           f"transformer families, {', '.join(LM_MODELS)})")
+            if size > 1 and self.optimizer == "adafactor":
+                raise todo(f"--optimizer adafactor with --mesh.{axis} > 1 "
+                           f"(its block RMS over a sharded leaf needs a sum "
+                           f"over the group; A5)")
         if self.remat not in ("none", "full", "dots"):
             raise ValueError(f"unknown remat {self.remat!r}")
         if self.attn_window < 0:
@@ -909,11 +936,68 @@ class TrainConfig:
                 "two handlers for the same event — drop "
                 "halt_on_nonfinite (resilience.nonfinite=halt is its "
                 "per-step superset)")
-        if self.moe_experts:
-            raise todo(f"--moe-experts={self.moe_experts!r}")
+        self._validate_moe()
         self.mesh.validate()
         self.resilience.validate()
         self.serve.validate()
+
+    def _validate_moe(self) -> None:
+        """The JAX TrainConfig's MoE checks, with its messages; then the
+        port's refusals of what this slice leaves out (ROADMAP.md A5)."""
+        if self.moe_experts < 0:
+            raise ValueError(
+                f"moe_experts must be >= 0, got {self.moe_experts}")
+        if self.moe_experts > 0 and self.model not in LM_MODELS:
+            raise ValueError(
+                f"moe_experts > 0 needs a transformer family, "
+                f"got model={self.model!r}")
+        if self.moe_aux_weight < 0 or self.moe_zloss_weight < 0:
+            raise ValueError("moe_aux_weight/moe_zloss_weight must be >= 0")
+        if self.moe_top_k < 1:
+            raise ValueError(f"moe_top_k must be >= 1, got {self.moe_top_k}")
+        if 0 < self.moe_experts < self.moe_top_k:
+            raise ValueError(
+                f"moe_top_k {self.moe_top_k} > moe_experts "
+                f"{self.moe_experts}")
+        if self.moe_capacity_factor <= 0:
+            raise ValueError(
+                f"moe_capacity_factor must be > 0, "
+                f"got {self.moe_capacity_factor}")
+        if self.moe_dispatch not in ("dense", "scatter"):
+            raise ValueError(
+                f"unknown moe_dispatch {self.moe_dispatch!r}")
+        if self.moe_group_len < 0:
+            raise ValueError(
+                f"moe_group_len must be >= 0, got {self.moe_group_len}")
+        if (self.moe_group_len and self.seq_len > self.moe_group_len
+                and self.seq_len % self.moe_group_len):
+            raise ValueError(
+                f"seq_len {self.seq_len} not divisible by "
+                f"moe_group_len {self.moe_group_len}")
+        moe = self.moe_experts > 0 or self.model == "moe_lm"
+        if self.mlp_variant != "gelu" and moe:
+            raise ValueError(
+                "mlp_variant has no effect with MoE (the block's MLP is "
+                "replaced by MoeMlp, whose experts are gelu); drop the "
+                "flag or use a dense family")
+        if not moe:
+            return
+        if self.mesh.seq > 1:
+            raise NotImplementedError(
+                "MoE with --mesh.seq > 1 (the expert positions' cumsum "
+                "runs over the whole sequence in order, across the ring's "
+                "zigzag blocks) is not ported to PyTorch yet (see "
+                "ROADMAP.md A5)")
+        if self.param_partition != "replicated":
+            raise NotImplementedError(
+                f"MoE with --param-partition {self.param_partition} is "
+                f"not ported to PyTorch yet (see ROADMAP.md A5)")
+        if self.grad_sync != "implicit":
+            raise NotImplementedError(
+                f"MoE with --grad-sync {self.grad_sync} (the router's "
+                f"load balance is over the global batch, the explicit "
+                f"step's loss is each rank's own) is not ported to "
+                f"PyTorch yet (see ROADMAP.md A5)")
 
     def _validate_fire(self) -> None:
         """The JAX TrainConfig's phase checks of the fault plan and the
@@ -996,8 +1080,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> TrainConfig:
         prog="tensorflow_distributed_tpu_torch",
         description="PyTorch/CUDA port of tensorflow_distributed_tpu "
         "(the reference's MNIST CNN, ResNet-20/50, BERT masked LM or a GPT "
-        "causal LM, on one GPU or on --mesh.data x --mesh.seq x "
-        "--mesh.model GPUs under torchrun; --mode serve runs a GPT's continuous-batching "
+        "causal LM, dense or mixture-of-experts, on one GPU or on "
+        "--mesh.data x --mesh.seq x --mesh.model x --mesh.expert GPUs "
+        "under torchrun; --mode serve runs a GPT's continuous-batching "
         "inference on one GPU)",
         allow_abbrev=False)
     _add_dataclass_args(parser, TrainConfig)

@@ -15,15 +15,17 @@ kernels change layout:
   ``[D, 2, nk, dh]``, flatten their output axes, and ``out``
   ``[H, dh, D]`` flattens its two contracted input axes;
 - the SwiGLU ``mlp/gate`` is a Dense like ``up``; an RMSNorm has only a
-  ``scale`` (the port's ``weight``); a RoPE model has no ``pos_emb``.
+  ``scale`` (the port's ``weight``); a RoPE model has no ``pos_emb``;
+- a MoE block's ``moe_mlp/{gate,wi,wo}`` (``[D, E]``, ``[E, D, F]``,
+  ``[E, F, D]``) are parameters of the same names and layouts.
 
 ``params_to_flax`` is its exact inverse (the same names, the layouts
 transposed back, the keys sorted as a JAX host tree has them). Both take
 the ``--shard-vocab`` tables as JAX pads them (rows to a multiple of the
 model axis), shapes being carried over as they are; ``shards_from_flax``
-gives a tensor-parallel model's part of a flax tree
+gives a tensor- or expert-parallel model's part of a flax tree
 (``parallel/sharding.py``), and ``state_from_flax`` keeps only that part
-of each array when it loads into a TP model's state.
+of each array when it loads into such a model's state.
 ``flax_layout`` gives each parameter's flax path and its maps to and
 from the flax leaf's layout (Adafactor keeps its statistics there).
 
@@ -62,11 +64,12 @@ import numpy as np
 import torch
 from torch import nn
 
+from tensorflow_distributed_tpu_torch.models.moe import MoeMlp
 from tensorflow_distributed_tpu_torch.models.resnet import BatchNorm
 from tensorflow_distributed_tpu_torch.models.transformer import (
     KVCache, RMSNorm, SelfAttention, kv_heads)
 from tensorflow_distributed_tpu_torch.parallel.sharding import (
-    shard_state_dict)
+    is_split, shard_state_dict)
 from tensorflow_distributed_tpu_torch.train.state import (
     TrainState, ema_init, model_extra)
 
@@ -93,6 +96,10 @@ def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     out = {}
     for path, leaf in _walk(tree):
         *module, name = path
+        if module and module[-1] == "moe_mlp":
+            out[".".join(path)] = torch.tensor(np.asarray(leaf,
+                                                          dtype=np.float32))
+            continue
         if name == "kernel" and _is_conv(module[-1], leaf):
             value = leaf.transpose(3, 2, 0, 1)
         elif name == "kernel":
@@ -115,10 +122,10 @@ def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 def shards_from_flax(tree: Mapping[str, Any], model: nn.Module
                      ) -> Dict[str, torch.Tensor]:
     """A flax param tree (or a moment or EMA of one) -> the state dict of
-    the tensor-parallel ``model``'s ranks in this process (the whole
-    tensors where the model has no ``tp``)."""
+    the tensor- or expert-parallel ``model``'s ranks in this process
+    (the whole tensors where the model has no ``tp`` or ``ep``)."""
     full = params_from_flax(tree)
-    if getattr(model, "tp", None) is None:
+    if not is_split(model):
         return full
     return shard_state_dict(full, model)
 
@@ -151,6 +158,8 @@ def flax_layout(model: nn.Module, name: str
 
     if isinstance(module, nn.Embedding):
         return path + ["embedding"], same, same
+    if isinstance(module, MoeMlp):
+        return path + [kind], same, same
     if isinstance(module, RMSNorm):
         return path + ["scale"], same, same
     if isinstance(module, BatchNorm):

@@ -5,7 +5,9 @@ from typing import Optional
 
 import torch
 
-MODEL_NAMES = ("mnist_cnn", "resnet20", "resnet50", "bert_mlm", "gpt_lm")
+MODEL_NAMES = ("mnist_cnn", "resnet20", "resnet50", "bert_mlm", "gpt_lm",
+               "moe_lm")
+TRANSFORMER_MODELS = ("bert_mlm", "gpt_lm", "moe_lm")
 
 # Families whose train state carries running statistics beside the params
 # (BatchNorm's batch_stats), as the JAX registry lists them.
@@ -16,11 +18,12 @@ def build_model(name: str, dropout_rate: Optional[float] = None,
                 compute_dtype: torch.dtype = torch.bfloat16,
                 init_scheme: str = "improved", **overrides):
     """Explicit per-family dispatch. ``overrides`` are TransformerConfig
-    fields (plus ``size``, and ``ring`` for sequence parallelism) for the
-    transformer families; ``num_classes``, ``in_channels`` and
-    ``bn_group`` (the process group of sync BN) for the ResNets;
-    ``init_scheme`` selects mnist_cnn's init."""
-    if name not in ("bert_mlm", "gpt_lm"):
+    fields (plus ``size``, ``ring`` for sequence parallelism, ``tp`` and
+    ``ep`` for the model and expert groups) for the transformer
+    families; ``num_classes``, ``in_channels`` and ``bn_group`` (the
+    process group of sync BN) for the ResNets; ``init_scheme`` selects
+    mnist_cnn's init."""
+    if name not in TRANSFORMER_MODELS:
         overrides.pop("size", None)  # presets are transformer-only
     if name == "mnist_cnn":
         from tensorflow_distributed_tpu_torch.models.cnn import MnistCNN
@@ -32,14 +35,15 @@ def build_model(name: str, dropout_rate: Optional[float] = None,
         from tensorflow_distributed_tpu_torch.models import resnet
 
         return getattr(resnet, name)(compute_dtype=compute_dtype, **overrides)
-    if name in ("bert_mlm", "gpt_lm"):
+    if name in TRANSFORMER_MODELS:
         from tensorflow_distributed_tpu_torch.models import transformer
 
         if dropout_rate is not None:
             overrides.setdefault("dropout_rate", dropout_rate)
         overrides.setdefault("compute_dtype", compute_dtype)
-        factory = (transformer.bert_base_mlm if name == "bert_mlm"
-                   else transformer.gpt_lm)
+        factory = {"bert_mlm": transformer.bert_base_mlm,
+                   "gpt_lm": transformer.gpt_lm,
+                   "moe_lm": transformer.moe_lm}[name]
         return factory(**overrides)
     raise NotImplementedError(
         f"model {name!r} is not ported to PyTorch yet (have "

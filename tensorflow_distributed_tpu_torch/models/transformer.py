@@ -75,11 +75,17 @@ logits (and, with ``features_only``, a sharded head) come out as a
 ``VocabShards`` for the vocab-parallel losses; the full [B, L, V] is
 never gathered. The decode branch runs on one process.
 
+With ``moe_experts`` E > 0 every block's MLP is a top-k mixture of
+experts (``models/moe.py``: ``layer_i.moe_mlp`` with ``gate``, ``wi``
+and ``wo`` in the flax layout), in training and in the decode branch
+alike (a decode step's token is a routing group of one). With an expert
+transport ``ep`` (``--mesh.expert X``, or by JAX's default the model
+axis's ``tp``) each rank holds E/X experts. The forward appends each
+layer's router sums (``MoeAux``) to the list passed as ``moe_aux``.
+
 Parameter names mirror the flax tree (``layer_0.attn.qkv`` for
 ``layer_0/attn/qkv``), so ``interop.params_from_flax`` is a fixed
-renaming plus the kernel reshapes. An option of the JAX config that the
-port does not run yet (``moe_experts``) raises ``NotImplementedError``
-instead of being ignored.
+renaming plus the kernel reshapes.
 """
 
 from __future__ import annotations
@@ -96,6 +102,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts,
                                     noop_context_fn)
 
+from tensorflow_distributed_tpu_torch.models.moe import (
+    DISPATCHES, MoeMlp, init_moe_)
 from tensorflow_distributed_tpu_torch.ops.flash_attention import (
     NEG_INF, attention, window_keep)
 from tensorflow_distributed_tpu_torch.parallel.ring_attention import (
@@ -149,15 +157,23 @@ class TransformerConfig:
     # Megatron vocab-parallel input table (and vocab-sharded tied
     # logits) over the model axis; its rows padded to a multiple of it.
     shard_vocab: bool = False
-    # Options of the JAX model this port does not run yet (ROADMAP.md
-    # queue A); any value but the default raises.
+    # Mixture of experts: 0 = the dense MLP; > 0 replaces every block's
+    # MLP with a MoeMlp of this many experts (models/moe.py): top-k
+    # routing, capacity ceil(c * k * S / E) a routing group of S tokens
+    # (moe_group_len, 0 = the whole sequence), dense or scatter token
+    # movement.
     moe_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_group_len: int = 0
+    moe_dispatch: str = "dense"
 
 
-_NOT_PORTED = {"moe_experts": 0}
 _CHOICES = {"pos_emb": ("learned", "rope"), "mlp_variant": ("gelu", "swiglu"),
             "norm": ("layernorm", "rmsnorm"), "remat_policy": ("full", "dots"),
-            "kv_cache_quant": ("none", "int8")}
+            "kv_cache_quant": ("none", "int8"), "moe_dispatch": DISPATCHES}
+# The expert count moe_lm applies when none is given (JAX's).
+MOE_DEFAULT_EXPERTS = 4
 
 
 def kv_heads(cfg: TransformerConfig) -> int:
@@ -167,11 +183,9 @@ def kv_heads(cfg: TransformerConfig) -> int:
 
 
 def _check_config(cfg: TransformerConfig) -> None:
-    for name, default in _NOT_PORTED.items():
-        if getattr(cfg, name) != default:
-            raise NotImplementedError(
-                f"TransformerConfig.{name}={getattr(cfg, name)!r} is not "
-                f"ported to PyTorch yet (see ROADMAP.md queue A)")
+    if cfg.moe_experts > 0 and cfg.mlp_variant != "gelu":
+        raise ValueError("mlp_variant has no effect with moe_experts > 0 "
+                         "(MoeMlp replaces the block MLP)")
     for name, choices in _CHOICES.items():
         if getattr(cfg, name) not in choices:
             raise ValueError(f"{name} {getattr(cfg, name)!r}; have {choices}")
@@ -185,8 +199,9 @@ def _check_config(cfg: TransformerConfig) -> None:
 
 def check_tp(cfg: TransformerConfig, size: int) -> None:
     """The shapes the port cuts into ``size`` equal shards: JAX's GSPMD
-    pads uneven ones, the port refuses them (ROADMAP.md A5)."""
-    for name in ("n_heads", "d_ff"):
+    pads uneven ones, the port refuses them (ROADMAP.md A5). A MoE block
+    cuts its experts, not d_ff (``MoeMlp`` checks E)."""
+    for name in ("n_heads",) + (("d_ff",) if not cfg.moe_experts else ()):
         if getattr(cfg, name) % size:
             raise ValueError(
                 f"--mesh.model {size} must divide {name} "
@@ -349,6 +364,9 @@ def cast_dense_weights_(model: nn.Module) -> None:
     for module in model.modules():
         if isinstance(module, nn.Linear):
             module.to(dtype)
+        elif isinstance(module, MoeMlp):  # the experts; the router stays f32
+            module.wi.data = module.wi.data.to(dtype)
+            module.wo.data = module.wo.data.to(dtype)
 
 
 class RMSNorm(nn.Module):
@@ -702,27 +720,43 @@ class Mlp(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-norm transformer block."""
+    """Pre-norm transformer block; its MLP is a ``MoeMlp`` (``moe_mlp``)
+    when the config has experts."""
 
-    def __init__(self, cfg: TransformerConfig, ring=None, tp=None):
+    def __init__(self, cfg: TransformerConfig, ring=None, tp=None, ep=None):
         super().__init__()
         self.cfg = cfg
         self.ln1 = _make_norm(cfg)
         self.attn = SelfAttention(cfg, ring, tp)
         self.ln2 = _make_norm(cfg)
-        self.mlp = Mlp(cfg, tp)
+        if cfg.moe_experts > 0:
+            self.moe_mlp = MoeMlp(
+                cfg.d_model, cfg.d_ff, cfg.moe_experts, cfg.moe_top_k,
+                cfg.moe_capacity_factor, cfg.compute_dtype,
+                cfg.moe_group_len, cfg.moe_dispatch, ep)
+        else:
+            self.mlp = Mlp(cfg, tp)
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None,
                 positions: Optional[torch.Tensor] = None,
                 kv: Optional[Tuple[torch.Tensor, ...]] = None,
                 rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                page_table: Optional[torch.Tensor] = None) -> torch.Tensor:
+                page_table: Optional[torch.Tensor] = None,
+                moe_aux: Optional[list] = None) -> torch.Tensor:
+        """``moe_aux``: a list that a MoE block appends its router sums
+        to (``MoeAux``)."""
         cfg = self.cfg
         y = self.attn(_norm(x, self.ln1).to(cfg.compute_dtype), positions,
                       kv, rope, page_table)
         x = x + dropout(y, cfg.dropout_rate, train, generator)
-        y = self.mlp(_norm(x, self.ln2).to(cfg.compute_dtype))
+        y = _norm(x, self.ln2).to(cfg.compute_dtype)
+        if cfg.moe_experts > 0:
+            y, aux = self.moe_mlp(y)
+            if moe_aux is not None:
+                moe_aux.append(aux)
+        else:
+            y = self.mlp(y)
         return x + dropout(y, cfg.dropout_rate, train, generator)
 
 
@@ -741,8 +775,8 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 
 def _remat_block(block: Block, x: torch.Tensor, train: bool,
-                 generator: Optional[torch.Generator], positions, rope
-                 ) -> torch.Tensor:
+                 generator: Optional[torch.Generator], positions, rope,
+                 moe_aux: Optional[list] = None) -> torch.Tensor:
     """``block`` under ``torch.utils.checkpoint`` (non-reentrant): its
     activations are recomputed in the backward. Dropout draws from
     ``generator``, which ``preserve_rng_state`` does not restore: the
@@ -751,7 +785,8 @@ def _remat_block(block: Block, x: torch.Tensor, train: bool,
     forward left it (under gradient accumulation the next microbatch's
     forward runs before this backward). Under a ring every rank
     recomputes its blocks in the same order, so the recompute's permutes
-    pair up as the forward's did."""
+    pair up as the forward's did. A MoE block's router sums are taken
+    from the forward (the recompute appends none)."""
     entry = generator.get_state() if generator is not None else None
     calls = 0
 
@@ -761,8 +796,9 @@ def _remat_block(block: Block, x: torch.Tensor, train: bool,
         if calls and entry is not None:
             gen = torch.Generator(device=generator.device)
             gen.set_state(entry)
+        aux = moe_aux if not calls else None
         calls += 1
-        return block(x, train, gen, positions, None, rope)
+        return block(x, train, gen, positions, None, rope, moe_aux=aux)
 
     context = (functools.partial(create_selective_checkpoint_contexts,
                                  _save_dots)
@@ -807,17 +843,25 @@ class TransformerLM(nn.Module):
     extra_vocab: int = 0
 
     def __init__(self, cfg: TransformerConfig, ring=None, tp=None,
-                 vocab_shards: Optional[int] = None):
+                 vocab_shards: Optional[int] = None, ep=None):
         """``tp``: the model axis's transport (``parallel/
-        tensor_parallel.py``), or None for one whole model.
+        tensor_parallel.py``), or None for one whole model. ``ep``: the
+        expert group's transport of a MoE config (default: ``tp``, JAX's
+        expert axis "model").
         ``vocab_shards``: the M that ``shard_vocab`` pads the tables'
         rows to a multiple of (default: the transport's size, else 1), so
         that a whole model can take a TP run's padded parameters."""
         super().__init__()
         _check_config(cfg)
+        if cfg.moe_experts and _is_ring(ring):
+            raise NotImplementedError(
+                "MoE with a sequence ring (--mesh.seq > 1: the expert "
+                "positions' cumsum runs over the whole sequence) is not "
+                "ported to PyTorch yet (see ROADMAP.md A5)")
         self.cfg = cfg
         self.ring = ring
         self.tp = tp
+        self.ep = (ep if ep is not None else tp) if cfg.moe_experts else None
         size = tp.size if tp is not None else 1
         if tp is not None:
             check_tp(cfg, size)
@@ -840,7 +884,7 @@ class TransformerLM(nn.Module):
         if cfg.pos_emb == "learned":
             self.pos_emb = nn.Embedding(cfg.max_len, cfg.d_model)
         for i in range(cfg.n_layers):
-            self.add_module(f"layer_{i}", Block(cfg, ring, tp))
+            self.add_module(f"layer_{i}", Block(cfg, ring, tp, self.ep))
         self.ln_f = _make_norm(cfg)
         if not cfg.tie_embeddings:
             rows = -(-self.head_rows // size)
@@ -856,8 +900,8 @@ class TransformerLM(nn.Module):
         offsets, drawn in module order from ``generator``. Under TP the
         draw of the whole model without ``shard_vocab``'s padding rows
         (one process's draw), those rows zero, cut to this process's
-        ranks."""
-        if self.tp is not None:
+        ranks (and the experts to the expert group's)."""
+        if self.tp is not None or self.ep is not None:
             device = next(self.parameters()).device
             with torch.device(device):
                 whole = type(self)(self.cfg)
@@ -874,6 +918,8 @@ class TransformerLM(nn.Module):
                 module.weight.normal_(0.0, INIT_STD, generator=generator)
             elif isinstance(module, (nn.LayerNorm, RMSNorm)):
                 module.weight.fill_(1.0)
+            elif isinstance(module, MoeMlp):
+                init_moe_(module, INIT_STD, generator)
             if isinstance(module, (nn.Linear, nn.LayerNorm)):
                 module.bias.zero_()
 
@@ -884,17 +930,24 @@ class TransformerLM(nn.Module):
         with torch.device(device or next(self.parameters()).device):
             return type(self)(self.cfg, vocab_shards=self.vocab_shards)
 
+    def moe_layers(self) -> List[MoeMlp]:
+        """Every block's MoeMlp, in layer order (none for a dense
+        config)."""
+        return [m for m in self.modules() if isinstance(m, MoeMlp)]
+
     def forward(self, tokens: torch.Tensor, *, train: bool = False,
                 generator: Optional[torch.Generator] = None,
                 features_only: bool = False, decode: bool = False,
                 positions: Optional[torch.Tensor] = None,
-                cache: Optional[KVCache] = None, page_table=None):
+                cache: Optional[KVCache] = None, page_table=None,
+                moe_aux: Optional[list] = None):
         """Logits [B, L, V] f32, or with ``features_only`` the head's
         pieces (features [B, L, D] in the compute dtype, W [V, D], bias
         [V] or None). ``positions`` ([1 | B, L] int) index the learned
         position table or set RoPE's angles (default: the block's
         arange); ``decode=True`` requires them and a ``cache`` (see the
-        module docstring)."""
+        module docstring). ``moe_aux``: a list each MoE layer appends its
+        router sums to."""
         cfg = self.cfg
         B, L = tokens.shape
         if page_table is not None and not (decode and cfg.kv_page_size):
@@ -909,9 +962,11 @@ class TransformerLM(nn.Module):
                 raise ValueError("decode=True requires positions")
             if cache is None:
                 raise ValueError("decode=True requires a KVCache")
-            if _is_ring(self.ring) or self.tp is not None:
+            if _is_ring(self.ring) or self.tp is not None or \
+                    self.ep is not None:
                 raise ValueError("decode=True runs on one process "
-                                 "(mesh.seq and mesh.model must be 1)")
+                                 "(mesh.seq, mesh.model and mesh.expert "
+                                 "must be 1)")
         elif cache is not None:
             raise ValueError("a KVCache is read only with decode=True")
         shards, start = ((self.ring.size, self.ring.index * L)
@@ -941,11 +996,12 @@ class TransformerLM(nn.Module):
         for i in range(cfg.n_layers):
             block = getattr(self, f"layer_{i}")
             if remat:
-                x = _remat_block(block, x, train, generator, positions, rope)
+                x = _remat_block(block, x, train, generator, positions, rope,
+                                 moe_aux)
             else:
                 kv = cache.layer(i) if decode else None
                 x = block(x, train, generator, positions, kv, rope,
-                          page_table)
+                          page_table, moe_aux)
         x = _norm(x, self.ln_f).to(cfg.compute_dtype)
         if self.tp is not None:
             return self._head_tp(x, features_only)
@@ -1025,11 +1081,13 @@ class CausalLM(TransformerLM):
     ``causal=True`` config (gpt_lm enforces it)."""
 
 
-def gpt_lm(size: str = "small", ring=None, tp=None, **overrides) -> CausalLM:
+def gpt_lm(size: str = "small", ring=None, tp=None, ep=None,
+           **overrides) -> CausalLM:
     """GPT-style decoder-only LM. ``size``: the GPT-2 ladder
     (GPT2_SIZES) or "tiny" (test scale); ``ring``: the seq group's ring
     (``ProcessGroupRing``) for sequence parallelism, or None; ``tp``:
-    the model axis's transport for tensor parallelism, or None;
+    the model axis's transport for tensor parallelism, or None; ``ep``:
+    the expert group's transport of a MoE config (default ``tp``);
     ``overrides`` are TransformerConfig fields."""
     overrides["causal"] = True
     if size in GPT2_SIZES:
@@ -1039,10 +1097,20 @@ def gpt_lm(size: str = "small", ring=None, tp=None, **overrides) -> CausalLM:
     else:
         raise ValueError(f"gpt_lm size {size!r}; have "
                          f"({', '.join(GPT2_SIZES)}, tiny)")
-    return CausalLM(cfg, ring, tp)
+    return CausalLM(cfg, ring, tp, ep=ep)
 
 
-def bert_base_mlm(size: str = "base", ring=None, tp=None,
+def moe_lm(size: str = "small", ring=None, tp=None, ep=None,
+           **overrides) -> CausalLM:
+    """``gpt_lm`` with every MLP a top-k MoE (JAX's ``moe_lm``):
+    ``moe_experts`` defaults to ``MOE_DEFAULT_EXPERTS``."""
+    overrides.setdefault("moe_experts", MOE_DEFAULT_EXPERTS)
+    if overrides["moe_experts"] <= 0:
+        raise ValueError("moe_lm needs moe_experts > 0")
+    return gpt_lm(size, ring, tp, ep, **overrides)
+
+
+def bert_base_mlm(size: str = "base", ring=None, tp=None, ep=None,
                   **overrides) -> BertMLM:
     """BERT masked LM. ``size``: "base" (BERT-base) or "tiny" (test
     scale); ``overrides`` are TransformerConfig fields."""
@@ -1052,7 +1120,7 @@ def bert_base_mlm(size: str = "base", ring=None, tp=None,
         cfg = tiny_config(**overrides)
     else:
         raise ValueError(f"bert_mlm size {size!r}; have ('base', 'tiny')")
-    return BertMLM(cfg, ring, tp)
+    return BertMLM(cfg, ring, tp, ep=ep)
 
 
 def bert_tiny_mlm(ring=None, tp=None, **overrides) -> BertMLM:

@@ -1,5 +1,5 @@
-"""Process groups for data, sequence and tensor parallelism: the port of
-``parallel/mesh.py``.
+"""Process groups for data, sequence, tensor and expert parallelism: the
+port of ``parallel/mesh.py``.
 
 The JAX package builds one SPMD program over a device mesh after
 ``bootstrap()`` (``jax.distributed.initialize`` from environment
@@ -10,20 +10,27 @@ environment ``torchrun`` sets (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 CPU, and returns the :class:`Mesh`.
 
 The ranks are laid out as the JAX package lays out its devices,
-row-major over (data, pipe, seq, model, expert); with pipe and expert
-1, rank r sits at model index ``r % M``, seq index ``(r // M) % S`` and
-data index ``r // (S * M)``. Three groups carry the collectives:
+row-major over (data, pipe, seq, model, expert), expert innermost; with
+pipe 1, rank r sits at expert index ``r % X``, model index ``(r // X) %
+M``, seq index ``(r // (X * M)) % S`` and data index ``r // (S * M *
+X)``. The batch shards over data only, so every rank of a (data, seq)
+place reads the same rows. These groups carry the collectives:
 
-- the model group (M contiguous ranks) carries tensor parallelism's
+- the model group (M ranks, stride X) carries tensor parallelism's
   ``ProcessGroupTP`` (``parallel/tensor_parallel.py``);
-- the seq group (S ranks, stride M) carries the ring
+- the expert group (X contiguous ranks) carries a MoE model's experts
+  (``ep``, a ``ProcessGroupTP`` over it); without an expert axis a MoE
+  model takes the model group's transport, as JAX's experts take the
+  model axis;
+- the seq group (S ranks, stride M * X) carries the ring
   (``ProcessGroupRing``);
-- the replica group (the D * S ranks that share a model index) holds
-  the same shard of every parameter: the loss sums and the gradients
-  are summed over it (``replica_all_reduce_``), the port's form of
-  GSPMD's implicit psums. Without a model axis it is the whole world.
+- the replica group (the D * S ranks that share a (model, expert)
+  index) holds the same shard of every parameter: the loss sums and the
+  gradients are summed over it (``replica_all_reduce_``), the port's
+  form of GSPMD's implicit psums. Without a model or expert axis it is
+  the whole world.
 
-The data group (the ranks that share a (seq, model) index) is the group
+The data group (the ranks that share a (seq, model, expert) index) is the group
 of sync BatchNorm, and of ``--param-partition fsdp|zero1`` and
 ``--grad-sync serial|overlap``: ``reduce_scatter`` sums a flat tensor
 over it and hands each data rank its 1/data block, ``all_gather_``
@@ -44,6 +51,7 @@ which this process holds, and ``all_gather_`` joins the D blocks.
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 from typing import Any, Iterable, List, Optional, Tuple
 
@@ -69,7 +77,7 @@ _REDUCE_SCATTER = getattr(dist, "reduce_scatter_single",
 _ALL_GATHER = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
 LAUNCH = ("torchrun --nproc-per-node {N} -m "
           "tensorflow_distributed_tpu_torch.cli --mesh.data {D} "
-          "--mesh.seq {S} --mesh.model {M} ...")
+          "--mesh.seq {S} --mesh.model {M} --mesh.expert {X} ...")
 
 
 # --- mesh-feasibility rules (pure helpers; the JAX package's own) --------
@@ -120,7 +128,7 @@ def mesh_infeasible(axes, devices: int,
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """This process's place in the (data, seq, model) mesh.
+    """This process's place in the (data, seq, model, expert) mesh.
     ``distributed``: a process group is up, so the collectives run (also
     for a world of one under torchrun); without one they are no-ops."""
 
@@ -136,25 +144,33 @@ class Mesh:
     replica_group: Any = None  # None: the whole world (model 1)
     tp: Optional[ProcessGroupTP] = None  # over model_group when model > 1
     stacked: bool = False  # every data rank in this process (stacked_data)
+    expert: int = 1
+    expert_group: Any = None
+    ep: Optional[ProcessGroupTP] = None  # over expert_group when expert > 1
+
+    @property
+    def expert_index(self) -> int:
+        return self.rank % self.expert
 
     @property
     def model_index(self) -> int:
-        return self.rank % self.model
+        return (self.rank // self.expert) % self.model
 
     @property
     def seq_index(self) -> int:
-        return (self.rank // self.model) % self.seq
+        return (self.rank // (self.expert * self.model)) % self.seq
 
     @property
     def data_index(self) -> int:
-        return self.rank // (self.seq * self.model)
+        return self.rank // (self.seq * self.model * self.expert)
 
     @property
     def replica_index(self) -> int:
-        """This rank's place among the ranks of its model index: its
-        (data, seq) coordinate, row-major. The model ranks of one
-        coordinate share it (and so their dropout masks)."""
-        return self.rank // self.model
+        """This rank's place among the ranks of its (model, expert)
+        index: its (data, seq) coordinate, row-major. The model and
+        expert ranks of one coordinate share it (and so their dropout
+        masks)."""
+        return self.rank // (self.model * self.expert)
 
     @property
     def data_ranks(self) -> List[int]:
@@ -212,12 +228,18 @@ class Mesh:
         if self.distributed and self.model > 1:
             all_reduce_sum_(tensors, self.model_group)
 
+    def expert_all_reduce_(self, tensors: Iterable[torch.Tensor]) -> None:
+        """Sum same-dtype tensors over the expert group, in place."""
+        if self.distributed and self.expert > 1:
+            all_reduce_sum_(tensors, self.expert_group)
+
     def replica_broadcast_(self, tensors: Iterable[torch.Tensor]) -> None:
         """Overwrite same-dtype tensors with the values of the first rank
-        of the replica group (rank ``model_index``: data and seq index
-        0); rank 0's over the world without a model axis."""
+        of the replica group (data and seq index 0: rank ``rank % (M *
+        X)``); rank 0's over the world without a model or expert axis."""
         if self.distributed:
-            broadcast_(tensors, self.model_index, self.replica_group)
+            broadcast_(tensors, self.rank % (self.model * self.expert),
+                       self.replica_group)
 
     def barrier(self) -> None:
         """Wait for every rank of the world."""
@@ -262,46 +284,49 @@ def rank_device(device: str) -> str:
     return f"cuda:{os.environ['LOCAL_RANK']}"
 
 
-def mesh_shape(data: int, seq: int, model: int = 1) -> Tuple[int, int, int]:
+def mesh_shape(data: int, seq: int, model: int = 1,
+               expert: int = 1) -> Tuple[int, int, int]:
     """(data, seq, model) for ``--mesh.data data --mesh.seq seq
-    --mesh.model model`` in this world: the process group's when one is
-    up (a caller that set up its own, such as a test with a file://
-    store), else torchrun's WORLD_SIZE, else 1. ``data = -1`` takes every
-    process that ``seq`` and ``model`` leave over. Raises, naming the
-    torchrun line, when the sizes do not multiply to the world. Starts
-    nothing."""
+    --mesh.model model --mesh.expert expert`` in this world: the process
+    group's when one is up (a caller that set up its own, such as a test
+    with a file:// store), else torchrun's WORLD_SIZE, else 1. ``data =
+    -1`` takes every process that the other axes leave over. Raises,
+    naming the torchrun line, when the sizes do not multiply to the
+    world. Starts nothing."""
     up = dist.is_initialized()
     world = dist.get_world_size() if up else (_torchrun_world() or 1)
     if data == -1:
-        data = pick_data_width({AXIS_SEQ: seq, AXIS_MODEL: model},
-                               world) or 1
-    n = data * seq * model
+        data = pick_data_width({AXIS_SEQ: seq, AXIS_MODEL: model,
+                                AXIS_EXPERT: expert}, world) or 1
+    n = data * seq * model * expert
     if n != world:
         have = (f"the process group has {world}" if up else
                 f"torchrun started WORLD_SIZE={world}" if _torchrun_world()
                 else "this is one process")
         raise RuntimeError(
             f"--mesh.data {data} --mesh.seq {seq} --mesh.model {model} "
-            f"runs one process per mesh position ({n}) but {have}; launch "
-            f"it as `{LAUNCH.format(N=n, D=data, S=seq, M=model)}`")
+            f"--mesh.expert {expert} runs one process per mesh position "
+            f"({n}) but {have}; launch it as "
+            f"`{LAUNCH.format(N=n, D=data, S=seq, M=model, X=expert)}`")
     return data, seq, model
 
 
 def bootstrap(data: int, seq: int, device: torch.device,
-              model: int = 1) -> Mesh:
+              model: int = 1, expert: int = 1) -> Mesh:
     """The mesh for ``--mesh.data data --mesh.seq seq --mesh.model
-    model`` (``mesh_shape`` resolves and checks the sizes).
+    model --mesh.expert expert`` (``mesh_shape`` resolves and checks the
+    sizes).
 
     Without torchrun and a world of one there is no process group.
     Otherwise the default group starts from torchrun's environment
     unless one is up (NCCL for a CUDA ``device``, gloo for the CPU; also
     for a world of one, so that run takes the collective path), every
-    rank creates the model groups, the seq groups, the data groups and
-    (with a model axis) the replica groups in the same order, and one
-    all-reduce runs on the world and on each of this rank's groups: NCCL
-    wants every rank of a group in its first collective before
-    point-to-point calls."""
-    data, seq, model = mesh_shape(data, seq, model)
+    rank creates the model groups, the expert groups, the seq groups,
+    the data groups and (with a model or expert axis) the replica groups
+    in the same order, and one all-reduce runs on the world and on each
+    of this rank's groups: NCCL wants every rank of a group in its first
+    collective before point-to-point calls."""
+    data, seq, model = mesh_shape(data, seq, model, expert)
     up = dist.is_initialized()
     if not up and _torchrun_world() is None:
         return ONE_PROCESS
@@ -311,37 +336,49 @@ def bootstrap(data: int, seq: int, device: torch.device,
         dist.init_process_group(
             "nccl" if device.type == "cuda" else "gloo",
             init_method="env://")
-    rank, world = dist.get_rank(), data * seq * model
+    rank = dist.get_rank()
+    X = expert
+    # Rank r at grid[d, s, m, e]: JAX's row-major device order.
+    grid = torch.arange(data * seq * model * X).view(data, seq, model, X)
 
-    def place(d, s, m):
-        return (d * seq + s) * model + m
+    def groups_along(*axes):
+        """This rank's group of the ranks that differ only along
+        ``axes``; every group of that kind is created, in one order on
+        every rank."""
+        rows = grid.permute(*[a for a in range(4) if a not in axes],
+                            *axes).reshape(-1, math.prod(
+                                grid.shape[a] for a in axes))
+        mine = None
+        for ranks in rows.tolist():
+            group = dist.new_group(ranks)
+            if rank in ranks:
+                mine = group
+        return mine
 
-    coords = [(d, s) for d in range(data) for s in range(seq)]
-    model_groups = ([dist.new_group([place(d, s, m) for m in range(model)])
-                     for d, s in coords] if model > 1 else None)
-    seq_groups = [dist.new_group([place(d, s, m) for s in range(seq)])
-                  for d in range(data) for m in range(model)]
-    data_groups = [dist.new_group([place(d, s, m) for d in range(data)])
-                   for s in range(seq) for m in range(model)]
-    replica_groups = ([dist.new_group(list(range(m, world, model)))
-                       for m in range(model)] if model > 1 else [None])
-    mesh = Mesh(data=data, seq=seq, rank=rank, model=model,
-                distributed=True)
-    d, s, m = mesh.data_index, mesh.seq_index, mesh.model_index
-    mesh = dataclasses.replace(
-        mesh, model_group=model_groups[d * seq + s] if model > 1 else None,
-        seq_group=seq_groups[d * model + m],
-        data_group=data_groups[s * model + m],
-        replica_group=replica_groups[m if model > 1 else 0])
-    groups = [None, mesh.seq_group, mesh.data_group]
+    model_group = groups_along(2) if model > 1 else None
+    expert_group = groups_along(3) if X > 1 else None
+    seq_group, data_group = groups_along(1), groups_along(0)
+    replica_group = groups_along(0, 1) if model * X > 1 else None
+    mesh = Mesh(data=data, seq=seq, rank=rank, model=model, expert=X,
+                distributed=True, model_group=model_group,
+                expert_group=expert_group, seq_group=seq_group,
+                data_group=data_group, replica_group=replica_group)
+    groups = [None, seq_group, data_group]
     if model > 1:
-        groups += [mesh.model_group, mesh.replica_group]
+        groups.append(model_group)
+    if X > 1:
+        groups.append(expert_group)
+    if model * X > 1:
+        groups.append(replica_group)
     for group in groups:
         dist.all_reduce(torch.zeros(1, device=device), group=group)
     if seq > 1:
         mesh = dataclasses.replace(mesh, ring=ProcessGroupRing(mesh.seq_group))
     if model > 1:
         mesh = dataclasses.replace(mesh, tp=ProcessGroupTP(mesh.model_group))
+    if X > 1:
+        mesh = dataclasses.replace(mesh,
+                                   ep=ProcessGroupTP(mesh.expert_group))
     return mesh
 
 

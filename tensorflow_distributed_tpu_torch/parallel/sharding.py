@@ -17,14 +17,19 @@ parameter                    flax leaf   cut of the port's tensor
 ``mlp.down.weight``          [d_ff,D]    columns (d_ff); bias replicated
 ``lm_head.weight`` / bias    [D,V(+p)]   rows (vocab), padded to M*R
 ``tok_emb.weight``           [V+e+p,D]   rows, with ``--shard-vocab``
+``moe_mlp.wi``, ``.wo``      [E,D,F]...  dim 0 (experts), over the
+                                         expert group
 ===========================  ==========  =============================
 
-Everything else (norms, positions, the replicated biases) is whole on
-every rank. ``shard_state_dict`` cuts a full state dict (an init, a
-checkpoint's params or moments) to this process's ranks;
+Everything else (norms, positions, the replicated biases, a MoE
+block's ``gate``) is whole on every rank. The experts are cut over the
+model's ``ep`` transport (the expert group, or the model group where
+the experts take the model axis), every other cut over ``tp``
+(``param_transport``). ``shard_state_dict`` cuts a full state dict (an
+init, a checkpoint's params or moments) to this process's ranks;
 ``gather_state_dict`` joins the ranks' parts back into the full
-tensors (a collective over the model group under ``ProcessGroupTP``),
-which is what a checkpoint holds.
+tensors (a collective over the group under ``ProcessGroupTP``), which
+is what a checkpoint holds.
 
 Over the data axis (``--param-partition fsdp|zero1``) a leaf is cut into
 ``data`` blocks exactly where the JAX package's rule cuts it
@@ -71,12 +76,31 @@ _BLOCK_CUTS = {"attn.qkv.weight": QKV, "attn.qkv.bias": QKV,
                "attn.out.weight": COLS,
                "mlp.up.weight": ROWS, "mlp.up.bias": ROWS,
                "mlp.gate.weight": ROWS, "mlp.gate.bias": ROWS,
-               "mlp.down.weight": COLS}
+               "mlp.down.weight": COLS,
+               "moe_mlp.wi": ROWS, "moe_mlp.wo": ROWS}
+_EXPERT_CUTS = ("moe_mlp.wi", "moe_mlp.wo")
+
+
+def param_transport(name: str, model):
+    """The transport that cuts ``model``'s parameter ``name`` (if any
+    does): the expert group's for a MoE block's experts, the model
+    group's otherwise; None without one."""
+    if name.startswith("layer_") and name.split(".", 1)[1] in _EXPERT_CUTS:
+        return getattr(model, "ep", None)
+    return getattr(model, "tp", None)
+
+
+def is_split(model) -> bool:
+    """Whether ``model`` holds a part of any parameter (a model or an
+    expert transport)."""
+    return (getattr(model, "tp", None) is not None
+            or getattr(model, "ep", None) is not None)
 
 
 def param_cut(name: str, model) -> Optional[Cut]:
-    """The cut of the TP model ``model``'s parameter ``name``, or None
-    when every rank holds all of it."""
+    """The cut of the TP or EP model ``model``'s parameter ``name`` by the
+    table (``param_transport`` says over which group, or None where the
+    model has none), or None when every rank holds all of it."""
     if name.startswith("layer_"):
         return _BLOCK_CUTS.get(name.split(".", 1)[1])
     if name.startswith("lm_head."):
@@ -118,14 +142,13 @@ def join_parts(parts, cut: Cut) -> torch.Tensor:
 
 def shard_state_dict(full: Tensors, model) -> Tensors:
     """This process's part of a full state dict (names of ``model``, a
-    TP model): a sharded tensor becomes this rank's part under
+    TP or EP model): a sharded tensor becomes this rank's part under
     ``ProcessGroupTP``, the M parts stacked under ``StackedTP``; the
     others stay whole."""
-    tp = model.tp
     out = {}
     for name, t in full.items():
-        cut = param_cut(name, model)
-        if cut is None:
+        cut, tp = param_cut(name, model), param_transport(name, model)
+        if cut is None or tp is None:
             out[name] = t
             continue
         parts = [cut_part(t, cut, m, tp.size) for m in tp.indices]
@@ -136,13 +159,12 @@ def shard_state_dict(full: Tensors, model) -> Tensors:
 
 def gather_state_dict(local: Tensors, model) -> Tensors:
     """The full tensors of this process's parts (``shard_state_dict``'s
-    inverse). Under ``ProcessGroupTP`` every rank of the model group
-    must call it (an all-gather a sharded tensor)."""
-    tp = model.tp
+    inverse). Under ``ProcessGroupTP`` every rank of the model and
+    expert groups must call it (an all-gather a sharded tensor)."""
     out = {}
     for name, t in local.items():
-        cut = param_cut(name, model)
-        if cut is None:
+        cut, tp = param_cut(name, model), param_transport(name, model)
+        if cut is None or tp is None:
             out[name] = t
             continue
         parts = tp.gather(tp.split(t))
@@ -240,6 +262,7 @@ _FLAX_SPECS = {("qkv", "kernel"): (None, None, "model", None),
                ("down", "kernel"): ("model", None),
                ("lm_head", "kernel"): (None, "model"),
                ("lm_head", "bias"): ("model",)}
+_EXPERT_LEAVES = (("moe_mlp", "wi"), ("moe_mlp", "wo"))
 
 
 def _model_spec(path, shard_vocab: bool) -> Optional[tuple]:
@@ -251,16 +274,32 @@ def _model_spec(path, shard_vocab: bool) -> Optional[tuple]:
     return _FLAX_SPECS.get(key)
 
 
-def flax_spec(path, shard_vocab: bool) -> str:
+def flax_spec(path, shard_vocab: bool, model_axis: bool = True,
+              expert_axis: Optional[str] = None) -> str:
     """The ``PartitionSpec`` string of a checkpoint leaf (its ``/``
-    path's parts) written under a model axis."""
-    spec = _model_spec(path, shard_vocab)
+    path's parts): its tensor-parallel dims when written under a model
+    axis (``model_axis``), a MoE block's expert dim over ``expert_axis``
+    ("model" or "expert") when its experts were cut."""
+    if tuple(path[-2:]) in _EXPERT_LEAVES:
+        spec = (expert_axis, None, None) if expert_axis else None
+    else:
+        spec = _model_spec(path, shard_vocab) if model_axis else None
     if spec is None:
         return "PartitionSpec()"
     return "PartitionSpec(" + ", ".join(
-        "'model'" if a else "None" for a in spec) + ")"
+        f"'{a}'" if a else "None" for a in spec) + ")"
 
 
 def is_sharded(name: str, model) -> bool:
-    return getattr(model, "tp", None) is not None and \
-        param_cut(name, model) is not None
+    """Whether ``name`` is cut over ``model``'s model group."""
+    tp = getattr(model, "tp", None)
+    return (tp is not None and param_transport(name, model) is tp
+            and param_cut(name, model) is not None)
+
+
+def is_expert_sharded(name: str, model) -> bool:
+    """Whether ``name`` is cut over an expert group of its own (not the
+    model group)."""
+    ep = getattr(model, "ep", None)
+    return (ep is not None and ep is not getattr(model, "tp", None)
+            and param_transport(name, model) is ep)

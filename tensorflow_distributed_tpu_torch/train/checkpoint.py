@@ -10,9 +10,11 @@ One directory per checkpoint, ``<dir>/step_00001234/``:
 - ``manifest.json``: ``step``, ``param_bytes``, ``format``
   (``flax-msgpack-v1``) and the state file's ``sha256``;
 - ``mesh.json``: the mesh the state was written on (the port's
-  ``{"data", "seq", "model"}`` sizes), the process and device counts,
-  and the layout of every leaf (its flax ``PartitionSpec`` over the
-  model axis, ``PartitionSpec()`` where every rank holds all of it).
+  ``{"data", "seq", "model"}`` sizes, and ``expert`` where it is more
+  than 1), the process and device counts, and the layout of every leaf
+  (its flax ``PartitionSpec`` over the model axis, a MoE block's
+  experts over the axis they were cut on, ``PartitionSpec()`` where
+  every rank holds all of it).
 
 Under tensor parallelism (``--mesh.model M``) a save gathers every
 rank's shards back into the whole model's arrays (params, moments,
@@ -21,7 +23,9 @@ model group that every rank joins), so the step directory is byte for
 byte what one process writes of the same params, the ``--shard-vocab``
 tables' padded rows included; a restore reads the whole arrays and
 keeps this rank's shards (``interop.state_from_flax``), from a
-one-process checkpoint or a TP one alike. Under ``--param-partition
+one-process checkpoint or a TP one alike. A MoE model's experts are
+gathered over the expert group the same way (``--mesh.expert X``), and
+a restore keeps this rank's experts. Under ``--param-partition
 zero1|fsdp`` the data blocks (slots; params and EMA under fsdp) are
 all-gathered over the data group first (every data rank joins), so the
 save is, byte for byte, the replicated run's save of the same state; a
@@ -65,7 +69,7 @@ from tensorflow_distributed_tpu_torch.parallel import mesh as mesh_lib
 from tensorflow_distributed_tpu_torch.parallel.fsdp import swapped_params
 from tensorflow_distributed_tpu_torch.parallel.mesh import ONE_PROCESS, Mesh
 from tensorflow_distributed_tpu_torch.parallel.sharding import (
-    flax_spec, gather_state_dict)
+    flax_spec, gather_state_dict, is_split)
 from tensorflow_distributed_tpu_torch.train.state import TrainState
 from tensorflow_distributed_tpu_torch.utils import serialization
 from tensorflow_distributed_tpu_torch.utils.logging import emit_event
@@ -125,15 +129,21 @@ def _leaf_paths(tree: Any, prefix: str = ""):
             yield path
 
 
-def _mesh_manifest(tree: dict, mesh: Mesh, shard_vocab: bool) -> dict:
+def _mesh_manifest(tree: dict, mesh: Mesh, shard_vocab: bool,
+                   experts_cut: bool = False) -> dict:
     """JAX's mesh manifest keys: the mesh sizes, the process and device
-    counts, and each leaf's layout over the model axis."""
-    n = mesh.data * mesh.seq * mesh.model
-    return {"mesh": {"data": mesh.data, "seq": mesh.seq,
-                     "model": mesh.model},
-            "process_count": n, "devices": n,
-            "specs": {p: (flax_spec(p.split("/"), shard_vocab)
-                          if mesh.model > 1 else "PartitionSpec()")
+    counts, and each leaf's layout over the model axis (and, where the
+    experts were cut, over their axis)."""
+    n = mesh.data * mesh.seq * mesh.model * mesh.expert
+    shape = {"data": mesh.data, "seq": mesh.seq, "model": mesh.model}
+    if mesh.expert > 1:
+        shape["expert"] = mesh.expert
+    expert_axis = None
+    if experts_cut:
+        expert_axis = "expert" if mesh.expert > 1 else "model"
+    return {"mesh": shape, "process_count": n, "devices": n,
+            "specs": {p: flax_spec(p.split("/"), shard_vocab,
+                                   mesh.model > 1, expert_axis)
                       for p in _leaf_paths(tree)}}
 
 
@@ -284,26 +294,27 @@ def _leaves(tree: Any):
 def whole_state(state: TrainState):
     """``state`` itself, or one holding the whole model's tensors: the
     data blocks of a ``--param-partition`` layout gathered over the data
-    group, then a tensor-parallel model's shards over the model group
-    (every rank of both must enter it). A TP model's whole state is held
-    by a template of the whole model built on the meta device; under
-    fsdp the model holds the gathered params while the context is open."""
+    group, then a tensor- or expert-parallel model's shards over the
+    model and expert groups (every rank of them must enter it). Such a
+    model's whole state is held by a template of the whole model built
+    on the meta device; under fsdp the model holds the gathered params
+    while the context is open."""
     model, part = state.model, state.partition
-    tp = getattr(model, "tp", None)
-    if part.kind == "replicated" and tp is None:
+    split = is_split(model)
+    if part.kind == "replicated" and not split:
         yield state
         return
 
     @torch.no_grad()
     def whole(tensors):
         out = {n: part.whole(n, t) for n, t in tensors.items()}
-        return out if tp is None else gather_state_dict(out, model)
+        return gather_state_dict(out, model) if split else out
 
     params = whole({n: p.detach() for n, p in state.params.items()})
     opt = {k: (whole(v) if isinstance(v, dict) else v)
            for k, v in state.opt_state.items()}
     ema = None if state.ema is None else whole(state.ema)
-    if tp is not None:
+    if split:
         template = model.whole("meta")
         template.load_state_dict(params, assign=True)
         yield TrainState(model=template, tx=state.tx, opt_state=opt,
@@ -317,8 +328,8 @@ def whole_state(state: TrainState):
 def save(ckpt_dir: str, state: TrainState, keep: int = 3,
          mesh: Mesh = ONE_PROCESS) -> str:
     """Write ``state`` at its step and prune to the newest ``keep``.
-    Every rank calls it: under tensor parallelism and a data partition
-    every rank joins the gathers; the chief writes, and every rank
+    Every rank calls it: under tensor or expert parallelism and a data
+    partition every rank joins the gathers; the chief writes, and every rank
     leaves only after the rename, so ``latest_step`` agrees everywhere
     on return."""
     final = _step_dir(ckpt_dir, state.step)
@@ -328,7 +339,9 @@ def save(ckpt_dir: str, state: TrainState, keep: int = 3,
             cfg = getattr(state.model, "cfg", None)
             _write(ckpt_dir, state.step, tree, keep,
                    _mesh_manifest(tree, mesh,
-                                  bool(getattr(cfg, "shard_vocab", False))))
+                                  bool(getattr(cfg, "shard_vocab", False)),
+                                  getattr(state.model, "ep", None)
+                                  is not None))
     mesh.barrier()
     return final
 

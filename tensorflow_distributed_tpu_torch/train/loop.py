@@ -27,16 +27,18 @@ dispatched (the cadence save between them is the one a rewind
 quarantines). Without any of them the loop dispatches as it always did,
 with no sync a step beyond the ``log_every`` fetch.
 
-Under ``--mesh.data D --mesh.seq S --mesh.model M`` (D*S*M processes
-under torchrun, one GPU each; see ``parallel/mesh.py``) each rank draws
-only its data
+Under ``--mesh.data D --mesh.seq S --mesh.model M --mesh.expert X``
+(D*S*M*X processes under torchrun, one GPU each; see
+``parallel/mesh.py``) each rank draws only its data
 rank's rows of every global batch (under ``--grad-accum-steps A``, its
 part of each of JAX's A microbatches: ``data_rows``) and keeps its
 contiguous block ``[s*L/S, (s+1)*L/S)`` of the sequence axis (the M
-model ranks of a (data, seq) place read the same rows); batches reach
-the device through ``data/prefetch.py``; a transformer is cut into M
-tensor-parallel shards (``parallel/sharding.py``), each rank keeping
-its part of the whole model's seeded init; the parameters start from
+model and X expert ranks of a (data, seq) place read the same rows);
+batches reach the device through ``data/prefetch.py``; a transformer is
+cut into M tensor-parallel shards, and a MoE model's experts over the
+expert group (over the model group without an expert axis)
+(``parallel/sharding.py``), each rank keeping its part of the whole
+model's seeded init; the parameters start from
 the copy of the first rank of their replica group; eval metrics are
 means over the mesh; the step records, eval records and the ``done``
 record come from the chief only.
@@ -67,7 +69,7 @@ from tensorflow_distributed_tpu_torch.models import build_model
 from tensorflow_distributed_tpu_torch.parallel import mesh as mesh_lib
 from tensorflow_distributed_tpu_torch.parallel.mesh import ONE_PROCESS, Mesh
 from tensorflow_distributed_tpu_torch.parallel.sharding import (
-    FSDP_MIN_SIZE, shard_state_dict)
+    FSDP_MIN_SIZE, is_split, shard_state_dict)
 from tensorflow_distributed_tpu_torch.resilience.faults import (
     FaultPlan, parse_fault_plan)
 from tensorflow_distributed_tpu_torch.resilience.policies import (
@@ -173,15 +175,16 @@ def evaluate(state: TrainState, eval_fn, task: Task, batch: int,
 
 def build_model_for(cfg: TrainConfig, device: torch.device, ring=None,
                     vocab_size: int = 0, image_shape: tuple = (),
-                    bn_group=None, tp=None):
+                    bn_group=None, tp=None, ep=None):
     """The model ``cfg`` names, built on ``device`` with its weights not
     yet drawn (``init_weights``); ``ring``: the seq group's ring; ``tp``:
-    the model group's transport (tensor parallelism).
+    the model group's transport (tensor parallelism); ``ep``: the expert
+    group's (a MoE model's experts; None: they take ``tp``).
     ``vocab_size``: the tokenizer's, which sizes the LM under
     ``--dataset text``; ``image_shape``: the dataset's [H, W, C] (a
     ResNet takes its channels); ``bn_group``: the group of sync BN."""
-    if cfg.model in ("gpt_lm", "bert_mlm"):
-        kw = {"ring": ring, "tp": tp}
+    if cfg.model in ("gpt_lm", "bert_mlm", "moe_lm"):
+        kw = {"ring": ring, "tp": tp, "ep": ep}
         if cfg.model_size:
             kw["size"] = cfg.model_size
         if cfg.dataset == "text":
@@ -205,6 +208,14 @@ def build_model_for(cfg: TrainConfig, device: torch.device, ring=None,
                               ("shard_vocab", False)):
             if getattr(cfg, name) != default:
                 kw[name] = getattr(cfg, name)
+        # The MoE knobs, as the JAX _build_model_and_state passes them.
+        if cfg.moe_experts > 0:
+            kw["moe_experts"] = cfg.moe_experts
+        if cfg.model == "moe_lm" or cfg.moe_experts > 0:
+            kw.update(moe_top_k=cfg.moe_top_k,
+                      moe_capacity_factor=cfg.moe_capacity_factor,
+                      moe_group_len=cfg.moe_group_len,
+                      moe_dispatch=cfg.moe_dispatch)
     elif cfg.model in ("resnet20", "resnet50"):
         kw = {"bn_group": bn_group}
         if image_shape:
@@ -238,9 +249,10 @@ def _build_model_and_state(cfg: TrainConfig, device: torch.device,
     model = build_model_for(
         cfg, device, mesh.ring, vocab_size=vocab_size,
         image_shape=task.image_shape if task is not None else (),
-        bn_group=mesh.data_group if sync_bn else None, tp=mesh.tp)
+        bn_group=mesh.data_group if sync_bn else None, tp=mesh.tp,
+        ep=mesh.ep)
     tx = make_optimizer(cfg, model)
-    if init_params is not None and mesh.tp is not None:
+    if init_params is not None and is_split(model):
         init_params = shard_state_dict(init_params, model)
     state = create_train_state(model, tx, cfg.seed, init_params)
     # Every rank starts from the first rank of its replica group's copy.
@@ -256,20 +268,22 @@ def _setup(cfg: TrainConfig, logger: Optional[MetricLogger]):
     group, then the group (``mesh_lib.bootstrap``)."""
     cfg.validate()
     device = resolve_device(mesh_lib.rank_device(cfg.device))
+    expert = cfg.mesh.expert
     data, seq, model = mesh_lib.mesh_shape(cfg.mesh.data, cfg.mesh.seq,
-                                           cfg.mesh.model)
+                                           cfg.mesh.model, expert)
     why = mesh_lib.mesh_infeasible(
-        {"data": data, "seq": seq, "model": model}, data * seq * model,
-        cfg.batch_size)
+        {"data": data, "seq": seq, "model": model, "expert": expert},
+        data * seq * model * expert, cfg.batch_size)
     if why:
         raise ValueError(f"--mesh.data {data} --mesh.seq {seq} "
-                         f"--mesh.model {model}: {why}")
+                         f"--mesh.model {model} --mesh.expert {expert}: "
+                         f"{why}")
     if (cfg.batch_size // data) % cfg.grad_accum_steps:
         raise ValueError(
             f"grad_accum_steps {cfg.grad_accum_steps} must divide the "
             f"per-rank batch {cfg.batch_size // data} (batch_size / "
             f"mesh.data)")
-    mesh = mesh_lib.bootstrap(data, seq, device, model)
+    mesh = mesh_lib.bootstrap(data, seq, device, model, expert)
     logger = logger or MetricLogger()
     if not mesh_lib.is_chief():
         logger.enabled = False  # every rank keeps its records; one prints
@@ -293,6 +307,9 @@ def build_stacked(cfg: TrainConfig, device: torch.device,
     data rank's rows in turn). ``min_size``: the partition rule's
     threshold."""
     cfg.validate()
+    if cfg.moe_experts > 0 or cfg.model == "moe_lm":
+        raise ValueError("the stacked data transport runs dense models (a "
+                         "router's load balance is over the global batch)")
     mesh = mesh_lib.stacked_data(cfg.mesh.data)
     task = _make_task(cfg, ONE_PROCESS)
     _, state = _build_model_and_state(cfg, device, mesh=mesh, task=task,
@@ -349,12 +366,13 @@ def train(cfg: TrainConfig, logger: Optional[MetricLogger] = None,
     eval_fn = make_eval_step(task.eval_loss or task.loss)
     logger.log_json({
         "event": "start", "model": cfg.model, "task": task.name,
-        "params": (param_count(model.whole("meta")) if mesh.tp else
+        "params": (param_count(model.whole("meta")) if is_split(model) else
                    sum(state.partition.shapes.get(n, p.shape).numel()
                        for n, p in state.params.items())),
         "device": str(device),
         "global_batch": cfg.batch_size, "start_step": start_step,
-        "mesh": {"data": mesh.data, "seq": mesh.seq, "model": mesh.model},
+        "mesh": {"data": mesh.data, "seq": mesh.seq, "model": mesh.model,
+                 **({"expert": mesh.expert} if mesh.expert > 1 else {})},
     })
     if cfg.grad_sync != "implicit":
         logger.log_json({"event": "grad_sync", "mode": cfg.grad_sync,

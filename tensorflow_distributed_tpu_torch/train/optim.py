@@ -43,6 +43,7 @@ import torch
 from torch import nn
 
 from tensorflow_distributed_tpu_torch.config import TrainConfig
+from tensorflow_distributed_tpu_torch.models.moe import MoeMlp
 
 Schedule = Callable[[int], float]
 Tensors = Dict[str, torch.Tensor]
@@ -98,14 +99,16 @@ def make_schedule(cfg: TrainConfig) -> Schedule:
 def decay_mask(model: nn.Module) -> Dict[str, bool]:
     """Weight-decay mask by parameter name: the flax leaves named
     ``kernel`` or ``embedding`` are the ``weight`` of a Linear, a Conv2d
-    or an Embedding here; biases and LayerNorm scales/offsets never
-    decay."""
+    or an Embedding here, and a MoE block's ``gate``, ``wi`` and ``wo``
+    keep their flax names (JAX decays all five); biases and LayerNorm
+    scales/offsets never decay."""
     mask = {}
     for mod_name, module in model.named_modules():
         for p_name, _ in module.named_parameters(recurse=False):
             full = f"{mod_name}.{p_name}" if mod_name else p_name
-            mask[full] = (p_name == "weight" and isinstance(
-                module, (nn.Linear, nn.Conv2d, nn.Embedding)))
+            mask[full] = isinstance(module, MoeMlp) or (
+                p_name == "weight" and isinstance(
+                    module, (nn.Linear, nn.Conv2d, nn.Embedding)))
     return mask
 
 

@@ -7,9 +7,9 @@ over the mesh, the optimizer update, the EMA and the step counter, with
 the parameters updated in place. Metrics stay on the device; the loop
 fetches them on its cadence.
 
-Every rank of a replica group (the ranks of one model index: the whole
-world without a model axis) holds the same copy of its parameters or
-shards. After the backward their gradients are summed over it (one flat
+Every rank of a replica group (the ranks of one model and expert
+index: the whole world without a model or expert axis) holds the same
+copy of its parameters or shards. After the backward their gradients are summed over it (one flat
 all-reduce: the port's form of GSPMD's implicit psum), before clipping,
 the grad-norm metric and the optimizer, so the copies stay
 bit-identical. The tasks normalize each rank's loss by the global count
@@ -18,7 +18,12 @@ Under tensor parallelism a replicated leaf's gradient is already whole
 on every model rank (``copy_to_tp`` sums the ranks' parts of the
 stream's gradient), and the pre-clip global norm counts each sharded
 leaf's square sum summed over the model group (one all-reduce of a
-packed vector) and each replicated leaf once (``grad_norm``).
+packed vector) and each replicated leaf once (``grad_norm``). A MoE
+model's experts cut over an expert group are the same: their gradients
+are the rank's own experts', summed over the replica group (which holds
+no other expert rank), and their squares are summed over the expert
+group in the norm; its router's and the stream's gradients are whole on
+every expert rank (``copy_to_tp`` in ``models/moe.py``).
 
 ``accum_steps`` A > 1 splits this rank's batch into A microbatches (its
 rows of JAX's global microbatches, as the batcher draws them:
@@ -63,7 +68,8 @@ import torch
 
 from tensorflow_distributed_tpu_torch.data.prefetch import map_batch
 from tensorflow_distributed_tpu_torch.parallel.mesh import ONE_PROCESS, Mesh
-from tensorflow_distributed_tpu_torch.parallel.sharding import is_sharded
+from tensorflow_distributed_tpu_torch.parallel.sharding import (
+    is_expert_sharded, is_sharded)
 from tensorflow_distributed_tpu_torch.resilience.watchdog import wait_for
 from tensorflow_distributed_tpu_torch.train.optim import global_norm
 from tensorflow_distributed_tpu_torch.train.state import (
@@ -82,18 +88,20 @@ def step_seed(seed: int, rank: int, step: int) -> int:
 
 
 def grad_norm(grads: Dict[str, torch.Tensor], mesh: Mesh,
-              sharded: frozenset, blocked: frozenset = frozenset()
-              ) -> torch.Tensor:
+              sharded: frozenset, blocked: frozenset = frozenset(),
+              experts: frozenset = frozenset()) -> torch.Tensor:
     """optax.global_norm of the whole model's gradient. Over a model axis
     of processes the ``sharded`` leaves' square sums are summed over the
-    model group, and under fsdp the ``blocked`` leaves' (this rank's
+    model group, over an expert axis the ``experts`` leaves' over the
+    expert group, and under fsdp the ``blocked`` leaves' (this rank's
     data blocks) over the data group too (one small all-reduce each); a
     leaf held whole counts once. Without a process group (the stacked
     transport holds every block) it is the one-process sum, leaf by leaf
     in order, so a stacked fsdp run clips as the replicated one does,
     to the bit."""
     if not mesh.distributed or ((mesh.model == 1 or not sharded)
-                                and not blocked):
+                                and not blocked
+                                and (mesh.expert == 1 or not experts)):
         return global_norm(list(grads.values()))
     squares = {n: torch.sum(g.float() ** 2) for n, g in grads.items()}
     zero = torch.zeros((), device=next(iter(squares.values())).device)
@@ -109,8 +117,11 @@ def grad_norm(grads: Dict[str, torch.Tensor], mesh: Mesh,
         total(lambda n: n in sharded and n not in blocked)])
     mesh.data_all_reduce_([packed[:2]])
     mesh.model_all_reduce_([packed[0::2]])
-    return torch.sqrt(packed.sum() + total(
-        lambda n: n not in sharded and n not in blocked))
+    cut = torch.stack([total(lambda n: n in experts)])
+    mesh.expert_all_reduce_([cut])
+    return torch.sqrt(packed.sum() + cut.sum() + total(
+        lambda n: n not in sharded and n not in blocked
+        and n not in experts))
 
 
 def to_host_async(values: torch.Tensor
@@ -264,13 +275,15 @@ def make_train_step(loss: LossFn, device: torch.device, seed: int = 0,
             ema_decay=ema_decay, skip_nonfinite=skip_nonfinite,
             grad_clip_norm=grad_clip_norm, sync=sync)
     generator = torch.Generator(device=device)
-    sharded = None
+    sharded = experts = None
 
     def step(state: TrainState, batch: Batch) -> Tuple[TrainState, Metrics]:
-        nonlocal sharded
+        nonlocal sharded, experts
         if sharded is None:
             sharded = frozenset(n for n in state.params
                                 if is_sharded(n, state.model))
+            experts = frozenset(n for n in state.params
+                                if is_expert_sharded(n, state.model))
         part = state.partition
         params = state.params
         metrics = forward_backward(state, batch, loss, generator, seed,
@@ -286,9 +299,10 @@ def make_train_step(loss: LossFn, device: torch.device, seed: int = 0,
         # the optimizer sees blocks, so the norm of the whole gradients
         # is handed to its clip.
         norm = None
-        if (mesh.model > 1 or blocked or part.kind == "zero1") and (
+        if (mesh.model > 1 or mesh.expert > 1 or blocked
+                or part.kind == "zero1") and (
                 grad_norm_metric or skip_nonfinite or state.tx.clip_norm):
-            norm = grad_norm(grads, mesh, sharded, blocked)
+            norm = grad_norm(grads, mesh, sharded, blocked, experts)
         if grad_norm_metric:
             metrics = dict(metrics, grad_norm=(
                 norm if norm is not None

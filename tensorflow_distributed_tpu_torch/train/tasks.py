@@ -12,12 +12,16 @@ text corpus under ``--dataset text``) train either the dense head with
 masked cross-entropy or, with ``ce_chunk > 0``, the fused head+loss (ops/fused_ce.py: the model hands over its features and
 head matrix, and the [B, L, V] logits are never materialized), by the
 chunk loop (``ce_impl="scan"``) or the fused-CE kernels
-(``ce_impl="kernel"``).
+(``ce_impl="kernel"``). A transformer with experts (``moe_lm``, or
+``--moe-experts`` on gpt_lm or bert_mlm) trains the ``moe_clm`` or
+``moe_mlm`` objective: the same CE plus the routers' load-balance and
+z-loss terms (``make_moe_loss``).
 
 One rule normalizes every loss over the mesh (``parallel/mesh.py``):
 each rank computes its cross-entropy sum, correct count and row (or
 token) count; the three are summed over the replica group (the data x
-seq ranks of one model index: the whole world without a model axis),
+seq ranks of one model and expert index: the whole world without a
+model or expert axis),
 and the rank's loss to differentiate is its own CE sum over the global
 count. Under tensor parallelism the sums come out of the vocab-parallel
 losses already whole on every model rank (their combine over the model
@@ -26,7 +30,10 @@ over the replica group (train/step.py) are then exactly the gradient of
 the JAX package's global mean, also for masked LM batches where ranks
 hold different token counts. Ranks of one data coordinate that hold the
 same rows (a vision batch under ``mesh.seq > 1``) count them once each
-in the sums and in the count alike.
+in the sums and in the count alike. The router terms follow the same
+rule (``models/moe.moe_objective``): the routed counts are summed over
+the replica group, and each rank differentiates its own probability and
+z sums over the global token count.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ import numpy as np
 import torch
 
 from tensorflow_distributed_tpu_torch.config import TrainConfig
+from tensorflow_distributed_tpu_torch.models.moe import moe_objective
 from tensorflow_distributed_tpu_torch.ops.fused_ce import fused_ce_sums_by
 from tensorflow_distributed_tpu_torch.ops.losses import (
     ce_sums, masked_ce_sums)
@@ -129,12 +137,12 @@ def _make_vision_task(cfg: TrainConfig, mesh: Mesh) -> Task:
 # --- causal LM ------------------------------------------------------------
 
 def _fused_lm_sums(model, batch, train, generator, label_smoothing,
-                   ce_chunk, ce_impl="scan"):
+                   ce_chunk, ce_impl="scan", **model_kw):
     """The fused-CE body: run the model in features_only mode and the
     head product inside the chunked loss. Returns (ce_sum, correct,
     mask_sum)."""
     feats, w, bias = model(batch["tokens"], train=train, generator=generator,
-                           features_only=True)
+                           features_only=True, **model_kw)
     vocab = w.vocab_size if isinstance(w, VocabShards) else w.shape[0]
     return fused_ce_sums_by(ce_impl, feats, w, bias, batch["targets"],
                             batch["mask"], vocab_size=vocab,
@@ -157,12 +165,50 @@ def make_mlm_loss(label_smoothing: float = 0.0, ce_chunk: int = 0,
     return mlm_loss
 
 
+MOE_AUX_WEIGHT = 0.01  # Switch-Transformer-style coefficient (JAX's)
+
+
+def make_moe_loss(aux_weight: float = MOE_AUX_WEIGHT,
+                  zloss_weight: float = 0.0, label_smoothing: float = 0.0,
+                  ce_chunk: int = 0, ce_impl: str = "scan",
+                  mesh: Mesh = ONE_PROCESS) -> LossFn:
+    """JAX's ``make_moe_loss``: the masked CE (dense head, or the fused
+    body with ``ce_chunk``) plus ``aux_weight`` x the load-balance term
+    and ``zloss_weight`` x the router z-loss, each the mean over the MoE
+    layers and over the global batch. The metrics are JAX's: ``loss``
+    (the CE alone), ``aux_loss``, ``z_loss``, ``dropped_frac``
+    (never in the objective) and ``accuracy``."""
+
+    def moe_loss(model, batch, train, generator=None):
+        auxes: list = []
+        if ce_chunk:
+            sums = _fused_lm_sums(model, batch, train, generator,
+                                  label_smoothing, ce_chunk, ce_impl,
+                                  moe_aux=auxes)
+        else:
+            logits = model(batch["tokens"], train=train, generator=generator,
+                           moe_aux=auxes)
+            sums = masked_ce_sums(logits, batch["targets"], batch["mask"],
+                                  label_smoothing)
+        loss, metrics = _mean(*sums, mesh)
+        lb, z, aux = moe_objective(auxes, mesh)
+        total = loss + aux_weight * lb + zloss_weight * z
+        return total, {"loss": metrics["loss"],
+                       "aux_loss": aux["load_balance"],
+                       "z_loss": aux["z_loss"],
+                       "dropped_frac": aux["dropped_fraction"],
+                       "accuracy": metrics["accuracy"]}
+
+    return moe_loss
+
+
 def _make_lm_task(cfg: TrainConfig, mesh: Mesh, objective: str,
                   seq_len: int = 128, vocab_size: int = 64) -> Task:
     """LM task: ``objective`` "mlm" (masked positions, the synthetic
     masked-token stream) or "clm" (next token: the synthetic stream, or
     under ``--dataset text`` the local corpus at ``--data-dir``, whose
-    tokenizer sets the vocabulary). ``cfg.seq_len`` /
+    tokenizer sets the vocabulary), with a "moe_" prefix the MoE loss
+    over the same stream. ``cfg.seq_len`` /
     ``cfg.synthetic_vocab`` override the defaults. The train stream
     yields this data rank's rows of each global batch, and the loop
     hands each seq rank its block of the sequence axis."""
@@ -172,7 +218,7 @@ def _make_lm_task(cfg: TrainConfig, mesh: Mesh, objective: str,
     seq_len = cfg.seq_len or seq_len
     vocab_size = cfg.synthetic_vocab or vocab_size
     if cfg.dataset == "text":
-        if objective != "clm":
+        if not objective.endswith("clm"):
             raise ValueError(
                 "dataset='text' is causal-LM only (gpt_lm / moe_lm / "
                 "pipelined_lm); bert_mlm has no byte-masking stream")
@@ -190,7 +236,7 @@ def _make_lm_task(cfg: TrainConfig, mesh: Mesh, objective: str,
                 f"{seq_len}; need >= batch_size {cfg.batch_size} train "
                 f"and >= mesh data axis {mesh.data} val")
     else:
-        gen = synthetic_mlm if objective == "mlm" else synthetic_clm
+        gen = synthetic_mlm if objective.endswith("mlm") else synthetic_clm
         n = max(16 * cfg.batch_size, 4096)
         train_ds = gen(n=n, seq_len=seq_len, vocab_size=vocab_size,
                        seed=cfg.seed)
@@ -206,15 +252,24 @@ def _make_lm_task(cfg: TrainConfig, mesh: Mesh, objective: str,
         for lo in range(0, nrows, batch):
             yield val_ds.batch(np.arange(lo, lo + batch))
 
+    if objective.startswith("moe_"):
+        loss = make_moe_loss(cfg.moe_aux_weight, cfg.moe_zloss_weight,
+                             cfg.label_smoothing, ce_chunk=cfg.ce_chunk,
+                             ce_impl=cfg.ce_impl, mesh=mesh)
+        # Eval keeps the router terms (part of the objective reported).
+        eval_loss = make_moe_loss(cfg.moe_aux_weight, cfg.moe_zloss_weight,
+                                  ce_chunk=cfg.ce_chunk, mesh=mesh)
+    else:
+        loss = make_mlm_loss(cfg.label_smoothing, ce_chunk=cfg.ce_chunk,
+                             ce_impl=cfg.ce_impl, mesh=_train_mesh(cfg, mesh))
+        eval_loss = make_mlm_loss(ce_chunk=cfg.ce_chunk, mesh=mesh)
     return Task(
-        name=objective,
-        loss=make_mlm_loss(cfg.label_smoothing, ce_chunk=cfg.ce_chunk,
-                           ce_impl=cfg.ce_impl, mesh=_train_mesh(cfg, mesh)),
+        name=objective, loss=loss,
         # Eval drops the train-only smoothing but keeps the fused head
         # (the dense eval logits would not fit where ce_chunk is what
         # makes the train shapes fit), always by the scan formulation:
         # the JAX package's eval rule, kept so both report the same.
-        eval_loss=make_mlm_loss(ce_chunk=cfg.ce_chunk, mesh=mesh),
+        eval_loss=eval_loss,
         train_stream=batcher.forever,
         eval_batches=eval_batches, eval_size=len(val_ds),
         steps_per_epoch=batcher.steps_per_epoch, seq_axis=1,
@@ -228,10 +283,12 @@ def _train_mesh(cfg: TrainConfig, mesh: Mesh) -> Mesh:
 
 
 def make_task(cfg: TrainConfig, mesh: Mesh = ONE_PROCESS) -> Task:
-    """Model family -> task: bert_mlm trains masked-LM, gpt_lm
-    next-token prediction; every other family classifies images."""
+    """Model family -> task: bert_mlm trains masked-LM, gpt_lm and
+    moe_lm next-token prediction (with experts, the MoE objective);
+    every other family classifies images."""
+    moe = cfg.moe_experts > 0 or cfg.model == "moe_lm"
     if cfg.model == "bert_mlm":
-        return _make_lm_task(cfg, mesh, "mlm")
-    if cfg.model == "gpt_lm":
-        return _make_lm_task(cfg, mesh, "clm")
+        return _make_lm_task(cfg, mesh, "moe_mlm" if moe else "mlm")
+    if cfg.model in ("gpt_lm", "moe_lm"):
+        return _make_lm_task(cfg, mesh, "moe_clm" if moe else "clm")
     return _make_vision_task(cfg, mesh)

@@ -197,15 +197,19 @@ def test_decode_refusals():
     bert = ttr.TransformerLM(ttr.tiny_config())
     with pytest.raises(ValueError, match="causal"):
         bert(tok, decode=True, positions=torch.tensor([[0]]), cache=cache)
-    # The int8 cache is ported; mixture-of-experts still is not.
+    # The int8 cache and mixture-of-experts are ported: a MoE model
+    # (with either cache) builds and decodes.
     assert ttr.gpt_lm("tiny", kv_cache_quant="int8").cfg.kv_cache_quant == (
         "int8")
     with pytest.raises(ValueError, match="kv_cache_quant"):
         ttr.gpt_lm("tiny", kv_cache_quant="int4")
     for kw in (dict(kv_cache_quant="int8", moe_experts=4),
                dict(moe_experts=4)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttr.gpt_lm("tiny", **kw)
+        moe = ttr.gpt_lm("tiny", **kw)
+        moe.init_weights(torch.Generator().manual_seed(0))
+        assert moe.cfg.moe_experts == 4
+        out = tgen.generate(moe, tok, 3)
+        assert out.shape == (1, 3)
 
 
 def test_cast_dense_weights_keeps_the_logits():

@@ -109,7 +109,7 @@ def test_recompute_from_the_live_generator_would_change_the_grads(
                                                                 (2, 16)))
     want, _ = _grads_and_generator(_model(), tokens)
 
-    def naive(block, x, train, generator, positions, rope):
+    def naive(block, x, train, generator, positions, rope, moe_aux=None):
         return checkpoint(block, x, train, generator, positions, None, rope,
                           use_reentrant=False)
 

@@ -290,24 +290,25 @@ def test_parse_args_spellings_and_defaults():
 
 
 @pytest.mark.parametrize("argv", [["--plan", "auto"],
-                                  ["--moe-top-k", "1"],
-                                  ["--moe-capacity-factor", "2"],
                                   ["--pipeline-microbatches", "8"],
                                   ["--param-sync-every", "4"],
-                                  ["--mesh.pipe", "2"],
-                                  ["--mesh.expert", "2"]])
+                                  ["--mesh.pipe", "2"]])
 def test_unported_jax_flags_are_rejected(argv, capsys):
     with pytest.raises(SystemExit):
         parse_args(argv)
     assert "ROADMAP" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("fields", [dict(model="moe_lm"),
-                                    dict(checkpoint_backend="orbax"),
+@pytest.mark.parametrize("fields", [dict(checkpoint_backend="orbax"),
                                     dict(checkpoint_async=True),
                                     dict(mode="serve",
                                          mesh=MeshConfig(seq=2)),
-                                    dict(moe_experts=4),
+                                    dict(model="moe_lm",
+                                         mesh=MeshConfig(seq=2)),
+                                    dict(moe_experts=4,
+                                         param_partition="zero1"),
+                                    dict(model="moe_lm", grad_sync="serial",
+                                         mesh=MeshConfig(data=2)),
                                     dict(optimizer="adafactor",
                                          mesh=MeshConfig(model=2)),
                                     dict(compute_dtype="float32"),
@@ -335,7 +336,7 @@ def test_shared_fields_have_the_jax_defaults():
         assert getattr(port, name) == getattr(ref, name), name
     mesh = ({f.name for f in dataclasses.fields(type(port.mesh))}
             & {f.name for f in dataclasses.fields(type(ref.mesh))})
-    assert mesh == {"data", "seq", "model"}
+    assert mesh == {"data", "seq", "model", "expert"}
     for name in mesh:
         assert getattr(port.mesh, name) == getattr(ref.mesh, name), name
     for part in ("serve", "resilience"):

@@ -24,6 +24,8 @@ from tensorflow_distributed_tpu_torch.models import MODEL_NAMES, build_model
 from tensorflow_distributed_tpu_torch.models import transformer as ttr
 from tensorflow_distributed_tpu_torch.ops.losses import (
     masked_softmax_cross_entropy)
+from tensorflow_distributed_tpu_torch.parallel.ring_attention import (
+    StackedRing)
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
@@ -196,8 +198,11 @@ def test_configs_mirror_jax():
     {"moe_experts": 8, "shard_vocab": True}, {"moe_experts": 4},
     {"kv_cache_quant": "int8", "moe_experts": 2}])
 def test_unported_options_raise(override):
+    """MoE is ported: each combination builds on one process; with a
+    sequence ring (``--mesh.seq``) it is refused naming ROADMAP.md A5."""
+    assert ttr.gpt_lm(size="tiny", **override).cfg.moe_experts > 0
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttr.gpt_lm(size="tiny", **override)
+        ttr.gpt_lm(size="tiny", ring=StackedRing(2), **override)
 
 
 @pytest.mark.parametrize("override", [
@@ -221,15 +226,17 @@ def test_ported_options_build_the_flax_tree(override):
 
 def test_registry():
     assert MODEL_NAMES == ("mnist_cnn", "resnet20", "resnet50", "bert_mlm",
-                           "gpt_lm")
+                           "gpt_lm", "moe_lm")
     m = build_model("gpt_lm", size="tiny", compute_dtype=torch.float32)
     assert isinstance(m, ttr.CausalLM) and m.cfg.causal
     cnn = build_model("mnist_cnn", dropout_rate=0.5, init_scheme="reference")
     assert (cnn.dropout_rate, cnn.init_scheme) == (0.5, "reference")
     bert = build_model("bert_mlm", size="tiny")
     assert isinstance(bert, ttr.BertMLM) and not bert.cfg.causal
+    moe = build_model("moe_lm", size="tiny")
+    assert moe.cfg.moe_experts == ttr.MOE_DEFAULT_EXPERTS and moe.cfg.causal
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("moe_lm")
+        build_model("pipelined_lm")
 
 
 def test_dropout_keeps_expected_fraction():

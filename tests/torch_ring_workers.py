@@ -158,9 +158,10 @@ def mesh_groups(rank, world, data, seq, out_dir, model=1):
 def train_runs(rank, world, runs, out_dir):
     """``train()`` with ``--device cpu`` for each (name, fields, mesh,
     init path or None) of ``runs`` in turn on this rank: each run's
-    losses, final eval, whole params (gathered from a partition's
-    blocks) and the bytes of the params and Adam slots this rank holds
-    (what its tensors take, blocks included)."""
+    losses (and every logged metric by name), final eval, whole params
+    (gathered from a partition's blocks, the model's shards and
+    experts), the shapes this rank holds, and the bytes of the params
+    and Adam slots it holds (what its tensors take, blocks included)."""
     from tensorflow_distributed_tpu_torch.config import (
         MeshConfig, TrainConfig)
     from tensorflow_distributed_tpu_torch.train.checkpoint import whole_state
@@ -176,9 +177,12 @@ def train_runs(rank, world, runs, out_dir):
         state = res.state
         with whole_state(state) as whole:
             params = {k: v.detach().clone() for k, v in whole.params.items()}
+        records = [r.metrics for r in res.logger.records
+                   if "loss" in r.metrics]
         out[name] = {
-            "losses": [r.metrics["loss"] for r in res.logger.records
-                       if "loss" in r.metrics],
+            "losses": [m["loss"] for m in records],
+            "metrics": {k: [m[k] for m in records] for k in records[0]},
+            "local": {k: tuple(v.shape) for k, v in state.params.items()},
             "final": res.final_metrics, "params": params,
             "held": {"params": sum(p.numel() * 4
                                    for p in state.params.values()),

@@ -414,9 +414,37 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
              from the third step, the first two losses and the norm,
              with the later losses printed; each rank's peak memory,
              step ms and tokens/s a card; skipped, by the device count
-             alone, on fewer than four cards.
+             alone, on fewer than four cards;
+50. model_pipe — GPT-2-small as ``pipelined_lm`` (12 layers, d 768, 12
+             heads, seq 1024, batch 8, bf16, dropout 0), its weights the
+             whole ``gpt_lm``'s carried through ``interop``, on
+             ``StackedPipe(S)`` (every stage in this process) at S 2 and
+             4 with M 4 and at S 4 with M 8: GPipe against the whole
+             model run over the same M microbatches (the loss within
+             1e-4 relative, the logits and the whole gradient within
+             2e-2, each parameter's worst printed; the whole batch at
+             once printed beside bf16's floor, the whole model against
+             itself on two halves), then 1F1B recompute, stash and (at S
+             2) the interleaved schedule over 2 virtual stages against
+             GPipe (the loss within 1e-5, the whole gradient within 1e-4
+             relative); B1-B3 launched exactly 12 x M times (B1 24 x M
+             under recompute and V 2); at M 8 each schedule's peak
+             memory, recompute's below GPipe's;
+51. train_pipe — ``--mesh.pipe 4`` under torchrun (NCCL, four cards):
+             1F1B recompute, stash and GPipe, then ``--mesh.pipe 2
+             --pipeline-virtual-stages 2 --pipeline-microbatches 8`` (12
+             layers do not cut into 4 x 2 virtual stages) and
+             ``--mesh.data 2 --mesh.pipe 2``, 10 steps each: the first
+             five losses within 1e-2 of the same flags at ``--mesh.pipe
+             1`` on one card, every rank launching its B1-B3 share
+             (B2/B3 exactly (12/S) x M a step), each rank's peak memory,
+             step ms and tokens/s a card; the first leg saves and
+             ``--mode eval`` restores the save on the same four ranks
+             (its loss within 1e-5 of the run's final eval); on two cards
+             the pipe 2 legs only; skipped, by the device count alone,
+             on one card.
 
-It then prints the nvidia-smi line, one ``{"kernels": [...]}`` line and,
+It then prints the seconds of each phase, the nvidia-smi line, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the port's package beside it, it exits non-zero and prints no
 result.
@@ -425,7 +453,7 @@ result.
 
 runs the device and build phases, then only the named phases, with the
 same checks, and prints the nvidia-smi line last (no kernels or ok
-line). The phases it takes: ``ce_kernels`` and phases 35-49.
+line). The phases it takes: ``ce_kernels`` and phases 35-51.
 """
 
 from __future__ import annotations
@@ -756,11 +784,12 @@ TOL_U8 = 1e-5
 U8_STEPS_HELD = 5
 # ResNet-50 at 224 (ImageNet shapes, 1000 classes) and ResNet-20 on
 # CIFAR-10 shapes, synthetic sets made from the seed.
-# The phases ``--only`` runs alone: ce_kernels and phases 35-43.
+# The phases ``--only`` runs alone: ce_kernels and phases 35-51.
 ONLY_PHASES = ("ce_kernels", "model_bert", "train_bert", "train_text",
                "train_cnn_u8", "model_resnet", "train_resnet", "tp_kernels",
                "model_tp", "train_tp", "model_zero", "train_zero",
-               "model_moe", "train_moe", "serve_moe", "train_ep")
+               "model_moe", "train_moe", "serve_moe", "train_ep",
+               "model_pipe", "train_pipe")
 # ZeRO-1, FSDP and the explicit gradient sync: GPT-2-small as published
 # (tied) on the stacked transport of D data ranks, each leg's steps
 # through the port's train step; then --param-partition / --grad-sync
@@ -835,6 +864,27 @@ TRAIN_EP_TIMEOUT_S = 900  # one torchrun of 4 ranks, builds included
 # losses and its first step's gradient norm to one card's within
 # TOL_RING_LOSS; the later losses are printed.
 TRAIN_EP_MODEL_LOSSES = 2
+# Pipeline parallelism: GPT-2-small as pipelined_lm, its weights the
+# whole gpt_lm's (the same names), on StackedPipe(S) (every stage in this
+# process) at (S, M) of PIPE_CASES against the whole model; then
+# --mesh.pipe over torchrun.
+PIPE_MODEL = dict(size="small", B=8, L=1024)
+PIPE_CASES = ((2, 4), (4, 4), (4, 8))  # (stages S, microbatches M)
+PIPE_V2_STAGES = 2  # 12 layers cut into S x 2 virtual stages: S 2 only
+TOL_PIPE = 2e-2             # GPipe vs the whole model: logits, gradient
+TOL_PIPE_LOSS = 1e-4        # GPipe vs the whole model: loss, relative
+TOL_PIPE_SCHED_LOSS = 1e-5  # 1F1B vs GPipe: loss, relative
+TOL_PIPE_SCHED_GRAD = 1e-4  # 1F1B vs GPipe: the whole gradient, relative
+TRAIN_PIPE_STEPS = 10
+TRAIN_PIPE_ARGV = ["--mode", "train", "--model", "pipelined_lm",
+                   "--model-size", "small", "--seq-len", "1024",
+                   "--batch-size", "8", "--train-steps",
+                   str(TRAIN_PIPE_STEPS), "--eval-every", "0",
+                   "--eval-batch-size", "8", "--dropout-rate", "0",
+                   "--compute-dtype", "bfloat16", "--log-every", "1"]
+TRAIN_PIPE_TIMEOUT_S = 600  # one torchrun, NCCL start-up included
+PIPE_LAYERS = 12  # TRAIN_PIPE_ARGV's model's (each rank's share of B1-B3)
+TOL_PIPE_EVAL = 1e-5  # --mode eval of the save vs the run's final eval
 MODEL_RESNET_B = 4
 MODEL_RESNET_IMAGE = 224
 TOL_RESNET_F32 = 1e-3  # f32 on the card vs f32 on the CPU, train mode
@@ -878,6 +928,17 @@ REPLACES = {"flash_fwd": f"{TPU_FLASH}:183", "flash_dq": f"{TPU_FLASH}:255",
             "flash_fwd_partial": f"{TPU_FLASH}:395",
             "flash_dq_partial": f"{TPU_FLASH}:451",
             "flash_dkv_partial": f"{TPU_FLASH}:479"}
+
+
+_LAPS: list = []  # (phase, its seconds), in order
+_LAP_T = [time.time()]
+
+
+def lap(name: str) -> None:
+    """Close phase ``name``: its seconds since the previous lap."""
+    now = time.time()
+    _LAPS.append((name, round(now - _LAP_T[0], 1)))
+    _LAP_T[0] = now
 
 
 def emit(obj) -> None:
@@ -1898,6 +1959,19 @@ def rank_entry(outdir: str, argv) -> int:
     for kern in kernels:
         kern.launches = 0
     out = os.path.join(outdir, f"rank{rank}.out")
+    if cfg.mode == "eval":
+        from tensorflow_distributed_tpu_torch.train.loop import evaluate_only
+        try:
+            with open(out, "w") as f, contextlib.redirect_stdout(f):
+                metrics = evaluate_only(
+                    cfg, logger=MetricLogger(stream=sys.stderr))
+        finally:
+            mesh.shutdown()
+        with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+            json.dump({"eval": metrics,
+                       "launches": {kern.name: kern.launches
+                                    for kern in kernels}}, f)
+        return 0
     try:
         with open(out, "w") as f, contextlib.redirect_stdout(f):
             result = cli.train_and_report(
@@ -1907,13 +1981,21 @@ def rank_entry(outdir: str, argv) -> int:
     with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
         steps = [r.metrics for r in result.logger.records
                  if "loss" in r.metrics]
+        walls = [r.wall_time for r in result.logger.records
+                 if "loss" in r.metrics]
+        gaps = [b - a for a, b in zip(walls[1:], walls[2:])]
         json.dump({"losses": [m["loss"] for m in steps],
+                   # Between the step records after the second: no
+                   # first-step set-up, no final save.
+                   "step_ms_median": (1e3 * statistics.median(gaps)
+                                      if gaps else None),
                    "grad_norms": [m.get("grad_norm") for m in steps],
                    "steps_per_sec": result.steps_per_sec,
                    "images_per_sec": result.images_per_sec,
                    "max_memory_allocated": (torch.cuda.max_memory_allocated()
                                             if torch.cuda.is_available()
                                             else None),
+                   "final": result.final_metrics,
                    "launches": {kern.name: kern.launches
                                 for kern in kernels}}, f)
     return 0
@@ -5156,6 +5238,365 @@ def phase_train_ep(torch) -> None:
                   f"{r['launches']}")
 
 
+_WHOLE_TREE: dict = {}  # model_pipe's whole model as a flax tree
+
+
+def pipe_models(torch, whole, S: int, M: int, V: int = 1):
+    """GPT-2-small (``PIPE_MODEL``) as ``pipelined_lm`` on
+    ``StackedPipe(S)`` with M microbatches and V virtual stages, its
+    weights the whole model's carried through ``interop`` (the gpt_lm
+    tree stacked into JAX's pipelined tree, then this model's part of
+    it), in bf16 without dropout."""
+    from tensorflow_distributed_tpu_torch import interop
+    from tensorflow_distributed_tpu_torch.models.pipelined import (
+        pipelined_lm)
+    from tensorflow_distributed_tpu_torch.parallel.mesh import StackedPipe
+
+    with torch.device(DEVICE):
+        model = pipelined_lm(PIPE_MODEL["size"], pipe=StackedPipe(S),
+                             num_microbatches=M, virtual_stages=V,
+                             compute_dtype=torch.bfloat16, dropout_rate=0.0,
+                             n_layers=whole.cfg.n_layers,
+                             max_len=whole.cfg.max_len)
+    if "tree" not in _WHOLE_TREE:
+        _WHOLE_TREE["tree"] = interop.params_to_flax(
+            dict(whole.named_parameters()), whole)
+    tree = interop.layers_to_pipelined(_WHOLE_TREE["tree"], S, V)
+    with torch.no_grad():
+        model.load_state_dict(interop.shards_from_flax(tree, model))
+    return model
+
+
+def pipe_1f1b(torch, model, batch, backward: str):
+    """One 1F1B schedule of ``model`` over ``batch`` (the dense head's
+    masked CE at the last stage, the mean over the batch's mask), the
+    embedding's backward from stage 0's cotangent: (loss, grads)."""
+    from tensorflow_distributed_tpu_torch.ops.losses import masked_ce_sums
+    from tensorflow_distributed_tpu_torch.parallel.pipeline import (
+        interleaved_pipeline_value_and_grad, pipeline_value_and_grad)
+
+    def last_fn(y, aux):
+        tgt, msk = aux
+        ce, correct, n = masked_ce_sums(model.head(y), tgt, msk)
+        return ce, {"correct": correct, "mask": n}
+
+    total = batch["mask"].sum()
+    x = model.embed(batch["tokens"])
+    stage_fn = model.make_stage_fn(train=True, seed=None)
+    args = (stage_fn, last_fn, x, (batch["targets"], batch["mask"]),
+            model.pipe, model.num_microbatches)
+    if model.virtual_stages > 1:
+        val, _, _, d_x = interleaved_pipeline_value_and_grad(
+            *args, model.virtual_stages, cotangent_scale=1.0 / total)
+    else:
+        val, _, _, d_x = pipeline_value_and_grad(
+            *args, cotangent_scale=1.0 / total, backward=backward)
+    x.backward(d_x)
+    return float(val / total), {k: p.grad for k, p in
+                                model.named_parameters()}
+
+
+def phase_model_pipe(fa, torch, np) -> None:
+    """GPT-2-small as ``pipelined_lm`` on ``StackedPipe(S)`` at each (S,
+    M) of ``PIPE_CASES``: GPipe against the whole model run over the same
+    M microbatches (its gradients accumulated: the same bf16 products;
+    against the whole batch at once, and the whole model's own floor on
+    two halves, printed), then 1F1B
+    (recompute, stash; at S ``PIPE_V2_STAGES`` the interleaved schedule
+    over 2 virtual stages) against GPipe, every launch count set to 0
+    just before each schedule's forward and backward and read after;
+    at M 8 each schedule's peak memory. Returns the launch counts by
+    leg."""
+    from tensorflow_distributed_tpu_torch.models.pipelined import (
+        PIPELINED_TINY_LAYERS)
+    from tensorflow_distributed_tpu_torch.models.transformer import gpt_lm
+    from tensorflow_distributed_tpu_torch.ops.losses import masked_ce_sums
+
+    rng = np.random.default_rng(0)
+    B, L = PIPE_MODEL["B"], PIPE_MODEL["L"]
+    layers = {} if PIPE_MODEL["size"] != "tiny" else {
+        "n_layers": PIPELINED_TINY_LAYERS, "max_len": L}
+    with torch.device(DEVICE):
+        whole = gpt_lm(PIPE_MODEL["size"], compute_dtype=torch.bfloat16,
+                       dropout_rate=0.0, **layers)
+    whole.init_weights(torch.Generator(device=DEVICE).manual_seed(0))
+    V_ = whole.cfg.vocab_size
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in (
+        ("tokens", rng.integers(0, V_, (B, L))),
+        ("targets", rng.integers(0, V_, (B, L))),
+        ("mask", (rng.random((B, L)) < 0.9).astype(np.float32)))}
+
+    def dense(m, rows=slice(None)):
+        out = m(batch["tokens"][rows])
+        ce, _, _ = masked_ce_sums(out, batch["targets"][rows],
+                                  batch["mask"][rows])
+        loss = ce / batch["mask"].sum()
+        loss.backward()
+        return float(loss.detach()), out.detach()
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max().clamp(min=1e-30))
+
+    def grad_errs(got, ref):
+        diff = sum(float((got[k].float() - g.float()).pow(2).sum())
+                   for k, g in ref.items())
+        norm = sum(float(g.float().pow(2).sum()) for g in ref.values())
+        each = {k: rel(got[k], g) for k, g in ref.items()
+                if float(g.abs().max()) > 0}
+        worst = max(each, key=each.get)
+        return math.sqrt(diff / norm), each[worst], worst
+
+    def grads_of(m):
+        return {k: p.grad.detach().clone() for k, p in m.named_parameters()}
+
+    def counted(fn):
+        """``fn()`` with every launch count set to 0 just before and
+        read after, and (on the card) the peak memory of its run."""
+        sync(torch)
+        if DEVICE != "cpu":
+            torch.cuda.reset_peak_memory_stats()
+        for kern in fa.KERNELS:
+            kern.launches = 0
+        before = (torch.cuda.memory_allocated() if DEVICE != "cpu"
+                  else None)
+        t0 = time.time()
+        out = fn()
+        sync(torch)
+        peak = (torch.cuda.max_memory_allocated() if DEVICE != "cpu"
+                else None)
+        return out, {kern.name: kern.launches for kern in fa.KERNELS}, \
+            (peak, before), time.time() - t0
+
+    def by_microbatch(M):
+        """The whole model over the batch's M microbatches in turn, their
+        gradients accumulated: GPipe's bf16 products, a microbatch at a
+        time (the oracle of the gates)."""
+        whole.zero_grad(set_to_none=True)
+        outs = [dense(whole, slice(i * (B // M), (i + 1) * (B // M)))
+                for i in range(M)]
+        grads = grads_of(whole)
+        whole.zero_grad(set_to_none=True)
+        return (sum(o[0] for o in outs), torch.cat([o[1] for o in outs]),
+                grads)
+
+    ref_loss, ref_logits = dense(whole)
+    ref_grads = grads_of(whole)
+    whole.zero_grad(set_to_none=True)
+    halves = by_microbatch(2)[2]
+    noise = grad_errs(halves, ref_grads)
+    refs = {M: by_microbatch(M) for M in sorted({M for _, M in PIPE_CASES})}
+    _WHOLE_TREE.clear()
+    n_layers = whole.cfg.n_layers
+    by_leg = {}
+    for S, M in PIPE_CASES:
+        legs = [("gpipe", 1), ("recompute", 1), ("stash", 1)]
+        if S == PIPE_V2_STAGES:
+            legs.append(("v2", 2))
+        gp = None
+        for leg, V in legs:
+            model = pipe_models(torch, whole, S, M, V)
+            if leg == "gpipe":
+                (loss, logits), launches, peak, secs = counted(
+                    lambda: dense(model))
+            else:
+                (loss, _), launches, peak, secs = counted(
+                    lambda: (pipe_1f1b(torch, model, batch,
+                                       "stash" if leg == "stash"
+                                       else "recompute")[0], None))
+            grads = grads_of(model)
+            row = {"phase": "model_pipe", "S": S, "M": M, "V": V,
+                   "leg": leg, "rows_a_microbatch": B // M,
+                   "loss": loss, "launches": launches,
+                   "fwd_bwd_s": round(secs, 4),
+                   "peak_mem_bytes": peak[0] if M == 8 else None,
+                   "mem_at_start_bytes": peak[1] if M == 8 else None}
+            if leg == "gpipe":
+                gp = (loss, grads, peak)
+                m_loss, m_logits, m_grads = refs[M]
+                g_err, w_err, worst = grad_errs(grads, m_grads)
+                b_err, b_worst_err, b_worst = grad_errs(grads, ref_grads)
+                row.update(ref_loss=m_loss,
+                           loss_rel_err=abs(loss - m_loss) / abs(m_loss),
+                           logits_rel_err=rel(logits, m_logits),
+                           grads_rel_err=g_err, worst_param_rel_err=w_err,
+                           worst_param=worst,
+                           whole_batch={
+                               "loss_rel_err": abs(loss - ref_loss)
+                               / abs(ref_loss),
+                               "logits_rel_err": rel(logits, ref_logits),
+                               "grads_rel_err": b_err,
+                               "worst_param_rel_err": b_worst_err,
+                               "worst_param": b_worst},
+                           bf16_floor_whole_vs_halves={
+                               "grads_rel_err": noise[0],
+                               "worst_param_rel_err": noise[1],
+                               "worst_param": noise[2]},
+                           tolerance=TOL_PIPE)
+                ok = (row["loss_rel_err"] <= TOL_PIPE_LOSS
+                      and row["logits_rel_err"] <= TOL_PIPE
+                      and g_err <= TOL_PIPE)
+            else:
+                g_err, w_err, worst = grad_errs(grads, gp[1])
+                row.update(gpipe_loss=gp[0],
+                           loss_rel_err=abs(loss - gp[0]) / abs(gp[0]),
+                           grads_rel_err=g_err, worst_param_rel_err=w_err,
+                           worst_param=worst,
+                           tolerance={"loss": TOL_PIPE_SCHED_LOSS,
+                                      "grads": TOL_PIPE_SCHED_GRAD})
+                ok = (row["loss_rel_err"] <= TOL_PIPE_SCHED_LOSS
+                      and g_err <= TOL_PIPE_SCHED_GRAD)
+            emit(row)
+            by_leg[f"S{S}_M{M}_{leg}"] = launches
+            check(math.isfinite(loss) and ok,
+                  f"model_pipe S {S} M {M} {leg}: disagrees: {row}")
+            fwd = n_layers * M * (2 if leg in ("recompute", "v2") else 1)
+            want = {"flash_fwd": fwd, "flash_dq": n_layers * M,
+                    "flash_dkv": n_layers * M}
+            check(launches == want,
+                  f"model_pipe S {S} M {M} {leg}: B1-B3 launched "
+                  f"{launches}, want {want}")
+            if M == 8 and leg == "recompute" and DEVICE != "cpu":
+                check(peak[0] < gp[2][0],
+                      f"model_pipe S {S} M {M}: 1F1B recompute's peak "
+                      f"{peak[0]} B is not below GPipe's {gp[2][0]} B")
+            del model, grads
+            if DEVICE != "cpu":
+                torch.cuda.empty_cache()
+    _WHOLE_TREE.clear()
+    return by_leg
+
+
+M8 = ["--pipeline-microbatches", "8"]
+
+
+def train_pipe_runs(count: int):
+    """train_pipe's legs for ``count`` cards: (name, processes, the
+    argv's pipeline flags, its mesh flags, the flags of the one-card run
+    it is held to). 12 layers do not cut into 4 x 2 virtual stages, so
+    the interleaved leg runs at pipe 2. A data rank of data 2 x pipe 2
+    runs one-row microbatches (4 of its 4 rows), so that leg is held to
+    one card's 8 one-row microbatches: the same bf16 products (one
+    card's 4 two-row microbatches round each microbatch's weight
+    gradient otherwise, printed beside)."""
+    runs = []
+    if count >= 4:
+        p4 = ["--mesh.pipe", "4"]
+        stash, gpipe = (["--pipeline-backward", "stash"],
+                        ["--pipeline-schedule", "gpipe"])
+        runs += [("pipe4_recompute", 4, [], p4, []),
+                 ("pipe4_stash", 4, stash, p4, stash),
+                 ("pipe4_gpipe", 4, gpipe, p4, gpipe)]
+    else:
+        runs.append(("pipe2_recompute", 2, [], ["--mesh.pipe", "2"], []))
+    v2 = ["--pipeline-virtual-stages", "2"] + M8
+    runs.append(("pipe2_v2", 2, v2, ["--mesh.pipe", "2"], v2))
+    if count >= 4:
+        runs.append(("data2_pipe2", 4, [],
+                     ["--mesh.data", "2", "--mesh.pipe", "2"], M8))
+    return runs
+
+
+def phase_train_pipe(torch) -> None:
+    """--mesh.pipe P under torchrun (NCCL): 10 steps a leg, the first
+    five losses within 1e-2 of the same flags at --mesh.pipe 1 on one
+    card, every rank launching its share of B1-B3; the first leg saves
+    and --mode eval restores the save on the same ranks. Skipped, by the
+    device count alone, on one card; on two, the pipe 2 legs only."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        emit({"phase": "train_pipe",
+              "skipped": f"needs >= 2 CUDA devices, have {count}"})
+        return
+    tokens = 8 * 1024
+    layers = PIPE_LAYERS
+    one_card = {}
+    results = []
+    with tempfile.TemporaryDirectory(prefix="tfd_pipe_") as ckpt_dir:
+        for i, (name, nproc, flags, mesh, ref) in enumerate(
+                train_pipe_runs(count)):
+            save = (["--checkpoint-dir", ckpt_dir, "--checkpoint-every",
+                     str(TRAIN_PIPE_STEPS)] if i == 0 else [])
+            argv = TRAIN_PIPE_ARGV + flags + mesh + save
+            wall, ranks, _ = run_torchrun(f"train_pipe {name}", nproc, argv,
+                                          TRAIN_PIPE_TIMEOUT_S)
+            for key in {tuple(flags), tuple(ref)}:
+                if key not in one_card:
+                    one_card[key] = one_card_losses(TRAIN_PIPE_ARGV
+                                                    + list(key))
+            one, one_sps = one_card[tuple(ref)]
+            same_argv = one_card[tuple(flags)][0]
+            S = int(mesh[mesh.index("--mesh.pipe") + 1])
+            D = (int(mesh[mesh.index("--mesh.data") + 1])
+                 if "--mesh.data" in mesh else 1)
+            M = (int(flags[flags.index("--pipeline-microbatches") + 1])
+                 if "--pipeline-microbatches" in flags else 4)
+            recompute = "--pipeline-backward" not in flags and (
+                "--pipeline-schedule" not in flags)
+            share = layers // S * M * TRAIN_PIPE_STEPS
+            rec = {"phase": "train_pipe", "run": name, "processes": nproc,
+                   "argv": argv, "wall_s": round(wall, 3),
+                   "losses": ranks[0]["losses"][:5],
+                   "one_card_flags": ref, "one_card_losses": one[:5],
+                   "max_loss_diff": max(abs(a - b) for r in ranks
+                                        for a, b in zip(r["losses"][:5],
+                                                        one)),
+                   "same_argv_one_card_losses": same_argv[:5],
+                   "same_argv_max_loss_diff": max(
+                       abs(a - b) for r in ranks
+                       for a, b in zip(r["losses"][:5], same_argv)),
+                   "step_ms_median_per_rank": [r["step_ms_median"]
+                                               for r in ranks],
+                   "tokens_per_s_per_card": [
+                       tokens / (r["step_ms_median"] / 1e3) / nproc
+                       if r["step_ms_median"] else None for r in ranks],
+                   "one_card_step_ms": 1e3 / one_sps if one_sps else None,
+                   "one_card_tokens_per_s": one_sps * tokens,
+                   "peak_mem_bytes_per_rank": [r["max_memory_allocated"]
+                                               for r in ranks],
+                   "b1_b3_share_a_rank": {
+                       "flash_fwd": share * (2 if recompute else 1),
+                       "flash_dq": share, "flash_dkv": share},
+                   "launches_per_rank": [
+                       {k: r["launches"][k] for k in
+                        ("flash_fwd", "flash_dq", "flash_dkv")}
+                       for r in ranks],
+                   "data": D, "pipe": S}
+            emit(rec)
+            results.append((name, ranks, one, rec))
+            if i == 0:
+                eval_argv = (["--mode", "eval"] + TRAIN_PIPE_ARGV[2:] + mesh
+                             + ["--checkpoint-dir", ckpt_dir])
+                _, evals, _ = run_torchrun(f"train_pipe {name} eval", nproc,
+                                           eval_argv, TRAIN_PIPE_TIMEOUT_S)
+                final = ranks[0]["final"]["loss"]
+                got = [r["eval"]["loss"] for r in evals]
+                emit({"phase": "train_pipe", "run": f"{name}_eval",
+                      "argv": eval_argv, "eval_losses": got,
+                      "final_eval_loss": final,
+                      "max_rel_diff": max(abs(g - final) / abs(final)
+                                          for g in got),
+                      "tolerance": TOL_PIPE_EVAL})
+                check(all(abs(g - final) <= TOL_PIPE_EVAL * abs(final)
+                          for g in got),
+                      f"train_pipe {name}: --mode eval of the save {got} "
+                      f"vs the run's final eval {final}")
+    for name, ranks, one, rec in results:
+        share = rec["b1_b3_share_a_rank"]
+        for r in ranks:
+            check(len(r["losses"]) == TRAIN_PIPE_STEPS and all(
+                abs(a - b) <= TOL_RING_LOSS
+                for a, b in zip(r["losses"][:5], one)),
+                f"train_pipe {name}: losses {r['losses']} vs one card "
+                f"{one}")
+            launched = r["launches"]
+            check(launched["flash_dq"] == share["flash_dq"]
+                  and launched["flash_dkv"] == share["flash_dkv"]
+                  and launched["flash_fwd"] >= share["flash_fwd"],
+                  f"train_pipe {name}: a rank did not launch its B1-B3 "
+                  f"share {share}: {launched}")
+
+
 def run_alone(names, fa, fce, kernels, torch, np, F) -> None:
     """``--only``: the named phases of ONLY_PHASES, in the order given."""
     alone = {"ce_kernels": lambda: phase_ce_kernels(fce, torch, F),
@@ -5173,9 +5614,12 @@ def run_alone(names, fa, fce, kernels, torch, np, F) -> None:
              "model_moe": lambda: phase_model_moe(fa, torch, np),
              "train_moe": lambda: phase_train_moe(kernels, torch),
              "serve_moe": lambda: phase_serve_moe(torch, np),
-             "train_ep": lambda: phase_train_ep(torch)}
+             "train_ep": lambda: phase_train_ep(torch),
+             "model_pipe": lambda: phase_model_pipe(fa, torch, np),
+             "train_pipe": lambda: phase_train_pipe(torch)}
     for name in names:
         alone[name]()
+        lap(name)
 
 
 def main(argv=None) -> int:
@@ -5209,61 +5653,116 @@ def main(argv=None) -> int:
     kernels = fa.KERNELS + fce.KERNELS + fa.PARTIAL_KERNELS
 
     gpu = phase_device(torch)
+    lap("device")
     phase_build(fa, fce)
+    lap("build")
     if only is not None:
         run_alone(only, fa, fce, kernels, torch, np, F)
+        emit({"phase": "phase_seconds", "seconds": dict(_LAPS)})
         print(gpu, flush=True)
         return 0
     flash = phase_kernels(fa, torch, F)
+    lap("kernels")
     ce = phase_ce_kernels(fce, torch, F)
+    lap("ce_kernels")
     phase_model(fa, torch, np)
+    lap("model")
     phase_model_fused(fce, torch, np)
+    lap("model_fused")
     dense = phase_train(kernels, torch)
+    lap("train")
     fused = phase_train_fused(kernels, torch, dense)
+    lap("train_fused")
     phase_step_profile(torch)
+    lap("step_profile")
     partial = phase_ring_kernels(fa, torch, gpu)
+    lap("ring_kernels")
     ring_launches = phase_ring(fa, ra, torch, gpu)
+    lap("ring")
     phase_train_ring(torch)
+    lap("train_ring")
     phase_model_cnn(torch, np)
+    lap("model_cnn")
     phase_train_cnn(kernels, torch)
+    lap("train_cnn")
     phase_train_data(torch)
+    lap("train_data")
     phase_decode(fa, torch, np)
+    lap("decode")
     phase_serve_identity(torch, np)
+    lap("serve_identity")
     serve = phase_serve(torch)
+    lap("serve")
     # The checkpoint phase's directory lives until serve_fire swaps from it.
     with tempfile.TemporaryDirectory(prefix="tfd_ckpt_") as ckpt_dir:
         phase_checkpoint(kernels, torch, ckpt_dir)
+        lap("checkpoint")
         phase_eval(kernels, torch, ckpt_dir)
+        lap("eval")
         phase_generate(torch, np, ckpt_dir)
+        lap("generate")
         phase_serve_checkpoint(torch, ckpt_dir)
+        lap("serve_checkpoint")
         phase_model_llama(fa, torch, np)
+        lap("model_llama")
         phase_train_llama(kernels, torch, fused)
+        lap("train_llama")
         phase_train_window(kernels, torch)
+        lap("train_window")
         phase_decode_llama(fa, torch, np)
+        lap("decode_llama")
         phase_serve_llama(torch, np)
+        lap("serve_llama")
         phase_decode_int8(fa, torch, np)
+        lap("decode_int8")
         phase_serve_paged_identity(torch, np)
+        lap("serve_paged_identity")
         phase_serve_paged(torch, serve)
+        lap("serve_paged")
         phase_serve_spec_identity(torch, np)
+        lap("serve_spec_identity")
         phase_serve_spec(torch, serve)
+        lap("serve_spec")
         phase_serve_slo(torch, np)
+        lap("serve_slo")
         phase_serve_fire(torch, np, ckpt_dir, serve)
+        lap("serve_fire")
     phase_train_fire(kernels, torch)
+    lap("train_fire")
     phase_model_bert(fa, torch, np)
+    lap("model_bert")
     phase_train_bert(fa, kernels, torch)
+    lap("train_bert")
     phase_train_text(kernels, torch)
+    lap("train_text")
     phase_train_cnn_u8(kernels, torch)
+    lap("train_cnn_u8")
     phase_model_resnet(torch, np)
+    lap("model_resnet")
     phase_train_resnet(kernels, torch)
+    lap("train_resnet")
     phase_tp_kernels(fa, torch)
+    lap("tp_kernels")
     phase_model_tp(fa, torch, np)
+    lap("model_tp")
     phase_train_tp(torch)
+    lap("train_tp")
     phase_model_zero(kernels, torch)
+    lap("model_zero")
     phase_train_zero(torch)
+    lap("train_zero")
     phase_model_moe(fa, torch, np)
+    lap("model_moe")
     phase_train_moe(kernels, torch)
+    lap("train_moe")
     phase_serve_moe(torch, np)
+    lap("serve_moe")
     phase_train_ep(torch)
+    lap("train_ep")
+    pipe_launches = phase_model_pipe(fa, torch, np)
+    lap("model_pipe")
+    phase_train_pipe(torch)
+    lap("train_pipe")
 
     err = {"flash_fwd": flash["errors"]["o_abs_err"],
            "flash_dq": flash["errors"]["dq_abs_err"],
@@ -5287,14 +5786,20 @@ def main(argv=None) -> int:
         else:
             res, launched = ce, fused["launches"]
         bound_ms, bound_by = res["bounds"][name]
-        rows.append({"name": name, "route": "cuda",
-                     "source": SOURCES[kern.library],
-                     "replaces": REPLACES[name],
-                     "launches": launched[name],
-                     "max_abs_err": err[name], "ms": res["ms"][name],
-                     "plain_ms": res["plain_ms"][name], "bound_ms": bound_ms,
-                     "bound_by": bound_by,
-                     "library_ms": res["library_ms"][name]})
+        row = {"name": name, "route": "cuda",
+               "source": SOURCES[kern.library],
+               "replaces": REPLACES[name],
+               "launches": launched[name],
+               "max_abs_err": err[name], "ms": res["ms"][name],
+               "plain_ms": res["plain_ms"][name], "bound_ms": bound_ms,
+               "bound_by": bound_by,
+               "library_ms": res["library_ms"][name]}
+        if name in pipe_launches.get("S2_M4_gpipe", {}):
+            # model_pipe's launches (stacked stages), by (S, M, schedule).
+            row["model_pipe_launches"] = {leg: n[name] for leg, n in
+                                          pipe_launches.items()}
+        rows.append(row)
+    emit({"phase": "phase_seconds", "seconds": dict(_LAPS)})
     print(gpu, flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",

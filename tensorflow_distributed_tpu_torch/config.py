@@ -20,7 +20,12 @@ The mixture-of-experts knobs (``--moe-*``, ``--model moe_lm``,
 ``--mesh.expert``) take the JAX defaults, checks and messages; MoE under
 ``--mesh.seq``, a partition or an explicit gradient sync is refused
 naming ROADMAP.md, as is ``--compute-dtype float32`` for training or
-evaluating the LM on a GPU (the kernels take bf16).
+evaluating the LM on a GPU (the kernels take bf16). The pipeline
+(``--model pipelined_lm``, ``--mesh.pipe``, ``--pipeline-*``) and
+``--param-sync-every`` take the JAX defaults, checks and messages; the
+pipe with a model or seq axis, ``pipelined_lm`` with ``--param-partition
+zero1`` or with an expert axis, and local SGD (``--param-sync-every`` >
+1) are refused naming ROADMAP.md A5.
 """
 
 from __future__ import annotations
@@ -40,9 +45,12 @@ OPTIMIZERS = ("adam", "sgd", "adafactor")
 COMPUTE_DTYPES = ("bfloat16", "float32")
 CE_IMPLS = ("scan", "kernel")
 MODEL_SIZES = ("", "small", "medium", "large", "xl", "tiny", "base")
-LM_MODELS = ("gpt_lm", "bert_mlm", "moe_lm")
-# The LM families with the decode cache (generate, serve, windows).
+LM_MODELS = ("gpt_lm", "bert_mlm", "moe_lm", "pipelined_lm")
+# The LM families with the decode cache (generate, serve).
 CAUSAL_LM_MODELS = ("gpt_lm", "moe_lm")
+# The causal families (a sliding window).
+WINDOW_MODELS = ("gpt_lm", "moe_lm", "pipelined_lm")
+PIPELINE_SCHEDULES = ("gpipe", "1f1b")
 VISION_MODELS = ("mnist_cnn", "resnet20", "resnet50")
 DATASETS = ("mnist", "synthetic", "cifar10", "cifar10_synthetic",
             "imagenet_synthetic", "text")
@@ -60,18 +68,19 @@ class MeshConfig:
     reference's worker replicas; -1 = every process the other axes leave
     over), ``model`` axis (Megatron tensor parallelism of the transformer
     families), ``seq`` axis (sequence parallelism, ring attention over
-    ``seq`` processes) and ``expert`` axis (a MoE model's experts cut
-    over ``expert`` processes; without one they take the model axis, as
-    in JAX). The pipe axis is not ported yet (its flag is refused; see
-    ROADMAP.md queue A)."""
+    ``seq`` processes), ``pipe`` axis (pipeline parallelism:
+    ``pipelined_lm``'s blocks cut into ``pipe`` stages, one a process)
+    and ``expert`` axis (a MoE model's experts cut over ``expert``
+    processes; without one they take the model axis, as in JAX)."""
 
     data: int = -1
     model: int = 1
     seq: int = 1
+    pipe: int = 1
     expert: int = 1
 
     def validate(self) -> None:
-        for name in ("model", "seq", "expert"):
+        for name in ("model", "seq", "pipe", "expert"):
             v = getattr(self, name)
             if v < 1:
                 raise ValueError(f"mesh.{name} must be >= 1, got {v}")
@@ -604,6 +613,26 @@ class TrainConfig:
     # tree, then the whole update (needs param_partition=replicated).
     # Both explicit modes take each rank's own mean loss.
     grad_sync: str = "implicit"  # implicit | serial | overlap
+    # Pipeline schedule for model=pipelined_lm: "1f1b" (the hand-
+    # scheduled backward interleaved with the forwards: a stage keeps at
+    # most min(2 pipe, M) microbatches in flight; train/pipeline_step.py)
+    # or "gpipe" (every forward, then autograd's backwards, through the
+    # standard step; composes with grad_accum_steps).
+    pipeline_schedule: str = "1f1b"
+    # Microbatches per pipeline step (M): batch_size % M == 0 and
+    # M >= mesh.pipe. More microbatches shrink the bubble.
+    pipeline_microbatches: int = 4
+    # 1F1B backward: "recompute" (keep each stage's input, re-run its
+    # forward at the backward tick) or "stash" (keep the forward tick's
+    # autograd graph until the backward tick).
+    pipeline_backward: str = "recompute"
+    # Interleaved (virtual-stage) layout, V > 1: each stage owns V depth
+    # chunks of n_layers / (pipe V) layers (Megatron's assignment: chunk
+    # v of stage s is virtual stage v pipe + s). Recompute backward only.
+    pipeline_virtual_stages: int = 1
+    # Local SGD (JAX train/local_sgd.py): 1 = synchronous data
+    # parallelism; > 1 is not ported yet (ROADMAP.md A5).
+    param_sync_every: int = 1
     # Bucket bound (MiB) of --grad-sync overlap; None = 4 MiB (a
     # sentinel, so that any explicit value without overlap is refused).
     grad_sync_bucket_mb: Optional[float] = None
@@ -619,6 +648,10 @@ class TrainConfig:
         if self.grad_accum_steps > 1:
             return ("grad_sync != implicit has no microbatch scan; "
                     "drop grad_accum_steps or use the implicit step")
+        if self.param_sync_every > 1:
+            return ("grad_sync != implicit does not compose with "
+                    "param_sync_every > 1 (local SGD has its own sync "
+                    "protocol)")
         if self.ce_chunk:
             return ("ce_chunk's fused loss applies its own sharding "
                     "constraints, which cannot run inside the explicit "
@@ -644,10 +677,19 @@ class TrainConfig:
     def _validate_partition(self) -> None:
         """The JAX config's checks of --param-partition, --grad-sync and
         --grad-sync-bucket-mb, with its messages; then the port's two
-        refusals (ROADMAP.md A5)."""
+        refusals (ROADMAP.md A5). The pipeline's and local SGD's checks
+        come in JAX's order around them."""
+        self._validate_pipeline_knobs()
         if self.param_partition not in ("replicated", "zero1", "fsdp"):
             raise ValueError(
                 f"unknown param_partition {self.param_partition!r}")
+        if (self.param_partition == "fsdp"
+                and self.model == "pipelined_lm"):
+            raise ValueError(
+                "param_partition=fsdp does not compose with "
+                "model=pipelined_lm (stage params are shard_map-"
+                "managed); use param_partition=zero1 for optimizer-"
+                "slot memory, mesh.pipe/mesh.model for param memory")
         if self.grad_sync not in ("implicit", "serial", "overlap"):
             raise ValueError(
                 f"unknown grad_sync {self.grad_sync!r}; have "
@@ -668,7 +710,13 @@ class TrainConfig:
                     f"grad_sync={self.grad_sync!r} shapes the TRAIN "
                     f"step's gradient sync; it has no effect under "
                     f"mode={self.mode!r} — drop the flag")
-            bad = [a for a in ("model", "seq", "expert")
+            if self.model == "pipelined_lm":
+                raise ValueError(
+                    "grad_sync applies to the standard jitted step; "
+                    "the hand-scheduled pipeline step owns its own "
+                    "collective schedule (use mesh.pipe for that "
+                    "family)")
+            bad = [a for a in ("model", "seq", "pipe", "expert")
                    if getattr(self.mesh, a) > 1]
             if bad:
                 raise ValueError(
@@ -696,6 +744,8 @@ class TrainConfig:
                         else self._explicit_sync_knob_conflict())
             if conflict:
                 raise ValueError(conflict)
+        self._validate_microbatches()
+        self._validate_local_sgd()
         if self.param_partition != "replicated":
             if self.mode == "serve":
                 raise NotImplementedError(
@@ -709,6 +759,175 @@ class TrainConfig:
                     f"{self.param_partition} (its factored statistics "
                     f"over a 1/data block are not the whole leaf's) is "
                     f"not ported to PyTorch yet (see ROADMAP.md A5)")
+
+    def _validate_pipeline_knobs(self) -> None:
+        """The JAX config's checks of the pipeline schedule and backward,
+        with its messages."""
+        if self.pipeline_schedule not in PIPELINE_SCHEDULES:
+            raise ValueError(
+                f"unknown pipeline_schedule {self.pipeline_schedule!r}")
+        if self.pipeline_backward not in ("recompute", "stash"):
+            raise ValueError(
+                f"unknown pipeline_backward {self.pipeline_backward!r}")
+        if (self.pipeline_backward != "recompute"
+                and not (self.model == "pipelined_lm"
+                         and self.pipeline_schedule == "1f1b")):
+            raise ValueError(
+                "pipeline_backward applies only to model=pipelined_lm "
+                "with pipeline_schedule=1f1b")
+        if (self.model == "pipelined_lm"
+                and self.pipeline_schedule == "1f1b"
+                and self.grad_accum_steps > 1):
+            raise ValueError(
+                "pipeline_schedule=1f1b already accumulates per-"
+                "microbatch gradients; raise pipeline_microbatches "
+                "instead of grad_accum_steps")
+
+    def _validate_microbatches(self) -> None:
+        """The JAX config's checks of the microbatch count and the
+        virtual stages, with its messages."""
+        if self.pipeline_microbatches < 1:
+            raise ValueError(
+                f"pipeline_microbatches must be >= 1, "
+                f"got {self.pipeline_microbatches}")
+        if self.pipeline_virtual_stages < 1:
+            raise ValueError(
+                f"pipeline_virtual_stages must be >= 1, "
+                f"got {self.pipeline_virtual_stages}")
+        if self.pipeline_virtual_stages > 1:
+            if self.model != "pipelined_lm":
+                raise ValueError(
+                    "pipeline_virtual_stages > 1 applies only to "
+                    "model=pipelined_lm")
+            if self.pipeline_backward != "recompute":
+                raise ValueError(
+                    "pipeline_virtual_stages > 1 supports "
+                    "pipeline_backward='recompute' only (the stash "
+                    "variant's per-chunk residual treedefs are a "
+                    "follow-up; parallel.pipeline."
+                    "interleaved_pipeline_value_and_grad)")
+            if (self.pipeline_schedule == "1f1b"
+                    and self.pipeline_microbatches
+                    < self.mesh.pipe * self.pipeline_virtual_stages):
+                raise ValueError(
+                    f"pipeline_microbatches "
+                    f"{self.pipeline_microbatches} < mesh.pipe x "
+                    f"virtual stages ({self.mesh.pipe} x "
+                    f"{self.pipeline_virtual_stages}): every virtual "
+                    f"stage needs a microbatch in flight")
+        if (self.model == "pipelined_lm"
+                and self.batch_size % self.pipeline_microbatches):
+            raise ValueError(
+                f"batch_size {self.batch_size} not divisible by "
+                f"pipeline_microbatches {self.pipeline_microbatches}")
+        if (self.model == "pipelined_lm"
+                and self.pipeline_microbatches < self.mesh.pipe):
+            raise ValueError(
+                f"pipeline_microbatches {self.pipeline_microbatches} "
+                f"< mesh.pipe {self.mesh.pipe}: every stage needs at "
+                f"least one microbatch in flight")
+        if not 0.0 <= self.label_smoothing < 1.0:
+            raise ValueError(
+                f"label_smoothing must be in [0, 1), "
+                f"got {self.label_smoothing}")
+
+    def _validate_local_sgd(self) -> None:
+        """The JAX config's checks of param_sync_every, with its
+        messages; then the port's refusal of local SGD (ROADMAP.md A5)."""
+        if self.param_sync_every < 1:
+            raise ValueError(
+                f"param_sync_every must be >= 1, "
+                f"got {self.param_sync_every}")
+        if self.param_sync_every == 1:
+            return
+        bad = [a for a in ("model", "seq", "pipe", "expert")
+               if getattr(self.mesh, a) > 1]
+        if bad:
+            raise ValueError(
+                "param_sync_every > 1 (local SGD) needs a pure "
+                f"data-parallel mesh; axes {bad} > 1")
+        if self.param_partition != "replicated":
+            raise ValueError(
+                "param_sync_every > 1 needs "
+                "param_partition=replicated (each replica owns "
+                "its full diverged copy)")
+        if self.grad_accum_steps > 1:
+            raise ValueError(
+                "param_sync_every > 1 does not compose with "
+                "grad_accum_steps; raise batch_size instead")
+        if self.ema_decay:
+            raise ValueError(
+                "param_sync_every > 1 does not compose with "
+                "ema_decay (average-of-averages ambiguity)")
+        from tensorflow_distributed_tpu_torch.models import (
+            MUTABLE_EXTRA_MODELS)
+        if self.model in MUTABLE_EXTRA_MODELS:
+            raise ValueError(
+                "param_sync_every > 1 needs models without "
+                "mutable extra state (BN statistics diverge "
+                "with no principled average); "
+                f"{self.model} carries them")
+        if self.model == "pipelined_lm":
+            raise ValueError(
+                "param_sync_every > 1 is a pure-DP mode; "
+                "pipelined_lm is not supported")
+        if self.resilience.nonfinite == "skip_batch":
+            raise ValueError(
+                "resilience.nonfinite=skip_batch does not compose "
+                "with param_sync_every > 1 (the local-SGD step has "
+                "no skip path); use nonfinite=rewind or halt")
+        raise NotImplementedError(
+            "--param-sync-every > 1 (local SGD: train/local_sgd.py) is "
+            "not ported to PyTorch yet (see ROADMAP.md A5)")
+
+    def _validate_pipe(self) -> None:
+        """The JAX config's pipelined_lm checks of the other knobs, with
+        its messages; then the port's refusals of what this slice leaves
+        out (ROADMAP.md A5)."""
+        pipelined = self.model == "pipelined_lm"
+        if self.shard_vocab and pipelined:
+            raise ValueError(
+                "shard_vocab is not available for pipelined_lm (the "
+                "embedding shell carries no TP metadata; use mesh.pipe "
+                "for memory)")
+        if self.ce_impl == "kernel" and pipelined:
+            raise ValueError(
+                "ce_impl='kernel' is not available for pipelined_lm "
+                "(the 1F1B schedule drives the fused loss through its "
+                "own vjp at the last stage — the scan formulation "
+                "composes there; the Mosaic kernel's shard_map wrap "
+                "does not). Use the default ce_impl='scan'")
+        if (self.resilience.nonfinite == "skip_batch" and pipelined
+                and self.pipeline_schedule == "1f1b"):
+            raise ValueError(
+                "resilience.nonfinite=skip_batch is implemented in "
+                "the standard jitted step (the update is discarded "
+                "on device); the hand-scheduled 1F1B step has no "
+                "skip path — use nonfinite=rewind or halt")
+        if self.mesh.pipe > 1 and not pipelined:
+            raise NotImplementedError(
+                f"--mesh.pipe {self.mesh.pipe} for model={self.model!r} "
+                f"(only pipelined_lm cuts its blocks into stages) is not "
+                f"ported to PyTorch yet (see ROADMAP.md A5)")
+        if not pipelined:
+            return
+        if self.mesh.expert != 1:
+            raise ValueError(
+                "pipelined variant: mesh expert must be 1 — the "
+                "stacked-leaf TP name table (_TP_SUFFIX) pins expert "
+                "weights to the \"model\" axis; use mesh.model for EP "
+                "with the pipeline (pipe x model is not ported to "
+                "PyTorch yet; see ROADMAP.md A5)")
+        for axis in ("model", "seq"):
+            if getattr(self.mesh, axis) > 1:
+                raise NotImplementedError(
+                    f"model=pipelined_lm with --mesh.{axis} > 1 (pipe x "
+                    f"{axis}) is not ported to PyTorch yet (see ROADMAP.md "
+                    f"A5)")
+        if self.param_partition == "zero1":
+            raise NotImplementedError(
+                "--param-partition zero1 with model=pipelined_lm is not "
+                "ported to PyTorch yet (see ROADMAP.md A5)")
 
     def validate(self) -> None:
         def todo(what: str) -> NotImplementedError:
@@ -724,7 +943,8 @@ class TrainConfig:
             raise ValueError(
                 f"mode=serve needs a causal LM with the decode cache "
                 f"({', '.join(CAUSAL_LM_MODELS)}), got {self.model!r}")
-        if serving and (self.mesh.model > 1 or self.mesh.expert > 1):
+        if serving and (self.mesh.model > 1 or self.mesh.pipe > 1
+                        or self.mesh.expert > 1):
             raise ValueError(
                 "mode=serve requires a pure data --mesh.* (model/"
                 "seq/pipe/expert == 1): the serve engine builds "
@@ -897,7 +1117,7 @@ class TrainConfig:
             raise ValueError(
                 f"attn_window must be >= 0, got {self.attn_window}")
         if self.attn_window:
-            if self.model not in CAUSAL_LM_MODELS:
+            if self.model not in WINDOW_MODELS:
                 raise ValueError(
                     "attn_window needs a causal LM family "
                     "(gpt_lm | moe_lm | pipelined_lm)")
@@ -937,6 +1157,7 @@ class TrainConfig:
                 "halt_on_nonfinite (resilience.nonfinite=halt is its "
                 "per-step superset)")
         self._validate_moe()
+        self._validate_pipe()
         self.mesh.validate()
         self.resilience.validate()
         self.serve.validate()

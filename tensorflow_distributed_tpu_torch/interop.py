@@ -50,6 +50,16 @@ dict keyed by its position:
 The port's moments are per-name dicts of tensors and its ``count`` one
 Python int, where JAX keeps an int32 array per counting member.
 
+A ``pipelined_lm`` (``models/pipelined.py``) holds ``gpt_lm``'s names
+(``layer_g`` for its layers); JAX's tree for it is ``{"shell":
+{tok_emb, pos_emb, ln_f, lm_head}, "blocks": <one block's tree, each
+leaf stacked [S, lps, ...] or [S, V, lps, ...]>}``.
+``layers_to_pipelined`` stacks a ``gpt_lm``-shaped flax tree into it
+(``parallel/pipeline.stack_stage_params``) and ``pipelined_to_layers``
+unstacks it, refusing a tree of another stage count (ROADMAP.md A7);
+``params_to_flax``, ``state_to_flax`` and ``state_from_flax`` go through
+them for a pipelined model, which loads only its own stages' layers.
+
 ``cache_from_flax`` maps the ``cache`` collection that the JAX model's
 ``decode=True`` path fills (``layer_i/attn/{key,value}`` of shape
 ``[B, max_len, nk, Dh]``, nk = H without GQA, plus a scalar ``index``)
@@ -119,11 +129,128 @@ def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _pipelined(model: Optional[nn.Module]) -> bool:
+    return getattr(model, "is_pipelined", False)
+
+
+class _Placeholder:
+    """Adafactor's (1,) placeholder of a stacked leaf: optax keeps one
+    for the whole leaf where the port keeps one a layer."""
+
+    def __init__(self, value):
+        self.value = value
+
+
+def _is_placeholder(leaf) -> bool:
+    return tuple(np.shape(leaf)) == (1,)
+
+
+def layers_to_pipelined(tree: Mapping[str, Any], stages: int,
+                        virtual: int = 1,
+                        placeholders: bool = False) -> Dict[str, Any]:
+    """A ``gpt_lm``-shaped flax tree (``layer_g`` subtrees beside the
+    shell's) -> JAX's pipelined tree, each block leaf stacked over the
+    layers and cut into [S, lps, ...] or [S, V, lps, ...]. With
+    ``placeholders`` (Adafactor's statistics) a leaf that is (1,) in
+    every layer stays one (1,) leaf."""
+    from tensorflow_distributed_tpu_torch.parallel.pipeline import (
+        stack_stage_params)
+
+    n = sum(1 for k in tree if k.startswith("layer_"))
+    layers = [tree[f"layer_{g}"] for g in range(n)]
+
+    def stack(*leaves):
+        if isinstance(leaves[0], Mapping):
+            return {k: stack(*[lf[k] for lf in leaves])
+                    for k in leaves[0]}
+        if placeholders and all(_is_placeholder(lf) for lf in leaves):
+            return _Placeholder(np.asarray(leaves[0]))
+        return stack_stage_params(np.stack([np.asarray(lf)
+                                            for lf in leaves]),
+                                  stages, virtual)
+
+    def unwrap(node):
+        if isinstance(node, Mapping):
+            return {k: unwrap(v) for k, v in node.items()}
+        return node.value if isinstance(node, _Placeholder) else node
+
+    shell = {k: v for k, v in tree.items() if not k.startswith("layer_")}
+    return _sorted({"shell": dict(shell),
+                    "blocks": unwrap(stack(*layers))})
+
+
+def pipelined_to_layers(tree: Mapping[str, Any], stages: int,
+                        virtual: int = 1,
+                        placeholders: bool = False) -> Dict[str, Any]:
+    """The inverse of ``layers_to_pipelined`` (``placeholders``: a (1,)
+    block leaf goes to every layer). A tree cut into another number of
+    stages (or chunks) is refused."""
+    from tensorflow_distributed_tpu_torch.parallel.pipeline import (
+        unstack_stage_params)
+
+    lead = 2 if virtual == 1 else 3
+    kept = {}
+    if placeholders:
+        kept = {path: leaf for path, leaf in _walk(tree["blocks"])
+                if _is_placeholder(leaf)}
+    for path, leaf in _walk(tree["blocks"]):
+        if path in kept:
+            continue
+        got = tuple(leaf.shape[:lead - 1])
+        want = (stages,) if virtual == 1 else (stages, virtual)
+        if got != want:
+            raise ValueError(
+                f"checkpoint pipeline blocks are stacked for {got} "
+                f"stages (x chunks), this mesh runs {want} at "
+                f"{'/'.join(path)}; restacking a pipelined checkpoint "
+                f"onto another stage count is not ported to PyTorch yet "
+                f"(see ROADMAP.md A7)")
+    def unstack(node, path=()):
+        if isinstance(node, Mapping):
+            return {k: unstack(v, path + (str(k),)) for k, v in node.items()}
+        if path in kept:
+            return _Placeholder(np.asarray(node))
+        return unstack_stage_params(np.asarray(node), virtual)
+
+    flat = unstack(tree["blocks"])
+    n = next(leaf.shape[0] for _, leaf in _flat_leaves(flat))
+
+    def layer(g):
+        return _tree_map_np(lambda a: a.value if isinstance(
+            a, _Placeholder) else a[g], flat)
+
+    out = dict(tree["shell"])
+    out.update({f"layer_{g}": layer(g) for g in range(n)})
+    return out
+
+
+def _flat_leaves(tree, prefix=()):
+    """(path, leaf) pairs of a tree whose leaves may be placeholders,
+    the placeholders left out."""
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            yield from _flat_leaves(value, prefix + (key,))
+        elif not isinstance(value, _Placeholder):
+            yield "/".join(prefix + (key,)), value
+
+
+def _tree_map_np(fn, tree):
+    if isinstance(tree, Mapping):
+        return {k: _tree_map_np(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
 def shards_from_flax(tree: Mapping[str, Any], model: nn.Module
                      ) -> Dict[str, torch.Tensor]:
     """A flax param tree (or a moment or EMA of one) -> the state dict of
     the tensor- or expert-parallel ``model``'s ranks in this process
-    (the whole tensors where the model has no ``tp`` or ``ep``)."""
+    (the whole tensors where the model has no ``tp`` or ``ep``; a
+    pipelined model's own stages' layers and the shell)."""
+    if _pipelined(model):
+        full = params_from_flax(pipelined_to_layers(
+            tree, model.num_stages, model.virtual_stages))
+        names = set(dict(model.named_parameters()))
+        return {n: t for n, t in full.items() if n in names}
     full = params_from_flax(tree)
     if not is_split(model):
         return full
@@ -218,16 +345,26 @@ def params_to_flax(params: Mapping[str, torch.Tensor], model: nn.Module
                    ) -> Dict[str, Any]:
     """The port's named tensors (params, or a moment or the EMA of
     them) -> the flax param tree of numpy leaves: the inverse of
-    ``params_from_flax``. ``model`` says which module each name is."""
-    return _nest(_flax_leaf(model, name, t) for name, t in params.items())
+    ``params_from_flax``. ``model`` says which module each name is; a
+    pipelined model's (every layer of it) gives JAX's pipelined tree."""
+    tree = _nest(_flax_leaf(model, name, t) for name, t in params.items())
+    if _pipelined(model):
+        return layers_to_pipelined(tree, model.num_stages,
+                                   model.virtual_stages)
+    return tree
 
 
 def _stats_to_flax(stats: Mapping[str, torch.Tensor], model: nn.Module
                    ) -> Dict[str, Any]:
     """Per-parameter tensors already in the flax layout (Adafactor's
-    statistics) -> the param tree's paths."""
-    return _nest((flax_layout(model, name)[0], t)
+    statistics) -> the param tree's paths (a pipelined model's stacked,
+    one placeholder a stacked leaf)."""
+    tree = _nest((flax_layout(model, name)[0], t)
                  for name, t in stats.items())
+    if _pipelined(model):
+        return layers_to_pipelined(tree, model.num_stages,
+                                   model.virtual_stages, placeholders=True)
+    return tree
 
 
 def _opt_to_flax(state: TrainState, convert) -> Dict[str, Any]:
@@ -343,9 +480,15 @@ def _load_stats(dst: Dict[str, torch.Tensor], tree: Mapping[str, Any],
                 model: nn.Module, what: str) -> None:
     """Copy flax-layout statistics (Adafactor's) from the param tree's
     paths into the port's tensors, in place, after checking names and
-    shapes."""
-    src = {"/".join(path): leaf for path, leaf in _walk(tree)}
+    shapes (a pipelined model's: unstacked, its own layers')."""
     paths = {name: "/".join(flax_layout(model, name)[0]) for name in dst}
+    if _pipelined(model):
+        tree = pipelined_to_layers(tree, model.num_stages,
+                                   model.virtual_stages, placeholders=True)
+    src = {"/".join(path): leaf for path, leaf in _walk(tree)}
+    if _pipelined(model):
+        src = {p: leaf for p, leaf in src.items() if p in set(
+            paths.values())}
     _check_names(src, set(paths.values()), what)
     for name, t in dst.items():
         _copy_checked(t, torch.from_numpy(src[paths[name]].astype(

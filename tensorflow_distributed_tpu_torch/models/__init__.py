@@ -6,7 +6,7 @@ from typing import Optional
 import torch
 
 MODEL_NAMES = ("mnist_cnn", "resnet20", "resnet50", "bert_mlm", "gpt_lm",
-               "moe_lm")
+               "moe_lm", "pipelined_lm")
 TRANSFORMER_MODELS = ("bert_mlm", "gpt_lm", "moe_lm")
 
 # Families whose train state carries running statistics beside the params
@@ -20,10 +20,12 @@ def build_model(name: str, dropout_rate: Optional[float] = None,
     """Explicit per-family dispatch. ``overrides`` are TransformerConfig
     fields (plus ``size``, ``ring`` for sequence parallelism, ``tp`` and
     ``ep`` for the model and expert groups) for the transformer
-    families; ``num_classes``, ``in_channels`` and ``bn_group`` (the
+    families; for pipelined_lm ``size``, ``pipe`` (the pipe transport),
+    ``num_microbatches``, ``virtual_stages``, ``aux_mesh`` and
+    TransformerConfig fields; ``num_classes``, ``in_channels`` and ``bn_group`` (the
     process group of sync BN) for the ResNets; ``init_scheme`` selects
     mnist_cnn's init."""
-    if name not in TRANSFORMER_MODELS:
+    if name not in TRANSFORMER_MODELS + ("pipelined_lm",):
         overrides.pop("size", None)  # presets are transformer-only
     if name == "mnist_cnn":
         from tensorflow_distributed_tpu_torch.models.cnn import MnistCNN
@@ -35,6 +37,14 @@ def build_model(name: str, dropout_rate: Optional[float] = None,
         from tensorflow_distributed_tpu_torch.models import resnet
 
         return getattr(resnet, name)(compute_dtype=compute_dtype, **overrides)
+    if name == "pipelined_lm":
+        from tensorflow_distributed_tpu_torch.models.pipelined import (
+            pipelined_lm)
+
+        if dropout_rate is not None:
+            overrides.setdefault("dropout_rate", dropout_rate)
+        overrides.setdefault("compute_dtype", compute_dtype)
+        return pipelined_lm(**overrides)
     if name in TRANSFORMER_MODELS:
         from tensorflow_distributed_tpu_torch.models import transformer
 

@@ -1,5 +1,5 @@
-"""Process groups for data, sequence, tensor and expert parallelism: the
-port of ``parallel/mesh.py``.
+"""Process groups for data, pipeline, sequence, tensor and expert
+parallelism: the port of ``parallel/mesh.py``.
 
 The JAX package builds one SPMD program over a device mesh after
 ``bootstrap()`` (``jax.distributed.initialize`` from environment
@@ -10,11 +10,12 @@ environment ``torchrun`` sets (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 CPU, and returns the :class:`Mesh`.
 
 The ranks are laid out as the JAX package lays out its devices,
-row-major over (data, pipe, seq, model, expert), expert innermost; with
-pipe 1, rank r sits at expert index ``r % X``, model index ``(r // X) %
-M``, seq index ``(r // (X * M)) % S`` and data index ``r // (S * M *
-X)``. The batch shards over data only, so every rank of a (data, seq)
-place reads the same rows. These groups carry the collectives:
+row-major over (data, pipe, seq, model, expert), expert innermost: rank
+r sits at expert index ``r % X``, model index ``(r // X) % M``, seq
+index ``(r // (X * M)) % S``, pipe index ``(r // (X * M * S)) % P`` and
+data index ``r // (P * S * M * X)``. The batch shards over data only, so
+every rank of a data index reads the same rows. These groups carry the
+collectives:
 
 - the model group (M ranks, stride X) carries tensor parallelism's
   ``ProcessGroupTP`` (``parallel/tensor_parallel.py``);
@@ -28,7 +29,15 @@ place reads the same rows. These groups carry the collectives:
   index) holds the same shard of every parameter: the loss sums and the
   gradients are summed over it (``replica_all_reduce_``), the port's
   form of GSPMD's implicit psums. Without a model or expert axis it is
-  the whole world.
+  the whole world;
+- the pipe group (P ranks, stride S * M * X) carries the pipeline's
+  stage-to-stage hops (``ProcessGroupPipe``: one ``batch_isend_irecv``
+  a tick, activations down and cotangents up, as the ring's permutes).
+  The pipe ranks of a data index hold different blocks and the same
+  shell (embedding, final norm, head): a block's gradient is summed over
+  the data group, the shell's over the pipe group and then the data
+  group (``pipe_all_reduce_``, ``data_all_reduce_``), and the loss sums
+  over the world (only the last stage holds any).
 
 The data group (the ranks that share a (seq, model, expert) index) is the group
 of sync BatchNorm, and of ``--param-partition fsdp|zero1`` and
@@ -44,6 +53,9 @@ the train step runs each data rank's forward and backward in turn, so
 the ranks' gradients accumulate in rank order and are already their
 sum; ``reduce_scatter`` then only views the sum as the D blocks, all of
 which this process holds, and ``all_gather_`` joins the D blocks.
+``stacked_pipe(P)`` is the one-process form of P pipe ranks
+(``StackedPipe``): every stage lives in this process and a hop hands the
+tensor over.
 
 ``is_chief()`` elects rank 0 for logging, as in the JAX package.
 """
@@ -53,7 +65,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
-from typing import Any, Iterable, List, Optional, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -77,7 +89,8 @@ _REDUCE_SCATTER = getattr(dist, "reduce_scatter_single",
 _ALL_GATHER = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
 LAUNCH = ("torchrun --nproc-per-node {N} -m "
           "tensorflow_distributed_tpu_torch.cli --mesh.data {D} "
-          "--mesh.seq {S} --mesh.model {M} --mesh.expert {X} ...")
+          "--mesh.pipe {P} --mesh.seq {S} --mesh.model {M} "
+          "--mesh.expert {X} ...")
 
 
 # --- mesh-feasibility rules (pure helpers; the JAX package's own) --------
@@ -124,11 +137,71 @@ def mesh_infeasible(axes, devices: int,
     return None
 
 
+# --- the pipe's transports ----------------------------------------------
+# A message is keyed (source stage, destination stage, tag). ``exchange``
+# hands over what this process sends and returns what it expects, as one
+# P2P batch; a stage that sends nothing in a tick appears in no key.
+
+Key = Tuple[int, int, str]
+
+
+class StackedPipe:
+    """All P pipe stages in this process (the tests and the one-card
+    smoke): a hop hands the tensor over."""
+
+    def __init__(self, size: int):
+        if size < 1:
+            raise ValueError(f"pipe axis must be >= 1, got {size}")
+        self.size = size
+        self.stages = list(range(size))
+
+    def exchange(self, out: Dict[Key, torch.Tensor],
+                 expect: Dict[Key, tuple]) -> Dict[Key, torch.Tensor]:
+        return {k: out[k] for k in expect}
+
+
+class ProcessGroupPipe:
+    """One pipe stage per process of ``group`` (the default group when
+    None): the stage is this process's place in the group. ``exchange``
+    posts every send and receive of a tick in one ``batch_isend_irecv``
+    (NCCL between cards, gloo on the CPU), as the ring's permutes do."""
+
+    def __init__(self, group=None):
+        self.group = group
+        self.size = dist.get_world_size(group)
+        self.index = dist.get_rank(group)
+        self.stages = [self.index]
+
+    def _peer(self, stage: int) -> int:
+        return (stage if self.group is None
+                else dist.get_global_rank(self.group, stage))
+
+    def exchange(self, out: Dict[Key, torch.Tensor],
+                 expect: Dict[Key, tuple]) -> Dict[Key, torch.Tensor]:
+        """``out``: this stage's messages; ``expect``: the (shape,
+        dtype, device) of each message addressed to it."""
+        got = {k: out[k] for k in expect if k[0] == self.index}
+        ops = []
+        for (src, dst, tag), t in sorted(out.items()):
+            if dst != self.index:
+                ops.append(dist.P2POp(dist.isend, t.contiguous(),
+                                      self._peer(dst), self.group))
+        for key, (shape, dtype, device) in sorted(expect.items()):
+            if key[0] != self.index:
+                got[key] = torch.empty(shape, dtype=dtype, device=device)
+                ops.append(dist.P2POp(dist.irecv, got[key],
+                                      self._peer(key[0]), self.group))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        return got
+
+
 # --- the mesh ------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """This process's place in the (data, seq, model, expert) mesh.
+    """This process's place in the (data, pipe, seq, model, expert) mesh.
     ``distributed``: a process group is up, so the collectives run (also
     for a world of one under torchrun); without one they are no-ops."""
 
@@ -147,6 +220,11 @@ class Mesh:
     expert: int = 1
     expert_group: Any = None
     ep: Optional[ProcessGroupTP] = None  # over expert_group when expert > 1
+    pipe: int = 1
+    pipe_group: Any = None
+    # StackedPipe (every stage here) or ProcessGroupPipe over pipe_group;
+    # None: one stage (``pipe_transport``).
+    pp: Any = None
 
     @property
     def expert_index(self) -> int:
@@ -161,16 +239,20 @@ class Mesh:
         return (self.rank // (self.expert * self.model)) % self.seq
 
     @property
+    def pipe_index(self) -> int:
+        return (self.rank // (self.expert * self.model * self.seq)
+                ) % self.pipe
+
+    @property
     def data_index(self) -> int:
-        return self.rank // (self.seq * self.model * self.expert)
+        return self.rank // (self.pipe * self.seq * self.model * self.expert)
 
     @property
     def replica_index(self) -> int:
-        """This rank's place among the ranks of its (model, expert)
-        index: its (data, seq) coordinate, row-major. The model and
-        expert ranks of one coordinate share it (and so their dropout
-        masks)."""
-        return self.rank // (self.model * self.expert)
+        """This rank's (data, seq) coordinate, row-major. The model,
+        expert and pipe ranks of one coordinate share it (and so their
+        dropout seeds)."""
+        return self.data_index * self.seq + self.seq_index
 
     @property
     def data_ranks(self) -> List[int]:
@@ -233,6 +315,19 @@ class Mesh:
         if self.distributed and self.expert > 1:
             all_reduce_sum_(tensors, self.expert_group)
 
+    def pipe_all_reduce_(self, tensors: Iterable[torch.Tensor]) -> None:
+        """Sum same-dtype tensors over the pipe group, in place."""
+        if self.distributed and self.pipe > 1:
+            all_reduce_sum_(tensors, self.pipe_group)
+
+    def data_broadcast_(self, tensors: Iterable[torch.Tensor]) -> None:
+        """Overwrite same-dtype tensors with the values of data index 0's
+        rank of this rank's data group."""
+        if self.distributed and self.data > 1:
+            broadcast_(tensors, self.rank % (self.pipe * self.seq
+                                             * self.model * self.expert),
+                       self.data_group)
+
     def replica_broadcast_(self, tensors: Iterable[torch.Tensor]) -> None:
         """Overwrite same-dtype tensors with the values of the first rank
         of the replica group (data and seq index 0: rank ``rank % (M *
@@ -258,11 +353,23 @@ def stacked_data(data: int) -> Mesh:
     return Mesh(data=data, stacked=True)
 
 
+def pipe_transport(mesh: Mesh):
+    """The mesh's pipe transport: a one-stage ``StackedPipe`` where it
+    has none."""
+    return mesh.pp if mesh.pp is not None else StackedPipe(1)
+
+
+def stacked_pipe(pipe: int) -> Mesh:
+    """The mesh of ``pipe`` pipe stages all in this process (no process
+    group; see the module docstring)."""
+    return Mesh(pipe=pipe, pp=StackedPipe(pipe))
+
+
 def process_batch_role(mesh: Mesh):
     """(effective_count, effective_index) for batch-row distribution:
-    the processes that share a data coordinate (the seq ranks of one
-    data index) supply identical rows. One process holds one device, so
-    this is (data width, data index)."""
+    the processes that share a data coordinate (the pipe and seq ranks
+    of one data index) supply identical rows. One process holds one
+    device, so this is (data width, data index)."""
     return mesh.data, mesh.data_index
 
 
@@ -285,37 +392,39 @@ def rank_device(device: str) -> str:
 
 
 def mesh_shape(data: int, seq: int, model: int = 1,
-               expert: int = 1) -> Tuple[int, int, int]:
-    """(data, seq, model) for ``--mesh.data data --mesh.seq seq
-    --mesh.model model --mesh.expert expert`` in this world: the process
-    group's when one is up (a caller that set up its own, such as a test
-    with a file:// store), else torchrun's WORLD_SIZE, else 1. ``data =
-    -1`` takes every process that the other axes leave over. Raises,
-    naming the torchrun line, when the sizes do not multiply to the
-    world. Starts nothing."""
+               expert: int = 1, pipe: int = 1) -> Tuple[int, int, int]:
+    """(data, seq, model) for ``--mesh.data data --mesh.pipe pipe
+    --mesh.seq seq --mesh.model model --mesh.expert expert`` in this
+    world: the process group's when one is up (a caller that set up its
+    own, such as a test with a file:// store), else torchrun's
+    WORLD_SIZE, else 1. ``data = -1`` takes every process that the
+    other axes leave over. Raises, naming the torchrun line, when the
+    sizes do not multiply to the world. Starts nothing."""
     up = dist.is_initialized()
     world = dist.get_world_size() if up else (_torchrun_world() or 1)
     if data == -1:
         data = pick_data_width({AXIS_SEQ: seq, AXIS_MODEL: model,
-                                AXIS_EXPERT: expert}, world) or 1
-    n = data * seq * model * expert
+                                AXIS_EXPERT: expert, AXIS_PIPE: pipe},
+                               world) or 1
+    n = data * pipe * seq * model * expert
     if n != world:
         have = (f"the process group has {world}" if up else
                 f"torchrun started WORLD_SIZE={world}" if _torchrun_world()
                 else "this is one process")
         raise RuntimeError(
-            f"--mesh.data {data} --mesh.seq {seq} --mesh.model {model} "
-            f"--mesh.expert {expert} runs one process per mesh position "
-            f"({n}) but {have}; launch it as "
-            f"`{LAUNCH.format(N=n, D=data, S=seq, M=model, X=expert)}`")
+            f"--mesh.data {data} --mesh.pipe {pipe} --mesh.seq {seq} "
+            f"--mesh.model {model} --mesh.expert {expert} runs one process "
+            f"per mesh position ({n}) but {have}; launch it as "
+            f"`{LAUNCH.format(N=n, D=data, P=pipe, S=seq, M=model,
+                              X=expert)}`")
     return data, seq, model
 
 
 def bootstrap(data: int, seq: int, device: torch.device,
-              model: int = 1, expert: int = 1) -> Mesh:
-    """The mesh for ``--mesh.data data --mesh.seq seq --mesh.model
-    model --mesh.expert expert`` (``mesh_shape`` resolves and checks the
-    sizes).
+              model: int = 1, expert: int = 1, pipe: int = 1) -> Mesh:
+    """The mesh for ``--mesh.data data --mesh.pipe pipe --mesh.seq seq
+    --mesh.model model --mesh.expert expert`` (``mesh_shape`` resolves
+    and checks the sizes).
 
     Without torchrun and a world of one there is no process group.
     Otherwise the default group starts from torchrun's environment
@@ -323,10 +432,10 @@ def bootstrap(data: int, seq: int, device: torch.device,
     for a world of one, so that run takes the collective path), every
     rank creates the model groups, the expert groups, the seq groups,
     the data groups and (with a model or expert axis) the replica groups
-    in the same order, and one all-reduce runs on the world and on each
-    of this rank's groups: NCCL wants every rank of a group in its first
-    collective before point-to-point calls."""
-    data, seq, model = mesh_shape(data, seq, model, expert)
+    in the same order (and the pipe groups), and one all-reduce runs on
+    the world and on each of this rank's groups: NCCL wants every rank
+    of a group in its first collective before point-to-point calls."""
+    data, seq, model = mesh_shape(data, seq, model, expert, pipe)
     up = dist.is_initialized()
     if not up and _torchrun_world() is None:
         return ONE_PROCESS
@@ -338,14 +447,15 @@ def bootstrap(data: int, seq: int, device: torch.device,
             init_method="env://")
     rank = dist.get_rank()
     X = expert
-    # Rank r at grid[d, s, m, e]: JAX's row-major device order.
-    grid = torch.arange(data * seq * model * X).view(data, seq, model, X)
+    # Rank r at grid[d, p, s, m, e]: JAX's row-major device order.
+    grid = torch.arange(data * pipe * seq * model * X).view(
+        data, pipe, seq, model, X)
 
     def groups_along(*axes):
         """This rank's group of the ranks that differ only along
         ``axes``; every group of that kind is created, in one order on
         every rank."""
-        rows = grid.permute(*[a for a in range(4) if a not in axes],
+        rows = grid.permute(*[a for a in range(5) if a not in axes],
                             *axes).reshape(-1, math.prod(
                                 grid.shape[a] for a in axes))
         mine = None
@@ -355,14 +465,16 @@ def bootstrap(data: int, seq: int, device: torch.device,
                 mine = group
         return mine
 
-    model_group = groups_along(2) if model > 1 else None
-    expert_group = groups_along(3) if X > 1 else None
-    seq_group, data_group = groups_along(1), groups_along(0)
-    replica_group = groups_along(0, 1) if model * X > 1 else None
+    model_group = groups_along(3) if model > 1 else None
+    expert_group = groups_along(4) if X > 1 else None
+    seq_group, data_group = groups_along(2), groups_along(0)
+    replica_group = groups_along(0, 1, 2) if model * X > 1 else None
+    pipe_group = groups_along(1) if pipe > 1 else None
     mesh = Mesh(data=data, seq=seq, rank=rank, model=model, expert=X,
                 distributed=True, model_group=model_group,
                 expert_group=expert_group, seq_group=seq_group,
-                data_group=data_group, replica_group=replica_group)
+                data_group=data_group, replica_group=replica_group,
+                pipe=pipe, pipe_group=pipe_group)
     groups = [None, seq_group, data_group]
     if model > 1:
         groups.append(model_group)
@@ -370,6 +482,8 @@ def bootstrap(data: int, seq: int, device: torch.device,
         groups.append(expert_group)
     if model * X > 1:
         groups.append(replica_group)
+    if pipe > 1:
+        groups.append(pipe_group)
     for group in groups:
         dist.all_reduce(torch.zeros(1, device=device), group=group)
     if seq > 1:
@@ -379,6 +493,9 @@ def bootstrap(data: int, seq: int, device: torch.device,
     if X > 1:
         mesh = dataclasses.replace(mesh,
                                    ep=ProcessGroupTP(mesh.expert_group))
+    if pipe > 1:
+        mesh = dataclasses.replace(mesh,
+                                   pp=ProcessGroupPipe(mesh.pipe_group))
     return mesh
 
 

@@ -405,7 +405,7 @@ def auto_num_pages(*, num_slots: int, need_pages: int, page_bytes: int,
       holding a worst-case trajectory of ``need_pages`` pages);
     - the prefix cache's headroom: ``S`` again (JAX can size it from a
       previous run's ``slot_pages_peak``; the port has no run record to
-      read it from yet, ROADMAP.md A9);
+      read it from yet, ROADMAP.md A8);
     - the pool: 1 write-off page + S + the headroom, never below ``2 +
       S`` (one copy-on-write page above the reservation);
     - an ``hbm_budget_gb`` cap bounds it at ``(budget - reserved) /

@@ -32,6 +32,14 @@ save is, byte for byte, the replicated run's save of the same state; a
 restore cuts the whole arrays to this rank's blocks. Any checkpoint
 (the JAX package's under fsdp included) restores under any partition.
 
+A ``pipelined_lm``'s save is JAX's pipelined tree (``{"shell": ...,
+"blocks": [S, lps, ...]}``, ``interop.layers_to_pipelined``): over a
+pipe of processes each stage's blocks (params, moments, EMA) are first
+broadcast over the pipe group (every pipe rank joins), so the step
+directory is byte for byte what one process of all S stages writes; a
+restore keeps this rank's stages, and a checkpoint of another stage
+count is refused (ROADMAP.md A7).
+
 A save writes into ``step_XXXXXXXX.tmp`` and renames it, so a crash
 mid-save never leaves a partial step behind; the newest ``keep`` steps
 are kept. Only the chief writes; every rank waits for the rename. The
@@ -63,6 +71,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tensorflow_distributed_tpu_torch import interop
 from tensorflow_distributed_tpu_torch.parallel import mesh as mesh_lib
@@ -134,17 +143,24 @@ def _mesh_manifest(tree: dict, mesh: Mesh, shard_vocab: bool,
     """JAX's mesh manifest keys: the mesh sizes, the process and device
     counts, and each leaf's layout over the model axis (and, where the
     experts were cut, over their axis)."""
-    n = mesh.data * mesh.seq * mesh.model * mesh.expert
+    n = mesh.data * mesh.pipe * mesh.seq * mesh.model * mesh.expert
     shape = {"data": mesh.data, "seq": mesh.seq, "model": mesh.model}
     if mesh.expert > 1:
         shape["expert"] = mesh.expert
+    if mesh.pipe > 1:
+        shape["pipe"] = mesh.pipe
     expert_axis = None
     if experts_cut:
         expert_axis = "expert" if mesh.expert > 1 else "model"
+
+    def spec(path):
+        parts = path.split("/")
+        if mesh.pipe > 1 and "blocks" in parts:
+            return "PartitionSpec('pipe',)"
+        return flax_spec(parts, shard_vocab, mesh.model > 1, expert_axis)
+
     return {"mesh": shape, "process_count": n, "devices": n,
-            "specs": {p: flax_spec(p.split("/"), shard_vocab,
-                                   mesh.model > 1, expert_axis)
-                      for p in _leaf_paths(tree)}}
+            "specs": {p: spec(p) for p in _leaf_paths(tree)}}
 
 
 def _format_mesh(shape: Optional[dict]) -> str:
@@ -301,6 +317,10 @@ def whole_state(state: TrainState):
     while the context is open."""
     model, part = state.model, state.partition
     split = is_split(model)
+    if getattr(model, "is_pipelined", False) and len(
+            model.pipe.stages) < model.num_stages:
+        yield _whole_pipe(state)
+        return
     if part.kind == "replicated" and not split:
         yield state
         return
@@ -323,6 +343,48 @@ def whole_state(state: TrainState):
     with swapped_params(model, params if part.params_blocked else {}):
         yield TrainState(model=model, tx=state.tx, opt_state=opt,
                          step=state.step, ema=ema)
+
+
+@torch.no_grad()
+def _whole_pipe(state: TrainState) -> TrainState:
+    """A state of every stage of a pipelined model run over a pipe of
+    processes: each block tensor (param, moment, Adafactor statistic,
+    EMA) broadcast from the stage that holds it over the pipe group, on
+    a template of all S stages built on the meta device. Every stage's
+    layers are alike, so a tensor takes the shape of this rank's tensor
+    of the same name past its ``layer_g``."""
+    model = state.model
+    pipe = model.pipe
+    template = model.whole("meta")
+    lps = model.cfg.n_layers // (model.num_stages * model.virtual_stages)
+    owners = {n: (int(n.split(".")[0][len("layer_"):]) // lps)
+              % model.num_stages
+              for n, _ in template.named_parameters()
+              if n.startswith("layer_")}
+    device = next(model.parameters()).device
+
+    def whole(tensors):
+        like = {n.split(".", 1)[1]: t for n, t in tensors.items()
+                if n in owners}
+        out = {}
+        for n, _ in template.named_parameters():
+            if n not in owners:
+                out[n] = tensors[n]
+                continue
+            mine = like[n.split(".", 1)[1]]
+            t = (tensors[n].contiguous() if owners[n] == pipe.index else
+                 torch.empty(mine.shape, dtype=mine.dtype, device=device))
+            dist.broadcast(t, pipe._peer(owners[n]), group=pipe.group)
+            out[n] = t
+        return out
+
+    params = whole({n: p.detach() for n, p in state.params.items()})
+    opt = {k: (whole(v) if isinstance(v, dict) else v)
+           for k, v in state.opt_state.items()}
+    ema = None if state.ema is None else whole(state.ema)
+    template.load_state_dict(params, assign=True)
+    return TrainState(model=template, tx=state.tx, opt_state=opt,
+                      step=state.step, ema=ema)
 
 
 def save(ckpt_dir: str, state: TrainState, keep: int = 3,

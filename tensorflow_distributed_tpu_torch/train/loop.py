@@ -43,6 +43,12 @@ the copy of the first rank of their replica group; eval metrics are
 means over the mesh; the step records, eval records and the ``done``
 record come from the chief only.
 
+``--model pipelined_lm`` cuts its blocks into ``--mesh.pipe`` stages, a
+process each (``models/pipelined.py``): the pipe ranks of a data index
+read the same rows (their rows of each of the pipeline's microbatches),
+``--pipeline-schedule 1f1b`` trains with ``train/pipeline_step.py`` and
+``gpipe`` with the standard step; ``--mode eval`` runs the GPipe forward.
+
 ``--param-partition zero1|fsdp`` lays the state out over the data axis
 once every rank holds the same init (``train/state.partition_state_``);
 ``--grad-sync serial|overlap`` builds the explicit step
@@ -159,7 +165,8 @@ def evaluate(state: TrainState, eval_fn, task: Task, batch: int,
     totals: Dict[str, float] = {}
     count = 0
     for host_batch in task.eval_batches(batch):
-        local = seq_block(data_rows(host_batch, mesh), mesh, task.seq_axis)
+        local = seq_block(data_rows(host_batch, mesh, task.microbatches),
+                          mesh, task.seq_axis)
         m = eval_fn(state, to_device(local, device))
         for k, v in m.items():
             totals[k] = totals.get(k, 0.0) + float(v) * batch
@@ -175,16 +182,23 @@ def evaluate(state: TrainState, eval_fn, task: Task, batch: int,
 
 def build_model_for(cfg: TrainConfig, device: torch.device, ring=None,
                     vocab_size: int = 0, image_shape: tuple = (),
-                    bn_group=None, tp=None, ep=None):
+                    bn_group=None, tp=None, ep=None, pipe=None,
+                    aux_mesh=None):
     """The model ``cfg`` names, built on ``device`` with its weights not
     yet drawn (``init_weights``); ``ring``: the seq group's ring; ``tp``:
     the model group's transport (tensor parallelism); ``ep``: the expert
-    group's (a MoE model's experts; None: they take ``tp``).
+    group's (a MoE model's experts; None: they take ``tp``); ``pipe``:
+    the pipe's transport (pipelined_lm; None: one stage) and
+    ``aux_mesh`` the mesh whose data group its routers' counts sum over.
     ``vocab_size``: the tokenizer's, which sizes the LM under
     ``--dataset text``; ``image_shape``: the dataset's [H, W, C] (a
     ResNet takes its channels); ``bn_group``: the group of sync BN."""
-    if cfg.model in ("gpt_lm", "bert_mlm", "moe_lm"):
-        kw = {"ring": ring, "tp": tp, "ep": ep}
+    if cfg.model in ("gpt_lm", "bert_mlm", "moe_lm", "pipelined_lm"):
+        kw = ({"ring": ring, "tp": tp, "ep": ep}
+              if cfg.model != "pipelined_lm" else
+              {"pipe": pipe, "num_microbatches": cfg.pipeline_microbatches,
+               "virtual_stages": cfg.pipeline_virtual_stages,
+               "aux_mesh": aux_mesh})
         if cfg.model_size:
             kw["size"] = cfg.model_size
         if cfg.dataset == "text":
@@ -250,13 +264,22 @@ def _build_model_and_state(cfg: TrainConfig, device: torch.device,
         cfg, device, mesh.ring, vocab_size=vocab_size,
         image_shape=task.image_shape if task is not None else (),
         bn_group=mesh.data_group if sync_bn else None, tp=mesh.tp,
-        ep=mesh.ep)
-    tx = make_optimizer(cfg, model)
+        ep=mesh.ep, pipe=mesh_lib.pipe_transport(mesh), aux_mesh=mesh)
+    piped = mesh.distributed and mesh.pipe > 1
+    tx = make_optimizer(cfg, model, group_sum=(
+        (lambda t: mesh.pipe_all_reduce_([t])) if piped else None))
     if init_params is not None and is_split(model):
         init_params = shard_state_dict(init_params, model)
+    if init_params is not None and getattr(model, "is_pipelined", False):
+        mine = dict(model.named_parameters())
+        init_params = {n: t for n, t in init_params.items() if n in mine}
     state = create_train_state(model, tx, cfg.seed, init_params)
-    # Every rank starts from the first rank of its replica group's copy.
-    mesh.replica_broadcast_(model.parameters())
+    # Every rank starts from the first rank of its replica group's copy
+    # (over a pipe: of its data group, the ranks of its stage).
+    if mesh.pipe > 1:
+        mesh.data_broadcast_(model.parameters())
+    else:
+        mesh.replica_broadcast_(model.parameters())
     partition_state_(state, cfg.param_partition, mesh, min_size)
     if cfg.ema_decay:
         state.ema = ema_init(state.params)
@@ -268,22 +291,31 @@ def _setup(cfg: TrainConfig, logger: Optional[MetricLogger]):
     group, then the group (``mesh_lib.bootstrap``)."""
     cfg.validate()
     device = resolve_device(mesh_lib.rank_device(cfg.device))
-    expert = cfg.mesh.expert
+    expert, pipe = cfg.mesh.expert, cfg.mesh.pipe
     data, seq, model = mesh_lib.mesh_shape(cfg.mesh.data, cfg.mesh.seq,
-                                           cfg.mesh.model, expert)
+                                           cfg.mesh.model, expert, pipe)
     why = mesh_lib.mesh_infeasible(
-        {"data": data, "seq": seq, "model": model, "expert": expert},
-        data * seq * model * expert, cfg.batch_size)
+        {"data": data, "seq": seq, "model": model, "expert": expert,
+         "pipe": pipe}, data * pipe * seq * model * expert, cfg.batch_size)
     if why:
-        raise ValueError(f"--mesh.data {data} --mesh.seq {seq} "
-                         f"--mesh.model {model} --mesh.expert {expert}: "
-                         f"{why}")
+        raise ValueError(f"--mesh.data {data} --mesh.pipe {pipe} --mesh.seq "
+                         f"{seq} --mesh.model {model} --mesh.expert {expert}"
+                         f": {why}")
     if (cfg.batch_size // data) % cfg.grad_accum_steps:
         raise ValueError(
             f"grad_accum_steps {cfg.grad_accum_steps} must divide the "
             f"per-rank batch {cfg.batch_size // data} (batch_size / "
             f"mesh.data)")
-    mesh = mesh_lib.bootstrap(data, seq, device, model, expert)
+    if cfg.model == "pipelined_lm" and data > 1 and (
+            cfg.batch_size // data) % (cfg.grad_accum_steps
+                                       * cfg.pipeline_microbatches):
+        raise ValueError(
+            f"the per-rank batch {cfg.batch_size // data} (batch_size / "
+            f"mesh.data) must split into grad_accum_steps x "
+            f"pipeline_microbatches {cfg.grad_accum_steps} x "
+            f"{cfg.pipeline_microbatches} microbatches (a data rank "
+            f"holds its rows of each of JAX's)")
+    mesh = mesh_lib.bootstrap(data, seq, device, model, expert, pipe)
     logger = logger or MetricLogger()
     if not mesh_lib.is_chief():
         logger.enabled = False  # every rank keeps its records; one prints
@@ -298,29 +330,57 @@ def _make_task(cfg: TrainConfig, mesh: Mesh) -> Task:
     return task
 
 
-def build_stacked(cfg: TrainConfig, device: torch.device,
-                  min_size: int = FSDP_MIN_SIZE):
-    """``cfg``'s run on the stacked transport of ``cfg.mesh.data`` data
-    ranks in this process (``parallel/mesh.stacked_data``; the tests and
-    the one-card smoke): (the task, drawing global batches; the state,
-    laid out as ``cfg.param_partition``; the train step, which runs each
-    data rank's rows in turn). ``min_size``: the partition rule's
-    threshold."""
-    cfg.validate()
-    if cfg.moe_experts > 0 or cfg.model == "moe_lm":
-        raise ValueError("the stacked data transport runs dense models (a "
-                         "router's load balance is over the global batch)")
-    mesh = mesh_lib.stacked_data(cfg.mesh.data)
-    task = _make_task(cfg, ONE_PROCESS)
-    _, state = _build_model_and_state(cfg, device, mesh=mesh, task=task,
-                                      min_size=min_size)
-    step = make_train_step(
+def _make_step(cfg: TrainConfig, task: Task, state: TrainState,
+               device: torch.device, mesh: Mesh,
+               skip_nonfinite: bool = False, sync=None):
+    """The train step ``cfg`` runs: ``pipelined_lm``'s 1F1B step
+    (``train/pipeline_step.py``) under ``--pipeline-schedule 1f1b``,
+    else the standard step (GPipe for ``pipelined_lm``)."""
+    if cfg.model == "pipelined_lm" and cfg.pipeline_schedule == "1f1b":
+        from tensorflow_distributed_tpu_torch.train.pipeline_step import (
+            make_1f1b_train_step)
+        return make_1f1b_train_step(
+            state.model, device, mesh, cfg.seed,
+            moe_aux_weight=cfg.moe_aux_weight,
+            moe_zloss_weight=cfg.moe_zloss_weight,
+            grad_norm_metric=cfg.log_grad_norm,
+            label_smoothing=cfg.label_smoothing, ema_decay=cfg.ema_decay,
+            backward=cfg.pipeline_backward, ce_chunk=cfg.ce_chunk)
+    return make_train_step(
         task.loss, device, cfg.seed, grad_norm_metric=cfg.log_grad_norm,
-        mesh=mesh, ema_decay=cfg.ema_decay,
-        skip_nonfinite=cfg.resilience.nonfinite == "skip_batch",
-        grad_sync=cfg.grad_sync, state_template=state,
+        mesh=mesh, accum_steps=cfg.grad_accum_steps,
+        ema_decay=cfg.ema_decay, skip_nonfinite=skip_nonfinite, sync=sync,
+        grad_sync=cfg.grad_sync,
+        state_template=state,
         bucket_bytes=int((cfg.grad_sync_bucket_mb or 0) * (1 << 20)),
         grad_clip_norm=cfg.grad_clip_norm or 0.0)
+
+
+def build_stacked(cfg: TrainConfig, device: torch.device,
+                  min_size: int = FSDP_MIN_SIZE, init_params=None):
+    """``cfg``'s run on the stacked transport of ``cfg.mesh.data`` data
+    ranks in this process (``parallel/mesh.stacked_data``), or for
+    ``pipelined_lm`` of its ``cfg.mesh.pipe`` stages
+    (``parallel/mesh.stacked_pipe``; the tests and the one-card smoke):
+    (the task, drawing global batches; the state, laid out as
+    ``cfg.param_partition``; the train step, which runs each data rank's
+    rows, or each stage, in turn). ``min_size``: the partition rule's
+    threshold; ``init_params``: as ``train``'s."""
+    cfg.validate()
+    pipelined = cfg.model == "pipelined_lm"
+    if (cfg.moe_experts > 0 or cfg.model == "moe_lm") and not pipelined:
+        raise ValueError("the stacked data transport runs dense models (a "
+                         "router's load balance is over the global batch)")
+    if pipelined and cfg.mesh.data not in (-1, 1):
+        raise ValueError("the stacked pipe holds the stages of one data "
+                         "rank (--mesh.data 1)")
+    mesh = (mesh_lib.stacked_pipe(cfg.mesh.pipe) if pipelined
+            else mesh_lib.stacked_data(cfg.mesh.data))
+    task = _make_task(cfg, ONE_PROCESS)
+    _, state = _build_model_and_state(cfg, device, init_params, mesh=mesh,
+                                      task=task, min_size=min_size)
+    step = _make_step(cfg, task, state, device, mesh,
+                      skip_nonfinite=cfg.resilience.nonfinite == "skip_batch")
     return task, state, step
 
 
@@ -355,14 +415,10 @@ def train(cfg: TrainConfig, logger: Optional[MetricLogger] = None,
             if (res.data_timeout_s or res.sync_timeout_s) else None)
     ckpt.set_io_policy(res.save_retries, res.save_retry_backoff_s)
     windowed = policy is not None or spikes is not None or wdog is not None
-    step_fn = make_train_step(
-        task.loss, device, cfg.seed, grad_norm_metric=cfg.log_grad_norm,
-        mesh=mesh, accum_steps=cfg.grad_accum_steps, ema_decay=cfg.ema_decay,
+    step_fn = _make_step(
+        cfg, task, state, device, mesh,
         skip_nonfinite=policy is not None and policy.mode == "skip_batch",
-        sync=wdog.sync if wdog is not None else None,
-        grad_sync=cfg.grad_sync, state_template=state,
-        bucket_bytes=int((cfg.grad_sync_bucket_mb or 0) * (1 << 20)),
-        grad_clip_norm=cfg.grad_clip_norm or 0.0)
+        sync=wdog.sync if wdog is not None else None)
     eval_fn = make_eval_step(task.eval_loss or task.loss)
     logger.log_json({
         "event": "start", "model": cfg.model, "task": task.name,
@@ -372,7 +428,8 @@ def train(cfg: TrainConfig, logger: Optional[MetricLogger] = None,
         "device": str(device),
         "global_batch": cfg.batch_size, "start_step": start_step,
         "mesh": {"data": mesh.data, "seq": mesh.seq, "model": mesh.model,
-                 **({"expert": mesh.expert} if mesh.expert > 1 else {})},
+                 **({"expert": mesh.expert} if mesh.expert > 1 else {}),
+                 **({"pipe": mesh.pipe} if mesh.pipe > 1 else {})},
     })
     if cfg.grad_sync != "implicit":
         logger.log_json({"event": "grad_sync", "mode": cfg.grad_sync,

@@ -25,7 +25,13 @@ package builds:
   over its two largest axes when the second largest is >= 128, on the
   FLAX leaf's shape (``qkv`` [D, 3, H, dh] is not factored, ``mlp/up``
   [D, d_ff] is), so this optimizer decides, and keeps its statistics,
-  on each parameter's flax-shaped view (``interop.flax_layout``);
+  on each parameter's flax-shaped view (``interop.flax_layout``); a
+  ``pipelined_lm``'s JAX leaf stacks every layer ([S, lps, ...]), so its
+  layers' tensors form ``groups`` whose block RMS (the clip's and the
+  param scale's) is taken over the whole group, summed over the pipe's
+  processes by ``group_sum`` (the factoring decision and statistics
+  stay per layer, as optax's on a stacked leaf whose S and lps are under
+  128);
 - scaling by ``-schedule(count)`` with the schedule read at the count
   before this update.
 
@@ -150,7 +156,13 @@ class Optimizer:
                  weight_decay: float = 0.0, mask: Dict[str, bool] = None,
                  clip_norm: float = 0.0, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8, momentum: float = 0.9,
-                 layouts: Optional[Layouts] = None):
+                 layouts: Optional[Layouts] = None,
+                 groups: Optional[Dict[str, str]] = None,
+                 group_sum: Optional[Callable[[torch.Tensor], None]] = None):
+        """Adafactor's ``groups`` (name -> the JAX leaf it is a slice
+        of) share one block RMS; ``group_sum`` sums a tensor of their
+        statistics over the processes that hold the group's other
+        slices, in place (None: this process holds them all)."""
         if kind not in ("adam", "sgd", "adafactor"):
             raise ValueError(f"unknown optimizer {kind!r}")
         if kind == "adafactor" and layouts is None:
@@ -163,6 +175,8 @@ class Optimizer:
         self.clip_norm = clip_norm
         self.b1, self.b2, self.eps, self.momentum = b1, b2, eps, momentum
         self.layouts = layouts
+        self.groups = groups or {}
+        self.group_sum = group_sum
 
     def init(self, params: Tensors) -> dict:
         zeros = {n: torch.zeros_like(p) for n, p in params.items()}
@@ -244,9 +258,9 @@ class Optimizer:
         keep = float(np.float32(1.0) - np.float32(decay))
         lr = self.schedule(count)
         state["count"] += 1
-        out = {}
+        out, us = {}, {}
         for n, grad in grads.items():
-            to_flax, from_flax = self.layouts[n]
+            to_flax = self.layouts[n][0]
             g = to_flax(grad)
             g_sq = g * g + FACTOR_EPS
             dims = factored_dims(list(g.shape))
@@ -264,23 +278,66 @@ class Optimizer:
                 row_factor = (v_row / row_col_mean).pow(-0.5)
                 u = (g * row_factor.unsqueeze(d0)
                      * v_col.pow(-0.5).unsqueeze(d1))
-            # clip_by_block_rms(1.0)
-            u = u / torch.clamp(_block_rms(u) / CLIP_BLOCK_RMS, min=1.0)
-            u = u * lr
-            # scale_by_param_block_rms(1e-3)
+            if n in self.groups:
+                us[n] = u  # finished below, by its group's RMS
+                continue
             p = to_flax(params[n])
-            u = u * torch.clamp(_block_rms(p), min=PARAM_SCALE_MIN)
-            if self.weight_decay and self.mask.get(n, False):
-                u = u + self.weight_decay * p
-            out[n] = from_flax(-u)
-        return out
+            out[n] = self._finish(n, u, p, lr, _block_rms(u), _block_rms(p))
+        flax_params = {n: self.layouts[n][0](params[n]) for n in us}
+        rms = self._group_rms(us, flax_params)
+        for n, u in us.items():
+            out[n] = self._finish(n, u, flax_params[n], lr, *rms[n])
+        return {n: out[n] for n in grads}
+
+    def _finish(self, n: str, u: torch.Tensor, p: torch.Tensor, lr: float,
+                u_rms: torch.Tensor, p_rms: torch.Tensor) -> torch.Tensor:
+        """The chain after the factored scaling, given the update's and
+        the param's block RMS: the clip, the learning rate, the param
+        scale, the decayed weights, -1; back in the param's layout."""
+        # clip_by_block_rms(1.0)
+        u = u / torch.clamp(u_rms / CLIP_BLOCK_RMS, min=1.0)
+        u = u * lr
+        # scale_by_param_block_rms(1e-3)
+        u = u * torch.clamp(p_rms, min=PARAM_SCALE_MIN)
+        if self.weight_decay and self.mask.get(n, False):
+            u = u + self.weight_decay * p
+        return self.layouts[n][1](-u)
+
+    def _group_rms(self, us: Tensors, flax_params: Tensors):
+        """name -> (the update's, the param's) block RMS over its group,
+        for every grouped name: the sums of squares and sizes of the
+        group's slices in this process, summed by ``group_sum`` (in f64:
+        a stacked leaf's size passes 2^24)."""
+        keys = sorted({self.groups[n] for n in us if n in self.groups})
+        if not keys:
+            return {}
+        at = {k: i for i, k in enumerate(keys)}
+        zero = torch.zeros((), dtype=torch.float64,
+                           device=next(iter(us.values())).device)
+        sums = [[zero, zero, 0] for _ in keys]
+        for n, u in us.items():
+            if n in self.groups:
+                row = sums[at[self.groups[n]]]
+                row[0] = row[0] + torch.sum(u.double() ** 2)
+                row[1] = row[1] + torch.sum(flax_params[n].double() ** 2)
+                row[2] += u.numel()
+        packed = torch.stack([torch.stack([a, b, zero + c])
+                              for a, b, c in sums])
+        if self.group_sum is not None:
+            self.group_sum(packed)
+        means = torch.sqrt(packed[:, :2] / packed[:, 2:]).float()
+        return {n: (means[at[k], 0], means[at[k], 1])
+                for n, k in self.groups.items() if n in us}
 
 
-def make_optimizer(cfg: TrainConfig, model: nn.Module) -> Optimizer:
+def make_optimizer(cfg: TrainConfig, model: nn.Module,
+                   group_sum: Optional[Callable[[torch.Tensor], None]] = None
+                   ) -> Optimizer:
     """The optimizer of ``cfg`` for ``model``'s parameters (the decay
     mask is read from the model's module types; adafactor's layouts from
-    ``interop.flax_layout``)."""
-    layouts = None
+    ``interop.flax_layout``, and for a pipelined model its groups: each
+    block parameter's JAX leaf, summed over the pipe by ``group_sum``)."""
+    layouts, groups = None, None
     if cfg.optimizer == "adafactor":
         # interop reaches this module through train/state.py: import it
         # here, once the package is loaded.
@@ -288,10 +345,15 @@ def make_optimizer(cfg: TrainConfig, model: nn.Module) -> Optimizer:
 
         layouts = {n: flax_layout(model, n)[1:]
                    for n, _ in model.named_parameters()}
+        if getattr(model, "is_pipelined", False):
+            shell = set(model.shell_names())
+            groups = {n: "/".join(flax_layout(model, n)[0][1:])
+                      for n, _ in model.named_parameters()
+                      if n not in shell}
     return Optimizer(cfg.optimizer, make_schedule(cfg),
                      weight_decay=(cfg.weight_decay
                                    if cfg.optimizer != "sgd" else 0.0),
                      mask=decay_mask(model),
                      clip_norm=((cfg.grad_clip_norm or 0.0)
                                 if cfg.grad_sync == "implicit" else 0.0),
-                     layouts=layouts)
+                     layouts=layouts, groups=groups, group_sum=group_sum)

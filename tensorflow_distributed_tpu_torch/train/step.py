@@ -48,6 +48,14 @@ explicit step instead (``parallel/overlap.py``). On the stacked
 transport (``parallel/mesh.stacked_data``) one process runs every data
 rank's rows in turn (``forward_backward``).
 
+A pipelined model (``--model pipelined_lm``) runs its GPipe schedule
+through this step: its loss's backward is the schedule's, and over a
+pipe of processes the gradients are summed as ``parallel/pipeline.
+sync_pipe_grads_`` says (a stage's blocks over the data group, the shell
+over the pipe group and then the data group) and the norm sums the
+stages' blocks over the pipe group (``pipe_grad_norm``). Its 1F1B
+schedule has its own step (``train/pipeline_step.py``).
+
 ``skip_nonfinite`` (``--resilience.nonfinite skip_batch``) discards the
 update of a step whose loss or gradient norm is not finite: the params,
 the optimizer state and its count, and the EMA keep their values, and
@@ -68,6 +76,8 @@ import torch
 
 from tensorflow_distributed_tpu_torch.data.prefetch import map_batch
 from tensorflow_distributed_tpu_torch.parallel.mesh import ONE_PROCESS, Mesh
+from tensorflow_distributed_tpu_torch.parallel.pipeline import (
+    pipe_grad_norm, sync_pipe_grads_)
 from tensorflow_distributed_tpu_torch.parallel.sharding import (
     is_expert_sharded, is_sharded)
 from tensorflow_distributed_tpu_torch.resilience.watchdog import wait_for
@@ -288,20 +298,26 @@ def make_train_step(loss: LossFn, device: torch.device, seed: int = 0,
         params = state.params
         metrics = forward_backward(state, batch, loss, generator, seed,
                                    mesh, accum_steps)
-        grads = {n: p.grad for n, p in params.items()}
         # fsdp's blocks arrive summed (parallel/fsdp.py's reduce-scatter).
         blocked = part.blocked if part.params_blocked else frozenset()
-        mesh.replica_all_reduce_([g for n, g in grads.items()
-                                  if n not in blocked])
+        piped = mesh.pipe > 1 and mesh.distributed
+        if piped:
+            sync_pipe_grads_(state.model, mesh)
+        grads = {n: p.grad for n, p in params.items()}
+        if not piped:
+            mesh.replica_all_reduce_([g for n, g in grads.items()
+                                      if n not in blocked])
         # Over a model axis, or the data axis under fsdp, the norm
         # (metric, verdict, clip) is one all-reduce, computed once where
         # one of them reads it; the ranks reach one verdict. Under zero1
         # the optimizer sees blocks, so the norm of the whole gradients
-        # is handed to its clip.
+        # is handed to its clip; over a pipe, the stages' blocks.
         norm = None
-        if (mesh.model > 1 or mesh.expert > 1 or blocked
-                or part.kind == "zero1") and (
-                grad_norm_metric or skip_nonfinite or state.tx.clip_norm):
+        wanted = grad_norm_metric or skip_nonfinite or state.tx.clip_norm
+        if piped and wanted:
+            norm = pipe_grad_norm(grads, mesh, state.model.shell_names())
+        elif (mesh.model > 1 or mesh.expert > 1 or blocked
+                or part.kind == "zero1") and wanted:
             norm = grad_norm(grads, mesh, sharded, blocked, experts)
         if grad_norm_metric:
             metrics = dict(metrics, grad_norm=(

@@ -74,6 +74,9 @@ class Task:
     eval_loss: Optional[LossFn] = None
     vocab_size: int = 0               # the dataset's vocabulary (LM)
     image_shape: tuple = ()           # vision: one image's [H, W, C]
+    # The pipeline's microbatches a batch splits into (a data rank holds
+    # its rows of each); 1 without a pipeline.
+    microbatches: int = 1
 
 
 def _mean(ce_sum, correct, n, mesh: Mesh):
@@ -202,6 +205,63 @@ def make_moe_loss(aux_weight: float = MOE_AUX_WEIGHT,
     return moe_loss
 
 
+def make_pipelined_loss(label_smoothing: float = 0.0, ce_chunk: int = 0,
+                        mesh: Mesh = ONE_PROCESS, moe: bool = False,
+                        aux_weight: float = MOE_AUX_WEIGHT,
+                        zloss_weight: float = 0.0) -> LossFn:
+    """The pipelined family's objective through its GPipe forward
+    (``models/pipelined.py``; the standard step differentiates it): the
+    masked CE on the process that holds the last stage (the dense head,
+    or with ``ce_chunk`` the fused loss's scan form), whose three sums
+    are the only ones over the world (the other stages add zeros), and
+    with ``moe`` JAX's router terms: each rank's (stage, microbatch)
+    sums over ``n_layers * M``, weighted as ``make_moe_loss`` weights
+    them. A rank that holds no last stage differentiates its router
+    terms and the hop token (``link``), so its backward runs the
+    schedule's."""
+
+    def pipelined_loss(model, batch, train, generator=None):
+        link: list = []
+        auxes: Optional[list] = [] if moe else None
+        out = model(batch["tokens"], train=train, generator=generator,
+                    features_only=bool(ce_chunk), moe_aux=auxes, link=link)
+        if out is None:
+            zero = torch.zeros((), device=batch["tokens"].device)
+            ce_sum, correct, n = zero, zero, zero
+        elif ce_chunk:
+            feats, w, bias = out
+            ce_sum, correct, n = fused_ce_sums_by(
+                "scan", feats, w, bias, batch["targets"], batch["mask"],
+                vocab_size=w.shape[0], chunk=ce_chunk,
+                label_smoothing=label_smoothing)
+        else:
+            ce_sum, correct, n = masked_ce_sums(
+                out, batch["targets"], batch["mask"], label_smoothing)
+        value, metrics = _mean(ce_sum, correct, n, mesh)
+        for token in link:
+            value = value + 0.0 * token
+        if not moe:
+            return value, metrics
+        cfg = model.cfg
+        denom = cfg.n_layers * model.num_microbatches
+        aux = auxes[0]
+        value = value + (aux_weight * aux["load_balance"]
+                         + zloss_weight * aux["z_loss"]) / denom
+        # The metrics: lb and z parts over the world, each slot's global
+        # dropped fraction over the pipe group.
+        parts = torch.stack([aux["load_balance"], aux["z_loss"]]).detach()
+        mesh.replica_all_reduce_([parts])
+        dropped = aux["dropped_fraction"].detach().reshape(1).clone()
+        mesh.pipe_all_reduce_([dropped])
+        return value, {"loss": metrics["loss"],
+                       "aux_loss": parts[0] / denom,
+                       "z_loss": parts[1] / denom,
+                       "dropped_frac": dropped[0] / denom,
+                       "accuracy": metrics["accuracy"]}
+
+    return pipelined_loss
+
+
 def _make_lm_task(cfg: TrainConfig, mesh: Mesh, objective: str,
                   seq_len: int = 128, vocab_size: int = 64) -> Task:
     """LM task: ``objective`` "mlm" (masked positions, the synthetic
@@ -243,16 +303,29 @@ def _make_lm_task(cfg: TrainConfig, mesh: Mesh, objective: str,
         val_ds = gen(n=max(4 * cfg.eval_batch_size, 512), seq_len=seq_len,
                      vocab_size=vocab_size, seed=cfg.seed + 1)
     n_proc, i_proc = process_batch_role(mesh)
+    # A pipelined step splits each (accumulation) microbatch into the
+    # pipeline's: a data rank draws its rows of each of JAX's.
+    pipelined = cfg.model == "pipelined_lm"
+    splits = cfg.grad_accum_steps * (cfg.pipeline_microbatches
+                                     if pipelined else 1)
     batcher = LmBatcher(train_ds, cfg.batch_size, cfg.shuffle_seed,
                         num_processes=n_proc, process_index=i_proc,
-                        accum_steps=cfg.grad_accum_steps)
+                        accum_steps=splits)
 
     def eval_batches(batch: int) -> Iterator[Any]:
         nrows = (len(val_ds) // batch) * batch
         for lo in range(0, nrows, batch):
             yield val_ds.batch(np.arange(lo, lo + batch))
 
-    if objective.startswith("moe_"):
+    if pipelined:
+        moe = objective.startswith("moe_")
+        loss = make_pipelined_loss(
+            cfg.label_smoothing, cfg.ce_chunk, _train_mesh(cfg, mesh), moe,
+            cfg.moe_aux_weight, cfg.moe_zloss_weight)
+        eval_loss = make_pipelined_loss(
+            ce_chunk=cfg.ce_chunk, mesh=mesh, moe=moe,
+            aux_weight=cfg.moe_aux_weight, zloss_weight=cfg.moe_zloss_weight)
+    elif objective.startswith("moe_"):
         loss = make_moe_loss(cfg.moe_aux_weight, cfg.moe_zloss_weight,
                              cfg.label_smoothing, ce_chunk=cfg.ce_chunk,
                              ce_impl=cfg.ce_impl, mesh=mesh)
@@ -273,7 +346,8 @@ def _make_lm_task(cfg: TrainConfig, mesh: Mesh, objective: str,
         train_stream=batcher.forever,
         eval_batches=eval_batches, eval_size=len(val_ds),
         steps_per_epoch=batcher.steps_per_epoch, seq_axis=1,
-        seq_len=seq_len, vocab_size=train_ds.vocab_size)
+        seq_len=seq_len, vocab_size=train_ds.vocab_size,
+        microbatches=cfg.pipeline_microbatches if pipelined else 1)
 
 
 def _train_mesh(cfg: TrainConfig, mesh: Mesh) -> Mesh:
@@ -283,12 +357,13 @@ def _train_mesh(cfg: TrainConfig, mesh: Mesh) -> Mesh:
 
 
 def make_task(cfg: TrainConfig, mesh: Mesh = ONE_PROCESS) -> Task:
-    """Model family -> task: bert_mlm trains masked-LM, gpt_lm and
-    moe_lm next-token prediction (with experts, the MoE objective);
+    """Model family -> task: bert_mlm trains masked-LM, gpt_lm, moe_lm
+    and pipelined_lm next-token prediction (with experts, the MoE
+    objective; pipelined_lm through its GPipe forward);
     every other family classifies images."""
     moe = cfg.moe_experts > 0 or cfg.model == "moe_lm"
     if cfg.model == "bert_mlm":
         return _make_lm_task(cfg, mesh, "moe_mlm" if moe else "mlm")
-    if cfg.model in ("gpt_lm", "moe_lm"):
+    if cfg.model in ("gpt_lm", "moe_lm", "pipelined_lm"):
         return _make_lm_task(cfg, mesh, "moe_clm" if moe else "clm")
     return _make_vision_task(cfg, mesh)

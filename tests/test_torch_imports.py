@@ -58,9 +58,10 @@ def test_port_and_chip_smoke_import_without_jax():
     # policies, and train/preemption.py: the port keeps its own copies of
     # the jax-free JAX modules, observe/anomaly.py's spike detector
     # included; PR 17's families and data: models.resnet, the CIFAR and
-    # uint8 data, and the native runtime's binding).
+    # uint8 data, and the native runtime's binding; the pipeline:
+    # parallel.pipeline, models.pipelined, train.pipeline_step).
     words = out.stdout.split()
-    assert int(words[1]) >= 43
+    assert int(words[1]) >= 46
     for name in ("parallel.mesh", "models.cnn", "data.mnist",
                  "data.prefetch", "utils.serialization", "train.checkpoint",
                  "serve.paging", "serve.paging.pool", "serve.paging.radix",
@@ -69,7 +70,9 @@ def test_port_and_chip_smoke_import_without_jax():
                  "resilience.policies", "train.preemption", "train.loop",
                  "train.step", "train.checkpoint", "data.prefetch", "cli",
                  "config", "serve.engine", "models.resnet", "data.cifar",
-                 "data.u8", "data.lm", "native", "native.runtime"):
+                 "data.u8", "data.lm", "native", "native.runtime",
+                 "parallel.pipeline", "models.pipelined",
+                 "train.pipeline_step"):
         assert f"tensorflow_distributed_tpu_torch.{name}" in words[2:]
 
 

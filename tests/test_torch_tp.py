@@ -280,7 +280,8 @@ def test_mesh_model_flag_parses_and_refuses_uneven_shards():
                       "--device", "cpu"])
     assert (cfg.mesh.model, cfg.shard_vocab) == (2, True)
     assert dataclasses.asdict(MeshConfig()) == {"data": -1, "model": 1,
-                                                "seq": 1, "expert": 1}
+                                                "seq": 1, "pipe": 1,
+                                                "expert": 1}
     with pytest.raises(ValueError, match="must be >= 1"):
         MeshConfig(model=0).validate()
     with pytest.raises(ValueError, match="must divide n_heads"):

@@ -290,9 +290,9 @@ def test_parse_args_spellings_and_defaults():
 
 
 @pytest.mark.parametrize("argv", [["--plan", "auto"],
-                                  ["--pipeline-microbatches", "8"],
-                                  ["--param-sync-every", "4"],
-                                  ["--mesh.pipe", "2"]])
+                                  ["--profile-dir", "/tmp/prof"],
+                                  ["--check", "true"],
+                                  ["--observe.metrics-jsonl", "/tmp/m"]])
 def test_unported_jax_flags_are_rejected(argv, capsys):
     with pytest.raises(SystemExit):
         parse_args(argv)
@@ -312,7 +312,9 @@ def test_unported_jax_flags_are_rejected(argv, capsys):
                                     dict(optimizer="adafactor",
                                          mesh=MeshConfig(model=2)),
                                     dict(compute_dtype="float32"),
-                                    dict(model="pipelined_lm"),
+                                    dict(model="pipelined_lm",
+                                         param_partition="zero1",
+                                         mesh=MeshConfig(data=2, pipe=2)),
                                     dict(mode="serve",
                                          mesh=MeshConfig(data=2))])
 def test_unported_values_raise(fields):
@@ -336,7 +338,7 @@ def test_shared_fields_have_the_jax_defaults():
         assert getattr(port, name) == getattr(ref, name), name
     mesh = ({f.name for f in dataclasses.fields(type(port.mesh))}
             & {f.name for f in dataclasses.fields(type(ref.mesh))})
-    assert mesh == {"data", "seq", "model", "expert"}
+    assert mesh == {"data", "seq", "model", "pipe", "expert"}
     for name in mesh:
         assert getattr(port.mesh, name) == getattr(ref.mesh, name), name
     for part in ("serve", "resilience"):

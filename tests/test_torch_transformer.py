@@ -226,7 +226,7 @@ def test_ported_options_build_the_flax_tree(override):
 
 def test_registry():
     assert MODEL_NAMES == ("mnist_cnn", "resnet20", "resnet50", "bert_mlm",
-                           "gpt_lm", "moe_lm")
+                           "gpt_lm", "moe_lm", "pipelined_lm")
     m = build_model("gpt_lm", size="tiny", compute_dtype=torch.float32)
     assert isinstance(m, ttr.CausalLM) and m.cfg.causal
     cnn = build_model("mnist_cnn", dropout_rate=0.5, init_scheme="reference")
@@ -235,8 +235,10 @@ def test_registry():
     assert isinstance(bert, ttr.BertMLM) and not bert.cfg.causal
     moe = build_model("moe_lm", size="tiny")
     assert moe.cfg.moe_experts == ttr.MOE_DEFAULT_EXPERTS and moe.cfg.causal
+    piped = build_model("pipelined_lm", size="tiny")
+    assert piped.cfg.n_layers == 4 and piped.cfg.causal
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("pipelined_lm")
+        build_model("vit")
 
 
 def test_dropout_keeps_expected_fraction():

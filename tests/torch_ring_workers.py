@@ -249,3 +249,33 @@ def explicit_steps(rank, world, init_path, batches_path, runs, out_dir):
                      "blocked": sorted(state.partition.blocked),
                      "plan": step.bucket_plan.describe()}
     torch.save(out, os.path.join(str(out_dir), f"rank{rank}.pt"))
+
+
+def pipe_runs(rank, world, runs, out_dir):
+    """For each (kind, name, fields, mesh, init path or None) of ``runs``
+    in turn on this rank, with ``--device cpu``: ``train()`` (kind
+    "train": its losses, final eval and whole params, gathered over the
+    pipe) or ``evaluate_only()`` (kind "eval": its metrics)."""
+    from tensorflow_distributed_tpu_torch.config import (
+        MeshConfig, TrainConfig)
+    from tensorflow_distributed_tpu_torch.train.checkpoint import whole_state
+    from tensorflow_distributed_tpu_torch.train.loop import (
+        evaluate_only, train)
+    from tensorflow_distributed_tpu_torch.utils.logging import MetricLogger
+
+    out = {}
+    for kind, name, fields, mesh, init_path in runs:
+        cfg = TrainConfig(**fields, device="cpu", mesh=MeshConfig(**mesh))
+        if kind == "eval":
+            out[name] = evaluate_only(cfg, logger=MetricLogger(enabled=False))
+            continue
+        init = torch.load(init_path) if init_path else None
+        res = train(cfg, logger=MetricLogger(enabled=False),
+                    init_params=init)
+        with whole_state(res.state) as whole:
+            params = {k: v.detach().clone() for k, v in whole.params.items()}
+        out[name] = {"losses": [r.metrics["loss"] for r in res.logger.records
+                                if "loss" in r.metrics],
+                     "final": res.final_metrics, "params": params,
+                     "local": sorted(res.state.params)}
+    torch.save(out, os.path.join(str(out_dir), f"rank{rank}.pt"))

@@ -442,7 +442,46 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
              ``--mode eval`` restores the save on the same four ranks
              (its loss within 1e-5 of the run's final eval); on two cards
              the pipe 2 legs only; skipped, by the device count alone,
-             on one card.
+             on one card;
+52. model_local_sgd — local SGD (``--param-sync-every``) for
+             GPT-2-small (seq 1024, batch 8, bf16, dropout 0, SGD) on
+             ``stacked_data(4)`` (the 4 replicas in this process): at H
+             1 one step equals the synchronous data-parallel step of the
+             same flags on the same transport (the loss within 1e-5
+             relative, the replicas' mean params within rtol 2e-5 /
+             atol 1e-6); at H 4 the replicas differ after steps 1-3 and
+             are equal to the bit after step 4; B1-B3 launched exactly
+             12 x 4 times a step;
+53. model_pipe_tp — GPT-2-small as ``pipelined_lm`` on ``StackedPipe(2)``
+             x ``StackedTP(2)`` (Megatron blocks, the shell whole), M 4:
+             GPipe against the plain ``gpt_lm`` on the same weights over
+             the same 4 microbatches at model_pipe's gates (the loss
+             1e-4 relative, the logits and the whole gradient 2e-2), and
+             at the same gates against the same model unstaged (one
+             stage, the same TP; the whole batch at once printed), 1F1B
+             recompute and stash against GPipe (1e-5, 1e-4); B1-B3 at
+             H/M = 6 heads launched exactly 12 x 4 x 2 times (B1 twice
+             that under recompute);
+54. model_pipe_seq — the same on ``StackedPipe(2)`` x ``StackedRing(2)``
+             (every stage's attention the zigzag ring): B7-B9 at the
+             stages' 256-row half-blocks launched exactly 12 x 4 x 5
+             times (B7 twice that under recompute), no B1-B3;
+55. train_local_sgd — ``--mesh.data D --param-sync-every 4`` under
+             torchrun (NCCL, D = min(cards, 4)), 10 steps, saved, then
+             ``--mode eval`` of the save on the same ranks (its loss
+             within 1e-5 of the run's final eval of the replicas'
+             mean); the first loss within 1e-2 of one card's (the
+             replicas start alike), every rank launching B1-B3 12 a
+             step; skipped, by the device count alone, on one card;
+56. train_pipe3d — ``--mesh.pipe 2 --mesh.model 2``, ``--mesh.pipe 2
+             --mesh.seq 2`` and ``--mesh.data 2 --mesh.pipe 2
+             --param-partition zero1`` under torchrun (NCCL, four
+             cards), 10 steps each: the first five losses within 1e-2 of
+             one card's with a rank's tokens a microbatch (the zero1 and
+             seq legs' to one card's 8 one-row microbatches),
+             every rank's kernel share (B1-B3, or B7-B9 under seq), peak
+             memory, step ms and tokens/s a card; skipped, by the device
+             count alone, on fewer than four cards.
 
 It then prints the seconds of each phase, the nvidia-smi line, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -453,7 +492,7 @@ result.
 
 runs the device and build phases, then only the named phases, with the
 same checks, and prints the nvidia-smi line last (no kernels or ok
-line). The phases it takes: ``ce_kernels`` and phases 35-51.
+line). The phases it takes: ``ce_kernels`` and phases 35-56.
 """
 
 from __future__ import annotations
@@ -784,12 +823,14 @@ TOL_U8 = 1e-5
 U8_STEPS_HELD = 5
 # ResNet-50 at 224 (ImageNet shapes, 1000 classes) and ResNet-20 on
 # CIFAR-10 shapes, synthetic sets made from the seed.
-# The phases ``--only`` runs alone: ce_kernels and phases 35-51.
+# The phases ``--only`` runs alone: ce_kernels and phases 35-56.
 ONLY_PHASES = ("ce_kernels", "model_bert", "train_bert", "train_text",
                "train_cnn_u8", "model_resnet", "train_resnet", "tp_kernels",
                "model_tp", "train_tp", "model_zero", "train_zero",
                "model_moe", "train_moe", "serve_moe", "train_ep",
-               "model_pipe", "train_pipe")
+               "model_pipe", "train_pipe", "model_local_sgd",
+               "model_pipe_tp", "model_pipe_seq", "train_local_sgd",
+               "train_pipe3d")
 # ZeRO-1, FSDP and the explicit gradient sync: GPT-2-small as published
 # (tied) on the stacked transport of D data ranks, each leg's steps
 # through the port's train step; then --param-partition / --grad-sync
@@ -885,6 +926,35 @@ TRAIN_PIPE_ARGV = ["--mode", "train", "--model", "pipelined_lm",
 TRAIN_PIPE_TIMEOUT_S = 600  # one torchrun, NCCL start-up included
 PIPE_LAYERS = 12  # TRAIN_PIPE_ARGV's model's (each rank's share of B1-B3)
 TOL_PIPE_EVAL = 1e-5  # --mode eval of the save vs the run's final eval
+# Local SGD: GPT-2-small (untied) on the stacked transport of LSGD_D
+# replicas, SGD (an update is lr x grad, so H 1 is the synchronous step).
+LSGD_D = 4
+LSGD_STEPS = 4
+MODEL_LSGD_ARGV = ["--mode", "train", "--model", "gpt_lm", "--model-size",
+                   "small", "--seq-len", "1024", "--batch-size", "8",
+                   "--dropout-rate", "0", "--compute-dtype", "bfloat16",
+                   "--optimizer", "sgd", "--train-steps", str(LSGD_STEPS),
+                   "--eval-every", "0", "--eval-batch-size", "8",
+                   "--mesh.data", str(LSGD_D)]
+TRAIN_LSGD_ARGV = TRAIN_TP_ARGV + ["--param-sync-every", "4"]
+TRAIN_LSGD_TIMEOUT_S = 600
+# Pipe x model and pipe x seq: GPT-2-small as pipelined_lm on
+# StackedPipe(2) with 4 microbatches, each stage's blocks on StackedTP(2)
+# or its attention on StackedRing(2).
+PIPE3D_MODEL = dict(size="small", B=8, L=1024, S=2, M=4, width=2)
+PIPE3D_LEGS = ("gpipe", "recompute", "stash")
+# Each leg's one-card run has its rank's tokens a microbatch: 2 rows of
+# 1024 (M 4) under pipe x model; 1 row of 1024 (M 8) under data 2 and
+# under seq 2, where a rank's 2-row microbatch holds 2 x 512 positions.
+# The bf16 weight-gradient products follow that count: one card's M 4
+# and M 8 runs part by 1.2e-2 at step 3 themselves.
+TRAIN_PIPE3D_RUNS = (
+    ("pipe2_model2", ["--mesh.pipe", "2", "--mesh.model", "2"], []),
+    ("pipe2_seq2", ["--mesh.pipe", "2", "--mesh.seq", "2"],
+     ["--pipeline-microbatches", "8"]),
+    ("data2_pipe2_zero1", ["--mesh.data", "2", "--mesh.pipe", "2",
+                           "--param-partition", "zero1"],
+     ["--pipeline-microbatches", "8"]))
 MODEL_RESNET_B = 4
 MODEL_RESNET_IMAGE = 224
 TOL_RESNET_F32 = 1e-3  # f32 on the card vs f32 on the CPU, train mode
@@ -5238,6 +5308,54 @@ def phase_train_ep(torch) -> None:
                   f"{r['launches']}")
 
 
+def rel_err(a, b) -> float:
+    """max |a - b| / max |b|, in f32."""
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp(min=1e-30))
+
+
+def grad_errs(got, ref):
+    """(the whole gradient's relative error ||got - ref|| / ||ref|| over
+    every parameter, each parameter's ``rel_err``: the worst and its
+    name)."""
+    diff = sum(float((got[k].float() - g.float()).pow(2).sum())
+               for k, g in ref.items())
+    norm = sum(float(g.float().pow(2).sum()) for g in ref.values())
+    each = {k: rel_err(got[k], g) for k, g in ref.items()
+            if float(g.abs().max()) > 0}
+    worst = max(each, key=each.get)
+    return math.sqrt(diff / norm), each[worst], worst
+
+
+def masked_loss(m, batch, rows=slice(None)):
+    """Forward and backward of ``m`` on ``rows`` of ``batch`` (tokens,
+    targets, mask): the masked CE sum over the whole batch's count, so
+    that the losses and gradients of a batch's parts add up to the
+    whole's. (loss, logits)."""
+    from tensorflow_distributed_tpu_torch.ops.losses import masked_ce_sums
+
+    out = m(batch["tokens"][rows])
+    ce, _, _ = masked_ce_sums(out, batch["targets"][rows],
+                              batch["mask"][rows])
+    loss = ce / batch["mask"].sum()
+    loss.backward()
+    return float(loss.detach()), out.detach()
+
+
+def by_microbatch(torch, m, batch, M: int):
+    """``m`` over ``batch``'s M microbatches in turn, their gradients
+    accumulated: GPipe's bf16 products, a microbatch at a time (the
+    oracle of the pipe phases' gates). (loss, logits, grads)."""
+    B = batch["tokens"].shape[0]
+    m.zero_grad(set_to_none=True)
+    outs = [masked_loss(m, batch, slice(i * (B // M), (i + 1) * (B // M)))
+            for i in range(M)]
+    grads = {k: p.grad.detach().clone() for k, p in m.named_parameters()}
+    m.zero_grad(set_to_none=True)
+    return (sum(o[0] for o in outs), torch.cat([o[1] for o in outs]),
+            grads)
+
+
 _WHOLE_TREE: dict = {}  # model_pipe's whole model as a flax tree
 
 
@@ -5310,7 +5428,6 @@ def phase_model_pipe(fa, torch, np) -> None:
     from tensorflow_distributed_tpu_torch.models.pipelined import (
         PIPELINED_TINY_LAYERS)
     from tensorflow_distributed_tpu_torch.models.transformer import gpt_lm
-    from tensorflow_distributed_tpu_torch.ops.losses import masked_ce_sums
 
     rng = np.random.default_rng(0)
     B, L = PIPE_MODEL["B"], PIPE_MODEL["L"]
@@ -5327,25 +5444,7 @@ def phase_model_pipe(fa, torch, np) -> None:
         ("mask", (rng.random((B, L)) < 0.9).astype(np.float32)))}
 
     def dense(m, rows=slice(None)):
-        out = m(batch["tokens"][rows])
-        ce, _, _ = masked_ce_sums(out, batch["targets"][rows],
-                                  batch["mask"][rows])
-        loss = ce / batch["mask"].sum()
-        loss.backward()
-        return float(loss.detach()), out.detach()
-
-    def rel(a, b):
-        return float((a.float() - b.float()).abs().max()
-                     / b.float().abs().max().clamp(min=1e-30))
-
-    def grad_errs(got, ref):
-        diff = sum(float((got[k].float() - g.float()).pow(2).sum())
-                   for k, g in ref.items())
-        norm = sum(float(g.float().pow(2).sum()) for g in ref.values())
-        each = {k: rel(got[k], g) for k, g in ref.items()
-                if float(g.abs().max()) > 0}
-        worst = max(each, key=each.get)
-        return math.sqrt(diff / norm), each[worst], worst
+        return masked_loss(m, batch, rows)
 
     def grads_of(m):
         return {k: p.grad.detach().clone() for k, p in m.named_parameters()}
@@ -5368,24 +5467,13 @@ def phase_model_pipe(fa, torch, np) -> None:
         return out, {kern.name: kern.launches for kern in fa.KERNELS}, \
             (peak, before), time.time() - t0
 
-    def by_microbatch(M):
-        """The whole model over the batch's M microbatches in turn, their
-        gradients accumulated: GPipe's bf16 products, a microbatch at a
-        time (the oracle of the gates)."""
-        whole.zero_grad(set_to_none=True)
-        outs = [dense(whole, slice(i * (B // M), (i + 1) * (B // M)))
-                for i in range(M)]
-        grads = grads_of(whole)
-        whole.zero_grad(set_to_none=True)
-        return (sum(o[0] for o in outs), torch.cat([o[1] for o in outs]),
-                grads)
-
     ref_loss, ref_logits = dense(whole)
     ref_grads = grads_of(whole)
     whole.zero_grad(set_to_none=True)
-    halves = by_microbatch(2)[2]
+    halves = by_microbatch(torch, whole, batch, 2)[2]
     noise = grad_errs(halves, ref_grads)
-    refs = {M: by_microbatch(M) for M in sorted({M for _, M in PIPE_CASES})}
+    refs = {M: by_microbatch(torch, whole, batch, M)
+            for M in sorted({M for _, M in PIPE_CASES})}
     _WHOLE_TREE.clear()
     n_layers = whole.cfg.n_layers
     by_leg = {}
@@ -5418,13 +5506,13 @@ def phase_model_pipe(fa, torch, np) -> None:
                 b_err, b_worst_err, b_worst = grad_errs(grads, ref_grads)
                 row.update(ref_loss=m_loss,
                            loss_rel_err=abs(loss - m_loss) / abs(m_loss),
-                           logits_rel_err=rel(logits, m_logits),
+                           logits_rel_err=rel_err(logits, m_logits),
                            grads_rel_err=g_err, worst_param_rel_err=w_err,
                            worst_param=worst,
                            whole_batch={
                                "loss_rel_err": abs(loss - ref_loss)
                                / abs(ref_loss),
-                               "logits_rel_err": rel(logits, ref_logits),
+                               "logits_rel_err": rel_err(logits, ref_logits),
                                "grads_rel_err": b_err,
                                "worst_param_rel_err": b_worst_err,
                                "worst_param": b_worst},
@@ -5597,6 +5685,366 @@ def phase_train_pipe(torch) -> None:
                   f"share {share}: {launched}")
 
 
+def lsgd_leg(kernels, torch, argv, steps: int, sync_every=None):
+    """``steps`` steps of ``argv`` on the stacked transport, every launch
+    count set to 0 just before the steps and read just after; with
+    ``sync_every`` the local-SGD step of that H (1 is not local SGD in a
+    config). Returns (losses, launches, the state, each step's largest
+    spread of the replicas' params)."""
+    from tensorflow_distributed_tpu_torch.config import parse_args
+    from tensorflow_distributed_tpu_torch.data.prefetch import to_device
+    from tensorflow_distributed_tpu_torch.train.local_sgd import (
+        make_local_sgd_train_step)
+    from tensorflow_distributed_tpu_torch.train.loop import build_stacked
+
+    device = torch.device(DEVICE)
+    task, state, step = build_stacked(parse_args(argv), device)
+    if sync_every is not None:
+        step = make_local_sgd_train_step(task.loss, device, state.mesh,
+                                         sync_every)
+    stream = task.train_stream(0)
+    batches = [to_device(next(stream), device) for _ in range(steps)]
+    sync(torch)
+    for kern in kernels:
+        kern.launches = 0
+    losses, spreads = [], []
+    for batch in batches:
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        reps = getattr(state, "replicas", [])
+        spreads.append(max((float((a.detach() - b.detach()).abs().max())
+                            for r in reps[1:] for a, b in zip(
+                                r.params.values(),
+                                reps[0].params.values())), default=0.0))
+    sync(torch)
+    return losses, {kern.name: kern.launches for kern in kernels}, state, \
+        spreads
+
+
+def phase_model_local_sgd(kernels, torch) -> None:
+    """Local SGD on the stacked transport (see the module docstring,
+    phase 52)."""
+    from tensorflow_distributed_tpu_torch.train.local_sgd import (
+        averaged_view)
+
+    flash = ("flash_fwd", "flash_dq", "flash_dkv")
+    D = LSGD_D
+    sync_losses, _, sync_state, _ = lsgd_leg(
+        kernels, torch, MODEL_LSGD_ARGV, 1)
+    local = MODEL_LSGD_ARGV + ["--param-sync-every", "2"]
+    h1_losses, h1_launches, h1_state, _ = lsgd_leg(kernels, torch, local,
+                                                   1, sync_every=1)
+    mean = averaged_view(h1_state)
+    worst = max((float(((mean.params[n].detach() - p.detach()).abs()
+                        - TOL_ZERO_PARAMS["rtol"] * p.detach().abs()).max()),
+                 n) for n, p in sync_state.params.items())
+    del sync_state, h1_state, mean
+    if DEVICE != "cpu":
+        torch.cuda.empty_cache()
+    rec = {"phase": "model_local_sgd", "leg": "h1_vs_sync", "D": D,
+           "losses": h1_losses, "sync_losses": sync_losses,
+           "loss_rel_err": abs(h1_losses[0] - sync_losses[0])
+           / abs(sync_losses[0]),
+           "params_excess_over_tol": worst, "launches": h1_launches,
+           "tolerance": {"loss": TOL_ZERO_LOSS, **TOL_ZERO_PARAMS}}
+    emit(rec)
+    check(math.isfinite(h1_losses[0])
+          and rec["loss_rel_err"] <= TOL_ZERO_LOSS
+          and worst[0] <= TOL_ZERO_PARAMS["atol"],
+          f"model_local_sgd: H 1 disagrees with the synchronous step: "
+          f"{rec}")
+    t0 = time.time()
+    losses, launches, state, spreads = lsgd_leg(
+        kernels, torch, MODEL_LSGD_ARGV + ["--param-sync-every", "4"],
+        LSGD_STEPS)
+    secs = time.time() - t0
+    rec = {"phase": "model_local_sgd", "leg": "h4", "D": D,
+           "losses": losses, "replica_spread_after_step": spreads,
+           "launches": launches, "steps_s": round(secs, 3),
+           "peak_mem_bytes": (torch.cuda.max_memory_allocated()
+                              if DEVICE != "cpu" else None)}
+    emit(rec)
+    del state
+    if DEVICE != "cpu":
+        torch.cuda.empty_cache()
+    check(all(math.isfinite(x) for x in losses)
+          and all(x > 0 for x in spreads[:3]) and spreads[3] == 0.0,
+          f"model_local_sgd: the replicas did not part for 3 steps and "
+          f"meet at the 4th: {spreads}")
+    for name, got in (("h1", h1_launches), ("h4", launches)):
+        steps = 1 if name == "h1" else LSGD_STEPS
+        check(all(got[k] == 12 * D * steps for k in flash),
+              f"model_local_sgd {name}: B1-B3 not launched 12 x {D} "
+              f"times a step: {got}")
+
+
+def pipe3d_models(torch, axis: str, S: int):
+    """GPT-2-small (``PIPE3D_MODEL``) as ``pipelined_lm`` on
+    ``StackedPipe(S)`` with its blocks on ``StackedTP(width)`` (``axis``
+    "model") or its attention on ``StackedRing(width)`` ("seq"), the
+    whole model's seeded init, in bf16 without dropout."""
+    from tensorflow_distributed_tpu_torch.models.pipelined import (
+        PIPELINED_TINY_LAYERS, pipelined_lm)
+    from tensorflow_distributed_tpu_torch.parallel.mesh import StackedPipe
+    from tensorflow_distributed_tpu_torch.parallel.ring_attention import (
+        StackedRing)
+    from tensorflow_distributed_tpu_torch.parallel.tensor_parallel import (
+        StackedTP)
+
+    cut = PIPE3D_MODEL["width"]
+    kw = {"tp": StackedTP(cut)} if axis == "model" else {
+        "ring": StackedRing(cut)}
+    layers = {} if PIPE3D_MODEL["size"] != "tiny" else {
+        "n_layers": PIPELINED_TINY_LAYERS}
+    with torch.device(DEVICE):
+        model = pipelined_lm(PIPE3D_MODEL["size"], pipe=StackedPipe(S),
+                             num_microbatches=PIPE3D_MODEL["M"],
+                             compute_dtype=torch.bfloat16, dropout_rate=0.0,
+                             max_len=PIPE3D_MODEL["L"], **layers, **kw)
+    model.init_weights(torch.Generator(device=DEVICE).manual_seed(0))
+    return model
+
+
+def phase_model_pipe3d(fa, torch, np, axis: str):
+    """model_pipe_tp (``axis`` "model") or model_pipe_seq ("seq"): see
+    the module docstring, phases 53-54. Returns the launch counts by
+    leg."""
+    from tensorflow_distributed_tpu_torch.models.transformer import gpt_lm
+    from tensorflow_distributed_tpu_torch.parallel.sharding import (
+        gather_state_dict)
+
+    phase = "model_pipe_tp" if axis == "model" else "model_pipe_seq"
+    kernels = fa.KERNELS + fa.PARTIAL_KERNELS
+    rng = np.random.default_rng(0)
+    B, L, S, M = (PIPE3D_MODEL[k] for k in ("B", "L", "S", "M"))
+    unstaged = pipe3d_models(torch, axis, 1)
+    V_ = unstaged.cfg.vocab_size
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in (
+        ("tokens", rng.integers(0, V_, (B, L))),
+        ("targets", rng.integers(0, V_, (B, L))),
+        ("mask", (rng.random((B, L)) < 0.9).astype(np.float32)))}
+
+    def whole(m, tensors):
+        """A model's tensors by name, its TP shards gathered."""
+        return gather_state_dict(tensors, m) if m.tp is not None else tensors
+
+    def errs(loss, logits, grads, ref):
+        g_err, w_err, worst = grad_errs(grads, ref[2])
+        return {"ref_loss": ref[0],
+                "loss_rel_err": abs(loss - ref[0]) / abs(ref[0]),
+                "logits_rel_err": rel_err(logits, ref[1]),
+                "grads_rel_err": g_err, "worst_param_rel_err": w_err,
+                "worst_param": worst}
+
+    def within(e):
+        return (e["loss_rel_err"] <= TOL_PIPE_LOSS
+                and e["logits_rel_err"] <= TOL_PIPE
+                and e["grads_rel_err"] <= TOL_PIPE)
+
+    # The same model unstaged (one stage, the same transport, its own M
+    # microbatches): an extra check of the stage split alone.
+    unstaged_ref = masked_loss(unstaged, batch) + (whole(unstaged, {
+        k: p.grad.detach() for k, p in unstaged.named_parameters()}),)
+    whole_params = whole(unstaged, {k: p.detach() for k, p in
+                                    unstaged.named_parameters()})
+    n_layers = unstaged.cfg.n_layers
+    del unstaged
+    # The gate's oracle: the plain gpt_lm (no transport) on the same
+    # weights, over the same M microbatches; the whole batch at once
+    # printed beside it.
+    with torch.device(DEVICE):
+        plain = gpt_lm(PIPE3D_MODEL["size"], compute_dtype=torch.bfloat16,
+                       dropout_rate=0.0, max_len=L, **(
+                           {"n_layers": n_layers}
+                           if PIPE3D_MODEL["size"] == "tiny" else {}))
+    plain.load_state_dict(whole_params)
+    plain_ref = by_microbatch(torch, plain, batch, M)
+    whole_batch = masked_loss(plain, batch)
+    whole_batch += ({k: p.grad.detach() for k, p in
+                     plain.named_parameters()},)
+    del plain, whole_params
+    per_call = (2 * PIPE3D_MODEL["width"] + 1 if axis == "seq"
+                else PIPE3D_MODEL["width"])
+    by_leg, gp = {}, None
+    for leg in PIPE3D_LEGS:
+        model = pipe3d_models(torch, axis, S)
+        sync(torch)
+        if DEVICE != "cpu":
+            torch.cuda.reset_peak_memory_stats()
+        for kern in kernels:
+            kern.launches = 0
+        t0 = time.time()
+        if leg == "gpipe":
+            loss, logits = masked_loss(model, batch)
+        else:
+            loss = pipe_1f1b(torch, model, batch, leg)[0]
+        sync(torch)
+        secs = time.time() - t0
+        launches = {kern.name: kern.launches for kern in kernels}
+        grads = whole(model, {k: p.grad.detach().clone()
+                              for k, p in model.named_parameters()})
+        row = {"phase": phase, "S": S, "M": M, "width": PIPE3D_MODEL[
+            "width"], "leg": leg, "loss": loss, "launches": launches,
+            "fwd_bwd_s": round(secs, 4),
+            "peak_mem_bytes": (torch.cuda.max_memory_allocated()
+                               if DEVICE != "cpu" else None)}
+        if leg == "gpipe":
+            gp = (loss, grads)
+            row.update(errs(loss, logits, grads, plain_ref))
+            row.update(
+                unstaged=errs(loss, logits, grads, unstaged_ref),
+                plain_whole_batch=errs(loss, logits, grads, whole_batch),
+                tolerance={"loss": TOL_PIPE_LOSS, "other": TOL_PIPE})
+            ok = within(row) and within(row["unstaged"])
+        else:
+            g_err, w_err, worst = grad_errs(grads, gp[1])
+            row.update(gpipe_loss=gp[0],
+                       loss_rel_err=abs(loss - gp[0]) / abs(gp[0]),
+                       grads_rel_err=g_err, worst_param_rel_err=w_err,
+                       worst_param=worst,
+                       tolerance={"loss": TOL_PIPE_SCHED_LOSS,
+                                  "grads": TOL_PIPE_SCHED_GRAD})
+            ok = (row["loss_rel_err"] <= TOL_PIPE_SCHED_LOSS
+                  and g_err <= TOL_PIPE_SCHED_GRAD)
+        emit(row)
+        by_leg[f"{phase}_{leg}"] = launches
+        check(math.isfinite(loss) and ok,
+              f"{phase} {leg}: disagrees: {row}")
+        calls = n_layers * M * per_call
+        fwd = calls * (2 if leg == "recompute" else 1)
+        names = (("flash_fwd_partial", "flash_dq_partial",
+                  "flash_dkv_partial") if axis == "seq"
+                 else ("flash_fwd", "flash_dq", "flash_dkv"))
+        other = (("flash_fwd", "flash_dq", "flash_dkv") if axis == "seq"
+                 else ("flash_fwd_partial", "flash_dq_partial",
+                       "flash_dkv_partial"))
+        want = dict(zip(names, (fwd, calls, calls)))
+        want.update((k, 0) for k in other)
+        check({k: launches[k] for k in want} == want,
+              f"{phase} {leg}: launched {launches}, want {want}")
+        del model, grads
+        if DEVICE != "cpu":
+            torch.cuda.empty_cache()
+    return by_leg
+
+
+def phase_model_pipe_tp(fa, torch, np):
+    """Phase 53: pipe x model on the stacked transports."""
+    return phase_model_pipe3d(fa, torch, np, "model")
+
+
+def phase_model_pipe_seq(fa, torch, np):
+    """Phase 54: pipe x seq on the stacked transports."""
+    return phase_model_pipe3d(fa, torch, np, "seq")
+
+
+def phase_train_local_sgd(torch) -> None:
+    """--mesh.data D --param-sync-every 4 under torchrun (see the module
+    docstring, phase 55); skipped, by the device count alone, on one
+    card."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        emit({"phase": "train_local_sgd",
+              "skipped": f"needs >= 2 CUDA devices, have {count}"})
+        return
+    D = min(count, 4)
+    flash = ("flash_fwd", "flash_dq", "flash_dkv")
+    tokens = 8 * 1024
+    one, one_sps = one_card_losses(TRAIN_TP_ARGV)
+    with tempfile.TemporaryDirectory(prefix="tfd_lsgd_") as ckpt_dir:
+        argv = TRAIN_LSGD_ARGV + ["--mesh.data", str(D), "--checkpoint-dir",
+                                  ckpt_dir, "--checkpoint-every",
+                                  str(TRAIN_TP_STEPS)]
+        wall, ranks, _ = run_torchrun("train_local_sgd", D, argv,
+                                      TRAIN_LSGD_TIMEOUT_S)
+        eval_argv = (["--mode", "eval"] + TRAIN_LSGD_ARGV[2:]
+                     + ["--mesh.data", str(D), "--checkpoint-dir", ckpt_dir])
+        _, evals, _ = run_torchrun("train_local_sgd eval", D, eval_argv,
+                                   TRAIN_LSGD_TIMEOUT_S)
+    final = ranks[0]["final"]["loss"]
+    got = [r["eval"]["loss"] for r in evals]
+    emit({"phase": "train_local_sgd", "processes": D, "argv": argv,
+          "wall_s": round(wall, 3), "losses": ranks[0]["losses"],
+          "one_card_losses": one[:5],
+          "first_loss_diff": max(abs(r["losses"][0] - one[0])
+                                 for r in ranks),
+          "step_ms_median_per_rank": [r["step_ms_median"] for r in ranks],
+          "tokens_per_s_per_card": [
+              tokens / (r["step_ms_median"] / 1e3) / D
+              if r["step_ms_median"] else None for r in ranks],
+          "one_card_step_ms": 1e3 / one_sps if one_sps else None,
+          "peak_mem_bytes_per_rank": [r["max_memory_allocated"]
+                                      for r in ranks],
+          "launches_per_rank": [{k: r["launches"][k] for k in flash}
+                                for r in ranks],
+          "eval_argv": eval_argv, "eval_losses": got,
+          "final_eval_loss": final,
+          "eval_max_rel_diff": max(abs(g - final) / abs(final)
+                                   for g in got),
+          "tolerance": {"first_loss": TOL_RING_LOSS, "eval": TOL_PIPE_EVAL}})
+    for r in ranks:
+        check(len(r["losses"]) == TRAIN_TP_STEPS
+              and all(math.isfinite(x) for x in r["losses"])
+              and abs(r["losses"][0] - one[0]) <= TOL_RING_LOSS,
+              f"train_local_sgd: losses {r['losses']} vs one card {one}")
+        check(all(r["launches"][k] >= 12 * TRAIN_TP_STEPS for k in flash),
+              f"train_local_sgd: a rank did not launch B1-B3 12 a step: "
+              f"{r['launches']}")
+    check(all(abs(g - final) <= TOL_PIPE_EVAL * abs(final) for g in got),
+          f"train_local_sgd: --mode eval of the save {got} vs the run's "
+          f"final eval {final}")
+
+
+def phase_train_pipe3d(torch) -> None:
+    """pipe x model, pipe x seq and zero1 with the pipe under torchrun
+    (see the module docstring, phase 56); skipped, by the device count
+    alone, on fewer than four cards. Every leg runs before the checks."""
+    count = torch.cuda.device_count()
+    if count < 4:
+        emit({"phase": "train_pipe3d",
+              "skipped": f"needs >= 4 CUDA devices, have {count}"})
+        return
+    tokens = 8 * 1024
+    one_card, legs = {}, []
+    for name, flags, ref in TRAIN_PIPE3D_RUNS:
+        argv = TRAIN_PIPE_ARGV + flags
+        wall, ranks, _ = run_torchrun(f"train_pipe3d {name}", 4, argv,
+                                      TRAIN_PIPE_TIMEOUT_S)
+        if tuple(ref) not in one_card:
+            one_card[tuple(ref)] = one_card_losses(TRAIN_PIPE_ARGV + ref)
+        one, one_sps = one_card[tuple(ref)]
+        seq = "--mesh.seq" in flags
+        names = (("flash_fwd_partial", "flash_dq_partial",
+                  "flash_dkv_partial") if seq
+                 else ("flash_fwd", "flash_dq", "flash_dkv"))
+        emit({"phase": "train_pipe3d", "run": name, "processes": 4,
+              "argv": argv, "wall_s": round(wall, 3),
+              "losses": ranks[0]["losses"][:5], "one_card_flags": ref,
+              "one_card_losses": one[:5],
+              "max_loss_diff": max(abs(a - b) for r in ranks
+                                   for a, b in zip(r["losses"][:5], one)),
+              "step_ms_median_per_rank": [r["step_ms_median"]
+                                          for r in ranks],
+              "tokens_per_s_per_card": [
+                  tokens / (r["step_ms_median"] / 1e3) / 4
+                  if r["step_ms_median"] else None for r in ranks],
+              "one_card_step_ms": 1e3 / one_sps if one_sps else None,
+              "peak_mem_bytes_per_rank": [r["max_memory_allocated"]
+                                          for r in ranks],
+              "kernel_share_per_rank": [{k: r["launches"][k]
+                                         for k in names} for r in ranks]})
+        legs.append((name, ranks, one, names))
+    for name, ranks, one, names in legs:
+        for r in ranks:
+            got = r["losses"]
+            check(len(got) == TRAIN_PIPE_STEPS and all(
+                abs(a - b) <= TOL_RING_LOSS for a, b in zip(got[:5], one)),
+                f"train_pipe3d {name}: losses {got} vs one card {one}")
+            check(all(r["launches"][k] > 0 for k in names),
+                  f"train_pipe3d {name}: a rank did not launch {names}: "
+                  f"{r['launches']}")
+
+
 def run_alone(names, fa, fce, kernels, torch, np, F) -> None:
     """``--only``: the named phases of ONLY_PHASES, in the order given."""
     alone = {"ce_kernels": lambda: phase_ce_kernels(fce, torch, F),
@@ -5616,7 +6064,13 @@ def run_alone(names, fa, fce, kernels, torch, np, F) -> None:
              "serve_moe": lambda: phase_serve_moe(torch, np),
              "train_ep": lambda: phase_train_ep(torch),
              "model_pipe": lambda: phase_model_pipe(fa, torch, np),
-             "train_pipe": lambda: phase_train_pipe(torch)}
+             "train_pipe": lambda: phase_train_pipe(torch),
+             "model_local_sgd": lambda: phase_model_local_sgd(kernels,
+                                                              torch),
+             "model_pipe_tp": lambda: phase_model_pipe_tp(fa, torch, np),
+             "model_pipe_seq": lambda: phase_model_pipe_seq(fa, torch, np),
+             "train_local_sgd": lambda: phase_train_local_sgd(torch),
+             "train_pipe3d": lambda: phase_train_pipe3d(torch)}
     for name in names:
         alone[name]()
         lap(name)
@@ -5763,6 +6217,16 @@ def main(argv=None) -> int:
     lap("model_pipe")
     phase_train_pipe(torch)
     lap("train_pipe")
+    phase_model_local_sgd(kernels, torch)
+    lap("model_local_sgd")
+    pipe_launches.update(phase_model_pipe_tp(fa, torch, np))
+    lap("model_pipe_tp")
+    pipe_launches.update(phase_model_pipe_seq(fa, torch, np))
+    lap("model_pipe_seq")
+    phase_train_local_sgd(torch)
+    lap("train_local_sgd")
+    phase_train_pipe3d(torch)
+    lap("train_pipe3d")
 
     err = {"flash_fwd": flash["errors"]["o_abs_err"],
            "flash_dq": flash["errors"]["dq_abs_err"],
@@ -5794,10 +6258,13 @@ def main(argv=None) -> int:
                "plain_ms": res["plain_ms"][name], "bound_ms": bound_ms,
                "bound_by": bound_by,
                "library_ms": res["library_ms"][name]}
-        if name in pipe_launches.get("S2_M4_gpipe", {}):
-            # model_pipe's launches (stacked stages), by (S, M, schedule).
+        if name in pipe_launches.get("S2_M4_gpipe", {}) or (
+                name in pipe_launches.get("model_pipe_seq_gpipe", {})):
+            # model_pipe's launches (stacked stages) by (S, M, schedule),
+            # and model_pipe_tp's and model_pipe_seq's by schedule.
             row["model_pipe_launches"] = {leg: n[name] for leg, n in
-                                          pipe_launches.items()}
+                                          pipe_launches.items()
+                                          if name in n}
         rows.append(row)
     emit({"phase": "phase_seconds", "seconds": dict(_LAPS)})
     print(gpu, flush=True)

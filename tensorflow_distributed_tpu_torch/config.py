@@ -22,10 +22,11 @@ The mixture-of-experts knobs (``--moe-*``, ``--model moe_lm``,
 naming ROADMAP.md, as is ``--compute-dtype float32`` for training or
 evaluating the LM on a GPU (the kernels take bf16). The pipeline
 (``--model pipelined_lm``, ``--mesh.pipe``, ``--pipeline-*``) and
-``--param-sync-every`` take the JAX defaults, checks and messages; the
-pipe with a model or seq axis, ``pipelined_lm`` with ``--param-partition
-zero1`` or with an expert axis, and local SGD (``--param-sync-every`` >
-1) are refused naming ROADMAP.md A5.
+``--param-sync-every`` (local SGD) take the JAX defaults, checks and
+messages; ``pipelined_lm`` trains with a data, model or seq axis and
+under ``--param-partition zero1``, and an expert axis with the pipe is
+refused with JAX's message (ROADMAP.md A5a). Adafactor under a model or
+expert axis or a partition is refused naming A5c.
 """
 
 from __future__ import annotations
@@ -630,8 +631,8 @@ class TrainConfig:
     # chunks of n_layers / (pipe V) layers (Megatron's assignment: chunk
     # v of stage s is virtual stage v pipe + s). Recompute backward only.
     pipeline_virtual_stages: int = 1
-    # Local SGD (JAX train/local_sgd.py): 1 = synchronous data
-    # parallelism; > 1 is not ported yet (ROADMAP.md A5).
+    # Local SGD (train/local_sgd.py): 1 = synchronous data parallelism;
+    # H > 1 averages the replicas' params every H steps.
     param_sync_every: int = 1
     # Bucket bound (MiB) of --grad-sync overlap; None = 4 MiB (a
     # sentinel, so that any explicit value without overlap is refused).
@@ -677,7 +678,7 @@ class TrainConfig:
     def _validate_partition(self) -> None:
         """The JAX config's checks of --param-partition, --grad-sync and
         --grad-sync-bucket-mb, with its messages; then the port's two
-        refusals (ROADMAP.md A5). The pipeline's and local SGD's checks
+        refusals (ROADMAP.md A5, A5c). The pipeline's and local SGD's checks
         come in JAX's order around them."""
         self._validate_pipeline_knobs()
         if self.param_partition not in ("replicated", "zero1", "fsdp"):
@@ -758,7 +759,7 @@ class TrainConfig:
                     f"--optimizer adafactor with --param-partition "
                     f"{self.param_partition} (its factored statistics "
                     f"over a 1/data block are not the whole leaf's) is "
-                    f"not ported to PyTorch yet (see ROADMAP.md A5)")
+                    f"not ported to PyTorch yet (see ROADMAP.md A5c)")
 
     def _validate_pipeline_knobs(self) -> None:
         """The JAX config's checks of the pipeline schedule and backward,
@@ -833,7 +834,7 @@ class TrainConfig:
 
     def _validate_local_sgd(self) -> None:
         """The JAX config's checks of param_sync_every, with its
-        messages; then the port's refusal of local SGD (ROADMAP.md A5)."""
+        messages."""
         if self.param_sync_every < 1:
             raise ValueError(
                 f"param_sync_every must be >= 1, "
@@ -876,14 +877,11 @@ class TrainConfig:
                 "resilience.nonfinite=skip_batch does not compose "
                 "with param_sync_every > 1 (the local-SGD step has "
                 "no skip path); use nonfinite=rewind or halt")
-        raise NotImplementedError(
-            "--param-sync-every > 1 (local SGD: train/local_sgd.py) is "
-            "not ported to PyTorch yet (see ROADMAP.md A5)")
 
     def _validate_pipe(self) -> None:
         """The JAX config's pipelined_lm checks of the other knobs, with
-        its messages; then the port's refusals of what this slice leaves
-        out (ROADMAP.md A5)."""
+        its messages (the expert axis's naming ROADMAP.md A5a, where it
+        stays)."""
         pipelined = self.model == "pipelined_lm"
         if self.shard_vocab and pipelined:
             raise ValueError(
@@ -916,18 +914,7 @@ class TrainConfig:
                 "pipelined variant: mesh expert must be 1 — the "
                 "stacked-leaf TP name table (_TP_SUFFIX) pins expert "
                 "weights to the \"model\" axis; use mesh.model for EP "
-                "with the pipeline (pipe x model is not ported to "
-                "PyTorch yet; see ROADMAP.md A5)")
-        for axis in ("model", "seq"):
-            if getattr(self.mesh, axis) > 1:
-                raise NotImplementedError(
-                    f"model=pipelined_lm with --mesh.{axis} > 1 (pipe x "
-                    f"{axis}) is not ported to PyTorch yet (see ROADMAP.md "
-                    f"A5)")
-        if self.param_partition == "zero1":
-            raise NotImplementedError(
-                "--param-partition zero1 with model=pipelined_lm is not "
-                "ported to PyTorch yet (see ROADMAP.md A5)")
+                "with the pipeline (JAX refuses it too; ROADMAP.md A5a)")
 
     def validate(self) -> None:
         def todo(what: str) -> NotImplementedError:
@@ -1108,9 +1095,11 @@ class TrainConfig:
                            f"(tensor and expert parallelism shard the "
                            f"transformer families, {', '.join(LM_MODELS)})")
             if size > 1 and self.optimizer == "adafactor":
-                raise todo(f"--optimizer adafactor with --mesh.{axis} > 1 "
-                           f"(its block RMS over a sharded leaf needs a sum "
-                           f"over the group; A5)")
+                raise NotImplementedError(
+                    f"--optimizer adafactor with --mesh.{axis} > 1 (its "
+                    f"block RMS over a sharded leaf needs a sum over the "
+                    f"group) is not ported to PyTorch yet (see ROADMAP.md "
+                    f"A5c)")
         if self.remat not in ("none", "full", "dots"):
             raise ValueError(f"unknown remat {self.remat!r}")
         if self.attn_window < 0:

@@ -60,6 +60,13 @@ unstacks it, refusing a tree of another stage count (ROADMAP.md A7);
 ``params_to_flax``, ``state_to_flax`` and ``state_from_flax`` go through
 them for a pipelined model, which loads only its own stages' layers.
 
+Local SGD's state (``train/local_sgd.py``) is JAX's replica-stacked
+``TrainState``: ``stack_trees`` stacks every replica's tree on a
+leading [R] dim (step, params and optimizer leaves) and
+``stacked_state_from_flax`` loads replica r's slice into each replica
+this process holds; either layout loaded into the other is refused
+naming ``--param-sync-every``.
+
 ``cache_from_flax`` maps the ``cache`` collection that the JAX model's
 ``decode=True`` path fills (``layer_i/attn/{key,value}`` of shape
 ``[B, max_len, nk, Dh]``, nk = H without GQA, plus a scalar ``index``)
@@ -250,8 +257,9 @@ def shards_from_flax(tree: Mapping[str, Any], model: nn.Module
         full = params_from_flax(pipelined_to_layers(
             tree, model.num_stages, model.virtual_stages))
         names = set(dict(model.named_parameters()))
-        return {n: t for n, t in full.items() if n in names}
-    full = params_from_flax(tree)
+        full = {n: t for n, t in full.items() if n in names}
+    else:
+        full = params_from_flax(tree)
     if not is_split(model):
         return full
     return shard_state_dict(full, model)
@@ -507,7 +515,13 @@ def state_from_flax(tree: Mapping[str, Any], state: TrainState
     when ``tree`` has one (none: ``state.ema`` becomes None). Names and
     shapes must match the model's; the moments are found by name
     wherever the chain nests them, so adding or dropping clipping or
-    the decay mask across a resume restores, as JAX aligns the mask."""
+    the decay mask across a resume restores, as JAX aligns the mask. A
+    replica-stacked tree (local SGD's) is refused naming the flag."""
+    if is_stacked(tree):
+        raise ValueError(
+            f"checkpoint leaf shape {tuple(np.shape(tree['step']))} != "
+            f"template () at step; was this run saved with a different "
+            f"--param-sync-every (replica-stacked vs plain state)?")
     part = state.partition
     _load(state.params, tree["params"], "params", state.model,
           part.cut_params)
@@ -536,6 +550,66 @@ def state_from_flax(tree: Mapping[str, Any], state: TrainState
         _load(state.ema, tree["ema"], "ema", state.model, part.cut_params)
     state.step = int(tree["step"])
     return state
+
+
+def map_tree(fn, tree):
+    """``fn`` on every array leaf of a state dict (None and empty dicts
+    kept)."""
+    if isinstance(tree, Mapping):
+        return {k: map_tree(fn, v) for k, v in tree.items()}
+    return None if tree is None else fn(np.asarray(tree))
+
+
+STACKED_KEYS = ("step", "params", "opt_state")
+
+
+def is_stacked(tree: Mapping[str, Any]) -> bool:
+    """Whether a state dict is local SGD's replica-stacked one (a
+    ``step`` of shape [R])."""
+    return np.ndim(tree.get("step")) == 1
+
+
+def stack_trees(trees: List[Mapping[str, Any]]) -> Dict[str, Any]:
+    """Local SGD's replicas' plain state dicts (each ``state_to_flax``,
+    every one of the D in data order) -> the JAX replica-stacked
+    ``TrainState``'s state dict: the step, params and optimizer leaves
+    (the counts too) stacked on a leading [R] dim, as JAX's
+    ``stack_state`` broadcasts them; ``extra`` ``{}`` and no EMA."""
+    def stack(*leaves):
+        if isinstance(leaves[0], Mapping):
+            return {k: stack(*[lf[k] for lf in leaves]) for k in leaves[0]}
+        return np.stack([np.asarray(lf) for lf in leaves])
+
+    out = dict(trees[0])
+    for key in STACKED_KEYS:
+        out[key] = stack(*[t[key] for t in trees])
+    return out
+
+
+def replica_from_flax(tree: Mapping[str, Any], r: int) -> Dict[str, Any]:
+    """Replica ``r`` of a replica-stacked state dict, as a plain one."""
+    out = dict(tree)
+    for key in STACKED_KEYS:
+        out[key] = map_tree(lambda a: a[r], tree[key])
+    return out
+
+
+def stacked_state_from_flax(tree: Mapping[str, Any],
+                            states: List[TrainState], ranks: List[int],
+                            replicas: int) -> List[TrainState]:
+    """Load a JAX replica-stacked state dict into the replicas ``states``
+    (data ranks ``ranks`` of ``replicas``) in place: replica r's slice
+    of every leaf through ``state_from_flax``. A plain state dict, or
+    one of another replica count, is refused naming the flag."""
+    steps = tuple(np.shape(tree.get("step")))
+    if steps != (replicas,):
+        raise ValueError(
+            f"checkpoint leaf shape {steps} != template {(replicas,)} at "
+            f"step; was this run saved with a different "
+            f"--param-sync-every (replica-stacked vs plain state)?")
+    for r, state in zip(ranks, states):
+        state_from_flax(replica_from_flax(tree, r), state)
+    return states
 
 
 def cache_from_flax(tree: Mapping[str, Any]) -> KVCache:

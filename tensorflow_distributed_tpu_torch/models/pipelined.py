@@ -12,6 +12,18 @@ whole model from the seed as ``gpt_lm`` does and keeps its part), and
 ``interop`` stacks ``layer_g`` into JAX's ``{"shell": ..., "blocks":
 [S, lps, ...] | [S, V, lps, ...]}`` tree and back.
 
+Under ``--mesh.model`` (``tp``: ``StackedTP`` or ``ProcessGroupTP``)
+every block is a Megatron block, cut as JAX's ``_TP_SUFFIX`` names the
+stacked leaves (qkv or q columns, out rows, the MLP's up and gate
+columns and down rows, a MoE block's experts: ``parallel/sharding.py``);
+the shell stays whole on every model rank, as JAX's carries no TP
+names. Under ``--mesh.seq`` (``ring``) every stage's attention is the
+ring over the seq group, and the embedding and RoPE take this rank's
+positions (``transformer.ring_block``: a process's contiguous block's
+own, as ``CausalLM``'s). The stages' collectives pair up because every
+model and seq rank of a stage runs the same slots in the same tick
+(``parallel/pipeline.py``).
+
 ``forward`` is the GPipe forward (``pipeline_apply``): logits (or, with
 ``features_only``, the head's pieces for the fused loss) on the process
 that holds the last virtual stage, None on the others. Dropout seeds a
@@ -38,10 +50,12 @@ from torch import nn
 
 from tensorflow_distributed_tpu_torch.models.moe import moe_objective
 from tensorflow_distributed_tpu_torch.models.transformer import (
-    GPT2_SIZES, Block, TransformerConfig, TransformerLM, _LmHead,
-    _check_config, _make_norm, _norm, _remat_block, gpt2_small_config,
-    rope_angles, tiny_config)
+    GPT2_SIZES, Block, TransformerConfig, TransformerLM, _is_ring, _LmHead,
+    _check_config, _make_norm, _norm, _remat_block, check_tp,
+    gpt2_small_config, ring_block, rope_angles, tiny_config)
 from tensorflow_distributed_tpu_torch.parallel.mesh import StackedPipe
+from tensorflow_distributed_tpu_torch.parallel.sharding import (
+    shard_state_dict)
 from tensorflow_distributed_tpu_torch.parallel.pipeline import (
     local_virtual_stages, pipeline_apply, stage_layers)
 
@@ -77,11 +91,22 @@ class PipelinedLM(nn.Module):
 
     def __init__(self, cfg: TransformerConfig, pipe=None,
                  num_microbatches: int = 4, virtual_stages: int = 1,
-                 aux_mesh=None):
+                 aux_mesh=None, ring=None, tp=None):
         """``aux_mesh``: the mesh whose data group a MoE router's counts
-        are summed over (None: this process's rows alone)."""
+        are summed over (None: this process's rows alone). ``ring``: the
+        seq group's ring (``StackedRing`` or ``ProcessGroupRing``) every
+        stage's attention runs over; ``tp``: the model group's transport
+        (``StackedTP`` or ``ProcessGroupTP``) that cuts every block (and
+        a MoE block's experts), the shell staying whole."""
         super().__init__()
         _check_config(cfg)
+        if cfg.moe_experts and _is_ring(ring):
+            raise NotImplementedError(
+                "MoE with a sequence ring (--mesh.seq > 1: the expert "
+                "positions' cumsum runs over the whole sequence) is not "
+                "ported to PyTorch yet (see ROADMAP.md A5)")
+        if tp is not None:
+            check_tp(cfg, tp.size)
         pipe = pipe if pipe is not None else StackedPipe(1)
         S = pipe.size
         if virtual_stages < 1:
@@ -97,12 +122,16 @@ class PipelinedLM(nn.Module):
         self.num_microbatches = num_microbatches
         self.virtual_stages = virtual_stages
         self.aux_mesh = aux_mesh
+        self.ring = ring
+        self.tp = tp
+        # JAX's _TP_SUFFIX pins a MoE block's experts to the model axis.
+        self.ep = tp if cfg.moe_experts else None
         self.tok_emb = nn.Embedding(cfg.vocab_size, cfg.d_model)
         if cfg.pos_emb == "learned":
             self.pos_emb = nn.Embedding(cfg.max_len, cfg.d_model)
         for j in local_virtual_stages(pipe, virtual_stages):
             for g in self.layers(j):
-                self.add_module(f"layer_{g}", Block(cfg))
+                self.add_module(f"layer_{g}", Block(cfg, ring, tp, self.ep))
         self.ln_f = _make_norm(cfg)
         if not cfg.tie_embeddings:
             self.lm_head = _LmHead(cfg.d_model, cfg.vocab_size)
@@ -131,8 +160,9 @@ class PipelinedLM(nn.Module):
             whole = TransformerLM(self.cfg)
         whole.init_weights(generator)
         mine = dict(self.named_parameters())
-        self.load_state_dict({n: t for n, t in whole.state_dict().items()
-                              if n in mine})
+        full = {n: t for n, t in whole.state_dict().items() if n in mine}
+        self.load_state_dict(shard_state_dict(full, self)
+                             if self.tp is not None else full)
 
     def whole(self, device=None) -> "PipelinedLM":
         """Every stage of this config in one process (a ``StackedPipe``
@@ -143,14 +173,23 @@ class PipelinedLM(nn.Module):
 
     # -- the shell ------------------------------------------------------
 
+    def positions(self, L: int, device) -> torch.Tensor:
+        """[1, L] positions of this rank's ``L`` tokens: under a ring of
+        processes its contiguous block's own (offset by the block's
+        start, as ``TransformerLM`` offsets them), else 0 .. L - 1 (a
+        ``StackedRing`` holds the whole sequence)."""
+        return ring_block(self.ring, L)[1] + torch.arange(
+            L, device=device)[None]
+
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
         L = tokens.shape[1]
-        if L > self.cfg.max_len:
-            raise ValueError(f"sequence length {L} > max_len "
+        shards = ring_block(self.ring, L)[0]
+        if L * shards > self.cfg.max_len:
+            raise ValueError(f"sequence length {L * shards} > max_len "
                              f"{self.cfg.max_len}")
         x = self.tok_emb(tokens)
         if self.cfg.pos_emb == "learned":
-            x = x + self.pos_emb(torch.arange(L, device=tokens.device)[None])
+            x = x + self.pos_emb(self.positions(L, tokens.device))
         return x.to(self.cfg.compute_dtype)
 
     def head(self, x: torch.Tensor) -> torch.Tensor:
@@ -188,8 +227,7 @@ class PipelinedLM(nn.Module):
             if seed is not None:
                 gen = torch.Generator(device=x.device)
                 gen.manual_seed(slot_seed(seed, m, j))
-            L = x.shape[1]
-            positions = torch.arange(L, device=x.device)[None]
+            positions = self.positions(x.shape[1], x.device)
             rope = (rope_angles(positions, cfg.d_model // cfg.n_heads,
                                 cfg.rope_theta)
                     if cfg.pos_emb == "rope" else None)
@@ -248,12 +286,14 @@ class PipelinedLM(nn.Module):
 
 def pipelined_lm(size: str = "tiny", pipe=None, causal: bool = True,
                  num_microbatches: int = 4, virtual_stages: int = 1,
-                 aux_mesh=None, **overrides) -> PipelinedLM:
+                 aux_mesh=None, ring=None, tp=None,
+                 **overrides) -> PipelinedLM:
     """Registry factory ("pipelined_lm"): "tiny" (tests; n_layers
     ``PIPELINED_TINY_LAYERS``) or a GPT-2 size ("small": 12L x 768d x
     12H). ``pipe``: the transport; ``num_microbatches`` is
     --pipeline-microbatches, ``virtual_stages``
-    --pipeline-virtual-stages."""
+    --pipeline-virtual-stages; ``ring`` and ``tp`` the seq and model
+    groups' transports (--mesh.seq, --mesh.model)."""
     overrides["causal"] = causal
     if size == "tiny":
         overrides.setdefault("n_layers", PIPELINED_TINY_LAYERS)
@@ -265,4 +305,5 @@ def pipelined_lm(size: str = "tiny", pipe=None, causal: bool = True,
                 f"(tiny, {', '.join(GPT2_SIZES)})")
         cfg = gpt2_small_config(**{**GPT2_SIZES[size], **overrides})
     return PipelinedLM(cfg, pipe, num_microbatches,
-                       virtual_stages=virtual_stages, aux_mesh=aux_mesh)
+                       virtual_stages=virtual_stages, aux_mesh=aux_mesh,
+                       ring=ring, tp=tp)

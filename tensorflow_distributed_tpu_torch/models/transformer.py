@@ -34,7 +34,9 @@ Numerics follow the flax model:
   sequence: attention is the causal ring (the JAX ``mesh.seq > 1``
   branch), and the positions (the learned table's rows, or RoPE's
   angles) are offset by the block's start (GSPMD sees global positions;
-  here each rank is told its offset);
+  here each rank is told its offset); a ``StackedRing`` (every position
+  in one process: the tests and the one-card smoke) takes the whole
+  sequence and cuts it inside the attention (``ring_block``);
 - with ``decode=True`` (the JAX dense-layout decode branch) the caller
   passes explicit ``positions`` ([1 | B, L] int) and a :class:`KVCache`
   it owns: each row's L new keys and values (RoPE-rotated when it is
@@ -107,7 +109,7 @@ from tensorflow_distributed_tpu_torch.models.moe import (
 from tensorflow_distributed_tpu_torch.ops.flash_attention import (
     NEG_INF, attention, window_keep)
 from tensorflow_distributed_tpu_torch.parallel.ring_attention import (
-    full_attention, ring_attention)
+    ProcessGroupRing, full_attention, ring_attention)
 from tensorflow_distributed_tpu_torch.parallel.sharding import (
     shard_state_dict)
 from tensorflow_distributed_tpu_torch.parallel.tensor_parallel import (
@@ -454,6 +456,16 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
 
 def _is_ring(ring) -> bool:
     return ring is not None and ring.size > 1
+
+
+def ring_block(ring, L: int) -> Tuple[int, int]:
+    """(the blocks the sequence is cut into, the first position of this
+    rank's ``L`` tokens): under a ring of processes its contiguous block
+    (S, index x L); in one process (no ring, or a ``StackedRing``, which
+    holds the whole sequence and cuts it inside the attention) (1, 0)."""
+    if isinstance(ring, ProcessGroupRing) and ring.size > 1:
+        return ring.size, ring.index * L
+    return 1, 0
 
 
 class SelfAttention(nn.Module):
@@ -969,8 +981,7 @@ class TransformerLM(nn.Module):
                                  "must be 1)")
         elif cache is not None:
             raise ValueError("a KVCache is read only with decode=True")
-        shards, start = ((self.ring.size, self.ring.index * L)
-                         if _is_ring(self.ring) else (1, 0))
+        shards, start = ring_block(self.ring, L)
         if L * shards > cfg.max_len:
             raise ValueError(f"sequence length {L * shards} > max_len "
                              f"{cfg.max_len}")

@@ -30,14 +30,17 @@ collectives:
   gradients are summed over it (``replica_all_reduce_``), the port's
   form of GSPMD's implicit psums. Without a model or expert axis it is
   the whole world;
-- the pipe group (P ranks, stride S * M * X) carries the pipeline's
+- the pipe group (P ranks, stride S * M * X: the same (data, seq,
+  model, expert) place in every stage) carries the pipeline's
   stage-to-stage hops (``ProcessGroupPipe``: one ``batch_isend_irecv``
   a tick, activations down and cotangents up, as the ring's permutes).
   The pipe ranks of a data index hold different blocks and the same
   shell (embedding, final norm, head): a block's gradient is summed over
-  the data group, the shell's over the pipe group and then the data
-  group (``pipe_all_reduce_``, ``data_all_reduce_``), and the loss sums
-  over the world (only the last stage holds any).
+  the data and seq groups, the shell's over the pipe group and then the
+  data and seq groups (``pipe_all_reduce_``, ``data_all_reduce_``,
+  ``seq_all_reduce_``), and the loss sums over the replica group (only
+  the last stage holds any). A stage's model and seq groups carry its
+  Megatron blocks and its ring as they do without a pipe.
 
 The data group (the ranks that share a (seq, model, expert) index) is the group
 of sync BatchNorm, and of ``--param-partition fsdp|zero1`` and
@@ -53,9 +56,10 @@ the train step runs each data rank's forward and backward in turn, so
 the ranks' gradients accumulate in rank order and are already their
 sum; ``reduce_scatter`` then only views the sum as the D blocks, all of
 which this process holds, and ``all_gather_`` joins the D blocks.
-``stacked_pipe(P)`` is the one-process form of P pipe ranks
-(``StackedPipe``): every stage lives in this process and a hop hands the
-tensor over.
+``stacked_pipe(P, M, S)`` is the one-process form of P pipe ranks
+(``StackedPipe``), each stage's M model ranks (``StackedTP``) and S ring
+positions (``StackedRing``) with it: every stage lives in this process
+and a hop hands the tensor over.
 
 ``is_chief()`` elects rank 0 for logging, as in the JAX package.
 """
@@ -71,9 +75,9 @@ import torch
 import torch.distributed as dist
 
 from tensorflow_distributed_tpu_torch.parallel.ring_attention import (
-    ProcessGroupRing)
+    ProcessGroupRing, StackedRing)
 from tensorflow_distributed_tpu_torch.parallel.tensor_parallel import (
-    ProcessGroupTP)
+    ProcessGroupTP, StackedTP)
 
 AXIS_DATA = "data"
 AXIS_MODEL = "model"
@@ -359,10 +363,14 @@ def pipe_transport(mesh: Mesh):
     return mesh.pp if mesh.pp is not None else StackedPipe(1)
 
 
-def stacked_pipe(pipe: int) -> Mesh:
+def stacked_pipe(pipe: int, model: int = 1, seq: int = 1) -> Mesh:
     """The mesh of ``pipe`` pipe stages all in this process (no process
-    group; see the module docstring)."""
-    return Mesh(pipe=pipe, pp=StackedPipe(pipe))
+    group; see the module docstring), each stage's ``model`` model ranks
+    (``StackedTP``) and ``seq`` ring positions (``StackedRing``) stacked
+    in it too."""
+    return Mesh(pipe=pipe, pp=StackedPipe(pipe), model=model,
+                tp=StackedTP(model) if model > 1 else None,
+                ring=StackedRing(seq) if seq > 1 else None)
 
 
 def process_batch_role(mesh: Mesh):

@@ -39,13 +39,25 @@ GPipe and 1F1B all draw the same masks. MoE router losses leave a stage
 as ``stage_aux`` sums; 1F1B seeds their cotangents
 (``stage_aux_cotangent``) beside the activation's.
 
+Collectives inside a stage: under ``--mesh.model`` a stage's blocks
+are Megatron blocks (``copy_to_tp`` and ``reduce_from_tp`` over the
+model group), and under ``--mesh.seq`` its attention is the ring (its
+permutes over the seq group). Every model rank and every seq rank of a
+stage runs the same slots in the same tick (the schedule is a function
+of the tick and the stage alone), so their collectives pair up in
+order, and the pipe's hops go to the same (data, seq, model) place of
+the next stage over groups of their own.
+
 JAX's ``variant_residual_mask``, ``split_by_mask``, ``merge_by_mask``
 and ``_select_tree`` have no twin: they sort a jaxpr's vjp residuals
 into per-microbatch and per-step leaves for a ring buffer, and
 PyTorch's autograd graph keeps its saved tensors, the weights by
 reference, itself. Nor has the ``bubble="cond|where"`` switch: this
-eager schedule runs no bubble slot and sends nothing for one, and with
-``mesh.seq`` refused under the pipe no collective sits inside a stage.
+eager schedule runs no bubble slot and sends nothing for one. JAX's
+where-masked bubble exists so that the ring's permutes inside a
+``shard_map`` run on every pipe rank at every tick; here the seq ranks
+of a stage skip the same bubble slots together, and the ranks of other
+stages are not in their seq group, so no permute is left unpaired.
 """
 
 from __future__ import annotations
@@ -442,31 +454,47 @@ def interleaved_pipeline_value_and_grad(
 
 def sync_pipe_grads_(model: torch.nn.Module, mesh) -> None:
     """Sum a pipelined model's gradients over the mesh: a block's over
-    the data group (the ranks of its stage), the shell's over the pipe
-    group (stage 0 holds the embedding's part, the last stage the
-    head's) and then the data group. A parameter without a gradient
-    takes zeros first, so every rank sums the same tensors."""
+    the data and seq groups (the ranks of its stage that hold the same
+    part of it), the shell's over the pipe group (stage 0 holds the
+    embedding's part, the last stage the head's) and then the data and
+    seq groups. Nothing is summed over the model group: a leaf cut over
+    it holds this rank's part's gradient, and a leaf whole on every
+    model rank (the shell, the norms, the row-parallel biases) already
+    has the whole gradient on each (``copy_to_tp`` sums the stream's
+    gradient over the group). A parameter without a gradient takes
+    zeros first, so every rank sums the same tensors."""
     shell = set(model.shell_names())
     for p in model.parameters():
         if p.grad is None:
             p.grad = torch.zeros_like(p)
     named = list(model.named_parameters())
     head = [p.grad for n, p in named if n in shell]
+    blocks = [p.grad for n, p in named if n not in shell]
     mesh.pipe_all_reduce_(head)
-    mesh.data_all_reduce_(head)
-    mesh.data_all_reduce_([p.grad for n, p in named if n not in shell])
+    for grads in (head, blocks):
+        mesh.data_all_reduce_(grads)
+        mesh.seq_all_reduce_(grads)
 
 
 def pipe_grad_norm(grads: Dict[str, torch.Tensor], mesh,
-                   shell: Sequence[str]) -> torch.Tensor:
+                   shell: Sequence[str],
+                   sharded: frozenset = frozenset()) -> torch.Tensor:
     """optax.global_norm of the whole model's gradient (summed as
     ``sync_pipe_grads_`` leaves it): the blocks' squares summed over the
-    pipe group, the shell's counted once."""
+    pipe group, those of the blocks' leaves cut over the model group
+    (``sharded``) over the model group first; the shell's counted
+    once."""
     shell = set(shell)
     zero = torch.zeros((), device=next(iter(grads.values())).device)
-    blocks = sum((torch.sum(g.float() ** 2) for n, g in grads.items()
-                  if n not in shell), zero).reshape(1)
+
+    def total(keep):
+        # In the gradients' order: every rank adds the same terms.
+        return sum((torch.sum(g.float() ** 2) for n, g in grads.items()
+                    if keep(n)), zero)
+
+    blocks = torch.stack([
+        total(lambda n: n in sharded),
+        total(lambda n: n not in shell and n not in sharded)])
+    mesh.model_all_reduce_([blocks[:1]])
     mesh.pipe_all_reduce_([blocks])
-    head = sum((torch.sum(g.float() ** 2) for n, g in grads.items()
-                if n in shell), zero)
-    return torch.sqrt(blocks[0] + head)
+    return torch.sqrt(blocks.sum() + total(lambda n: n in shell))

@@ -40,7 +40,12 @@ model's size, with the dims tensor parallelism takes, so the set of cut
 leaves (``data_blocked``) is JAX's for every family. Where a block sits
 is the port's choice: data rank i holds row i of the rank's local
 tensor viewed as ``[data, numel / data]`` (``data_block``), a flat
-1/data slice, so the blocks of a bucket of leaves are contiguous.
+1/data slice, so the blocks of a bucket of leaves are contiguous. A
+pipelined model's leaves follow the rule on JAX's stacked leaves
+(``_pipelined_data_blocked``): a block's [S, lps, ...] stack of every
+layer, with the pipe on its first dim and its ``_TP_SUFFIX`` names, and
+the shell's whole, unnamed leaves; the shell is never cut over the
+model axis (``param_cut``).
 """
 
 from __future__ import annotations
@@ -103,6 +108,8 @@ def param_cut(name: str, model) -> Optional[Cut]:
     model has none), or None when every rank holds all of it."""
     if name.startswith("layer_"):
         return _BLOCK_CUTS.get(name.split(".", 1)[1])
+    if getattr(model, "is_pipelined", False):
+        return None  # JAX's pipelined shell carries no TP names
     if name.startswith("lm_head."):
         # The param has head_rows rows; without --shard-vocab V is not
         # padded in the param, only in the ranks' parts.
@@ -176,7 +183,7 @@ def gather_state_dict(local: Tensors, model) -> Tensors:
 # package's threshold: a handful of bias and norm vectors cost more in
 # collective latency than in memory).
 FSDP_MIN_SIZE = 2 ** 14
-AXIS_DATA, AXIS_MODEL = "data", "model"
+AXIS_DATA, AXIS_MODEL, AXIS_PIPE = "data", "model", "pipe"
 
 
 def fsdp_scatter_dim(shape: tuple, axis_size: int,
@@ -223,6 +230,9 @@ def data_blocked(model, data: int,
     # interop reaches this module through models/transformer.py.
     from tensorflow_distributed_tpu_torch.interop import flax_layout
 
+    if getattr(model, "is_pipelined", False):
+        return _pipelined_data_blocked(model, data, min_size, flax_layout)
+
     cfg = getattr(model, "cfg", None)
     tp_named = (getattr(model, "tp", None) is not None
                 or bool(getattr(cfg, "shard_vocab", False)))
@@ -237,6 +247,41 @@ def data_blocked(model, data: int,
         if tp_named and path[-1] != "bias":  # JAX names no bias's dims
             spec = list(_model_spec(path, cfg.shard_vocab) or spec)
         if AXIS_DATA in _fsdp_axis_choice(spec, shape, data):
+            out.add(name)
+    return frozenset(out)
+
+
+def _pipelined_data_blocked(model, data: int, min_size: int,
+                            flax_layout) -> frozenset:
+    """``data_blocked`` of a pipelined model: JAX's rule on its stacked
+    leaves. A block leaf is JAX's [S, lps, ...] (or [S, V, lps, ...])
+    stack of every layer's flax leaf, named (pipe, None, ..., its TP
+    names by ``_TP_SUFFIX``: every kernel's and the column-parallel
+    biases'); a shell leaf is the whole model's, unnamed. The threshold
+    is on the stacked leaf, and a leaf is cut when the rule puts the
+    data axis on one of its dims and this process's tensor of it (one
+    layer's, the model rank's part) divides into ``data`` blocks."""
+    whole = model.whole("meta")
+    S, V = model.num_stages, model.virtual_stages
+    lead = (S,) + ((V,) if V > 1 else ()) + (
+        model.cfg.n_layers // (S * V),)
+    mine = dict(model.named_parameters())
+    out = set()
+    for name, p in whole.named_parameters():
+        if name not in mine:
+            continue
+        path, to_flax, _ = flax_layout(whole, name)
+        shape = tuple(to_flax(torch.empty(p.shape, device="meta")).shape)
+        spec = [None] * len(shape)
+        if name.startswith("layer_"):
+            names = _STACKED_TP.get(tuple(path[-2:]))
+            spec = [AXIS_PIPE] + [None] * (len(lead) - 1) + list(
+                names or spec)
+            shape = lead + shape
+        if math.prod(shape) < min_size:
+            continue
+        if (AXIS_DATA in _fsdp_axis_choice(spec, shape, data)
+                and mine[name].numel() % data == 0):
             out.add(name)
     return frozenset(out)
 
@@ -263,6 +308,11 @@ _FLAX_SPECS = {("qkv", "kernel"): (None, None, "model", None),
                ("lm_head", "kernel"): (None, "model"),
                ("lm_head", "bias"): ("model",)}
 _EXPERT_LEAVES = (("moe_mlp", "wi"), ("moe_mlp", "wo"))
+# JAX's pipelined ``_TP_SUFFIX``: the stacked block leaves' TP names
+# (the kernels' and the column-parallel biases'; the experts over the
+# model axis).
+_STACKED_TP = {k: v for k, v in _FLAX_SPECS.items() if k[0] != "lm_head"}
+_STACKED_TP.update({k: (AXIS_MODEL, None, None) for k in _EXPERT_LEAVES})
 
 
 def _model_spec(path, shard_vocab: bool) -> Optional[tuple]:

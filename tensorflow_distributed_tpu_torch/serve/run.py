@@ -274,7 +274,10 @@ def serve_setup(cfg: TrainConfig, played: Optional[Dict] = None
             raise ValueError(f"request {r.rid}: prompt ids {bad} outside "
                              f"the model vocabulary [0, {vocab})")
     if cfg.checkpoint_dir:
-        state = ckpt.restore(cfg.checkpoint_dir, state)
+        # A local-SGD save serves its replicas' mean, as --mode generate.
+        state = (ckpt.restore_averaged(cfg.checkpoint_dir, state)
+                 if cfg.param_sync_every > 1
+                 else ckpt.restore(cfg.checkpoint_dir, state))
         if state.ema is not None:
             model.load_state_dict(state.ema)
     del state  # the optimizer's moments are not served

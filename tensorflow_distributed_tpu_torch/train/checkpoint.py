@@ -54,8 +54,19 @@ recovery record) and the next newer one is tried; ``quarantine_from``
 renames aside every step from one on (a rewind's poisoned saves). An explicit step is exact, and its error lists the steps
 there are. ``restore_params`` reads only the params (the EMA where there
 is one) for a live weight swap, walking back past corrupt and
-non-finite steps. The orbax backend and background saves of the JAX
-package are not ported (ROADMAP.md).
+non-finite steps.
+
+A local-SGD run (``--param-sync-every`` > 1, ``train/local_sgd.py``)
+saves JAX's replica-stacked state: a leading [R] dim on the step, the
+params and the optimizer leaves, the replicas all-gathered over the
+data group. ``restore`` loads each replica's slice back (a plain
+checkpoint into a stacked template, or the reverse, raises naming
+``--param-sync-every``); ``restore_averaged`` averages the replicas
+on the host into a plain template (``--mode eval``, generate, serve),
+and ``restore_params`` averages them for a live swap.
+
+The orbax backend and background saves of the JAX package are not
+ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -79,6 +90,7 @@ from tensorflow_distributed_tpu_torch.parallel.fsdp import swapped_params
 from tensorflow_distributed_tpu_torch.parallel.mesh import ONE_PROCESS, Mesh
 from tensorflow_distributed_tpu_torch.parallel.sharding import (
     flax_spec, gather_state_dict, is_split)
+from tensorflow_distributed_tpu_torch.train.local_sgd import StackedState
 from tensorflow_distributed_tpu_torch.train.state import TrainState
 from tensorflow_distributed_tpu_torch.utils import serialization
 from tensorflow_distributed_tpu_torch.utils.logging import emit_event
@@ -311,17 +323,16 @@ def whole_state(state: TrainState):
     """``state`` itself, or one holding the whole model's tensors: the
     data blocks of a ``--param-partition`` layout gathered over the data
     group, then a tensor- or expert-parallel model's shards over the
-    model and expert groups (every rank of them must enter it). Such a
-    model's whole state is held by a template of the whole model built
-    on the meta device; under fsdp the model holds the gathered params
-    while the context is open."""
+    model and expert groups, then a pipelined model's stages over the
+    pipe group (every rank of them must enter it). Such a model's whole
+    state is held by a template of the whole model built on the meta
+    device; under fsdp the model holds the gathered params while the
+    context is open."""
     model, part = state.model, state.partition
     split = is_split(model)
-    if getattr(model, "is_pipelined", False) and len(
-            model.pipe.stages) < model.num_stages:
-        yield _whole_pipe(state)
-        return
-    if part.kind == "replicated" and not split:
+    piped = getattr(model, "is_pipelined", False) and len(
+        model.pipe.stages) < model.num_stages
+    if part.kind == "replicated" and not split and not piped:
         yield state
         return
 
@@ -334,6 +345,9 @@ def whole_state(state: TrainState):
     opt = {k: (whole(v) if isinstance(v, dict) else v)
            for k, v in state.opt_state.items()}
     ema = None if state.ema is None else whole(state.ema)
+    if piped:
+        yield _whole_pipe(state, params, opt, ema)
+        return
     if split:
         template = model.whole("meta")
         template.load_state_dict(params, assign=True)
@@ -346,13 +360,15 @@ def whole_state(state: TrainState):
 
 
 @torch.no_grad()
-def _whole_pipe(state: TrainState) -> TrainState:
+def _whole_pipe(state: TrainState, params, opt, ema) -> TrainState:
     """A state of every stage of a pipelined model run over a pipe of
-    processes: each block tensor (param, moment, Adafactor statistic,
-    EMA) broadcast from the stage that holds it over the pipe group, on
-    a template of all S stages built on the meta device. Every stage's
-    layers are alike, so a tensor takes the shape of this rank's tensor
-    of the same name past its ``layer_g``."""
+    processes, from this stage's whole ``params``, ``opt`` and ``ema``
+    (gathered over the data and model groups): each block tensor (param,
+    moment, Adafactor statistic, EMA) broadcast from the stage that
+    holds it over the pipe group, on a template of all S stages built on
+    the meta device. Every stage's layers are alike, so a tensor takes
+    the shape of this rank's tensor of the same name past its
+    ``layer_g``."""
     model = state.model
     pipe = model.pipe
     template = model.whole("meta")
@@ -378,13 +394,68 @@ def _whole_pipe(state: TrainState) -> TrainState:
             out[n] = t
         return out
 
-    params = whole({n: p.detach() for n, p in state.params.items()})
+    params = whole(params)
     opt = {k: (whole(v) if isinstance(v, dict) else v)
-           for k, v in state.opt_state.items()}
-    ema = None if state.ema is None else whole(state.ema)
+           for k, v in opt.items()}
+    ema = None if ema is None else whole(ema)
     template.load_state_dict(params, assign=True)
     return TrainState(model=template, tx=state.tx, opt_state=opt,
                       step=state.step, ema=ema)
+
+
+def _replica_trees(stacked: StackedState) -> Optional[List[dict]]:
+    """Every replica's plain state dict, in data order, on the chief
+    (None on the other ranks): this process's replicas, or under
+    torchrun each data rank's tensors gathered to the chief a leaf at a
+    time, each leaf's D copies moved to the host before the next is
+    gathered (every data rank joins)."""
+    mesh = stacked.mesh
+    if not mesh.distributed or mesh.data == 1:
+        return [interop.state_to_flax(r) for r in stacked.replicas]
+    rep = stacked.replicas[0]
+    chief = mesh_lib.is_chief()
+
+    @torch.no_grad()
+    def gather(t: torch.Tensor) -> Optional[List[torch.Tensor]]:
+        t = t.detach().contiguous()
+        parts = [torch.empty_like(t) for _ in range(mesh.data)] \
+            if chief else None
+        dist.gather(t, parts, dst=0, group=mesh.data_group)
+        return [x.cpu() for x in parts] if chief else None
+
+    params = {n: gather(p) for n, p in rep.params.items()}
+    opt = {k: ({n: gather(t) for n, t in v.items()}
+               if isinstance(v, dict) else v)
+           for k, v in rep.opt_state.items()}
+    if not chief:
+        return None
+    trees = []
+    for r in range(mesh.data):
+        mine = {k: ({n: t[r] for n, t in v.items()}
+                    if isinstance(v, dict) else v) for k, v in opt.items()}
+        with swapped_params(rep.model, {n: t[r] for n, t in params.items()}):
+            trees.append(interop.state_to_flax(TrainState(
+                model=rep.model, tx=rep.tx, opt_state=mine, step=rep.step)))
+    return trees
+
+
+def _save_stacked(ckpt_dir: str, stacked: StackedState, keep: int) -> str:
+    """Local SGD's save: JAX's replica-stacked tree
+    (``interop.stack_trees``), every leaf laid out over the data axis in
+    the mesh manifest."""
+    mesh = stacked.mesh
+    trees = _replica_trees(stacked)
+    if trees is not None:
+        tree = interop.stack_trees(trees)
+        del trees
+        manifest = _mesh_manifest(tree, mesh, False)
+        manifest["specs"] = {
+            p: ("PartitionSpec('data',)"
+                if p.split("/")[0] in interop.STACKED_KEYS
+                else "PartitionSpec()") for p in manifest["specs"]}
+        _write(ckpt_dir, stacked.step, tree, keep, manifest)
+    mesh.barrier()
+    return _step_dir(ckpt_dir, stacked.step)
 
 
 def save(ckpt_dir: str, state: TrainState, keep: int = 3,
@@ -393,7 +464,10 @@ def save(ckpt_dir: str, state: TrainState, keep: int = 3,
     Every rank calls it: under tensor or expert parallelism and a data
     partition every rank joins the gathers; the chief writes, and every rank
     leaves only after the rename, so ``latest_step`` agrees everywhere
-    on return."""
+    on return. A local-SGD ``StackedState`` writes JAX's replica-stacked
+    state (its replicas gathered over the data group)."""
+    if isinstance(state, StackedState):
+        return _save_stacked(ckpt_dir, state, keep)
     final = _step_dir(ckpt_dir, state.step)
     with whole_state(state) as whole:
         if mesh_lib.is_chief():
@@ -489,7 +563,14 @@ def _load_native_raw(step_path: str) -> Any:
 def _restore_from_raw(raw: Any, state: TrainState) -> TrainState:
     """Load a state dict into ``state``, with JAX's EMA rules: EMA newly
     on seeds from the restored params, EMA newly off drops the average,
-    and a checkpoint without an ``ema`` key has it off."""
+    and a checkpoint without an ``ema`` key has it off. A local-SGD
+    ``StackedState`` takes its replicas' slices of a replica-stacked
+    state dict."""
+    if isinstance(state, StackedState):
+        mesh = state.mesh
+        interop.stacked_state_from_flax(raw, state.replicas,
+                                        mesh.data_ranks, mesh.data)
+        return state
     raw.setdefault("ema", None)
     want, have = state.ema is not None, raw["ema"] is not None
     if want and not have:
@@ -504,6 +585,38 @@ def _load_step(ckpt_dir: str, step: int, state: TrainState) -> TrainState:
                              state)
 
 
+def _newest_verified(ckpt_dir: str, step: Optional[int], load,
+                     what: str = "--resume"):
+    """``(step, load(step))`` of the checkpoint ``restore`` picks:
+    ``step=None`` the newest whose ``load`` verifies, a corrupt candidate
+    quarantined and the next newest tried; an explicit ``step`` exact
+    (missing raises FileNotFoundError listing the steps there are,
+    corrupt raises CheckpointCorruptError and leaves the directory as
+    it is). ``what`` names the mode in the empty-directory error."""
+    steps = available_steps(ckpt_dir)
+    if step is not None:
+        if step not in steps:
+            raise FileNotFoundError(
+                f"no checkpoint for step {step} under {ckpt_dir}; "
+                f"available steps: {_describe_available(ckpt_dir, steps)}")
+        return step, load(step)
+    if not steps:
+        raise FileNotFoundError(
+            f"no checkpoints under {ckpt_dir} — is this a {what} "
+            f"on an empty or absent checkpoint dir, or the wrong "
+            f"--checkpoint-dir?")
+    last_err: Optional[CheckpointCorruptError] = None
+    for s in reversed(steps):
+        try:
+            return s, load(s)
+        except CheckpointCorruptError as e:
+            _quarantine(ckpt_dir, s, str(e))
+            last_err = e
+    raise CheckpointCorruptError(
+        f"every checkpoint under {ckpt_dir} failed verification "
+        f"(all quarantined); last error: {last_err}")
+
+
 def restore(ckpt_dir: str, state: TrainState,
             step: Optional[int] = None) -> TrainState:
     """Restore into ``state`` (a freshly built template) in place, and
@@ -515,28 +628,38 @@ def restore(ckpt_dir: str, state: TrainState,
     explicit ``step`` is exact: missing raises FileNotFoundError listing
     the steps there are; corrupt raises CheckpointCorruptError and
     leaves the directory as it is."""
-    steps = available_steps(ckpt_dir)
-    if step is not None:
-        if step not in steps:
-            raise FileNotFoundError(
-                f"no checkpoint for step {step} under {ckpt_dir}; "
-                f"available steps: {_describe_available(ckpt_dir, steps)}")
-        return _load_step(ckpt_dir, step, state)
-    if not steps:
-        raise FileNotFoundError(
-            f"no checkpoints under {ckpt_dir} — is this a --resume "
-            f"on an empty or absent checkpoint dir, or the wrong "
-            f"--checkpoint-dir?")
-    last_err: Optional[CheckpointCorruptError] = None
-    for s in reversed(steps):
-        try:
-            return _load_step(ckpt_dir, s, state)
-        except CheckpointCorruptError as e:
-            _quarantine(ckpt_dir, s, str(e))
-            last_err = e
-    raise CheckpointCorruptError(
-        f"every checkpoint under {ckpt_dir} failed verification "
-        f"(all quarantined); last error: {last_err}")
+    return _newest_verified(
+        ckpt_dir, step, lambda s: _load_step(ckpt_dir, s, state))[1]
+
+
+def _mean0(x: np.ndarray) -> np.ndarray:
+    """A replica-stacked leaf's replica mean (float) or replica 0's
+    (integer), as JAX's ``restore_averaged``."""
+    if not x.ndim:
+        return x
+    if np.issubdtype(x.dtype, np.floating):
+        return x.mean(axis=0)
+    return x[0]
+
+
+def restore_averaged(ckpt_dir: str, state: TrainState,
+                     step: Optional[int] = None) -> TrainState:
+    """Restore a replica-stacked (local SGD) checkpoint into the PLAIN
+    template ``state`` by averaging the replica dim on the host: the
+    ``--mode eval``, generate and serve path of a local-SGD run, on any
+    data width (train on 4 replicas, validate on 1). Float leaves take
+    the replicas' mean, integer leaves (the step, the counts) replica
+    0's. The same integrity contract as ``restore``."""
+    step, raw = _newest_verified(
+        ckpt_dir, step, lambda s: _load_native_raw(_step_dir(ckpt_dir, s)),
+        "--resume/mode=eval")
+    if not interop.is_stacked(raw):
+        raise ValueError(
+            f"checkpoint at {_step_dir(ckpt_dir, step)} is not "
+            f"replica-stacked (was it saved with --param-sync-every > 1?)")
+    for key in interop.STACKED_KEYS:
+        raw[key] = interop.map_tree(_mean0, raw[key])
+    return _restore_from_raw(raw, state)
 
 
 def _host_finite(tree: Any) -> bool:
@@ -577,6 +700,9 @@ def restore_params(ckpt_dir: str, model: torch.nn.Module
             last_err = e
             continue
         tree = raw["ema"] if raw.get("ema") is not None else raw["params"]
+        if interop.is_stacked(raw):
+            # A local-SGD save: the replicas' mean (restore_averaged's).
+            tree = interop.map_tree(_mean0, tree)
         if not _host_finite(tree):
             emit_event("recovery", kind="swap_skip", step=s,
                        reason="non-finite params")

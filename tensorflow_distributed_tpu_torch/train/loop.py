@@ -49,6 +49,13 @@ read the same rows (their rows of each of the pipeline's microbatches),
 ``--pipeline-schedule 1f1b`` trains with ``train/pipeline_step.py`` and
 ``gpipe`` with the standard step; ``--mode eval`` runs the GPipe forward.
 
+``--param-sync-every H`` > 1 (local SGD, ``train/local_sgd.py``) trains
+the data ranks' replicas apart, their params averaged every H steps:
+the state is a ``StackedState`` (every replica on the stacked
+transport), a save holds JAX's replica-stacked state, a resume restores
+each replica, and the evals, the result and ``--mode eval`` or generate
+read the replicas' mean (``restore_averaged``).
+
 ``--param-partition zero1|fsdp`` lays the state out over the data axis
 once every rank holds the same init (``train/state.partition_state_``);
 ``--grad-sync serial|overlap`` builds the explicit step
@@ -61,6 +68,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import math
 from typing import Dict, Optional
 
@@ -83,6 +91,8 @@ from tensorflow_distributed_tpu_torch.resilience.policies import (
 from tensorflow_distributed_tpu_torch.resilience.watchdog import (
     Watchdog, wait_for)
 from tensorflow_distributed_tpu_torch.train import checkpoint as ckpt
+from tensorflow_distributed_tpu_torch.train.local_sgd import (
+    StackedState, averaged_view, make_local_sgd_train_step, stack_state)
 from tensorflow_distributed_tpu_torch.train.optim import make_optimizer
 from tensorflow_distributed_tpu_torch.train.preemption import PreemptionGuard
 from tensorflow_distributed_tpu_torch.train.state import (
@@ -198,7 +208,7 @@ def build_model_for(cfg: TrainConfig, device: torch.device, ring=None,
               if cfg.model != "pipelined_lm" else
               {"pipe": pipe, "num_microbatches": cfg.pipeline_microbatches,
                "virtual_stages": cfg.pipeline_virtual_stages,
-               "aux_mesh": aux_mesh})
+               "aux_mesh": aux_mesh, "ring": ring, "tp": tp})
         if cfg.model_size:
             kw["size"] = cfg.model_size
         if cfg.dataset == "text":
@@ -333,9 +343,15 @@ def _make_task(cfg: TrainConfig, mesh: Mesh) -> Task:
 def _make_step(cfg: TrainConfig, task: Task, state: TrainState,
                device: torch.device, mesh: Mesh,
                skip_nonfinite: bool = False, sync=None):
-    """The train step ``cfg`` runs: ``pipelined_lm``'s 1F1B step
-    (``train/pipeline_step.py``) under ``--pipeline-schedule 1f1b``,
+    """The train step ``cfg`` runs: the local-SGD step
+    (``train/local_sgd.py``) under ``--param-sync-every`` > 1, of the
+    ``StackedState`` ``state``; ``pipelined_lm``'s 1F1B step
+    (``train/pipeline_step.py``) under ``--pipeline-schedule 1f1b``;
     else the standard step (GPipe for ``pipelined_lm``)."""
+    if cfg.param_sync_every > 1:
+        return make_local_sgd_train_step(
+            task.loss, device, mesh, cfg.param_sync_every, cfg.seed,
+            grad_norm_metric=cfg.log_grad_norm)
     if cfg.model == "pipelined_lm" and cfg.pipeline_schedule == "1f1b":
         from tensorflow_distributed_tpu_torch.train.pipeline_step import (
             make_1f1b_train_step)
@@ -361,11 +377,14 @@ def build_stacked(cfg: TrainConfig, device: torch.device,
     """``cfg``'s run on the stacked transport of ``cfg.mesh.data`` data
     ranks in this process (``parallel/mesh.stacked_data``), or for
     ``pipelined_lm`` of its ``cfg.mesh.pipe`` stages
-    (``parallel/mesh.stacked_pipe``; the tests and the one-card smoke):
+    (``parallel/mesh.stacked_pipe``, with its ``cfg.mesh.model`` model
+    ranks and ``cfg.mesh.seq`` ring positions stacked too; the tests and
+    the one-card smoke):
     (the task, drawing global batches; the state, laid out as
-    ``cfg.param_partition``; the train step, which runs each data rank's
-    rows, or each stage, in turn). ``min_size``: the partition rule's
-    threshold; ``init_params``: as ``train``'s."""
+    ``cfg.param_partition``, or under ``--param-sync-every`` > 1 the
+    local-SGD replicas (``StackedState``); the train step, which runs
+    each data rank's rows, or each stage, in turn). ``min_size``: the
+    partition rule's threshold; ``init_params``: as ``train``'s."""
     cfg.validate()
     pipelined = cfg.model == "pipelined_lm"
     if (cfg.moe_experts > 0 or cfg.model == "moe_lm") and not pipelined:
@@ -374,11 +393,14 @@ def build_stacked(cfg: TrainConfig, device: torch.device,
     if pipelined and cfg.mesh.data not in (-1, 1):
         raise ValueError("the stacked pipe holds the stages of one data "
                          "rank (--mesh.data 1)")
-    mesh = (mesh_lib.stacked_pipe(cfg.mesh.pipe) if pipelined
+    mesh = (mesh_lib.stacked_pipe(cfg.mesh.pipe, cfg.mesh.model,
+                                  cfg.mesh.seq) if pipelined
             else mesh_lib.stacked_data(cfg.mesh.data))
     task = _make_task(cfg, ONE_PROCESS)
     _, state = _build_model_and_state(cfg, device, init_params, mesh=mesh,
                                       task=task, min_size=min_size)
+    if cfg.param_sync_every > 1:
+        state = stack_state(state, mesh)
     step = _make_step(cfg, task, state, device, mesh,
                       skip_nonfinite=cfg.resilience.nonfinite == "skip_batch")
     return task, state, step
@@ -398,6 +420,15 @@ def train(cfg: TrainConfig, logger: Optional[MetricLogger] = None,
     task = _make_task(cfg, mesh)
     model, state = _build_model_and_state(cfg, device, init_params, mesh,
                                           task)
+    n_params = (param_count(model.whole("meta")) if is_split(model) else
+                sum(state.partition.shapes.get(n, p.shape).numel()
+                    for n, p in state.params.items()))
+    view = lambda s: s  # noqa: E731
+    if cfg.param_sync_every > 1:
+        # The replicas from here on; saves hold them all (the divergence
+        # survives a resume), evals and the result read their mean.
+        state = stack_state(state, mesh)
+        view = functools.partial(averaged_view, opt_state=False)
     start_step = 0
     if cfg.resume and ckpt.latest_step(cfg.checkpoint_dir) is not None:
         state = ckpt.restore(cfg.checkpoint_dir, state)
@@ -422,9 +453,7 @@ def train(cfg: TrainConfig, logger: Optional[MetricLogger] = None,
     eval_fn = make_eval_step(task.eval_loss or task.loss)
     logger.log_json({
         "event": "start", "model": cfg.model, "task": task.name,
-        "params": (param_count(model.whole("meta")) if is_split(model) else
-                   sum(state.partition.shapes.get(n, p.shape).numel()
-                       for n, p in state.params.items())),
+        "params": n_params,
         "device": str(device),
         "global_batch": cfg.batch_size, "start_step": start_step,
         "mesh": {"data": mesh.data, "seq": mesh.seq, "model": mesh.model,
@@ -455,8 +484,8 @@ def train(cfg: TrainConfig, logger: Optional[MetricLogger] = None,
                     f"(halt_on_nonfinite=true); last durable checkpoint: "
                     f"{latest()}")
         if cfg.eval_every and step_now % cfg.eval_every == 0:
-            em = evaluate(state, eval_fn, task, cfg.eval_batch_size, device,
-                          mesh)
+            em = evaluate(view(state), eval_fn, task, cfg.eval_batch_size,
+                          device, mesh)
             logger.log(step_now, **{f"val_{k}": v for k, v in em.items()})
         if (cfg.checkpoint_dir and cfg.checkpoint_every
                 and step_now % cfg.checkpoint_every == 0):
@@ -554,8 +583,7 @@ def train(cfg: TrainConfig, logger: Optional[MetricLogger] = None,
                     f"{cfg.checkpoint_dir!r}, checkpoint_every="
                     f"{cfg.checkpoint_every})")
             ckpt.restore(cfg.checkpoint_dir, state)
-            if bool(torch.stack([torch.isfinite(p).all()
-                                 for p in state.params.values()]).all()):
+            if _params_finite(state):
                 break
             ckpt.quarantine_from(
                 cfg.checkpoint_dir, target,
@@ -624,14 +652,15 @@ def train(cfg: TrainConfig, logger: Optional[MetricLogger] = None,
         save()  # the notice's grace period is for this save: before eval
     with Timer() as eval_t:
         final = ({} if preempted else
-                 evaluate(state, eval_fn, task, cfg.eval_batch_size, device,
-                          mesh))
+                 evaluate(view(state), eval_fn, task, cfg.eval_batch_size,
+                          device, mesh))
     if cfg.checkpoint_dir and saved_at != state.step:
         save()  # the final state, unless its cadence save just wrote it
     steady = max(state.step - start_step - steps_done, 0)
     sps = steady / train_t.elapsed if train_t.elapsed > 0 else 0.0
     result = TrainResult(
-        state=state, train_seconds=first_t.elapsed + train_t.elapsed,
+        state=(averaged_view(state) if isinstance(state, StackedState)
+               else state), train_seconds=first_t.elapsed + train_t.elapsed,
         eval_seconds=eval_t.elapsed, final_metrics=final,
         steps_per_sec=sps, images_per_sec=sps * cfg.batch_size,
         logger=logger)
@@ -647,6 +676,23 @@ def train(cfg: TrainConfig, logger: Optional[MetricLogger] = None,
     return result
 
 
+def _params_finite(state) -> bool:
+    """Whether a state's params (every local-SGD replica's) are finite."""
+    if isinstance(state, StackedState):
+        return state.params_finite()
+    return bool(torch.stack([torch.isfinite(p).all()
+                             for p in state.params.values()]).all())
+
+
+def _restore_plain(cfg: TrainConfig, state: TrainState) -> TrainState:
+    """The latest checkpoint into the plain template ``state``: a
+    local-SGD run's replicas averaged on the host (``--param-sync-every``
+    > 1: ``restore_averaged``, on any data width), else ``restore``."""
+    if cfg.param_sync_every > 1:
+        return ckpt.restore_averaged(cfg.checkpoint_dir, state)
+    return ckpt.restore(cfg.checkpoint_dir, state)
+
+
 def evaluate_only(cfg: TrainConfig, logger: Optional[MetricLogger] = None
                   ) -> Dict[str, float]:
     """``--mode eval``: restore the latest checkpoint and run one full
@@ -655,7 +701,7 @@ def evaluate_only(cfg: TrainConfig, logger: Optional[MetricLogger] = None
     device, mesh, logger = _setup(cfg, logger)
     task = _make_task(cfg, mesh)
     _, state = _build_model_and_state(cfg, device, mesh=mesh, task=task)
-    state = ckpt.restore(cfg.checkpoint_dir, state)
+    state = _restore_plain(cfg, state)
     eval_fn = make_eval_step(task.eval_loss or task.loss)
     with Timer() as eval_t:
         metrics = evaluate(state, eval_fn, task, cfg.eval_batch_size, device,
@@ -711,7 +757,7 @@ def generate_only(cfg: TrainConfig, logger: Optional[MetricLogger] = None
             raise ValueError(
                 f"prompt ids {bad} outside the model vocabulary "
                 f"[0, {model.cfg.vocab_size})")
-    state = ckpt.restore(cfg.checkpoint_dir, state)
+    state = _restore_plain(cfg, state)
     if state.ema is not None:
         model.load_state_dict(state.ema)
     prompt = torch.tensor([ids], dtype=torch.long, device=device)

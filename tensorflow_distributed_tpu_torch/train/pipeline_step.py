@@ -12,16 +12,23 @@ What remains outside the schedule is the embedding: every rank embeds
 the batch (its shape sizes the hops), and the holder of stage 0 runs the
 embedding's backward from the cotangent the schedule returns. The head's
 gradient accumulates at the last stage; the shell's gradient is the sum
-of the two, summed over the pipe group (and the data group:
+of the two, summed over the pipe group (and the data and seq groups:
 ``parallel/pipeline.sync_pipe_grads_``), which is what ``--tie-embeddings``
-needs. Per-microbatch CE sums are seeded with 1 / the global mask count,
-so the gradients and the loss are the global batch's mean, as JAX's.
-MoE router losses are seeded per slot with weight / (n_layers M).
+needs. Per-microbatch CE sums are seeded with 1 / the global mask count
+(summed over the data and seq groups), so the gradients and the loss
+are the global batch's mean, as JAX's. MoE router losses are seeded per
+slot with weight / (n_layers M). Under ``--mesh.model`` a stage's
+blocks are Megatron blocks and under ``--mesh.seq`` its attention is
+the ring (``models/pipelined.py``); recompute, stash and virtual stages
+run under both.
 
 The update is the standard step's: the optimizer (its clip by the norm
-``pipe_grad_norm`` sums over the stages), the EMA and the counter. The
-loss and accuracy sums leave the last stage by one all-reduce over the
-world, so the chief (rank 0, stage 0) reports them.
+``pipe_grad_norm`` sums over the stages), under ``--param-partition
+zero1`` on this data rank's blocks of the cut leaves with the params
+all-gathered after it, the EMA and the counter. The loss and accuracy
+sums leave the last stage by one all-reduce over the replica group
+(the world without a model axis), so the chief (rank 0, stage 0)
+reports them.
 """
 
 from __future__ import annotations
@@ -39,7 +46,9 @@ from tensorflow_distributed_tpu_torch.parallel.pipeline import (
     pipeline_value_and_grad, sync_pipe_grads_)
 from tensorflow_distributed_tpu_torch.train.optim import global_norm
 from tensorflow_distributed_tpu_torch.train.state import TrainState
-from tensorflow_distributed_tpu_torch.train.step import finish, step_seed
+from tensorflow_distributed_tpu_torch.parallel.sharding import is_sharded
+from tensorflow_distributed_tpu_torch.train.step import (
+    finish, gather_blocked_, step_seed)
 from tensorflow_distributed_tpu_torch.train.tasks import MOE_AUX_WEIGHT
 
 Batch = Dict[str, torch.Tensor]
@@ -72,6 +81,8 @@ def make_1f1b_train_step(model: PipelinedLM, device: torch.device,
     moe = cfg.moe_experts > 0
     generator = torch.Generator(device=device)
     piped = mesh.pipe > 1 and mesh.distributed
+    sharded = frozenset(n for n, _ in model.named_parameters()
+                        if is_sharded(n, model))
     denom = cfg.n_layers * model.num_microbatches
 
     if ce_chunk:
@@ -94,6 +105,7 @@ def make_1f1b_train_step(model: PipelinedLM, device: torch.device,
             batch["mask"]
         count = mask.float().sum().reshape(1)
         mesh.data_all_reduce_([count])
+        mesh.seq_all_reduce_([count])
         total = torch.clamp(count[0], min=1.0)
         generator.manual_seed(step_seed(seed, mesh.replica_index,
                                         state.step))
@@ -116,7 +128,7 @@ def make_1f1b_train_step(model: PipelinedLM, device: torch.device,
                 model.num_microbatches, backward=backward, **kw)
         if d_x is not None:
             x.backward(d_x.to(x.dtype))
-        params = state.params
+        params, part = state.params, state.partition
         if mesh.distributed:
             sync_pipe_grads_(model, mesh)
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
@@ -136,15 +148,20 @@ def make_1f1b_train_step(model: PipelinedLM, device: torch.device,
                            dropped_frac=dropped[0] / denom)
         norm = None
         if grad_norm_metric or state.tx.clip_norm:
-            norm = (pipe_grad_norm(grads, mesh, model.shell_names())
+            norm = (pipe_grad_norm(grads, mesh, model.shell_names(), sharded)
                     if piped else global_norm(list(grads.values())))
         if grad_norm_metric:
             metrics["grad_norm"] = norm
         with torch.no_grad():
-            updates = state.tx.update(grads, state.opt_state, params,
-                                      norm=norm)
-            torch._foreach_add_(list(params.values()),
-                                [updates[n] for n in params])
+            # zero1: this data rank's blocks of the cut leaves, their
+            # slots' layout, then the params gathered back.
+            views = part.slot_views(params)
+            updates = state.tx.update(part.slot_views(grads),
+                                      state.opt_state, views, norm=norm)
+            torch._foreach_add_(list(views.values()),
+                                [updates[n] for n in views])
+            if part.kind == "zero1":
+                gather_blocked_(params, part)
         finish(state, True, ema_decay)
         return state, {k: v.detach() for k, v in metrics.items()}
 

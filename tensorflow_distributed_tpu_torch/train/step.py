@@ -51,10 +51,12 @@ rank's rows in turn (``forward_backward``).
 A pipelined model (``--model pipelined_lm``) runs its GPipe schedule
 through this step: its loss's backward is the schedule's, and over a
 pipe of processes the gradients are summed as ``parallel/pipeline.
-sync_pipe_grads_`` says (a stage's blocks over the data group, the shell
-over the pipe group and then the data group) and the norm sums the
-stages' blocks over the pipe group (``pipe_grad_norm``). Its 1F1B
-schedule has its own step (``train/pipeline_step.py``).
+sync_pipe_grads_`` says (a stage's blocks over the data and seq groups,
+the shell over the pipe group and then the data and seq groups, nothing
+over the model group) and the norm sums the stages' blocks over the
+pipe group, their cut leaves over the model group first
+(``pipe_grad_norm``). Its 1F1B schedule has its own step
+(``train/pipeline_step.py``).
 
 ``skip_nonfinite`` (``--resilience.nonfinite skip_batch``) discards the
 update of a step whose loss or gradient norm is not finite: the params,
@@ -315,7 +317,8 @@ def make_train_step(loss: LossFn, device: torch.device, seed: int = 0,
         norm = None
         wanted = grad_norm_metric or skip_nonfinite or state.tx.clip_norm
         if piped and wanted:
-            norm = pipe_grad_norm(grads, mesh, state.model.shell_names())
+            norm = pipe_grad_norm(grads, mesh, state.model.shell_names(),
+                                  sharded)
         elif (mesh.model > 1 or mesh.expert > 1 or blocked
                 or part.kind == "zero1") and wanted:
             norm = grad_norm(grads, mesh, sharded, blocked, experts)

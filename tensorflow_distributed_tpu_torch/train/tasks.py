@@ -352,8 +352,10 @@ def _make_lm_task(cfg: TrainConfig, mesh: Mesh, objective: str,
 
 def _train_mesh(cfg: TrainConfig, mesh: Mesh) -> Mesh:
     """The mesh the train loss normalizes over: none under the explicit
-    sync (each rank's own mean)."""
-    return mesh if cfg.grad_sync == "implicit" else ONE_PROCESS
+    sync or local SGD (each rank's own mean)."""
+    if cfg.grad_sync == "implicit" and cfg.param_sync_every == 1:
+        return mesh
+    return ONE_PROCESS
 
 
 def make_task(cfg: TrainConfig, mesh: Mesh = ONE_PROCESS) -> Task:

@@ -28,6 +28,8 @@ from tensorflow_distributed_tpu_torch.data.batcher import local_rows
 from tensorflow_distributed_tpu_torch.parallel.mesh import Mesh
 from tensorflow_distributed_tpu_torch.train.loop import data_rows
 from torch_ring_workers import spawn_ranks, train_run
+from torch_threads import _one_thread  # noqa: F401
+
 
 RESNET = dict(model="resnet20", dataset="cifar10_synthetic", batch_size=16,
               train_steps=5, eval_every=0, log_every=1, eval_batch_size=200,

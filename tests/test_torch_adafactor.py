@@ -44,6 +44,7 @@ from tensorflow_distributed_tpu_torch.train.optim import (
     factored_dims, make_optimizer)
 from tensorflow_distributed_tpu_torch.train.state import TrainState
 from tensorflow_distributed_tpu_torch.utils.logging import MetricLogger
+from torch_threads import _one_thread  # noqa: F401
 
 LLAMA = dict(pos_emb="rope", n_kv_heads=4, mlp_variant="swiglu",
              norm="rmsnorm", tie_embeddings=True)
@@ -54,14 +55,6 @@ TINY = dict(model="gpt_lm", model_size="tiny", seq_len=32, batch_size=8,
 CHAINS = {"plain": {}, "decay": dict(weight_decay=0.1),
           "clip": dict(grad_clip_norm=0.5),
           "decay_clip": dict(weight_decay=0.1, grad_clip_norm=0.5)}
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # --- the factoring decision --------------------------------------------------

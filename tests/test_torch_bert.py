@@ -35,6 +35,8 @@ from tensorflow_distributed_tpu_torch.ops.losses import (
     masked_softmax_cross_entropy)
 from tensorflow_distributed_tpu_torch.train import loop as tloop
 from tensorflow_distributed_tpu_torch.utils.logging import MetricLogger
+from torch_threads import _one_thread  # noqa: F401
+
 
 BERT = dict(model="bert_mlm", model_size="tiny", seq_len=32, batch_size=8,
             train_steps=5, eval_every=0, log_every=1, eval_batch_size=64,

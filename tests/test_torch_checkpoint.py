@@ -35,6 +35,7 @@ from tensorflow_distributed_tpu_torch.train import checkpoint as ckpt
 from tensorflow_distributed_tpu_torch.train import loop as tloop
 from tensorflow_distributed_tpu_torch.utils import serialization as ser
 from tensorflow_distributed_tpu_torch.utils.logging import MetricLogger
+from torch_threads import _one_thread  # noqa: F401
 
 TINY = dict(model="gpt_lm", model_size="tiny", seq_len=32, batch_size=8,
             eval_every=0, log_every=1, eval_batch_size=8,
@@ -44,16 +45,6 @@ CHAINS = {"adam": {}, "adamw": dict(weight_decay=0.1),
           "sgd": dict(optimizer="sgd"), "clip": dict(grad_clip_norm=0.5),
           "ema": dict(ema_decay=0.9),
           "sgd_clip": dict(optimizer="sgd", grad_clip_norm=0.5)}
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """These tiny models run hundreds of small ops a step: one intra-op
-    thread keeps them fast when the suite's workers share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _jax_state(**fields):

@@ -18,6 +18,8 @@ import json
 import os
 
 import pytest
+from torch_threads import _one_thread  # noqa: F401
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -18,6 +18,7 @@ import json
 import os
 
 import pytest
+from torch_threads import _one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -31,18 +32,6 @@ def _smoke():
 
 
 cs = _smoke()
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread: the suite's workers share the machine's
-    cores."""
-    import torch
-
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _rows(capsys):

@@ -24,6 +24,8 @@ from tensorflow_distributed_tpu_torch import interop
 from tensorflow_distributed_tpu_torch.models.cnn import (
     TRUNCATED_STD, MnistCNN)
 from tensorflow_distributed_tpu_torch.ops import losses as tlosses
+from torch_threads import _one_thread  # noqa: F401
+
 
 RTOL, ATOL = 1e-5, 1e-6
 

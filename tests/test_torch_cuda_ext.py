@@ -10,6 +10,7 @@ import shutil
 import pytest
 
 from tensorflow_distributed_tpu_torch.ops import cuda_ext
+from torch_threads import _one_thread  # noqa: F401
 
 
 @pytest.fixture

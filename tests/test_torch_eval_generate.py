@@ -37,6 +37,7 @@ from tensorflow_distributed_tpu_torch.ops import flash_attention as tfa
 from tensorflow_distributed_tpu_torch.train import checkpoint as ckpt
 from tensorflow_distributed_tpu_torch.train import loop as tloop
 from tensorflow_distributed_tpu_torch.utils.logging import MetricLogger
+from torch_threads import _one_thread  # noqa: F401
 
 TINY = dict(model="gpt_lm", model_size="tiny", seq_len=32, batch_size=8,
             eval_every=0, log_every=1, eval_batch_size=8,
@@ -46,16 +47,6 @@ ARGV = ["--model", "gpt_lm", "--model-size", "tiny", "--seq-len", "32",
         "--batch-size", "8", "--eval-batch-size", "8", "--compute-dtype",
         "float32", "--ema-decay", "0.9", "--device", "cpu"]
 TOL = dict(rtol=1e-5, atol=1e-5)
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """These tiny models run hundreds of small ops a step: one intra-op
-    thread keeps them fast when the suite's workers share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -21,6 +21,8 @@ from tensorflow_distributed_tpu.parallel.ring_attention import (
 from tensorflow_distributed_tpu_torch.ops import flash_attention as tfa
 from tensorflow_distributed_tpu_torch.parallel.ring_attention import (
     full_attention)
+from torch_threads import _one_thread  # noqa: F401
+
 
 B, L, H, D = 2, 128, 2, 64
 ATOL = 1e-5

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from tensorflow_distributed_tpu_torch.ops import flash_attention as tfa
+from torch_threads import _one_thread  # noqa: F401
 
 
 @pytest.fixture

@@ -19,6 +19,8 @@ from tensorflow_distributed_tpu.ops import fused_ce as jfc
 from tensorflow_distributed_tpu.ops import fused_ce_kernel as jfk
 from tensorflow_distributed_tpu_torch.ops import fused_ce as tfc
 from tensorflow_distributed_tpu_torch.ops import fused_ce_kernel as tfk
+from torch_threads import _one_thread  # noqa: F401
+
 
 D, V = 128, 179
 BT, BV = 32, 128       # JAX kernel blocks: several token and vocab blocks

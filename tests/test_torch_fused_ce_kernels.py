@@ -27,6 +27,8 @@ import pytest
 import torch
 
 from tensorflow_distributed_tpu_torch.ops import fused_ce_kernel as fk
+from torch_threads import _one_thread  # noqa: F401
+
 
 CASES = [dict(T=8192, D=768, V=50257, bias=True, eps=0.0),
          dict(T=8192, D=768, V=50257, bias=True, eps=0.1),

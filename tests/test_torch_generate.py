@@ -24,6 +24,8 @@ from tensorflow_distributed_tpu.models import transformer as jtr
 from tensorflow_distributed_tpu_torch import interop
 from tensorflow_distributed_tpu_torch.models import generate as tgen
 from tensorflow_distributed_tpu_torch.models import transformer as ttr
+from torch_threads import _one_thread  # noqa: F401
+
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -59,9 +59,10 @@ def test_port_and_chip_smoke_import_without_jax():
     # the jax-free JAX modules, observe/anomaly.py's spike detector
     # included; PR 17's families and data: models.resnet, the CIFAR and
     # uint8 data, and the native runtime's binding; the pipeline:
-    # parallel.pipeline, models.pipelined, train.pipeline_step).
+    # parallel.pipeline, models.pipelined, train.pipeline_step; local
+    # SGD: train.local_sgd).
     words = out.stdout.split()
-    assert int(words[1]) >= 46
+    assert int(words[1]) >= 47
     for name in ("parallel.mesh", "models.cnn", "data.mnist",
                  "data.prefetch", "utils.serialization", "train.checkpoint",
                  "serve.paging", "serve.paging.pool", "serve.paging.radix",
@@ -72,7 +73,7 @@ def test_port_and_chip_smoke_import_without_jax():
                  "config", "serve.engine", "models.resnet", "data.cifar",
                  "data.u8", "data.lm", "native", "native.runtime",
                  "parallel.pipeline", "models.pipelined",
-                 "train.pipeline_step"):
+                 "train.pipeline_step", "train.local_sgd"):
         assert f"tensorflow_distributed_tpu_torch.{name}" in words[2:]
 
 

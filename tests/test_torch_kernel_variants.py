@@ -11,6 +11,8 @@ import os
 import re
 
 import pytest
+from torch_threads import _one_thread  # noqa: F401
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -32,6 +32,8 @@ from tensorflow_distributed_tpu_torch.models import generate as tgen
 from tensorflow_distributed_tpu_torch.models import transformer as ttr
 from tensorflow_distributed_tpu_torch.serve import scheduler as tsched
 from tensorflow_distributed_tpu_torch.serve.engine import SlotDecodeEngine
+from torch_threads import _one_thread  # noqa: F401
+
 
 TOL = 1e-5          # port vs JAX, f32
 TOL_FULL = 5e-2     # int8 decode vs the unquantized forward (JAX's bound)

@@ -16,6 +16,7 @@ from tensorflow_distributed_tpu_torch.data import mnist as tmnist
 from tensorflow_distributed_tpu_torch.data.prefetch import (
     map_batch, prefetch, to_device)
 from tests.conftest import FIXTURE_DIR
+from torch_threads import _one_thread  # noqa: F401
 
 
 def _assert_split_equal(got, want):

@@ -53,6 +53,8 @@ from tensorflow_distributed_tpu_torch.parallel.sharding import (
 from tensorflow_distributed_tpu_torch.parallel.tensor_parallel import (
     StackedTP, VocabShards)
 from tensorflow_distributed_tpu_torch.train import optim as toptim
+from torch_threads import _one_thread  # noqa: F401
+
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 # (capacity factor, top-k, dispatch, group_len): no drops, drops, top-1,

@@ -13,7 +13,6 @@ prefix and page counters, equal JAX's exactly.
 import json
 
 import pytest
-import torch
 
 from tensorflow_distributed_tpu.config import TrainConfig as JaxConfig
 from tensorflow_distributed_tpu.config import parse_args as jax_parse_args
@@ -21,6 +20,7 @@ from tensorflow_distributed_tpu.serve import run as jserve
 from tensorflow_distributed_tpu.train import loop as jloop
 from tensorflow_distributed_tpu_torch import cli
 from tensorflow_distributed_tpu_torch.utils.logging import MetricLogger
+from torch_threads import _one_thread  # noqa: F401
 
 MOE = dict(model="moe_lm", model_size="tiny", seq_len=32, batch_size=8,
            eval_every=0, log_every=1, eval_batch_size=8,
@@ -34,14 +34,6 @@ PAGED = ["--mode", "serve", "--serve.num-slots", "2",
          "--serve.prompt-len-max", "11", "--serve.max-new-tokens", "6",
          "--serve.stream", "true", "--serve.paged", "true",
          "--serve.page-size", "4", "--serve.session-turns", "2"]
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

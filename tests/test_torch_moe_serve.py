@@ -29,6 +29,7 @@ from tensorflow_distributed_tpu_torch.config import TrainConfig
 from tensorflow_distributed_tpu_torch.train import checkpoint as ckpt
 from tensorflow_distributed_tpu_torch.train import loop as tloop
 from tensorflow_distributed_tpu_torch.utils.logging import MetricLogger
+from torch_threads import _one_thread  # noqa: F401
 
 MOE = dict(model="moe_lm", model_size="tiny", seq_len=32, batch_size=8,
            eval_every=0, log_every=1, eval_batch_size=8,
@@ -37,14 +38,6 @@ MOE = dict(model="moe_lm", model_size="tiny", seq_len=32, batch_size=8,
 ARGV = ["--model", "moe_lm", "--model-size", "tiny", "--seq-len", "32",
         "--batch-size", "8", "--eval-batch-size", "8", "--compute-dtype",
         "float32", "--ema-decay", "0.9", "--moe-capacity-factor", "1.0"]
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -42,6 +42,7 @@ from tensorflow_distributed_tpu_torch.train import checkpoint as ckpt
 from tensorflow_distributed_tpu_torch.train import loop as tloop
 from tensorflow_distributed_tpu_torch.utils.logging import MetricLogger
 from torch_ring_workers import spawn_ranks, train_runs
+from torch_threads import _one_thread  # noqa: F401
 
 BASE = dict(model_size="tiny", seq_len=32, batch_size=8, train_steps=5,
             eval_every=0, log_every=1, eval_batch_size=64,
@@ -53,14 +54,6 @@ BERT_MOE = dict(BASE, model="bert_mlm", moe_experts=4, ce_chunk=16,
                 moe_dispatch="scatter", moe_capacity_factor=1.0,
                 moe_zloss_weight=0.01, weight_decay=0.1)
 METRICS = ("loss", "aux_loss", "z_loss", "dropped_frac")
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _jax_run(fields):

@@ -21,6 +21,8 @@ from tensorflow_distributed_tpu_torch import interop
 from tensorflow_distributed_tpu_torch.config import TrainConfig
 from tensorflow_distributed_tpu_torch.models import transformer as ttr
 from tensorflow_distributed_tpu_torch.train import optim as toptim
+from torch_threads import _one_thread  # noqa: F401
+
 
 STEPS = 5
 

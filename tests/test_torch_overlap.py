@@ -34,6 +34,8 @@ from tensorflow_distributed_tpu_torch import interop
 from tensorflow_distributed_tpu_torch.config import MeshConfig, TrainConfig
 from tensorflow_distributed_tpu_torch.parallel import overlap
 from torch_ring_workers import explicit_steps, spawn_ranks
+from torch_threads import _one_thread  # noqa: F401
+
 
 # --- the plan (JAX's cases, tests/test_overlap.py) -----------------------
 

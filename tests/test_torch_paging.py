@@ -47,6 +47,7 @@ from tensorflow_distributed_tpu_torch.serve.engine import SlotDecodeEngine
 from tensorflow_distributed_tpu_torch.serve.paging import engine as tpe
 from tensorflow_distributed_tpu_torch.serve.paging import pool as tpool
 from tensorflow_distributed_tpu_torch.serve.paging import radix as tradix
+from torch_threads import _one_thread  # noqa: F401
 
 
 # --- the pool and the radix cache against JAX's classes ----------------

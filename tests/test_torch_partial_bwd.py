@@ -24,6 +24,8 @@ import torch
 
 from tensorflow_distributed_tpu.ops import flash_attention as jfa
 from tensorflow_distributed_tpu_torch.ops import flash_attention as tfa
+from torch_threads import _one_thread  # noqa: F401
+
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 BH, D, BLOCK = 4, 64, 64

@@ -29,6 +29,8 @@ import torch
 
 from tensorflow_distributed_tpu.ops import flash_attention as jfa
 from tensorflow_distributed_tpu_torch.ops import flash_attention as tfa
+from torch_threads import _one_thread  # noqa: F401
+
 
 RTOL = 1e-5
 NEG_INF = np.float32(-1e30)

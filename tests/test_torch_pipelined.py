@@ -53,20 +53,11 @@ from tensorflow_distributed_tpu_torch.train.pipeline_step import (
 from tensorflow_distributed_tpu_torch.train.state import create_train_state
 from tensorflow_distributed_tpu_torch.train.step import make_train_step
 from tensorflow_distributed_tpu_torch.train.tasks import make_pipelined_loss
+from torch_threads import _one_thread  # noqa: F401
 
 TINY = dict(n_layers=4, max_len=16)
 CPU = torch.device("cpu")
 LR = 1e-2
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread: the suite's workers share the machine's
-    cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _batch():

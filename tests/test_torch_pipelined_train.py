@@ -39,6 +39,7 @@ from tensorflow_distributed_tpu_torch.data.prefetch import to_device
 from tensorflow_distributed_tpu_torch.train import checkpoint as ckpt
 from tensorflow_distributed_tpu_torch.train import loop as tloop
 from torch_ring_workers import pipe_runs, spawn_ranks
+from torch_threads import _one_thread  # noqa: F401
 
 PIPE = dict(model="pipelined_lm", model_size="tiny", seq_len=16,
             batch_size=16, train_steps=5, eval_every=0, log_every=1,
@@ -47,16 +48,6 @@ PIPE = dict(model="pipelined_lm", model_size="tiny", seq_len=16,
 JAX_MESH = dict(data=4, pipe=2)
 ADAFACTOR = dict(PIPE, optimizer="adafactor", train_steps=3)
 CPU = torch.device("cpu")
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread: the suite's workers share the machine's
-    cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _losses(logger):

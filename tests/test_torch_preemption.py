@@ -42,6 +42,8 @@ from tensorflow_distributed_tpu_torch.train import loop as tloop
 from tensorflow_distributed_tpu_torch.train import preemption
 from tensorflow_distributed_tpu_torch.train.preemption import PreemptionGuard
 from tensorflow_distributed_tpu_torch.utils.logging import MetricLogger
+from torch_threads import _one_thread  # noqa: F401
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CNN = dict(dataset="synthetic", batch_size=64, eval_every=0, log_every=1,

@@ -30,6 +30,7 @@ from tensorflow_distributed_tpu_torch.config import TrainConfig
 from tensorflow_distributed_tpu_torch.models import transformer as ttr
 from tensorflow_distributed_tpu_torch.train import loop as tloop
 from tensorflow_distributed_tpu_torch.utils.logging import MetricLogger
+from torch_threads import _one_thread  # noqa: F401
 
 LLAMA = dict(pos_emb="rope", n_kv_heads=2, mlp_variant="swiglu",
              norm="rmsnorm")
@@ -37,14 +38,6 @@ TINY = dict(model="gpt_lm", model_size="tiny", seq_len=32, batch_size=8,
             train_steps=5, eval_every=0, log_every=1, eval_batch_size=8,
             compute_dtype="float32", dropout_rate=0.0, learning_rate=3e-3,
             seed=0, **LLAMA)
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _losses(logger):

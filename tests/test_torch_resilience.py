@@ -50,6 +50,7 @@ from tensorflow_distributed_tpu_torch.resilience import watchdog as twatchdog
 from tensorflow_distributed_tpu_torch.train import checkpoint as tckpt
 from tensorflow_distributed_tpu_torch.train import loop as tloop
 from tensorflow_distributed_tpu_torch.utils.logging import MetricLogger
+from torch_threads import _one_thread  # noqa: F401
 
 # tests/test_resilience.py's _cfg, logging every step, dropout off (the two
 # frameworks draw different masks).
@@ -62,14 +63,6 @@ TINY_LM = dict(model="gpt_lm", model_size="tiny", seq_len=32, batch_size=8,
 # The fields of a recovery record both packages must agree on.
 KEYS = ("kind", "step", "action", "used", "budget", "attempt", "from_step",
         "to_step", "fault", "reason", "what")
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _records(out: str):

@@ -13,7 +13,6 @@ too, and so do resnet50's on the synthetic ImageNet set at 32 x 32; a skipped st
 ``--mesh.data 4`` (sync BN) give one process's losses and statistics.
 """
 
-import functools
 
 import flax.linen as nn
 import jax
@@ -24,26 +23,24 @@ import torch
 import torch.nn.functional as F
 
 from tensorflow_distributed_tpu.config import TrainConfig as JaxConfig
-from tensorflow_distributed_tpu.data import cifar as jcifar
 from tensorflow_distributed_tpu.models import resnet as jresnet
 from tensorflow_distributed_tpu.parallel import make_mesh
-from tensorflow_distributed_tpu.train import checkpoint as jckpt
 from tensorflow_distributed_tpu.train import loop as jloop
 from tensorflow_distributed_tpu.train.tasks import make_task as jax_make_task
 from tensorflow_distributed_tpu.utils.logging import (
     MetricLogger as JaxLogger)
 from tensorflow_distributed_tpu_torch import interop
 from tensorflow_distributed_tpu_torch.config import TrainConfig
-from tensorflow_distributed_tpu_torch.data import cifar as tcifar
 from tensorflow_distributed_tpu_torch.models import (
     MUTABLE_EXTRA_MODELS, build_model)
 from tensorflow_distributed_tpu_torch.models import resnet as tresnet
-from tensorflow_distributed_tpu_torch.train import checkpoint as ckpt
 from tensorflow_distributed_tpu_torch.train import loop as tloop
 from tensorflow_distributed_tpu_torch.train.step import make_train_step
 from tensorflow_distributed_tpu_torch.train.tasks import make_vision_loss
 from tensorflow_distributed_tpu_torch.utils.logging import MetricLogger
 from torch_ring_workers import spawn_ranks, train_run
+from torch_threads import _one_thread  # noqa: F401
+
 
 RESNET = dict(model="resnet20", dataset="cifar10_synthetic", batch_size=16,
               train_steps=5, eval_every=0, log_every=1, eval_batch_size=200,
@@ -228,48 +225,6 @@ def _assert_stats_equal(model, jax_extra, tol):
                                    err_msg=k)
 
 
-@pytest.mark.parametrize("extra", [{}, dict(grad_accum_steps=2)],
-                         ids=["plain", "accum2"])
-def test_resnet20_trajectory_and_batch_stats_match_jax(extra):
-    """5 steps of resnet20 on the synthetic CIFAR-10 set: the losses to
-    1e-4, the batch_stats to 1e-4 (under accumulation, the last
-    microbatch's, as JAX's scan keeps; Adam's steps carry the grads'
-    ~1e-5 differences into the weights, 3e-5 at most in the stats), and
-    the final eval, which reads the running averages, to 1e-4."""
-    fields = dict(RESNET, **extra)
-    jres, init = _jax_run(fields)
-    tres = _port_run(fields, init)
-    assert tres.state.step == 5
-    np.testing.assert_allclose(_losses(tres.logger), _losses(jres.logger),
-                               rtol=1e-4)
-    _assert_stats_equal(tres.state.model, jres.state.extra, 1e-4)
-    for k in ("loss", "accuracy"):
-        np.testing.assert_allclose(tres.final_metrics[k],
-                                   jres.final_metrics[k], rtol=1e-4,
-                                   atol=1e-6, err_msg=k)
-
-
-def test_resnet50_trajectory_matches_jax_on_small_images(monkeypatch):
-    """5 steps of resnet50 on imagenet_synthetic (1000 classes, the
-    default optimizer and learning rate, as the card's ResNet-50 leg),
-    its images cut to 32 x 32 and batch 8 so that the CPU can run it in
-    both packages: the losses to 1e-4 (the stem, the max pool, the
-    stride-2 bottlenecks and the batch statistics of every stage)."""
-    for mod in (jcifar, tcifar):
-        monkeypatch.setattr(mod, "synthetic_imagenet", functools.partial(
-            mod.synthetic_imagenet, n_train=256, n_test=64,
-            validation_size=64, image_size=32))
-    fields = dict(RESNET, model="resnet50", dataset="imagenet_synthetic",
-                  batch_size=8, eval_batch_size=64)
-    del fields["learning_rate"]
-    jres, init = _jax_run(fields)
-    tres = _port_run(fields, init)
-    np.testing.assert_allclose(_losses(tres.logger), _losses(jres.logger),
-                               rtol=1e-4)
-    np.testing.assert_allclose(tres.final_metrics["loss"],
-                               jres.final_metrics["loss"], rtol=1e-4)
-
-
 def test_a_skipped_step_keeps_the_batch_stats():
     """A non-finite step under skip_batch keeps the running averages
     (JAX's skip keeps the whole state); a finite one writes them."""
@@ -294,60 +249,6 @@ def test_a_skipped_step_keeps_the_batch_stats():
 
 
 # --- checkpoints ---------------------------------------------------------------
-
-def _jax_state(fields):
-    jcfg = JaxConfig(**fields)
-    jm = make_mesh(jcfg.mesh)
-    return jloop._build_model_and_state(jcfg, jm, jax_make_task(jcfg, jm))[1]
-
-
-def test_checkpoints_carry_batch_stats_both_ways_byte_for_byte(tmp_path):
-    """A port save restores in JAX with the port's params and batch_stats
-    bit-equal, and JAX saving that state writes the port's bytes; a JAX
-    save restores in the port with its batch_stats exactly, and ``--mode
-    eval`` of it gives JAX's metrics (1e-5)."""
-    fields = dict(RESNET, train_steps=2, checkpoint_every=2)
-    res = _port_run(dict(fields, checkpoint_dir=str(tmp_path / "port")))
-    jstate = jckpt.restore(str(tmp_path / "port"), _jax_state(fields))
-    assert int(jstate.step) == 2
-    _assert_stats_equal(res.state.model, jstate.extra, 0.0)
-    jckpt.save(str(tmp_path / "jax"), jstate)
-    for name in ("state.msgpack", "manifest.json"):
-        port_bytes = (tmp_path / "port" / "step_00000002" / name).read_bytes()
-        assert (tmp_path / "jax" / "step_00000002" / name
-                ).read_bytes() == port_bytes, name
-
-    jdir = str(tmp_path / "jax_run")
-    jres = jloop.train(JaxConfig(**fields, checkpoint_dir=jdir),
-                       logger=JaxLogger(enabled=False))
-    fresh = tloop._build_model_and_state(
-        TrainConfig(**fields, device="cpu"), torch.device("cpu"))[1]
-    got = ckpt.restore(jdir, fresh)
-    assert got.step == 2
-    _assert_stats_equal(got.model, jres.state.extra, 0.0)
-    want = interop.params_from_flax(jax.device_get(jres.state.params))
-    for name, p in got.params.items():
-        assert torch.equal(p.detach(), want[name]), name
-    # --mode eval of that checkpoint reads its running averages in both.
-    evals = [mod.evaluate_only(cfg(**dict(fields, mode="eval",
-                                          checkpoint_dir=jdir), **kw),
-                               logger=log(enabled=False))
-             for mod, cfg, kw, log in (
-                 (jloop, JaxConfig, {}, JaxLogger),
-                 (tloop, TrainConfig, {"device": "cpu"}, MetricLogger))]
-    for k in ("loss", "accuracy"):
-        np.testing.assert_allclose(evals[1][k], evals[0][k], rtol=1e-5,
-                                   err_msg=k)
-
-
-def test_port_save_and_restore_bring_back_batch_stats_exactly(tmp_path):
-    res = _port_run(dict(RESNET, train_steps=3, checkpoint_dir=str(tmp_path)))
-    fresh = tloop._build_model_and_state(
-        TrainConfig(**RESNET, device="cpu"), torch.device("cpu"))[1]
-    got = ckpt.restore(str(tmp_path), fresh)
-    assert got.step == 3
-    for name, t in res.state.extra.items():
-        assert torch.equal(got.extra[name], t), name
 
 
 # --- sync BN over gloo ranks ----------------------------------------------------

@@ -33,6 +33,8 @@ from tensorflow_distributed_tpu.parallel.mesh import make_mesh
 from tensorflow_distributed_tpu_torch.ops import flash_attention as tfa
 from tensorflow_distributed_tpu_torch.parallel import ring_attention as tra
 from torch_ring_workers import ring_cases, spawn_ranks
+from torch_threads import _one_thread  # noqa: F401
+
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 

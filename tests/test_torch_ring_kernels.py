@@ -23,6 +23,8 @@ import torch
 from tensorflow_distributed_tpu_torch.ops import flash_attention as tfa
 from tensorflow_distributed_tpu_torch.parallel import ring_attention as tra
 from torch_ring_workers import ring_cases, spawn_ranks
+from torch_threads import _one_thread  # noqa: F401
+
 
 TOL_REL = 2e-2
 TOL_STATS = 1e-3

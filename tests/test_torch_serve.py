@@ -44,6 +44,7 @@ from tensorflow_distributed_tpu_torch.serve import buckets as tbuckets
 from tensorflow_distributed_tpu_torch.serve import run as trun
 from tensorflow_distributed_tpu_torch.serve import scheduler as tsched
 from tensorflow_distributed_tpu_torch.serve.engine import SlotDecodeEngine
+from torch_threads import _one_thread  # noqa: F401
 
 
 def _outcome(fn, *args):

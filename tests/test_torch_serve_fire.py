@@ -72,18 +72,9 @@ from tensorflow_distributed_tpu_torch.serve import speculate as tspec
 from tensorflow_distributed_tpu_torch.serve.paging import engine as tpe
 from tensorflow_distributed_tpu_torch.train import checkpoint as tckpt
 from tensorflow_distributed_tpu_torch.train.state import ema_init
+from torch_threads import _one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread: the tiny models run thousands of small ops,
-    which several test workers' thread pools would otherwise fight over."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _outcome(fn, *args, **kw):

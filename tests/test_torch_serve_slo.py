@@ -49,6 +49,7 @@ from tensorflow_distributed_tpu_torch.serve import scheduler as tsched
 from tensorflow_distributed_tpu_torch.serve import speculate as tspec
 from tensorflow_distributed_tpu_torch.serve.engine import SlotDecodeEngine
 from tensorflow_distributed_tpu_torch.serve.paging import engine as tpe
+from torch_threads import _one_thread  # noqa: F401
 
 
 def _outcome(fn, *args):
@@ -76,16 +77,6 @@ def test_percentile_is_nearest_rank_as_jax(n, q):
     vals = sorted(np.random.default_rng(n).random(n).tolist())
     assert tsched.percentile(vals, q) == percentile(vals, q)
 
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread: the tiny models run thousands of small ops,
-    which several test workers' thread pools would otherwise fight over."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 # --- the schedulers on fake engines --------------------------------------
 

@@ -35,6 +35,7 @@ from tensorflow_distributed_tpu_torch.models import transformer as ttr
 from tensorflow_distributed_tpu_torch.serve import speculate as tspec
 from tensorflow_distributed_tpu_torch.serve.engine import SlotDecodeEngine
 from tensorflow_distributed_tpu_torch.serve.paging import engine as tpe
+from torch_threads import _one_thread  # noqa: F401
 
 
 def _outcome(fn, *args, **kw):
@@ -43,16 +44,6 @@ def _outcome(fn, *args, **kw):
     except (ValueError, RuntimeError) as e:
         return (type(e).__name__, str(e))
 
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread: the tiny models run thousands of small ops,
-    which several test workers' thread pools would otherwise fight over."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 # --- the host math ------------------------------------------------------
 

@@ -34,6 +34,8 @@ from tensorflow_distributed_tpu_torch.data import lm as tlm
 from tensorflow_distributed_tpu_torch.serve import run as trun
 from tensorflow_distributed_tpu_torch.train import loop as tloop
 from tensorflow_distributed_tpu_torch.utils.logging import MetricLogger
+from torch_threads import _one_thread  # noqa: F401
+
 
 HAVE_TOKENIZERS = importlib.util.find_spec("tokenizers") is not None
 needs_tokenizers = pytest.mark.skipif(

@@ -38,6 +38,8 @@ from tensorflow_distributed_tpu_torch.parallel.tensor_parallel import (
     StackedTP, VocabShards)
 from tensorflow_distributed_tpu_torch.train.step import step_seed
 from torch_ring_workers import mesh_groups, spawn_ranks
+from torch_threads import _one_thread  # noqa: F401
+
 
 TOL = 1e-5
 WIDE = dict(d_model=64, n_heads=8, d_ff=128)  # 8 heads: GQA with 4 K/V

@@ -26,6 +26,8 @@ from tensorflow_distributed_tpu_torch.ops.losses import (
     masked_softmax_cross_entropy)
 from tensorflow_distributed_tpu_torch.parallel.ring_attention import (
     StackedRing)
+from torch_threads import _one_thread  # noqa: F401
+
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}

@@ -36,6 +36,8 @@ from tensorflow_distributed_tpu_torch.native import runtime as native
 from tensorflow_distributed_tpu_torch.train import loop as tloop
 from tensorflow_distributed_tpu_torch.utils.logging import MetricLogger
 from tests.conftest import FIXTURE_DIR
+from torch_threads import _one_thread  # noqa: F401
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

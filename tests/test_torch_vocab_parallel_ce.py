@@ -26,6 +26,8 @@ from tensorflow_distributed_tpu_torch.ops.fused_ce import (
     fused_masked_cross_entropy, vocab_parallel_ce_sums)
 from tensorflow_distributed_tpu_torch.parallel.tensor_parallel import (
     StackedTP, VocabShards)
+from torch_threads import _one_thread  # noqa: F401
+
 
 B, L, D = 4, 16, 24  # B: the data axis (8 / M devices) must divide it
 TOL = 1e-5

@@ -45,6 +45,8 @@ from tensorflow_distributed_tpu_torch.train import loop as tloop
 from tensorflow_distributed_tpu_torch.train.state import Partition
 from tests.conftest import FIXTURE_DIR
 from torch_ring_workers import spawn_ranks, train_runs
+from torch_threads import _one_thread  # noqa: F401
+
 
 GPT = dict(model="gpt_lm", model_size="tiny", seq_len=32, batch_size=8,
            train_steps=5, eval_every=0, log_every=1, eval_batch_size=8,

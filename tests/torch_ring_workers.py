@@ -252,30 +252,39 @@ def explicit_steps(rank, world, init_path, batches_path, runs, out_dir):
 
 
 def pipe_runs(rank, world, runs, out_dir):
-    """For each (kind, name, fields, mesh, init path or None) of ``runs``
-    in turn on this rank, with ``--device cpu``: ``train()`` (kind
-    "train": its losses, final eval and whole params, gathered over the
-    pipe) or ``evaluate_only()`` (kind "eval": its metrics)."""
+    """For each (kind, name, fields, mesh, init path or None[, the
+    partition rule's threshold]) of ``runs`` in turn on this rank, with
+    ``--device cpu``: ``train()`` (kind "train": its losses, final eval,
+    whole params, gathered over the pipe, and the leaves its partition
+    cuts) or ``evaluate_only()`` (kind "eval": its metrics)."""
+    from unittest import mock
+
     from tensorflow_distributed_tpu_torch.config import (
         MeshConfig, TrainConfig)
+    from tensorflow_distributed_tpu_torch.train import loop
     from tensorflow_distributed_tpu_torch.train.checkpoint import whole_state
-    from tensorflow_distributed_tpu_torch.train.loop import (
-        evaluate_only, train)
     from tensorflow_distributed_tpu_torch.utils.logging import MetricLogger
 
     out = {}
-    for kind, name, fields, mesh, init_path in runs:
+    for kind, name, fields, mesh, init_path, *min_size in runs:
         cfg = TrainConfig(**fields, device="cpu", mesh=MeshConfig(**mesh))
         if kind == "eval":
-            out[name] = evaluate_only(cfg, logger=MetricLogger(enabled=False))
+            out[name] = loop.evaluate_only(
+                cfg, logger=MetricLogger(enabled=False))
             continue
         init = torch.load(init_path) if init_path else None
-        res = train(cfg, logger=MetricLogger(enabled=False),
-                    init_params=init)
+        # A lowered threshold cuts a tiny model's leaves.
+        build = loop._build_model_and_state
+        with mock.patch.object(loop, "_build_model_and_state", (
+                lambda *a, **k: build(*a, **k, min_size=min_size[0]))
+                if min_size else build):
+            res = loop.train(cfg, logger=MetricLogger(enabled=False),
+                             init_params=init)
         with whole_state(res.state) as whole:
             params = {k: v.detach().clone() for k, v in whole.params.items()}
         out[name] = {"losses": [r.metrics["loss"] for r in res.logger.records
                                 if "loss" in r.metrics],
                      "final": res.final_metrics, "params": params,
-                     "local": sorted(res.state.params)}
+                     "local": sorted(res.state.params),
+                     "blocked": sorted(res.state.partition.blocked)}
     torch.save(out, os.path.join(str(out_dir), f"rank{rank}.pt"))

@@ -551,7 +551,10 @@ TRAIN_ARGV = ["--mode", "train", "--model", "gpt_lm", "--model-size", "small",
 TRAIN_FUSED_ARGV = TRAIN_ARGV + ["--ce-chunk", "8192", "--ce-impl", "kernel"]
 CE_KERNELS = ("fused_ce_fwd", "fused_ce_dx", "fused_ce_dw")
 RING_KERNELS = ("flash_fwd_partial", "flash_dq_partial", "flash_dkv_partial")
-PROFILE_STEPS = 10  # step_profile: timed and traced steps of each run
+PROFILE_STEPS = 10  # timed and traced steps of a profiled run
+# step_profile's four GPT runs take fewer, to keep the one-card smoke
+# within its time budget.
+STEP_PROFILE_STEPS = 6
 # Partial (ring-step) kernels vs their plain versions; the ring vs the
 # flash kernels and the plain full attention (plain in f32 from the same
 # bf16 inputs; the kernels round P and dO to bf16 for their products).
@@ -830,7 +833,7 @@ ONLY_PHASES = ("ce_kernels", "model_bert", "train_bert", "train_text",
                "model_moe", "train_moe", "serve_moe", "train_ep",
                "model_pipe", "train_pipe", "model_local_sgd",
                "model_pipe_tp", "model_pipe_seq", "train_local_sgd",
-               "train_pipe3d")
+               "train_pipe3d", "model_serve_tp", "serve_tp", "generate_tp")
 # ZeRO-1, FSDP and the explicit gradient sync: GPT-2-small as published
 # (tied) on the stacked transport of D data ranks, each leg's steps
 # through the port's train step; then --param-partition / --grad-sync
@@ -955,6 +958,41 @@ TRAIN_PIPE3D_RUNS = (
     ("data2_pipe2_zero1", ["--mesh.data", "2", "--mesh.pipe", "2",
                            "--param-partition", "zero1"],
      ["--pipeline-microbatches", "8"]))
+# Tensor-parallel serving and generation (--serve.mesh-model N, --mode
+# generate --mesh.model M): model_serve_tp holds the decode engine on
+# StackedTP(M) against the whole engine on the same weights at
+# GPT-2-small's widths (one card); serve_tp and generate_tp run the CLI
+# over four cards.
+SERVE_TP_SIZES = (2, 4)
+SERVE_TP_SLOTS, SERVE_TP_REQUESTS, SERVE_TP_NEW = 4, 6, 16
+SERVE_TP_PROMPTS = (8, 200)     # lengths spread evenly over this range
+SERVE_TP_TURN_NEW = 8           # a session's second turn: its new tokens
+SERVE_TP_BUCKETS = 256          # the ladder covers the second turns
+SERVE_TP_BF16_STEPS = 8
+TOL_SERVE_TP = 2e-2  # bf16 decode logits vs the whole engine, / max |ref|
+SERVE_TP_WIDTH = 4
+SERVE_TP_ARGV = ["--mode", "serve", "--model", "gpt_lm", "--model-size",
+                 "small", "--synthetic-vocab", "50257", "--shard-vocab",
+                 "true", "--seq-len", "1024",
+                 "--serve.num-slots", "8", "--serve.num-requests", "32",
+                 "--serve.prompt-len-min", "64", "--serve.prompt-len-max",
+                 "512", "--serve.max-new-tokens", "64"]
+SERVE_TP_PAGED = ["--serve.paged", "true", "--serve.prompt-len-max", "224",
+                  "--serve.session-turns", "2"]
+SERVE_TP_KILL_PLAN = "sigkill@10"
+SERVE_TP_CLI_TIMEOUT_S = 300  # one supervised leg: start-up, spawn, serve
+GENERATE_TP_ARGV = ["--model", "gpt_lm", "--model-size", "small",
+                    "--seq-len", "1024", "--shard-vocab", "true",
+                    "--synthetic-vocab", "50257"]
+GENERATE_TP_TRAIN = ["--mode", "train", *GENERATE_TP_ARGV, "--batch-size",
+                     "8", "--train-steps", "2", "--eval-every", "0",
+                     "--eval-batch-size", "8", "--dropout-rate", "0",
+                     "--ce-chunk", "8192", "--checkpoint-every", "2"]
+GENERATE_TP_PROMPT = "464,3290,318,257,1332,286"
+GENERATE_TP_RUN = ["--mode", "generate", *GENERATE_TP_ARGV,
+                   "--compute-dtype", "float32", "--prompt",
+                   GENERATE_TP_PROMPT, "--max-new-tokens", "32"]
+GENERATE_TP_TIMEOUT_S = 600
 MODEL_RESNET_B = 4
 MODEL_RESNET_IMAGE = 224
 TOL_RESNET_F32 = 1e-3  # f32 on the card vs f32 on the CPU, train mode
@@ -1005,10 +1043,13 @@ _LAP_T = [time.time()]
 
 
 def lap(name: str) -> None:
-    """Close phase ``name``: its seconds since the previous lap."""
+    """Close phase ``name``: its seconds since the previous lap, also
+    written to standard error at once, so that a run cut by a time limit
+    still shows where its time went."""
     now = time.time()
     _LAPS.append((name, round(now - _LAP_T[0], 1)))
     _LAP_T[0] = now
+    sys.stderr.write(f"[smoke] {name}: {_LAPS[-1][1]} s\n")
 
 
 def emit(obj) -> None:
@@ -1687,10 +1728,10 @@ def phase_train_fused(kernels, torch, dense):
     return rec
 
 
-def profile_steps(torch, one) -> dict:
+def profile_steps(torch, one, steps: int = PROFILE_STEPS) -> dict:
     """Where a train step's time goes: ``one(fetch)`` runs one step
     (ending in a host fetch of its loss when ``fetch``, as with
-    --log-every 1). Over PROFILE_STEPS steps after 3 warm-up steps: the
+    --log-every 1). Over ``steps`` steps after 3 warm-up steps: the
     host-clocked step with and without the per-step fetch; the host's
     time to enqueue one step from an idle device; the device time of the
     steps from torch.profiler (CUDA activity), by kernel kind; and the
@@ -1701,10 +1742,10 @@ def profile_steps(torch, one) -> dict:
     def steps_ms(fetch):
         torch.cuda.synchronize()
         t0 = time.time()
-        for _ in range(PROFILE_STEPS):
+        for _ in range(steps):
             one(fetch)
         torch.cuda.synchronize()
-        return (time.time() - t0) / PROFILE_STEPS * 1e3
+        return (time.time() - t0) / steps * 1e3
 
     for _ in range(3):
         one(True)
@@ -1715,14 +1756,14 @@ def profile_steps(torch, one) -> dict:
     one(False)
     enqueue_ms = (time.time() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        for _ in range(PROFILE_STEPS):
+        for _ in range(steps):
             one(True)
         torch.cuda.synchronize()
-    host_top = [[e.key[:60], e.self_cpu_time_total / PROFILE_STEPS / 1e3,
-                 e.count / PROFILE_STEPS]
+    host_top = [[e.key[:60], e.self_cpu_time_total / steps / 1e3,
+                 e.count / steps]
                 for e in sorted(prof.key_averages(),
                                 key=lambda e: -e.self_cpu_time_total)[:8]]
-    dev = device_ms(torch, lambda: one(True), PROFILE_STEPS)
+    dev = device_ms(torch, lambda: one(True), steps)
     busy = sum(dev.values())
     kinds = {"flash": 0.0, "fused_ce": 0.0, "conv": 0.0, "gemm": 0.0,
              "other": 0.0}
@@ -1745,7 +1786,7 @@ def profile_steps(torch, one) -> dict:
                 dev.items(), key=lambda kv: -kv[1])[:8]]}
 
 
-def profiled(torch, argv) -> dict:
+def profiled(torch, argv, steps: int = PROFILE_STEPS) -> dict:
     """``profile_steps`` of the train step of ``argv`` on cuda:0, over
     four batches of its stream in turn (measurement only: no launch
     count of a train phase is read after it)."""
@@ -1770,7 +1811,7 @@ def profiled(torch, argv) -> dict:
         if fetch:
             float(metrics["loss"])
 
-    out = profile_steps(torch, one)
+    out = profile_steps(torch, one, steps)
     del state, batches
     torch.cuda.empty_cache()
     return out
@@ -1782,8 +1823,9 @@ def phase_step_profile(torch) -> None:
     for run, argv in (("train", TRAIN_ARGV), ("train_fused", TRAIN_FUSED_ARGV),
                       ("train_llama", TRAIN_LLAMA_ARGV),
                       ("train_window", TRAIN_WINDOW_ARGV)):
-        emit({"phase": "step_profile", "run": run, "steps": PROFILE_STEPS,
-              **profiled(torch, argv)})
+        emit({"phase": "step_profile", "run": run,
+              "steps": STEP_PROFILE_STEPS,
+              **profiled(torch, argv, STEP_PROFILE_STEPS)})
 
 
 def partial_bounds(B, H, nh, D, causal):
@@ -2029,16 +2071,17 @@ def rank_entry(outdir: str, argv) -> int:
     for kern in kernels:
         kern.launches = 0
     out = os.path.join(outdir, f"rank{rank}.out")
-    if cfg.mode == "eval":
-        from tensorflow_distributed_tpu_torch.train.loop import evaluate_only
+    if cfg.mode in ("eval", "generate"):
+        from tensorflow_distributed_tpu_torch.train.loop import (
+            evaluate_only, generate_only)
+        run = evaluate_only if cfg.mode == "eval" else generate_only
         try:
             with open(out, "w") as f, contextlib.redirect_stdout(f):
-                metrics = evaluate_only(
-                    cfg, logger=MetricLogger(stream=sys.stderr))
+                record = run(cfg, logger=MetricLogger(stream=sys.stderr))
         finally:
             mesh.shutdown()
         with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
-            json.dump({"eval": metrics,
+            json.dump({cfg.mode: record,
                        "launches": {kern.name: kern.launches
                                     for kern in kernels}}, f)
         return 0
@@ -2782,15 +2825,16 @@ def phase_eval(kernels, torch, ckpt_dir: str) -> None:
           f"eval: the eval did not run B1 12 times a batch: {launches}")
 
 
-def stream_check(torch, model, prompt, got, ref, what: str):
-    """A token stream against ``ref``, the greedy reference: equal, or
-    differing first where the top-2 logit gap is under IDENTITY_GAP.
-    Returns the excuse (or None)."""
+def stream_check(torch, model, prompt, got, ref, what: str,
+                 against: str = "generate()"):
+    """A token stream against ``ref``, the greedy reference (``against``
+    names it): equal, or differing first where ``model``'s top-2 logit
+    gap is under IDENTITY_GAP. Returns the excuse (or None)."""
     j = first_mismatch(got, ref)
     if j is None:
         return None
     gap = top2_gap(torch, model, prompt, ref, j)
-    check(gap < IDENTITY_GAP, f"{what} differs from generate() at step {j}, "
+    check(gap < IDENTITY_GAP, f"{what} differs from {against} at step {j}, "
                               f"where the top-2 logit gap is {gap}")
     return {"step": j, "top2_gap": gap}
 
@@ -6045,6 +6089,407 @@ def phase_train_pipe3d(torch) -> None:
                   f"{r['launches']}")
 
 
+def tp_twin(torch, whole, M: int):
+    """``whole`` on ``StackedTP(M)`` (every model rank in this process)
+    with the same weights, cut by the port's TP layout."""
+    from tensorflow_distributed_tpu_torch.parallel.sharding import (
+        shard_state_dict)
+    from tensorflow_distributed_tpu_torch.parallel.tensor_parallel import (
+        StackedTP)
+
+    with torch.device(DEVICE):
+        model = type(whole)(whole.cfg, tp=StackedTP(M))
+    with torch.no_grad():
+        model.load_state_dict(shard_state_dict(whole.state_dict(), model))
+    return model.eval()
+
+
+def with_fields(torch, model, **fields):
+    """``model`` with ``fields`` of its config changed (the decode cache's
+    layout), sharing its parameters."""
+    cfg = dataclasses.replace(model.cfg, **fields)
+    with torch.device("meta"):
+        out = type(model)(cfg, model.ring, model.tp,
+                          vocab_shards=model.vocab_shards, ep=model.ep)
+    out.load_state_dict(model.state_dict(), assign=True)
+    return out.eval()
+
+
+def serve_tp_requests(np, vocab: int):
+    """SERVE_TP_REQUESTS prompts with lengths spread over
+    SERVE_TP_PROMPTS, drawn from seed 3."""
+    rng = np.random.default_rng(3)
+    lens = np.linspace(*SERVE_TP_PROMPTS, SERVE_TP_REQUESTS).astype(int)
+    return [rng.integers(0, vocab, n) for n in lens]
+
+
+def serve_tp_leg(torch, np, leg: str, model, prompts, turn2=None):
+    """One leg's engine on ``model`` under the FIFO scheduler: ``dense``,
+    ``int8`` (the model's cache int8), ``kgram`` (k-gram self-draft at
+    SPEC_K) or ``paged`` (page size PAGE_SIZE, the radix cache; each
+    prompt a session of two turns, the second ``turn2[i]``: the first
+    turn's prompt, the reference's tokens and SERVE_TP_TURN_NEW new
+    ones). Returns (the engine, each request's tokens, rid order)."""
+    from tensorflow_distributed_tpu_torch.serve.buckets import (
+        default_buckets)
+    from tensorflow_distributed_tpu_torch.serve.engine import (
+        SlotDecodeEngine)
+    from tensorflow_distributed_tpu_torch.serve.paging.engine import (
+        PagedSlotEngine)
+    from tensorflow_distributed_tpu_torch.serve.scheduler import (
+        Request, Scheduler)
+    from tensorflow_distributed_tpu_torch.serve.speculate import SelfDraft
+
+    buckets = default_buckets(SERVE_TP_BUCKETS, cap=model.cfg.max_len)
+    speculator = None
+    if leg == "paged":
+        engine = PagedSlotEngine(model, SERVE_TP_SLOTS, page_size=PAGE_SIZE,
+                                 buckets=buckets)
+    elif leg == "kgram":
+        engine = SlotDecodeEngine(model, SERVE_TP_SLOTS, buckets=buckets,
+                                  spec_tokens=SPEC_K)
+        speculator = SelfDraft(SERVE_TP_SLOTS, SPEC_K)
+    else:
+        engine = SlotDecodeEngine(model, SERVE_TP_SLOTS, buckets=buckets)
+    engine.warmup()
+    sched = Scheduler(engine, decode_priority=4, speculator=speculator)
+
+    def run(ps, base):
+        done = {c.rid: c for c in sched.run(
+            [Request(rid=base + i, prompt=p, max_new_tokens=SERVE_TP_NEW,
+                     session=f"s{i}" if leg == "paged" else "")
+             for i, p in enumerate(ps)])}
+        return [done[base + i].tokens for i in range(len(ps))]
+
+    tokens = run(prompts, 0)
+    if turn2 is not None:
+        tokens += run(turn2, len(prompts))
+    return engine, tokens
+
+
+def phase_model_serve_tp(torch, np) -> None:
+    """The decode engine on StackedTP(M), M in SERVE_TP_SIZES, against the
+    whole engine on the same GPT-2-small weights: in f32 every stream
+    through the Scheduler equals the whole engine's (dense, paged in
+    sessions of two turns with radix hits, int8, k-gram at SPEC_K; the
+    Llama-style GQA cache dense), excused only where the whole model's
+    top-2 gap is under IDENTITY_GAP; cache_bytes_per_slot and page_bytes
+    exactly 1/M of the whole engine's; then in bf16 the TP decode logits
+    within TOL_SERVE_TP of the whole model's, step by step on the same
+    tokens."""
+    from tensorflow_distributed_tpu_torch.models.generate import (
+        decode_token, prefill_cache)
+
+    t0 = time.time()
+    legs = [("dense", {}), ("paged", {}), ("int8", {"kv_cache_quant": "int8"}),
+            ("kgram", {}), ("gqa", LLAMA_OPTS)]
+    rows = []
+    for leg, overrides in legs:
+        whole = gpt2_small(torch, torch.float32,
+                           **{k: v for k, v in overrides.items()
+                              if k != "kv_cache_quant"}).eval()
+        if "kv_cache_quant" in overrides:
+            whole = with_fields(torch, whole, kv_cache_quant="int8")
+        prompts = serve_tp_requests(np, whole.cfg.vocab_size)
+        rng = np.random.default_rng(4)
+        ref_engine, ref = serve_tp_leg(torch, np, leg, whole, prompts)
+        turn2 = None
+        if leg == "paged":
+            turn2 = [np.concatenate([p, t, rng.integers(
+                0, whole.cfg.vocab_size, SERVE_TP_TURN_NEW)])
+                for p, t in zip(prompts, ref)]
+            ref_engine, ref = serve_tp_leg(torch, np, leg, whole, prompts,
+                                           turn2)
+        fed = prompts + (turn2 or [])
+        for M in SERVE_TP_SIZES:
+            model = tp_twin(torch, whole, M)
+            engine, got = serve_tp_leg(torch, np, leg, model, prompts, turn2)
+            excused = [dict(rid=i, **bad) for i, (p, g, r) in enumerate(
+                zip(fed, got, ref)) if (bad := stream_check(
+                    torch, whole, p, g, r,
+                    f"model_serve_tp {leg} M={M}: request {i}",
+                    "the whole engine"))]
+            row = {"leg": leg, "M": M, "requests": len(fed),
+                   "identical": len(fed) - len(excused), "excused": excused,
+                   "cache_bytes_per_slot": engine.cache_bytes_per_slot(),
+                   "whole_cache_bytes_per_slot":
+                       ref_engine.cache_bytes_per_slot(),
+                   "tp_width": engine.tp_width}
+            check(engine.tp_width == M
+                  and engine.cache_bytes_per_slot() * M
+                  == ref_engine.cache_bytes_per_slot(),
+                  f"model_serve_tp {leg} M={M}: {row['cache_bytes_per_slot']}"
+                  f" cache bytes a slot on a device, not 1/{M} of the whole "
+                  f"engine's {row['whole_cache_bytes_per_slot']}")
+            if leg == "paged":
+                row.update(page_bytes=engine.page_bytes(),
+                           whole_page_bytes=ref_engine.page_bytes(),
+                           prefix_hits=engine.prefix_hits)
+                check(engine.page_bytes() * M == ref_engine.page_bytes()
+                      and engine.prefix_hits >= SERVE_TP_REQUESTS,
+                      f"model_serve_tp paged M={M}: page bytes "
+                      f"{engine.page_bytes()} (whole {ref_engine.page_bytes()}"
+                      f"), {engine.prefix_hits} prefix hits")
+            if leg == "kgram":
+                row["verify_steps"] = engine.verify_steps
+                check(engine.verify_steps > 0,
+                      f"model_serve_tp kgram M={M}: no verify step ran")
+            rows.append(row)
+            del model, engine
+        del whole, ref_engine
+    # bf16: the decode logits, fed the whole model's greedy tokens.
+    whole = gpt2_small(torch, torch.bfloat16).eval()
+    prompts = serve_tp_requests(np, whole.cfg.vocab_size)[:SERVE_TP_SLOTS]
+    P = max(len(p) for p in prompts)
+    batch = torch.zeros((len(prompts), P), dtype=torch.long, device=DEVICE)
+    for b, p in enumerate(prompts):
+        batch[b, P - len(p):] = torch.from_numpy(p)  # right-aligned rows
+    bf16 = {}
+    for M in SERVE_TP_SIZES:
+        model = tp_twin(torch, whole, M)
+        errs = []
+        with torch.no_grad():
+            ref_logits, ref_cache = prefill_cache(whole, batch)
+            got_logits, cache = prefill_cache(model, batch)
+            ref_last, last = ref_logits[:, -1], got_logits[:, -1]
+            for step in range(SERVE_TP_BF16_STEPS + 1):
+                errs.append(float((last - ref_last).abs().max()
+                                  / ref_last.abs().max()))
+                if step == SERVE_TP_BF16_STEPS:
+                    break
+                tok = ref_last.argmax(dim=-1)
+                pos = torch.tensor([P + step], device=DEVICE)
+                ref_last, ref_cache = decode_token(whole, ref_cache, tok, pos)
+                last, cache = decode_token(model, cache, tok, pos)
+        bf16[M] = errs
+        check(max(errs) <= TOL_SERVE_TP,
+              f"model_serve_tp bf16 M={M}: decode logits {errs} vs the whole "
+              f"model, tolerance {TOL_SERVE_TP}")
+        del model
+    emit({"phase": "model_serve_tp", "legs": rows,
+          "bf16_rel_err_by_step": bf16, "tolerance_bf16": TOL_SERVE_TP,
+          "slots": SERVE_TP_SLOTS, "new_tokens": SERVE_TP_NEW,
+          "wall_s": round(time.time() - t0, 3)})
+
+
+def journal_streams(path: str) -> dict:
+    """{rid: tokens} of a replayed journal, every request done."""
+    from tensorflow_distributed_tpu_torch.serve import journal as journal_mod
+
+    played = journal_mod.replay(path)
+    check(all(e["done"] for e in played.values()),
+          f"serve_tp: a request of {path} is not done")
+    return {rid: e["tokens"] for rid, e in played.items()}
+
+
+def tp_excuses(torch, argv, got: dict, ref: dict, what: str) -> list:
+    """Where ``got`` (a TP run's streams) differs from ``ref`` (one
+    card's, same flags), the one-card model's top-2 gap at the first
+    difference: under IDENTITY_GAP or the phase fails. The model is the
+    CLI's fresh-init one, rebuilt here; the prompts are its workload."""
+    from tensorflow_distributed_tpu_torch.config import parse_args
+    from tensorflow_distributed_tpu_torch.serve.run import _workload
+    from tensorflow_distributed_tpu_torch.train.loop import (
+        _build_model_and_state)
+
+    check(set(got) == set(ref),
+          f"{what}: requests {sorted(got)} vs one card's {sorted(ref)}")
+    bad = [rid for rid in ref if got[rid] != ref[rid]]
+    if not bad:
+        return []
+    cfg = parse_args(argv)
+    vocab = cfg.synthetic_vocab
+    model, _ = _build_model_and_state(cfg, torch.device(DEVICE),
+                                      vocab_size=vocab)
+    prompts = {r.rid: r.prompt for r in _workload(cfg, vocab)}
+    out = [dict(rid=rid, **stream_check(
+        torch, model.eval(), prompts[rid], got[rid], ref[rid],
+        f"{what}: request {rid}", "one card's run")) for rid in bad]
+    del model
+    return out
+
+
+def replica_stop_s(out: str):
+    """The seconds by part of a TP replica's stop, from its
+    ``[serve] tensor-parallel replica stopped: {...}`` line (None for a
+    one-card run)."""
+    line = next((l for l in out.splitlines()
+                 if l.startswith("[serve] tensor-parallel replica stopped")),
+                None)
+    return None if line is None else json.loads(line.split(": ", 1)[1])
+
+
+def serve_tp_pids(out: str) -> list:
+    """The worker pids a TP serving leg printed."""
+    line = next((l for l in out.splitlines()
+                 if l.startswith("[serve] tensor-parallel replica:")), "")
+    m = re.search(r"worker pids \[([0-9, ]*)\]", line)
+    check(m is not None, "serve_tp: no worker pids in the replica line")
+    return [int(x) for x in m.group(1).split(",") if x.strip()]
+
+
+def pid_alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    except PermissionError:
+        return True
+    return True
+
+
+def phase_serve_tp(torch) -> None:
+    """--serve.mesh-model SERVE_TP_WIDTH through the CLI (a chief and
+    three worker processes, NCCL), skipped on fewer cards by the device
+    count alone: ``serve_tp_readings``, then ``serve_tp_gates``."""
+    count = torch.cuda.device_count()
+    if count < SERVE_TP_WIDTH:
+        emit({"phase": "serve_tp",
+              "skipped": f"needs >= {SERVE_TP_WIDTH} CUDA devices, have "
+                         f"{count}"})
+        return
+    t0 = time.time()
+    with tempfile.TemporaryDirectory(prefix="tfd_serve_tp_") as tmp:
+        got = serve_tp_readings(tmp)
+    runs = serve_tp_gates(torch, got)
+    emit({"phase": "serve_tp", "width": SERVE_TP_WIDTH, "runs": runs,
+          "wall_s": round(time.time() - t0, 3)})
+
+
+def serve_tp_readings(tmp: str) -> dict:
+    """In f32, dense then paged (sessions of two turns), one card's run
+    and the TP run of the same flags, each with a journal; in bf16 the
+    two runs' summaries; then the dense f32 TP command under the
+    supervisor with a SIGKILL at decode step 10. Returns every run's
+    summary fields, journal streams, and the supervised run's exit code,
+    output and the killed leg's worker pids."""
+    tp = ["--serve.mesh-model", str(SERVE_TP_WIDTH)]
+    f32 = ["--compute-dtype", "float32"]
+    keys = SERVE_KEYS + ("tp_width", "per_device_cache_bytes",
+                         "peak_bytes_by_rank", "prefix_hits", "tp_commands",
+                         "tp_command_s", "tp_start_s")
+    got = {"runs": {}, "streams": {}}
+
+    def run(run_name, argv):
+        t0 = time.time()
+        _, _, record, out = serve_cli(argv)
+        got["runs"][run_name] = {k: record.get(k) for k in keys}
+        got["runs"][run_name]["cli_s"] = round(time.time() - t0, 3)
+        got["runs"][run_name]["tp_stop_s"] = replica_stop_s(out)
+        sys.stderr.write(f"[serve_tp] {run_name}: {time.time() - t0:.1f} s "
+                         f"in the CLI\n")
+
+    for leg, extra in (("dense", []), ("paged", SERVE_TP_PAGED)):
+        for name, flags in (("one_card", []), ("tp", tp)):
+            journal = os.path.join(tmp, f"{leg}_{name}.jsonl")
+            run(f"f32_{leg}_{name}", SERVE_TP_ARGV + f32 + extra + flags
+                + ["--serve.journal", journal])
+            got["streams"][f"f32_{leg}_{name}"] = journal_streams(journal)
+    for name, flags in (("one_card", []), ("tp", tp)):
+        run(f"bf16_{name}", SERVE_TP_ARGV + flags)
+    journal = os.path.join(tmp, "kill.jsonl")
+    cmd = [sys.executable, "-m",
+           "tensorflow_distributed_tpu_torch.resilience.supervisor",
+           "--max-restarts", "2", "--backoff-base-s", "0.5", "--",
+           *SERVE_TP_ARGV, *f32, *tp, "--serve.journal", journal,
+           "--resilience.fault-plan", SERVE_TP_KILL_PLAN]
+    t0 = time.time()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=2 * SERVE_TP_CLI_TIMEOUT_S,
+                          env=dict(os.environ, PYTHONPATH=REPO,
+                                   PYTHONUNBUFFERED="1"))
+    sys.stderr.write(proc.stderr[-3000:])
+    legs = proc.stdout.split("[supervisor] leg ")
+    got["supervised"] = {
+        "rc": proc.returncode, "legs": len(legs) - 1,
+        "wall_s": round(time.time() - t0, 3),
+        "restarted": '"kind": "restart"' in proc.stdout,
+        "killed_leg_workers": serve_tp_pids(legs[1]) if len(legs) > 2
+        else [],
+        "streams": journal_streams(journal)}
+    got["supervised"]["workers_left"] = [
+        p for p in got["supervised"]["killed_leg_workers"] if pid_alive(p)]
+    return got
+
+
+def serve_tp_gates(torch, got: dict) -> dict:
+    """The gates of ``serve_tp_readings``: each f32 TP stream equal to
+    one card's (excused only where the one-card model's top-2 gap is
+    under IDENTITY_GAP), the per-device cache bytes 1/SERVE_TP_WIDTH of
+    one card's; the supervised run restarted once and exited 0, its
+    streams the clean TP run's, every request done once, and no worker
+    of the killed leg alive. Returns the runs' fields for the phase's
+    line."""
+    runs = {k: dict(v) for k, v in got["runs"].items()}
+    streams = got["streams"]
+    for leg, extra in (("dense", []), ("paged", SERVE_TP_PAGED)):
+        argv = SERVE_TP_ARGV + ["--compute-dtype", "float32"] + extra
+        tp, one = streams[f"f32_{leg}_tp"], streams[f"f32_{leg}_one_card"]
+        excused = tp_excuses(torch, argv, tp, one, f"serve_tp f32 {leg}")
+        runs[f"f32_{leg}_tp"].update(identical=len(tp) - len(excused),
+                                     excused=excused)
+        bytes_tp = runs[f"f32_{leg}_tp"]["per_device_cache_bytes"]
+        bytes_one = runs[f"f32_{leg}_one_card"]["per_device_cache_bytes"]
+        check(runs[f"f32_{leg}_tp"]["tp_width"] == SERVE_TP_WIDTH
+              and bytes_tp * SERVE_TP_WIDTH == bytes_one,
+              f"serve_tp f32 {leg}: per-device cache bytes {bytes_tp}, not "
+              f"1/{SERVE_TP_WIDTH} of one card's {bytes_one}")
+    sup, clean = got["supervised"], streams["f32_dense_tp"]
+    runs["supervised"] = {k: v for k, v in sup.items() if k != "streams"}
+    runs["supervised"].update(requests=len(sup["streams"]),
+                              equal_clean=sup["streams"] == clean)
+    check(sup["rc"] == 0 and sup["restarted"] and sup["legs"] == 2,
+          f"serve_tp: the supervised run exited {sup['rc']} after "
+          f"{sup['legs']} legs (restarted: {sup['restarted']})")
+    check(len(sup["killed_leg_workers"]) == SERVE_TP_WIDTH - 1
+          and not sup["workers_left"],
+          f"serve_tp: workers {sup['workers_left']} of the killed leg "
+          f"{sup['killed_leg_workers']} alive")
+    check(sup["streams"] == clean,
+          f"serve_tp: the supervised streams differ from the clean TP run's "
+          f"(requests {len(sup['streams'])} of {len(clean)})")
+    return runs
+
+
+def phase_generate_tp(torch) -> None:
+    """--mode generate --mesh.model 4 (torchrun, NCCL) from a
+    --shard-vocab checkpoint that --mode train --mesh.model 4 wrote (its
+    tables padded to a multiple of 4): greedy and --num-beams 4 in f32,
+    the tokens equal to one card's --mode generate from the same
+    checkpoint. Skipped on fewer cards by the device count alone."""
+    count = torch.cuda.device_count()
+    if count < SERVE_TP_WIDTH:
+        emit({"phase": "generate_tp",
+              "skipped": f"needs >= {SERVE_TP_WIDTH} CUDA devices, have "
+                         f"{count}"})
+        return
+    t0 = time.time()
+    mesh = ["--mesh.model", str(SERVE_TP_WIDTH)]
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="tfd_generate_tp_") as tmp:
+        ck = ["--checkpoint-dir", tmp]
+        run_torchrun("generate_tp train", SERVE_TP_WIDTH,
+                     GENERATE_TP_TRAIN + mesh + ck, GENERATE_TP_TIMEOUT_S)
+        for beams in ("1", "4"):
+            argv = GENERATE_TP_RUN + ck + ["--num-beams", beams]
+            wall, ranks, _ = run_torchrun(f"generate_tp beams {beams}",
+                                          SERVE_TP_WIDTH, argv + mesh,
+                                          GENERATE_TP_TIMEOUT_S)
+            rc, text = run_cli(argv)
+            one = event_record(text, "generate")
+            check(rc == 0 and one is not None,
+                  f"generate_tp: one card's --mode generate exited {rc}")
+            got = [r["generate"]["new_tokens"] for r in ranks]
+            out[f"beams_{beams}"] = {"tp_tokens": got[0],
+                                     "one_card_tokens": one["new_tokens"],
+                                     "tp_wall_s": round(wall, 3)}
+            check(all(g == one["new_tokens"] for g in got),
+                  f"generate_tp beams {beams}: ranks' tokens {got} vs one "
+                  f"card's {one['new_tokens']}")
+    emit({"phase": "generate_tp", "width": SERVE_TP_WIDTH, **out,
+          "wall_s": round(time.time() - t0, 3)})
+
+
 def run_alone(names, fa, fce, kernels, torch, np, F) -> None:
     """``--only``: the named phases of ONLY_PHASES, in the order given."""
     alone = {"ce_kernels": lambda: phase_ce_kernels(fce, torch, F),
@@ -6070,7 +6515,10 @@ def run_alone(names, fa, fce, kernels, torch, np, F) -> None:
              "model_pipe_tp": lambda: phase_model_pipe_tp(fa, torch, np),
              "model_pipe_seq": lambda: phase_model_pipe_seq(fa, torch, np),
              "train_local_sgd": lambda: phase_train_local_sgd(torch),
-             "train_pipe3d": lambda: phase_train_pipe3d(torch)}
+             "train_pipe3d": lambda: phase_train_pipe3d(torch),
+             "model_serve_tp": lambda: phase_model_serve_tp(torch, np),
+             "serve_tp": lambda: phase_serve_tp(torch),
+             "generate_tp": lambda: phase_generate_tp(torch)}
     for name in names:
         alone[name]()
         lap(name)
@@ -6227,6 +6675,12 @@ def main(argv=None) -> int:
     lap("train_local_sgd")
     phase_train_pipe3d(torch)
     lap("train_pipe3d")
+    phase_model_serve_tp(torch, np)
+    lap("model_serve_tp")
+    phase_serve_tp(torch)
+    lap("serve_tp")
+    phase_generate_tp(torch)
+    lap("generate_tp")
 
     err = {"flash_fwd": flash["errors"]["o_abs_err"],
            "flash_dq": flash["errors"]["dq_abs_err"],

@@ -102,6 +102,24 @@ Examples:
         --model gpt_lm --model-size small --seq-len 1024 \
         --checkpoint-dir /tmp/gpt2 --serve.num-slots 8
 
+    # one replica over 4 GPUs (--serve.mesh-model: this process and 3
+    # workers it starts, each holding H/4 heads and their slice of the
+    # cache; --shard-vocab pads the vocabulary to a multiple of 4), and
+    # --mode generate over --mesh.model M under torchrun:
+    python -m tensorflow_distributed_tpu_torch.cli --mode serve \
+        --model gpt_lm --model-size small --synthetic-vocab 50257 \
+        --shard-vocab true --seq-len 1024 --serve.mesh-model 4
+    torchrun --standalone --nproc-per-node 4 \
+        -m tensorflow_distributed_tpu_torch.cli --mode generate \
+        --mesh.model 4 --model gpt_lm --model-size small --seq-len 1024 \
+        --checkpoint-dir /tmp/gpt2 --prompt 464,3290,318
+
+    # restarted after a crash or a kill (train: --resume true from the
+    # second leg; serve: the same command, its journal the resume):
+    python -m tensorflow_distributed_tpu_torch.resilience.supervisor \
+        --max-restarts 3 -- --mode serve --model gpt_lm \
+        --serve.journal /tmp/serve.journal
+
     # the same path on the CPU, tiny, streaming each token:
     python -m tensorflow_distributed_tpu_torch.cli --mode serve \
         --model gpt_lm --model-size tiny --compute-dtype float32 \
@@ -217,11 +235,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                   flush=True)
             return EXIT_STALLED
         return 0
-    if cfg.mode == "generate":
-        generate_only(cfg)
-        return 0
     try:
-        if cfg.mode == "eval":
+        if cfg.mode == "generate":
+            generate_only(cfg)
+        elif cfg.mode == "eval":
             evaluate_only(cfg)
         else:
             train_and_report(cfg)

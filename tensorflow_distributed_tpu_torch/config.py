@@ -95,8 +95,9 @@ class ServeConfig:
     its JAX spelling and default. The port runs the dense slot engine, or
     with ``paged`` the paged one (radix prefix cache, sessions), either
     over a bf16 or an int8 cache, speculative with ``spec_tokens``, under
-    the FIFO or the SLO scheduler; the other fields belong to layers not
-    ported yet (``_SERVE_NOT_PORTED``) and must keep their defaults."""
+    the FIFO or the SLO scheduler, on one card or tensor-parallel over
+    ``mesh_model`` cards; ``inbox`` belongs to the fleet, not ported yet
+    (``_SERVE_NOT_PORTED``), and must keep its default."""
 
     # Decode batch width: concurrent requests in flight.
     num_slots: int = 8
@@ -188,8 +189,15 @@ class ServeConfig:
     # quarantined (non-finite logits: free the slot, re-prefill prompt +
     # good tokens) before the run halts with SlotRetryExhausted (exit 2).
     slot_retries: int = 2
-    # --- layers not ported yet (ROADMAP.md queue A) -----------------
+    # Tensor-parallel serving: shard the replica itself over N cards
+    # (serve/tp_replica.py): attention heads, MLP width and the cache's
+    # head axis cut over N, token-identical to one card. The engine's
+    # own group, deliberately not --mesh.model (the train mesh flags keep
+    # their pure-data contract under mode=serve). N must divide n_heads
+    # and n_kv_heads, and the vocabulary unless --shard-vocab true pads
+    # it (serve/run.py checks both). 1 = the one-card engine.
     mesh_model: int = 1
+    # --- the fleet, not ported yet (ROADMAP.md A6) -------------------
     inbox: str = ""
 
     def validate(self) -> None:
@@ -238,6 +246,10 @@ class ServeConfig:
         if self.spec_kgram < 1:
             raise ValueError(
                 f"serve.spec_kgram must be >= 1, got {self.spec_kgram}")
+        if self.mesh_model < 1:
+            raise ValueError(
+                f"serve.mesh_model must be >= 1, "
+                f"got {self.mesh_model}")
         self._validate_paging()
         self._validate_slo()
         unported = [name for name, default in _SERVE_NOT_PORTED.items()
@@ -245,8 +257,9 @@ class ServeConfig:
         if unported:
             raise NotImplementedError(
                 f"--serve.{unported[0].replace('_', '-')}="
-                f"{getattr(self, unported[0])!r} is not ported to PyTorch "
-                f"yet (see ROADMAP.md queue A)")
+                f"{getattr(self, unported[0])!r} (the fleet's replica "
+                f"intake) is not ported to PyTorch yet (see ROADMAP.md "
+                f"A6)")
 
     def _validate_slo(self) -> None:
         """The JAX ServeConfig's checks of the SLO scheduler's knobs, with
@@ -333,11 +346,11 @@ class ServeConfig:
                 "— drop one of the flags")
 
 
-# The serve knobs of layers not ported yet (tensor parallelism, the fleet
-# inbox), at their defaults.
+# The serve knobs of layers not ported yet (the fleet inbox), at their
+# defaults.
 _SERVE_NOT_PORTED = {
     f.name: f.default for f in dataclasses.fields(ServeConfig)
-    if f.name in ("mesh_model", "inbox")}
+    if f.name in ("inbox",)}
 
 
 @dataclasses.dataclass
@@ -417,8 +430,9 @@ class TrainConfig:
     bert_mlm, gpt_lm or moe_lm on one device, or on ``mesh.data`` x
     ``mesh.seq`` x ``mesh.model`` x ``mesh.expert`` devices), evaluating
     or continuing a prompt from a checkpoint (``mode="eval"``,
-    ``"generate"``), or serving gpt_lm or moe_lm on one device
-    (``mode="serve"``)."""
+    ``"generate"``, gpt_lm also over ``mesh.model`` devices), or serving
+    gpt_lm or moe_lm on one device, gpt_lm also tensor-parallel over
+    ``serve.mesh_model`` devices (``mode="serve"``)."""
 
     # --- model -----------------------------------------------------------
     # mnist_cnn (the reference's CNN, the JAX default) | resnet20 |
@@ -938,8 +952,20 @@ class TrainConfig:
                 "its OWN tensor-parallel mesh — use "
                 "--serve.mesh-model N to shard the replica")
         if serving and (self.mesh.seq != 1 or self.mesh.data not in (-1, 1)):
-            raise todo("--mode serve over a --mesh.* of more than one "
-                       "process")
+            raise NotImplementedError(
+                "--mode serve over a --mesh.* of more than one process is "
+                "not ported to PyTorch yet (see ROADMAP.md A6); "
+                "--serve.mesh-model N serves one replica over N cards")
+        if self.serve.mesh_model > 1 and not serving:
+            raise ValueError(
+                "serve.mesh_model shards the mode=serve engine's "
+                "mesh; drop the flag or add --mode serve")
+        moe = self.moe_experts > 0 or self.model == "moe_lm"
+        if serving and self.serve.mesh_model > 1 and moe:
+            raise NotImplementedError(
+                "MoE under --serve.mesh-model (routing under TP's partial "
+                "sums tips near-ties; it needs its own gates) is not "
+                "ported to PyTorch yet (see ROADMAP.md A6)")
         self._validate_fire()
         if self.checkpoint_backend not in ("native", "orbax"):
             raise ValueError(f"unknown checkpoint_backend "
@@ -972,10 +998,12 @@ class TrainConfig:
                 raise ValueError(
                     "mode=generate requires mesh.seq == 1 (single-"
                     "token decode steps can't be seq-sharded)")
-            if self.mesh.model != 1 or self.mesh.expert != 1:
-                raise todo("--mode generate over --mesh.model or "
-                           "--mesh.expert > 1 (the decode branch runs on "
-                           "one process; A6)")
+            if moe and (self.mesh.model != 1 or self.mesh.expert != 1):
+                raise NotImplementedError(
+                    "--mode generate of a MoE model over --mesh.model or "
+                    "--mesh.expert > 1 (routing under TP's partial sums "
+                    "tips near-ties; it needs its own gates) is not "
+                    "ported to PyTorch yet (see ROADMAP.md A6)")
             if self.num_beams > 1 and (
                     self.gen_temperature > 0 or self.gen_top_k
                     or self.gen_top_p != 1.0):
@@ -1293,7 +1321,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> TrainConfig:
         "causal LM, dense or mixture-of-experts, on one GPU or on "
         "--mesh.data x --mesh.seq x --mesh.model x --mesh.expert GPUs "
         "under torchrun; --mode serve runs a GPT's continuous-batching "
-        "inference on one GPU)",
+        "inference on one GPU, or over N with --serve.mesh-model N)",
         allow_abbrev=False)
     _add_dataclass_args(parser, TrainConfig)
     ns, unknown = parser.parse_known_args(argv)
@@ -1312,3 +1340,25 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> TrainConfig:
                       **fields)
     cfg.validate()
     return cfg
+
+
+def known_flags() -> frozenset:
+    """Every ``--flag`` spelling the CLI parses: the flag namespace of
+    the parent-to-child argv protocol (the supervisor spells its child's
+    flags through :func:`child_flag`)."""
+    parser = argparse.ArgumentParser(add_help=False)
+    _add_dataclass_args(parser, TrainConfig)
+    return frozenset(parser._option_string_actions)
+
+
+def child_flag(path: str) -> str:
+    """The child-argv spelling of a config field: a dotted dataclass path
+    in, ``--flag`` out (``"mesh.data"`` -> ``"--mesh.data"``,
+    ``"checkpoint_dir"`` -> ``"--checkpoint-dir"``). Raises KeyError for
+    a field the CLI does not parse, so a misspelt flag fails where the
+    parent builds it, not as a child's crash loop (JAX's)."""
+    flag = "--" + path.replace("_", "-")
+    if flag not in known_flags():
+        raise KeyError(
+            f"{flag!r} (from {path!r}) is not parsed by config.py")
+    return flag

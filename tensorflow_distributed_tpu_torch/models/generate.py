@@ -15,6 +15,17 @@ each step's top-K its rows are reordered by the beams' parents
 (``index_select``, every leaf of the cache: the scales of an int8 one
 too).
 
+Under tensor parallelism (a model built with ``tp``: JAX's
+``--mode generate`` under ``--mesh.model M``) each rank holds its H/M
+heads' slice of the cache, and the decode branch hands every rank the
+gathered logits over the whole vocabulary: the same tensor on every
+rank (the blocks' outputs are all-reduced, the head's logits
+all-gathered). The picks (greedy, sampled from a generator seeded
+alike on every rank, or beam search's top-K) run on them on every
+rank. Under ``ProcessGroupTP`` the first rank's picks are broadcast as
+a guard: they already agree, but a caller's generator seeded apart on
+one rank would otherwise split the group's tokens silently.
+
 The JAX module compiles one program per (model, N, sampler knobs) and
 counts the hits and misses of that compile cache (``lookup_program``,
 ``compile_cache_stats``). The port runs eagerly and has no compile
@@ -45,7 +56,8 @@ def prefill_cache(model, prompt: torch.Tensor, positions=None
     B, P = prompt.shape
     if P > model.cfg.max_len:
         raise ValueError(f"prompt {P} > max_len {model.cfg.max_len}")
-    cache = KVCache.zeros(model.cfg, B, prompt.device)
+    cache = KVCache.zeros(model.cfg, B, prompt.device,
+                          getattr(model, "tp", None))
     if positions is None:
         positions = torch.arange(P, device=prompt.device)[None]
     pos = torch.as_tensor(positions, dtype=torch.long, device=prompt.device)
@@ -67,6 +79,13 @@ def decode_token(model, cache: KVCache, tok: torch.Tensor, positions,
     logits = model(tok[:, None], decode=True, positions=pos[:, None],
                    cache=cache, page_table=page_table)
     return logits[:, -1, :], cache
+
+
+def _chief(model, t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the model group's first rank holds it (``broadcast_``; a
+    no-op without TP and for ranks stacked in one process)."""
+    tp = getattr(model, "tp", None)
+    return t if tp is None else tp.broadcast_(t.contiguous())
 
 
 def _filter_logits(logits: torch.Tensor, top_k: int, top_p: float
@@ -117,10 +136,11 @@ def generate(model, prompt: torch.Tensor, max_new_tokens: int, *,
 
     def pick(last):
         if temperature == 0.0:
-            return last.argmax(dim=-1)
+            return _chief(model, last.argmax(dim=-1))
         probs = torch.softmax(
             _filter_logits(last / temperature, top_k, top_p), dim=-1)
-        return torch.multinomial(probs, 1, generator=generator)[:, 0]
+        return _chief(model, torch.multinomial(probs, 1,
+                                               generator=generator)[:, 0])
 
     logits, cache = prefill_cache(model, prompt)
     toks = [pick(logits[:, -1, :])]
@@ -171,6 +191,7 @@ def beam_search(model, prompt: torch.Tensor, max_new_tokens: int, *,
     cache = cache.map(lambda c: c.index_select(0, rows))
     logp0 = torch.log_softmax(logits[:, -1, :].float(), dim=-1)  # [B, V]
     scores, tok0 = torch.topk(logp0, K, dim=-1)                  # [B, K]
+    scores, tok0 = _chief(model, scores), _chief(model, tok0)
     alive = (tok0 != eos_id if eos_id is not None
              else torch.ones((B, K), dtype=torch.bool, device=dev))
     frozen = None
@@ -187,6 +208,7 @@ def beam_search(model, prompt: torch.Tensor, max_new_tokens: int, *,
             logp = torch.where(alive[..., None], logp, frozen)
         cand = (scores[..., None] + logp).reshape(B, K * V)
         scores, flat = torch.topk(cand, K, dim=-1)               # [B, K]
+        scores, flat = _chief(model, scores), _chief(model, flat)
         beam = flat // V
         new_tok = flat % V
         gather = (torch.arange(B, device=dev)[:, None] * K

@@ -75,7 +75,13 @@ a multiple of M rows; a rank looks up its own rows, zero elsewhere, and
 the ranks' lookups are summed) and the tied logits vocab-sharded. Sharded
 logits (and, with ``features_only``, a sharded head) come out as a
 ``VocabShards`` for the vocab-parallel losses; the full [B, L, V] is
-never gathered. The decode branch runs on one process.
+never gathered in training. The decode branch runs under ``tp`` too
+(JAX's ``--serve.mesh-model`` and ``--mode generate`` under
+``--mesh.model``): each rank writes and attends its H/M query heads'
+nk/M K/V heads in its slice of the cache's head axis (``KVCache.zeros``
+sizes the cache at this process's ranks' heads; ``head_part``), ``out``
+is row-parallel, and the head's vocab-parallel logits are gathered to
+the whole vocabulary (``full_logits``).
 
 With ``moe_experts`` E > 0 every block's MLP is a top-k mixture of
 experts (``models/moe.py``: ``layer_i.moe_mlp`` with ``gate``, ``wi``
@@ -113,7 +119,7 @@ from tensorflow_distributed_tpu_torch.parallel.ring_attention import (
 from tensorflow_distributed_tpu_torch.parallel.sharding import (
     shard_state_dict)
 from tensorflow_distributed_tpu_torch.parallel.tensor_parallel import (
-    VocabShards, local_ranks)
+    VocabShards, full_logits, head_part, local_ranks)
 
 LN_EPS = 1e-6  # flax nn.LayerNorm and nn.RMSNorm default
 INIT_STD = 0.02  # the JAX _dense_init (BERT-style normal)
@@ -256,7 +262,9 @@ class KVCache:
     (``kv_page_size > 0``) holds a pool instead: [kv_num_pages,
     kv_page_size, nk, Dh] (scales [.., .., nk]), shared by every row
     through the forward's ``page_table``. ``decode=True`` forwards write
-    into it in place."""
+    into it in place. Under tensor parallelism (``tp``) the head axis
+    holds this process's ranks' nk/M K/V heads each, side by side
+    (``head_part``): 1/M of the whole cache a rank."""
 
     k: List[torch.Tensor]
     v: List[torch.Tensor]
@@ -265,12 +273,15 @@ class KVCache:
 
     @classmethod
     def zeros(cls, cfg: TransformerConfig, batch: int,
-              device=None) -> "KVCache":
+              device=None, tp=None) -> "KVCache":
         """A zeroed cache for ``batch`` rows, or for a paged config the
-        zeroed pool (``batch`` is then unused)."""
+        zeroed pool (``batch`` is then unused); with ``tp`` (the model's
+        transport) at this process's ranks' heads."""
         lead = ((cfg.kv_num_pages, cfg.kv_page_size) if cfg.kv_page_size
                 else (batch, cfg.max_len))
         nk, dh = kv_heads(cfg), cfg.d_model // cfg.n_heads
+        if tp is not None:
+            nk = nk // tp.size * local_ranks(tp)
         quant = cfg.kv_cache_quant == "int8"
 
         def layers(shape, dtype):
@@ -503,10 +514,7 @@ class SelfAttention(nn.Module):
         ``rope``: RoPE's (cos, sin) at ``positions`` (``rope_angles``)
         when it is on."""
         if self.tp is not None:
-            if kv is not None:
-                raise ValueError("the decode branch runs on one process "
-                                 "(mesh.model must be 1)")
-            return self._forward_tp(x, rope)
+            return self._forward_tp(x, rope, positions, kv, page_table)
         cfg = self.cfg
         B, L, _ = x.shape
         h, dh, nk = cfg.n_heads, cfg.d_model // cfg.n_heads, kv_heads(cfg)
@@ -542,38 +550,59 @@ class SelfAttention(nn.Module):
         return attention(q, k, v, causal=self.cfg.causal,
                          window=self.cfg.attn_window)
 
-    def _forward_tp(self, x: torch.Tensor, rope) -> torch.Tensor:
-        """The training path on this process's model ranks, each with
-        its H/M query heads at [B, L, H/M, Dh] through ``attention()``
-        (or the ring). Under GQA the whole K/V projection runs on the
+    def _forward_tp(self, x: torch.Tensor, rope, positions=None, kv=None,
+                    page_table=None) -> torch.Tensor:
+        """``forward`` on this process's model ranks, each with its H/M
+        query heads; ``out`` is row-parallel, its bias added after the
+        reduce. Under GQA the whole K/V projection runs on the
         replicated stream and ``copy_to_tp`` carries its output to the
-        ranks, each taking the K/V heads its query heads read, as JAX's
-        replicated ``kv`` kernel and ``jnp.repeat``."""
+        ranks (JAX's replicated ``kv`` kernel). Training: each rank
+        takes the K/V heads its query heads read, widened to [B, L,
+        H/M, Dh] as ``jnp.repeat``, and attends through ``attention()``
+        (or the ring). Decode (``kv`` given): each rank keeps its nk/M
+        K/V heads (M divides nk) and writes and attends them in its
+        slice of the cache's head axis (``head_part``: JAX's
+        head-sharded ``shard_cache`` layout) through the same
+        ``_cached_attend`` as one process."""
         cfg, tp = self.cfg, self.tp
         B, L, _ = x.shape
         h, dh, nk = cfg.n_heads, cfg.d_model // cfg.n_heads, kv_heads(cfg)
-        hl, dtype = h // tp.size, cfg.compute_dtype
+        if kv is not None and nk % tp.size:
+            raise ValueError(
+                f"the model axis {tp.size} must divide n_kv_heads {nk}: "
+                f"the decode cache's head axis is cut over it")
+        hl, nkl, dtype = h // tp.size, nk // tp.size, cfg.compute_dtype
         xs = tp.copy_to_tp(x)
         if nk == h:
             qkv = [_linear(xi, w, b, dtype).view(B, L, 3, hl, dh).unbind(2)
                    for xi, w, b in zip(xs, tp.split(self.qkv.weight),
                                        tp.split(self.qkv.bias))]
         else:
-            kv = _dense(x, self.kv, dtype).view(B, L, 2, nk, dh)
+            kvs = _dense(x, self.kv, dtype).view(B, L, 2, nk, dh)
             qkv = []
             for xi, w, b, kvi, m in zip(xs, tp.split(self.q.weight),
                                         tp.split(self.q.bias),
-                                        tp.copy_to_tp(kv), tp.indices):
-                heads = torch.arange(m * hl, (m + 1) * hl,
-                                     device=x.device) // (h // nk)
+                                        tp.copy_to_tp(kvs), tp.indices):
+                heads = (torch.arange(m * hl, (m + 1) * hl,
+                                      device=x.device) // (h // nk)
+                         if kv is None else
+                         torch.arange(m * nkl, (m + 1) * nkl,
+                                      device=x.device))
                 k, v = kvi.index_select(3, heads).unbind(2)
                 qkv.append((_linear(xi, w, b, dtype).view(B, L, hl, dh),
                             k, v))
         parts = []
-        for (q, k, v), w in zip(qkv, tp.split(self.out.weight)):
+        for i, ((q, k, v), w) in enumerate(zip(qkv,
+                                               tp.split(self.out.weight))):
             if rope is not None:
                 q, k = _rotate(q, rope), _rotate(k, rope)
-            out = self._attend(q, k, v)
+            if kv is None:
+                out = self._attend(q, k, v)
+            else:
+                mine = tuple(None if t is None else head_part(t, tp, i)
+                             for t in kv)
+                out = _cached_attend(q, k, v, positions, mine, cfg,
+                                     page_table)
             parts.append(_linear(out.reshape(B, L, hl * dh), w, None, dtype))
         return tp.reduce_from_tp(parts) + self.out.bias.to(dtype)
 
@@ -974,11 +1003,11 @@ class TransformerLM(nn.Module):
                 raise ValueError("decode=True requires positions")
             if cache is None:
                 raise ValueError("decode=True requires a KVCache")
-            if _is_ring(self.ring) or self.tp is not None or \
-                    self.ep is not None:
-                raise ValueError("decode=True runs on one process "
-                                 "(mesh.seq, mesh.model and mesh.expert "
-                                 "must be 1)")
+            if _is_ring(self.ring) or self.ep is not None:
+                raise ValueError(
+                    "decode=True runs without a ring or an expert group "
+                    "(mesh.seq and mesh.expert must be 1; a MoE model "
+                    "under tensor-parallel decode is ROADMAP.md A6)")
         elif cache is not None:
             raise ValueError("a KVCache is read only with decode=True")
         shards, start = ring_block(self.ring, L)
@@ -1014,6 +1043,10 @@ class TransformerLM(nn.Module):
                 x = block(x, train, generator, positions, kv, rope,
                           page_table, moe_aux)
         x = _norm(x, self.ln_f).to(cfg.compute_dtype)
+        if self.tp is not None and decode:
+            # Inference reads the whole vocabulary: the vocab-parallel
+            # logits gathered, shard_vocab's padding columns dropped.
+            return full_logits(self._head_tp(x, False))
         if self.tp is not None:
             return self._head_tp(x, features_only)
         if features_only:
@@ -1093,13 +1126,15 @@ class CausalLM(TransformerLM):
 
 
 def gpt_lm(size: str = "small", ring=None, tp=None, ep=None,
-           **overrides) -> CausalLM:
+           vocab_shards: Optional[int] = None, **overrides) -> CausalLM:
     """GPT-style decoder-only LM. ``size``: the GPT-2 ladder
     (GPT2_SIZES) or "tiny" (test scale); ``ring``: the seq group's ring
     (``ProcessGroupRing``) for sequence parallelism, or None; ``tp``:
     the model axis's transport for tensor parallelism, or None; ``ep``:
     the expert group's transport of a MoE config (default ``tp``);
-    ``overrides`` are TransformerConfig fields."""
+    ``vocab_shards``: ``shard_vocab``'s padding multiple (default the
+    transport's size; a checkpoint's own model width where it was
+    written wider); ``overrides`` are TransformerConfig fields."""
     overrides["causal"] = True
     if size in GPT2_SIZES:
         cfg = gpt2_small_config(**{**GPT2_SIZES[size], **overrides})
@@ -1108,17 +1143,17 @@ def gpt_lm(size: str = "small", ring=None, tp=None, ep=None,
     else:
         raise ValueError(f"gpt_lm size {size!r}; have "
                          f"({', '.join(GPT2_SIZES)}, tiny)")
-    return CausalLM(cfg, ring, tp, ep=ep)
+    return CausalLM(cfg, ring, tp, vocab_shards=vocab_shards, ep=ep)
 
 
 def moe_lm(size: str = "small", ring=None, tp=None, ep=None,
-           **overrides) -> CausalLM:
+           vocab_shards: Optional[int] = None, **overrides) -> CausalLM:
     """``gpt_lm`` with every MLP a top-k MoE (JAX's ``moe_lm``):
     ``moe_experts`` defaults to ``MOE_DEFAULT_EXPERTS``."""
     overrides.setdefault("moe_experts", MOE_DEFAULT_EXPERTS)
     if overrides["moe_experts"] <= 0:
         raise ValueError("moe_lm needs moe_experts > 0")
-    return gpt_lm(size, ring, tp, ep, **overrides)
+    return gpt_lm(size, ring, tp, ep, vocab_shards, **overrides)
 
 
 def bert_base_mlm(size: str = "base", ring=None, tp=None, ep=None,

@@ -29,6 +29,14 @@ Either way a sharded activation is a list of this process's ranks'
 parts (one under ``ProcessGroupTP``, M under ``StackedTP``), and
 ``split`` gives a sharded parameter's parts. No collective runs inside
 a hand kernel: the kernels see one rank's shapes.
+
+Inference (the decode branch, ``models/generate.py`` and the serving
+engines) adds two helpers: ``full_logits`` gathers vocab-parallel
+logits to the whole vocabulary (an all-gather under ``ProcessGroupTP``,
+a concatenation under ``StackedTP``), and ``head_part`` gives a rank
+its slice of a decode-cache leaf, whose head axis (dim 2) holds this
+process's ranks' K/V heads side by side. ``broadcast_`` hands every
+rank the first rank's value of a host decision (a sampled token).
 """
 
 from __future__ import annotations
@@ -114,6 +122,15 @@ class ProcessGroupTP:
         dist.all_gather(out, part, group=self.group)
         return out
 
+    @torch.no_grad()
+    def broadcast_(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` overwritten in place with the group's first rank's value
+        (and returned)."""
+        dist.broadcast(t, dist.get_global_rank(self.group or
+                                               dist.group.WORLD, 0),
+                       group=self.group)
+        return t
+
 
 class StackedTP:
     """All M model ranks in one process: a sharded parameter is [M, ...]
@@ -151,10 +168,32 @@ class StackedTP:
     def gather(self, parts: Parts) -> Parts:
         return list(parts)
 
+    def broadcast_(self, t: torch.Tensor) -> torch.Tensor:
+        return t  # one process: every rank already holds its value
+
 
 def local_ranks(tp) -> int:
     """How many model ranks this process holds (1 without TP)."""
     return 1 if tp is None else len(tp.indices)
+
+
+def head_part(leaf: torch.Tensor, tp, i: int) -> torch.Tensor:
+    """This process's ``i``-th rank's slice (a view) of a decode-cache
+    leaf whose dim 2 is the head axis ([rows, len, heads, Dh] K/V, or
+    [rows, len, heads] int8 scales; a paged pool's [pages, page_size,
+    ...] alike): the leaf holds its ranks' heads side by side, JAX's
+    ``shard_cache`` layout (``P(None, None, "model")``) in one
+    process."""
+    n = leaf.shape[2] // local_ranks(tp)
+    return leaf.narrow(2, i * n, n)
+
+
+def full_logits(out) -> torch.Tensor:
+    """Logits over the whole vocabulary: a ``VocabShards`` gathered and
+    cut to the real ids (``shard_vocab``'s padding dropped), anything
+    else (whole logits) as it is. For inference only: the training
+    losses never build the full [B, L, V]."""
+    return out.gathered() if isinstance(out, VocabShards) else out
 
 
 @dataclasses.dataclass

@@ -36,9 +36,27 @@ in the same single device-to-host copy as the tokens
 under the decode watchdog when one is given, with a plan's
 ``decode_stall`` inside the watched region; ``poison_slot`` NaN-fills a
 slot's cache row for the ``slot_nan`` drill; ``swap_params`` copies new
-weights into the serving tensors in place between steps. Tensor
-parallelism and the live speculation-depth change are not ported yet
-(ROADMAP.md queue A).
+weights into the serving tensors in place between steps. The live
+speculation-depth change is not ported yet (ROADMAP.md A8).
+
+Tensor parallelism (``--serve.mesh-model N``; JAX's ``tp_width``): the
+model is built with a ``tp`` transport, each rank holding H/N heads and
+d_ff/N columns and its heads' slice of the cache (``KVCache.zeros`` at
+the rank's heads), and the decode branch gathers the logits to the
+whole vocabulary. ``cache_bytes_per_slot`` is per device: the whole
+cache's divided by N. Every device op of the engine is a
+``@replicated`` method taking host arguments: on the chief of a
+multi-process replica (an engine with a ``channel``,
+``serve/tp_replica.py``) the call is sent to the worker processes
+before it runs, and each worker runs the same method on its shard.
+Host decisions (slots, pages, tokens, quarantines) are the chief's:
+the workers keep no bookkeeping of their own, the chief sends the page
+tables it decided with the step and verify calls, and only the chief
+reads a step's packed tokens and finiteness flags (a worker drops its
+own). They are already the group's: every block's attention and MLP
+output is all-reduced (``reduce_from_tp``) and the head's logits are
+all-gathered, so every rank holds the same whole logits, and a NaN on
+any rank's shard of the cache reaches them all.
 
 The paged engine (``serve/paging/engine.py``) subclasses this one (its
 model's ``zero_cache`` is the page pool) and overrides four hooks:
@@ -49,6 +67,7 @@ read), ``_warm_prefills`` and ``_warm_drills``.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Mapping, Optional, Sequence, Tuple
 
@@ -58,6 +77,8 @@ import torch
 from tensorflow_distributed_tpu_torch.models.generate import (
     decode_token, prefill_cache)
 from tensorflow_distributed_tpu_torch.models.transformer import KVCache
+from tensorflow_distributed_tpu_torch.parallel.tensor_parallel import (
+    local_ranks)
 from tensorflow_distributed_tpu_torch.serve.buckets import (
     default_buckets, pick_bucket)
 from tensorflow_distributed_tpu_torch.serve.speculate import accept_length
@@ -83,9 +104,25 @@ def _host(packed: torch.Tensor, stream) -> np.ndarray:
 def zero_cache(model, num_slots: int) -> KVCache:
     """A zeroed [num_slots, max_len, nk, Dh] decode cache for ``model``
     (with its scale leaves under int8; the pool for a paged config), on
-    its device."""
+    its device; under tensor parallelism at this process's ranks'
+    heads."""
     device = next(model.parameters()).device
-    return KVCache.zeros(model.cfg, num_slots, device)
+    return KVCache.zeros(model.cfg, num_slots, device,
+                         getattr(model, "tp", None))
+
+
+def replicated(fn):
+    """A device op of the engine (host arguments in): on a tensor-parallel
+    chief, whose engine has a ``channel``, the call is sent to the
+    workers before it runs here (``serve/tp_replica.py``). A replicated
+    op calls no other replicated op, so a worker runs each call once."""
+    @functools.wraps(fn)
+    def run(self, *args):
+        if self.channel is not None:
+            self.channel.send(fn.__name__, args)
+        return fn(self, *args)
+
+    return run
 
 
 class SlotDecodeEngine:
@@ -136,11 +173,23 @@ class SlotDecodeEngine:
         # Slots whose fetched flag said non-finite (the device's own
         # detection, counted where take_bad_slots hands them out).
         self.flagged_slots = 0
+        # A tensor-parallel chief's link to its workers (serve/
+        # tp_replica.py sets it); None on one process and on a worker.
+        self.channel = None
+
+    @property
+    def tp_width(self) -> int:
+        """The model's tensor-parallel width (1 without ``tp``)."""
+        tp = getattr(self.model, "tp", None)
+        return 1 if tp is None else tp.size
 
     def cache_bytes_per_slot(self) -> int:
-        """Device memory the decode cache spends per slot (the scale
-        leaves of an int8 cache included)."""
-        return self.cache.nbytes() // self.num_slots
+        """Device memory the decode cache spends per slot on ONE device
+        (the scale leaves of an int8 cache included): under tensor
+        parallelism every leaf is cut on its head axis, so a device
+        holds 1/tp_width of the whole cache's bytes, exactly."""
+        return self.cache.nbytes() // (
+            self.num_slots * local_ranks(getattr(self.model, "tp", None)))
 
     @property
     def prefill_compiles(self) -> int:
@@ -158,6 +207,12 @@ class SlotDecodeEngine:
         first token. Host bookkeeping is untouched, so a warmed engine
         equals a fresh one. A ``speculator``'s own ``warmup`` (a draft
         model's mirror) runs after."""
+        self._warm_device()
+        if speculator is not None:
+            speculator.warmup()
+
+    @replicated
+    def _warm_device(self) -> None:
         self._warm_prefills()
         self._pack(self._dispatch_step(self._h2d(self.tok),
                                        self._h2d(self.pos)))
@@ -169,8 +224,6 @@ class SlotDecodeEngine:
         self.cache.zero_()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        if speculator is not None:
-            speculator.warmup()
 
     def _warm_prefills(self) -> None:
         """Each bucket's prefill and a row insert into slot 0."""
@@ -221,12 +274,23 @@ class SlotDecodeEngine:
         padded = np.zeros((1, bucket), np.int64)
         padded[0, :len(tail)] = tail
         self._buckets_used.add(bucket)
-        logits = self._prefill_forward(self._h2d(padded), start, slot)
+        logits = self._prefill_device(padded, start, slot,
+                                      self._slot_table(slot))
         # The time-to-first-token point: one scalar per admission.
         return int(logits[0, len(tail) - 1].argmax()), bucket
 
-    def _prefill_forward(self, padded: torch.Tensor, start: int, slot: int
-                         ) -> torch.Tensor:
+    def _slot_table(self, slot: int) -> Optional[np.ndarray]:
+        """The page table row a prefill into ``slot`` writes through
+        (the paged engine's); None for the dense cache."""
+        return None
+
+    @replicated
+    def _prefill_device(self, padded: np.ndarray, start: int, slot: int,
+                        table: Optional[np.ndarray]) -> torch.Tensor:
+        return self._prefill_forward(self._h2d(padded), start, slot, table)
+
+    def _prefill_forward(self, padded: torch.Tensor, start: int, slot: int,
+                         table: Optional[np.ndarray]) -> torch.Tensor:
         """A fresh [1, max_len] row prefilled from position 0, replacing
         the slot's row wholesale (the dense engine admits at 0 only)."""
         logits, row = prefill_cache(self.model, padded)
@@ -253,6 +317,29 @@ class SlotDecodeEngine:
         engine's); None for the dense cache."""
         return None
 
+    def _tables_arg(self) -> Optional[np.ndarray]:
+        """The page tables a step or a verify sends to the workers when
+        they changed since the last upload (the paged engine's); None
+        otherwise."""
+        return None
+
+    @replicated
+    def _step_device(self, tok: np.ndarray, pos: np.ndarray,
+                     tables: Optional[np.ndarray]) -> torch.Tensor:
+        self._set_tables(tables)
+        return self._pack(self._dispatch_step(self._h2d(tok),
+                                              self._h2d(pos)))
+
+    @replicated
+    def _verify_device(self, toks: np.ndarray, start: np.ndarray,
+                       tables: Optional[np.ndarray]) -> torch.Tensor:
+        self._set_tables(tables)
+        return self._pack(self._dispatch_verify(self._h2d(toks),
+                                                self._h2d(start)))
+
+    def _set_tables(self, tables: Optional[np.ndarray]) -> None:
+        """Adopt the chief's page tables (the paged engine's)."""
+
     def _dispatch_step(self, tok: torch.Tensor, pos: torch.Tensor
                        ) -> torch.Tensor:
         """One decode step over every slot; the last-position logits
@@ -269,11 +356,11 @@ class SlotDecodeEngine:
             raise RuntimeError(
                 "an active slot is at max_len: the scheduler admitted a "
                 "request that cannot fit (fits() is the guard)")
-        last = self._dispatch_step(self._h2d(self.tok), self._h2d(self.pos))
+        packed = self._step_device(self.tok, self.pos, self._tables_arg())
         # The engine's output: one [num_slots, 2] fetch a step (the
         # tokens and the finiteness flags) drives EOS/budget termination,
         # streaming and NaN containment.
-        nxt, self._last_ok = self._fetch(self._pack(last))
+        nxt, self._last_ok = self._fetch(packed)
         act = self.active
         self.tok[act] = nxt[act]
         self.pos[act] += 1
@@ -414,11 +501,11 @@ class SlotDecodeEngine:
             toks_in[s] = window
             start[s] = self.pos[s] - k
             fallback.append(s)
-        logits = self._dispatch_verify(self._h2d(toks_in), self._h2d(start))
+        packed = self._verify_device(toks_in, start, self._tables_arg())
         # The engine's output: one [num_slots, k + 2] fetch a dispatch
         # (the chain and the finiteness flags) drives acceptance,
         # streaming and NaN containment.
-        nxt, self._last_ok = self._fetch(self._pack(logits))
+        nxt, self._last_ok = self._fetch(packed)
         acc = np.zeros((self.num_slots,), np.int32)
         for s in range(self.num_slots):
             if not self.active[s]:
@@ -479,8 +566,13 @@ class SlotDecodeEngine:
         cache row on the device (K and V; under int8 only the f32 scales
         are float, and a NaN scale makes the dequantized K and V NaN), so
         the next step's logits for that slot are non-finite through the
-        real attention, not a spoofed flag."""
+        real attention, not a spoofed flag. Under tensor parallelism
+        every rank poisons its heads of the row."""
         self._check_slot(slot)
+        self._poison_row(slot)
+
+    @replicated
+    def _poison_row(self, slot: int) -> None:
         for t in self.cache.leaves():
             if t.is_floating_point():
                 t[slot].fill_(float("nan"))
@@ -520,6 +612,21 @@ class SlotDecodeEngine:
         for name, old in live.items():
             old.copy_(new_params[name])
         self.swaps += 1
+
+    def tell(self, name: str, *args) -> None:
+        """Send the workers of a tensor-parallel chief one call that runs
+        on them alone (a no-op on one process)."""
+        if self.channel is not None:
+            self.channel.send(name, args)
+
+    def _reload(self, ckpt_dir: str, step: int) -> None:
+        """A worker's half of a live weight swap: its ranks' slices of
+        the checkpoint at ``step`` (the step its chief picked), swapped
+        in."""
+        from tensorflow_distributed_tpu_torch.train.checkpoint import (
+            restore_params)
+
+        self.swap_params(restore_params(ckpt_dir, self.model, step)[0])
 
     # -- the JAX engine's live-depth surface, not ported yet ------------
 

@@ -39,6 +39,14 @@ pages. JAX's ``prefix_hit`` and ``page_evict`` observe events are
 counters in ``paging_stats()`` here. ``swap_params`` is the dense
 engine's: the model shares the caller's tensors, and the swap copies
 into them in place.
+
+Under tensor parallelism the pool's head axis is cut like the dense
+cache's (``KVCache.zeros`` at the rank's heads), so ``page_bytes`` is
+per device, and ``page_bytes_estimate`` takes the width. The pool, the
+radix tree and the tables are the chief's: it sends the tables it
+decided with each step and verify (``_tables_arg``) and each prefill's
+table row, and the page copies and fills run on every rank
+(``@replicated``).
 """
 
 from __future__ import annotations
@@ -49,8 +57,11 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from tensorflow_distributed_tpu_torch.parallel.tensor_parallel import (
+    local_ranks)
 from tensorflow_distributed_tpu_torch.serve.buckets import pick_bucket
-from tensorflow_distributed_tpu_torch.serve.engine import SlotDecodeEngine
+from tensorflow_distributed_tpu_torch.serve.engine import (
+    SlotDecodeEngine, replicated)
 from tensorflow_distributed_tpu_torch.serve.paging.pool import (
     GARBAGE_PAGE, PagePool)
 from tensorflow_distributed_tpu_torch.serve.paging.radix import RadixCache
@@ -63,7 +74,8 @@ def _paged_model(model, page_size: int, num_pages: int):
     pcfg = dataclasses.replace(model.cfg, kv_page_size=int(page_size),
                                kv_num_pages=int(num_pages))
     with torch.device("meta"):
-        paged = type(model)(pcfg)
+        paged = type(model)(pcfg, model.ring, model.tp,
+                            vocab_shards=model.vocab_shards, ep=model.ep)
     paged.load_state_dict(model.state_dict(), assign=True)
     return paged.eval()
 
@@ -137,24 +149,40 @@ class PagedSlotEngine(SlotDecodeEngine):
             self._tables_dev = self._h2d(self.tables).long()
         return self._tables_dev
 
-    def _prefill_forward(self, padded: torch.Tensor, start: int, slot: int
-                         ) -> torch.Tensor:
+    def _tables_arg(self) -> Optional[np.ndarray]:
+        if self.channel is None or self._tables_dev is not None:
+            return None
+        return self.tables.copy()
+
+    def _set_tables(self, tables: Optional[np.ndarray]) -> None:
+        if tables is not None:
+            self.tables[:] = tables
+            self._tables_dev = None
+
+    def _slot_table(self, slot: int) -> np.ndarray:
+        return self.tables[slot:slot + 1].copy()
+
+    def _prefill_forward(self, padded: torch.Tensor, start: int, slot: int,
+                         table: np.ndarray) -> torch.Tensor:
         """The tail at positions ``start ..`` written through the slot's
-        page table into the pool (the scatter is the insert); cached
-        pages to its left are attended, never recomputed."""
+        page table row ``table`` into the pool (the scatter is the
+        insert); cached pages to its left are attended, never
+        recomputed."""
         positions = start + torch.arange(padded.shape[1],
                                          device=self.device)[None]
-        table = self._h2d(self.tables[slot:slot + 1])
         return self.model(padded, decode=True, positions=positions,
-                          cache=self.cache, page_table=table)
+                          cache=self.cache, page_table=self._h2d(table))
 
     # -- accounting --------------------------------------------------------
 
     def page_bytes(self) -> int:
         """Device bytes of one page summed over the pool's leaves (the
-        scales of an int8 pool included)."""
+        scales of an int8 pool included) on ONE device: under tensor
+        parallelism every leaf is cut on its head axis, 1/tp_width of
+        the whole page's bytes a device."""
         return sum(t[0].numel() * t.element_size()
-                   for t in self.cache.leaves())
+                   for t in self.cache.leaves()) // local_ranks(
+                       getattr(self.model, "tp", None))
 
     def cache_bytes_per_slot(self) -> int:
         """Worst-case bytes a slot (a full-depth request holds
@@ -245,7 +273,7 @@ class PagedSlotEngine(SlotDecodeEngine):
             li = m // ps
             if self.pool.ref[pages[li]] > 1:
                 dst = self._acquire(1)[0]
-                self.cache.copy_page(int(pages[li]), dst)
+                self._copy_page(int(pages[li]), dst)
                 self.pool.release([pages[li]])
                 pages[li] = dst
                 self.cow_copies += 1
@@ -281,7 +309,7 @@ class PagedSlotEngine(SlotDecodeEngine):
         n = int(self.page_count[slot])
         ids = [int(p) for p in self.tables[slot, :n]]
         if slot in self._poisoned or slot in self._flagged:
-            self._fill_pages(self._private_pages(slot), 0.0, floats_only=False)
+            self._fill(self._private_pages(slot), 0.0, False)
         elif tokens is not None and self.radix is not None and ids:
             written = int(self.pos[slot])
             toks = [int(t) for t in tokens][:written]
@@ -310,6 +338,16 @@ class PagedSlotEngine(SlotDecodeEngine):
         n = int(self.page_count[slot])
         return [int(p) for p in self.tables[slot, :n]
                 if self.pool.ref[p] == 1]
+
+    @replicated
+    def _copy_page(self, src: int, dst: int) -> None:
+        self.cache.copy_page(src, dst)
+
+    @replicated
+    def _fill(self, pages: List[int], value: float,
+              floats_only: bool) -> None:
+        """``_fill_pages`` on every rank."""
+        self._fill_pages(pages, value, floats_only)
 
     @torch.no_grad()
     def _fill_pages(self, pages: List[int], value: float,
@@ -340,7 +378,7 @@ class PagedSlotEngine(SlotDecodeEngine):
             raise ValueError(
                 f"slot_nan: slot {slot} holds no private pages "
                 f"(is it admitted?)")
-        self._fill_pages(priv, float("nan"), floats_only=True)
+        self._fill(priv, float("nan"), True)
         self._poisoned.add(slot)
 
     # -- speculation -------------------------------------------------------
@@ -379,13 +417,13 @@ class PagedSlotEngine(SlotDecodeEngine):
 
 # -- sizing the pool (serve/run.py) -------------------------------------------
 
-def page_bytes_estimate(cfg, page_size: int) -> int:
-    """Bytes one page will take, from the model config alone, so that
-    ``--serve.num-pages`` can be sized before any cache exists: K and V
-    rows in the cache dtype, plus the f32 per-(token, head) scales under
-    int8 (JAX's estimate at tensor-parallel width 1: the port serves on
-    one card). Equals the built engine's
-    :meth:`PagedSlotEngine.page_bytes`."""
+def page_bytes_estimate(cfg, page_size: int, tp: int = 1) -> int:
+    """Bytes one page will take on one device, from the model config
+    alone, so that ``--serve.num-pages`` can be sized before any cache
+    exists: K and V rows in the cache dtype, plus the f32 per-(token,
+    head) scales under int8, divided by the tensor-parallel width ``tp``
+    (the pool's head axis is cut over it). JAX's estimate to the byte;
+    equals the built engine's :meth:`PagedSlotEngine.page_bytes`."""
     nk = cfg.n_kv_heads or cfg.n_heads
     dh = cfg.d_model // cfg.n_heads
     if cfg.kv_cache_quant == "int8":
@@ -393,7 +431,8 @@ def page_bytes_estimate(cfg, page_size: int) -> int:
     else:
         itemsize = torch.empty((), dtype=cfg.compute_dtype).element_size()
         per_tok = 2 * nk * dh * itemsize
-    return int(page_size) * int(cfg.n_layers) * int(per_tok)
+    return int(page_size) * int(cfg.n_layers) * int(per_tok) \
+        // max(1, int(tp))
 
 
 def auto_num_pages(*, num_slots: int, need_pages: int, page_bytes: int,

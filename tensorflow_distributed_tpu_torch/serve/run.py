@@ -39,7 +39,14 @@ clock), ``--resilience.sync-timeout-s`` (the decode watchdog),
 start-up RESUMES: finished requests drop, in-flight ones re-admit as
 continuations, and the plan is bound past its events, signals
 included). A ``reload`` swaps in the newest verifiable checkpoint under
-``--checkpoint-dir``. Such a run prints a ``[serve] fire:`` line. The synthetic workload's ids are drawn below
+``--checkpoint-dir``. Such a run prints a ``[serve] fire:`` line.
+
+``--serve.mesh-model N`` serves one replica over N cards
+(``serve/tp_replica.py``): this process is the chief, which starts N - 1
+worker processes, runs every host decision and writes the journal, the
+summary and the records; JAX's checks (N devices, N dividing n_heads,
+n_kv_heads and the vocabulary unless ``--shard-vocab true``) run first.
+The synthetic workload's ids are drawn below
 ``--synthetic-vocab`` (64 when unset, as in JAX): a full-width run
 passes ``--synthetic-vocab 50257``. Under ``--dataset text`` the model's
 vocabulary is the corpus tokenizer's and a request file's ``text`` key
@@ -50,17 +57,22 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from tensorflow_distributed_tpu_torch.config import TrainConfig
 from tensorflow_distributed_tpu_torch.models.transformer import (
-    cast_dense_weights_)
+    cast_dense_weights_, kv_heads)
+from tensorflow_distributed_tpu_torch.parallel import mesh as mesh_lib
+from tensorflow_distributed_tpu_torch.parallel.mesh import ONE_PROCESS, Mesh
 from tensorflow_distributed_tpu_torch.resilience.faults import (
     FaultPlan, parse_fault_plan)
 from tensorflow_distributed_tpu_torch.resilience.watchdog import Watchdog
 from tensorflow_distributed_tpu_torch.serve import journal as journal_mod
+from tensorflow_distributed_tpu_torch.serve import tp_replica
 from tensorflow_distributed_tpu_torch.serve.buckets import (
     default_buckets, parse_buckets)
 from tensorflow_distributed_tpu_torch.serve.engine import SlotDecodeEngine
@@ -71,7 +83,8 @@ from tensorflow_distributed_tpu_torch.serve.scheduler import (
 from tensorflow_distributed_tpu_torch.serve.speculate import build_speculator
 from tensorflow_distributed_tpu_torch.train import checkpoint as ckpt
 from tensorflow_distributed_tpu_torch.train.loop import (
-    _build_model_and_state, resolve_device)
+    _build_model_and_state, build_model_for, checkpoint_vocab_shards,
+    resolve_device)
 
 
 def _arrivals(serve, n: int, rng) -> List[float]:
@@ -214,9 +227,12 @@ def serve_setup(cfg: TrainConfig, played: Optional[Dict] = None
     ``spec_tokens``, the fault plan as ``engine.fault_plan`` (bound past
     every event on a resume) and the decode watchdog; paged with
     ``--serve.paged``, its pool sized by ``auto_num_pages`` unless
-    ``--serve.num-pages`` pins it). Returns the config with the cache
-    length it was given, the engine and the requests; the engine is None
-    when a resume left nothing to serve."""
+    ``--serve.num-pages`` pins it). With ``--serve.mesh-model N`` the
+    replica's N - 1 workers start here (``serve/tp_replica.py``) and the
+    engine's ``channel`` is the ``Replica``, which the caller closes.
+    Returns the config with the cache length it was given, the engine
+    and the requests; the engine is None when a resume left nothing to
+    serve."""
     cfg.validate()
     device = resolve_device(cfg.device)
     # --serve.kv-dtype is the serve-side spelling of --kv-cache-quant.
@@ -265,14 +281,97 @@ def serve_setup(cfg: TrainConfig, played: Optional[Dict] = None
              else max_prompt)
     buckets = (parse_buckets(cfg.serve.buckets) if cfg.serve.buckets
                else default_buckets(cover, cap=cfg.seq_len))
-    model, state = _build_model_and_state(cfg, device, vocab_size=vocab)
-    vocab = model.cfg.vocab_size
+    model_cfg = build_model_for(cfg, "meta", vocab_size=vocab).cfg
     for r in requests:
         # The embedding would fail on an id outside the table; name it.
-        bad = [int(t) for t in r.prompt if not 0 <= t < vocab]
+        bad = [int(t) for t in r.prompt
+               if not 0 <= t < model_cfg.vocab_size]
         if bad:
             raise ValueError(f"request {r.rid}: prompt ids {bad} outside "
-                             f"the model vocabulary [0, {vocab})")
+                             f"the model vocabulary [0, "
+                             f"{model_cfg.vocab_size})")
+    width = cfg.serve.mesh_model
+    if width == 1:
+        engine = build_engine(cfg, buckets, vocab, need, device=device,
+                              mesh=ONE_PROCESS, plan=plan)
+        return cfg, engine, requests
+    check_tp_serving(cfg, model_cfg, device)
+    mesh, replica = tp_replica.start(width, device, build_engine,
+                                     (cfg, buckets, vocab, need))
+    try:
+        print(f"[serve] tensor-parallel replica: model={width} over "
+              f"{width} device(s) (params + KV cache head-sharded; "
+              f"worker pids {replica.pids})", flush=True)
+        t0 = time.perf_counter()
+        engine = build_engine(cfg, buckets, vocab, need,
+                              device=replica.device, mesh=mesh, plan=plan)
+        replica.start_s["build"] = round(time.perf_counter() - t0, 3)
+    except BaseException:
+        replica.close()
+        raise
+    engine.channel = replica
+    return cfg, engine, requests
+
+
+def check_tp_serving(cfg: TrainConfig, model_cfg, device) -> None:
+    """JAX's checks of ``--serve.mesh-model N`` (``serve/run.py``), with
+    its messages: N devices (cards; on the CPU the ranks are processes),
+    N dividing n_heads and n_kv_heads (the cache's head axis is cut over
+    N), and N dividing the vocabulary (the head is vocab-parallel)
+    unless ``--shard-vocab true`` pads it; under ``--dataset text`` the
+    tokenizer's."""
+    tp = cfg.serve.mesh_model
+    if device.type == "cuda":
+        first, count = device.index or 0, torch.cuda.device_count()
+        if count < tp:
+            raise ValueError(
+                f"--serve.mesh-model {tp} needs {tp} devices, have {count}")
+        if first + tp > count:
+            # The port's own: ranks take cuda:K .. cuda:K+N-1.
+            raise ValueError(
+                f"--serve.mesh-model {tp} on --device {device} needs "
+                f"cuda:{first}..cuda:{first + tp - 1}, have {count} "
+                f"devices")
+    heads, nk = model_cfg.n_heads, kv_heads(model_cfg)
+    if heads % tp or nk % tp:
+        raise ValueError(
+            f"--serve.mesh-model {tp} must divide n_heads {heads} and "
+            f"n_kv_heads {nk}: attention heads and the KV cache's head "
+            f"axis shard over the model axis")
+    vocab = model_cfg.vocab_size
+    if not cfg.shard_vocab and vocab % tp:
+        if cfg.dataset == "text":
+            raise ValueError(
+                f"--serve.mesh-model {tp} must divide the tokenizer "
+                f"vocab {vocab} (the TP head is vocab-parallel); pass "
+                f"--shard-vocab true to pad it")
+        raise ValueError(
+            f"--serve.mesh-model {tp} must divide the vocab {vocab}: "
+            f"the TP head is vocab-parallel. Pass --shard-vocab true "
+            f"(pads the table to a multiple of the model axis; the "
+            f"checkpoint must be trained with the same flag) or pick a "
+            f"width that divides")
+
+
+def build_engine(cfg: TrainConfig, buckets, vocab: int, need: int, *,
+                 device: torch.device, mesh: Mesh,
+                 plan: Optional[FaultPlan] = None) -> SlotDecodeEngine:
+    """The serving engine of ``cfg`` on ``device``: its model on
+    ``mesh``'s model group (a tensor-parallel rank) or whole, with the
+    checkpoint's weights or fresh-init ones, its dense weights held in
+    the compute dtype, then the dense or paged engine (its pool sized
+    for trajectories of ``need`` tokens unless ``--serve.num-pages``
+    pins it). Every rank of a replica runs it with the chief's plan
+    (``cfg`` with its cache length, the ``buckets``, the workload's
+    ``vocab`` and ``need``); the fault ``plan`` and the decode watchdog
+    are the chief's alone."""
+    chief = mesh_lib.is_chief()
+    if device.type == "cuda":
+        # The summary's peak_bytes_by_rank counts from here.
+        torch.cuda.reset_peak_memory_stats(device)
+    model, state = _build_model_and_state(
+        cfg, device, vocab_size=vocab, mesh=mesh,
+        vocab_shards=checkpoint_vocab_shards(cfg))
     if cfg.checkpoint_dir:
         # A local-SGD save serves its replicas' mean, as --mode generate.
         state = (ckpt.restore_averaged(cfg.checkpoint_dir, state)
@@ -282,40 +381,49 @@ def serve_setup(cfg: TrainConfig, played: Optional[Dict] = None
             model.load_state_dict(state.ema)
     del state  # the optimizer's moments are not served
     cast_dense_weights_(model)
+    timeout = cfg.resilience.sync_timeout_s
     fire = dict(spec_tokens=cfg.serve.spec_tokens,
                 fault_plan=plan if plan else None,
-                watchdog=(Watchdog(sync_timeout_s=cfg.resilience.sync_timeout_s)
-                          if cfg.resilience.sync_timeout_s > 0 else None))
+                watchdog=(Watchdog(sync_timeout_s=timeout)
+                          if timeout > 0 and chief else None))
     if not cfg.serve.paged:
-        engine = SlotDecodeEngine(model, cfg.serve.num_slots, buckets=buckets,
-                                  **fire)
-        return cfg, engine, requests
+        return SlotDecodeEngine(model, cfg.serve.num_slots, buckets=buckets,
+                                **fire)
     num_pages = cfg.serve.num_pages
     if not num_pages:
         ps = cfg.serve.page_size
+        # The parameters' bytes on this card (a rank's shards under TP).
         reserved = sum(p.numel() * p.element_size()
                        for p in model.parameters())
         num_pages, rationale = auto_num_pages(
             num_slots=cfg.serve.num_slots, need_pages=-(-need // ps),
-            page_bytes=page_bytes_estimate(model.cfg, ps),
+            page_bytes=page_bytes_estimate(model.cfg, ps,
+                                           cfg.serve.mesh_model),
             budget_bytes=int(cfg.serve.hbm_budget_gb * 2 ** 30),
             reserved_bytes=reserved)
-        for line in rationale:
+        for line in rationale if chief else ():
             print(f"[serve] paged auto-size: {line}", flush=True)
-    engine = PagedSlotEngine(model, cfg.serve.num_slots,
-                             page_size=cfg.serve.page_size,
-                             num_pages=num_pages, radix=cfg.serve.radix,
-                             buckets=buckets, **fire)
-    return cfg, engine, requests
+    return PagedSlotEngine(model, cfg.serve.num_slots,
+                           page_size=cfg.serve.page_size,
+                           num_pages=num_pages, radix=cfg.serve.radix,
+                           buckets=buckets, **fire)
 
 
 def reload_from(cfg: TrainConfig, engine: SlotDecodeEngine):
     """The live weight swap's source for ``--checkpoint-dir``: the newest
     verifiable checkpoint's params, cast and placed as ``engine``
-    serves them (None without a checkpoint dir)."""
+    serves them (None without a checkpoint dir). A tensor-parallel
+    chief picks the step and tells its workers to swap in their slices
+    of the same step."""
     if not cfg.checkpoint_dir:
         return None
-    return lambda: ckpt.restore_params(cfg.checkpoint_dir, engine.model)
+
+    def reload():
+        params, step = ckpt.restore_params(cfg.checkpoint_dir, engine.model)
+        engine.tell("_reload", cfg.checkpoint_dir, step)
+        return params, step
+
+    return reload
 
 
 def serve_run(cfg: TrainConfig) -> Dict:
@@ -338,14 +446,29 @@ def serve_run(cfg: TrainConfig) -> Dict:
         print("[serve] journal resume: every request already complete — "
               "nothing to serve", flush=True)
         return {"requests": 0, "total_new_tokens": 0, "resumed": True}
+    try:
+        return _serve(cfg, engine, requests, resumed)
+    finally:
+        if engine.channel is not None:
+            engine.channel.close()
+            print(f"[serve] tensor-parallel replica stopped: "
+                  f"{json.dumps(engine.channel.stop_s)}", flush=True)
+
+
+def _serve(cfg: TrainConfig, engine: SlotDecodeEngine,
+           requests: List[Request], resumed: bool) -> Dict:
     # The proposer: the k-gram self-draft, or a draft GPT mirroring the
-    # slot cache (serve/speculate.py).
+    # slot cache (serve/speculate.py); a tensor-parallel replica's draft
+    # runs whole on the chief's card, as JAX builds it without a mesh.
     speculator = build_speculator(cfg, engine.model, cfg.seed + 1,
                                   cfg.serve.num_slots, engine.buckets)
     # Every first call (the engine's and a draft's) happens before the
     # clock starts, so the first requests' time to first token pays
     # compute only.
+    t0 = time.perf_counter()
     engine.warmup(speculator)
+    if engine.channel is not None:
+        engine.channel.start_s["warmup"] = round(time.perf_counter() - t0, 3)
     on_token = None
     if cfg.serve.stream:
         def on_token(rid: int, tok: int, done: bool) -> None:
@@ -379,6 +502,20 @@ def serve_run(cfg: TrainConfig) -> Dict:
     summary["tok_ms_mean"] = round(
         float(np.mean([c.tok_ms for c in done])), 4)
     summary["params"] = "checkpoint" if cfg.checkpoint_dir else "fresh-init"
+    if engine.channel is not None:
+        # What the workers' commands cost the chief's host.
+        summary["tp_commands"] = engine.channel.sent
+        summary["tp_command_s"] = round(engine.channel.send_s, 4)
+        # Where the replica's start went (seconds: the workers' spawn and
+        # the group's join, the chief's engine build, the warmup).
+        summary["tp_start_s"] = dict(engine.channel.start_s)
+    if engine.device.type == "cuda":
+        # Every rank's peak of allocated memory (the chief's alone on one
+        # card).
+        summary["peak_bytes_by_rank"] = (
+            engine.channel.peak_bytes(engine.device)
+            if engine.channel is not None
+            else [tp_replica.peak_bytes(engine.device)])
     print(f"[serve] {summary['requests']} requests, "
           f"{summary['total_new_tokens']} tokens in "
           f"{summary['wall_s']}s — "

@@ -661,6 +661,7 @@ class Scheduler:
             "retries": total_retries,
             "swaps": getattr(eng, "swaps", 0),
             "swap_seconds": round(self._swap_seconds, 4),
+            **self._capacity_fields(),
             **self.summary_extra,
         }
         self.summary["tokens_per_sec"] = round(
@@ -689,6 +690,19 @@ class Scheduler:
         if journal is not None:
             journal.flush()
         return done
+
+    def _capacity_fields(self) -> Dict:
+        """The cache's capacity facts, per device (JAX's): a
+        tensor-parallel replica's cache is cut on its head axis, so a
+        device holds 1/tp_width of the whole cache's bytes. An engine
+        without these attributes (the tests' fakes) reports width 1 and
+        no bytes."""
+        out = {"tp_width": int(getattr(self.engine, "tp_width", 1))}
+        bps = getattr(self.engine, "cache_bytes_per_slot", None)
+        if callable(bps):
+            out["per_device_cache_bytes"] = int(
+                bps() * getattr(self.engine, "num_slots", 0))
+        return out
 
     def _swap(self, now, recovery_ts: List[float]) -> None:
         """One live weight swap: new weights from ``reload_fn`` (the

@@ -93,6 +93,7 @@ from tensorflow_distributed_tpu_torch.parallel.sharding import (
 from tensorflow_distributed_tpu_torch.train.local_sgd import StackedState
 from tensorflow_distributed_tpu_torch.train.state import TrainState
 from tensorflow_distributed_tpu_torch.utils import serialization
+from tensorflow_distributed_tpu_torch.utils.atomicio import atomic_write_json
 from tensorflow_distributed_tpu_torch.utils.logging import emit_event
 
 STEP_PREFIX = "step_"
@@ -220,12 +221,7 @@ def _describe_available(ckpt_dir: str, steps: List[int]) -> str:
 def _write_json(path: str, obj: Any) -> None:
     """Atomically replace ``path`` with ``obj`` as JSON (JAX's
     ``atomic_write_json``: same bytes, fsync'd, then renamed)."""
-    tmp = f"{path}.tmp.{os.getpid()}"
-    with open(tmp, "w") as f:
-        json.dump(obj, f)
-        f.flush()
-        os.fsync(f.fileno())
-    os.replace(tmp, path)
+    atomic_write_json(path, obj)
 
 
 # The save-I/O retry policy (capped exponential backoff), module-wide as
@@ -672,24 +668,31 @@ def _host_finite(tree: Any) -> bool:
     return True
 
 
-def restore_params(ckpt_dir: str, model: torch.nn.Module
+def restore_params(ckpt_dir: str, model: torch.nn.Module,
+                   step: Optional[int] = None
                    ) -> Tuple[Dict[str, torch.Tensor], int]:
     """PARAMS-ONLY restore for a live weight swap: the newest verifiable
     checkpoint's params (its EMA where it has one) under the serving
     ``model``'s parameter names, each on the device and in the dtype of
     the live tensor it replaces. No optimizer state, no train state.
     Returns ``(params, step)``, what ``SlotDecodeEngine.swap_params``
-    takes.
+    takes. A tensor-parallel ``model`` takes this process's ranks'
+    slices of every whole leaf (``shard_vocab``'s padded rows included),
+    the layout its TP training saves.
 
     Walks back from the newest step past one that fails the sha256 or
     decode check (quarantined, as ``restore`` does) or holds NON-FINITE
     params (skipped with a ``swap_skip`` recovery record, not
-    quarantined: the bytes are intact)."""
+    quarantined: the bytes are intact). An explicit ``step`` (a
+    tensor-parallel worker, told which step its chief picked) reads that
+    step alone."""
     steps = available_steps(ckpt_dir)
     if not steps:
         raise FileNotFoundError(
             f"no checkpoints under {ckpt_dir} — live weight swap needs "
             f"at least one completed save")
+    if step is not None:
+        steps = [step]
     last_err: Optional[Exception] = None
     got = None
     for s in reversed(steps):
@@ -715,7 +718,7 @@ def restore_params(ckpt_dir: str, model: torch.nn.Module
             f"no verifiable swap target under {ckpt_dir}; last error: "
             f"{last_err}")
     s, tree = got
-    host = interop.params_from_flax(tree)
+    host = interop.shards_from_flax(tree, model)
     live = dict(model.named_parameters())
     interop._check_names(host, live, "params")
     out = {}

@@ -193,7 +193,7 @@ def evaluate(state: TrainState, eval_fn, task: Task, batch: int,
 def build_model_for(cfg: TrainConfig, device: torch.device, ring=None,
                     vocab_size: int = 0, image_shape: tuple = (),
                     bn_group=None, tp=None, ep=None, pipe=None,
-                    aux_mesh=None):
+                    aux_mesh=None, vocab_shards: Optional[int] = None):
     """The model ``cfg`` names, built on ``device`` with its weights not
     yet drawn (``init_weights``); ``ring``: the seq group's ring; ``tp``:
     the model group's transport (tensor parallelism); ``ep``: the expert
@@ -202,7 +202,9 @@ def build_model_for(cfg: TrainConfig, device: torch.device, ring=None,
     ``aux_mesh`` the mesh whose data group its routers' counts sum over.
     ``vocab_size``: the tokenizer's, which sizes the LM under
     ``--dataset text``; ``image_shape``: the dataset's [H, W, C] (a
-    ResNet takes its channels); ``bn_group``: the group of sync BN."""
+    ResNet takes its channels); ``bn_group``: the group of sync BN;
+    ``vocab_shards``: a causal LM's ``shard_vocab`` padding multiple
+    (``checkpoint_vocab_shards``; None: the model width)."""
     if cfg.model in ("gpt_lm", "bert_mlm", "moe_lm", "pipelined_lm"):
         kw = ({"ring": ring, "tp": tp, "ep": ep}
               if cfg.model != "pipelined_lm" else
@@ -211,6 +213,8 @@ def build_model_for(cfg: TrainConfig, device: torch.device, ring=None,
                "aux_mesh": aux_mesh, "ring": ring, "tp": tp})
         if cfg.model_size:
             kw["size"] = cfg.model_size
+        if vocab_shards:
+            kw["vocab_shards"] = vocab_shards
         if cfg.dataset == "text":
             kw["vocab_size"] = vocab_size
         elif cfg.synthetic_vocab:
@@ -253,14 +257,32 @@ def build_model_for(cfg: TrainConfig, device: torch.device, ring=None,
                            compute_dtype=dtype, **kw)
 
 
+def checkpoint_vocab_shards(cfg: TrainConfig) -> Optional[int]:
+    """``--shard-vocab``'s padding multiple for reading ``cfg``'s
+    checkpoint: the model width its newest step was written on (the mesh
+    manifest), where that width is a multiple of this run's, so one card
+    or a narrower tensor-parallel group takes a wider run's padded
+    tables; None (the run's own width) otherwise."""
+    if not (cfg.shard_vocab and cfg.checkpoint_dir):
+        return None
+    step = ckpt.latest_step(cfg.checkpoint_dir)
+    manifest = (ckpt.read_mesh_manifest(cfg.checkpoint_dir, step)
+                if step is not None else None)
+    width = int((manifest or {}).get("mesh", {}).get("model", 1))
+    here = max(cfg.mesh.model, cfg.serve.mesh_model)
+    return width if width > 1 and width % here == 0 else None
+
+
 def _build_model_and_state(cfg: TrainConfig, device: torch.device,
                            init_params=None, mesh: Mesh = ONE_PROCESS,
                            task: Optional[Task] = None, vocab_size: int = 0,
-                           min_size: int = FSDP_MIN_SIZE):
+                           min_size: int = FSDP_MIN_SIZE,
+                           vocab_shards: Optional[int] = None):
     """The model and its train state, laid out as ``cfg.param_partition``
     (``min_size``: the rule's threshold); ``task`` (or, without one, the
     tokenizer's ``vocab_size``, read from the corpus when not given)
-    gives the dataset facts the model is sized by."""
+    gives the dataset facts the model is sized by; ``vocab_shards``:
+    ``build_model_for``'s."""
     if task is not None:
         vocab_size = task.vocab_size
     elif cfg.dataset == "text" and not vocab_size:
@@ -274,7 +296,8 @@ def _build_model_and_state(cfg: TrainConfig, device: torch.device,
         cfg, device, mesh.ring, vocab_size=vocab_size,
         image_shape=task.image_shape if task is not None else (),
         bn_group=mesh.data_group if sync_bn else None, tp=mesh.tp,
-        ep=mesh.ep, pipe=mesh_lib.pipe_transport(mesh), aux_mesh=mesh)
+        ep=mesh.ep, pipe=mesh_lib.pipe_transport(mesh), aux_mesh=mesh,
+        vocab_shards=vocab_shards)
     piped = mesh.distributed and mesh.pipe > 1
     tx = make_optimizer(cfg, model, group_sum=(
         (lambda t: mesh.pipe_all_reduce_([t])) if piped else None))
@@ -723,13 +746,17 @@ def generate_only(cfg: TrainConfig, logger: Optional[MetricLogger] = None
     (``data/lm.text_codec``), and the record adds the continuation
     decoded (``text``); otherwise comma-separated token ids. The model
     is built without the training task (the checkpoint pins its
-    shapes). Emits and returns a ``generate`` record."""
+    shapes). Emits and returns a ``generate`` record (the chief's).
+
+    Under ``--mesh.model M`` (torchrun, one process a rank, as ``--mode
+    eval``) every rank restores its heads' slice of the checkpoint and
+    runs the same decode loop on the gathered logits, the chief's picks
+    broadcast at every step (``models/generate.py``). The caller ends
+    the process group."""
     from tensorflow_distributed_tpu_torch.models.generate import (
         beam_search, generate)
 
-    cfg.validate()
-    device = resolve_device(cfg.device)
-    logger = logger or MetricLogger()
+    device, mesh, logger = _setup(cfg, logger)
     # The tokenizer without the training task (which would window the
     # whole corpus, and refuse one smaller than a batch).
     dec, vocab = None, 0
@@ -750,7 +777,9 @@ def generate_only(cfg: TrainConfig, logger: Optional[MetricLogger] = None
                 f"prompt {cfg.prompt!r} is not comma-separated token "
                 f"ids (string prompts need dataset=text, whose "
                 f"tokenizer defines a text vocabulary)") from None
-    model, state = _build_model_and_state(cfg, device, vocab_size=vocab)
+    model, state = _build_model_and_state(
+        cfg, device, vocab_size=vocab, mesh=mesh,
+        vocab_shards=checkpoint_vocab_shards(cfg))
     if cfg.dataset != "text":
         bad = [t for t in ids if not 0 <= t < model.cfg.vocab_size]
         if bad:

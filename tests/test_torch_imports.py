@@ -60,9 +60,10 @@ def test_port_and_chip_smoke_import_without_jax():
     # included; PR 17's families and data: models.resnet, the CIFAR and
     # uint8 data, and the native runtime's binding; the pipeline:
     # parallel.pipeline, models.pipelined, train.pipeline_step; local
-    # SGD: train.local_sgd).
+    # SGD: train.local_sgd; tensor-parallel serving and restarts:
+    # serve.tp_replica, utils.atomicio, resilience.supervisor).
     words = out.stdout.split()
-    assert int(words[1]) >= 47
+    assert int(words[1]) >= 50
     for name in ("parallel.mesh", "models.cnn", "data.mnist",
                  "data.prefetch", "utils.serialization", "train.checkpoint",
                  "serve.paging", "serve.paging.pool", "serve.paging.radix",
@@ -73,7 +74,9 @@ def test_port_and_chip_smoke_import_without_jax():
                  "config", "serve.engine", "models.resnet", "data.cifar",
                  "data.u8", "data.lm", "native", "native.runtime",
                  "parallel.pipeline", "models.pipelined",
-                 "train.pipeline_step", "train.local_sgd"):
+                 "train.pipeline_step", "train.local_sgd",
+                 "serve.tp_replica", "utils.atomicio",
+                 "resilience.supervisor"):
         assert f"tensorflow_distributed_tpu_torch.{name}" in words[2:]
 
 

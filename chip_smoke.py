@@ -97,8 +97,9 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
              profile (device busy and idle share, host enqueue time);
 14. train_data — sync data parallelism: torchrun over N = min(cards, 4)
              processes, one card each (NCCL; on one card a torchrun of
-             one process with an NCCL group of one): the CNN with
-             ``--mesh.data N``, GPT-2-small (fused CE) with ``--mesh.data
+             one process with an NCCL group of one): on two or more
+             cards the CNN with ``--mesh.data N``, GPT-2-small (fused CE)
+             with ``--mesh.data
              N`` at 8 rows a rank and, on four cards, with ``--mesh.data
              2 --mesh.seq 2``; the first five losses within 1e-2 of one
              card on the same global batch, every rank launching the
@@ -241,7 +242,7 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
              prefix hit; the high class's p95 time to first token under
              each policy printed;
 33. serve_fire — serving under faults at GPT-2-small's full width, four
-             legs: (a) f32, the checkpoint phase's weights, 8 slots, 16
+             legs: (a) f32, the checkpoint phase's weights, 8 slots, 8
              requests, ``--resilience.fault-plan
              slot_nan@5:2,slot_nan@9:0,reload@12`` through
              ``serve_setup``, dense then paged: every stream equal to the
@@ -263,22 +264,20 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
              step's logits, and the serve phase's traced step (launches,
              device busy, one device-to-host copy a step);
 34. train_fire — training under faults on GPT-2-small's fused-CE path
-             (``--ce-chunk 8192 --ce-impl kernel``, 12 steps, every loss
+             (``--ce-chunk 8192 --ce-impl kernel``, 8 steps, every loss
              logged), four legs: (a) the plain run, the same run under
              every per-step reader (``--resilience.nonfinite skip_batch
              --resilience.spike-window 4 --resilience.data-timeout-s 30
-             --resilience.sync-timeout-s 30``), under those readers with
-             ``halt`` in place of ``skip_batch`` (the window and the
-             watchdogs' thread hops without the verdict read before each
-             update), and the first saving every 2 steps under
+             --resilience.sync-timeout-s 30``), and that run saving every
+             2 steps under
              ``ckpt_io_fail@4:2``: losses within 1e-5 of the plain run's,
              the injection and two retries at step 4 and no other record,
              every save landed, B1-B3 12 launches a step and B4-B6 one in
-             each run; the runs' median step ms (steps 4-8), and over the
-             four traced steps 9-12 their step ms, launches, device busy
-             ms and idle share a step; (b) ``sigterm@6`` in a
-             CLI process: exit 0, a ``preempted`` record at step 6 and the
-             save there; a ``--resume`` process runs steps 7-12; the twelve
+             each run; the runs' median step ms (steps 3-5), and over the
+             three traced steps 6-8 their step ms, launches, device busy
+             ms and idle share a step; (b) ``sigterm@5`` in a
+             CLI process: exit 0, a ``preempted`` record at step 5 and the
+             save there; a ``--resume`` process runs steps 6-8; the eight
              losses within 1e-5 of the plain run's; (c) ``data_stall@5:3s``
              under ``--resilience.data-timeout-s 1`` in a CLI process: exit
              3 with a ``stall`` record naming the next-batch fetch of step
@@ -287,7 +286,7 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
              ``nan_grad@5``: ``skip_batch`` trains past the skip record to
              a finite loss, ``halt`` exits 2 in a CLI process, ``rewind``
              with a save every 2 steps rewinds from 5 to 4, quarantines
-             step 6 and ends at step 12 with a finite loss (no kernel);
+             step 6 and ends at step 8 with a finite loss (no kernel);
 35. model_bert — BERT-base (12 x 768, 12 heads, vocab 30522 + the [MASK]
              row, L 512) on the card in bf16 through B1 non-causal (once a
              layer) against the same weights in f32 on the CPU: the logits
@@ -324,7 +323,7 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
              in f32 on the card, with batch statistics through the live
              residual branches of those random scales, within 1e-3;
 40. train_resnet — (a) ``--model resnet50 --dataset imagenet_synthetic
-             --batch-size 64``, 15 steps: finite losses (not gated to
+             --batch-size 64``, 8 steps: finite losses (not gated to
              fall: they rise at these settings; the port's trajectory is
              held to JAX's on the CPU at 32 x 32 only), images/s, step ms, peak memory and the
              traced step's conv/GEMM/other split; (b)
@@ -481,7 +480,41 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
              seq legs' to one card's 8 one-row microbatches),
              every rank's kernel share (B1-B3, or B7-B9 under seq), peak
              memory, step ms and tokens/s a card; skipped, by the device
-             count alone, on fewer than four cards.
+             count alone, on fewer than four cards;
+57-59. model_serve_tp, serve_tp, generate_tp — tensor-parallel serving
+             and generation (``--serve.mesh-model N``, ``--mode generate
+             --mesh.model M``): the engines on StackedTP(2) on one card
+             (int8, k-gram and GQA on StackedTP(4) too); the CLI legs at
+             M 4 on four;
+60. model_reshard — ``restore_resharded`` at GPT-2-small's width
+             (model_zero's configuration: tied, Adam, EMA, clip 1.0, bf16):
+             one step on ``stacked_data(4)`` fsdp and a save, then the
+             save restored onto ``stacked_data(4)`` fsdp again (a control
+             on the writer's mesh: not resharded), ``stacked_data(2)``
+             fsdp, one replicated process and ``StackedTP(2)``: ``info``
+             resharded from data 4 to each other mesh, each of their
+             re-saves' ``state.msgpack`` equal to the original's by
+             sha256, and one more step from each against one more step
+             from the unresharded state (the loss at model_zero's 1e-5,
+             model_tp's 2e-2 on the model axis; the step's gradient, read
+             from Adam's first moment, at model_tp's 2e-2; the control's
+             params at model_zero's rtol 2e-5 / atol 1e-6; see
+             RESHARD_LEGS), B1-B3 12 x D (12 x 2 on StackedTP(2))
+             launches a step;
+61. train_elastic — ``supervisor --elastic`` over the CLI: on one card
+             ``--mesh.data 1`` with ``device_loss@3:1``: the leg writes the
+             mask and dies, no mesh fits the survivors, ``mesh_exhausted``
+             and exit 137; on two or three cards data 2 -> 1; on four
+             (``--only train_elastic``) GPT-2-small, seq 1024, global batch
+             8, bf16, 10 steps, a save every 2: (a) data 4 fsdp loses 2 at
+             step 5 and resumes at data 2 from step 4 (the drill's, the
+             mesh change's, the reshard's and the resume's records, exit
+             0), (b) the mask deleted, the run grows back to data 4 and
+             goes on to step 14 (the loop's reshard 2 -> 4), (c) data 2 x
+             model 2 resumes at data 1 x model 2, (d) ``sigterm@5`` on
+             every rank of data 4: every rank stops at step 6, one save,
+             exit 0, and the ``--resume`` run ends; the losses after each
+             resize within 1e-2 of one card's run.
 
 It then prints the seconds of each phase, the nvidia-smi line, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -492,7 +525,7 @@ result.
 
 runs the device and build phases, then only the named phases, with the
 same checks, and prints the nvidia-smi line last (no kernels or ok
-line). The phases it takes: ``ce_kernels`` and phases 35-56.
+line). The phases it takes: ``ce_kernels`` and phases 35-61.
 """
 
 from __future__ import annotations
@@ -552,9 +585,9 @@ TRAIN_FUSED_ARGV = TRAIN_ARGV + ["--ce-chunk", "8192", "--ce-impl", "kernel"]
 CE_KERNELS = ("fused_ce_fwd", "fused_ce_dx", "fused_ce_dw")
 RING_KERNELS = ("flash_fwd_partial", "flash_dq_partial", "flash_dkv_partial")
 PROFILE_STEPS = 10  # timed and traced steps of a profiled run
-# step_profile's four GPT runs take fewer, to keep the one-card smoke
-# within its time budget.
-STEP_PROFILE_STEPS = 6
+# step_profile's four GPT runs and train_resnet's ResNet-50 profile take
+# fewer, to keep the one-card smoke within its time budget.
+STEP_PROFILE_STEPS = 3
 # Partial (ring-step) kernels vs their plain versions; the ring vs the
 # flash kernels and the plain full attention (plain in f32 from the same
 # bf16 inputs; the kernels round P and dO to bf16 for their products).
@@ -663,7 +696,7 @@ SLO_ARGV = ["--mode", "serve", "--model", "gpt_lm", "--model-size", "small",
 SLO_NUM_PAGES = 1 + (2 + 12) * 64
 # Serving under faults at GPT-2-small's full width.
 FIRE_PLAN = "slot_nan@5:2,slot_nan@9:0,reload@12"
-FIRE_SLOTS, FIRE_REQUESTS, FIRE_NEW = 8, 16, 24
+FIRE_SLOTS, FIRE_REQUESTS, FIRE_NEW = 8, 8, 24
 FIRE_SPEC_PLAN = "slot_nan@3:1,slot_nan@6:2"
 FIRE_STALL_S, FIRE_TIMEOUT_S = 3.0, 1.0
 FIRE_STALL_ARGV = ["--mode", "serve", "--model", "gpt_lm", "--model-size",
@@ -683,7 +716,7 @@ FIRE_KILL_PLAN = "sigkill@10"
 FIRE_CLI_TIMEOUT_S = 300  # one CLI process: CUDA start, build, serve
 # train_fire: training under faults on the fused-CE path (B1-B6) at full
 # width, TRAIN_FIRE_STEPS steps a run, every loss logged.
-TRAIN_FIRE_STEPS = 12
+TRAIN_FIRE_STEPS = 8
 TRAIN_FIRE_ARGV = ["--mode", "train", "--model", "gpt_lm", "--model-size",
                    "small", "--seq-len", "1024", "--batch-size", "8",
                    "--train-steps", str(TRAIN_FIRE_STEPS), "--eval-every",
@@ -697,14 +730,11 @@ TRAIN_FIRE_WATCH = ["--resilience.nonfinite", "skip_batch",
                     "--resilience.spike-window", "4",
                     "--resilience.data-timeout-s", "30",
                     "--resilience.sync-timeout-s", "30"]
-# The same readers with the halt policy, which reads no verdict before
-# the update: the window and the thread hops alone.
-TRAIN_FIRE_WINDOW = ["--resilience.nonfinite", "halt"] + TRAIN_FIRE_WATCH[2:]
 TRAIN_FIRE_SAVE_PLAN = "ckpt_io_fail@4:2"
 # Traced: from one step's record to another's (the profiler's start and
 # stop stay out of the untraced step times).
-TRAIN_FIRE_PROFILE = (8, 12)
-TRAIN_FIRE_SIGTERM = 6
+TRAIN_FIRE_PROFILE = (5, 8)
+TRAIN_FIRE_SIGTERM = 5
 TRAIN_FIRE_STALL_S, TRAIN_FIRE_TIMEOUT_S = 3.0, 1.0
 TRAIN_FIRE_STALL_ARGV = TRAIN_FIRE_ARGV + [
     "--resilience.data-timeout-s", str(TRAIN_FIRE_TIMEOUT_S),
@@ -826,14 +856,15 @@ TOL_U8 = 1e-5
 U8_STEPS_HELD = 5
 # ResNet-50 at 224 (ImageNet shapes, 1000 classes) and ResNet-20 on
 # CIFAR-10 shapes, synthetic sets made from the seed.
-# The phases ``--only`` runs alone: ce_kernels and phases 35-56.
+# The phases ``--only`` runs alone: ce_kernels and phases 35-61.
 ONLY_PHASES = ("ce_kernels", "model_bert", "train_bert", "train_text",
                "train_cnn_u8", "model_resnet", "train_resnet", "tp_kernels",
                "model_tp", "train_tp", "model_zero", "train_zero",
                "model_moe", "train_moe", "serve_moe", "train_ep",
                "model_pipe", "train_pipe", "model_local_sgd",
                "model_pipe_tp", "model_pipe_seq", "train_local_sgd",
-               "train_pipe3d", "model_serve_tp", "serve_tp", "generate_tp")
+               "train_pipe3d", "model_serve_tp", "serve_tp", "generate_tp",
+               "model_reshard", "train_elastic")
 # ZeRO-1, FSDP and the explicit gradient sync: GPT-2-small as published
 # (tied) on the stacked transport of D data ranks, each leg's steps
 # through the port's train step; then --param-partition / --grad-sync
@@ -963,7 +994,10 @@ TRAIN_PIPE3D_RUNS = (
 # StackedTP(M) against the whole engine on the same weights at
 # GPT-2-small's widths (one card); serve_tp and generate_tp run the CLI
 # over four cards.
-SERVE_TP_SIZES = (2, 4)
+SERVE_TP_SIZES = (2,)  # every leg, and the bf16 logits
+# M 4 of these legs too (GQA at M 4 keeps a rank the fewest K/V heads);
+# M 4 of dense, paged and bf16 runs on four cards (serve_tp).
+SERVE_TP_MORE = {"int8": (4,), "kgram": (4,), "gqa": (4,)}
 SERVE_TP_SLOTS, SERVE_TP_REQUESTS, SERVE_TP_NEW = 4, 6, 16
 SERVE_TP_PROMPTS = (8, 200)     # lengths spread evenly over this range
 SERVE_TP_TURN_NEW = 8           # a session's second turn: its new tokens
@@ -993,12 +1027,48 @@ GENERATE_TP_RUN = ["--mode", "generate", *GENERATE_TP_ARGV,
                    "--compute-dtype", "float32", "--prompt",
                    GENERATE_TP_PROMPT, "--max-new-tokens", "32"]
 GENERATE_TP_TIMEOUT_S = 600
+# Elastic restarts: model_reshard saves GPT-2-small (model_zero's
+# configuration: tied, Adam, EMA, clip, bf16) one step into
+# stacked_data(4) fsdp and restores it with restore_resharded onto three
+# other layouts (data width or partition, processes, model axis); each
+# takes one more step, held to the unresharded state's next step: the
+# loss (model_zero's 1e-5 on a data layout, model_tp's 2e-2 on the model
+# axis), and what the step computed, its gradient, read from Adam's
+# first moment (the step's mu less b1 x the restored mu, which is the
+# written one to the bit: (1 - b1) x the gradient), ||diff|| / ||ref||
+# over every param within model_tp's 2e-2 gradient gate (a gradient of
+# half the batch, or never reduced across ranks, or Adam blocks paired
+# with the wrong shards, reads 0.3 or more). The params after one Adam
+# step of lr 1e-3 move at most about lr, so they are held only on the
+# same-mesh control leg (model_zero's rtol 2e-5 / atol 1e-6, the
+# writer's own layout); elsewhere they and the share of update elements
+# whose sign changed are printed.
+RESHARD_FROM = ("stacked4_fsdp", 4, "fsdp")
+RESHARD_LEGS = (("stacked4_fsdp_same_mesh", 4, "fsdp"),
+                ("stacked2_fsdp", 2, "fsdp"),
+                ("one_process", 1, "replicated"),
+                ("stacked_tp2", "tp", "replicated"))
+# train_elastic: supervisor --elastic over the CLI (torchrun with more
+# than one card); GPT-2-small, seq 1024, global batch 8, bf16, the dense
+# head, saves every 2 steps.
+TRAIN_ELASTIC_STEPS = 10
+TRAIN_ELASTIC_GROWN = 14  # leg (b)'s steps on the returned capacity
+TRAIN_ELASTIC_ARGV = ["--mode", "train", "--model", "gpt_lm", "--model-size",
+                      "small", "--seq-len", "1024", "--batch-size", "8",
+                      "--eval-every", "0", "--eval-batch-size", "8",
+                      "--dropout-rate", "0", "--compute-dtype", "bfloat16",
+                      "--log-every", "1", "--checkpoint-every", "2"]
+TRAIN_ELASTIC_ONE_CARD = ("device_loss@3:1", 3)  # (plan, step)
+TRAIN_ELASTIC_LOSS = ("device_loss@5:2", 5)
+TRAIN_ELASTIC_SIGTERM = ("sigterm@5", 5)
+TRAIN_ELASTIC_SIGTERM_EVERY = 4  # (d)'s cadence: the stop is no save step
+TRAIN_ELASTIC_TIMEOUT_S = 300  # one supervisor run: its legs and probes
 MODEL_RESNET_B = 4
 MODEL_RESNET_IMAGE = 224
 TOL_RESNET_F32 = 1e-3  # f32 on the card vs f32 on the CPU, train mode
 TRAIN_RESNET50_ARGV = ["--mode", "train", "--model", "resnet50", "--dataset",
                        "imagenet_synthetic", "--batch-size", "64",
-                       "--train-steps", "15", "--eval-every", "0",
+                       "--train-steps", "8", "--eval-every", "0",
                        "--eval-batch-size", "64", "--log-every", "1"]
 TRAIN_RESNET20_ARGV = ["--mode", "train", "--model", "resnet20", "--dataset",
                        "cifar10_synthetic", "--batch-size", "128",
@@ -2289,15 +2359,17 @@ def data_runs(count: int):
     """train_data's runs for ``count`` cards: (name, processes, argv,
     the one-card argv on the same global batch, the kernels each rank
     must launch). N = min(count, 4) processes, 8 GPT rows a data rank;
-    a (data 2, seq 2) GPT run on four cards."""
+    the CNN on two or more cards (on one, a torchrun of one process is
+    the GPT run's, and the checkpoint phase's resumed leg's); a (data 2,
+    seq 2) GPT run on four cards."""
     n = min(count, 4)
     flash = ["flash_fwd", "flash_dq", "flash_dkv"]
     ce = ["fused_ce_fwd", "fused_ce_dx", "fused_ce_dw"]
     partial = ["flash_fwd_partial", "flash_dq_partial", "flash_dkv_partial"]
     runs = [("mnist_cnn", n, TRAIN_DATA_CNN_ARGV + ["--mesh.data", str(n)],
-             TRAIN_DATA_CNN_ARGV, []),
-            ("gpt_lm", n, gpt_data_argv(8 * n) + ["--mesh.data", str(n)],
-             gpt_data_argv(8 * n), flash + ce)]
+             TRAIN_DATA_CNN_ARGV, [])] if n > 1 else []
+    runs.append(("gpt_lm", n, gpt_data_argv(8 * n) + ["--mesh.data", str(n)],
+                 gpt_data_argv(8 * n), flash + ce))
     if n == 4:
         runs.append(("gpt_lm_seq", 4, gpt_data_argv(16)
                      + ["--mesh.data", "2", "--mesh.seq", "2"],
@@ -3973,15 +4045,13 @@ def rel_diff(got, ref) -> float:
 
 
 def train_fire_leg_a(kernels, torch) -> list:
-    """train_fire (a): the plain run, the same run under the window and
-    the watchdogs alone (TRAIN_FIRE_WINDOW), under every per-step reader
-    (TRAIN_FIRE_WATCH: the skip policy's verdict read too), and that run
-    with a save every 2 steps under ckpt_io_fail@4:2. Returns the plain
-    run's losses."""
+    """train_fire (a): the plain run, the same run under every per-step
+    reader (TRAIN_FIRE_WATCH: the window, the watchdogs and the skip
+    policy's verdict read), and that run with a save every 2 steps under
+    ckpt_io_fail@4:2. Returns the plain run's losses."""
     from tensorflow_distributed_tpu_torch.train import checkpoint
 
     plain = fire_train(kernels, torch, TRAIN_FIRE_ARGV)
-    window = fire_train(kernels, torch, TRAIN_FIRE_ARGV + TRAIN_FIRE_WINDOW)
     watched = fire_train(kernels, torch, TRAIN_FIRE_ARGV + TRAIN_FIRE_WATCH)
     with tempfile.TemporaryDirectory(prefix="tfd_train_fire_") as d:
         fire = fire_train(kernels, torch, TRAIN_FIRE_ARGV + TRAIN_FIRE_WATCH
@@ -3995,19 +4065,15 @@ def train_fire_leg_a(kernels, torch) -> list:
           "argv": TRAIN_FIRE_ARGV, "watch": TRAIN_FIRE_WATCH,
           "plan": TRAIN_FIRE_SAVE_PLAN,
           "plain": {k: plain.get(k) for k in keys},
-          "window": {k: window.get(k) for k in keys},
           "watched": {k: watched.get(k) for k in keys},
           "step_ms_cost": {
-              name: rec["step_ms_median"] - plain["step_ms_median"]
-              for name, rec in (("window", window), ("watched", watched))},
-          "window_max_rel_diff": rel_diff(window["losses"], plain["losses"]),
+              "watched": watched["step_ms_median"] - plain["step_ms_median"]},
           "watched_max_rel_diff": rel_diff(watched["losses"], plain["losses"]),
           "fire_max_rel_diff": rel_diff(fire["losses"], plain["losses"]),
           "retries": [(r["step"], r["attempt"]) for r in retries],
           "latest_at_records": fire["latest"], "landed": landed,
           "launches": plain["launches"]})
-    runs = (("plain", plain), ("window", window), ("watched", watched),
-            ("fire", fire))
+    runs = (("plain", plain), ("watched", watched), ("fire", fire))
     for what, rec in runs:
         fire_launch_check(rec, what)
         check(len(rec["losses"]) == TRAIN_FIRE_STEPS
@@ -4017,9 +4083,9 @@ def train_fire_leg_a(kernels, torch) -> list:
         check(rel_diff(rec["losses"], plain["losses"]) <= TOL_FIRE_LOSS,
               f"train_fire (a: {what}): losses {rec['losses']} vs the plain "
               f"run's {plain['losses']}")
-    check(not window["recovery"] and not watched["recovery"],
-          f"train_fire (a): the runs without faults recorded "
-          f"{window['recovery'] + watched['recovery']}")
+    check(not watched["recovery"],
+          f"train_fire (a): the run without faults recorded "
+          f"{watched['recovery']}")
     check([(r["step"], r["attempt"]) for r in retries] == [(4, 1), (4, 2)]
           and len(fire["recovery"]) == 3,
           f"train_fire (a): records {fire['recovery']} (want the injection "
@@ -4027,7 +4093,8 @@ def train_fire_leg_a(kernels, torch) -> list:
     # A step's record comes before its cadence save: the save of step k
     # is the latest at the record of step k + 1.
     want = [2 * ((k - 1) // 2) or None for k in range(1, TRAIN_FIRE_STEPS + 1)]
-    check(fire["latest"] == want and landed == [8, 10, 12],
+    check(fire["latest"] == want and landed == list(range(
+        TRAIN_FIRE_STEPS - 4, TRAIN_FIRE_STEPS + 1, 2)),
           f"train_fire (a): checkpoints {fire['latest']}, {landed}")
     return plain["losses"]
 
@@ -4120,7 +4187,8 @@ def train_fire_leg_d(torch) -> None:
           "rewind": {"records": kinds(rewind), "final": rewind["final"],
                      "dir": names, "steps": rewind["steps"]}})
     check(("nonfinite", 5, "skip", None, None) in kinds(skip)
-          and math.isnan(skip["losses"][4]) and skip["steps"] == 12
+          and math.isnan(skip["losses"][4])
+          and skip["steps"] == TRAIN_FIRE_STEPS
           and math.isfinite(skip["final"].get("loss", math.nan)),
           f"train_fire (d: skip): {kinds(skip)}, {skip['final']}")
     check(rc == 2 and "[resilience] diverged" in err,
@@ -4128,7 +4196,8 @@ def train_fire_leg_d(torch) -> None:
     check(("rewind", None, None, 5, 4) in kinds(rewind)
           and ("quarantine", 6, None, None, None) in kinds(rewind)
           and "quarantined_step_00000006" in names
-          and landed[-1] == TRAIN_FIRE_STEPS and rewind["steps"] == 12
+          and landed[-1] == TRAIN_FIRE_STEPS
+          and rewind["steps"] == TRAIN_FIRE_STEPS
           and math.isfinite(rewind["final"].get("loss", math.nan)),
           f"train_fire (d: rewind): {kinds(rewind)}, {names}, "
           f"{rewind['final']}")
@@ -4520,7 +4589,8 @@ def phase_train_resnet(kernels, torch) -> None:
     big = run_train(kernels, torch, "train_resnet", TRAIN_RESNET50_ARGV,
                     falls=False)
     emit({"phase": "train_resnet", "run": "resnet50_profile",
-          "steps": PROFILE_STEPS, **profiled(torch, TRAIN_RESNET50_ARGV)})
+          "steps": STEP_PROFILE_STEPS,
+          **profiled(torch, TRAIN_RESNET50_ARGV, STEP_PROFILE_STEPS)})
     check(all(n == 0 for n in big["launches"].values()),
           f"ResNet-50 launched a kernel of the GPT: {big['launches']}")
     kept = {}
@@ -6168,7 +6238,8 @@ def serve_tp_leg(torch, np, leg: str, model, prompts, turn2=None):
 
 
 def phase_model_serve_tp(torch, np) -> None:
-    """The decode engine on StackedTP(M), M in SERVE_TP_SIZES, against the
+    """The decode engine on StackedTP(M), M in SERVE_TP_SIZES (and
+    SERVE_TP_MORE's for its legs), against the
     whole engine on the same GPT-2-small weights: in f32 every stream
     through the Scheduler equals the whole engine's (dense, paged in
     sessions of two turns with radix hits, int8, k-gram at SPEC_K; the
@@ -6201,7 +6272,7 @@ def phase_model_serve_tp(torch, np) -> None:
             ref_engine, ref = serve_tp_leg(torch, np, leg, whole, prompts,
                                            turn2)
         fed = prompts + (turn2 or [])
-        for M in SERVE_TP_SIZES:
+        for M in SERVE_TP_SIZES + SERVE_TP_MORE.get(leg, ()):
             model = tp_twin(torch, whole, M)
             engine, got = serve_tp_leg(torch, np, leg, model, prompts, turn2)
             excused = [dict(rid=i, **bad) for i, (p, g, r) in enumerate(
@@ -6490,6 +6561,413 @@ def phase_generate_tp(torch) -> None:
           "wall_s": round(time.time() - t0, 3)})
 
 
+def reshard_layout(torch, leg):
+    """A fresh GPT-2-small state of model_reshard's layout ``leg`` ((name,
+    data width or "tp", partition)): (state, train step, mesh, task)."""
+    from tensorflow_distributed_tpu_torch.config import parse_args
+    from tensorflow_distributed_tpu_torch.parallel import mesh as mesh_lib
+    from tensorflow_distributed_tpu_torch.parallel.tensor_parallel import (
+        StackedTP)
+    from tensorflow_distributed_tpu_torch.train import loop
+
+    _, width, partition = leg
+    device = torch.device(DEVICE)
+    if width == "tp":
+        cfg = parse_args(MODEL_ZERO_ARGV)
+        mesh = mesh_lib.Mesh(model=2, tp=StackedTP(2))
+        task = loop._make_task(cfg, mesh_lib.ONE_PROCESS)
+        _, state = loop._build_model_and_state(cfg, device, mesh=mesh,
+                                               task=task,
+                                               min_size=ZERO_MIN_SIZE)
+        return state, loop._make_step(cfg, task, state, device, mesh), mesh, \
+            task
+    cfg = parse_args(MODEL_ZERO_ARGV + ["--mesh.data", str(width),
+                                        "--param-partition", partition])
+    task, state, step = loop.build_stacked(cfg, device, ZERO_MIN_SIZE)
+    return state, step, mesh_lib.stacked_data(width), task
+
+
+def written_sha256(ckpt_dir: str, step: int = 1) -> str:
+    """The sha256 of a step's ``state.msgpack`` as its writer hashed the
+    bytes it wrote (the manifest's)."""
+    from tensorflow_distributed_tpu_torch.train import checkpoint as ckpt
+
+    with open(os.path.join(ckpt._step_dir(ckpt_dir, step),
+                           "manifest.json")) as f:
+        return json.load(f)["sha256"]
+
+
+def reshard_gates(torch, leg, loss, ref_loss, tensors, ref, before,
+                  b1) -> dict:
+    """A leg's next step against the unresharded state's (see
+    RESHARD_LEGS): ``tensors`` and ``ref`` after it, ``before`` the
+    restored state (the written one), ``b1`` Adam's. The loss at
+    model_zero's gate (model_tp's on the model axis), the step's
+    gradient (mu less b1 x the restored mu) at model_tp's gradient gate,
+    and on the same-mesh leg the params at model_zero's (each param's
+    excess over rtol); every reading printed."""
+    names = [k[len("params/"):] for k in ref if k.startswith("params/")]
+    out = {"loss_rel_err": abs(loss - ref_loss) / abs(ref_loss)}
+
+    def step_grads(t):
+        return {n: t[f"mu/{n}"] - b1 * before[f"mu/{n}"] for n in names}
+
+    out["grads_rel_err"], out["worst_grad_rel_err"], out["worst_grad"] = (
+        grad_errs(step_grads(tensors), step_grads(ref)))
+    flips = sum(int((torch.sign(tensors[f"params/{n}"] - before[f"params/{n}"])
+                     != torch.sign(ref[f"params/{n}"] - before[f"params/{n}"])
+                     ).sum()) for n in names)
+    out["update_sign_flip_frac"] = flips / sum(ref[f"params/{n}"].numel()
+                                               for n in names)
+    worst = max(float((tensors[f"params/{n}"] - ref[f"params/{n}"]).abs()
+                      .max()) for n in names)
+    top = max(float(ref[f"params/{n}"].abs().max()) for n in names)
+    out["params_rel_err"] = worst / top
+    out["params_excess_over_tol"] = max(
+        (float(((tensors[f"params/{n}"] - ref[f"params/{n}"]).abs()
+                - TOL_ZERO_PARAMS["rtol"] * ref[f"params/{n}"].abs()).max()),
+         f"params/{n}") for n in names)
+    ok = (out["loss_rel_err"] <= (TOL_TP if leg[1] == "tp"
+                                  else TOL_ZERO_LOSS)
+          and out["grads_rel_err"] <= TOL_TP)
+    if leg[1:] == RESHARD_FROM[1:]:
+        ok = ok and out["params_excess_over_tol"][0] <= TOL_ZERO_PARAMS["atol"]
+    out["ok"] = ok
+    return out
+
+
+def phase_model_reshard(kernels, torch) -> None:
+    """restore_resharded at GPT-2-small's width on one card (see the
+    module docstring, phase 60)."""
+    from tensorflow_distributed_tpu_torch.data.prefetch import to_device
+    from tensorflow_distributed_tpu_torch.train import checkpoint as ckpt
+
+    flash = ("flash_fwd", "flash_dq", "flash_dkv")
+    device = torch.device(DEVICE)
+
+    def counted_step(step, state, batch):
+        sync(torch)
+        for kern in kernels:
+            kern.launches = 0
+        state, metrics = step(state, batch)
+        loss = float(metrics["loss"])
+        sync(torch)
+        return state, loss, {k.name: k.launches for k in kernels}
+
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory(prefix="tfd_reshard_") as root:
+        state, step, mesh, task = reshard_layout(torch, RESHARD_FROM)
+        stream = task.train_stream(0)
+        batches = [to_device(next(stream), device) for _ in range(2)]
+        state, first_loss, launches = counted_step(step, state, batches[0])
+        src = os.path.join(root, RESHARD_FROM[0])
+        t0 = time.time()
+        ckpt.save(src, state, mesh=mesh)
+        save_s = time.time() - t0
+        blob = os.path.join(ckpt._step_dir(src, 1), "state.msgpack")
+        sha = written_sha256(src)
+        before = whole_tensors(state)
+        b1 = (state.replicas[0] if hasattr(state, "replicas")
+              else state).tx.b1
+        state, ref_loss, ref_launches = counted_step(step, state, batches[1])
+        ref = whole_tensors(state)
+        emit({"phase": "model_reshard", "leg": RESHARD_FROM[0],
+              "first_loss": first_loss, "next_loss": ref_loss,
+              "save_s": round(save_s, 3), "state_bytes": os.path.getsize(blob),
+              "launches": launches, "next_launches": ref_launches,
+              "mesh": ckpt.mesh_shape_dict(mesh)})
+        check(all(launches[k] == ref_launches[k] == 12 * RESHARD_FROM[1]
+                  for k in flash),
+              f"model_reshard: B1-B3 not launched 12 x {RESHARD_FROM[1]} "
+              f"times a step: {launches} {ref_launches}")
+        del state, step
+        torch.cuda.empty_cache()
+        for leg in RESHARD_LEGS:
+            t0 = time.time()
+            state, step, mesh, _ = reshard_layout(torch, leg)
+            sync(torch)
+            build_s = time.time() - t0
+            t0 = time.time()
+            state, info = ckpt.restore_resharded(src, state, mesh=mesh)
+            sync(torch)
+            restore_s = time.time() - t0
+            moved = leg[1:] != RESHARD_FROM[1:]
+            same = None  # the same-mesh leg's bytes: not re-saved (time)
+            if moved:
+                again = os.path.join(root, leg[0])
+                ckpt.save(again, state, mesh=mesh)
+                same = written_sha256(again) == sha
+                shutil.rmtree(again)
+            state, loss, got = counted_step(step, state, batches[1])
+            t0 = time.time()
+            gates = reshard_gates(torch, leg, loss, ref_loss,
+                                  whole_tensors(state), ref, before, b1)
+            gates_s = time.time() - t0
+            width = 2 if leg[1] == "tp" else leg[1]
+            rec = {"phase": "model_reshard", "leg": leg[0], "info": info,
+                   "build_s": round(build_s, 3), "gates_s": round(gates_s, 3),
+                   "restore_s": round(restore_s, 3),
+                   "resave_sha256_equal": same, "next_loss": loss,
+                   "ref_next_loss": ref_loss, "launches": got, **gates}
+            emit(rec)
+            want_from = {"data": RESHARD_FROM[1], "seq": 1, "model": 1}
+            check(info["resharded"] == moved and info["step"] == 1
+                  and info["from_mesh"] == want_from
+                  and info["to_mesh"] == ckpt.mesh_shape_dict(mesh),
+                  f"model_reshard {leg[0]}: info {info}")
+            check(same is not False, f"model_reshard {leg[0]}: the re-save's "
+                                     f"bytes differ from the checkpoint's")
+            check(gates["ok"], f"model_reshard {leg[0]}: the next step left "
+                               f"the unresharded state's: {gates}")
+            check(all(got[k] == 12 * width for k in flash),
+                  f"model_reshard {leg[0]}: B1-B3 not launched 12 x "
+                  f"{width} times a step: {got}")
+            del state, step
+            torch.cuda.empty_cache()
+    emit({"phase": "model_reshard", "seconds": round(time.time() - t_phase,
+                                                       1)})
+
+
+def supervise(argv, timeout: float = TRAIN_ELASTIC_TIMEOUT_S, env=None):
+    """``supervisor --elastic`` over the CLI on ``argv`` (its own process
+    group, killed whole past ``timeout``; ``env`` added to this process's):
+    (exit code, standard output, its JSON records, the chief's losses by
+    step)."""
+    cmd = [sys.executable, "-m",
+           "tensorflow_distributed_tpu_torch.resilience.supervisor",
+           "--elastic", "--max-restarts", "2", "--backoff-base-s", "0.2",
+           "--", *argv]
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True,
+                            env=dict(os.environ, **(env or {})))
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        sys.stderr.write(out[-6000:])
+        fail(f"train_elastic: the supervisor still ran after {timeout} s: "
+             f"{argv}")
+    return proc.returncode, out, elastic_records(out), elastic_losses(out)
+
+
+def elastic_records(out: str) -> list:
+    """The JSON records of a supervisor run's output (its own, behind
+    ``[supervisor] ``, and its legs'). The ranks share the pipe with the
+    launcher's and the collectives' own messages (and unbuffered, a
+    record's text and its newline are two writes), so a line may hold a
+    fragment of another message and more than one record: each is read
+    where it starts."""
+    recs = []
+    decoder = json.JSONDecoder()
+    for line in out.splitlines():
+        at = line.find('{"')
+        while at >= 0:
+            try:
+                rec, end = decoder.raw_decode(line, at)
+            except ValueError:
+                at = line.find('{"', at + 1)
+                continue
+            recs.append(rec)
+            at = line.find('{"', end)
+    return recs
+
+
+STEP_LINE = re.compile(r"\[step +(\d+)\] .* loss=([0-9.eE+-]+|nan|inf)")
+
+
+def elastic_losses(out: str) -> dict:
+    """The chief's losses by step (a later leg's over an earlier one's)."""
+    losses = {}
+    for line in out.splitlines():
+        m = STEP_LINE.search(line)
+        if m:
+            losses[int(m[1])] = float(m[2])
+    return losses
+
+
+def records_of(recs, kind: str) -> list:
+    return [r for r in recs if r.get("kind") == kind]
+
+
+def elastic_gates(name, rc, out, recs, losses, one, from_mesh, to_mesh,
+                  resumed_at, batch_a_card) -> dict:
+    """A resize leg's record and checks: exit 0, the drill's records, the
+    mesh change, the reshard, the resume and the losses after it within
+    TOL_RING_LOSS of one card's run (``one``: losses by step)."""
+    squeeze = lambda m: {k: v for k, v in (m or {}).items() if v != 1}  # noqa: E731
+    resumed = [r for r in recs if r.get("event") == "resumed"]
+    after = sorted(s for s in losses if s > resumed_at)
+    diff = max((abs(losses[s] - one[s]) for s in after), default=math.inf)
+    rec = {"phase": "train_elastic", "leg": name, "rc": rc,
+           "lost": [r.get("lost") for r in recs
+                    if r.get("fault") == "device_loss"][:1],
+           "mesh_change": [(squeeze(r["from_mesh"]), squeeze(r["to_mesh"]))
+                           for r in records_of(recs, "mesh_change")],
+           "reshard": [(squeeze(r["from_mesh"]), squeeze(r["to_mesh"]),
+                        r["seconds"]) for r in records_of(recs, "reshard_restore")],
+           "resumed": resumed, "steps_after": after,
+           "max_loss_diff_after": diff}
+    emit(rec)
+    if rc != 0:
+        sys.stderr.write(out[-6000:])
+    check(rc == 0, f"train_elastic {name}: exit {rc}")
+    check(any(squeeze(r["from_mesh"]) == from_mesh
+              and squeeze(r["to_mesh"]) == to_mesh
+              for r in records_of(recs, "reshard_restore")),
+          f"train_elastic {name}: no reshard {from_mesh} -> {to_mesh}")
+    check([r["step"] for r in resumed] == [resumed_at]
+          and resumed[0]["per_device_batch"] == batch_a_card,
+          f"train_elastic {name}: resumed {resumed}")
+    check(bool(after) and diff <= TOL_RING_LOSS,
+          f"train_elastic {name}: losses after the resize {losses} vs one "
+          f"card {one}")
+    return rec
+
+
+def train_elastic_one_card(torch, root: str) -> None:
+    """One card: the drill loses the only card; no mesh fits; the
+    supervisor stops with the dead leg's code (JAX's
+    test_supervisor_elastic_stops_when_no_mesh_fits, on the card)."""
+    plan, step = TRAIN_ELASTIC_ONE_CARD
+    ck = os.path.join(root, "one")
+    # No cadence save: nothing resumes from this leg.
+    rc, out, recs, losses = supervise(
+        TRAIN_ELASTIC_ARGV + ["--train-steps", str(TRAIN_ELASTIC_STEPS),
+                              "--mesh.data", "1", "--checkpoint-dir", ck,
+                              "--checkpoint-every", "0",
+                              "--resilience.fault-plan", plan])
+    try:
+        with open(os.path.join(ck, "DEVICE_MASK")) as f:
+            mask = json.load(f)
+    except (OSError, ValueError):
+        mask = None
+    exhausted = records_of(recs, "mesh_exhausted")
+    restarts = records_of(recs, "restart")
+    emit({"phase": "train_elastic", "leg": "one_card", "rc": rc,
+          "mask": mask, "restarts": restarts, "mesh_exhausted": exhausted,
+          "losses": losses, "legs": out.count("[supervisor] leg ")})
+    if rc != 128 + signal.SIGKILL:
+        sys.stderr.write(out[-6000:])
+    check(rc == 128 + signal.SIGKILL,
+          f"train_elastic one_card: exit {rc}, not the dead leg's "
+          f"{128 + signal.SIGKILL}")
+    check(mask == {"lost": 1, "step": step},
+          f"train_elastic one_card: mask file {mask}")
+    check([r["rc"] for r in restarts] == [-signal.SIGKILL]
+          and [(r["leg"], r["alive"]) for r in exhausted] == [(1, 0)]
+          and out.count("[supervisor] leg ") == 1,
+          f"train_elastic one_card: restarts {restarts}, exhausted "
+          f"{exhausted}")
+    check(sorted(losses) == list(range(1, step)),
+          f"train_elastic one_card: the leg's steps {sorted(losses)}")
+
+
+def train_elastic_runs(count: int):
+    """The resize legs for ``count`` cards: (name, argv, plan, from mesh,
+    to mesh, resumed step, rows a card after it). Two or three cards:
+    (a) at data 2 -> 1; four: (a) data 4 fsdp -> 2 and (c) data 2 x
+    model 2 -> model 2."""
+    plan, step = TRAIN_ELASTIC_LOSS
+    if count < 4:
+        return [("a_data2", ["--mesh.data", "2"],
+                 f"device_loss@{step}:{count - 1}", {"data": 2}, {},
+                 step - 1, 8)]
+    return [("a_data4_fsdp", ["--mesh.data", "4", "--param-partition",
+                              "fsdp"], plan, {"data": 4}, {"data": 2},
+             step - 1, 4),
+            ("c_data2_model2", ["--mesh.data", "2", "--mesh.model", "2"],
+             plan, {"data": 2, "model": 2}, {"model": 2}, step - 1, 8)]
+
+
+def phase_train_elastic(torch) -> None:
+    """Elastic restarts through the supervisor (see the module
+    docstring, phase 61)."""
+    count = torch.cuda.device_count()
+    # More than four cards: the supervisor (its probe, its legs) sees four.
+    env = ({"CUDA_VISIBLE_DEVICES": "0,1,2,3"} if count > 4 else None)
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory(prefix="tfd_elastic_") as root:
+        if count == 1:
+            train_elastic_one_card(torch, root)
+            emit({"phase": "train_elastic",
+                  "seconds": round(time.time() - t_phase, 1)})
+            return
+        one = dict(enumerate(one_card_losses(
+            TRAIN_ELASTIC_ARGV + ["--train-steps",
+                                  str(TRAIN_ELASTIC_GROWN)])[0], 1))
+        for name, mesh, plan, src, dst, at, rows in train_elastic_runs(count):
+            ck = os.path.join(root, name)
+
+            def argv(steps):
+                return TRAIN_ELASTIC_ARGV + mesh + [
+                    "--train-steps", str(steps), "--checkpoint-dir", ck,
+                    "--resilience.fault-plan", plan]
+
+            rc, out, recs, losses = supervise(argv(TRAIN_ELASTIC_STEPS),
+                                              env=env)
+            elastic_gates(name, rc, out, recs, losses, one, src, dst, at,
+                          rows)
+            check(any(r.get("fault") == "device_loss" for r in recs)
+                  and [(({k: v for k, v in r["from_mesh"].items() if v != 1}),
+                        ({k: v for k, v in r["to_mesh"].items() if v != 1}))
+                       for r in records_of(recs, "mesh_change")] == [(src, dst)],
+                  f"train_elastic {name}: the drill or the mesh change is "
+                  f"missing: {records_of(recs, 'mesh_change')}")
+            if name == "a_data4_fsdp":
+                # (b) the capacity comeback: the mask gone, the same run
+                # goes on to TRAIN_ELASTIC_GROWN steps at data 4.
+                os.remove(os.path.join(ck, "DEVICE_MASK"))
+                rc, out, recs, losses = supervise(
+                    argv(TRAIN_ELASTIC_GROWN) + ["--resume", "true"], env=env)
+                elastic_gates("b_comeback", rc, out, recs, losses, one,
+                              {"data": 2}, {"data": 4}, TRAIN_ELASTIC_STEPS,
+                              2)
+                check(not records_of(recs, "mesh_change")
+                      and "--nproc-per-node 4" in out,
+                      "train_elastic b_comeback: the leg did not run at "
+                      "data 4")
+        if count >= 4:
+            train_elastic_sigterm(root, one, env)
+    emit({"phase": "train_elastic", "seconds": round(time.time() - t_phase,
+                                                       1)})
+
+
+def train_elastic_sigterm(root: str, one: dict, env=None) -> None:
+    """(d) ``sigterm@K`` on every rank of data 4: every rank stops at the
+    agreed step K + 1, one save there, exit 0; the ``--resume`` run ends
+    its steps within TOL_RING_LOSS of one card's."""
+    plan, step = TRAIN_ELASTIC_SIGTERM
+    ck = os.path.join(root, "d_sigterm")
+    argv = TRAIN_ELASTIC_ARGV + [
+        "--train-steps", str(TRAIN_ELASTIC_STEPS), "--mesh.data", "4",
+        "--checkpoint-dir", ck, "--resilience.fault-plan", plan,
+        "--checkpoint-every", str(TRAIN_ELASTIC_SIGTERM_EVERY)]
+    rc, out, recs, _ = supervise(argv, env=env)
+    stops = sorted((r.get("rank"), r["step"]) for r in recs
+                   if r.get("event") == "preempted")
+    saved = sorted(int(n.split("_")[1]) for n in os.listdir(ck)
+                   if n.startswith("step_") and "." not in n)
+    rc2, out2, recs2, losses2 = supervise(argv + ["--resume", "true"],
+                                          env=env)
+    after = sorted(s for s in losses2 if s > step + 1)
+    diff = max((abs(losses2[s] - one[s]) for s in after), default=math.inf)
+    emit({"phase": "train_elastic", "leg": "d_sigterm", "rc": rc,
+          "stops": stops, "saved": saved, "resume_rc": rc2,
+          "resumed": [r for r in recs2 if r.get("event") == "resumed"],
+          "steps_after": after, "max_loss_diff_after": diff})
+    check(rc == 0 and stops == [(r, step + 1) for r in range(4)],
+          f"train_elastic d_sigterm: exit {rc}, stops {stops}")
+    check(saved == [TRAIN_ELASTIC_SIGTERM_EVERY, step + 1],
+          f"train_elastic d_sigterm: saves {saved}")
+    check(rc2 == 0 and after == list(range(step + 2,
+                                           TRAIN_ELASTIC_STEPS + 1))
+          and diff <= TOL_RING_LOSS,
+          f"train_elastic d_sigterm: the resume leg (exit {rc2}): "
+          f"{losses2} vs one card {one}")
+
+
 def run_alone(names, fa, fce, kernels, torch, np, F) -> None:
     """``--only``: the named phases of ONLY_PHASES, in the order given."""
     alone = {"ce_kernels": lambda: phase_ce_kernels(fce, torch, F),
@@ -6518,7 +6996,9 @@ def run_alone(names, fa, fce, kernels, torch, np, F) -> None:
              "train_pipe3d": lambda: phase_train_pipe3d(torch),
              "model_serve_tp": lambda: phase_model_serve_tp(torch, np),
              "serve_tp": lambda: phase_serve_tp(torch),
-             "generate_tp": lambda: phase_generate_tp(torch)}
+             "generate_tp": lambda: phase_generate_tp(torch),
+             "model_reshard": lambda: phase_model_reshard(kernels, torch),
+             "train_elastic": lambda: phase_train_elastic(torch)}
     for name in names:
         alone[name]()
         lap(name)
@@ -6681,6 +7161,10 @@ def main(argv=None) -> int:
     lap("serve_tp")
     phase_generate_tp(torch)
     lap("generate_tp")
+    phase_model_reshard(kernels, torch)
+    lap("model_reshard")
+    phase_train_elastic(torch)
+    lap("train_elastic")
 
     err = {"flash_fwd": flash["errors"]["o_abs_err"],
            "flash_dq": flash["errors"]["dq_abs_err"],

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import typing
 from typing import Optional, Sequence
 
@@ -363,8 +364,10 @@ class ResilienceConfig:
     # that step's float batch), ckpt_io_fail (:N failures, default 1, in
     # the cadence save at that step), data_stall (:duration, default 5s,
     # slept inside the batch fetch), sigterm and sigkill (self-signal at
-    # that step's dispatch, first leg only); device_loss parses and is
-    # refused (ROADMAP.md A7). Under mode=serve the step counts DECODE
+    # that step's dispatch, first leg only), device_loss (:N lost cards,
+    # default 1: writes the device-mask file under --checkpoint-dir and
+    # SIGKILLs every rank, first leg only; supervisor --elastic restarts
+    # onto the survivors). Under mode=serve the step counts DECODE
     # steps and the kinds are decode_stall (:duration, slept inside the
     # decode watchdog's window), slot_nan (:slot, NaN-poisons one slot's
     # KV cache -> quarantine and re-prefill of that slot), reload (live
@@ -1239,9 +1242,7 @@ class TrainConfig:
 
     def _validate_fire(self) -> None:
         """The JAX TrainConfig's phase checks of the fault plan and the
-        journal, with its messages; then the refusal of ``device_loss``,
-        whose mask file and elastic restart are not ported yet (ROADMAP.md
-        A7)."""
+        journal, with its messages."""
         res = self.resilience
         if res.fault_plan:
             # A fault keyed to a phase that never consults it would sit
@@ -1272,11 +1273,6 @@ class TrainConfig:
                         "mask file under --checkpoint-dir (and the "
                         "elastic restart resumes from there); set "
                         "one")
-                if "device_loss" in kinds:
-                    raise NotImplementedError(
-                        "fault kind 'device_loss' (the device-mask file "
-                        "and the elastic restart onto the survivors) is "
-                        "not ported to PyTorch yet (see ROADMAP.md A7)")
             else:
                 raise ValueError(
                     f"resilience.fault_plan has no injection points "
@@ -1342,6 +1338,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> TrainConfig:
     return cfg
 
 
+@functools.lru_cache(maxsize=None)
 def known_flags() -> frozenset:
     """Every ``--flag`` spelling the CLI parses: the flag namespace of
     the parent-to-child argv protocol (the supervisor spells its child's

@@ -56,7 +56,8 @@ A ``pipelined_lm`` (``models/pipelined.py``) holds ``gpt_lm``'s names
 leaf stacked [S, lps, ...] or [S, V, lps, ...]>}``.
 ``layers_to_pipelined`` stacks a ``gpt_lm``-shaped flax tree into it
 (``parallel/pipeline.stack_stage_params``) and ``pipelined_to_layers``
-unstacks it, refusing a tree of another stage count (ROADMAP.md A7);
+unstacks it, refusing a tree of another stage count (JAX's restore
+cannot restack either, and its elastic restart keeps every non-data axis);
 ``params_to_flax``, ``state_to_flax`` and ``state_from_flax`` go through
 them for a pipelined model, which loads only its own stages' layers.
 
@@ -209,9 +210,10 @@ def pipelined_to_layers(tree: Mapping[str, Any], stages: int,
             raise ValueError(
                 f"checkpoint pipeline blocks are stacked for {got} "
                 f"stages (x chunks), this mesh runs {want} at "
-                f"{'/'.join(path)}; restacking a pipelined checkpoint "
-                f"onto another stage count is not ported to PyTorch yet "
-                f"(see ROADMAP.md A7)")
+                f"{'/'.join(path)}; a pipelined checkpoint restores onto "
+                f"its own stage count only (the JAX package cannot restack "
+                f"it either: an elastic restart keeps every non-data "
+                f"axis, --mesh.pipe included)")
     def unstack(node, path=()):
         if isinstance(node, Mapping):
             return {k: unstack(v, path + (str(k),)) for k, v in node.items()}

@@ -62,11 +62,21 @@ positions (``StackedRing``) with it: every stage lives in this process
 and a hop hands the tensor over.
 
 ``is_chief()`` elects rank 0 for logging, as in the JAX package.
+
+``alive_devices()`` is the device list less the drill mask:
+``TFD_DEVICE_MASK=N`` hides the LAST N devices (the elastic supervisor's
+``device_loss`` drill, ``resilience/supervisor.py``), and ``bootstrap()``
+refuses a rank whose card the mask hides. The devices are the cards
+``torch.cuda.device_count()`` shows (under ``CUDA_VISIBLE_DEVICES``);
+for the CPU they are the processes that ``TFD_CPU_DEVICE_COUNT``
+declares (1 when unset), the counterpart of JAX's
+``--xla_force_host_platform_device_count``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import math
 import os
 from typing import Any, Dict, Iterable, List, Optional, Tuple
@@ -86,6 +96,10 @@ AXIS_PIPE = "pipe"
 AXIS_EXPERT = "expert"
 MESH_AXES = (AXIS_DATA, AXIS_PIPE, AXIS_SEQ, AXIS_MODEL, AXIS_EXPERT)
 TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK")
+# How long a collective of the world group waits for its peers (NCCL's
+# own default, given to gloo too): the preemption guard's host agreement
+# waits as long as a step's collectives would.
+PG_TIMEOUT = datetime.timedelta(minutes=10)
 # The flat collectives under their current names (torch >= 2.13 renamed
 # them; the old ones warn there).
 _REDUCE_SCATTER = getattr(dist, "reduce_scatter_single",
@@ -381,6 +395,54 @@ def process_batch_role(mesh: Mesh):
     return mesh.data, mesh.data_index
 
 
+DEVICE_MASK_ENV = "TFD_DEVICE_MASK"
+CPU_DEVICES_ENV = "TFD_CPU_DEVICE_COUNT"
+
+
+def device_count(device_type: str = "cuda") -> int:
+    """The devices of ``device_type`` this machine shows: the CUDA cards,
+    or the CPU processes ``TFD_CPU_DEVICE_COUNT`` declares (1 unset)."""
+    if device_type == "cuda":
+        return torch.cuda.device_count()
+    return int(os.environ.get(CPU_DEVICES_ENV, "1") or 1)
+
+
+def alive_devices(device_type: str = "cuda") -> List[int]:
+    """The indices of ``device_type``'s devices less the drill mask (JAX's
+    ``alive_devices``): ``TFD_DEVICE_MASK=N`` hides the LAST N, as dead
+    cards on a host whose runtime still lists them. A real loss needs no
+    mask: the cards are gone from the count. Unset, every device."""
+    n = device_count(device_type)
+    mask = int(os.environ.get(DEVICE_MASK_ENV, "0") or 0)
+    if mask < 0:
+        raise ValueError(f"TFD_DEVICE_MASK must be >= 0, got {mask}")
+    if mask >= n:
+        raise ValueError(
+            f"TFD_DEVICE_MASK={mask} masks every device ({n} visible) — "
+            f"nothing left to run on")
+    return list(range(n - mask))
+
+
+def check_alive(device: torch.device) -> None:
+    """Refuse this rank when the drill mask hides its device: a CUDA
+    device by its index, a CPU rank by its ``LOCAL_RANK`` (only where
+    ``TFD_CPU_DEVICE_COUNT`` declares the CPU devices). Does nothing
+    without a mask."""
+    kind = "cuda" if device.type == "cuda" else "cpu"
+    if not os.environ.get(DEVICE_MASK_ENV) or (
+            kind == "cpu" and not os.environ.get(CPU_DEVICES_ENV)):
+        return
+    index = (device.index if kind == "cuda" and device.index is not None
+             else int(os.environ.get("LOCAL_RANK", "0")))
+    alive = alive_devices(kind)
+    if index not in alive:
+        raise RuntimeError(
+            f"this rank's {kind} device {index} is masked by "
+            f"TFD_DEVICE_MASK={os.environ[DEVICE_MASK_ENV]} (alive: "
+            f"{len(alive)} of {device_count(kind)}); launch at most "
+            f"{len(alive)} processes")
+
+
 def _torchrun_world() -> Optional[int]:
     env = os.environ
     if not all(k in env for k in TORCHRUN_ENV):
@@ -442,8 +504,10 @@ def bootstrap(data: int, seq: int, device: torch.device,
     the data groups and (with a model or expert axis) the replica groups
     in the same order (and the pipe groups), and one all-reduce runs on
     the world and on each of this rank's groups: NCCL wants every rank
-    of a group in its first collective before point-to-point calls."""
+    of a group in its first collective before point-to-point calls. A
+    rank whose device the drill mask hides is refused (``check_alive``)."""
     data, seq, model = mesh_shape(data, seq, model, expert, pipe)
+    check_alive(device)
     up = dist.is_initialized()
     if not up and _torchrun_world() is None:
         return ONE_PROCESS
@@ -452,7 +516,7 @@ def bootstrap(data: int, seq: int, device: torch.device,
             torch.cuda.set_device(device)
         dist.init_process_group(
             "nccl" if device.type == "cuda" else "gloo",
-            init_method="env://")
+            init_method="env://", timeout=PG_TIMEOUT)
     rank = dist.get_rank()
     X = expert
     # Rank r at grid[d, p, s, m, e]: JAX's row-major device order.

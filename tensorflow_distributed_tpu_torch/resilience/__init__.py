@@ -2,5 +2,5 @@
 ``resilience/``: :mod:`faults` (the fault-plan grammar and the injection
 points of training and serving), :mod:`policies` (what a non-finite loss
 or a loss spike does: halt, skip, rewind) and :mod:`watchdog` (the
-next-batch, device-sync and decode deadlines). The restart supervisor is
-not ported yet (ROADMAP.md A7)."""
+next-batch, device-sync and decode deadlines) and :mod:`supervisor`
+(restarts with backoff; ``--elastic`` onto the surviving cards' mesh)."""

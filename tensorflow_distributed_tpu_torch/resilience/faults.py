@@ -17,10 +17,18 @@ consults the plan where real faults strike:
 - ``data_stall@K[:Ds]``: sleep D seconds (default 5) inside step K's
   batch fetch, inside the data watchdog's window;
 - ``sigterm@K`` / ``sigkill@K``: self-signal when step K is dispatched
-  (the preemption notice, or the hard kill).
-
-``device_loss@K[:N]`` parses, and ``config.py`` refuses it: its mask
-file and the elastic supervisor are not ported yet (ROADMAP.md A7).
+  (the preemption notice, or the hard kill);
+- ``device_loss@K[:N]``: lose N cards (default 1) when step K is
+  dispatched: the chief writes ``{"lost": N, "step": K}`` to the
+  device-mask file under the checkpoint dir (``device_mask_path``;
+  ``TFD_DEVICE_MASK_FILE`` overrides it), and the process dies by
+  SIGKILL, as a card's loss gives no notice. Under more than one
+  process every rank takes the fault at the same step and waits on a
+  barrier after the chief's write, so no rank dies before the file is
+  durable, then every rank SIGKILLs itself. The elastic supervisor
+  (``supervisor --elastic``) reads the mask, picks the best mesh of the
+  surviving cards and restarts onto it (its child hides the dead cards
+  through ``TFD_DEVICE_MASK``: ``parallel/mesh.alive_devices``).
 
 Under ``--mode serve`` the step key counts DECODE steps (the serving
 engine's clock: serve/scheduler.py consults the plan between steps), and
@@ -39,7 +47,7 @@ the kinds are:
   verifiable checkpoint, between decode steps, without draining slots;
 - ``sigterm@K`` / ``sigkill@K`` as in training.
 
-Signal events fire on the first leg only (``bind``): a resumed leg is
+Signal events and ``device_loss`` fire on the first leg only (``bind``): a resumed leg is
 the recovery under test, and re-firing would kill it forever. Every
 injection prints an ``{"event": "recovery", "kind": "fault_injected",
 ...}`` record on standard output. Events are one-shot per plan object,
@@ -58,6 +66,7 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 
 from tensorflow_distributed_tpu_torch.data.prefetch import map_batch
+from tensorflow_distributed_tpu_torch.utils.atomicio import atomic_write_json
 from tensorflow_distributed_tpu_torch.utils.logging import emit_event
 
 KINDS = ("nan_grad", "ckpt_io_fail", "data_stall", "sigterm", "sigkill",
@@ -69,6 +78,17 @@ TRAIN_KINDS = ("nan_grad", "ckpt_io_fail", "data_stall", "sigterm",
                "sigkill", "device_loss")
 SERVE_KINDS = ("decode_stall", "slot_nan", "reload", "sigterm",
                "sigkill")
+
+# Where a device_loss drill records the lost-card count for the
+# supervisor's next leg: under the run's checkpoint dir, the one path
+# both processes share (TFD_DEVICE_MASK_FILE overrides it).
+DEVICE_MASK_FILENAME = "DEVICE_MASK"
+
+
+def device_mask_path(ckpt_dir: str) -> str:
+    return os.environ.get("TFD_DEVICE_MASK_FILE") or os.path.join(
+        ckpt_dir, DEVICE_MASK_FILENAME)
+
 
 _EVENT_RE = re.compile(
     r"^(?P<kind>[a-z_]+)@(?P<step>\d+)(?::(?P<arg>[0-9.]+s?))?$")
@@ -240,6 +260,33 @@ class FaultPlan:
                 emit_event("recovery", kind="fault_injected",
                            fault=kind, step=step)
                 os.kill(os.getpid(), signum)
+
+    def maybe_device_loss(self, step: int, ckpt_dir: str) -> None:
+        """The card-loss drill at dispatch of ``step``: the chief writes
+        the lost count to the mask file (fsync'd and renamed before the
+        kill: the supervisor never reads a torn file) and every rank
+        dies without notice. First leg only, as the signals."""
+        if self._start_step > 0:
+            return
+        ev = self._take("device_loss", step)
+        if ev is None:
+            return
+        import torch.distributed as dist
+
+        lost = int(ev.arg) if ev.arg is not None else 1
+        path = device_mask_path(ckpt_dir)
+        emit_event("recovery", kind="fault_injected", fault="device_loss",
+                   step=step, lost=lost, mask_file=path)
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if world == 1 or dist.get_rank() == 0:
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            atomic_write_json(path, {"lost": lost, "step": step})
+        if world > 1:
+            # On the host (a gloo group of the ranks): no rank dies, and
+            # so no launcher tears the others down, before the chief's
+            # file is durable.
+            dist.barrier(group=dist.new_group(backend="gloo"))
+        os.kill(os.getpid(), signal.SIGKILL)
 
     # -- serve-phase injection points (step = the engine's decode step;
     #    serve/scheduler.py consults these between steps, the engine

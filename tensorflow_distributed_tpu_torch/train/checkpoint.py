@@ -38,7 +38,7 @@ pipe of processes each stage's blocks (params, moments, EMA) are first
 broadcast over the pipe group (every pipe rank joins), so the step
 directory is byte for byte what one process of all S stages writes; a
 restore keeps this rank's stages, and a checkpoint of another stage
-count is refused (ROADMAP.md A7).
+count is refused (JAX's restore cannot restack it either).
 
 A save writes into ``step_XXXXXXXX.tmp`` and renames it, so a crash
 mid-save never leaves a partial step behind; the newest ``keep`` steps
@@ -47,6 +47,16 @@ write retries an ``OSError`` with capped exponential backoff
 (``set_io_policy``, from ``--resilience.save-retries`` and
 ``save-retry-backoff-s``), each retry a ``ckpt_retry`` recovery record;
 ``arm_io_fault`` injects failures there for the ``ckpt_io_fail`` drill.
+
+``restore_resharded`` restores a checkpoint written on another mesh
+(the elastic restart's resume): the values are the written ones to the
+bit (a restore reads whole arrays and cuts this rank's part, in
+place into the template's own tensors, each checked against the
+template's shape first: ``interop._copy_checked``, the port's form of
+JAX's sharding-contract check). The meshes are compared with every missing axis taken as 1: the port's
+``mesh.json`` lists ``expert`` and ``pipe`` only above 1, JAX's every
+axis. A failure of a restore across meshes that is not already a clear
+error is re-raised as ``MeshMismatchError``, naming both meshes.
 
 ``restore`` takes the newest step whose sha256 verifies: a corrupt one
 is renamed aside (``quarantined_step_XXXXXXXX``, with a ``quarantine``
@@ -109,6 +119,13 @@ class CheckpointCorruptError(RuntimeError):
     when no verifiable step is left."""
 
 
+class MeshMismatchError(RuntimeError):
+    """A restore failed because the checkpoint was written on another
+    mesh than the one the template is laid out for: raised with both
+    meshes named, instead of the error underneath. A restore across
+    meshes is :func:`restore_resharded`'s job."""
+
+
 def _step_dir(ckpt_dir: str, step: int) -> str:
     return os.path.join(ckpt_dir, f"{STEP_PREFIX}{step:08d}")
 
@@ -151,17 +168,37 @@ def _leaf_paths(tree: Any, prefix: str = ""):
             yield path
 
 
+MESH_AXES = ("data", "pipe", "seq", "model", "expert")
+
+
+def mesh_shape_dict(mesh: Mesh) -> dict:
+    """The mesh as ``mesh.json`` writes it: ``data``, ``seq`` and
+    ``model`` always, ``expert`` and ``pipe`` where above 1. (JAX reads
+    a live state's mesh off its leaves, ``_tree_mesh``; a port state
+    does not carry its mesh, so the caller names it, as to ``save``.)"""
+    shape = {"data": mesh.data, "seq": mesh.seq, "model": mesh.model}
+    if mesh.expert > 1:
+        shape["expert"] = mesh.expert
+    if mesh.pipe > 1:
+        shape["pipe"] = mesh.pipe
+    return shape
+
+
+def same_mesh(a: Optional[dict], b: Optional[dict]) -> bool:
+    """Whether two written or live mesh dicts name one mesh, every axis
+    one of them leaves out taken as 1 (a checkpoint of either package
+    written on the same mesh never reads as resharded)."""
+    return all(int((a or {}).get(x, 1)) == int((b or {}).get(x, 1))
+               for x in MESH_AXES)
+
+
 def _mesh_manifest(tree: dict, mesh: Mesh, shard_vocab: bool,
                    experts_cut: bool = False) -> dict:
     """JAX's mesh manifest keys: the mesh sizes, the process and device
     counts, and each leaf's layout over the model axis (and, where the
     experts were cut, over their axis)."""
     n = mesh.data * mesh.pipe * mesh.seq * mesh.model * mesh.expert
-    shape = {"data": mesh.data, "seq": mesh.seq, "model": mesh.model}
-    if mesh.expert > 1:
-        shape["expert"] = mesh.expert
-    if mesh.pipe > 1:
-        shape["pipe"] = mesh.pipe
+    shape = mesh_shape_dict(mesh)
     expert_axis = None
     if experts_cut:
         expert_axis = "expert" if mesh.expert > 1 else "model"
@@ -581,6 +618,36 @@ def _load_step(ckpt_dir: str, step: int, state: TrainState) -> TrainState:
                              state)
 
 
+def _load_step_checked(ckpt_dir: str, step: int, state: TrainState,
+                       mesh: Optional[Mesh]) -> TrainState:
+    """``_load_step``, with a failure across meshes named: when the
+    written mesh differs from ``mesh`` (this run's; None: unknown), an
+    error this layer does not already make clear (corruption, a missing
+    file, a shape or ``--param-sync-every`` ValueError) is re-raised as
+    :class:`MeshMismatchError` naming both meshes and pointing at
+    :func:`restore_resharded`. On the same mesh it stays itself."""
+    try:
+        return _load_step(ckpt_dir, step, state)
+    except (CheckpointCorruptError, FileNotFoundError, ValueError,
+            MeshMismatchError):
+        raise
+    except Exception as e:
+        written = read_mesh_manifest(ckpt_dir, step) or {}
+        want = mesh_shape_dict(mesh) if mesh is not None else None
+        if written.get("mesh") and want and not same_mesh(
+                written["mesh"], want):
+            raise MeshMismatchError(
+                f"restore of step {step} under {ckpt_dir} failed: the "
+                f"checkpoint was written on mesh "
+                f"{_format_mesh(written['mesh'])} "
+                f"({written.get('process_count', '?')} process(es)) but "
+                f"the template requests mesh {_format_mesh(want)} "
+                f"[{type(e).__name__}: {e}]. Use restore_resharded() to "
+                f"re-lay a checkpoint out onto a different mesh with the "
+                f"layout verified.") from e
+        raise
+
+
 def _newest_verified(ckpt_dir: str, step: Optional[int], load,
                      what: str = "--resume"):
     """``(step, load(step))`` of the checkpoint ``restore`` picks:
@@ -614,7 +681,8 @@ def _newest_verified(ckpt_dir: str, step: Optional[int], load,
 
 
 def restore(ckpt_dir: str, state: TrainState,
-            step: Optional[int] = None) -> TrainState:
+            step: Optional[int] = None,
+            mesh: Optional[Mesh] = None) -> TrainState:
     """Restore into ``state`` (a freshly built template) in place, and
     return it.
 
@@ -623,9 +691,52 @@ def restore(ckpt_dir: str, state: TrainState,
     checkpoint costs ``checkpoint_every`` steps, never the run. An
     explicit ``step`` is exact: missing raises FileNotFoundError listing
     the steps there are; corrupt raises CheckpointCorruptError and
-    leaves the directory as it is."""
+    leaves the directory as it is. ``mesh``: the mesh ``state`` is laid
+    out for (a local-SGD state's own by default), which names a failure
+    across meshes (``MeshMismatchError``)."""
+    if mesh is None and isinstance(state, StackedState):
+        mesh = state.mesh
     return _newest_verified(
-        ckpt_dir, step, lambda s: _load_step(ckpt_dir, s, state))[1]
+        ckpt_dir, step,
+        lambda s: _load_step_checked(ckpt_dir, s, state, mesh))[1]
+
+
+def restore_resharded(ckpt_dir: str, state: TrainState,
+                      step: Optional[int] = None, verify: bool = True,
+                      mesh: Optional[Mesh] = None):
+    """Restore a checkpoint written on mesh A into a template laid out on
+    mesh B (``mesh``; a local-SGD state's own by default): the elastic
+    restart's path. Returns ``(state, info)``.
+
+    The values are the written ones to the bit (a restore reads the
+    whole arrays and keeps this rank's shards and blocks), so any data,
+    fsdp, tensor or expert layout restores any other, onto more devices
+    than wrote it too. ``verify`` is kept for JAX's signature: the
+    port's sharding contract is ``restore``'s own, which copies each
+    leaf in place into the template's tensor after checking its shape
+    (``interop._copy_checked``), so a restored leaf always has the
+    template's shape, dtype and device.
+
+    ``info``: ``step``, ``from_mesh`` (the written manifest's, None for
+    a checkpoint without one), ``to_mesh``, ``resharded`` (False when
+    the two name one mesh) and ``seconds``. An actual change of mesh
+    prints one ``reshard_restore`` recovery record. The integrity
+    contract is ``restore``'s."""
+    t0 = time.perf_counter()
+    if mesh is None:
+        mesh = state.mesh if isinstance(state, StackedState) else ONE_PROCESS
+    restored = restore(ckpt_dir, state, step=step, mesh=mesh)
+    got_step = restored.step
+    written = read_mesh_manifest(ckpt_dir, got_step) or {}
+    to_mesh = mesh_shape_dict(mesh)
+    from_mesh = written.get("mesh")
+    resharded = bool(from_mesh and not same_mesh(from_mesh, to_mesh))
+    info = {"step": got_step, "from_mesh": from_mesh, "to_mesh": to_mesh,
+            "resharded": resharded,
+            "seconds": round(time.perf_counter() - t0, 4)}
+    if resharded:
+        emit_event("recovery", kind="reshard_restore", **info)
+    return restored, info
 
 
 def _mean0(x: np.ndarray) -> np.ndarray:

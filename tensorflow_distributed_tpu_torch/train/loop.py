@@ -25,7 +25,15 @@ in JAX's bounded window: the oldest step is retired once more than two
 trail the dispatch, so a bad step K is seen after step K + 2 is
 dispatched (the cadence save between them is the one a rewind
 quarantines). Without any of them the loop dispatches as it always did,
-with no sync a step beyond the ``log_every`` fetch.
+with no sync a step beyond the ``log_every`` fetch. Under more than one
+process the SIGTERM stop is agreed by the ranks on the host, once a
+step (``train/preemption.py``).
+
+``--resume`` from a checkpoint written on another mesh (an elastic
+restart after a card loss, ``resilience/supervisor.py --elastic``, or a
+run grown back) restores through ``checkpoint.restore_resharded``; the
+``resumed`` record then names both meshes, the restore's seconds and
+the new per-device batch.
 
 Under ``--mesh.data D --mesh.seq S --mesh.model M --mesh.expert X``
 (D*S*M*X processes under torchrun, one GPU each; see
@@ -454,9 +462,28 @@ def train(cfg: TrainConfig, logger: Optional[MetricLogger] = None,
         view = functools.partial(averaged_view, opt_state=False)
     start_step = 0
     if cfg.resume and ckpt.latest_step(cfg.checkpoint_dir) is not None:
-        state = ckpt.restore(cfg.checkpoint_dir, state)
+        latest = ckpt.latest_step(cfg.checkpoint_dir)
+        written = (ckpt.read_mesh_manifest(cfg.checkpoint_dir, latest)
+                   or {}).get("mesh")
+        current = ckpt.mesh_shape_dict(mesh)
+        resumed_extra = {}
+        if written and not ckpt.same_mesh(written, current):
+            # An elastic resume: the checkpoint was written on another
+            # mesh (supervisor --elastic after a card loss, or a run
+            # grown onto returned capacity). The global batch is the
+            # same; each rank's share follows the new data width.
+            state, rinfo = ckpt.restore_resharded(cfg.checkpoint_dir, state,
+                                                  mesh=mesh)
+            resumed_extra = {"from_mesh": rinfo["from_mesh"],
+                             "to_mesh": rinfo["to_mesh"],
+                             "reshard_seconds": rinfo["seconds"],
+                             "per_device_batch":
+                                 cfg.batch_size // current["data"]}
+        else:
+            state = ckpt.restore(cfg.checkpoint_dir, state, mesh=mesh)
         start_step = state.step
-        logger.log_json({"event": "resumed", "step": start_step})
+        logger.log_json({"event": "resumed", "step": start_step,
+                         **resumed_extra})
     res = cfg.resilience
     plan = (parse_fault_plan(res.fault_plan) if res.fault_plan
             else FaultPlan())
@@ -625,6 +652,7 @@ def train(cfg: TrainConfig, logger: Optional[MetricLogger] = None,
         if cfg.train_steps > start_step:
             # A signal planned for this step fires before the guard is
             # armed: a sigterm here is a hard crash of the first leg.
+            plan.maybe_device_loss(start_step + 1, cfg.checkpoint_dir)
             plan.maybe_signal(start_step + 1)
             state, metrics = step_fn(state, fetch(start_step + 1))
             _sync(device)
@@ -645,8 +673,14 @@ def train(cfg: TrainConfig, logger: Optional[MetricLogger] = None,
                     want_rewind = None
                 for i in range(next_start, cfg.train_steps):
                     if guard.should_stop(i):
-                        logger.log_json({"event": "preempted", "step": i})
+                        if mesh.distributed:
+                            # Every rank says where it stopped.
+                            emit_event("preempted", step=i, rank=mesh.rank)
+                        else:
+                            logger.log_json({"event": "preempted",
+                                             "step": i})
                         break
+                    plan.maybe_device_loss(i + 1, cfg.checkpoint_dir)
                     plan.maybe_signal(i + 1)
                     state, metrics = step_fn(state, fetch(i + 1))
                     if windowed:

@@ -20,8 +20,12 @@ from typing import Any, Dict, Optional, TextIO
 
 def emit_event(event: str, **fields: Any) -> None:
     """Print ``{"event": event, **fields}`` as one JSON line on standard
-    output (the fault and recovery records of resilience/ and serve/)."""
-    print(json.dumps({"event": event, **fields}), flush=True)
+    output (the fault and recovery records of resilience/ and serve/), in
+    one write: the ranks of a process group may share the stream, and
+    unbuffered, a record's text and its newline would be two writes
+    another rank's line could fall between."""
+    sys.stdout.write(json.dumps({"event": event, **fields}) + "\n")
+    sys.stdout.flush()
 
 
 @dataclass

@@ -176,7 +176,7 @@ def test_train_resnet_leg_b_passes_and_fails_on_changed_stats(
     run): the restored batch_stats equal the trained ones, the eval reads
     them; a restore that changed them fails."""
     monkeypatch.setattr(cs, "TRAIN_RESNET50_ARGV", cs.TRAIN_RESNET20_ARGV)
-    monkeypatch.setattr(cs, "profiled", lambda torch, argv: {})
+    monkeypatch.setattr(cs, "profiled", lambda torch, argv, steps=0: {})
     cs.phase_train_resnet([], baseline_smoke)
     line = json.loads(capsys.readouterr().out.splitlines()[-1])
     assert line["eval_rel_diff"] <= cs.TOL_EVAL_STATS

@@ -72,7 +72,7 @@ def _lines(capsys):
 
 
 def test_model_serve_tp_passes_on_the_cpu(tiny_phase, capsys):
-    """Every leg at M 2 and 4: the streams equal the whole engine's, the
+    """Every leg at M 2, int8, k-gram and GQA at M 4 too: the streams equal the whole engine's, the
     per-device cache (and page) bytes are 1/M of its, a k-gram verify
     ran, and the bf16 logits are within the gate."""
     import numpy as np
@@ -82,7 +82,8 @@ def test_model_serve_tp_passes_on_the_cpu(tiny_phase, capsys):
     assert tiny_phase == []
     legs = [(r["leg"], r["M"]) for r in row["legs"]]
     assert legs == [(leg, M) for leg in ("dense", "paged", "int8", "kgram",
-                                         "gqa") for M in cs.SERVE_TP_SIZES]
+                                         "gqa")
+                    for M in cs.SERVE_TP_SIZES + cs.SERVE_TP_MORE.get(leg, ())]
     for r in row["legs"]:
         assert r["identical"] == r["requests"] and not r["excused"]
         assert r["cache_bytes_per_slot"] * r["M"] == (

@@ -10,7 +10,7 @@ process) within 1e-6; the port's own GPipe stays within 1e-5 of its
 1F1B. A save at step 2 under pipe 2 is, byte for byte, what JAX writes
 of the same state after restoring it; a resume from it continues as the
 straight run; it restores into the stacked transport's pipe 2 and is
-refused at another stage count (ROADMAP.md A7); ``--mode eval`` of the
+refused at another stage count (JAX cannot restack it either); ``--mode eval`` of the
 final save equals JAX's ``evaluate_only`` of it. Adafactor over pipe 2,
 whose block RMS runs over JAX's stacked leaf (every layer, both stages),
 follows JAX's 3 steps to 1e-4, equals the stacked transport's within
@@ -169,7 +169,7 @@ def test_save_is_jaxs_bytes_resumes_and_restores(runs, tmp_path):
         assert torch.equal(state.params[name].detach(), p), name
     one = TrainConfig(**PIPE, device="cpu")
     _, single = tloop._build_model_and_state(one, CPU)
-    with pytest.raises(ValueError, match="ROADMAP.md A7"):
+    with pytest.raises(ValueError, match="cannot restack it either"):
         ckpt.restore(copy, single)
 
 

@@ -3,8 +3,7 @@
 
 - ``PreemptionGuard`` installs its SIGTERM handler and restores the one
   before it, stops at the step after a notice, drops an unread notice on
-  close, and installs nothing when disabled or under more than one
-  process.
+  close, and installs nothing when disabled (in one process or more).
 - A planned ``sigterm@4`` in ``train()`` stops both packages at step 4
   with a ``preempted`` record, the one save at step 4 and no final eval;
   ``--resume`` goes on from it, and both legs' losses agree with JAX's
@@ -82,13 +81,15 @@ def test_guard_close_drops_an_unread_notice():
 
 @pytest.mark.parametrize("why", ["disabled", "world_of_two"])
 def test_guard_installs_nothing_when_it_must_not_stop(why, monkeypatch):
-    """Without a checkpoint directory, or under more than one process
-    (no coordinated stop yet: one rank stopping alone would leave the
-    others in their collectives), the guard never stops."""
+    """Without a checkpoint directory the guard installs nothing and never
+    stops, in one process or under more than one (where it makes no
+    group either). The coordinated stop of an enabled guard over two
+    ranks: tests/test_torch_preemption_world.py."""
     monkeypatch.setattr(preemption, "_world", lambda: 2 if why != "disabled"
                         else 1)
     prev = signal.getsignal(signal.SIGTERM)
-    guard = PreemptionGuard(enabled=why != "disabled")
+    guard = PreemptionGuard(enabled=False)
+    assert guard._group is None
     assert signal.getsignal(signal.SIGTERM) == prev
     guard._flag.set()
     assert not guard.should_stop(0)

@@ -5,8 +5,8 @@
   each, as JAX's do; ``bind`` consumes events and silences signals.
 - The ``ResilienceConfig`` has JAX's fields and defaults, and the phase
   and journal checks raise JAX's messages on the same configs; the train
-  loop's knobs that were once refused are accepted as in JAX, and
-  ``device_loss`` stays refused naming ROADMAP.md A7.
+  loop's knobs that were once refused, ``device_loss`` included, are
+  accepted as in JAX.
 - On a fake fire engine (continuation-aware token streams, a poisoned
   slot's row garbage and flagged) advancing one fake clock, the port's
   and JAX's schedulers make the same decisions: quarantines (records and
@@ -233,18 +233,14 @@ def test_fire_config_checks_equal_jax(case):
 ])
 def test_train_loop_resilience_is_refused_naming_a8(case):
     """The five train-loop knobs the port once refused (naming ROADMAP.md
-    A8) now run: both packages accept each. ``device_loss`` (with the
-    checkpoint directory its mask file needs) is the one still refused,
-    naming A7 (the elastic restart)."""
+    A8) now run: both packages accept each, and so ``device_loss`` (with
+    the checkpoint directory its mask file needs), once refused naming
+    A7, which the elastic restart now takes."""
     cfg_kw, res_kw, what = case
     got = _validate(tconfig, cfg_kw, res_kw, {})
     # JAX runs each of these.
     assert _validate(jconfig, cfg_kw, res_kw, {})[0] == "ok"
-    if what == "device_loss":
-        assert got[0] == "NotImplementedError" and what in got[1]
-        assert "ROADMAP.md A7" in got[1] and "A8" not in got[1]
-    else:
-        assert got == ("ok", None), what
+    assert got == ("ok", None), what
 
 
 def test_fire_flags_parse_as_jax(tmp_path):

@@ -12,7 +12,8 @@ JAX's supervisor tests run against the port's CLI on the CPU.
 - A tensor-parallel serve child (``--serve.mesh-model 2`` over gloo):
   SIGKILLed, restarted, its journal's streams the clean run's, and no
   worker process of the killed leg left alive.
-- ``--elastic`` is refused naming ROADMAP.md A7.
+- ``--elastic`` runs (``tests/test_torch_elastic*.py`` hold its planning
+  and its restarts to JAX's).
 """
 
 import json
@@ -104,9 +105,16 @@ def test_supervisor_usage_error():
     assert tsup.main([]) == 2
 
 
-def test_elastic_is_refused_naming_a7(capsys):
-    assert tsup.main(["--elastic", "--", *TRAIN]) == 2
-    assert "ROADMAP.md A7" in capsys.readouterr().err
+def test_elastic_is_refused_naming_a7():
+    """``--elastic`` (once refused naming ROADMAP.md A7) runs: a CPU child
+    with no mesh flag is probed (one CPU device undeclared), pinned to
+    ``--mesh.data 1`` and run to its end, with no mesh change."""
+    proc = _run(["--elastic", "--", *TRAIN])
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-1000:]
+    leg = proc.stdout.split("[supervisor] leg 0:")[1].splitlines()[0]
+    assert leg.endswith("--mesh.data 1") and "torch.distributed.run" not in leg
+    assert "mesh_change" not in proc.stdout
+    assert "clean exit after 0 restart(s)" in proc.stdout
 
 
 @pytest.mark.parametrize("args,restarts", [

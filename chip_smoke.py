@@ -262,7 +262,10 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
              journal with the uninterrupted stream (the top-2 gap
              excuse). Beside them the flag's own device cost on a decode
              step's logits, and the serve phase's traced step (launches,
-             device busy, one device-to-host copy a step);
+             device busy, one device-to-host copy a step). (a) and (c)
+             run alone; (d)'s two CLI processes run beside (b) and (d)'s
+             in-process reference, none of which is timed; the legs'
+             seconds are printed;
 34. train_fire — training under faults on GPT-2-small's fused-CE path
              (``--ce-chunk 8192 --ce-impl kernel``, 8 steps, every loss
              logged), four legs: (a) the plain run, the same run under
@@ -286,7 +289,9 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
              ``nan_grad@5``: ``skip_batch`` trains past the skip record to
              a finite loss, ``halt`` exits 2 in a CLI process, ``rewind``
              with a save every 2 steps rewinds from 5 to 4, quarantines
-             step 6 and ends at step 8 with a finite loss (no kernel);
+             step 6 and ends at step 8 with a finite loss (no kernel).
+             (a) and (c) run alone; (b)'s two CLI processes run beside
+             (d), neither timed; the legs' seconds are printed;
 35. model_bert — BERT-base (12 x 768, 12 heads, vocab 30522 + the [MASK]
              row, L 512) on the card in bf16 through B1 non-causal (once a
              layer) against the same weights in f32 on the CPU: the logits
@@ -514,7 +519,29 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
              model 2 resumes at data 1 x model 2, (d) ``sigterm@5`` on
              every rank of data 4: every rank stops at step 6, one save,
              exit 0, and the ``--resume`` run ends; the losses after each
-             resize within 1e-2 of one card's run.
+             resize within 1e-2 of one card's run;
+62. serve_fleet — fleet serving (``fleet/``), run after serve_fire on
+             the checkpoint phase's GPT-2-small (``--only serve_fleet``:
+             the same model saved untrained from the seed) in f32: two
+             replica processes of ``--mode serve`` (4 slots each) on the
+             card behind ``fleet.run.run_fleet``; 16 requests of 16-64
+             prompt tokens, 32 new tokens each, 0.1 s apart, classes
+             high:standard 1:3. Replica r1 is SIGKILLed once a request
+             there is mid-decode once half the requests have arrived
+             (found through its journal); once every
+             request is done and r1 is back, a newer step of the same
+             weights is published and the controller rolls it one
+             replica at a time. Gates: 16 done, none lost or shed; one
+             death, one restart (a fresh epoch), at least one
+             re-dispatch; one rolling swap, no partial roll, both
+             replicas serving the new step (staleness back to 0); each
+             replica's last snapshot parsing, its seq risen, its
+             requests_done the router's count; every stream equal to
+             one-process ``generate()`` on the restored weights (the
+             top-2 gap excuse). Printed: the replicas' start seconds,
+             death to the re-dispatched request's next token, the
+             restart, each replica's swap seconds, fleet tokens/s, the
+             TTFT p50/p95 of each class, each replica's peak memory.
 
 It then prints the seconds of each phase, the nvidia-smi line, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -525,11 +552,12 @@ result.
 
 runs the device and build phases, then only the named phases, with the
 same checks, and prints the nvidia-smi line last (no kernels or ok
-line). The phases it takes: ``ce_kernels`` and phases 35-61.
+line). The phases it takes: ``ce_kernels`` and phases 35-62.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -771,6 +799,19 @@ SERVE_CKPT_ARGV = ["--mode", "serve", *CKPT_MODEL_ARGV, "--synthetic-vocab",
                    "--serve.prompt-len-min", "16", "--serve.prompt-len-max",
                    "256", "--serve.max-new-tokens", "16", "--serve.stream",
                    "true"]
+# serve_fleet: two replica processes of the port's --mode serve on one
+# card behind the fleet router and controller (fleet/), the checkpoint
+# phase's GPT-2-small in f32.
+FLEET_REQUESTS, FLEET_NEW, FLEET_GAP_S, FLEET_SLOTS = 16, 32, 0.1, 4
+FLEET_PROMPTS = (16, 64)   # prompt lengths, drawn from FLEET_SEED
+FLEET_SEED = 7
+FLEET_ARGV = ["--mode", "serve", *CKPT_MODEL_ARGV, "--synthetic-vocab",
+              "50257", "--compute-dtype", "float32", "--serve.num-slots",
+              str(FLEET_SLOTS), "--serve.buckets", "64,128"]
+FLEET_ROLL = 3             # the rolled step: the served one + this
+FLEET_TIMEOUT_S = 420      # the fleet's serving loop, the roll included
+FLEET_KILL_TOKENS = (1, 16)  # r1 dies with a request this far decoded,
+FLEET_KILL_AFTER_S = 0.8     # once half the requests have arrived
 # The Llama-style GPT at GPT-2-small's published widths (12 layers x 768 x
 # 12 heads of 64, vocab 50257, d_ff 3072) with RoPE, grouped-query
 # attention over 4 K/V heads (the JAX package's genbench --n-kv-heads 4),
@@ -856,7 +897,7 @@ TOL_U8 = 1e-5
 U8_STEPS_HELD = 5
 # ResNet-50 at 224 (ImageNet shapes, 1000 classes) and ResNet-20 on
 # CIFAR-10 shapes, synthetic sets made from the seed.
-# The phases ``--only`` runs alone: ce_kernels and phases 35-61.
+# The phases ``--only`` runs alone: ce_kernels and phases 35-62.
 ONLY_PHASES = ("ce_kernels", "model_bert", "train_bert", "train_text",
                "train_cnn_u8", "model_resnet", "train_resnet", "tp_kernels",
                "model_tp", "train_tp", "model_zero", "train_zero",
@@ -864,7 +905,7 @@ ONLY_PHASES = ("ce_kernels", "model_bert", "train_bert", "train_text",
                "model_pipe", "train_pipe", "model_local_sgd",
                "model_pipe_tp", "model_pipe_seq", "train_local_sgd",
                "train_pipe3d", "model_serve_tp", "serve_tp", "generate_tp",
-               "model_reshard", "train_elastic")
+               "model_reshard", "train_elastic", "serve_fleet")
 # ZeRO-1, FSDP and the explicit gradient sync: GPT-2-small as published
 # (tied) on the stacked transport of D data ranks, each leg's steps
 # through the port's train step; then --param-partition / --grad-sync
@@ -3654,6 +3695,29 @@ def fire_engine_runs(torch, argv, paged: bool):
     return record, done, base, requests, engine
 
 
+def beside(fn):
+    """Run ``fn`` in a thread beside the caller's work; returns a call
+    that waits for it and gives its result (or raises what it raised,
+    a failed check's exit included)."""
+    out = {}
+
+    def run():
+        try:
+            out["value"] = fn()
+        except BaseException as e:
+            out["error"] = e
+
+    worker = threading.Thread(target=run, daemon=True)
+    worker.start()
+
+    def result():
+        worker.join()
+        if "error" in out:
+            raise out["error"]
+        return out["value"]
+    return result
+
+
 def fire_cli(argv, what: str, phase: str = "serve_fire"):
     """``python -m tensorflow_distributed_tpu_torch.cli argv`` in a
     process of its own, its standard output read as it comes. Returns
@@ -3870,14 +3934,12 @@ def fire_leg_c() -> None:
           f"(the stall lasts {FIRE_STALL_S} s)")
 
 
-def fire_leg_d(torch) -> None:
-    """serve_fire (d): a CLI process SIGKILLed mid-traffic with a journal;
-    the same command resumes it; against the uninterrupted run in this
-    process."""
-    from tensorflow_distributed_tpu_torch.config import parse_args
+def fire_leg_d_clis() -> dict:
+    """serve_fire (d)'s two CLI processes: a run SIGKILLed mid-traffic
+    with a journal, then the same command resuming it. Returns their exit
+    codes, the second's output, the requests finished before the kill,
+    the replayed journal and its records."""
     from tensorflow_distributed_tpu_torch.serve import journal
-    from tensorflow_distributed_tpu_torch.serve.run import serve_setup
-    from tensorflow_distributed_tpu_torch.serve.scheduler import Scheduler
 
     with tempfile.TemporaryDirectory(prefix="tfd_fire_") as tmp:
         jpath = os.path.join(tmp, "serve.journal")
@@ -3890,16 +3952,32 @@ def fire_leg_d(torch) -> None:
         played = journal.replay(jpath)
         with open(jpath) as f:
             recs = [json.loads(line) for line in f if line.startswith("{")]
-    summary2 = event_record(out2, "serve_summary") or {}
-    done_records = {}
-    for rec in recs:
-        if rec.get("e") == "done":
-            done_records[rec["rid"]] = done_records.get(rec["rid"], 0) + 1
+    return {"rc1": rc1, "finished": finished, "rc2": rc2, "out2": out2,
+            "played": played, "recs": recs}
+
+
+def fire_leg_d(torch, clis=None) -> None:
+    """serve_fire (d): a CLI process SIGKILLed mid-traffic with a journal;
+    the same command resumes it; against the uninterrupted run in this
+    process (computed first: ``clis``, a ``beside`` of fire_leg_d_clis,
+    runs the processes meanwhile; None runs them here)."""
+    from tensorflow_distributed_tpu_torch.config import parse_args
+    from tensorflow_distributed_tpu_torch.serve.run import serve_setup
+    from tensorflow_distributed_tpu_torch.serve.scheduler import Scheduler
+
     cfg, engine, requests = serve_setup(parse_args(FIRE_KILL_ARGV + [
         "--device", DEVICE]))
     engine.warmup()
     ref = {c.rid: c for c in Scheduler(
         engine, decode_priority=cfg.serve.decode_priority).run(requests)}
+    got = clis() if clis is not None else fire_leg_d_clis()
+    rc1, finished, rc2, out2, played, recs = (
+        got[k] for k in ("rc1", "finished", "rc2", "out2", "played", "recs"))
+    summary2 = event_record(out2, "serve_summary") or {}
+    done_records = {}
+    for rec in recs:
+        if rec.get("e") == "done":
+            done_records[rec["rid"]] = done_records.get(rec["rid"], 0) + 1
     excused = []
     for r in requests:
         why = stream_check(torch, engine.model, r.prompt.tolist(),
@@ -3933,10 +4011,338 @@ def phase_serve_fire(torch, np, ckpt_dir: str, serve: dict) -> None:
     """Serving under faults at full width: the four legs of the module
     docstring's phase 33 (``serve``: the serve phase's record, whose
     traced decode step the flag's cost stands beside)."""
+    legs = {}
+    t0 = time.time()
     fire_leg_a(torch, ckpt_dir, serve)
-    fire_leg_b(torch, np)
+    legs["a"] = round(time.time() - t0, 1)
+    t0 = time.time()
     fire_leg_c()
-    fire_leg_d(torch)
+    legs["c"] = round(time.time() - t0, 1)
+    # (d)'s two CLI processes run beside (b) and (d)'s reference in this
+    # process: none of the three is timed.
+    t0 = time.time()
+    clis = beside(fire_leg_d_clis)
+    fire_leg_b(torch, np)
+    legs["b"] = round(time.time() - t0, 1)
+    fire_leg_d(torch, clis)
+    legs["b_and_d"] = round(time.time() - t0, 1)
+    emit({"phase": "serve_fire", "leg_seconds": legs})
+
+
+def fleet_workload(np, path: str) -> list:
+    """serve_fleet's request file: FLEET_REQUESTS prompts of
+    FLEET_PROMPTS tokens over GPT-2's vocabulary, FLEET_NEW new tokens
+    each, arriving FLEET_GAP_S apart, every fourth of class high and the
+    rest standard (1:3), all drawn from FLEET_SEED."""
+    rng = np.random.default_rng(FLEET_SEED)
+    rows = []
+    for i in range(FLEET_REQUESTS):
+        plen = int(rng.integers(FLEET_PROMPTS[0], FLEET_PROMPTS[1] + 1))
+        rows.append({"prompt": rng.integers(0, 50257, plen).tolist(),
+                     "max_new_tokens": FLEET_NEW,
+                     "arrival_s": round(FLEET_GAP_S * i, 3),
+                     "slo": "high" if i % 4 == 0 else "standard"})
+    with open(path, "w") as f:
+        for row in rows:
+            f.write(json.dumps(row) + "\n")
+    return rows
+
+
+def publish_step(src: str, ckpt_dir: str, step: int) -> str:
+    """Publish checkpoint directory ``src`` as step ``step`` of
+    ``ckpt_dir`` with the same weights: its ``state.msgpack`` hard-linked
+    (copied where a link fails), its manifest naming the new step, staged
+    and renamed so that a poller never sees half a step."""
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    tmp = final + ".tmp"
+    os.makedirs(tmp)
+    for name in os.listdir(src):
+        a, b = os.path.join(src, name), os.path.join(tmp, name)
+        if name == "manifest.json":
+            with open(a) as f:
+                manifest = json.load(f)
+            manifest["step"] = step
+            with open(b, "w") as f:
+                json.dump(manifest, f)
+        else:
+            try:
+                os.link(a, b)
+            except OSError:
+                shutil.copy2(a, b)
+    os.rename(tmp, final)
+    return final
+
+
+def fleet_checkpoint(torch, tmp: str) -> str:
+    """``--only serve_fleet``'s checkpoint: GPT-2-small as the
+    checkpoint phase builds it (seeded, untrained), saved once."""
+    from tensorflow_distributed_tpu_torch.config import parse_args
+    from tensorflow_distributed_tpu_torch.train import checkpoint as ckpt
+    from tensorflow_distributed_tpu_torch.train.loop import (
+        _build_model_and_state)
+
+    d = os.path.join(tmp, "ckpt_src")
+    cfg = parse_args(CHECKPOINT_ARGV + ["--device", DEVICE])
+    _, state = _build_model_and_state(cfg, torch.device(DEVICE))
+    state.step = CHECKPOINT_STEPS
+    ckpt.save(d, state)
+    del state
+    torch.cuda.empty_cache()
+    return d
+
+
+@contextlib.contextmanager
+def fds_to(path: str):
+    """Standard output and error (the file descriptors, so child
+    processes' too) into ``path`` for the block."""
+    sys.stdout.flush()
+    sys.stderr.flush()
+    saved = [os.dup(1), os.dup(2)]
+    with open(path, "w") as log:
+        os.dup2(log.fileno(), 1)
+        os.dup2(log.fileno(), 2)
+        try:
+            yield
+        finally:
+            sys.stdout.flush()
+            sys.stderr.flush()
+            os.dup2(saved[0], 1)
+            os.dup2(saved[1], 2)
+            for fd in saved:
+                os.close(fd)
+
+
+def fleet_marks(ctl, router, marks: dict, stop) -> None:
+    """serve_fleet's watcher (a thread from serving's start): kills r1
+    once half the requests have arrived and a request there is mid-decode
+    (FLEET_KILL_TOKENS decoded, found through its journal), then records the seconds to the first token of
+    a re-dispatched request (as the router reads it), the restarted
+    replica's first snapshot and the snapshots' first sequence numbers."""
+    h0, h1 = ctl.members["r0"].handle, ctl.members["r1"].handle
+    lo, hi = FLEET_KILL_TOKENS
+    while not stop.is_set():
+        now = time.monotonic()
+        for name, h in (("r0", h0), ("r1", h1)):
+            snap = h.read_snapshot()
+            key = f"first_seq_{name}_e{h.epoch}"
+            if snap is not None and key not in marks:
+                marks[key] = snap["seq"]
+        if "kill" not in marks:
+            if now - marks["serving"] < FLEET_KILL_AFTER_S:
+                stop.wait(0.005)
+                continue
+            jr = h1.read_journal(epoch=h1.epoch)
+            if any(not e["done"] and lo <= len(e["tokens"]) <= hi
+                   for e in jr.values()):
+                marks["kill"] = now
+                marks["killed_journal"] = {
+                    int(rid): len(e["tokens"]) for rid, e in jr.items()
+                    if not e["done"]}
+                ctl.kill("r1")
+        else:
+            if "next_token" not in marks and any(
+                    t.redispatched and t.cur and t.state != "shed"
+                    for t in list(router.tracks.values())):
+                marks["next_token"] = now
+            if ("restarted" not in marks and h1.epoch >= 1
+                    and h1.read_snapshot() is not None):
+                marks["restarted"] = now
+        stop.wait(0.005)
+
+
+def phase_serve_fleet(torch, np, ckpt_dir=None) -> None:
+    """Fleet serving on one card: two replicas of ``--mode serve`` behind
+    ``fleet.run.run_fleet``; r1 SIGKILLed mid-decode and restarted on a
+    fresh epoch, a newer step of the same weights rolled one replica at
+    a time; every stream against one-process ``generate()`` (phase 62)."""
+    from tensorflow_distributed_tpu_torch.fleet.controller import (
+        ControllerConfig)
+    from tensorflow_distributed_tpu_torch.fleet.router import RouterConfig
+    from tensorflow_distributed_tpu_torch.fleet.run import (
+        load_workload, run_fleet)
+    from tensorflow_distributed_tpu_torch.models.generate import generate
+
+    with tempfile.TemporaryDirectory(prefix="tfd_fleet_") as tmp:
+        if ckpt_dir is None:
+            ckpt_dir = fleet_checkpoint(torch, tmp)
+        steps = sorted(int(n[5:]) for n in os.listdir(ckpt_dir)
+                       if re.fullmatch(r"step_\d{8}", n))
+        served = steps[-1]
+        ck = os.path.join(tmp, "ckpt")
+        os.makedirs(ck)
+        publish_step(os.path.join(ckpt_dir, f"step_{served:08d}"), ck,
+                     served)
+        rows = fleet_workload(np, os.path.join(tmp, "wl.jsonl"))
+        argv = FLEET_ARGV + ["--checkpoint-dir", ck]
+        fleet_dir = os.path.join(tmp, "fleet")
+        marks, stop = {}, threading.Event()
+        ref = {}
+
+        def reference():
+            # One process's generate() on the restored weights, while the
+            # replicas start (serving waits for it below).
+            try:
+                _, model, state = restored(torch, argv + ["--device",
+                                                          DEVICE])
+                if state.ema is not None:
+                    model.load_state_dict(state.ema)
+                del state
+                ref["model"] = model
+                ref["streams"] = [generate(model, torch.tensor(
+                    [row["prompt"]], device=DEVICE), FLEET_NEW)[0].tolist()
+                    for row in rows]
+                sync(torch)
+            except BaseException as e:  # re-raised by the phase
+                ref["error"] = e
+
+        worker = threading.Thread(target=reference, daemon=True)
+        worker.start()
+
+        def start(ctl, router):
+            marks["serving"] = time.monotonic()
+            worker.join()
+            marks["reference_wait_s"] = time.monotonic() - marks["serving"]
+            threading.Thread(target=fleet_marks, daemon=True,
+                             args=(ctl, router, marks, stop)).start()
+
+        def linger(ctl, router):
+            # Every request done: once r1 is back, publish the newer step
+            # and keep the fleet up until the controller has rolled it.
+            if ctl.rolling_swaps + ctl.partial_rolls:
+                return False
+            if "restarted" in marks and "published" not in marks:
+                publish_step(os.path.join(ck, f"step_{served:08d}"), ck,
+                             served + FLEET_ROLL)
+                marks["published"] = time.monotonic()
+            return True
+
+        log = os.path.join(tmp, "replicas.log")
+        t_call = time.monotonic()
+        try:
+            with fds_to(log):
+                summary = run_fleet(
+                    fleet_dir=fleet_dir, replicas=2, base_args=argv,
+                    workload=load_workload(os.path.join(tmp, "wl.jsonl")),
+                    ckpt_dir=ck, actions=[(0.0, start)], linger=linger,
+                    env=dict(os.environ, PYTHONPATH=REPO,
+                             PYTHONUNBUFFERED="1"),
+                    router_cfg=RouterConfig(dispatch_timeout_s=60.0),
+                    controller_cfg=ControllerConfig(backoff_base_s=0.25),
+                    timeout_s=FLEET_TIMEOUT_S,
+                    jsonl=os.path.join(tmp, "fleet.jsonl"))
+        except BaseException:
+            with open(log) as f:
+                sys.stderr.write(f.read()[-6000:])
+            raise
+        finally:
+            stop.set()
+        t_end = time.monotonic()
+        fleet_recs = [json.loads(line) for line in
+                      open(os.path.join(tmp, "fleet.jsonl"))]
+        final = {}
+        for name, epoch in (("r0", 0), ("r1", 1)):
+            d = os.path.join(fleet_dir, name, f"e{epoch}")
+            with open(os.path.join(d, "snapshot.json")) as f:
+                snap = json.load(f)
+            mem = [r for r in (json.loads(line) for line in
+                               open(os.path.join(d, "metrics.jsonl")))
+                   if r["event"] == "device_memory"]
+            final[name] = {"snapshot": snap, "peak_bytes": (
+                mem[-1]["peak_bytes_by_rank"][0] if mem else None)}
+        dead_done = sum(
+            1 for line in open(os.path.join(fleet_dir, "r1", "e0",
+                                            "journal.jsonl"))
+            if line.startswith('{"e": "done"'))
+        roll = [r for r in fleet_recs if r["event"] in ("fleet_roll",
+                                                        "fleet_swap")]
+        begin = next((r["t_s"] for r in roll if r.get("state") == "begin"),
+                     None)
+        swap_s, prev = {}, begin
+        for r in roll:
+            if r["event"] == "fleet_swap" and "state" not in r:
+                swap_s[r["replica"]] = round(r["t_s"] - prev, 3)
+                prev = r["t_s"]
+        with open(log) as f:
+            replica_lines = f.read().count("\n")
+        worker.join()
+        if "error" in ref:
+            raise ref["error"]
+        excused = []
+        for rid, row in enumerate(rows):
+            why = stream_check(torch, ref["model"], row["prompt"],
+                               summary["tokens"].get(str(rid), []),
+                               ref["streams"][rid],
+                               f"serve_fleet: request {rid}")
+            if why:
+                excused.append({"rid": rid, **why})
+        ref.clear()
+        torch.cuda.empty_cache()
+    rolled = served + FLEET_ROLL
+    record = {
+        "phase": "serve_fleet", "argv": argv, "requests": FLEET_REQUESTS,
+        "served_step": served, "rolled_step": rolled,
+        "replica_start_s": round(marks["serving"] - t_call, 3)
+        if "serving" in marks else None,
+        "death_to_next_token_s": round(marks["next_token"] - marks["kill"], 3)
+        if "next_token" in marks and "kill" in marks else None,
+        "restart_s": round(marks["restarted"] - marks["kill"], 3)
+        if "restarted" in marks and "kill" in marks else None,
+        "killed_journal": marks.get("killed_journal"),
+        "reference_wait_s": round(marks.get("reference_wait_s", 0.0), 3),
+        "swap_s": swap_s, "fleet_wall_s": round(t_end - t_call, 3),
+        "identical": FLEET_REQUESTS - len(excused), "excused": excused,
+        "replica_log_lines": replica_lines,
+        **{k: summary.get(k) for k in (
+            "requests_done", "requests_lost", "requests_shed", "deaths",
+            "restarts", "redispatches", "dispatches", "quarantines",
+            "rolling_swaps", "partial_rolls", "swap_timeouts",
+            "staleness_max_steps", "replica_done", "tokens_per_sec",
+            "wall_s", "ttft_ms_p50_high", "ttft_ms_p95_high",
+            "ttft_ms_p50_standard", "ttft_ms_p95_standard",
+            "ttft_ms_p99_recovery", "drained_clean", "timed_out")},
+        "replicas": {name: {
+            "ckpt_step": v["snapshot"].get("ckpt_step"),
+            "seq_first": marks.get(f"first_seq_{name}_e{e}"),
+            "seq_last": v["snapshot"].get("seq"),
+            "requests_done": v["snapshot"].get("requests_done"),
+            "peak_bytes": v["peak_bytes"]}
+            for (name, v), e in zip(sorted(final.items()), (0, 1))},
+        "dead_epoch_done": dead_done}
+    emit(record)
+    fleet_gates(record)
+
+
+def fleet_gates(rec: dict) -> None:
+    """serve_fleet's gates on its record."""
+    check(not rec["timed_out"], "serve_fleet: the fleet timed out")
+    check(rec["requests_done"] == FLEET_REQUESTS
+          and rec["requests_lost"] == 0 and rec["requests_shed"] == 0,
+          f"serve_fleet: {rec['requests_done']} done, "
+          f"{rec['requests_lost']} lost, {rec['requests_shed']} shed")
+    check(rec["deaths"] == 1 and rec["restarts"] == 1
+          and rec["redispatches"] >= 1,
+          f"serve_fleet: deaths {rec['deaths']}, restarts "
+          f"{rec['restarts']}, redispatches {rec['redispatches']}")
+    check(rec["rolling_swaps"] == 1 and rec["partial_rolls"] == 0,
+          f"serve_fleet: rolling_swaps {rec['rolling_swaps']}, "
+          f"partial_rolls {rec['partial_rolls']}")
+    reps = rec["replicas"]
+    check(all(r["ckpt_step"] == rec["rolled_step"] for r in reps.values()),
+          f"serve_fleet: staleness not back to 0 "
+          f"({ {n: r['ckpt_step'] for n, r in reps.items()} } served, "
+          f"{rec['rolled_step']} trained)")
+    for name, r in reps.items():
+        check(r["seq_first"] is not None and r["seq_last"] > r["seq_first"],
+              f"serve_fleet: {name}'s snapshot seq did not rise "
+              f"({r['seq_first']} -> {r['seq_last']})")
+    done = rec["replica_done"] or {}
+    check(reps["r0"]["requests_done"] == done.get("r0")
+          and reps["r1"]["requests_done"] + rec["dead_epoch_done"]
+          == done.get("r1"),
+          f"serve_fleet: the replicas' snapshots count "
+          f"{ {n: r['requests_done'] for n, r in reps.items()} } (+ "
+          f"{rec['dead_epoch_done']} in r1's dead epoch), the router "
+          f"{done}")
 
 
 def step_losses(out: str):
@@ -4099,10 +4505,10 @@ def train_fire_leg_a(kernels, torch) -> list:
     return plain["losses"]
 
 
-def train_fire_leg_b(plain) -> None:
-    """train_fire (b): sigterm@TRAIN_FIRE_SIGTERM in a CLI process saves at
-    the stopping step and exits 0; a --resume process completes the run
-    on the plain run's losses."""
+def train_fire_leg_b_clis() -> dict:
+    """train_fire (b)'s two CLI processes: sigterm@TRAIN_FIRE_SIGTERM,
+    then the --resume run. Returns their exit codes and outputs and the
+    saves after each."""
     from tensorflow_distributed_tpu_torch.train import checkpoint
 
     with tempfile.TemporaryDirectory(prefix="tfd_train_fire_") as d:
@@ -4114,6 +4520,18 @@ def train_fire_leg_b(plain) -> None:
         rc2, out2 = fire_cli(argv + ["--resume", "true"], "b: resumed",
                              "train_fire")[:2]
         final = checkpoint.available_steps(d)
+    return {"rc1": rc1, "out1": out1, "saved": saved, "rc2": rc2,
+            "out2": out2, "final": final}
+
+
+def train_fire_leg_b(plain, clis=None) -> None:
+    """train_fire (b): sigterm@TRAIN_FIRE_SIGTERM in a CLI process saves at
+    the stopping step and exits 0; a --resume process completes the run
+    on the plain run's losses (``clis``: a ``beside`` of
+    train_fire_leg_b_clis; None runs the processes here)."""
+    got = clis() if clis is not None else train_fire_leg_b_clis()
+    rc1, out1, saved, rc2, out2, final = (
+        got[k] for k in ("rc1", "out1", "saved", "rc2", "out2", "final"))
     stopped = event_record(out1, "preempted") or {}
     resumed = event_record(out2, "resumed") or {}
     first, second = step_losses(out1), step_losses(out2)
@@ -4206,10 +4624,21 @@ def train_fire_leg_d(torch) -> None:
 def phase_train_fire(kernels, torch) -> None:
     """Training under faults: the four legs of the module docstring's
     phase 34."""
+    t0 = time.time()
     plain = train_fire_leg_a(kernels, torch)
-    train_fire_leg_b(plain)
+    legs = {"a": round(time.time() - t0, 1)}
+    t0 = time.time()
     train_fire_leg_c()
+    legs["c"] = round(time.time() - t0, 1)
+    # (b)'s two CLI processes run beside (d), the CNN legs: neither is
+    # timed.
+    t0 = time.time()
+    clis = beside(train_fire_leg_b_clis)
     train_fire_leg_d(torch)
+    legs["d"] = round(time.time() - t0, 1)
+    train_fire_leg_b(plain, clis)
+    legs["b_and_d"] = round(time.time() - t0, 1)
+    emit({"phase": "train_fire", "leg_seconds": legs})
 
 
 # --- the BASELINE families and their data (phases 35-40) --------------------
@@ -6998,7 +7427,8 @@ def run_alone(names, fa, fce, kernels, torch, np, F) -> None:
              "serve_tp": lambda: phase_serve_tp(torch),
              "generate_tp": lambda: phase_generate_tp(torch),
              "model_reshard": lambda: phase_model_reshard(kernels, torch),
-             "train_elastic": lambda: phase_train_elastic(torch)}
+             "train_elastic": lambda: phase_train_elastic(torch),
+             "serve_fleet": lambda: phase_serve_fleet(torch, np)}
     for name in names:
         alone[name]()
         lap(name)
@@ -7109,6 +7539,8 @@ def main(argv=None) -> int:
         lap("serve_slo")
         phase_serve_fire(torch, np, ckpt_dir, serve)
         lap("serve_fire")
+        phase_serve_fleet(torch, np, ckpt_dir)
+        lap("serve_fleet")
     phase_train_fire(kernels, torch)
     lap("train_fire")
     phase_model_bert(fa, torch, np)

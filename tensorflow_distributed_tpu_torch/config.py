@@ -9,10 +9,13 @@ rejected with an error that points at ROADMAP.md, never ignored.
 Every field shared with the JAX ``TrainConfig``, ``MeshConfig`` and
 ``ServeConfig`` has the JAX default, ``model`` included: the bare CLI
 call trains the reference's ``mnist_cnn`` on the MNIST idx files under
-``--data-dir``. Every ``--serve.*`` and ``--resilience.*`` flag of the
-JAX CLI parses; those of the layers not ported yet are refused unless
-they keep their default (``--resilience.fault-plan`` and
-``--resilience.sync-timeout-s`` run under ``--mode serve``).
+``--data-dir``. Every ``--serve.*``, ``--resilience.*`` and
+``--observe.*`` flag of the JAX CLI parses; those of the layers not
+ported yet are refused unless they keep their default
+(``--resilience.fault-plan`` and ``--resilience.sync-timeout-s`` run
+under ``--mode serve``; the serve observatory's ``--observe.*`` flags
+and ``--serve.inbox`` under ``--mode serve`` only, naming ROADMAP.md A8
+for the rest).
 ``--param-partition``, ``--grad-sync`` and ``--grad-sync-bucket-mb``
 take the JAX values, checks and messages; the port also refuses a
 partition under ``--mode serve`` and with ``--optimizer adafactor``.
@@ -40,7 +43,10 @@ from typing import Optional, Sequence
 from tensorflow_distributed_tpu_torch.resilience.faults import (
     SERVE_KINDS, TRAIN_KINDS, parse_fault_plan)
 from tensorflow_distributed_tpu_torch.serve.buckets import parse_buckets
-from tensorflow_distributed_tpu_torch.serve.scheduler import parse_slo_mix
+from tensorflow_distributed_tpu_torch.observe.slo import (
+    parse_slo, parse_windows)
+from tensorflow_distributed_tpu_torch.serve.scheduler import (
+    SLO_CLASSES, parse_slo_mix)
 
 SCHEDULES = ("constant", "cosine", "warmup_cosine")
 OPTIMIZERS = ("adam", "sgd", "adafactor")
@@ -61,6 +67,12 @@ DATA_BACKENDS = ("numpy", "u8_native")
 INIT_SCHEMES = ("improved", "reference")
 MODES = ("train", "eval", "generate", "serve")
 SERVE_TRACES = ("poisson", "bursty", "diurnal")
+
+
+class FlagNotPorted(NotImplementedError):
+    """A flag of a layer the port does not run yet, set off its default
+    (``parse_args`` exits with its message, as for a flag it does not
+    parse)."""
 
 
 @dataclasses.dataclass
@@ -91,14 +103,223 @@ class MeshConfig:
 
 
 @dataclasses.dataclass
+class ObserveConfig:
+    """The JAX ``ObserveConfig``: every field with its JAX spelling and
+    default, so both CLIs parse the same ``--observe.*`` flags. The port
+    runs the serve observatory (``observe/hub.py``'s ``ServeObservatory``)
+    under ``--mode serve``: the metrics JSONL, the per-request trace, the
+    SLO monitor, the rolling snapshot export and the anomaly detectors.
+    The other fields (the CSV sink, MFU's peak and window, the
+    compiled-program registry, health telemetry, the flight recorder,
+    the autopilot) belong to layers not ported yet and are refused at a
+    non-default value, as is every observe flag outside ``--mode serve``
+    (ROADMAP.md A8)."""
+
+    # JSONL metrics sink: one JSON object per event (serve_request,
+    # serve_summary, metrics_snapshot, slo_alert, anomaly, recovery).
+    metrics_jsonl: str = ""
+    # CSV sink (training's step records).
+    metrics_csv: str = ""
+    # mode=serve: the per-request Perfetto trace (observe/serve_trace.py).
+    trace: str = ""
+    # Rewrite the trace file at every request-lifecycle edge (a
+    # SIGKILLed fleet replica leaves its in-flight spans on disk).
+    trace_durable: bool = False
+    # Per-device peak TFLOP/s for MFU (training).
+    peak_tflops: float = 0.0
+    # Rolling window (steps) of the step-time stats (training).
+    window: int = 200
+    # In-memory record ring-buffer cap of the registry.
+    max_records: int = 100_000
+    # The compiled-program registry (JAX programs).
+    programs: bool = True
+    # On-device model-health telemetry (training).
+    health: bool = False
+    health_every: int = 0
+    health_taps: bool = False
+    # Declared SLO targets (observe/slo.py grammar):
+    # "high:ttft_p95=100ms,tok_p50=30ms;standard:ttft_p95=500ms".
+    slo: str = ""
+    # Burn-rate windows in decode steps, "fast,slow".
+    slo_windows: str = "60,600"
+    # Burn-rate alert threshold (a multiple of the sustainable rate).
+    slo_burn: float = 1.0
+    # The live status line's cadence in decode steps (0 = the fast
+    # window's when slo is armed, off otherwise).
+    slo_status_every: int = 0
+    # Rolling-metrics snapshot cadence in seconds (scheduler clock);
+    # 0 = one final snapshot when export_path is set.
+    export_every: float = 0.0
+    # The atomic snapshot file a poller (the fleet router) reads.
+    export_path: str = ""
+    # Online anomaly detection (serve: TTFT spike, decode-step-time
+    # spike, queue growth, slot non-finite).
+    anomaly: bool = False
+    # The detectors' rolling window (decode steps).
+    anomaly_window: int = 64
+    # The crash flight recorder.
+    flightrec: str = ""
+    flightrec_ring: int = 256
+    flightrec_snapshot_every: int = 50
+    # The autopilot (online controller).
+    autopilot: bool = False
+    autopilot_every: int = 50
+    autopilot_confirm: int = 3
+    autopilot_cooldown: int = 200
+    autopilot_drift_tol: float = 0.25
+    autopilot_pin: str = ""
+    autopilot_calibration: str = ""
+
+    def validate(self) -> None:
+        """The JAX ObserveConfig's checks, with its messages; then the
+        refusal of the fields of layers not ported yet."""
+        if self.health_every < 0:
+            raise ValueError(
+                f"observe.health_every must be >= 0, "
+                f"got {self.health_every}")
+        if self.health_every and not self.health:
+            raise ValueError(
+                "observe.health_every has no effect without "
+                "observe.health; add --observe.health true")
+        if self.health_taps and not self.health:
+            raise ValueError(
+                "observe.health_taps has no effect without "
+                "observe.health; add --observe.health true")
+        if self.window < 1:
+            raise ValueError(
+                f"observe.window must be >= 1, got {self.window}")
+        if self.max_records < 1:
+            raise ValueError(
+                f"observe.max_records must be >= 1, "
+                f"got {self.max_records}")
+        if self.peak_tflops < 0:
+            raise ValueError(
+                f"observe.peak_tflops must be >= 0, "
+                f"got {self.peak_tflops}")
+        if self.trace_durable and not self.trace:
+            raise ValueError(
+                "observe.trace_durable has no effect without "
+                "observe.trace; set a trace path (--observe.trace)")
+        if self.slo:
+            parse_slo(self.slo)  # grammar at config time
+        parse_windows(self.slo_windows)
+        if self.slo_burn <= 0:
+            raise ValueError(
+                f"observe.slo_burn must be > 0, got {self.slo_burn}")
+        if not self.slo:
+            if self.slo_windows != "60,600":
+                raise ValueError(
+                    "observe.slo_windows has no effect without "
+                    "observe.slo; declare targets (--observe.slo)")
+            if self.slo_burn != 1.0:
+                raise ValueError(
+                    "observe.slo_burn has no effect without "
+                    "observe.slo; declare targets (--observe.slo)")
+        if self.slo_status_every < 0:
+            raise ValueError(
+                f"observe.slo_status_every must be >= 0, "
+                f"got {self.slo_status_every}")
+        if self.export_every < 0:
+            raise ValueError(
+                f"observe.export_every must be >= 0, "
+                f"got {self.export_every}")
+        if self.anomaly_window < 8:
+            raise ValueError(
+                f"observe.anomaly_window must be >= 8, "
+                f"got {self.anomaly_window}")
+        if self.anomaly_window != 64 and not self.anomaly:
+            raise ValueError(
+                "observe.anomaly_window has no effect without "
+                "observe.anomaly; add --observe.anomaly true")
+        if self.flightrec_ring < 8:
+            raise ValueError(
+                f"observe.flightrec_ring must be >= 8, "
+                f"got {self.flightrec_ring}")
+        if self.flightrec_snapshot_every < 1:
+            raise ValueError(
+                f"observe.flightrec_snapshot_every must be >= 1, "
+                f"got {self.flightrec_snapshot_every}")
+        if not self.flightrec and (
+                self.flightrec_ring != 256
+                or self.flightrec_snapshot_every != 50):
+            raise ValueError(
+                "observe.flightrec_ring/flightrec_snapshot_every have "
+                "no effect without observe.flightrec; set a bundle "
+                "directory (--observe.flightrec DIR)")
+        if self.autopilot_every < 1:
+            raise ValueError(
+                f"observe.autopilot_every must be >= 1, "
+                f"got {self.autopilot_every}")
+        if self.autopilot_confirm < 1:
+            raise ValueError(
+                f"observe.autopilot_confirm must be >= 1, "
+                f"got {self.autopilot_confirm}")
+        if self.autopilot_cooldown < 0:
+            raise ValueError(
+                f"observe.autopilot_cooldown must be >= 0, "
+                f"got {self.autopilot_cooldown}")
+        if self.autopilot_drift_tol <= 0:
+            raise ValueError(
+                f"observe.autopilot_drift_tol must be > 0, "
+                f"got {self.autopilot_drift_tol}")
+        if self.autopilot_pin:
+            bad = sorted(
+                {p.strip() for p in self.autopilot_pin.split(",")
+                 if p.strip()} - set(AUTOPILOT_KNOBS))
+            if bad:
+                raise ValueError(
+                    f"observe.autopilot_pin: unknown knob(s) "
+                    f"{', '.join(bad)} (valid: "
+                    f"{', '.join(AUTOPILOT_KNOBS)})")
+        if not self.autopilot and (
+                self.autopilot_every != 50
+                or self.autopilot_confirm != 3
+                or self.autopilot_cooldown != 200
+                or self.autopilot_drift_tol != 0.25
+                or self.autopilot_pin
+                or self.autopilot_calibration):
+            raise ValueError(
+                "observe.autopilot_* knobs have no effect without "
+                "observe.autopilot; add --observe.autopilot true")
+        unported = self.unported()
+        if unported:
+            raise FlagNotPorted(
+                f"--observe.{unported[0].replace('_', '-')}="
+                f"{getattr(self, unported[0])!r} is not ported to PyTorch "
+                f"yet (see ROADMAP.md A8)")
+
+    def unported(self) -> list:
+        """The fields of layers not ported yet set off their defaults."""
+        return [f.name for f in dataclasses.fields(self)
+                if f.name not in OBSERVE_SERVE_FIELDS
+                and getattr(self, f.name) != f.default]
+
+    def armed(self) -> list:
+        """Every field set off its default."""
+        return [f.name for f in dataclasses.fields(self)
+                if getattr(self, f.name) != f.default]
+
+
+# The fields of the serve observatory, which the port runs.
+OBSERVE_SERVE_FIELDS = (
+    "metrics_jsonl", "trace", "trace_durable", "max_records", "slo",
+    "slo_windows", "slo_burn", "slo_status_every", "export_every",
+    "export_path", "anomaly", "anomaly_window")
+# The autopilot's knobs (JAX observe/autopilot.py KNOBS), which
+# --observe.autopilot-pin names.
+AUTOPILOT_KNOBS = ("calibration", "slot_cap", "spec_k", "decode_priority",
+                   "num_pages", "buckets")
+
+
+@dataclasses.dataclass
 class ServeConfig:
     """``--mode serve``'s knobs: the JAX ``ServeConfig``, every field with
     its JAX spelling and default. The port runs the dense slot engine, or
     with ``paged`` the paged one (radix prefix cache, sessions), either
     over a bf16 or an int8 cache, speculative with ``spec_tokens``, under
     the FIFO or the SLO scheduler, on one card or tensor-parallel over
-    ``mesh_model`` cards; ``inbox`` belongs to the fleet, not ported yet
-    (``_SERVE_NOT_PORTED``), and must keep its default."""
+    ``mesh_model`` cards, on a workload of its own or, with ``inbox``, as
+    a fleet replica (``fleet/replica.py``)."""
 
     # Decode batch width: concurrent requests in flight.
     num_slots: int = 8
@@ -198,7 +419,12 @@ class ServeConfig:
     # and n_kv_heads, and the vocabulary unless --shard-vocab true pads
     # it (serve/run.py checks both). 1 = the one-card engine.
     mesh_model: int = 1
-    # --- the fleet, not ported yet (ROADMAP.md A6) -------------------
+    # Fleet serving (fleet/): the inbox file this replica tails for
+    # requests and control commands (fleet/replica.py's line protocol).
+    # With an inbox the scheduler serves an open-ended stream (no
+    # workload of its own) until a drain command lands and the engine
+    # runs dry. Needs an explicit --seq-len (no workload to size the
+    # cache from) and --serve.journal (the router's data plane).
     inbox: str = ""
 
     def validate(self) -> None:
@@ -252,15 +478,26 @@ class ServeConfig:
                 f"serve.mesh_model must be >= 1, "
                 f"got {self.mesh_model}")
         self._validate_paging()
+        if self.inbox:
+            # Inbox mode replaces the workload: the knobs that shape a
+            # synthetic or file workload would do nothing (JAX's checks).
+            if self.requests:
+                raise ValueError(
+                    "serve.inbox streams requests from the fleet "
+                    "router; a request file is a fixed workload — "
+                    "drop one of the flags")
+            if self.trace or self.slo_mix or self.session_turns > 1:
+                raise ValueError(
+                    "serve.trace/slo_mix/session_turns shape the "
+                    "SYNTHETIC workload; with serve.inbox the router "
+                    "owns arrivals, classes, and sessions — drop "
+                    "them")
+            if not self.journal:
+                raise ValueError(
+                    "serve.inbox needs --serve.journal: the journal "
+                    "is how the fleet router reads tokens back and "
+                    "re-dispatches after a replica death")
         self._validate_slo()
-        unported = [name for name, default in _SERVE_NOT_PORTED.items()
-                    if getattr(self, name) != default]
-        if unported:
-            raise NotImplementedError(
-                f"--serve.{unported[0].replace('_', '-')}="
-                f"{getattr(self, unported[0])!r} (the fleet's replica "
-                f"intake) is not ported to PyTorch yet (see ROADMAP.md "
-                f"A6)")
 
     def _validate_slo(self) -> None:
         """The JAX ServeConfig's checks of the SLO scheduler's knobs, with
@@ -345,13 +582,6 @@ class ServeConfig:
                 "serve.hbm_budget_gb sizes num_pages automatically; "
                 "an explicit --serve.num-pages already pins the pool "
                 "— drop one of the flags")
-
-
-# The serve knobs of layers not ported yet (the fleet inbox), at their
-# defaults.
-_SERVE_NOT_PORTED = {
-    f.name: f.default for f in dataclasses.fields(ServeConfig)
-    if f.name in ("inbox",)}
 
 
 @dataclasses.dataclass
@@ -655,6 +885,9 @@ class TrainConfig:
     # sentinel, so that any explicit value without overlap is refused).
     grad_sync_bucket_mb: Optional[float] = None
     serve: ServeConfig = dataclasses.field(default_factory=ServeConfig)
+    # Observability (observe/): the serve observatory under mode=serve.
+    observe: ObserveConfig = dataclasses.field(
+        default_factory=ObserveConfig)
     # Fault injection and the decode watchdog (resilience/).
     resilience: ResilienceConfig = dataclasses.field(
         default_factory=ResilienceConfig)
@@ -1179,6 +1412,13 @@ class TrainConfig:
         self._validate_moe()
         self._validate_pipe()
         self.mesh.validate()
+        self.observe.validate()
+        armed = self.observe.armed()
+        if self.mode != "serve" and armed:
+            raise FlagNotPorted(
+                f"--observe.{armed[0].replace('_', '-')} under --mode "
+                f"{self.mode} (the training observatory) is not ported to "
+                f"PyTorch yet (see ROADMAP.md A8)")
         self.resilience.validate()
         self.serve.validate()
 
@@ -1281,6 +1521,48 @@ class TrainConfig:
             raise ValueError(
                 "serve.journal is written by the mode=serve "
                 "scheduler; drop the flag")
+        self._validate_observe()
+
+    def _validate_observe(self) -> None:
+        """The JAX TrainConfig's checks of the fleet inbox and of the
+        serve observatory's flags against the mode, with its messages;
+        the refusal of any observe flag outside mode=serve (the training
+        observatory is not ported yet) follows ObserveConfig's own
+        checks, as JAX's order has them."""
+        if self.serve.inbox:
+            if self.mode != "serve":
+                raise ValueError(
+                    "serve.inbox is the mode=serve fleet-replica "
+                    "intake; drop the flag or add --mode serve")
+            if not self.seq_len:
+                raise ValueError(
+                    "serve.inbox has no workload to auto-size the "
+                    "cache from — set an explicit --seq-len (the "
+                    "fleet's per-request bound)")
+        obs = self.observe
+        if self.mode != "serve":
+            if obs.slo:
+                raise ValueError(
+                    "observe.slo declares SERVING latency targets "
+                    "(mode=serve's live burn-rate monitor); drop the "
+                    "flag or add --mode serve")
+            if obs.export_every or obs.export_path:
+                raise ValueError(
+                    "observe.export_every/export_path dump the "
+                    "mode=serve scheduler's rolling-metrics "
+                    "snapshots; drop the flags or add --mode serve")
+            if obs.slo_status_every:
+                raise ValueError(
+                    "observe.slo_status_every prints the mode=serve "
+                    "scheduler's live status line; drop the flag or "
+                    "add --mode serve")
+        elif obs.slo:
+            for tgt in parse_slo(obs.slo):
+                if tgt.cls and tgt.cls not in SLO_CLASSES:
+                    raise ValueError(
+                        f"observe.slo names unknown class "
+                        f"{tgt.cls!r}; have {SLO_CLASSES} (or no "
+                        f"prefix for all requests)")
 
 
 def _add_dataclass_args(parser: argparse.ArgumentParser, cls,
@@ -1332,9 +1614,13 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> TrainConfig:
 
     cfg = TrainConfig(mesh=MeshConfig(**nested("mesh")),
                       serve=ServeConfig(**nested("serve")),
+                      observe=ObserveConfig(**nested("observe")),
                       resilience=ResilienceConfig(**nested("resilience")),
                       **fields)
-    cfg.validate()
+    try:
+        cfg.validate()
+    except FlagNotPorted as e:
+        parser.error(str(e))
     return cfg
 
 

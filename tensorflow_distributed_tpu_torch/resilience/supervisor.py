@@ -34,9 +34,11 @@ Exit codes (the CLI's):
 
 SIGTERM and SIGINT sent to the supervisor are forwarded to the child.
 Each restart prints an ``{"event": "recovery", "kind": "restart", ...}``
-record on standard output. JAX also appends its records to the child's
-``--observe.metrics-jsonl``; the port has no ``--observe.*`` sink yet,
-and that append comes with it (ROADMAP.md A8).
+record on standard output and, as JAX's, appends it to the child's
+``--observe.metrics-jsonl`` (``durable_append``), beside the
+``mesh_change``, ``mesh_exhausted``, ``diverged_no_restart`` and
+``restart_budget_exhausted`` records; the dead leg's flight-recorder
+bundle is not ported yet (ROADMAP.md A8).
 
 A child whose mesh (``--mesh.data`` x ``pipe`` x ``seq`` x ``model`` x
 ``expert``) holds more than one process runs as ``python -m
@@ -93,6 +95,7 @@ from tensorflow_distributed_tpu_torch.config import child_flag
 from tensorflow_distributed_tpu_torch.parallel.mesh import pick_data_width
 from tensorflow_distributed_tpu_torch.resilience.faults import (
     device_mask_path)
+from tensorflow_distributed_tpu_torch.utils.atomicio import durable_append
 
 CLI = "tensorflow_distributed_tpu_torch.cli"
 EXIT_DIVERGED = 2
@@ -252,6 +255,18 @@ def build_leg_args(child_args: Sequence[str], restarts: int) -> List[str]:
     return args
 
 
+def _append_event(jsonl_path: Optional[str], record: dict) -> None:
+    """Append one record to the child's metrics JSONL (when it names
+    one); the record went to standard output too, so a failed append
+    never stops the supervisor."""
+    if not jsonl_path:
+        return
+    try:
+        durable_append(jsonl_path, record)
+    except OSError:
+        pass
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if "--" not in argv:
@@ -275,6 +290,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     child_args = argv[split + 1:]
 
     ckpt_dir = _child_flag_value(child_args, child_flag("checkpoint_dir"))
+    jsonl = _child_flag_value(child_args,
+                              child_flag("observe.metrics_jsonl"))
     serve = _child_flag_value(child_args, child_flag("mode")) == "serve"
     journal = _child_flag_value(child_args, child_flag("serve.journal"))
     if serve and not journal:
@@ -313,6 +330,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     record = {"event": "recovery", "kind": "mesh_exhausted",
                               "leg": restarts, "alive": total - masked}
                     print(f"[supervisor] {json.dumps(record)}", flush=True)
+                    _append_event(jsonl, record)
                     # The dead leg's code, a signal's death as 128 + the
                     # signal (a raw negative code would alias another
                     # exit status); 1 when no leg ran.
@@ -333,6 +351,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                               "to_mesh": mesh, "alive": total - masked,
                               "masked": masked}
                     print(f"[supervisor] {json.dumps(record)}", flush=True)
+                    _append_event(jsonl, record)
                 prev_mesh = mesh
         cmd = leg_command(args)
         print(f"[supervisor] leg {restarts}: {' '.join(cmd)}", flush=True)
@@ -358,10 +377,16 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         if rc == EXIT_DIVERGED and not opts.restart_on_diverge:
             print("[supervisor] child diverged (rc=2); not restarting "
                   "(pass --restart-on-diverge to override)", flush=True)
+            _append_event(jsonl, {
+                "event": "recovery", "kind": "diverged_no_restart",
+                "restarts": restarts, "rc": rc})
             return rc
         if restarts >= opts.max_restarts:
             print(f"[supervisor] restart budget exhausted "
                   f"({opts.max_restarts}); last rc={rc}", flush=True)
+            _append_event(jsonl, {
+                "event": "recovery", "kind": "restart_budget_exhausted",
+                "restarts": restarts, "rc": rc})
             return 128 - rc if rc < 0 else rc
         restarts += 1
         delay = min(opts.backoff_base_s * 2 ** (restarts - 1),
@@ -370,6 +395,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                   "rc": rc, "backoff_s": round(delay, 3),
                   "resume": bool(journal) if serve else bool(ckpt_dir)}
         print(f"[supervisor] {json.dumps(record)}", flush=True)
+        _append_event(jsonl, record)
         time.sleep(delay)
 
 if __name__ == "__main__":

@@ -67,6 +67,7 @@ read), ``_warm_prefills`` and ``_warm_drills``.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import Dict, Mapping, Optional, Sequence, Tuple
@@ -134,7 +135,7 @@ class SlotDecodeEngine:
     def __init__(self, model, num_slots: int,
                  buckets: Optional[Sequence[int]] = None,
                  min_bucket: int = 16, spec_tokens: int = 0,
-                 fault_plan=None, watchdog=None):
+                 fault_plan=None, watchdog=None, tracer=None):
         cfg = model.cfg
         if not cfg.causal:
             raise ValueError("SlotDecodeEngine needs a causal model")
@@ -176,6 +177,17 @@ class SlotDecodeEngine:
         # A tensor-parallel chief's link to its workers (serve/
         # tp_replica.py sets it); None on one process and on a worker.
         self.channel = None
+        # The serve trace (observe/serve_trace.py): a decode or verify
+        # step and a prefill each become a span on the host thread.
+        self.tracer = tracer
+        # The checkpoint step the weights were restored from (serve/
+        # run.py's build_engine sets it; None for fresh-init weights).
+        self.restored_step: Optional[int] = None
+
+    def _span(self, name: str, **args):
+        if self.tracer is None:
+            return contextlib.nullcontext()
+        return self.tracer.engine_span(name, **args)
 
     @property
     def tp_width(self) -> int:
@@ -308,7 +320,9 @@ class SlotDecodeEngine:
         """Admit a request into ``slot``: bucketed prefill, row insert,
         greedy first token. Returns the first generated token."""
         prompt = self._admission(prompt, slot)
-        first, _ = self._prefill_tail(prompt, 0, slot)
+        with self._span(f"prefill_b{pick_bucket(len(prompt), self.buckets)}",
+                        slot=slot, prompt_len=len(prompt)):
+            first, _ = self._prefill_tail(prompt, 0, slot)
         self._activate(slot, first, len(prompt))
         return first
 
@@ -356,11 +370,13 @@ class SlotDecodeEngine:
             raise RuntimeError(
                 "an active slot is at max_len: the scheduler admitted a "
                 "request that cannot fit (fits() is the guard)")
-        packed = self._step_device(self.tok, self.pos, self._tables_arg())
-        # The engine's output: one [num_slots, 2] fetch a step (the
-        # tokens and the finiteness flags) drives EOS/budget termination,
-        # streaming and NaN containment.
-        nxt, self._last_ok = self._fetch(packed)
+        with self._span("decode_step", live=int(self.active.sum())):
+            packed = self._step_device(self.tok, self.pos,
+                                       self._tables_arg())
+            # The engine's output: one [num_slots, 2] fetch a step (the
+            # tokens and the finiteness flags) drives EOS/budget
+            # termination, streaming and NaN containment.
+            nxt, self._last_ok = self._fetch(packed)
         act = self.active
         self.tok[act] = nxt[act]
         self.pos[act] += 1
@@ -501,11 +517,14 @@ class SlotDecodeEngine:
             toks_in[s] = window
             start[s] = self.pos[s] - k
             fallback.append(s)
-        packed = self._verify_device(toks_in, start, self._tables_arg())
-        # The engine's output: one [num_slots, k + 2] fetch a dispatch
-        # (the chain and the finiteness flags) drives acceptance,
-        # streaming and NaN containment.
-        nxt, self._last_ok = self._fetch(packed)
+        with self._span("verify_step", live=int(self.active.sum()),
+                        fallback=len(fallback)):
+            packed = self._verify_device(toks_in, start,
+                                         self._tables_arg())
+            # The engine's output: one [num_slots, k + 2] fetch a
+            # dispatch (the chain and the finiteness flags) drives
+            # acceptance, streaming and NaN containment.
+            nxt, self._last_ok = self._fetch(packed)
         acc = np.zeros((self.num_slots,), np.int32)
         for s in range(self.num_slots):
             if not self.active[s]:

@@ -7,8 +7,8 @@ whole request: id, prompt, budget, EOS), ``tok`` (one retired token of
 one request) and ``done`` (the request finished), flushed to the OS once
 per scheduler iteration, so a SIGKILLed serving process leaves a journal
 complete up to its last decode step. A fourth kind, ``reject`` (a
-request the replica cannot serve), is written by the JAX package's fleet
-intake, which the port does not have yet; replay reads it. A restarted
+request a fleet replica cannot serve), tells the fleet router to shed
+it. A restarted
 leg (the same ``--mode serve`` command) replays the journal and
 re-admits every unfinished request as a CONTINUATION: its prompt
 extended by the tokens already journaled, its budget cut by as many.
@@ -74,6 +74,13 @@ class RequestJournal:
     def done(self, rid: int) -> None:
         self._line({"e": "done", "rid": int(rid)})
 
+    def reject(self, rid: int) -> None:
+        """The request cannot be served here (it does not fit the cache,
+        or it arrived while draining): a fleet router reading the journal
+        sheds it instead of waiting for it. A replica never crashes over a
+        bad dispatch."""
+        self._line({"e": "reject", "rid": int(rid)})
+
     def flush(self) -> None:
         if self._f is not None:
             self._f.flush()
@@ -87,7 +94,9 @@ class RequestJournal:
 def fold_record(out: Dict[int, Dict[str, Any]],
                 rec: Dict[str, Any]) -> None:
     """Fold one parsed journal record into a replay accumulator: the one
-    definition of the journal's semantics."""
+    definition of the journal's semantics, shared by :func:`replay` and
+    the fleet router's incremental tail
+    (``fleet.replica.ReplicaHandle.read_journal``)."""
     rid = rec.get("rid")
     if rid is None:
         return

@@ -283,7 +283,9 @@ class PagedSlotEngine(SlotDecodeEngine):
         self.page_count[slot] = len(table)
         self.private_start[slot] = m
         self._tables_dev = None
-        first, bucket = self._prefill_tail(prompt[m:], m, slot)
+        with self._span(f"prefill_b{pick_bucket(plen - m, self.buckets)}",
+                        slot=slot, prompt_len=plen):
+            first, bucket = self._prefill_tail(prompt[m:], m, slot)
         self._activate(slot, first, plen)
         live = {int(p) for s in range(self.num_slots) if self.active[s]
                 for p in self.tables[s, :int(self.page_count[s])]}
@@ -436,15 +438,17 @@ def page_bytes_estimate(cfg, page_size: int, tp: int = 1) -> int:
 
 
 def auto_num_pages(*, num_slots: int, need_pages: int, page_bytes: int,
-                   budget_bytes: int = 0, reserved_bytes: int = 0):
+                   budget_bytes: int = 0, reserved_bytes: int = 0,
+                   observed_peak: int = 0):
     """The ``--serve.num-pages`` default: ``(num_pages, rationale
     lines)``, as JAX sizes it:
 
     - the serving reservation ``S = num_slots * need_pages`` (every slot
       holding a worst-case trajectory of ``need_pages`` pages);
-    - the prefix cache's headroom: ``S`` again (JAX can size it from a
-      previous run's ``slot_pages_peak``; the port has no run record to
-      read it from yet, ROADMAP.md A8);
+    - the prefix cache's headroom: ``observed_peak`` (a previous run's
+      measured ``slot_pages_peak``, the distinct pages its live slots
+      held, read by serve/run.py from the standing
+      ``--observe.export-path`` snapshot) when there is one, else ``S``;
     - the pool: 1 write-off page + S + the headroom, never below ``2 +
       S`` (one copy-on-write page above the reservation);
     - an ``hbm_budget_gb`` cap bounds it at ``(budget - reserved) /
@@ -453,12 +457,15 @@ def auto_num_pages(*, num_slots: int, need_pages: int, page_bytes: int,
     """
     serving = int(num_slots) * int(need_pages)
     floor = 2 + serving
-    pool = 1 + 2 * serving
+    headroom = int(observed_peak) if observed_peak else serving
+    pool = 1 + serving + headroom
     lines = [
         f"serving reservation: {num_slots} slots x {need_pages} "
         f"pages = {serving} pages",
-        f"prefix-cache headroom: {serving} pages (no observed "
-        f"slot_pages_peak — worst case)",
+        ("prefix-cache headroom: observed slot_pages_peak "
+         f"{observed_peak}" if observed_peak else
+         f"prefix-cache headroom: {serving} pages (no observed "
+         f"slot_pages_peak — worst case)"),
     ]
     if budget_bytes:
         avail = max(0, int(budget_bytes) - int(reserved_bytes))

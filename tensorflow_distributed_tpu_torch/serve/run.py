@@ -41,6 +41,22 @@ continuations, and the plan is bound past its events, signals
 included). A ``reload`` swaps in the newest verifiable checkpoint under
 ``--checkpoint-dir``. Such a run prints a ``[serve] fire:`` line.
 
+The serve observatory (``observe/hub.py``'s ``ServeObservatory``):
+``--observe.metrics-jsonl`` (the run's records), ``--observe.trace``
+(the per-request Perfetto span trees), ``--observe.slo`` (the burn-rate
+monitor and its status line), ``--observe.export-every`` /
+``--observe.export-path`` (the atomic rolling snapshot) and
+``--observe.anomaly``; the JSONL and the trace continue across a journal
+resume.
+
+``--serve.inbox`` makes this process a fleet replica
+(``fleet/replica.py``): no workload of its own, requests and commands
+streamed from the inbox file, serving until a ``drain`` command lands;
+its journal (``--serve.journal``, required) is always fresh (a restarted
+replica gets a new epoch's paths: the router re-dispatched the dead
+epoch's work). The checkpoint step restored at start-up rides the
+snapshot as ``ckpt_step`` (a swap keeps it current).
+
 ``--serve.mesh-model N`` serves one replica over N cards
 (``serve/tp_replica.py``): this process is the chief, which starts N - 1
 worker processes, runs every host decision and writes the journal, the
@@ -57,6 +73,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -64,6 +81,8 @@ import numpy as np
 import torch
 
 from tensorflow_distributed_tpu_torch.config import TrainConfig
+from tensorflow_distributed_tpu_torch.observe.hub import ServeObservatory
+from tensorflow_distributed_tpu_torch.observe.registry import host_tags
 from tensorflow_distributed_tpu_torch.models.transformer import (
     cast_dense_weights_, kv_heads)
 from tensorflow_distributed_tpu_torch.parallel import mesh as mesh_lib
@@ -244,7 +263,10 @@ def serve_setup(cfg: TrainConfig, played: Optional[Dict] = None
 
         encode, _, vocab = text_codec(cfg.data_dir, cfg.text_tokenizer,
                                       cfg.bpe_vocab_size)
-    requests = _workload(cfg, vocab, encode)
+    # A fleet replica has no workload of its own: requests stream in
+    # from the router.
+    inbox = bool(cfg.serve.inbox)
+    requests = [] if inbox else _workload(cfg, vocab, encode)
     if played:
         requests = journal_mod.apply_replay(requests, played)
         if not requests:
@@ -255,10 +277,16 @@ def serve_setup(cfg: TrainConfig, played: Optional[Dict] = None
         # The resumed leg is the recovery under test: every planned
         # event is consumed (a resumed leg must terminate).
         plan.bind(1 << 30)
-    max_prompt = max(len(r.prompt) for r in requests)
-    # The trajectory bound (what has to fit the cache); bucket padding is
-    # prefill-only slack, clamped to the cache by the ladder's cap.
-    need = max(len(r.prompt) + r.max_new_tokens for r in requests)
+    if inbox:
+        # No workload to measure: the explicit --seq-len is the bound,
+        # and a continuation can re-prefill at any depth.
+        max_prompt = need = cfg.seq_len
+    else:
+        max_prompt = max(len(r.prompt) for r in requests)
+        # The trajectory bound (what has to fit the cache); bucket
+        # padding is prefill-only slack, clamped to the cache by the
+        # ladder's cap.
+        need = max(len(r.prompt) + r.max_new_tokens for r in requests)
     if cfg.seq_len and need > cfg.seq_len:
         raise ValueError(
             f"--seq-len {cfg.seq_len} cannot hold the workload: the "
@@ -277,7 +305,7 @@ def serve_setup(cfg: TrainConfig, played: Optional[Dict] = None
         cfg = dataclasses.replace(cfg, seq_len=auto_len)
     # A continuation (slot retry, journal resume, preemption) carries up
     # to prompt + new - 1 tokens.
-    cover = (need if (plan or played or cfg.serve.policy == "slo")
+    cover = (need if (plan or played or inbox or cfg.serve.policy == "slo")
              else max_prompt)
     buckets = (parse_buckets(cfg.serve.buckets) if cfg.serve.buckets
                else default_buckets(cover, cap=cfg.seq_len))
@@ -372,6 +400,7 @@ def build_engine(cfg: TrainConfig, buckets, vocab: int, need: int, *,
     model, state = _build_model_and_state(
         cfg, device, vocab_size=vocab, mesh=mesh,
         vocab_shards=checkpoint_vocab_shards(cfg))
+    restored_step = None
     if cfg.checkpoint_dir:
         # A local-SGD save serves its replicas' mean, as --mode generate.
         state = (ckpt.restore_averaged(cfg.checkpoint_dir, state)
@@ -379,6 +408,7 @@ def build_engine(cfg: TrainConfig, buckets, vocab: int, need: int, *,
                  else ckpt.restore(cfg.checkpoint_dir, state))
         if state.ema is not None:
             model.load_state_dict(state.ema)
+        restored_step = int(state.step)
     del state  # the optimizer's moments are not served
     cast_dense_weights_(model)
     timeout = cfg.resilience.sync_timeout_s
@@ -387,8 +417,10 @@ def build_engine(cfg: TrainConfig, buckets, vocab: int, need: int, *,
                 watchdog=(Watchdog(sync_timeout_s=timeout)
                           if timeout > 0 and chief else None))
     if not cfg.serve.paged:
-        return SlotDecodeEngine(model, cfg.serve.num_slots, buckets=buckets,
-                                **fire)
+        engine = SlotDecodeEngine(model, cfg.serve.num_slots,
+                                  buckets=buckets, **fire)
+        engine.restored_step = restored_step
+        return engine
     num_pages = cfg.serve.num_pages
     if not num_pages:
         ps = cfg.serve.page_size
@@ -400,13 +432,30 @@ def build_engine(cfg: TrainConfig, buckets, vocab: int, need: int, *,
             page_bytes=page_bytes_estimate(model.cfg, ps,
                                            cfg.serve.mesh_model),
             budget_bytes=int(cfg.serve.hbm_budget_gb * 2 ** 30),
-            reserved_bytes=reserved)
+            reserved_bytes=reserved,
+            observed_peak=observed_slot_pages_peak(cfg.observe.export_path))
         for line in rationale if chief else ():
             print(f"[serve] paged auto-size: {line}", flush=True)
-    return PagedSlotEngine(model, cfg.serve.num_slots,
-                           page_size=cfg.serve.page_size,
-                           num_pages=num_pages, radix=cfg.serve.radix,
-                           buckets=buckets, **fire)
+    engine = PagedSlotEngine(model, cfg.serve.num_slots,
+                             page_size=cfg.serve.page_size,
+                             num_pages=num_pages, radix=cfg.serve.radix,
+                             buckets=buckets, **fire)
+    engine.restored_step = restored_step
+    return engine
+
+
+def observed_slot_pages_peak(export_path: str) -> int:
+    """A previous run's measured ``slot_pages_peak`` from the standing
+    ``--observe.export-path`` snapshot (0 when there is none, or it does
+    not parse): the paged pool's auto-size reads it as the prefix
+    cache's headroom."""
+    if not export_path or not os.path.exists(export_path):
+        return 0
+    try:
+        with open(export_path) as f:
+            return int(json.load(f).get("slot_pages_peak", 0))
+    except (OSError, ValueError, AttributeError):
+        return 0
 
 
 def reload_from(cfg: TrainConfig, engine: SlotDecodeEngine):
@@ -427,14 +476,16 @@ def reload_from(cfg: TrainConfig, engine: SlotDecodeEngine):
 
 
 def serve_run(cfg: TrainConfig) -> Dict:
-    """Run the serve workload; prints the ``[serve]`` summary line and
-    the summary as a JSON ``serve_summary`` record, and returns it.
-    Raises ``SlotRetryExhausted`` (a request quarantined past its budget)
-    or ``StallError`` (the decode watchdog), which the CLI maps to exit
-    codes 2 and 3."""
+    """Run the serve workload (a fleet replica: serve its inbox until a
+    drain); prints the ``[serve]`` summary line and the summary as a JSON
+    ``serve_summary`` record, and returns it. Raises
+    ``SlotRetryExhausted`` (a request quarantined past its budget) or
+    ``StallError`` (the decode watchdog), which the CLI maps to exit codes
+    2 and 3."""
     # A non-empty journal means a previous leg died mid-traffic: resume.
-    played = (journal_mod.replay(cfg.serve.journal) if cfg.serve.journal
-              else {})
+    # A fleet replica's journal is always fresh (a new epoch's path).
+    played = (journal_mod.replay(cfg.serve.journal)
+              if cfg.serve.journal and not cfg.serve.inbox else {})
     resumed = bool(played)
     cfg, engine, requests = serve_setup(cfg, played)
     if resumed:
@@ -457,6 +508,22 @@ def serve_run(cfg: TrainConfig) -> Dict:
 
 def _serve(cfg: TrainConfig, engine: SlotDecodeEngine,
            requests: List[Request], resumed: bool) -> Dict:
+    # The serve observatory: the registry, the per-request tracer, the
+    # SLO monitor, the anomaly hub and the export knobs; the trace and
+    # the JSONL continue across a journal resume.
+    obs = ServeObservatory(
+        cfg.observe, resumed=resumed,
+        tags=host_tags({"data": 1, "model": cfg.serve.mesh_model}, cfg))
+    engine.tracer = obs.tracer
+    try:
+        return _serve_observed(cfg, engine, requests, resumed, obs)
+    finally:
+        obs.close()
+
+
+def _serve_observed(cfg: TrainConfig, engine: SlotDecodeEngine,
+                    requests: List[Request], resumed: bool,
+                    obs: ServeObservatory) -> Dict:
     # The proposer: the k-gram self-draft, or a draft GPT mirroring the
     # slot cache (serve/speculate.py); a tensor-parallel replica's draft
     # runs whole on the chief's card, as JAX builds it without a mesh.
@@ -475,6 +542,20 @@ def _serve(cfg: TrainConfig, engine: SlotDecodeEngine,
             print(f"[serve] rid={rid} tok={tok}"
                   + (" <done>" if done else ""), flush=True)
 
+    status_fn = None
+    if obs.status_every:
+        def status_fn(line: str) -> None:
+            print(line, flush=True)
+
+    feed = None
+    if cfg.serve.inbox:
+        from tensorflow_distributed_tpu_torch.fleet.replica import InboxFeed
+
+        feed = InboxFeed(cfg.serve.inbox,
+                         default_max_new=cfg.serve.max_new_tokens,
+                         default_eos=cfg.serve.eos_id)
+        print(f"[serve] fleet replica: inbox {cfg.serve.inbox} (serving "
+              f"until a drain command)", flush=True)
     trace = cfg.serve.trace or ("file" if cfg.serve.requests else "uniform")
     journal = (journal_mod.RequestJournal(cfg.serve.journal)
                if cfg.serve.journal else None)
@@ -485,8 +566,11 @@ def _serve(cfg: TrainConfig, engine: SlotDecodeEngine,
                       policy=cfg.serve.policy,
                       tenant_quota=cfg.serve.tenant_quota,
                       preempt=cfg.serve.preempt, speculator=speculator,
+                      status_fn=status_fn, feed=feed,
+                      served_ckpt_step=engine.restored_step,
                       summary_extra={"seed": cfg.seed, "trace": trace,
-                                     "resumed": resumed})
+                                     "resumed": resumed},
+                      **obs.scheduler_kwargs())
     try:
         done = sched.run(requests)
     finally:
@@ -495,12 +579,21 @@ def _serve(cfg: TrainConfig, engine: SlotDecodeEngine,
         if engine.watchdog is not None:
             engine.watchdog.close()
     summary = dict(sched.summary)
-    ttfts = np.asarray([c.ttft_s for c in done])
-    for q in (50, 95, 99):
-        summary[f"ttft_ms_p{q}"] = round(
-            1e3 * float(np.percentile(ttfts, q)), 3)
-    summary["tok_ms_mean"] = round(
-        float(np.mean([c.tok_ms for c in done])), 4)
+    if done:
+        # A fleet replica can drain without having served a request.
+        ttfts = np.asarray([c.ttft_s for c in done])
+        for q in (50, 95, 99):
+            summary[f"ttft_ms_p{q}"] = round(
+                1e3 * float(np.percentile(ttfts, q)), 3)
+        summary["tok_ms_mean"] = round(
+            float(np.mean([c.tok_ms for c in done])), 4)
+    # The p95 TTFT of each SLO class present (JAX's), FIFO runs included.
+    by_class: Dict[str, list] = {}
+    for c in done:
+        by_class.setdefault(c.slo, []).append(c.ttft_s)
+    for cls, vals in sorted(by_class.items()):
+        summary[f"ttft_ms_p95_{cls}"] = round(
+            1e3 * float(np.percentile(np.asarray(vals), 95)), 3)
     summary["params"] = "checkpoint" if cfg.checkpoint_dir else "fresh-init"
     if engine.channel is not None:
         # What the workers' commands cost the chief's host.
@@ -516,6 +609,10 @@ def _serve(cfg: TrainConfig, engine: SlotDecodeEngine,
             engine.channel.peak_bytes(engine.device)
             if engine.channel is not None
             else [tp_replica.peak_bytes(engine.device)])
+        # Into the run's records too: a fleet replica's standard output
+        # is not its controller's to read.
+        obs.registry.emit("device_memory",
+                          peak_bytes_by_rank=summary["peak_bytes_by_rank"])
     print(f"[serve] {summary['requests']} requests, "
           f"{summary['total_new_tokens']} tokens in "
           f"{summary['wall_s']}s — "
@@ -553,5 +650,22 @@ def _serve(cfg: TrainConfig, engine: SlotDecodeEngine,
               f"swap_s={summary['swap_seconds']} "
               f"resumed={summary['resumed']} "
               f"ttft p99 {summary.get('ttft_ms_p99')}ms", flush=True)
+    if cfg.observe.slo:
+        print(f"[serve] slo monitor: "
+              f"alerts={summary.get('slo_alerts', 0)} "
+              f"budget_remaining_min="
+              f"{summary.get('slo_budget_remaining_min')} "
+              f"targets={summary.get('slo_targets')}", flush=True)
+    if cfg.observe.trace:
+        print(f"[observe] serve trace: {cfg.observe.trace} (open at "
+              f"https://ui.perfetto.dev)", flush=True)
+    if cfg.observe.export_path:
+        print(f"[observe] metrics snapshot: {cfg.observe.export_path} "
+              f"(atomic; rewritten every "
+              f"{cfg.observe.export_every or 'run-end'}"
+              f"{'s' if cfg.observe.export_every else ''})", flush=True)
+    if cfg.observe.metrics_jsonl:
+        print(f"[observe] serve metrics: {cfg.observe.metrics_jsonl}",
+              flush=True)
     print(json.dumps({"event": "serve_summary", **summary}), flush=True)
     return summary

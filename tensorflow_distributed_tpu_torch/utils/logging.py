@@ -4,8 +4,9 @@
 other events as one JSON object per line (the JAX StdoutSink format),
 keeps the step records in a bounded ring buffer, and renders the eval
 records as the reference's ``performance`` table. ``emit_event`` prints
-one such event (the JAX package's ``observe.registry.emit_event``, which
-the port has no registry behind: the record goes to standard output).
+one such event and, where a run installed its metrics registry
+(``observe.registry.set_active``: the serve observatory), emits it there
+too (the JAX package's ``observe.registry.emit_event``).
 """
 
 from __future__ import annotations
@@ -18,14 +19,24 @@ from dataclasses import dataclass
 from typing import Any, Dict, Optional, TextIO
 
 
-def emit_event(event: str, **fields: Any) -> None:
+def print_event(event: str, **fields: Any) -> None:
     """Print ``{"event": event, **fields}`` as one JSON line on standard
-    output (the fault and recovery records of resilience/ and serve/), in
-    one write: the ranks of a process group may share the stream, and
-    unbuffered, a record's text and its newline would be two writes
-    another rank's line could fall between."""
+    output, in one write: the ranks of a process group may share the
+    stream, and unbuffered, a record's text and its newline would be two
+    writes another rank's line could fall between."""
     sys.stdout.write(json.dumps({"event": event, **fields}) + "\n")
     sys.stdout.flush()
+
+
+def emit_event(event: str, **fields: Any) -> None:
+    """Print one event (the fault and recovery records of resilience/ and
+    serve/) and emit it through the run's active registry, if any."""
+    print_event(event, **fields)
+    from tensorflow_distributed_tpu_torch.observe.registry import get_active
+
+    registry = get_active()
+    if registry is not None:
+        registry.emit(event, **fields)
 
 
 @dataclass

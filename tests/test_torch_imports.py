@@ -61,7 +61,8 @@ def test_port_and_chip_smoke_import_without_jax():
     # uint8 data, and the native runtime's binding; the pipeline:
     # parallel.pipeline, models.pipelined, train.pipeline_step; local
     # SGD: train.local_sgd; tensor-parallel serving and restarts:
-    # serve.tp_replica, utils.atomicio, resilience.supervisor).
+    # serve.tp_replica, utils.atomicio, resilience.supervisor; the serve
+    # observatory and the fleet: observe.*, fleet.*).
     words = out.stdout.split()
     assert int(words[1]) >= 50
     for name in ("parallel.mesh", "models.cnn", "data.mnist",
@@ -76,7 +77,10 @@ def test_port_and_chip_smoke_import_without_jax():
                  "parallel.pipeline", "models.pipelined",
                  "train.pipeline_step", "train.local_sgd",
                  "serve.tp_replica", "utils.atomicio",
-                 "resilience.supervisor"):
+                 "resilience.supervisor", "observe", "observe.registry",
+                 "observe.slo", "observe.trace", "observe.serve_trace",
+                 "observe.anomaly", "observe.hub", "fleet", "fleet.replica",
+                 "fleet.router", "fleet.controller", "fleet.run"):
         assert f"tensorflow_distributed_tpu_torch.{name}" in words[2:]
 
 

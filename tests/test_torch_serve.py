@@ -37,7 +37,7 @@ from tensorflow_distributed_tpu.serve.engine import (
     SlotDecodeEngine as JaxEngine)
 from tensorflow_distributed_tpu_torch import cli, interop
 from tensorflow_distributed_tpu_torch.config import (
-    _SERVE_NOT_PORTED, ServeConfig, parse_args)
+    ServeConfig, parse_args)
 from tensorflow_distributed_tpu_torch.models import transformer as ttr
 from tensorflow_distributed_tpu_torch.models.generate import generate
 from tensorflow_distributed_tpu_torch.serve import buckets as tbuckets
@@ -208,11 +208,14 @@ def test_fifo_scheduler_makes_jax_decisions(case, monkeypatch):
 
 def test_scheduler_refusals():
     eng = _FakeEngine(_Clock())
-    for kw in (dict(feed=object()), dict(export_every=1.0),
-               dict(autopilot=object()), dict(tracer=object()),
-               dict(anomaly_hub=object()), dict(registry=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tsched.Scheduler(eng, **kw)
+    # The autopilot is not ported (ROADMAP.md A8); the serve observatory
+    # and the fleet intake are (tests/test_torch_serve_observe.py).
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A8"):
+        tsched.Scheduler(eng, autopilot=object())
+    tsched.Scheduler(eng, feed=object(), export_every=1.0, tracer=object(),
+                     anomaly_hub=object(), registry=object())
+    with pytest.raises(ValueError, match="export_every"):
+        tsched.Scheduler(eng, export_every=-1.0)
     # The fire layers are ported (tests/test_torch_serve_fire.py).
     tsched.Scheduler(eng, journal=object(), fault_plan=object(),
                      slot_retries=0, reload_fn=object())
@@ -424,24 +427,33 @@ def test_serve_sizes_the_cache_like_jax(extra, tmp_path):
             "--device", "cpu", "--serve.requests", str(path)]))
 
 
-@pytest.mark.parametrize("name", sorted(_SERVE_NOT_PORTED))
+@pytest.mark.parametrize("name", ["inbox"])
 def test_unported_serve_flags_are_refused(name):
-    default = _SERVE_NOT_PORTED[name]
-    if isinstance(default, bool):
-        value = str(not default).lower()
-    elif isinstance(default, (int, float)):
-        value = str(default + 2)
-    else:
-        value = "x.jsonl"
+    """The fleet intake, the last serve flag to be ported, parses as JAX
+    parses it: refused with JAX's message without its journal, under
+    another mode or without an explicit --seq-len, taken with them."""
+    from tensorflow_distributed_tpu.config import TrainConfig as JaxConfig
+    from tensorflow_distributed_tpu_torch.config import TrainConfig
+
     flag = f"--serve.{name.replace('_', '-')}"
-    parse_args(SERVE_ARGV + [flag, str(default).lower()
-                             if isinstance(default, bool) else str(default)])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        parse_args(SERVE_ARGV + [flag, value])
+    parse_args(SERVE_ARGV + [flag, ""])
+    argv = SERVE_ARGV + ["--seq-len", "64", flag, "x.jsonl"]
+    with pytest.raises(ValueError, match="needs --serve.journal"):
+        parse_args(argv)
+    argv += ["--serve.journal", "j.jsonl"]
+    tcfg, jcfg = parse_args(argv), jax_parse_args(argv)
+    assert getattr(tcfg.serve, name) == getattr(jcfg.serve, name)
+    for cfg_cls in (TrainConfig, JaxConfig):
+        with pytest.raises(ValueError, match="mode=serve fleet-replica"):
+            cfg = cfg_cls()
+            cfg.serve.inbox = "x.jsonl"
+            cfg.validate()
 
 
 @pytest.mark.parametrize("argv,error", [
-    (["--serve.inbox", "inbox.jsonl"], NotImplementedError),
+    # A fleet replica over a multi-process mesh (ROADMAP.md A6).
+    (["--serve.inbox", "inbox.jsonl", "--serve.journal", "j.jsonl",
+      "--seq-len", "64", "--mesh.data", "2"], NotImplementedError),
     (["--checkpoint-backend", "orbax"], NotImplementedError),
     (["--checkpoint-async", "true"], NotImplementedError),
     (["--model", "mnist_cnn"], ValueError),
@@ -537,7 +549,6 @@ def test_spec_and_slo_flags_parse_as_jax(name):
     tcfg, jcfg = parse_args(argv), jax_parse_args(argv)
     assert getattr(tcfg.serve, name) == getattr(jcfg.serve, name)
     assert getattr(tcfg.serve, name) != getattr(ServeConfig(), name)
-    assert name not in _SERVE_NOT_PORTED
 
 
 def _serve_check(module_config, **kw):
@@ -591,7 +602,6 @@ def test_paging_flags_parse_as_jax(name):
     tcfg, jcfg = parse_args(argv), jax_parse_args(argv)
     assert getattr(tcfg.serve, name) == getattr(jcfg.serve, name)
     assert getattr(tcfg.serve, name) != getattr(ServeConfig(), name)
-    assert name not in _SERVE_NOT_PORTED
 
 
 def test_paged_serve_rounds_the_cache_up_to_a_page():

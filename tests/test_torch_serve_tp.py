@@ -19,9 +19,9 @@ heads), f32:
 - one leg through the spawned-worker path over gloo: the CLI serving a
   checkpoint of the same weights at ``--serve.mesh-model 2`` journals
   JAX's streams;
-- the ``mesh_model`` refusals carry JAX's messages; MoE, the fleet
-  inbox and a multi-process ``--mesh.*`` stay refused naming ROADMAP.md
-  A6.
+- the ``mesh_model`` refusals carry JAX's messages; MoE and a
+  multi-process ``--mesh.*`` (a fleet replica's too) stay refused naming
+  ROADMAP.md A6.
 """
 
 import json
@@ -303,7 +303,9 @@ def test_too_few_cards_fail_with_jax_message(monkeypatch):
 
 @pytest.mark.parametrize("argv", [
     ["--model", "moe_lm", "--serve.mesh-model", "2"],
-    ["--serve.inbox", "inbox.jsonl"],
+    # A fleet replica over a multi-process mesh.
+    ["--serve.inbox", "inbox.jsonl", "--serve.journal", "j.jsonl",
+     "--seq-len", "64", "--mesh.seq", "2"],
     ["--mesh.data", "2"]], ids=["moe", "inbox", "multi_process"])
 def test_what_stays_out_names_a6(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):

@@ -8,7 +8,9 @@ JAX's supervisor tests run against the port's CLI on the CPU.
   fails spends the budget; a missing ``--`` is a usage error.
 - ``tests/test_serve_fire.py``'s ``build_leg_args`` (equal to JAX's for
   the same argv lists) and its serve SIGKILL leg: the restarted leg
-  replays the journal and every request completes once.
+  replays the journal and every request completes once; with
+  ``--observe.metrics-jsonl`` the supervisor's restart record lands in
+  that file between the two legs' records, as JAX's does.
 - A tensor-parallel serve child (``--serve.mesh-model 2`` over gloo):
   SIGKILLed, restarted, its journal's streams the clean run's, and no
   worker process of the killed leg left alive.
@@ -148,6 +150,31 @@ def test_supervisor_serve_sigkill_journal_resume(tmp_path):
     assert len(played) == 6
     assert all(e["done"] and len(e["tokens"]) == 16
                for e in played.values())
+
+
+def test_supervisor_appends_its_records_to_the_metrics_jsonl(tmp_path):
+    """As JAX's: the restart record lands in the child's
+    --observe.metrics-jsonl between the killed leg's records (the
+    injected fault among them, through the active registry) and the
+    resumed leg's, which appends (a journal resume) instead of
+    truncating; it is printed on standard output too."""
+    journal = str(tmp_path / "serve.journal")
+    jsonl = str(tmp_path / "m.jsonl")
+    proc = _run(["--max-restarts", "2", "--backoff-base-s", "0.2", "--",
+                 *SERVE, "--serve.journal", journal,
+                 "--observe.metrics-jsonl", jsonl,
+                 "--resilience.fault-plan", "sigkill@20"])
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-2000:]
+    recs = [json.loads(line) for line in open(jsonl)]
+    kinds = [(r["event"], r.get("kind")) for r in recs]
+    restart = kinds.index(("recovery", "restart"))
+    assert ("recovery", "fault_injected") in kinds[:restart]
+    assert ("serve_summary", None) in kinds[restart:]
+    assert recs[restart]["leg"] == 1 and recs[restart]["resume"] is True
+    assert any(r.get("kind") == "restart"
+               for r in _records(proc.stdout))
+    done = {r["rid"] for r in recs if r["event"] == "serve_request"}
+    assert done == set(range(6))
 
 
 def _alive(pid: int) -> bool:

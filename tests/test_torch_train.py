@@ -186,14 +186,15 @@ def test_unported_values_raise(fields):
 
 
 def test_shared_fields_have_the_jax_defaults():
-    """Every field the port's TrainConfig, MeshConfig, ServeConfig and
-    ResilienceConfig share with the JAX dataclasses has the JAX default,
+    """Every field the port's TrainConfig, MeshConfig, ServeConfig,
+    ResilienceConfig and ObserveConfig share with the JAX dataclasses has
+    the JAX default,
     so one bare CLI call means one job in both (the model included: the
     reference's mnist_cnn)."""
     port, ref = TrainConfig(), JaxConfig()
     shared = ({f.name for f in dataclasses.fields(TrainConfig)}
               & {f.name for f in dataclasses.fields(JaxConfig)}) - {
-                  "mesh", "serve", "resilience"}
+                  "mesh", "serve", "resilience", "observe"}
     assert {"model", "batch_size", "learning_rate", "seed", "dataset",
             "data_dir", "validation_size", "init_scheme", "grad_accum_steps",
             "ema_decay"} <= shared
@@ -204,7 +205,7 @@ def test_shared_fields_have_the_jax_defaults():
     assert mesh == {"data", "seq", "model", "pipe", "expert"}
     for name in mesh:
         assert getattr(port.mesh, name) == getattr(ref.mesh, name), name
-    for part in ("serve", "resilience"):
+    for part in ("serve", "resilience", "observe"):
         for f in dataclasses.fields(type(getattr(port, part))):
             assert (getattr(getattr(port, part), f.name)
                     == getattr(getattr(ref, part), f.name)), f.name
